@@ -1,0 +1,166 @@
+"""Port parity: K1, the B=1 int8 decode step.
+
+The port's step (xtts_tpu_torch/ops/decode_step.py, plain twin on the CPU)
+against the JAX Pallas kernel run in interpret mode
+(xtts_tpu/ops/decode_step.fused_decode_logits(..., interpret=True)), at
+tests/test_decode_step.py's sizes and (index, mel_pos) cases, with the same
+2e-2 tolerance. The kernels themselves are held against these twins on the
+card in tests/test_torch_port_kernels.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from xtts_tpu.infer import qdecode as jq  # noqa: E402
+from xtts_tpu.ops import decode_step as jds  # noqa: E402
+from xtts_tpu_torch.infer import qdecode as tq  # noqa: E402
+from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
+
+LAYERS, D, HEADS, S_MAX, VOCAB = 2, 128, 2, 128, 200
+
+
+def make_qtrees(seed=0):
+    """The same random f32 weights quantized by both packages."""
+    rng = np.random.default_rng(seed)
+
+    def w(i, o):
+        return rng.standard_normal((i, o)).astype(np.float32) * 0.1
+
+    def vec(n, lo=-0.2, hi=0.2):
+        return rng.uniform(lo, hi, n).astype(np.float32)
+
+    raw = {"layers": []}
+    for _ in range(LAYERS):
+        raw["layers"].append({
+            "ln_1": {"scale": 1.0 + vec(D), "bias": vec(D)},
+            "ln_2": {"scale": 1.0 + vec(D), "bias": vec(D)},
+            "qkv": w(D, 3 * D), "qkv_b": vec(3 * D),
+            "proj": w(D, D), "proj_b": vec(D),
+            "fc": w(D, 4 * D), "fc_b": vec(4 * D),
+            "out": w(4 * D, D), "out_b": vec(D)})
+    raw.update(
+        ln_f={"scale": 1.0 + vec(D), "bias": vec(D)},
+        final_norm={"scale": 1.0 + vec(D), "bias": vec(D)},
+        mel_head=w(D, VOCAB), mel_head_b=vec(VOCAB),
+        mel_embedding=rng.standard_normal((VOCAB, D)).astype(np.float32) * 0.3,
+        mel_pos_embedding=rng.standard_normal((S_MAX, D)).astype(
+            np.float32) * 0.1)
+
+    def build(quant, arr, bf16):
+        out = {"layers": []}
+        for l in raw["layers"]:
+            out["layers"].append({
+                k: (quant(v) if k in ("qkv", "proj", "fc", "out") else
+                    {kk: arr(vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else arr(v))
+                for k, v in l.items()})
+        for k in ("ln_f", "final_norm"):
+            out[k] = {kk: arr(vv) for kk, vv in raw[k].items()}
+        out["mel_head"] = quant(raw["mel_head"])
+        out["mel_head_b"] = arr(raw["mel_head_b"])
+        out["mel_embedding"] = bf16(raw["mel_embedding"])
+        out["mel_pos_embedding"] = bf16(raw["mel_pos_embedding"])
+        return out
+
+    jt = build(lambda a: jq.quantize_dense(jnp.asarray(a)), jnp.asarray,
+               lambda a: jnp.asarray(a, jnp.bfloat16))
+    tt = build(lambda a: tq.quantize_dense(torch.from_numpy(a)),
+               torch.from_numpy, lambda a: torch.from_numpy(a).bfloat16())
+    return jt, tt
+
+
+def make_cache(seed, prefix_len):
+    """Random bf16 (L, S, D) cache with the first prefix_len rows set."""
+    rng = np.random.default_rng(seed)
+    k = np.zeros((LAYERS, S_MAX, D), np.float32)
+    v = np.zeros_like(k)
+    k[:, :prefix_len] = rng.standard_normal((LAYERS, prefix_len, D)) * 0.5
+    v[:, :prefix_len] = rng.standard_normal((LAYERS, prefix_len, D)) * 0.5
+    return k, v
+
+
+def _x(qt, tok, mel_pos, mod):
+    return qt["mel_embedding"][tok] + qt["mel_pos_embedding"][mel_pos][None]
+
+
+@pytest.mark.parametrize("index,mel_pos", [(0, 1), (17, 5), (100, 36),
+                                           (S_MAX - 1, 60)])
+def test_step_matches_pallas_kernel(index, mel_pos):
+    jt, tt = make_qtrees()
+    jst = jds.stack_qtree(jt, VOCAB)
+    tst = tds.stack_qtree(tt, VOCAB)
+    k, v = make_cache(7 + index, index)
+    jlog, jkc, jvc = jds.fused_decode_logits(
+        jst, _x(jt, jnp.asarray([3]), mel_pos, jnp),
+        jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), index,
+        LAYERS, HEADS, interpret=True)
+    tkc = torch.from_numpy(k).bfloat16()
+    tvc = torch.from_numpy(v).bfloat16()
+    tlog, tkc2, tvc2 = tds.fused_decode_logits(
+        tst, _x(tt, torch.tensor([3]), mel_pos, torch), tkc, tvc, index,
+        LAYERS, HEADS)
+    assert tlog.shape == jlog.shape
+    np.testing.assert_allclose(tlog[:, :VOCAB].numpy(),
+                               np.asarray(jlog[:, :VOCAB]),
+                               rtol=2e-2, atol=2e-2)
+    assert int(tlog.argmax()) < VOCAB
+    assert float(tlog[:, VOCAB:].max()) < -1e8
+    # new k/v rows land at index (in place), nothing else moves
+    assert tkc2 is tkc
+    np.testing.assert_allclose(tkc[:, index].float().numpy(),
+                               np.asarray(jkc[:, index], np.float32),
+                               rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(tvc[:, index].float().numpy(),
+                               np.asarray(jvc[:, index], np.float32),
+                               rtol=3e-2, atol=3e-2)
+    mask = np.arange(S_MAX) != index
+    np.testing.assert_array_equal(
+        tkc[:, mask].float().numpy(),
+        torch.from_numpy(k).bfloat16()[:, mask].float().numpy())
+
+
+def test_greedy_chain_matches_pallas_kernel():
+    """20-token greedy chains agree at every step."""
+    jt, tt = make_qtrees(1)
+    jst = jds.stack_qtree(jt, VOCAB)
+    tst = tds.stack_qtree(tt, VOCAB)
+    prefix = 11
+    k, v = make_cache(3, prefix)
+    jkc, jvc = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+    tkc, tvc = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    jtok = ttok = 5
+    for step in range(20):
+        jlog, jkc, jvc = jds.fused_decode_logits(
+            jst, _x(jt, jnp.asarray([jtok]), step + 1, jnp), jkc, jvc,
+            prefix + step, LAYERS, HEADS, interpret=True)
+        tlog, tkc, tvc = tds.fused_decode_logits(
+            tst, _x(tt, torch.tensor([ttok]), step + 1, torch), tkc, tvc,
+            prefix + step, LAYERS, HEADS)
+        jtok, ttok = int(jnp.argmax(jlog)), int(tlog.argmax())
+        assert jtok == ttok, f"step {step}: pallas {jtok} vs port {ttok}"
+
+
+def test_stack_shapes():
+    _, tt = make_qtrees(2)
+    st = tds.stack_qtree(tt, VOCAB)
+    ht = -(-VOCAB // D)
+    assert st["head_tiles"] == ht
+    assert st["wqkv"].shape == (LAYERS, D, 3 * D)
+    assert st["wout"].shape == (LAYERS, 4 * D, D)
+    assert st["whead"].shape == (D, ht * D) and st["whead"].dtype == torch.int8
+    assert st["ln"].shape == (LAYERS, 4, D) and st["lnf"].shape == (4, D)
+    assert float(st["bhead"][VOCAB:].max()) == tds.NEG_INF
+
+
+def test_cpu_tensors_take_the_plain_twin():
+    _, tt = make_qtrees(3)
+    st = tds.stack_qtree(tt, VOCAB)
+    k, v = make_cache(4, 9)
+    tds.reset_launch_counts()
+    tds.fused_decode_logits(st, _x(tt, torch.tensor([1]), 2, torch),
+                            torch.from_numpy(k).bfloat16(),
+                            torch.from_numpy(v).bfloat16(), 9, LAYERS, HEADS)
+    assert all(fn.launches == 0 for fn in tds.KERNELS)
+    assert tds.fused_decode_logits.launches == 0

@@ -1,0 +1,90 @@
+"""Port parity: mel front-end and spectral ops (xtts_tpu_torch/dsp vs
+xtts_tpu/dsp), same numpy inputs on both sides, f32 on the CPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from xtts_tpu.core.config import MelConfig  # noqa: E402
+from xtts_tpu.dsp import mel as jmel, spectral as jspec  # noqa: E402
+from xtts_tpu_torch.dsp import mel as tmel, spectral as tspec  # noqa: E402
+
+MEL_CONFIGS = {
+    "center_htk": MelConfig(),
+    "same_slaney": MelConfig(n_mels=80, mel_fmax=8000.0, mel_scale="slaney",
+                             mel_norm="slaney", padding="same"),
+    "power2_16k": MelConfig(sample_rate=16000, n_mels=64, n_fft=512,
+                            win_length=400, hop_length=160, power=2.0),
+}
+
+
+def _wav(seed, n=12000, b=1):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 24000.0
+    return (0.3 * np.sin(2 * np.pi * 220 * t)[None]
+            + 0.1 * rng.standard_normal((b, n))).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(MEL_CONFIGS))
+def test_mel_frontend_l1(name):
+    cfg = MEL_CONFIGS[name]
+    wav = _wav(1, b=2)
+    want = np.asarray(jmel.MelFrontend(cfg)(wav))
+    got = tmel.MelFrontend(cfg)(wav).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).mean() < 1e-4, np.abs(got - want).mean()
+
+
+def test_mel_filterbank_and_safe_log():
+    for scale, norm in (("htk", None), ("slaney", "slaney")):
+        np.testing.assert_array_equal(
+            tmel.mel_filterbank(24000, 1024, 100, 0.0, None, scale, norm),
+            jmel.mel_filterbank(24000, 1024, 100, 0.0, None, scale, norm))
+    x = np.abs(np.random.default_rng(2).standard_normal(64)).astype(
+        np.float32) * 1e-4
+    np.testing.assert_allclose(tmel.safe_log(torch.from_numpy(x)).numpy(),
+                               np.asarray(jmel.safe_log(jnp.asarray(x))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", [(1024, 256, 1024), (512, 160, 400),
+                                           (64, 16, 64)])
+def test_stft_complex(n_fft, hop, win):
+    x = _wav(3, n=4000, b=2)
+    want = np.asarray(jspec.stft(jnp.asarray(x), n_fft, hop, win))
+    got = tspec.stft(torch.from_numpy(x), n_fft, hop, win).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.real, want.real, atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(got.imag, want.imag, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("padding", ["same", "center"])
+def test_istft(padding):
+    rng = np.random.default_rng(4)
+    re = rng.standard_normal((2, 513, 40)).astype(np.float32)
+    im = rng.standard_normal((2, 513, 40)).astype(np.float32)
+    want = np.asarray(jspec.istft(jnp.asarray(re), jnp.asarray(im), 1024, 256,
+                                  padding=padding))
+    got = tspec.istft(torch.from_numpy(re), torch.from_numpy(im), 1024, 256,
+                      padding=padding).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_frame_overlap_add_and_window():
+    x = _wav(5, n=1000, b=2)
+    np.testing.assert_array_equal(
+        tspec.frame_signal(torch.from_numpy(x), 64, 16).numpy(),
+        np.asarray(jspec.frame_signal(jnp.asarray(x), 64, 16)))
+    fr = np.random.default_rng(6).standard_normal((2, 9, 32)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        tspec.overlap_add(torch.from_numpy(fr), 8, 96).numpy(),
+        np.asarray(jspec.overlap_add(jnp.asarray(fr), 8, 96)), atol=1e-6)
+    np.testing.assert_allclose(tspec.hann_window(400).numpy(),
+                               np.asarray(jspec.hann_window(400)), atol=1e-7)
+    y = tspec._reflect_pad_1d(torch.from_numpy(x), 7).numpy()
+    np.testing.assert_array_equal(
+        y, np.asarray(jspec._reflect_pad_1d(jnp.asarray(x), 7)))

@@ -1,0 +1,229 @@
+"""Port parity for the whole slice: tokens -> int8 AR codes -> latent ->
+diffusion -> Vocos, xtts_tpu_torch.infer.api.TextToSpeech against
+xtts_tpu.infer.api.TextToSpeech on one tiny configuration (f32, CPU), plus
+the import and weight-layout guards of the port."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from xtts_tpu.core.config import (CLIPRefConfig, DVAEConfig,  # noqa: E402
+                                  DiffusionModelConfig, GPTConfig, MelConfig,
+                                  VocosConfig, XTTSConfig)
+from xtts_tpu.infer import api as japi, qdecode as jq  # noqa: E402
+from xtts_tpu.utils import convert as jconv  # noqa: E402
+from xtts_tpu_torch.infer import api as tapi, qdecode as tq  # noqa: E402
+from xtts_tpu_torch.nn import flash_attn as tfa  # noqa: E402
+from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+MB = 8
+TINY = XTTSConfig(
+    mel=MelConfig(n_mels=MB),
+    vqvae=DVAEConfig(channels=MB, num_tokens=30, hidden_dim=16,
+                     num_resnet_blocks=1, codebook_dim=16, num_layers=2),
+    gpt=GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=604,
+                  max_text_tokens=64, number_mel_codes=200,
+                  start_mel_token=198, stop_mel_token=199, mel_bins=MB,
+                  cond_attn_blocks=1),
+    diffusion=DiffusionModelConfig(
+        in_channels=MB, out_channels=2 * MB, model_channels=64,
+        num_res_blocks=1, channel_mult=(1,), num_heads=2, context_dim=32,
+        in_latent_channels=128,
+        clip=CLIPRefConfig(embed_dim=32, width=32, layers=1, head_width=16,
+                           patch_size=4, in_channels=MB, max_patches=64)),
+    vocos=VocosConfig(input_channels=MB, dim=32, intermediate_dim=64,
+                      num_layers=1, n_fft=64, hop_length=16),
+)
+SLICE_MODULES = [
+    "xtts_tpu_torch", "xtts_tpu_torch.core.config",
+    "xtts_tpu_torch.dsp.spectral", "xtts_tpu_torch.dsp.mel",
+    "xtts_tpu_torch.nn.blocks", "xtts_tpu_torch.nn.transformer",
+    "xtts_tpu_torch.nn.flash_attn", "xtts_tpu_torch.models.gpt",
+    "xtts_tpu_torch.models.gpt_infer", "xtts_tpu_torch.models.aa_diffusion",
+    "xtts_tpu_torch.models.vocos", "xtts_tpu_torch.ops.build",
+    "xtts_tpu_torch.ops.decode_step", "xtts_tpu_torch.infer.sampling",
+    "xtts_tpu_torch.infer.qdecode", "xtts_tpu_torch.infer.api",
+    "xtts_tpu_torch.diffusion.gaussian", "xtts_tpu_torch.utils.convert",
+]
+
+
+def randomize(tree, rng):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = randomize(v, rng)
+            continue
+        v = np.asarray(v)
+        if k == "scale":
+            x = 1.0 + 0.1 * rng.standard_normal(v.shape)
+        elif k == "embedding":
+            x = 0.3 * rng.standard_normal(v.shape)
+        elif k == "bias" or v.ndim <= 1:
+            x = 0.1 * rng.standard_normal(v.shape)
+        else:
+            x = rng.standard_normal(v.shape) / np.sqrt(np.prod(v.shape[:-1]))
+        out[k] = x.astype(np.float32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jtts = japi.TextToSpeech(TINY, rng=jax.random.PRNGKey(0),
+                             quantized_decode=True)
+    rng = np.random.default_rng(0)
+    vars_np = {name: {"params": randomize(jtts.vars[name]["params"], rng)}
+               for name in ("gpt", "diffusion", "vocos")}
+    jtts.vars.update(vars_np)
+    jtts._qtree = jq.quantize_gpt_decode(jtts.vars["gpt"], TINY.gpt,
+                                         include_fused=True)
+    ttts = tapi.TextToSpeech.from_jax(vars_np, TINY, quantized_decode=True)
+    return jtts, ttts, vars_np
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.default_rng(1)
+    sr = TINY.mel.sample_rate
+    t = np.arange(int(0.5 * sr)) / sr
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)
+           + 0.1 * rng.standard_normal(t.shape[0])).astype(np.float32)
+    text = rng.integers(3, 250, (1, 16)).astype(np.int32)
+    return wav, text
+
+
+def test_cond_mel(pair, inputs):
+    jtts, ttts, _ = pair
+    wav, _ = inputs
+    np.testing.assert_allclose(ttts.cond_mel_from_wav(wav).numpy(),
+                               np.asarray(jtts.cond_mel_from_wav(wav)),
+                               atol=1e-3)
+
+
+def test_greedy_int8_codes_token_exact(pair, inputs, monkeypatch):
+    """JAX runs its Pallas K1 in interpret mode; the port its plain twin."""
+    monkeypatch.setenv("XTTS_FUSED_DECODE", "1")
+    jtts, ttts, _ = pair
+    wav, text = inputs
+    cond = np.array(jtts.cond_mel_from_wav(wav))
+    jr = jq.generate_speech_quantized(
+        jtts.gpt, jtts.vars["gpt"], jtts._qtree, jnp.asarray(cond),
+        jnp.asarray(text), jax.random.PRNGKey(0), max_gen=24,
+        do_sample=False, use_fused=True)
+    tr = tq.generate_speech_quantized(
+        ttts.gpt, ttts._qtree, torch.from_numpy(cond),
+        torch.from_numpy(text).long(), None, max_gen=24, do_sample=False)
+    np.testing.assert_array_equal(tr.codes.numpy(), np.asarray(jr.codes))
+    np.testing.assert_array_equal(tr.lengths.numpy(), np.asarray(jr.lengths))
+
+
+def test_render_from_shared_codes_and_xt(pair, inputs):
+    """latent -> 4-step DDIM (CFG, ReferenceNet hoisted) -> Vocos from the
+    same codes and the same x_T: wav within 1e-3."""
+    jtts, ttts, _ = pair
+    wav, text = inputs
+    cond = np.array(jtts.cond_mel_from_wav(wav))
+    n, n_b = 50, 64
+    codes = np.full((1, n_b), TINY.gpt.stop_mel_token, np.int32)
+    codes[0, :n] = np.random.default_rng(2).integers(0, 198, n)
+    lens = np.array([n], np.int32)
+    key = jax.random.PRNGKey(3)
+    xt = np.array(jax.random.normal(jax.random.split(key)[1],
+                                      (1, MB, 4 * n_b)))
+    want = np.asarray(jtts._render_full_jit(
+        jtts.vars["gpt"], jtts.vars["diffusion"], jtts.vars["vocos"],
+        jnp.asarray(cond), japi.normalize_tacotron_mel(jnp.asarray(cond)),
+        jnp.asarray(text), jnp.array([16]), jnp.asarray(codes),
+        jnp.asarray(lens) * 1024, key, 1.0, steps=4, sampler="ddim",
+        cond_free_k=2.0))
+    settings = tapi.TTSSettings(sampler="ddim", diffusion_steps=4)
+    got = ttts._render(torch.from_numpy(cond), torch.from_numpy(text).long(),
+                       torch.from_numpy(codes).long(),
+                       torch.from_numpy(lens).long(), None, settings,
+                       noise=torch.from_numpy(xt)).numpy()
+    assert got.shape == want.shape == (1, 4 * n_b * 16)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_tts_tokens_default_settings(pair, inputs):
+    _, ttts, _ = pair
+    wav, text = inputs
+    tds.reset_launch_counts()
+    tfa.flash_mha.launches = 0
+    out = ttts.tts_tokens(text, ttts.cond_mel_from_wav(wav),
+                          torch.Generator().manual_seed(0))
+    n = max(int(out["lengths"][0]) - 2, 1)
+    assert out["wav"].shape == (1, n * 4 * 16)
+    assert out["wav"].dtype == np.float32 and np.isfinite(out["wav"]).all()
+    # CPU tensors never reach a kernel
+    assert tds.fused_decode_logits.launches == 0
+    assert tfa.flash_mha.launches == 0
+
+
+def test_tts_text(pair, inputs):
+    _, ttts, _ = pair
+    wav, _ = inputs
+    out = ttts.tts("你好，世界。今天天气真好！", wav,
+                   settings=tapi.TTSSettings(max_mel_tokens=30,
+                                             diffusion_steps=5))
+    assert out.ndim == 1 and out.shape[0] > 0 and out.shape[0] % 64 == 0
+    assert np.isfinite(out).all()
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _assert_same_tree(got, want):
+    g, w = dict(_flat(got)), dict(_flat(want))
+    assert set(g) == set(w), sorted(set(g) ^ set(w))[:5]
+    for k in w:
+        np.testing.assert_array_equal(g[k], w[k], err_msg="/".join(k))
+
+
+def test_state_dict_round_trip(pair):
+    """port state_dict() -> xtts_tpu.utils.convert *_from_reference gives
+    back the JAX parameters the port was built from."""
+    _, ttts, vars_np = pair
+    sd = {n: {k: v.numpy() for k, v in m.state_dict().items()}
+          for n, m in ttts.modules().items()}
+    _assert_same_tree(jconv.unified_voice_from_reference(
+        sd["gpt"], TINY.gpt.layers, TINY.gpt.cond_attn_blocks),
+        vars_np["gpt"]["params"])
+    _assert_same_tree(jconv.aa_diffusion_from_reference(
+        sd["diffusion"], TINY.diffusion), vars_np["diffusion"]["params"])
+    _assert_same_tree(jconv.vocos_from_pretrained(
+        sd["vocos"], TINY.vocos.num_layers), vars_np["vocos"]["params"])
+
+
+def test_imports_without_jax():
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
+            f"for m in {SLICE_MODULES!r}:\n    importlib.import_module(m)\n"
+            "print('imported', len(sys.modules) > 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "imported True" in proc.stdout
+
+
+def test_no_jax_import_in_package():
+    for path in (REPO / "xtts_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")
+                        or s.startswith("import flax")
+                        or s.startswith("from flax")), (path, s)

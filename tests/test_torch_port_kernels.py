@@ -1,0 +1,197 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test is marked `gpu` and skips without a CUDA card: the kernels have
+no CPU mode. The file imports no JAX, so it runs on a machine with only
+PyTorch + CUDA; there, skip the JAX test harness's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_kernels.py
+
+Tolerances: single ops 1e-2 (one bf16 rounding of O(1) values on either
+side), the whole decode step 2e-2 relative to the logits' scale
+(tests/test_decode_step.py's bound), flash attention 1e-2 against f32
+attention on the same bf16 inputs.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _qtree(g, layers, d, vocab, s_max):
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+
+    def w(i, o):
+        return quantize_dense(torch.randn(i, o, generator=g, device="cuda")
+                              / math.sqrt(i))
+
+    def vec(n):
+        return torch.randn(n, generator=g, device="cuda") * 0.1
+
+    def ln():
+        return {"scale": 1.0 + vec(d), "bias": vec(d)}
+
+    return {"layers": [{"ln_1": ln(), "ln_2": ln(), "qkv": w(d, 3 * d),
+                        "qkv_b": vec(3 * d), "proj": w(d, d),
+                        "proj_b": vec(d), "fc": w(d, 4 * d),
+                        "fc_b": vec(4 * d), "out": w(4 * d, d),
+                        "out_b": vec(d)} for _ in range(layers)],
+            "ln_f": ln(), "final_norm": ln(), "mel_head": w(d, vocab),
+            "mel_head_b": vec(vocab),
+            "mel_embedding": (torch.randn(vocab, d, generator=g,
+                                          device="cuda") * 0.3).bfloat16(),
+            "mel_pos_embedding": (torch.randn(s_max, d, generator=g,
+                                              device="cuda") * 0.1).bfloat16()}
+
+
+@pytest.mark.parametrize("rows,d,two", [(1, 1024, False), (1, 1024, True),
+                                        (3, 128, False), (2, 4096, True)])
+def test_layer_norm_rows(cuda, rows, d, two):
+    from xtts_tpu_torch.ops import decode_step as ds
+    x = torch.randn(rows, d, generator=cuda, device="cuda") * 3 + 1
+    p = [1 + 0.1 * torch.randn(d, generator=cuda, device="cuda")
+         for _ in range(4)]
+    args = p if two else p[:2]
+    got = ds.layer_norm_rows(x, *args)
+    want = ds.layer_norm_rows_plain(x, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("k,n,gelu,mode", [
+    (1024, 3072, False, "f32"), (1024, 1024, False, "acc"),
+    (1024, 4096, True, "bf16"), (4096, 1024, False, "acc"),
+    (1024, 9216, False, "f32"), (128, 32, True, "f32"), (100, 64, False,
+                                                          "bf16")])
+def test_int8_gemv(cuda, k, n, gelu, mode):
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import decode_step as ds
+    q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
+                       / math.sqrt(k))
+    x = torch.randn(k, generator=cuda, device="cuda").bfloat16()
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    if mode == "acc":
+        base = torch.randn(n, generator=cuda, device="cuda")
+        got, want = base.clone(), base.clone()
+        ds.int8_gemv(x, q["w"], q["scale"], bias, out=got, gelu=gelu)
+        ds.int8_gemv_plain(x, q["w"], q["scale"], bias, out=want, gelu=gelu)
+    else:
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        got = ds.int8_gemv(x, q["w"], q["scale"], bias, gelu=gelu,
+                           out_dtype=dt)
+        want = ds.int8_gemv_plain(x, q["w"], q["scale"], bias, gelu=gelu,
+                                  out_dtype=dt)
+        assert got.dtype == dt
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("heads,s_max,idx", [(16, 360, 0), (16, 360, 299),
+                                             (16, 360, 359), (2, 40, 17)])
+def test_decode_attention(cuda, heads, s_max, idx):
+    from xtts_tpu_torch.ops import decode_step as ds
+    d = heads * 64
+    qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+    kc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+          * 0.5).bfloat16()
+    vc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+          * 0.5).bfloat16()
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = ds.decode_attention(qkv, kc, vc, idx, heads)
+    want = ds.decode_attention_plain(qkv, kc2, vc2, idx, heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    torch.testing.assert_close(kc.float(), kc2.float(), rtol=0, atol=0)
+    torch.testing.assert_close(vc.float(), vc2.float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layers,d,heads,vocab", [(2, 128, 2, 200),
+                                                  (15, 1024, 16, 8194)])
+def test_decode_step_chain(cuda, layers, d, heads, vocab):
+    """16 teacher-forced steps: kernel chain vs plain step."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    s_max, p_len = 96, 54
+    qt = _qtree(cuda, layers, d, vocab, s_max)
+    st = ds.stack_qtree(qt, vocab)
+    kc = torch.zeros(layers, s_max, d, dtype=torch.bfloat16, device="cuda")
+    kc[:, :p_len] = (torch.randn(layers, p_len, d, generator=cuda,
+                                 device="cuda") * 0.5).bfloat16()
+    vc = kc.roll(1, dims=0).clone()
+    kc2, vc2 = kc.clone(), vc.clone()
+    ds.reset_launch_counts()
+    agree = 0
+    for step in range(16):
+        tok = (step * 37) % vocab
+        x = qt["mel_embedding"][tok][None] + qt["mel_pos_embedding"][step][None]
+        got = ds.fused_decode_logits(st, x, kc, vc, p_len + step, layers,
+                                     heads)[0][:, :vocab]
+        want = ds.fused_decode_logits_plain(st, x, kc2, vc2, p_len + step,
+                                            layers, heads)[0][:, :vocab]
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 2e-2 * scale, step
+        agree += int(got.argmax() == want.argmax())
+    torch.cuda.synchronize()
+    assert agree >= 15
+    torch.testing.assert_close(kc.float(), kc2.float(), rtol=2e-2, atol=2e-2)
+    assert ds.fused_decode_logits.launches == 16
+    assert ds.int8_gemv.launches == 16 * (4 * layers + 1)
+
+
+@pytest.mark.parametrize("b,tq,tk,h", [(2, 1280, 1562, 8), (2, 300, 583, 8),
+                                       (1, 64, 1, 8), (1, 65, 129, 2),
+                                       (3, 17, 700, 4)])
+def test_flash_mha(cuda, b, tq, tk, h):
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v = (torch.randn(b, t, h, 64, generator=cuda,
+                           device="cuda").bfloat16() for t in (tq, tk, tk))
+    fa.flash_mha.launches = 0
+    got = fa.flash_mha(q, k, v, 0.125)
+    want = fa.flash_mha_plain(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_mha_reads_strided_views(cuda):
+    """q/k/v as head-split views of wider projections (the model's layout
+    after unflatten, and slices of a fused qkv)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    qkv = torch.randn(2, 700, 3 * 512, generator=cuda,
+                      device="cuda").bfloat16()
+    q, k, v = (t.unflatten(-1, (8, 64)) for t in qkv.split(512, dim=-1))
+    assert not q.is_contiguous()
+    got = fa.flash_mha(q[:, :600], k, v, 0.125)
+    want = fa.flash_mha_plain(q[:, :600].float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.ops import decode_step as ds
+    q = torch.randn(1, 64, 2, 32, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        fa.flash_mha(q, q, q, 0.1)                     # head dim 32
+    q64 = torch.randn(1, 64, 2, 64, device="cuda")
+    with pytest.raises(ValueError):                    # f32
+        fa.flash_mha(q64, q64, q64, 0.1)
+    w = torch.zeros(64, 48, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):                    # N not a multiple of 32
+        ds.int8_gemv(torch.zeros(64, device="cuda").bfloat16(), w,
+                     torch.ones(48, device="cuda"), torch.zeros(48,
+                                                                device="cuda"))

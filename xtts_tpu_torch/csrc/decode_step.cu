@@ -1,0 +1,271 @@
+// K1 for Hopper: the B=1 int8 GPT decode step as a short chain of kernels.
+//
+// Replaces the Pallas TPU kernel xtts_tpu/ops/decode_step.py
+// (_make_kernel, launched by _fused_decode_logits), which ran the whole
+// token step (15 layers + ln_f + final_norm + mel head) in one pallas_call
+// streaming (D, D) int8 tiles through a VMEM ring. On the H100 the step is:
+//
+//   per layer:  layer_norm_rows -> int8_gemv(qkv) -> decode_attention
+//               -> int8_gemv(proj, += into the f32 residual)
+//               -> layer_norm_rows -> int8_gemv(fc, gelu_new, bf16 out)
+//               -> int8_gemv(out, K = 4D in one launch, += residual)
+//   then:       layer_norm_rows(ln_f then final_norm) -> int8_gemv(head)
+//
+// Every piece of arithmetic of the TPU kernel runs here: f32 LayerNorm
+// statistics (eps 1e-5), bf16 matvec inputs against int8 weights with f32
+// accumulation, per-output-channel scale + bias, gelu_new, an f32 residual,
+// f32 softmax attention over cache rows 0..idx.
+//
+// Bound: weight bytes. One token streams ~190 MB of int8 weights at the
+// flagship width (15 x 12 D^2 + 9 D^2 bytes, D = 1024); at 3.35 TB/s that
+// is ~57 us, against ~1 MB of KV cache and activations. The gemv keeps its
+// weight reads coalesced (char4 per thread, 8 threads on 32 contiguous
+// columns of a row) and holds the input vector in shared memory. The chain
+// is ~107 launches a token, so launch cost dominates at this size; a
+// persistent single-launch step or a CUDA graph is later work.
+//
+// Layouts: weights (K, N) int8 row-major, exactly quantize_dense's (in, out)
+// matrix; KV cache (L, S, D) bf16 with the new row written in place at idx.
+//
+// C interface (ctypes): every entry point returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define XT_API extern "C"
+
+namespace {
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reduction over a 1-D block (blockDim.x a multiple of 32).
+// red: >= 33 floats of shared memory. Returns the result to every thread.
+template <bool MAX>
+__device__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < nwarps ? red[lane] : (MAX ? -INFINITY : 0.f);
+    t = MAX ? warp_max(t) : warp_sum(t);
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  const float r = red[32];
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ float gelu_new(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+// ---------------------------------------------------------------------------
+// layer_norm_rows: one block per row; f32 statistics, bf16 out. two != 0
+// applies a second norm (s2, b2) to the f32 result of the first (ln_f then
+// final_norm), rounding to bf16 only at the end.
+// ---------------------------------------------------------------------------
+__global__ void layer_norm_rows_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ s1,
+                                       const float* __restrict__ b1,
+                                       const float* __restrict__ s2,
+                                       const float* __restrict__ b2,
+                                       __nv_bfloat16* __restrict__ out, int d,
+                                       int two) {
+  extern __shared__ float buf[];  // d floats
+  __shared__ float red[33];
+  const float* xr = x + (size_t)blockIdx.x * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) buf[i] = xr[i];
+  const int passes = two ? 2 : 1;
+  for (int p = 0; p < passes; ++p) {
+    const float* s = p ? s2 : s1;
+    const float* b = p ? b2 : b1;
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) acc += buf[i];
+    const float mu = block_reduce<false>(acc, red) / d;
+    acc = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const float c = buf[i] - mu;
+      acc += c * c;
+    }
+    const float rstd = rsqrtf(block_reduce<false>(acc, red) / d + 1e-5f);
+    for (int i = threadIdx.x; i < d; i += blockDim.x)
+      buf[i] = (buf[i] - mu) * rstd * s[i] + b[i];
+  }
+  __nv_bfloat16* orow = out + (size_t)blockIdx.x * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x)
+    orow[i] = __float2bfloat16(buf[i]);
+}
+
+// ---------------------------------------------------------------------------
+// int8_gemv: y[n] = (sum_k x[k] w[k, n]) * scale[n] + bias[n]
+// Block (8, 32): threadIdx.x picks 4 adjacent columns (one char4 load),
+// threadIdx.y strides K; the 32 partial sums per column reduce through
+// shared memory. One block per 32 columns, full K per block, so the
+// epilogue (gelu_new, bf16 store, or += into the f32 residual) runs in
+// place. mode: 0 = store f32, 1 = store bf16, 2 = accumulate into f32.
+// ---------------------------------------------------------------------------
+constexpr int GEMV_COLS = 32;
+constexpr int GEMV_KTHREADS = 32;
+
+__global__ void __launch_bounds__(256)
+int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                 const int8_t* __restrict__ w,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, void* __restrict__ out, int K,
+                 int N, int gelu, int mode) {
+  extern __shared__ float xs[];  // K floats
+  __shared__ float red[GEMV_KTHREADS][GEMV_COLS + 1];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < K; i += blockDim.x * blockDim.y)
+    xs[i] = __bfloat162float(x[i]);
+  __syncthreads();
+
+  const int n0 = blockIdx.x * GEMV_COLS + threadIdx.x * 4;
+  const char4* wp = reinterpret_cast<const char4*>(w + n0);
+  const size_t row = (size_t)N / 4;  // row stride in char4
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+  for (int k = threadIdx.y; k < K; k += GEMV_KTHREADS) {
+    const char4 c = __ldg(wp + (size_t)k * row);
+    const float xv = xs[k];
+    a0 = fmaf(xv, (float)c.x, a0);
+    a1 = fmaf(xv, (float)c.y, a1);
+    a2 = fmaf(xv, (float)c.z, a2);
+    a3 = fmaf(xv, (float)c.w, a3);
+  }
+  red[threadIdx.y][threadIdx.x * 4 + 0] = a0;
+  red[threadIdx.y][threadIdx.x * 4 + 1] = a1;
+  red[threadIdx.y][threadIdx.x * 4 + 2] = a2;
+  red[threadIdx.y][threadIdx.x * 4 + 3] = a3;
+  __syncthreads();
+  if (tid < GEMV_COLS) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < GEMV_KTHREADS; ++r) s += red[r][tid];
+    const int n = blockIdx.x * GEMV_COLS + tid;
+    float y = s * scale[n] + bias[n];
+    if (gelu) y = gelu_new(y);
+    if (mode == 0) {
+      reinterpret_cast<float*>(out)[n] = y;
+    } else if (mode == 1) {
+      reinterpret_cast<__nv_bfloat16*>(out)[n] = __float2bfloat16(y);
+    } else {
+      reinterpret_cast<float*>(out)[n] += y;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode_attention: one block per head (hd = 64), 128 threads.
+// qkv: f32 [q | k | v] (3D) from the qkv gemv. The new k/v row is rounded
+// to bf16 and written into the cache at idx, then the head attends over
+// rows 0..idx: q rounded to bf16 (as the TPU kernel feeds its MXU), scores
+// and softmax in f32, f32 weighted sum of the bf16 values, bf16 out.
+// A warp covers one cache row per iteration (2 dims a lane, 128-byte reads).
+// ---------------------------------------------------------------------------
+__global__ void decode_attention_kernel(const float* __restrict__ qkv,
+                                        __nv_bfloat16* __restrict__ kc,
+                                        __nv_bfloat16* __restrict__ vc,
+                                        __nv_bfloat16* __restrict__ out,
+                                        int idx, int d, float scale) {
+  extern __shared__ float sc[];  // idx + 1 scores
+  __shared__ float red[33];
+  __shared__ float part[4][64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int c0 = blockIdx.x * 64;
+  if (threadIdx.x < 64) {
+    kc[(size_t)idx * d + c0 + threadIdx.x] =
+        __float2bfloat16(qkv[d + c0 + threadIdx.x]);
+    vc[(size_t)idx * d + c0 + threadIdx.x] =
+        __float2bfloat16(qkv[2 * d + c0 + threadIdx.x]);
+  }
+  __syncthreads();
+
+  const float q0 = __bfloat162float(__float2bfloat16(qkv[c0 + 2 * lane]));
+  const float q1 = __bfloat162float(__float2bfloat16(qkv[c0 + 2 * lane + 1]));
+  const int n = idx + 1;
+  for (int s = warp; s < n; s += nwarps) {
+    const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        kc + (size_t)s * d + c0 + 2 * lane));
+    const float p = warp_sum(q0 * kf.x + q1 * kf.y);
+    if (lane == 0) sc[s] = p * scale;
+  }
+  __syncthreads();
+
+  float m = -INFINITY;
+  for (int s = threadIdx.x; s < n; s += blockDim.x) m = fmaxf(m, sc[s]);
+  m = block_reduce<true>(m, red);
+  float l = 0.f;
+  for (int s = threadIdx.x; s < n; s += blockDim.x) {
+    const float e = __expf(sc[s] - m);
+    sc[s] = e;
+    l += e;
+  }
+  l = block_reduce<false>(l, red);  // its barriers also publish sc[]
+
+  float o0 = 0.f, o1 = 0.f;
+  for (int s = warp; s < n; s += nwarps) {
+    const float p = sc[s];
+    const float2 vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        vc + (size_t)s * d + c0 + 2 * lane));
+    o0 = fmaf(p, vf.x, o0);
+    o1 = fmaf(p, vf.y, o1);
+  }
+  part[warp][2 * lane] = o0;
+  part[warp][2 * lane + 1] = o1;
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float o = 0.f;
+    for (int w = 0; w < nwarps; ++w) o += part[w][threadIdx.x];
+    out[c0 + threadIdx.x] = __float2bfloat16(o / l);
+  }
+}
+
+}  // namespace
+
+XT_API int xt_layer_norm_rows(const void* x, const void* s1, const void* b1,
+                              const void* s2, const void* b2, void* out,
+                              int rows, int d, int two, void* stream) {
+  layer_norm_rows_kernel<<<rows, 256, d * sizeof(float),
+                           (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)s1, (const float*)b1, (const float*)s2,
+      (const float*)b2, (__nv_bfloat16*)out, d, two);
+  return (int)cudaGetLastError();
+}
+
+XT_API int xt_int8_gemv(const void* x, const void* w, const void* scale,
+                        const void* bias, void* out, int K, int N, int gelu,
+                        int mode, void* stream) {
+  dim3 block(GEMV_COLS / 4, GEMV_KTHREADS);
+  int8_gemv_kernel<<<N / GEMV_COLS, block, K * sizeof(float),
+                     (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,
+      (const float*)bias, out, K, N, gelu, mode);
+  return (int)cudaGetLastError();
+}
+
+XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
+                               int idx, int d, int heads, float scale,
+                               void* stream) {
+  decode_attention_kernel<<<heads, 128, (idx + 1) * sizeof(float),
+                            (cudaStream_t)stream>>>(
+      (const float*)qkv, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
+      (__nv_bfloat16*)out, idx, d, scale);
+  return (int)cudaGetLastError();
+}

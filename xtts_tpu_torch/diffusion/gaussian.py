@@ -1,0 +1,216 @@
+"""Gaussian diffusion process (port of xtts_tpu/diffusion/gaussian.py).
+
+Schedules and coefficient tables are host f64 numpy, built by the same
+code as the JAX module; per-step scalars are taken in f32 on the sample's
+device. The sampling loops are Python loops over the spaced steps; both take
+an explicit x_T (`noise=`), and draw in-loop noise from a torch.Generator.
+
+Shipped-path semantics: linear 1000-step schedule, SpacedDiffusion
+re-spacing with the timestep map, epsilon prediction + learned-range
+variance, CFG mix (1+k)*cond - k*uncond with the linear ramp
+k * (1 - t_spaced / T_spaced).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+def linear_beta_schedule(num_steps: int) -> np.ndarray:
+    """The shipped schedule: linear, scaled by 1000 / num_steps."""
+    scale = 1000.0 / num_steps
+    return np.linspace(scale * 0.0001, scale * 0.02, num_steps,
+                       dtype=np.float64)
+
+
+def space_timesteps(num_timesteps: int, section_counts) -> set:
+    """Subset of the original timesteps to keep; section_counts is an
+    int or a list of per-section counts."""
+    if isinstance(section_counts, int):
+        section_counts = [section_counts]
+    size_per = num_timesteps // len(section_counts)
+    extra = num_timesteps % len(section_counts)
+    start_idx, all_steps = 0, []
+    for i, count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < count:
+            raise ValueError(f"cannot divide section of {size} steps into "
+                             f"{count}")
+        stride = 1 if count <= 1 else (size - 1) / (count - 1)
+        cur = 0.0
+        for _ in range(count):
+            all_steps.append(start_idx + round(cur))
+            cur += stride
+        start_idx += size
+    return set(all_steps)
+
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor], object]
+# model(x (B, C, T), t_orig (B,)) -> (B, 2C, T) [eps ; var_frac], or a
+# (cond, uncond) pair of those for the paired CFG call (the CFG mix runs
+# only for the pair)
+
+
+@dataclass(frozen=True)
+class GaussianDiffusion:
+    betas: np.ndarray
+    timestep_map: Optional[np.ndarray] = None
+    conditioning_free_k: float = 1.0
+
+    alphas_cumprod: np.ndarray = field(default=None, repr=False)
+    alphas_cumprod_prev: np.ndarray = field(default=None, repr=False)
+    sqrt_recip_alphas_cumprod: np.ndarray = field(default=None, repr=False)
+    sqrt_recipm1_alphas_cumprod: np.ndarray = field(default=None, repr=False)
+    posterior_log_variance_clipped: np.ndarray = field(default=None,
+                                                       repr=False)
+    posterior_mean_coef1: np.ndarray = field(default=None, repr=False)
+    posterior_mean_coef2: np.ndarray = field(default=None, repr=False)
+
+    def __post_init__(self):
+        betas = np.asarray(self.betas, dtype=np.float64)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
+        acp_prev = np.append(1.0, acp[:-1])
+        post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+        derived = dict(
+            betas=betas, alphas_cumprod=acp, alphas_cumprod_prev=acp_prev,
+            sqrt_recip_alphas_cumprod=np.sqrt(1.0 / acp),
+            sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / acp - 1),
+            posterior_log_variance_clipped=np.log(
+                np.append(post_var[1], post_var[1:])),
+            posterior_mean_coef1=betas * np.sqrt(acp_prev) / (1.0 - acp),
+            posterior_mean_coef2=(1.0 - acp_prev) * np.sqrt(alphas)
+            / (1.0 - acp))
+        for k, v in derived.items():
+            object.__setattr__(self, k, v)
+
+    @property
+    def num_timesteps(self) -> int:
+        return len(self.betas)
+
+    @staticmethod
+    def spaced(num_train_steps: int = 1000, sampling_steps: int = 50,
+               **kw) -> "GaussianDiffusion":
+        """SpacedDiffusion equivalent."""
+        base_betas = linear_beta_schedule(num_train_steps)
+        acp = np.cumprod(1.0 - base_betas)
+        use = space_timesteps(num_train_steps, sampling_steps)
+        new_betas, tmap, last = [], [], 1.0
+        for i, a in enumerate(acp):
+            if i in use:
+                new_betas.append(1 - a / last)
+                last = a
+                tmap.append(i)
+        return GaussianDiffusion(betas=np.array(new_betas),
+                                 timestep_map=np.array(tmap), **kw)
+
+    def map_t(self, t: torch.Tensor) -> torch.Tensor:
+        """Spaced index -> original timestep fed to the model."""
+        if self.timestep_map is None:
+            return t
+        return torch.as_tensor(self.timestep_map, device=t.device)[t]
+
+    def _ex(self, arr: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """Per-t f32 scalars, shaped (B, 1, ...) to broadcast over ndim."""
+        vals = torch.as_tensor(np.asarray(arr, np.float32), device=t.device)[t]
+        return vals.reshape(vals.shape + (1,) * (ndim - 1))
+
+    def q_posterior_mean(self, x_start, x_t, t):
+        n = x_t.dim()
+        return (self._ex(self.posterior_mean_coef1, t, n) * x_start
+                + self._ex(self.posterior_mean_coef2, t, n) * x_t)
+
+    def predict_xstart_from_eps(self, x_t, t, eps):
+        n = x_t.dim()
+        return (self._ex(self.sqrt_recip_alphas_cumprod, t, n) * x_t
+                - self._ex(self.sqrt_recipm1_alphas_cumprod, t, n) * eps)
+
+    def _cfg_scale(self, t: torch.Tensor) -> torch.Tensor:
+        """Ramped guidance strength on the SPACED index and count (the
+        reference's ramp; the shipped path always ramps)."""
+        return self.conditioning_free_k * (1.0 - t.float()
+                                           / self.num_timesteps)
+
+    def p_mean_variance_from_output(self, model_output, x, t,
+                                    model_output_uncond=None):
+        """Split eps/var, learned-range log-variance, CFG mix, posterior
+        mean. t is the spaced index (B,)."""
+        n = x.dim()
+        eps, var_frac = model_output.chunk(2, dim=1)
+        if model_output_uncond is not None:
+            eps_uc = model_output_uncond.chunk(2, dim=1)[0]
+            cfk = self._cfg_scale(t).reshape((-1,) + (1,) * (n - 1))
+            eps = (1 + cfk) * eps - cfk * eps_uc
+        min_log = self._ex(self.posterior_log_variance_clipped, t, n)
+        max_log = self._ex(np.log(self.betas), t, n)
+        frac = (var_frac + 1) / 2
+        model_log_var = frac * max_log + (1 - frac) * min_log
+        pred_xstart = torch.clamp(self.predict_xstart_from_eps(x, t, eps),
+                                  -1, 1)
+        mean = self.q_posterior_mean(pred_xstart, x, t)
+        return {"mean": mean, "log_variance": model_log_var,
+                "pred_xstart": pred_xstart, "eps": eps}
+
+    @staticmethod
+    def _model_out(model_fn, x, t_orig):
+        out = model_fn(x, t_orig)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def p_sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                      noise: Optional[torch.Tensor] = None,
+                      device="cpu") -> torch.Tensor:
+        """Ancestral sampling over all spaced steps (the live path)."""
+        x = (noise if noise is not None else
+             torch.randn(shape, generator=generator, device=device))
+        b = shape[0]
+        for i in range(self.num_timesteps):
+            t = torch.full((b,), self.num_timesteps - 1 - i,
+                           dtype=torch.long, device=x.device)
+            out, out_uc = self._model_out(model_fn, x, self.map_t(t))
+            pmv = self.p_mean_variance_from_output(out, x, t, out_uc)
+            x = pmv["mean"]
+            if i < self.num_timesteps - 1:
+                z = torch.randn(x.shape, generator=generator, device=x.device)
+                x = x + torch.exp(0.5 * pmv["log_variance"]) * z
+        return x
+
+    def ddim_sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                         noise: Optional[torch.Tensor] = None,
+                         eta: float = 0.0, device="cpu") -> torch.Tensor:
+        """DDIM; deterministic at eta = 0, so a chain from a shared x_T is
+        comparable across frameworks."""
+        x = (noise if noise is not None else
+             torch.randn(shape, generator=generator, device=device))
+        b = shape[0]
+        n = len(shape)
+        for i in range(self.num_timesteps):
+            t = torch.full((b,), self.num_timesteps - 1 - i,
+                           dtype=torch.long, device=x.device)
+            out, out_uc = self._model_out(model_fn, x, self.map_t(t))
+            pmv = self.p_mean_variance_from_output(out, x, t, out_uc)
+            eps = ((self._ex(self.sqrt_recip_alphas_cumprod, t, n) * x
+                    - pmv["pred_xstart"])
+                   / self._ex(self.sqrt_recipm1_alphas_cumprod, t, n))
+            ab = self._ex(self.alphas_cumprod, t, n)
+            ab_prev = self._ex(self.alphas_cumprod_prev, t, n)
+            sigma = (eta * torch.sqrt((1 - ab_prev) / (1 - ab))
+                     * torch.sqrt(1 - ab / ab_prev))
+            x = (pmv["pred_xstart"] * torch.sqrt(ab_prev)
+                 + torch.sqrt(1 - ab_prev - sigma ** 2) * eps)
+            if eta > 0 and i < self.num_timesteps - 1:
+                x = x + sigma * torch.randn(x.shape, generator=generator,
+                                            device=x.device)
+        return x
+
+    def sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                    noise=None, sampler: str = "p",
+                    device="cpu") -> torch.Tensor:
+        fns = {"p": self.p_sample_loop, "ddim": self.ddim_sample_loop}
+        if sampler not in fns:
+            raise NotImplementedError(
+                f"sampler {sampler!r} is not ported; have {sorted(fns)}")
+        return fns[sampler](model_fn, shape, generator=generator, noise=noise,
+                            device=device)

@@ -1,0 +1,309 @@
+"""TextToSpeech — the zero-shot main path at B=1 (port of the slice-A subset
+of xtts_tpu/infer/api.py).
+
+    text -> tokens -> GPT int8 AR codes          (infer/qdecode.py, K1)
+         -> codes padded to a bucket -> teacher-forced GPT latent
+         -> AA-diffusion, spaced ancestral CFG    (diffusion/gaussian.py,
+            with the ReferenceNet hoisted           models/aa_diffusion.py, K2)
+         -> Vocos + iSTFT -> 24 kHz waveform      (models/vocos.py)
+
+Not ported here (slice B): batched sentences (infer/serving.py), the DVAE
+shortcut render, HiFi-GAN, CLVP reranking, speculative render,
+refnet_interval > 1, compact_rows and the continuous-time solvers.
+
+Randomness comes from an explicit torch.Generator on the model's device;
+one generator feeds the AR sampling and then the diffusion noise.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from xtts_tpu_torch.core.config import XTTSConfig
+from xtts_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from xtts_tpu_torch.dsp.mel import MelFrontend
+from xtts_tpu_torch.infer.qdecode import (generate_speech_quantized,
+                                          quantize_gpt_decode)
+from xtts_tpu_torch.models.aa_diffusion import (AADiffusion,
+                                                denormalize_tacotron_mel,
+                                                nearest_resize_time,
+                                                normalize_tacotron_mel)
+from xtts_tpu_torch.models.gpt import UnifiedVoice
+from xtts_tpu_torch.models.gpt_infer import generate_speech
+from xtts_tpu_torch.models.vocos import Vocos
+from xtts_tpu_torch.nn.blocks import init_flax_like
+from xtts_tpu_torch.utils import convert
+
+log = logging.getLogger(__name__)
+
+
+def bucket_len(n: int, buckets=(32, 64, 128, 256, 402)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclass
+class TTSSettings:
+    """The reference test.py knobs the slice uses."""
+
+    top_p: float = 0.8
+    temperature: float = 0.8
+    repetition_penalty: float = 2.0
+    max_mel_tokens: int = 600
+    diffusion_temperature: float = 1.0
+    sampler: str = "p"              # live path: spaced-50 ancestral
+    diffusion_steps: int = 50
+    cond_free_k: float = 2.0
+
+
+class TextToSpeech:
+    """Holds the GPT, diffusion and vocoder modules on one device."""
+
+    def __init__(self, cfg: XTTSConfig = XTTSConfig(), device="cpu",
+                 dtype=torch.float32, quantized_decode: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 init: bool = True):
+        """quantized_decode: int8 weight-only AR engine; at B=1 each token
+        runs one K1 step. init=False leaves the weights for from_jax /
+        load_state_dict."""
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.mel = MelFrontend(cfg.mel, self.device)
+        self.gpt = UnifiedVoice(cfg.gpt, dtype).to(self.device).eval()
+        self.diffusion = AADiffusion(cfg.diffusion,
+                                     dtype).to(self.device).eval()
+        self.vocos = Vocos(cfg.vocos, dtype).to(self.device).eval()
+        self.quantized_decode = quantized_decode
+        self.last_oov: Dict[str, int] = {}
+        self._qtree = None
+        if init:
+            self.init_random(generator)
+
+    def modules(self):
+        return {"gpt": self.gpt, "diffusion": self.diffusion,
+                "vocos": self.vocos}
+
+    def requantize(self) -> None:
+        """Rebuild the int8 decode tree from the current GPT weights."""
+        self._qtree = (quantize_gpt_decode(self.gpt)
+                       if self.quantized_decode else None)
+
+    @torch.no_grad()
+    def init_random(self, generator: Optional[torch.Generator] = None):
+        """Random weights from the flax modules' init distributions."""
+        g = generator
+        if g is None:
+            g = torch.Generator(self.device).manual_seed(0)
+        for m in self.modules().values():
+            init_flax_like(m, g)
+        self.requantize()
+
+    @classmethod
+    @torch.no_grad()
+    def from_jax(cls, variables: Mapping[str, Any],
+                 cfg: XTTSConfig = XTTSConfig(), **kw) -> "TextToSpeech":
+        """Carry JAX parameter trees ({"gpt", "diffusion", "vocos"}, each
+        a flax variables dict of arrays) into the port."""
+        tts = cls(cfg, init=False, **kw)
+        c = cfg
+        sds = {
+            "gpt": convert.unified_voice_from_jax(
+                variables["gpt"], c.gpt.layers, c.gpt.cond_attn_blocks),
+            "diffusion": convert.aa_diffusion_from_jax(
+                variables["diffusion"], c.diffusion),
+            "vocos": convert.vocos_from_jax(variables["vocos"],
+                                            c.vocos.num_layers),
+        }
+        for name, m in tts.modules().items():
+            m.load_state_dict(convert.to_torch(sds[name], tts.device))
+        tts.requantize()
+        return tts
+
+    # ------------------------------------------------------------------
+
+    def _generator(self, seed: int = 0) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(seed)
+
+    def cond_mel_from_wav(self, wav) -> torch.Tensor:
+        """Reference audio (T,) or (1, T) -> conditioning mel (1, mel, T')."""
+        return self.mel(wav)
+
+    def _generate(self, cond, text, generator, settings: TTSSettings):
+        kw = dict(max_gen=settings.max_mel_tokens, top_p=settings.top_p,
+                  temperature=settings.temperature,
+                  repetition_penalty=settings.repetition_penalty)
+        if self._qtree is not None:
+            return generate_speech_quantized(self.gpt, self._qtree, cond,
+                                             text, generator, **kw)
+        return generate_speech(self.gpt, cond, text, generator, **kw)
+
+    def _pad_codes(self, codes: torch.Tensor, ns: torch.Tensor,
+                   n_b: int) -> torch.Tensor:
+        """Rows keep their first ns[i] codes; the rest of the n_b bucket
+        fills with the stop token (on the codes' device)."""
+        stop = self.cfg.gpt.stop_mel_token
+        if codes.shape[1] >= n_b:
+            sliced = codes[:, :n_b]
+        else:
+            sliced = torch.nn.functional.pad(
+                codes, (0, n_b - codes.shape[1]), value=stop)
+        pos = torch.arange(n_b, device=codes.device)[None, :]
+        return torch.where(pos < ns[:, None], sliced,
+                           torch.full_like(sliced, stop))
+
+    def _code_buckets(self):
+        m = self.cfg.gpt.max_mel_tokens
+        ladder = [64, 128, 192, 256, 320, 384, 448, 512]
+        return tuple([b for b in ladder if b < m] + [m])
+
+    @torch.no_grad()
+    def _diffusion_mel_impl(self, latent, cond_mel_norm, generator,
+                            temperature: float = 1.0, steps: int = 50,
+                            sampler: str = "p", cond_free_k: float = 2.0,
+                            noise: Optional[torch.Tensor] = None):
+        """latent (B, D, N) -> mel (B, mel, 4N): CLIP context hoisted, CFG
+        batched into one 2B BaseModel pass per step, and the ReferenceNet
+        features for every spaced timestep computed up front in one batched
+        call (b * steps <= 512). noise: optional x_T (B, mel, 4N); else
+        drawn from `generator` and scaled by `temperature`."""
+        gd = GaussianDiffusion.spaced(1000, steps,
+                                      conditioning_free_k=cond_free_k)
+        b, _, t_lat = latent.shape
+        out_len = t_lat * 4
+        shape = (b, self.cfg.diffusion.in_channels, out_len)
+        dm = self.diffusion
+        ctx = dm.encode_reference(cond_mel_norm)
+        hint = nearest_resize_time(latent.transpose(1, 2),
+                                   out_len).transpose(1, 2)
+        uncond = dm.uncond_hint(b, out_len)
+        tmap = torch.as_tensor(gd.timestep_map, device=latent.device)
+        control_all = None
+        if b * steps <= 512:
+            t_all = tmap.repeat_interleave(b)
+            ca = dm.reference_features(cond_mel_norm.repeat(steps, 1, 1),
+                                       t_all, ctx.repeat(steps, 1, 1))
+            control_all = [c.reshape(steps, b, *c.shape[1:]) for c in ca]
+        h2 = torch.cat([hint.to(uncond.dtype), uncond], dim=0)
+        ctx2 = torch.cat([ctx, ctx], dim=0)
+
+        def model_fn(x, t_orig):
+            if control_all is not None:
+                si = torch.searchsorted(tmap, t_orig[:1])   # stays on device
+                control = [c.index_select(0, si)[0] for c in control_all]
+            else:
+                control = dm.reference_features(cond_mel_norm, t_orig, ctx)
+            out = dm.denoise(torch.cat([x, x], dim=0),
+                             torch.cat([t_orig, t_orig], dim=0), h2, ctx2,
+                             [torch.cat([c, c], dim=0) for c in control])
+            return out[:b].float(), out[b:].float()
+
+        if noise is None:
+            noise = torch.randn(shape, generator=generator,
+                                device=latent.device) * temperature
+        mel = gd.sample_loop(model_fn, shape, generator, noise=noise,
+                             sampler=sampler, device=latent.device)
+        return denormalize_tacotron_mel(mel)[:, :, :out_len]
+
+    @torch.no_grad()
+    def _render(self, cond_mel, text_tokens, codes, lens, generator,
+                settings: TTSSettings, noise=None) -> torch.Tensor:
+        """Padded codes -> teacher-forced latent -> diffusion -> Vocos."""
+        c = self.cfg
+        latent = self.gpt(cond_mel, text_tokens,
+                          torch.tensor([text_tokens.shape[-1]],
+                                       device=self.device),
+                          codes, lens * c.gpt.mel_length_compression,
+                          return_latent=True)
+        mel = self._diffusion_mel_impl(
+            latent.transpose(1, 2), normalize_tacotron_mel(cond_mel),
+            generator, settings.diffusion_temperature,
+            steps=settings.diffusion_steps, sampler=settings.sampler,
+            cond_free_k=settings.cond_free_k, noise=noise)
+        return self.vocos(mel).float()
+
+    @torch.no_grad()
+    def tts_tokens(self, text_tokens, cond_mel: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   settings: TTSSettings = TTSSettings(),
+                   use_diffusion: bool = True) -> Dict[str, Any]:
+        """Synthesize from prepared text tokens (B=1). Returns a dict with
+        'wav' (np.ndarray (1, n * 1024)), 'codes', 'lengths', 'steps' (AR
+        decode iterations) and host-clock 'ar_seconds' / 'render_seconds'
+        (each stage ends in a device sync)."""
+        if not use_diffusion:
+            raise NotImplementedError("the DVAE shortcut render is not "
+                                      "ported; use_diffusion=True only")
+        g = generator if generator is not None else self._generator(0)
+        text = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long,
+                               device=self.device)
+        if text.dim() == 1:
+            text = text[None]
+        if text.shape[0] != 1:
+            raise ValueError("tts_tokens synthesizes one row (B=1)")
+        cond_mel = cond_mel.to(self.device)
+        t0 = time.perf_counter()
+        res = self._generate(cond_mel, text, g, settings)
+        n = max(int(res.lengths[0]) - 2, 1)     # strip 2 (reference test.py)
+        t1 = time.perf_counter()                # int() above synchronized
+        n_b = bucket_len(n, self._code_buckets())
+        lens = torch.clamp(res.lengths - 2, 1, n_b)
+        codes = self._pad_codes(res.codes, lens, n_b)
+        wav = self._render(cond_mel, text, codes, lens, g, settings)
+        hop, comp = self.cfg.vocos.hop_length, self.cfg.vqvae.compression
+        wav = wav[:, :n * comp * hop].cpu().numpy()
+        return {"wav": wav, "codes": res.codes.cpu().numpy(),
+                "lengths": res.lengths.cpu().numpy(), "steps": res.steps,
+                "ar_seconds": t1 - t0,
+                "render_seconds": time.perf_counter() - t1}
+
+    def _text_to_token_lists(self, text: str, lang: str,
+                             settings: TTSSettings):
+        # the text frontend (jieba, tokenizers) loads only when text is given
+        from xtts_tpu.text.chinese import oov_stats
+        from xtts_tpu.text.frontend import sentence_to_tokens, split_sentences
+        token_lists = []
+        oov_before = oov_stats()
+        cap = self.cfg.gpt.max_text_tokens
+        stop = self.cfg.gpt.stop_text_token
+        for sent in split_sentences(text):
+            tokens = sentence_to_tokens(
+                sent, lang, start_token=self.cfg.gpt.start_text_token,
+                stop_token=stop)
+            if len(tokens) > cap:
+                log.warning("sentence of %d tokens exceeds max_text_tokens="
+                            "%d; truncating", len(tokens), cap)
+                tokens = np.concatenate([tokens[:cap - 1],
+                                         np.array([stop], np.int32)])
+            # stop-pad to a bucket length, as the JAX package does
+            tb = bucket_len(len(tokens), (16, 32, 64, 128, 256, cap))
+            tokens = np.pad(tokens, (0, max(0, tb - len(tokens))),
+                            constant_values=stop)
+            token_lists.append(tokens)
+        oov_after = oov_stats()
+        self.last_oov = {c: n - oov_before.get(c, 0)
+                         for c, n in oov_after.items()
+                         if n > oov_before.get(c, 0)}
+        if self.last_oov:
+            log.warning("g2p dropped %d hanzi with no reading this request: "
+                        "%s", sum(self.last_oov.values()),
+                        "".join(sorted(self.last_oov)))
+        return token_lists
+
+    def tts(self, text: str, cond_wav, generator=None,
+            settings: TTSSettings = TTSSettings(),
+            lang: str = "ZH") -> np.ndarray:
+        """Full text in, 24 kHz waveform out: sentence split, then one
+        tts_tokens call per sentence, in order."""
+        g = generator if generator is not None else self._generator(0)
+        cond_mel = self.cond_mel_from_wav(cond_wav)
+        wavs = [self.tts_tokens(tokens, cond_mel, g, settings)["wav"][0]
+                for tokens in self._text_to_token_lists(text, lang, settings)]
+        return np.concatenate(wavs) if wavs else np.zeros(0, np.float32)

@@ -1,0 +1,291 @@
+"""K1: the B=1 int8 GPT decode step on Hopper (port of
+xtts_tpu/ops/decode_step.py).
+
+Replaces the Pallas TPU kernel `_make_kernel` / `_fused_decode_logits`
+(xtts_tpu/ops/decode_step.py:68-357), which ran the whole token step in one
+pallas_call. Here the step is a chain of three hand-written CUDA kernels
+(csrc/decode_step.cu): `layer_norm_rows`, `int8_gemv` and
+`decode_attention`; `fused_decode_logits` strings them together.
+
+Bound on the H100: weight bytes, ~190 MB of int8 per token at the flagship
+width (~57 us at 3.35 TB/s). The gemv reads each weight once with coalesced
+4-byte loads and fuses dequant, scale, bias, gelu_new and the residual add;
+at ~107 launches a token the chain is launch-bound for now (see PERF.md).
+
+Numerics follow the TPU kernel, not the XLA chain of infer/qdecode.py: the
+residual stays f32 across the layers, LayerNorms and softmax run in f32,
+every matvec takes a bf16 input. Weights are quantize_dense's int8 (in, out)
+matrices as they are; the port's layout needs no (D, D) tiling. The new
+k/v row is written into the (L, S, D) bf16 cache in place at `index`.
+
+Each wrapper launches its kernel for a CUDA tensor (counting the launch in
+its `launches` attribute) and runs its plain PyTorch twin for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from xtts_tpu_torch.nn.transformer import gelu_new
+from xtts_tpu_torch.ops.build import (check, load_library, ptr,
+                                      require_hopper, stream_of)
+
+NEG_INF = -1e9
+# the input vector / row is staged in 48 KB of shared memory as f32
+MAX_SMEM_FLOATS = 12288
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("decode_step")
+    lib.xt_layer_norm_rows.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.xt_int8_gemv.argtypes = [_P] * 5 + [_I, _I, _I, _I, _P]
+    lib.xt_decode_attention.argtypes = [_P] * 4 + [_I, _I, _I,
+                                                   ctypes.c_float, _P]
+    for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv,
+               lib.xt_decode_attention):
+        fn.restype = _I
+    return lib
+
+
+def _check_cuda(*ts) -> None:
+    for t in ts:
+        if t is not None and not t.is_contiguous():
+            raise ValueError("decode-step kernels take contiguous tensors")
+    require_hopper(ts[0])
+
+
+# ---------------------------------------------------------------------------
+# layer_norm_rows
+# ---------------------------------------------------------------------------
+
+def layer_norm_rows_plain(x, s1, b1, s2=None, b2=None) -> torch.Tensor:
+    def ln(v, s, b):
+        mu = v.mean(-1, keepdim=True)
+        var = ((v - mu) ** 2).mean(-1, keepdim=True)
+        return (v - mu) * torch.rsqrt(var + 1e-5) * s + b
+    y = ln(x.float(), s1, b1)
+    if s2 is not None:
+        y = ln(y, s2, b2)
+    return y.to(torch.bfloat16)
+
+
+def layer_norm_rows(x: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+                    s2: Optional[torch.Tensor] = None,
+                    b2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (rows, D) f32 -> LayerNorm(s1, b1) [then LayerNorm(s2, b2)] in f32,
+    eps 1e-5, rounded to bf16 once at the end."""
+    if not x.is_cuda:
+        return layer_norm_rows_plain(x, s1, b1, s2, b2)
+    if (x.dtype != torch.float32 or x.dim() != 2
+            or x.shape[1] > MAX_SMEM_FLOATS):
+        raise ValueError("layer_norm_rows takes (rows, D <= 12288) float32")
+    _check_cuda(x, s1, b1, s2, b2)
+    rows, d = x.shape
+    out = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
+    two = s2 is not None
+    check(_lib().xt_layer_norm_rows(
+        ptr(x), ptr(s1), ptr(b1), ptr(s2 if two else s1),
+        ptr(b2 if two else b1), ptr(out), rows, d, int(two), stream_of(x)),
+        "layer_norm_rows")
+    layer_norm_rows.launches += 1
+    return out
+
+
+layer_norm_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8_gemv
+# ---------------------------------------------------------------------------
+
+def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    y = (x.float() @ w.float()) * scale + bias
+    if gelu:
+        y = gelu_new(y)
+    if out is not None:
+        out += y
+        return out
+    return y.to(out_dtype)
+
+
+def int8_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, out: Optional[torch.Tensor] = None,
+              gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """y = (x_bf16 . W_int8) * scale + bias, f32 accumulation.
+
+    x (K,) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies gelu_new
+    to y. With `out` given (f32 (N,)), y is added into it in place — the
+    residual add, and the K-split accumulate of the TPU kernel's four
+    out tiles, which here run as one K = 4D launch. Otherwise returns y in
+    out_dtype (f32 or bf16)."""
+    if not x.is_cuda:
+        return int8_gemv_plain(x, w, scale, bias, out, gelu, out_dtype)
+    k, n = w.shape
+    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8
+            or x.numel() != k or n % 32 or k > MAX_SMEM_FLOATS):
+        raise ValueError(f"int8_gemv: bad operands x {tuple(x.shape)} "
+                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}")
+    _check_cuda(x, w, scale, bias, out)
+    if out is not None:
+        if out.dtype != torch.float32 or out.numel() != n:
+            raise ValueError("int8_gemv accumulates into an f32 (N,) tensor")
+        mode, dst = 2, out
+    else:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int8_gemv: out_dtype {out_dtype}")
+        mode = 0 if out_dtype == torch.float32 else 1
+        dst = torch.empty((n,), dtype=out_dtype, device=x.device)
+    check(_lib().xt_int8_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias), ptr(dst),
+                              k, n, int(gelu), mode, stream_of(x)),
+          "int8_gemv")
+    int8_gemv.launches += 1
+    return dst
+
+
+int8_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(qkv, kc, vc, index: int, heads: int):
+    d = kc.shape[1]
+    hd = d // heads
+    kc[index] = qkv[d:2 * d].to(kc.dtype)
+    vc[index] = qkv[2 * d:].to(vc.dtype)
+    q = qkv[:d].to(torch.bfloat16).float().reshape(heads, hd)
+    k = kc[:index + 1].float().reshape(index + 1, heads, hd)
+    v = vc[:index + 1].float().reshape(index + 1, heads, hd)
+    s = torch.einsum("hd,shd->hs", q, k) / math.sqrt(hd)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hs,shd->hd", p, v).reshape(d).to(torch.bfloat16)
+
+
+def decode_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     index: int, heads: int) -> torch.Tensor:
+    """One query per head over cache rows 0..index.
+
+    qkv (3D,) f32 [q | k | v]; kc, vc (S, D) bf16 — one layer of the cache,
+    updated in place: the new k/v row is written at `index` first. Returns
+    the attention output (D,) bf16. head_dim must be 64."""
+    if not qkv.is_cuda:
+        return decode_attention_plain(qkv, kc, vc, index, heads)
+    s_max, d = kc.shape
+    if d // heads != 64 or d % heads:
+        raise ValueError("decode_attention takes head_dim 64")
+    if not 0 <= index < min(s_max, MAX_SMEM_FLOATS):
+        raise ValueError(f"decode_attention: index {index} outside the "
+                         f"cache ({s_max} rows)")
+    if (qkv.dtype != torch.float32 or qkv.numel() != 3 * d
+            or kc.dtype != torch.bfloat16 or vc.dtype != torch.bfloat16):
+        raise ValueError("decode_attention: qkv f32 (3D,), caches bf16 (S, D)")
+    _check_cuda(qkv, kc, vc)
+    out = torch.empty((d,), dtype=torch.bfloat16, device=qkv.device)
+    check(_lib().xt_decode_attention(ptr(qkv), ptr(kc), ptr(vc), ptr(out),
+                                     int(index), d, heads, 1.0 / math.sqrt(64),
+                                     stream_of(qkv)),
+          "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+def _step(ops, st, x, kc, vc, index, layers, heads):
+    ln_rows, gemv, attention = ops
+    x32 = x.float().reshape(1, -1).clone()      # the f32 residual
+    h_res = x32[0]
+    for li in range(layers):
+        ln = st["ln"][li]
+        h = ln_rows(x32, ln[0], ln[1])[0]
+        qkv = gemv(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        att = attention(qkv, kc[li], vc[li], index, heads)
+        gemv(att, st["wproj"][li], st["sproj"][li], st["bproj"][li],
+             out=h_res)
+        h2 = ln_rows(x32, ln[2], ln[3])[0]
+        m = gemv(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li],
+                 gelu=True, out_dtype=torch.bfloat16)
+        gemv(m, st["wout"][li], st["sout"][li], st["bout"][li], out=h_res)
+    lnf = st["lnf"]
+    xh = ln_rows(x32, lnf[0], lnf[1], lnf[2], lnf[3])[0]
+    logits = gemv(xh, st["whead"], st["shead"], st["bhead"])
+    return logits[None], kc, vc
+
+
+def fused_decode_logits(stacked: Dict[str, Any], x: torch.Tensor,
+                        kc: torch.Tensor, vc: torch.Tensor, index: int,
+                        layers: int, heads: int):
+    """One decode step: token hidden -> mel-head logits.
+
+    stacked: from stack_qtree(); x: (1, D) token embedding (mel emb + pos
+    emb); kc/vc: (L, S, D) bf16 caches, updated in place at `index`.
+    Returns (logits (1, head_tiles*D) f32 — slice to vocab outside, kc, vc).
+    Each op launches its kernel for CUDA tensors, its plain twin for CPU
+    tensors."""
+    out = _step((layer_norm_rows, int8_gemv, decode_attention), stacked, x,
+                kc, vc, index, layers, heads)
+    if x.is_cuda:
+        fused_decode_logits.launches += 1
+    return out
+
+
+fused_decode_logits.launches = 0
+
+
+def fused_decode_logits_plain(stacked, x, kc, vc, index, layers, heads):
+    """The same step through the plain twins on any device: the reference
+    the kernel chain is held against on the card."""
+    return _step((layer_norm_rows_plain, int8_gemv_plain,
+                  decode_attention_plain), stacked, x, kc, vc, index, layers,
+                 heads)
+
+KERNELS = (layer_norm_rows, int8_gemv, decode_attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS + (fused_decode_logits,):
+        fn.launches = 0
+
+
+def stack_qtree(qt: Dict[str, Any], vocab: int) -> Dict[str, Any]:
+    """qdecode quantized tree -> per-kind stacked arrays for the step:
+    w{qkv,proj,fc,out} (L, K, N) int8 with (L, N) f32 scales and biases,
+    ln (L, 4, D), lnf (4, D) and the mel head padded to head_tiles*D columns
+    (scale 0, bias NEG_INF, so sampling can never pick a padded column)."""
+    ls = qt["layers"]
+    d = ls[0]["qkv"]["w"].shape[0]
+    out: Dict[str, Any] = {}
+    for kind in ("qkv", "proj", "fc", "out"):
+        out["w" + kind] = torch.stack([l[kind]["w"] for l in ls]).contiguous()
+        out["s" + kind] = torch.stack([l[kind]["scale"] for l in ls])
+        out["b" + kind] = torch.stack([l[kind + "_b"] for l in ls]).float()
+    out["ln"] = torch.stack([
+        torch.stack([l["ln_1"]["scale"], l["ln_1"]["bias"],
+                     l["ln_2"]["scale"], l["ln_2"]["bias"]]) for l in ls
+    ]).float().contiguous()
+    out["lnf"] = torch.stack([
+        qt["ln_f"]["scale"], qt["ln_f"]["bias"],
+        qt["final_norm"]["scale"], qt["final_norm"]["bias"]]).float()
+    head_tiles = -(-vocab // d)
+    pad = head_tiles * d - vocab
+    out["whead"] = F.pad(qt["mel_head"]["w"], (0, pad)).contiguous()
+    out["shead"] = F.pad(qt["mel_head"]["scale"], (0, pad))
+    out["bhead"] = F.pad(qt["mel_head_b"].float(), (0, pad), value=NEG_INF)
+    out["head_tiles"] = head_tiles
+    out["vocab"] = vocab
+    return out

@@ -1,0 +1,200 @@
+"""JAX parameter trees (as numpy) -> the port's state dicts.
+
+The inverse of xtts_tpu/utils/convert.py's *_from_reference functions: the
+port's modules carry the reference's torch names, so these produce exactly
+the state dict a reference checkpoint would hold. Layout rules:
+
+* flax Dense kernel (in, out) -> torch Linear weight (out, in);
+* HF GPT2 Conv1D keeps (in, out) as it is;
+* flax Conv kernel (k, in, out) on channels-last -> torch Conv1d weight
+  (out, in, k) on (B, C, T); a 1x1 conv stored as a flax Dense (in, out)
+  becomes (out, in, 1);
+* flax LayerNorm/GroupNorm {scale, bias} -> {weight, bias};
+* flax Embed {embedding} -> {weight};
+* flax MultiHeadDotProductAttention q/k/v (E, H, hd) kernels -> the packed
+  nn.MultiheadAttention in_proj_weight (3E, E).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+SD = Dict[str, np.ndarray]
+
+
+def _params(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    return tree["params"] if "params" in tree else tree
+
+
+def _a(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _dense(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[prefix + ".weight"] = _a(p["kernel"]).T
+    if "bias" in p:
+        sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def _conv1d_hf(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[prefix + ".weight"] = _a(p["kernel"])
+    sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def _conv(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[prefix + ".weight"] = np.transpose(_a(p["kernel"]), (2, 1, 0))
+    if "bias" in p:
+        sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def _conv1x1(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[prefix + ".weight"] = _a(p["kernel"]).T[:, :, None]
+    if "bias" in p:
+        sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def _norm(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[prefix + ".weight"] = _a(p["scale"])
+    sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def to_torch(sd: SD, device="cpu") -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+            for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+
+def unified_voice_from_jax(tree: Mapping[str, Any], layers: int,
+                           cond_attn_blocks: int = 6) -> SD:
+    p = _params(tree)
+    sd: SD = {
+        "text_embedding.weight": _a(p["text_embedding"]["embedding"]),
+        "mel_embedding.weight": _a(p["mel_embedding"]["embedding"]),
+        "text_pos_embedding.emb.weight":
+            _a(p["text_pos_embedding"]["embedding"]),
+        "mel_pos_embedding.emb.weight":
+            _a(p["mel_pos_embedding"]["embedding"]),
+    }
+    g = p["gpt"]
+    for i in range(layers):
+        h, pre = g[f"h_{i}"], f"gpt.h.{i}."
+        _norm(sd, pre + "ln_1", h["ln_1"])
+        _conv1d_hf(sd, pre + "attn.c_attn", h["attn"]["c_attn"])
+        _conv1d_hf(sd, pre + "attn.c_proj", h["attn"]["c_proj"])
+        _norm(sd, pre + "ln_2", h["ln_2"])
+        _conv1d_hf(sd, pre + "mlp.c_fc", h["mlp"]["c_fc"])
+        _conv1d_hf(sd, pre + "mlp.c_proj", h["mlp"]["c_proj"])
+    _norm(sd, "gpt.ln_f", g["ln_f"])
+    _norm(sd, "final_norm", p["final_norm"])
+    _dense(sd, "text_head", p["text_head"])
+    _dense(sd, "mel_head", p["mel_head"])
+    ce = p["conditioning_encoder"]
+    _conv(sd, "conditioning_encoder.init", ce["init"])
+    for i in range(cond_attn_blocks):
+        blk, pre = ce[f"attn_{i}"], f"conditioning_encoder.attn.{i}."
+        _conv1x1(sd, pre + "qkv", blk["qkv"])
+        _conv1x1(sd, pre + "proj_out", blk["proj_out"])
+        _norm(sd, pre + "norm", blk["GroupNorm32_0"]["GroupNorm_0"])
+    return sd
+
+
+def _clip(sd: SD, p: Mapping[str, Any], layers: int,
+          prefix: str = "refer_enc.visual.") -> None:
+    sd[prefix + "conv1.weight"] = np.transpose(_a(p["conv1"]["kernel"]),
+                                               (2, 1, 0))
+    sd[prefix + "class_embedding"] = _a(p["class_embedding"])
+    sd[prefix + "positional_embedding"] = _a(p["positional_embedding"])
+    _norm(sd, prefix + "ln_pre", p["ln_pre"])
+    _norm(sd, prefix + "ln_post", p["ln_post"])
+    for i in range(layers):
+        rp = f"{prefix}transformer.resblocks.{i}."
+        _norm(sd, rp + "ln_1", p[f"ln1_{i}"])
+        _norm(sd, rp + "ln_2", p[f"ln2_{i}"])
+        a = p[f"attn_{i}"]
+        e = _a(a["query"]["kernel"]).shape[0]
+        sd[rp + "attn.in_proj_weight"] = np.concatenate(
+            [_a(a[n]["kernel"]).reshape(e, e).T
+             for n in ("query", "key", "value")])
+        sd[rp + "attn.in_proj_bias"] = np.concatenate(
+            [_a(a[n]["bias"]).reshape(e) for n in ("query", "key", "value")])
+        sd[rp + "attn.out_proj.weight"] = _a(a["out"]["kernel"]).reshape(e, e).T
+        sd[rp + "attn.out_proj.bias"] = _a(a["out"]["bias"])
+        _dense(sd, rp + "mlp.c_fc", p[f"mlp_fc_{i}"])
+        _dense(sd, rp + "mlp.c_proj", p[f"mlp_proj_{i}"])
+
+
+def _resblock(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    _norm(sd, prefix + "in_layers.0", p["GroupNorm32_0"]["GroupNorm_0"])
+    _conv(sd, prefix + "in_layers.2", p["in_conv"])
+    _dense(sd, prefix + "emb_layers.1", p["emb_proj"])
+    _norm(sd, prefix + "out_layers.0", p["GroupNorm32_1"]["GroupNorm_0"])
+    _conv(sd, prefix + "out_layers.3", p["out_conv"])
+
+
+def _spatial_transformer(sd: SD, prefix: str, p: Mapping[str, Any],
+                         depth: int) -> None:
+    _norm(sd, prefix + "norm", p["norm"]["GroupNorm_0"])
+    _conv1x1(sd, prefix + "proj_in", p["proj_in"])
+    _conv1x1(sd, prefix + "proj_out", p["proj_out"])
+    for d in range(depth):
+        b, bp = p[f"block_{d}"], f"{prefix}transformer_blocks.{d}."
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, bp + n, b[n])
+        for att in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _dense(sd, f"{bp}{att}.{n}", b[att][n])
+            _dense(sd, f"{bp}{att}.to_out.0", b[att]["to_out"])
+        _dense(sd, bp + "ff.net.0.proj", b["ff"]["proj_in"])
+        _dense(sd, bp + "ff.net.2", b["ff"]["proj_out"])
+
+
+def _unet_trunk(sd: SD, prefix: str, p: Mapping[str, Any], cfg) -> None:
+    _conv(sd, prefix + "blocks.0.0", p["in_conv"])
+    _dense(sd, prefix + "time_embed.0", p["time_fc1"])
+    _dense(sd, prefix + "time_embed.2", p["time_fc2"])
+    blk, ri, ai = 1, 0, 0
+    for _level in cfg.channel_mult:
+        for _ in range(cfg.num_res_blocks):
+            _resblock(sd, f"{prefix}blocks.{blk}.0.", p[f"res_blocks_{ri}"])
+            _spatial_transformer(sd, f"{prefix}blocks.{blk}.1.",
+                                 p[f"attn_blocks_{ai}"],
+                                 cfg.transformer_depth)
+            ri, ai, blk = ri + 1, ai + 1, blk + 1
+        _resblock(sd, f"{prefix}blocks.{blk}.0.", p[f"res_blocks_{ri}"])
+        ri, blk = ri + 1, blk + 1
+
+
+def aa_diffusion_from_jax(tree: Mapping[str, Any], cfg) -> SD:
+    """cfg: DiffusionModelConfig."""
+    p = _params(tree)
+    sd: SD = {}
+    _clip(sd, p["refer_enc"], cfg.clip.layers)
+    _unet_trunk(sd, "refer_model.", p["refer_model"], cfg)
+    _unet_trunk(sd, "base_model.", p["base_model"], cfg)
+    _conv(sd, "base_model.hint_converter", p["hint_converter"])
+    _norm(sd, "base_model.out.0", p["out_norm"]["GroupNorm_0"])
+    _conv(sd, "base_model.out.2", p["out_conv"])
+    sd["unconditioned_cat_embedding"] = np.transpose(
+        _a(p["unconditioned_cat_embedding"]), (0, 2, 1))
+    return sd
+
+
+def vocos_from_jax(tree: Mapping[str, Any], num_layers: int = 8) -> SD:
+    p = _params(tree)
+    bb = p["backbone"]
+    sd: SD = {}
+    _conv(sd, "backbone.embed", bb["embed"])
+    _norm(sd, "backbone.norm", bb["norm"])
+    for i in range(num_layers):
+        blk, pre = bb[f"convnext_{i}"], f"backbone.convnext.{i}."
+        _conv(sd, pre + "dwconv", blk["dwconv"])
+        _norm(sd, pre + "norm", blk["LayerNorm_0"])
+        _dense(sd, pre + "pwconv1", blk["pwconv1"])
+        _dense(sd, pre + "pwconv2", blk["pwconv2"])
+        sd[pre + "gamma"] = _a(blk["gamma"])
+    _norm(sd, "backbone.final_layer_norm", bb["final_layer_norm"])
+    _dense(sd, "head.out", p["head"]["out"])
+    return sd
