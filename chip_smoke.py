@@ -1,41 +1,58 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's zero-shot main path once on one NVIDIA H100.
+"""Run the PyTorch port's main paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with a CUDA card (sm_90), the
 CUDA toolkit (nvcc) and PyTorch built for CUDA. No network; imports no JAX.
-Random weights from a fixed seed, the flagship XTTSConfig() widths
-(GPT 15 x 1024, UNet 512, CLIP 6 x 512, Vocos 8 x 512).
+Random weights from fixed seeds, the flagship XTTSConfig() widths (GPT
+15 x 1024, UNet 512, CLIP 6 x 512, Vocos 8 x 512, DVAE 512/1024 with an
+8192 x 512 codebook, CLVP 2 x 20 x 768).
 
 Phases, each reported on its own lines:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
      TF32 off for matmuls and cuDNN.
-  2. build: nvcc compiles xtts_tpu_torch/csrc/*.cu into build/xtts_tpu_torch/.
+  2. build: nvcc compiles xtts_tpu_torch/csrc/*.cu into build/xtts_tpu_torch/,
+     one process per source, all at once.
   3. kernels: each kernel against its plain PyTorch twin on the same card
-     tensors at the main path's shapes — K1 (layer_norm_rows, int8_gemv,
-     decode_attention, the whole 15-layer step, a 64-step teacher-forced
-     greedy chain) and K2 (flash_mha at (2, 1280 | 1562, 8, 64) and the
-     ragged (2, 300 | 583, 8, 64)); max error and median CUDA-event times.
-     Then the whole path on a small configuration, card against CPU with
-     the same weights: identical greedy int8 codes, render within 1e-3.
-  4. main path: TextToSpeech(quantized_decode=True, dtype=bf16) on the
-     bench's canonical inputs (3 s 220 Hz sine + noise reference, 50 text
-     tokens from numpy seed 0), tts_tokens with max_mel_tokens=300, three
-     requests with generator seeds 1, 2, 3. Each request must return a
-     finite (1, n * 1024) wav and go through K1 for every generated token
-     and K2 for every consumer attention (>= 50 steps x 4 blocks).
-  5. profile: one more warm request (seed 4), bare and then under
-     torch.profiler. Prints the device's busy share over the request and
-     over its AR and render stages (the union of kernel, memcpy and memset
-     intervals over the stage's host-clock span), the request's latency with
-     and without the profiler, the host time of one sample_token call, and
-     the kernels with the most device time. The trace is written to
-     build/xtts_tpu_torch/request_trace.json.
-  6. a JSON line of the kernels, then the result line.
+     tensors at the main paths' shapes, with median CUDA-event times of the
+     kernel, the plain twin and, where one exists, the one PyTorch call
+     that computes the same function (a yardstick the port never calls),
+     and the bound (bytes over 3.35 TB/s or operations over the peak for
+     their type, whichever is larger):
+     K1 (layer_norm_rows, int8_gemv, decode_attention, the 15-layer step, a
+     64-step teacher-forced greedy chain); K2 (flash_mha at (2, 1280 | 1562,
+     8, 64) and (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own
+     3008 x 512 logits against its 8192-code codebook, a ragged shape and a
+     planted tie); K4 (int8_gemm_rows, serving_attention, the 16-row step
+     at S 354, a 64-step teacher-forced chain, step times at 8/16/32 rows).
+     Then both paths on a small configuration, card against CPU with the
+     same weights: identical greedy int8 codes through K1 and through K4,
+     identical DVAE codes, renders within 1e-3.
+  4. main: TextToSpeech(quantized_decode=True, dtype=bf16) on the bench's
+     canonical inputs (3 s 220 Hz sine + noise reference, 50 text tokens
+     from numpy seed 0), tts_tokens with max_mel_tokens=300, three requests
+     (seeds 1, 2, 3), each through K1 for every token and K2 for every
+     consumer attention.
+  5. vqvae (BASELINE config #1): DVAE round trip, 8 x 1504 mel frames ->
+     get_codebook_indices (K3) -> decode; audio-s/s.
+  6. serving (BASELINE config #5): BatchServer(max_batch=8), 8 concurrent
+     submits a wave, num_candidates=2 (16 AR rows through K4 with
+     XTTS_FUSED_SERVING=1), CLVP rerank, full-quality render (K2); one warm
+     and two timed waves; then one synthesize_batch wave with the DVAE
+     shortcut render and one with the default engine (the per-layer chain,
+     cache_ladder "auto") as K4's in-program comparator.
+  7. profile: one more warm B=1 request (seed 4), bare and then under
+     torch.profiler: the device's busy share over the request and over its
+     AR and render stages, the host time of one sample_token call, the
+     kernels with the most device time (trace in
+     build/xtts_tpu_torch/request_trace.json).
+  8. a JSON line of the kernels, the total wall time, then the result line.
 
-Any failure raises and exits non-zero. Without a CUDA card, or outside a
-checkout, it exits non-zero before printing any result.
+Before each path of phases 4-6 every launch count is set to 0, and read
+after it; a path that did not launch each of its kernels fails. Any failure
+raises and exits non-zero. Without a CUDA card, or outside a checkout, it
+exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -53,6 +70,8 @@ K1_TOL = 2e-2          # logits / rows (tests/test_decode_step.py's bound)
 OP_TOL = 1e-2          # single ops: one bf16 rounding of O(1) values
 K2_TOL = 1e-2          # flash vs f32 attention on the same bf16 inputs
 SMALL_WAV_TOL = 1e-3   # small-config render, card vs CPU (the e2e test's)
+HBM_BPS = 3.35e12      # H100 SXM device memory rate
+PEAK = {"fp32": 67e12, "bf16": 989e12}   # dense, no TF32 (data sheet)
 
 
 def log(msg: str) -> None:
@@ -102,6 +121,22 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak for their type, whichever is larger (ms)."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK[kind] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def record(results, name, err, ms, plain_ms, lib_ms, bnd):
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def fmt_lib(lib_ms) -> str:
+    return "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+
+
 def random_qtree(torch, quantize_dense, layers, d, vocab, s_max, g):
     """Full-width int8 decode tree with random weights, biases and norms."""
     dev = "cuda"
@@ -132,6 +167,7 @@ def random_qtree(torch, quantize_dense, layers, d, vocab, s_max, g):
 
 
 def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
+    F = torch.nn.functional
     L, D, H, V = cfg.layers, cfg.model_dim, cfg.heads, cfg.number_mel_codes
     g = torch.Generator(device="cuda").manual_seed(1234)
     qt = random_qtree(torch, quantize_dense, L, D, V, s_max, g)
@@ -158,9 +194,13 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     t_ln = time_ms(torch, lambda: ds.layer_norm_rows(x32, ln0[0], ln0[1]))
     p_ln = time_ms(torch, lambda: ds.layer_norm_rows_plain(x32, ln0[0],
                                                            ln0[1]))
-    results["layer_norm_rows"] = dict(max_abs_err=e_ln, ms=t_ln, plain_ms=p_ln)
+    l_ln = time_ms(torch, lambda: F.layer_norm(x32, (D,), ln0[0], ln0[1],
+                                               1e-5))
+    b_ln = bound(4 * D + 8 * D + 2 * D, 8 * D, "fp32")
+    record(results, "layer_norm_rows", e_ln, t_ln, p_ln, l_ln, b_ln)
     log(f"[k1] layer_norm_rows (1, {D}) max_abs_err {e_ln:.3e}  "
-        f"kernel {t_ln:.4f} ms  plain {p_ln:.4f} ms  [{card}]")
+        f"kernel {t_ln:.4f} ms  plain {p_ln:.4f} ms  F.layer_norm "
+        f"{l_ln:.4f} ms  bound {b_ln[0]:.5f} ms ({b_ln[1]})  [{card}]")
 
     gemv_cases = [
         ("qkv", "wqkv", "sqkv", "bqkv", dict()),
@@ -193,15 +233,21 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         rel = err / max(1.0, o2.float().abs().max().item())
         check(rel <= OP_TOL, f"int8_gemv {name} err {err}")
         e_gemv = max(e_gemv, err)
+        w_bf16 = (w.float() * s).bfloat16()
+        x2 = xin[None]
         tk, tp = time_ms(torch, fk), time_ms(torch, fp)
+        tl = time_ms(torch, lambda: torch.matmul(x2, w_bf16))
+        kk, nn_ = w.shape
+        bnd = bound(kk * nn_ + 2 * kk + 8 * nn_ + 4 * nn_, 2 * kk * nn_,
+                    "bf16")
         gbs = w.numel() / (tk * 1e-3) / 1e9
-        log(f"[k1] int8_gemv {name} ({w.shape[0]} x {w.shape[1]}) "
-            f"max_abs_err {err:.3e}  kernel {tk:.4f} ms ({gbs:.0f} GB/s "
-            f"weights)  plain {tp:.4f} ms  [{card}]")
+        log(f"[k1] int8_gemv {name} ({kk} x {nn_}) max_abs_err {err:.3e}  "
+            f"kernel {tk:.4f} ms ({gbs:.0f} GB/s weights)  plain {tp:.4f} ms"
+            f"  matmul(bf16 W) {tl:.4f} ms  bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})  [{card}]")
         if name == "fc+gelu":
-            fc_times = (tk, tp)
-    results["int8_gemv"] = dict(max_abs_err=e_gemv, ms=fc_times[0],
-                                plain_ms=fc_times[1])
+            fc_times = (tk, tp, tl, bnd)
+    record(results, "int8_gemv", e_gemv, *fc_times)
 
     idx = s_max - 60
     qkv = torch.randn(3 * D, generator=g, device="cuda")
@@ -220,11 +266,20 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
                                                        idx, H))
     p_att = time_ms(torch, lambda: ds.decode_attention_plain(
         qkv, kc2[0], vc2[0], idx, H))
-    results["decode_attention"] = dict(max_abs_err=e_att, ms=t_att,
-                                       plain_ms=p_att)
+    hd = D // H
+    q_l = qkv[:D].bfloat16().reshape(1, H, 1, hd)
+    k_l = kc1[0, :idx + 1].reshape(1, idx + 1, H, hd).transpose(1, 2)
+    v_l = vc1[0, :idx + 1].reshape(1, idx + 1, H, hd).transpose(1, 2)
+    k_l, v_l = k_l.contiguous(), v_l.contiguous()
+    l_att = time_ms(torch, lambda: F.scaled_dot_product_attention(q_l, k_l,
+                                                                  v_l))
+    b_att = bound(12 * D + 4 * idx * D + 4 * D + 2 * D, 4 * (idx + 1) * D,
+                  "bf16")
+    record(results, "decode_attention", e_att, t_att, p_att, l_att, b_att)
     log(f"[k1] decode_attention ({H} heads x 64, rows 0..{idx} of {s_max}) "
         f"max_abs_err {e_att:.3e}  kernel {t_att:.4f} ms  plain {p_att:.4f} ms"
-        f"  [{card}]")
+        f"  sdpa {l_att:.4f} ms  bound {b_att[0]:.5f} ms ({b_att[1]})  "
+        f"[{card}]")
 
     # --- the whole step, and a 64-step teacher-forced greedy chain ---
     emb, pos = qt["mel_embedding"], qt["mel_pos_embedding"]
@@ -262,15 +317,24 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         st, x, kc_k, vc_k, p_len + 64, L, H), reps=20)
     p_step = time_ms(torch, lambda: ds.fused_decode_logits_plain(
         st, x, kc_p, vc_p, p_len + 64, L, H), reps=20)
+    w_bytes = sum(st[k].numel() for k in ("wqkv", "wproj", "wfc", "wout",
+                                          "whead"))
+    b_step = bound(w_bytes + 2 * L * (p_len + 65) * D * 2, 2 * w_bytes,
+                   "bf16")
+    log(f"[k1] step bound at index {p_len + 64}: {w_bytes / 1e6:.1f} MB of "
+        f"int8 weights + the bf16 cache rows: {b_step[0]:.4f} ms "
+        f"({b_step[1]})  [{card}]")
     log(f"[k1] step ({L} layers, D {D}, S {s_max}) vs plain step: logits "
         f"max_abs_err {e_step:.3e} (bound {K1_TOL} x max(1, |logits| "
         f"{l_max:.2f})), k/v rows {e_rows:.3e} (bound {K1_TOL} x max(1, "
         f"|rows| {r_max:.2f})), greedy agreement {agree}/64 teacher-forced "
         f"(+{ties} ties within the step error); kernel chain "
         f"{t_step:.3f} ms/token, plain {p_step:.3f} ms/token  [{card}]")
+    return qt, st
 
 
 def k2_checks(torch, fa, results, card):
+    F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(99)
     e_max, main_times = 0.0, None
     for b, tq, tk in ((2, 1280, 1562), (2, 300, 583)):
@@ -284,29 +348,37 @@ def k2_checks(torch, fa, results, card):
         e_max = max(e_max, err)
         tkn = time_ms(torch, lambda: fa.flash_mha(q, k, v, 0.125))
         tpl = time_ms(torch, lambda: fa.flash_mha_plain(q, k, v, 0.125))
-        tflops = 4 * b * 8 * tq * tk * 64 / (tkn * 1e-3) / 1e12
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        tlib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, scale=0.125))
+        flops = 4 * b * 8 * tq * tk * 64
+        bnd = bound(2 * b * 8 * 64 * (2 * tq + 2 * tk), flops, "bf16")
         log(f"[k2] flash_mha (B {b}, Tq {tq}, Tk {tk}, 8 x 64, bf16) "
             f"max_abs_err vs f32 {err:.3e} (bound {K2_TOL})  kernel "
-            f"{tkn:.4f} ms ({tflops:.1f} TFLOP/s)  plain bf16 {tpl:.4f} ms  "
-            f"[{card}]")
+            f"{tkn:.4f} ms ({flops / (tkn * 1e-3) / 1e12:.1f} TFLOP/s)  "
+            f"plain bf16 {tpl:.4f} ms  sdpa {tlib:.4f} ms  bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if tq == 1280:
-            main_times = (tkn, tpl)
-    results["flash_mha"] = dict(max_abs_err=e_max, ms=main_times[0],
-                                plain_ms=main_times[1])
+            main_times = (tkn, tpl, tlib, bnd)
+    record(results, "flash_mha", e_max, *main_times)
 
 
 def small_reference_check(torch, np, TextToSpeech, TTSSettings):
     """The whole path on a small configuration: the card (kernels) against
     the CPU (the plain twins, which tests/test_torch_port_e2e.py holds
     against the JAX package) with the same perturbed weights, f32 modules.
-    Greedy int8 codes must be identical; the DDIM render of one set of
-    codes from one shared x_T must agree within SMALL_WAV_TOL."""
+    Greedy int8 codes must be identical, through K1 at one row and through
+    K4 at 8 rows; the DVAE codes of one mel must be identical (K3); the DDIM
+    render of one set of codes from one shared x_T and the DVAE shortcut
+    render must agree within SMALL_WAV_TOL."""
     from xtts_tpu_torch.core.config import (CLIPRefConfig, DVAEConfig,
                                             DiffusionModelConfig, GPTConfig,
                                             MelConfig, VocosConfig,
                                             XTTSConfig)
     from xtts_tpu_torch.infer.qdecode import generate_speech_quantized
     from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    from xtts_tpu_torch.ops import vq
 
     mb = 8
     small = XTTSConfig(
@@ -327,7 +399,8 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         vocos=VocosConfig(input_channels=mb, dim=32, intermediate_dim=64,
                           num_layers=1, n_fft=64, hop_length=16))
     g = torch.Generator().manual_seed(0)
-    cpu = TextToSpeech(small, quantized_decode=True, generator=g)
+    cpu = TextToSpeech(small, device="cpu", quantized_decode=True,
+                       generator=g)
     with torch.no_grad():
         # the flax init zeroes every output projection; perturb all weights
         # so that every layer shapes the result
@@ -352,8 +425,10 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
     codes[0, :n] = torch.from_numpy(rng.integers(0, 198, n))
     xt = torch.from_numpy(rng.standard_normal((1, mb, 4 * n_b))).float()
     settings = TTSSettings(sampler="ddim", diffusion_steps=4)
+    text8 = torch.from_numpy(rng.integers(3, 250, (8, 16))).long()
+    mel = torch.from_numpy(rng.standard_normal((2, mb, 64))).float()
 
-    out = {}
+    out, more = {}, {}
     for name, tts in (("cpu", cpu), ("card", card)):
         dev = tts.device
         cond = tts.cond_mel_from_wav(wav)
@@ -367,6 +442,16 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
                         noise=xt.to(dev))
         out[name] = (res.codes.cpu(), res.lengths.cpu(), res.steps, launched,
                      w.cpu())
+        before = (ss.fused_serving_logits.launches, vq.vq_nearest.launches)
+        r8 = generate_speech_quantized(tts.gpt, tts._qtree,
+                                       cond.repeat(8, 1, 1), text8.to(dev),
+                                       None, max_gen=24, do_sample=False,
+                                       use_fused_serving=True)
+        dv = tts.dvae.get_codebook_indices(mel.to(dev))
+        sw, _ = tts._render_shortcut(codes.to(dev))
+        more[name] = (r8.codes.cpu(), r8.steps, dv.cpu(), sw.cpu(),
+                      ss.fused_serving_logits.launches - before[0],
+                      vq.vq_nearest.launches - before[1])
     c_codes, c_len, c_steps, c_launched, c_wav = out["cpu"]
     k_codes, k_len, k_steps, k_launched, k_wav = out["card"]
     check(c_launched == 0, "the CPU run launched a kernel")
@@ -383,6 +468,390 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         f"{k_steps} tokens ({k_launched} K1 steps on the card), DDIM-4 "
         f"render wav {tuple(k_wav.shape)} max_abs_err {err:.3e} (bound "
         f"{SMALL_WAV_TOL}, |wav| max {c_wav.abs().max().item():.3f})")
+    c8, c_steps8, c_dv, c_sw, c_k4, c_k3 = more["cpu"]
+    k8, k_steps8, k_dv, k_sw, k_k4, k_k3 = more["card"]
+    check(c_k4 == 0 and c_k3 == 0, "the CPU run launched a kernel")
+    check(k_k4 == k_steps8 and k_k3 == 1,
+          f"card run: {k_k4} K4 steps for {k_steps8} tokens, {k_k3} K3")
+    check(torch.equal(c8, k8), f"K4 greedy codes differ: card "
+          f"{k8.tolist()} vs cpu {c8.tolist()}")
+    check(torch.equal(c_dv, k_dv), f"DVAE codes differ: card "
+          f"{k_dv.tolist()} vs cpu {c_dv.tolist()}")
+    e_sw = max_err(k_sw, c_sw)
+    check(bool(torch.isfinite(k_sw).all()) and e_sw <= SMALL_WAV_TOL,
+          f"small shortcut wav err {e_sw}")
+    log(f"[ref] small config, slice B: greedy int8 codes through K4 "
+        f"identical over 8 rows x {k_steps8} tokens ({k_k4} K4 steps on the "
+        f"card); DVAE codes {tuple(k_dv.shape)} identical (K3); shortcut "
+        f"render wav {tuple(k_sw.shape)} max_abs_err {e_sw:.3e} (bound "
+        f"{SMALL_WAV_TOL})")
+
+
+class Launches:
+    """The launch counters of every kernel wrapper, and the step counters of
+    the K1 and K4 chains. `path(name)` is used around one main path: every
+    count is set to 0 before it and read after it."""
+
+    def __init__(self, wrappers):
+        self.wrappers = wrappers
+        self.total = {fn.__name__: 0 for fn in wrappers}
+
+    def reset(self):
+        for fn in self.wrappers:
+            fn.launches = 0
+
+    def read(self, add: bool = True):
+        got = {fn.__name__: fn.launches for fn in self.wrappers}
+        if add:
+            for k, v in got.items():
+                self.total[k] += v
+        return got
+
+
+def k3_checks(torch, vq, x, emb, results, card):
+    """K3 on the DVAE's own logits (N 3008 x D 512) and codebook (E 8192),
+    a ragged shape, and a planted tie. Codes must equal the plain twin's,
+    except where the two picks' distances recomputed in f64 lie within the
+    fp32 error bound of one D-term dot product, 4 D 2^-24 (2 sum|x||e| +
+    |e|^2) (tests/test_torch_port_kernels.py:_vq_agree): the two sum in
+    another order, so a near tie may break either way. Counted."""
+    def agree(xx, ee, got, want):
+        x64, e64 = xx.double(), ee.double()
+        bad = (got != want).nonzero().flatten().tolist()
+        worst = 0.0
+        for r in bad:
+            picks = torch.tensor([int(got[r]), int(want[r])], device="cuda")
+            ep = e64[:, picks]
+            dist = (ep * ep).sum(0) - 2 * x64[r] @ ep
+            lim = 4 * xx.shape[1] * 2.0 ** -24 * (
+                2 * (x64[r].abs()[:, None] * ep.abs()).sum(0)
+                + (ep * ep).sum(0)).max()
+            gap = (dist[0] - dist[1]).abs().item()
+            check(gap <= lim, f"K3 row {r}: picks {picks.tolist()} differ "
+                  f"by {gap:.3e} in f64 > bound {lim.item():.3e}")
+            worst = max(worst, gap)
+        return len(bad), worst
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    cases = [("path", x, emb),
+             ("ragged", torch.randn(1001, 512, generator=g, device="cuda"),
+              torch.randn(512, 8000, generator=g, device="cuda"))]
+    for name, xx, ee in cases:
+        got = vq.vq_nearest(xx, ee)
+        want = vq.vq_nearest_plain(xx, ee)
+        n_diff, gap = agree(xx, ee, got, want)
+        n, d = xx.shape
+        e = ee.shape[1]
+        tk = time_ms(torch, lambda: vq.vq_nearest(xx, ee))
+        tp = time_ms(torch, lambda: vq.vq_nearest_plain(xx, ee))
+        et = ee.t().contiguous()
+        tl = time_ms(torch, lambda: torch.cdist(xx, et).argmin(1))
+        bnd = bound(4 * (n * d + d * e + e) + 8 * n, 2 * n * d * e, "fp32")
+        log(f"[k3] vq_nearest {name} (N {n}, D {d}, E {e}): codes equal on "
+            f"{n - n_diff}/{n} rows, {n_diff} within the fp32 tie bound "
+            f"(largest f64 gap {gap:.3e})  kernel {tk:.4f} ms "
+            f"({2 * n * d * e / (tk * 1e-3) / 1e12:.1f} TFLOP/s)  plain "
+            f"{tp:.4f} ms  cdist+argmin {tl:.4f} ms  bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})  [{card}]")
+        if name == "path":
+            # codes: max_abs_err is the largest f64 distance gap between
+            # differing picks (0 when every code is equal)
+            record(results, "vq_nearest", gap, tk, tp, tl, bnd)
+    emb_t = torch.zeros(8, 3000, device="cuda")
+    emb_t[:, [5, 1500, 2999]] = 1.0
+    tie = vq.vq_nearest(torch.ones(70, 8, device="cuda"), emb_t)
+    check(bool((tie == 5).all()), f"K3 tie: picked {tie.unique().tolist()}")
+    log("[k3] planted exact tie (one code at 5, 1500, 2999): first index 5 "
+        "on all 70 rows")
+
+
+def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
+    """K4 at the serving path's shape: 16 rows, S = prefix + 300 = 354."""
+    from xtts_tpu_torch.nn.transformer import KVCache
+    L, D, H, V = cfg.layers, cfg.model_dim, cfg.heads, cfg.number_mel_codes
+    g = torch.Generator(device="cuda").manual_seed(77)
+    idx = s_max - 1
+
+    def cache(rows, filled):
+        shape = (L, rows, s_max, H, D // H)
+        k = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+        v = torch.zeros_like(k)
+        k[:, :, :filled] = (torch.randn(L, rows, filled, H, D // H,
+                                        generator=g, device="cuda")
+                            * 0.5).bfloat16()
+        v[:, :, :filled] = (torch.randn(L, rows, filled, H, D // H,
+                                        generator=g, device="cuda")
+                            * 0.5).bfloat16()
+        return ss.quantize_kv_rowwise(KVCache(k, v))
+
+    def tokens(rows, step):
+        return (torch.arange(rows, device="cuda") * 37 + step * 11) % V
+
+    emb, pos = qt["mel_embedding"], qt["mel_pos_embedding"]
+    # --- one step at the last index, 16 rows ---
+    rows = 16
+    c_k = cache(rows, idx)
+    c_p = [t.clone() for t in c_k]
+    x = emb[tokens(rows, 0)] + pos[300][None]
+    lk = ss.fused_serving_logits(st, x, *c_k, idx, L, H)[0][:, :V]
+    lp = ss.fused_serving_logits_plain(st, x, *c_p, idx, L, H)[0][:, :V]
+    e_log = max_err(lk, lp)
+    l_max = lp.abs().max().item()
+    check(e_log <= K1_TOL * max(1.0, l_max), f"K4 step logits err {e_log}")
+    n_off = 0
+    for a, b in zip(c_k[:2], c_p[:2]):
+        diff = (a[:, :, idx].int() - b[:, :, idx].int()).abs()
+        check(diff.max().item() <= 1, f"K4 int8 rows differ by "
+              f"{diff.max().item()}")
+        n_off += int((diff > 0).sum())
+    e_sc = max(((a[0, :, idx] - b[0, :, idx]).abs() / b[0, :, idx]).max()
+               .item() for a, b in zip(c_k[2:], c_p[2:]))
+    check(e_sc <= 1e-6, f"K4 layer-0 row scales rel err {e_sc}")
+    log(f"[k4] step (16 rows, {L} layers, S {s_max}, index {idx}) vs plain "
+        f"step: logits max_abs_err {e_log:.3e} (bound {K1_TOL} x max(1, "
+        f"{l_max:.2f})), new int8 rows {n_off} of {2 * L * rows * D} values "
+        f"off by one (bound 1), layer-0 scales rel err {e_sc:.2e}  [{card}]")
+
+    # --- 64 teacher-forced steps from the prefix, greedy tie rule ---
+    c_k = cache(rows, p_len)
+    c_p = [t.clone() for t in c_k]
+    agree = ties = 0
+    e_chain = 0.0
+    for step in range(64):
+        x = emb[tokens(rows, step)] + pos[step + 2][None]
+        lk = ss.fused_serving_logits(st, x, *c_k, p_len + step, L, H)[0][:, :V]
+        lp = ss.fused_serving_logits_plain(st, x, *c_p, p_len + step, L,
+                                           H)[0][:, :V]
+        err = max_err(lk, lp)
+        check(err <= K1_TOL * max(1.0, lp.abs().max().item()),
+              f"K4 chain step {step} logits err {err}")
+        e_chain = max(e_chain, err)
+        ka, pa = lk.argmax(-1), lp.argmax(-1)
+        for r in (ka != pa).nonzero().flatten().tolist():
+            gap = (lp[r, pa[r]] - lp[r, ka[r]]).item()
+            check(gap <= 2 * err, f"K4 greedy step {step} row {r}: gap "
+                  f"{gap:.3e} > 2 x err {err:.3e}")
+            ties += 1
+        agree += int((ka == pa).sum())
+    log(f"[k4] 64-step teacher-forced chain, 16 rows: logits max_abs_err "
+        f"{e_chain:.3e}, greedy agreement {agree}/{64 * rows} (+{ties} ties "
+        f"within the step error)  [{card}]")
+
+    # --- ops at 16 rows: the fc product and the attention at the index ---
+    F = torch.nn.functional
+    w, sc, b = st["wfc"][0], st["sfc"][0], st["bfc"][0]
+    xin = torch.randn(rows, D, generator=g, device="cuda").bfloat16()
+    o1 = ss.int8_gemm_rows(xin, w, sc, b, gelu=True, out_dtype=torch.bfloat16)
+    o2 = ss.int8_gemm_rows_plain(xin, w, sc, b, gelu=True,
+                                 out_dtype=torch.bfloat16)
+    e_g = max_err(o1, o2)
+    check(e_g <= OP_TOL * max(1.0, o2.float().abs().max().item()),
+          f"int8_gemm_rows err {e_g}")
+    w_bf16 = (w.float() * sc).bfloat16()
+    kk, nn_ = w.shape
+    t_g = time_ms(torch, lambda: ss.int8_gemm_rows(
+        xin, w, sc, b, gelu=True, out_dtype=torch.bfloat16))
+    p_g = time_ms(torch, lambda: ss.int8_gemm_rows_plain(
+        xin, w, sc, b, gelu=True, out_dtype=torch.bfloat16))
+    l_g = time_ms(torch, lambda: torch.matmul(xin, w_bf16))
+    b_g = bound(kk * nn_ + 2 * rows * kk + 8 * nn_ + 2 * rows * nn_,
+                2 * rows * kk * nn_, "bf16")
+    record(results, "int8_gemm_rows", e_g, t_g, p_g, l_g, b_g)
+    log(f"[k4] int8_gemm_rows fc+gelu (16 x {kk} x {nn_}) max_abs_err "
+        f"{e_g:.3e}  kernel {t_g:.4f} ms ({w.numel() / (t_g * 1e-3) / 1e9:.0f}"
+        f" GB/s weights)  plain {p_g:.4f} ms  matmul(bf16 W) {l_g:.4f} ms  "
+        f"bound {b_g[0]:.5f} ms ({b_g[1]})  [{card}]")
+
+    c1 = [t[0].contiguous() for t in cache(rows, idx)]
+    c2 = [t.clone() for t in c1]
+    qkv = torch.randn(rows, 3 * D, generator=g, device="cuda")
+    a1 = ss.serving_attention(qkv, *c1, idx, H)
+    a2 = ss.serving_attention_plain(qkv, *c2, idx, H)
+    e_a = max_err(a1, a2)
+    check(e_a <= OP_TOL, f"serving_attention err {e_a}")
+    t_a = time_ms(torch, lambda: ss.serving_attention(qkv, *c1, idx, H))
+    p_a = time_ms(torch, lambda: ss.serving_attention_plain(qkv, *c2, idx,
+                                                            H))
+    b_a = bound(rows * (12 * D + 2 * idx * (D + 4) + 2 * D + 2 * (D + 4)),
+                4 * rows * idx * D, "bf16")
+    record(results, "serving_attention", e_a, t_a, p_a, None, b_a)
+    log(f"[k4] serving_attention (16 rows x {H} heads x 64, positions "
+        f"0..{idx - 1} + self) max_abs_err {e_a:.3e}  kernel {t_a:.4f} ms  "
+        f"plain {p_a:.4f} ms  library n/a (no one call takes an int8 "
+        f"cache)  bound {b_a[0]:.5f} ms ({b_a[1]})  [{card}]")
+
+    # --- the whole step at 8, 16 and 32 rows ---
+    parts = []
+    for r in (8, 16, 32):
+        c_k = cache(r, idx)
+        c_p = [t.clone() for t in c_k]
+        x = emb[tokens(r, 1)] + pos[300][None]
+        t_k = time_ms(torch, lambda: ss.fused_serving_logits(
+            st, x, *c_k, idx, L, H), reps=10)
+        t_p = time_ms(torch, lambda: ss.fused_serving_logits_plain(
+            st, x, *c_p, idx, L, H), reps=10)
+        w_bytes = sum(st[k].numel() for k in ("wqkv", "wproj", "wfc", "wout",
+                                              "whead"))
+        b_s = bound(w_bytes + 2 * L * r * idx * (D + 4), 2 * r * w_bytes,
+                    "bf16")
+        parts.append(f"{r} rows {t_k:.3f} ms (plain {t_p:.3f}, bound "
+                     f"{b_s[0]:.4f})")
+        del c_k, c_p
+    log(f"[k4] whole step at S {s_max}, index {idx}: " + "; ".join(parts)
+        + f"  [{card}]")
+
+
+def vqvae_phase(torch, np, vq, launches, card):
+    """BASELINE config #1: the DVAE round trip at flagship DVAEConfig,
+    B=8 x 1504 mel frames -> get_codebook_indices (K3) -> decode."""
+    from xtts_tpu_torch.core.config import DVAEConfig
+    from xtts_tpu_torch.models.dvae import DVAE
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+
+    cfg = DVAEConfig()
+    dvae = DVAE(cfg).to("cuda").eval()
+    init_flax_like(dvae, torch.Generator(device="cuda").manual_seed(11))
+    b, frames, reps = 8, 1504, 3
+    mel = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b, cfg.channels, frames)).astype(np.float32)).cuda()
+
+    def round_trip():
+        codes = dvae.get_codebook_indices(mel)
+        rec, _ = dvae.decode(codes)
+        return codes, rec
+
+    round_trip()                                   # warm: cuDNN plans
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        codes, rec = round_trip()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = launches.read()
+    check(got["vq_nearest"] == reps, f"K3 launches {got['vq_nearest']} for "
+          f"{reps} round trips")
+    check(tuple(codes.shape) == (b, frames // 4)
+          and tuple(rec.shape) == (b, cfg.channels, frames)
+          and bool(torch.isfinite(rec).all()),
+          f"round trip codes {tuple(codes.shape)} mel {tuple(rec.shape)}")
+    audio = reps * b * frames * 256 / SR
+    log(f"[vqvae] DVAE round trip (8 x 1504 frames, codebook 8192 x 512, "
+        f"f32): {reps} round trips in {dt:.3f} s = {audio / dt:.1f} "
+        f"audio-s/s; codes {tuple(codes.shape)}, mel {tuple(rec.shape)} "
+        f"finite; K3 launches {got['vq_nearest']}  [{card}]")
+    x = dvae.encode(mel).reshape(-1, cfg.codebook_dim).contiguous()
+    return x, dvae.codebook.embed
+
+
+def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
+    """BASELINE config #5: BatchServer waves of 8 requests x 2 CLVP
+    candidates (16 AR rows through K4), full-quality render; then a
+    shortcut wave and a default-engine wave."""
+    import os
+
+    from xtts_tpu_torch.infer.api import TTSSettings
+    from xtts_tpu_torch.infer.serving import (BatchServer, SynthesisRequest,
+                                              synthesize_batch)
+
+    settings = TTSSettings(max_mel_tokens=300, num_candidates=2)
+    L = cfg.gpt.layers
+    expect = (300 - 2) * cfg.vqvae.compression * cfg.vocos.hop_length
+    stage = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage[name] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    # instrumentation of this script only: stage times around the AR pass
+    # and the render of each wave
+    tts._generate = timed("ar", tts._generate)
+    tts._render = timed("render", tts._render)
+    tts._render_shortcut = timed("render", tts._render_shortcut)
+
+    def check_wave(name, wavs, got, full):
+        check(len(wavs) == 8 and all(
+            w.shape == (expect,) and w.dtype == np.float32
+            and bool(np.isfinite(w).all()) for w in wavs),
+            f"{name}: wavs {[w.shape for w in wavs]}, expected ({expect},)")
+        steps = 300
+        if got["fused_serving_logits"]:
+            check(got["fused_serving_logits"] == steps
+                  and got["int8_gemm_rows"] == steps * (4 * L + 1)
+                  and got["serving_attention"] == steps * L,
+                  f"{name}: K4 launches {got} for {steps} steps")
+        if full:
+            check(got["flash_mha"] >= 200, f"{name}: K2 launches "
+                  f"{got['flash_mha']} < 200")
+
+    os.environ["XTTS_FUSED_SERVING"] = "1"
+    server = BatchServer(tts, cond_mel, settings, max_batch=8,
+                         window_ms=200.0, use_diffusion=True)
+    try:
+        for wave in range(3):
+            launches.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            futs = [server.submit(text[0]) for _ in range(8)]
+            wavs = [f.result(timeout=900) for f in futs]
+            lat = time.perf_counter() - t0
+            got = launches.read(add=wave > 0)
+            check_wave(f"wave {wave}", wavs, got, True)
+            check(got["fused_serving_logits"] == 300,
+                  f"wave {wave}: K4 steps {got['fused_serving_logits']}")
+            audio = sum(w.size for w in wavs) / SR
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[serving] {'warm' if wave == 0 else 'timed'} wave {wave}: "
+                f"8 requests x 2 candidates (16 AR rows, K4), 300 steps, "
+                f"full-quality render: {audio:.2f} s audio in {lat:.3f} s = "
+                f"{audio / lat:.2f} audio-s/s; AR {stage['ar']:.3f} s "
+                f"({300 / stage['ar']:.1f} steps/s), render "
+                f"{stage['render']:.3f} s, rest (CLVP rerank, queue) "
+                f"{lat - stage['ar'] - stage['render']:.3f} s; peak "
+                f"{peak:.2f} GiB; launches K4 steps "
+                f"{got['fused_serving_logits']} (int8_gemm_rows "
+                f"{got['int8_gemm_rows']}, serving_attention "
+                f"{got['serving_attention']}, layer_norm_rows "
+                f"{got['layer_norm_rows']}), K2 {got['flash_mha']}  [{card}]")
+        st = server.stats()
+        check(st["completed"] == 24 and st["failed"] == 0
+              and st["waves"] == 3, f"server stats {st}")
+        log(f"[serving] BatchServer.stats: {json.dumps(st)}")
+    finally:
+        server.close()
+
+    reqs = [SynthesisRequest(text[0]) for _ in range(8)]
+    for name, env in (("shortcut, K4", "1"), ("shortcut, default engine",
+                                              None)):
+        if env is None:
+            os.environ.pop("XTTS_FUSED_SERVING", None)
+        launches.reset()
+        t0 = time.perf_counter()
+        wavs = synthesize_batch(tts, reqs, cond_mel, settings,
+                                use_diffusion=False,
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(9))
+        lat = time.perf_counter() - t0
+        got = launches.read()
+        check_wave(name, wavs, got, False)
+        if env is not None:
+            check(got["fused_serving_logits"] == 300, f"{name}: K4 steps")
+        else:
+            check(got["fused_serving_logits"] == 0, f"{name}: K4 launched")
+        audio = sum(w.size for w in wavs) / SR
+        log(f"[serving] synthesize_batch, {name}: 8 x 2 candidates, 300 "
+            f"steps: {audio:.2f} s audio in {lat:.3f} s = {audio / lat:.2f} "
+            f"audio-s/s; AR {stage['ar']:.3f} s ({300 / stage['ar']:.1f} "
+            f"steps/s), render {stage['render']:.3f} s  [{card}]")
+    for name in ("_generate", "_render", "_render_shortcut"):
+        del tts.__dict__[name]
+
 
 
 def consumer_attention_check(torch, fa, tts):
@@ -494,6 +963,7 @@ def profile_request(torch, tts, text, cond_mel, settings, card):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     torch = require_card()
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -511,37 +981,44 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. build ----
-    from xtts_tpu_torch.ops.build import BUILD_DIR, load_library
-    built = []
-    for name in ("decode_step", "flash_attn"):
-        t0 = time.perf_counter()
-        load_library(name)
-        built.append(f"{name} {time.perf_counter() - t0:.1f} s")
-    log(f"[build] nvcc sm_90a into {BUILD_DIR}: " + ", ".join(built))
+    from xtts_tpu_torch.ops.build import BUILD_DIR, build_all
+    t0 = time.perf_counter()
+    names = ("decode_step", "flash_attn", "vq", "serving_step")
+    build_all(names)
+    log(f"[build] nvcc sm_90a into {BUILD_DIR}: {', '.join(names)} in "
+        f"{time.perf_counter() - t0:.1f} s (one process each, in parallel)")
 
     from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings, XTTSConfig
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.nn import flash_attn as fa
     from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    from xtts_tpu_torch.ops import vq
 
     cfg = XTTSConfig()
     text_len, max_gen = 50, 300
     p_len = 1 + (text_len + 2) + 1            # cond + [start; text; stop] + start
-    s_max = -(-(p_len + max_gen) // 8) * 8
+    s_max = -(-(p_len + max_gen) // 8) * 8    # K1's cache (8-aligned)
+    launches = Launches(ds.KERNELS + (fa.flash_mha,) + vq.KERNELS
+                        + ss.KERNELS + (ds.fused_decode_logits,
+                                        ss.fused_serving_logits))
 
     # ---- 3. kernels vs their plain twins ----
     results = {}
     with torch.no_grad():
-        k1_checks(torch, ds, quantize_dense, cfg.gpt, s_max, p_len, results,
-                  card)
+        qt, st = k1_checks(torch, ds, quantize_dense, cfg.gpt, s_max, p_len,
+                           results, card)
         k2_checks(torch, fa, results, card)
+        k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
+                  results, card)
+        del qt, st
     small_reference_check(torch, np, TextToSpeech, TTSSettings)
 
-    # ---- 4. main path ----
+    # ---- 4. main path (B=1, K1 + K2) ----
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(0)
     tts = TextToSpeech(cfg, device="cuda", dtype=torch.bfloat16,
-                       quantized_decode=True, generator=g)
+                       quantized_decode=True, with_clvp=True, generator=g)
     with torch.no_grad():
         # random weights stop at a random step; pinning the stop logit low
         # makes every request decode the full max_mel_tokens and render
@@ -550,8 +1027,8 @@ def main() -> None:
         tts.requantize()
         consumer_attention_check(torch, fa, tts)
     torch.cuda.synchronize()
-    log(f"[main] TextToSpeech(XTTSConfig(), bf16, int8 decode) random init "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[main] TextToSpeech(XTTSConfig(), bf16, int8 decode, CLVP) random "
+        f"init {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     t = np.arange(3 * SR) / SR
@@ -562,21 +1039,18 @@ def main() -> None:
     check(tuple(cond_mel.shape) == (1, 100, 282), f"cond mel {cond_mel.shape}")
     settings = TTSSettings(max_mel_tokens=max_gen)
 
-    counted = ds.KERNELS + (ds.fused_decode_logits, fa.flash_mha)
-    for fn in counted:
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     for seed in (1, 2, 3):
-        before = {fn.__name__: fn.launches for fn in counted}
+        launches.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = tts.tts_tokens(text, cond_mel,
                              torch.Generator(device="cuda").manual_seed(seed),
                              settings)
         latency = time.perf_counter() - t0
+        d = launches.read()
         wav, steps = out["wav"], out["steps"]
         n = max(int(out["lengths"][0]) - 2, 1)
-        d = {fn.__name__: fn.launches - before[fn.__name__] for fn in counted}
         check(wav.shape == (1, n * 1024), f"wav shape {wav.shape}, n {n}")
         check(wav.dtype == np.float32 and bool(np.isfinite(wav).all()),
               "wav not finite float32")
@@ -599,30 +1073,42 @@ def main() -> None:
             f"K2 {d['flash_mha']} [{card}]")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[main] peak device memory {peak:.2f} GiB [{card}]")
-    launches = {fn.__name__: fn.launches for fn in counted}
 
-    # ---- 5. profile ----
+    # ---- 5. vqvae (config #1, K3) ----
+    with torch.no_grad():
+        x_path, emb_path = vqvae_phase(torch, np, vq, launches, card)
+        k3_checks(torch, vq, x_path, emb_path, results, card)
+        del x_path, emb_path
+
+    # ---- 6. serving (config #5, K4 + CLVP + K2) ----
+    serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
+
+    # ---- 7. profile (B=1) ----
     profile_request(torch, tts, text, cond_mel, settings, card)
-    check("jax" not in sys.modules and "flax" not in sys.modules,
-          "JAX was imported")
+    leaked = [m for m in ("jax", "flax", "xtts_tpu") if m in sys.modules]
+    check(not leaked, f"imported {leaked}")
 
-    # ---- 6. results ----
-    sources = {"layer_norm_rows": "decode_step", "int8_gemv": "decode_step",
-               "decode_attention": "decode_step", "flash_mha": "flash_attn"}
-    replaces = {"decode_step": "xtts_tpu/ops/decode_step.py:68",
-                "flash_attn": "xtts_tpu/nn/flash_attn.py:99"}
+    # ---- 8. results ----
+    src = {"decode_step": ("xtts_tpu_torch/csrc/decode_step.cu",
+                           "xtts_tpu/ops/decode_step.py:299"),
+           "flash_attn": ("xtts_tpu_torch/csrc/flash_attn.cu",
+                          "xtts_tpu/nn/flash_attn.py:54"),
+           "vq": ("xtts_tpu_torch/csrc/vq.cu", "xtts_tpu/ops/vq.py:69"),
+           "serving_step": ("xtts_tpu_torch/csrc/serving_step.cu",
+                            "xtts_tpu/ops/serving_step.py:315")}
+    of = {"layer_norm_rows": "decode_step", "int8_gemv": "decode_step",
+          "decode_attention": "decode_step", "flash_mha": "flash_attn",
+          "vq_nearest": "vq", "int8_gemm_rows": "serving_step",
+          "serving_attention": "serving_step"}
     kernels = []
-    for fn in ds.KERNELS + (fa.flash_mha,):
-        src = sources[fn.__name__]
-        r = results[fn.__name__]
-        kernels.append({"name": fn.__name__, "route": "cuda",
-                        "source": f"xtts_tpu_torch/csrc/{src}.cu",
-                        "replaces": replaces[src],
-                        "launches": launches[fn.__name__],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
-        check(launches[fn.__name__] > 0,
-              f"{fn.__name__} never launched on the path")
+    for name, lib in of.items():
+        r = results[name]
+        check(launches.total[name] > 0, f"{name} never launched on a path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": src[lib][0], "replaces": src[lib][1],
+                        "launches": launches.total[name], **r})
+    log(f"[done] total wall time {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

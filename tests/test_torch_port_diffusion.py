@@ -10,6 +10,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from xtts_tpu.core.config import CLIPRefConfig, DiffusionModelConfig  # noqa
+from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu.diffusion import gaussian as jg  # noqa: E402
 from xtts_tpu.models import aa_diffusion as jad  # noqa: E402
 from xtts_tpu_torch.diffusion import gaussian as tg  # noqa: E402
@@ -48,9 +49,10 @@ def models():
                             jnp.array([0]), jnp.zeros((1, 128, 4)),
                             jnp.zeros((1, 8, 16)))
     params = randomize(init["params"], np.random.default_rng(0))
-    tm = tad.AADiffusion(CFG).eval()
-    tm.load_state_dict(convert.to_torch(convert.aa_diffusion_from_jax(params,
-                                                                       CFG)))
+    port_cfg = tcfg.DiffusionModelConfig.from_dict(CFG.to_dict())
+    tm = tad.AADiffusion(port_cfg).eval()
+    tm.load_state_dict(convert.to_torch(device="cpu", sd=convert.aa_diffusion_from_jax(
+        params, port_cfg)))
     return jm, {"params": params}, tm
 
 
@@ -196,7 +198,7 @@ def test_p_sample_loop_generator_determinism(models):
     _, _, tm = models
     gd = tg.GaussianDiffusion.spaced(1000, 4)
     fn = lambda x, t: torch.cat([x * 0.5, torch.zeros_like(x)], dim=1)
-    runs = [gd.p_sample_loop(fn, (1, 8, 10),
-                             torch.Generator().manual_seed(3)) for _ in range(2)]
+    runs = [gd.p_sample_loop(fn, (1, 8, 10), torch.Generator().manual_seed(3),
+                             device="cpu") for _ in range(2)]
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
     assert torch.isfinite(runs[0]).all()

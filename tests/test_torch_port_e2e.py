@@ -3,6 +3,7 @@ diffusion -> Vocos, xtts_tpu_torch.infer.api.TextToSpeech against
 xtts_tpu.infer.api.TextToSpeech on one tiny configuration (f32, CPU), plus
 the import and weight-layout guards of the port."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ from xtts_tpu.core.config import (CLIPRefConfig, DVAEConfig,  # noqa: E402
                                   VocosConfig, XTTSConfig)
 from xtts_tpu.infer import api as japi, qdecode as jq  # noqa: E402
 from xtts_tpu.utils import convert as jconv  # noqa: E402
+from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.infer import api as tapi, qdecode as tq  # noqa: E402
 from xtts_tpu_torch.nn import flash_attn as tfa  # noqa: E402
 from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
@@ -43,17 +45,7 @@ TINY = XTTSConfig(
     vocos=VocosConfig(input_channels=MB, dim=32, intermediate_dim=64,
                       num_layers=1, n_fft=64, hop_length=16),
 )
-SLICE_MODULES = [
-    "xtts_tpu_torch", "xtts_tpu_torch.core.config",
-    "xtts_tpu_torch.dsp.spectral", "xtts_tpu_torch.dsp.mel",
-    "xtts_tpu_torch.nn.blocks", "xtts_tpu_torch.nn.transformer",
-    "xtts_tpu_torch.nn.flash_attn", "xtts_tpu_torch.models.gpt",
-    "xtts_tpu_torch.models.gpt_infer", "xtts_tpu_torch.models.aa_diffusion",
-    "xtts_tpu_torch.models.vocos", "xtts_tpu_torch.ops.build",
-    "xtts_tpu_torch.ops.decode_step", "xtts_tpu_torch.infer.sampling",
-    "xtts_tpu_torch.infer.qdecode", "xtts_tpu_torch.infer.api",
-    "xtts_tpu_torch.diffusion.gaussian", "xtts_tpu_torch.utils.convert",
-]
+TINY_T = tcfg.XTTSConfig.from_dict(TINY.to_dict())
 
 
 def randomize(tree, rng):
@@ -85,7 +77,8 @@ def pair():
     jtts.vars.update(vars_np)
     jtts._qtree = jq.quantize_gpt_decode(jtts.vars["gpt"], TINY.gpt,
                                          include_fused=True)
-    ttts = tapi.TextToSpeech.from_jax(vars_np, TINY, quantized_decode=True)
+    ttts = tapi.TextToSpeech.from_jax(vars_np, TINY_T, device="cpu",
+                                      quantized_decode=True)
     return jtts, ttts, vars_np
 
 
@@ -208,22 +201,64 @@ def test_state_dict_round_trip(pair):
         sd["vocos"], TINY.vocos.num_layers), vars_np["vocos"]["params"])
 
 
+def _port_modules():
+    """Every module of the port, found on disk (the new ones included)."""
+    pkg = REPO / "xtts_tpu_torch"
+    return sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in pkg.rglob("*.py"))
+
+
 def test_imports_without_jax():
-    code = ("import sys, importlib\n"
-            "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
-            f"for m in {SLICE_MODULES!r}:\n    importlib.import_module(m)\n"
-            "print('imported', len(sys.modules) > 0)\n")
+    """With jax, flax and the JAX package blocked: every port module
+    imports, and tts(text) runs end to end on the CPU."""
+    mods = _port_modules()
+    assert "xtts_tpu_torch.infer.serving" in mods
+    assert "xtts_tpu_torch.text.frontend" in mods
+    code = f"""
+import sys, importlib
+for name in ("jax", "flax", "xtts_tpu"):
+    sys.modules[name] = None
+for m in {mods!r}:
+    importlib.import_module(m)
+import numpy as np
+from xtts_tpu_torch.core.config import XTTSConfig
+from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+cfg = XTTSConfig.from_dict({TINY.to_dict()!r})
+tts = TextToSpeech(cfg, device="cpu", quantized_decode=True)
+rng = np.random.default_rng(0)
+wav = (0.1 * rng.standard_normal(cfg.mel.sample_rate // 2)).astype("float32")
+out = tts.tts("你好。今天很好！", wav,
+              settings=TTSSettings(max_mel_tokens=12, diffusion_steps=2))
+assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "xtts_tpu")
+       and sys.modules[m] is not None]
+print("imported", len({mods!r}), "ran tts", out.shape[0], "leaked", bad)
+"""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "imported True" in proc.stdout
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(mods)} ran tts" in proc.stdout
+    assert "leaked []" in proc.stdout
 
 
 def test_no_jax_import_in_package():
-    for path in (REPO / "xtts_tpu_torch").rglob("*.py"):
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|xtts_tpu)(\.|\s|$)")
+    files = list((REPO / "xtts_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    for path in files:
         for line in path.read_text().splitlines():
-            s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")
-                        or s.startswith("import flax")
-                        or s.startswith("from flax")), (path, s)
+            assert not pat.match(line), (path, line)
+
+
+def test_entry_points_default_to_the_card():
+    """With no device given, the entry points take the card; on a machine
+    without one they raise instead of running on the CPU."""
+    from xtts_tpu_torch.dsp.mel import MelFrontend
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the defaults run there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.TextToSpeech(TINY_T)
+    with pytest.raises((RuntimeError, AssertionError)):
+        MelFrontend(TINY_T.mel)

@@ -13,6 +13,7 @@ from xtts_tpu.core.config import GPTConfig  # noqa: E402
 from xtts_tpu.infer import qdecode as jq, sampling as js  # noqa: E402
 from xtts_tpu.models import gpt as jgpt, gpt_infer as jgi  # noqa: E402
 from xtts_tpu.nn.transformer import KVCache as JKV  # noqa: E402
+from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.infer import qdecode as tq, sampling as ts  # noqa: E402
 from xtts_tpu_torch.models import gpt as tgpt, gpt_infer as tgi  # noqa: E402
 from xtts_tpu_torch.nn.transformer import KVCache as TKV  # noqa: E402
@@ -21,6 +22,7 @@ from xtts_tpu_torch.utils import convert  # noqa: E402
 CFG = GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=64,
                 max_text_tokens=32, number_mel_codes=200, start_mel_token=198,
                 stop_mel_token=199, mel_bins=8, cond_attn_blocks=2)
+TCFG = tcfg.GPTConfig.from_dict(CFG.to_dict())
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -51,8 +53,8 @@ def models():
                             jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
                             jnp.zeros((1, 16), jnp.int32), jnp.array([16384]))
     params = randomize(init["params"], np.random.default_rng(0))
-    tm = tgpt.UnifiedVoice(CFG).eval()
-    tm.load_state_dict(convert.to_torch(
+    tm = tgpt.UnifiedVoice(TCFG).eval()
+    tm.load_state_dict(convert.to_torch(device="cpu", sd=
         convert.unified_voice_from_jax(params, CFG.layers,
                                        CFG.cond_attn_blocks)))
     return jm, {"params": params}, tm
@@ -107,7 +109,8 @@ def test_prefix_prefill_decode_one(models):
     with torch.no_grad():
         tp, tn = tm.encode_prefix(torch.from_numpy(cond),
                                   torch.from_numpy(text).long())
-        cache = TKV.zeros(2, 2, p_len + 4, 2, 64, torch.float32)
+        cache = TKV.zeros(2, 2, p_len + 4, 2, 64, torch.float32,
+                          device="cpu")
         tl0, cache = tm.prefill(tp, cache)
         tl1, _ = tm.decode_one(torch.from_numpy(tok).long(), 1 + tn, cache,
                                p_len)

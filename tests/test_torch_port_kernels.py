@@ -9,7 +9,8 @@ PyTorch + CUDA; there, skip the JAX test harness's conftest:
 Tolerances: single ops 1e-2 (one bf16 rounding of O(1) values on either
 side), the whole decode step 2e-2 relative to the logits' scale
 (tests/test_decode_step.py's bound), flash attention 1e-2 against f32
-attention on the same bf16 inputs.
+attention on the same bf16 inputs; K3 codes equal up to fp32 ties (the
+bound at _vq_agree); K4 as K1, with the new int8 cache rows within +-1.
 """
 import math
 
@@ -195,3 +196,146 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ds.int8_gemv(torch.zeros(64, device="cuda").bfloat16(), w,
                      torch.ones(48, device="cuda"), torch.zeros(48,
                                                                 device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# K3: VQ nearest code. Codes must equal the plain twin's, except where the
+# two picks' distances, recomputed in f64, lie within the fp32 error bound
+# of one D-term dot product (4 D 2^-24 (2 sum|x||e| + |e|^2)): the two sum
+# in another order, so an exact-looking tie may break either way.
+# ---------------------------------------------------------------------------
+
+def _vq_agree(x, e, got, want):
+    x64, e64 = x.double(), e.double()
+    bad = (got != want).nonzero().flatten()
+    for r in bad.tolist():
+        picks = torch.tensor([int(got[r]), int(want[r])], device=x.device)
+        ep = e64[:, picks]
+        dist = (ep * ep).sum(0) - 2 * x64[r] @ ep
+        bound = 4 * x.shape[1] * 2.0 ** -24 * (
+            2 * (x64[r].abs()[:, None] * ep.abs()).sum(0) + (ep * ep).sum(0))
+        assert (dist[0] - dist[1]).abs() <= bound.max(), (r, dist, bound)
+    return len(bad)
+
+
+@pytest.mark.parametrize("n,d,e", [(3008, 512, 8192), (1001, 512, 8000),
+                                   (37, 16, 50), (64, 24, 1025)])
+def test_vq_nearest(cuda, n, d, e):
+    from xtts_tpu_torch.ops import vq
+    x = torch.randn(n, d, generator=cuda, device="cuda")
+    emb = torch.randn(d, e, generator=cuda, device="cuda")
+    vq.vq_nearest.launches = 0
+    got = vq.vq_nearest(x, emb)
+    want = vq.vq_nearest_plain(x, emb)
+    torch.cuda.synchronize()
+    assert vq.vq_nearest.launches == 1 and got.dtype == torch.int64
+    assert _vq_agree(x, emb, got, want) <= max(1, n // 1000)
+
+
+def test_vq_nearest_first_index_on_ties(cuda):
+    from xtts_tpu_torch.ops import vq
+    emb = torch.zeros(8, 3000, device="cuda")
+    emb[:, [5, 1500, 2999]] = 1.0                 # one code, three ranges
+    x = torch.ones(70, 8, device="cuda")
+    assert (vq.vq_nearest(x, emb) == 5).all()
+
+
+# ---------------------------------------------------------------------------
+# K4: the B-row int8-KV serving step (tolerances as for K1)
+# ---------------------------------------------------------------------------
+
+def _serving_cache(g, layers, rows, s_max, d, p_len):
+    from xtts_tpu_torch.nn.transformer import KVCache
+    from xtts_tpu_torch.ops import serving_step as ss
+    shape = (layers, rows, s_max, d // 64, 64)
+    k = torch.zeros(shape, device="cuda")
+    v = torch.zeros(shape, device="cuda")
+    k[:, :, :p_len] = torch.randn(layers, rows, p_len, d // 64, 64,
+                                  generator=g, device="cuda") * 0.5
+    v[:, :, :p_len] = torch.randn(layers, rows, p_len, d // 64, 64,
+                                  generator=g, device="cuda") * 0.5
+    return ss.quantize_kv_rowwise(KVCache(k.bfloat16(), v.bfloat16()))
+
+
+@pytest.mark.parametrize("rows,k,n,gelu,mode", [
+    (16, 1024, 3072, False, "f32"), (16, 1024, 1024, False, "acc"),
+    (16, 1024, 4096, True, "bf16"), (16, 4096, 1024, False, "acc"),
+    (16, 1024, 9216, False, "f32"), (8, 1024, 3072, False, "f32"),
+    (32, 1024, 1024, True, "bf16"), (3, 100, 64, False, "acc"),
+    (1, 128, 32, True, "f32")])
+def test_int8_gemm_rows(cuda, rows, k, n, gelu, mode):
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import serving_step as ss
+    q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
+                       / math.sqrt(k))
+    x = torch.randn(rows, k, generator=cuda, device="cuda").bfloat16()
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    if mode == "acc":
+        base = torch.randn(rows, n, generator=cuda, device="cuda")
+        got, want = base.clone(), base.clone()
+        ss.int8_gemm_rows(x, q["w"], q["scale"], bias, out=got, gelu=gelu)
+        ss.int8_gemm_rows_plain(x, q["w"], q["scale"], bias, out=want,
+                                gelu=gelu)
+    else:
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        got = ss.int8_gemm_rows(x, q["w"], q["scale"], bias, gelu=gelu,
+                                out_dtype=dt)
+        want = ss.int8_gemm_rows_plain(x, q["w"], q["scale"], bias,
+                                       gelu=gelu, out_dtype=dt)
+        assert got.dtype == dt
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("rows,heads,s_max,idx", [
+    (16, 16, 360, 354), (16, 16, 360, 0), (8, 16, 360, 200),
+    (32, 16, 200, 150), (3, 2, 40, 17)])
+def test_serving_attention(cuda, rows, heads, s_max, idx):
+    from xtts_tpu_torch.ops import serving_step as ss
+    d = heads * 64
+    kc, vc, ks, vs = (t[0].contiguous() for t in _serving_cache(
+        cuda, 1, rows, s_max, d, idx))
+    qkv = torch.randn(rows, 3 * d, generator=cuda, device="cuda")
+    k2, v2, ks2, vs2 = kc.clone(), vc.clone(), ks.clone(), vs.clone()
+    ss.serving_attention.launches = 0
+    got = ss.serving_attention(qkv, kc, vc, ks, vs, idx, heads)
+    want = ss.serving_attention_plain(qkv, k2, v2, ks2, vs2, idx, heads)
+    torch.cuda.synchronize()
+    assert ss.serving_attention.launches == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert (kc.int() - k2.int()).abs().max() <= 1
+    assert (vc.int() - v2.int()).abs().max() <= 1
+    torch.testing.assert_close(ks, ks2, rtol=1e-6, atol=0)
+    torch.testing.assert_close(vs, vs2, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("layers,d,heads,vocab,rows", [
+    (2, 128, 2, 200, 8), (15, 1024, 16, 8194, 16)])
+def test_serving_step_chain(cuda, layers, d, heads, vocab, rows):
+    """16 teacher-forced steps: K4 chain vs the plain step."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    s_max, p_len = 96, 54
+    qt = _qtree(cuda, layers, d, vocab, s_max)
+    st = ds.stack_qtree(qt, vocab)
+    c1 = _serving_cache(cuda, layers, rows, s_max, d, p_len)
+    c2 = [t.clone() for t in c1]
+    ss.reset_launch_counts()
+    agree = 0
+    for step in range(16):
+        tok = (torch.arange(rows, device="cuda") * 37 + step) % vocab
+        x = qt["mel_embedding"][tok] + qt["mel_pos_embedding"][step][None]
+        got = ss.fused_serving_logits(st, x, *c1, p_len + step, layers,
+                                      heads)[0][:, :vocab]
+        want = ss.fused_serving_logits_plain(st, x, *c2, p_len + step,
+                                             layers, heads)[0][:, :vocab]
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 2e-2 * scale, step
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    torch.cuda.synchronize()
+    assert agree >= 16 * rows - 2
+    assert ss.fused_serving_logits.launches == 16
+    assert ss.int8_gemm_rows.launches == 16 * (4 * layers + 1)
+    assert ss.serving_attention.launches == 16 * layers

@@ -1,0 +1,234 @@
+"""K4 (ops/serving_step.py): the port's plain twin of the B-row int8-KV
+serving step against the JAX Pallas kernel in interpret mode
+(_fused_serving_logits), and the kv_quant per-layer chain against JAX's, on
+the CPU, from the same numpy weights and caches.
+
+Tolerances: logits within 2e-2 x max(1, |logits|) (tests/test_serving_step
+.py's chunked-vs-single bound: the two sides round the bf16 products and
+probabilities at the same places but sum in another order); the new int8
+cache rows within +-1 (a rounding tie may fall either way; counted); the
+row scales within 1e-6 relative at layer 0 and 2e-2 deeper; a greedy pick that differs must be a tie
+within 2x the step's logit error."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from xtts_tpu.infer import qdecode as jq  # noqa: E402
+from xtts_tpu.nn.transformer import KVCache as JKV  # noqa: E402
+from xtts_tpu.ops import decode_step as jds, serving_step as jss  # noqa
+from xtts_tpu_torch.infer import qdecode as tq  # noqa: E402
+from xtts_tpu_torch.nn.transformer import KVCache as TKV  # noqa: E402
+from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
+from xtts_tpu_torch.ops import serving_step as tss  # noqa: E402
+
+LAYERS, D, HEADS, S_MAX, VOCAB, B = 2, 128, 2, 128, 200, 8
+TOL = 2e-2
+
+
+def make_qtree(seed):
+    """The JAX test suite's qtree recipe (tests/test_decode_step.py)."""
+    rng = np.random.default_rng(seed)
+
+    def qd(i, o):
+        return jq.quantize_dense(jnp.asarray(
+            rng.standard_normal((i, o)).astype(np.float32) * 0.1))
+
+    def vec(n):
+        return jnp.asarray(rng.uniform(-0.2, 0.2, n).astype(np.float32))
+
+    def ln():
+        return {"scale": 1.0 + vec(D), "bias": vec(D)}
+
+    return {
+        "layers": [{"ln_1": ln(), "ln_2": ln(), "qkv": qd(D, 3 * D),
+                    "qkv_b": vec(3 * D), "proj": qd(D, D), "proj_b": vec(D),
+                    "fc": qd(D, 4 * D), "fc_b": vec(4 * D),
+                    "out": qd(4 * D, D), "out_b": vec(D)}
+                   for _ in range(LAYERS)],
+        "ln_f": ln(), "final_norm": ln(),
+        "mel_head": qd(D, VOCAB), "mel_head_b": vec(VOCAB),
+        "mel_embedding": jnp.asarray(rng.standard_normal(
+            (VOCAB, D)).astype(np.float32) * 0.3, jnp.bfloat16),
+        "mel_pos_embedding": jnp.asarray(rng.standard_normal(
+            (S_MAX, D)).astype(np.float32) * 0.1, jnp.bfloat16),
+    }
+
+
+def to_port(tree):
+    if isinstance(tree, dict):
+        return {k: to_port(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_port(v) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).bfloat16()
+    return torch.from_numpy(np.array(a))
+
+
+def make_cache(seed, prefix_len):
+    rng = np.random.default_rng(seed)
+    shape = (LAYERS, B, S_MAX, HEADS, D // HEADS)
+    k, v = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    for a in (k, v):
+        a[:, :, :prefix_len] = rng.standard_normal(
+            (LAYERS, B, prefix_len, HEADS, D // HEADS)) * 0.5
+    jc = JKV(jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16))
+    tc = TKV(torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16())
+    return jc, tc
+
+
+def jax_step(jqt, jcache, tok, mel_pos, index):
+    stacked = jds.stack_qtree(jqt, VOCAB)
+    kc, vc, ks, vs = jss.quantize_kv_rowwise(jcache, S_MAX)
+    x = jqt["mel_embedding"][tok] + jqt["mel_pos_embedding"][
+        jnp.atleast_1d(mel_pos)]
+    out = jss.fused_serving_logits(stacked, x, kc, vc, ks, vs, index,
+                                   LAYERS, HEADS, interpret=True)
+    return [np.asarray(o, np.float32) for o in out]
+
+
+def port_step(tqt, cache4, tok, mel_pos, index):
+    st = tds.stack_qtree(tqt, VOCAB)
+    x = tqt["mel_embedding"][tok] + tqt["mel_pos_embedding"][mel_pos][None]
+    return tss.fused_serving_logits(st, x, *cache4, index, LAYERS, HEADS)
+
+
+def test_quantize_kv_rowwise_identical():
+    jc, tc = make_cache(3, 50)
+    want = jss.quantize_kv_rowwise(jc, S_MAX)
+    got = tss.quantize_kv_rowwise(tc)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("index", [3, 40, S_MAX - 1])
+def test_single_step_matches_jax_kernel(index):
+    jqt = make_qtree(0)
+    tqt = to_port(jqt)
+    jc, tc = make_cache(7 + index, index)
+    tok = np.arange(B) % 5 + 1
+    jl, jkc, jvc, jks, jvs = jax_step(jqt, jc, jnp.asarray(tok, jnp.int32),
+                                      4, index)
+    cache4 = tss.quantize_kv_rowwise(tc)
+    before = [t.clone() for t in cache4]
+    tss.reset_launch_counts()
+    tl, tkc, tvc, tks, tvs = port_step(tqt, cache4, torch.from_numpy(tok),
+                                       4, index)
+    assert tss.fused_serving_logits.launches == 0      # CPU: plain twins
+    got, want = tl.numpy()[:, :VOCAB], jl[:, :VOCAB]
+    err = np.abs(got - want).max()
+    assert err <= TOL * max(1.0, np.abs(want).max()), err
+    assert tl.numpy()[:, VOCAB:].max() < -1e8
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    # the new rows at `index`: int8 within +-1, scales equal
+    for g, w in ((tkc, jkc), (tvc, jvc)):
+        diff = np.abs(g[:, :, index].numpy().astype(np.int32)
+                      - w[:, :, index].astype(np.int32))
+        assert diff.max() <= 1
+        print(f"index {index}: {int((diff > 0).sum())} of {diff.size} int8 "
+              f"values off by one")
+    for g, w in ((tks, jks), (tvs, jvs)):
+        # layer 0 quantizes the same rows; deeper layers' rows carry the
+        # upstream summation-order differences
+        np.testing.assert_allclose(g[0, :, index].numpy(), w[0, :, index],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(g[1:, :, index].numpy(), w[1:, :, index],
+                                   rtol=TOL)
+    # nothing else moved
+    mask = torch.arange(S_MAX) != index
+    for g, b0 in zip((tkc, tvc, tks, tvs), before):
+        assert torch.equal(g[:, :, mask], b0[:, :, mask])
+
+
+def test_padding_is_inert():
+    """Garbage at positions >= index must not change the logits (ladder
+    growth relies on this)."""
+    tqt = to_port(make_qtree(2))
+    idx = 30
+    _, tc = make_cache(5, idx)
+    tok = torch.ones(B, dtype=torch.long)
+    clean = port_step(tqt, tss.quantize_kv_rowwise(tc), tok, 3, idx)[0]
+    dirty = tss.quantize_kv_rowwise(tc)
+    for t, val in zip(dirty, (77, -55, 3.0, 9.0)):
+        t[:, :, idx:] = val
+    noisy = port_step(tqt, dirty, tok, 3, idx)[0]
+    assert torch.equal(clean, noisy)
+
+
+def test_teacher_forced_chain():
+    """8 steps with the same forced tokens on both sides, each side keeping
+    its own int8 cache."""
+    jqt = make_qtree(1)
+    tqt = to_port(jqt)
+    p_len = 20
+    jc, tc = make_cache(9, p_len)
+    jkc, jvc, jks, jvs = jss.quantize_kv_rowwise(jc, S_MAX)
+    cache4 = tss.quantize_kv_rowwise(tc)
+    stacked_j = jds.stack_qtree(jqt, VOCAB)
+    rng = np.random.default_rng(4)
+    agree = ties = 0
+    for step in range(8):
+        tok = rng.integers(0, VOCAB, B)
+        x = jqt["mel_embedding"][jnp.asarray(tok)] + jqt[
+            "mel_pos_embedding"][jnp.atleast_1d(step + 2)]
+        jl, jkc, jvc, jks, jvs = jss.fused_serving_logits(
+            stacked_j, x, jkc, jvc, jks, jvs, p_len + step, LAYERS, HEADS,
+            interpret=True)
+        tl = port_step(tqt, cache4, torch.from_numpy(tok), step + 2,
+                       p_len + step)[0]
+        want, got = np.asarray(jl)[:, :VOCAB], tl.numpy()[:, :VOCAB]
+        err = np.abs(got - want).max()
+        assert err <= TOL * max(1.0, np.abs(want).max()), (step, err)
+        for r in range(B):
+            gp, wp = got[r].argmax(), want[r].argmax()
+            if gp == wp:
+                agree += 1
+            else:
+                assert want[r, wp] - want[r, gp] <= 2 * err, (step, r)
+                ties += 1
+    print(f"teacher-forced greedy agreement {agree}/{8 * B} (+{ties} ties)")
+    assert agree + ties == 8 * B
+
+
+def test_kv_quant_chain_step_matches_jax():
+    """The kv_quant engine's per-layer step (_decode_step_qkv)."""
+    jqt = make_qtree(3)
+    tqt = to_port(jqt)
+    jc, tc = make_cache(12, 33)
+    tok = np.arange(B) % 7 + 2
+    jl, jcache = jq._decode_logits(jqt, HEADS, jnp.asarray(tok, jnp.int32),
+                                   5, jq.quantize_kv(jc), 33)
+    tcache = tq.quantize_kv(tc)
+    tl, tcache = tq._decode_logits(tqt, HEADS, torch.from_numpy(tok), 5,
+                                   tcache, 33)
+    want = np.asarray(jl)
+    err = np.abs(tl.numpy() - want).max()
+    assert err <= TOL * max(1.0, np.abs(want).max()), err
+    np.testing.assert_array_equal(tl.numpy().argmax(-1), want.argmax(-1))
+    for g, w in zip(tcache, jcache):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        np.testing.assert_allclose(g[:, :, :33], w[:, :, :33], rtol=0,
+                                   atol=0)
+        np.testing.assert_allclose(g[:, :, 33], w[:, :, 33], rtol=1e-2,
+                                   atol=1.0)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 16, 32])
+def test_any_row_count(rows):
+    """The step takes any B from 1 to 32 (the API gate is {8, 16})."""
+    tqt = to_port(make_qtree(4))
+    st = tds.stack_qtree(tqt, VOCAB)
+    g = torch.Generator().manual_seed(rows)
+    kc = torch.randint(-127, 128, (LAYERS, rows, 40, D), generator=g,
+                       dtype=torch.int8)
+    vc = kc.flip(1).clone()
+    ks = torch.rand(LAYERS, rows, 40, generator=g) * 0.01
+    vs = ks.flip(1).clone()
+    x = tqt["mel_embedding"][torch.arange(rows) % VOCAB]
+    logits, *_ = tss.fused_serving_logits(st, x, kc, vc, ks, vs, 17, LAYERS,
+                                          HEADS)
+    assert logits.shape == (rows, st["head_tiles"] * D)
+    assert torch.isfinite(logits[:, :VOCAB]).all()

@@ -10,6 +10,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from xtts_tpu.core.config import VocosConfig  # noqa: E402
 from xtts_tpu.models import vocos as jvo  # noqa: E402
+from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.models import vocos as tvo  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
 
@@ -42,8 +43,8 @@ def _pair(cfg, seed=0):
     jm = jvo.Vocos(cfg)
     init = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, cfg.input_channels, 8)))
     params = randomize(init["params"], np.random.default_rng(seed))
-    tm = tvo.Vocos(cfg).eval()
-    tm.load_state_dict(convert.to_torch(convert.vocos_from_jax(
+    tm = tvo.Vocos(tcfg.VocosConfig.from_dict(cfg.to_dict())).eval()
+    tm.load_state_dict(convert.to_torch(device="cpu", sd=convert.vocos_from_jax(
         params, cfg.num_layers)))
     return jm, {"params": params}, tm
 
@@ -76,4 +77,4 @@ def test_backbone_parity():
 
 def test_other_heads_are_refused():
     with pytest.raises(NotImplementedError):
-        tvo.Vocos(VocosConfig(head="imdct_symexp"))
+        tvo.Vocos(tcfg.VocosConfig(head="imdct_symexp"))

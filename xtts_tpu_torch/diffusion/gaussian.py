@@ -54,6 +54,15 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], object]
 # only for the pair)
 
 
+def _x_T(shape, generator, noise, device) -> torch.Tensor:
+    if noise is not None:
+        return noise
+    if device is None:
+        raise ValueError("a sample loop takes its x_T (noise) or the device "
+                         "to draw it on")
+    return torch.randn(shape, generator=generator, device=device)
+
+
 @dataclass(frozen=True)
 class GaussianDiffusion:
     betas: np.ndarray
@@ -161,10 +170,10 @@ class GaussianDiffusion:
 
     def p_sample_loop(self, model_fn: ModelFn, shape, generator=None,
                       noise: Optional[torch.Tensor] = None,
-                      device="cpu") -> torch.Tensor:
-        """Ancestral sampling over all spaced steps (the live path)."""
-        x = (noise if noise is not None else
-             torch.randn(shape, generator=generator, device=device))
+                      device=None) -> torch.Tensor:
+        """Ancestral sampling over all spaced steps (the live path). x_T is
+        `noise`, or drawn on `device` (one of the two is required)."""
+        x = _x_T(shape, generator, noise, device)
         b = shape[0]
         for i in range(self.num_timesteps):
             t = torch.full((b,), self.num_timesteps - 1 - i,
@@ -179,11 +188,10 @@ class GaussianDiffusion:
 
     def ddim_sample_loop(self, model_fn: ModelFn, shape, generator=None,
                          noise: Optional[torch.Tensor] = None,
-                         eta: float = 0.0, device="cpu") -> torch.Tensor:
+                         eta: float = 0.0, device=None) -> torch.Tensor:
         """DDIM; deterministic at eta = 0, so a chain from a shared x_T is
         comparable across frameworks."""
-        x = (noise if noise is not None else
-             torch.randn(shape, generator=generator, device=device))
+        x = _x_T(shape, generator, noise, device)
         b = shape[0]
         n = len(shape)
         for i in range(self.num_timesteps):
@@ -207,7 +215,7 @@ class GaussianDiffusion:
 
     def sample_loop(self, model_fn: ModelFn, shape, generator=None,
                     noise=None, sampler: str = "p",
-                    device="cpu") -> torch.Tensor:
+                    device=None) -> torch.Tensor:
         fns = {"p": self.p_sample_loop, "ddim": self.ddim_sample_loop}
         if sampler not in fns:
             raise NotImplementedError(

@@ -65,9 +65,10 @@ def safe_log(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
 
 
 class MelFrontend:
-    """wav (B, T) float in [-1, 1] -> log-mel (B, n_mels, frames), f32."""
+    """wav (B, T) float in [-1, 1] -> log-mel (B, n_mels, frames), f32, on
+    `device`: the card unless the caller asks for the CPU."""
 
-    def __init__(self, cfg: MelConfig = MelConfig(), device="cpu"):
+    def __init__(self, cfg: MelConfig = MelConfig(), device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.filterbank = torch.as_tensor(

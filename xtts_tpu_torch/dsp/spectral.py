@@ -11,8 +11,8 @@ import torch
 import torch.nn.functional as F
 
 
-def hann_window(win_length: int, dtype=torch.float32,
-                device=None) -> torch.Tensor:
+def hann_window(win_length: int, dtype=torch.float32, *,
+                device) -> torch.Tensor:
     """Periodic Hann window (torch.hann_window(periodic=True))."""
     n = np.arange(win_length)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
@@ -47,7 +47,7 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
     sqrt(re^2 + im^2 + mag_eps)."""
     win_length = win_length or n_fft
     if window is None:
-        window = hann_window(win_length, x.dtype, x.device)
+        window = hann_window(win_length, x.dtype, device=x.device)
     if win_length < n_fft:  # torch centers the window inside n_fft
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
@@ -83,7 +83,8 @@ def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
     else:
         raise ValueError("padding must be 'same' or 'center'")
     win_length = win_length or n_fft
-    window = hann_window(win_length, spec_real.dtype, spec_real.device)
+    window = hann_window(win_length, spec_real.dtype,
+                         device=spec_real.device)
     spec = torch.complex(spec_real, spec_imag).transpose(1, 2)
     t = spec.shape[1]
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1)

@@ -1,15 +1,19 @@
-"""TextToSpeech — the zero-shot main path at B=1 (port of the slice-A subset
-of xtts_tpu/infer/api.py).
+"""TextToSpeech — the zero-shot path (port of the slice-A and slice-B
+parts of xtts_tpu/infer/api.py).
 
-    text -> tokens -> GPT int8 AR codes          (infer/qdecode.py, K1)
+    text -> tokens -> GPT int8 AR codes          (infer/qdecode.py: K1 at
+                                                  B=1, K4 or the chain at B>1)
+         -> [K > 1: CLVP rerank]                 (models/clvp.py)
          -> codes padded to a bucket -> teacher-forced GPT latent
          -> AA-diffusion, spaced ancestral CFG    (diffusion/gaussian.py,
             with the ReferenceNet hoisted           models/aa_diffusion.py, K2)
          -> Vocos + iSTFT -> 24 kHz waveform      (models/vocos.py)
+         or the shortcut: codes -> DVAE decode -> Vocos (models/dvae.py)
 
-Not ported here (slice B): batched sentences (infer/serving.py), the DVAE
-shortcut render, HiFi-GAN, CLVP reranking, speculative render,
-refnet_interval > 1, compact_rows and the continuous-time solvers.
+Slice B adds CLVP reranking (num_candidates), the DVAE shortcut render,
+batched sentences (infer/serving.py), the cache ladder and the int8-KV
+engines. Not ported: HiFi-GAN, speculative render, refnet_interval > 1,
+compact_rows, multi-clip conditioning and the continuous-time solvers.
 
 Randomness comes from an explicit torch.Generator on the model's device;
 one generator feeds the AR sampling and then the diffusion noise.
@@ -17,9 +21,10 @@ one generator feeds the AR sampling and then the diffusion noise.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -33,8 +38,10 @@ from xtts_tpu_torch.models.aa_diffusion import (AADiffusion,
                                                 denormalize_tacotron_mel,
                                                 nearest_resize_time,
                                                 normalize_tacotron_mel)
+from xtts_tpu_torch.models.clvp import CLVP
+from xtts_tpu_torch.models.dvae import DVAE
 from xtts_tpu_torch.models.gpt import UnifiedVoice
-from xtts_tpu_torch.models.gpt_infer import generate_speech
+from xtts_tpu_torch.models.gpt_infer import GenerateResult, generate_speech
 from xtts_tpu_torch.models.vocos import Vocos
 from xtts_tpu_torch.nn.blocks import init_flax_like
 from xtts_tpu_torch.utils import convert
@@ -51,7 +58,7 @@ def bucket_len(n: int, buckets=(32, 64, 128, 256, 402)) -> int:
 
 @dataclass
 class TTSSettings:
-    """The reference test.py knobs the slice uses."""
+    """The reference test.py knobs, and the serving knobs the slices use."""
 
     top_p: float = 0.8
     temperature: float = 0.8
@@ -61,26 +68,47 @@ class TTSSettings:
     sampler: str = "p"              # live path: spaced-50 ancestral
     diffusion_steps: int = 50
     cond_free_k: float = 2.0
+    # CLVP candidate reranking (ttts/api.py:397-460): K AR samples a text,
+    # the best by contrastive score rendered. 1 = off (the test.py path).
+    num_candidates: int = 1
+    # segmented KV-cache capacity ladder, e.g. (64, 128, 256): the decode
+    # runs against progressively larger caches (token-exact). "auto" takes
+    # (128, 256) at >= 16 AR rows and one cache below, as the JAX package;
+    # None / () = one cache.
+    cache_ladder: Union[str, tuple, None] = "auto"
+    # int8 KV cache for the quantized_decode engines: per-(position, head)
+    # symmetric int8 K/V, scales folded into the scores and probabilities
+    kv_quant: bool = False
 
 
 class TextToSpeech:
-    """Holds the GPT, diffusion and vocoder modules on one device."""
+    """Holds the GPT, DVAE, diffusion, vocoder (and CLVP) modules on one
+    device: the card unless the caller passes device="cpu"."""
 
-    def __init__(self, cfg: XTTSConfig = XTTSConfig(), device="cpu",
+    def __init__(self, cfg: XTTSConfig = XTTSConfig(), device="cuda",
                  dtype=torch.float32, quantized_decode: bool = False,
+                 with_clvp: bool = False,
                  generator: Optional[torch.Generator] = None,
                  init: bool = True):
-        """quantized_decode: int8 weight-only AR engine; at B=1 each token
-        runs one K1 step. init=False leaves the weights for from_jax /
-        load_state_dict."""
-        self.cfg = cfg
+        """quantized_decode: int8 weight-only AR engines (K1 at B=1, K4 or
+        the per-layer chain at B > 1). with_clvp: attach the CLVP reranker
+        that num_candidates > 1 needs. init=False leaves the weights for
+        from_jax / load_state_dict."""
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TextToSpeech runs on the card by default and "
+                               "no CUDA card is available; pass device='cpu' "
+                               "to run on the CPU")
+        self.cfg = cfg
         self.dtype = dtype
         self.mel = MelFrontend(cfg.mel, self.device)
         self.gpt = UnifiedVoice(cfg.gpt, dtype).to(self.device).eval()
+        self.dvae = DVAE(cfg.vqvae, dtype).to(self.device).eval()
         self.diffusion = AADiffusion(cfg.diffusion,
                                      dtype).to(self.device).eval()
         self.vocos = Vocos(cfg.vocos, dtype).to(self.device).eval()
+        self.clvp = (CLVP(cfg.clvp, dtype).to(self.device).eval()
+                     if with_clvp else None)
         self.quantized_decode = quantized_decode
         self.last_oov: Dict[str, int] = {}
         self._qtree = None
@@ -88,8 +116,11 @@ class TextToSpeech:
             self.init_random(generator)
 
     def modules(self):
-        return {"gpt": self.gpt, "diffusion": self.diffusion,
-                "vocos": self.vocos}
+        mods = {"gpt": self.gpt, "dvae": self.dvae,
+                "diffusion": self.diffusion, "vocos": self.vocos}
+        if self.clvp is not None:
+            mods["clvp"] = self.clvp
+        return mods
 
     def requantize(self) -> None:
         """Rebuild the int8 decode tree from the current GPT weights."""
@@ -110,20 +141,29 @@ class TextToSpeech:
     @torch.no_grad()
     def from_jax(cls, variables: Mapping[str, Any],
                  cfg: XTTSConfig = XTTSConfig(), **kw) -> "TextToSpeech":
-        """Carry JAX parameter trees ({"gpt", "diffusion", "vocos"}, each
-        a flax variables dict of arrays) into the port."""
+        """Carry JAX variable trees into the port: "gpt", "diffusion" and
+        "vocos" (flax variables dicts of arrays), and "dvae" (params and the
+        codebook collection) and "clvp" where given; a module without a tree
+        keeps random weights."""
         tts = cls(cfg, init=False, **kw)
         c = cfg
-        sds = {
-            "gpt": convert.unified_voice_from_jax(
-                variables["gpt"], c.gpt.layers, c.gpt.cond_attn_blocks),
-            "diffusion": convert.aa_diffusion_from_jax(
-                variables["diffusion"], c.diffusion),
-            "vocos": convert.vocos_from_jax(variables["vocos"],
-                                            c.vocos.num_layers),
+        conv = {
+            "gpt": lambda t: convert.unified_voice_from_jax(
+                t, c.gpt.layers, c.gpt.cond_attn_blocks),
+            "dvae": lambda t: convert.dvae_from_jax(
+                t, c.vqvae.num_layers, c.vqvae.num_resnet_blocks),
+            "diffusion": lambda t: convert.aa_diffusion_from_jax(
+                t, c.diffusion),
+            "vocos": lambda t: convert.vocos_from_jax(t, c.vocos.num_layers),
+            "clvp": lambda t: convert.clvp_from_jax(t, c.clvp),
         }
+        g = torch.Generator(tts.device).manual_seed(0)
         for name, m in tts.modules().items():
-            m.load_state_dict(convert.to_torch(sds[name], tts.device))
+            if name in variables:
+                m.load_state_dict(convert.to_torch(conv[name](
+                    variables[name]), tts.device))
+            else:
+                init_flax_like(m, g)
         tts.requantize()
         return tts
 
@@ -136,13 +176,45 @@ class TextToSpeech:
         """Reference audio (T,) or (1, T) -> conditioning mel (1, mel, T')."""
         return self.mel(wav)
 
+    def cond_mel_bucketed(self, wav, bucket_seconds=(3.0, 6.0, 10.0)
+                          ) -> torch.Tensor:
+        """Reference clip -> conditioning mel at a shared length bucket: the
+        clip is zero-padded up to the next bucket (or head-cropped to the
+        last), so per-request voices of one serving batch stack on a common
+        T (SynthesisRequest.cond_mel), as the reference pads or crops
+        conditioning clips to one length (ttts/api.py:68-79)."""
+        sr = self.cfg.mel.sample_rate
+        w = np.asarray(wav, np.float32).reshape(-1)
+        for sec in bucket_seconds:
+            n = int(sec * sr)
+            if len(w) <= n:
+                return self.mel(np.pad(w, (0, n - len(w))))
+        return self.mel(w[:int(bucket_seconds[-1] * sr)])
+
     def _generate(self, cond, text, generator, settings: TTSSettings):
+        """AR generation through the engine the JAX package would pick: K1
+        at one row (quantized_decode); K4 with XTTS_FUSED_SERVING=1 at 8 or
+        16 rows and no kv_quant; else the per-layer chain."""
+        if settings.cache_ladder == "auto":
+            ladder = (128, 256) if text.shape[0] >= 16 else None
+        else:
+            ladder = (tuple(settings.cache_ladder) if settings.cache_ladder
+                      else None)
         kw = dict(max_gen=settings.max_mel_tokens, top_p=settings.top_p,
                   temperature=settings.temperature,
-                  repetition_penalty=settings.repetition_penalty)
+                  repetition_penalty=settings.repetition_penalty,
+                  cache_ladder=ladder)
         if self._qtree is not None:
-            return generate_speech_quantized(self.gpt, self._qtree, cond,
-                                             text, generator, **kw)
+            b = cond.shape[0]
+            fserv = (os.environ.get("XTTS_FUSED_SERVING") == "1"
+                     and b in (8, 16) and not settings.kv_quant)
+            return generate_speech_quantized(
+                self.gpt, self._qtree, cond, text, generator,
+                quantize_kv_cache=settings.kv_quant, use_fused_serving=fserv,
+                **kw)
+        if settings.kv_quant:
+            raise ValueError("TTSSettings.kv_quant needs "
+                             "TextToSpeech(quantized_decode=True)")
         return generate_speech(self.gpt, cond, text, generator, **kw)
 
     def _pad_codes(self, codes: torch.Tensor, ns: torch.Tensor,
@@ -214,13 +286,17 @@ class TextToSpeech:
 
     @torch.no_grad()
     def _render(self, cond_mel, text_tokens, codes, lens, generator,
-                settings: TTSSettings, noise=None) -> torch.Tensor:
-        """Padded codes -> teacher-forced latent -> diffusion -> Vocos."""
+                settings: TTSSettings, noise=None,
+                text_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Padded codes (B, n_b) -> teacher-forced latent -> diffusion ->
+        Vocos wav (B, 4 n_b hop). text_lens: true text lengths (default:
+        every row's full width)."""
         c = self.cfg
-        latent = self.gpt(cond_mel, text_tokens,
-                          torch.tensor([text_tokens.shape[-1]],
-                                       device=self.device),
-                          codes, lens * c.gpt.mel_length_compression,
+        if text_lens is None:
+            text_lens = torch.full((text_tokens.shape[0],),
+                                   text_tokens.shape[-1], device=self.device)
+        latent = self.gpt(cond_mel, text_tokens, text_lens, codes,
+                          lens * c.gpt.mel_length_compression,
                           return_latent=True)
         mel = self._diffusion_mel_impl(
             latent.transpose(1, 2), normalize_tacotron_mel(cond_mel),
@@ -230,33 +306,61 @@ class TextToSpeech:
         return self.vocos(mel).float()
 
     @torch.no_grad()
+    def _render_shortcut(self, codes: torch.Tensor):
+        """The test.py:152-154 shortcut: codes -> DVAE decode -> Vocos.
+        Returns (wav (B, 4 n_b hop), mel (B, mel, 4 n_b))."""
+        mel, _ = self.dvae.decode(codes)
+        return self.vocos(mel).float(), mel
+
+    def _rerank_one(self, text: torch.Tensor, res: GenerateResult):
+        """K candidate rows for one text -> the CLVP winner's row."""
+        if self.clvp is None:
+            raise ValueError("num_candidates > 1 needs "
+                             "TextToSpeech(with_clvp=True)")
+        code_mask = (torch.arange(res.codes.shape[1], device=self.device)
+                     [None] < res.lengths[:, None]).long()
+        scores = self.clvp.rerank(
+            text, torch.clamp(res.codes, 0,
+                              self.cfg.clvp.num_speech_tokens - 1), code_mask)
+        best = int(torch.argmax(scores))
+        return GenerateResult(res.codes[best:best + 1],
+                              res.lengths[best:best + 1], res.steps)
+
+    @torch.no_grad()
     def tts_tokens(self, text_tokens, cond_mel: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    settings: TTSSettings = TTSSettings(),
                    use_diffusion: bool = True) -> Dict[str, Any]:
-        """Synthesize from prepared text tokens (B=1). Returns a dict with
+        """Synthesize one text from prepared tokens. Returns a dict with
         'wav' (np.ndarray (1, n * 1024)), 'codes', 'lengths', 'steps' (AR
         decode iterations) and host-clock 'ar_seconds' / 'render_seconds'
-        (each stage ends in a device sync)."""
-        if not use_diffusion:
-            raise NotImplementedError("the DVAE shortcut render is not "
-                                      "ported; use_diffusion=True only")
+        (each stage ends in a device sync). num_candidates K > 1 draws K
+        rows in one AR pass and renders the CLVP winner; use_diffusion=False
+        renders through the DVAE shortcut."""
         g = generator if generator is not None else self._generator(0)
         text = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long,
                                device=self.device)
         if text.dim() == 1:
             text = text[None]
         if text.shape[0] != 1:
-            raise ValueError("tts_tokens synthesizes one row (B=1)")
+            raise ValueError("tts_tokens synthesizes one text")
         cond_mel = cond_mel.to(self.device)
         t0 = time.perf_counter()
-        res = self._generate(cond_mel, text, g, settings)
+        k = settings.num_candidates
+        if k > 1:
+            res = self._rerank_one(text[0], self._generate(
+                cond_mel.repeat(k, 1, 1), text.repeat(k, 1), g, settings))
+        else:
+            res = self._generate(cond_mel, text, g, settings)
         n = max(int(res.lengths[0]) - 2, 1)     # strip 2 (reference test.py)
         t1 = time.perf_counter()                # int() above synchronized
         n_b = bucket_len(n, self._code_buckets())
         lens = torch.clamp(res.lengths - 2, 1, n_b)
         codes = self._pad_codes(res.codes, lens, n_b)
-        wav = self._render(cond_mel, text, codes, lens, g, settings)
+        if use_diffusion:
+            wav = self._render(cond_mel, text, codes, lens, g, settings)
+        else:
+            wav, _ = self._render_shortcut(codes)
         hop, comp = self.cfg.vocos.hop_length, self.cfg.vqvae.compression
         wav = wav[:, :n * comp * hop].cpu().numpy()
         return {"wav": wav, "codes": res.codes.cpu().numpy(),
@@ -267,8 +371,9 @@ class TextToSpeech:
     def _text_to_token_lists(self, text: str, lang: str,
                              settings: TTSSettings):
         # the text frontend (jieba, tokenizers) loads only when text is given
-        from xtts_tpu.text.chinese import oov_stats
-        from xtts_tpu.text.frontend import sentence_to_tokens, split_sentences
+        from xtts_tpu_torch.text.chinese import oov_stats
+        from xtts_tpu_torch.text.frontend import (sentence_to_tokens,
+                                                  split_sentences)
         token_lists = []
         oov_before = oov_stats()
         cap = self.cfg.gpt.max_text_tokens
@@ -298,12 +403,26 @@ class TextToSpeech:
         return token_lists
 
     def tts(self, text: str, cond_wav, generator=None,
-            settings: TTSSettings = TTSSettings(),
-            lang: str = "ZH") -> np.ndarray:
-        """Full text in, 24 kHz waveform out: sentence split, then one
-        tts_tokens call per sentence, in order."""
+            settings: TTSSettings = TTSSettings(), lang: str = "ZH",
+            use_diffusion: bool = True,
+            batch_sentences: bool = True) -> np.ndarray:
+        """Full text in, 24 kHz waveform out, sentence-split. With
+        batch_sentences (the default) several sentences run as one batched
+        AR pass and one render (infer/serving.synthesize_batch); otherwise
+        one tts_tokens call per sentence, in order."""
         g = generator if generator is not None else self._generator(0)
         cond_mel = self.cond_mel_from_wav(cond_wav)
-        wavs = [self.tts_tokens(tokens, cond_mel, g, settings)["wav"][0]
-                for tokens in self._text_to_token_lists(text, lang, settings)]
-        return np.concatenate(wavs) if wavs else np.zeros(0, np.float32)
+        token_lists = self._text_to_token_lists(text, lang, settings)
+        if not token_lists:
+            return np.zeros(0, np.float32)
+        if batch_sentences and len(token_lists) > 1:
+            from xtts_tpu_torch.infer.serving import (SynthesisRequest,
+                                                      synthesize_batch)
+            wavs = synthesize_batch(
+                self, [SynthesisRequest(t) for t in token_lists], cond_mel,
+                settings, use_diffusion=use_diffusion, generator=g)
+        else:
+            wavs = [self.tts_tokens(tokens, cond_mel, g, settings,
+                                    use_diffusion=use_diffusion)["wav"][0]
+                    for tokens in token_lists]
+        return np.concatenate(wavs)

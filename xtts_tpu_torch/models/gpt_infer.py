@@ -2,6 +2,8 @@
 xtts_tpu/models/gpt_infer.py): prefill + single-token decode steps against
 a preallocated cache, done-masking and HF-order sampling. The loop is a
 Python loop; it ends when every row has emitted the stop token.
+`cache_ladder` grows the cache through segment capacities; the zero padding
+is exact (positions past the index are masked), so codes do not change.
 """
 from __future__ import annotations
 
@@ -27,19 +29,28 @@ def ladder_caps(cache_ladder, max_gen: int):
     return caps + (max_gen,)
 
 
+def grow_axis(a: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
+    """Zero-extend `a` along `axis` to `new_len`."""
+    shape = list(a.shape)
+    shape[axis] = new_len - a.shape[axis]
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
 @torch.no_grad()
 def generate_speech(model, cond_mel: torch.Tensor, text_tokens: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     max_gen: int = 600, do_sample: bool = True,
                     top_p: float = 0.8, temperature: float = 0.8,
-                    repetition_penalty: float = 2.0) -> GenerateResult:
+                    repetition_penalty: float = 2.0,
+                    cache_ladder: Optional[tuple] = None) -> GenerateResult:
     """B rows; bf16 KV cache, as the JAX engine's default."""
     cfg = model.cfg
     stop, vocab = cfg.stop_mel_token, cfg.number_mel_codes
     dev = text_tokens.device
     prefix, n_cond = model.encode_prefix(cond_mel, text_tokens)
     b, p_len, _ = prefix.shape
-    cache = KVCache.zeros(cfg.layers, b, p_len + max_gen, cfg.heads,
+    caps = ladder_caps(cache_ladder, max_gen)
+    cache = KVCache.zeros(cfg.layers, b, p_len + caps[0], cfg.heads,
                           cfg.model_dim // cfg.heads, dtype=torch.bfloat16,
                           device=dev)
     logits, cache = model.prefill(prefix, cache)
@@ -53,21 +64,26 @@ def generate_speech(model, cond_mel: torch.Tensor, text_tokens: torch.Tensor,
     lengths = torch.zeros((b,), dtype=torch.long, device=dev)
     rows = torch.arange(b, device=dev)
     step = 0
-    while step < max_gen:
-        if do_sample:
-            tok = sample_token(generator, logits, temperature=temperature,
-                               top_p=top_p, seen=seen,
-                               repetition_penalty=repetition_penalty)
-        else:
-            tok = greedy_token(logits)
-        tok = torch.where(done, torch.full_like(tok, stop), tok)
-        codes[:, step] = tok
-        seen[rows, tok] = True
-        lengths = torch.where(done, lengths, torch.full_like(lengths, step + 1))
-        done = done | (tok == stop)
-        mel_pos = step + 1 + (n_cond if cfg.decode_position_quirk else 0)
-        logits, cache = model.decode_one(tok, mel_pos, cache, p_len + step)
-        step += 1
+    for i, cap in enumerate(caps):
+        if i:   # grow the cache into the next rung
+            cache = KVCache(grow_axis(cache.k, 2, p_len + cap),
+                            grow_axis(cache.v, 2, p_len + cap))
+        while step < cap and not (step and bool(done.all())):
+            if do_sample:
+                tok = sample_token(generator, logits, temperature=temperature,
+                                   top_p=top_p, seen=seen,
+                                   repetition_penalty=repetition_penalty)
+            else:
+                tok = greedy_token(logits)
+            tok = torch.where(done, torch.full_like(tok, stop), tok)
+            codes[:, step] = tok
+            seen[rows, tok] = True
+            lengths = torch.where(done, lengths,
+                                  torch.full_like(lengths, step + 1))
+            done = done | (tok == stop)
+            mel_pos = step + 1 + (n_cond if cfg.decode_position_quirk else 0)
+            logits, cache = model.decode_one(tok, mel_pos, cache, p_len + step)
+            step += 1
         if bool(done.all()):
             break
     return GenerateResult(codes, lengths, step)

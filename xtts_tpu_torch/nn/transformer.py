@@ -34,7 +34,8 @@ class KVCache:
 
     @classmethod
     def zeros(cls, layers: int, batch: int, max_len: int, heads: int,
-              head_dim: int, dtype=torch.bfloat16, device="cpu") -> "KVCache":
+              head_dim: int, dtype=torch.bfloat16, *,
+              device) -> "KVCache":
         shape = (layers, batch, max_len, heads, head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -10,6 +10,7 @@ unchanged one is reused. Every C entry point returns cudaGetLastError();
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import functools
 import hashlib
 import os
@@ -54,6 +55,13 @@ def load_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
         os.replace(tmp, lib_path)
     return ctypes.CDLL(str(lib_path))
+
+
+def build_all(names) -> None:
+    """Build several kernels at once: one nvcc process for each source, all
+    started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_library, names))
 
 
 def check(code: int, what: str) -> None:

@@ -1,0 +1,248 @@
+"""K4: the B-row int8 GPT serving decode step over an int8 KV cache, on
+Hopper (port of xtts_tpu/ops/serving_step.py).
+
+Replaces the Pallas TPU kernel `_make_serving_kernel` /
+`_fused_serving_logits` (xtts_tpu/ops/serving_step.py:95-372), which ran the
+whole B-row token step in one pallas_call. Here the step is a chain of
+hand-written CUDA kernels (csrc/serving_step.cu, plus K1's
+`layer_norm_rows`): `int8_gemm_rows` reads each int8 weight byte once for
+all B <= 32 rows, and `serving_attention` quantizes the new k/v rows into
+the cache and attends over it. `fused_serving_logits` strings them
+together; `fused_serving_logits_plain` is the same step through the plain
+twins.
+
+The KV cache is int8 with ONE f32 scale per (layer, row, position), as the
+TPU kernel's: (L, B, S, D) int8 k and v, (L, B, S) f32 scales. The CUDA
+path needs no chunk padding of S (the TPU kernel padded S to its DMA chunk).
+The current token attends to its own k/v unquantized, in closed form; this
+differs from the kv_quant engine (infer/qdecode.py), which attends to the
+quantized row. Numerics are in csrc/serving_step.cu's header.
+
+Each wrapper launches its kernel for a CUDA tensor (counting the launch in
+its `launches` attribute) and runs its plain twin for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from xtts_tpu_torch.ops.build import (check, load_library, ptr,
+                                      require_hopper, stream_of)
+from xtts_tpu_torch.ops.decode_step import (MAX_SMEM_FLOATS, int8_gemv_plain,
+                                            layer_norm_rows,
+                                            layer_norm_rows_plain)
+
+MAX_ROWS = 32
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("serving_step")
+    lib.xt_int8_gemm_rows.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.xt_serving_attention.argtypes = ([_P] * 6 + [_I] * 5
+                                         + [ctypes.c_float, _P])
+    for fn in (lib.xt_int8_gemm_rows, lib.xt_serving_attention):
+        fn.restype = _I
+    return lib
+
+
+def _check_cuda(*ts) -> None:
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("serving-step kernels take contiguous tensors")
+    require_hopper(ts[0])
+
+
+# ---------------------------------------------------------------------------
+# int8_gemm_rows
+# ---------------------------------------------------------------------------
+
+int8_gemm_rows_plain = int8_gemv_plain
+
+
+def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, out: Optional[torch.Tensor] = None,
+                   gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """y = (x_bf16 @ W_int8) * scale + bias for B <= 32 rows, f32
+    accumulation, each weight byte read once for all rows.
+
+    x (B, K) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies
+    gelu_new. With `out` (f32 (B, N)), y is added into it in place (the
+    residual add); otherwise y is returned in out_dtype (f32 or bf16)."""
+    if not x.is_cuda:
+        return int8_gemm_rows_plain(x, w, scale, bias, out, gelu, out_dtype)
+    k, n = w.shape
+    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8 or x.dim() != 2
+            or x.shape[1] != k or not 1 <= x.shape[0] <= MAX_ROWS or n % 32):
+        raise ValueError(f"int8_gemm_rows: bad operands x {tuple(x.shape)} "
+                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}")
+    rows = x.shape[0]
+    _check_cuda(x, w, scale, bias)
+    if out is not None:
+        if out.dtype != torch.float32 or tuple(out.shape) != (rows, n):
+            raise ValueError("int8_gemm_rows accumulates into f32 (B, N)")
+        _check_cuda(out)
+        mode, dst = 2, out
+    else:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int8_gemm_rows: out_dtype {out_dtype}")
+        mode = 0 if out_dtype == torch.float32 else 1
+        dst = torch.empty((rows, n), dtype=out_dtype, device=x.device)
+    check(_lib().xt_int8_gemm_rows(ptr(x), ptr(w), ptr(scale), ptr(bias),
+                                   ptr(dst), rows, k, n, int(gelu), mode,
+                                   stream_of(x)),
+          "int8_gemm_rows")
+    int8_gemm_rows.launches += 1
+    return dst
+
+
+int8_gemm_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# serving_attention
+# ---------------------------------------------------------------------------
+
+def quantize_rows(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) f32 -> (int8 rows, (...) f32 per-row scales): scale
+    max(|y|, 1e-8) / 127, round half to even, clip +-127."""
+    sc = torch.clamp(y.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(y / sc[..., None]), -127, 127)
+    return q.to(torch.int8), sc
+
+
+def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
+    b, d = qkv.shape[0], kc.shape[-1]
+    hd = d // heads
+    scale = 1.0 / math.sqrt(hd)
+    q, knew, vnew = qkv.float().split(d, dim=-1)
+    kq, ksc = quantize_rows(knew)
+    vq, vsc = quantize_rows(vnew)
+    kc[:, index], vc[:, index] = kq, vq
+    ks[:, index], vs[:, index] = ksc, vsc
+    qb = q.to(torch.bfloat16).float().reshape(b, 1, heads, hd)
+    kk = kc[:, :index].float().reshape(b, index, heads, hd)
+    s = ((kk * qb).to(torch.bfloat16).float().sum(-1)
+         * (ks[:, :index, None] * scale))                     # (B, idx, H)
+    self_s = ((knew * q).to(torch.bfloat16).float()
+              .reshape(b, heads, hd).sum(-1) * scale)          # (B, H)
+    m = torch.maximum(s.amax(dim=1), self_s) if index else self_s
+    e = torch.exp(s - m[:, None])
+    e_self = torch.exp(self_s - m)
+    den = e.sum(dim=1) + e_self
+    vv = vc[:, :index].float().reshape(b, index, heads, hd)
+    num = ((vv * e.to(torch.bfloat16).float()[..., None])
+           * vs[:, :index, None, None]).sum(dim=1)
+    num = num + e_self[..., None] * vnew.reshape(b, heads, hd)
+    return (num / den[..., None]).reshape(b, d).to(torch.bfloat16)
+
+
+def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                      ks: torch.Tensor, vs: torch.Tensor, index: int,
+                      heads: int) -> torch.Tensor:
+    """One query per (row, head) over cache positions < index plus the
+    current token.
+
+    qkv (B, 3D) f32 [q | k | v]; kc, vc (B, S, D) int8 and ks, vs (B, S) f32
+    — one layer of the cache, updated in place: the new k/v rows are
+    quantized over D and written at `index`. Returns (B, D) bf16.
+    head_dim must be 64."""
+    if not qkv.is_cuda:
+        return serving_attention_plain(qkv, kc, vc, ks, vs, index, heads)
+    b, s_max, d = kc.shape
+    if d // heads != 64 or d % heads:
+        raise ValueError("serving_attention takes head_dim 64")
+    if not 0 <= index < min(s_max, MAX_SMEM_FLOATS):
+        raise ValueError(f"serving_attention: index {index} outside the "
+                         f"cache ({s_max} positions)")
+    if (qkv.dtype != torch.float32 or tuple(qkv.shape) != (b, 3 * d)
+            or kc.dtype != torch.int8 or vc.dtype != torch.int8
+            or ks.dtype != torch.float32 or vs.dtype != torch.float32
+            or tuple(ks.shape) != (b, s_max) or vc.shape != kc.shape
+            or vs.shape != ks.shape):
+        raise ValueError("serving_attention: qkv f32 (B, 3D), caches int8 "
+                         "(B, S, D), scales f32 (B, S)")
+    _check_cuda(qkv, kc, vc, ks, vs)
+    out = torch.empty((b, d), dtype=torch.bfloat16, device=qkv.device)
+    check(_lib().xt_serving_attention(
+        ptr(qkv), ptr(kc), ptr(vc), ptr(ks), ptr(vs), ptr(out), b, s_max, d,
+        heads, int(index), 1.0 / math.sqrt(64), stream_of(qkv)),
+        "serving_attention")
+    serving_attention.launches += 1
+    return out
+
+
+serving_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+def _step(ops, st, x, kc, vc, ks, vs, index, layers, heads):
+    ln_rows, gemm, attention = ops
+    x32 = x.float().clone()                     # the f32 residual (B, D)
+    for li in range(layers):
+        ln = st["ln"][li]
+        h = ln_rows(x32, ln[0], ln[1])
+        qkv = gemm(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        att = attention(qkv, kc[li], vc[li], ks[li], vs[li], index, heads)
+        gemm(att, st["wproj"][li], st["sproj"][li], st["bproj"][li], out=x32)
+        h2 = ln_rows(x32, ln[2], ln[3])
+        m = gemm(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
+                 out_dtype=torch.bfloat16)
+        gemm(m, st["wout"][li], st["sout"][li], st["bout"][li], out=x32)
+    xh = ln_rows(x32, *st["lnf"])
+    logits = gemm(xh, st["whead"], st["shead"], st["bhead"])
+    return logits, kc, vc, ks, vs
+
+
+def fused_serving_logits(stacked: Dict[str, Any], x: torch.Tensor, kc, vc,
+                         ks, vs, index: int, layers: int, heads: int):
+    """One serving step: (B, D) bf16 token hiddens -> (B, head_tiles*D) f32
+    logits (slice to vocab outside).
+
+    stacked: ops/decode_step.stack_qtree's weight stack; kc/vc (L, B, S, D)
+    int8 and ks/vs (L, B, S) f32, updated in place at `index`. Returns
+    (logits, kc, vc, ks, vs)."""
+    out = _step((layer_norm_rows, int8_gemm_rows, serving_attention),
+                stacked, x, kc, vc, ks, vs, index, layers, heads)
+    if x.is_cuda:
+        fused_serving_logits.launches += 1
+    return out
+
+
+fused_serving_logits.launches = 0
+
+
+def fused_serving_logits_plain(stacked, x, kc, vc, ks, vs, index, layers,
+                               heads):
+    """The same step through the plain twins on any device: the reference
+    the kernel chain is held against on the card."""
+    return _step((layer_norm_rows_plain, int8_gemm_rows_plain,
+                  serving_attention_plain), stacked, x, kc, vc, ks, vs,
+                 index, layers, heads)
+
+
+KERNELS = (int8_gemm_rows, serving_attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS + (fused_serving_logits,):
+        fn.launches = 0
+
+
+def quantize_kv_rowwise(cache) -> Tuple[torch.Tensor, ...]:
+    """(L, B, S, H, hd) KVCache -> the step's int8 layout: (L, B, S, D)
+    int8 k and v with (L, B, S) f32 per-position scales. Returns
+    (kc, vc, ks, vs). The JAX package pads S to its DMA chunk here; the
+    CUDA kernels need no padding."""
+    kq, ksc = quantize_rows(cache.k.float().flatten(3))
+    vq, vsc = quantize_rows(cache.v.float().flatten(3))
+    return kq, vq, ksc, vsc

@@ -60,8 +60,8 @@ def _norm(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
     sd[prefix + ".bias"] = _a(p["bias"])
 
 
-def to_torch(sd: SD, device="cpu") -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+def to_torch(sd: SD, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.array(v, copy=True), device=device)
             for k, v in sd.items()}
 
 
@@ -197,4 +197,72 @@ def vocos_from_jax(tree: Mapping[str, Any], num_layers: int = 8) -> SD:
         sd[pre + "gamma"] = _a(blk["gamma"])
     _norm(sd, "backbone.final_layer_norm", bb["final_layer_norm"])
     _dense(sd, "head.out", p["head"]["out"])
+    return sd
+
+
+def dvae_from_jax(tree: Mapping[str, Any], num_layers: int = 2,
+                  num_resnet_blocks: int = 3) -> SD:
+    """DVAE variables ({"params", "codebook"}) -> the reference's names
+    (the inverse of xtts_tpu/utils/convert.py dvae_from_reference)."""
+    p, cb = tree["params"], tree["codebook"]
+    enc, dec = p["encoder"], p["decoder"]
+    L, R = num_layers, num_resnet_blocks
+    sd: SD = {}
+
+    def resblock(prefix: str, blk: Mapping[str, Any]) -> None:
+        for j in range(3):
+            _conv(sd, f"{prefix}.net.{2 * j}", blk[f"Conv_{j}"])
+
+    for i in range(L):
+        _conv(sd, f"encoder.{i}.0", enc[f"Conv_{i}"])
+    for j in range(R):
+        resblock(f"encoder.{L + j}", enc[f"res{j}"])
+    _conv(sd, f"encoder.{L + R}", enc["to_codes"])
+    _conv(sd, "decoder.0", dec["from_codes"])
+    for j in range(R):
+        resblock(f"decoder.{1 + j}", dec[f"res{j}"])
+    for i in range(L):
+        _conv(sd, f"decoder.{1 + R + i}.0.conv", dec[f"up{i}"])
+    _conv(sd, f"decoder.{1 + R + L}", dec["to_mel"])
+    for k in ("embed", "cluster_size", "embed_avg"):
+        sd[f"codebook.{k}"] = _a(cb[k])
+    return sd
+
+
+def clvp_from_jax(tree: Mapping[str, Any], cfg) -> SD:
+    """CLVP params -> the port's names; cfg: CLVPConfig. The live tortoise
+    towers take the reference's names (the inverse of
+    xtts_tpu/utils/convert.py clvp_from_reference)."""
+    p = _params(tree)
+    sd: SD = {}
+    for name in ("text_emb", "speech_emb", "text_pos_emb", "speech_pos_emb"):
+        if name in p:
+            sd[name + ".weight"] = _a(p[name]["embedding"])
+    for side, depth in (("text", cfg.text_enc_depth),
+                        ("speech", cfg.speech_enc_depth)):
+        tp, pre = p[f"{side}_transformer"], f"{side}_transformer."
+        for i in range(depth):
+            if cfg.use_xformers:
+                b, bp = tp[f"block_{i}"], f"{pre}blocks.{i}."
+                sd[bp + "norm1.scale"] = _a(b["norm1"]["scale"])
+                sd[bp + "norm2.scale"] = _a(b["norm2"]["scale"])
+                _dense(sd, bp + "attn.qkv", b["attn"]["qkv"])
+                _dense(sd, bp + "attn.out", b["attn"]["out"])
+                _dense(sd, bp + "ff.wi", b["ff"]["wi"])
+                _dense(sd, bp + "ff.wo", b["ff"]["wo"])
+                continue
+            b, lp = tp[f"layer_{i}"], f"{pre}layers.layers.{i}."
+            sd[lp + "0.scale"] = _a(b["scale_attn"]).reshape(1, 1, -1)
+            _norm(sd, lp + "0.fn.norm", b["norm_attn"])
+            _dense(sd, lp + "0.fn.fn.to_qkv", b["attn"]["to_qkv"])
+            _dense(sd, lp + "0.fn.fn.to_out.0", b["attn"]["to_out"])
+            sd[lp + "1.scale"] = _a(b["scale_ff"]).reshape(1, 1, -1)
+            _norm(sd, lp + "1.fn.norm", b["norm_ff"])
+            _dense(sd, lp + "1.fn.fn.net.0", b["ff_in"])
+            _dense(sd, lp + "1.fn.fn.net.3", b["ff_out"])
+        if cfg.use_xformers:
+            sd[pre + "final_norm.scale"] = _a(tp["final_norm"]["scale"])
+    _dense(sd, "to_text_latent", p["to_text_latent"])
+    _dense(sd, "to_speech_latent", p["to_speech_latent"])
+    sd["temperature"] = _a(p["temperature"]).reshape(1)
     return sd
