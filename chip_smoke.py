@@ -7,7 +7,8 @@ From the root of a checkout, on a machine with a CUDA card (sm_90), the
 CUDA toolkit (nvcc) and PyTorch built for CUDA. No network; imports no JAX.
 Random weights from fixed seeds, the flagship XTTSConfig() widths (GPT
 15 x 1024, UNet 512, CLIP 6 x 512, Vocos 8 x 512, DVAE 512/1024 with an
-8192 x 512 codebook, CLVP 2 x 20 x 768).
+8192 x 512 codebook, CLVP 2 x 20 x 768, HiFi-GAN 1024 -> 512 ch with the
+SE-ResNet speaker encoder).
 
 Phases, each reported on its own lines:
   1. device: card name and power limit (nvidia-smi), torch / CUDA versions;
@@ -21,14 +22,16 @@ Phases, each reported on its own lines:
      and the bound (bytes over 3.35 TB/s or operations over the peak for
      their type, whichever is larger):
      K1 (layer_norm_rows, int8_gemv, decode_attention, the 15-layer step, a
-     64-step teacher-forced greedy chain); K2 (flash_mha at (2, 1280 | 1562,
+     64-step teacher-forced greedy chain); K1-int4 (int4_gemv at the qkv,
+     fc, out (four K groups) and head shapes, the int4 step and chain); K2 (flash_mha at (2, 1280 | 1562,
      8, 64) and (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own
      3008 x 512 logits against its 8192-code codebook, a ragged shape and a
      planted tie); K4 (int8_gemm_rows, serving_attention, the 16-row step
      at S 354, a 64-step teacher-forced chain, step times at 8/16/32 rows).
-     Then both paths on a small configuration, card against CPU with the
+     Then the paths on a small configuration, card against CPU with the
      same weights: identical greedy int8 codes through K1 and through K4,
-     identical DVAE codes, renders within 1e-3.
+     identical DVAE codes, renders within 1e-3; identical greedy codes
+     through K1-int4 and their HiFi-GAN render within 1e-3.
   4. main: TextToSpeech(quantized_decode=True, dtype=bf16) on the bench's
      canonical inputs (3 s 220 Hz sine + noise reference, 50 text tokens
      from numpy seed 0), tts_tokens with max_mel_tokens=300, three requests
@@ -42,14 +45,21 @@ Phases, each reported on its own lines:
      and two timed waves; then one synthesize_batch wave with the DVAE
      shortcut render and one with the default engine (the per-layer chain,
      cache_ladder "auto") as K4's in-program comparator.
-  7. profile: one more warm B=1 request (seed 4), bare and then under
+  7. stream (the low-latency B=1 path): TextToSpeech(bf16, HiFi-GAN) with
+     XTTS_DECODE_BITS=4 at requantize(); three 50-token sentences (numpy
+     seeds 10, 11, 12) through stream_tokens (tts_stream's loop on token
+     ids), every token through K1-int4, rendered by the HifiDecoder: time
+     to first audio, per-sentence AR tokens/s, render s, RTF, peak memory.
+     Then one preset("ultra_fast") request (dpm++2m, 15 steps, K2) and the
+     first sentence again on the int8 stack (AR tokens/s comparator).
+  8. profile: one more warm B=1 request (seed 4), bare and then under
      torch.profiler: the device's busy share over the request and over its
      AR and render stages, the host time of one sample_token call, the
      kernels with the most device time (trace in
      build/xtts_tpu_torch/request_trace.json).
-  8. a JSON line of the kernels, the total wall time, then the result line.
+  9. a JSON line of the kernels, the total wall time, then the result line.
 
-Before each path of phases 4-6 every launch count is set to 0, and read
+Before each path of phases 4-7 every launch count is set to 0, and read
 after it; a path that did not launch each of its kernels fails. Any failure
 raises and exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero before printing any result.
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -166,6 +177,19 @@ def random_qtree(torch, quantize_dense, layers, d, vocab, s_max, g):
     return qt
 
 
+def k1_cache(torch, cfg, s_max, p_len):
+    """(L, S, D) bf16 k and v caches with the first p_len rows random."""
+    L, D = cfg.layers, cfg.model_dim
+    gc = torch.Generator(device="cuda").manual_seed(7)
+    kc = torch.zeros(L, s_max, D, dtype=torch.bfloat16, device="cuda")
+    kc[:, :p_len] = (torch.randn(L, p_len, D, generator=gc,
+                                 device="cuda") * 0.5).bfloat16()
+    vc = torch.zeros_like(kc)
+    vc[:, :p_len] = (torch.randn(L, p_len, D, generator=gc,
+                                 device="cuda") * 0.5).bfloat16()
+    return kc, vc
+
+
 def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     F = torch.nn.functional
     L, D, H, V = cfg.layers, cfg.model_dim, cfg.heads, cfg.number_mel_codes
@@ -174,14 +198,7 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     st = ds.stack_qtree(qt, V)
 
     def cache():
-        kc = torch.zeros(L, s_max, D, dtype=torch.bfloat16, device="cuda")
-        gc = torch.Generator(device="cuda").manual_seed(7)
-        kc[:, :p_len] = (torch.randn(L, p_len, D, generator=gc,
-                                     device="cuda") * 0.5).bfloat16()
-        vc = torch.zeros_like(kc)
-        vc[:, :p_len] = (torch.randn(L, p_len, D, generator=gc,
-                                     device="cuda") * 0.5).bfloat16()
-        return kc, vc
+        return k1_cache(torch, cfg, s_max, p_len)
 
     # --- single ops at the main path's shapes ---
     x32 = torch.randn(1, D, generator=g, device="cuda") * 3 + 1
@@ -281,7 +298,15 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         f"  sdpa {l_att:.4f} ms  bound {b_att[0]:.5f} ms ({b_att[1]})  "
         f"[{card}]")
 
-    # --- the whole step, and a 64-step teacher-forced greedy chain ---
+    step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, "k1", card)
+    return qt, st
+
+
+def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
+    """The whole K1 step (int8 or int4 stack) against the plain step over a
+    64-step teacher-forced greedy chain, then both timed at the index after
+    the chain, beside the bound (packed weights, scales, cache rows)."""
+    L, D, H, V = cfg.layers, cfg.model_dim, cfg.heads, cfg.number_mel_codes
     emb, pos = qt["mel_embedding"], qt["mel_pos_embedding"]
     toks = torch.randint(0, V, (64,), generator=g, device="cuda").tolist()
     kc_k, vc_k = cache()
@@ -302,7 +327,7 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
             # random weights give near-flat logits over 8194 codes: a
             # differing pick must be a tie within this step's logit error
             gap = (lp[0, pa] - lp[0, ka]).item()
-            check(gap <= 2 * err, f"K1 greedy step {step}: kernel picks "
+            check(gap <= 2 * err, f"{tag} greedy step {step}: kernel picks "
                   f"{ka}, plain {pa}, gap {gap:.3e} > 2 x err {err:.3e}")
             ties += 1
         check(lk[:, V:].max().item() < -1e8, "padded head columns reachable")
@@ -310,8 +335,10 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     e_rows = max(max_err(kc_k, kc_p), max_err(vc_k, vc_p))
     r_max = max(kc_p.float().abs().max().item(),
                 vc_p.float().abs().max().item())
-    check(e_step <= K1_TOL * max(1.0, l_max), f"K1 step logits err {e_step}")
-    check(e_rows <= K1_TOL * max(1.0, r_max), f"K1 step k/v rows err {e_rows}")
+    check(e_step <= K1_TOL * max(1.0, l_max),
+          f"{tag} step logits err {e_step}")
+    check(e_rows <= K1_TOL * max(1.0, r_max),
+          f"{tag} step k/v rows err {e_rows}")
     x = emb[toks[0]][None] + pos[2][None]
     t_step = time_ms(torch, lambda: ds.fused_decode_logits(
         st, x, kc_k, vc_k, p_len + 64, L, H), reps=20)
@@ -319,18 +346,83 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         st, x, kc_p, vc_p, p_len + 64, L, H), reps=20)
     w_bytes = sum(st[k].numel() for k in ("wqkv", "wproj", "wfc", "wout",
                                           "whead"))
-    b_step = bound(w_bytes + 2 * L * (p_len + 65) * D * 2, 2 * w_bytes,
+    s_bytes = 4 * sum(st[k].numel() for k in ("sqkv", "sproj", "sfc",
+                                              "sout", "shead"))
+    kind = "packed int4" if st.get("bits") == 4 else "int8"
+    b_step = bound(w_bytes + s_bytes + 2 * L * (p_len + 65) * D * 2,
+                   2 * 2 * w_bytes if st.get("bits") == 4 else 2 * w_bytes,
                    "bf16")
-    log(f"[k1] step bound at index {p_len + 64}: {w_bytes / 1e6:.1f} MB of "
-        f"int8 weights + the bf16 cache rows: {b_step[0]:.4f} ms "
-        f"({b_step[1]})  [{card}]")
-    log(f"[k1] step ({L} layers, D {D}, S {s_max}) vs plain step: logits "
+    log(f"[{tag}] step bound at index {p_len + 64}: {w_bytes / 1e6:.1f} MB "
+        f"of {kind} weights + {s_bytes / 1e6:.2f} MB of scales + the bf16 "
+        f"cache rows: {b_step[0]:.4f} ms ({b_step[1]})  [{card}]")
+    log(f"[{tag}] step ({L} layers, D {D}, S {s_max}) vs plain step: logits "
         f"max_abs_err {e_step:.3e} (bound {K1_TOL} x max(1, |logits| "
         f"{l_max:.2f})), k/v rows {e_rows:.3e} (bound {K1_TOL} x max(1, "
         f"|rows| {r_max:.2f})), greedy agreement {agree}/64 teacher-forced "
         f"(+{ties} ties within the step error); kernel chain "
         f"{t_step:.3f} ms/token, plain {p_step:.3f} ms/token  [{card}]")
-    return qt, st
+    return t_step, p_step, b_step
+
+
+def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
+    """K1's int4 mode: int4_gemv against its plain twin at the flagship
+    shapes (qkv, fc + gelu, out in four K groups into the residual, the
+    head), then the int4 step and chain as K1's."""
+    L, D, V = cfg.layers, cfg.model_dim, cfg.number_mel_codes
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    st = ds.stack_qtree_int4(qt, V)
+    check(st["bits"] == 4 and tuple(st["sout"].shape) == (L, 4, D),
+          "int4 stack layout")
+    cases = [("qkv", "wqkv", "sqkv", "bqkv", dict()),
+             ("fc+gelu", "wfc", "sfc", "bfc",
+              dict(gelu=True, out_dtype=torch.bfloat16)),
+             ("out+res", "wout", "sout", "bout", dict(acc=True)),
+             ("head", "whead", "shead", "bhead", dict())]
+    e_max, fc_times = 0.0, None
+    for name, wk, sk, bk, kw in cases:
+        w = st[wk][0] if st[wk].dim() == 3 else st[wk]
+        s = st[sk][0] if st[sk].dim() == 3 else st[sk]
+        b = st[bk][0] if st[bk].dim() == 2 else st[bk]
+        kk, nn_ = w.shape[0], 2 * w.shape[1]
+        xin = torch.randn(kk, generator=g, device="cuda").bfloat16()
+        if kw.pop("acc", False):
+            base = torch.randn(nn_, generator=g, device="cuda")
+            o1, o2 = base.clone(), base.clone()
+            ds.int4_gemv(xin, w, s, b, out=o1)
+            ds.int4_gemv_plain(xin, w, s, b, out=o2)
+            fk = lambda: ds.int4_gemv(xin, w, s, b, out=o1)
+            fp = lambda: ds.int4_gemv_plain(xin, w, s, b, out=o2)
+        else:
+            o1 = ds.int4_gemv(xin, w, s, b, **kw)
+            o2 = ds.int4_gemv_plain(xin, w, s, b, **kw)
+            fk = lambda: ds.int4_gemv(xin, w, s, b, **kw)
+            fp = lambda: ds.int4_gemv_plain(xin, w, s, b, **kw)
+        err = max_err(o1, o2)
+        check(err <= OP_TOL * max(1.0, o2.float().abs().max().item()),
+              f"int4_gemv {name} err {err}")
+        e_max = max(e_max, err)
+        groups = s.shape[0]
+        w_bf16 = (ds.unpack_int4(w).float().reshape(groups, -1, nn_)
+                  * s[:, None, :]).reshape(kk, nn_).bfloat16()
+        x2 = xin[None]
+        tk, tp = time_ms(torch, fk), time_ms(torch, fp)
+        tl = time_ms(torch, lambda: torch.matmul(x2, w_bf16))
+        bnd = bound(kk * nn_ // 2 + 2 * kk + 4 * groups * nn_ + 4 * nn_
+                    + 4 * nn_, 2 * kk * nn_, "bf16")
+        log(f"[k1-int4] int4_gemv {name} ({kk} x {nn_}, {groups} group"
+            f"{'s' if groups > 1 else ''}) max_abs_err {err:.3e}  kernel "
+            f"{tk:.4f} ms ({kk * nn_ / 2 / (tk * 1e-3) / 1e9:.0f} GB/s packed "
+            f"weights)  plain {tp:.4f} ms  matmul(bf16 W) {tl:.4f} ms  bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
+        if name == "fc+gelu":
+            fc_times = (tk, tp, tl, bnd)
+    record(results, "int4_gemv", e_max, *fc_times)
+
+    ds.reset_launch_counts()
+    step_chain(torch, ds, qt, st, cfg, s_max, p_len,
+               lambda: k1_cache(torch, cfg, s_max, p_len), g, "k1-int4", card)
+    check(ds.int8_gemv.launches == 0, "the int4 step launched int8_gemv")
+    ds.reset_launch_counts()
 
 
 def k2_checks(torch, fa, results, card):
@@ -373,9 +465,10 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
     render must agree within SMALL_WAV_TOL."""
     from xtts_tpu_torch.core.config import (CLIPRefConfig, DVAEConfig,
                                             DiffusionModelConfig, GPTConfig,
-                                            MelConfig, VocosConfig,
-                                            XTTSConfig)
+                                            HiFiGANConfig, MelConfig,
+                                            VocosConfig, XTTSConfig)
     from xtts_tpu_torch.infer.qdecode import generate_speech_quantized
+    from xtts_tpu_torch.models.hifigan import hifigan_samples
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
     from xtts_tpu_torch.ops import vq
@@ -397,10 +490,16 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
                                head_width=16, patch_size=4, in_channels=mb,
                                max_patches=64)),
         vocos=VocosConfig(input_channels=mb, dim=32, intermediate_dim=64,
-                          num_layers=1, n_fft=64, hop_length=16))
+                          num_layers=1, n_fft=64, hop_length=16),
+        hifigan=HiFiGANConfig(decoder_input_dim=128, upsample_rates=(4, 2),
+                              upsample_kernel_sizes=(8, 4),
+                              upsample_initial_channel=32,
+                              resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),),
+                              d_vector_dim=32))
     g = torch.Generator().manual_seed(0)
     cpu = TextToSpeech(small, device="cpu", quantized_decode=True,
-                       generator=g)
+                       with_hifigan=True, generator=g)
     with torch.no_grad():
         # the flax init zeroes every output projection; perturb all weights
         # so that every layer shapes the result
@@ -409,7 +508,7 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
                 p.add_(0.05 * torch.randn(p.shape, generator=g))
     cpu.requantize()
     card = TextToSpeech(small, device="cuda", quantized_decode=True,
-                        init=False)
+                        with_hifigan=True, init=False)
     for name, m in card.modules().items():
         m.load_state_dict(cpu.modules()[name].state_dict())
     card.requantize()
@@ -485,6 +584,62 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         f"card); DVAE codes {tuple(k_dv.shape)} identical (K3); shortcut "
         f"render wav {tuple(k_sw.shape)} max_abs_err {e_sw:.3e} (bound "
         f"{SMALL_WAV_TOL})")
+
+    # slice C0: K1's int4 stack (XTTS_DECODE_BITS=4 read at requantize())
+    # and the HiFi-GAN render of the greedy codes. (The int4 head rounds
+    # logits to bf16, so sampled paths meet exact ties, which each
+    # device's generator breaks its own way: the render is compared on
+    # shared codes, and tts_tokens(use_hifigan=True) runs on the card.)
+    os.environ["XTTS_DECODE_BITS"] = "4"
+    try:
+        for tts in (cpu, card):
+            tts.requantize()
+            check(tts._qtree["fused"]["bits"] == 4, "int4 stack not built")
+    finally:
+        os.environ.pop("XTTS_DECODE_BITS")
+    out4 = {}
+    for name, tts in (("cpu", cpu), ("card", card)):
+        dev = tts.device
+        cond = tts.cond_mel_from_wav(wav)
+        spk = tts.speaker_mel_from_wav(wav)
+        before = (ds.int4_gemv.launches, ds.int8_gemv.launches)
+        r4 = generate_speech_quantized(tts.gpt, tts._qtree, cond,
+                                       text.to(dev), None, max_gen=24,
+                                       do_sample=False)
+        n4 = max(int(r4.lengths[0]) - 2, 1)
+        lens4 = torch.clamp(r4.lengths - 2, 1, 64)
+        hw = tts._render_hifigan(cond, text.to(dev),
+                                 tts._pad_codes(r4.codes, lens4, 64), lens4,
+                                 spk)
+        out4[name] = (r4.codes.cpu(), r4.steps, n4, hw.cpu(),
+                      ds.int4_gemv.launches - before[0],
+                      ds.int8_gemv.launches - before[1])
+    c4, _, _, c_hw, c_i4, _ = out4["cpu"]
+    k4c, k_steps4, n4, k_hw, k_i4, k_i8 = out4["card"]
+    check(c_i4 == 0, "the CPU run launched int4_gemv")
+    check(k_i4 == (4 * small.gpt.layers + 1) * k_steps4 and k_i8 == 0,
+          f"card run: int4_gemv {k_i4}, int8_gemv {k_i8} for {k_steps4} "
+          f"tokens")
+    check(torch.equal(c4, k4c), f"int4 greedy codes differ: card "
+          f"{k4c.tolist()} vs cpu {c4.tolist()}")
+    e_hf = max_err(k_hw, c_hw)
+    check(bool(torch.isfinite(k_hw).all()) and e_hf <= SMALL_WAV_TOL,
+          f"small HiFi-GAN wav err {e_hf}")
+    hf = card.tts_tokens(text[0].numpy(), card.cond_mel_from_wav(wav),
+                         card._generator(0), TTSSettings(max_mel_tokens=24),
+                         use_hifigan=True,
+                         spk_mel16=card.speaker_mel_from_wav(wav))
+    n_hf = max(int(hf["lengths"][0]) - 2, 1)
+    check(hf["wav"].shape == (1, hifigan_samples(small.hifigan, n_hf))
+          and bool(np.isfinite(hf["wav"]).all()),
+          f"tts_tokens(use_hifigan=True) wav {hf['wav'].shape}")
+    log(f"[ref] small config, slice C0: greedy codes through K1-int4 "
+        f"identical over {k_steps4} tokens ({k_i4} int4_gemv, {k_i8} "
+        f"int8_gemv launches on the card); HiFi-GAN render of those codes "
+        f"{tuple(k_hw.shape)} max_abs_err {e_hf:.3e} (bound "
+        f"{SMALL_WAV_TOL}, |wav| max {c_hw.abs().max().item():.3f}); "
+        f"tts_tokens(use_hifigan=True) on the card: wav {hf['wav'].shape} "
+        f"finite")
 
 
 class Launches:
@@ -748,7 +903,6 @@ def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
     """BASELINE config #5: BatchServer waves of 8 requests x 2 CLVP
     candidates (16 AR rows through K4), full-quality render; then a
     shortcut wave and a default-engine wave."""
-    import os
 
     from xtts_tpu_torch.infer.api import TTSSettings
     from xtts_tpu_torch.infer.serving import (BatchServer, SynthesisRequest,
@@ -852,6 +1006,126 @@ def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
     for name in ("_generate", "_render", "_render_shortcut"):
         del tts.__dict__[name]
 
+
+
+def stream_phase(torch, np, cfg, cond_wav, main_render, launches, card):
+    """The low-latency B=1 path: TextToSpeech(bf16, int8 decode tree,
+    HiFi-GAN) with XTTS_DECODE_BITS=4 set when its stack is built, so every
+    token runs K1-int4. Three 50-token sentences (numpy seeds 10, 11, 12)
+    through tts_stream's per-sentence loop on token ids (stream_tokens),
+    rendered by the HifiDecoder; one warm-up sentence first. Then one
+    preset("ultra_fast") request (dpm++2m, 15 steps, K2) on the same
+    stack, and the first sentence again on the int8 stack as the
+    in-program comparator of AR tokens/s."""
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    from xtts_tpu_torch.models.hifigan import hifigan_samples
+    from xtts_tpu_torch.ops import decode_step as ds
+
+    t0 = time.perf_counter()
+    os.environ["XTTS_DECODE_BITS"] = "4"
+    try:
+        tts = TextToSpeech(cfg, device="cuda", dtype=torch.bfloat16,
+                           quantized_decode=True, with_hifigan=True,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+        with torch.no_grad():
+            tts.gpt.mel_head.bias[cfg.gpt.stop_mel_token] = -30.0
+        tts.requantize()
+    finally:
+        os.environ.pop("XTTS_DECODE_BITS")
+    check(tts._qtree["fused"]["bits"] == 4, "the stream TTS has no int4 stack")
+    torch.cuda.synchronize()
+    log(f"[stream] TextToSpeech(XTTSConfig(), bf16, int4 K1 stack, HiFi-GAN "
+        f"{cfg.hifigan.upsample_initial_channel} ch) random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    cond_mel = tts.cond_mel_from_wav(cond_wav)
+    spk = tts.speaker_mel_from_wav(cond_wav)
+    check(tuple(spk.shape) == (1, 301, 64), f"speaker mel {spk.shape}")
+    sents = [np.random.default_rng(s).integers(3, 250, 50).astype(np.int32)
+             for s in (10, 11, 12)]
+    settings = TTSSettings(max_mel_tokens=300)
+    L = cfg.gpt.layers
+    samples = hifigan_samples(cfg.hifigan, 298)
+
+    def stream(seed, token_lists):
+        return tts.stream_tokens(
+            token_lists, cond_mel,
+            torch.Generator(device="cuda").manual_seed(seed), settings,
+            use_hifigan=True, spk_mel16=spk)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = next(stream(0, sents[:1]))
+    log(f"[stream] warm-up sentence: {time.perf_counter() - t0:.3f} s "
+        f"(AR {warm['ar_seconds']:.3f} s, render "
+        f"{warm['render_seconds']:.3f} s)  [{card}]")
+
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    t_prev, ttfa, steps, audio = t_start, None, 0, 0.0
+    for i, out in enumerate(stream(1, sents)):
+        now = time.perf_counter()
+        wav = out["wav"]
+        check(wav.shape == (1, samples) and wav.dtype == np.float32
+              and bool(np.isfinite(wav).all()),
+              f"sentence {i} wav {wav.shape}, expected (1, {samples})")
+        ttfa = now - t_start if ttfa is None else ttfa
+        sec = wav.shape[1] / SR
+        wall = now - t_prev
+        steps += out["steps"]
+        audio += sec
+        log(f"[stream] sentence {i}: {out['steps']} AR tokens in "
+            f"{out['ar_seconds']:.3f} s = "
+            f"{out['steps'] / out['ar_seconds']:.1f} tokens/s (int4), "
+            f"HiFi-GAN render {out['render_seconds']:.3f} s, wall "
+            f"{wall:.3f} s for {sec:.2f} s audio, RTF {wall / sec:.4f}  "
+            f"[{card}]")
+        t_prev = now
+    total = time.perf_counter() - t_start
+    d = launches.read()
+    check(d["int4_gemv"] >= (4 * L + 1) * steps and d["int8_gemv"] == 0
+          and d["decode_attention"] >= L * steps and d["flash_mha"] == 0,
+          f"[stream] launches {d} for {steps} tokens")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[stream] 3 sentences: time to first audio {ttfa:.3f} s; "
+        f"{audio:.2f} s audio in {total:.3f} s, RTF {total / audio:.4f}; "
+        f"peak {peak:.2f} GiB; launches int4_gemv {d['int4_gemv']}, "
+        f"int8_gemv {d['int8_gemv']}, decode_attention "
+        f"{d['decode_attention']}, layer_norm_rows {d['layer_norm_rows']} "
+        f"for {steps} tokens  [{card}]")
+
+    launches.reset()
+    fast = TTSSettings.preset("ultra_fast")
+    fast.max_mel_tokens = 300
+    t0 = time.perf_counter()
+    out = tts.tts_tokens(sents[0], cond_mel,
+                         torch.Generator(device="cuda").manual_seed(1), fast)
+    lat = time.perf_counter() - t0
+    d = launches.read()
+    check(out["wav"].shape == (1, 298 * 1024)
+          and bool(np.isfinite(out["wav"]).all()), "ultra_fast wav")
+    check(d["flash_mha"] >= 60 and d["int4_gemv"] > 0
+          and d["int8_gemv"] == 0, f"ultra_fast launches {d}")
+    log(f"[stream] preset ultra_fast (dpm++2m, 15 steps, int4 AR): latency "
+        f"{lat:.3f} s, RTF {lat / (298 * 1024 / SR):.4f}; AR "
+        f"{out['steps'] / out['ar_seconds']:.1f} tokens/s, render "
+        f"{out['render_seconds']:.3f} s against [main]'s 50-step renders "
+        f"{', '.join(f'{r:.3f}' for r in main_render)} s; K2 "
+        f"{d['flash_mha']} launches  [{card}]")
+
+    tts.requantize()                      # XTTS_DECODE_BITS unset: int8
+    check("bits" not in tts._qtree["fused"], "the comparator stack is int4")
+    launches.reset()
+    out8 = next(stream(1, sents[:1]))
+    d = launches.read(add=False)
+    check(d["int8_gemv"] >= (4 * L + 1) * out8["steps"]
+          and d["int4_gemv"] == 0, f"int8 comparator launches {d}")
+    log(f"[stream] comparator: sentence 0 on the int8 stack, "
+        f"{out8['steps']} AR tokens at "
+        f"{out8['steps'] / out8['ar_seconds']:.1f} tokens/s, render "
+        f"{out8['render_seconds']:.3f} s  [{card}]")
 
 
 def consumer_attention_check(torch, fa, tts):
@@ -1008,6 +1282,7 @@ def main() -> None:
     with torch.no_grad():
         qt, st = k1_checks(torch, ds, quantize_dense, cfg.gpt, s_max, p_len,
                            results, card)
+        k1_int4_checks(torch, ds, qt, cfg.gpt, s_max, p_len, results, card)
         k2_checks(torch, fa, results, card)
         k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
                   results, card)
@@ -1040,6 +1315,7 @@ def main() -> None:
     settings = TTSSettings(max_mel_tokens=max_gen)
 
     torch.cuda.reset_peak_memory_stats()
+    main_render = []
     for seed in (1, 2, 3):
         launches.reset()
         torch.cuda.synchronize()
@@ -1063,6 +1339,7 @@ def main() -> None:
               f"K1 op launches {d} for {steps} tokens")
         check(d["flash_mha"] >= 200, f"K2 launches {d['flash_mha']} < 200")
         audio_s = wav.shape[1] / SR
+        main_render.append(out["render_seconds"])
         log(f"[main] request seed {seed}: {steps} AR tokens, wav {wav.shape} "
             f"({audio_s:.2f} s audio), latency {latency:.3f} s, RTF "
             f"{latency / audio_s:.4f}, AR {out['ar_seconds']:.3f} s = "
@@ -1083,12 +1360,16 @@ def main() -> None:
     # ---- 6. serving (config #5, K4 + CLVP + K2) ----
     serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
 
-    # ---- 7. profile (B=1) ----
+    # ---- 7. stream (B=1: K1-int4, HiFi-GAN, ultra_fast) ----
+    stream_phase(torch, np, cfg, cond_wav, main_render, launches, card)
+
+    # ---- 8. profile (B=1), last: once torch.profiler has run, the
+    # process's host-bound loops read slower ----
     profile_request(torch, tts, text, cond_mel, settings, card)
     leaked = [m for m in ("jax", "flax", "xtts_tpu") if m in sys.modules]
     check(not leaked, f"imported {leaked}")
 
-    # ---- 8. results ----
+    # ---- 9. results ----
     src = {"decode_step": ("xtts_tpu_torch/csrc/decode_step.cu",
                            "xtts_tpu/ops/decode_step.py:299"),
            "flash_attn": ("xtts_tpu_torch/csrc/flash_attn.cu",
@@ -1097,6 +1378,7 @@ def main() -> None:
            "serving_step": ("xtts_tpu_torch/csrc/serving_step.cu",
                             "xtts_tpu/ops/serving_step.py:315")}
     of = {"layer_norm_rows": "decode_step", "int8_gemv": "decode_step",
+          "int4_gemv": "decode_step",
           "decode_attention": "decode_step", "flash_mha": "flash_attn",
           "vq_nearest": "vq", "int8_gemm_rows": "serving_step",
           "serving_attention": "serving_step"}
@@ -1104,8 +1386,10 @@ def main() -> None:
     for name, lib in of.items():
         r = results[name]
         check(launches.total[name] > 0, f"{name} never launched on a path")
+        replaces = ("xtts_tpu/ops/decode_step.py:157" if name == "int4_gemv"
+                    else src[lib][1])
         kernels.append({"name": name, "route": "cuda",
-                        "source": src[lib][0], "replaces": src[lib][1],
+                        "source": src[lib][0], "replaces": replaces,
                         "launches": launches.total[name], **r})
     log(f"[done] total wall time {time.perf_counter() - t_start:.1f} s "
         f"[{card}]")

@@ -17,8 +17,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from xtts_tpu.core.config import (CLIPRefConfig, DVAEConfig,  # noqa: E402
-                                  DiffusionModelConfig, GPTConfig, MelConfig,
-                                  VocosConfig, XTTSConfig)
+                                  DiffusionModelConfig, GPTConfig,
+                                  HiFiGANConfig, MelConfig, VocosConfig,
+                                  XTTSConfig)
 from xtts_tpu.infer import api as japi, qdecode as jq  # noqa: E402
 from xtts_tpu.utils import convert as jconv  # noqa: E402
 from xtts_tpu_torch.core import config as tcfg  # noqa: E402
@@ -46,6 +47,11 @@ TINY = XTTSConfig(
                       num_layers=1, n_fft=64, hop_length=16),
 )
 TINY_T = tcfg.XTTSConfig.from_dict(TINY.to_dict())
+# with a HiFi-GAN decoder narrow enough for the CPU (latent dim = the GPT's)
+TINY_H = TINY.replace(hifigan=HiFiGANConfig(
+    decoder_input_dim=128, upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+    upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+    resblock_dilation_sizes=((1, 3),), d_vector_dim=32))
 
 
 def randomize(tree, rng):
@@ -211,28 +217,38 @@ def _port_modules():
 
 def test_imports_without_jax():
     """With jax, flax and the JAX package blocked: every port module
-    imports, and tts(text) runs end to end on the CPU."""
+    imports, and tts(text) runs end to end on the CPU, through the
+    diffusion and through the HiFi-GAN render."""
     mods = _port_modules()
-    assert "xtts_tpu_torch.infer.serving" in mods
-    assert "xtts_tpu_torch.text.frontend" in mods
+    for m in ("infer.serving", "text.frontend", "models.hifigan",
+              "data.audio"):
+        assert "xtts_tpu_torch." + m in mods
     code = f"""
-import sys, importlib
-for name in ("jax", "flax", "xtts_tpu"):
-    sys.modules[name] = None
+import sys, importlib, importlib.abc
+class Block(importlib.abc.MetaPathFinder):
+    # an import of these fails as on a machine without them (a None entry
+    # in sys.modules would also trip scipy's probe for jax arrays)
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "flax", "xtts_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
 for m in {mods!r}:
     importlib.import_module(m)
 import numpy as np
 from xtts_tpu_torch.core.config import XTTSConfig
 from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
-cfg = XTTSConfig.from_dict({TINY.to_dict()!r})
-tts = TextToSpeech(cfg, device="cpu", quantized_decode=True)
+cfg = XTTSConfig.from_dict({TINY_H.to_dict()!r})
+tts = TextToSpeech(cfg, device="cpu", quantized_decode=True,
+                   with_hifigan=True)
 rng = np.random.default_rng(0)
 wav = (0.1 * rng.standard_normal(cfg.mel.sample_rate // 2)).astype("float32")
 out = tts.tts("你好。今天很好！", wav,
               settings=TTSSettings(max_mel_tokens=12, diffusion_steps=2))
 assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "xtts_tpu")
-       and sys.modules[m] is not None]
+out = tts.tts("你好。今天很好！", wav, settings=TTSSettings(max_mel_tokens=12),
+              use_hifigan=True)
+assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "xtts_tpu")]
 print("imported", len({mods!r}), "ran tts", out.shape[0], "leaked", bad)
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -7,10 +7,11 @@ PyTorch + CUDA; there, skip the JAX test harness's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_port_kernels.py
 
 Tolerances: single ops 1e-2 (one bf16 rounding of O(1) values on either
-side), the whole decode step 2e-2 relative to the logits' scale
-(tests/test_decode_step.py's bound), flash attention 1e-2 against f32
-attention on the same bf16 inputs; K3 codes equal up to fp32 ties (the
-bound at _vq_agree); K4 as K1, with the new int8 cache rows within +-1.
+side; int4_gemv relative to max(1, |y|)), the whole decode step, int8 or
+int4, 2e-2 relative to the logits' scale (tests/test_decode_step.py's
+bound), flash attention 1e-2 against f32 attention on the same bf16
+inputs; K3 codes equal up to fp32 ties (the bound at _vq_agree); K4 as K1,
+with the new int8 cache rows within +-1.
 """
 import math
 
@@ -153,6 +154,80 @@ def test_decode_step_chain(cuda, layers, d, heads, vocab):
     assert ds.int8_gemv.launches == 16 * (4 * layers + 1)
 
 
+def _int4_operands(g, k, n, groups):
+    from xtts_tpu_torch.ops import decode_step as ds
+    w4 = torch.randint(-7, 8, (k, n), generator=g,
+                       device="cuda").to(torch.int8)
+    scale = (torch.rand(groups, n, generator=g, device="cuda") * 0.02
+             + 1e-3)
+    bias = torch.randn(n, generator=g, device="cuda") * 0.1
+    x = torch.randn(k, generator=g, device="cuda").bfloat16()
+    return x, ds.pack_int4(w4), scale, bias
+
+
+@pytest.mark.parametrize("k,n,groups,gelu,mode", [
+    (1024, 3072, 1, False, "f32"), (1024, 1024, 1, False, "acc"),
+    (1024, 4096, 1, True, "bf16"), (4096, 1024, 4, False, "acc"),
+    (1024, 9216, 1, False, "f32"), (4096, 1024, 4, True, "f32"),
+    (256, 96, 2, False, "bf16"), (128, 32, 1, True, "acc"),
+    (384, 160, 3, False, "f32")])
+def test_int4_gemv(cuda, k, n, groups, gelu, mode):
+    """Every mode and group count; n % 64 == 32 (96, 160, 32) leaves the
+    last block's second half idle. Bound: one bf16 rounding of the result
+    relative to max(1, |y|), as the other single ops."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    x, w, scale, bias = _int4_operands(cuda, k, n, groups)
+    ds.int4_gemv.launches = 0
+    if mode == "acc":
+        base = torch.randn(n, generator=cuda, device="cuda")
+        got, want = base.clone(), base.clone()
+        ds.int4_gemv(x, w, scale, bias, out=got, gelu=gelu)
+        ds.int4_gemv_plain(x, w, scale, bias, out=want, gelu=gelu)
+    else:
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        got = ds.int4_gemv(x, w, scale, bias, gelu=gelu, out_dtype=dt)
+        want = ds.int4_gemv_plain(x, w, scale, bias, gelu=gelu, out_dtype=dt)
+        assert got.dtype == dt and got.shape == (n,)
+    torch.cuda.synchronize()
+    assert ds.int4_gemv.launches == 1
+    scale_y = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale_y
+
+
+@pytest.mark.parametrize("layers,d,heads,vocab", [(2, 128, 2, 200),
+                                                  (15, 1024, 16, 8194)])
+def test_decode_step_chain_int4(cuda, layers, d, heads, vocab):
+    """16 teacher-forced steps on the int4 stack: kernel chain vs plain
+    step, int4_gemv in every matvec and int8_gemv in none."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    s_max, p_len = 96, 54
+    qt = _qtree(cuda, layers, d, vocab, s_max)
+    st = ds.stack_qtree_int4(qt, vocab)
+    kc = torch.zeros(layers, s_max, d, dtype=torch.bfloat16, device="cuda")
+    kc[:, :p_len] = (torch.randn(layers, p_len, d, generator=cuda,
+                                 device="cuda") * 0.5).bfloat16()
+    vc = kc.roll(1, dims=0).clone()
+    kc2, vc2 = kc.clone(), vc.clone()
+    ds.reset_launch_counts()
+    agree = 0
+    for step in range(16):
+        tok = (step * 37) % vocab
+        x = qt["mel_embedding"][tok][None] + qt["mel_pos_embedding"][step][None]
+        got = ds.fused_decode_logits(st, x, kc, vc, p_len + step, layers,
+                                     heads)[0][:, :vocab]
+        want = ds.fused_decode_logits_plain(st, x, kc2, vc2, p_len + step,
+                                            layers, heads)[0][:, :vocab]
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 2e-2 * scale, step
+        agree += int(got.argmax() == want.argmax())
+    torch.cuda.synchronize()
+    assert agree >= 15
+    torch.testing.assert_close(kc.float(), kc2.float(), rtol=2e-2, atol=2e-2)
+    assert ds.fused_decode_logits.launches == 16
+    assert ds.int4_gemv.launches == 16 * (4 * layers + 1)
+    assert ds.int8_gemv.launches == 0
+
+
 @pytest.mark.parametrize("b,tq,tk,h", [(2, 1280, 1562, 8), (2, 300, 583, 8),
                                        (1, 64, 1, 8), (1, 65, 129, 2),
                                        (3, 17, 700, 4)])
@@ -196,6 +271,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ds.int8_gemv(torch.zeros(64, device="cuda").bfloat16(), w,
                      torch.ones(48, device="cuda"), torch.zeros(48,
                                                                 device="cuda"))
+    x = torch.zeros(64, device="cuda").bfloat16()
+    with pytest.raises(ValueError):                    # N not a multiple of 32
+        ds.int4_gemv(x, torch.zeros(64, 24, dtype=torch.int8, device="cuda"),
+                     torch.ones(1, 48, device="cuda"),
+                     torch.zeros(48, device="cuda"))
+    with pytest.raises(ValueError):                    # K not split in groups
+        ds.int4_gemv(x, torch.zeros(64, 32, dtype=torch.int8, device="cuda"),
+                     torch.ones(3, 64, device="cuda"),
+                     torch.zeros(64, device="cuda"))
 
 
 # ---------------------------------------------------------------------------

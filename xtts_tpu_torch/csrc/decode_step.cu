@@ -26,6 +26,8 @@
 //
 // Layouts: weights (K, N) int8 row-major, exactly quantize_dense's (in, out)
 // matrix; KV cache (L, S, D) bf16 with the new row written in place at idx.
+// The int4 mode (XTTS_DECODE_BITS=4) swaps int8_gemv for int4_gemv on a
+// packed stack (ops/decode_step.stack_qtree_int4) and keeps the rest.
 //
 // C interface (ctypes): every entry point returns cudaGetLastError().
 
@@ -171,6 +173,116 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// int4_gemv: the K1 int4 mode (the wbits == 4 branch of the TPU kernel,
+// xtts_tpu/ops/decode_step.py:157-167).
+//
+//   y[n] = sum_g r( (sum_{k in g} x[k] w4[k, n]) * scale[g, n] + (g == 0) bias[n] )
+//
+// w4 (K, N/2) bytes: byte (k, j) holds column 2j in its low nibble and
+// column 2j+1 in its high nibble, both signed in [-7, 7]; scale (G, N) f32,
+// one row per group of K/G input rows (the TPU kernel's (D, D) tiles: four
+// groups for the MLP out matrix, one elsewhere). r() rounds a group's output
+// to bf16, as the TPU kernel does for every tile it restores to canonical
+// order; with gelu (the fc tiles, left permuted there) nothing is rounded
+// before gelu_new. mode: 0 = store f32, 1 = store bf16, 2 = add into f32.
+//
+// Bound: the packed weights, half of int8_gemv's bytes (~99 MB a token at
+// the flagship width, ~30 us at 3.35 TB/s). Block (2, 64): threadIdx.x
+// picks 32 adjacent columns read as one 16-byte load of 16 bytes, so two
+// threads cover a block's 64 columns with one 32-byte sector a row;
+// threadIdx.y strides K. The input vector sits in shared memory as f32.
+// A group's 32 partial sums a thread reduce over the warp by shuffles and
+// over the block's 4 warps through shared memory; the epilogue thread of
+// each column keeps the running sum over groups.
+// ---------------------------------------------------------------------------
+constexpr int I4_COLS = 64;
+constexpr int I4_KTHREADS = 64;
+
+// the signed nibbles of byte i of a 32-bit word: low = (b << 28) >> 28,
+// high = ((int)(int8_t)b) >> 4, as the TPU kernel widens them (:159-161)
+__device__ __forceinline__ int nib_lo(uint32_t w, int i) {
+  return ((int)(w << (28 - 8 * i))) >> 28;
+}
+__device__ __forceinline__ int nib_hi(uint32_t w, int i) {
+  return ((int)(w << (24 - 8 * i))) >> 28;
+}
+
+__global__ void __launch_bounds__(128)
+int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                 const uint8_t* __restrict__ w,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, void* __restrict__ out, int K,
+                 int N, int groups, int gelu, int mode) {
+  extern __shared__ float xs[];  // K floats
+  __shared__ float red[4][I4_COLS];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < K; i += blockDim.x * blockDim.y)
+    xs[i] = __bfloat162float(x[i]);
+  __syncthreads();
+
+  const int c0 = blockIdx.x * I4_COLS + threadIdx.x * 32;
+  const bool live = c0 < N;  // N % 64 == 32 leaves the last half-block idle
+  const uint4* wp = reinterpret_cast<const uint4*>(w + c0 / 2);
+  const size_t row = (size_t)N / 32;  // row stride in uint4 (N/2 bytes)
+  const int kg = K / groups;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.x * I4_COLS + tid;  // the epilogue's column
+  float total = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    float a[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) a[j] = 0.f;
+    if (live) {
+#pragma unroll 2
+      for (int k = g * kg + threadIdx.y; k < (g + 1) * kg; k += I4_KTHREADS) {
+        const uint4 q = __ldg(wp + (size_t)k * row);
+        const float xv = xs[k];
+        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[8 * v + 2 * i] = fmaf(xv, (float)nib_lo(words[v], i),
+                                    a[8 * v + 2 * i]);
+            a[8 * v + 2 * i + 1] = fmaf(xv, (float)nib_hi(words[v], i),
+                                        a[8 * v + 2 * i + 1]);
+          }
+        }
+      }
+    }
+    // lanes differ in threadIdx.x (bit 0) and 16 threadIdx.y (bits 1-4)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float v = a[j];
+      for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      a[j] = v;
+    }
+    if ((lane >> 1) == 0) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) red[warp][threadIdx.x * 32 + j] = a[j];
+    }
+    __syncthreads();
+    if (tid < I4_COLS && n < N) {
+      const float s = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
+      float y = s * scale[(size_t)g * N + n] + (g == 0 ? bias[n] : 0.f);
+      if (!gelu) y = __bfloat162float(__float2bfloat16(y));
+      total += y;
+    }
+    __syncthreads();
+  }
+  if (tid < I4_COLS && n < N) {
+    const float y = gelu ? gelu_new(total) : total;
+    if (mode == 0) {
+      reinterpret_cast<float*>(out)[n] = y;
+    } else if (mode == 1) {
+      reinterpret_cast<__nv_bfloat16*>(out)[n] = __float2bfloat16(y);
+    } else {
+      reinterpret_cast<float*>(out)[n] += y;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // decode_attention: one block per head (hd = 64), 128 threads.
 // qkv: f32 [q | k | v] (3D) from the qkv gemv. The new k/v row is rounded
 // to bf16 and written into the cache at idx, then the head attends over
@@ -257,6 +369,17 @@ XT_API int xt_int8_gemv(const void* x, const void* w, const void* scale,
                      (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,
       (const float*)bias, out, K, N, gelu, mode);
+  return (int)cudaGetLastError();
+}
+
+XT_API int xt_int4_gemv(const void* x, const void* w, const void* scale,
+                        const void* bias, void* out, int K, int N, int groups,
+                        int gelu, int mode, void* stream) {
+  dim3 block(2, I4_KTHREADS);
+  int4_gemv_kernel<<<(N + I4_COLS - 1) / I4_COLS, block, K * sizeof(float),
+                     (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)scale,
+      (const float*)bias, out, K, N, groups, gelu, mode);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 Schedules and coefficient tables are host f64 numpy, built by the same
 code as the JAX module; per-step scalars are taken in f32 on the sample's
-device. The sampling loops are Python loops over the spaced steps; both take
-an explicit x_T (`noise=`), and draw in-loop noise from a torch.Generator.
+device. The sampling loops (ancestral `p`, `ddim`, `dpm++2m`) are Python
+loops over the spaced steps; each takes an explicit x_T (`noise=`), and
+draws in-loop noise from a torch.Generator.
 
 Shipped-path semantics: linear 1000-step schedule, SpacedDiffusion
 re-spacing with the timestep map, epsilon prediction + learned-range
@@ -213,10 +214,53 @@ class GaussianDiffusion:
                                             device=x.device)
         return x
 
+    def dpmpp_2m_sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                             noise: Optional[torch.Tensor] = None,
+                             device=None) -> torch.Tensor:
+        """DPM-Solver++(2M), data-prediction form, over the spaced schedule
+        (xtts_tpu/diffusion/gaussian.py:332-391, `sampler="dpm++2m"`).
+        CFG is the constant-k mix u + k (c - u) of the k-diffusion path,
+        not the ancestral ramp; x0 is clipped to [-1, 1]; the first step is
+        Euler, the later ones extrapolate from the previous x0; the last
+        step returns x0. Deterministic given x_T. Per-step scalars in f32,
+        as the JAX loop takes them."""
+        x = _x_T(shape, generator, noise, device)
+        b, steps = shape[0], self.num_timesteps
+        acp = np.asarray(self.alphas_cumprod)
+        alpha = np.sqrt(acp).astype(np.float32)
+        sigma = np.sqrt(1.0 - acp).astype(np.float32)
+        lam = (np.log(np.sqrt(acp)) - np.log(np.sqrt(1.0 - acp))
+               ).astype(np.float32)
+        k = self.conditioning_free_k
+        x0_prev, h_prev = None, np.float32(0.0)
+        for step in range(steps):
+            i = steps - 1 - step
+            t = torch.full((b,), i, dtype=torch.long, device=x.device)
+            out, out_uc = self._model_out(model_fn, x, self.map_t(t))
+            eps = out.chunk(2, dim=1)[0]
+            if out_uc is not None:
+                eps_uc = out_uc.chunk(2, dim=1)[0]
+                eps = eps_uc + k * (eps - eps_uc)
+            x0 = torch.clamp(self.predict_xstart_from_eps(x, t, eps), -1, 1)
+            if step == steps - 1:
+                return x0
+            h = np.float32(lam[i - 1] - lam[i])
+            if step == 0:
+                d = x0
+            else:
+                c = np.float32(1.0) / (np.float32(2.0)
+                                       * np.float32(h_prev / max(h, 1e-12)))
+                d = (1 + float(c)) * x0 - float(c) * x0_prev
+            x = (float(sigma[i - 1] / sigma[i]) * x
+                 - float(alpha[i - 1] * np.expm1(-h)) * d)
+            x0_prev, h_prev = x0, h
+        return x
+
     def sample_loop(self, model_fn: ModelFn, shape, generator=None,
                     noise=None, sampler: str = "p",
                     device=None) -> torch.Tensor:
-        fns = {"p": self.p_sample_loop, "ddim": self.ddim_sample_loop}
+        fns = {"p": self.p_sample_loop, "ddim": self.ddim_sample_loop,
+               "dpm++2m": self.dpmpp_2m_sample_loop}
         if sampler not in fns:
             raise NotImplementedError(
                 f"sampler {sampler!r} is not ported; have {sorted(fns)}")

@@ -96,3 +96,10 @@ class MelFrontend:
             mag = mag ** cfg.power
         mel = torch.einsum("bft,fm->bmt", mag, self.filterbank)
         return safe_log(mel, cfg.log_clip)
+
+
+# 16 kHz 64-bin mel for the HiFi-GAN speaker encoder
+# (ttts/hifigan/hifigan_vocoder.py:671-678 audio_config)
+SPEAKER_ENCODER_MEL_CONFIG = MelConfig(
+    sample_rate=16000, n_mels=64, n_fft=512, win_length=400, hop_length=160,
+)

@@ -1,19 +1,25 @@
-"""TextToSpeech — the zero-shot path (port of the slice-A and slice-B
-parts of xtts_tpu/infer/api.py).
+"""TextToSpeech — the zero-shot path (port of the slice-A, slice-B and
+slice-C0 parts of xtts_tpu/infer/api.py).
 
     text -> tokens -> GPT int8 AR codes          (infer/qdecode.py: K1 at
-                                                  B=1, K4 or the chain at B>1)
+                                                  B=1, int8 or, with
+                                                  XTTS_DECODE_BITS=4, int4;
+                                                  K4 or the chain at B>1)
          -> [K > 1: CLVP rerank]                 (models/clvp.py)
          -> codes padded to a bucket -> teacher-forced GPT latent
          -> AA-diffusion, spaced ancestral CFG    (diffusion/gaussian.py,
-            with the ReferenceNet hoisted           models/aa_diffusion.py, K2)
+            or dpm++2m (preset "ultra_fast"),       models/aa_diffusion.py, K2)
+            with the ReferenceNet hoisted
          -> Vocos + iSTFT -> 24 kHz waveform      (models/vocos.py)
          or the shortcut: codes -> DVAE decode -> Vocos (models/dvae.py)
+         or HiFi-GAN: latent -> HifiDecoder -> wav (models/hifigan.py)
 
-Slice B adds CLVP reranking (num_candidates), the DVAE shortcut render,
+Slice B added CLVP reranking (num_candidates), the DVAE shortcut render,
 batched sentences (infer/serving.py), the cache ladder and the int8-KV
-engines. Not ported: HiFi-GAN, speculative render, refnet_interval > 1,
-compact_rows, multi-clip conditioning and the continuous-time solvers.
+engines; slice C0 the HiFi-GAN render (with_hifigan / use_hifigan),
+sentence streaming (tts_stream) and the presets. Not ported: speculative
+render, refnet_interval > 1, compact_rows, multi-clip conditioning and the
+continuous-time solvers.
 
 Randomness comes from an explicit torch.Generator on the model's device;
 one generator feeds the AR sampling and then the diffusion noise.
@@ -42,6 +48,7 @@ from xtts_tpu_torch.models.clvp import CLVP
 from xtts_tpu_torch.models.dvae import DVAE
 from xtts_tpu_torch.models.gpt import UnifiedVoice
 from xtts_tpu_torch.models.gpt_infer import GenerateResult, generate_speech
+from xtts_tpu_torch.models.hifigan import HifiDecoder, hifigan_samples
 from xtts_tpu_torch.models.vocos import Vocos
 from xtts_tpu_torch.nn.blocks import init_flax_like
 from xtts_tpu_torch.utils import convert
@@ -80,6 +87,22 @@ class TTSSettings:
     # symmetric int8 K/V, scales folded into the scores and probabilities
     kv_quant: bool = False
 
+    @classmethod
+    def preset(cls, name: str) -> "TTSSettings":
+        """Tortoise-style presets (the JAX package's table, api.py:150-164).
+        AR samples map to CLVP candidates (K > 1 needs with_clvp=True)."""
+        table = {
+            "ultra_fast": dict(num_candidates=1, diffusion_steps=15,
+                               sampler="dpm++2m"),
+            "fast": dict(num_candidates=4, diffusion_steps=25,
+                         sampler="dpm++2m"),
+            "standard": dict(num_candidates=8, diffusion_steps=50),
+            "high_quality": dict(num_candidates=8, diffusion_steps=100),
+        }
+        if name not in table:
+            raise KeyError(f"unknown preset {name!r}; have {sorted(table)}")
+        return cls(**table[name])
+
 
 class TextToSpeech:
     """Holds the GPT, DVAE, diffusion, vocoder (and CLVP) modules on one
@@ -87,13 +110,15 @@ class TextToSpeech:
 
     def __init__(self, cfg: XTTSConfig = XTTSConfig(), device="cuda",
                  dtype=torch.float32, quantized_decode: bool = False,
-                 with_clvp: bool = False,
+                 with_clvp: bool = False, with_hifigan: bool = False,
                  generator: Optional[torch.Generator] = None,
                  init: bool = True):
         """quantized_decode: int8 weight-only AR engines (K1 at B=1, K4 or
-        the per-layer chain at B > 1). with_clvp: attach the CLVP reranker
-        that num_candidates > 1 needs. init=False leaves the weights for
-        from_jax / load_state_dict."""
+        the per-layer chain at B > 1; XTTS_DECODE_BITS=4, read by
+        requantize(), gives K1 the int4 stack). with_clvp: attach the CLVP
+        reranker that num_candidates > 1 needs. with_hifigan: attach the
+        HifiDecoder that use_hifigan renders through. init=False leaves the
+        weights for from_jax / load_state_dict."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TextToSpeech runs on the card by default and "
@@ -109,6 +134,9 @@ class TextToSpeech:
         self.vocos = Vocos(cfg.vocos, dtype).to(self.device).eval()
         self.clvp = (CLVP(cfg.clvp, dtype).to(self.device).eval()
                      if with_clvp else None)
+        self.hifigan = (HifiDecoder(cfg.hifigan, dtype).to(self.device).eval()
+                        if with_hifigan else None)
+        self._spk_mel = None
         self.quantized_decode = quantized_decode
         self.last_oov: Dict[str, int] = {}
         self._qtree = None
@@ -120,10 +148,14 @@ class TextToSpeech:
                 "diffusion": self.diffusion, "vocos": self.vocos}
         if self.clvp is not None:
             mods["clvp"] = self.clvp
+        if self.hifigan is not None:
+            mods["hifigan"] = self.hifigan
         return mods
 
     def requantize(self) -> None:
-        """Rebuild the int8 decode tree from the current GPT weights."""
+        """Rebuild the int8 decode tree and K1's weight stack from the
+        current GPT weights; the stack is int4 if XTTS_DECODE_BITS=4 is set
+        now (qdecode.attach_fused_stack)."""
         self._qtree = (quantize_gpt_decode(self.gpt)
                        if self.quantized_decode else None)
 
@@ -143,8 +175,8 @@ class TextToSpeech:
                  cfg: XTTSConfig = XTTSConfig(), **kw) -> "TextToSpeech":
         """Carry JAX variable trees into the port: "gpt", "diffusion" and
         "vocos" (flax variables dicts of arrays), and "dvae" (params and the
-        codebook collection) and "clvp" where given; a module without a tree
-        keeps random weights."""
+        codebook collection), "clvp" and "hifigan" where given; a module
+        without a tree keeps random weights."""
         tts = cls(cfg, init=False, **kw)
         c = cfg
         conv = {
@@ -156,6 +188,7 @@ class TextToSpeech:
                 t, c.diffusion),
             "vocos": lambda t: convert.vocos_from_jax(t, c.vocos.num_layers),
             "clvp": lambda t: convert.clvp_from_jax(t, c.clvp),
+            "hifigan": lambda t: convert.hifigan_from_jax(t, c.hifigan),
         }
         g = torch.Generator(tts.device).manual_seed(0)
         for name, m in tts.modules().items():
@@ -190,6 +223,29 @@ class TextToSpeech:
             if len(w) <= n:
                 return self.mel(np.pad(w, (0, n - len(w))))
         return self.mel(w[:int(bucket_seconds[-1] * sr)])
+
+    def speaker_mel_from_wav(self, wav, bucket_seconds=(3.0, 6.0, 10.0)
+                             ) -> torch.Tensor:
+        """Reference clip at cfg.mel.sample_rate -> (1, T, 64) 16 kHz log-mel
+        for the HiFi-GAN speaker encoder: resampled to 16 kHz, zero-padded
+        up to a length bucket (cropped past the last), so per-request
+        speaker mels of one batch share T (api.py:418-442)."""
+        from xtts_tpu_torch.data.audio import resample
+        from xtts_tpu_torch.dsp.mel import SPEAKER_ENCODER_MEL_CONFIG
+        if self._spk_mel is None:
+            self._spk_mel = MelFrontend(SPEAKER_ENCODER_MEL_CONFIG,
+                                        self.device)
+        sr16 = SPEAKER_ENCODER_MEL_CONFIG.sample_rate
+        w = resample(np.asarray(wav, np.float32).reshape(-1),
+                     self.cfg.mel.sample_rate, sr16)
+        for sec in bucket_seconds:
+            n = int(sec * sr16)
+            if len(w) <= n:
+                w = np.pad(w, (0, n - len(w)))
+                break
+        else:
+            w = w[:int(bucket_seconds[-1] * sr16)]
+        return self._spk_mel(w).transpose(1, 2)
 
     def _generate(self, cond, text, generator, settings: TTSSettings):
         """AR generation through the engine the JAX package would pick: K1
@@ -306,6 +362,31 @@ class TextToSpeech:
         return self.vocos(mel).float()
 
     @torch.no_grad()
+    def _render_hifigan(self, cond_mel, text_tokens, codes, lens, spk_mel16,
+                        text_lens: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """Padded codes (B, n_b) -> teacher-forced GPT latent -> HifiDecoder
+        wav (B, hifigan_samples(n_b)), skipping diffusion and Vocos (the
+        reference's latent -> HiFi-GAN path, hifigan_vocoder.py:744-756).
+        spk_mel16 (1 or B, T, 64) from speaker_mel_from_wav."""
+        if self.hifigan is None:
+            raise ValueError("use_hifigan needs TextToSpeech(with_hifigan=True)")
+        if spk_mel16 is None:
+            raise ValueError("use_hifigan needs spk_mel16 "
+                             "(speaker_mel_from_wav of the reference clip)")
+        b = codes.shape[0]
+        if text_lens is None:
+            text_lens = torch.full((b,), text_tokens.shape[-1],
+                                   device=self.device)
+        spk = spk_mel16.to(self.device)
+        if spk.shape[0] == 1 and b > 1:
+            spk = spk.repeat(b, 1, 1)
+        latent = self.gpt(cond_mel, text_tokens, text_lens, codes,
+                          lens * self.cfg.gpt.mel_length_compression,
+                          return_latent=True)
+        return self.hifigan(latent, ref_mel16k=spk)
+
+    @torch.no_grad()
     def _render_shortcut(self, codes: torch.Tensor):
         """The test.py:152-154 shortcut: codes -> DVAE decode -> Vocos.
         Returns (wav (B, 4 n_b hop), mel (B, mel, 4 n_b))."""
@@ -330,13 +411,17 @@ class TextToSpeech:
     def tts_tokens(self, text_tokens, cond_mel: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    settings: TTSSettings = TTSSettings(),
-                   use_diffusion: bool = True) -> Dict[str, Any]:
+                   use_diffusion: bool = True, use_hifigan: bool = False,
+                   spk_mel16: Optional[torch.Tensor] = None
+                   ) -> Dict[str, Any]:
         """Synthesize one text from prepared tokens. Returns a dict with
-        'wav' (np.ndarray (1, n * 1024)), 'codes', 'lengths', 'steps' (AR
-        decode iterations) and host-clock 'ar_seconds' / 'render_seconds'
-        (each stage ends in a device sync). num_candidates K > 1 draws K
-        rows in one AR pass and renders the CLVP winner; use_diffusion=False
-        renders through the DVAE shortcut."""
+        'wav' (np.ndarray (1, n * 1024), or (1, hifigan_samples(n)) with
+        use_hifigan), 'codes', 'lengths', 'steps' (AR decode iterations)
+        and host-clock 'ar_seconds' / 'render_seconds' (each stage ends in
+        a device sync). num_candidates K > 1 draws K rows in one AR pass and
+        renders the CLVP winner; use_diffusion=False renders through the
+        DVAE shortcut; use_hifigan (with_hifigan=True, spk_mel16 from
+        speaker_mel_from_wav) through the HifiDecoder."""
         g = generator if generator is not None else self._generator(0)
         text = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long,
                                device=self.device)
@@ -357,12 +442,16 @@ class TextToSpeech:
         n_b = bucket_len(n, self._code_buckets())
         lens = torch.clamp(res.lengths - 2, 1, n_b)
         codes = self._pad_codes(res.codes, lens, n_b)
-        if use_diffusion:
-            wav = self._render(cond_mel, text, codes, lens, g, settings)
+        if use_hifigan:
+            wav = self._render_hifigan(cond_mel, text, codes, lens, spk_mel16)
+            keep = hifigan_samples(self.cfg.hifigan, n)
         else:
-            wav, _ = self._render_shortcut(codes)
-        hop, comp = self.cfg.vocos.hop_length, self.cfg.vqvae.compression
-        wav = wav[:, :n * comp * hop].cpu().numpy()
+            if use_diffusion:
+                wav = self._render(cond_mel, text, codes, lens, g, settings)
+            else:
+                wav, _ = self._render_shortcut(codes)
+            keep = n * self.cfg.vqvae.compression * self.cfg.vocos.hop_length
+        wav = wav[:, :keep].cpu().numpy()
         return {"wav": wav, "codes": res.codes.cpu().numpy(),
                 "lengths": res.lengths.cpu().numpy(), "steps": res.steps,
                 "ar_seconds": t1 - t0,
@@ -402,27 +491,70 @@ class TextToSpeech:
                         "".join(sorted(self.last_oov)))
         return token_lists
 
+    def _split(self, generator: torch.Generator) -> torch.Generator:
+        """A new generator on the model's device seeded from `generator`:
+        one independent stream per sentence, as the JAX package splits its
+        key per sentence."""
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        return torch.Generator(self.device).manual_seed(seed)
+
+    def stream_tokens(self, token_lists, cond_mel: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      settings: TTSSettings = TTSSettings(),
+                      use_diffusion: bool = True, use_hifigan: bool = False,
+                      spk_mel16: Optional[torch.Tensor] = None):
+        """Generator over prepared sentences: yields tts_tokens' result for
+        each, in order, as soon as it is rendered. Sentence i draws from the
+        i-th generator split off `generator` (default seed 0)."""
+        g = generator if generator is not None else self._generator(0)
+        for tokens in token_lists:
+            yield self.tts_tokens(tokens, cond_mel, self._split(g), settings,
+                                  use_diffusion=use_diffusion,
+                                  use_hifigan=use_hifigan,
+                                  spk_mel16=spk_mel16)
+
+    def tts_stream(self, text: str, cond_wav, generator=None,
+                   settings: TTSSettings = TTSSettings(), lang: str = "ZH",
+                   use_diffusion: bool = True, use_hifigan: bool = False):
+        """Generator: each sentence's 24 kHz waveform as soon as it is
+        rendered, so the time to first audio is one sentence's latency
+        (api.py:859-880). np.concatenate(list(tts_stream(...))) equals
+        tts(batch_sentences=False) with the same generator seed."""
+        cond_mel = self.cond_mel_from_wav(cond_wav)
+        spk = self.speaker_mel_from_wav(cond_wav) if use_hifigan else None
+        for out in self.stream_tokens(
+                self._text_to_token_lists(text, lang, settings), cond_mel,
+                generator, settings, use_diffusion=use_diffusion,
+                use_hifigan=use_hifigan, spk_mel16=spk):
+            yield out["wav"][0]
+
     def tts(self, text: str, cond_wav, generator=None,
             settings: TTSSettings = TTSSettings(), lang: str = "ZH",
-            use_diffusion: bool = True,
-            batch_sentences: bool = True) -> np.ndarray:
+            use_diffusion: bool = True, batch_sentences: bool = True,
+            use_hifigan: bool = False) -> np.ndarray:
         """Full text in, 24 kHz waveform out, sentence-split. With
         batch_sentences (the default) several sentences run as one batched
         AR pass and one render (infer/serving.synthesize_batch); otherwise
-        one tts_tokens call per sentence, in order."""
+        one tts_tokens call per sentence, in order (tts_stream's sentences,
+        concatenated). use_hifigan renders through the HifiDecoder
+        (with_hifigan=True)."""
         g = generator if generator is not None else self._generator(0)
         cond_mel = self.cond_mel_from_wav(cond_wav)
         token_lists = self._text_to_token_lists(text, lang, settings)
         if not token_lists:
             return np.zeros(0, np.float32)
+        spk = self.speaker_mel_from_wav(cond_wav) if use_hifigan else None
         if batch_sentences and len(token_lists) > 1:
             from xtts_tpu_torch.infer.serving import (SynthesisRequest,
                                                       synthesize_batch)
             wavs = synthesize_batch(
                 self, [SynthesisRequest(t) for t in token_lists], cond_mel,
-                settings, use_diffusion=use_diffusion, generator=g)
+                settings, use_diffusion=use_diffusion, generator=g,
+                use_hifigan=use_hifigan, spk_mel16=spk)
         else:
-            wavs = [self.tts_tokens(tokens, cond_mel, g, settings,
-                                    use_diffusion=use_diffusion)["wav"][0]
-                    for tokens in token_lists]
+            wavs = [out["wav"][0] for out in self.stream_tokens(
+                token_lists, cond_mel, g, settings,
+                use_diffusion=use_diffusion, use_hifigan=use_hifigan,
+                spk_mel16=spk)]
         return np.concatenate(wavs)

@@ -9,7 +9,8 @@ Engines, chosen per call as the JAX package chooses them:
 
 * B=1: every token runs as one K1 step (ops/decode_step.py) over an
   (L, S, D) bf16 cache: the CUDA kernel chain for a CUDA model, its plain
-  twin on the CPU;
+  twin on the CPU; on the int4 stack where XTTS_DECODE_BITS=4 was set when
+  the tree was built (attach_fused_stack);
 * use_fused_serving at B in {8, 16}: every token runs as one K4 step
   (ops/serving_step.py) over an (L, B, S, D) int8 cache with per-position
   scales;
@@ -19,10 +20,14 @@ Engines, chosen per call as the JAX package chooses them:
 
 cache_ladder grows the cache through segment capacities (zero padding is
 exact: positions past the index are masked) for every engine.
+
+quantization_quality_gate measures an engine's teacher-forced greedy
+agreement with the full-precision chain, as the JAX package's does.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -88,9 +93,29 @@ def quantize_gpt_decode(model: UnifiedVoice,
 
 
 def attach_fused_stack(qtree: Dict[str, Any], cfg) -> Dict[str, Any]:
-    """Add the K1 weight stack (ops/decode_step.stack_qtree) in place."""
-    qtree["fused"] = _ds.stack_qtree(qtree, cfg.number_mel_codes)
+    """Add the K1 weight stack in place: ops/decode_step.stack_qtree, or,
+    with XTTS_DECODE_BITS=4 set when this runs, the packed int4 stack
+    (stack_qtree_int4; lossier, an opt-in speed mode), as the JAX package's
+    attach_fused_stack reads the variable (qdecode.py:103-115). The JAX
+    package attaches lazily at the first B=1 fused generate; the port
+    attaches when the tree is built (TextToSpeech.requantize()), so the
+    variable counts as it stands then."""
+    build = (_ds.stack_qtree_int4
+             if os.environ.get("XTTS_DECODE_BITS") == "4" else _ds.stack_qtree)
+    qtree["fused"] = build(qtree, cfg.number_mel_codes)
     return qtree
+
+
+def _k4_stack(qtree: Dict[str, Any]) -> Dict[str, Any]:
+    """The weight stack K4 reads: the int8 one. An int4 stack is refused
+    (in the JAX package K4 would DMA its packed tiles as int8 ones)."""
+    st = qtree["fused"]
+    if st.get("bits") == 4:
+        raise ValueError(
+            "the fused serving step (K4, XTTS_FUSED_SERVING=1) reads int8 "
+            "weights and cannot run on the int4 stack that "
+            "XTTS_DECODE_BITS=4 attached; unset one of the two")
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +225,123 @@ def _decode_logits(qt: Dict[str, Any], heads: int, token: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# quantization quality gate (xtts_tpu/infer/qdecode.py:274-408)
+# ---------------------------------------------------------------------------
+
+def requantize_int4_tree(qtree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's int4 grid for the per-layer chain, as it is:
+    dequantize each int8 matrix and re-quantize it per output column over
+    the WHOLE K axis, s4 = max(max|W| / 7, 1e-8). Its docstring there calls
+    this stack_qtree_int4's exact math, but K1-int4 takes one scale per
+    (D-row group, column): for the MLP out matrix (K = 4D) the two grids
+    differ, so the gate measures other weights than K1-int4 streams
+    (ROADMAP R4). Kept as the JAX package has it."""
+    def requant(q):
+        w = q["w"].float() * q["scale"][None, :]
+        s4 = torch.clamp(w.abs().amax(dim=0) / 7.0, min=1e-8)
+        w4 = torch.clamp(torch.round(w / s4[None, :]), -7, 7)
+        return {"w": w4.to(torch.int8), "scale": s4}
+
+    out = dict(qtree)
+    out["layers"] = [
+        {k: (requant(v) if k in ("qkv", "proj", "fc", "out") else v)
+         for k, v in layer.items()}
+        for layer in qtree["layers"]]
+    out["mel_head"] = requant(qtree["mel_head"])
+    return out
+
+
+@torch.no_grad()
+def _teacher_forced_agreement(model: UnifiedVoice, qtree: Dict[str, Any],
+                              cond_mel, text_tokens, codes,
+                              kv_quant: bool = False,
+                              fused_serving: bool = False):
+    """Teacher-forced greedy picks of the quantized engine and of the
+    full-precision decode chain over the same ground-truth codes (B, N).
+    Returns (picks of the chain (N, B), picks of the quantized engine
+    (N, B), margin (N, B)): margin is the smaller of the two arms' top-2
+    logit gaps at each position. kv_quant: the quantized arm keeps a
+    per-(position, head) int8 cache; fused_serving: it runs K4 over its
+    per-(layer, row, position) int8 cache."""
+    cfg = model.cfg
+    prefix, n_cond = model.encode_prefix(cond_mel, text_tokens)
+    b, p_len, _ = prefix.shape
+    n = codes.shape[1]
+    s_max = p_len + n + 1
+    hd = cfg.model_dim // cfg.heads
+
+    def prefilled():
+        cache = KVCache.zeros(cfg.layers, b, s_max, cfg.heads, hd,
+                              dtype=torch.bfloat16, device=prefix.device)
+        return model.prefill(prefix, cache)[1]
+
+    cache_f, cache_q = prefilled(), prefilled()
+    if fused_serving:
+        k4 = _k4_stack(qtree)
+        cache_q = _ss.quantize_kv_rowwise(cache_q)
+    elif kv_quant:
+        cache_q = quantize_kv(cache_q)
+    picks_f, picks_q, margins = [], [], []
+
+    def top2_gap(lg):
+        top = lg.float().topk(2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    for t in range(n):
+        tok = codes[:, t]
+        mel_pos = t + 1 + (n_cond if cfg.decode_position_quirk else 0)
+        lf, cache_f = model.decode_one(tok, mel_pos, cache_f, p_len + t)
+        if fused_serving:
+            x = (qtree["mel_embedding"][tok]
+                 + qtree["mel_pos_embedding"][mel_pos][None])
+            lq = _ss.fused_serving_logits(k4, x, *cache_q, p_len + t,
+                                          cfg.layers, cfg.heads)[0]
+            lq = lq[:, :cfg.number_mel_codes]
+        else:
+            lq, cache_q = _decode_logits(qtree, cfg.heads, tok, mel_pos,
+                                         cache_q, p_len + t)
+        picks_f.append(lf.argmax(-1))
+        picks_q.append(lq.argmax(-1))
+        margins.append(torch.minimum(top2_gap(lf), top2_gap(lq)))
+    return (torch.stack(picks_f), torch.stack(picks_q),
+            torch.stack(margins))
+
+
+def quantization_quality_gate(model: UnifiedVoice, cond_mel, text_tokens,
+                              codes, bits: int = 8, kv_quant: bool = False,
+                              fused_serving: bool = False,
+                              min_agreement: float = 0.98) -> Dict[str, Any]:
+    """Teacher-forced greedy top-1 agreement of a quantized decode engine
+    with the full-precision decode chain over the given mel-code sequences
+    (B, N): the acceptance check before a quantized engine becomes a
+    default on a set of weights. Engines: bits 8 or 4 (the int4 grid of
+    requantize_int4_tree) over a bf16 cache; kv_quant adds the
+    per-(position, head) int8 cache; fused_serving runs K4 (rows 8 or 16).
+    Returns {bits, kv_quant, fused_serving, agreement, n_positions,
+    min_agreement, passed}."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if kv_quant and fused_serving:
+        raise ValueError("kv_quant and fused_serving are separate engines; "
+                         "gate them one at a time")
+    qtree = quantize_gpt_decode(model, include_fused=fused_serving)
+    if bits == 4:
+        qtree = requantize_int4_tree(qtree)
+    dev = next(model.parameters()).device
+    pf, pq, _ = _teacher_forced_agreement(
+        model, qtree, torch.as_tensor(cond_mel, device=dev),
+        torch.as_tensor(text_tokens, dtype=torch.long, device=dev),
+        torch.as_tensor(codes, dtype=torch.long, device=dev),
+        kv_quant=kv_quant, fused_serving=fused_serving)
+    agreement = float((pf == pq).float().mean())
+    return {"bits": bits, "kv_quant": kv_quant,
+            "fused_serving": fused_serving, "agreement": agreement,
+            "n_positions": int(codes.shape[0]) * int(codes.shape[1]),
+            "min_agreement": min_agreement,
+            "passed": agreement >= min_agreement}
+
+
+# ---------------------------------------------------------------------------
 # generation loop
 # ---------------------------------------------------------------------------
 
@@ -231,6 +373,7 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
     fserv = use_fused_serving and not fused and b in (8, 16)
     if (fused or fserv) and "fused" not in qtree:
         attach_fused_stack(qtree, cfg)
+    k4 = _k4_stack(qtree) if fserv else None
     caps = ladder_caps(cache_ladder, max_gen)
 
     def seg_len(cap: int) -> int:
@@ -292,8 +435,7 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
                         qtree["fused"], x, *cache, p_len + step, layers, heads)
                 else:
                     logits, *_ = _ss.fused_serving_logits(
-                        qtree["fused"], x, *cache, p_len + step, layers,
-                        heads)
+                        k4, x, *cache, p_len + step, layers, heads)
                 logits = logits[:, :vocab]
             else:
                 logits, cache = _decode_logits(qtree, heads, tok, mel_pos,

@@ -11,9 +11,11 @@ xtts_tpu/infer/serving.py).
   one synthesize_batch call, with backpressure (max_pending) and a queue
   timeout.
 
-Randomness: each wave draws from one torch.Generator on the model's device
-(the JAX package's batch-level key). The multi-device (place_on_mesh)
-branch and the HiFi-GAN render are not ported.
+Every wave renders through the diffusion, the DVAE shortcut or, with
+use_hifigan, the HifiDecoder (per-request speaker mels in
+SynthesisRequest.spk_mel16). Randomness: each wave draws from one
+torch.Generator on the model's device (the JAX package's batch-level key).
+The multi-device (place_on_mesh) branch is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings, bucket_len
+from xtts_tpu_torch.models.hifigan import hifigan_samples
 
 
 @dataclass
@@ -40,6 +43,10 @@ class SynthesisRequest:
     # batch share T (TextToSpeech.cond_mel_bucketed). None -> the
     # batch-level cond_mel.
     cond_mel: Optional[torch.Tensor] = None
+    # per-request speaker mel for the HiFi-GAN render: (1, T16, 64) from
+    # TextToSpeech.speaker_mel_from_wav, one shape across a batch. None ->
+    # the batch-level spk_mel16.
+    spk_mel16: Optional[torch.Tensor] = None
 
 
 def _pad_texts(texts: Sequence[np.ndarray], stop_token: int,
@@ -59,10 +66,16 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
                      use_diffusion: bool = False,
                      generator: Optional[torch.Generator] = None,
                      use_hifigan: bool = False,
+                     spk_mel16: Optional[torch.Tensor] = None,
                      batch_buckets: Optional[Sequence[int]] = None
                      ) -> List[np.ndarray]:
     """Synthesize B utterances in one pass; returns per-request waveforms
     trimmed to their true lengths. Runs on the model's device.
+
+    use_hifigan: render the rows' GPT latents through the HifiDecoder (one
+    batched call; with_hifigan=True and spk_mel16 from
+    tts.speaker_mel_from_wav, or per-request SynthesisRequest.spk_mel16).
+    Overrides use_diffusion.
 
     batch_buckets: pad the row count up to a bucket (e.g. (1, 2, 4, 8))
     with dummy rows reusing request 0 (outputs dropped), as the JAX package
@@ -120,11 +133,21 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
     else:
         res = tts._generate(cond, texts, g, settings)
         codes, lengths = res.codes, res.lengths
+    if use_hifigan and any(r.spk_mel16 is not None for r in requests):
+        per = [r.spk_mel16 if r.spk_mel16 is not None else spk_mel16
+               for r in requests]
+        if (any(s is None for s in per)
+                or len({tuple(s.shape) for s in per}) != 1):
+            raise ValueError(
+                "per-request spk_mel16s must share one shape (use "
+                "speaker_mel_from_wav, bucketed), or a batch-level "
+                "spk_mel16 must fill the requests without one")
+        spk_mel16 = torch.cat([s.to(dev) for s in per], dim=0)
     text_lens = torch.as_tensor([len(r.text_tokens) for r in requests],
                                 device=dev)
     wavs = render_rows(tts, texts, text_lens, cond, codes,
                        lengths.cpu().numpy(), settings, use_diffusion, g,
-                       use_hifigan=use_hifigan)
+                       use_hifigan=use_hifigan, spk_mel16=spk_mel16)
     return wavs[:n_real]
 
 
@@ -132,21 +155,28 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
 def render_rows(tts: TextToSpeech, texts, text_lens, cond, codes,
                 lengths: np.ndarray, settings: TTSSettings,
                 use_diffusion: bool, generator,
-                use_hifigan: bool = False) -> List[np.ndarray]:
+                use_hifigan: bool = False,
+                spk_mel16: Optional[torch.Tensor] = None
+                ) -> List[np.ndarray]:
     """Render B generated rows to per-row trimmed waveforms in one batched
     render.
 
     texts (B, Tt) framed tokens; text_lens (B,) true lengths; cond
     (B, mel, T) conditioning mels; codes (B, S) generated codes; lengths
     (B,) generated lengths including the stop token. Strips the trailing 2
-    codes (test.py:150) and pads to a code bucket."""
-    if use_hifigan:
-        raise NotImplementedError("the HiFi-GAN render is not ported")
+    codes (test.py:150) and pads to a code bucket. use_hifigan renders
+    through the HifiDecoder with spk_mel16 ((1 or B, T16, 64))."""
     cfg = tts.cfg
     ns = np.maximum(lengths - 2, 1)
     n_b = bucket_len(int(ns.max()), tts._code_buckets())
     lens = torch.as_tensor(np.minimum(ns, n_b), device=tts.device)
     padded = tts._pad_codes(codes, lens, n_b)
+    if use_hifigan:
+        wav = tts._render_hifigan(
+            cond, texts, padded, torch.as_tensor(ns, device=tts.device),
+            spk_mel16, text_lens=text_lens).cpu().numpy()
+        return [wav[i, :hifigan_samples(cfg.hifigan, int(ns[i]))]
+                for i in range(wav.shape[0])]
     if use_diffusion:
         wav = tts._render(cond, texts, padded,
                           torch.as_tensor(ns, device=tts.device), generator,
@@ -177,8 +207,12 @@ class BatchServer:
                  use_diffusion: bool = False,
                  batch_buckets: Optional[Sequence[int]] = None,
                  max_pending: Optional[int] = None,
-                 request_timeout_s: Optional[float] = None):
-        """batch_buckets: row-count buckets (see synthesize_batch).
+                 request_timeout_s: Optional[float] = None,
+                 use_hifigan: bool = False,
+                 spk_mel16: Optional[torch.Tensor] = None):
+        """use_hifigan / spk_mel16: render every wave through the
+        HifiDecoder with this speaker mel (see synthesize_batch).
+        batch_buckets: row-count buckets (see synthesize_batch).
         max_pending: submit() raises ServerBusy once this many requests wait
         unpacked (None = unbounded). request_timeout_s: a request that waits
         in the queue longer fails with TimeoutError instead of occupying a
@@ -189,6 +223,8 @@ class BatchServer:
         self.max_batch = max_batch
         self.window = window_ms / 1000.0
         self.use_diffusion = use_diffusion
+        self.use_hifigan = use_hifigan
+        self.spk_mel16 = spk_mel16
         self.batch_buckets = (tuple(b for b in batch_buckets
                                     if b <= max_batch)
                               if batch_buckets else None)
@@ -203,12 +239,14 @@ class BatchServer:
         self._thread.start()
 
     def submit(self, text_tokens: np.ndarray,
-               cond_mel: Optional[torch.Tensor] = None
+               cond_mel: Optional[torch.Tensor] = None,
+               spk_mel16: Optional[torch.Tensor] = None
                ) -> "Future[np.ndarray]":
         """cond_mel: optional per-request voice ((1, mel, T), one T across a
-        batch); None uses the server's voice. Requests with different cond
-        shapes run as separate waves, so a mismatched tenant never fails
-        its neighbours."""
+        batch); None uses the server's voice. spk_mel16: the request's
+        speaker mel for the HiFi-GAN render. Requests with different cond
+        or speaker-mel shapes run as separate waves, so a mismatched tenant
+        never fails its neighbours."""
         if self._stop.is_set():
             raise RuntimeError("BatchServer is closed")
         toks = np.asarray(text_tokens, np.int64)
@@ -225,7 +263,7 @@ class BatchServer:
             raise ServerBusy(
                 f"pending queue full ({self.max_pending} requests)")
         fut: "Future[np.ndarray]" = Future()
-        self._q.put((toks, cond_mel, fut, time.perf_counter()))
+        self._q.put((toks, cond_mel, spk_mel16, fut, time.perf_counter()))
         return fut
 
     def pending(self) -> int:
@@ -264,7 +302,9 @@ class BatchServer:
                 synthesize_batch(self.tts, [SynthesisRequest(toks)] * b,
                                  self.cond_mel, self.settings,
                                  use_diffusion=self.use_diffusion,
-                                 generator=self.tts._generator(0))
+                                 generator=self.tts._generator(0),
+                                 use_hifigan=self.use_hifigan,
+                                 spk_mel16=self.spk_mel16)
                 n += 1
         return n
 
@@ -275,7 +315,7 @@ class BatchServer:
         self._thread.join(timeout=5)
         try:
             while True:
-                self._q.get_nowait()[2].cancel()
+                self._q.get_nowait()[3].cancel()
         except queue.Empty:
             pass
 
@@ -305,26 +345,27 @@ class BatchServer:
                 now = time.perf_counter()
                 live = []
                 for item in batch:
-                    if now - item[3] > self.request_timeout_s:
-                        if not item[2].done():
-                            item[2].set_exception(TimeoutError(
-                                f"request waited {now - item[3]:.1f}s in "
+                    if now - item[4] > self.request_timeout_s:
+                        if not item[3].done():
+                            item[3].set_exception(TimeoutError(
+                                f"request waited {now - item[4]:.1f}s in "
                                 f"queue (> {self.request_timeout_s}s)"))
                         self._m["timed_out"] += 1
                     else:
                         live.append(item)
                 batch = live
-            # per-request conds must share shapes within one wave
+            # per-request conds and speaker mels share shapes within a wave
             groups: dict = {}
             for item in batch:
-                c = item[1]
-                groups.setdefault(None if c is None else tuple(c.shape),
-                                  []).append(item)
+                key = tuple(None if t is None else tuple(t.shape)
+                            for t in item[1:3])
+                groups.setdefault(key, []).append(item)
             for items in groups.values():
                 self._run_wave(items)
 
     def _run_wave(self, items) -> None:
-        reqs = [SynthesisRequest(t, cond_mel=c) for t, c, _, _ in items]
+        reqs = [SynthesisRequest(t, cond_mel=c, spk_mel16=s)
+                for t, c, s, _, _ in items]
         self._seq += 1
         self._m["waves"] += 1
         self._m["rows_sum"] += len(items)
@@ -333,15 +374,16 @@ class BatchServer:
                 self.tts, reqs, self.cond_mel, self.settings,
                 use_diffusion=self.use_diffusion,
                 batch_buckets=self.batch_buckets,
-                generator=self.tts._generator(self._seq))
+                generator=self.tts._generator(self._seq),
+                use_hifigan=self.use_hifigan, spk_mel16=self.spk_mel16)
         except Exception as e:  # the wave's requests fail, the server lives
-            for _, _, f, _ in items:
+            for _, _, _, f, _ in items:
                 if not f.done():
                     f.set_exception(e)
                     self._m["failed"] += 1
             return
         now = time.perf_counter()
-        for (_, _, f, t0), w in zip(items, wavs):
+        for (_, _, _, f, t0), w in zip(items, wavs):
             if not f.cancelled():
                 f.set_result(w)
                 lat = now - t0

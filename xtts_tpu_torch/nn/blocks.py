@@ -90,10 +90,10 @@ class Conv1d(nn.Conv1d):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  bias: bool = True, dtype=torch.float32,
-                 zero_init: bool = False):
+                 zero_init: bool = False, dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding, groups=groups,
-                         bias=bias)
+                         bias=bias, dilation=dilation)
         self.compute_dtype = dtype
         self.zero_init = zero_init
 
@@ -110,7 +110,7 @@ class Conv1d(nn.Conv1d):
     def forward(self, x):
         dt = self.compute_dtype
         return F.conv1d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
-                        self.stride, self.padding, 1, self.groups)
+                        self.stride, self.padding, self.dilation, self.groups)
 
     def pointwise(self, x_btc):
         """A kernel-size-1 conv applied to channels-last (B, T, C)."""

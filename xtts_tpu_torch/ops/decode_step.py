@@ -18,6 +18,13 @@ every matvec takes a bf16 input. Weights are quantize_dense's int8 (in, out)
 matrices as they are; the port's layout needs no (D, D) tiling. The new
 k/v row is written into the (L, S, D) bf16 cache in place at `index`.
 
+The int4 mode (the TPU kernel's wbits == 4 branch, decode_step.py:157-167,
+packed by stack_qtree_int4 :415-454) runs the same chain with `int4_gemv`
+in place of `int8_gemv`: ~99 MB of packed weights a token. Its layout is
+the port's own: each matrix (K, N/2) bytes, column 2j in the low nibble and
+2j+1 in the high one, per-(D-row group, column) scales; the TPU kernel's
+even||odd column order and its permutation matmul have no counterpart.
+
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain PyTorch twin for a CPU tensor.
 """
@@ -47,9 +54,10 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("decode_step")
     lib.xt_layer_norm_rows.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.xt_int8_gemv.argtypes = [_P] * 5 + [_I, _I, _I, _I, _P]
+    lib.xt_int4_gemv.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.xt_decode_attention.argtypes = [_P] * 4 + [_I, _I, _I,
                                                    ctypes.c_float, _P]
-    for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv,
+    for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv, lib.xt_int4_gemv,
                lib.xt_decode_attention):
         fn.restype = _I
     return lib
@@ -155,6 +163,89 @@ int8_gemv.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# int4_gemv
+# ---------------------------------------------------------------------------
+
+def unpack_int4(w: torch.Tensor) -> torch.Tensor:
+    """(K, N/2) packed bytes -> (K, N) int8 values in [-7, 7]."""
+    b = w.to(torch.int32)                       # sign-extends the byte
+    lo = ((b & 0xF) ^ 8) - 8                    # the signed low nibble
+    hi = b >> 4                                 # the signed high nibble
+    return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
+
+
+def pack_int4(w4: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 values in [-7, 7] -> (K, N/2) bytes: column 2j in the
+    low nibble, column 2j+1 in the high nibble."""
+    lo = w4[..., 0::2].to(torch.int32) & 0xF
+    hi = w4[..., 1::2].to(torch.int32) & 0xF
+    return ((hi << 4) | lo).to(torch.uint8).view(torch.int8).contiguous()
+
+
+def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    groups = scale.shape[0]
+    wv = unpack_int4(w).float().reshape(groups, -1, scale.shape[1])
+    parts = torch.einsum("gk,gkn->gn", x.float().reshape(groups, -1), wv)
+    y = parts * scale
+    y[0] = y[0] + bias
+    if not gelu:
+        y = y.to(torch.bfloat16).float()
+    total = y[0]
+    for g in range(1, groups):      # in group order, as the kernel sums
+        total = total + y[g]
+    y = total
+    if gelu:
+        y = gelu_new(y)
+    if out is not None:
+        out += y
+        return out
+    return y.to(out_dtype)
+
+
+def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, out: Optional[torch.Tensor] = None,
+              gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """y = sum_g r((x_g . W4_g) * scale[g] + (g == 0) bias), f32
+    accumulation: the TPU kernel's int4 tile math.
+
+    x (K,) bf16; w (K, N/2) packed int4 (pack_int4); scale (G, N) f32, one
+    row for each group of K/G input rows; bias (N,) f32. r() rounds each
+    group's output to bf16, as the TPU kernel rounds every tile it
+    restores to canonical order; with gelu (its fc tiles) nothing is
+    rounded before gelu_new. `out` and out_dtype as int8_gemv."""
+    if not x.is_cuda:
+        return int4_gemv_plain(x, w, scale, bias, out, gelu, out_dtype)
+    k, half = w.shape
+    groups, n = scale.shape
+    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8
+            or x.numel() != k or n != 2 * half or n % 32 or k % groups
+            or k > MAX_SMEM_FLOATS or bias.numel() != n
+            or scale.dtype != torch.float32):
+        raise ValueError(f"int4_gemv: bad operands x {tuple(x.shape)} "
+                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}, scale "
+                         f"{tuple(scale.shape)}")
+    _check_cuda(x, w, scale, bias, out)
+    if out is not None:
+        if out.dtype != torch.float32 or out.numel() != n:
+            raise ValueError("int4_gemv accumulates into an f32 (N,) tensor")
+        mode, dst = 2, out
+    else:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int4_gemv: out_dtype {out_dtype}")
+        mode = 0 if out_dtype == torch.float32 else 1
+        dst = torch.empty((n,), dtype=out_dtype, device=x.device)
+    check(_lib().xt_int4_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias), ptr(dst),
+                              k, n, groups, int(gelu), mode, stream_of(x)),
+          "int4_gemv")
+    int4_gemv.launches += 1
+    return dst
+
+
+int4_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # decode_attention
 # ---------------------------------------------------------------------------
 
@@ -232,12 +323,14 @@ def fused_decode_logits(stacked: Dict[str, Any], x: torch.Tensor,
                         layers: int, heads: int):
     """One decode step: token hidden -> mel-head logits.
 
-    stacked: from stack_qtree(); x: (1, D) token embedding (mel emb + pos
+    stacked: from stack_qtree() or stack_qtree_int4() (the step then runs
+    int4_gemv); x: (1, D) token embedding (mel emb + pos
     emb); kc/vc: (L, S, D) bf16 caches, updated in place at `index`.
     Returns (logits (1, head_tiles*D) f32 — slice to vocab outside, kc, vc).
     Each op launches its kernel for CUDA tensors, its plain twin for CPU
     tensors."""
-    out = _step((layer_norm_rows, int8_gemv, decode_attention), stacked, x,
+    gemv = int4_gemv if stacked.get("bits") == 4 else int8_gemv
+    out = _step((layer_norm_rows, gemv, decode_attention), stacked, x,
                 kc, vc, index, layers, heads)
     if x.is_cuda:
         fused_decode_logits.launches += 1
@@ -250,11 +343,11 @@ fused_decode_logits.launches = 0
 def fused_decode_logits_plain(stacked, x, kc, vc, index, layers, heads):
     """The same step through the plain twins on any device: the reference
     the kernel chain is held against on the card."""
-    return _step((layer_norm_rows_plain, int8_gemv_plain,
-                  decode_attention_plain), stacked, x, kc, vc, index, layers,
-                 heads)
+    gemv = int4_gemv_plain if stacked.get("bits") == 4 else int8_gemv_plain
+    return _step((layer_norm_rows_plain, gemv, decode_attention_plain),
+                 stacked, x, kc, vc, index, layers, heads)
 
-KERNELS = (layer_norm_rows, int8_gemv, decode_attention)
+KERNELS = (layer_norm_rows, int8_gemv, int4_gemv, decode_attention)
 
 
 def reset_launch_counts() -> None:
@@ -288,4 +381,42 @@ def stack_qtree(qt: Dict[str, Any], vocab: int) -> Dict[str, Any]:
     out["bhead"] = F.pad(qt["mel_head_b"].float(), (0, pad), value=NEG_INF)
     out["head_tiles"] = head_tiles
     out["vocab"] = vocab
+    return out
+
+
+def _int4_grid(w8: torch.Tensor, s8: torch.Tensor, groups: int):
+    """int8 (K, N) with per-column scales -> (int4 values (K, N) int8,
+    scales (groups, N) f32): stack_qtree_int4's math (decode_step.py
+    :428-432) with one scale per column of each (K/groups)-row tile:
+    W = int8 x scale, s4 = max(max|W|, 1e-8) / 7, w4 = clip(round(W / s4),
+    -7, 7), rounding half to even as jnp.round."""
+    k, n = w8.shape
+    wg = (w8.float() * s8[None, :]).reshape(groups, k // groups, n)
+    s4 = torch.clamp(wg.abs().amax(dim=1), min=1e-8) / 7.0
+    w4 = torch.clamp(torch.round(wg / s4[:, None, :]), -7, 7)
+    return w4.to(torch.int8).reshape(k, n), s4
+
+
+def stack_qtree_int4(qt: Dict[str, Any], vocab: int) -> Dict[str, Any]:
+    """qdecode quantized tree -> the packed int4 stack (XTTS_DECODE_BITS=4):
+    w{qkv,proj,fc,out} (L, K, N/2) packed bytes (pack_int4), s* (L, G, N)
+    f32 with G = K/D groups (four for `out`, one elsewhere), b* (L, N);
+    the head (D, head_tiles*D/2), (1, head_tiles*D), padded as the int8
+    stack pads it (zero weights, whose int4 scale is 1e-8/7 by the same
+    formula, bias NEG_INF). The values and scales are stack_qtree_int4's,
+    bit for bit, in canonical column order. Quality: lossier than int8, an
+    opt-in speed mode as in the JAX package."""
+    st = stack_qtree(qt, vocab)
+    d = st["ln"].shape[-1]
+    out = dict(st, bits=4)
+    for kind in ("qkv", "proj", "fc", "out", "head"):
+        w8, s8 = st["w" + kind], st["s" + kind]
+        groups = w8.shape[-2] // d
+        if w8.dim() == 2:                               # the head
+            w4, s4 = _int4_grid(w8, s8, groups)
+            out["w" + kind], out["s" + kind] = pack_int4(w4), s4
+        else:
+            grids = [_int4_grid(w, s, groups) for w, s in zip(w8, s8)]
+            out["w" + kind] = torch.stack([pack_int4(w) for w, _ in grids])
+            out["s" + kind] = torch.stack([s for _, s in grids])
     return out

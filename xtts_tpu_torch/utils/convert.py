@@ -266,3 +266,79 @@ def clvp_from_jax(tree: Mapping[str, Any], cfg) -> SD:
     _dense(sd, "to_speech_latent", p["to_speech_latent"])
     sd["temperature"] = _a(p["temperature"]).reshape(1)
     return sd
+
+
+def _channel_norm(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """_ChannelNorm: flax LayerNorm {LayerNorm_0: {scale, bias}} (mode
+    "layer") -> {weight, bias}; the affine mode's {scale, shift} -> an
+    eval BatchNorm whose statistics fold to exactly that affine (mean 0,
+    var + 1e-5 == 1 in f32)."""
+    if "LayerNorm_0" in p:
+        _norm(sd, prefix, p["LayerNorm_0"])
+        return
+    sd[prefix + ".weight"] = _a(p["scale"])
+    sd[prefix + ".bias"] = _a(p["shift"])
+    sd[prefix + ".running_mean"] = np.zeros_like(_a(p["scale"]))
+    sd[prefix + ".running_var"] = np.full_like(
+        _a(p["scale"]), np.float32(1.0) - np.float32(1e-5))
+
+
+def _conv2d(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """flax Conv (kT, kF, in, out) on (B, T, F, C) -> torch Conv2d
+    (out, in, kF, kT) on (B, C, F, T)."""
+    sd[prefix + ".weight"] = np.transpose(_a(p["kernel"]), (3, 2, 1, 0))
+    if "bias" in p:
+        sd[prefix + ".bias"] = _a(p["bias"])
+
+
+def hifigan_from_jax(tree: Mapping[str, Any], cfg) -> SD:
+    """HifiDecoder variables (either speaker norm mode) -> the port's
+    HifiDecoder state dict, under the reference's names. A flax "SAME"
+    transposed-conv kernel (k, in, out) becomes torch's (in, out, k)
+    flipped along k (the inverse of convert.py's _convtranspose1d_wn)."""
+    p = _params(tree)
+    g, s = p["waveform_decoder"], p["speaker_encoder"]
+    sd: SD = {}
+    w = "waveform_decoder."
+    _conv(sd, w + "conv_pre", g["conv_pre"])
+    _conv(sd, w + "conv_post", g["conv_post"])
+    _conv1x1(sd, w + "cond_layer", g["cond_layer"])
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        up = g[f"up_{i}"]
+        sd[f"{w}ups.{i}.weight"] = np.ascontiguousarray(
+            np.transpose(_a(up["kernel"])[::-1], (1, 2, 0)))
+        sd[f"{w}ups.{i}.bias"] = _a(up["bias"])
+        if f"cond_up_{i}" in g:
+            _conv1x1(sd, f"{w}conds.{i}", g[f"cond_up_{i}"])
+        for j in range(nk):
+            blk = g[f"res_{i}_{j}"]
+            rp = f"{w}resblocks.{i * nk + j}."
+            for m in range(len(cfg.resblock_dilation_sizes[j])):
+                if cfg.resblock_type == "1":
+                    _conv(sd, f"{rp}convs1.{m}", blk[f"c1_{m}"])
+                    _conv(sd, f"{rp}convs2.{m}", blk[f"c2_{m}"])
+                else:
+                    _conv(sd, f"{rp}convs.{m}", blk[f"c_{m}"])
+    e = "speaker_encoder."
+    _conv2d(sd, e + "conv1", s["stem"])
+    _channel_norm(sd, e + "bn1", s["stem_norm"])
+    for name, blk in s.items():
+        if not name.startswith("stage"):
+            continue
+        si, bi = (int(v) for v in name[len("stage"):].split("_block"))
+        bp = f"{e}layer{si + 1}.{bi}."
+        _conv2d(sd, bp + "conv1", blk["conv1"])
+        _channel_norm(sd, bp + "bn1", blk["norm1"])
+        _conv2d(sd, bp + "conv2", blk["conv2"])
+        _channel_norm(sd, bp + "bn2", blk["norm2"])
+        _dense(sd, bp + "se.fc.0", blk["se"]["fc1"])
+        _dense(sd, bp + "se.fc.2", blk["se"]["fc2"])
+        if "short" in blk:
+            _conv2d(sd, bp + "downsample.0", blk["short"])
+            _channel_norm(sd, bp + "downsample.1", blk["short_norm"])
+    _conv1x1(sd, e + "attention.0", s["asp_fc"])
+    _channel_norm(sd, e + "attention.2", s["asp_norm"])
+    _conv1x1(sd, e + "attention.3", s["asp_att"])
+    _dense(sd, e + "fc", s["proj"])
+    return sd
