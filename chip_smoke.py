@@ -22,12 +22,17 @@ Phases, each reported on its own lines:
      and the bound (bytes over 3.35 TB/s or operations over the peak for
      their type, whichever is larger):
      K1 (layer_norm_rows, int8_gemv, decode_attention, the 15-layer step, a
-     64-step teacher-forced greedy chain); K1-int4 (int4_gemv at the qkv,
-     fc, out (four K groups) and head shapes, the int4 step and chain); K2 (flash_mha at (2, 1280 | 1562,
-     8, 64) and (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own
-     3008 x 512 logits against its 8192-code codebook, a ragged shape and a
-     planted tie); K4 (int8_gemm_rows, serving_attention, the 16-row step
-     at S 354, a 64-step teacher-forced chain, step times at 8/16/32 rows).
+     64-step teacher-forced greedy chain at 76 launches a token); K1-int4
+     (int4_gemv at the qkv, fc, out (four K groups) and head shapes, the
+     int4 step and chain); K2 (flash_mha at (2, 1280 | 1562, 8, 64) and
+     (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
+     logits against its 8192-code codebook, a ragged shape and a planted
+     tie); K4 (int8_gemm_rows, serving_attention, the 16-row step at S 354,
+     a 64-step teacher-forced chain, step times at 8/16/32 rows). Each
+     product with the norm prologue (int8_gemv, int4_gemv, int8_gemm_rows
+     at the qkv + ln_1, fc + ln_2 and head + ln_f/final_norm shapes) is held
+     against layer_norm_rows then the unfused product (bit for bit) and
+     against its plain twin, and timed beside the two launches it replaces.
      Then the paths on a small configuration, card against CPU with the
      same weights: identical greedy int8 codes through K1 and through K4,
      identical DVAE codes, renders within 1e-3; identical greedy codes
@@ -55,12 +60,14 @@ Phases, each reported on its own lines:
   8. profile: one more warm B=1 request (seed 4), bare and then under
      torch.profiler: the device's busy share over the request and over its
      AR and render stages, the host time of one sample_token call, the
-     kernels with the most device time (trace in
-     build/xtts_tpu_torch/request_trace.json).
+     kernels with the most device time, the flash kernel's device time a
+     call (trace in build/xtts_tpu_torch/request_trace.json).
   9. a JSON line of the kernels, the total wall time, then the result line.
 
 Before each path of phases 4-7 every launch count is set to 0, and read
-after it; a path that did not launch each of its kernels fails. Any failure
+after it; a path that did not launch each of its kernels fails, and so
+does a K1 or K4 step that is not 76 launches or that launches
+layer_norm_rows (its norms run as the products' prologue). Any failure
 raises and exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero before printing any result.
 """
@@ -201,6 +208,7 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         return k1_cache(torch, cfg, s_max, p_len)
 
     # --- single ops at the main path's shapes ---
+    from xtts_tpu_torch.ops import build
     x32 = torch.randn(1, D, generator=g, device="cuda") * 3 + 1
     ln0 = st["ln"][0]
     e_ln = max(max_err(ds.layer_norm_rows(x32, ln0[0], ln0[1]),
@@ -208,6 +216,12 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
                max_err(ds.layer_norm_rows(x32, *st["lnf"]),
                        ds.layer_norm_rows_plain(x32, *st["lnf"])))
     check(e_ln <= OP_TOL, f"layer_norm_rows err {e_ln}")
+
+    def ln_uncached():            # every launch asks for the capability
+        build._hopper.cache_clear()
+        ds.layer_norm_rows(x32, ln0[0], ln0[1])
+
+    t_ln_q = time_ms(torch, ln_uncached)
     t_ln = time_ms(torch, lambda: ds.layer_norm_rows(x32, ln0[0], ln0[1]))
     p_ln = time_ms(torch, lambda: ds.layer_norm_rows_plain(x32, ln0[0],
                                                            ln0[1]))
@@ -216,8 +230,10 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     b_ln = bound(4 * D + 8 * D + 2 * D, 8 * D, "fp32")
     record(results, "layer_norm_rows", e_ln, t_ln, p_ln, l_ln, b_ln)
     log(f"[k1] layer_norm_rows (1, {D}) max_abs_err {e_ln:.3e}  "
-        f"kernel {t_ln:.4f} ms  plain {p_ln:.4f} ms  F.layer_norm "
-        f"{l_ln:.4f} ms  bound {b_ln[0]:.5f} ms ({b_ln[1]})  [{card}]")
+        f"kernel {t_ln:.4f} ms (capability query each launch, as before: "
+        f"{t_ln_q:.4f} ms)  plain {p_ln:.4f} ms  F.layer_norm "
+        f"{l_ln:.4f} ms  bound {b_ln[0]:.5f} ms ({b_ln[1]}); launched on "
+        f"no path: the comparator of the norm prologues  [{card}]")
 
     gemv_cases = [
         ("qkv", "wqkv", "sqkv", "bqkv", dict()),
@@ -265,6 +281,8 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         if name == "fc+gelu":
             fc_times = (tk, tp, tl, bnd)
     record(results, "int8_gemv", e_gemv, *fc_times)
+    prologue_checks(torch, ds, st, ds.int8_gemv, ds.int8_gemv_plain, x32[0],
+                    "k1", "int8_gemv+ln", results, card)
 
     idx = s_max - 60
     qkv = torch.randn(3 * D, generator=g, device="cuda")
@@ -302,6 +320,63 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     return qt, st
 
 
+def prologue_cases(st):
+    """The fused products of a K1 / K4 step: (name, weight, scale, bias
+    keys, norm, output kwargs) at layer 0 and the head."""
+    import torch
+    ln = st["ln"][0]
+    return [("qkv+ln_1", "wqkv", "sqkv", "bqkv", (ln[0], ln[1]), dict()),
+            ("fc+ln_2", "wfc", "sfc", "bfc", (ln[2], ln[3]),
+             dict(gelu=True, out_dtype=torch.bfloat16)),
+            ("head+lnf", "whead", "shead", "bhead", tuple(st["lnf"]),
+             dict())]
+
+
+def prologue_checks(torch, ds, st, kernel, plain, x32, tag, key, results,
+                    card):
+    """Each product with the norm prologue against layer_norm_rows then the
+    unfused product (bit for bit: both fold the statistics in one order)
+    and against its plain twin (OP_TOL relative to max(1, |y|)); the fused
+    call timed beside the two launches it replaces. x32: the f32 residual,
+    (D,) or (rows, D)."""
+    d = x32.shape[-1]
+    rows = x32.numel() // d
+    e_max, fc = 0.0, None
+    for name, wk, sk, bk, ln, kw in prologue_cases(st):
+        layer = wk != "whead"                # stacked (L, ...) or the head
+        w, s, b = (st[k][0] if layer else st[k] for k in (wk, sk, bk))
+
+        def unfused():
+            h = ds.layer_norm_rows(x32.reshape(rows, d), *ln).reshape(
+                x32.shape)
+            return kernel(h, w, s, b, **kw)
+
+        got = kernel(x32, w, s, b, ln=ln, **kw)
+        ref = unfused()
+        want = plain(x32, w, s, b, ln=ln, **kw)
+        check(torch.equal(got, ref), f"{key} {name}: fused != layer_norm_rows"
+              f" then the product (max diff {max_err(got, ref):.3e})")
+        err = max_err(got, want)
+        check(err <= OP_TOL * max(1.0, want.float().abs().max().item()),
+              f"{key} {name} err {err}")
+        e_max = max(e_max, err)
+        t_f = time_ms(torch, lambda: kernel(x32, w, s, b, ln=ln, **kw))
+        t_2 = time_ms(torch, unfused)
+        t_p = time_ms(torch, lambda: plain(x32, w, s, b, ln=ln, **kw))
+        n = got.shape[-1]
+        bnd = bound(w.numel() + 4 * s.numel() + 4 * n + 4 * x32.numel()
+                    + 4 * d * len(ln) + got.element_size() * got.numel(),
+                    2 * rows * d * n, "bf16")
+        log(f"[{tag}] {key} {name} ({rows} x {d} -> {n}): equal to "
+            f"layer_norm_rows + product; vs plain max_abs_err {err:.3e}  "
+            f"fused {t_f:.4f} ms  layer_norm_rows + product {t_2:.4f} ms "
+            f"(two launches)  plain {t_p:.4f} ms  bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})  [{card}]")
+        if name == "fc+ln_2":
+            fc = (t_f, t_p, None, bnd)
+    record(results, key, e_max, *fc)
+
+
 def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
     """The whole K1 step (int8 or int4 stack) against the plain step over a
     64-step teacher-forced greedy chain, then both timed at the index after
@@ -312,6 +387,7 @@ def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
     kc_k, vc_k = cache()
     kc_p, vc_p = cache()
     agree, ties, e_step, l_max = 0, 0, 0.0, 0.0
+    ds.reset_launch_counts()
     for step, tok in enumerate(toks):
         x = emb[tok][None] + pos[step + 2][None]
         lk, _, _ = ds.fused_decode_logits(st, x, kc_k, vc_k, p_len + step,
@@ -332,6 +408,10 @@ def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
             ties += 1
         check(lk[:, V:].max().item() < -1e8, "padded head columns reachable")
         l_max = max(l_max, lp[:, :V].abs().max().item())
+    per_token = sum(fn.launches for fn in ds.KERNELS) / 64
+    check(per_token == 5 * L + 1 and ds.layer_norm_rows.launches == 0,
+          f"{tag} step: {per_token} launches a token, layer_norm_rows "
+          f"{ds.layer_norm_rows.launches}")
     e_rows = max(max_err(kc_k, kc_p), max_err(vc_k, vc_p))
     r_max = max(kc_p.float().abs().max().item(),
                 vc_p.float().abs().max().item())
@@ -360,7 +440,8 @@ def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
         f"{l_max:.2f})), k/v rows {e_rows:.3e} (bound {K1_TOL} x max(1, "
         f"|rows| {r_max:.2f})), greedy agreement {agree}/64 teacher-forced "
         f"(+{ties} ties within the step error); kernel chain "
-        f"{t_step:.3f} ms/token, plain {p_step:.3f} ms/token  [{card}]")
+        f"{t_step:.3f} ms/token at {per_token:.0f} launches a token, plain "
+        f"{p_step:.3f} ms/token  [{card}]")
     return t_step, p_step, b_step
 
 
@@ -417,6 +498,9 @@ def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
         if name == "fc+gelu":
             fc_times = (tk, tp, tl, bnd)
     record(results, "int4_gemv", e_max, *fc_times)
+    x32 = torch.randn(D, generator=g, device="cuda") * 3 + 1
+    prologue_checks(torch, ds, st, ds.int4_gemv, ds.int4_gemv_plain, x32,
+                    "k1-int4", "int4_gemv+ln", results, card)
 
     ds.reset_launch_counts()
     step_chain(torch, ds, qt, st, cfg, s_max, p_len,
@@ -643,20 +727,25 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
 
 
 class Launches:
-    """The launch counters of every kernel wrapper, and the step counters of
-    the K1 and K4 chains. `path(name)` is used around one main path: every
-    count is set to 0 before it and read after it."""
+    """The launch counters of every kernel wrapper, the step counters of the
+    K1 and K4 chains, and, as "<kernel>+ln", the launches of a product with
+    the norm prologue (also counted in its kernel's total). Around one main
+    path every count is set to 0 before it (`reset`) and read after it."""
 
     def __init__(self, wrappers):
         self.wrappers = wrappers
-        self.total = {fn.__name__: 0 for fn in wrappers}
+        self.total = {name: 0 for name in self.read(add=False)}
 
     def reset(self):
         for fn in self.wrappers:
             fn.launches = 0
+            if hasattr(fn, "ln_launches"):
+                fn.ln_launches = 0
 
     def read(self, add: bool = True):
         got = {fn.__name__: fn.launches for fn in self.wrappers}
+        got.update({fn.__name__ + "+ln": fn.ln_launches
+                    for fn in self.wrappers if hasattr(fn, "ln_launches")})
         if add:
             for k, v in got.items():
                 self.total[k] += v
@@ -771,6 +860,8 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
     c_k = cache(rows, p_len)
     c_p = [t.clone() for t in c_k]
     agree = ties = 0
+    ss.reset_launch_counts()
+    ds.reset_launch_counts()
     e_chain = 0.0
     for step in range(64):
         x = emb[tokens(rows, step)] + pos[step + 2][None]
@@ -788,9 +879,17 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
                   f"{gap:.3e} > 2 x err {err:.3e}")
             ties += 1
         agree += int((ka == pa).sum())
+    per_step = (ss.int8_gemm_rows.launches + ss.serving_attention.launches
+                + ds.layer_norm_rows.launches) / 64
+    check(per_step == 5 * L + 1 and ds.layer_norm_rows.launches == 0
+          and ss.int8_gemm_rows.ln_launches == 64 * (2 * L + 1),
+          f"K4 step: {per_step} launches a step, layer_norm_rows "
+          f"{ds.layer_norm_rows.launches}")
     log(f"[k4] 64-step teacher-forced chain, 16 rows: logits max_abs_err "
         f"{e_chain:.3e}, greedy agreement {agree}/{64 * rows} (+{ties} ties "
-        f"within the step error)  [{card}]")
+        f"within the step error); {per_step:.0f} launches a step "
+        f"(int8_gemm_rows with the norm prologue "
+        f"{ss.int8_gemm_rows.ln_launches // 64})  [{card}]")
 
     # --- ops at 16 rows: the fc product and the attention at the index ---
     F = torch.nn.functional
@@ -816,6 +915,9 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
         f"{e_g:.3e}  kernel {t_g:.4f} ms ({w.numel() / (t_g * 1e-3) / 1e9:.0f}"
         f" GB/s weights)  plain {p_g:.4f} ms  matmul(bf16 W) {l_g:.4f} ms  "
         f"bound {b_g[0]:.5f} ms ({b_g[1]})  [{card}]")
+    x32 = torch.randn(rows, D, generator=g, device="cuda") * 3 + 1
+    prologue_checks(torch, ds, st, ss.int8_gemm_rows, ss.int8_gemm_rows_plain,
+                    x32, "k4", "int8_gemm_rows+ln", results, card)
 
     c1 = [t[0].contiguous() for t in cache(rows, idx)]
     c2 = [t.clone() for t in c1]
@@ -935,9 +1037,12 @@ def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
             and bool(np.isfinite(w).all()) for w in wavs),
             f"{name}: wavs {[w.shape for w in wavs]}, expected ({expect},)")
         steps = 300
+        check(got["layer_norm_rows"] == 0, f"{name}: layer_norm_rows "
+              f"launched {got['layer_norm_rows']} times")
         if got["fused_serving_logits"]:
             check(got["fused_serving_logits"] == steps
                   and got["int8_gemm_rows"] == steps * (4 * L + 1)
+                  and got["int8_gemm_rows+ln"] == steps * (2 * L + 1)
                   and got["serving_attention"] == steps * L,
                   f"{name}: K4 launches {got} for {steps} steps")
         if full:
@@ -970,9 +1075,12 @@ def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
                 f"{lat - stage['ar'] - stage['render']:.3f} s; peak "
                 f"{peak:.2f} GiB; launches K4 steps "
                 f"{got['fused_serving_logits']} (int8_gemm_rows "
-                f"{got['int8_gemm_rows']}, serving_attention "
+                f"{got['int8_gemm_rows']}, {got['int8_gemm_rows+ln']} of them "
+                f"with the norm prologue, serving_attention "
                 f"{got['serving_attention']}, layer_norm_rows "
-                f"{got['layer_norm_rows']}), K2 {got['flash_mha']}  [{card}]")
+                f"{got['layer_norm_rows']}: "
+                f"{(got['int8_gemm_rows'] + got['serving_attention']) / 300:.0f}"
+                f" a step), K2 {got['flash_mha']}  [{card}]")
         st = server.stats()
         check(st["completed"] == 24 and st["failed"] == 0
               and st["waves"] == 3, f"server stats {st}")
@@ -1085,16 +1193,21 @@ def stream_phase(torch, np, cfg, cond_wav, main_render, launches, card):
         t_prev = now
     total = time.perf_counter() - t_start
     d = launches.read()
-    check(d["int4_gemv"] >= (4 * L + 1) * steps and d["int8_gemv"] == 0
-          and d["decode_attention"] >= L * steps and d["flash_mha"] == 0,
+    k1 = d["fused_decode_logits"]
+    check(d["int4_gemv"] == (4 * L + 1) * k1 and d["int8_gemv"] == 0
+          and d["int4_gemv+ln"] == (2 * L + 1) * k1
+          and d["decode_attention"] == L * k1 and k1 >= steps
+          and d["layer_norm_rows"] == 0 and d["flash_mha"] == 0,
           f"[stream] launches {d} for {steps} tokens")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[stream] 3 sentences: time to first audio {ttfa:.3f} s; "
         f"{audio:.2f} s audio in {total:.3f} s, RTF {total / audio:.4f}; "
-        f"peak {peak:.2f} GiB; launches int4_gemv {d['int4_gemv']}, "
-        f"int8_gemv {d['int8_gemv']}, decode_attention "
-        f"{d['decode_attention']}, layer_norm_rows {d['layer_norm_rows']} "
-        f"for {steps} tokens  [{card}]")
+        f"peak {peak:.2f} GiB; launches int4_gemv {d['int4_gemv']} "
+        f"({d['int4_gemv+ln']} with the norm prologue), int8_gemv "
+        f"{d['int8_gemv']}, decode_attention {d['decode_attention']}, "
+        f"layer_norm_rows {d['layer_norm_rows']}: "
+        f"{(d['int4_gemv'] + d['decode_attention']) / k1:.0f} a token over "
+        f"{k1} K1 steps for {steps} tokens  [{card}]")
 
     launches.reset()
     fast = TTSSettings.preset("ultra_fast")
@@ -1107,7 +1220,8 @@ def stream_phase(torch, np, cfg, cond_wav, main_render, launches, card):
     check(out["wav"].shape == (1, 298 * 1024)
           and bool(np.isfinite(out["wav"]).all()), "ultra_fast wav")
     check(d["flash_mha"] >= 60 and d["int4_gemv"] > 0
-          and d["int8_gemv"] == 0, f"ultra_fast launches {d}")
+          and d["int8_gemv"] == 0 and d["layer_norm_rows"] == 0,
+          f"ultra_fast launches {d}")
     log(f"[stream] preset ultra_fast (dpm++2m, 15 steps, int4 AR): latency "
         f"{lat:.3f} s, RTF {lat / (298 * 1024 / SR):.4f}; AR "
         f"{out['steps'] / out['ar_seconds']:.1f} tokens/s, render "
@@ -1121,7 +1235,8 @@ def stream_phase(torch, np, cfg, cond_wav, main_render, launches, card):
     out8 = next(stream(1, sents[:1]))
     d = launches.read(add=False)
     check(d["int8_gemv"] >= (4 * L + 1) * out8["steps"]
-          and d["int4_gemv"] == 0, f"int8 comparator launches {d}")
+          and d["int4_gemv"] == 0 and d["layer_norm_rows"] == 0,
+          f"int8 comparator launches {d}")
     log(f"[stream] comparator: sentence 0 on the int8 stack, "
         f"{out8['steps']} AR tokens at "
         f"{out8['steps'] / out8['ar_seconds']:.1f} tokens/s, render "
@@ -1234,6 +1349,14 @@ def profile_request(torch, tts, text, cond_mel, settings, card):
                                  key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile]   {tot / 1e3:9.2f} ms {n:7d} calls "
             f"{tot / n:9.2f} us/call  {name[:90]}")
+    flash = [(t, n) for name, (t, n) in by_name.items()
+             if "flash_fwd_kernel" in name]
+    check(len(flash) == 1, f"flash kernel in the profile: {flash}")
+    t_fl, n_fl = flash[0]
+    log(f"[k2] flash kernel device time in [profile]'s request: "
+        f"{t_fl / n_fl:.2f} us a call over {n_fl} calls "
+        f"({4 * 2 * 8 * 1280 * 1562 * 64 / (t_fl / n_fl * 1e-6) / 1e12:.1f} "
+        f"TFLOP/s at (2, 1280 | 1562, 8, 64))  [{card}]")
 
 
 def main() -> None:
@@ -1332,11 +1455,12 @@ def main() -> None:
               "wav not finite float32")
         check(d["fused_decode_logits"] >= steps,
               f"K1 steps {d['fused_decode_logits']} < tokens {steps}")
-        nl = cfg.gpt.layers
-        check(d["int8_gemv"] >= (4 * nl + 1) * steps
-              and d["decode_attention"] >= nl * steps
-              and d["layer_norm_rows"] >= (2 * nl + 1) * steps,
-              f"K1 op launches {d} for {steps} tokens")
+        nl, k1 = cfg.gpt.layers, d["fused_decode_logits"]
+        check(d["int8_gemv"] == (4 * nl + 1) * k1
+              and d["int8_gemv+ln"] == (2 * nl + 1) * k1
+              and d["decode_attention"] == nl * k1
+              and d["layer_norm_rows"] == 0,
+              f"K1 op launches {d} for {k1} steps")
         check(d["flash_mha"] >= 200, f"K2 launches {d['flash_mha']} < 200")
         audio_s = wav.shape[1] / SR
         main_render.append(out["render_seconds"])
@@ -1344,9 +1468,11 @@ def main() -> None:
             f"({audio_s:.2f} s audio), latency {latency:.3f} s, RTF "
             f"{latency / audio_s:.4f}, AR {out['ar_seconds']:.3f} s = "
             f"{steps / out['ar_seconds']:.1f} tokens/s, render "
-            f"{out['render_seconds']:.3f} s; launches K1 step "
-            f"{d['fused_decode_logits']} (gemv {d['int8_gemv']}, attention "
-            f"{d['decode_attention']}, layer_norm {d['layer_norm_rows']}), "
+            f"{out['render_seconds']:.3f} s; launches K1 step {k1} (gemv "
+            f"{d['int8_gemv']}, {d['int8_gemv+ln']} of them with the norm "
+            f"prologue, attention {d['decode_attention']}, layer_norm "
+            f"{d['layer_norm_rows']}: "
+            f"{(d['int8_gemv'] + d['decode_attention']) / k1:.0f} a token), "
             f"K2 {d['flash_mha']} [{card}]")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[main] peak device memory {peak:.2f} GiB [{card}]")
@@ -1378,16 +1504,23 @@ def main() -> None:
            "serving_step": ("xtts_tpu_torch/csrc/serving_step.cu",
                             "xtts_tpu/ops/serving_step.py:315")}
     of = {"layer_norm_rows": "decode_step", "int8_gemv": "decode_step",
-          "int4_gemv": "decode_step",
+          "int8_gemv+ln": "decode_step", "int4_gemv": "decode_step",
+          "int4_gemv+ln": "decode_step",
           "decode_attention": "decode_step", "flash_mha": "flash_attn",
           "vq_nearest": "vq", "int8_gemm_rows": "serving_step",
+          "int8_gemm_rows+ln": "serving_step",
           "serving_attention": "serving_step"}
     kernels = []
     for name, lib in of.items():
         r = results[name]
-        check(launches.total[name] > 0, f"{name} never launched on a path")
-        replaces = ("xtts_tpu/ops/decode_step.py:157" if name == "int4_gemv"
-                    else src[lib][1])
+        if name == "layer_norm_rows":        # the prologues' comparator
+            check(launches.total[name] == 0, "layer_norm_rows launched on a "
+                  "path")
+        else:
+            check(launches.total[name] > 0, f"{name} never launched on a "
+                  f"path")
+        replaces = (src[lib][1] if not name.startswith("int4_gemv")
+                    else "xtts_tpu/ops/decode_step.py:157")
         kernels.append({"name": name, "route": "cuda",
                         "source": src[lib][0], "replaces": replaces,
                         "launches": launches.total[name], **r})

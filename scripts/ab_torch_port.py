@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""A/B the PyTorch port of two checkouts on one card, one process a run.
+
+    python3 scripts/ab_torch_port.py --tree DIR --tag NAME
+
+imports `xtts_tpu_torch` from DIR (build its kernels there), then measures
+on the card, at the flagship XTTSConfig() widths with random weights from
+fixed seeds (chip_smoke.py's [main] inputs: 3 s sine + noise reference, 50
+text tokens from numpy seed 0, the stop logit pinned low so every request
+decodes 300 codes):
+  - three B=1 `tts_tokens` requests after one warm-up: latency, AR
+    tokens/s, render seconds;
+  - one `synthesize_batch` wave of 8 requests x 2 candidates through K4
+    (XTTS_FUSED_SERVING=1, shortcut render, CLVP rerank) after one
+    warm-up: wall seconds;
+  - the K1 step (`fused_decode_logits` on the model's own int8 stack) and
+    the K4 step at 16 rows, each as 100 back-to-back steps between two CUDA
+    events (the rate the host can launch them at), five times: min and
+    median ms a step, and the median of this process's CPU time a step
+    (time.process_time: the host's own launch cost, which other tenants of
+    a shared host move less than the wall clock); the CUDA-event median of
+    single K2 calls
+    (`flash_mha` at (2, 1280 | 1562, 8, 64)).
+Prints one JSON line. Compare two trees only inside one machine call, in
+turns (A, B, B, A): host launch times differ between calls.
+Imports no JAX; needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def time_ms(torch, fn, reps=25, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def step_ms(torch, fn, steps=100, rounds=5):
+    """Over `rounds` of `steps` back-to-back calls: (min, median) of the ms
+    a call between CUDA events, and the median CPU ms a call."""
+    fn()
+    torch.cuda.synchronize()
+    out, cpu = [], []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        c0 = time.process_time()
+        a.record()
+        for _ in range(steps):
+            fn()
+        b.record()
+        b.synchronize()
+        cpu.append((time.process_time() - c0) * 1e3 / steps)
+        out.append(a.elapsed_time(b) / steps)
+    return min(out), statistics.median(out), statistics.median(cpu)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True)
+    ap.add_argument("--tag", required=True)
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_torch_port: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings, XTTSConfig
+    from xtts_tpu_torch.infer.serving import (SynthesisRequest,
+                                              synthesize_batch)
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    from xtts_tpu_torch.ops.build import build_all
+    import xtts_tpu_torch
+    assert Path(xtts_tpu_torch.__file__).resolve().is_relative_to(tree)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    build_all(("decode_step", "flash_attn", "vq", "serving_step"))
+    cfg = XTTSConfig()
+    sr = 24000
+    tts = TextToSpeech(cfg, device="cuda", dtype=torch.bfloat16,
+                       quantized_decode=True, with_clvp=True,
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        tts.gpt.mel_head.bias[cfg.gpt.stop_mel_token] = -30.0
+        tts.requantize()
+    rng = np.random.default_rng(0)
+    t = np.arange(3 * sr) / sr
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)
+           + 0.1 * rng.standard_normal(3 * sr)).astype(np.float32)
+    text = rng.integers(3, 250, (1, 50)).astype(np.int32)
+    cond = tts.cond_mel_from_wav(wav)
+    settings = TTSSettings(max_mel_tokens=300)
+
+    def request(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tts.tts_tokens(text, cond, torch.Generator(
+            device="cuda").manual_seed(seed), settings)
+        return time.perf_counter() - t0, out
+
+    request(0)
+    reqs = []
+    for seed in (1, 2, 3):
+        lat, out = request(seed)
+        reqs.append(dict(latency_s=lat, ar_tokens_per_s=out["steps"]
+                         / out["ar_seconds"], render_s=out["render_seconds"]))
+
+    os.environ["XTTS_FUSED_SERVING"] = "1"
+    batch = [SynthesisRequest(text[0]) for _ in range(8)]
+    wave = TTSSettings(max_mel_tokens=300, num_candidates=2)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synthesize_batch(tts, batch, cond, wave, use_diffusion=False,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(9))
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+    os.environ.pop("XTTS_FUSED_SERVING")
+
+    with torch.no_grad():
+        st = tts._qtree["fused"]
+        L, D, H = cfg.gpt.layers, cfg.gpt.model_dim, cfg.gpt.heads
+        kc = torch.zeros(L, 360, D, dtype=torch.bfloat16, device="cuda")
+        vc = torch.zeros_like(kc)
+        x = torch.randn(1, D, device="cuda").bfloat16()
+        k1 = step_ms(torch, lambda: ds.fused_decode_logits(
+            st, x, kc, vc, 200, L, H))
+        kq = torch.zeros(L, 16, 360, D, dtype=torch.int8, device="cuda")
+        vq = torch.zeros_like(kq)
+        ks = torch.full((L, 16, 360), 0.01, device="cuda")
+        vs = ks.clone()
+        x16 = torch.randn(16, D, device="cuda").bfloat16()
+        k4 = step_ms(torch, lambda: ss.fused_serving_logits(
+            st, x16, kq, vq, ks, vs, 200, L, H))
+        g = torch.Generator(device="cuda").manual_seed(99)
+        q, k, v = (torch.randn(2, n, 8, 64, generator=g,
+                               device="cuda").bfloat16()
+                   for n in (1280, 1562, 1562))
+        flash_ms = time_ms(torch, lambda: fa.flash_mha(q, k, v, 0.125))
+    print(json.dumps(dict(
+        tag=args.tag, card=smi, requests=reqs,
+        ar_tokens_per_s_median=statistics.median(
+            r["ar_tokens_per_s"] for r in reqs),
+        render_s_median=statistics.median(r["render_s"] for r in reqs),
+        k4_wave_s=wave_s, k1_step_ms_min=k1[0], k1_step_ms_median=k1[1],
+        k1_step_cpu_ms=k1[2], k4_step_ms_min=k4[0], k4_step_ms_median=k4[1],
+        k4_step_cpu_ms=k4[2],
+        flash_ms=flash_ms)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -164,3 +164,77 @@ def test_cpu_tensors_take_the_plain_twin():
                             torch.from_numpy(v).bfloat16(), 9, LAYERS, HEADS)
     assert all(fn.launches == 0 for fn in tds.KERNELS)
     assert tds.fused_decode_logits.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The norm prologue (ln=): on CPU tensors a fused call is exactly
+# layer_norm_rows_plain then the plain product, and the step built on it is
+# exactly the unfused chain (layer_norm_rows_plain before each product).
+# ---------------------------------------------------------------------------
+
+def _prologue_kwargs(mode):
+    return {"f32": {}, "bf16+gelu": dict(gelu=True, out_dtype=torch.bfloat16),
+            "acc": {}}[mode]
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
+@pytest.mark.parametrize("two", [False, True])
+def test_fused_norm_equals_layer_norm_then_product(two, mode):
+    _, tt = make_qtrees(5)
+    st = tds.stack_qtree(tt, VOCAB)
+    rng = np.random.default_rng(11)
+    x32 = torch.from_numpy(rng.standard_normal(D).astype(np.float32) * 3 + 1)
+    ln = tuple(st["lnf"]) if two else (st["ln"][0][2], st["ln"][0][3])
+    w, s, b = st["wfc"][0], st["sfc"][0], st["bfc"][0]
+    h = tds.layer_norm_rows_plain(x32[None], *ln)[0]
+    tds.reset_launch_counts()
+    if mode == "acc":
+        base = torch.from_numpy(rng.standard_normal(w.shape[1]).astype(
+            np.float32))
+        got, want = base.clone(), base.clone()
+        tds.int8_gemv(x32, w, s, b, out=got, ln=ln)
+        tds.int8_gemv_plain(h, w, s, b, out=want)
+    else:
+        kw = _prologue_kwargs(mode)
+        got = tds.int8_gemv(x32, w, s, b, ln=ln, **kw)
+        want = tds.int8_gemv_plain(h, w, s, b, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert tds.int8_gemv.launches == tds.int8_gemv.ln_launches == 0
+
+
+def _unfused_step(st, x, kc, vc, index):
+    """The step as it ran before the prologues: layer_norm_rows_plain then
+    the plain product."""
+    gemv = (tds.int4_gemv_plain if st.get("bits") == 4
+            else tds.int8_gemv_plain)
+    x32 = x.float().reshape(1, -1).clone()
+    h_res = x32[0]
+    for li in range(LAYERS):
+        ln = st["ln"][li]
+        h = tds.layer_norm_rows_plain(x32, ln[0], ln[1])[0]
+        qkv = gemv(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        att = tds.decode_attention_plain(qkv, kc[li], vc[li], index, HEADS)
+        gemv(att, st["wproj"][li], st["sproj"][li], st["bproj"][li],
+             out=h_res)
+        h2 = tds.layer_norm_rows_plain(x32, ln[2], ln[3])[0]
+        m = gemv(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
+                 out_dtype=torch.bfloat16)
+        gemv(m, st["wout"][li], st["sout"][li], st["bout"][li], out=h_res)
+    xh = tds.layer_norm_rows_plain(x32, *st["lnf"])[0]
+    return gemv(xh, st["whead"], st["shead"], st["bhead"])[None]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("index", [0, 40])
+def test_step_with_prologues_equals_unfused_chain(bits, index):
+    _, tt = make_qtrees(6)
+    st = (tds.stack_qtree(tt, VOCAB) if bits == 8
+          else tds.stack_qtree_int4(tt, VOCAB))
+    k, v = make_cache(8 + index, index)
+    x = _x(tt, torch.tensor([4]), 3, torch)
+    kc, vc = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    kc2, vc2 = kc.clone(), vc.clone()
+    got, _, _ = tds.fused_decode_logits(st, x, kc, vc, index, LAYERS, HEADS)
+    want = _unfused_step(st, x, kc2, vc2, index)
+    assert torch.equal(got, want)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)

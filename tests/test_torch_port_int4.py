@@ -283,3 +283,36 @@ def test_r5_int4_stack_refused_by_k4(gate_pair, monkeypatch):
                                      fused_serving=True)
     monkeypatch.delenv("XTTS_DECODE_BITS")
     assert "bits" not in tq.quantize_gpt_decode(tmodel)["fused"]
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_int4_fused_norm_equals_layer_norm_then_product(groups, two, mode):
+    """ln= on CPU tensors: exactly layer_norm_rows_plain then the plain
+    int4 product, with one scale group or four along K."""
+    rng = np.random.default_rng(12 + groups)
+    n = 3 * D
+    w4 = torch.from_numpy(rng.integers(-7, 8, (D, n)).astype(np.int8))
+    s = torch.from_numpy(rng.uniform(0.01, 0.1, (groups, n))).float()
+    b = torch.from_numpy(rng.standard_normal(n)).float()
+    x32 = torch.from_numpy(rng.standard_normal(D).astype(np.float32) * 3 + 1)
+    ln = tuple(torch.from_numpy(rng.uniform(0.5, 1.5, D)).float()
+               if i % 2 == 0 else
+               torch.from_numpy(rng.uniform(-0.2, 0.2, D)).float()
+               for i in range(4 if two else 2))
+    w = tds.pack_int4(w4)
+    h = tds.layer_norm_rows_plain(x32[None], *ln)[0]
+    tds.reset_launch_counts()
+    if mode == "acc":
+        base = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        got, want = base.clone(), base.clone()
+        tds.int4_gemv(x32, w, s, b, out=got, ln=ln)
+        tds.int4_gemv_plain(h, w, s, b, out=want)
+    else:
+        kw = ({} if mode == "f32"
+              else dict(gelu=True, out_dtype=torch.bfloat16))
+        got = tds.int4_gemv(x32, w, s, b, ln=ln, **kw)
+        want = tds.int4_gemv_plain(h, w, s, b, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert tds.int4_gemv.launches == tds.int4_gemv.ln_launches == 0

@@ -11,7 +11,9 @@ side; int4_gemv relative to max(1, |y|)), the whole decode step, int8 or
 int4, 2e-2 relative to the logits' scale (tests/test_decode_step.py's
 bound), flash attention 1e-2 against f32 attention on the same bf16
 inputs; K3 codes equal up to fp32 ties (the bound at _vq_agree); K4 as K1,
-with the new int8 cache rows within +-1.
+with the new int8 cache rows within +-1. A product with the norm prologue
+(ln=) equals layer_norm_rows then the unfused product bit for bit (both
+fold the statistics in one order), and its plain twin within 1e-2.
 """
 import math
 
@@ -152,6 +154,10 @@ def test_decode_step_chain(cuda, layers, d, heads, vocab):
     torch.testing.assert_close(kc.float(), kc2.float(), rtol=2e-2, atol=2e-2)
     assert ds.fused_decode_logits.launches == 16
     assert ds.int8_gemv.launches == 16 * (4 * layers + 1)
+    assert ds.int8_gemv.ln_launches == 16 * (2 * layers + 1)
+    assert ds.layer_norm_rows.launches == 0
+    assert (ds.int8_gemv.launches + ds.decode_attention.launches
+            == 16 * (5 * layers + 1))
 
 
 def _int4_operands(g, k, n, groups):
@@ -225,7 +231,8 @@ def test_decode_step_chain_int4(cuda, layers, d, heads, vocab):
     torch.testing.assert_close(kc.float(), kc2.float(), rtol=2e-2, atol=2e-2)
     assert ds.fused_decode_logits.launches == 16
     assert ds.int4_gemv.launches == 16 * (4 * layers + 1)
-    assert ds.int8_gemv.launches == 0
+    assert ds.int4_gemv.ln_launches == 16 * (2 * layers + 1)
+    assert ds.int8_gemv.launches == 0 and ds.layer_norm_rows.launches == 0
 
 
 @pytest.mark.parametrize("b,tq,tk,h", [(2, 1280, 1562, 8), (2, 300, 583, 8),
@@ -255,6 +262,196 @@ def test_flash_mha_reads_strided_views(cuda):
     want = fa.flash_mha_plain(q[:, :600].float(), k.float(), v.float(), 0.125)
     torch.cuda.synchronize()
     assert (got.float() - want).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("tk", [1562, 583, 130, 64, 1])
+@pytest.mark.parametrize("tq", [1280, 300, 65, 1])
+@pytest.mark.parametrize("b,h", [(1, 8), (2, 8), (1, 16), (2, 16)])
+def test_flash_mha_shapes(cuda, b, h, tq, tk):
+    """Every (Tq, Tk) edge: whole and ragged 64-query tiles, one key, a
+    partial last key tile, and the main path's and chip_smoke's shapes."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v = (torch.randn(b, t, h, 64, generator=cuda,
+                           device="cuda").bfloat16() for t in (tq, tk, tk))
+    got = fa.flash_mha(q, k, v, 0.125)
+    want = fa.flash_mha_plain(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert got.shape == (b, tq, h, 64) and torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("rising", [True, False])
+def test_flash_mha_rescales_across_tiles(cuda, rising):
+    """Planted rows whose scores jump from one 64-key tile to the next
+    (rising: every tile holds a new row max, so alpha rescales O each tile;
+    falling: the first tile holds the max and later tiles add almost
+    nothing)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, tq, tk, h = 1, 130, 700, 2
+    q = torch.randn(b, tq, h, 64, generator=cuda, device="cuda") * 0.3
+    k = torch.randn(b, tk, h, 64, generator=cuda, device="cuda") * 0.3
+    v = torch.randn(b, tk, h, 64, generator=cuda, device="cuda")
+    tile = torch.arange(tk, device="cuda") // 64
+    step = tile if rising else tile.max() - tile
+    q[:, :3] = 1.0                                   # planted query rows
+    k += (1.5 * step.float())[None, :, None, None] / 8.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = fa.flash_mha(q, k, v, 0.125)
+    want = fa.flash_mha_plain(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    sim = torch.einsum("bihd,bjhd->bhij", q.float(), k.float())[0, 0, 0]
+    assert (sim.reshape(-1)[-1] - sim[0]).abs() > 20   # scores really jump
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_mha_repeated_calls(cuda):
+    """Back-to-back calls (no per-call attribute set or other state) launch
+    the same kernel and give the same bits."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v = (torch.randn(2, t, 8, 64, generator=cuda,
+                           device="cuda").bfloat16() for t in (300, 583, 583))
+    fa.flash_mha.launches = 0
+    outs = [fa.flash_mha(q, k, v, 0.125) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 4
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+# ---------------------------------------------------------------------------
+# The norm prologue (ln=) of int8_gemv, int4_gemv and int8_gemm_rows: the
+# fused call against layer_norm_rows then the unfused product (bit for bit)
+# and against the plain twin (1e-2 relative to max(1, |y|)).
+# ---------------------------------------------------------------------------
+
+def _norm(g, d, two):
+    p = [1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+         if i % 2 == 0 else 0.1 * torch.randn(d, generator=g, device="cuda")
+         for i in range(4 if two else 2)]
+    return tuple(p)
+
+
+def _fused_vs_unfused(fused, unfused, plain, x32, ln, rows_n, mode, g):
+    """Run a product three ways in one output mode; return the outputs."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    kw = {"f32": dict(), "bf16+gelu": dict(gelu=True,
+                                           out_dtype=torch.bfloat16)}.get(
+        mode, dict())
+    h = ds.layer_norm_rows(x32.reshape(-1, x32.shape[-1]), *ln).reshape(
+        x32.shape)
+    if mode == "acc":
+        base = torch.randn(rows_n, generator=g, device="cuda")
+        got, ref, want = base.clone(), base.clone(), base.clone()
+        fused(x32, out=got, ln=ln)
+        unfused(h, out=ref)
+        plain(x32, out=want, ln=ln)
+    else:
+        got = fused(x32, ln=ln, **kw)
+        ref = unfused(h, **kw)
+        want = plain(x32, ln=ln, **kw)
+    torch.cuda.synchronize()
+    return got, ref, want
+
+
+def _assert_prologue(got, ref, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, ref)
+    scale_y = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale_y
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_int8_gemv_norm_prologue(cuda, d, two, mode):
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import decode_step as ds
+    n = 3 * d
+    q = quantize_dense(torch.randn(d, n, generator=cuda, device="cuda")
+                       / math.sqrt(d))
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    x32 = torch.randn(d, generator=cuda, device="cuda") * 3 + 1
+    ln = _norm(cuda, d, two)
+    ds.reset_launch_counts()
+    got, ref, want = _fused_vs_unfused(
+        lambda x, **kw: ds.int8_gemv(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ds.int8_gemv(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ds.int8_gemv_plain(x, q["w"], q["scale"], bias, **kw),
+        x32, ln, n, mode, cuda)
+    assert ds.int8_gemv.ln_launches == 1 and ds.int8_gemv.launches == 2
+    _assert_prologue(got, ref, want)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("d,groups", [(128, 1), (1024, 1), (1024, 4),
+                                      (128, 4)])
+def test_int4_gemv_norm_prologue(cuda, d, groups, two, mode):
+    from xtts_tpu_torch.ops import decode_step as ds
+    n = 3 * d
+    _, w, scale, bias = _int4_operands(cuda, d, n, groups)
+    x32 = torch.randn(d, generator=cuda, device="cuda") * 3 + 1
+    ln = _norm(cuda, d, two)
+    ds.reset_launch_counts()
+    got, ref, want = _fused_vs_unfused(
+        lambda x, **kw: ds.int4_gemv(x, w, scale, bias, **kw),
+        lambda x, **kw: ds.int4_gemv(x, w, scale, bias, **kw),
+        lambda x, **kw: ds.int4_gemv_plain(x, w, scale, bias, **kw),
+        x32, ln, n, mode, cuda)
+    assert ds.int4_gemv.ln_launches == 1 and ds.int4_gemv.launches == 2
+    _assert_prologue(got, ref, want)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("rows,d", [(1, 1024), (8, 1024), (16, 1024),
+                                    (32, 1024), (16, 128), (3, 128)])
+def test_int8_gemm_rows_norm_prologue(cuda, rows, d, two, mode):
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import serving_step as ss
+    n = 4 * d
+    q = quantize_dense(torch.randn(d, n, generator=cuda, device="cuda")
+                       / math.sqrt(d))
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    x32 = torch.randn(rows, d, generator=cuda, device="cuda") * 3 + 1
+    ln = _norm(cuda, d, two)
+    ss.reset_launch_counts()
+    got, ref, want = _fused_vs_unfused(
+        lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ss.int8_gemm_rows_plain(x, q["w"], q["scale"], bias,
+                                                **kw),
+        x32, ln, (rows, n), mode, cuda)
+    assert ss.int8_gemm_rows.ln_launches == 1
+    assert ss.int8_gemm_rows.launches == 2
+    _assert_prologue(got, ref, want)
+
+
+def test_norm_prologue_refuses_bad_operands(cuda):
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    d, n = 128, 256
+    w = torch.zeros(d, n, dtype=torch.int8, device="cuda")
+    w4 = torch.zeros(d, n // 2, dtype=torch.int8, device="cuda")
+    sc, b = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+    ln = (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda"))
+    x32 = torch.randn(d, device="cuda")
+    bad = [dict(x=x32.bfloat16(), ln=ln),                  # bf16 residual
+           dict(x=x32, ln=(ln[0][:-1], ln[1])),            # wrong norm shape
+           dict(x=x32, ln=ln + ln[:1]),                    # three tensors
+           dict(x=x32, ln=(ln[0].double(), ln[1]))]        # f64 scale
+    for case in bad:
+        with pytest.raises(ValueError):
+            ds.int8_gemv(case["x"], w, sc, b, ln=case["ln"])
+        with pytest.raises(ValueError):
+            ds.int4_gemv(case["x"], w4, sc[None], b, ln=case["ln"])
+        with pytest.raises(ValueError):
+            ss.int8_gemm_rows(case["x"][None], w, sc, b, ln=case["ln"])
+    res = torch.randn(2, d, device="cuda")
+    with pytest.raises(ValueError):                        # out = residual
+        ss.int8_gemm_rows(res, torch.zeros(d, d, dtype=torch.int8,
+                                           device="cuda"),
+                          torch.ones(d, device="cuda"),
+                          torch.zeros(d, device="cuda"), out=res, ln=ln)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -407,6 +604,7 @@ def test_serving_step_chain(cuda, layers, d, heads, vocab, rows):
     c1 = _serving_cache(cuda, layers, rows, s_max, d, p_len)
     c2 = [t.clone() for t in c1]
     ss.reset_launch_counts()
+    ds.reset_launch_counts()
     agree = 0
     for step in range(16):
         tok = (torch.arange(rows, device="cuda") * 37 + step) % vocab
@@ -422,4 +620,6 @@ def test_serving_step_chain(cuda, layers, d, heads, vocab, rows):
     assert agree >= 16 * rows - 2
     assert ss.fused_serving_logits.launches == 16
     assert ss.int8_gemm_rows.launches == 16 * (4 * layers + 1)
+    assert ss.int8_gemm_rows.ln_launches == 16 * (2 * layers + 1)
     assert ss.serving_attention.launches == 16 * layers
+    assert ds.layer_norm_rows.launches == 0

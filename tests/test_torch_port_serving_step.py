@@ -232,3 +232,62 @@ def test_any_row_count(rows):
                                           HEADS)
     assert logits.shape == (rows, st["head_tiles"] * D)
     assert torch.isfinite(logits[:, :VOCAB]).all()
+
+
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("rows", [1, 8, 16, 32])
+def test_fused_norm_equals_layer_norm_then_product(rows, two):
+    """ln= on CPU tensors: exactly layer_norm_rows_plain of every row, then
+    the plain product."""
+    st = tds.stack_qtree(to_port(make_qtree(5)), VOCAB)
+    rng = np.random.default_rng(rows)
+    x32 = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32)
+                           * 3 + 1)
+    ln = tuple(st["lnf"]) if two else (st["ln"][1][0], st["ln"][1][1])
+    h = tds.layer_norm_rows_plain(x32, *ln)
+    tss.reset_launch_counts()
+    for kind, kw in (("qkv", {}), ("fc", dict(gelu=True,
+                                              out_dtype=torch.bfloat16))):
+        w, s, b = (st[p + kind][1] for p in "wsb")
+        got = tss.int8_gemm_rows(x32, w, s, b, ln=ln, **kw)
+        want = tss.int8_gemm_rows_plain(h, w, s, b, **kw)
+        assert got.shape == (rows, w.shape[1]) and torch.equal(got, want)
+    base = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32))
+    got, want = base.clone(), base.clone()
+    w, s, b = st["wproj"][0], st["sproj"][0], st["bproj"][0]
+    tss.int8_gemm_rows(x32, w, s, b, out=got, ln=ln)
+    tss.int8_gemm_rows_plain(h, w, s, b, out=want)
+    assert torch.equal(got, want)
+    assert tss.int8_gemm_rows.launches == tss.int8_gemm_rows.ln_launches == 0
+
+
+def test_step_with_prologues_equals_unfused_chain():
+    """The K4 step through the plain twins equals the chain as it ran before
+    the prologues (layer_norm_rows_plain, then the product)."""
+    tqt = to_port(make_qtree(6))
+    st = tds.stack_qtree(tqt, VOCAB)
+    _, tc = make_cache(13, 25)
+    c1 = tss.quantize_kv_rowwise(tc)
+    c2 = [t.clone() for t in c1]
+    x = tqt["mel_embedding"][torch.arange(B) + 3] + tqt[
+        "mel_pos_embedding"][4][None]
+    got = tss.fused_serving_logits(st, x, *c1, 25, LAYERS, HEADS)[0]
+    kc, vc, ks, vs = c2
+    x32 = x.float().clone()
+    gemm = tss.int8_gemm_rows_plain
+    for li in range(LAYERS):
+        ln = st["ln"][li]
+        qkv = gemm(tds.layer_norm_rows_plain(x32, ln[0], ln[1]),
+                   st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        att = tss.serving_attention_plain(qkv, kc[li], vc[li], ks[li],
+                                          vs[li], 25, HEADS)
+        gemm(att, st["wproj"][li], st["sproj"][li], st["bproj"][li], out=x32)
+        m = gemm(tds.layer_norm_rows_plain(x32, ln[2], ln[3]),
+                 st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
+                 out_dtype=torch.bfloat16)
+        gemm(m, st["wout"][li], st["sout"][li], st["bout"][li], out=x32)
+    want = gemm(tds.layer_norm_rows_plain(x32, *st["lnf"]), st["whead"],
+                st["shead"], st["bhead"])
+    assert torch.equal(got, want)
+    for a, b in zip(c1, c2):
+        assert torch.equal(a, b)

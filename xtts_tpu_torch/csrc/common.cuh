@@ -1,0 +1,174 @@
+// Device helpers shared by the decode-step (K1) and serving-step (K4)
+// kernels: warp and block reductions, gelu_new, and the LayerNorm that
+// layer_norm_rows runs standalone and the product kernels run as their
+// prologue.
+//
+// The norm's statistics always fold in ONE order, that of a 256-thread
+// block: virtual thread t sums elements t, t + 256, t + 512, ... in turn;
+// each virtual warp of 32 folds its sums by a butterfly; the 8 warp sums
+// fold by a butterfly. block_sum256 takes that order with any block of 32
+// to 256 threads (a divisor of 256), warp_sum256 with one warp, so a
+// product kernel's prologue gives layer_norm_rows' bf16 output bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reduction over a 1-D block (blockDim.x a multiple of 32).
+// red: >= 33 floats of shared memory. Returns the result to every thread.
+template <bool MAX>
+__device__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < nwarps ? red[lane] : (MAX ? -INFINITY : 0.f);
+    t = MAX ? warp_max(t) : warp_sum(t);
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  const float r = red[32];
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ float gelu_new(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm, eps 1e-5: y = (x - mu) * rstd * s + b
+// ---------------------------------------------------------------------------
+
+// The norm operands of a product kernel's prologue: n = 1 applies (s1, b1),
+// n = 2 then applies (s2, b2) to the f32 result (ln_f then final_norm).
+struct Norm {
+  const float* s1;
+  const float* b1;
+  const float* s2;
+  const float* b2;
+  int n;
+};
+
+__device__ __forceinline__ float ln_apply(float x, float mu, float rstd,
+                                          float s, float b) {
+  return (x - mu) * rstd * s + b;
+}
+
+// Sum of v(i), i < d, in the 256-thread order, by a block of nthreads:
+// warp w folds virtual warps w, w + nthreads / 32, ...; red >= 8 floats of
+// shared memory. Every thread gets the sum.
+template <class F>
+__device__ float block_sum256(const F& v, int d, float* red, int tid,
+                              int nthreads) {
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int w = warp; w < 8; w += nthreads >> 5) {
+    float acc = 0.f;
+    for (int i = w * 32 + lane; i < d; i += 256) acc += v(i);
+    acc = warp_sum(acc);
+    if (lane == 0) red[w] = acc;
+  }
+  __syncthreads();
+  const float t = warp_sum(lane < 8 ? red[lane] : 0.f);
+  __syncthreads();  // red is free again
+  return t;
+}
+
+// The same sum by one warp, which folds all 8 virtual warps itself.
+template <class F>
+__device__ __forceinline__ float warp_sum256(const F& v, int d, int lane) {
+  float acc[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) acc[w] = 0.f;
+  for (int j = 0; j < d; j += 256) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const int i = j + w * 32 + lane;
+      if (i < d) acc[w] += v(i);
+    }
+  }
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const float s = warp_sum(acc[w]);
+    if (lane == w) t = s;
+  }
+  return warp_sum(t);
+}
+
+// nrm.n LayerNorms of the f32 row buf[0..d) in shared memory, in place,
+// by the whole block (the row is staged and synced before the call).
+__device__ void layer_norm_inplace(float* buf, int d, const Norm& nrm,
+                                   float* red, int tid, int nthreads) {
+  for (int p = 0; p < nrm.n; ++p) {
+    const float* s = p ? nrm.s2 : nrm.s1;
+    const float* b = p ? nrm.b2 : nrm.b1;
+    const float mu =
+        block_sum256([&](int i) { return buf[i]; }, d, red, tid, nthreads) /
+        d;
+    const float var = block_sum256(
+        [&](int i) {
+          const float c = buf[i] - mu;
+          return c * c;
+        },
+        d, red, tid, nthreads) / d;
+    const float rstd = rsqrtf(var + 1e-5f);
+    for (int i = tid; i < d; i += nthreads)
+      buf[i] = ln_apply(buf[i], mu, rstd, s[i], b[i]);
+    __syncthreads();
+  }
+}
+
+// (mu, rstd) of each of nrm.n norms of the f32 row x[0..d) in global
+// memory, by one warp: st[2p], st[2p + 1]. Norm 2's statistics are over
+// norm 1's f32 output, recomputed from x as layer_norm_inplace stores it.
+__device__ void row_norm_stats(const float* __restrict__ x, int d,
+                               const Norm& nrm, int lane, float* st) {
+  const float mu1 = warp_sum256([&](int i) { return x[i]; }, d, lane) / d;
+  const float var1 = warp_sum256(
+      [&](int i) {
+        const float c = x[i] - mu1;
+        return c * c;
+      },
+      d, lane) / d;
+  const float rstd1 = rsqrtf(var1 + 1e-5f);
+  float mu2 = 0.f, rstd2 = 0.f;
+  if (nrm.n == 2) {
+    auto y1 = [&](int i) {
+      return ln_apply(x[i], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
+    };
+    mu2 = warp_sum256(y1, d, lane) / d;
+    const float var2 = warp_sum256(
+        [&](int i) {
+          const float c = y1(i) - mu2;
+          return c * c;
+        },
+        d, lane) / d;
+    rstd2 = rsqrtf(var2 + 1e-5f);
+  }
+  if (lane == 0) {
+    st[0] = mu1;
+    st[1] = rstd1;
+    st[2] = mu2;
+    st[3] = rstd2;
+  }
+}

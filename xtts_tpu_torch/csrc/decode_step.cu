@@ -5,11 +5,18 @@
 // token step (15 layers + ln_f + final_norm + mel head) in one pallas_call
 // streaming (D, D) int8 tiles through a VMEM ring. On the H100 the step is:
 //
-//   per layer:  layer_norm_rows -> int8_gemv(qkv) -> decode_attention
+//   per layer:  int8_gemv(ln_1 prologue, qkv) -> decode_attention
 //               -> int8_gemv(proj, += into the f32 residual)
-//               -> layer_norm_rows -> int8_gemv(fc, gelu_new, bf16 out)
+//               -> int8_gemv(ln_2 prologue, fc, gelu_new, bf16 out)
 //               -> int8_gemv(out, K = 4D in one launch, += residual)
-//   then:       layer_norm_rows(ln_f then final_norm) -> int8_gemv(head)
+//   then:       int8_gemv(ln_f then final_norm prologue, head)
+//
+// 5 launches a layer and one for the head: 76 a token at 15 layers. The
+// LayerNorms run inside the product that consumes them, as the TPU kernel
+// ran `_ln` inside `_make_kernel`: each block of a fused gemv loads the f32
+// residual into the shared memory that holds the input vector anyway,
+// normalises it there in f32 and rounds it to bf16 once. layer_norm_rows
+// stays as the standalone norm; no path launches it.
 //
 // Every piece of arithmetic of the TPU kernel runs here: f32 LayerNorm
 // statistics (eps 1e-5), bf16 matvec inputs against int8 weights with f32
@@ -20,9 +27,9 @@
 // flagship width (15 x 12 D^2 + 9 D^2 bytes, D = 1024); at 3.35 TB/s that
 // is ~57 us, against ~1 MB of KV cache and activations. The gemv keeps its
 // weight reads coalesced (char4 per thread, 8 threads on 32 contiguous
-// columns of a row) and holds the input vector in shared memory. The chain
-// is ~107 launches a token, so launch cost dominates at this size; a
-// persistent single-launch step or a CUDA graph is later work.
+// columns of a row) and holds the input vector in shared memory. At 76
+// launches a token the chain is still launch-bound; a persistent
+// single-launch step or a CUDA graph is later work.
 //
 // Layouts: weights (K, N) int8 row-major, exactly quantize_dense's (in, out)
 // matrix; KV cache (L, S, D) bf16 with the new row written in place at idx.
@@ -31,86 +38,52 @@
 //
 // C interface (ctypes): every entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 #define XT_API extern "C"
 
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reduction over a 1-D block (blockDim.x a multiple of 32).
-// red: >= 33 floats of shared memory. Returns the result to every thread.
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = MAX ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < nwarps ? red[lane] : (MAX ? -INFINITY : 0.f);
-    t = MAX ? warp_max(t) : warp_sum(t);
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float gelu_new(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
 // ---------------------------------------------------------------------------
-// layer_norm_rows: one block per row; f32 statistics, bf16 out. two != 0
-// applies a second norm (s2, b2) to the f32 result of the first (ln_f then
-// final_norm), rounding to bf16 only at the end.
+// layer_norm_rows: one block of 256 threads per row; f32 statistics, bf16
+// out. nrm.n == 2 applies a second norm (s2, b2) to the f32 result of the
+// first (ln_f then final_norm), rounding to bf16 only at the end.
 // ---------------------------------------------------------------------------
-__global__ void layer_norm_rows_kernel(const float* __restrict__ x,
-                                       const float* __restrict__ s1,
-                                       const float* __restrict__ b1,
-                                       const float* __restrict__ s2,
-                                       const float* __restrict__ b2,
-                                       __nv_bfloat16* __restrict__ out, int d,
-                                       int two) {
+__global__ void __launch_bounds__(256)
+layer_norm_rows_kernel(const float* __restrict__ x, Norm nrm,
+                       __nv_bfloat16* __restrict__ out, int d) {
   extern __shared__ float buf[];  // d floats
-  __shared__ float red[33];
+  __shared__ float red[8];
   const float* xr = x + (size_t)blockIdx.x * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) buf[i] = xr[i];
-  const int passes = two ? 2 : 1;
-  for (int p = 0; p < passes; ++p) {
-    const float* s = p ? s2 : s1;
-    const float* b = p ? b2 : b1;
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) acc += buf[i];
-    const float mu = block_reduce<false>(acc, red) / d;
-    acc = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float c = buf[i] - mu;
-      acc += c * c;
-    }
-    const float rstd = rsqrtf(block_reduce<false>(acc, red) / d + 1e-5f);
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      buf[i] = (buf[i] - mu) * rstd * s[i] + b[i];
-  }
+  for (int i = threadIdx.x; i < d; i += 256) buf[i] = xr[i];
+  __syncthreads();
+  layer_norm_inplace(buf, d, nrm, red, threadIdx.x, 256);
   __nv_bfloat16* orow = out + (size_t)blockIdx.x * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
+  for (int i = threadIdx.x; i < d; i += 256)
     orow[i] = __float2bfloat16(buf[i]);
+}
+
+// The product kernels' input vector, staged as f32 in xs[0..K): the bf16
+// input as it is, or (the norm prologue, LN) the f32 residual normalised
+// by nrm and rounded to bf16 once, bit for bit layer_norm_rows' output.
+template <bool LN>
+__device__ __forceinline__ void stage_input(const void* __restrict__ x,
+                                            const Norm& nrm, float* xs,
+                                            float* red, int K, int tid,
+                                            int nthreads) {
+  if constexpr (LN) {
+    const float* x32 = reinterpret_cast<const float*>(x);
+    for (int i = tid; i < K; i += nthreads) xs[i] = x32[i];
+    __syncthreads();
+    layer_norm_inplace(xs, K, nrm, red, tid, nthreads);
+    for (int i = tid; i < K; i += nthreads) xs[i] = bf16_round(xs[i]);
+  } else {
+    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+    for (int i = tid; i < K; i += nthreads) xs[i] = __bfloat162float(xb[i]);
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -120,12 +93,14 @@ __global__ void layer_norm_rows_kernel(const float* __restrict__ x,
 // shared memory. One block per 32 columns, full K per block, so the
 // epilogue (gelu_new, bf16 store, or += into the f32 residual) runs in
 // place. mode: 0 = store f32, 1 = store bf16, 2 = accumulate into f32.
+// LN: x is the f32 residual and the block normalises it first (above).
 // ---------------------------------------------------------------------------
 constexpr int GEMV_COLS = 32;
 constexpr int GEMV_KTHREADS = 32;
 
+template <bool LN>
 __global__ void __launch_bounds__(256)
-int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+int8_gemv_kernel(const void* __restrict__ x, Norm nrm,
                  const int8_t* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, void* __restrict__ out, int K,
@@ -133,9 +108,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ float xs[];  // K floats
   __shared__ float red[GEMV_KTHREADS][GEMV_COLS + 1];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < K; i += blockDim.x * blockDim.y)
-    xs[i] = __bfloat162float(x[i]);
-  __syncthreads();
+  stage_input<LN>(x, nrm, xs, &red[0][0], K, tid, 256);
 
   const int n0 = blockIdx.x * GEMV_COLS + threadIdx.x * 4;
   const char4* wp = reinterpret_cast<const char4*>(w + n0);
@@ -185,6 +158,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 // to bf16, as the TPU kernel does for every tile it restores to canonical
 // order; with gelu (the fc tiles, left permuted there) nothing is rounded
 // before gelu_new. mode: 0 = store f32, 1 = store bf16, 2 = add into f32.
+// LN: the norm prologue, as int8_gemv's.
 //
 // Bound: the packed weights, half of int8_gemv's bytes (~99 MB a token at
 // the flagship width, ~30 us at 3.35 TB/s). Block (2, 64): threadIdx.x
@@ -207,8 +181,9 @@ __device__ __forceinline__ int nib_hi(uint32_t w, int i) {
   return ((int)(w << (24 - 8 * i))) >> 28;
 }
 
+template <bool LN>
 __global__ void __launch_bounds__(128)
-int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
                  const uint8_t* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, void* __restrict__ out, int K,
@@ -216,9 +191,7 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ float xs[];  // K floats
   __shared__ float red[4][I4_COLS];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < K; i += blockDim.x * blockDim.y)
-    xs[i] = __bfloat162float(x[i]);
-  __syncthreads();
+  stage_input<LN>(x, nrm, xs, &red[0][0], K, tid, 128);
 
   const int c0 = blockIdx.x * I4_COLS + threadIdx.x * 32;
   const bool live = c0 < N;  // N % 64 == 32 leaves the last half-block idle
@@ -265,7 +238,7 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     if (tid < I4_COLS && n < N) {
       const float s = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
       float y = s * scale[(size_t)g * N + n] + (g == 0 ? bias[n] : 0.f);
-      if (!gelu) y = __bfloat162float(__float2bfloat16(y));
+      if (!gelu) y = bf16_round(y);
       total += y;
     }
     __syncthreads();
@@ -309,8 +282,8 @@ __global__ void decode_attention_kernel(const float* __restrict__ qkv,
   }
   __syncthreads();
 
-  const float q0 = __bfloat162float(__float2bfloat16(qkv[c0 + 2 * lane]));
-  const float q1 = __bfloat162float(__float2bfloat16(qkv[c0 + 2 * lane + 1]));
+  const float q0 = bf16_round(qkv[c0 + 2 * lane]);
+  const float q1 = bf16_round(qkv[c0 + 2 * lane + 1]);
   const int n = idx + 1;
   for (int s = warp; s < n; s += nwarps) {
     const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
@@ -349,38 +322,92 @@ __global__ void decode_attention_kernel(const float* __restrict__ qkv,
   }
 }
 
+Norm make_norm(const void* s1, const void* b1, const void* s2, const void* b2,
+               int n) {
+  return Norm{(const float*)s1, (const float*)b1, (const float*)s2,
+              (const float*)b2, n};
+}
+
+int launch_int8_gemv(const void* x, Norm nrm, const void* w,
+                     const void* scale, const void* bias, void* out, int K,
+                     int N, int gelu, int mode, cudaStream_t stream) {
+  dim3 block(GEMV_COLS / 4, GEMV_KTHREADS);
+  const size_t smem = (size_t)K * sizeof(float);
+  if (nrm.n)
+    int8_gemv_kernel<true><<<N / GEMV_COLS, block, smem, stream>>>(
+        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
+        out, K, N, gelu, mode);
+  else
+    int8_gemv_kernel<false><<<N / GEMV_COLS, block, smem, stream>>>(
+        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
+        out, K, N, gelu, mode);
+  return (int)cudaGetLastError();
+}
+
+int launch_int4_gemv(const void* x, Norm nrm, const void* w,
+                     const void* scale, const void* bias, void* out, int K,
+                     int N, int groups, int gelu, int mode,
+                     cudaStream_t stream) {
+  dim3 block(2, I4_KTHREADS);
+  const int grid = (N + I4_COLS - 1) / I4_COLS;
+  const size_t smem = (size_t)K * sizeof(float);
+  if (nrm.n)
+    int4_gemv_kernel<true><<<grid, block, smem, stream>>>(
+        x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
+        out, K, N, groups, gelu, mode);
+  else
+    int4_gemv_kernel<false><<<grid, block, smem, stream>>>(
+        x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
+        out, K, N, groups, gelu, mode);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 XT_API int xt_layer_norm_rows(const void* x, const void* s1, const void* b1,
                               const void* s2, const void* b2, void* out,
-                              int rows, int d, int two, void* stream) {
+                              int rows, int d, int nln, void* stream) {
   layer_norm_rows_kernel<<<rows, 256, d * sizeof(float),
                            (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)s1, (const float*)b1, (const float*)s2,
-      (const float*)b2, (__nv_bfloat16*)out, d, two);
+      (const float*)x, make_norm(s1, b1, s2, b2, nln), (__nv_bfloat16*)out,
+      d);
   return (int)cudaGetLastError();
 }
 
 XT_API int xt_int8_gemv(const void* x, const void* w, const void* scale,
                         const void* bias, void* out, int K, int N, int gelu,
                         int mode, void* stream) {
-  dim3 block(GEMV_COLS / 4, GEMV_KTHREADS);
-  int8_gemv_kernel<<<N / GEMV_COLS, block, K * sizeof(float),
-                     (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,
-      (const float*)bias, out, K, N, gelu, mode);
-  return (int)cudaGetLastError();
+  return launch_int8_gemv(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
+                          w, scale, bias, out, K, N, gelu, mode,
+                          (cudaStream_t)stream);
+}
+
+// x32: the f32 residual (K,); nln 1 or 2 norms (s1, b1[, s2, b2]) first
+XT_API int xt_int8_gemv_ln(const void* x32, const void* s1, const void* b1,
+                           const void* s2, const void* b2, int nln,
+                           const void* w, const void* scale, const void* bias,
+                           void* out, int K, int N, int gelu, int mode,
+                           void* stream) {
+  return launch_int8_gemv(x32, make_norm(s1, b1, s2, b2, nln), w, scale,
+                          bias, out, K, N, gelu, mode, (cudaStream_t)stream);
 }
 
 XT_API int xt_int4_gemv(const void* x, const void* w, const void* scale,
                         const void* bias, void* out, int K, int N, int groups,
                         int gelu, int mode, void* stream) {
-  dim3 block(2, I4_KTHREADS);
-  int4_gemv_kernel<<<(N + I4_COLS - 1) / I4_COLS, block, K * sizeof(float),
-                     (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)scale,
-      (const float*)bias, out, K, N, groups, gelu, mode);
-  return (int)cudaGetLastError();
+  return launch_int4_gemv(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
+                          w, scale, bias, out, K, N, groups, gelu, mode,
+                          (cudaStream_t)stream);
+}
+
+XT_API int xt_int4_gemv_ln(const void* x32, const void* s1, const void* b1,
+                           const void* s2, const void* b2, int nln,
+                           const void* w, const void* scale, const void* bias,
+                           void* out, int K, int N, int groups, int gelu,
+                           int mode, void* stream) {
+  return launch_int4_gemv(x32, make_norm(s1, b1, s2, b2, nln), w, scale,
+                          bias, out, K, N, groups, gelu, mode,
+                          (cudaStream_t)stream);
 }
 
 XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,

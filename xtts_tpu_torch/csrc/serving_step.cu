@@ -6,13 +6,16 @@
 // whole B-row token step in one pallas_call, streaming (D, D) int8 weight
 // tiles and (B, Sc, D) int8 cache chunks through VMEM rings. On the H100:
 //
-//   per layer:  layer_norm_rows (decode_step.cu) -> int8_gemm_rows(qkv)
+//   per layer:  int8_gemm_rows(ln_1 prologue, qkv)
 //               -> serving_attention (new rows quantized into the cache,
 //                  softmax over the int8 cache, exact self term)
 //               -> int8_gemm_rows(proj, += the f32 residual)
-//               -> layer_norm_rows -> int8_gemm_rows(fc, gelu_new, bf16)
+//               -> int8_gemm_rows(ln_2 prologue, fc, gelu_new, bf16)
 //               -> int8_gemm_rows(out, K = 4D, += residual)
-//   then:       layer_norm_rows(ln_f then final_norm) -> int8_gemm_rows(head)
+//   then:       int8_gemm_rows(ln_f then final_norm prologue, head)
+//
+// 76 launches a step at 15 layers: the LayerNorms run as the prologue of
+// the product that consumes them (common.cuh), as in the TPU kernel.
 //
 // Numerics mirror the TPU kernel: an f32 residual; bf16 inputs to every
 // int8 weight product with f32 accumulation; per-output-channel scale and
@@ -33,61 +36,20 @@
 // does not grow with B. serving_attention runs one block per (head, row),
 // reads each cached k/v byte once (a half-warp per position, 4 bytes a
 // lane) and keeps the scores in shared memory for an exact two-pass
-// softmax. ~107 launches a step: launch cost dominates for now.
+// softmax. Launch cost still dominates at 76 launches a step.
 //
 // Layouts: weights (K, N) int8 row-major (quantize_dense's (in, out)); the
 // cache one layer at a time, (B, S, D) int8 with (B, S) f32 scales.
 //
 // C interface (ctypes): every entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 #define XT_API extern "C"
 
 namespace {
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reduction over a 1-D block (blockDim.x a multiple of 32).
-// red: >= 33 floats of shared memory. Returns the result to every thread.
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = MAX ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < nwarps ? red[lane] : (MAX ? -INFINITY : 0.f);
-    t = MAX ? warp_max(t) : warp_sum(t);
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float gelu_new(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ int8_t quant(float y, float scale) {
   return (int8_t)fminf(fmaxf(rintf(y / scale), -127.f), 127.f);
@@ -102,20 +64,34 @@ __device__ __forceinline__ int8_t quant(float y, float scale) {
 // shuffles and shared memory; the epilogue (gelu_new; store f32 or bf16,
 // or += into the f32 residual) runs once per output.
 // mode: 0 = store f32, 1 = store bf16, 2 = accumulate into f32.
+// LN (the norm prologue): x is the (B, K) f32 residual. Each warp first
+// takes the statistics of rows warp, warp + 8, ... in layer_norm_rows'
+// summation order (common.cuh row_norm_stats), into shared memory; each
+// slab then stages the normalised rows, rounded to bf16 once, so the
+// product's input equals layer_norm_rows' output bit for bit.
 // ---------------------------------------------------------------------------
 constexpr int COLS = 32;
 constexpr int KT = 256;
 
-template <int R>
+template <int R, bool LN>
 __global__ void __launch_bounds__(256)
-int8_gemm_rows_kernel(const __nv_bfloat16* __restrict__ x,
+int8_gemm_rows_kernel(const void* __restrict__ x, Norm nrm,
                       const int8_t* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias, void* __restrict__ out,
                       int B, int K, int N, int gelu, int mode) {
   constexpr int XS = R + 4;  // staged row stride (floats)
   extern __shared__ __align__(16) float sm[];  // KT * XS floats
+  __shared__ float stat[LN ? R : 1][4];        // per row: mu, rstd x 2
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 8 + tx;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* x32 = reinterpret_cast<const float*>(x);
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  if constexpr (LN) {
+    for (int r = warp; r < B; r += 8)
+      row_norm_stats(x32 + (size_t)r * K, K, nrm, lane, stat[r]);
+    __syncthreads();
+  }
   const int n0 = blockIdx.x * COLS + tx * 4;
   const char4* wp = reinterpret_cast<const char4*>(w + n0);
   const size_t row = (size_t)N / 4;  // row stride in char4
@@ -128,10 +104,20 @@ int8_gemm_rows_kernel(const __nv_bfloat16* __restrict__ x,
   for (int k0 = 0; k0 < K; k0 += KT) {
     const int kt = min(KT, K - k0);
     for (int i = tid; i < R * KT; i += 256) {
-      const int r = i / KT, kk = i % KT;
-      sm[kk * XS + r] = (r < B && kk < kt)
-                            ? __bfloat162float(x[(size_t)r * K + k0 + kk])
-                            : 0.f;
+      const int r = i / KT, kk = i % KT, k = k0 + kk;
+      float v = 0.f;
+      if (r < B && kk < kt) {
+        if constexpr (LN) {
+          const float* st = stat[r];
+          float y = ln_apply(x32[(size_t)r * K + k], st[0], st[1],
+                             nrm.s1[k], nrm.b1[k]);
+          if (nrm.n == 2) y = ln_apply(y, st[2], st[3], nrm.s2[k], nrm.b2[k]);
+          v = bf16_round(y);
+        } else {
+          v = __bfloat162float(xb[(size_t)r * K + k]);
+        }
+      }
+      sm[kk * XS + r] = v;
     }
     __syncthreads();
 #pragma unroll 2
@@ -157,7 +143,6 @@ int8_gemm_rows_kernel(const __nv_bfloat16* __restrict__ x,
   }
 
   // a warp holds ty = 4 warp .. 4 warp + 3 for all 8 tx: fold its 4 ty
-  const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -195,15 +180,29 @@ int8_gemm_rows_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int R>
-int launch_gemm_rows(const void* x, const void* w, const void* scale,
-                     const void* bias, void* out, int B, int K, int N,
-                     int gelu, int mode, cudaStream_t stream) {
+int launch_gemm_rows(const void* x, Norm nrm, const void* w,
+                     const void* scale, const void* bias, void* out, int B,
+                     int K, int N, int gelu, int mode, cudaStream_t stream) {
   dim3 block(COLS / 4, 32);
   const size_t smem = (size_t)KT * (R + 4) * sizeof(float);
-  int8_gemm_rows_kernel<R><<<N / COLS, block, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,
-      (const float*)bias, out, B, K, N, gelu, mode);
+  if (nrm.n)
+    int8_gemm_rows_kernel<R, true><<<N / COLS, block, smem, stream>>>(
+        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
+        out, B, K, N, gelu, mode);
+  else
+    int8_gemm_rows_kernel<R, false><<<N / COLS, block, smem, stream>>>(
+        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
+        out, B, K, N, gelu, mode);
   return (int)cudaGetLastError();
+}
+
+int gemm_rows(const void* x, Norm nrm, const void* w, const void* scale,
+              const void* bias, void* out, int B, int K, int N, int gelu,
+              int mode, cudaStream_t st) {
+  if (B <= 4) return launch_gemm_rows<4>(x, nrm, w, scale, bias, out, B, K, N, gelu, mode, st);
+  if (B <= 8) return launch_gemm_rows<8>(x, nrm, w, scale, bias, out, B, K, N, gelu, mode, st);
+  if (B <= 16) return launch_gemm_rows<16>(x, nrm, w, scale, bias, out, B, K, N, gelu, mode, st);
+  return launch_gemm_rows<32>(x, nrm, w, scale, bias, out, B, K, N, gelu, mode, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -325,11 +324,21 @@ serving_attention_kernel(const float* __restrict__ qkv,
 XT_API int xt_int8_gemm_rows(const void* x, const void* w, const void* scale,
                              const void* bias, void* out, int B, int K, int N,
                              int gelu, int mode, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 4) return launch_gemm_rows<4>(x, w, scale, bias, out, B, K, N, gelu, mode, st);
-  if (B <= 8) return launch_gemm_rows<8>(x, w, scale, bias, out, B, K, N, gelu, mode, st);
-  if (B <= 16) return launch_gemm_rows<16>(x, w, scale, bias, out, B, K, N, gelu, mode, st);
-  return launch_gemm_rows<32>(x, w, scale, bias, out, B, K, N, gelu, mode, st);
+  return gemm_rows(x, Norm{nullptr, nullptr, nullptr, nullptr, 0}, w, scale,
+                   bias, out, B, K, N, gelu, mode, (cudaStream_t)stream);
+}
+
+// x32: the (B, K) f32 residual; nln 1 or 2 norms (s1, b1[, s2, b2]) first
+XT_API int xt_int8_gemm_rows_ln(const void* x32, const void* s1,
+                                const void* b1, const void* s2,
+                                const void* b2, int nln, const void* w,
+                                const void* scale, const void* bias,
+                                void* out, int B, int K, int N, int gelu,
+                                int mode, void* stream) {
+  const Norm nrm{(const float*)s1, (const float*)b1, (const float*)s2,
+                 (const float*)b2, nln};
+  return gemm_rows(x32, nrm, w, scale, bias, out, B, K, N, gelu, mode,
+                   (cudaStream_t)stream);
 }
 
 XT_API int xt_serving_attention(const void* qkv, void* kc, void* vc, void* ks,

@@ -3,9 +3,11 @@ xtts_tpu/nn/flash_attn.py).
 
 Replaces the Pallas TPU flash kernel that xtts_tpu/nn/flash_attn.py:
 flash_mha calls (jax.experimental.pallas.ops.tpu.flash_attention, :99). The
-CUDA kernel (csrc/flash_attn.cu) is a FlashAttention-2-style forward: one
-block per (64-query tile, head, batch row), K/V tiles staged in shared
-memory, f32 online softmax, both products on the tensor cores (WMMA bf16).
+CUDA kernel (csrc/flash_attn.cu) is written for Hopper: one warpgroup per
+(64-query tile, head, batch row); K/V tiles stream through a two-stage
+cp.async ring in shared memory; S = Q K^T and O += P V run on wgmma (P as
+the register operand, V read MN-major); the f32 online softmax and O stay
+in registers.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a call at the main path's
 (2, 1280 | 1562, 8, 64)); the design keeps the (B, H, Tq, Tk) score matrix

@@ -3,8 +3,9 @@
 Each source compiles with nvcc for sm_90a into a shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in build/xtts_tpu_torch/ at the checkout root,
-named by a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. Every C entry point returns cudaGetLastError();
+named by a hash of its source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Every C entry point returns cudaGetLastError();
 `check` raises on a non-zero code.
 """
 from __future__ import annotations
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu (if its hash is not built yet) and load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"{name}-{digest}.so"
     if not lib_path.exists():
@@ -70,12 +74,19 @@ def check(code: int, what: str) -> None:
 
 
 def require_hopper(t) -> None:
-    """Kernels are built for sm_90a only: refuse any other card."""
+    """Kernels are built for sm_90a only: refuse any other card. The answer
+    is kept per device index: the capability is queried once a device, not
+    at every launch."""
+    _hopper(t.device.index)
+
+
+@functools.cache
+def _hopper(index: int) -> None:
     import torch
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = torch.cuda.get_device_capability(index)
     if cap != (9, 0):
         raise RuntimeError(f"xtts_tpu_torch kernels need an sm_90 (Hopper) "
-                           f"card; {torch.cuda.get_device_name(t.device)} is "
+                           f"card; {torch.cuda.get_device_name(index)} is "
                            f"sm_{cap[0]}{cap[1]}")
 
 

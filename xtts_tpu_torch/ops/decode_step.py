@@ -3,14 +3,18 @@ xtts_tpu/ops/decode_step.py).
 
 Replaces the Pallas TPU kernel `_make_kernel` / `_fused_decode_logits`
 (xtts_tpu/ops/decode_step.py:68-357), which ran the whole token step in one
-pallas_call. Here the step is a chain of three hand-written CUDA kernels
-(csrc/decode_step.cu): `layer_norm_rows`, `int8_gemv` and
-`decode_attention`; `fused_decode_logits` strings them together.
+pallas_call. Here the step is a chain of two hand-written CUDA kernels
+(csrc/decode_step.cu), `int8_gemv` and `decode_attention`, 76 launches a
+token at 15 layers; `fused_decode_logits` strings them together. Each
+LayerNorm runs as the prologue of the gemv that consumes it (`ln=`), as the
+TPU kernel ran `_ln` inside its one kernel; the standalone
+`layer_norm_rows` computes the same norm bit for bit and no path launches
+it.
 
 Bound on the H100: weight bytes, ~190 MB of int8 per token at the flagship
 width (~57 us at 3.35 TB/s). The gemv reads each weight once with coalesced
-4-byte loads and fuses dequant, scale, bias, gelu_new and the residual add;
-at ~107 launches a token the chain is launch-bound for now (see PERF.md).
+4-byte loads and fuses the norm, dequant, scale, bias, gelu_new and the
+residual add; the chain is still launch-bound (see PERF.md).
 
 Numerics follow the TPU kernel, not the XLA chain of infer/qdecode.py: the
 residual stays f32 across the layers, LayerNorms and softmax run in f32,
@@ -54,10 +58,13 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("decode_step")
     lib.xt_layer_norm_rows.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.xt_int8_gemv.argtypes = [_P] * 5 + [_I, _I, _I, _I, _P]
+    lib.xt_int8_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [_P]
     lib.xt_int4_gemv.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.xt_int4_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 5 + [_P]
     lib.xt_decode_attention.argtypes = [_P] * 4 + [_I, _I, _I,
                                                    ctypes.c_float, _P]
-    for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv, lib.xt_int4_gemv,
+    for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv, lib.xt_int8_gemv_ln,
+               lib.xt_int4_gemv, lib.xt_int4_gemv_ln,
                lib.xt_decode_attention):
         fn.restype = _I
     return lib
@@ -68,6 +75,44 @@ def _check_cuda(*ts) -> None:
         if t is not None and not t.is_contiguous():
             raise ValueError("decode-step kernels take contiguous tensors")
     require_hopper(ts[0])
+
+
+def norm_operands(x: torch.Tensor, ln, k: int, out=None):
+    """Check a norm prologue's operands and return its C arguments.
+
+    x: the f32 residual, K values a row; ln: (s, b) or (s1, b1, s2, b2),
+    f32 (K,) each. `out` must not overlap x: other blocks still read the
+    residual while one accumulates into out."""
+    if len(ln) not in (2, 4):
+        raise ValueError(f"ln takes (s, b) or (s1, b1, s2, b2), got "
+                         f"{len(ln)} tensors")
+    if x.dtype != torch.float32 or x.shape[-1] != k:
+        raise ValueError(f"a norm prologue takes the f32 residual with {k} "
+                         f"values a row, got {tuple(x.shape)} {x.dtype}")
+    for p in ln:
+        if (p.dtype != torch.float32 or p.numel() != k or p.device != x.device
+                or not p.is_contiguous()):
+            raise ValueError(f"norm parameters are contiguous f32 ({k},) on "
+                             f"{x.device}, got {tuple(p.shape)} {p.dtype}")
+    if out is not None and _overlap(x, out):
+        raise ValueError("a fused norm cannot accumulate into its residual")
+    two = len(ln) == 4
+    s1, b1 = ln[0], ln[1]
+    s2, b2 = (ln[2], ln[3]) if two else (s1, b1)
+    return [ptr(s1), ptr(b1), ptr(s2), ptr(b2), 2 if two else 1]
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def normed_input(x, ln):
+    """The bf16 input a fused product computes from the f32 residual x:
+    layer_norm_rows_plain of its rows (the plain twins' prologue)."""
+    return layer_norm_rows_plain(x.reshape(-1, x.shape[-1]),
+                                 *ln).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +146,8 @@ def layer_norm_rows(x: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
     two = s2 is not None
     check(_lib().xt_layer_norm_rows(
         ptr(x), ptr(s1), ptr(b1), ptr(s2 if two else s1),
-        ptr(b2 if two else b1), ptr(out), rows, d, int(two), stream_of(x)),
-        "layer_norm_rows")
+        ptr(b2 if two else b1), ptr(out), rows, d, 2 if two else 1,
+        stream_of(x)), "layer_norm_rows")
     layer_norm_rows.launches += 1
     return out
 
@@ -115,7 +160,9 @@ layer_norm_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
-                    out_dtype=torch.float32) -> torch.Tensor:
+                    out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    if ln is not None:
+        x = normed_input(x, ln)
     y = (x.float() @ w.float()) * scale + bias
     if gelu:
         y = gelu_new(y)
@@ -127,21 +174,28 @@ def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
 
 def int8_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
               bias: torch.Tensor, out: Optional[torch.Tensor] = None,
-              gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+              gelu: bool = False, out_dtype=torch.float32,
+              ln=None) -> torch.Tensor:
     """y = (x_bf16 . W_int8) * scale + bias, f32 accumulation.
 
     x (K,) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies gelu_new
     to y. With `out` given (f32 (N,)), y is added into it in place — the
     residual add, and the K-split accumulate of the TPU kernel's four
     out tiles, which here run as one K = 4D launch. Otherwise returns y in
-    out_dtype (f32 or bf16)."""
+    out_dtype (f32 or bf16).
+
+    ln = (s, b) or (s1, b1, s2, b2): the norm prologue. x is then the f32
+    residual (K,), and the product takes layer_norm_rows(x, *ln) — computed
+    in the same launch, bit for bit the standalone kernel's output."""
     if not x.is_cuda:
-        return int8_gemv_plain(x, w, scale, bias, out, gelu, out_dtype)
+        return int8_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
     k, n = w.shape
-    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8
+    want = torch.float32 if ln is not None else torch.bfloat16
+    if (x.dtype != want or w.dtype != torch.int8
             or x.numel() != k or n % 32 or k > MAX_SMEM_FLOATS):
         raise ValueError(f"int8_gemv: bad operands x {tuple(x.shape)} "
                          f"{x.dtype}, w {tuple(w.shape)} {w.dtype}")
+    norm = None if ln is None else norm_operands(x, ln, k, out)
     _check_cuda(x, w, scale, bias, out)
     if out is not None:
         if out.dtype != torch.float32 or out.numel() != n:
@@ -152,14 +206,21 @@ def int8_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int8_gemv: out_dtype {out_dtype}")
         mode = 0 if out_dtype == torch.float32 else 1
         dst = torch.empty((n,), dtype=out_dtype, device=x.device)
-    check(_lib().xt_int8_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias), ptr(dst),
-                              k, n, int(gelu), mode, stream_of(x)),
-          "int8_gemv")
+    if norm is None:
+        check(_lib().xt_int8_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias),
+                                  ptr(dst), k, n, int(gelu), mode,
+                                  stream_of(x)), "int8_gemv")
+    else:
+        check(_lib().xt_int8_gemv_ln(ptr(x), *norm, ptr(w), ptr(scale),
+                                     ptr(bias), ptr(dst), k, n, int(gelu),
+                                     mode, stream_of(x)), "int8_gemv")
+        int8_gemv.ln_launches += 1
     int8_gemv.launches += 1
     return dst
 
 
-int8_gemv.launches = 0
+# launches: every launch; ln_launches: those with the norm prologue
+int8_gemv.launches = int8_gemv.ln_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +244,9 @@ def pack_int4(w4: torch.Tensor) -> torch.Tensor:
 
 
 def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
-                    out_dtype=torch.float32) -> torch.Tensor:
+                    out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    if ln is not None:
+        x = normed_input(x, ln)
     groups = scale.shape[0]
     wv = unpack_int4(w).float().reshape(groups, -1, scale.shape[1])
     parts = torch.einsum("gk,gkn->gn", x.float().reshape(groups, -1), wv)
@@ -205,7 +268,8 @@ def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
 
 def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
               bias: torch.Tensor, out: Optional[torch.Tensor] = None,
-              gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+              gelu: bool = False, out_dtype=torch.float32,
+              ln=None) -> torch.Tensor:
     """y = sum_g r((x_g . W4_g) * scale[g] + (g == 0) bias), f32
     accumulation: the TPU kernel's int4 tile math.
 
@@ -213,18 +277,20 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     row for each group of K/G input rows; bias (N,) f32. r() rounds each
     group's output to bf16, as the TPU kernel rounds every tile it
     restores to canonical order; with gelu (its fc tiles) nothing is
-    rounded before gelu_new. `out` and out_dtype as int8_gemv."""
+    rounded before gelu_new. `out`, out_dtype and ln as int8_gemv."""
     if not x.is_cuda:
-        return int4_gemv_plain(x, w, scale, bias, out, gelu, out_dtype)
+        return int4_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
     k, half = w.shape
     groups, n = scale.shape
-    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8
+    want = torch.float32 if ln is not None else torch.bfloat16
+    if (x.dtype != want or w.dtype != torch.int8
             or x.numel() != k or n != 2 * half or n % 32 or k % groups
             or k > MAX_SMEM_FLOATS or bias.numel() != n
             or scale.dtype != torch.float32):
         raise ValueError(f"int4_gemv: bad operands x {tuple(x.shape)} "
                          f"{x.dtype}, w {tuple(w.shape)} {w.dtype}, scale "
                          f"{tuple(scale.shape)}")
+    norm = None if ln is None else norm_operands(x, ln, k, out)
     _check_cuda(x, w, scale, bias, out)
     if out is not None:
         if out.dtype != torch.float32 or out.numel() != n:
@@ -235,14 +301,21 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int4_gemv: out_dtype {out_dtype}")
         mode = 0 if out_dtype == torch.float32 else 1
         dst = torch.empty((n,), dtype=out_dtype, device=x.device)
-    check(_lib().xt_int4_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias), ptr(dst),
-                              k, n, groups, int(gelu), mode, stream_of(x)),
-          "int4_gemv")
+    if norm is None:
+        check(_lib().xt_int4_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias),
+                                  ptr(dst), k, n, groups, int(gelu), mode,
+                                  stream_of(x)), "int4_gemv")
+    else:
+        check(_lib().xt_int4_gemv_ln(ptr(x), *norm, ptr(w), ptr(scale),
+                                     ptr(bias), ptr(dst), k, n, groups,
+                                     int(gelu), mode, stream_of(x)),
+              "int4_gemv")
+        int4_gemv.ln_launches += 1
     int4_gemv.launches += 1
     return dst
 
 
-int4_gemv.launches = 0
+int4_gemv.launches = int4_gemv.ln_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -298,23 +371,22 @@ decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 def _step(ops, st, x, kc, vc, index, layers, heads):
-    ln_rows, gemv, attention = ops
-    x32 = x.float().reshape(1, -1).clone()      # the f32 residual
-    h_res = x32[0]
+    """5 launches a layer (qkv with the ln_1 prologue, attention, proj, fc
+    with the ln_2 prologue, out) and the head with ln_f then final_norm."""
+    gemv, attention = ops
+    h_res = x.float().reshape(-1).clone()       # the f32 residual
     for li in range(layers):
         ln = st["ln"][li]
-        h = ln_rows(x32, ln[0], ln[1])[0]
-        qkv = gemv(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        qkv = gemv(h_res, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li],
+                   ln=(ln[0], ln[1]))
         att = attention(qkv, kc[li], vc[li], index, heads)
         gemv(att, st["wproj"][li], st["sproj"][li], st["bproj"][li],
              out=h_res)
-        h2 = ln_rows(x32, ln[2], ln[3])[0]
-        m = gemv(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li],
-                 gelu=True, out_dtype=torch.bfloat16)
+        m = gemv(h_res, st["wfc"][li], st["sfc"][li], st["bfc"][li],
+                 gelu=True, out_dtype=torch.bfloat16, ln=(ln[2], ln[3]))
         gemv(m, st["wout"][li], st["sout"][li], st["bout"][li], out=h_res)
-    lnf = st["lnf"]
-    xh = ln_rows(x32, lnf[0], lnf[1], lnf[2], lnf[3])[0]
-    logits = gemv(xh, st["whead"], st["shead"], st["bhead"])
+    logits = gemv(h_res, st["whead"], st["shead"], st["bhead"],
+                  ln=tuple(st["lnf"]))
     return logits[None], kc, vc
 
 
@@ -330,8 +402,8 @@ def fused_decode_logits(stacked: Dict[str, Any], x: torch.Tensor,
     Each op launches its kernel for CUDA tensors, its plain twin for CPU
     tensors."""
     gemv = int4_gemv if stacked.get("bits") == 4 else int8_gemv
-    out = _step((layer_norm_rows, gemv, decode_attention), stacked, x,
-                kc, vc, index, layers, heads)
+    out = _step((gemv, decode_attention), stacked, x, kc, vc, index, layers,
+                heads)
     if x.is_cuda:
         fused_decode_logits.launches += 1
     return out
@@ -344,15 +416,19 @@ def fused_decode_logits_plain(stacked, x, kc, vc, index, layers, heads):
     """The same step through the plain twins on any device: the reference
     the kernel chain is held against on the card."""
     gemv = int4_gemv_plain if stacked.get("bits") == 4 else int8_gemv_plain
-    return _step((layer_norm_rows_plain, gemv, decode_attention_plain),
-                 stacked, x, kc, vc, index, layers, heads)
+    return _step((gemv, decode_attention_plain), stacked, x, kc, vc, index,
+                 layers, heads)
 
+
+# layer_norm_rows stays a kernel of the module (the prologues' comparator on
+# the card); the step no longer launches it
 KERNELS = (layer_norm_rows, int8_gemv, int4_gemv, decode_attention)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS + (fused_decode_logits,):
         fn.launches = 0
+    int8_gemv.ln_launches = int4_gemv.ln_launches = 0
 
 
 def stack_qtree(qt: Dict[str, Any], vocab: int) -> Dict[str, Any]:

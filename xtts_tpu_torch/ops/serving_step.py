@@ -4,10 +4,11 @@ Hopper (port of xtts_tpu/ops/serving_step.py).
 Replaces the Pallas TPU kernel `_make_serving_kernel` /
 `_fused_serving_logits` (xtts_tpu/ops/serving_step.py:95-372), which ran the
 whole B-row token step in one pallas_call. Here the step is a chain of
-hand-written CUDA kernels (csrc/serving_step.cu, plus K1's
-`layer_norm_rows`): `int8_gemm_rows` reads each int8 weight byte once for
-all B <= 32 rows, and `serving_attention` quantizes the new k/v rows into
-the cache and attends over it. `fused_serving_logits` strings them
+hand-written CUDA kernels (csrc/serving_step.cu), 76 launches a step at 15
+layers: `int8_gemm_rows` reads each int8 weight byte once for all B <= 32
+rows and runs each LayerNorm as its prologue (`ln=`, bit for bit K1's
+`layer_norm_rows`), and `serving_attention` quantizes the new k/v rows
+into the cache and attends over it. `fused_serving_logits` strings them
 together; `fused_serving_logits_plain` is the same step through the plain
 twins.
 
@@ -33,8 +34,7 @@ import torch
 from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
 from xtts_tpu_torch.ops.decode_step import (MAX_SMEM_FLOATS, int8_gemv_plain,
-                                            layer_norm_rows,
-                                            layer_norm_rows_plain)
+                                            norm_operands)
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
@@ -45,9 +45,12 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load_library("serving_step")
     lib.xt_int8_gemm_rows.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.xt_int8_gemm_rows_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 4
+                                         + [_I] * 5 + [_P])
     lib.xt_serving_attention.argtypes = ([_P] * 6 + [_I] * 5
                                          + [ctypes.c_float, _P])
-    for fn in (lib.xt_int8_gemm_rows, lib.xt_serving_attention):
+    for fn in (lib.xt_int8_gemm_rows, lib.xt_int8_gemm_rows_ln,
+               lib.xt_serving_attention):
         fn.restype = _I
     return lib
 
@@ -68,21 +71,29 @@ int8_gemm_rows_plain = int8_gemv_plain
 
 def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, out: Optional[torch.Tensor] = None,
-                   gelu: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+                   gelu: bool = False, out_dtype=torch.float32,
+                   ln=None) -> torch.Tensor:
     """y = (x_bf16 @ W_int8) * scale + bias for B <= 32 rows, f32
     accumulation, each weight byte read once for all rows.
 
     x (B, K) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies
     gelu_new. With `out` (f32 (B, N)), y is added into it in place (the
-    residual add); otherwise y is returned in out_dtype (f32 or bf16)."""
+    residual add); otherwise y is returned in out_dtype (f32 or bf16).
+
+    ln = (s, b) or (s1, b1, s2, b2): the norm prologue. x is then the
+    (B, K) f32 residual and the product takes layer_norm_rows(x, *ln),
+    computed in the same launch, bit for bit."""
     if not x.is_cuda:
-        return int8_gemm_rows_plain(x, w, scale, bias, out, gelu, out_dtype)
+        return int8_gemm_rows_plain(x, w, scale, bias, out, gelu, out_dtype,
+                                    ln)
     k, n = w.shape
-    if (x.dtype != torch.bfloat16 or w.dtype != torch.int8 or x.dim() != 2
+    want = torch.float32 if ln is not None else torch.bfloat16
+    if (x.dtype != want or w.dtype != torch.int8 or x.dim() != 2
             or x.shape[1] != k or not 1 <= x.shape[0] <= MAX_ROWS or n % 32):
         raise ValueError(f"int8_gemm_rows: bad operands x {tuple(x.shape)} "
                          f"{x.dtype}, w {tuple(w.shape)} {w.dtype}")
     rows = x.shape[0]
+    norm = None if ln is None else norm_operands(x, ln, k, out)
     _check_cuda(x, w, scale, bias)
     if out is not None:
         if out.dtype != torch.float32 or tuple(out.shape) != (rows, n):
@@ -94,15 +105,22 @@ def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int8_gemm_rows: out_dtype {out_dtype}")
         mode = 0 if out_dtype == torch.float32 else 1
         dst = torch.empty((rows, n), dtype=out_dtype, device=x.device)
-    check(_lib().xt_int8_gemm_rows(ptr(x), ptr(w), ptr(scale), ptr(bias),
-                                   ptr(dst), rows, k, n, int(gelu), mode,
-                                   stream_of(x)),
-          "int8_gemm_rows")
+    if norm is None:
+        check(_lib().xt_int8_gemm_rows(ptr(x), ptr(w), ptr(scale), ptr(bias),
+                                       ptr(dst), rows, k, n, int(gelu), mode,
+                                       stream_of(x)), "int8_gemm_rows")
+    else:
+        check(_lib().xt_int8_gemm_rows_ln(ptr(x), *norm, ptr(w), ptr(scale),
+                                          ptr(bias), ptr(dst), rows, k, n,
+                                          int(gelu), mode, stream_of(x)),
+              "int8_gemm_rows")
+        int8_gemm_rows.ln_launches += 1
     int8_gemm_rows.launches += 1
     return dst
 
 
-int8_gemm_rows.launches = 0
+# launches: every launch; ln_launches: those with the norm prologue
+int8_gemm_rows.launches = int8_gemm_rows.ln_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -186,20 +204,21 @@ serving_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 def _step(ops, st, x, kc, vc, ks, vs, index, layers, heads):
-    ln_rows, gemm, attention = ops
+    """5 launches a layer (qkv with the ln_1 prologue, attention, proj, fc
+    with the ln_2 prologue, out) and the head with ln_f then final_norm."""
+    gemm, attention = ops
     x32 = x.float().clone()                     # the f32 residual (B, D)
     for li in range(layers):
         ln = st["ln"][li]
-        h = ln_rows(x32, ln[0], ln[1])
-        qkv = gemm(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
+        qkv = gemm(x32, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li],
+                   ln=(ln[0], ln[1]))
         att = attention(qkv, kc[li], vc[li], ks[li], vs[li], index, heads)
         gemm(att, st["wproj"][li], st["sproj"][li], st["bproj"][li], out=x32)
-        h2 = ln_rows(x32, ln[2], ln[3])
-        m = gemm(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
-                 out_dtype=torch.bfloat16)
+        m = gemm(x32, st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
+                 out_dtype=torch.bfloat16, ln=(ln[2], ln[3]))
         gemm(m, st["wout"][li], st["sout"][li], st["bout"][li], out=x32)
-    xh = ln_rows(x32, *st["lnf"])
-    logits = gemm(xh, st["whead"], st["shead"], st["bhead"])
+    logits = gemm(x32, st["whead"], st["shead"], st["bhead"],
+                  ln=tuple(st["lnf"]))
     return logits, kc, vc, ks, vs
 
 
@@ -211,8 +230,8 @@ def fused_serving_logits(stacked: Dict[str, Any], x: torch.Tensor, kc, vc,
     stacked: ops/decode_step.stack_qtree's weight stack; kc/vc (L, B, S, D)
     int8 and ks/vs (L, B, S) f32, updated in place at `index`. Returns
     (logits, kc, vc, ks, vs)."""
-    out = _step((layer_norm_rows, int8_gemm_rows, serving_attention),
-                stacked, x, kc, vc, ks, vs, index, layers, heads)
+    out = _step((int8_gemm_rows, serving_attention), stacked, x, kc, vc, ks,
+                vs, index, layers, heads)
     if x.is_cuda:
         fused_serving_logits.launches += 1
     return out
@@ -225,9 +244,8 @@ def fused_serving_logits_plain(stacked, x, kc, vc, ks, vs, index, layers,
                                heads):
     """The same step through the plain twins on any device: the reference
     the kernel chain is held against on the card."""
-    return _step((layer_norm_rows_plain, int8_gemm_rows_plain,
-                  serving_attention_plain), stacked, x, kc, vc, ks, vs,
-                 index, layers, heads)
+    return _step((int8_gemm_rows_plain, serving_attention_plain), stacked, x,
+                 kc, vc, ks, vs, index, layers, heads)
 
 
 KERNELS = (int8_gemm_rows, serving_attention)
@@ -236,6 +254,7 @@ KERNELS = (int8_gemm_rows, serving_attention)
 def reset_launch_counts() -> None:
     for fn in KERNELS + (fused_serving_logits,):
         fn.launches = 0
+    int8_gemm_rows.ln_launches = 0
 
 
 def quantize_kv_rowwise(cache) -> Tuple[torch.Tensor, ...]:
