@@ -19,15 +19,19 @@ Phases, each reported on its own lines:
      tensors at the main paths' shapes, with median CUDA-event times of the
      kernel, the plain twin and, where one exists, the one PyTorch call
      that computes the same function (a yardstick the port never calls),
-     and the bound (bytes over 3.35 TB/s or operations over the peak for
+     each kernel and library call also as device time a call (100 calls
+     captured in one CUDA graph and replayed: no host launch in it), and
+     the bound (bytes over 3.35 TB/s or operations over the peak for
      their type, whichever is larger):
-     K1 (layer_norm_rows, int8_gemv, decode_attention, the 15-layer step, a
+     K1 (layer_norm_rows, int8_gemv, decode_attention (a cluster of 8
+     blocks a head), the 15-layer step, a
      64-step teacher-forced greedy chain at 76 launches a token); K1-int4
      (int4_gemv at the qkv, fc, out (four K groups) and head shapes, the
      int4 step and chain); K2 (flash_mha at (2, 1280 | 1562, 8, 64) and
      (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
      logits against its 8192-code codebook, a ragged shape and a planted
-     tie); K4 (int8_gemm_rows, serving_attention, the 16-row step at S 354,
+     tie); K4 (int8_gemm_rows (split over K across a cluster),
+     serving_attention, the 16-row step at S 354,
      a 64-step teacher-forced chain, step times at 8/16/32 rows). Each
      product with the norm prologue (int8_gemv, int4_gemv, int8_gemm_rows
      at the qkv + ln_1, fc + ln_2 and head + ln_f/final_norm shapes) is held
@@ -135,6 +139,40 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_us(torch, fn, n: int = 100, replays: int = 5) -> float:
+    """Device time a call in us: n back-to-back calls captured in one CUDA
+    graph, the graph replayed between two CUDA events (median of
+    `replays`). The host's launch cost, which single-call timings carry,
+    is out of this reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / n)
+    del graph
+    return statistics.median(times)
+
+
+def fmt_us(us: float) -> str:
+    return f"{us:.2f} us"
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -146,9 +184,12 @@ def bound(nbytes: float, ops: float, kind: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def record(results, name, err, ms, plain_ms, lib_ms, bnd):
+def record(results, name, err, ms, plain_ms, lib_ms, bnd, dev_us,
+           lib_dev_us, **extra):
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+                         library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                         device_us=dev_us, library_device_us=lib_dev_us,
+                         **extra)
 
 
 def fmt_lib(lib_ms) -> str:
@@ -228,12 +269,17 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
     l_ln = time_ms(torch, lambda: F.layer_norm(x32, (D,), ln0[0], ln0[1],
                                                1e-5))
     b_ln = bound(4 * D + 8 * D + 2 * D, 8 * D, "fp32")
-    record(results, "layer_norm_rows", e_ln, t_ln, p_ln, l_ln, b_ln)
+    d_ln = device_us(torch, lambda: ds.layer_norm_rows(x32, ln0[0], ln0[1]))
+    dl_ln = device_us(torch, lambda: F.layer_norm(
+        x32, (D,), ln0[0], ln0[1], 1e-5))
+    record(results, "layer_norm_rows", e_ln, t_ln, p_ln, l_ln, b_ln, d_ln,
+           dl_ln)
     log(f"[k1] layer_norm_rows (1, {D}) max_abs_err {e_ln:.3e}  "
-        f"kernel {t_ln:.4f} ms (capability query each launch, as before: "
-        f"{t_ln_q:.4f} ms)  plain {p_ln:.4f} ms  F.layer_norm "
-        f"{l_ln:.4f} ms  bound {b_ln[0]:.5f} ms ({b_ln[1]}); launched on "
-        f"no path: the comparator of the norm prologues  [{card}]")
+        f"kernel {t_ln:.4f} ms, device {fmt_us(d_ln)} (capability query "
+        f"each launch, as before: {t_ln_q:.4f} ms)  plain {p_ln:.4f} ms  "
+        f"F.layer_norm {l_ln:.4f} ms, device {fmt_us(dl_ln)}  bound "
+        f"{b_ln[0]:.5f} ms ({b_ln[1]}); launched on no path: the "
+        f"comparator of the norm prologues  [{card}]")
 
     gemv_cases = [
         ("qkv", "wqkv", "sqkv", "bqkv", dict()),
@@ -274,12 +320,15 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         bnd = bound(kk * nn_ + 2 * kk + 8 * nn_ + 4 * nn_, 2 * kk * nn_,
                     "bf16")
         gbs = w.numel() / (tk * 1e-3) / 1e9
+        dk = device_us(torch, fk)
+        dl = device_us(torch, lambda: torch.matmul(x2, w_bf16))
         log(f"[k1] int8_gemv {name} ({kk} x {nn_}) max_abs_err {err:.3e}  "
-            f"kernel {tk:.4f} ms ({gbs:.0f} GB/s weights)  plain {tp:.4f} ms"
-            f"  matmul(bf16 W) {tl:.4f} ms  bound {bnd[0]:.5f} ms "
-            f"({bnd[1]})  [{card}]")
+            f"kernel {tk:.4f} ms ({gbs:.0f} GB/s weights), device "
+            f"{fmt_us(dk)}  plain {tp:.4f} ms  matmul(bf16 W) {tl:.4f} ms, "
+            f"device {fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]})  "
+            f"[{card}]")
         if name == "fc+gelu":
-            fc_times = (tk, tp, tl, bnd)
+            fc_times = (tk, tp, tl, bnd, dk, dl)
     record(results, "int8_gemv", e_gemv, *fc_times)
     prologue_checks(torch, ds, st, ds.int8_gemv, ds.int8_gemv_plain, x32[0],
                     "k1", "int8_gemv+ln", results, card)
@@ -310,11 +359,17 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
                                                                   v_l))
     b_att = bound(12 * D + 4 * idx * D + 4 * D + 2 * D, 4 * (idx + 1) * D,
                   "bf16")
-    record(results, "decode_attention", e_att, t_att, p_att, l_att, b_att)
-    log(f"[k1] decode_attention ({H} heads x 64, rows 0..{idx} of {s_max}) "
-        f"max_abs_err {e_att:.3e}  kernel {t_att:.4f} ms  plain {p_att:.4f} ms"
-        f"  sdpa {l_att:.4f} ms  bound {b_att[0]:.5f} ms ({b_att[1]})  "
-        f"[{card}]")
+    d_att = device_us(torch, lambda: ds.decode_attention(qkv, kc1[0], vc1[0],
+                                                         idx, H))
+    dl_att = device_us(torch, lambda: F.scaled_dot_product_attention(
+        q_l, k_l, v_l))
+    record(results, "decode_attention", e_att, t_att, p_att, l_att, b_att,
+           d_att, dl_att)
+    log(f"[k1] decode_attention ({H} heads x 64, rows 0..{idx} of {s_max}, "
+        f"cluster of {ds.ATT_SPLITS} blocks a head) "
+        f"max_abs_err {e_att:.3e}  kernel {t_att:.4f} ms, device "
+        f"{fmt_us(d_att)}  plain {p_att:.4f} ms  sdpa {l_att:.4f} ms, device "
+        f"{fmt_us(dl_att)}  bound {b_att[0]:.5f} ms ({b_att[1]})  [{card}]")
 
     step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, "k1", card)
     return qt, st
@@ -363,18 +418,21 @@ def prologue_checks(torch, ds, st, kernel, plain, x32, tag, key, results,
         t_f = time_ms(torch, lambda: kernel(x32, w, s, b, ln=ln, **kw))
         t_2 = time_ms(torch, unfused)
         t_p = time_ms(torch, lambda: plain(x32, w, s, b, ln=ln, **kw))
+        d_f = device_us(torch, lambda: kernel(x32, w, s, b, ln=ln, **kw))
+        d_2 = device_us(torch, unfused)
         n = got.shape[-1]
         bnd = bound(w.numel() + 4 * s.numel() + 4 * n + 4 * x32.numel()
                     + 4 * d * len(ln) + got.element_size() * got.numel(),
                     2 * rows * d * n, "bf16")
         log(f"[{tag}] {key} {name} ({rows} x {d} -> {n}): equal to "
             f"layer_norm_rows + product; vs plain max_abs_err {err:.3e}  "
-            f"fused {t_f:.4f} ms  layer_norm_rows + product {t_2:.4f} ms "
-            f"(two launches)  plain {t_p:.4f} ms  bound {bnd[0]:.5f} ms "
-            f"({bnd[1]})  [{card}]")
+            f"fused {t_f:.4f} ms, device {fmt_us(d_f)}  layer_norm_rows + "
+            f"product {t_2:.4f} ms, device {fmt_us(d_2)} (two launches)  "
+            f"plain {t_p:.4f} ms  bound {bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if name == "fc+ln_2":
-            fc = (t_f, t_p, None, bnd)
-    record(results, key, e_max, *fc)
+            fc = (t_f, t_p, None, bnd, d_f, None)
+            pair = dict(pair_ms=t_2, pair_device_us=d_2)
+    record(results, key, e_max, *fc, **pair)
 
 
 def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
@@ -490,13 +548,16 @@ def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
         tl = time_ms(torch, lambda: torch.matmul(x2, w_bf16))
         bnd = bound(kk * nn_ // 2 + 2 * kk + 4 * groups * nn_ + 4 * nn_
                     + 4 * nn_, 2 * kk * nn_, "bf16")
+        dk = device_us(torch, fk)
+        dl = device_us(torch, lambda: torch.matmul(x2, w_bf16))
         log(f"[k1-int4] int4_gemv {name} ({kk} x {nn_}, {groups} group"
             f"{'s' if groups > 1 else ''}) max_abs_err {err:.3e}  kernel "
             f"{tk:.4f} ms ({kk * nn_ / 2 / (tk * 1e-3) / 1e9:.0f} GB/s packed "
-            f"weights)  plain {tp:.4f} ms  matmul(bf16 W) {tl:.4f} ms  bound "
+            f"weights), device {fmt_us(dk)}  plain {tp:.4f} ms  "
+            f"matmul(bf16 W) {tl:.4f} ms, device {fmt_us(dl)}  bound "
             f"{bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if name == "fc+gelu":
-            fc_times = (tk, tp, tl, bnd)
+            fc_times = (tk, tp, tl, bnd, dk, dl)
     record(results, "int4_gemv", e_max, *fc_times)
     x32 = torch.randn(D, generator=g, device="cuda") * 3 + 1
     prologue_checks(torch, ds, st, ds.int4_gemv, ds.int4_gemv_plain, x32,
@@ -529,13 +590,17 @@ def k2_checks(torch, fa, results, card):
             qs, ks, vs, scale=0.125))
         flops = 4 * b * 8 * tq * tk * 64
         bnd = bound(2 * b * 8 * 64 * (2 * tq + 2 * tk), flops, "bf16")
+        dk = device_us(torch, lambda: fa.flash_mha(q, k, v, 0.125))
+        dl = device_us(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, scale=0.125))
         log(f"[k2] flash_mha (B {b}, Tq {tq}, Tk {tk}, 8 x 64, bf16) "
             f"max_abs_err vs f32 {err:.3e} (bound {K2_TOL})  kernel "
-            f"{tkn:.4f} ms ({flops / (tkn * 1e-3) / 1e12:.1f} TFLOP/s)  "
-            f"plain bf16 {tpl:.4f} ms  sdpa {tlib:.4f} ms  bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
+            f"{tkn:.4f} ms ({flops / (tkn * 1e-3) / 1e12:.1f} TFLOP/s), "
+            f"device {fmt_us(dk)} ({flops / (dk * 1e-6) / 1e12:.1f} "
+            f"TFLOP/s)  plain bf16 {tpl:.4f} ms  sdpa {tlib:.4f} ms, device "
+            f"{fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if tq == 1280:
-            main_times = (tkn, tpl, tlib, bnd)
+            main_times = (tkn, tpl, tlib, bnd, dk, dl)
     record(results, "flash_mha", e_max, *main_times)
 
 
@@ -791,16 +856,18 @@ def k3_checks(torch, vq, x, emb, results, card):
         et = ee.t().contiguous()
         tl = time_ms(torch, lambda: torch.cdist(xx, et).argmin(1))
         bnd = bound(4 * (n * d + d * e + e) + 8 * n, 2 * n * d * e, "fp32")
+        dk = device_us(torch, lambda: vq.vq_nearest(xx, ee), n=20)
+        dl = device_us(torch, lambda: torch.cdist(xx, et).argmin(1))
         log(f"[k3] vq_nearest {name} (N {n}, D {d}, E {e}): codes equal on "
             f"{n - n_diff}/{n} rows, {n_diff} within the fp32 tie bound "
             f"(largest f64 gap {gap:.3e})  kernel {tk:.4f} ms "
-            f"({2 * n * d * e / (tk * 1e-3) / 1e12:.1f} TFLOP/s)  plain "
-            f"{tp:.4f} ms  cdist+argmin {tl:.4f} ms  bound {bnd[0]:.4f} ms "
-            f"({bnd[1]})  [{card}]")
+            f"({2 * n * d * e / (tk * 1e-3) / 1e12:.1f} TFLOP/s), device "
+            f"{fmt_us(dk)}  plain {tp:.4f} ms  cdist+argmin {tl:.4f} ms, "
+            f"device {fmt_us(dl)}  bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
         if name == "path":
             # codes: max_abs_err is the largest f64 distance gap between
             # differing picks (0 when every code is equal)
-            record(results, "vq_nearest", gap, tk, tp, tl, bnd)
+            record(results, "vq_nearest", gap, tk, tp, tl, bnd, dk, dl)
     emb_t = torch.zeros(8, 3000, device="cuda")
     emb_t[:, [5, 1500, 2999]] = 1.0
     tie = vq.vq_nearest(torch.ones(70, 8, device="cuda"), emb_t)
@@ -910,11 +977,17 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
     l_g = time_ms(torch, lambda: torch.matmul(xin, w_bf16))
     b_g = bound(kk * nn_ + 2 * rows * kk + 8 * nn_ + 2 * rows * nn_,
                 2 * rows * kk * nn_, "bf16")
-    record(results, "int8_gemm_rows", e_g, t_g, p_g, l_g, b_g)
-    log(f"[k4] int8_gemm_rows fc+gelu (16 x {kk} x {nn_}) max_abs_err "
+    d_g = device_us(torch, lambda: ss.int8_gemm_rows(
+        xin, w, sc, b, gelu=True, out_dtype=torch.bfloat16))
+    dl_g = device_us(torch, lambda: torch.matmul(xin, w_bf16))
+    record(results, "int8_gemm_rows", e_g, t_g, p_g, l_g, b_g, d_g, dl_g)
+    log(f"[k4] int8_gemm_rows fc+gelu (16 x {kk} x {nn_}, split "
+        f"{ss.gemm_rows_plan(kk, nn_)[0]} ways over K) max_abs_err "
         f"{e_g:.3e}  kernel {t_g:.4f} ms ({w.numel() / (t_g * 1e-3) / 1e9:.0f}"
-        f" GB/s weights)  plain {p_g:.4f} ms  matmul(bf16 W) {l_g:.4f} ms  "
-        f"bound {b_g[0]:.5f} ms ({b_g[1]})  [{card}]")
+        f" GB/s weights), device {fmt_us(d_g)} "
+        f"({w.numel() / (d_g * 1e-6) / 1e9:.0f} GB/s)  plain {p_g:.4f} ms  "
+        f"matmul(bf16 W) {l_g:.4f} ms, device {fmt_us(dl_g)}  bound "
+        f"{b_g[0]:.5f} ms ({b_g[1]})  [{card}]")
     x32 = torch.randn(rows, D, generator=g, device="cuda") * 3 + 1
     prologue_checks(torch, ds, st, ss.int8_gemm_rows, ss.int8_gemm_rows_plain,
                     x32, "k4", "int8_gemm_rows+ln", results, card)
@@ -931,11 +1004,13 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
                                                             H))
     b_a = bound(rows * (12 * D + 2 * idx * (D + 4) + 2 * D + 2 * (D + 4)),
                 4 * rows * idx * D, "bf16")
-    record(results, "serving_attention", e_a, t_a, p_a, None, b_a)
+    d_a = device_us(torch, lambda: ss.serving_attention(qkv, *c1, idx, H))
+    record(results, "serving_attention", e_a, t_a, p_a, None, b_a, d_a, None)
     log(f"[k4] serving_attention (16 rows x {H} heads x 64, positions "
-        f"0..{idx - 1} + self) max_abs_err {e_a:.3e}  kernel {t_a:.4f} ms  "
-        f"plain {p_a:.4f} ms  library n/a (no one call takes an int8 "
-        f"cache)  bound {b_a[0]:.5f} ms ({b_a[1]})  [{card}]")
+        f"0..{idx - 1} + self) max_abs_err {e_a:.3e}  kernel {t_a:.4f} ms, "
+        f"device {fmt_us(d_a)}  plain {p_a:.4f} ms  library n/a (no one "
+        f"call takes an int8 cache)  bound {b_a[0]:.5f} ms ({b_a[1]})  "
+        f"[{card}]")
 
     # --- the whole step at 8, 16 and 32 rows ---
     parts = []

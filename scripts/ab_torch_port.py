@@ -20,7 +20,14 @@ decodes 300 codes):
     (time.process_time: the host's own launch cost, which other tenants of
     a shared host move less than the wall clock); the CUDA-event median of
     single K2 calls
-    (`flash_mha` at (2, 1280 | 1562, 8, 64)).
+    (`flash_mha` at (2, 1280 | 1562, 8, 64));
+  - device time a call (us; calls captured in one CUDA graph and replayed
+    between CUDA events, so the host launch is out) and the single-call
+    CUDA-event ms of decode_attention (16 heads, rows 0..300 of 360),
+    int8_gemm_rows fc + gelu, proj += residual and out += residual at 16
+    rows, and int8_gemm_rows head + ln_f +
+    final_norm at 16 rows fused and as layer_norm_rows + product; device
+    time a step of the K1 step and of the K4 step at 16 rows.
 Prints one JSON line. Compare two trees only inside one machine call, in
 turns (A, B, B, A): host launch times differ between calls.
 Imports no JAX; needs a CUDA card.
@@ -36,21 +43,8 @@ import sys
 import time
 from pathlib import Path
 
-
-def time_ms(torch, fn, reps=25, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import device_us, time_ms  # noqa: E402
 
 
 def step_ms(torch, fn, steps=100, rounds=5):
@@ -163,6 +157,42 @@ def main() -> None:
                                device="cuda").bfloat16()
                    for n in (1280, 1562, 1562))
         flash_ms = time_ms(torch, lambda: fa.flash_mha(q, k, v, 0.125))
+
+        kern = {}
+        qkv = torch.randn(3 * D, generator=g, device="cuda")
+        kc1, vc1 = ((torch.randn(360, D, generator=g, device="cuda") * 0.5)
+                    .bfloat16() for _ in range(2))
+        x16b = torch.randn(16, D, generator=g, device="cuda").bfloat16()
+        x32 = torch.randn(16, D, generator=g, device="cuda") * 3 + 1
+        x16o = torch.randn(16, 4 * D, generator=g, device="cuda").bfloat16()
+        res16 = torch.zeros(16, D, device="cuda")
+        head = (st["whead"], st["shead"], st["bhead"])
+        lnf = tuple(st["lnf"])
+        calls = {
+            "decode_attention": lambda: ds.decode_attention(qkv, kc1, vc1,
+                                                            300, H),
+            "int8_gemm_rows_fc16": lambda: ss.int8_gemm_rows(
+                x16b, st["wfc"][0], st["sfc"][0], st["bfc"][0], gelu=True,
+                out_dtype=torch.bfloat16),
+            "int8_gemm_rows_proj16": lambda: ss.int8_gemm_rows(
+                x16b, st["wproj"][0], st["sproj"][0], st["bproj"][0],
+                out=res16),
+            "int8_gemm_rows_out16": lambda: ss.int8_gemm_rows(
+                x16o, st["wout"][0], st["sout"][0], st["bout"][0],
+                out=res16),
+            "int8_gemm_rows_head_lnf16": lambda: ss.int8_gemm_rows(
+                x32, *head, ln=lnf),
+            "head_lnf16_pair": lambda: ss.int8_gemm_rows(
+                ds.layer_norm_rows(x32, *lnf), *head)}
+        for name, fn in calls.items():
+            kern[name] = dict(device_us=device_us(torch, fn),
+                              ms=time_ms(torch, fn))
+        kern["k1_step"] = dict(device_us=device_us(
+            torch, lambda: ds.fused_decode_logits(st, x, kc, vc, 200, L, H),
+            n=20))
+        kern["k4_step16"] = dict(device_us=device_us(
+            torch, lambda: ss.fused_serving_logits(st, x16, kq, vq, ks, vs,
+                                                   200, L, H), n=20))
     print(json.dumps(dict(
         tag=args.tag, card=smi, requests=reqs,
         ar_tokens_per_s_median=statistics.median(
@@ -171,7 +201,7 @@ def main() -> None:
         k4_wave_s=wave_s, k1_step_ms_min=k1[0], k1_step_ms_median=k1[1],
         k1_step_cpu_ms=k1[2], k4_step_ms_min=k4[0], k4_step_ms_median=k4[1],
         k4_step_cpu_ms=k4[2],
-        flash_ms=flash_ms)), flush=True)
+        flash_ms=flash_ms, kernels=kern)), flush=True)
 
 
 if __name__ == "__main__":

@@ -105,7 +105,9 @@ def test_int8_gemv(cuda, k, n, gelu, mode):
 
 
 @pytest.mark.parametrize("heads,s_max,idx", [(16, 360, 0), (16, 360, 299),
-                                             (16, 360, 359), (2, 40, 17)])
+                                             (16, 360, 359), (2, 40, 17),
+                                             (16, 360, 1), (16, 360, 5),
+                                             (16, 16384, 16383)])
 def test_decode_attention(cuda, heads, s_max, idx):
     from xtts_tpu_torch.ops import decode_step as ds
     d = heads * 64
@@ -426,6 +428,165 @@ def test_int8_gemm_rows_norm_prologue(cuda, rows, d, two, mode):
     _assert_prologue(got, ref, want)
 
 
+@pytest.mark.parametrize("rows", [16, 32])
+def test_int8_gemm_rows_head_prologue_is_the_pair(cuda, rows):
+    """The head + ln_f + final_norm shape (1024 -> 9216, split over K in
+    two) equals layer_norm_rows then the unfused product bit for bit."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import serving_step as ss
+    d, n = 1024, 9216
+    q = quantize_dense(torch.randn(d, n, generator=cuda, device="cuda")
+                       / math.sqrt(d))
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    x32 = torch.randn(rows, d, generator=cuda, device="cuda") * 3 + 1
+    ln = _norm(cuda, d, True)
+    got, ref, want = _fused_vs_unfused(
+        lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias, **kw),
+        lambda x, **kw: ss.int8_gemm_rows_plain(x, q["w"], q["scale"], bias,
+                                                **kw),
+        x32, ln, (rows, n), "f32", cuda)
+    _assert_prologue(got, ref, want)
+
+
+def test_int8_gemm_rows_staging_paths(cuda):
+    """The input reaches shared memory two ways: by cp.async (a bf16 input,
+    K % 8 == 0, 16-byte aligned, a chunk of one slab) or by the block's
+    threads a slab at a time: here a misaligned bf16 input, and the norm
+    prologue over K = 1024 (one slab) and 2048 (two). Each against the
+    plain twin (and the pair)."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import serving_step as ss
+    rows, n = 16, 512
+    for k in (1024, 2048):
+        q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
+                           / math.sqrt(k))
+        bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+        buf = torch.randn(rows * k + 4, generator=cuda,
+                          device="cuda").bfloat16()
+        x = buf[4:].view(rows, k)                  # 8 bytes off 16
+        assert x.data_ptr() % 16 == 8
+        got = ss.int8_gemm_rows(x, q["w"], q["scale"], bias)
+        want = ss.int8_gemm_rows_plain(x, q["w"], q["scale"], bias)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+        x32 = torch.randn(rows, k, generator=cuda, device="cuda") * 3 + 1
+        got, ref, want = _fused_vs_unfused(
+            lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias,
+                                              **kw),
+            lambda x, **kw: ss.int8_gemm_rows(x, q["w"], q["scale"], bias,
+                                              **kw),
+            lambda x, **kw: ss.int8_gemm_rows_plain(x, q["w"], q["scale"],
+                                                    bias, **kw),
+            x32, _norm(cuda, k, True), (rows, n), "f32", cuda)
+        _assert_prologue(got, ref, want)
+
+
+def test_split_kernels_repeat_bit_for_bit(cuda):
+    """The cluster merges run in fixed rank order: ten calls on the same
+    inputs give the same bits (decode_attention at S 360 and 16384;
+    int8_gemm_rows split 2, 4 and 8 ways, with and without the prologue)."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    d = 1024
+    for s_max, idx in ((360, 300), (16384, 16383)):
+        qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+        kc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+              * 0.5).bfloat16()
+        vc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+              * 0.5).bfloat16()
+        first = ds.decode_attention(qkv, kc, vc, idx, 16)
+        for _ in range(9):
+            assert torch.equal(ds.decode_attention(qkv, kc, vc, idx, 16),
+                               first)
+    ln = _norm(cuda, d, True)
+    for k, n, rows in ((1024, 4096, 16), (1024, 3072, 32), (4096, 1024, 17)):
+        q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
+                           / math.sqrt(k))
+        bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+        x = torch.randn(rows, k, generator=cuda, device="cuda")
+        calls = [lambda: ss.int8_gemm_rows(x.bfloat16(), q["w"], q["scale"],
+                                           bias, gelu=True,
+                                           out_dtype=torch.bfloat16)]
+        if k == d:
+            calls.append(lambda: ss.int8_gemm_rows(x, q["w"], q["scale"],
+                                                   bias, ln=ln))
+        for call in calls:
+            first = call()
+            for _ in range(9):
+                assert torch.equal(call(), first)
+    torch.cuda.synchronize()
+
+
+def test_decode_attention_takes_every_index_of_the_cache(cuda):
+    """No index-sized buffer: 0 <= index < S is the only limit."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    d, s_max = 128, 20000
+    qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+    kc = torch.zeros(s_max, d, dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    ds.decode_attention(qkv, kc, vc, s_max - 1, 2)
+    torch.cuda.synchronize()
+    for bad in (-1, s_max):
+        with pytest.raises(ValueError):
+            ds.decode_attention(qkv, kc, vc, bad, 2)
+
+
+@pytest.mark.parametrize("s_max,idx", [(360, 0), (360, 5), (360, 60),
+                                       (360, 299), (16384, 16383)])
+def test_decode_attention_is_its_twin_bit_for_bit(cuda, s_max, idx):
+    """Kernel and plain twin (split_attention) run the same explicitly
+    rounded f32 operations in the same order: on the card they give the
+    same bits, and write the same new cache row."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    d = 1024
+    qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+    kc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+          * 0.5).bfloat16()
+    vc = (torch.randn(s_max, d, generator=cuda, device="cuda")
+          * 0.5).bfloat16()
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = ds.decode_attention(qkv, kc, vc, idx, 16)
+    want = ds.decode_attention_plain(qkv, kc2, vc2, idx, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_split_bounds_are_the_kernels(cuda):
+    """The Python copies of the kernels' chunk bounds (attention_bounds,
+    gemm_rows_plan) equal what csrc computes (att_lo, gr_lo)."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    for index in range(1000):
+        assert (ds.kernel_attention_bounds(index)
+                == ds.attention_bounds(index, 1000)), index
+    for k in list(range(16, 4200, 37)) + [100, 1024, 4096]:
+        for n in (32, 512, 1024, 3072, 4096, 9216):
+            splits, bounds = ss.gemm_rows_plan(k, n)
+            assert ss.kernel_gemm_rows_bounds(k, splits) == bounds, (k, n)
+
+
+def test_decode_attention_refuses_a_misaligned_cache(cuda):
+    """The kernel reads cache rows 16 bytes a lane: a view that starts off
+    a 16-byte boundary is refused before launch, not faulted on."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    d, s_max = 128, 40
+    qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+    flat = torch.zeros(s_max * d + 8, dtype=torch.bfloat16, device="cuda")
+    bad = flat[3:3 + s_max * d].view(s_max, d)
+    good = torch.zeros(s_max, d, dtype=torch.bfloat16, device="cuda")
+    assert bad.data_ptr() % 16 == 6
+    launches = ds.decode_attention.launches
+    for kc, vc in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError):
+            ds.decode_attention(qkv, kc, vc, 7, 2)
+    assert ds.decode_attention.launches == launches
+    ds.decode_attention(qkv, good, good.clone(), 7, 2)
+    torch.cuda.synchronize()
+
+
 def test_norm_prologue_refuses_bad_operands(cuda):
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
@@ -543,7 +704,10 @@ def _serving_cache(g, layers, rows, s_max, d, p_len):
     (16, 1024, 4096, True, "bf16"), (16, 4096, 1024, False, "acc"),
     (16, 1024, 9216, False, "f32"), (8, 1024, 3072, False, "f32"),
     (32, 1024, 1024, True, "bf16"), (3, 100, 64, False, "acc"),
-    (1, 128, 32, True, "f32")])
+    (1, 128, 32, True, "f32"), (1, 4096, 1024, False, "acc"),
+    (17, 1024, 3072, False, "f32"), (31, 4096, 32, True, "bf16"),
+    (32, 4096, 1024, False, "acc"), (17, 100, 32, False, "f32"),
+    (1, 100, 96, True, "bf16"), (31, 1024, 9216, False, "f32")])
 def test_int8_gemm_rows(cuda, rows, k, n, gelu, mode):
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import serving_step as ss

@@ -1,0 +1,146 @@
+"""The split plans of the cluster kernels, on the CPU.
+
+decode_attention (ops/decode_step.py) runs each head as a cluster of blocks
+over contiguous chunks of positions 0..index and merges their partial
+softmaxes in rank order; its plain twin follows the same plan. The plain
+twin's split-and-merge must equal one softmax pass over all positions
+within 1e-6 (f32: only the order of summation differs; values O(1)), with
+no NaN from empty chunks. int8_gemm_rows (ops/serving_step.py) splits K
+over the blocks of a cluster; its plan must cover K exactly. The kernels
+themselves run only on the card (tests/test_torch_port_kernels.py); the
+step built on the new twin is held against the Pallas K1 in interpret mode
+by tests/test_torch_port_decode_step.py."""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
+from xtts_tpu_torch.ops import serving_step as tss  # noqa: E402
+
+
+@pytest.mark.parametrize("s_max", [1, 7, 8, 9, 40, 360])
+def test_attention_plan_covers_every_position_once(s_max):
+    for index in range(s_max):
+        bounds = tds.attention_bounds(index, s_max)
+        p = tds.ATT_SPLITS
+        assert len(bounds) == p + 1
+        assert bounds[0] == 0 and bounds[-1] == index + 1
+        assert all(a <= b for a, b in zip(bounds, bounds[1:]))
+        covered = [s for lo, hi in zip(bounds, bounds[1:])
+                   for s in range(lo, hi)]
+        assert covered == list(range(index + 1))
+        # the last chunk holds index: the block that writes the new row
+        assert bounds[-2] <= index < bounds[-1]
+        if index + 1 < p:
+            assert sum(lo == hi for lo, hi in zip(bounds, bounds[1:])) \
+                == p - index - 1
+
+
+def test_attention_plan_refuses_indices_outside_the_cache():
+    for index, s_max in ((-1, 360), (360, 360), (16384, 16384)):
+        with pytest.raises(ValueError):
+            tds.attention_bounds(index, s_max)
+
+
+def _one_pass(q, k, v):
+    s = torch.einsum("hd,shd->hs", q, k) / math.sqrt(q.shape[-1])
+    return torch.einsum("hs,shd->hd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.parametrize("index", [0, 1, 5, 6, 7, 8, 100, 359])
+def test_split_softmax_equals_one_pass(index):
+    rng = np.random.default_rng(index)
+    heads, hd = 4, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((heads, hd), (index + 1, heads, hd),
+                                   (index + 1, heads, hd)))
+    bounds = tds.attention_bounds(index, 360)
+    got = tds.split_attention(q, k, v, bounds)
+    assert not torch.isnan(got).any()
+    assert (got - _one_pass(q, k, v)).abs().max().item() <= 1e-6
+
+
+def test_split_softmax_ignores_far_below_max_and_empty_chunks():
+    """Chunks whose scores sit ~1e3 below the maximum weigh 0, and empty
+    chunks (m = -inf) merge with factor 0, not exp(-inf - -inf) = NaN."""
+    heads, hd, n = 2, 64, 3
+    q = torch.zeros(heads, hd)
+    q[:, 0] = 1.0
+    k = torch.zeros(n, heads, hd)
+    k[:, :, 0] = torch.tensor([-8000.0, 0.0, 8.0])[:, None]
+    v = torch.arange(n * heads * hd, dtype=torch.float32).reshape(n, heads,
+                                                                 hd)
+    bounds = tds.attention_bounds(n - 1, 360)
+    got = tds.split_attention(q, k, v, bounds)
+    assert not torch.isnan(got).any()
+    assert (got - _one_pass(q, k, v)).abs().max().item() <= 1e-6 * v.max()
+
+
+def test_decode_attention_plain_is_the_split_twin():
+    """The plain twin (CPU tensors) writes the new row, then takes the
+    split softmax of the bf16-rounded q over rows 0..index."""
+    rng = np.random.default_rng(3)
+    heads, d, s_max, index = 2, 128, 40, 5
+    qkv = torch.from_numpy(rng.standard_normal(3 * d).astype(np.float32))
+    kc = torch.from_numpy(rng.standard_normal((s_max, d)).astype(
+        np.float32)).bfloat16()
+    vc = torch.from_numpy(rng.standard_normal((s_max, d)).astype(
+        np.float32)).bfloat16()
+    got = tds.decode_attention(qkv, kc, vc, index, heads)
+    assert torch.equal(kc[index], qkv[d:2 * d].bfloat16())
+    assert torch.equal(vc[index], qkv[2 * d:].bfloat16())
+    q = qkv[:d].bfloat16().float().reshape(heads, 64)
+    k = kc[:index + 1].float().reshape(index + 1, heads, 64)
+    v = vc[:index + 1].float().reshape(index + 1, heads, 64)
+    want = _one_pass(q, k, v).reshape(d)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() <= 1e-2
+
+
+def test_decode_attention_takes_index_up_to_the_cache_end():
+    """No index-sized shared buffer any more: the wrapper takes any
+    0 <= index < S (beyond the old 12288 cap) and refuses S itself."""
+    heads, d, s_max = 1, 64, 16384
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal(3 * d).astype(np.float32))
+    kc = torch.zeros(s_max, d, dtype=torch.bfloat16)
+    vc = torch.zeros(s_max, d, dtype=torch.bfloat16)
+    kc[:12400] = torch.from_numpy(rng.standard_normal((12400, d)).astype(
+        np.float32)).bfloat16()
+    vc[:12400] = kc[:12400].roll(1, dims=1)
+    for index in (12288, s_max - 1):
+        out = tds.decode_attention(qkv, kc, vc, index, heads)
+        assert out.shape == (d,) and torch.isfinite(out.float()).all()
+    with pytest.raises(ValueError):
+        tds.decode_attention(qkv, kc, vc, s_max, heads)
+
+
+FLAGSHIP = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc": (1024, 4096),
+            "out": (4096, 1024), "head": (1024, 9216)}
+
+
+@pytest.mark.parametrize("k,n", list(FLAGSHIP.values()) + [
+    (100, 64), (100, 32), (128, 32), (4096, 32), (128, 512), (17, 96)])
+def test_gemm_rows_plan_covers_k_exactly(k, n):
+    splits, bounds = tss.gemm_rows_plan(k, n)
+    assert splits in (1, 2, 4, 8) and len(bounds) == splits + 1
+    assert bounds[0] == 0 and bounds[-1] == k
+    covered = [i for lo, hi in zip(bounds, bounds[1:]) for i in range(lo, hi)]
+    assert covered == list(range(k))
+    # whole 16-deep mma steps except the ragged end; no chunk longer than
+    # the 512 a block stages at once, none empty
+    assert all(b % 16 == 0 for b in bounds[:-1])
+    assert all(0 < hi - lo <= tss.GEMM_MAX_CHUNK
+               for lo, hi in zip(bounds, bounds[1:]))
+
+
+def test_gemm_rows_plan_fills_the_card_at_the_flagship_width():
+    """Every product of the K4 step runs on >= 128 blocks."""
+    got = {name: tss.gemm_rows_plan(k, n)[0] for name, (k, n)
+           in FLAGSHIP.items()}
+    assert got == {"qkv": 4, "proj": 8, "fc": 2, "out": 8, "head": 2}
+    for name, (k, n) in FLAGSHIP.items():
+        assert got[name] * -(-n // tss.GEMM_COLS) >= tss.GEMM_MIN_BLOCKS

@@ -7,8 +7,9 @@
 // block: virtual thread t sums elements t, t + 256, t + 512, ... in turn;
 // each virtual warp of 32 folds its sums by a butterfly; the 8 warp sums
 // fold by a butterfly. block_sum256 takes that order with any block of 32
-// to 256 threads (a divisor of 256), warp_sum256 with one warp, so a
-// product kernel's prologue gives layer_norm_rows' bf16 output bit for bit.
+// to 256 threads (a divisor of 256), warp_sum256 and row_norm_stats with
+// one warp, so a product kernel's prologue gives layer_norm_rows' bf16
+// output bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -141,29 +142,83 @@ __device__ void layer_norm_inplace(float* buf, int d, const Norm& nrm,
 // (mu, rstd) of each of nrm.n norms of the f32 row x[0..d) in global
 // memory, by one warp: st[2p], st[2p + 1]. Norm 2's statistics are over
 // norm 1's f32 output, recomputed from x as layer_norm_inplace stores it.
+// A row of d <= 1024 is loaded into registers once (element 256 j + 32 w +
+// lane in xv[j][w]) and every pass folds those registers in warp_sum256's
+// order, so only the first pass waits for memory; longer rows are read
+// again each pass.
 __device__ void row_norm_stats(const float* __restrict__ x, int d,
                                const Norm& nrm, int lane, float* st) {
-  const float mu1 = warp_sum256([&](int i) { return x[i]; }, d, lane) / d;
-  const float var1 = warp_sum256(
-      [&](int i) {
-        const float c = x[i] - mu1;
-        return c * c;
-      },
-      d, lane) / d;
-  const float rstd1 = rsqrtf(var1 + 1e-5f);
-  float mu2 = 0.f, rstd2 = 0.f;
-  if (nrm.n == 2) {
-    auto y1 = [&](int i) {
-      return ln_apply(x[i], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
+  float mu1, rstd1, mu2 = 0.f, rstd2 = 0.f;
+  if (d <= 1024) {
+    float xv[4][8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const int i = j * 256 + w * 32 + lane;
+        xv[j][w] = i < d ? x[i] : 0.f;
+      }
+    auto fold = [&](auto f) {  // warp_sum256 of f(j, w) over i < d
+      float acc[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) acc[w] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int w = 0; w < 8; ++w)
+          if (j * 256 + w * 32 + lane < d) acc[w] += f(j, w);
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const float s = warp_sum(acc[w]);
+        if (lane == w) t = s;
+      }
+      return warp_sum(t);
     };
-    mu2 = warp_sum256(y1, d, lane) / d;
-    const float var2 = warp_sum256(
+    mu1 = fold([&](int j, int w) { return xv[j][w]; }) / d;
+    const float var1 = fold([&](int j, int w) {
+      const float c = xv[j][w] - mu1;
+      return c * c;
+    }) / d;
+    rstd1 = rsqrtf(var1 + 1e-5f);
+    if (nrm.n == 2) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          const int i = j * 256 + w * 32 + lane;
+          if (i < d)
+            xv[j][w] = ln_apply(xv[j][w], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
+        }
+      mu2 = fold([&](int j, int w) { return xv[j][w]; }) / d;
+      const float var2 = fold([&](int j, int w) {
+        const float c = xv[j][w] - mu2;
+        return c * c;
+      }) / d;
+      rstd2 = rsqrtf(var2 + 1e-5f);
+    }
+  } else {
+    mu1 = warp_sum256([&](int i) { return x[i]; }, d, lane) / d;
+    const float var1 = warp_sum256(
         [&](int i) {
-          const float c = y1(i) - mu2;
+          const float c = x[i] - mu1;
           return c * c;
         },
         d, lane) / d;
-    rstd2 = rsqrtf(var2 + 1e-5f);
+    rstd1 = rsqrtf(var1 + 1e-5f);
+    if (nrm.n == 2) {
+      auto y1 = [&](int i) {
+        return ln_apply(x[i], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
+      };
+      mu2 = warp_sum256(y1, d, lane) / d;
+      const float var2 = warp_sum256(
+          [&](int i) {
+            const float c = y1(i) - mu2;
+            return c * c;
+          },
+          d, lane) / d;
+      rstd2 = rsqrtf(var2 + 1e-5f);
+    }
   }
   if (lane == 0) {
     st[0] = mu1;

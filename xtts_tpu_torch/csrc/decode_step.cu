@@ -21,7 +21,9 @@
 // Every piece of arithmetic of the TPU kernel runs here: f32 LayerNorm
 // statistics (eps 1e-5), bf16 matvec inputs against int8 weights with f32
 // accumulation, per-output-channel scale + bias, gelu_new, an f32 residual,
-// f32 softmax attention over cache rows 0..idx.
+// f32 softmax attention over cache rows 0..idx (decode_attention: a
+// flash-decode whose P blocks a head form one thread-block cluster and
+// merge their partial softmaxes through distributed shared memory).
 //
 // Bound: weight bytes. One token streams ~190 MB of int8 weights at the
 // flagship width (15 x 12 D^2 + 9 D^2 bytes, D = 1024); at 3.35 TB/s that
@@ -38,6 +40,7 @@
 //
 // C interface (ctypes): every entry point returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -256,70 +259,216 @@ int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
 }
 
 // ---------------------------------------------------------------------------
-// decode_attention: one block per head (hd = 64), 128 threads.
-// qkv: f32 [q | k | v] (3D) from the qkv gemv. The new k/v row is rounded
-// to bf16 and written into the cache at idx, then the head attends over
-// rows 0..idx: q rounded to bf16 (as the TPU kernel feeds its MXU), scores
-// and softmax in f32, f32 weighted sum of the bf16 values, bf16 out.
-// A warp covers one cache row per iteration (2 dims a lane, 128-byte reads).
+// decode_attention: flash-decode over a thread-block cluster.
+//
+// One query per head (hd = 64) over cache rows 0..idx. qkv: f32 [q | k | v]
+// (3D) from the qkv gemv. The grid is (P, heads) with cluster (P, 1, 1),
+// P = ATT_SPLITS: the P blocks of a head split the n = idx + 1 positions
+// into contiguous chunks, rank r taking [att_lo(r, n), att_lo(r + 1, n)),
+// so the last rank always holds idx and some chunks are empty when n < P.
+// att_lo is the authority for the bounds; ops/decode_step.py
+// attention_bounds is its Python copy, held against xt_attention_bounds
+// on the card.
+//
+// Arithmetic of decode_attention_plain: q rounded to bf16, K and V bf16,
+// scores f32 dot products times `scale`, softmax and the weighted sum in
+// f32 divided by the denominator at the end, bf16 out. Every f32 operation
+// is an explicitly rounded one (__fmul_rn / __fadd_rn, no fused
+// multiply-add; expf, not __expf), in an order the plain twin
+// (split_attention) repeats step by step with PyTorch's elementwise ops, so
+// on the card kernel and twin give the same bits.
+//
+// Bound: bytes, the 2 x n x 128 bytes of a head's K and V rows (0.37 us
+// for all 16 heads at n = 355 on 3.35 TB/s); the old one-block-a-head
+// kernel walked them on 16 SMs in four dependent passes (47.8 us a call).
+// Here, in each block of 128 threads, 16 groups of 8 lanes take rows
+// g, g + 16, ...; a lane holds 8 dims (one 16-byte load a row of K and of
+// V), and a group issues the K and V loads of 4 rows into registers before
+// it computes their scores (a lane's 8 products summed in order, then a
+// 3-shuffle tree) and folds them into an online softmax (m, l, o[8] a
+// lane). The groups merge through shared memory in group order, then the
+// P blocks through distributed shared memory: after cluster.sync() rank r
+// reads every rank's (m, l, o) in rank order and finalises dims
+// [64 r / P, 64 (r + 1) / P). No atomics, no scratch in device memory, no
+// second launch, nothing of size idx in shared memory; the same inputs
+// give the same bits. An empty partial is m = -inf, l = 0, o = 0, and its
+// merge factor is 0, not exp(-inf - -inf).
+//
+// The new row: the last rank writes bf16(k), bf16(v) at idx and uses those
+// values from registers for its own row idx, since blocks of one launch
+// are not ordered; no other block reads row idx.
 // ---------------------------------------------------------------------------
-__global__ void decode_attention_kernel(const float* __restrict__ qkv,
-                                        __nv_bfloat16* __restrict__ kc,
-                                        __nv_bfloat16* __restrict__ vc,
-                                        __nv_bfloat16* __restrict__ out,
-                                        int idx, int d, float scale) {
-  extern __shared__ float sc[];  // idx + 1 scores
-  __shared__ float red[33];
-  __shared__ float part[4][64];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int c0 = blockIdx.x * 64;
-  if (threadIdx.x < 64) {
-    kc[(size_t)idx * d + c0 + threadIdx.x] =
-        __float2bfloat16(qkv[d + c0 + threadIdx.x]);
-    vc[(size_t)idx * d + c0 + threadIdx.x] =
-        __float2bfloat16(qkv[2 * d + c0 + threadIdx.x]);
-  }
-  __syncthreads();
+constexpr int ATT_THREADS = 128;
+constexpr int ATT_GROUPS = ATT_THREADS / 8;   // 8 lanes a cache row
+constexpr int ATT_BATCH = 4;                  // rows a group loads at once
+constexpr int ATT_SPLITS = 8;                 // a portable cluster
 
-  const float q0 = bf16_round(qkv[c0 + 2 * lane]);
-  const float q1 = bf16_round(qkv[c0 + 2 * lane + 1]);
+// the first position of rank r's chunk of n
+__host__ __device__ __forceinline__ int att_lo(int r, int n) {
+  return (int)((long long)r * n / ATT_SPLITS);
+}
+
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// the merge factor of a partial with maximum m into the maximum M
+__device__ __forceinline__ float merge_factor(float m, float M) {
+  return m == -INFINITY ? 0.f : expf(__fsub_rn(m, M));
+}
+
+// acc + a b, rounded after the product and after the sum
+__device__ __forceinline__ float add_mul(float acc, float a, float b) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+__global__ void __cluster_dims__(ATT_SPLITS, 1, 1)
+__launch_bounds__(ATT_THREADS)
+decode_attention_kernel(const float* __restrict__ qkv,
+                        __nv_bfloat16* __restrict__ kc,
+                        __nv_bfloat16* __restrict__ vc,
+                        __nv_bfloat16* __restrict__ out, int idx, int d,
+                        float scale) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float gm[ATT_GROUPS], gl[ATT_GROUPS];
+  __shared__ __align__(16) float go[ATT_GROUPS][64];
+  __shared__ float bm, bl;          // this block's partial
+  __shared__ float bo[64];
+  constexpr int P = ATT_SPLITS;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, grp = tid >> 3, l8 = tid & 7;
+  const int c0 = blockIdx.y * 64;
   const int n = idx + 1;
-  for (int s = warp; s < n; s += nwarps) {
-    const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        kc + (size_t)s * d + c0 + 2 * lane));
-    const float p = warp_sum(q0 * kf.x + q1 * kf.y);
-    if (lane == 0) sc[s] = p * scale;
-  }
-  __syncthreads();
+  const int lo = att_lo(rank, n), hi = att_lo(rank + 1, n);
+  const bool last = rank == P - 1;  // holds row idx
 
-  float m = -INFINITY;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) m = fmaxf(m, sc[s]);
-  m = block_reduce<true>(m, red);
-  float l = 0.f;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    const float e = __expf(sc[s] - m);
-    sc[s] = e;
-    l += e;
+  float q[8], knew[8], vnew[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    q[i] = bf16_round(qkv[c0 + l8 * 8 + i]);
+    knew[i] = last ? bf16_round(qkv[d + c0 + l8 * 8 + i]) : 0.f;
+    vnew[i] = last ? bf16_round(qkv[2 * d + c0 + l8 * 8 + i]) : 0.f;
   }
-  l = block_reduce<false>(l, red);  // its barriers also publish sc[]
+  if (last && tid < 64) {
+    kc[(size_t)idx * d + c0 + tid] = __float2bfloat16(qkv[d + c0 + tid]);
+    vc[(size_t)idx * d + c0 + tid] = __float2bfloat16(qkv[2 * d + c0 + tid]);
+  }
 
-  float o0 = 0.f, o1 = 0.f;
-  for (int s = warp; s < n; s += nwarps) {
-    const float p = sc[s];
-    const float2 vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        vc + (size_t)s * d + c0 + 2 * lane));
-    o0 = fmaf(p, vf.x, o0);
-    o1 = fmaf(p, vf.y, o1);
+  // ---- this group's rows: online softmax, 4 rows of loads in flight ----
+  float m = -INFINITY, l = 0.f, o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+  // the trip count is the block's, not the group's: the score shuffles
+  // need every lane of the warp
+  for (int base = lo; base < hi; base += ATT_BATCH * ATT_GROUPS) {
+    const int s0 = base + grp;
+    uint4 kr[ATT_BATCH], vr[ATT_BATCH];  // rows past hi stay 0, not NaN
+#pragma unroll
+    for (int j = 0; j < ATT_BATCH; ++j) {
+      const int s = s0 + j * ATT_GROUPS;
+      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (s < hi && s != idx) {
+        const size_t off = (size_t)s * d + c0 + l8 * 8;
+        kr[j] = __ldg(reinterpret_cast<const uint4*>(kc + off));
+        vr[j] = __ldg(reinterpret_cast<const uint4*>(vc + off));
+      }
+    }
+    float sc[ATT_BATCH], vf[ATT_BATCH][8];
+    float mb = m;
+#pragma unroll
+    for (int j = 0; j < ATT_BATCH; ++j) {
+      const int s = s0 + j * ATT_GROUPS;
+      float kf[8];
+      if (s == idx) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          kf[i] = knew[i];
+          vf[j][i] = vnew[i];
+        }
+      } else {
+        bf16x8_to_f32(kr[j], kf);
+        bf16x8_to_f32(vr[j], vf[j]);
+      }
+      float p = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p = add_mul(p, q[i], kf[i]);
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 4));
+      sc[j] = s < hi ? __fmul_rn(p, scale) : -INFINITY;
+      mb = fmaxf(mb, sc[j]);
+    }
+    const float corr = merge_factor(m, mb);
+    l = __fmul_rn(l, corr);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = __fmul_rn(o[i], corr);
+#pragma unroll
+    for (int j = 0; j < ATT_BATCH; ++j) {
+      const float e = merge_factor(sc[j], mb);
+      l = __fadd_rn(l, e);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = add_mul(o[i], e, vf[j][i]);
+    }
+    m = mb;
   }
-  part[warp][2 * lane] = o0;
-  part[warp][2 * lane + 1] = o1;
+
+  // ---- the block's partial: its 16 groups in order ----
+  if (l8 == 0) {
+    gm[grp] = m;
+    gl[grp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) go[grp][l8 * 8 + i] = o[i];
   __syncthreads();
-  if (threadIdx.x < 64) {
-    float o = 0.f;
-    for (int w = 0; w < nwarps; ++w) o += part[w][threadIdx.x];
-    out[c0 + threadIdx.x] = __float2bfloat16(o / l);
+  if (tid < 64) {
+    float M = -INFINITY;
+    for (int g = 0; g < ATT_GROUPS; ++g) M = fmaxf(M, gm[g]);
+    float L = 0.f, O = 0.f;
+    for (int g = 0; g < ATT_GROUPS; ++g) {
+      const float f = merge_factor(gm[g], M);
+      L = add_mul(L, gl[g], f);
+      O = add_mul(O, go[g][tid], f);
+    }
+    bo[tid] = O;
+    if (tid == 0) {
+      bm = M;
+      bl = L;
+    }
   }
+  cluster.sync();  // every rank's partial is written and visible
+
+  // ---- the P partials, in rank order, through distributed shared memory;
+  // rank r finalises dims [64 r / P, 64 (r + 1) / P) ----
+  const int d0 = 64 * rank / P, d1 = 64 * (rank + 1) / P;
+  if (tid < d1 - d0) {
+    const int dim = d0 + tid;
+    float pm[P], pl[P], po[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) {  // all loads in flight
+      pm[r] = *cluster.map_shared_rank(&bm, r);
+      pl[r] = *cluster.map_shared_rank(&bl, r);
+      po[r] = cluster.map_shared_rank(bo, r)[dim];
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < P; ++r) M = fmaxf(M, pm[r]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const float f = merge_factor(pm[r], M);
+      L = add_mul(L, pl[r], f);
+      O = add_mul(O, po[r], f);
+    }
+    out[c0 + dim] = __float2bfloat16(__fdiv_rn(O, L));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 Norm make_norm(const void* s1, const void* b1, const void* s2, const void* b2,
@@ -413,9 +562,15 @@ XT_API int xt_int4_gemv_ln(const void* x32, const void* s1, const void* b1,
 XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
                                int idx, int d, int heads, float scale,
                                void* stream) {
-  decode_attention_kernel<<<heads, 128, (idx + 1) * sizeof(float),
+  decode_attention_kernel<<<dim3(ATT_SPLITS, heads), ATT_THREADS, 0,
                             (cudaStream_t)stream>>>(
       (const float*)qkv, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
       (__nv_bfloat16*)out, idx, d, scale);
   return (int)cudaGetLastError();
+}
+
+// bounds[r] = att_lo(r, idx + 1) for r = 0..ATT_SPLITS: decode_attention's
+// chunks, for holding the Python copy against this one
+XT_API void xt_attention_bounds(int idx, int* bounds) {
+  for (int r = 0; r <= ATT_SPLITS; ++r) bounds[r] = att_lo(r, idx + 1);
 }

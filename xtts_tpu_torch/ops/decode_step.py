@@ -61,8 +61,10 @@ def _lib() -> ctypes.CDLL:
     lib.xt_int8_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [_P]
     lib.xt_int4_gemv.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.xt_int4_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 5 + [_P]
-    lib.xt_decode_attention.argtypes = [_P] * 4 + [_I, _I, _I,
-                                                   ctypes.c_float, _P]
+    lib.xt_decode_attention.argtypes = [_P] * 4 + [_I] * 3 + [
+        ctypes.c_float, _P]
+    lib.xt_attention_bounds.argtypes = [_I, _P]
+    lib.xt_attention_bounds.restype = None
     for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv, lib.xt_int8_gemv_ln,
                lib.xt_int4_gemv, lib.xt_int4_gemv_ln,
                lib.xt_decode_attention):
@@ -322,17 +324,105 @@ int4_gemv.launches = int4_gemv.ln_launches = 0
 # decode_attention
 # ---------------------------------------------------------------------------
 
+ATT_SPLITS = 8      # blocks a head: one portable thread-block cluster
+ATT_GROUPS = 16     # groups of 8 lanes a block, one cache row each
+ATT_BATCH = 4       # rows a group folds in at once
+
+
+def attention_bounds(index: int, s_max: int):
+    """decode_attention's chunks of positions 0..index: rank r of a head's
+    ATT_SPLITS blocks takes [bounds[r], bounds[r + 1]), bounds[r] = r
+    (index + 1) // ATT_SPLITS. The last chunk always holds `index`; when
+    index + 1 < ATT_SPLITS some chunks are empty. csrc/decode_step.cu
+    att_lo is the authority; this is its copy (held against it on the card
+    through kernel_attention_bounds). Raises unless 0 <= index < s_max."""
+    if not 0 <= index < s_max:
+        raise ValueError(f"decode_attention: index {index} outside the "
+                         f"cache ({s_max} rows)")
+    n = index + 1
+    return [r * n // ATT_SPLITS for r in range(ATT_SPLITS + 1)]
+
+
+def kernel_attention_bounds(index: int):
+    """The kernel's own chunk bounds for `index` (needs the built library,
+    so the card)."""
+    out = (ctypes.c_int * (ATT_SPLITS + 1))()
+    _lib().xt_attention_bounds(int(index), out)
+    return list(out)
+
+
+def _merge_factor(m, big_m):
+    """exp(m - M), 0 for an empty partial (m = -inf) rather than NaN."""
+    return torch.where(m == -math.inf, torch.zeros_like(m),
+                       torch.exp(m - big_m))
+
+
+def split_attention(q, k, v, bounds):
+    """Softmax attention of q (H, hd) over k, v (n, H, hd), all f32, with
+    decode_attention's f32 operations in the kernel's order, one rounded
+    elementwise op at a time (so on the card the two give the same bits):
+    chunk r of `bounds` belongs to block r; in it, group g of 16 takes rows
+    lo + g + 16 j + 64 b, batch b = 0, 1, ... holding 4 of them (j); a
+    score sums its 8 lanes' products (8 dims each, in order) in a
+    3-level tree, then is scaled; each group runs an online softmax
+    (m, l, o) over its batches; the 16 groups merge in order, then the
+    blocks in rank order, each partial weighted exp(m - M) (0 when empty:
+    m = -inf, l = 0, o = 0). Returns (H, hd) f32."""
+    heads, hd = q.shape
+    dev = q.device
+    lo = torch.tensor(bounds[:-1], device=dev)
+    hi = torch.tensor(bounds[1:], device=dev)
+    step = ATT_BATCH * ATT_GROUPS
+    batches = max(1, -(-int((hi - lo).max()) // step))
+    off = (torch.arange(batches, device=dev)[:, None, None] * step
+           + torch.arange(ATT_BATCH, device=dev)[None, :, None] * ATT_GROUPS
+           + torch.arange(ATT_GROUPS, device=dev)[None, None, :])
+    pos = lo[:, None, None, None] + off          # (P, batch, j, group)
+    valid = pos < hi[:, None, None, None]
+    rows = torch.where(valid, pos, torch.zeros_like(pos))
+    prod = (q * k[rows]).reshape(*pos.shape, heads, 8, hd // 8)
+    lane = torch.zeros(prod.shape[:-1], device=dev)
+    for i in range(prod.shape[-1]):
+        lane = lane + prod[..., i]
+    lane = lane[..., 0::2] + lane[..., 1::2]     # the shuffle tree
+    lane = lane[..., 0::2] + lane[..., 1::2]
+    s = lane[..., 0] + lane[..., 1]
+    s = torch.where(valid[..., None], s * (1.0 / math.sqrt(hd)),
+                    torch.full_like(s, -math.inf))
+    # o and l side by side: l is o's column of ones
+    vx = torch.cat([v[rows], torch.ones(*pos.shape, heads, 1, device=dev)],
+                   -1)
+    vx = torch.where(valid[..., None, None], vx, torch.zeros_like(vx))
+    m = torch.full((len(lo), ATT_GROUPS, heads), -math.inf, device=dev)
+    acc = torch.zeros(*m.shape, hd + 1, device=dev)
+    for b in range(batches):
+        mb = torch.maximum(m, s[:, b].amax(1))
+        acc = acc * _merge_factor(m, mb)[..., None]
+        for j in range(ATT_BATCH):
+            acc = acc + _merge_factor(s[:, b, j], mb)[..., None] * vx[:, b, j]
+        m = mb
+    block_m = m.amax(1)                           # (P, H)
+    f = _merge_factor(m, block_m[:, None])
+    block = torch.zeros(len(lo), heads, hd + 1, device=dev)
+    for g in range(ATT_GROUPS):
+        block = block + acc[:, g] * f[:, g, :, None]
+    f = _merge_factor(block_m, block_m.amax(0))
+    total = torch.zeros(heads, hd + 1, device=dev)
+    for r in range(len(lo)):
+        total = total + block[r] * f[r, :, None]
+    return total[:, :hd] / total[:, hd:]
+
+
 def decode_attention_plain(qkv, kc, vc, index: int, heads: int):
-    d = kc.shape[1]
+    s_max, d = kc.shape
     hd = d // heads
+    bounds = attention_bounds(index, s_max)
     kc[index] = qkv[d:2 * d].to(kc.dtype)
     vc[index] = qkv[2 * d:].to(vc.dtype)
     q = qkv[:d].to(torch.bfloat16).float().reshape(heads, hd)
     k = kc[:index + 1].float().reshape(index + 1, heads, hd)
     v = vc[:index + 1].float().reshape(index + 1, heads, hd)
-    s = torch.einsum("hd,shd->hs", q, k) / math.sqrt(hd)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("hs,shd->hd", p, v).reshape(d).to(torch.bfloat16)
+    return split_attention(q, k, v, bounds).reshape(d).to(torch.bfloat16)
 
 
 def decode_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -340,24 +430,31 @@ def decode_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     """One query per head over cache rows 0..index.
 
     qkv (3D,) f32 [q | k | v]; kc, vc (S, D) bf16 — one layer of the cache,
-    updated in place: the new k/v row is written at `index` first. Returns
-    the attention output (D,) bf16. head_dim must be 64."""
+    updated in place: the new k/v row is written at `index`. Returns the
+    attention output (D,) bf16. head_dim must be 64; 0 <= index < S; the
+    caches 16-byte aligned (rows are read 16 bytes a lane). The kernel runs
+    each head as a cluster of ATT_SPLITS blocks over the chunks of
+    attention_bounds."""
     if not qkv.is_cuda:
         return decode_attention_plain(qkv, kc, vc, index, heads)
     s_max, d = kc.shape
     if d // heads != 64 or d % heads:
         raise ValueError("decode_attention takes head_dim 64")
-    if not 0 <= index < min(s_max, MAX_SMEM_FLOATS):
+    if not 0 <= index < s_max:
         raise ValueError(f"decode_attention: index {index} outside the "
                          f"cache ({s_max} rows)")
     if (qkv.dtype != torch.float32 or qkv.numel() != 3 * d
-            or kc.dtype != torch.bfloat16 or vc.dtype != torch.bfloat16):
+            or kc.dtype != torch.bfloat16 or vc.dtype != torch.bfloat16
+            or vc.shape != kc.shape):
         raise ValueError("decode_attention: qkv f32 (3D,), caches bf16 (S, D)")
     _check_cuda(qkv, kc, vc)
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("decode_attention reads the caches 16 bytes at a "
+                         "time: they must start 16-byte aligned")
     out = torch.empty((d,), dtype=torch.bfloat16, device=qkv.device)
     check(_lib().xt_decode_attention(ptr(qkv), ptr(kc), ptr(vc), ptr(out),
-                                     int(index), d, heads, 1.0 / math.sqrt(64),
-                                     stream_of(qkv)),
+                                     int(index), d, heads,
+                                     1.0 / math.sqrt(64), stream_of(qkv)),
           "decode_attention")
     decode_attention.launches += 1
     return out

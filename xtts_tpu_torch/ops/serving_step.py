@@ -44,11 +44,13 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("serving_step")
-    lib.xt_int8_gemm_rows.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.xt_int8_gemm_rows.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.xt_int8_gemm_rows_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 4
-                                         + [_I] * 5 + [_P])
+                                         + [_I] * 6 + [_P])
     lib.xt_serving_attention.argtypes = ([_P] * 6 + [_I] * 5
                                          + [ctypes.c_float, _P])
+    lib.xt_gemm_rows_bounds.argtypes = [_I, _I, _P]
+    lib.xt_gemm_rows_bounds.restype = None
     for fn in (lib.xt_int8_gemm_rows, lib.xt_int8_gemm_rows_ln,
                lib.xt_serving_attention):
         fn.restype = _I
@@ -68,13 +70,49 @@ def _check_cuda(*ts) -> None:
 
 int8_gemm_rows_plain = int8_gemv_plain
 
+GEMM_COLS = 64            # output columns a cluster of the kernel
+GEMM_KT = 64              # k rows a weight tile
+GEMM_MAX_CHUNK = 512      # k a block stages at once
+GEMM_MAX_SPLITS = 8       # a portable cluster
+GEMM_MIN_BLOCKS = 128     # of the card's 132 SMs
+
+
+def gemm_rows_plan(k: int, n: int):
+    """int8_gemm_rows' split of K over the blocks of a cluster: (S, bounds),
+    rank r taking k in [bounds[r], bounds[r + 1]), whole 16-deep mma steps
+    except the last. csrc/serving_step.cu gr_lo is the authority for the
+    bounds and this their copy (held against it on the card through
+    kernel_gemm_rows_bounds); S is this function's. S doubles from
+    1 while a half chunk still fills a weight tile and the matrix has fewer
+    than 128 blocks or a chunk longer than 512: qkv 4, proj 8, fc 2, out 8,
+    head 2 at the flagship width; 1 for K = 100."""
+    blocks = -(-n // GEMM_COLS)
+    splits = 1
+    while (splits < GEMM_MAX_SPLITS and -(-k // (2 * splits)) >= GEMM_KT
+           and (blocks * splits < GEMM_MIN_BLOCKS
+                or -(-k // splits) > GEMM_MAX_CHUNK)):
+        splits *= 2
+    steps = -(-k // 16)
+    return splits, tuple(min(k, r * steps // splits * 16)
+                         for r in range(splits + 1))
+
+
+def kernel_gemm_rows_bounds(k: int, splits: int):
+    """The kernel's own chunk bounds of K over `splits` blocks (needs the
+    built library, so the card)."""
+    out = (ctypes.c_int * (splits + 1))()
+    _lib().xt_gemm_rows_bounds(int(k), int(splits), out)
+    return tuple(out)
+
 
 def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, out: Optional[torch.Tensor] = None,
                    gelu: bool = False, out_dtype=torch.float32,
                    ln=None) -> torch.Tensor:
     """y = (x_bf16 @ W_int8) * scale + bias for B <= 32 rows, f32
-    accumulation, each weight byte read once for all rows.
+    accumulation, each weight byte read once for all rows. The kernel
+    splits K over a cluster of blocks (gemm_rows_plan) and sums the
+    partials in rank order.
 
     x (B, K) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies
     gelu_new. With `out` (f32 (B, N)), y is added into it in place (the
@@ -95,6 +133,9 @@ def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     rows = x.shape[0]
     norm = None if ln is None else norm_operands(x, ln, k, out)
     _check_cuda(x, w, scale, bias)
+    if w.data_ptr() % 16:
+        raise ValueError("int8_gemm_rows streams w 16 bytes at a time: it "
+                         "must start 16-byte aligned")
     if out is not None:
         if out.dtype != torch.float32 or tuple(out.shape) != (rows, n):
             raise ValueError("int8_gemm_rows accumulates into f32 (B, N)")
@@ -105,15 +146,17 @@ def int8_gemm_rows(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int8_gemm_rows: out_dtype {out_dtype}")
         mode = 0 if out_dtype == torch.float32 else 1
         dst = torch.empty((rows, n), dtype=out_dtype, device=x.device)
+    splits, _ = gemm_rows_plan(k, n)
     if norm is None:
         check(_lib().xt_int8_gemm_rows(ptr(x), ptr(w), ptr(scale), ptr(bias),
-                                       ptr(dst), rows, k, n, int(gelu), mode,
-                                       stream_of(x)), "int8_gemm_rows")
+                                       ptr(dst), rows, k, n, splits,
+                                       int(gelu), mode, stream_of(x)),
+              "int8_gemm_rows")
     else:
         check(_lib().xt_int8_gemm_rows_ln(ptr(x), *norm, ptr(w), ptr(scale),
                                           ptr(bias), ptr(dst), rows, k, n,
-                                          int(gelu), mode, stream_of(x)),
-              "int8_gemm_rows")
+                                          splits, int(gelu), mode,
+                                          stream_of(x)), "int8_gemm_rows")
         int8_gemm_rows.ln_launches += 1
     int8_gemm_rows.launches += 1
     return dst
