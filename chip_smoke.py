@@ -23,14 +23,21 @@ Phases, each reported on its own lines:
      captured in one CUDA graph and replayed: no host launch in it), and
      the bound (bytes over 3.35 TB/s or operations over the peak for
      their type, whichever is larger):
-     K1 (layer_norm_rows, int8_gemv, decode_attention (a cluster of 8
+     K1 (layer_norm_rows, int8_gemv (equal to its plain twin bit for bit
+     where no gelu is involved), decode_attention (a cluster of 8
      blocks a head), the 15-layer step, a
-     64-step teacher-forced greedy chain at 76 launches a token); K1-int4
-     (int4_gemv at the qkv, fc, out (four K groups) and head shapes, the
-     int4 step and chain); K2 (flash_mha at (2, 1280 | 1562, 8, 64) and
+     64-step teacher-forced greedy chain at 76 launches a token, and the
+     step's device time a step: 100 steps in one CUDA graph); K1-int4
+     (int4_gemv at the qkv, proj, fc, out (four K groups) and head shapes,
+     equal to its twin bit for bit without gelu, the int4 step and chain
+     and its device time a step); the products of K1 and K1-int4 also with
+     their weights rotating through >= 32 copies (>= 100 MB, more than
+     the 50 MB L2), beside matmul on as many dequantised bf16 copies; K2
+     (flash_mha at (2, 1280 | 1562, 8, 64) and
      (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
      logits against its 8192-code codebook, a ragged shape and a planted
-     tie); K4 (int8_gemm_rows (split over K across a cluster),
+     tie, also on 4 rotating copies of rows and codebook); K4
+     (int8_gemm_rows (split over K across a cluster),
      serving_attention, the 16-row step at S 354,
      a 64-step teacher-forced chain, step times at 8/16/32 rows). Each
      product with the norm prologue (int8_gemv, int4_gemv, int8_gemm_rows
@@ -93,7 +100,7 @@ OP_TOL = 1e-2          # single ops: one bf16 rounding of O(1) values
 K2_TOL = 1e-2          # flash vs f32 attention on the same bf16 inputs
 SMALL_WAV_TOL = 1e-3   # small-config render, card vs CPU (the e2e test's)
 HBM_BPS = 3.35e12      # H100 SXM device memory rate
-PEAK = {"fp32": 67e12, "bf16": 989e12}   # dense, no TF32 (data sheet)
+PEAK = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}   # dense (data sheet)
 
 
 def log(msg: str) -> None:
@@ -167,6 +174,35 @@ def device_us(torch, fn, n: int = 100, replays: int = 5) -> float:
         times.append(start.elapsed_time(end) * 1e3 / n)
     del graph
     return statistics.median(times)
+
+
+def rotating(calls):
+    """One callable that runs `calls` in turn, one each call: n calls
+    captured in device_us's graph cycle through them (weights rotating
+    through more than the L2 cache)."""
+    turn = [0]
+
+    def call():
+        fn = calls[turn[0] % len(calls)]
+        turn[0] += 1
+        return fn()
+    return call
+
+
+def rotating_pair(torch, call, w, w_bf16, x2):
+    """Device us a call with the weights rotating through more than the L2
+    cache: `call(wt)` (the kernel on weights wt) over clones of w, and
+    matmul(x2, .) over as many clones of the dequantised bf16 weights; at
+    least 32 copies and 100 MB of w, each copy read once a replay."""
+    copies = max(32, -(-100_000_000 // (w.numel() * w.element_size())))
+    ws = [w.clone() for _ in range(copies)]
+    k = device_us(torch, rotating([lambda t=t: call(t) for t in ws]),
+                  n=copies)
+    del ws
+    wbs = [w_bf16.clone() for _ in range(copies)]
+    lib = device_us(torch, rotating([lambda t=t: torch.matmul(x2, t)
+                                     for t in wbs]), n=copies)
+    return k, lib
 
 
 def fmt_us(us: float) -> str:
@@ -301,13 +337,18 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
             o1, o2 = base.clone(), base.clone()
             ds.int8_gemv(xin, w, s, b, out=o1)
             ds.int8_gemv_plain(xin, w, s, b, out=o2)
-            fk = lambda: ds.int8_gemv(xin, w, s, b, out=o1)
+            fw = lambda wt: ds.int8_gemv(xin, wt, s, b, out=o1)
             fp = lambda: ds.int8_gemv_plain(xin, w, s, b, out=o2)
         else:
             o1 = ds.int8_gemv(xin, w, s, b, **kw)
             o2 = ds.int8_gemv_plain(xin, w, s, b, **kw)
-            fk = lambda: ds.int8_gemv(xin, w, s, b, **kw)
+            fw = lambda wt: ds.int8_gemv(xin, wt, s, b, **kw)
             fp = lambda: ds.int8_gemv_plain(xin, w, s, b, **kw)
+        fk = lambda: fw(w)
+        if not kw.get("gelu"):
+            # the plain twin repeats the kernel's order: the same bits
+            check(torch.equal(o1, o2), f"int8_gemv {name}: kernel != its "
+                  f"twin (max diff {max_err(o1, o2):.3e})")
         err = max_err(o1, o2)
         rel = err / max(1.0, o2.float().abs().max().item())
         check(rel <= OP_TOL, f"int8_gemv {name} err {err}")
@@ -322,14 +363,17 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         gbs = w.numel() / (tk * 1e-3) / 1e9
         dk = device_us(torch, fk)
         dl = device_us(torch, lambda: torch.matmul(x2, w_bf16))
+        dkr, dlr = rotating_pair(torch, fw, w, w_bf16, x2)
         log(f"[k1] int8_gemv {name} ({kk} x {nn_}) max_abs_err {err:.3e}  "
             f"kernel {tk:.4f} ms ({gbs:.0f} GB/s weights), device "
-            f"{fmt_us(dk)}  plain {tp:.4f} ms  matmul(bf16 W) {tl:.4f} ms, "
-            f"device {fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]})  "
-            f"[{card}]")
+            f"{fmt_us(dk)}, rotating {fmt_us(dkr)}  plain {tp:.4f} ms  "
+            f"matmul(bf16 W) {tl:.4f} ms, device {fmt_us(dl)}, rotating "
+            f"{fmt_us(dlr)}  bound {bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if name == "fc+gelu":
             fc_times = (tk, tp, tl, bnd, dk, dl)
-    record(results, "int8_gemv", e_gemv, *fc_times)
+            fc_rot = dict(device_us_rotating=dkr,
+                          library_device_us_rotating=dlr)
+    record(results, "int8_gemv", e_gemv, *fc_times, **fc_rot)
     prologue_checks(torch, ds, st, ds.int8_gemv, ds.int8_gemv_plain, x32[0],
                     "k1", "int8_gemv+ln", results, card)
 
@@ -371,7 +415,9 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         f"{fmt_us(d_att)}  plain {p_att:.4f} ms  sdpa {l_att:.4f} ms, device "
         f"{fmt_us(dl_att)}  bound {b_att[0]:.5f} ms ({b_att[1]})  [{card}]")
 
-    step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, "k1", card)
+    t_step, p_step, b_step, d_step = step_chain(
+        torch, ds, qt, st, cfg, s_max, p_len, cache, g, "k1", card)
+    results["int8_gemv"]["step_device_us"] = d_step
     return qt, st
 
 
@@ -486,6 +532,8 @@ def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
                                           "whead"))
     s_bytes = 4 * sum(st[k].numel() for k in ("sqkv", "sproj", "sfc",
                                               "sout", "shead"))
+    d_step = device_us(torch, lambda: ds.fused_decode_logits(
+        st, x, kc_k, vc_k, p_len + 64, L, H), n=100)
     kind = "packed int4" if st.get("bits") == 4 else "int8"
     b_step = bound(w_bytes + s_bytes + 2 * L * (p_len + 65) * D * 2,
                    2 * 2 * w_bytes if st.get("bits") == 4 else 2 * w_bytes,
@@ -498,9 +546,10 @@ def step_chain(torch, ds, qt, st, cfg, s_max, p_len, cache, g, tag, card):
         f"{l_max:.2f})), k/v rows {e_rows:.3e} (bound {K1_TOL} x max(1, "
         f"|rows| {r_max:.2f})), greedy agreement {agree}/64 teacher-forced "
         f"(+{ties} ties within the step error); kernel chain "
-        f"{t_step:.3f} ms/token at {per_token:.0f} launches a token, plain "
+        f"{t_step:.3f} ms/token at {per_token:.0f} launches a token, device "
+        f"{fmt_us(d_step)} a step (100 steps in one CUDA graph), plain "
         f"{p_step:.3f} ms/token  [{card}]")
-    return t_step, p_step, b_step
+    return t_step, p_step, b_step, d_step
 
 
 def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
@@ -513,6 +562,7 @@ def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
     check(st["bits"] == 4 and tuple(st["sout"].shape) == (L, 4, D),
           "int4 stack layout")
     cases = [("qkv", "wqkv", "sqkv", "bqkv", dict()),
+             ("proj+res", "wproj", "sproj", "bproj", dict(acc=True)),
              ("fc+gelu", "wfc", "sfc", "bfc",
               dict(gelu=True, out_dtype=torch.bfloat16)),
              ("out+res", "wout", "sout", "bout", dict(acc=True)),
@@ -529,13 +579,18 @@ def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
             o1, o2 = base.clone(), base.clone()
             ds.int4_gemv(xin, w, s, b, out=o1)
             ds.int4_gemv_plain(xin, w, s, b, out=o2)
-            fk = lambda: ds.int4_gemv(xin, w, s, b, out=o1)
+            fw = lambda wt: ds.int4_gemv(xin, wt, s, b, out=o1)
             fp = lambda: ds.int4_gemv_plain(xin, w, s, b, out=o2)
         else:
             o1 = ds.int4_gemv(xin, w, s, b, **kw)
             o2 = ds.int4_gemv_plain(xin, w, s, b, **kw)
-            fk = lambda: ds.int4_gemv(xin, w, s, b, **kw)
+            fw = lambda wt: ds.int4_gemv(xin, wt, s, b, **kw)
             fp = lambda: ds.int4_gemv_plain(xin, w, s, b, **kw)
+        fk = lambda: fw(w)
+        if not kw.get("gelu"):
+            # the plain twin repeats the kernel's split-K order
+            check(torch.equal(o1, o2), f"int4_gemv {name}: kernel != its "
+                  f"twin (max diff {max_err(o1, o2):.3e})")
         err = max_err(o1, o2)
         check(err <= OP_TOL * max(1.0, o2.float().abs().max().item()),
               f"int4_gemv {name} err {err}")
@@ -550,22 +605,30 @@ def k1_int4_checks(torch, ds, qt, cfg, s_max, p_len, results, card):
                     + 4 * nn_, 2 * kk * nn_, "bf16")
         dk = device_us(torch, fk)
         dl = device_us(torch, lambda: torch.matmul(x2, w_bf16))
+        dkr, dlr = rotating_pair(torch, fw, w, w_bf16, x2)
+        splits = ds.int4_gemv_plan(kk, nn_, groups)[0]
         log(f"[k1-int4] int4_gemv {name} ({kk} x {nn_}, {groups} group"
-            f"{'s' if groups > 1 else ''}) max_abs_err {err:.3e}  kernel "
-            f"{tk:.4f} ms ({kk * nn_ / 2 / (tk * 1e-3) / 1e9:.0f} GB/s packed "
-            f"weights), device {fmt_us(dk)}  plain {tp:.4f} ms  "
-            f"matmul(bf16 W) {tl:.4f} ms, device {fmt_us(dl)}  bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
+            f"{'s' if groups > 1 else ''}, split {splits} a group) "
+            f"max_abs_err {err:.3e}  kernel {tk:.4f} ms, device "
+            f"{fmt_us(dk)}, rotating {fmt_us(dkr)} "
+            f"({kk * nn_ / 2 / (dkr * 1e-6) / 1e9:.0f} GB/s packed weights)"
+            f"  plain {tp:.4f} ms  matmul(bf16 W) {tl:.4f} ms, device "
+            f"{fmt_us(dl)}, rotating {fmt_us(dlr)}  bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})  [{card}]")
         if name == "fc+gelu":
             fc_times = (tk, tp, tl, bnd, dk, dl)
-    record(results, "int4_gemv", e_max, *fc_times)
+            fc_rot = dict(device_us_rotating=dkr,
+                          library_device_us_rotating=dlr)
+    record(results, "int4_gemv", e_max, *fc_times, **fc_rot)
     x32 = torch.randn(D, generator=g, device="cuda") * 3 + 1
     prologue_checks(torch, ds, st, ds.int4_gemv, ds.int4_gemv_plain, x32,
                     "k1-int4", "int4_gemv+ln", results, card)
 
     ds.reset_launch_counts()
-    step_chain(torch, ds, qt, st, cfg, s_max, p_len,
-               lambda: k1_cache(torch, cfg, s_max, p_len), g, "k1-int4", card)
+    d_step = step_chain(torch, ds, qt, st, cfg, s_max, p_len,
+                        lambda: k1_cache(torch, cfg, s_max, p_len), g,
+                        "k1-int4", card)[3]
+    results["int4_gemv"]["step_device_us"] = d_step
     check(ds.int8_gemv.launches == 0, "the int4 step launched int8_gemv")
     ds.reset_launch_counts()
 
@@ -823,7 +886,8 @@ def k3_checks(torch, vq, x, emb, results, card):
     except where the two picks' distances recomputed in f64 lie within the
     fp32 error bound of one D-term dot product, 4 D 2^-24 (2 sum|x||e| +
     |e|^2) (tests/test_torch_port_kernels.py:_vq_agree): the two sum in
-    another order, so a near tie may break either way. Counted."""
+    another order (the kernel's products in 3xTF32 on the tensor cores), so
+    a near tie may break either way. Counted."""
     def agree(xx, ee, got, want):
         x64, e64 = xx.double(), ee.double()
         bad = (got != want).nonzero().flatten().tolist()
@@ -855,19 +919,32 @@ def k3_checks(torch, vq, x, emb, results, card):
         tp = time_ms(torch, lambda: vq.vq_nearest_plain(xx, ee))
         et = ee.t().contiguous()
         tl = time_ms(torch, lambda: torch.cdist(xx, et).argmin(1))
-        bnd = bound(4 * (n * d + d * e + e) + 8 * n, 2 * n * d * e, "fp32")
+        # the kernel's operations: 3 tf32 products (3xTF32) an f32 one
+        bnd = bound(4 * (n * d + d * e + e) + 8 * n, 3 * 2 * n * d * e,
+                    "tf32")
         dk = device_us(torch, lambda: vq.vq_nearest(xx, ee), n=20)
         dl = device_us(torch, lambda: torch.cdist(xx, et).argmin(1))
+        # rows and codebook rotating through 4 copies (> the 50 MB L2)
+        cps = [(xx.clone(), ee.clone(), et.clone()) for _ in range(4)]
+        dkr = device_us(torch, rotating([lambda c=c: vq.vq_nearest(c[0], c[1])
+                                         for c in cps]), n=20)
+        dlr = device_us(torch, rotating([
+            lambda c=c: torch.cdist(c[0], c[2]).argmin(1) for c in cps]),
+            n=20)
+        del cps
         log(f"[k3] vq_nearest {name} (N {n}, D {d}, E {e}): codes equal on "
             f"{n - n_diff}/{n} rows, {n_diff} within the fp32 tie bound "
             f"(largest f64 gap {gap:.3e})  kernel {tk:.4f} ms "
             f"({2 * n * d * e / (tk * 1e-3) / 1e12:.1f} TFLOP/s), device "
-            f"{fmt_us(dk)}  plain {tp:.4f} ms  cdist+argmin {tl:.4f} ms, "
-            f"device {fmt_us(dl)}  bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
+            f"{fmt_us(dk)} ({2 * n * d * e / (dk * 1e-6) / 1e12:.1f} "
+            f"TFLOP/s), rotating {fmt_us(dkr)}  plain {tp:.4f} ms  "
+            f"cdist+argmin {tl:.4f} ms, device {fmt_us(dl)}, rotating "
+            f"{fmt_us(dlr)}  bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
         if name == "path":
             # codes: max_abs_err is the largest f64 distance gap between
             # differing picks (0 when every code is equal)
-            record(results, "vq_nearest", gap, tk, tp, tl, bnd, dk, dl)
+            record(results, "vq_nearest", gap, tk, tp, tl, bnd, dk, dl,
+                   device_us_rotating=dkr, library_device_us_rotating=dlr)
     emb_t = torch.zeros(8, 3000, device="cuda")
     emb_t[:, [5, 1500, 2999]] = 1.0
     tie = vq.vq_nearest(torch.ones(70, 8, device="cuda"), emb_t)

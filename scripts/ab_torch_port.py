@@ -27,7 +27,10 @@ decodes 300 codes):
     int8_gemm_rows fc + gelu, proj += residual and out += residual at 16
     rows, and int8_gemm_rows head + ln_f +
     final_norm at 16 rows fused and as layer_norm_rows + product; device
-    time a step of the K1 step and of the K4 step at 16 rows.
+    time a call of int4_gemv (K1-int4) at fc + gelu and out += residual and
+    of vq_nearest (K3) at (3008, 512, 8192); device time a step (100 steps
+    in one graph) of the K1 step on the int8 stack and on the int4 stack
+    (stack_qtree_int4 of the same tree) and of the K4 step at 16 rows.
 Prints one JSON line. Compare two trees only inside one machine call, in
 turns (A, B, B, A): host launch times differ between calls.
 Imports no JAX; needs a CUDA card.
@@ -86,6 +89,7 @@ def main() -> None:
     from xtts_tpu_torch.nn import flash_attn as fa
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
+    from xtts_tpu_torch.ops import vq as vq_mod
     from xtts_tpu_torch.ops.build import build_all
     import xtts_tpu_torch
     assert Path(xtts_tpu_torch.__file__).resolve().is_relative_to(tree)
@@ -187,9 +191,30 @@ def main() -> None:
         for name, fn in calls.items():
             kern[name] = dict(device_us=device_us(torch, fn),
                               ms=time_ms(torch, fn))
+        # K1-int4: int4_gemv at fc + gelu and the whole int4 step; K3:
+        # vq_nearest at the DVAE round trip's shape
+        st4 = ds.stack_qtree_int4(tts._qtree, cfg.gpt.number_mel_codes)
+        xfc = torch.randn(D, generator=g, device="cuda").bfloat16()
+        calls4 = {
+            "int4_gemv_fc": lambda: ds.int4_gemv(
+                xfc, st4["wfc"][0], st4["sfc"][0], st4["bfc"][0], gelu=True,
+                out_dtype=torch.bfloat16),
+            "int4_gemv_out": lambda: ds.int4_gemv(
+                x16o[0], st4["wout"][0], st4["sout"][0], st4["bout"][0],
+                out=res16[0])}
+        for name, fn in calls4.items():
+            kern[name] = dict(device_us=device_us(torch, fn),
+                              ms=time_ms(torch, fn))
+        xv = torch.randn(3008, 512, generator=g, device="cuda")
+        emb = torch.randn(512, 8192, generator=g, device="cuda")
+        kern["vq_nearest"] = dict(device_us=device_us(
+            torch, lambda: vq_mod.vq_nearest(xv, emb), n=20))
         kern["k1_step"] = dict(device_us=device_us(
             torch, lambda: ds.fused_decode_logits(st, x, kc, vc, 200, L, H),
-            n=20))
+            n=100))
+        kern["k1_int4_step"] = dict(device_us=device_us(
+            torch, lambda: ds.fused_decode_logits(st4, x, kc, vc, 200, L, H),
+            n=100))
         kern["k4_step16"] = dict(device_us=device_us(
             torch, lambda: ss.fused_serving_logits(st, x16, kq, vq, ks, vs,
                                                    200, L, H), n=20))

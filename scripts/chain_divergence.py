@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """How far K1's kernel chain and its plain chain drift apart, on one card.
 
-    python3 scripts/chain_divergence.py --tree DIR [--seeds 0-35]
+    python3 scripts/chain_divergence.py --tree DIR [--seeds 0-35] [--bits 4]
 
 imports `xtts_tpu_torch` from DIR and, for each seed, runs the 15-layer
 flagship chain of tests/test_torch_port_kernels.py::test_decode_step_chain
 (random int8 weights from the seed, a 54-row prefix, 16 teacher-forced
-steps) twice: through the kernels and through their plain twins, each on
+steps; with --bits 4 on the packed int4 stack of the same weights, as
+test_decode_step_chain_int4) twice, op by op side by side: through the
+kernels and through their plain twins, each on
 its own copy of the cache. Both chains are f32 with bf16 intermediates
 that sum in other orders, so rounding flips compound over the steps. Per
 seed it counts the k-cache elements outside the test's bound (2e-2 + 2e-2
-|x|) and the largest difference. It also holds one decode_attention call
+|x|) and the largest difference, and, for each seed that crosses, the
+first op of the chain (step, layer, op) whose kernel and twin outputs
+differ, and for a product with the norm prologue whether its normalised
+input already differs. It also holds one decode_attention call
 (kernel and plain twin) against an f64 softmax at index 60 and 300: bf16
 outputs that differ from the rounded f64 result. Prints one JSON line.
 Imports no JAX; needs a CUDA card.
@@ -24,10 +29,74 @@ import sys
 from pathlib import Path
 
 
+def lockstep(torch, ds, st, x, kernel_cache, plain_cache, index, layers,
+             heads):
+    """One step of the kernel chain and of the plain chain side by side,
+    op by op as ops/decode_step._step runs them (each chain on its own
+    cache, updated in place). Returns where the two first differ in this
+    step, or None: the layer, the op, the elements that differ and the
+    largest difference, and, for a product with the norm prologue, whether
+    the prologue's bf16 input already differs (layer_norm_rows, which the
+    fused kernel equals bit for bit, against the twin's
+    layer_norm_rows_plain)."""
+    bits4 = st.get("bits") == 4
+    gemv = (ds.int4_gemv, ds.int8_gemv)[not bits4]
+    plain = (ds.int4_gemv_plain, ds.int8_gemv_plain)[not bits4]
+    (kc, vc), (kc2, vc2) = kernel_cache, plain_cache
+    res = [x.float().reshape(-1).clone() for _ in range(2)]
+    found = []
+
+    def compare(layer, op, a, b, ln_input=None):
+        if found or torch.equal(a, b):
+            return
+        diff = (a.float() - b.float()).abs()
+        at = dict(layer=layer, op=op, elements=int((diff > 0).sum()),
+                  max_diff=diff.max().item())
+        if ln_input is not None:
+            h, ln = ln_input
+            at["prologue_input_differs"] = not torch.equal(
+                ds.layer_norm_rows(h[None], *ln)[0],
+                ds.layer_norm_rows_plain(h[None], *ln)[0])
+        found.append(at)
+
+    def both(layer, op, w, s, b, xs, ln=None, **kw):
+        outs = []
+        for fn, xin, r in ((gemv, xs[0], res[0]), (plain, xs[1], res[1])):
+            if kw.get("out") is not None:
+                fn(xin, w, s, b, out=r, ln=ln)
+                outs.append(r)
+            else:
+                outs.append(fn(xin, w, s, b, ln=ln, **kw))
+        compare(layer, op, outs[0], outs[1],
+                None if ln is None else (xs[0], ln))
+        return outs
+
+    for li in range(layers):
+        ln = st["ln"][li]
+        qkv = both(li, "qkv+ln_1", st["wqkv"][li], st["sqkv"][li],
+                   st["bqkv"][li], res, ln=(ln[0], ln[1]))
+        att = [ds.decode_attention(qkv[0], kc[li], vc[li], index, heads),
+               ds.decode_attention_plain(qkv[1], kc2[li], vc2[li], index,
+                                         heads)]
+        compare(li, "attention", att[0], att[1])
+        both(li, "proj", st["wproj"][li], st["sproj"][li], st["bproj"][li],
+             att, out=True)
+        m = both(li, "fc+ln_2", st["wfc"][li], st["sfc"][li], st["bfc"][li],
+                 res, ln=(ln[2], ln[3]), gelu=True,
+                 out_dtype=torch.bfloat16)
+        both(li, "out", st["wout"][li], st["sout"][li], st["bout"][li], m,
+             out=True)
+    both(layers, "head+lnf", st["whead"], st["shead"], st["bhead"], res,
+         ln=tuple(st["lnf"]))
+    return found[0] if found else None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--seeds", default="0-35")
+    ap.add_argument("--bits", type=int, choices=(8, 4), default=8,
+                    help="4: the chain on the packed int4 stack (int4_gemv)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -38,10 +107,10 @@ def main() -> None:
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     assert Path(ds.__file__).resolve().is_relative_to(tree)
-    first, last = (int(v) for v in args.seeds.split("-"))
+    lo_seed, hi_seed = (int(v) for v in args.seeds.split("-"))
     layers, d, heads, vocab, s_max, p_len = 15, 1024, 16, 8194, 96, 54
-    per_seed = {}
-    for seed in range(first, last + 1):
+    per_seed, first_difference = {}, {}
+    for seed in range(lo_seed, hi_seed + 1):
         g = torch.Generator(device="cuda").manual_seed(seed)
 
         def w(i, o):
@@ -66,25 +135,28 @@ def main() -> None:
               "mel_pos_embedding": (torch.randn(s_max, d, generator=g,
                                                 device="cuda")
                                     * 0.1).bfloat16()}
-        st = ds.stack_qtree(qt, vocab)
+        st = (ds.stack_qtree_int4(qt, vocab) if args.bits == 4
+              else ds.stack_qtree(qt, vocab))
         kc = torch.zeros(layers, s_max, d, dtype=torch.bfloat16,
                          device="cuda")
         kc[:, :p_len] = (torch.randn(layers, p_len, d, generator=g,
                                      device="cuda") * 0.5).bfloat16()
         vc = kc.roll(1, dims=0).clone()
         kc2, vc2 = kc.clone(), vc.clone()
+        first = None
         with torch.no_grad():
             for step in range(16):
                 tok = (step * 37) % vocab
                 x = (qt["mel_embedding"][tok][None]
                      + qt["mel_pos_embedding"][step][None])
-                ds.fused_decode_logits(st, x, kc, vc, p_len + step, layers,
-                                       heads)
-                ds.fused_decode_logits_plain(st, x, kc2, vc2, p_len + step,
-                                             layers, heads)
+                at = lockstep(torch, ds, st, x, (kc, vc), (kc2, vc2),
+                              p_len + step, layers, heads)
+                if first is None and at is not None:
+                    first = dict(step=step, **at)
         diff = (kc.float() - kc2.float()).abs()
         over = int((diff > 2e-2 + 2e-2 * kc2.float().abs()).sum())
         per_seed[seed] = [over, diff.max().item()]
+        first_difference[seed] = first
 
     g = torch.Generator(device="cuda").manual_seed(5)
     attention = {}
@@ -110,8 +182,10 @@ def main() -> None:
                 flips[name] += int((out != ref).sum())
         attention[idx] = dict(flips, of=20 * d)
     failing = [s for s, (over, _) in per_seed.items() if over]
-    print(json.dumps(dict(tree=str(tree), seeds=args.seeds,
+    print(json.dumps(dict(tree=str(tree), seeds=args.seeds, bits=args.bits,
                           failing_seeds=failing, per_seed=per_seed,
+                          first_difference={s: first_difference[s]
+                                            for s in failing},
                           attention_bf16_flips_vs_f64=attention)),
           flush=True)
 

@@ -238,3 +238,35 @@ def test_step_with_prologues_equals_unfused_chain(bits, index):
     want = _unfused_step(st, x, kc2, vc2, index)
     assert torch.equal(got, want)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("k,n", [(128, 384), (100, 64), (512, 128),
+                                 (1024, 96)])
+@pytest.mark.parametrize("acc", [False, True])
+def test_int8_gemv_plain_within_one_rounding_a_term(k, n, acc):
+    """int8_gemv_plain sums in int8_gemv's order (32 strided partials, then
+    the partials in order) and rounds the epilogue's product and sum
+    separately: the result equals the float64 (x . W) * scale + bias (+ out)
+    within one f32 rounding a term (bf16 x int8 products are exact in f32;
+    each of at most k adds rounds once relative to the running sum, bounded
+    by sum |x w|) and one for each epilogue operation."""
+    rng = np.random.default_rng(k * n)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).bfloat16()
+    scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    base = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    u = 2.0 ** -24
+    xw = x.double()[:, None] * w.double()
+    want = xw.sum(0) * scale.double() + bias.double()
+    bound = (k * u * xw.abs().sum(0) * scale.double()
+             + 2 * u * (want.abs() + bias.double().abs()))
+    if acc:
+        got = base.clone()
+        tds.int8_gemv_plain(x, w, scale, bias, out=got)
+        want = want + base.double()
+        bound = bound + u * want.abs()
+    else:
+        got = tds.int8_gemv_plain(x, w, scale, bias)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert ((got.double() - want).abs() <= bound).all()

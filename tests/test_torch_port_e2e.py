@@ -124,6 +124,97 @@ def test_greedy_int8_codes_token_exact(pair, inputs, monkeypatch):
     np.testing.assert_array_equal(tr.lengths.numpy(), np.asarray(jr.lengths))
 
 
+def _two_clips():
+    """Two reference clips of unequal length (ports of
+    tests/test_api_e2e.py:124-160)."""
+    rng = np.random.default_rng(13)
+    return [rng.standard_normal(3000).astype(np.float32) * 0.1,
+            rng.standard_normal(4500).astype(np.float32) * 0.1]
+
+
+def test_multi_clip_cond_mels_and_conditioning(pair):
+    """Clips of unequal length stack to (1, 2, mel, T) as the JAX package
+    stacks them, and the 4-D get_conditioning (each clip through the
+    encoder, the outputs averaged) equals JAX's, both within the file's
+    mel tolerance."""
+    jtts, ttts, _ = pair
+    clips = _two_clips()
+    got = ttts.cond_mels_from_wavs(clips)
+    want = np.asarray(jtts.cond_mels_from_wavs(clips))
+    assert tuple(got.shape) == want.shape and want.shape[:2] == (1, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+    assert torch.equal(ttts._cond_mel_from_cond(clips), got)
+    assert ttts._cond_mel_from_cond(clips[:1]).dim() == 3
+    rng = np.random.default_rng(14)
+    stacked = rng.standard_normal((2, 3, MB, 20)).astype(np.float32)
+    want = np.asarray(jtts.gpt.apply(jtts.vars["gpt"], jnp.asarray(stacked),
+                                     method=jtts.gpt.get_conditioning))
+    with torch.no_grad():
+        got = ttts.gpt.get_conditioning(torch.from_numpy(stacked))
+        per = torch.stack([ttts.gpt.get_conditioning(
+            torch.from_numpy(stacked[:, j])) for j in range(3)]).mean(0)
+    assert tuple(got.shape) == want.shape == (2, 1, TINY.gpt.model_dim)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+    np.testing.assert_allclose(got.numpy(), per.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_multi_clip_greedy_codes_token_exact(pair, inputs, monkeypatch):
+    """tts_tokens on the stacked 4-D mel of two unequal clips: greedy int8
+    codes (top_p 1e-4, no repetition penalty) equal the JAX package's on
+    the same mel, JAX through its Pallas K1 in interpret mode."""
+    monkeypatch.setenv("XTTS_FUSED_DECODE", "1")
+    jtts, ttts, _ = pair
+    _, text = inputs
+    cond = np.asarray(jtts.cond_mels_from_wavs(_two_clips()))
+    jr = jtts._generate(jnp.asarray(cond), jnp.asarray(text),
+                        jax.random.PRNGKey(0), japi.TTSSettings(
+                            top_p=1e-4, repetition_penalty=1.0,
+                            max_mel_tokens=24))
+    out = ttts.tts_tokens(text, torch.from_numpy(cond),
+                          torch.Generator().manual_seed(0),
+                          tapi.TTSSettings(top_p=1e-4, repetition_penalty=1.0,
+                                           max_mel_tokens=24,
+                                           diffusion_steps=2))
+    np.testing.assert_array_equal(out["codes"], np.asarray(jr.codes))
+    np.testing.assert_array_equal(out["lengths"], np.asarray(jr.lengths))
+    assert np.isfinite(out["wav"]).all()
+
+
+def test_multi_clip_tts_takes_unequal_clips(pair):
+    """tts() with a list of unequal clips averages the GPT conditioning and
+    renders with the first clip as the diffusion's refer mel (numpy raised
+    "inhomogeneous shape" before); a one-clip list takes the 3-D path."""
+    _, ttts, _ = pair
+    clips = _two_clips()
+    settings = tapi.TTSSettings(max_mel_tokens=6, diffusion_steps=2)
+    wav = ttts.tts("你好。", clips, torch.Generator().manual_seed(9),
+                   settings)
+    assert wav.ndim == 1 and wav.size > 0 and np.isfinite(wav).all()
+    wav1 = ttts.tts("你好。", clips[:1], torch.Generator().manual_seed(9),
+                    settings, use_diffusion=False)
+    assert wav1.size > 0 and np.isfinite(wav1).all()
+
+
+def test_multi_clip_perceiver_refused():
+    """The perceiver conditioning takes one clip: a 4-D mel is refused with
+    ValueError in JAX and in the port (whose UnifiedVoice builds only the
+    plain encoder, so the flag is set after construction). Both refuse
+    before touching a parameter, so JAX needs no initialised model."""
+    import dataclasses
+    from xtts_tpu.models.gpt import UnifiedVoice as JUnifiedVoice
+    from xtts_tpu_torch.models.gpt import UnifiedVoice
+    jcfg = TINY.gpt.replace(use_perceiver=True, perceiver_latents=4)
+    jm = JUnifiedVoice(jcfg)
+    with pytest.raises(ValueError, match="one clip"):
+        jm.apply({"params": {}}, jnp.zeros((1, 2, MB, 16)),
+                 method=jm.get_conditioning)
+    m = UnifiedVoice(TINY_T.gpt)
+    m.cfg = dataclasses.replace(m.cfg, use_perceiver=True)
+    with pytest.raises(ValueError, match="one clip"):
+        m.get_conditioning(torch.zeros(1, 2, MB, 16))
+
+
 def test_render_from_shared_codes_and_xt(pair, inputs):
     """latent -> 4-step DDIM (CFG, ReferenceNet hoisted) -> Vocos from the
     same codes and the same x_T: wav within 1e-3."""

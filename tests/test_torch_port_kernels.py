@@ -104,6 +104,66 @@ def test_int8_gemv(cuda, k, n, gelu, mode):
                                atol=1e-2)
 
 
+K1_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+             (1024, 9216)]
+
+
+def test_gemv_kthreads_is_the_kernels(cuda):
+    """int8_gemv_plain's partial count is csrc's GEMV_KTHREADS."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    assert ds.kernel_gemv_kthreads() == ds.GEMV_KTHREADS
+
+
+@pytest.mark.parametrize("mode", ["f32", "acc"])
+@pytest.mark.parametrize("k,n", K1_SHAPES)
+def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
+    """The plain twin sums in the kernel's order (32 strided partials, then
+    the partials in order) and rounds the epilogue's product and sum
+    separately, as the kernel does: without gelu the two give the same
+    bits at every K1 shape."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import decode_step as ds
+    q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
+                       / math.sqrt(k))
+    x = torch.randn(k, generator=cuda, device="cuda").bfloat16()
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    if mode == "acc":
+        base = torch.randn(n, generator=cuda, device="cuda")
+        got, want = base.clone(), base.clone()
+        ds.int8_gemv(x, q["w"], q["scale"], bias, out=got)
+        ds.int8_gemv_plain(x, q["w"], q["scale"], bias, out=want)
+    else:
+        got = ds.int8_gemv(x, q["w"], q["scale"], bias)
+        want = ds.int8_gemv_plain(x, q["w"], q["scale"], bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["f32", "acc", "bf16"])
+@pytest.mark.parametrize("k,n,groups", [(1024, 3072, 1), (1024, 1024, 1),
+                                        (1024, 4096, 1), (4096, 1024, 4),
+                                        (1024, 9216, 1), (384, 160, 3),
+                                        (100, 64, 1), (4096, 32, 1)])
+def test_int4_gemv_is_its_twin_bit_for_bit(cuda, k, n, groups, mode):
+    """int4_gemv_plain repeats the kernel's split-K sums (lanes, chunks,
+    groups, each in order) and its explicitly rounded epilogue: without
+    gelu the two give the same bits, at every K1-int4 shape, at a ragged
+    chunk (K 100), three groups, and K split in 16 chunks (N 32)."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    x, w, scale, bias = _int4_operands(cuda, k, n, groups)
+    if mode == "acc":
+        base = torch.randn(n, generator=cuda, device="cuda")
+        got, want = base.clone(), base.clone()
+        ds.int4_gemv(x, w, scale, bias, out=got)
+        ds.int4_gemv_plain(x, w, scale, bias, out=want)
+    else:
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        got = ds.int4_gemv(x, w, scale, bias, out_dtype=dt)
+        want = ds.int4_gemv_plain(x, w, scale, bias, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("heads,s_max,idx", [(16, 360, 0), (16, 360, 299),
                                              (16, 360, 359), (2, 40, 17),
                                              (16, 360, 1), (16, 360, 5),
@@ -180,9 +240,9 @@ def _int4_operands(g, k, n, groups):
     (256, 96, 2, False, "bf16"), (128, 32, 1, True, "acc"),
     (384, 160, 3, False, "f32")])
 def test_int4_gemv(cuda, k, n, groups, gelu, mode):
-    """Every mode and group count; n % 64 == 32 (96, 160, 32) leaves the
-    last block's second half idle. Bound: one bf16 rounding of the result
-    relative to max(1, |y|), as the other single ops."""
+    """Every mode and group count; narrow products (N 96, 160, 32) split K
+    over several blocks. Bound: one bf16 rounding of the result relative to
+    max(1, |y|), as the other single ops."""
     from xtts_tpu_torch.ops import decode_step as ds
     x, w, scale, bias = _int4_operands(cuda, k, n, groups)
     ds.int4_gemv.launches = 0
@@ -483,9 +543,11 @@ def test_int8_gemm_rows_staging_paths(cuda):
 
 
 def test_split_kernels_repeat_bit_for_bit(cuda):
-    """The cluster merges run in fixed rank order: ten calls on the same
-    inputs give the same bits (decode_attention at S 360 and 16384;
-    int8_gemm_rows split 2, 4 and 8 ways, with and without the prologue)."""
+    """The split kernels merge in fixed order: ten calls on the same inputs
+    give the same bits (decode_attention at S 360 and 16384;
+    int8_gemm_rows split 2, 4 and 8 ways, with and without the prologue;
+    int4_gemv at fc, out (four groups), head and K split 16 ways, with and
+    without the prologue; vq_nearest at the DVAE's shape)."""
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
@@ -516,6 +578,27 @@ def test_split_kernels_repeat_bit_for_bit(cuda):
             first = call()
             for _ in range(9):
                 assert torch.equal(call(), first)
+    # int4_gemv (split over K, partials merged by the last block of a
+    # tile in split order) with and without the prologue, and vq_nearest
+    from xtts_tpu_torch.ops import vq
+    for k, n, groups in ((1024, 4096, 1), (4096, 1024, 4), (1024, 9216, 1),
+                         (4096, 32, 1)):
+        x, w, scale, bias = _int4_operands(cuda, k, n, groups)
+        calls = [lambda: ds.int4_gemv(x, w, scale, bias)]
+        if k == d and groups == 1:
+            x32 = torch.randn(k, generator=cuda, device="cuda")
+            calls.append(lambda: ds.int4_gemv(x32, w, scale, bias, ln=ln,
+                                              gelu=True,
+                                              out_dtype=torch.bfloat16))
+        for call in calls:
+            first = call()
+            for _ in range(9):
+                assert torch.equal(call(), first)
+    xv = torch.randn(3008, 512, generator=cuda, device="cuda")
+    emb = torch.randn(512, 8192, generator=cuda, device="cuda")
+    first = vq.vq_nearest(xv, emb)
+    for _ in range(9):
+        assert torch.equal(vq.vq_nearest(xv, emb), first)
     torch.cuda.synchronize()
 
 
@@ -556,7 +639,9 @@ def test_decode_attention_is_its_twin_bit_for_bit(cuda, s_max, idx):
 
 def test_split_bounds_are_the_kernels(cuda):
     """The Python copies of the kernels' chunk bounds (attention_bounds,
-    gemm_rows_plan) equal what csrc computes (att_lo, gr_lo)."""
+    gemm_rows_plan, int4_gemv_plan) equal what csrc computes (att_lo,
+    gr_lo, i4_splits / i4_lo), int4_gemv's at every K1-int4 shape and over
+    a sweep of K, N and group counts."""
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
     for index in range(1000):
@@ -566,6 +651,13 @@ def test_split_bounds_are_the_kernels(cuda):
         for n in (32, 512, 1024, 3072, 4096, 9216):
             splits, bounds = ss.gemm_rows_plan(k, n)
             assert ss.kernel_gemm_rows_bounds(k, splits) == bounds, (k, n)
+    cases = [(1024, 3072, 1), (1024, 1024, 1), (1024, 4096, 1),
+             (4096, 1024, 4), (1024, 9216, 1)]
+    cases += [(k * g, n, g) for k in list(range(16, 3000, 53)) + [100, 8192]
+              for n in (32, 96, 512, 1024, 4096, 9216) for g in (1, 3, 4)]
+    for k, n, g in cases:
+        assert ds.kernel_int4_gemv_plan(k, n, g) == ds.int4_gemv_plan(
+            k, n, g), (k, n, g)
 
 
 def test_decode_attention_refuses_a_misaligned_cache(cuda):
@@ -644,7 +736,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # K3: VQ nearest code. Codes must equal the plain twin's, except where the
 # two picks' distances, recomputed in f64, lie within the fp32 error bound
 # of one D-term dot product (4 D 2^-24 (2 sum|x||e| + |e|^2)): the two sum
-# in another order, so an exact-looking tie may break either way.
+# in another order (the kernel's products in 3xTF32 on the tensor cores),
+# so an exact-looking tie may break either way.
 # ---------------------------------------------------------------------------
 
 def _vq_agree(x, e, got, want):
@@ -661,7 +754,8 @@ def _vq_agree(x, e, got, want):
 
 
 @pytest.mark.parametrize("n,d,e", [(3008, 512, 8192), (1001, 512, 8000),
-                                   (37, 16, 50), (64, 24, 1025)])
+                                   (37, 16, 50), (64, 24, 1025),
+                                   (130, 512, 2048), (300, 30, 700)])
 def test_vq_nearest(cuda, n, d, e):
     from xtts_tpu_torch.ops import vq
     x = torch.randn(n, d, generator=cuda, device="cuda")

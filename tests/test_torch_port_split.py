@@ -144,3 +144,48 @@ def test_gemm_rows_plan_fills_the_card_at_the_flagship_width():
     assert got == {"qkv": 4, "proj": 8, "fc": 2, "out": 8, "head": 2}
     for name, (k, n) in FLAGSHIP.items():
         assert got[name] * -(-n // tss.GEMM_COLS) >= tss.GEMM_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("k,n,groups", [(1024, 3072, 1), (1024, 1024, 1),
+                                        (1024, 4096, 1), (4096, 1024, 4),
+                                        (1024, 9216, 1), (128, 384, 1),
+                                        (384, 160, 3), (100, 64, 1),
+                                        (4096, 32, 1), (1000, 32, 1),
+                                        (12288, 32, 1)])
+def test_int4_plan_covers_each_group_exactly(k, n, groups):
+    """int4_gemv_plan splits each scale group into chunks of whole 16-row
+    steps (the ragged end excepted) of at most 2048 rows that cover the
+    group exactly; the products of the K1-int4 step run unsplit, one block
+    for each 32 columns (the out matrix: one for each of its 4 groups)."""
+    s, bounds = tds.int4_gemv_plan(k, n, groups)
+    kg = k // groups
+    assert len(bounds) == s + 1 and bounds[0] == 0 and bounds[-1] == kg
+    covered = [i for lo, hi in zip(bounds, bounds[1:]) for i in range(lo, hi)]
+    assert covered == list(range(kg))
+    assert all(b % 16 == 0 for b in bounds[:-1])
+    assert all(hi - lo <= tds.I4_MAX_CHUNK
+               for lo, hi in zip(bounds, bounds[1:]))
+    blocks = -(-n // tds.I4_COLS) * groups * s
+    if (k, n) in FLAGSHIP.values():
+        assert s == 1 and blocks >= tds.I4_MIN_BLOCKS
+    elif -(-n // tds.I4_COLS) * groups < tds.I4_MIN_BLOCKS and kg >= 128:
+        assert s > 1           # narrow products split K for more blocks
+
+
+@pytest.mark.parametrize("k,n,groups", [(128, 384, 1), (512, 128, 4),
+                                        (100, 64, 1), (1000, 32, 1),
+                                        (384, 160, 3)])
+def test_ordered_int4_sums_within_one_rounding_a_term(k, n, groups):
+    """The int4 twin's sums in the kernel's order: each group's sum equals
+    the float64 one within one f32 rounding a term (every product of a bf16
+    value and a nibble is exact in f32; each of at most k adds rounds once
+    relative to the running sum, bounded by sum |x w|)."""
+    rng = np.random.default_rng(k + n)
+    w4 = torch.from_numpy(rng.integers(-7, 8, (k, n)).astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).bfloat16()
+    got = tds.ordered_int4_sums(x, tds.pack_int4(w4), groups).double()
+    xw = (x.double()[:, None] * w4.double()).reshape(groups, k // groups, n)
+    want = xw.sum(1)
+    bound = (k // groups) * 2.0 ** -24 * xw.abs().sum(1)
+    assert got.shape == (groups, n)
+    assert ((got - want).abs() <= bound).all()

@@ -1,6 +1,6 @@
-// Device helpers shared by the decode-step (K1) and serving-step (K4)
-// kernels: warp and block reductions, gelu_new, and the LayerNorm that
-// layer_norm_rows runs standalone and the product kernels run as their
+// Device helpers shared by the port's kernels: cp.async copies, warp and
+// block reductions, gelu_new, and the LayerNorm that layer_norm_rows (K1)
+// runs standalone and the product kernels of K1 and K4 run as their
 // prologue.
 //
 // The norm's statistics always fold in ONE order, that of a 256-thread
@@ -15,6 +15,39 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies global -> shared (cp.async), zero-filled when !valid
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, cached in L2 only
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (for rows that are not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

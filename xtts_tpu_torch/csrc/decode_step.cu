@@ -96,6 +96,10 @@ __device__ __forceinline__ void stage_input(const void* __restrict__ x,
 // shared memory. One block per 32 columns, full K per block, so the
 // epilogue (gelu_new, bf16 store, or += into the f32 residual) runs in
 // place. mode: 0 = store f32, 1 = store bf16, 2 = accumulate into f32.
+// The order of the sums: partial r (r < GEMV_KTHREADS) adds x[k] w[k, n]
+// for k = r, r + 32, ... in turn (bf16 x int8 products are exact in f32,
+// so each fmaf is one rounded add); the partials add in r order. The
+// plain twin (ops/decode_step.py int8_gemv_plain) repeats both.
 // LN: x is the f32 residual and the block normalises it first (above).
 // ---------------------------------------------------------------------------
 constexpr int GEMV_COLS = 32;
@@ -136,7 +140,9 @@ int8_gemv_kernel(const void* __restrict__ x, Norm nrm,
 #pragma unroll 8
     for (int r = 0; r < GEMV_KTHREADS; ++r) s += red[r][tid];
     const int n = blockIdx.x * GEMV_COLS + tid;
-    float y = s * scale[n] + bias[n];
+    // product and sum rounded separately, never contracted into an FMA:
+    // int8_gemv_plain repeats this epilogue to the bit
+    float y = __fadd_rn(__fmul_rn(s, scale[n]), bias[n]);
     if (gelu) y = gelu_new(y);
     if (mode == 0) {
       reinterpret_cast<float*>(out)[n] = y;
@@ -164,96 +170,343 @@ int8_gemv_kernel(const void* __restrict__ x, Norm nrm,
 // LN: the norm prologue, as int8_gemv's.
 //
 // Bound: the packed weights, half of int8_gemv's bytes (~99 MB a token at
-// the flagship width, ~30 us at 3.35 TB/s). Block (2, 64): threadIdx.x
-// picks 32 adjacent columns read as one 16-byte load of 16 bytes, so two
-// threads cover a block's 64 columns with one 32-byte sector a row;
-// threadIdx.y strides K. The input vector sits in shared memory as f32.
-// A group's 32 partial sums a thread reduce over the warp by shuffles and
-// over the block's 4 warps through shared memory; the epilogue thread of
-// each column keeps the running sum over groups.
+// the flagship width, ~30 us at 3.35 TB/s; 2 MB for fc, 0.6 us). At these
+// sizes a call is a chain of latencies (a launch, a round trip for the
+// weights, the products, the reduction, the stores), and the design cuts
+// the chain:
+//  - Every SM streams: a block owns I4_COLS = 32 output columns (16 bytes
+//    of a weight row) and one chunk of the K rows of one scale group, so a
+//    group's bf16 rounding still applies to the group's whole sum. The
+//    grid is (G x s, N / 32): qkv 96 blocks, proj 32, fc 128, out 4 x 32,
+//    head 288. i4_splits picks s, the chunks of a group: 1 wherever N / 32
+//    x G gives >= 32 blocks (every K1 product), more for narrow products,
+//    and no chunk over 2048 rows. i4_lo gives the chunk bounds (multiples
+//    of 16 rows); ops/decode_step.py int4_gemv_plan is their Python copy,
+//    held against xt_int4_gemv_bounds on the card.
+//  - Nothing waits before everything is in flight: the input's loads and
+//    the epilogue's operands (bias, scales, the residual) first, then the
+//    whole chunk (<= 32 KB) as 16-byte cp.async copies in I4_STAGES
+//    commit groups; the products start on the first group while the later
+//    ones land. (Issued after the weights, the input's loads queued behind
+//    them: 1.0 us more at fc. Split over K across 128-192 blocks of 128
+//    columns, every product's partials merged by the last block to
+//    arrive, the chain held more round trips: 5.0-5.2 us for proj and fc
+//    against 4.4-4.5 without the merge's fence and counter. H100,
+//    PERF.md.)
+//  - Nibbles widen without I2F: one lop3 a word gives the four low
+//    nibbles as bytes v + 8 (the high ones take one shift more), and a
+//    byte_perm into the mantissa of 2^23 then one subtraction gives each v
+//    exactly as f32.
+//  - f32 FMA: thread (lane l < 64, word j < 4) holds 8 accumulators, the
+//    columns of its 4-byte word, and adds rows lo + l, lo + l + 64, ... in
+//    turn. bf16 x int4 products are exact in f32, so each fmaf is one
+//    rounded add.
+//  - A fixed order throughout, so the same inputs give the same bits and the
+//    plain twin (int4_gemv_plain) repeats the sums to the bit: lanes 8h ..
+//    8h + 7 of a column add in order, then the 8 sums h in order. Where a
+//    product has several chunks (the four groups of out), each block leaves
+//    its sums in global scratch and the last block of a column tile to
+//    arrive (one atomic counter a tile, which it resets to 0) adds the
+//    tile's chunks in split order and runs the epilogue for each group in
+//    group order. Every f32 operation there is an explicitly rounded one.
+//  - The norm prologue takes the row's statistics once a block, in
+//    layer_norm_rows' summation order: where the chunk is the whole row,
+//    from the registers of threads t < 256, which hold elements t, t +
+//    256, ... (warp and block butterflies); a split chunk takes them by one
+//    warp (common.cuh row_norm_stats). It normalises only its chunk.
 // ---------------------------------------------------------------------------
-constexpr int I4_COLS = 64;
-constexpr int I4_KTHREADS = 64;
+constexpr int I4_COLS = 32;         // output columns a block: 16 bytes a row
+constexpr int I4_THREADS = 256;
+constexpr int I4_WORDS = I4_COLS / 8;            // 4-byte words a row
+constexpr int I4_LANES = I4_THREADS / I4_WORDS;  // rows lo + l, + LANES, ...
+constexpr int I4_FOLD = 8;          // lanes summed a first-level sum
+constexpr int I4_ROWB = I4_COLS / 2;             // bytes a row
+constexpr int I4_STAGES = 4;        // cp.async groups a chunk is issued in
+constexpr int I4_MIN_BLOCKS = 32;   // split K only below this many blocks
+constexpr int I4_MIN_CHUNK = 64;    // rows: no finer split for more blocks
+constexpr int I4_MAX_CHUNK = 2048;  // rows: 32 KB of packed weights a block
+constexpr int I4_PRE = I4_MAX_CHUNK / 256;  // residual rows a thread
+static_assert(I4_ROWB % 16 == 0, "whole 16-byte copies a row");
+static_assert(I4_LANES % I4_FOLD == 0, "whole first-level sums");
+static_assert(I4_THREADS % 256 == 0, "the norm statistics take 256 threads");
 
-// the signed nibbles of byte i of a 32-bit word: low = (b << 28) >> 28,
-// high = ((int)(int8_t)b) >> 4, as the TPU kernel widens them (:159-161)
-__device__ __forceinline__ int nib_lo(uint32_t w, int i) {
-  return ((int)(w << (28 - 8 * i))) >> 28;
+// chunks of each scale group (kg rows of K = G kg) for N columns
+__host__ __device__ __forceinline__ int i4_splits(int K, int N, int groups) {
+  const int kg = K / groups, t = (kg + 15) / 16;
+  const int tiles = (N + I4_COLS - 1) / I4_COLS;
+  int s = 1;
+  while (s < 16 && tiles * groups * s < I4_MIN_BLOCKS &&
+         kg / (2 * s) >= I4_MIN_CHUNK)
+    s *= 2;
+  while (16 * ((t + s - 1) / s) > I4_MAX_CHUNK) s *= 2;
+  return s;
 }
-__device__ __forceinline__ int nib_hi(uint32_t w, int i) {
-  return ((int)(w << (24 - 8 * i))) >> 28;
+
+// the first row of chunk r of s in a group of kg rows, relative to the
+// group: 16 floor(r T / s), T = ceil(kg / 16), clipped to kg
+__host__ __device__ __forceinline__ int i4_lo(int r, int s, int kg) {
+  const int k = r * ((kg + 15) / 16) / s * 16;
+  return k < kg ? k : kg;
 }
+
+// byte i of u (a nibble + 8) as f32 minus 8, exactly: 2^23 + b - (2^23 + 8)
+__device__ __forceinline__ float nib_f32(uint32_t u, int i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+         8388616.f;
+}
+
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {  // groups still in flight allowed
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+static_assert(I4_STAGES == 4, "cp_async_wait_upto covers 4 groups");
 
 template <bool LN>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(I4_THREADS)
 int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
                  const uint8_t* __restrict__ w,
                  const float* __restrict__ scale,
-                 const float* __restrict__ bias, void* __restrict__ out, int K,
-                 int N, int groups, int gelu, int mode) {
-  extern __shared__ float xs[];  // K floats
-  __shared__ float red[4][I4_COLS];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  stage_input<LN>(x, nrm, xs, &red[0][0], K, tid, 128);
-
-  const int c0 = blockIdx.x * I4_COLS + threadIdx.x * 32;
-  const bool live = c0 < N;  // N % 64 == 32 leaves the last half-block idle
-  const uint4* wp = reinterpret_cast<const uint4*>(w + c0 / 2);
-  const size_t row = (size_t)N / 32;  // row stride in uint4 (N/2 bytes)
+                 const float* __restrict__ bias, void* __restrict__ out,
+                 float* __restrict__ part, unsigned* __restrict__ count,
+                 int K, int N, int groups, int splits, int gelu, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int kg = K / groups;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n = blockIdx.x * I4_COLS + tid;  // the epilogue's column
-  float total = 0.f;
-  for (int g = 0; g < groups; ++g) {
-    float a[32];
+  const int cmax = 16 * (((kg + 15) / 16 + splits - 1) / splits);
+  // [row][4 words] weights; red [64 lanes][32] after the products
+  const int wbytes = max(cmax * I4_ROWB, I4_LANES * I4_COLS * 4);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem);
+  float* red = reinterpret_cast<float*>(smem);
+  float* xs = reinterpret_cast<float*>(smem + wbytes);  // the chunk of x
+  __shared__ float fold[I4_LANES / I4_FOLD][I4_COLS];
+  __shared__ float st[4], st_red[8];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x, ns = gridDim.x, q = blockIdx.x;
+  const int tile = blockIdx.y, n0 = tile * I4_COLS;
+  const int g = q / splits, r = q - g * splits;
+  const int lo = g * kg + i4_lo(r, splits, kg);
+  const int rows = g * kg + i4_lo(r + 1, splits, kg) - lo;
+  const size_t rowb = (size_t)N / 2;
+  // rows a commit group, a multiple of the lane count
+  const int rs = (rows + I4_STAGES * I4_LANES - 1) / (I4_STAGES * I4_LANES) *
+                 I4_LANES;
+
+  // the chunk's weights, all in flight: 16-byte copies in I4_STAGES
+  // commit groups, issued once the input's loads are (so that those do not
+  // queue behind 16-32 KB of weights)
+  auto issue_weights = [&]() {
+    constexpr int CPR = I4_ROWB / 16;  // copies a row
+    for (int s = 0; s < I4_STAGES; ++s) {
+      const int r0 = s * rs, r1 = min(rows, r0 + rs);
+      for (int c = r0 * CPR + tid; c < r1 * CPR; c += I4_THREADS) {
+        const int row = c / CPR, part16 = c % CPR;
+        const bool ok = n0 + 32 * part16 < N;  // N % 32 == 0
+        cp_async16(smem_u32(smem + row * I4_ROWB + part16 * 16),
+                   ok ? w + (size_t)(lo + row) * rowb + n0 / 2 + part16 * 16
+                      : w,
+                   ok);
+      }
+      cp_async_commit();
+    }
+  };
+
+  // ---- the epilogue's operands, loaded now ----
+  const int n = n0 + (tid & (I4_COLS - 1));
+  float pb = 0.f, ps[4] = {0.f, 0.f, 0.f, 0.f}, po = 0.f;
+  if (tid < I4_COLS && n < N) {
+    pb = bias[n];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) a[j] = 0.f;
-    if (live) {
-#pragma unroll 2
-      for (int k = g * kg + threadIdx.y; k < (g + 1) * kg; k += I4_KTHREADS) {
-        const uint4 q = __ldg(wp + (size_t)k * row);
-        const float xv = xs[k];
-        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+    for (int gg = 0; gg < 4; ++gg)
+      if (gg < groups) ps[gg] = scale[(size_t)gg * N + n];
+    if (mode == 2) po = reinterpret_cast<const float*>(out)[n];
+  }
+
+  // ---- the chunk of the input, as f32: every load issued before any is
+  // used. The norm prologue: threads t < 256 hold residual elements t, t +
+  // 256, ... (layer_norm_rows' per-thread order) and their norm
+  // parameters ----
+  if constexpr (LN) {
+    const float* x32 = reinterpret_cast<const float*>(x);
+    float xv[I4_PRE], s1[I4_PRE], b1[I4_PRE], s2[I4_PRE], b2[I4_PRE];
+    const bool whole = rows == K;  // the block's chunk is the whole row
+    if (tid < 256) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a[8 * v + 2 * i] = fmaf(xv, (float)nib_lo(words[v], i),
-                                    a[8 * v + 2 * i]);
-            a[8 * v + 2 * i + 1] = fmaf(xv, (float)nib_hi(words[v], i),
-                                        a[8 * v + 2 * i + 1]);
+      for (int j = 0; j < I4_PRE; ++j) {
+        const int i = tid + j * 256, k = lo + i;
+        if (i < rows) {
+          xv[j] = x32[k];
+          s1[j] = nrm.s1[k];
+          b1[j] = nrm.b1[k];
+          if (nrm.n == 2) {
+            s2[j] = nrm.s2[k];
+            b2[j] = nrm.b2[k];
           }
         }
       }
     }
-    // lanes differ in threadIdx.x (bit 0) and 16 threadIdx.y (bits 1-4)
+    issue_weights();
+
+    if (whole) {
+      // the statistics from the registers, in layer_norm_rows' order:
+      // each thread's elements in turn, the warp by a butterfly, the 8
+      // warp sums by a butterfly
+      const int lane32 = tid & 31, warp = tid >> 5;
+      auto block_sum = [&](auto f) {
+        float a = 0.f;
+        if (tid < 256) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float v = a[j];
-      for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      a[j] = v;
-    }
-    if ((lane >> 1) == 0) {
+          for (int j = 0; j < I4_PRE; ++j)
+            if (tid + j * 256 < rows) a += f(j);
+          a = warp_sum(a);
+          if (lane32 == 0) st_red[warp] = a;
+        }
+        __syncthreads();
+        const float t = warp_sum(lane32 < 8 ? st_red[lane32] : 0.f);
+        __syncthreads();  // st_red is free again
+        return t;
+      };
+      for (int p = 0; p < nrm.n; ++p) {
+        const float mu = block_sum([&](int j) { return xv[j]; }) / K;
+        const float var = block_sum([&](int j) {
+          const float c = xv[j] - mu;
+          return c * c;
+        }) / K;
+        const float rstd = rsqrtf(var + 1e-5f);
 #pragma unroll
-      for (int j = 0; j < 32; ++j) red[warp][threadIdx.x * 32 + j] = a[j];
+        for (int j = 0; j < I4_PRE; ++j)
+          xv[j] = p ? ln_apply(xv[j], mu, rstd, s2[j], b2[j])
+                    : ln_apply(xv[j], mu, rstd, s1[j], b1[j]);
+      }
+    } else {
+      if (tid < 32) row_norm_stats(x32, K, nrm, tid, st);
+      __syncthreads();
+      if (tid < 256) {
+#pragma unroll
+        for (int j = 0; j < I4_PRE; ++j) {
+          xv[j] = ln_apply(xv[j], st[0], st[1], s1[j], b1[j]);
+          if (nrm.n == 2) xv[j] = ln_apply(xv[j], st[2], st[3], s2[j], b2[j]);
+        }
+      }
     }
-    __syncthreads();
-    if (tid < I4_COLS && n < N) {
-      const float s = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
-      float y = s * scale[(size_t)g * N + n] + (g == 0 ? bias[n] : 0.f);
-      if (!gelu) y = bf16_round(y);
-      total += y;
+    if (tid < 256) {
+#pragma unroll
+      for (int j = 0; j < I4_PRE; ++j)
+        if (tid + j * 256 < rows) xs[tid + j * 256] = bf16_round(xv[j]);
     }
-    __syncthreads();
+  } else {
+    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+    constexpr int XPRE = (I4_MAX_CHUNK + I4_THREADS - 1) / I4_THREADS;
+    __nv_bfloat16 xv[XPRE];
+#pragma unroll
+    for (int j = 0; j < XPRE; ++j) {
+      const int i = tid + j * I4_THREADS;
+      if (i < rows) xv[j] = xb[lo + i];
+    }
+    issue_weights();
+
+#pragma unroll
+    for (int j = 0; j < XPRE; ++j) {
+      const int i = tid + j * I4_THREADS;
+      if (i < rows) xs[i] = __bfloat162float(xv[j]);
+    }
   }
+
+  // ---- the products: lane l, word j; low nibbles are the even columns ----
+  const int j = tid % I4_WORDS, lane = tid / I4_WORDS;
+  float alo[4], ahi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) alo[i] = ahi[i] = 0.f;
+  for (int s = 0; s < I4_STAGES; ++s) {
+    cp_async_wait_upto(I4_STAGES - 1 - s);
+    __syncthreads();  // group s of every thread, and xs, are visible
+    const int r1 = min(rows, (s + 1) * rs);
+#pragma unroll 4
+    for (int row = s * rs + lane; row < r1; row += I4_LANES) {
+      const uint32_t wd = ws[row * I4_WORDS + j];
+      const float xv = xs[row];
+      const uint32_t lo4 = (wd & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t hi4 = ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        alo[i] = fmaf(xv, nib_f32(lo4, i), alo[i]);
+        ahi[i] = fmaf(xv, nib_f32(hi4, i), ahi[i]);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with ws, which red reuses
+
+  // ---- the chunk's sums: lanes 8h .. 8h + 7 in order, then h in order ----
+  float4* rp = reinterpret_cast<float4*>(red + lane * I4_COLS + 8 * j);
+  rp[0] = make_float4(alo[0], ahi[0], alo[1], ahi[1]);
+  rp[1] = make_float4(alo[2], ahi[2], alo[3], ahi[3]);
+  __syncthreads();
+  {
+    const int c = tid % I4_COLS, h = tid / I4_COLS;
+    float p = 0.f;
+#pragma unroll
+    for (int l = 0; l < I4_FOLD; ++l)
+      p = __fadd_rn(p, red[(h * I4_FOLD + l) * I4_COLS + c]);
+    fold[h][c] = p;
+  }
+  __syncthreads();
+  float sum = 0.f;  // this chunk's sum of column n (threads < 32)
+  if (tid < I4_COLS) {
+#pragma unroll
+    for (int h = 0; h < I4_LANES / I4_FOLD; ++h)
+      sum = __fadd_rn(sum, fold[h][tid]);
+  }
+
+  if (ns > 1) {
+    // several chunks: the last block of the tile to arrive merges them
+    float* tpart = part + (size_t)tile * ns * I4_COLS;  // [chunk][32]
+    if (tid < I4_COLS) {
+      tpart[q * I4_COLS + tid] = sum;
+      __threadfence();  // the sum is visible before the count moves
+    }
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(count + tile, 1u) == (unsigned)ns - 1;
+    __syncthreads();
+    if (!last) return;
+    if (tid == 0) count[tile] = 0;  // every block of the tile has counted
+  }
+
+  // ---- the epilogue: each group's sum (its chunks in order) times its
+  // scales, + bias for group 0, rounded to bf16 unless gelu, in group
+  // order ----
   if (tid < I4_COLS && n < N) {
+    const float* tpart = part + (size_t)tile * ns * I4_COLS;
+    float total = 0.f;
+    for (int gg = 0; gg < groups; ++gg) {
+      float sg = 0.f;
+      if (ns == 1) {
+        sg = sum;
+      } else {
+#pragma unroll 4
+        for (int rr = 0; rr < splits; ++rr)
+          sg = __fadd_rn(sg, __ldcg(tpart + (gg * splits + rr) * I4_COLS +
+                                    tid));
+      }
+      const float sc = gg == 0   ? ps[0]
+                       : gg == 1 ? ps[1]
+                       : gg == 2 ? ps[2]
+                       : gg == 3 ? ps[3]
+                                 : scale[(size_t)gg * N + n];
+      float y = __fmul_rn(sg, sc);
+      if (gg == 0) y = __fadd_rn(y, pb);
+      if (!gelu) y = bf16_round(y);
+      total = __fadd_rn(total, y);
+    }
     const float y = gelu ? gelu_new(total) : total;
     if (mode == 0) {
       reinterpret_cast<float*>(out)[n] = y;
     } else if (mode == 1) {
       reinterpret_cast<__nv_bfloat16*>(out)[n] = __float2bfloat16(y);
     } else {
-      reinterpret_cast<float*>(out)[n] += y;
+      reinterpret_cast<float*>(out)[n] = __fadd_rn(po, y);
     }
   }
 }
@@ -494,20 +747,27 @@ int launch_int8_gemv(const void* x, Norm nrm, const void* w,
 }
 
 int launch_int4_gemv(const void* x, Norm nrm, const void* w,
-                     const void* scale, const void* bias, void* out, int K,
-                     int N, int groups, int gelu, int mode,
-                     cudaStream_t stream) {
-  dim3 block(2, I4_KTHREADS);
-  const int grid = (N + I4_COLS - 1) / I4_COLS;
-  const size_t smem = (size_t)K * sizeof(float);
+                     const void* scale, const void* bias, void* out,
+                     void* part, void* count, int K, int N, int groups,
+                     int gelu, int mode, cudaStream_t stream) {
+  const int splits = i4_splits(K, N, groups);
+  const int kg = K / groups;
+  const int cmax = 16 * (((kg + 15) / 16 + splits - 1) / splits);
+  const int wbytes = cmax * I4_ROWB > I4_LANES * I4_COLS * 4
+                         ? cmax * I4_ROWB
+                         : I4_LANES * I4_COLS * 4;
+  const size_t smem = (size_t)wbytes + (size_t)cmax * sizeof(float);
+  const dim3 grid(groups * splits, (N + I4_COLS - 1) / I4_COLS);
   if (nrm.n)
-    int4_gemv_kernel<true><<<grid, block, smem, stream>>>(
+    int4_gemv_kernel<true><<<grid, I4_THREADS, smem, stream>>>(
         x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
-        out, K, N, groups, gelu, mode);
+        out, (float*)part, (unsigned*)count, K, N, groups, splits, gelu,
+        mode);
   else
-    int4_gemv_kernel<false><<<grid, block, smem, stream>>>(
+    int4_gemv_kernel<false><<<grid, I4_THREADS, smem, stream>>>(
         x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
-        out, K, N, groups, gelu, mode);
+        out, (float*)part, (unsigned*)count, K, N, groups, splits, gelu,
+        mode);
   return (int)cudaGetLastError();
 }
 
@@ -541,22 +801,35 @@ XT_API int xt_int8_gemv_ln(const void* x32, const void* s1, const void* b1,
                           bias, out, K, N, gelu, mode, (cudaStream_t)stream);
 }
 
+// part: >= N / 32 x G x s x 32 f32 of scratch; count: N / 32 counters, 0
+// before the launch and 0 after it (the last block of each column tile
+// resets its own). One launch at a time may use them.
 XT_API int xt_int4_gemv(const void* x, const void* w, const void* scale,
-                        const void* bias, void* out, int K, int N, int groups,
-                        int gelu, int mode, void* stream) {
+                        const void* bias, void* out, void* part, void* count,
+                        int K, int N, int groups, int gelu, int mode,
+                        void* stream) {
   return launch_int4_gemv(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
-                          w, scale, bias, out, K, N, groups, gelu, mode,
-                          (cudaStream_t)stream);
+                          w, scale, bias, out, part, count, K, N, groups,
+                          gelu, mode, (cudaStream_t)stream);
 }
 
 XT_API int xt_int4_gemv_ln(const void* x32, const void* s1, const void* b1,
                            const void* s2, const void* b2, int nln,
                            const void* w, const void* scale, const void* bias,
-                           void* out, int K, int N, int groups, int gelu,
-                           int mode, void* stream) {
+                           void* out, void* part, void* count, int K, int N,
+                           int groups, int gelu, int mode, void* stream) {
   return launch_int4_gemv(x32, make_norm(s1, b1, s2, b2, nln), w, scale,
-                          bias, out, K, N, groups, gelu, mode,
+                          bias, out, part, count, K, N, groups, gelu, mode,
                           (cudaStream_t)stream);
+}
+
+// bounds[0] = s, the chunks of each scale group; bounds[1 + r] = i4_lo(r,
+// s, K / groups) for r = 0..s: int4_gemv's split plan, for holding the
+// Python copy against this one
+XT_API void xt_int4_gemv_bounds(int K, int N, int groups, int* bounds) {
+  const int s = i4_splits(K, N, groups);
+  bounds[0] = s;
+  for (int r = 0; r <= s; ++r) bounds[1 + r] = i4_lo(r, s, K / groups);
 }
 
 XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
@@ -568,6 +841,9 @@ XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
       (__nv_bfloat16*)out, idx, d, scale);
   return (int)cudaGetLastError();
 }
+
+// int8_gemv's partial sums a column (int8_gemv_plain's GEMV_KTHREADS)
+XT_API int xt_gemv_kthreads() { return GEMV_KTHREADS; }
 
 // bounds[r] = att_lo(r, idx + 1) for r = 0..ATT_SPLITS: decode_attention's
 // chunks, for holding the Python copy against this one

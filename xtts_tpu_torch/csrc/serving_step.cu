@@ -135,27 +135,6 @@ constexpr size_t gemm_rows_smem() {
 static_assert(32 * GR_PS * 4 <= GR_STAGES * GR_KT * GR_TROW,
               "the partials reuse the ring");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the four int8 bytes of w as f32 bit patterns, exactly and without a
 // conversion instruction: byte ^ 0x80 = q + 128 goes into the low mantissa
 // of 2^23, and subtracting 2^23 + 128 leaves q. An integer |q| <= 128 has

@@ -209,6 +209,32 @@ class TextToSpeech:
         """Reference audio (T,) or (1, T) -> conditioning mel (1, mel, T')."""
         return self.mel(wav)
 
+    def cond_mels_from_wavs(self, wavs) -> torch.Tensor:
+        """Several reference clips -> stacked conditioning mels (1, n_clips,
+        mel, T'). Every clip is zero-padded at its end to the longest one,
+        so the mels stack on dim 1; get_conditioning then averages the
+        per-clip encoder outputs (api.py:379-393)."""
+        arrs = [np.asarray(w, np.float32).reshape(-1) for w in wavs]
+        n = max(a.shape[0] for a in arrs)
+        return torch.stack([self.mel(np.pad(a, (0, n - a.shape[0])))
+                            for a in arrs], dim=1)
+
+    def _cond_mel_from_cond(self, cond_wav) -> torch.Tensor:
+        """One clip (array) -> (1, mel, T'); a list of clips -> the stacked
+        (1, n_clips, mel, T') of cond_mels_from_wavs (one clip in a list
+        takes the 3-D path)."""
+        if isinstance(cond_wav, (list, tuple)):
+            return (self.cond_mels_from_wavs(cond_wav) if len(cond_wav) > 1
+                    else self.cond_mel_from_wav(cond_wav[0]))
+        return self.cond_mel_from_wav(cond_wav)
+
+    def _spk_mel16_from_cond(self, cond_wav) -> torch.Tensor:
+        """The HiFi-GAN speaker mel of the first clip of a list (or of the
+        one clip)."""
+        first = (cond_wav[0] if isinstance(cond_wav, (list, tuple))
+                 else cond_wav)
+        return self.speaker_mel_from_wav(first)
+
     def cond_mel_bucketed(self, wav, bucket_seconds=(3.0, 6.0, 10.0)
                           ) -> torch.Tensor:
         """Reference clip -> conditioning mel at a shared length bucket: the
@@ -354,8 +380,11 @@ class TextToSpeech:
         latent = self.gpt(cond_mel, text_tokens, text_lens, codes,
                           lens * c.gpt.mel_length_compression,
                           return_latent=True)
+        # stacked clips (B, n_clips, mel, T): the ReferenceNet / CLIP refer
+        # mel is the first clip (only the GPT conditioning averages)
+        diff_cond = cond_mel if cond_mel.dim() == 3 else cond_mel[:, 0]
         mel = self._diffusion_mel_impl(
-            latent.transpose(1, 2), normalize_tacotron_mel(cond_mel),
+            latent.transpose(1, 2), normalize_tacotron_mel(diff_cond),
             generator, settings.diffusion_temperature,
             steps=settings.diffusion_steps, sampler=settings.sampler,
             cond_free_k=settings.cond_free_k, noise=noise)
@@ -433,8 +462,9 @@ class TextToSpeech:
         t0 = time.perf_counter()
         k = settings.num_candidates
         if k > 1:
+            reps = (k,) + (1,) * (cond_mel.dim() - 1)
             res = self._rerank_one(text[0], self._generate(
-                cond_mel.repeat(k, 1, 1), text.repeat(k, 1), g, settings))
+                cond_mel.repeat(reps), text.repeat(k, 1), g, settings))
         else:
             res = self._generate(cond_mel, text, g, settings)
         n = max(int(res.lengths[0]) - 2, 1)     # strip 2 (reference test.py)
@@ -521,8 +551,8 @@ class TextToSpeech:
         rendered, so the time to first audio is one sentence's latency
         (api.py:859-880). np.concatenate(list(tts_stream(...))) equals
         tts(batch_sentences=False) with the same generator seed."""
-        cond_mel = self.cond_mel_from_wav(cond_wav)
-        spk = self.speaker_mel_from_wav(cond_wav) if use_hifigan else None
+        cond_mel = self._cond_mel_from_cond(cond_wav)
+        spk = self._spk_mel16_from_cond(cond_wav) if use_hifigan else None
         for out in self.stream_tokens(
                 self._text_to_token_lists(text, lang, settings), cond_mel,
                 generator, settings, use_diffusion=use_diffusion,
@@ -540,11 +570,11 @@ class TextToSpeech:
         concatenated). use_hifigan renders through the HifiDecoder
         (with_hifigan=True)."""
         g = generator if generator is not None else self._generator(0)
-        cond_mel = self.cond_mel_from_wav(cond_wav)
+        cond_mel = self._cond_mel_from_cond(cond_wav)
         token_lists = self._text_to_token_lists(text, lang, settings)
         if not token_lists:
             return np.zeros(0, np.float32)
-        spk = self.speaker_mel_from_wav(cond_wav) if use_hifigan else None
+        spk = self._spk_mel16_from_cond(cond_wav) if use_hifigan else None
         if batch_sentences and len(token_lists) > 1:
             from xtts_tpu_torch.infer.serving import (SynthesisRequest,
                                                       synthesize_batch)

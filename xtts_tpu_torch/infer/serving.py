@@ -108,8 +108,8 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
         cond = torch.cat([c.to(dev) for c in per], dim=0)
     else:
         cond = cond_mel.to(dev)
-        if cond.shape[0] == 1:
-            cond = cond.repeat(b, 1, 1)
+        if cond.shape[0] == 1:      # (1, mel, T) or stacked clips
+            cond = cond.repeat((b,) + (1,) * (cond.dim() - 1))
 
     k = settings.num_candidates
     if k > 1:

@@ -75,7 +75,22 @@ class UnifiedVoice(nn.Module):
     # ---------------- conditioning ----------------
 
     def get_conditioning(self, cond_mel_bct: torch.Tensor) -> torch.Tensor:
-        """(B, mel, T) -> (B, 1, dim)."""
+        """(B, mel, T) or (B, n_clips, mel, T) -> (B, 1, dim).
+
+        A 4-D input is several reference clips stacked on dim 1
+        (TextToSpeech.cond_mels_from_wavs): each clip runs through the
+        encoder and the outputs are averaged (gpt.py:107-116). The
+        perceiver conditioning takes one clip only, so a 4-D input with
+        use_perceiver is refused."""
+        if cond_mel_bct.dim() == 4:
+            if self.cfg.use_perceiver:
+                raise ValueError(
+                    "multi-clip conditioning needs the plain conditioning "
+                    "encoder: the perceiver path takes one clip only")
+            b, n, c, t = cond_mel_bct.shape
+            x = cond_mel_bct.reshape(b * n, c, t).transpose(1, 2)
+            enc = self.conditioning_encoder(x).reshape(b, n, -1)
+            return enc.mean(dim=1)[:, None]
         return self.conditioning_encoder(cond_mel_bct.transpose(1, 2))[:, None]
 
     # ---------------- teacher-forced forward ----------------

@@ -31,6 +31,11 @@ even||odd column order and its permutation matmul have no counterpart.
 
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain PyTorch twin for a CPU tensor.
+The twins of int8_gemv, int4_gemv and decode_attention repeat their
+kernels' f32 operations in the kernels' order (ordered_int8_sums,
+ordered_int4_sums, split_attention), so on the card each kernel and its
+twin give the same bits wherever no gelu_new or norm prologue is involved
+(card tests); elsewhere they differ by roundings only.
 """
 from __future__ import annotations
 
@@ -59,8 +64,13 @@ def _lib() -> ctypes.CDLL:
     lib.xt_layer_norm_rows.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.xt_int8_gemv.argtypes = [_P] * 5 + [_I, _I, _I, _I, _P]
     lib.xt_int8_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [_P]
-    lib.xt_int4_gemv.argtypes = [_P] * 5 + [_I] * 5 + [_P]
-    lib.xt_int4_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 5 + [_P]
+    lib.xt_int4_gemv.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.xt_int4_gemv_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 6 + [_I] * 5
+                                    + [_P])
+    lib.xt_int4_gemv_bounds.argtypes = [_I, _I, _I, _P]
+    lib.xt_int4_gemv_bounds.restype = None
+    lib.xt_gemv_kthreads.argtypes = []
+    lib.xt_gemv_kthreads.restype = _I
     lib.xt_decode_attention.argtypes = [_P] * 4 + [_I] * 3 + [
         ctypes.c_float, _P]
     lib.xt_attention_bounds.argtypes = [_I, _P]
@@ -161,11 +171,44 @@ layer_norm_rows.launches = 0
 # int8_gemv
 # ---------------------------------------------------------------------------
 
+# int8_gemv's partial sums a column: csrc GEMV_KTHREADS (a card test holds
+# the two equal through xt_gemv_kthreads)
+GEMV_KTHREADS = 32
+
+
+def kernel_gemv_kthreads() -> int:
+    """csrc's GEMV_KTHREADS (needs the built library, so the card)."""
+    return _lib().xt_gemv_kthreads()
+
+
+def ordered_int8_sums(x, w) -> torch.Tensor:
+    """sum_k x[k] w[k, :] in int8_gemv's order: partial r (r < 32) adds
+    x[k] w[k, :] for k = r, r + 32, ... one f32 add at a time, then the 32
+    partials add in r order. x (K,) holds bf16 values, so every product is
+    exact in f32 and each add is the kernel's one rounding. Returns (N,)."""
+    k, n = w.shape
+    steps = -(-k // GEMV_KTHREADS)
+    pad = steps * GEMV_KTHREADS - k
+    xs = F.pad(x.float().reshape(-1), (0, pad)).reshape(steps, GEMV_KTHREADS,
+                                                        1)
+    ws = F.pad(w.float(), (0, 0, 0, pad)).reshape(steps, GEMV_KTHREADS, n)
+    acc = torch.zeros(GEMV_KTHREADS, n, device=w.device)
+    for i in range(steps):
+        acc = acc + xs[i] * ws[i]
+    total = torch.zeros(n, device=w.device)
+    for r in range(GEMV_KTHREADS):
+        total = total + acc[r]
+    return total
+
+
 def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
                     out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    """int8_gemv's arithmetic in its order (ordered_int8_sums), then the
+    epilogue s * scale + bias rounded after the product and after the sum:
+    on the card the two give the same bits (no gelu)."""
     if ln is not None:
         x = normed_input(x, ln)
-    y = (x.float() @ w.float()) * scale + bias
+    y = ordered_int8_sums(x, w) * scale + bias
     if gelu:
         y = gelu_new(y)
     if out is not None:
@@ -245,19 +288,108 @@ def pack_int4(w4: torch.Tensor) -> torch.Tensor:
     return ((hi << 4) | lo).to(torch.uint8).view(torch.int8).contiguous()
 
 
+# int4_gemv's split plan (csrc/decode_step.cu i4_splits / i4_lo: the
+# authority; this is its copy, held against xt_int4_gemv_bounds on the card)
+I4_COLS = 32         # output columns a block
+I4_LANES = 64        # row lanes a block: lane l adds rows lo + l, + 64, ...
+I4_FOLD = 8          # lanes a first-level sum
+I4_MIN_BLOCKS = 32
+I4_MIN_CHUNK = 64
+I4_MAX_CHUNK = 2048
+
+
+def int4_gemv_plan(k: int, n: int, groups: int):
+    """(s, bounds): each scale group of kg = k / groups rows is split into s
+    chunks, chunk r taking rows [bounds[r], bounds[r + 1]) of the group,
+    bounds[r] = 16 floor(r T / s) clipped to kg, T = ceil(kg / 16). s is
+    1 where the ceil(n / 32) column tiles x groups make >= 32 blocks (every
+    product of the K1-int4 step), else the least power of two that does,
+    stopping at 16 or where chunks would be shorter than 64 rows; then
+    doubled until no chunk exceeds 2048 rows."""
+    kg = k // groups
+    t = -(-kg // 16)
+    tiles = -(-n // I4_COLS)
+    s = 1
+    while (s < 16 and tiles * groups * s < I4_MIN_BLOCKS
+           and kg // (2 * s) >= I4_MIN_CHUNK):
+        s *= 2
+    while 16 * -(-t // s) > I4_MAX_CHUNK:
+        s *= 2
+    return s, [min(kg, r * t // s * 16) for r in range(s + 1)]
+
+
+def kernel_int4_gemv_plan(k: int, n: int, groups: int):
+    """The kernel's own plan (needs the built library, so the card)."""
+    s = int4_gemv_plan(k, n, groups)[0]
+    out = (ctypes.c_int * (s + 2))()
+    _lib().xt_int4_gemv_bounds(int(k), int(n), int(groups), out)
+    return out[0], list(out[1:out[0] + 2])
+
+
+def ordered_int4_sums(x, w, groups: int) -> torch.Tensor:
+    """Each group's sum_k x[k] w4[k, :] in int4_gemv's order: within chunk
+    r of int4_gemv_plan, lane l (< 64) adds rows lo + l, lo + l + 64, ...
+    one f32 add at a time; lanes 8h .. 8h + 7 add in order, then the 8
+    sums h in order; a group's chunks add in chunk order. x (K,) holds
+    bf16 values, so every product is exact in f32 and each add is the
+    kernel's one rounding. Returns (groups, N)."""
+    k = x.numel()
+    n = 2 * w.shape[1]
+    kg = k // groups
+    dev = w.device
+    s, bounds = int4_gemv_plan(k, n, groups)
+    c = bounds[1]
+    steps = max(1, -(-max(b - a for a, b in zip(bounds, bounds[1:]))
+                     // I4_LANES))
+    wv = unpack_int4(w).float()
+    xf = x.float().reshape(-1)
+    if bounds == [min(kg, r * c) for r in range(s + 1)] and c * s == kg:
+        # equal chunks: term i of lane l of chunk r is row r c + 64 i + l
+        pad = steps * I4_LANES - c
+        prod = F.pad((xf[:, None] * wv).reshape(groups, s, c, n),
+                     (0, 0, 0, pad)).reshape(groups, s, steps, I4_LANES, n)
+    else:
+        lo = torch.tensor(bounds[:-1], device=dev)
+        hi = torch.tensor(bounds[1:], device=dev)
+        rel = lo[:, None, None] + (
+            torch.arange(steps, device=dev)[:, None] * I4_LANES
+            + torch.arange(I4_LANES, device=dev)[None, :])  # (s, step, lane)
+        valid = rel < hi[:, None, None]
+        rows = (torch.arange(groups, device=dev)[:, None, None, None] * kg
+                + torch.where(valid, rel, torch.zeros_like(rel)))
+        prod = xf[rows][..., None] * wv[rows]
+        prod = torch.where(valid[..., None], prod, torch.zeros_like(prod))
+    acc = torch.zeros(groups, s, I4_LANES, n, device=dev)
+    for i in range(steps):
+        acc = acc + prod[:, :, i]
+    acc = acc.reshape(groups, s, I4_LANES // I4_FOLD, I4_FOLD, n)
+    fold = torch.zeros(groups, s, I4_LANES // I4_FOLD, n, device=dev)
+    for lane in range(I4_FOLD):
+        fold = fold + acc[:, :, :, lane]
+    part = torch.zeros(groups, s, n, device=dev)
+    for h in range(I4_LANES // I4_FOLD):
+        part = part + fold[:, :, h]
+    total = torch.zeros(groups, n, device=dev)
+    for r in range(s):
+        total = total + part[:, r]
+    return total
+
+
 def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
                     out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    """int4_gemv's arithmetic in its order (ordered_int4_sums), then for
+    each group in turn y_g = sum_g * scale[g] (+ bias for g = 0), rounded to
+    bf16 unless gelu, added into a running f32 total: on the card the two
+    give the same bits (no gelu)."""
     if ln is not None:
         x = normed_input(x, ln)
     groups = scale.shape[0]
-    wv = unpack_int4(w).float().reshape(groups, -1, scale.shape[1])
-    parts = torch.einsum("gk,gkn->gn", x.float().reshape(groups, -1), wv)
-    y = parts * scale
+    y = ordered_int4_sums(x, w, groups) * scale
     y[0] = y[0] + bias
     if not gelu:
         y = y.to(torch.bfloat16).float()
-    total = y[0]
-    for g in range(1, groups):      # in group order, as the kernel sums
+    total = torch.zeros_like(y[0])
+    for g in range(groups):         # in group order, as the kernel sums
         total = total + y[g]
     y = total
     if gelu:
@@ -266,6 +398,27 @@ def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
         out += y
         return out
     return y.to(out_dtype)
+
+
+# int4_gemv's split-K scratch a device: the partials (grown as needed) and
+# one counter a column tile, zero between launches (the kernel's last block
+# of a tile resets its own). Launches run one at a time on the stream.
+_I4_COUNTERS = 4096
+_i4_scratch: Dict[Any, Dict[str, torch.Tensor]] = {}
+
+
+def _int4_scratch(device, floats: int, tiles: int):
+    if tiles > _I4_COUNTERS:
+        raise ValueError(f"int4_gemv takes N <= {_I4_COUNTERS * I4_COLS}")
+    sc = _i4_scratch.get(device)
+    if sc is None:
+        sc = _i4_scratch[device] = {
+            "count": torch.zeros(_I4_COUNTERS, dtype=torch.int32,
+                                 device=device),
+            "part": torch.empty(0, dtype=torch.float32, device=device)}
+    if sc["part"].numel() < floats:
+        sc["part"] = torch.empty(floats, dtype=torch.float32, device=device)
+    return sc["part"], sc["count"]
 
 
 def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -279,7 +432,14 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     row for each group of K/G input rows; bias (N,) f32. r() rounds each
     group's output to bf16, as the TPU kernel rounds every tile it
     restores to canonical order; with gelu (its fc tiles) nothing is
-    rounded before gelu_new. `out`, out_dtype and ln as int8_gemv."""
+    rounded before gelu_new. `out`, out_dtype and ln as int8_gemv; w must
+    start 16-byte aligned.
+
+    The kernel runs one block for each 32 columns and chunk of
+    int4_gemv_plan; where a product has several chunks (K split into scale
+    groups or chunks), the chunks merge through this device's scratch
+    (_int4_scratch), so launches of int4_gemv on one device must not run
+    concurrently on two streams."""
     if not x.is_cuda:
         return int4_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
     k, half = w.shape
@@ -288,7 +448,7 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if (x.dtype != want or w.dtype != torch.int8
             or x.numel() != k or n != 2 * half or n % 32 or k % groups
             or k > MAX_SMEM_FLOATS or bias.numel() != n
-            or scale.dtype != torch.float32):
+            or scale.dtype != torch.float32 or w.data_ptr() % 16):
         raise ValueError(f"int4_gemv: bad operands x {tuple(x.shape)} "
                          f"{x.dtype}, w {tuple(w.shape)} {w.dtype}, scale "
                          f"{tuple(scale.shape)}")
@@ -303,15 +463,20 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int4_gemv: out_dtype {out_dtype}")
         mode = 0 if out_dtype == torch.float32 else 1
         dst = torch.empty((n,), dtype=out_dtype, device=x.device)
+    splits = int4_gemv_plan(k, n, groups)[0]
+    tiles = -(-n // I4_COLS)
+    part, count = _int4_scratch(x.device, tiles * groups * splits * I4_COLS,
+                                tiles)
     if norm is None:
         check(_lib().xt_int4_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias),
-                                  ptr(dst), k, n, groups, int(gelu), mode,
-                                  stream_of(x)), "int4_gemv")
+                                  ptr(dst), ptr(part), ptr(count), k, n,
+                                  groups, int(gelu), mode, stream_of(x)),
+              "int4_gemv")
     else:
         check(_lib().xt_int4_gemv_ln(ptr(x), *norm, ptr(w), ptr(scale),
-                                     ptr(bias), ptr(dst), k, n, groups,
-                                     int(gelu), mode, stream_of(x)),
-              "int4_gemv")
+                                     ptr(bias), ptr(dst), ptr(part),
+                                     ptr(count), k, n, groups, int(gelu),
+                                     mode, stream_of(x)), "int4_gemv")
         int4_gemv.ln_launches += 1
     int4_gemv.launches += 1
     return dst

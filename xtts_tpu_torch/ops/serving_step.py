@@ -33,8 +33,9 @@ import torch
 
 from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
-from xtts_tpu_torch.ops.decode_step import (MAX_SMEM_FLOATS, int8_gemv_plain,
-                                            norm_operands)
+from xtts_tpu_torch.nn.transformer import gelu_new
+from xtts_tpu_torch.ops.decode_step import (MAX_SMEM_FLOATS, norm_operands,
+                                            normed_input)
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
@@ -68,7 +69,20 @@ def _check_cuda(*ts) -> None:
 # int8_gemm_rows
 # ---------------------------------------------------------------------------
 
-int8_gemm_rows_plain = int8_gemv_plain
+def int8_gemm_rows_plain(x, w, scale, bias, out=None, gelu=False,
+                         out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    """int8_gemm_rows' arithmetic: (x_bf16 . W_int8) * scale + bias with
+    f32 sums (the kernel's tensor-core sums have no order a twin can
+    repeat), gelu_new, then stored or added into `out`."""
+    if ln is not None:
+        x = normed_input(x, ln)
+    y = (x.float() @ w.float()) * scale + bias
+    if gelu:
+        y = gelu_new(y)
+    if out is not None:
+        out += y
+        return out
+    return y.to(out_dtype)
 
 GEMM_COLS = 64            # output columns a cluster of the kernel
 GEMM_KT = 64              # k rows a weight tile

@@ -10,8 +10,12 @@ of shape (dim, n_embed),
 The |x|^2 term is constant per row, so the argmin only needs
 |e_j|^2 - 2 x.e_j. `vq_nearest` launches the CUDA kernel of csrc/vq.cu for a
 CUDA tensor (counting the launch in `vq_nearest.launches`) and runs the plain
-twin `vq_nearest_plain` for a CPU tensor. Both use fp32 products with no
-TF32, so the codes are exact up to the summation order of one dot product.
+twin `vq_nearest_plain` for a CPU tensor. The twin takes fp32 products
+(no TF32); the kernel takes its products on the tensor cores in 3xTF32
+(each operand split into two tf32 parts, three products summed in f32),
+which keeps each product within ~2^-21 of |x||e| relative: the codes equal
+the twin's except at near ties within an fp32 dot product's error bound
+(tests/test_torch_port_kernels.py _vq_agree).
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ def _vq_nearest_cuda(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
                          f"{embed.dtype}")
     require_hopper(x)
     lib = _lib()
-    esq = (embed * embed).sum(0)
+    esq = torch.empty((e,), dtype=torch.float32, device=x.device)
     ranges = lib.xt_vq_ranges(e)
     part_v = torch.empty((n, ranges), dtype=torch.float32, device=x.device)
     part_i = torch.empty((n, ranges), dtype=torch.int32, device=x.device)
