@@ -23,8 +23,11 @@ Phases, each reported on its own lines:
      captured in one CUDA graph and replayed: no host launch in it), and
      the bound (bytes over 3.35 TB/s or operations over the peak for
      their type, whichever is larger):
-     K1 (layer_norm_rows, int8_gemv (equal to its plain twin bit for bit
-     where no gelu is involved), decode_attention (a cluster of 8
+     K1 (layer_norm_rows (equal to its ordered twin bit for bit, on 4096
+     rows too: the card's rsqrtf against torch.rsqrt), int8_gemv (equal
+     to its plain twin bit for bit where no gelu is involved, at every K1
+     shape and a K split in 16 ragged chunks; its split plan equal to the
+     kernel's), decode_attention (a cluster of 8
      blocks a head), the 15-layer step, a
      64-step teacher-forced greedy chain at 76 launches a token, and the
      step's device time a step: 100 steps in one CUDA graph); K1-int4
@@ -38,12 +41,16 @@ Phases, each reported on its own lines:
      logits against its 8192-code codebook, a ragged shape and a planted
      tie, also on 4 rotating copies of rows and codebook); K4
      (int8_gemm_rows (split over K across a cluster),
-     serving_attention, the 16-row step at S 354,
-     a 64-step teacher-forced chain, step times at 8/16/32 rows). Each
+     serving_attention (equal to its twin bit for bit at index 0, 1 and
+     353 of the path's 354 positions and at 2047 of 2048; timed with the
+     cache rotating through the 15 layers too), the 16-row step at S 354,
+     a 64-step teacher-forced chain, step times at 8/16/32 rows, the
+     step's device time a step). Each
      product with the norm prologue (int8_gemv, int4_gemv, int8_gemm_rows
      at the qkv + ln_1, fc + ln_2 and head + ln_f/final_norm shapes) is held
      against layer_norm_rows then the unfused product (bit for bit) and
-     against its plain twin, and timed beside the two launches it replaces.
+     against its plain twin (bit for bit for int8_gemv and int4_gemv
+     without gelu), and timed beside the two launches it replaces.
      Then the paths on a small configuration, card against CPU with the
      same weights: identical greedy int8 codes through K1 and through K4,
      identical DVAE codes, renders within 1e-3; identical greedy codes
@@ -293,6 +300,16 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
                max_err(ds.layer_norm_rows(x32, *st["lnf"]),
                        ds.layer_norm_rows_plain(x32, *st["lnf"])))
     check(e_ln <= OP_TOL, f"layer_norm_rows err {e_ln}")
+    # the twin of the kernels' statistics (every prologue's twin): equal bit
+    # for bit, on 4096 rows too (8192 rsqrtf against torch.rsqrt)
+    x_many = torch.randn(4096, D, generator=g, device="cuda") * 3 + 1
+    for xs, ln in ((x32, (ln0[0], ln0[1])), (x32, tuple(st["lnf"])),
+                   (x_many, tuple(st["lnf"]))):
+        got, want = ds.layer_norm_rows(xs, *ln), ds.layer_norm_rows_ordered(
+            xs, *ln)
+        check(torch.equal(got, want), f"layer_norm_rows != its ordered twin "
+              f"on {xs.shape[0]} rows ({len(ln) // 2} norms): "
+              f"{int((got != want).sum())} values differ")
 
     def ln_uncached():            # every launch asks for the capability
         build._hopper.cache_clear()
@@ -310,6 +327,9 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         x32, (D,), ln0[0], ln0[1], 1e-5))
     record(results, "layer_norm_rows", e_ln, t_ln, p_ln, l_ln, b_ln, d_ln,
            dl_ln)
+    log(f"[k1] layer_norm_rows equal to layer_norm_rows_ordered bit for bit "
+        f"on 1 row (one and two norms) and on 4096 rows (two norms: 8192 "
+        f"rsqrtf results equal to torch.rsqrt's)  [{card}]")
     log(f"[k1] layer_norm_rows (1, {D}) max_abs_err {e_ln:.3e}  "
         f"kernel {t_ln:.4f} ms, device {fmt_us(d_ln)} (capability query "
         f"each launch, as before: {t_ln_q:.4f} ms)  plain {p_ln:.4f} ms  "
@@ -352,6 +372,9 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         err = max_err(o1, o2)
         rel = err / max(1.0, o2.float().abs().max().item())
         check(rel <= OP_TOL, f"int8_gemv {name} err {err}")
+        plan = ds.int8_gemv_plan(*w.shape)
+        check(ds.kernel_int8_gemv_plan(*w.shape) == plan,
+              f"int8_gemv {name}: the plan's copy differs from the kernel's")
         e_gemv = max(e_gemv, err)
         w_bf16 = (w.float() * s).bfloat16()
         x2 = xin[None]
@@ -364,7 +387,9 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
         dk = device_us(torch, fk)
         dl = device_us(torch, lambda: torch.matmul(x2, w_bf16))
         dkr, dlr = rotating_pair(torch, fw, w, w_bf16, x2)
-        log(f"[k1] int8_gemv {name} ({kk} x {nn_}) max_abs_err {err:.3e}  "
+        log(f"[k1] int8_gemv {name} ({kk} x {nn_}, {plan[0]} chunk"
+            f"{'s' if plan[0] > 1 else ''} of K, "
+            f"{plan[0] * nn_ // ds.I8_COLS} blocks) max_abs_err {err:.3e}  "
             f"kernel {tk:.4f} ms ({gbs:.0f} GB/s weights), device "
             f"{fmt_us(dk)}, rotating {fmt_us(dkr)}  plain {tp:.4f} ms  "
             f"matmul(bf16 W) {tl:.4f} ms, device {fmt_us(dl)}, rotating "
@@ -374,6 +399,21 @@ def k1_checks(torch, ds, quantize_dense, cfg, s_max, p_len, results, card):
             fc_rot = dict(device_us_rotating=dkr,
                           library_device_us_rotating=dlr)
     record(results, "int8_gemv", e_gemv, *fc_times, **fc_rot)
+    # the plan's edges: K split in 16 ragged chunks, equal to the twin
+    from xtts_tpu_torch.infer.qdecode import quantize_dense as qd
+    q_edge = qd(torch.randn(3000, 32, generator=g, device="cuda") / 55.0)
+    x_edge = torch.randn(3000, generator=g, device="cuda").bfloat16()
+    b_edge = torch.randn(32, generator=g, device="cuda")
+    check(torch.equal(ds.int8_gemv(x_edge, q_edge["w"], q_edge["scale"],
+                                   b_edge),
+                      ds.int8_gemv_plain(x_edge, q_edge["w"],
+                                         q_edge["scale"], b_edge))
+          and ds.kernel_int8_gemv_plan(3000, 32) == ds.int8_gemv_plan(3000,
+                                                                     32),
+          "int8_gemv (3000 x 32, K in 16 ragged chunks) != its twin")
+    log(f"[k1] int8_gemv (3000 x 32, K in "
+        f"{ds.int8_gemv_plan(3000, 32)[0]} chunks of 176-192 rows): equal to "
+        f"its twin, plan equal to the kernel's  [{card}]")
     prologue_checks(torch, ds, st, ds.int8_gemv, ds.int8_gemv_plain, x32[0],
                     "k1", "int8_gemv+ln", results, card)
 
@@ -457,6 +497,11 @@ def prologue_checks(torch, ds, st, kernel, plain, x32, tag, key, results,
         want = plain(x32, w, s, b, ln=ln, **kw)
         check(torch.equal(got, ref), f"{key} {name}: fused != layer_norm_rows"
               f" then the product (max diff {max_err(got, ref):.3e})")
+        # the gemv twins repeat their kernels' order, the prologue too
+        exact = key != "int8_gemm_rows+ln" and not kw.get("gelu")
+        if exact:
+            check(torch.equal(got, want), f"{key} {name}: kernel != its twin "
+                  f"(max diff {max_err(got, want):.3e})")
         err = max_err(got, want)
         check(err <= OP_TOL * max(1.0, want.float().abs().max().item()),
               f"{key} {name} err {err}")
@@ -471,7 +516,8 @@ def prologue_checks(torch, ds, st, kernel, plain, x32, tag, key, results,
                     + 4 * d * len(ln) + got.element_size() * got.numel(),
                     2 * rows * d * n, "bf16")
         log(f"[{tag}] {key} {name} ({rows} x {d} -> {n}): equal to "
-            f"layer_norm_rows + product; vs plain max_abs_err {err:.3e}  "
+            f"layer_norm_rows + product{' and to its twin' if exact else ''}"
+            f"; vs plain max_abs_err {err:.3e}  "
             f"fused {t_f:.4f} ms, device {fmt_us(d_f)}  layer_norm_rows + "
             f"product {t_2:.4f} ms, device {fmt_us(d_2)} (two launches)  "
             f"plain {t_p:.4f} ms  bound {bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
@@ -972,6 +1018,15 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
                             * 0.5).bfloat16()
         return ss.quantize_kv_rowwise(KVCache(k, v))
 
+    def cache_long(rows, length, filled):
+        """One layer's (1, rows, length, D) cache, positions < filled set."""
+        k = torch.zeros(1, rows, length, H, D // H, device="cuda",
+                        dtype=torch.bfloat16)
+        k[:, :, :filled] = (torch.randn(1, rows, filled, H, D // H,
+                                        generator=g, device="cuda")
+                            * 0.5).bfloat16()
+        return ss.quantize_kv_rowwise(KVCache(k, k.roll(1, dims=2)))
+
     def tokens(rows, step):
         return (torch.arange(rows, device="cuda") * 37 + step * 11) % V
 
@@ -1069,9 +1124,24 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
     prologue_checks(torch, ds, st, ss.int8_gemm_rows, ss.int8_gemm_rows_plain,
                     x32, "k4", "int8_gemm_rows+ln", results, card)
 
-    c1 = [t[0].contiguous() for t in cache(rows, idx)]
-    c2 = [t.clone() for t in c1]
+    # serving_attention == its twin bit for bit (output, new rows, scales)
+    # at index 0, 1 and the path's last (S - 1 of 354), and at S - 1 of a
+    # longer cache (the chunk ring refilled)
     qkv = torch.randn(rows, 3 * D, generator=g, device="cuda")
+    full = cache(rows, idx)               # (L, rows, S, D): rotating below
+    for s_at, at in ((s_max, 0), (s_max, 1), (s_max, idx), (2048, 2047)):
+        src = full if s_at == s_max else cache_long(rows, s_at, at)
+        k1_ = [t[0].clone() for t in src]
+        k2_ = [t.clone() for t in k1_]
+        a1 = ss.serving_attention(qkv, *k1_, at, H)
+        a2 = ss.serving_attention_plain(qkv, *k2_, at, H)
+        check(torch.equal(a1, a2)
+              and all(torch.equal(u, v) for u, v in zip(k1_, k2_)),
+              f"serving_attention at index {at} of {s_at}: kernel != its "
+              f"twin (max diff {max_err(a1, a2):.3e})")
+        del src, k1_, k2_
+    c1 = [t[0].contiguous() for t in full]
+    c2 = [t.clone() for t in c1]
     a1 = ss.serving_attention(qkv, *c1, idx, H)
     a2 = ss.serving_attention_plain(qkv, *c2, idx, H)
     e_a = max_err(a1, a2)
@@ -1082,12 +1152,20 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
     b_a = bound(rows * (12 * D + 2 * idx * (D + 4) + 2 * D + 2 * (D + 4)),
                 4 * rows * idx * D, "bf16")
     d_a = device_us(torch, lambda: ss.serving_attention(qkv, *c1, idx, H))
-    record(results, "serving_attention", e_a, t_a, p_a, None, b_a, d_a, None)
+    d_ar = device_us(torch, rotating([
+        lambda li=li: ss.serving_attention(qkv, full[0][li], full[1][li],
+                                           full[2][li], full[3][li], idx, H)
+        for li in range(L)]), n=4 * L)
+    record(results, "serving_attention", e_a, t_a, p_a, None, b_a, d_a, None,
+           device_us_rotating=d_ar)
     log(f"[k4] serving_attention (16 rows x {H} heads x 64, positions "
-        f"0..{idx - 1} + self) max_abs_err {e_a:.3e}  kernel {t_a:.4f} ms, "
-        f"device {fmt_us(d_a)}  plain {p_a:.4f} ms  library n/a (no one "
-        f"call takes an int8 cache)  bound {b_a[0]:.5f} ms ({b_a[1]})  "
-        f"[{card}]")
+        f"0..{idx - 1} + self, {ss.SA_CHUNK}-position chunks) equal to its "
+        f"twin bit for bit at index 0, 1, {idx} of {s_max} and 2047 of 2048; "
+        f"max_abs_err {e_a:.3e}  kernel {t_a:.4f} ms, device {fmt_us(d_a)}, "
+        f"rotating through the {L} layers {fmt_us(d_ar)}  plain "
+        f"{p_a:.4f} ms  library n/a (no one call takes an int8 cache)  bound "
+        f"{b_a[0]:.5f} ms ({b_a[1]})  [{card}]")
+    del full, c1, c2
 
     # --- the whole step at 8, 16 and 32 rows ---
     parts = []
@@ -1106,8 +1184,15 @@ def k4_checks(torch, ds, ss, qt, st, cfg, p_len, s_max, results, card):
         parts.append(f"{r} rows {t_k:.3f} ms (plain {t_p:.3f}, bound "
                      f"{b_s[0]:.4f})")
         del c_k, c_p
+    c_k = cache(16, idx)
+    x = emb[tokens(16, 1)] + pos[300][None]
+    d_step = device_us(torch, lambda: ss.fused_serving_logits(
+        st, x, *c_k, idx, L, H), n=20)
+    results["serving_attention"]["step_device_us"] = d_step
+    del c_k
     log(f"[k4] whole step at S {s_max}, index {idx}: " + "; ".join(parts)
-        + f"  [{card}]")
+        + f"; device {fmt_us(d_step)} a step at 16 rows (20 steps in one "
+        f"CUDA graph)  [{card}]")
 
 
 def vqvae_phase(torch, np, vq, launches, card):

@@ -22,8 +22,13 @@ decodes 300 codes):
     single K2 calls
     (`flash_mha` at (2, 1280 | 1562, 8, 64));
   - device time a call (us; calls captured in one CUDA graph and replayed
-    between CUDA events, so the host launch is out) and the single-call
-    CUDA-event ms of decode_attention (16 heads, rows 0..300 of 360),
+    between CUDA events, so the host launch is out), the host's us a
+    launch (500 launches back to back) and the single-call
+    CUDA-event ms of int8_gemv at every K1 shape on the model's layer-0
+    weights (qkv + ln_1, proj += residual, fc + ln_2 + gelu, out +=
+    residual, head + ln_f + final_norm), serving_attention (16 rows x 16
+    heads, index 353 of a random 360-position int8 cache), decode_attention
+    (16 heads, rows 0..300 of 360),
     int8_gemm_rows fc + gelu, proj += residual and out += residual at 16
     rows, and int8_gemm_rows head + ln_f +
     final_norm at 16 rows fused and as layer_norm_rows + product; device
@@ -68,6 +73,23 @@ def step_ms(torch, fn, steps=100, rounds=5):
         cpu.append((time.process_time() - c0) * 1e3 / steps)
         out.append(a.elapsed_time(b) / steps)
     return min(out), statistics.median(out), statistics.median(cpu)
+
+
+def host_us(torch, fn, n=500):
+    """The host's us a launch: the wall time of n calls back to back, no
+    sync between them (fewer than the launch queue holds; the device keeps
+    up, so this is the launch cost the AR loop pays), median of five
+    rounds. (process_time ticks in 10 ms steps on the card's machine.)"""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e6 / n)
+        torch.cuda.synchronize()
+    return statistics.median(out)
 
 
 def main() -> None:
@@ -172,7 +194,33 @@ def main() -> None:
         res16 = torch.zeros(16, D, device="cuda")
         head = (st["whead"], st["shead"], st["bhead"])
         lnf = tuple(st["lnf"])
+        ln0 = st["ln"][0]
+        xd = torch.randn(D, generator=g, device="cuda").bfloat16()
+        x32d = torch.randn(D, generator=g, device="cuda") * 3 + 1
+        x4d = torch.randn(4 * D, generator=g, device="cuda").bfloat16()
+        resd = torch.zeros(D, device="cuda")
+        kq1, vq1 = (torch.randint(-127, 128, (16, 360, D), generator=g,
+                                  device="cuda").to(torch.int8)
+                    for _ in range(2))
+        ks1, vs1 = (torch.rand(16, 360, generator=g, device="cuda") * 0.01
+                    for _ in range(2))
+        q16 = torch.randn(16, 3 * D, generator=g, device="cuda")
+
+        def layer(kind):
+            return st["w" + kind][0], st["s" + kind][0], st["b" + kind][0]
         calls = {
+            "int8_gemv_qkv_ln": lambda: ds.int8_gemv(
+                x32d, *layer("qkv"), ln=(ln0[0], ln0[1])),
+            "int8_gemv_proj": lambda: ds.int8_gemv(xd, *layer("proj"),
+                                                   out=resd),
+            "int8_gemv_fc_ln": lambda: ds.int8_gemv(
+                x32d, *layer("fc"), gelu=True, out_dtype=torch.bfloat16,
+                ln=(ln0[2], ln0[3])),
+            "int8_gemv_out": lambda: ds.int8_gemv(x4d, *layer("out"),
+                                                  out=resd),
+            "int8_gemv_head_lnf": lambda: ds.int8_gemv(x32d, *head, ln=lnf),
+            "serving_attention": lambda: ss.serving_attention(
+                q16, kq1, vq1, ks1, vs1, 353, H),
             "decode_attention": lambda: ds.decode_attention(qkv, kc1, vc1,
                                                             300, H),
             "int8_gemm_rows_fc16": lambda: ss.int8_gemm_rows(
@@ -190,7 +238,8 @@ def main() -> None:
                 ds.layer_norm_rows(x32, *lnf), *head)}
         for name, fn in calls.items():
             kern[name] = dict(device_us=device_us(torch, fn),
-                              ms=time_ms(torch, fn))
+                              ms=time_ms(torch, fn),
+                              host_us=host_us(torch, fn))
         # K1-int4: int4_gemv at fc + gelu and the whole int4 step; K3:
         # vq_nearest at the DVAE round trip's shape
         st4 = ds.stack_qtree_int4(tts._qtree, cfg.gpt.number_mel_codes)

@@ -1,33 +1,33 @@
 #!/usr/bin/env python3
-"""Device time of K1-int4's int4_gemv on one card, and where it goes.
+"""Device time of K1's gemv kernels (int8_gemv, int4_gemv) on one card,
+and where it goes.
 
-    python3 scripts/bench_int4_gemv.py
+    python3 scripts/bench_gemv.py [--bits 8|4]
 
 From the root of a checkout, on a machine with an sm_90 card, nvcc and
 PyTorch built for CUDA. Device time a call is measured as 100 calls
 captured in one CUDA graph and replayed between two CUDA events (median of
-five replays), so the host launch is out of the reading. Random packed int4
-weights (values in [-7, 7]) with per-group scales, D = 1024.
+five replays), so the host launch is out of the reading. Random weights
+(int8 in [-127, 127] with per-column scales, or packed int4 in [-7, 7] with
+per-group scales), D = 1024.
 
 Prints one JSON line with:
-  - "shapes": the K1-int4 step's products (qkv, proj += residual, fc +
-    gelu, out (four groups) += residual, head), each L2-resident (one
+  - "shapes": the K1 step's products (qkv, proj += residual, fc + gelu,
+    out += residual (int4: four groups), head), each L2-resident (one
     weight copy called 100 times) and rotating (the calls cycle through 32
-    copies, 64-150 MB, more than the 50 MB L2), beside torch.matmul on the
+    copies, 32-300 MB, more than the 50 MB L2), beside torch.matmul on the
     dequantized bf16 weights read the same two ways; qkv, fc and head also
     with the norm prologue (ln_1, ln_2, ln_f then final_norm) fused and as
     layer_norm_rows + product ("pair");
-  - "breakdown": proj, fc, out and head (L2-resident) for the kernel as it
-    is and for copies of csrc/decode_step.cu built with one phase removed
-    (outputs wrong, timing only): the merge's fence and counter (out: its
-    four groups merge through the last block), the products, the weight
-    loads, and everything (an empty kernel); and for copies with another
-    split plan (K split until >= 128 blocks), 64 columns a block (with and
-    without that split), or the weights' copies issued before the input's
-    loads (outputs right, each copy called with ample scratch); and, at
-    out only, a copy whose four group chunks merge through distributed
-    shared memory in a cluster of their 4 blocks instead of through the
-    last block and global scratch;
+  - "breakdown": proj, fc, out and head (L2-resident; qkv, fc and head also
+    with the prologue) for the kernel as it is and for copies of
+    csrc/decode_step.cu built with one phase removed (outputs wrong, timing
+    only): the merge's fence and counter (a split K merges through the last
+    block), the products, the weight loads, and everything (an empty
+    kernel); and for copies built otherwise (outputs right, each called
+    with ample scratch): register caps of 4 and 5 blocks an SM, chunks
+    twice as long (int8's out in two chunks, not four), and the weights'
+    copies issued before the input's loads;
   - "timeline": a copy that stamps %globaltimer at the phases of every
     block (ns): the spread of block starts, the median block's time from
     start to its input staged, to its first weights, through its products
@@ -35,6 +35,7 @@ Prints one JSON line with:
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -47,6 +48,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import device_us, rotating  # noqa: E402
 
+KERNEL_HEAD = ("template <int BITS, int LN>\n__global__ void "
+               "__launch_bounds__(GV_THREADS)\ngemv_kernel(")
+
 # variant -> (text of csrc/decode_step.cu, its replacement)
 CUTS = {
     "without the merge's fence and counter": [
@@ -55,64 +59,24 @@ CUTS = {
         ("last = atomicAdd(count + tile, 1u) == (unsigned)ns - 1;",
          "last = q == 0;")],
     "without products": [
-        ("    for (int row = s * rs + lane; row < r1; row += I4_LANES) {",
-         "    for (int row = s * rs + lane; row < 0; row += I4_LANES) {")],
+        ("row < r1; row += GV_LANES) {", "row < 0; row += GV_LANES) {")],
     "without weight loads": [
-        ("c < r1 * CPR; c += I4_THREADS)", "c < 0; c += I4_THREADS)")],
+        ("row < r1; row += GV_THREADS)", "row < 0; row += GV_THREADS)")],
     "empty": [("  __shared__ bool last;\n", "  __shared__ bool last;\n"
                "  if (K > 0) return;\n")],
-    "split to 128 blocks": [("constexpr int I4_MIN_BLOCKS = 32;",
-                             "constexpr int I4_MIN_BLOCKS = 128;")],
-    "64 columns a block": [("constexpr int I4_COLS = 32; ",
-                            "constexpr int I4_COLS = 64; ")],
-    "64 columns a block, split to 128 blocks": [
-        ("constexpr int I4_COLS = 32; ", "constexpr int I4_COLS = 64; "),
-        ("constexpr int I4_MIN_BLOCKS = 32;",
-         "constexpr int I4_MIN_BLOCKS = 128;")],
+    "4 blocks an SM": [(KERNEL_HEAD, KERNEL_HEAD.replace(
+        "(GV_THREADS)", "(GV_THREADS, 4)"))],
+    "5 blocks an SM": [(KERNEL_HEAD, KERNEL_HEAD.replace(
+        "(GV_THREADS)", "(GV_THREADS, 5)"))],
+    "chunks twice as long": [
+        ("static constexpr int MAX_CHUNK = 8192 / BITS;",
+         "static constexpr int MAX_CHUNK = 16384 / BITS;")],
     "weights issued before the input's loads": [
         ("    issue_weights();\n\n", ""),
-        ("  // ---- the epilogue's operands, loaded now ----\n",
+        ("  // ---- the epilogue's operands, loaded now",
          "  issue_weights();\n"
-         "  // ---- the epilogue's operands, loaded now ----\n")],
+         "  // ---- the epilogue's operands, loaded now")],
 }
-
-# the four group chunks of out merged through distributed shared memory in
-# a cluster of the 4 blocks instead of by the last block through global
-# scratch (grid.x must be 4: timed at out only)
-CLUSTER_MERGE = [
-    ("template <bool LN>\n__global__ void __launch_bounds__(I4_THREADS)\n"
-     "int4_gemv_kernel(",
-     "template <bool LN>\n__global__ void __cluster_dims__(4, 1, 1) "
-     "__launch_bounds__(I4_THREADS)\nint4_gemv_kernel("),
-    ("""  if (ns > 1) {
-    // several chunks: the last block of the tile to arrive merges them
-    float* tpart = part + (size_t)tile * ns * I4_COLS;  // [chunk][32]
-    if (tid < I4_COLS) {
-      tpart[q * I4_COLS + tid] = sum;
-      __threadfence();  // the sum is visible before the count moves
-    }
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(count + tile, 1u) == (unsigned)ns - 1;
-    __syncthreads();
-    if (!last) return;
-    if (tid == 0) count[tile] = 0;  // every block of the tile has counted
-  }
-""", """  __shared__ float csum[I4_COLS];
-  cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  if (tid < I4_COLS) csum[tid] = sum;
-  cluster.sync();
-  float dsum[4];
-  if (q == 0 && tid < I4_COLS)
-    for (int rr = 0; rr < 4; ++rr)
-      dsum[rr] = cluster.map_shared_rank(csum, rr)[tid];
-  cluster.sync();
-  if (q != 0) return;
-"""),
-    ("""          sg = __fadd_rn(sg, __ldcg(tpart + (gg * splits + rr) * I4_COLS +
-                                    tid));""",
-     """          sg = __fadd_rn(sg, dsum[gg * splits + rr]);"""),
-]
 
 # the kernel with %globaltimer stamps (ns) taken by thread 0 of every
 # block into scratch: 0 start, 1 loads issued and the input staged, 2 the
@@ -131,28 +95,28 @@ TIMELINE = [
      "    }\n"
      "  };\n"
      "  stamp(0);\n"),
-    ("  // ---- the products: lane l, word j;",
-     "  stamp(1);\n  // ---- the products: lane l, word j;"),
+    ("  // ---- the products: lane l, word j",
+     "  stamp(1);\n  // ---- the products: lane l, word j"),
     ("    __syncthreads();  // group s of every thread, and xs, are visible\n",
      "    __syncthreads();  // group s of every thread, and xs, are visible\n"
      "    if (s == 0) stamp(2);\n"),
     ("  __syncthreads();  // every warp is done with ws, which red reuses\n",
      "  stamp(3);\n"
      "  __syncthreads();  // every warp is done with ws, which red reuses\n"),
-    ("  if (ns > 1) {\n", "  stamp(4);\n  if (ns > 1) {\n"),
+    ("  if (ns > 1) {", "  stamp(4);\n  if (ns > 1) {"),
     ("      reinterpret_cast<float*>(out)[n] = __fadd_rn(po, y);\n    }\n",
      "      reinterpret_cast<float*>(out)[n] = __fadd_rn(po, y);\n    }\n"
      "    stamp(5);\n"),
 ]
 
 
-def build_variant(name, cuts, out_dir):
+def build_variant(name, cuts, out_dir, src_name="decode_step"):
     from xtts_tpu_torch.ops.build import CSRC, NVCC_FLAGS, _nvcc
-    src = (CSRC / "decode_step.cu").read_text()
+    src = (CSRC / f"{src_name}.cu").read_text()
     for old, new in cuts:
         if old not in src:
-            raise SystemExit(f"bench_int4_gemv: {name}: the source no longer "
-                             f"holds {old.strip()!r}")
+            raise SystemExit(f"bench: {name}: the source no longer holds "
+                             f"{old.strip()!r}")
         src = src.replace(old, new)
     cu = out_dir / f"{abs(hash(name))}.cu"
     cu.write_text(src)
@@ -165,9 +129,12 @@ def build_variant(name, cuts, out_dir):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bits", type=int, choices=(8, 4), default=8)
+    bits = ap.parse_args().bits
     import torch
     if not torch.cuda.is_available():
-        raise SystemExit("bench_int4_gemv: no CUDA card")
+        raise SystemExit("bench_gemv: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops.build import build_all
@@ -178,6 +145,12 @@ def main() -> None:
     build_all(("decode_step",))
     g = torch.Generator(device="cuda").manual_seed(0)
     d = 1024
+    gemv = ds.int8_gemv if bits == 8 else ds.int4_gemv
+    cols = ds.I8_COLS if bits == 8 else ds.I4_COLS
+
+    def plan(k, n, groups):
+        return (ds.int8_gemv_plan(k, n) if bits == 8
+                else ds.int4_gemv_plan(k, n, groups))
 
     def norm(n):
         return tuple(1 + 0.1 * torch.randn(d, generator=g, device="cuda")
@@ -185,28 +158,40 @@ def main() -> None:
                      0.1 * torch.randn(d, generator=g, device="cuda")
                      for i in range(2 * n))
 
+    def weights(k, n, groups):
+        if bits == 8:
+            w = torch.randint(-127, 128, (k, n), generator=g,
+                              device="cuda").to(torch.int8)
+            return w, w.float()
+        w4 = torch.randint(-7, 8, (k, n), generator=g,
+                           device="cuda").to(torch.int8)
+        return ds.pack_int4(w4), w4.float()
+
     products = {"qkv": (d, 3 * d, 1, dict(), norm(1)),
                 "proj+res": (d, d, 1, dict(acc=True), None),
                 "fc+gelu": (d, 4 * d, 1, dict(gelu=True,
                                               out_dtype=torch.bfloat16),
                             norm(1)),
-                "out+res": (4 * d, d, 4, dict(acc=True), None),
+                "out+res": (4 * d, d, 1 if bits == 8 else 4,
+                            dict(acc=True), None),
                 "head": (d, 9216, 1, dict(), norm(2))}
     shapes, operands = {}, {}
     for name, (k, n, groups, kw, ln) in products.items():
         kw = dict(kw)
-        copies = [ds.pack_int4(torch.randint(-7, 8, (k, n), generator=g,
-                                             device="cuda").to(torch.int8))
-                  for _ in range(32)]
+        copies, wf = zip(*(weights(k, n, groups) for _ in range(32)))
         sc = torch.rand(groups, n, generator=g, device="cuda") * 0.02 + 1e-3
+        if bits == 8:
+            sc = sc[0]
         b = torch.randn(n, generator=g, device="cuda") * 0.1
         x = torch.randn(k, generator=g, device="cuda").bfloat16()
+        x32 = torch.randn(k, generator=g, device="cuda") * 3 + 1
         if kw.pop("acc", False):
             kw["out"] = torch.zeros(n, device="cuda")
-        operands[name] = (x, copies[0], sc, b, kw)
-        calls = [lambda w=w: ds.int4_gemv(x, w, sc, b, **kw) for w in copies]
-        wb = [(ds.unpack_int4(w).float().reshape(groups, -1, n)
-               * sc[:, None]).reshape(k, n).bfloat16() for w in copies]
+        operands[name] = (x, x32, copies[0], sc, b, kw, ln)
+        calls = [lambda w=w: gemv(x, w, sc, b, **kw) for w in copies]
+        wb = [(w.reshape(groups, -1, n) * sc.reshape(groups, 1, n))
+              .reshape(k, n).bfloat16() for w in wf]
+        del wf
         mms = [lambda w=w: torch.matmul(x[None], w) for w in wb]
         shapes[name] = device_us(torch, calls[0])
         shapes[name + " rotating"] = device_us(torch, rotating(calls))
@@ -214,57 +199,77 @@ def main() -> None:
         shapes[name + " matmul rotating"] = device_us(torch, rotating(mms))
         del wb, mms
         if ln is not None:
-            x32 = torch.randn(k, generator=g, device="cuda") * 3 + 1
             w0 = copies[0]
-            shapes[name + " +ln fused"] = device_us(
-                torch, lambda: ds.int4_gemv(x32, w0, sc, b, ln=ln, **kw))
+            lcalls = [lambda w=w: gemv(x32, w, sc, b, ln=ln, **kw)
+                      for w in copies]
+            shapes[name + " +ln fused"] = device_us(torch, lcalls[0])
+            shapes[name + " +ln fused rotating"] = device_us(
+                torch, rotating(lcalls))
             shapes[name + " +ln pair"] = device_us(
-                torch, lambda: ds.int4_gemv(
-                    ds.layer_norm_rows(x32[None], *ln)[0], w0, sc, b, **kw))
+                torch, lambda: gemv(ds.layer_norm_rows(x32[None], *ln)[0],
+                                    w0, sc, b, **kw))
+        del copies, calls
 
     variants = {"kernel": []}
     variants.update(CUTS)
     variants["timeline"] = TIMELINE
-    variants["cluster merge"] = CLUSTER_MERGE
     breakdown = {}
     part = torch.empty(1 << 22, device="cuda")
     count = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    n_int = 4 if bits == 8 else 5
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         with ThreadPoolExecutor(len(variants)) as pool:
             libs = dict(pool.map(lambda kv: build_variant(kv[0], kv[1],
                                                           Path(tmp)),
                                  variants.items()))
-        P, I = ctypes.c_void_p, ctypes.c_int
         timeline = {}
         for vname, so in libs.items():
-            fn = ctypes.CDLL(str(so)).xt_int4_gemv
-            fn.argtypes = [P] * 7 + [I] * 5 + [P]
-            fn.restype = I
-            for name in ("proj+res", "fc+gelu", "out+res", "head"):
-                if vname == "cluster merge" and name != "out+res":
-                    continue
-                x, w, sc, b, kw = operands[name]
+            lib = ctypes.CDLL(str(so))
+            lib.xt_gemv_setup.restype = I
+            if lib.xt_gemv_setup():      # the carveout, as the wrapper sets
+                raise RuntimeError(f"{vname}: xt_gemv_setup failed")
+            fn = getattr(lib, f"xt_int{bits}_gemv")
+            fn.argtypes = [P] * 7 + [I] * n_int + [P]
+            fn_ln = getattr(lib, f"xt_int{bits}_gemv_ln")
+            fn_ln.argtypes = [P] * 5 + [I] + [P] * 6 + [I] * n_int + [P]
+            fn.restype = fn_ln.restype = I
+            for name in ("qkv", "proj+res", "fc+gelu", "out+res", "head"):
+                x, x32, w, sc, b, kw, ln = operands[name]
                 k, n, groups = products[name][:3]
                 o = torch.zeros(n, device="cuda")
                 mode = 2 if "out" in kw else 0
+                tail = [k, n] + ([] if bits == 8 else [groups]) + [
+                    int(kw.get("gelu", False)), mode,
+                    P(torch.cuda.current_stream().cuda_stream)]
+                ops = [P(t.data_ptr()) for t in (w, sc, b, o, part, count)]
 
-                def call():
-                    rc = fn(*(P(t.data_ptr()) for t in (x, w, sc, b, o, part,
-                                                        count)),
-                            k, n, groups, int(kw.get("gelu", False)), mode,
-                            P(torch.cuda.current_stream().cuda_stream))
+                def call(fused=False):
+                    tail[-1] = P(torch.cuda.current_stream().cuda_stream)
+                    if fused:
+                        nrm = [P(t.data_ptr()) for t in ln]
+                        nrm += nrm[:2] if len(ln) == 2 else []
+                        rc = fn_ln(P(x32.data_ptr()), *nrm, len(ln) // 2,
+                                   *ops, *tail)
+                    else:
+                        rc = fn(P(x.data_ptr()), *ops, *tail)
                     if rc:
                         raise RuntimeError(f"{vname}: CUDA error {rc}")
                 if vname != "timeline":
-                    breakdown[f"{vname}: {name}"] = device_us(torch, call)
+                    if name != "qkv":
+                        breakdown[f"{vname}: {name}"] = device_us(torch, call)
+                    if ln is not None:
+                        breakdown[f"{vname}: {name} +ln"] = device_us(
+                            torch, lambda: call(True))
+                    continue
+                if name == "qkv":
                     continue
                 dbg = part[1 << 21:].view(torch.int64)
                 dbg.zero_()
                 for _ in range(3):       # warm, then the last call's stamps
                     call()
                 torch.cuda.synchronize()
-                blocks = groups * ds.int4_gemv_plan(k, n, groups)[0] * (
-                    n // ds.I4_COLS)
+                blocks = groups * plan(k, n, groups)[0] * (n // cols)
                 t = dbg[:blocks * 8].view(blocks, 8)[:, :6].double()
                 t0 = t[:, 0].min()
                 phase = (t[:, 1:5] - t[:, 0:4]).median(0).values
@@ -274,8 +279,8 @@ def main() -> None:
                     start_spread_ns=float(t[:, 0].max() - t0),
                     median_phase_ns=[float(v) for v in phase],
                     last_store_ns=float(t[stored, 5].max() - t0))
-    print(json.dumps(dict(card=card, plan={
-        name: ds.int4_gemv_plan(k, n, groups)[0]
+    print(json.dumps(dict(card=card, bits=bits, plan={
+        name: plan(k, n, groups)[0]
         for name, (k, n, groups, _, _) in products.items()},
         shapes=shapes, breakdown=breakdown, timeline=timeline)), flush=True)
 

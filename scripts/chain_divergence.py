@@ -18,6 +18,18 @@ differ, and for a product with the norm prologue whether its normalised
 input already differs. It also holds one decode_attention call
 (kernel and plain twin) against an f64 softmax at index 60 and 300: bf16
 outputs that differ from the rounded f64 result. Prints one JSON line.
+
+    python3 scripts/chain_divergence.py --tree DIR --k4 [--seeds 0-7]
+
+runs instead, for each seed, the K4 chain of
+tests/test_torch_port_kernels.py::test_serving_step_chain at its flagship
+case (15 layers, 16 rows, a 54-row int8 prefix, 16 teacher-forced steps;
+seed 0 is the test's own input) through the kernels and through the plain
+step, and counts the greedy picks that differ (the test allows 2 of 256),
+with each one's logit gap beside the step's largest logit difference.
+With --k4-f64 the first chain is the plain step again with
+int8_gemm_rows' products summed in float64: the picks that rounding
+noise in the products alone turns, the floor for the kernel chain.
 Imports no JAX; needs a CUDA card.
 """
 from __future__ import annotations
@@ -37,8 +49,8 @@ def lockstep(torch, ds, st, x, kernel_cache, plain_cache, index, layers,
     step, or None: the layer, the op, the elements that differ and the
     largest difference, and, for a product with the norm prologue, whether
     the prologue's bf16 input already differs (layer_norm_rows, which the
-    fused kernel equals bit for bit, against the twin's
-    layer_norm_rows_plain)."""
+    fused kernel equals bit for bit, against the twin's prologue,
+    normed_input)."""
     bits4 = st.get("bits") == 4
     gemv = (ds.int4_gemv, ds.int8_gemv)[not bits4]
     plain = (ds.int4_gemv_plain, ds.int8_gemv_plain)[not bits4]
@@ -56,7 +68,7 @@ def lockstep(torch, ds, st, x, kernel_cache, plain_cache, index, layers,
             h, ln = ln_input
             at["prologue_input_differs"] = not torch.equal(
                 ds.layer_norm_rows(h[None], *ln)[0],
-                ds.layer_norm_rows_plain(h[None], *ln)[0])
+                ds.normed_input(h[None], ln)[0])
         found.append(at)
 
     def both(layer, op, w, s, b, xs, ln=None, **kw):
@@ -91,12 +103,113 @@ def lockstep(torch, ds, st, x, kernel_cache, plain_cache, index, layers,
     return found[0] if found else None
 
 
+def make_qtree(torch, g, layers, d, vocab, s_max):
+    """The card tests' random int8 tree (tests/test_torch_port_kernels.py
+    _qtree), drawn from g in the same order."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+
+    def w(i, o):
+        return quantize_dense(torch.randn(i, o, generator=g, device="cuda")
+                              / math.sqrt(i))
+
+    def vec(n):
+        return torch.randn(n, generator=g, device="cuda") * 0.1
+
+    def ln():
+        return {"scale": 1.0 + vec(d), "bias": vec(d)}
+
+    return {"layers": [{"ln_1": ln(), "ln_2": ln(), "qkv": w(d, 3 * d),
+                        "qkv_b": vec(3 * d), "proj": w(d, d),
+                        "proj_b": vec(d), "fc": w(d, 4 * d),
+                        "fc_b": vec(4 * d), "out": w(4 * d, d),
+                        "out_b": vec(d)} for _ in range(layers)],
+            "ln_f": ln(), "final_norm": ln(), "mel_head": w(d, vocab),
+            "mel_head_b": vec(vocab),
+            "mel_embedding": (torch.randn(vocab, d, generator=g,
+                                          device="cuda") * 0.3).bfloat16(),
+            "mel_pos_embedding": (torch.randn(s_max, d, generator=g,
+                                              device="cuda")
+                                  * 0.1).bfloat16()}
+
+
+def gemm_rows_f64(torch, ds):
+    """int8_gemm_rows' plain twin with its products summed in float64."""
+    from xtts_tpu_torch.nn.transformer import gelu_new
+
+    def gemm(x, w, scale, bias, out=None, gelu=False,
+             out_dtype=torch.float32, ln=None):
+        if ln is not None:
+            x = ds.normed_input(x, ln)
+        y = (x.double() @ w.double()).float() * scale + bias
+        if gelu:
+            y = gelu_new(y)
+        if out is not None:
+            out += y
+            return out
+        return y.to(out_dtype)
+    return gemm
+
+
+def k4_agreement(torch, seeds, f64=False, layers=15, d=1024, heads=16,
+                 vocab=8194, rows=16, s_max=96, p_len=54):
+    """test_serving_step_chain's K4 chain for each seed (with f64, the
+    plain step with float64 product sums in place of the kernels): {seed:
+    {"differ": greedy picks that differ of 16 x rows, "picks": [[step,
+    row, logit gap in the plain step, the step's largest logit
+    difference], ...]}}."""
+    from xtts_tpu_torch.nn.transformer import KVCache
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    if f64:
+        ops = (gemm_rows_f64(torch, ds), ss.serving_attention_plain)
+
+        def first(*a):
+            return ss._step(ops, *a)
+    else:
+        first = ss.fused_serving_logits
+    out = {}
+    for seed in seeds:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qt = make_qtree(torch, g, layers, d, vocab, s_max)
+        st = ds.stack_qtree(qt, vocab)
+        shape = (layers, rows, s_max, d // 64, 64)
+        k = torch.zeros(shape, device="cuda")
+        v = torch.zeros(shape, device="cuda")
+        for t in (k, v):
+            t[:, :, :p_len] = torch.randn(layers, rows, p_len, d // 64, 64,
+                                          generator=g, device="cuda") * 0.5
+        c1 = ss.quantize_kv_rowwise(KVCache(k.bfloat16(), v.bfloat16()))
+        c2 = [t.clone() for t in c1]
+        picks = []
+        with torch.no_grad():
+            for step in range(16):
+                tok = (torch.arange(rows, device="cuda") * 37 + step) % vocab
+                x = (qt["mel_embedding"][tok]
+                     + qt["mel_pos_embedding"][step][None])
+                got = first(st, x, *c1, p_len + step, layers,
+                            heads)[0][:, :vocab]
+                want = ss.fused_serving_logits_plain(
+                    st, x, *c2, p_len + step, layers, heads)[0][:, :vocab]
+                err = (got - want).abs().max().item()
+                ka, pa = got.argmax(-1), want.argmax(-1)
+                for r in (ka != pa).nonzero().flatten().tolist():
+                    picks.append([step, r, (want[r, pa[r]]
+                                            - want[r, ka[r]]).item(), err])
+        out[seed] = dict(differ=len(picks), picks=picks)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--seeds", default="0-35")
     ap.add_argument("--bits", type=int, choices=(8, 4), default=8,
                     help="4: the chain on the packed int4 stack (int4_gemv)")
+    ap.add_argument("--k4", action="store_true",
+                    help="count the K4 chain test's differing greedy picks")
+    ap.add_argument("--k4-f64", action="store_true",
+                    help="--k4 with the plain step on float64 product sums "
+                         "in place of the kernels")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -104,37 +217,23 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chain_divergence: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     assert Path(ds.__file__).resolve().is_relative_to(tree)
     lo_seed, hi_seed = (int(v) for v in args.seeds.split("-"))
+    if args.k4 or args.k4_f64:
+        per_seed = k4_agreement(torch, range(lo_seed, hi_seed + 1),
+                                f64=args.k4_f64)
+        print(json.dumps(dict(tree=str(tree), seeds=args.seeds, k4=True,
+                              f64=args.k4_f64,
+                              differ={s: r["differ"]
+                                      for s, r in per_seed.items()},
+                              per_seed=per_seed)), flush=True)
+        return
     layers, d, heads, vocab, s_max, p_len = 15, 1024, 16, 8194, 96, 54
     per_seed, first_difference = {}, {}
     for seed in range(lo_seed, hi_seed + 1):
         g = torch.Generator(device="cuda").manual_seed(seed)
-
-        def w(i, o):
-            return quantize_dense(torch.randn(i, o, generator=g,
-                                              device="cuda") / math.sqrt(i))
-
-        def vec(n):
-            return torch.randn(n, generator=g, device="cuda") * 0.1
-
-        def ln():
-            return {"scale": 1.0 + vec(d), "bias": vec(d)}
-
-        qt = {"layers": [{"ln_1": ln(), "ln_2": ln(), "qkv": w(d, 3 * d),
-                          "qkv_b": vec(3 * d), "proj": w(d, d),
-                          "proj_b": vec(d), "fc": w(d, 4 * d),
-                          "fc_b": vec(4 * d), "out": w(4 * d, d),
-                          "out_b": vec(d)} for _ in range(layers)],
-              "ln_f": ln(), "final_norm": ln(), "mel_head": w(d, vocab),
-              "mel_head_b": vec(vocab),
-              "mel_embedding": (torch.randn(vocab, d, generator=g,
-                                            device="cuda") * 0.3).bfloat16(),
-              "mel_pos_embedding": (torch.randn(s_max, d, generator=g,
-                                                device="cuda")
-                                    * 0.1).bfloat16()}
+        qt = make_qtree(torch, g, layers, d, vocab, s_max)
         st = (ds.stack_qtree_int4(qt, vocab) if args.bits == 4
               else ds.stack_qtree(qt, vocab))
         kc = torch.zeros(layers, s_max, d, dtype=torch.bfloat16,

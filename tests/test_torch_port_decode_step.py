@@ -168,8 +168,9 @@ def test_cpu_tensors_take_the_plain_twin():
 
 # ---------------------------------------------------------------------------
 # The norm prologue (ln=): on CPU tensors a fused call is exactly
-# layer_norm_rows_plain then the plain product, and the step built on it is
-# exactly the unfused chain (layer_norm_rows_plain before each product).
+# layer_norm_rows_ordered (the kernels' statistics in their order) then the
+# plain product, and the step built on it is exactly the unfused chain
+# (layer_norm_rows_ordered before each product).
 # ---------------------------------------------------------------------------
 
 def _prologue_kwargs(mode):
@@ -186,7 +187,7 @@ def test_fused_norm_equals_layer_norm_then_product(two, mode):
     x32 = torch.from_numpy(rng.standard_normal(D).astype(np.float32) * 3 + 1)
     ln = tuple(st["lnf"]) if two else (st["ln"][0][2], st["ln"][0][3])
     w, s, b = st["wfc"][0], st["sfc"][0], st["bfc"][0]
-    h = tds.layer_norm_rows_plain(x32[None], *ln)[0]
+    h = tds.layer_norm_rows_ordered(x32[None], *ln)[0]
     tds.reset_launch_counts()
     if mode == "acc":
         base = torch.from_numpy(rng.standard_normal(w.shape[1]).astype(
@@ -203,24 +204,24 @@ def test_fused_norm_equals_layer_norm_then_product(two, mode):
 
 
 def _unfused_step(st, x, kc, vc, index):
-    """The step as it ran before the prologues: layer_norm_rows_plain then
-    the plain product."""
+    """The step as it ran before the prologues: the standalone norm's twin
+    (layer_norm_rows_ordered) then the plain product."""
     gemv = (tds.int4_gemv_plain if st.get("bits") == 4
             else tds.int8_gemv_plain)
     x32 = x.float().reshape(1, -1).clone()
     h_res = x32[0]
     for li in range(LAYERS):
         ln = st["ln"][li]
-        h = tds.layer_norm_rows_plain(x32, ln[0], ln[1])[0]
+        h = tds.layer_norm_rows_ordered(x32, ln[0], ln[1])[0]
         qkv = gemv(h, st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
         att = tds.decode_attention_plain(qkv, kc[li], vc[li], index, HEADS)
         gemv(att, st["wproj"][li], st["sproj"][li], st["bproj"][li],
              out=h_res)
-        h2 = tds.layer_norm_rows_plain(x32, ln[2], ln[3])[0]
+        h2 = tds.layer_norm_rows_ordered(x32, ln[2], ln[3])[0]
         m = gemv(h2, st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
                  out_dtype=torch.bfloat16)
         gemv(m, st["wout"][li], st["sout"][li], st["bout"][li], out=h_res)
-    xh = tds.layer_norm_rows_plain(x32, *st["lnf"])[0]
+    xh = tds.layer_norm_rows_ordered(x32, *st["lnf"])[0]
     return gemv(xh, st["whead"], st["shead"], st["bhead"])[None]
 
 
@@ -241,11 +242,12 @@ def test_step_with_prologues_equals_unfused_chain(bits, index):
 
 
 @pytest.mark.parametrize("k,n", [(128, 384), (100, 64), (512, 128),
-                                 (1024, 96)])
+                                 (1024, 96), (2048, 64), (3000, 32)])
 @pytest.mark.parametrize("acc", [False, True])
 def test_int8_gemv_plain_within_one_rounding_a_term(k, n, acc):
-    """int8_gemv_plain sums in int8_gemv's order (32 strided partials, then
-    the partials in order) and rounds the epilogue's product and sum
+    """int8_gemv_plain sums in int8_gemv's order (int8_gemv_plan's chunks;
+    in each, 64 lanes of strided rows folded 8 at a time, then the folds
+    and the chunks in order) and rounds the epilogue's product and sum
     separately: the result equals the float64 (x . W) * scale + bias (+ out)
     within one f32 rounding a term (bf16 x int8 products are exact in f32;
     each of at most k adds rounds once relative to the running sum, bounded
@@ -270,3 +272,73 @@ def test_int8_gemv_plain_within_one_rounding_a_term(k, n, acc):
         got = tds.int8_gemv_plain(x, w, scale, bias)
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert ((got.double() - want).abs() <= bound).all()
+
+
+# ---------------------------------------------------------------------------
+# P2: layer_norm_rows_ordered, the twin of the kernels' norm statistics
+# ---------------------------------------------------------------------------
+
+def _norm_params(rng, d, two):
+    return tuple(torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32))
+                 if i % 2 == 0 else
+                 torch.from_numpy(rng.uniform(-0.2, 0.2, d).astype(np.float32))
+                 for i in range(4 if two else 2))
+
+
+@pytest.mark.parametrize("d,two", [(128, False), (128, True), (100, True),
+                                   (1024, True)])
+def test_layer_norm_rows_ordered_matches_jax_ln(d, two):
+    """The ordered twin against the JAX kernels' `_ln` (f32 statistics,
+    eps 1e-5; two norms: the second over the first's f32 output), both
+    rounded to bf16 once at the end. The two sum in other orders and take
+    rsqrt differently, so a value may round to the neighbouring bf16: the
+    bound is one bf16 step, 2^-7 |y|, plus 1e-6 for values near 0."""
+    rng = np.random.default_rng(d + two)
+    x = rng.standard_normal((3, d)).astype(np.float32) * 3 + 1
+    ln = _norm_params(rng, d, two)
+    got = tds.layer_norm_rows_ordered(torch.from_numpy(x), *ln).float()
+    y = jds._ln(jnp.asarray(x), jnp.asarray(ln[0].numpy()),
+                jnp.asarray(ln[1].numpy()))
+    if two:
+        y = jds._ln(y, jnp.asarray(ln[2].numpy()), jnp.asarray(ln[3].numpy()))
+    want = torch.from_numpy(np.asarray(y.astype(jnp.bfloat16), np.float32))
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,two", [(128, False), (100, True), (1024, True)])
+def test_layer_norm_rows_ordered_matches_plain(d, two):
+    """The ordered twin against layer_norm_rows_plain (torch's reductions),
+    within the same one bf16 step."""
+    rng = np.random.default_rng(7 * d + two)
+    x = torch.from_numpy(rng.standard_normal((5, d)).astype(np.float32) * 3
+                         + 1)
+    ln = _norm_params(rng, d, two)
+    got = tds.layer_norm_rows_ordered(x, *ln).float()
+    want = tds.layer_norm_rows_plain(x, *ln).float()
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [100, 256, 1024, 1500])
+def test_sum256_repeats_block_sum256(d):
+    """_sum256 equals block_sum256's order written out one f32 add at a
+    time (numpy float32): virtual thread t adds elements t, t + 256, ...;
+    the 32 lanes of each virtual warp fold by a butterfly (xor 16, 8, 4, 2,
+    1); the 8 warp sums, lanes 8..31 zero, by the same butterfly."""
+    rng = np.random.default_rng(d)
+    v = rng.standard_normal((2, d)).astype(np.float32) * 10
+
+    def butterfly(lanes):
+        lanes = list(lanes)
+        for o in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[i] + lanes[i ^ o]) for i in range(32)]
+        return lanes[0]
+
+    for r in range(2):
+        acc = [np.float32(0)] * 256
+        for t in range(256):
+            for i in range(t, d, 256):
+                acc[t] = np.float32(acc[t] + v[r, i])
+        warps = [butterfly(acc[32 * w:32 * w + 32]) for w in range(8)]
+        want = butterfly(warps + [np.float32(0)] * 24)
+        got = tds._sum256(torch.from_numpy(v))[r, 0].item()
+        assert np.float32(got) == want

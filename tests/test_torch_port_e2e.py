@@ -73,6 +73,19 @@ def randomize(tree, rng):
     return out
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while a file that drives the model runs
+    (imported by the port's other model-level test files): the suite runs
+    in parallel workers on shared cores, where each worker's own thread pool
+    oversubscribes them and the plain twins' many small ops slow down
+    many-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jtts = japi.TextToSpeech(TINY, rng=jax.random.PRNGKey(0),

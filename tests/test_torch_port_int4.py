@@ -23,6 +23,7 @@ from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
 
 from test_torch_port_decode_step import (D, HEADS, LAYERS, S_MAX,  # noqa: E402
                                          VOCAB, _x, make_cache, make_qtrees)
+from test_torch_port_e2e import one_torch_thread  # noqa: E402,F401
 
 TOL = 2e-2      # tests/test_decode_step.py's bound, relative to max(1, |.|)
 
@@ -289,8 +290,9 @@ def test_r5_int4_stack_refused_by_k4(gate_pair, monkeypatch):
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("groups", [1, 4])
 def test_int4_fused_norm_equals_layer_norm_then_product(groups, two, mode):
-    """ln= on CPU tensors: exactly layer_norm_rows_plain then the plain
-    int4 product, with one scale group or four along K."""
+    """ln= on CPU tensors: exactly layer_norm_rows_ordered (the kernels'
+    statistics in their order) then the plain int4 product, with one scale
+    group or four along K."""
     rng = np.random.default_rng(12 + groups)
     n = 3 * D
     w4 = torch.from_numpy(rng.integers(-7, 8, (D, n)).astype(np.int8))
@@ -302,7 +304,7 @@ def test_int4_fused_norm_equals_layer_norm_then_product(groups, two, mode):
                torch.from_numpy(rng.uniform(-0.2, 0.2, D)).float()
                for i in range(4 if two else 2))
     w = tds.pack_int4(w4)
-    h = tds.layer_norm_rows_plain(x32[None], *ln)[0]
+    h = tds.layer_norm_rows_ordered(x32[None], *ln)[0]
     tds.reset_launch_counts()
     if mode == "acc":
         base = torch.from_numpy(rng.standard_normal(n).astype(np.float32))

@@ -13,7 +13,10 @@ bound), flash attention 1e-2 against f32 attention on the same bf16
 inputs; K3 codes equal up to fp32 ties (the bound at _vq_agree); K4 as K1,
 with the new int8 cache rows within +-1. A product with the norm prologue
 (ln=) equals layer_norm_rows then the unfused product bit for bit (both
-fold the statistics in one order), and its plain twin within 1e-2.
+fold the statistics in one order), and its plain twin bit for bit where
+the twin repeats the kernel's order (int8_gemv, int4_gemv without gelu),
+else within 1e-2. layer_norm_rows, int8_gemv, int4_gemv, decode_attention
+and serving_attention equal their ordered twins bit for bit.
 """
 import math
 
@@ -75,6 +78,26 @@ def test_layer_norm_rows(cuda, rows, d, two):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("rows,d,two", [(1, 1024, False), (1, 1024, True),
+                                        (3, 128, False), (2, 4096, True),
+                                        (5, 100, True), (4096, 1024, True)])
+def test_layer_norm_rows_is_its_ordered_twin_bit_for_bit(cuda, rows, d, two):
+    """layer_norm_rows_ordered repeats the kernel's statistics (the 256-way
+    partials, the butterflies, the divisions) and its explicitly rounded
+    normalisation in order: on the card the two give the same bits, so
+    the kernel's rsqrtf and torch.rsqrt agree on every row (4096 rows: 8192
+    variances)."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    x = torch.randn(rows, d, generator=cuda, device="cuda") * 3 + 1
+    p = [1 + 0.1 * torch.randn(d, generator=cuda, device="cuda")
+         for _ in range(4)]
+    args = p if two else p[:2]
+    got = ds.layer_norm_rows(x, *args)
+    want = ds.layer_norm_rows_ordered(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("k,n,gelu,mode", [
     (1024, 3072, False, "f32"), (1024, 1024, False, "acc"),
     (1024, 4096, True, "bf16"), (4096, 1024, False, "acc"),
@@ -106,21 +129,30 @@ def test_int8_gemv(cuda, k, n, gelu, mode):
 
 K1_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
              (1024, 9216)]
+# int8_gemv's plan edges: a ragged chunk, K split 2, 3 and 16 ways
+I8_EDGES = [(100, 64), (2048, 64), (3000, 32), (4096, 32), (12288, 32)]
 
 
-def test_gemv_kthreads_is_the_kernels(cuda):
-    """int8_gemv_plain's partial count is csrc's GEMV_KTHREADS."""
+def test_int8_gemv_plan_is_the_kernels(cuda):
+    """int8_gemv_plan (the twin's chunks) equals csrc's gv_splits / gv_lo
+    at every K1 shape and over a sweep of K and N."""
     from xtts_tpu_torch.ops import decode_step as ds
-    assert ds.kernel_gemv_kthreads() == ds.GEMV_KTHREADS
+    cases = K1_SHAPES + I8_EDGES + [
+        (k, n) for k in list(range(16, 5000, 61)) + [8192, 12288]
+        for n in (32, 64, 96, 512, 1024, 4096, 9216)]
+    for k, n in cases:
+        assert ds.kernel_int8_gemv_plan(k, n) == ds.int8_gemv_plan(k, n), \
+            (k, n)
 
 
 @pytest.mark.parametrize("mode", ["f32", "acc"])
-@pytest.mark.parametrize("k,n", K1_SHAPES)
+@pytest.mark.parametrize("k,n", K1_SHAPES + I8_EDGES)
 def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
-    """The plain twin sums in the kernel's order (32 strided partials, then
-    the partials in order) and rounds the epilogue's product and sum
+    """The plain twin sums in the kernel's order (int8_gemv_plan's chunks;
+    in each, 64 lanes of strided rows, folded 8 at a time, then the folds
+    and the chunks in order) and rounds the epilogue's product and sum
     separately, as the kernel does: without gelu the two give the same
-    bits at every K1 shape."""
+    bits at every K1 shape and at the plan's edges."""
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
@@ -143,12 +175,14 @@ def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
 @pytest.mark.parametrize("k,n,groups", [(1024, 3072, 1), (1024, 1024, 1),
                                         (1024, 4096, 1), (4096, 1024, 4),
                                         (1024, 9216, 1), (384, 160, 3),
-                                        (100, 64, 1), (4096, 32, 1)])
+                                        (100, 64, 1), (4096, 32, 1),
+                                        (256, 9248, 1)])
 def test_int4_gemv_is_its_twin_bit_for_bit(cuda, k, n, groups, mode):
     """int4_gemv_plain repeats the kernel's split-K sums (lanes, chunks,
     groups, each in order) and its explicitly rounded epilogue: without
     gelu the two give the same bits, at every K1-int4 shape, at a ragged
-    chunk (K 100), three groups, and K split in 16 chunks (N 32)."""
+    chunk (K 100), three groups, K split in 16 chunks (N 32), and blocks
+    of two column tiles with a last block of one (N 9248)."""
     from xtts_tpu_torch.ops import decode_step as ds
     x, w, scale, bias = _int4_operands(cuda, k, n, groups)
     if mode == "acc":
@@ -414,9 +448,13 @@ def _fused_vs_unfused(fused, unfused, plain, x32, ln, rows_n, mode, g):
     return got, ref, want
 
 
-def _assert_prologue(got, ref, want):
+def _assert_prologue(got, ref, want, exact=False):
+    """got == ref (layer_norm_rows + product) bit for bit; got == want (the
+    plain twin) bit for bit where `exact`, else within 1e-2 relative."""
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, ref)
+    if exact:
+        assert torch.equal(got, want)
     scale_y = max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale_y
 
@@ -440,7 +478,7 @@ def test_int8_gemv_norm_prologue(cuda, d, two, mode):
         lambda x, **kw: ds.int8_gemv_plain(x, q["w"], q["scale"], bias, **kw),
         x32, ln, n, mode, cuda)
     assert ds.int8_gemv.ln_launches == 1 and ds.int8_gemv.launches == 2
-    _assert_prologue(got, ref, want)
+    _assert_prologue(got, ref, want, exact=mode != "bf16+gelu")
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
@@ -460,7 +498,7 @@ def test_int4_gemv_norm_prologue(cuda, d, groups, two, mode):
         lambda x, **kw: ds.int4_gemv_plain(x, w, scale, bias, **kw),
         x32, ln, n, mode, cuda)
     assert ds.int4_gemv.ln_launches == 1 and ds.int4_gemv.launches == 2
-    _assert_prologue(got, ref, want)
+    _assert_prologue(got, ref, want, exact=mode != "bf16+gelu")
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
@@ -547,7 +585,9 @@ def test_split_kernels_repeat_bit_for_bit(cuda):
     give the same bits (decode_attention at S 360 and 16384;
     int8_gemm_rows split 2, 4 and 8 ways, with and without the prologue;
     int4_gemv at fc, out (four groups), head and K split 16 ways, with and
-    without the prologue; vq_nearest at the DVAE's shape)."""
+    without the prologue; int8_gemv at fc + ln_2, out (K split 4 ways)
+    and K split 16 ways; serving_attention at index 353 and 2047 of 2048;
+    vq_nearest at the DVAE's shape)."""
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
@@ -594,6 +634,30 @@ def test_split_kernels_repeat_bit_for_bit(cuda):
             first = call()
             for _ in range(9):
                 assert torch.equal(call(), first)
+    from xtts_tpu_torch.infer.qdecode import quantize_dense as qd
+    for k, n in ((1024, 4096), (4096, 1024), (4096, 32)):
+        q8 = qd(torch.randn(k, n, generator=cuda, device="cuda")
+                / math.sqrt(k))
+        bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+        x = torch.randn(k, generator=cuda, device="cuda")
+        calls = [lambda: ds.int8_gemv(x.bfloat16(), q8["w"], q8["scale"],
+                                      bias)]
+        if k == d:
+            calls.append(lambda: ds.int8_gemv(x, q8["w"], q8["scale"], bias,
+                                              ln=ln[:2], gelu=True,
+                                              out_dtype=torch.bfloat16))
+        for call in calls:
+            first = call()
+            for _ in range(9):
+                assert torch.equal(call(), first)
+    for s_max, idx in ((354, 353), (2048, 2047)):
+        kc, vc, ks, vs = (t[0].contiguous() for t in _serving_cache(
+            cuda, 1, 16, s_max, d, idx))
+        qkv = torch.randn(16, 3 * d, generator=cuda, device="cuda")
+        first = ss.serving_attention(qkv, kc, vc, ks, vs, idx, 16)
+        for _ in range(9):
+            assert torch.equal(ss.serving_attention(qkv, kc, vc, ks, vs,
+                                                    idx, 16), first)
     xv = torch.randn(3008, 512, generator=cuda, device="cuda")
     emb = torch.randn(512, 8192, generator=cuda, device="cuda")
     first = vq.vq_nearest(xv, emb)
@@ -640,7 +704,7 @@ def test_decode_attention_is_its_twin_bit_for_bit(cuda, s_max, idx):
 def test_split_bounds_are_the_kernels(cuda):
     """The Python copies of the kernels' chunk bounds (attention_bounds,
     gemm_rows_plan, int4_gemv_plan) equal what csrc computes (att_lo,
-    gr_lo, i4_splits / i4_lo), int4_gemv's at every K1-int4 shape and over
+    gr_lo, gv_splits / gv_lo), int4_gemv's at every K1-int4 shape and over
     a sweep of K, N and group counts."""
     from xtts_tpu_torch.ops import decode_step as ds
     from xtts_tpu_torch.ops import serving_step as ss
@@ -829,8 +893,15 @@ def test_int8_gemm_rows(cuda, rows, k, n, gelu, mode):
 
 @pytest.mark.parametrize("rows,heads,s_max,idx", [
     (16, 16, 360, 354), (16, 16, 360, 0), (8, 16, 360, 200),
-    (32, 16, 200, 150), (3, 2, 40, 17)])
+    (32, 16, 200, 150), (3, 2, 40, 17), (16, 16, 354, 1),
+    (16, 16, 354, 353), (16, 16, 354, 127), (16, 16, 354, 128),
+    (16, 16, 354, 129), (8, 16, 2048, 2047), (2, 4, 20000, 19999)])
 def test_serving_attention(cuda, rows, heads, s_max, idx):
+    """The kernel and its plain twin run the same explicitly rounded f32
+    operations in the same order (chunks of 128 positions, a ring of 4
+    chunk slots past 512): the same bits out and in the new cache rows and
+    scales, at idx 0, 1, the chunk edges, S - 1 of the serving path's 354
+    and of longer caches (any index < S)."""
     from xtts_tpu_torch.ops import serving_step as ss
     d = heads * 64
     kc, vc, ks, vs = (t[0].contiguous() for t in _serving_cache(
@@ -842,12 +913,30 @@ def test_serving_attention(cuda, rows, heads, s_max, idx):
     want = ss.serving_attention_plain(qkv, k2, v2, ks2, vs2, idx, heads)
     torch.cuda.synchronize()
     assert ss.serving_attention.launches == 1
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
-                               atol=1e-2)
-    assert (kc.int() - k2.int()).abs().max() <= 1
-    assert (vc.int() - v2.int()).abs().max() <= 1
-    torch.testing.assert_close(ks, ks2, rtol=1e-6, atol=0)
-    torch.testing.assert_close(vs, vs2, rtol=1e-6, atol=0)
+    assert torch.equal(got, want)
+    for a, b in ((kc, k2), (vc, v2), (ks, ks2), (vs, vs2)):
+        assert torch.equal(a, b)
+
+
+def test_serving_attention_refuses_what_it_does_not_take(cuda):
+    """index outside [0, S) and a cache that starts off a 16-byte boundary
+    are refused before launch."""
+    from xtts_tpu_torch.ops import serving_step as ss
+    d, s_max = 128, 40
+    qkv = torch.randn(2, 3 * d, device="cuda")
+    kc = torch.zeros(2, s_max, d, dtype=torch.int8, device="cuda")
+    ks = torch.ones(2, s_max, device="cuda")
+    flat = torch.zeros(2 * s_max * d + 16, dtype=torch.int8, device="cuda")
+    bad = flat[3:3 + 2 * s_max * d].view(2, s_max, d)
+    launches = ss.serving_attention.launches
+    for idx in (-1, s_max):
+        with pytest.raises(ValueError):
+            ss.serving_attention(qkv, kc, kc.clone(), ks, ks.clone(), idx, 2)
+    with pytest.raises(ValueError):
+        ss.serving_attention(qkv, bad, kc, ks, ks.clone(), 5, 2)
+    assert ss.serving_attention.launches == launches
+    ss.serving_attention(qkv, kc, kc.clone(), ks, ks.clone(), s_max - 1, 2)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("layers,d,heads,vocab,rows", [
@@ -875,7 +964,7 @@ def test_serving_step_chain(cuda, layers, d, heads, vocab, rows):
         assert (got - want).abs().max().item() <= 2e-2 * scale, step
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     torch.cuda.synchronize()
-    assert agree >= 16 * rows - 2
+    assert agree >= 16 * rows - 2, f"{16 * rows - agree} picks differ"
     assert ss.fused_serving_logits.launches == 16
     assert ss.int8_gemm_rows.launches == 16 * (4 * layers + 1)
     assert ss.int8_gemm_rows.ln_launches == 16 * (2 * layers + 1)

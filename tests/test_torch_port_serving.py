@@ -26,7 +26,8 @@ from xtts_tpu_torch.infer import api as tapi, qdecode as tq  # noqa: E402
 from xtts_tpu_torch.infer import serving as tserv  # noqa: E402
 from xtts_tpu_torch.ops import serving_step as tss  # noqa: E402
 
-from test_torch_port_e2e import TINY, randomize  # noqa: E402
+from test_torch_port_e2e import (TINY, one_torch_thread,  # noqa: E402,F401
+                                 randomize)
 
 CFG = TINY.replace(clvp=CLVPConfig(
     dim_text=32, dim_speech=32, dim_latent=16, num_text_tokens=256,

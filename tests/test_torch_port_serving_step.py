@@ -9,6 +9,8 @@ probabilities at the same places but sum in another order); the new int8
 cache rows within +-1 (a rounding tie may fall either way; counted); the
 row scales within 1e-6 relative at layer 0 and 2e-2 deeper; a greedy pick that differs must be a tie
 within 2x the step's logit error."""
+import math
+
 import numpy as np
 import pytest
 
@@ -68,9 +70,9 @@ def to_port(tree):
     return torch.from_numpy(np.array(a))
 
 
-def make_cache(seed, prefix_len):
+def make_cache(seed, prefix_len, s_max=S_MAX):
     rng = np.random.default_rng(seed)
-    shape = (LAYERS, B, S_MAX, HEADS, D // HEADS)
+    shape = (LAYERS, B, s_max, HEADS, D // HEADS)
     k, v = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
     for a in (k, v):
         a[:, :, :prefix_len] = rng.standard_normal(
@@ -80,9 +82,9 @@ def make_cache(seed, prefix_len):
     return jc, tc
 
 
-def jax_step(jqt, jcache, tok, mel_pos, index):
+def jax_step(jqt, jcache, tok, mel_pos, index, s_max=S_MAX):
     stacked = jds.stack_qtree(jqt, VOCAB)
-    kc, vc, ks, vs = jss.quantize_kv_rowwise(jcache, S_MAX)
+    kc, vc, ks, vs = jss.quantize_kv_rowwise(jcache, s_max)
     x = jqt["mel_embedding"][tok] + jqt["mel_pos_embedding"][
         jnp.atleast_1d(mel_pos)]
     out = jss.fused_serving_logits(stacked, x, kc, vc, ks, vs, index,
@@ -106,12 +108,30 @@ def test_quantize_kv_rowwise_identical():
 
 @pytest.mark.parametrize("index", [3, 40, S_MAX - 1])
 def test_single_step_matches_jax_kernel(index):
+    _single_step(index, S_MAX)
+
+
+def test_single_step_across_chunks_matches_jax_kernel(monkeypatch):
+    """A cache of two 128-position chunks: the online softmax's merge
+    across chunks (both sides rescale by exp(m_old - m_new)) against the
+    JAX kernel's, at the same tolerances. At this width the JAX kernel
+    would take the whole cache as one chunk (_pick_chunk); its test
+    override XTTS_SERVING_CHUNK holds it to the port's 128."""
+    monkeypatch.setenv("XTTS_SERVING_CHUNK", "128")
+    jss._fused_serving_logits.clear_cache()
+    try:
+        _single_step(200, 2 * S_MAX)
+    finally:
+        jss._fused_serving_logits.clear_cache()
+
+
+def _single_step(index, s_max):
     jqt = make_qtree(0)
     tqt = to_port(jqt)
-    jc, tc = make_cache(7 + index, index)
+    jc, tc = make_cache(7 + index, index, s_max)
     tok = np.arange(B) % 5 + 1
     jl, jkc, jvc, jks, jvs = jax_step(jqt, jc, jnp.asarray(tok, jnp.int32),
-                                      4, index)
+                                      4, index, s_max)
     cache4 = tss.quantize_kv_rowwise(tc)
     before = [t.clone() for t in cache4]
     tss.reset_launch_counts()
@@ -120,6 +140,7 @@ def test_single_step_matches_jax_kernel(index):
     assert tss.fused_serving_logits.launches == 0      # CPU: plain twins
     got, want = tl.numpy()[:, :VOCAB], jl[:, :VOCAB]
     err = np.abs(got - want).max()
+    print(f"index {index}: logits within {err:.3e} of the JAX kernel's")
     assert err <= TOL * max(1.0, np.abs(want).max()), err
     assert tl.numpy()[:, VOCAB:].max() < -1e8
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
@@ -138,7 +159,7 @@ def test_single_step_matches_jax_kernel(index):
         np.testing.assert_allclose(g[1:, :, index].numpy(), w[1:, :, index],
                                    rtol=TOL)
     # nothing else moved
-    mask = torch.arange(S_MAX) != index
+    mask = torch.arange(s_max) != index
     for g, b0 in zip((tkc, tvc, tks, tvs), before):
         assert torch.equal(g[:, :, mask], b0[:, :, mask])
 
@@ -237,14 +258,14 @@ def test_any_row_count(rows):
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("rows", [1, 8, 16, 32])
 def test_fused_norm_equals_layer_norm_then_product(rows, two):
-    """ln= on CPU tensors: exactly layer_norm_rows_plain of every row, then
-    the plain product."""
+    """ln= on CPU tensors: exactly layer_norm_rows_ordered of every row
+    (the kernels' statistics in their order), then the plain product."""
     st = tds.stack_qtree(to_port(make_qtree(5)), VOCAB)
     rng = np.random.default_rng(rows)
     x32 = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32)
                            * 3 + 1)
     ln = tuple(st["lnf"]) if two else (st["ln"][1][0], st["ln"][1][1])
-    h = tds.layer_norm_rows_plain(x32, *ln)
+    h = tds.layer_norm_rows_ordered(x32, *ln)
     tss.reset_launch_counts()
     for kind, kw in (("qkv", {}), ("fc", dict(gelu=True,
                                               out_dtype=torch.bfloat16))):
@@ -263,7 +284,8 @@ def test_fused_norm_equals_layer_norm_then_product(rows, two):
 
 def test_step_with_prologues_equals_unfused_chain():
     """The K4 step through the plain twins equals the chain as it ran before
-    the prologues (layer_norm_rows_plain, then the product)."""
+    the prologues (the standalone norm's twin layer_norm_rows_ordered,
+    then the product)."""
     tqt = to_port(make_qtree(6))
     st = tds.stack_qtree(tqt, VOCAB)
     _, tc = make_cache(13, 25)
@@ -277,17 +299,67 @@ def test_step_with_prologues_equals_unfused_chain():
     gemm = tss.int8_gemm_rows_plain
     for li in range(LAYERS):
         ln = st["ln"][li]
-        qkv = gemm(tds.layer_norm_rows_plain(x32, ln[0], ln[1]),
+        qkv = gemm(tds.layer_norm_rows_ordered(x32, ln[0], ln[1]),
                    st["wqkv"][li], st["sqkv"][li], st["bqkv"][li])
         att = tss.serving_attention_plain(qkv, kc[li], vc[li], ks[li],
                                           vs[li], 25, HEADS)
         gemm(att, st["wproj"][li], st["sproj"][li], st["bproj"][li], out=x32)
-        m = gemm(tds.layer_norm_rows_plain(x32, ln[2], ln[3]),
+        m = gemm(tds.layer_norm_rows_ordered(x32, ln[2], ln[3]),
                  st["wfc"][li], st["sfc"][li], st["bfc"][li], gelu=True,
                  out_dtype=torch.bfloat16)
         gemm(m, st["wout"][li], st["sout"][li], st["bout"][li], out=x32)
-    want = gemm(tds.layer_norm_rows_plain(x32, *st["lnf"]), st["whead"],
+    want = gemm(tds.layer_norm_rows_ordered(x32, *st["lnf"]), st["whead"],
                 st["shead"], st["bhead"])
     assert torch.equal(got, want)
     for a, b in zip(c1, c2):
         assert torch.equal(a, b)
+
+
+def _two_pass_attention(qkv, kc, vc, ks, vs, index, heads):
+    """The TPU kernel's attention in float64 with one softmax over all
+    positions: each q.k product rounded to bf16 (q rounded to bf16 first;
+    the current token's k q product from f32), the k scale folded into the
+    scores, the v scale into the values, the current token exact."""
+    b, d = qkv.shape[0], kc.shape[-1]
+    hd = d // heads
+    q, knew, vnew = qkv.float().split(d, dim=-1)
+    qb = q.bfloat16().float().reshape(b, 1, heads, hd)
+    kk = kc[:, :index].float().reshape(b, index, heads, hd)
+    s = ((kk * qb).bfloat16().double().sum(-1)
+         * ks[:, :index, None].double() / math.sqrt(hd))
+    self_s = ((knew * q).bfloat16().double().reshape(b, heads, hd).sum(-1)
+              / math.sqrt(hd))
+    p = torch.softmax(torch.cat([s, self_s[:, None]], 1), 1)
+    vv = (vc[:, :index].double().reshape(b, index, heads, hd)
+          * vs[:, :index, None, None].double())
+    vv = torch.cat([vv, vnew.double().reshape(b, 1, heads, hd)], 1)
+    return (p[..., None] * vv).sum(1).reshape(b, d)
+
+
+@pytest.mark.parametrize("index", [0, 1, 127, 128, 129, 300])
+def test_serving_attention_plain_matches_one_softmax(index):
+    """The twin's online softmax over 128-position chunks (the kernel's
+    order: probabilities rounded to bf16 against the running max, chunk
+    sums merged as acc * alpha + contrib) against one float64 softmax over
+    all positions, at index 0, 1 and the chunk edges. Bound: 1e-2 x max(1,
+    |out|), the single ops' bound (bf16 probabilities and output)."""
+    rng = np.random.default_rng(index)
+    b, s_max, heads = 3, 320, 2
+    d = heads * 64
+    qkv = torch.from_numpy(rng.standard_normal((b, 3 * d)).astype(
+        np.float32))
+    kc = torch.from_numpy(rng.integers(-127, 128, (b, s_max, d)).astype(
+        np.int8))
+    vc = torch.from_numpy(rng.integers(-127, 128, (b, s_max, d)).astype(
+        np.int8))
+    ks = torch.from_numpy(rng.uniform(1e-3, 1e-2, (b, s_max)).astype(
+        np.float32))
+    vs = torch.from_numpy(rng.uniform(1e-3, 1e-2, (b, s_max)).astype(
+        np.float32))
+    want = _two_pass_attention(qkv, kc, vc, ks, vs, index, heads)
+    kq, ksc = tss.quantize_rows(qkv[:, d:2 * d])
+    got = tss.serving_attention(qkv, kc, vc, ks, vs, index, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, d)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-2 * max(1.0, want.abs().max().item()), err
+    assert torch.equal(kc[:, index], kq) and torch.equal(ks[:, index], ksc)

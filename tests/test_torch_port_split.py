@@ -167,8 +167,8 @@ def test_int4_plan_covers_each_group_exactly(k, n, groups):
                for lo, hi in zip(bounds, bounds[1:]))
     blocks = -(-n // tds.I4_COLS) * groups * s
     if (k, n) in FLAGSHIP.values():
-        assert s == 1 and blocks >= tds.I4_MIN_BLOCKS
-    elif -(-n // tds.I4_COLS) * groups < tds.I4_MIN_BLOCKS and kg >= 128:
+        assert s == 1 and blocks >= tds.GV_MIN_BLOCKS
+    elif -(-n // tds.I4_COLS) * groups < tds.GV_MIN_BLOCKS and kg >= 128:
         assert s > 1           # narrow products split K for more blocks
 
 
@@ -189,3 +189,62 @@ def test_ordered_int4_sums_within_one_rounding_a_term(k, n, groups):
     bound = (k // groups) * 2.0 ** -24 * xw.abs().sum(1)
     assert got.shape == (groups, n)
     assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("k,n", list(FLAGSHIP.values()) + [
+    (128, 384), (128, 128), (128, 512), (512, 128), (100, 64), (2048, 64),
+    (3000, 32), (12288, 32)])
+def test_int8_plan_covers_k_exactly(k, n):
+    """int8_gemv_plan splits K into chunks of whole 16-row steps (the
+    ragged end excepted) of at most 1024 rows (16 KB a block) that cover K
+    in order; of the K1 products only the out matrix (K 4096) splits, in
+    four; narrow products split until they make 32 blocks."""
+    s, bounds = tds.int8_gemv_plan(k, n)
+    assert len(bounds) == s + 1 and bounds[0] == 0 and bounds[-1] == k
+    covered = [i for lo, hi in zip(bounds, bounds[1:]) for i in range(lo, hi)]
+    assert covered == list(range(k))
+    assert all(b % 16 == 0 for b in bounds[:-1])
+    assert all(0 < hi - lo <= tds.I8_MAX_CHUNK
+               for lo, hi in zip(bounds, bounds[1:]))
+    if (k, n) in FLAGSHIP.values():
+        assert s == (4 if k == 4096 else 1)
+    elif -(-n // tds.I8_COLS) < tds.GV_MIN_BLOCKS and k >= 128:
+        assert s > 1
+
+
+def _kernel_order_sums(x, w, plan):
+    """The gemv kernel's sum of each column written out one f32 add at a
+    time (numpy float32): in chunk r, lane l adds rows lo + l, lo + l + 64,
+    ... in turn; lanes 8h .. 8h + 7 add in order, then the 8 sums h; the
+    chunks in order."""
+    x = x.float().numpy()
+    w = w.float().numpy()
+    s, bounds = plan
+    total = np.zeros(w.shape[1], np.float32)
+    for lo, hi in zip(bounds, bounds[1:]):
+        lanes = np.zeros((64, w.shape[1]), np.float32)
+        for row in range(lo, hi):
+            lanes[(row - lo) % 64] += np.float32(x[row]) * w[row]
+        folds = np.zeros((8, w.shape[1]), np.float32)
+        for h in range(8):
+            for lane in range(8):
+                folds[h] += lanes[8 * h + lane]
+        chunk = np.zeros(w.shape[1], np.float32)
+        for h in range(8):
+            chunk += folds[h]
+        total += chunk
+    return total
+
+
+@pytest.mark.parametrize("k,n", [(100, 32), (384, 48), (1024, 16),
+                                 (3000, 32)])
+def test_ordered_int8_sums_follow_the_kernel_order(k, n):
+    """ordered_int8_sums (vectorised) equals the kernel's order written out
+    add by add, bit for bit, with a ragged chunk (K 100, 3000), narrow
+    products split over K (N 32, 48) and one whole chunk (K 1024)."""
+    rng = np.random.default_rng(k * n)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).bfloat16()
+    got = tds.ordered_int8_sums(x, w).numpy()
+    want = _kernel_order_sums(x, w, tds.int8_gemv_plan(k, n))
+    assert np.array_equal(got, want)

@@ -30,7 +30,8 @@ from xtts_tpu_torch.infer import api as tapi  # noqa: E402
 from xtts_tpu_torch.infer import serving as tserv  # noqa: E402
 from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
 
-from test_torch_port_e2e import TINY_H, randomize  # noqa: E402
+from test_torch_port_e2e import (TINY_H, one_torch_thread,  # noqa: E402,F401
+                                 randomize)
 
 CFG_T = tcfg.XTTSConfig.from_dict(TINY_H.to_dict())
 WAV_TOL = dict(rtol=1e-3, atol=1e-3)

@@ -9,7 +9,11 @@
 // fold by a butterfly. block_sum256 takes that order with any block of 32
 // to 256 threads (a divisor of 256), warp_sum256 and row_norm_stats with
 // one warp, so a product kernel's prologue gives layer_norm_rows' bf16
-// output bit for bit.
+// output bit for bit. Every f32 operation of the norm rounds on its own
+// (the squares and ln_apply explicitly, never contracted into a fused
+// multiply-add; the divisions IEEE), so the plain twin
+// (ops/decode_step.py layer_norm_rows_ordered) repeats it with PyTorch's
+// elementwise ops; only rsqrtf is the card's own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +93,13 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// byte i of u as f32 minus off, exactly, without a conversion: 2^23 + b -
+// off (b = an int8 value + 128, off = 2^23 + 128; or b = a nibble + 8,
+// off = 2^23 + 8)
+__device__ __forceinline__ float byte_f32(uint32_t u, int i, float off) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - off;
+}
+
 // ---------------------------------------------------------------------------
 // LayerNorm, eps 1e-5: y = (x - mu) * rstd * s + b
 // ---------------------------------------------------------------------------
@@ -105,7 +116,23 @@ struct Norm {
 
 __device__ __forceinline__ float ln_apply(float x, float mu, float rstd,
                                           float s, float b) {
-  return (x - mu) * rstd * s + b;
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), s), b);
+}
+
+// (x - mu)^2, the product rounded on its own
+__device__ __forceinline__ float sq_dev(float x, float mu) {
+  const float c = __fsub_rn(x, mu);
+  return __fmul_rn(c, c);
+}
+
+// a statistic of a d-element row: sum / d (IEEE-rounded, as nvcc divides
+// by default), and rsqrt(var + eps)
+__device__ __forceinline__ float row_mean(float sum, int d) {
+  return sum / (float)d;
+}
+
+__device__ __forceinline__ float row_rstd(float var) {
+  return rsqrtf(__fadd_rn(var, 1e-5f));
 }
 
 // Sum of v(i), i < d, in the 256-thread order, by a block of nthreads:
@@ -156,16 +183,14 @@ __device__ void layer_norm_inplace(float* buf, int d, const Norm& nrm,
   for (int p = 0; p < nrm.n; ++p) {
     const float* s = p ? nrm.s2 : nrm.s1;
     const float* b = p ? nrm.b2 : nrm.b1;
-    const float mu =
-        block_sum256([&](int i) { return buf[i]; }, d, red, tid, nthreads) /
-        d;
-    const float var = block_sum256(
-        [&](int i) {
-          const float c = buf[i] - mu;
-          return c * c;
-        },
-        d, red, tid, nthreads) / d;
-    const float rstd = rsqrtf(var + 1e-5f);
+    const float mu = row_mean(
+        block_sum256([&](int i) { return buf[i]; }, d, red, tid, nthreads),
+        d);
+    const float var = row_mean(
+        block_sum256([&](int i) { return sq_dev(buf[i], mu); }, d, red, tid,
+                     nthreads),
+        d);
+    const float rstd = row_rstd(var);
     for (int i = tid; i < d; i += nthreads)
       buf[i] = ln_apply(buf[i], mu, rstd, s[i], b[i]);
     __syncthreads();
@@ -199,7 +224,10 @@ __device__ void row_norm_stats(const float* __restrict__ x, int d,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int w = 0; w < 8; ++w)
-          if (j * 256 + w * 32 + lane < d) acc[w] += f(j, w);
+          // __fadd_rn, not +=: with the explicitly rounded squares, +=
+          // left int8_gemm_rows' prologue kernel 96 registers and spills
+          // (4 us more at fc + ln_2, H100, PERF.md); the sum is the same
+          if (j * 256 + w * 32 + lane < d) acc[w] = __fadd_rn(acc[w], f(j, w));
       float t = 0.f;
 #pragma unroll
       for (int w = 0; w < 8; ++w) {
@@ -208,12 +236,9 @@ __device__ void row_norm_stats(const float* __restrict__ x, int d,
       }
       return warp_sum(t);
     };
-    mu1 = fold([&](int j, int w) { return xv[j][w]; }) / d;
-    const float var1 = fold([&](int j, int w) {
-      const float c = xv[j][w] - mu1;
-      return c * c;
-    }) / d;
-    rstd1 = rsqrtf(var1 + 1e-5f);
+    mu1 = row_mean(fold([&](int j, int w) { return xv[j][w]; }), d);
+    rstd1 = row_rstd(row_mean(
+        fold([&](int j, int w) { return sq_dev(xv[j][w], mu1); }), d));
     if (nrm.n == 2) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -223,34 +248,22 @@ __device__ void row_norm_stats(const float* __restrict__ x, int d,
           if (i < d)
             xv[j][w] = ln_apply(xv[j][w], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
         }
-      mu2 = fold([&](int j, int w) { return xv[j][w]; }) / d;
-      const float var2 = fold([&](int j, int w) {
-        const float c = xv[j][w] - mu2;
-        return c * c;
-      }) / d;
-      rstd2 = rsqrtf(var2 + 1e-5f);
+      mu2 = row_mean(fold([&](int j, int w) { return xv[j][w]; }), d);
+      rstd2 = row_rstd(row_mean(
+          fold([&](int j, int w) { return sq_dev(xv[j][w], mu2); }), d));
     }
   } else {
-    mu1 = warp_sum256([&](int i) { return x[i]; }, d, lane) / d;
-    const float var1 = warp_sum256(
-        [&](int i) {
-          const float c = x[i] - mu1;
-          return c * c;
-        },
-        d, lane) / d;
-    rstd1 = rsqrtf(var1 + 1e-5f);
+    mu1 = row_mean(warp_sum256([&](int i) { return x[i]; }, d, lane), d);
+    rstd1 = row_rstd(row_mean(
+        warp_sum256([&](int i) { return sq_dev(x[i], mu1); }, d, lane), d));
     if (nrm.n == 2) {
       auto y1 = [&](int i) {
         return ln_apply(x[i], mu1, rstd1, nrm.s1[i], nrm.b1[i]);
       };
-      mu2 = warp_sum256(y1, d, lane) / d;
-      const float var2 = warp_sum256(
-          [&](int i) {
-            const float c = y1(i) - mu2;
-            return c * c;
-          },
-          d, lane) / d;
-      rstd2 = rsqrtf(var2 + 1e-5f);
+      mu2 = row_mean(warp_sum256(y1, d, lane), d);
+      rstd2 = row_rstd(row_mean(
+          warp_sum256([&](int i) { return sq_dev(y1(i), mu2); }, d, lane),
+          d));
     }
   }
   if (lane == 0) {

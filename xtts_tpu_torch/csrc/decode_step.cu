@@ -14,9 +14,9 @@
 // 5 launches a layer and one for the head: 76 a token at 15 layers. The
 // LayerNorms run inside the product that consumes them, as the TPU kernel
 // ran `_ln` inside `_make_kernel`: each block of a fused gemv loads the f32
-// residual into the shared memory that holds the input vector anyway,
-// normalises it there in f32 and rounds it to bf16 once. layer_norm_rows
-// stays as the standalone norm; no path launches it.
+// residual with its input chunk, normalises it in f32 and rounds it to
+// bf16 once. layer_norm_rows stays as the standalone norm; no path
+// launches it.
 //
 // Every piece of arithmetic of the TPU kernel runs here: f32 LayerNorm
 // statistics (eps 1e-5), bf16 matvec inputs against int8 weights with f32
@@ -27,11 +27,11 @@
 //
 // Bound: weight bytes. One token streams ~190 MB of int8 weights at the
 // flagship width (15 x 12 D^2 + 9 D^2 bytes, D = 1024); at 3.35 TB/s that
-// is ~57 us, against ~1 MB of KV cache and activations. The gemv keeps its
-// weight reads coalesced (char4 per thread, 8 threads on 32 contiguous
-// columns of a row) and holds the input vector in shared memory. At 76
-// launches a token the chain is still launch-bound; a persistent
-// single-launch step or a CUDA graph is later work.
+// is ~57 us, against ~1 MB of KV cache and activations. The gemv (below)
+// spreads every product over 64-576 blocks of 16 columns, each with its
+// whole chunk of weights in flight at once. At 76 launches a token the
+// chain is still launch-bound; a persistent single-launch step or a CUDA
+// graph is later work.
 //
 // Layouts: weights (K, N) int8 row-major, exactly quantize_dense's (in, out)
 // matrix; KV cache (L, S, D) bf16 with the new row written in place at idx.
@@ -68,191 +68,117 @@ layer_norm_rows_kernel(const float* __restrict__ x, Norm nrm,
     orow[i] = __float2bfloat16(buf[i]);
 }
 
-// The product kernels' input vector, staged as f32 in xs[0..K): the bf16
-// input as it is, or (the norm prologue, LN) the f32 residual normalised
-// by nrm and rounded to bf16 once, bit for bit layer_norm_rows' output.
-template <bool LN>
-__device__ __forceinline__ void stage_input(const void* __restrict__ x,
-                                            const Norm& nrm, float* xs,
-                                            float* red, int K, int tid,
-                                            int nthreads) {
-  if constexpr (LN) {
-    const float* x32 = reinterpret_cast<const float*>(x);
-    for (int i = tid; i < K; i += nthreads) xs[i] = x32[i];
-    __syncthreads();
-    layer_norm_inplace(xs, K, nrm, red, tid, nthreads);
-    for (int i = tid; i < K; i += nthreads) xs[i] = bf16_round(xs[i]);
-  } else {
-    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-    for (int i = tid; i < K; i += nthreads) xs[i] = __bfloat162float(xb[i]);
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// int8_gemv: y[n] = (sum_k x[k] w[k, n]) * scale[n] + bias[n]
-// Block (8, 32): threadIdx.x picks 4 adjacent columns (one char4 load),
-// threadIdx.y strides K; the 32 partial sums per column reduce through
-// shared memory. One block per 32 columns, full K per block, so the
-// epilogue (gelu_new, bf16 store, or += into the f32 residual) runs in
-// place. mode: 0 = store f32, 1 = store bf16, 2 = accumulate into f32.
-// The order of the sums: partial r (r < GEMV_KTHREADS) adds x[k] w[k, n]
-// for k = r, r + 32, ... in turn (bf16 x int8 products are exact in f32,
-// so each fmaf is one rounded add); the partials add in r order. The
-// plain twin (ops/decode_step.py int8_gemv_plain) repeats both.
-// LN: x is the f32 residual and the block normalises it first (above).
-// ---------------------------------------------------------------------------
-constexpr int GEMV_COLS = 32;
-constexpr int GEMV_KTHREADS = 32;
-
-template <bool LN>
-__global__ void __launch_bounds__(256)
-int8_gemv_kernel(const void* __restrict__ x, Norm nrm,
-                 const int8_t* __restrict__ w,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias, void* __restrict__ out, int K,
-                 int N, int gelu, int mode) {
-  extern __shared__ float xs[];  // K floats
-  __shared__ float red[GEMV_KTHREADS][GEMV_COLS + 1];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  stage_input<LN>(x, nrm, xs, &red[0][0], K, tid, 256);
-
-  const int n0 = blockIdx.x * GEMV_COLS + threadIdx.x * 4;
-  const char4* wp = reinterpret_cast<const char4*>(w + n0);
-  const size_t row = (size_t)N / 4;  // row stride in char4
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 4
-  for (int k = threadIdx.y; k < K; k += GEMV_KTHREADS) {
-    const char4 c = __ldg(wp + (size_t)k * row);
-    const float xv = xs[k];
-    a0 = fmaf(xv, (float)c.x, a0);
-    a1 = fmaf(xv, (float)c.y, a1);
-    a2 = fmaf(xv, (float)c.z, a2);
-    a3 = fmaf(xv, (float)c.w, a3);
-  }
-  red[threadIdx.y][threadIdx.x * 4 + 0] = a0;
-  red[threadIdx.y][threadIdx.x * 4 + 1] = a1;
-  red[threadIdx.y][threadIdx.x * 4 + 2] = a2;
-  red[threadIdx.y][threadIdx.x * 4 + 3] = a3;
-  __syncthreads();
-  if (tid < GEMV_COLS) {
-    float s = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < GEMV_KTHREADS; ++r) s += red[r][tid];
-    const int n = blockIdx.x * GEMV_COLS + tid;
-    // product and sum rounded separately, never contracted into an FMA:
-    // int8_gemv_plain repeats this epilogue to the bit
-    float y = __fadd_rn(__fmul_rn(s, scale[n]), bias[n]);
-    if (gelu) y = gelu_new(y);
-    if (mode == 0) {
-      reinterpret_cast<float*>(out)[n] = y;
-    } else if (mode == 1) {
-      reinterpret_cast<__nv_bfloat16*>(out)[n] = __float2bfloat16(y);
-    } else {
-      reinterpret_cast<float*>(out)[n] += y;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// int4_gemv: the K1 int4 mode (the wbits == 4 branch of the TPU kernel,
-// xtts_tpu/ops/decode_step.py:157-167).
+// int8_gemv and int4_gemv: one kernel template, gemv_kernel<BITS, LN>.
 //
-//   y[n] = sum_g r( (sum_{k in g} x[k] w4[k, n]) * scale[g, n] + (g == 0) bias[n] )
+//   int8:  y[n] = (sum_k x[k] w[k, n]) * scale[n] + bias[n]
+//   int4:  y[n] = sum_g r( (sum_{k in g} x[k] w4[k, n]) * scale[g, n]
+//                          + (g == 0) bias[n] )
 //
-// w4 (K, N/2) bytes: byte (k, j) holds column 2j in its low nibble and
-// column 2j+1 in its high nibble, both signed in [-7, 7]; scale (G, N) f32,
-// one row per group of K/G input rows (the TPU kernel's (D, D) tiles: four
-// groups for the MLP out matrix, one elsewhere). r() rounds a group's output
-// to bf16, as the TPU kernel does for every tile it restores to canonical
-// order; with gelu (the fc tiles, left permuted there) nothing is rounded
-// before gelu_new. mode: 0 = store f32, 1 = store bf16, 2 = add into f32.
-// LN: the norm prologue, as int8_gemv's.
+// int8: w (K, N) int8 row-major (quantize_dense's (in, out) matrix), one
+// scale a column. int4 (the K1 int4 mode, the wbits == 4 branch of the TPU
+// kernel, xtts_tpu/ops/decode_step.py:157-167): w4 (K, N/2) bytes, byte
+// (k, j) holds column 2j in its low nibble and 2j+1 in its high nibble,
+// both signed in [-7, 7]; scale (G, N) f32, one row per group of K/G input
+// rows (the TPU kernel's (D, D) tiles: four groups for the MLP out matrix,
+// one elsewhere). r() rounds a group's output to bf16, as the TPU kernel
+// does for every tile it restores to canonical order; with gelu (the fc
+// tiles, left permuted there) nothing is rounded before gelu_new. Both
+// apply gelu_new on request; mode: 0 = store f32, 1 = store bf16, 2 = add
+// into f32 (the residual). LN: x is the f32 residual and the block
+// normalises it first (the norm prologue, below).
 //
-// Bound: the packed weights, half of int8_gemv's bytes (~99 MB a token at
-// the flagship width, ~30 us at 3.35 TB/s; 2 MB for fc, 0.6 us). At these
-// sizes a call is a chain of latencies (a launch, a round trip for the
-// weights, the products, the reduction, the stores), and the design cuts
-// the chain:
-//  - Every SM streams: a block owns I4_COLS = 32 output columns (16 bytes
-//    of a weight row) and one chunk of the K rows of one scale group, so a
-//    group's bf16 rounding still applies to the group's whole sum. The
-//    grid is (G x s, N / 32): qkv 96 blocks, proj 32, fc 128, out 4 x 32,
-//    head 288. i4_splits picks s, the chunks of a group: 1 wherever N / 32
-//    x G gives >= 32 blocks (every K1 product), more for narrow products,
-//    and no chunk over 2048 rows. i4_lo gives the chunk bounds (multiples
-//    of 16 rows); ops/decode_step.py int4_gemv_plan is their Python copy,
-//    held against xt_int4_gemv_bounds on the card.
+// Bound: the weight bytes (int8 ~190 MB a token at the flagship width, 57
+// us at 3.35 TB/s; 4 MB for fc, 1.2 us; int4 half of that). At these sizes
+// a call is a chain of latencies (a launch, a round trip for the weights,
+// the products, the reduction, the stores), and the design cuts the chain:
+//  - Every SM streams: a block owns GV_COLS output columns, 16 bytes of a
+//    weight row (16 int8 columns, 32 int4 columns), and one chunk of the K
+//    rows of one scale group, so a group's bf16 rounding still applies to
+//    the group's whole sum. The grid is (G x s, N / GV_COLS): int8 qkv 192
+//    blocks, proj 64, fc 256, out 4 x 64, head 576; int4 qkv 96, proj 32,
+//    fc 128, out 4 groups x 32, head 288. gv_splits picks s, the chunks of
+//    a group: 1 wherever the tiles x G give >= 32 blocks and the chunk fits
+//    (every K1 product but int8's out, whose 4096 rows split in four
+//    chunks of 1024), more for narrow products. gv_lo gives the chunk
+//    bounds (multiples of 16 rows); ops/decode_step.py gemv_plan is their
+//    Python copy, held against xt_int8_gemv_bounds / xt_int4_gemv_bounds
+//    on the card. A block takes 18.5 KB of shared memory (the chunk, and
+//    the input as bf16) and the kernels ask for the largest carveout, so
+//    the head's 576 blocks fit 5 an SM. (Two column tiles a block, 288
+//    blocks for the head, lost: 9.9 against 7.4 us, H100, PERF.md.)
 //  - Nothing waits before everything is in flight: the input's loads and
 //    the epilogue's operands (bias, scales, the residual) first, then the
-//    whole chunk (<= 32 KB) as 16-byte cp.async copies in I4_STAGES
-//    commit groups; the products start on the first group while the later
-//    ones land. (Issued after the weights, the input's loads queued behind
-//    them: 1.0 us more at fc. Split over K across 128-192 blocks of 128
-//    columns, every product's partials merged by the last block to
-//    arrive, the chain held more round trips: 5.0-5.2 us for proj and fc
-//    against 4.4-4.5 without the merge's fence and counter. H100,
-//    PERF.md.)
-//  - Nibbles widen without I2F: one lop3 a word gives the four low
-//    nibbles as bytes v + 8 (the high ones take one shift more), and a
-//    byte_perm into the mantissa of 2^23 then one subtraction gives each v
-//    exactly as f32.
-//  - f32 FMA: thread (lane l < 64, word j < 4) holds 8 accumulators, the
-//    columns of its 4-byte word, and adds rows lo + l, lo + l + 64, ... in
-//    turn. bf16 x int4 products are exact in f32, so each fmaf is one
-//    rounded add.
+//    whole chunk (<= 16 KB of int8, 32 KB of int4) as 16-byte cp.async
+//    copies in GV_STAGES commit groups; the products start on the first
+//    group while the later ones land. (Issued after the weights, the
+//    input's loads queued behind them: 1.0 us more at int4's fc. Split
+//    over K across 128-192 blocks of 128 columns, every product's partials
+//    merged by the last block to arrive, the chain held more round trips:
+//    5.0-5.2 us for int4's proj and fc against 4.4-4.5 without the merge's
+//    fence and counter. H100, PERF.md.)
+//  - Weights widen without I2F: a byte_perm puts each byte (an int8 value
+//    + 128, or a nibble + 8 after one lop3) into the mantissa of 2^23, and
+//    one subtraction gives the value exactly as f32.
+//  - f32 FMA: thread (lane l < 64, word j < 4) holds the accumulators of
+//    the columns of its 4-byte word (4 int8, 8 int4) and adds rows lo + l,
+//    lo + l + 64, ... in turn. bf16 x int8 and bf16 x int4 products are
+//    exact in f32, so each fmaf is one rounded add.
 //  - A fixed order throughout, so the same inputs give the same bits and the
-//    plain twin (int4_gemv_plain) repeats the sums to the bit: lanes 8h ..
-//    8h + 7 of a column add in order, then the 8 sums h in order. Where a
-//    product has several chunks (the four groups of out), each block leaves
-//    its sums in global scratch and the last block of a column tile to
-//    arrive (one atomic counter a tile, which it resets to 0) adds the
-//    tile's chunks in split order and runs the epilogue for each group in
-//    group order. Every f32 operation there is an explicitly rounded one.
+//    plain twins (int8_gemv_plain, int4_gemv_plain) repeat the sums to the
+//    bit: lanes 8h .. 8h + 7 of a column add in order, then the 8 sums h in
+//    order. Where a product has several chunks, each block leaves its sums
+//    in global scratch and the last block of a column tile to arrive (one
+//    atomic counter a tile, which it resets to 0) adds the tile's chunks in
+//    split order and runs the epilogue (int4: for each group in group
+//    order). Every f32 operation there is an explicitly rounded one.
 //  - The norm prologue takes the row's statistics once a block, in
 //    layer_norm_rows' summation order: where the chunk is the whole row,
 //    from the registers of threads t < 256, which hold elements t, t +
 //    256, ... (warp and block butterflies); a split chunk takes them by one
-//    warp (common.cuh row_norm_stats). It normalises only its chunk.
+//    warp (common.cuh row_norm_stats). It normalises only its chunk and
+//    rounds it to bf16 once, so fused == layer_norm_rows + product. The
+//    two are separate instantiations (LN 1 and 2): in one kernel the split
+//    path's registers held the whole-row one to 127 registers, 2 blocks an
+//    SM (head + ln_f 13.1 us against 10.2, H100, PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int I4_COLS = 32;         // output columns a block: 16 bytes a row
-constexpr int I4_THREADS = 256;
-constexpr int I4_WORDS = I4_COLS / 8;            // 4-byte words a row
-constexpr int I4_LANES = I4_THREADS / I4_WORDS;  // rows lo + l, + LANES, ...
-constexpr int I4_FOLD = 8;          // lanes summed a first-level sum
-constexpr int I4_ROWB = I4_COLS / 2;             // bytes a row
-constexpr int I4_STAGES = 4;        // cp.async groups a chunk is issued in
-constexpr int I4_MIN_BLOCKS = 32;   // split K only below this many blocks
-constexpr int I4_MIN_CHUNK = 64;    // rows: no finer split for more blocks
-constexpr int I4_MAX_CHUNK = 2048;  // rows: 32 KB of packed weights a block
-constexpr int I4_PRE = I4_MAX_CHUNK / 256;  // residual rows a thread
-static_assert(I4_ROWB % 16 == 0, "whole 16-byte copies a row");
-static_assert(I4_LANES % I4_FOLD == 0, "whole first-level sums");
-static_assert(I4_THREADS % 256 == 0, "the norm statistics take 256 threads");
+constexpr int GV_THREADS = 256;
+constexpr int GV_ROWB = 16;                      // bytes of a row a block
+constexpr int GV_WORDS = GV_ROWB / 4;            // 4-byte words a row
+constexpr int GV_LANES = GV_THREADS / GV_WORDS;  // rows lo + l, + LANES, ...
+constexpr int GV_FOLD = 8;          // lanes summed a first-level sum
+constexpr int GV_STAGES = 4;        // cp.async groups a chunk is issued in
+constexpr int GV_MIN_BLOCKS = 32;   // split K only below this many blocks
+constexpr int GV_MIN_CHUNK = 64;    // rows: no finer split for more blocks
+static_assert(GV_LANES % GV_FOLD == 0, "whole first-level sums");
+static_assert(GV_THREADS == 256, "the norm statistics take 256 threads");
+
+template <int BITS>
+struct Gv {
+  static constexpr int COLS = GV_ROWB * 8 / BITS;   // 16 int8, 32 int4
+  static constexpr int CPW = COLS / GV_WORDS;       // columns a word
+  static constexpr int MAX_CHUNK = 8192 / BITS;     // rows: 16 / 32 KB
+  static constexpr int PRE = MAX_CHUNK / 256;       // residual rows a thread
+};
 
 // chunks of each scale group (kg rows of K = G kg) for N columns
-__host__ __device__ __forceinline__ int i4_splits(int K, int N, int groups) {
+__host__ __device__ __forceinline__ int gv_splits(int K, int N, int groups,
+                                                  int cols, int max_chunk) {
   const int kg = K / groups, t = (kg + 15) / 16;
-  const int tiles = (N + I4_COLS - 1) / I4_COLS;
+  const int tiles = (N + cols - 1) / cols;
   int s = 1;
-  while (s < 16 && tiles * groups * s < I4_MIN_BLOCKS &&
-         kg / (2 * s) >= I4_MIN_CHUNK)
+  while (s < 16 && tiles * groups * s < GV_MIN_BLOCKS &&
+         kg / (2 * s) >= GV_MIN_CHUNK)
     s *= 2;
-  while (16 * ((t + s - 1) / s) > I4_MAX_CHUNK) s *= 2;
+  while (16 * ((t + s - 1) / s) > max_chunk) s *= 2;
   return s;
 }
 
 // the first row of chunk r of s in a group of kg rows, relative to the
 // group: 16 floor(r T / s), T = ceil(kg / 16), clipped to kg
-__host__ __device__ __forceinline__ int i4_lo(int r, int s, int kg) {
+__host__ __device__ __forceinline__ int gv_lo(int r, int s, int kg) {
   const int k = r * ((kg + 15) / 16) / s * 16;
   return k < kg ? k : kg;
-}
-
-// byte i of u (a nibble + 8) as f32 minus 8, exactly: 2^23 + b - (2^23 + 8)
-__device__ __forceinline__ float nib_f32(uint32_t u, int i) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
-         8388616.f;
 }
 
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
@@ -263,61 +189,69 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     default: cp_async_wait<3>(); break;
   }
 }
-static_assert(I4_STAGES == 4, "cp_async_wait_upto covers 4 groups");
+static_assert(GV_STAGES == 4, "cp_async_wait_upto covers 4 groups");
 
-template <bool LN>
-__global__ void __launch_bounds__(I4_THREADS)
-int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
-                 const uint8_t* __restrict__ w,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias, void* __restrict__ out,
-                 float* __restrict__ part, unsigned* __restrict__ count,
-                 int K, int N, int groups, int splits, int gelu, int mode) {
+template <int BITS>
+__host__ __device__ __forceinline__ int gv_wbytes(int cmax) {
+  const int red = GV_LANES * Gv<BITS>::COLS * 4;  // the lanes' sums
+  return cmax * GV_ROWB > red ? cmax * GV_ROWB : red;
+}
+
+// LN: 0 no prologue; 1 the prologue of a block whose chunk is the whole
+// row (every K1 product with a norm), statistics from its registers; 2 the
+// prologue of a split chunk, statistics by one warp (row_norm_stats). Two
+// instantiations keep the first's registers down to 4 blocks an SM.
+template <int BITS, int LN>
+__global__ void __launch_bounds__(GV_THREADS)
+gemv_kernel(const void* __restrict__ x, Norm nrm,
+            const uint8_t* __restrict__ w, const float* __restrict__ scale,
+            const float* __restrict__ bias, void* __restrict__ out,
+            float* __restrict__ part, unsigned* __restrict__ count, int K,
+            int N, int groups, int splits, int gelu, int mode) {
+  constexpr int COLS = Gv<BITS>::COLS, CPW = Gv<BITS>::CPW;
+  constexpr int PRE = Gv<BITS>::PRE;
+  constexpr int FOLDS = GV_LANES / GV_FOLD;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kg = K / groups;
   const int cmax = 16 * (((kg + 15) / 16 + splits - 1) / splits);
-  // [row][4 words] weights; red [64 lanes][32] after the products
-  const int wbytes = max(cmax * I4_ROWB, I4_LANES * I4_COLS * 4);
+  // [row][4 words] weights; red [64 lanes][COLS] after the products
   uint32_t* ws = reinterpret_cast<uint32_t*>(smem);
   float* red = reinterpret_cast<float*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + wbytes);  // the chunk of x
-  __shared__ float fold[I4_LANES / I4_FOLD][I4_COLS];
+  // the chunk of the input as bf16 (its values are bf16: half the bytes)
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(smem + gv_wbytes<BITS>(cmax));
+  __shared__ float fold[FOLDS][COLS];
   __shared__ float st[4], st_red[8];
   __shared__ bool last;
 
   const int tid = threadIdx.x, ns = gridDim.x, q = blockIdx.x;
-  const int tile = blockIdx.y, n0 = tile * I4_COLS;
+  const int tile = blockIdx.y, n0 = tile * COLS;
   const int g = q / splits, r = q - g * splits;
-  const int lo = g * kg + i4_lo(r, splits, kg);
-  const int rows = g * kg + i4_lo(r + 1, splits, kg) - lo;
-  const size_t rowb = (size_t)N / 2;
+  const int lo = g * kg + gv_lo(r, splits, kg);
+  const int rows = g * kg + gv_lo(r + 1, splits, kg) - lo;
+  const size_t rowb = (size_t)N * BITS / 8;
   // rows a commit group, a multiple of the lane count
-  const int rs = (rows + I4_STAGES * I4_LANES - 1) / (I4_STAGES * I4_LANES) *
-                 I4_LANES;
+  const int rs = (rows + GV_STAGES * GV_LANES - 1) / (GV_STAGES * GV_LANES) *
+                 GV_LANES;
 
-  // the chunk's weights, all in flight: 16-byte copies in I4_STAGES
-  // commit groups, issued once the input's loads are (so that those do not
-  // queue behind 16-32 KB of weights)
+  // the chunk's weights, all in flight: one 16-byte copy a row in
+  // GV_STAGES commit groups, issued once the input's loads are (so that
+  // those do not queue behind 16-32 KB of weights)
   auto issue_weights = [&]() {
-    constexpr int CPR = I4_ROWB / 16;  // copies a row
-    for (int s = 0; s < I4_STAGES; ++s) {
-      const int r0 = s * rs, r1 = min(rows, r0 + rs);
-      for (int c = r0 * CPR + tid; c < r1 * CPR; c += I4_THREADS) {
-        const int row = c / CPR, part16 = c % CPR;
-        const bool ok = n0 + 32 * part16 < N;  // N % 32 == 0
-        cp_async16(smem_u32(smem + row * I4_ROWB + part16 * 16),
-                   ok ? w + (size_t)(lo + row) * rowb + n0 / 2 + part16 * 16
-                      : w,
-                   ok);
-      }
+    const uint8_t* src = w + (size_t)lo * rowb + (size_t)n0 * BITS / 8;
+    for (int s = 0; s < GV_STAGES; ++s) {
+      const int r1 = min(rows, (s + 1) * rs);
+      for (int row = s * rs + tid; row < r1; row += GV_THREADS)
+        cp_async16(smem_u32(smem + row * GV_ROWB), src + row * rowb, true);
       cp_async_commit();
     }
   };
 
-  // ---- the epilogue's operands, loaded now ----
-  const int n = n0 + (tid & (I4_COLS - 1));
+  // ---- the epilogue's operands, loaded now: thread t < COLS takes
+  // column n0 + t ----
+  const int n = n0 + tid;
   float pb = 0.f, ps[4] = {0.f, 0.f, 0.f, 0.f}, po = 0.f;
-  if (tid < I4_COLS && n < N) {
+  if (tid < COLS && n < N) {
     pb = bias[n];
 #pragma unroll
     for (int gg = 0; gg < 4; ++gg)
@@ -329,142 +263,139 @@ int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
   // used. The norm prologue: threads t < 256 hold residual elements t, t +
   // 256, ... (layer_norm_rows' per-thread order) and their norm
   // parameters ----
-  if constexpr (LN) {
+  if constexpr (LN != 0) {
     const float* x32 = reinterpret_cast<const float*>(x);
-    float xv[I4_PRE], s1[I4_PRE], b1[I4_PRE], s2[I4_PRE], b2[I4_PRE];
-    const bool whole = rows == K;  // the block's chunk is the whole row
-    if (tid < 256) {
+    float xv[PRE], s1[PRE], b1[PRE], s2[PRE], b2[PRE];
 #pragma unroll
-      for (int j = 0; j < I4_PRE; ++j) {
-        const int i = tid + j * 256, k = lo + i;
-        if (i < rows) {
-          xv[j] = x32[k];
-          s1[j] = nrm.s1[k];
-          b1[j] = nrm.b1[k];
-          if (nrm.n == 2) {
-            s2[j] = nrm.s2[k];
-            b2[j] = nrm.b2[k];
-          }
+    for (int j = 0; j < PRE; ++j) {
+      const int i = tid + j * 256, k = lo + i;
+      if (i < rows) {
+        xv[j] = x32[k];
+        s1[j] = nrm.s1[k];
+        b1[j] = nrm.b1[k];
+        if (nrm.n == 2) {
+          s2[j] = nrm.s2[k];
+          b2[j] = nrm.b2[k];
         }
       }
     }
     issue_weights();
 
-    if (whole) {
-      // the statistics from the registers, in layer_norm_rows' order:
-      // each thread's elements in turn, the warp by a butterfly, the 8
-      // warp sums by a butterfly
+    if constexpr (LN == 1) {
+      // the block's chunk is the whole row: the statistics from the
+      // registers, in layer_norm_rows' order: each thread's elements in
+      // turn, the warp by a butterfly, the 8 warp sums by a butterfly
       const int lane32 = tid & 31, warp = tid >> 5;
       auto block_sum = [&](auto f) {
         float a = 0.f;
-        if (tid < 256) {
 #pragma unroll
-          for (int j = 0; j < I4_PRE; ++j)
-            if (tid + j * 256 < rows) a += f(j);
-          a = warp_sum(a);
-          if (lane32 == 0) st_red[warp] = a;
-        }
+        for (int j = 0; j < PRE; ++j)
+          if (tid + j * 256 < rows) a += f(j);
+        a = warp_sum(a);
+        if (lane32 == 0) st_red[warp] = a;
         __syncthreads();
         const float t = warp_sum(lane32 < 8 ? st_red[lane32] : 0.f);
         __syncthreads();  // st_red is free again
         return t;
       };
       for (int p = 0; p < nrm.n; ++p) {
-        const float mu = block_sum([&](int j) { return xv[j]; }) / K;
-        const float var = block_sum([&](int j) {
-          const float c = xv[j] - mu;
-          return c * c;
-        }) / K;
-        const float rstd = rsqrtf(var + 1e-5f);
+        const float mu = row_mean(block_sum([&](int j) { return xv[j]; }), K);
+        const float rstd = row_rstd(row_mean(
+            block_sum([&](int j) { return sq_dev(xv[j], mu); }), K));
 #pragma unroll
-        for (int j = 0; j < I4_PRE; ++j)
+        for (int j = 0; j < PRE; ++j)
           xv[j] = p ? ln_apply(xv[j], mu, rstd, s2[j], b2[j])
                     : ln_apply(xv[j], mu, rstd, s1[j], b1[j]);
       }
     } else {
       if (tid < 32) row_norm_stats(x32, K, nrm, tid, st);
       __syncthreads();
-      if (tid < 256) {
 #pragma unroll
-        for (int j = 0; j < I4_PRE; ++j) {
-          xv[j] = ln_apply(xv[j], st[0], st[1], s1[j], b1[j]);
-          if (nrm.n == 2) xv[j] = ln_apply(xv[j], st[2], st[3], s2[j], b2[j]);
-        }
+      for (int j = 0; j < PRE; ++j) {
+        xv[j] = ln_apply(xv[j], st[0], st[1], s1[j], b1[j]);
+        if (nrm.n == 2) xv[j] = ln_apply(xv[j], st[2], st[3], s2[j], b2[j]);
       }
     }
-    if (tid < 256) {
 #pragma unroll
-      for (int j = 0; j < I4_PRE; ++j)
-        if (tid + j * 256 < rows) xs[tid + j * 256] = bf16_round(xv[j]);
-    }
+    for (int j = 0; j < PRE; ++j)
+      if (tid + j * 256 < rows) xs[tid + j * 256] = __float2bfloat16(xv[j]);
   } else {
     const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-    constexpr int XPRE = (I4_MAX_CHUNK + I4_THREADS - 1) / I4_THREADS;
-    __nv_bfloat16 xv[XPRE];
+    __nv_bfloat16 xv[PRE];
 #pragma unroll
-    for (int j = 0; j < XPRE; ++j) {
-      const int i = tid + j * I4_THREADS;
+    for (int j = 0; j < PRE; ++j) {
+      const int i = tid + j * GV_THREADS;
       if (i < rows) xv[j] = xb[lo + i];
     }
     issue_weights();
 
 #pragma unroll
-    for (int j = 0; j < XPRE; ++j) {
-      const int i = tid + j * I4_THREADS;
-      if (i < rows) xs[i] = __bfloat162float(xv[j]);
+    for (int j = 0; j < PRE; ++j) {
+      const int i = tid + j * GV_THREADS;
+      if (i < rows) xs[i] = xv[j];
     }
   }
 
-  // ---- the products: lane l, word j; low nibbles are the even columns ----
-  const int j = tid % I4_WORDS, lane = tid / I4_WORDS;
-  float alo[4], ahi[4];
+  // ---- the products: lane l, word j. int8: byte i is column 4j + i;
+  // int4: the low nibble of byte i column 8j + 2i, the high one 8j + 2i + 1
+  const int j = tid % GV_WORDS, lane = tid / GV_WORDS;
+  float acc[CPW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) alo[i] = ahi[i] = 0.f;
-  for (int s = 0; s < I4_STAGES; ++s) {
-    cp_async_wait_upto(I4_STAGES - 1 - s);
+  for (int i = 0; i < CPW; ++i) acc[i] = 0.f;
+  for (int s = 0; s < GV_STAGES; ++s) {
+    cp_async_wait_upto(GV_STAGES - 1 - s);
     __syncthreads();  // group s of every thread, and xs, are visible
     const int r1 = min(rows, (s + 1) * rs);
 #pragma unroll 4
-    for (int row = s * rs + lane; row < r1; row += I4_LANES) {
-      const uint32_t wd = ws[row * I4_WORDS + j];
-      const float xv = xs[row];
-      const uint32_t lo4 = (wd & 0x0F0F0F0Fu) ^ 0x08080808u;
-      const uint32_t hi4 = ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+    for (int row = s * rs + lane; row < r1; row += GV_LANES) {
+      const uint32_t wd = ws[row * GV_WORDS + j];
+      const float xv = __bfloat162float(xs[row]);
+      if constexpr (BITS == 8) {
+        const uint32_t u = wd ^ 0x80808080u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        alo[i] = fmaf(xv, nib_f32(lo4, i), alo[i]);
-        ahi[i] = fmaf(xv, nib_f32(hi4, i), ahi[i]);
+        for (int i = 0; i < 4; ++i)
+          acc[i] = fmaf(xv, byte_f32(u, i, 8388736.f), acc[i]);
+      } else {
+        const uint32_t lo4 = (wd & 0x0F0F0F0Fu) ^ 0x08080808u;
+        const uint32_t hi4 = ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[2 * i] = fmaf(xv, byte_f32(lo4, i, 8388616.f), acc[2 * i]);
+          acc[2 * i + 1] =
+              fmaf(xv, byte_f32(hi4, i, 8388616.f), acc[2 * i + 1]);
+        }
       }
     }
   }
   __syncthreads();  // every warp is done with ws, which red reuses
 
   // ---- the chunk's sums: lanes 8h .. 8h + 7 in order, then h in order ----
-  float4* rp = reinterpret_cast<float4*>(red + lane * I4_COLS + 8 * j);
-  rp[0] = make_float4(alo[0], ahi[0], alo[1], ahi[1]);
-  rp[1] = make_float4(alo[2], ahi[2], alo[3], ahi[3]);
+  float4* rp = reinterpret_cast<float4*>(red + lane * COLS + CPW * j);
+#pragma unroll
+  for (int i = 0; i < CPW / 4; ++i)
+    rp[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                        acc[4 * i + 3]);
   __syncthreads();
-  {
-    const int c = tid % I4_COLS, h = tid / I4_COLS;
+  if (tid < FOLDS * COLS) {
+    const int c = tid % COLS, h = tid / COLS;
     float p = 0.f;
 #pragma unroll
-    for (int l = 0; l < I4_FOLD; ++l)
-      p = __fadd_rn(p, red[(h * I4_FOLD + l) * I4_COLS + c]);
+    for (int l = 0; l < GV_FOLD; ++l)
+      p = __fadd_rn(p, red[(h * GV_FOLD + l) * COLS + c]);
     fold[h][c] = p;
   }
   __syncthreads();
-  float sum = 0.f;  // this chunk's sum of column n (threads < 32)
-  if (tid < I4_COLS) {
+  float sum = 0.f;  // this chunk's sum of column n (threads < COLS)
+  if (tid < COLS) {
 #pragma unroll
-    for (int h = 0; h < I4_LANES / I4_FOLD; ++h)
-      sum = __fadd_rn(sum, fold[h][tid]);
+    for (int h = 0; h < FOLDS; ++h) sum = __fadd_rn(sum, fold[h][tid]);
   }
 
   if (ns > 1) {
     // several chunks: the last block of the tile to arrive merges them
-    float* tpart = part + (size_t)tile * ns * I4_COLS;  // [chunk][32]
-    if (tid < I4_COLS) {
-      tpart[q * I4_COLS + tid] = sum;
+    float* tpart = part + (size_t)tile * ns * COLS;  // [chunk][COLS]
+    if (tid < COLS) {
+      tpart[q * COLS + tid] = sum;
       __threadfence();  // the sum is visible before the count moves
     }
     __syncthreads();
@@ -475,10 +406,10 @@ int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
   }
 
   // ---- the epilogue: each group's sum (its chunks in order) times its
-  // scales, + bias for group 0, rounded to bf16 unless gelu, in group
-  // order ----
-  if (tid < I4_COLS && n < N) {
-    const float* tpart = part + (size_t)tile * ns * I4_COLS;
+  // scales, + bias for group 0; int4 rounds each group's output to bf16
+  // unless gelu and adds the groups in order ----
+  if (tid < COLS && n < N) {
+    const float* tpart = part + (size_t)tile * ns * COLS;
     float total = 0.f;
     for (int gg = 0; gg < groups; ++gg) {
       float sg = 0.f;
@@ -487,8 +418,7 @@ int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
       } else {
 #pragma unroll 4
         for (int rr = 0; rr < splits; ++rr)
-          sg = __fadd_rn(sg, __ldcg(tpart + (gg * splits + rr) * I4_COLS +
-                                    tid));
+          sg = __fadd_rn(sg, __ldcg(tpart + (gg * splits + rr) * COLS + tid));
       }
       const float sc = gg == 0   ? ps[0]
                        : gg == 1 ? ps[1]
@@ -497,8 +427,12 @@ int4_gemv_kernel(const void* __restrict__ x, Norm nrm,
                                  : scale[(size_t)gg * N + n];
       float y = __fmul_rn(sg, sc);
       if (gg == 0) y = __fadd_rn(y, pb);
-      if (!gelu) y = bf16_round(y);
-      total = __fadd_rn(total, y);
+      if constexpr (BITS == 8) {
+        total = y;  // one group
+      } else {
+        if (!gelu) y = bf16_round(y);
+        total = __fadd_rn(total, y);
+      }
     }
     const float y = gelu ? gelu_new(total) : total;
     if (mode == 0) {
@@ -730,45 +664,57 @@ Norm make_norm(const void* s1, const void* b1, const void* s2, const void* b2,
               (const float*)b2, n};
 }
 
-int launch_int8_gemv(const void* x, Norm nrm, const void* w,
-                     const void* scale, const void* bias, void* out, int K,
-                     int N, int gelu, int mode, cudaStream_t stream) {
-  dim3 block(GEMV_COLS / 4, GEMV_KTHREADS);
-  const size_t smem = (size_t)K * sizeof(float);
-  if (nrm.n)
-    int8_gemv_kernel<true><<<N / GEMV_COLS, block, smem, stream>>>(
-        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
-        out, K, N, gelu, mode);
+template <int BITS>
+int launch_gemv(const void* x, Norm nrm, const void* w, const void* scale,
+                const void* bias, void* out, void* part, void* count, int K,
+                int N, int groups, int gelu, int mode, cudaStream_t stream) {
+  constexpr int COLS = Gv<BITS>::COLS;
+  const int splits = gv_splits(K, N, groups, COLS, Gv<BITS>::MAX_CHUNK);
+  const int kg = K / groups;
+  const int cmax = 16 * (((kg + 15) / 16 + splits - 1) / splits);
+  const dim3 grid(groups * splits, (N + COLS - 1) / COLS);
+  const size_t smem =
+      (size_t)gv_wbytes<BITS>(cmax) + (size_t)cmax * sizeof(__nv_bfloat16);
+  // a chunk is the whole row where nothing splits K
+  const int ln = !nrm.n ? 0 : groups * splits == 1 ? 1 : 2;
+  const uint8_t* wb = (const uint8_t*)w;
+  const float *sc = (const float*)scale, *bi = (const float*)bias;
+  float* pt = (float*)part;
+  unsigned* ct = (unsigned*)count;
+  if (ln == 0)
+    gemv_kernel<BITS, 0><<<grid, GV_THREADS, smem, stream>>>(
+        x, nrm, wb, sc, bi, out, pt, ct, K, N, groups, splits, gelu, mode);
+  else if (ln == 1)
+    gemv_kernel<BITS, 1><<<grid, GV_THREADS, smem, stream>>>(
+        x, nrm, wb, sc, bi, out, pt, ct, K, N, groups, splits, gelu, mode);
   else
-    int8_gemv_kernel<false><<<N / GEMV_COLS, block, smem, stream>>>(
-        x, nrm, (const int8_t*)w, (const float*)scale, (const float*)bias,
-        out, K, N, gelu, mode);
+    gemv_kernel<BITS, 2><<<grid, GV_THREADS, smem, stream>>>(
+        x, nrm, wb, sc, bi, out, pt, ct, K, N, groups, splits, gelu, mode);
   return (int)cudaGetLastError();
 }
 
-int launch_int4_gemv(const void* x, Norm nrm, const void* w,
-                     const void* scale, const void* bias, void* out,
-                     void* part, void* count, int K, int N, int groups,
-                     int gelu, int mode, cudaStream_t stream) {
-  const int splits = i4_splits(K, N, groups);
-  const int kg = K / groups;
-  const int cmax = 16 * (((kg + 15) / 16 + splits - 1) / splits);
-  const int wbytes = cmax * I4_ROWB > I4_LANES * I4_COLS * 4
-                         ? cmax * I4_ROWB
-                         : I4_LANES * I4_COLS * 4;
-  const size_t smem = (size_t)wbytes + (size_t)cmax * sizeof(float);
-  const dim3 grid(groups * splits, (N + I4_COLS - 1) / I4_COLS);
-  if (nrm.n)
-    int4_gemv_kernel<true><<<grid, I4_THREADS, smem, stream>>>(
-        x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
-        out, (float*)part, (unsigned*)count, K, N, groups, splits, gelu,
-        mode);
-  else
-    int4_gemv_kernel<false><<<grid, I4_THREADS, smem, stream>>>(
-        x, nrm, (const uint8_t*)w, (const float*)scale, (const float*)bias,
-        out, (float*)part, (unsigned*)count, K, N, groups, splits, gelu,
-        mode);
-  return (int)cudaGetLastError();
+// the carveout that lets 5 blocks share an SM's memory (the head's 576
+// blocks in one wave) for each instantiation of the gemv, on the current
+// device
+template <int BITS>
+cudaError_t gemv_carveout() {
+  const void* kernels[3] = {(const void*)gemv_kernel<BITS, 0>,
+                            (const void*)gemv_kernel<BITS, 1>,
+                            (const void*)gemv_kernel<BITS, 2>};
+  for (const void* k : kernels) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <int BITS>
+void gemv_bounds(int K, int N, int groups, int* bounds) {
+  const int s = gv_splits(K, N, groups, Gv<BITS>::COLS, Gv<BITS>::MAX_CHUNK);
+  bounds[0] = s;
+  for (int r = 0; r <= s; ++r) bounds[1 + r] = gv_lo(r, s, K / groups);
 }
 
 }  // namespace
@@ -783,34 +729,36 @@ XT_API int xt_layer_norm_rows(const void* x, const void* s1, const void* b1,
   return (int)cudaGetLastError();
 }
 
+// part: >= ceil(N / GV_COLS) x G x s x GV_COLS f32 of scratch; count:
+// ceil(N / GV_COLS) counters, 0 before the launch and 0 after it (the last
+// block of each column tile resets its own). One launch at a time may use
+// them. The _ln entry points take the f32 residual (K,) as x32 and nln 1 or
+// 2 norms (s1, b1[, s2, b2]) to apply first.
 XT_API int xt_int8_gemv(const void* x, const void* w, const void* scale,
-                        const void* bias, void* out, int K, int N, int gelu,
-                        int mode, void* stream) {
-  return launch_int8_gemv(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
-                          w, scale, bias, out, K, N, gelu, mode,
-                          (cudaStream_t)stream);
+                        const void* bias, void* out, void* part, void* count,
+                        int K, int N, int gelu, int mode, void* stream) {
+  return launch_gemv<8>(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
+                        w, scale, bias, out, part, count, K, N, 1, gelu,
+                        mode, (cudaStream_t)stream);
 }
 
-// x32: the f32 residual (K,); nln 1 or 2 norms (s1, b1[, s2, b2]) first
 XT_API int xt_int8_gemv_ln(const void* x32, const void* s1, const void* b1,
                            const void* s2, const void* b2, int nln,
                            const void* w, const void* scale, const void* bias,
-                           void* out, int K, int N, int gelu, int mode,
-                           void* stream) {
-  return launch_int8_gemv(x32, make_norm(s1, b1, s2, b2, nln), w, scale,
-                          bias, out, K, N, gelu, mode, (cudaStream_t)stream);
+                           void* out, void* part, void* count, int K, int N,
+                           int gelu, int mode, void* stream) {
+  return launch_gemv<8>(x32, make_norm(s1, b1, s2, b2, nln), w, scale, bias,
+                        out, part, count, K, N, 1, gelu, mode,
+                        (cudaStream_t)stream);
 }
 
-// part: >= N / 32 x G x s x 32 f32 of scratch; count: N / 32 counters, 0
-// before the launch and 0 after it (the last block of each column tile
-// resets its own). One launch at a time may use them.
 XT_API int xt_int4_gemv(const void* x, const void* w, const void* scale,
                         const void* bias, void* out, void* part, void* count,
                         int K, int N, int groups, int gelu, int mode,
                         void* stream) {
-  return launch_int4_gemv(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
-                          w, scale, bias, out, part, count, K, N, groups,
-                          gelu, mode, (cudaStream_t)stream);
+  return launch_gemv<4>(x, make_norm(nullptr, nullptr, nullptr, nullptr, 0),
+                        w, scale, bias, out, part, count, K, N, groups, gelu,
+                        mode, (cudaStream_t)stream);
 }
 
 XT_API int xt_int4_gemv_ln(const void* x32, const void* s1, const void* b1,
@@ -818,18 +766,27 @@ XT_API int xt_int4_gemv_ln(const void* x32, const void* s1, const void* b1,
                            const void* w, const void* scale, const void* bias,
                            void* out, void* part, void* count, int K, int N,
                            int groups, int gelu, int mode, void* stream) {
-  return launch_int4_gemv(x32, make_norm(s1, b1, s2, b2, nln), w, scale,
-                          bias, out, part, count, K, N, groups, gelu, mode,
-                          (cudaStream_t)stream);
+  return launch_gemv<4>(x32, make_norm(s1, b1, s2, b2, nln), w, scale, bias,
+                        out, part, count, K, N, groups, gelu, mode,
+                        (cudaStream_t)stream);
 }
 
-// bounds[0] = s, the chunks of each scale group; bounds[1 + r] = i4_lo(r,
-// s, K / groups) for r = 0..s: int4_gemv's split plan, for holding the
-// Python copy against this one
+// sets the gemv kernels' shared-memory carveout on the current device: the
+// wrappers call it once a device and shape, before its first launch
+XT_API int xt_gemv_setup() {
+  const cudaError_t e = gemv_carveout<8>();
+  return (int)(e != cudaSuccess ? e : gemv_carveout<4>());
+}
+
+// bounds[0] = s, the chunks of each scale group; bounds[1 + r] = gv_lo(r,
+// s, K / groups) for r = 0..s: the split plans of int8_gemv and int4_gemv,
+// for holding the Python copy against these
+XT_API void xt_int8_gemv_bounds(int K, int N, int* bounds) {
+  gemv_bounds<8>(K, N, 1, bounds);
+}
+
 XT_API void xt_int4_gemv_bounds(int K, int N, int groups, int* bounds) {
-  const int s = i4_splits(K, N, groups);
-  bounds[0] = s;
-  for (int r = 0; r <= s; ++r) bounds[1 + r] = i4_lo(r, s, K / groups);
+  gemv_bounds<4>(K, N, groups, bounds);
 }
 
 XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
@@ -841,9 +798,6 @@ XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
       (__nv_bfloat16*)out, idx, d, scale);
   return (int)cudaGetLastError();
 }
-
-// int8_gemv's partial sums a column (int8_gemv_plain's GEMV_KTHREADS)
-XT_API int xt_gemv_kthreads() { return GEMV_KTHREADS; }
 
 // bounds[r] = att_lo(r, idx + 1) for r = 0..ATT_SPLITS: decode_attention's
 // chunks, for holding the Python copy against this one

@@ -35,10 +35,10 @@
 // thread-block cluster so that every matrix of the step streams from
 // 128-288 blocks, and merges the K partials through distributed shared
 // memory (below), so the weight stream does not grow with B.
-// serving_attention runs one block per (head, row),
-// reads each cached k/v byte once (a half-warp per position, 4 bytes a
-// lane) and keeps the scores in shared memory for an exact two-pass
-// softmax. Launch cost still dominates at 76 launches a step.
+// serving_attention runs one block per (head, row) with all of its cache
+// rows in flight at once (cp.async chunks of 128 positions) and an online
+// softmax over the chunks, as the TPU kernel's. Launch cost still
+// dominates at 76 launches a step.
 //
 // Layouts: weights (K, N) int8 row-major (quantize_dense's (in, out)); the
 // cache one layer at a time, (B, S, D) int8 with (B, S) f32 scales.
@@ -503,116 +503,297 @@ int gemm_rows(const void* x, Norm nrm, const void* w, const void* scale,
 }
 
 // ---------------------------------------------------------------------------
-// serving_attention: one block per (head, row), 128 threads, head_dim 64.
-// qkv: (B, 3D) f32 [q | k | v] from the qkv product. The block first finds
-// the row's k and v scales over all D (each block of the row recomputes
-// them), writes its head's 64 quantized k/v values at idx (head 0 writes
-// the scales), then attends over positions < idx of the int8 cache plus
-// the unquantized current token.
+// serving_attention: one query per (row, head) over the int8 cache
+// positions < idx plus the current token, an online softmax over chunks of
+// SA_CHUNK = 128 positions as the TPU kernel's (xtts_tpu/ops/
+// serving_step.py:206-270; its chunk is 128 at 8-16 rows of D 1024).
+//
+// qkv: (B, 3D) f32 [q | k | v] from the qkv product. The grid is (heads,
+// B), 256 threads a block, head_dim 64. A block:
+//  1. loads its q slice, the row's k and v (for their scales over all D)
+//     and issues the cp.async copies of its first SA_STAGES chunks (64
+//     bytes of k and of v a position, and the two f32 scales; zero-filled
+//     past idx) before it uses any of them: a (row, head)'s 353 positions
+//     are 45 KB, all in flight at once from 256 blocks;
+//  2. walks the chunks SA_STEP at a time (the next step's copies in flight
+//     meanwhile), each step's chunks side by side:
+//     - scores, 4 threads a position of 16 dims each: the bf16(k q)
+//       products summed in dim order, then a 2-level butterfly; times the
+//       k scale x att_scale;
+//     - each chunk c in order: m' = max(m, chunk max), alpha_c = exp(m -
+//       m'); e = exp(s - m'); E_c = the butterfly sums of its 4 warps' e,
+//       in warp order;
+//     - each chunk's v sum P_c: group g of 16 adds v (bf16(e) vscale) of
+//       positions g, g + 16, ... in turn, then the 16 groups add in order
+//       (the v scale folded into each position's weight once, not into
+//       each of its 64 terms);
+//     - den = den alpha_c + E_c and o = o alpha_c + P_c, chunk by chunk, as
+//       the TPU kernel's acc * alpha + contrib;
+//  3. quantizes the new row over D (scale max(|y|, 1e-8) / 127, round half
+//     to even, clip +-127) and writes its head's 64 values at idx (head 0
+//     writes the scales); no block reads position idx (after the chunks,
+//     so that they start as soon as the first lands: 1 us earlier, H100);
+//  4. takes the current token's score in closed form: bf16(k q) of its 64
+//     dims, lane l summing dims 2l and 2l + 1, then a butterfly, times the
+//     attention scale;
+//  5. adds the current token as the TPU kernel does (m' = max(m, self), den
+//     alpha + e_self, o alpha + e_self v), then out = o / den in bf16.
+// Every f32 operation rounds on its own (explicitly where nvcc could
+// contract it into a fused multiply-add; IEEE divisions; expf), in an order
+// the plain twin (ops/serving_step.py
+// serving_attention_plain) repeats with PyTorch's elementwise ops, so on
+// the card the two give the same bits. The running max starts at -inf,
+// and its factor is 0 then (not exp(-inf - -inf)). The int8 values widen
+// by a byte_perm, not by a conversion, and the products round to bf16 two
+// at a time (the conversion unit runs at a quarter of the FP32 rate; with
+// one conversion a value, the scores and the v sum took 5.4 of 12.4 us,
+// H100, PERF.md).
+//
+// Bound: bytes, the cache rows and scales below idx (16 rows x 16 heads x
+// 353 positions x 128 bytes, 11.6 MB, 3.5 us at 3.35 TB/s). The earlier
+// kernel walked the positions twice, 8 a warp step, each step a dependent
+// round trip (34.4 us); here a block's loads are all issued before its
+// first product, any idx < S runs through the ring of SA_STAGES chunk
+// slots, and nothing of size idx lives in shared memory.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128)
+constexpr int SA_THREADS = 256;
+constexpr int SA_CHUNK = 128;          // positions a chunk
+constexpr int SA_STEP = 2;             // chunks a step: one a thread's e
+constexpr int SA_STAGES = 4;           // chunk slots: two steps in flight
+constexpr int SA_GROUPS = SA_THREADS / 16;   // v-sum groups of 16 threads
+constexpr size_t SA_SLOT = (size_t)SA_CHUNK * (64 + 64 + 4 + 4);
+constexpr size_t SA_SMEM = SA_SLOT * SA_STAGES;
+static_assert(SA_CHUNK * SA_STEP == SA_THREADS,
+              "one position's e a thread, 4 threads a position's score");
+static_assert(SA_STAGES == 2 * SA_STEP, "the ring holds two steps");
+
+__device__ __forceinline__ float sa_factor(float m, float big_m) {
+  return m == -INFINITY ? 0.f : expf(__fsub_rn(m, big_m));
+}
+
+__global__ void __launch_bounds__(SA_THREADS)
 serving_attention_kernel(const float* __restrict__ qkv,
                          int8_t* __restrict__ kc, int8_t* __restrict__ vc,
                          float* __restrict__ ks, float* __restrict__ vs,
                          __nv_bfloat16* __restrict__ out, int S, int D,
                          int idx, float att_scale) {
-  extern __shared__ float sc[];  // idx scores, then probabilities
+  extern __shared__ __align__(16) unsigned char smem[];  // SA_STAGES slots
   __shared__ float red[33];
-  __shared__ float part[8][64];
-  __shared__ float self_s;
+  __shared__ float sc[SA_THREADS], pv[SA_THREADS];
+  __shared__ float wmax[SA_STEP][4], wsum[SA_STEP][4];
+  __shared__ __align__(16) float part[SA_STEP][SA_GROUPS][64];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int half = lane >> 4, hl = lane & 15;
   const int c0 = h * 64;
   const float* qrow = qkv + (size_t)b * 3 * D;
   const float* krow = qrow + D;
   const float* vrow = qrow + 2 * D;
-  int8_t* kcb = kc + (size_t)b * S * D;
-  int8_t* vcb = vc + (size_t)b * S * D;
+  const int8_t* kcb = kc + (size_t)b * S * D + c0;
+  const int8_t* vcb = vc + (size_t)b * S * D + c0;
   const float* ksb = ks + (size_t)b * S;
   const float* vsb = vs + (size_t)b * S;
+  const int nchunks = (idx + SA_CHUNK - 1) / SA_CHUNK;
 
-  // ---- the new row, quantized over D ----
-  float km = 0.f, vm = 0.f;
-  for (int i = tid; i < D; i += blockDim.x) {
-    km = fmaxf(km, fabsf(krow[i]));
-    vm = fmaxf(vm, fabsf(vrow[i]));
+  // a slot: k [128][64] int8, v [128][64] int8, kscale [128], vscale [128]
+  auto slot_k = [&](int c) { return smem + (c % SA_STAGES) * SA_SLOT; };
+  auto slot_v = [&](int c) { return slot_k(c) + SA_CHUNK * 64; };
+  auto slot_ks = [&](int c) {
+    return reinterpret_cast<float*>(slot_k(c) + SA_CHUNK * 128);
+  };
+  auto slot_vs = [&](int c) { return slot_ks(c) + SA_CHUNK; };
+  // chunk c's copies as one commit group (an empty group past the last)
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      const int p0 = c * SA_CHUNK;
+      const uint32_t dk = smem_u32(slot_k(c)), dv = smem_u32(slot_v(c));
+      for (int i = tid; i < SA_CHUNK * 4; i += SA_THREADS) {
+        const int p = i >> 2, part16 = (i & 3) * 16, s = p0 + p;
+        const bool ok = s < idx;
+        const size_t off = (size_t)(ok ? s : 0) * D + part16;
+        cp_async16(dk + p * 64 + part16, kcb + off, ok);
+        cp_async16(dv + p * 64 + part16, vcb + off, ok);
+      }
+      if (tid < SA_CHUNK) {
+        const int s = p0 + tid;
+        const bool ok = s < idx;
+        cp_async4(smem_u32(slot_ks(c) + tid), ksb + (ok ? s : 0), ok);
+        cp_async4(smem_u32(slot_vs(c) + tid), vsb + (ok ? s : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // ---- 1. the inputs' loads, then every chunk slot's copies ----
+  const int qq = tid & 3;  // the score's dims 16 qq .. 16 qq + 15
+  float qv[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qv[i] = qrow[c0 + 16 * qq + i];
+  float kr[4], vr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = tid + i * SA_THREADS;
+    kr[i] = d < D ? krow[d] : 0.f;
+    vr[i] = d < D ? vrow[d] : 0.f;
   }
-  km = block_reduce<true>(km, red);
-  vm = block_reduce<true>(vm, red);
+  float self_k[2], self_q[2];
+  if (warp == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      self_k[u] = krow[c0 + 2 * lane + u];
+      self_q[u] = qrow[c0 + 2 * lane + u];
+    }
+  }
+  for (int c = 0; c < SA_STAGES; ++c) issue(c);
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qv[i] = bf16_round(qv[i]);
+
+  // ---- 2. the chunks, SA_STEP a step ----
+  const int vq = tid & 15, vg = tid >> 4;  // v sum: dims 4 vq.., group vg
+  const int cb = tid >> 7;                 // the chunk of this thread's e
+  float m = -INFINITY, den = 0.f, o = 0.f;  // den, o: threads < 64 (dim)
+  for (int c1 = 0; c1 < nchunks; c1 += SA_STEP) {
+    const int nb = min(SA_STEP, nchunks - c1);  // chunks this step
+    cp_async_wait<SA_STAGES - SA_STEP>();
+    __syncthreads();  // the step's chunks (every thread's copies) landed
+    // scores: position p = tid / 4 + 64 i of the step, quarter qq
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = (tid >> 2) + 64 * i, c = c1 + (p >> 7), pc = p & 127;
+      if (c - c1 >= nb) break;  // uniform: no chunk there
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          slot_k(c) + pc * 64 + 16 * qq);
+      const uint32_t wd[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                              raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        // two products rounded to bf16 by one packed conversion
+        const float2 pr = __bfloat1622float2(__floats2bfloat162_rn(
+            __fmul_rn(byte_f32(wd[j >> 2], j & 3, 8388736.f), qv[j]),
+            __fmul_rn(byte_f32(wd[j >> 2], (j & 3) + 1, 8388736.f),
+                      qv[j + 1])));
+        a = __fadd_rn(__fadd_rn(a, pr.x), pr.y);
+      }
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      if (qq == 0)
+        sc[p] = c * SA_CHUNK + pc < idx
+                    ? __fmul_rn(a, __fmul_rn(slot_ks(c)[pc], att_scale))
+                    : -INFINITY;
+    }
+    __syncthreads();
+    // each chunk's max: warps 4 cb .. 4 cb + 3 hold its 128 scores
+    const float s = sc[tid];
+    if (cb < nb) {
+      const float wm = warp_max(s);
+      if (lane == 0) wmax[cb][warp & 3] = wm;
+    }
+    __syncthreads();
+    float mc[SA_STEP], al[SA_STEP];  // each chunk's running max and factor
+#pragma unroll
+    for (int cc = 0; cc < SA_STEP; ++cc) {
+      const float prev = cc ? mc[cc - 1] : m;
+      mc[cc] = cc < nb ? fmaxf(prev, fmaxf(fmaxf(wmax[cc][0], wmax[cc][1]),
+                                           fmaxf(wmax[cc][2], wmax[cc][3])))
+                       : prev;
+      al[cc] = sa_factor(prev, mc[cc]);
+    }
+    if (cb < nb) {
+      const float e = expf(__fsub_rn(s, mc[cb]));
+      pv[tid] = __fmul_rn(bf16_round(e),
+                          slot_vs(c1 + cb)[tid & (SA_CHUNK - 1)]);
+      float t = e;
+      for (int off = 16; off > 0; off >>= 1)
+        t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, off));
+      if (lane == 0) wsum[cb][warp & 3] = t;
+    }
+    __syncthreads();
+    // each chunk's v sum: group vg's positions in turn
+    for (int cc = 0; cc < nb; ++cc) {
+      const int8_t* vt = reinterpret_cast<const int8_t*>(slot_v(c1 + cc));
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int p = vg; p < SA_CHUNK; p += SA_GROUPS) {
+        const uint32_t wd =
+            *reinterpret_cast<const uint32_t*>(vt + p * 64 + 4 * vq) ^
+            0x80808080u;
+        const float w = pv[cc * SA_CHUNK + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = __fadd_rn(a[i], __fmul_rn(byte_f32(wd, i, 8388736.f), w));
+      }
+      *reinterpret_cast<float4*>(&part[cc][vg][4 * vq]) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+    __syncthreads();  // the slots are free; part, wsum are written
+    for (int cc = 0; cc < SA_STEP; ++cc) issue(c1 + SA_STAGES + cc);
+    if (tid < 64) {
+      for (int cc = 0; cc < nb; ++cc) {
+        float pc = 0.f;
+#pragma unroll
+        for (int g = 0; g < SA_GROUPS; ++g) pc = __fadd_rn(pc, part[cc][g][tid]);
+        const float ec = __fadd_rn(
+            __fadd_rn(__fadd_rn(wsum[cc][0], wsum[cc][1]), wsum[cc][2]),
+            wsum[cc][3]);
+        den = __fadd_rn(__fmul_rn(den, al[cc]), ec);
+        o = __fadd_rn(__fmul_rn(o, al[cc]), pc);
+      }
+    }
+    m = mc[SA_STEP - 1];
+  }
+  cp_async_wait<0>();
+
+  // ---- 3. the new row, quantized over D: both maxima in one reduction
+  // (the warps' in red[0..15]) ----
+  float km = 0.f, vm = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    km = fmaxf(km, fabsf(kr[i]));
+    vm = fmaxf(vm, fabsf(vr[i]));
+  }
+  for (int d = tid + 4 * SA_THREADS; d < D; d += SA_THREADS) {
+    km = fmaxf(km, fabsf(krow[d]));
+    vm = fmaxf(vm, fabsf(vrow[d]));
+  }
+  km = warp_max(km);
+  vm = warp_max(vm);
+  if (lane == 0) {
+    red[warp] = km;
+    red[8 + warp] = vm;
+  }
+  // ---- 4. the current token's score ----
+  if (warp == 0) {
+    float p = __fadd_rn(bf16_round(__fmul_rn(self_k[0], self_q[0])),
+                        bf16_round(__fmul_rn(self_k[1], self_q[1])));
+    for (int off = 16; off > 0; off >>= 1)
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
+    if (lane == 0) red[32] = __fmul_rn(p, att_scale);
+  }
+  __syncthreads();
+  for (int w = 0; w < SA_THREADS / 32; ++w) {
+    km = fmaxf(km, red[w]);
+    vm = fmaxf(vm, red[8 + w]);
+  }
   const float kscale = fmaxf(km, 1e-8f) / 127.f;
   const float vscale = fmaxf(vm, 1e-8f) / 127.f;
   if (tid < 64) {
-    kcb[(size_t)idx * D + c0 + tid] = quant(krow[c0 + tid], kscale);
-    vcb[(size_t)idx * D + c0 + tid] = quant(vrow[c0 + tid], vscale);
+    kc[((size_t)b * S + idx) * D + c0 + tid] = quant(krow[c0 + tid], kscale);
+    vc[((size_t)b * S + idx) * D + c0 + tid] = quant(vrow[c0 + tid], vscale);
   }
   if (h == 0 && tid == 0) {
     ks[(size_t)b * S + idx] = kscale;
     vs[(size_t)b * S + idx] = vscale;
   }
 
-  // ---- scores: a half-warp per position, 4 dims a lane ----
-  float q[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) q[u] = bf16_round(qrow[c0 + hl * 4 + u]);
-  for (int s0 = warp * 2; s0 < idx; s0 += 8) {
-    const int s = s0 + half;
-    float p = 0.f;
-    if (s < idx) {
-      const char4 kv =
-          *reinterpret_cast<const char4*>(kcb + (size_t)s * D + c0 + hl * 4);
-      p = bf16_round(kv.x * q[0]) + bf16_round(kv.y * q[1]) +
-          bf16_round(kv.z * q[2]) + bf16_round(kv.w * q[3]);
-    }
-    for (int o = 8; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-    if (s < idx && hl == 0) sc[s] = p * (ksb[s] * att_scale);
-  }
-  if (warp == 0) {
-    float p = 0.f;
-    for (int u = 0; u < 2; ++u) {
-      const int d = c0 + 2 * lane + u;
-      p += bf16_round(krow[d] * qrow[d]);
-    }
-    p = warp_sum(p);
-    if (lane == 0) self_s = p * att_scale;
-  }
-  __syncthreads();
-
-  // ---- softmax over the cache positions and the current token ----
-  float m = tid == 0 ? self_s : -INFINITY;
-  for (int s = tid; s < idx; s += blockDim.x) m = fmaxf(m, sc[s]);
-  m = block_reduce<true>(m, red);
-  float l = 0.f;
-  for (int s = tid; s < idx; s += blockDim.x) {
-    const float e = expf(sc[s] - m);
-    sc[s] = e;
-    l += e;
-  }
-  l = block_reduce<false>(l, red);  // its barriers also publish sc[]
-  const float e_self = expf(self_s - m);
-  l += e_self;
-
-  // ---- the v sum: bf16 probabilities, v scale folded in ----
-  float o[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = warp * 2 + half; s < idx; s += 8) {
-    const char4 vv =
-        *reinterpret_cast<const char4*>(vcb + (size_t)s * D + c0 + hl * 4);
-    const float p = bf16_round(sc[s]);
-    const float vsc = vsb[s];
-    o[0] += (vv.x * p) * vsc;
-    o[1] += (vv.y * p) * vsc;
-    o[2] += (vv.z * p) * vsc;
-    o[3] += (vv.w * p) * vsc;
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) part[warp * 2 + half][hl * 4 + u] = o[u];
-  __syncthreads();
+  // ---- 5. the current token ----
   if (tid < 64) {
-    float acc = 0.f;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) acc += part[p][tid];
-    acc += e_self * vrow[c0 + tid];
-    out[(size_t)b * D + c0 + tid] = __float2bfloat16(acc / l);
+    const float self_s = red[32];
+    const float m_new = fmaxf(m, self_s);
+    const float alpha = sa_factor(m, m_new);
+    const float e_self = expf(__fsub_rn(self_s, m_new));
+    const float l = __fadd_rn(__fmul_rn(den, alpha), e_self);
+    o = __fadd_rn(__fmul_rn(o, alpha), __fmul_rn(e_self, vrow[c0 + tid]));
+    out[(size_t)b * D + c0 + tid] = __float2bfloat16(o / l);
   }
 }
 
@@ -649,8 +830,18 @@ XT_API int xt_serving_attention(const void* qkv, void* kc, void* vc, void* ks,
                                 void* vs, void* out, int B, int S, int D,
                                 int heads, int idx, float att_scale,
                                 void* stream) {
-  dim3 grid(heads, B);
-  serving_attention_kernel<<<grid, 128, (size_t)(idx > 0 ? idx : 1) * sizeof(float),
+  // the opt-in above 48 KB costs microseconds: once per device and process
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(opted >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        serving_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SA_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted |= 1u << dev;
+  }
+  serving_attention_kernel<<<dim3(heads, B), SA_THREADS, SA_SMEM,
                              (cudaStream_t)stream>>>(
       (const float*)qkv, (int8_t*)kc, (int8_t*)vc, (float*)ks, (float*)vs,
       (__nv_bfloat16*)out, S, D, idx, att_scale);

@@ -12,9 +12,10 @@ TPU kernel ran `_ln` inside its one kernel; the standalone
 it.
 
 Bound on the H100: weight bytes, ~190 MB of int8 per token at the flagship
-width (~57 us at 3.35 TB/s). The gemv reads each weight once with coalesced
-4-byte loads and fuses the norm, dequant, scale, bias, gelu_new and the
-residual add; the chain is still launch-bound (see PERF.md).
+width (~57 us at 3.35 TB/s). The gemv reads each weight once, 16 bytes of a
+row a block with a whole chunk of rows in flight (gemv_plan), and fuses the
+norm, dequant, scale, bias, gelu_new and the residual add; the chain is
+still launch-bound (see PERF.md).
 
 Numerics follow the TPU kernel, not the XLA chain of infer/qdecode.py: the
 residual stays f32 across the layers, LayerNorms and softmax run in f32,
@@ -31,11 +32,11 @@ even||odd column order and its permutation matmul have no counterpart.
 
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain PyTorch twin for a CPU tensor.
-The twins of int8_gemv, int4_gemv and decode_attention repeat their
-kernels' f32 operations in the kernels' order (ordered_int8_sums,
-ordered_int4_sums, split_attention), so on the card each kernel and its
-twin give the same bits wherever no gelu_new or norm prologue is involved
-(card tests); elsewhere they differ by roundings only.
+The twins of layer_norm_rows, int8_gemv, int4_gemv and decode_attention
+repeat their kernels' f32 operations in the kernels' order
+(layer_norm_rows_ordered, ordered_sums, split_attention), so on the card
+each kernel and its twin give the same bits wherever no gelu_new is
+involved (card tests); gelu_new's tanh differs by roundings only.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
 
 NEG_INF = -1e9
-# the input vector / row is staged in 48 KB of shared memory as f32
+# layer_norm_rows stages its row in 48 KB of shared memory as f32
 MAX_SMEM_FLOATS = 12288
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,21 +63,22 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load_library("decode_step")
     lib.xt_layer_norm_rows.argtypes = [_P] * 6 + [_I, _I, _I, _P]
-    lib.xt_int8_gemv.argtypes = [_P] * 5 + [_I, _I, _I, _I, _P]
-    lib.xt_int8_gemv_ln.argtypes = [_P] * 5 + [_I] + [_P] * 4 + [_I] * 4 + [_P]
+    lib.xt_int8_gemv.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    lib.xt_int8_gemv_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
+                                    + [_P])
     lib.xt_int4_gemv.argtypes = [_P] * 7 + [_I] * 5 + [_P]
     lib.xt_int4_gemv_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 6 + [_I] * 5
                                     + [_P])
+    lib.xt_int8_gemv_bounds.argtypes = [_I, _I, _P]
     lib.xt_int4_gemv_bounds.argtypes = [_I, _I, _I, _P]
-    lib.xt_int4_gemv_bounds.restype = None
-    lib.xt_gemv_kthreads.argtypes = []
-    lib.xt_gemv_kthreads.restype = _I
+    lib.xt_int8_gemv_bounds.restype = lib.xt_int4_gemv_bounds.restype = None
+    lib.xt_gemv_setup.argtypes = []
     lib.xt_decode_attention.argtypes = [_P] * 4 + [_I] * 3 + [
         ctypes.c_float, _P]
     lib.xt_attention_bounds.argtypes = [_I, _P]
     lib.xt_attention_bounds.restype = None
     for fn in (lib.xt_layer_norm_rows, lib.xt_int8_gemv, lib.xt_int8_gemv_ln,
-               lib.xt_int4_gemv, lib.xt_int4_gemv_ln,
+               lib.xt_int4_gemv, lib.xt_int4_gemv_ln, lib.xt_gemv_setup,
                lib.xt_decode_attention):
         fn.restype = _I
     return lib
@@ -111,7 +113,8 @@ def norm_operands(x: torch.Tensor, ln, k: int, out=None):
     two = len(ln) == 4
     s1, b1 = ln[0], ln[1]
     s2, b2 = (ln[2], ln[3]) if two else (s1, b1)
-    return [ptr(s1), ptr(b1), ptr(s2), ptr(b2), 2 if two else 1]
+    return [s1.data_ptr(), b1.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+            2 if two else 1]
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -122,9 +125,10 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def normed_input(x, ln):
     """The bf16 input a fused product computes from the f32 residual x:
-    layer_norm_rows_plain of its rows (the plain twins' prologue)."""
-    return layer_norm_rows_plain(x.reshape(-1, x.shape[-1]),
-                                 *ln).reshape(x.shape)
+    layer_norm_rows_ordered of its rows (the plain twins' prologue, the
+    kernels' statistics in their order)."""
+    return layer_norm_rows_ordered(x.reshape(-1, x.shape[-1]),
+                                   *ln).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -132,11 +136,66 @@ def normed_input(x, ln):
 # ---------------------------------------------------------------------------
 
 def layer_norm_rows_plain(x, s1, b1, s2=None, b2=None) -> torch.Tensor:
+    """The LayerNorm(s) with torch's reductions: the reference that
+    layer_norm_rows_ordered is held against."""
     def ln(v, s, b):
         mu = v.mean(-1, keepdim=True)
         var = ((v - mu) ** 2).mean(-1, keepdim=True)
         return (v - mu) * torch.rsqrt(var + 1e-5) * s + b
     y = ln(x.float(), s1, b1)
+    if s2 is not None:
+        y = ln(y, s2, b2)
+    return y.to(torch.bfloat16)
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """warp_sum's fold of the last axis (32 lanes): the value every lane
+    holds after the xor-16, 8, 4, 2, 1 exchanges (a + b = b + a, so lane 0's
+    is every lane's)."""
+    o = v.shape[-1] // 2
+    while o:
+        v = v[..., :o] + v[..., o:2 * o]
+        o //= 2
+    return v[..., 0]
+
+
+def _sum256(v: torch.Tensor) -> torch.Tensor:
+    """common.cuh block_sum256 of each row of v (rows, d) f32: virtual
+    thread t < 256 adds elements t, t + 256, ... in turn onto 0; each
+    virtual warp of 32 folds its sums by a butterfly; the 8 warp sums
+    (lanes 8..31 zero) by a butterfly. Returns (rows, 1)."""
+    rows, d = v.shape
+    steps = -(-d // 256)
+    if d != steps * 256:
+        v = F.pad(v, (0, steps * 256 - d))
+    v = v.reshape(rows, steps, 256)
+    acc = v[:, 0] + 0.0                 # 0.f + the first term: -0 -> +0
+    for j in range(1, steps):
+        acc = acc + v[:, j]
+    warps = _butterfly(acc.reshape(rows, 8, 32))
+    # the last fold's first two levels add lanes 8..31's zeros to lanes
+    # 0..7: one + 0.0, then the 8 lanes' own levels
+    return _butterfly(warps + 0.0)[:, None]
+
+
+def layer_norm_rows_ordered(x, s1, b1, s2=None, b2=None) -> torch.Tensor:
+    """layer_norm_rows' arithmetic in its order (common.cuh
+    layer_norm_inplace): each row's sum and sum of squares in
+    block_sum256's order (_sum256), the divisions by d, var + eps, rsqrt,
+    then (x - mu) * rstd * s + b, every f32 operation rounded on its own;
+    the second norm over the first's f32 output; bf16 once at the end. On
+    the card the kernel's rsqrtf and torch.rsqrt meet (PERF.md), so the two
+    give the same bits."""
+    x = x.float()
+    # a tensor divisor: PyTorch divides a CUDA tensor by a Python number as
+    # a product with its reciprocal, the kernel divides
+    d = torch.full((1, 1), float(x.shape[-1]), device=x.device)
+
+    def ln(v, s, b):
+        c = v - _sum256(v) / d          # x - mu, ln_apply's first rounding
+        rstd = torch.rsqrt(_sum256(c * c) / d + 1e-5)
+        return c * rstd * s + b
+    y = ln(x, s1, b1)
     if s2 is not None:
         y = ln(y, s2, b2)
     return y.to(torch.bfloat16)
@@ -148,7 +207,7 @@ def layer_norm_rows(x: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
     """x (rows, D) f32 -> LayerNorm(s1, b1) [then LayerNorm(s2, b2)] in f32,
     eps 1e-5, rounded to bf16 once at the end."""
     if not x.is_cuda:
-        return layer_norm_rows_plain(x, s1, b1, s2, b2)
+        return layer_norm_rows_ordered(x, s1, b1, s2, b2)
     if (x.dtype != torch.float32 or x.dim() != 2
             or x.shape[1] > MAX_SMEM_FLOATS):
         raise ValueError("layer_norm_rows takes (rows, D <= 12288) float32")
@@ -168,108 +227,7 @@ layer_norm_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# int8_gemv
-# ---------------------------------------------------------------------------
-
-# int8_gemv's partial sums a column: csrc GEMV_KTHREADS (a card test holds
-# the two equal through xt_gemv_kthreads)
-GEMV_KTHREADS = 32
-
-
-def kernel_gemv_kthreads() -> int:
-    """csrc's GEMV_KTHREADS (needs the built library, so the card)."""
-    return _lib().xt_gemv_kthreads()
-
-
-def ordered_int8_sums(x, w) -> torch.Tensor:
-    """sum_k x[k] w[k, :] in int8_gemv's order: partial r (r < 32) adds
-    x[k] w[k, :] for k = r, r + 32, ... one f32 add at a time, then the 32
-    partials add in r order. x (K,) holds bf16 values, so every product is
-    exact in f32 and each add is the kernel's one rounding. Returns (N,)."""
-    k, n = w.shape
-    steps = -(-k // GEMV_KTHREADS)
-    pad = steps * GEMV_KTHREADS - k
-    xs = F.pad(x.float().reshape(-1), (0, pad)).reshape(steps, GEMV_KTHREADS,
-                                                        1)
-    ws = F.pad(w.float(), (0, 0, 0, pad)).reshape(steps, GEMV_KTHREADS, n)
-    acc = torch.zeros(GEMV_KTHREADS, n, device=w.device)
-    for i in range(steps):
-        acc = acc + xs[i] * ws[i]
-    total = torch.zeros(n, device=w.device)
-    for r in range(GEMV_KTHREADS):
-        total = total + acc[r]
-    return total
-
-
-def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
-                    out_dtype=torch.float32, ln=None) -> torch.Tensor:
-    """int8_gemv's arithmetic in its order (ordered_int8_sums), then the
-    epilogue s * scale + bias rounded after the product and after the sum:
-    on the card the two give the same bits (no gelu)."""
-    if ln is not None:
-        x = normed_input(x, ln)
-    y = ordered_int8_sums(x, w) * scale + bias
-    if gelu:
-        y = gelu_new(y)
-    if out is not None:
-        out += y
-        return out
-    return y.to(out_dtype)
-
-
-def int8_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-              bias: torch.Tensor, out: Optional[torch.Tensor] = None,
-              gelu: bool = False, out_dtype=torch.float32,
-              ln=None) -> torch.Tensor:
-    """y = (x_bf16 . W_int8) * scale + bias, f32 accumulation.
-
-    x (K,) bf16; w (K, N) int8; scale, bias (N,) f32. gelu applies gelu_new
-    to y. With `out` given (f32 (N,)), y is added into it in place — the
-    residual add, and the K-split accumulate of the TPU kernel's four
-    out tiles, which here run as one K = 4D launch. Otherwise returns y in
-    out_dtype (f32 or bf16).
-
-    ln = (s, b) or (s1, b1, s2, b2): the norm prologue. x is then the f32
-    residual (K,), and the product takes layer_norm_rows(x, *ln) — computed
-    in the same launch, bit for bit the standalone kernel's output."""
-    if not x.is_cuda:
-        return int8_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
-    k, n = w.shape
-    want = torch.float32 if ln is not None else torch.bfloat16
-    if (x.dtype != want or w.dtype != torch.int8
-            or x.numel() != k or n % 32 or k > MAX_SMEM_FLOATS):
-        raise ValueError(f"int8_gemv: bad operands x {tuple(x.shape)} "
-                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}")
-    norm = None if ln is None else norm_operands(x, ln, k, out)
-    _check_cuda(x, w, scale, bias, out)
-    if out is not None:
-        if out.dtype != torch.float32 or out.numel() != n:
-            raise ValueError("int8_gemv accumulates into an f32 (N,) tensor")
-        mode, dst = 2, out
-    else:
-        if out_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"int8_gemv: out_dtype {out_dtype}")
-        mode = 0 if out_dtype == torch.float32 else 1
-        dst = torch.empty((n,), dtype=out_dtype, device=x.device)
-    if norm is None:
-        check(_lib().xt_int8_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias),
-                                  ptr(dst), k, n, int(gelu), mode,
-                                  stream_of(x)), "int8_gemv")
-    else:
-        check(_lib().xt_int8_gemv_ln(ptr(x), *norm, ptr(w), ptr(scale),
-                                     ptr(bias), ptr(dst), k, n, int(gelu),
-                                     mode, stream_of(x)), "int8_gemv")
-        int8_gemv.ln_launches += 1
-    int8_gemv.launches += 1
-    return dst
-
-
-# launches: every launch; ln_launches: those with the norm prologue
-int8_gemv.launches = int8_gemv.ln_launches = 0
-
-
-# ---------------------------------------------------------------------------
-# int4_gemv
+# int8_gemv and int4_gemv: one kernel template (csrc gemv_kernel)
 # ---------------------------------------------------------------------------
 
 def unpack_int4(w: torch.Tensor) -> torch.Tensor:
@@ -288,34 +246,55 @@ def pack_int4(w4: torch.Tensor) -> torch.Tensor:
     return ((hi << 4) | lo).to(torch.uint8).view(torch.int8).contiguous()
 
 
-# int4_gemv's split plan (csrc/decode_step.cu i4_splits / i4_lo: the
-# authority; this is its copy, held against xt_int4_gemv_bounds on the card)
-I4_COLS = 32         # output columns a block
-I4_LANES = 64        # row lanes a block: lane l adds rows lo + l, + 64, ...
-I4_FOLD = 8          # lanes a first-level sum
-I4_MIN_BLOCKS = 32
-I4_MIN_CHUNK = 64
-I4_MAX_CHUNK = 2048
+# the split plan (csrc/decode_step.cu gv_splits / gv_lo: the authority;
+# this is its copy, held against xt_int8_gemv_bounds / xt_int4_gemv_bounds
+# on the card). A block owns 16 bytes of each weight row: 16 int8 or 32
+# int4 columns; its chunk is at most 16 KB or 32 KB.
+GV_LANES = 64        # row lanes a block: lane l adds rows lo + l, + 64, ...
+GV_FOLD = 8          # lanes a first-level sum
+GV_MIN_BLOCKS = 32
+GV_MIN_CHUNK = 64
+I8_COLS, I8_MAX_CHUNK = 16, 1024
+I4_COLS, I4_MAX_CHUNK = 32, 2048
 
 
-def int4_gemv_plan(k: int, n: int, groups: int):
+def gemv_plan(k: int, n: int, groups: int, cols: int, max_chunk: int):
     """(s, bounds): each scale group of kg = k / groups rows is split into s
     chunks, chunk r taking rows [bounds[r], bounds[r + 1]) of the group,
     bounds[r] = 16 floor(r T / s) clipped to kg, T = ceil(kg / 16). s is
-    1 where the ceil(n / 32) column tiles x groups make >= 32 blocks (every
-    product of the K1-int4 step), else the least power of two that does,
-    stopping at 16 or where chunks would be shorter than 64 rows; then
-    doubled until no chunk exceeds 2048 rows."""
+    1 where the ceil(n / cols) column tiles x groups make >= 32 blocks,
+    else the least power of two that does, stopping at 16 or where chunks
+    would be shorter than 64 rows; then doubled until no chunk exceeds
+    max_chunk rows."""
     kg = k // groups
     t = -(-kg // 16)
-    tiles = -(-n // I4_COLS)
+    tiles = -(-n // cols)
     s = 1
-    while (s < 16 and tiles * groups * s < I4_MIN_BLOCKS
-           and kg // (2 * s) >= I4_MIN_CHUNK):
+    while (s < 16 and tiles * groups * s < GV_MIN_BLOCKS
+           and kg // (2 * s) >= GV_MIN_CHUNK):
         s *= 2
-    while 16 * -(-t // s) > I4_MAX_CHUNK:
+    while 16 * -(-t // s) > max_chunk:
         s *= 2
     return s, [min(kg, r * t // s * 16) for r in range(s + 1)]
+
+
+def int8_gemv_plan(k: int, n: int):
+    """int8_gemv's plan: one chunk at every K1 product but the out matrix,
+    whose 4096 rows split in four chunks of 1024."""
+    return gemv_plan(k, n, 1, I8_COLS, I8_MAX_CHUNK)
+
+
+def int4_gemv_plan(k: int, n: int, groups: int):
+    """int4_gemv's plan: one chunk a group at every K1-int4 product."""
+    return gemv_plan(k, n, groups, I4_COLS, I4_MAX_CHUNK)
+
+
+def kernel_int8_gemv_plan(k: int, n: int):
+    """The kernel's own plan (needs the built library, so the card)."""
+    s = int8_gemv_plan(k, n)[0]
+    out = (ctypes.c_int * (s + 2))()
+    _lib().xt_int8_gemv_bounds(int(k), int(n), out)
+    return out[0], list(out[1:out[0] + 2])
 
 
 def kernel_int4_gemv_plan(k: int, n: int, groups: int):
@@ -326,53 +305,85 @@ def kernel_int4_gemv_plan(k: int, n: int, groups: int):
     return out[0], list(out[1:out[0] + 2])
 
 
-def ordered_int4_sums(x, w, groups: int) -> torch.Tensor:
-    """Each group's sum_k x[k] w4[k, :] in int4_gemv's order: within chunk
-    r of int4_gemv_plan, lane l (< 64) adds rows lo + l, lo + l + 64, ...
-    one f32 add at a time; lanes 8h .. 8h + 7 add in order, then the 8
-    sums h in order; a group's chunks add in chunk order. x (K,) holds
-    bf16 values, so every product is exact in f32 and each add is the
-    kernel's one rounding. Returns (groups, N)."""
-    k = x.numel()
-    n = 2 * w.shape[1]
+def ordered_sums(x, wv, groups: int, plan) -> torch.Tensor:
+    """Each group's sum_k x[k] wv[k, :] in the gemv kernel's order: within
+    chunk r of `plan` (s, bounds), lane l (< 64) adds rows lo + l, lo + l +
+    64, ... one f32 add at a time; lanes 8h .. 8h + 7 add in order, then
+    the 8 sums h in order; a group's chunks add in chunk order. x (K,)
+    holds bf16 values and wv (K, N) the weights' integer values as f32, so
+    every product is exact in f32 and each add is the kernel's one
+    rounding. Returns (groups, N)."""
+    k, n = wv.shape
     kg = k // groups
-    dev = w.device
-    s, bounds = int4_gemv_plan(k, n, groups)
+    dev = wv.device
+    s, bounds = plan
     c = bounds[1]
     steps = max(1, -(-max(b - a for a, b in zip(bounds, bounds[1:]))
-                     // I4_LANES))
-    wv = unpack_int4(w).float()
+                     // GV_LANES))
     xf = x.float().reshape(-1)
     if bounds == [min(kg, r * c) for r in range(s + 1)] and c * s == kg:
         # equal chunks: term i of lane l of chunk r is row r c + 64 i + l
-        pad = steps * I4_LANES - c
+        pad = steps * GV_LANES - c
         prod = F.pad((xf[:, None] * wv).reshape(groups, s, c, n),
-                     (0, 0, 0, pad)).reshape(groups, s, steps, I4_LANES, n)
+                     (0, 0, 0, pad)).reshape(groups, s, steps, GV_LANES, n)
     else:
         lo = torch.tensor(bounds[:-1], device=dev)
         hi = torch.tensor(bounds[1:], device=dev)
         rel = lo[:, None, None] + (
-            torch.arange(steps, device=dev)[:, None] * I4_LANES
-            + torch.arange(I4_LANES, device=dev)[None, :])  # (s, step, lane)
+            torch.arange(steps, device=dev)[:, None] * GV_LANES
+            + torch.arange(GV_LANES, device=dev)[None, :])  # (s, step, lane)
         valid = rel < hi[:, None, None]
         rows = (torch.arange(groups, device=dev)[:, None, None, None] * kg
                 + torch.where(valid, rel, torch.zeros_like(rel)))
         prod = xf[rows][..., None] * wv[rows]
         prod = torch.where(valid[..., None], prod, torch.zeros_like(prod))
-    acc = torch.zeros(groups, s, I4_LANES, n, device=dev)
+    acc = torch.zeros(groups, s, GV_LANES, n, device=dev)
     for i in range(steps):
         acc = acc + prod[:, :, i]
-    acc = acc.reshape(groups, s, I4_LANES // I4_FOLD, I4_FOLD, n)
-    fold = torch.zeros(groups, s, I4_LANES // I4_FOLD, n, device=dev)
-    for lane in range(I4_FOLD):
+    acc = acc.reshape(groups, s, GV_LANES // GV_FOLD, GV_FOLD, n)
+    fold = torch.zeros(groups, s, GV_LANES // GV_FOLD, n, device=dev)
+    for lane in range(GV_FOLD):
         fold = fold + acc[:, :, :, lane]
     part = torch.zeros(groups, s, n, device=dev)
-    for h in range(I4_LANES // I4_FOLD):
+    for h in range(GV_LANES // GV_FOLD):
         part = part + fold[:, :, h]
     total = torch.zeros(groups, n, device=dev)
     for r in range(s):
         total = total + part[:, r]
     return total
+
+
+def ordered_int8_sums(x, w) -> torch.Tensor:
+    """sum_k x[k] w[k, :] in int8_gemv's order (ordered_sums over
+    int8_gemv_plan). Returns (N,)."""
+    return ordered_sums(x, w.float(), 1, int8_gemv_plan(*w.shape))[0]
+
+
+def ordered_int4_sums(x, w, groups: int) -> torch.Tensor:
+    """Each group's sum in int4_gemv's order (ordered_sums over
+    int4_gemv_plan). Returns (groups, N)."""
+    wv = unpack_int4(w).float()
+    return ordered_sums(x, wv, groups, int4_gemv_plan(*wv.shape, groups))
+
+
+def _store(y, out, gelu, out_dtype):
+    if gelu:
+        y = gelu_new(y)
+    if out is not None:
+        out += y
+        return out
+    return y.to(out_dtype)
+
+
+def int8_gemv_plain(x, w, scale, bias, out=None, gelu=False,
+                    out_dtype=torch.float32, ln=None) -> torch.Tensor:
+    """int8_gemv's arithmetic in its order (ordered_int8_sums), then the
+    epilogue s * scale + bias rounded after the product and after the sum:
+    on the card the two give the same bits (no gelu)."""
+    if ln is not None:
+        x = normed_input(x, ln)
+    return _store(ordered_int8_sums(x, w) * scale + bias, out, gelu,
+                  out_dtype)
 
 
 def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
@@ -391,34 +402,139 @@ def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
     total = torch.zeros_like(y[0])
     for g in range(groups):         # in group order, as the kernel sums
         total = total + y[g]
-    y = total
-    if gelu:
-        y = gelu_new(y)
-    if out is not None:
-        out += y
-        return out
-    return y.to(out_dtype)
+    return _store(total, out, gelu, out_dtype)
 
 
-# int4_gemv's split-K scratch a device: the partials (grown as needed) and
+# the gemv's split-K scratch a device: the partials (grown as needed) and
 # one counter a column tile, zero between launches (the kernel's last block
 # of a tile resets its own). Launches run one at a time on the stream.
-_I4_COUNTERS = 4096
-_i4_scratch: Dict[Any, Dict[str, torch.Tensor]] = {}
+_GV_COUNTERS = 4096
+_gv_scratch: Dict[Any, Dict[str, torch.Tensor]] = {}
+# (device, bits, w's shape, scale's shape, fused) -> what a launch of that
+# product needs besides its operands: the C entry point, the arguments after
+# the output pointer up to gelu (the scratch's pointers, K, N[, groups])
+# and N. Made once a shape, with the checks that depend on the shapes
+# alone, so that a launch checks and passes only its operands (the AR loop
+# is host-bound); cleared when a device's partials grow.
+_gv_launch: Dict[Any, tuple] = {}
 
 
-def _int4_scratch(device, floats: int, tiles: int):
-    if tiles > _I4_COUNTERS:
-        raise ValueError(f"int4_gemv takes N <= {_I4_COUNTERS * I4_COLS}")
-    sc = _i4_scratch.get(device)
+def _gemv_scratch(device, floats: int, tiles: int):
+    if tiles > _GV_COUNTERS:
+        raise ValueError(f"the gemv takes at most {_GV_COUNTERS} column "
+                         f"tiles")
+    sc = _gv_scratch.get(device)
     if sc is None:
-        sc = _i4_scratch[device] = {
-            "count": torch.zeros(_I4_COUNTERS, dtype=torch.int32,
+        sc = _gv_scratch[device] = {
+            "count": torch.zeros(_GV_COUNTERS, dtype=torch.int32,
                                  device=device),
             "part": torch.empty(0, dtype=torch.float32, device=device)}
     if sc["part"].numel() < floats:
         sc["part"] = torch.empty(floats, dtype=torch.float32, device=device)
+        _gv_launch.clear()
     return sc["part"], sc["count"]
+
+
+def _gemv_launch(bits: int, device, wshape, sshape, fused: bool):
+    """A gemv shape's entry of _gv_launch, made on its first launch (the
+    checks of the shapes, the plan, the scratch, the kernels' shared-memory
+    carveout on the device)."""
+    if len(wshape) != 2 or len(sshape) != (1 if bits == 8 else 2):
+        raise ValueError(f"int{bits}_gemv: bad shapes w {tuple(wshape)}, "
+                         f"scale {tuple(sshape)}")
+    k = wshape[0]
+    groups, n = (1, wshape[1]) if bits == 8 else tuple(sshape)
+    if wshape[1] * 8 // bits != n or n % 32 or k % groups or sshape[-1] != n:
+        raise ValueError(f"int{bits}_gemv: bad shapes w {tuple(wshape)}, "
+                         f"scale {tuple(sshape)}")
+    if bits == 8:
+        cols, splits = I8_COLS, int8_gemv_plan(k, n)[0]
+    else:
+        cols, splits = I4_COLS, int4_gemv_plan(k, n, groups)[0]
+    tiles = -(-n // cols)
+    part, count = _gemv_scratch(device, tiles * groups * splits * cols, tiles)
+    lib = _lib()
+    with torch.cuda.device(device):
+        check(lib.xt_gemv_setup(), f"int{bits}_gemv setup")
+    fn = {(8, False): lib.xt_int8_gemv, (8, True): lib.xt_int8_gemv_ln,
+          (4, False): lib.xt_int4_gemv,
+          (4, True): lib.xt_int4_gemv_ln}[bits, fused]
+    tail = (part.data_ptr(), count.data_ptr(), k, n) + (
+        () if bits == 8 else (groups,))
+    got = _gv_launch[device, bits, wshape, sshape, fused] = (fn, tail, n)
+    return got
+
+
+def _gemv(bits: int, x, w, scale, bias, out, gelu, out_dtype, ln):
+    """Check a gemv's operands, launch int8_gemv (bits 8) or int4_gemv
+    (bits 4) and return its output."""
+    _check_cuda(x, w, scale, bias, out)
+    dev = x.device
+    entry = _gv_launch.get((dev, bits, w.shape, scale.shape, ln is not None))
+    fn, tail, n = entry or _gemv_launch(bits, dev, w.shape, scale.shape,
+                                        ln is not None)
+    want = torch.float32 if ln is not None else torch.bfloat16
+    if (x.dtype != want or w.dtype != torch.int8 or x.numel() != tail[2]
+            or bias.numel() != n or scale.dtype != torch.float32
+            or w.data_ptr() % 16):
+        raise ValueError(f"int{bits}_gemv: bad operands x {tuple(x.shape)} "
+                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}, scale "
+                         f"{tuple(scale.shape)} {scale.dtype}, bias "
+                         f"{tuple(bias.shape)}")
+    if out is not None:
+        if out.dtype != torch.float32 or out.numel() != n:
+            raise ValueError(f"int{bits}_gemv accumulates into an f32 (N,) "
+                             f"tensor")
+        mode, dst = 2, out
+    else:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int{bits}_gemv: out_dtype {out_dtype}")
+        mode = 0 if out_dtype == torch.float32 else 1
+        dst = torch.empty((n,), dtype=out_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ln is None:
+        code = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr(), dst.data_ptr(), *tail, int(gelu), mode,
+                  stream)
+    else:
+        code = fn(x.data_ptr(), *norm_operands(x, ln, tail[2], out),
+                  w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                  dst.data_ptr(), *tail, int(gelu), mode, stream)
+    check(code, f"int{bits}_gemv")
+    return dst
+
+
+def int8_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, out: Optional[torch.Tensor] = None,
+              gelu: bool = False, out_dtype=torch.float32,
+              ln=None) -> torch.Tensor:
+    """y = (x_bf16 . W_int8) * scale + bias, f32 accumulation.
+
+    x (K,) bf16; w (K, N) int8, 16-byte aligned; scale, bias (N,) f32. gelu
+    applies gelu_new to y. With `out` given (f32 (N,)), y is added into it
+    in place — the residual add, and the K-split accumulate of the TPU
+    kernel's four out tiles, which here run as one K = 4D launch.
+    Otherwise returns y in out_dtype (f32 or bf16).
+
+    ln = (s, b) or (s1, b1, s2, b2): the norm prologue. x is then the f32
+    residual (K,), and the product takes layer_norm_rows(x, *ln) — computed
+    in the same launch, bit for bit the standalone kernel's output.
+
+    The kernel runs one block for each 16 columns and chunk of
+    int8_gemv_plan; where K is split (the out matrix), the chunks merge
+    through this device's scratch (_gemv_scratch), so gemv launches on one
+    device must not run concurrently on two streams."""
+    if not x.is_cuda:
+        return int8_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
+    dst = _gemv(8, x, w, scale, bias, out, gelu, out_dtype, ln)
+    if ln is not None:
+        int8_gemv.ln_launches += 1
+    int8_gemv.launches += 1
+    return dst
+
+
+# launches: every launch; ln_launches: those with the norm prologue
+int8_gemv.launches = int8_gemv.ln_launches = 0
 
 
 def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -437,46 +553,12 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
     The kernel runs one block for each 32 columns and chunk of
     int4_gemv_plan; where a product has several chunks (K split into scale
-    groups or chunks), the chunks merge through this device's scratch
-    (_int4_scratch), so launches of int4_gemv on one device must not run
-    concurrently on two streams."""
+    groups or chunks), the chunks merge through this device's scratch, as
+    int8_gemv's."""
     if not x.is_cuda:
         return int4_gemv_plain(x, w, scale, bias, out, gelu, out_dtype, ln)
-    k, half = w.shape
-    groups, n = scale.shape
-    want = torch.float32 if ln is not None else torch.bfloat16
-    if (x.dtype != want or w.dtype != torch.int8
-            or x.numel() != k or n != 2 * half or n % 32 or k % groups
-            or k > MAX_SMEM_FLOATS or bias.numel() != n
-            or scale.dtype != torch.float32 or w.data_ptr() % 16):
-        raise ValueError(f"int4_gemv: bad operands x {tuple(x.shape)} "
-                         f"{x.dtype}, w {tuple(w.shape)} {w.dtype}, scale "
-                         f"{tuple(scale.shape)}")
-    norm = None if ln is None else norm_operands(x, ln, k, out)
-    _check_cuda(x, w, scale, bias, out)
-    if out is not None:
-        if out.dtype != torch.float32 or out.numel() != n:
-            raise ValueError("int4_gemv accumulates into an f32 (N,) tensor")
-        mode, dst = 2, out
-    else:
-        if out_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"int4_gemv: out_dtype {out_dtype}")
-        mode = 0 if out_dtype == torch.float32 else 1
-        dst = torch.empty((n,), dtype=out_dtype, device=x.device)
-    splits = int4_gemv_plan(k, n, groups)[0]
-    tiles = -(-n // I4_COLS)
-    part, count = _int4_scratch(x.device, tiles * groups * splits * I4_COLS,
-                                tiles)
-    if norm is None:
-        check(_lib().xt_int4_gemv(ptr(x), ptr(w), ptr(scale), ptr(bias),
-                                  ptr(dst), ptr(part), ptr(count), k, n,
-                                  groups, int(gelu), mode, stream_of(x)),
-              "int4_gemv")
-    else:
-        check(_lib().xt_int4_gemv_ln(ptr(x), *norm, ptr(w), ptr(scale),
-                                     ptr(bias), ptr(dst), ptr(part),
-                                     ptr(count), k, n, groups, int(gelu),
-                                     mode, stream_of(x)), "int4_gemv")
+    dst = _gemv(4, x, w, scale, bias, out, gelu, out_dtype, ln)
+    if ln is not None:
         int4_gemv.ln_launches += 1
     int4_gemv.launches += 1
     return dst

@@ -21,6 +21,9 @@ quantized row. Numerics are in csrc/serving_step.cu's header.
 
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain twin for a CPU tensor.
+serving_attention's twin repeats its kernel's f32 operations in order, so
+on the card the two give the same bits; int8_gemm_rows' twin sums in
+another order (the tensor cores').
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ import torch
 from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
 from xtts_tpu_torch.nn.transformer import gelu_new
-from xtts_tpu_torch.ops.decode_step import (MAX_SMEM_FLOATS, norm_operands,
-                                            normed_input)
+from xtts_tpu_torch.ops.decode_step import (_butterfly, _merge_factor,
+                                            norm_operands, normed_input)
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
@@ -186,36 +189,98 @@ int8_gemm_rows.launches = int8_gemm_rows.ln_launches = 0
 
 def quantize_rows(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., D) f32 -> (int8 rows, (...) f32 per-row scales): scale
-    max(|y|, 1e-8) / 127, round half to even, clip +-127."""
-    sc = torch.clamp(y.abs().amax(dim=-1), min=1e-8) / 127.0
+    max(|y|, 1e-8) / 127, round half to even, clip +-127. Both divisions
+    take a tensor divisor: PyTorch divides a CUDA tensor by a Python number
+    as a product with its reciprocal, the kernel divides."""
+    top = torch.clamp(y.abs().amax(dim=-1), min=1e-8)
+    sc = top / torch.full_like(top, 127.0)
     q = torch.clamp(torch.round(y / sc[..., None]), -127, 127)
     return q.to(torch.int8), sc
 
 
+SA_CHUNK = 128       # positions a chunk of serving_attention's softmax
+SA_GROUPS = 16       # a chunk's v-sum groups (position 16 j + g)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
+    """serving_attention's arithmetic in its order (csrc/serving_step.cu),
+    one rounded elementwise op at a time, so on the card the two give the
+    same bits. The new rows are quantized over D and written at `index`.
+    Positions < index run in chunks of 128 through an online softmax, as
+    the TPU kernel's: a score sums its 4 quarters' bf16(k q) products (16
+    dims each, in order) by a 2-level tree, times k scale x 1/sqrt(hd);
+    per chunk m' = max(m, chunk max), alpha = exp(m - m') (0 while m =
+    -inf), e = exp(s - m'); the chunk's E = the 4 warps' butterfly sums of
+    e in order, and its P = the v sums v (bf16(e) vscale) of its 16
+    groups (group g: positions g, g + 16, ... in turn), added in group
+    order; then den = den alpha + E, o = o alpha + P (the TPU kernel's acc
+    * alpha + contrib). The current token then enters in closed form (its
+    score: pairs of bf16(k q) by a butterfly). Positions >= index weigh 0
+    with zero k, v and scales, as the kernel's zero-filled copies. Returns
+    (B, D) bf16."""
     b, d = qkv.shape[0], kc.shape[-1]
     hd = d // heads
     scale = 1.0 / math.sqrt(hd)
+    dev = qkv.device
     q, knew, vnew = qkv.float().split(d, dim=-1)
     kq, ksc = quantize_rows(knew)
     vq, vsc = quantize_rows(vnew)
     kc[:, index], vc[:, index] = kq, vq
     ks[:, index], vs[:, index] = ksc, vsc
-    qb = q.to(torch.bfloat16).float().reshape(b, 1, heads, hd)
-    kk = kc[:, :index].float().reshape(b, index, heads, hd)
-    s = ((kk * qb).to(torch.bfloat16).float().sum(-1)
-         * (ks[:, :index, None] * scale))                     # (B, idx, H)
-    self_s = ((knew * q).to(torch.bfloat16).float()
-              .reshape(b, heads, hd).sum(-1) * scale)          # (B, H)
-    m = torch.maximum(s.amax(dim=1), self_s) if index else self_s
-    e = torch.exp(s - m[:, None])
-    e_self = torch.exp(self_s - m)
-    den = e.sum(dim=1) + e_self
-    vv = vc[:, :index].float().reshape(b, index, heads, hd)
-    num = ((vv * e.to(torch.bfloat16).float()[..., None])
-           * vs[:, :index, None, None]).sum(dim=1)
-    num = num + e_self[..., None] * vnew.reshape(b, heads, hd)
-    return (num / den[..., None]).reshape(b, d).to(torch.bfloat16)
+    t = _bf16(knew * q).reshape(b, heads, hd // 2, 2)
+    self_s = _butterfly(t[..., 0] + t[..., 1]) * scale           # (B, H)
+
+    n = -(-index // SA_CHUNK) * SA_CHUNK
+    pos = torch.arange(n, device=dev)
+    valid = pos < index
+    at = torch.where(valid, pos, torch.zeros_like(pos))
+    zero = torch.zeros((), device=dev)
+    kk = torch.where(valid[:, None], kc[:, at].float(), zero)
+    vv = torch.where(valid[:, None], vc[:, at].float(), zero)
+    ksv = torch.where(valid, ks[:, at], zero)
+    vsv = torch.where(valid, vs[:, at], zero)
+    prod = _bf16(kk.reshape(b, n, heads, 4, hd // 4)
+                 * _bf16(q).reshape(b, 1, heads, 4, hd // 4))
+    lane = torch.zeros(prod.shape[:-1], device=dev)
+    for i in range(hd // 4):
+        lane = lane + prod[..., i]
+    s = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+    s = torch.where(valid[:, None], s * (ksv[..., None] * scale),
+                    torch.full_like(s, -math.inf))               # (B, n, H)
+
+    m = torch.full((b, heads), -math.inf, device=dev)
+    den = torch.zeros(b, heads, device=dev)
+    o = torch.zeros(b, heads, hd, device=dev)
+    steps = SA_CHUNK // SA_GROUPS
+    for c in range(n // SA_CHUNK):
+        sl = slice(c * SA_CHUNK, (c + 1) * SA_CHUNK)
+        sc = s[:, sl]
+        m_new = torch.maximum(m, sc.amax(1))
+        alpha = _merge_factor(m, m_new)
+        e = torch.exp(sc - m_new[:, None])
+        w = _butterfly(e.reshape(b, 4, 32, heads).transpose(2, 3))
+        wv = (_bf16(e) * vsv[:, sl, None]).reshape(b, steps, SA_GROUPS,
+                                                    heads, 1)
+        term = vv[:, sl].reshape(b, steps, SA_GROUPS, heads, hd) * wv
+        grp = torch.zeros(b, SA_GROUPS, heads, hd, device=dev)
+        for j in range(steps):
+            grp = grp + term[:, j]
+        pc = torch.zeros(b, heads, hd, device=dev)
+        for g in range(SA_GROUPS):
+            pc = pc + grp[:, g]
+        den = den * alpha + (((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3])
+        o = o * alpha[..., None] + pc
+        m = m_new
+    m_new = torch.maximum(m, self_s)
+    alpha = _merge_factor(m, m_new)
+    e_self = torch.exp(self_s - m_new)
+    den = den * alpha + e_self
+    o = o * alpha[..., None] + e_self[..., None] * vnew.reshape(b, heads, hd)
+    return (o / den[..., None]).reshape(b, d).to(torch.bfloat16)
 
 
 def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -227,13 +292,14 @@ def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     qkv (B, 3D) f32 [q | k | v]; kc, vc (B, S, D) int8 and ks, vs (B, S) f32
     — one layer of the cache, updated in place: the new k/v rows are
     quantized over D and written at `index`. Returns (B, D) bf16.
-    head_dim must be 64."""
+    head_dim must be 64; 0 <= index < S; the caches 16-byte aligned (their
+    rows are copied 16 bytes at a time)."""
     if not qkv.is_cuda:
         return serving_attention_plain(qkv, kc, vc, ks, vs, index, heads)
     b, s_max, d = kc.shape
     if d // heads != 64 or d % heads:
         raise ValueError("serving_attention takes head_dim 64")
-    if not 0 <= index < min(s_max, MAX_SMEM_FLOATS):
+    if not 0 <= index < s_max:
         raise ValueError(f"serving_attention: index {index} outside the "
                          f"cache ({s_max} positions)")
     if (qkv.dtype != torch.float32 or tuple(qkv.shape) != (b, 3 * d)
@@ -244,6 +310,9 @@ def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError("serving_attention: qkv f32 (B, 3D), caches int8 "
                          "(B, S, D), scales f32 (B, S)")
     _check_cuda(qkv, kc, vc, ks, vs)
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("serving_attention copies cache rows 16 bytes at a "
+                         "time: the caches must start 16-byte aligned")
     out = torch.empty((b, d), dtype=torch.bfloat16, device=qkv.device)
     check(_lib().xt_serving_attention(
         ptr(qkv), ptr(kc), ptr(vc), ptr(ks), ptr(vs), ptr(out), b, s_max, d,
