@@ -9,7 +9,9 @@ fixed seeds (chip_smoke.py's [main] inputs: 3 s sine + noise reference, 50
 text tokens from numpy seed 0, the stop logit pinned low so every request
 decodes 300 codes):
   - three B=1 `tts_tokens` requests after one warm-up: latency, AR
-    tokens/s, render seconds;
+    seconds and tokens/s, render seconds, and (where the tree has the
+    device loop, infer/device_loop.py) the loop's host reads, graph
+    replays and eager steps a request;
   - one `synthesize_batch` wave of 8 requests x 2 candidates through K4
     (XTTS_FUSED_SERVING=1, shortcut render, CLVP rerank) after one
     warm-up: wall seconds;
@@ -36,8 +38,10 @@ decodes 300 codes):
     of vq_nearest (K3) at (3008, 512, 8192); device time a step (100 steps
     in one graph) of the K1 step on the int8 stack and on the int4 stack
     (stack_qtree_int4 of the same tree) and of the K4 step at 16 rows.
-Prints one JSON line. Compare two trees only inside one machine call, in
-turns (A, B, B, A): host launch times differ between calls.
+The cache index goes to the attention kernels as a device int64 where the
+tree takes one (a captured launch cannot copy an int to the card), else
+as an int. Prints one JSON line. Compare two trees only inside one machine
+call, in turns (A, B, B, A): host launch times differ between calls.
 Imports no JAX; needs a CUDA card.
 """
 from __future__ import annotations
@@ -115,6 +119,16 @@ def main() -> None:
     from xtts_tpu_torch.ops.build import build_all
     import xtts_tpu_torch
     assert Path(xtts_tpu_torch.__file__).resolve().is_relative_to(tree)
+    try:
+        from xtts_tpu_torch.infer import device_loop
+    except ImportError:         # a tree from before the device loop
+        device_loop = None
+
+    def at(i):
+        """The index as the tree's kernels take it in a captured graph."""
+        if hasattr(ds, "cache_index"):
+            return torch.tensor(i, dtype=torch.long, device="cuda")
+        return i
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -137,6 +151,8 @@ def main() -> None:
     settings = TTSSettings(max_mel_tokens=300)
 
     def request(seed):
+        if device_loop is not None:
+            device_loop.STATS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = tts.tts_tokens(text, cond, torch.Generator(
@@ -147,8 +163,13 @@ def main() -> None:
     reqs = []
     for seed in (1, 2, 3):
         lat, out = request(seed)
-        reqs.append(dict(latency_s=lat, ar_tokens_per_s=out["steps"]
-                         / out["ar_seconds"], render_s=out["render_seconds"]))
+        reqs.append(dict(latency_s=lat, ar_s=out["ar_seconds"],
+                         ar_tokens_per_s=out["steps"] / out["ar_seconds"],
+                         render_s=out["render_seconds"]))
+        if device_loop is not None:
+            reqs[-1].update(host_reads=device_loop.STATS.syncs,
+                            replays=device_loop.STATS.replays,
+                            eager_steps=device_loop.STATS.eager_steps)
 
     os.environ["XTTS_FUSED_SERVING"] = "1"
     batch = [SynthesisRequest(text[0]) for _ in range(8)]
@@ -169,15 +190,16 @@ def main() -> None:
         kc = torch.zeros(L, 360, D, dtype=torch.bfloat16, device="cuda")
         vc = torch.zeros_like(kc)
         x = torch.randn(1, D, device="cuda").bfloat16()
+        i200, i300, i353 = at(200), at(300), at(353)
         k1 = step_ms(torch, lambda: ds.fused_decode_logits(
-            st, x, kc, vc, 200, L, H))
+            st, x, kc, vc, i200, L, H))
         kq = torch.zeros(L, 16, 360, D, dtype=torch.int8, device="cuda")
         vq = torch.zeros_like(kq)
         ks = torch.full((L, 16, 360), 0.01, device="cuda")
         vs = ks.clone()
         x16 = torch.randn(16, D, device="cuda").bfloat16()
         k4 = step_ms(torch, lambda: ss.fused_serving_logits(
-            st, x16, kq, vq, ks, vs, 200, L, H))
+            st, x16, kq, vq, ks, vs, i200, L, H))
         g = torch.Generator(device="cuda").manual_seed(99)
         q, k, v = (torch.randn(2, n, 8, 64, generator=g,
                                device="cuda").bfloat16()
@@ -220,9 +242,9 @@ def main() -> None:
                                                   out=resd),
             "int8_gemv_head_lnf": lambda: ds.int8_gemv(x32d, *head, ln=lnf),
             "serving_attention": lambda: ss.serving_attention(
-                q16, kq1, vq1, ks1, vs1, 353, H),
+                q16, kq1, vq1, ks1, vs1, i353, H),
             "decode_attention": lambda: ds.decode_attention(qkv, kc1, vc1,
-                                                            300, H),
+                                                            i300, H),
             "int8_gemm_rows_fc16": lambda: ss.int8_gemm_rows(
                 x16b, st["wfc"][0], st["sfc"][0], st["bfc"][0], gelu=True,
                 out_dtype=torch.bfloat16),
@@ -259,18 +281,19 @@ def main() -> None:
         kern["vq_nearest"] = dict(device_us=device_us(
             torch, lambda: vq_mod.vq_nearest(xv, emb), n=20))
         kern["k1_step"] = dict(device_us=device_us(
-            torch, lambda: ds.fused_decode_logits(st, x, kc, vc, 200, L, H),
+            torch, lambda: ds.fused_decode_logits(st, x, kc, vc, i200, L, H),
             n=100))
         kern["k1_int4_step"] = dict(device_us=device_us(
-            torch, lambda: ds.fused_decode_logits(st4, x, kc, vc, 200, L, H),
-            n=100))
+            torch, lambda: ds.fused_decode_logits(st4, x, kc, vc, i200, L,
+                                                  H), n=100))
         kern["k4_step16"] = dict(device_us=device_us(
             torch, lambda: ss.fused_serving_logits(st, x16, kq, vq, ks, vs,
-                                                   200, L, H), n=20))
+                                                   i200, L, H), n=20))
     print(json.dumps(dict(
         tag=args.tag, card=smi, requests=reqs,
         ar_tokens_per_s_median=statistics.median(
             r["ar_tokens_per_s"] for r in reqs),
+        latency_s_median=statistics.median(r["latency_s"] for r in reqs),
         render_s_median=statistics.median(r["render_s"] for r in reqs),
         k4_wave_s=wave_s, k1_step_ms_min=k1[0], k1_step_ms_median=k1[1],
         k1_step_cpu_ms=k1[2], k4_step_ms_min=k4[0], k4_step_ms_median=k4[1],

@@ -30,6 +30,19 @@ with each one's logit gap beside the step's largest logit difference.
 With --k4-f64 the first chain is the plain step again with
 int8_gemm_rows' products summed in float64: the picks that rounding
 noise in the products alone turns, the floor for the kernel chain.
+--steps sets the chain's length (16; chip_smoke.py's K4 chain is 64).
+
+    python3 scripts/chain_divergence.py --tree DIR --picks [--f64]
+        [--bits 4] [--seeds 0-15] [--steps 64]
+
+counts instead, for each seed, the greedy picks that differ between K1's
+kernel step (with --f64: the plain step with the gemv's products summed in
+float64, each int4 group's on its own) and the plain step over
+chip_smoke.py's K1 chain: random flagship int8 weights from the seed (its
+int4 stack with --bits 4), a 54-row prefix, 64 teacher-forced random
+tokens at B=1. The --f64 counts are the noise floor that rounding alone
+sets, from which chip_smoke.py's count bounds on its K1, K1-int4 and K4
+chains are taken.
 Imports no JAX; needs a CUDA card.
 """
 from __future__ import annotations
@@ -150,8 +163,80 @@ def gemm_rows_f64(torch, ds):
     return gemm
 
 
+def gemv_f64(torch, ds, bits):
+    """The K1 gemv's plain twin with its products summed in float64 (each
+    int4 group's on its own, then the twin's group rounding and order)."""
+    def gemv(x, w, scale, bias, out=None, gelu=False,
+             out_dtype=torch.float32, ln=None):
+        if ln is not None:
+            x = ds.normed_input(x, ln)
+        if bits == 8:
+            return ds._store((x.double() @ w.double()).float() * scale + bias,
+                             out, gelu, out_dtype)
+        groups = scale.shape[0]
+        wv = ds.unpack_int4(w).double()
+        kg = wv.shape[0] // groups
+        y = (x.double().reshape(groups, kg, 1)
+             * wv.reshape(groups, kg, -1)).sum(1).float() * scale
+        y[0] = y[0] + bias
+        if not gelu:
+            y = y.to(torch.bfloat16).float()
+        total = torch.zeros_like(y[0])
+        for i in range(groups):
+            total = total + y[i]
+        return ds._store(total, out, gelu, out_dtype)
+    return gemv
+
+
+def k1_picks(torch, seeds, bits=8, f64=False, steps=64, layers=15, d=1024,
+             heads=16, vocab=8194, p_len=54):
+    """chip_smoke.py's K1 chain (step_chain) for each seed: {seed:
+    {"differ": greedy picks that differ of `steps`, "picks": [[step, logit
+    gap in the plain step, the step's largest logit difference], ...]}}."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import decode_step as ds
+    from chip_smoke import random_qtree
+    s_max = -(-(p_len + steps + 1) // 8) * 8
+    if f64:
+        ops = (gemv_f64(torch, ds, bits), ds.decode_attention_plain)
+
+        def first(*a):
+            return ds._step(ops, *a)
+    else:
+        first = ds.fused_decode_logits
+    out = {}
+    for seed in seeds:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qt = random_qtree(torch, quantize_dense, layers, d, vocab, s_max, g)
+        st = (ds.stack_qtree_int4(qt, vocab) if bits == 4
+              else ds.stack_qtree(qt, vocab))
+        kc = torch.zeros(layers, s_max, d, dtype=torch.bfloat16,
+                         device="cuda")
+        kc[:, :p_len] = (torch.randn(layers, p_len, d, generator=g,
+                                     device="cuda") * 0.5).bfloat16()
+        vc = kc.roll(1, dims=0).clone()
+        c1, c2 = (kc, vc), (kc.clone(), vc.clone())
+        toks = torch.randint(0, vocab, (steps,), generator=g,
+                             device="cuda").tolist()
+        picks = []
+        with torch.no_grad():
+            for step, tok in enumerate(toks):
+                x = (qt["mel_embedding"][tok][None]
+                     + qt["mel_pos_embedding"][step + 2][None])
+                got = first(st, x, *c1, p_len + step, layers,
+                            heads)[0][:, :vocab]
+                want = ds.fused_decode_logits_plain(
+                    st, x, *c2, p_len + step, layers, heads)[0][:, :vocab]
+                ka, pa = int(got.argmax()), int(want.argmax())
+                if ka != pa:
+                    picks.append([step, (want[0, pa] - want[0, ka]).item(),
+                                  (got - want).abs().max().item()])
+        out[seed] = dict(differ=len(picks), picks=picks)
+    return out
+
+
 def k4_agreement(torch, seeds, f64=False, layers=15, d=1024, heads=16,
-                 vocab=8194, rows=16, s_max=96, p_len=54):
+                 vocab=8194, rows=16, s_max=96, p_len=54, steps=16):
     """test_serving_step_chain's K4 chain for each seed (with f64, the
     plain step with float64 product sums in place of the kernels): {seed:
     {"differ": greedy picks that differ of 16 x rows, "picks": [[step,
@@ -167,6 +252,7 @@ def k4_agreement(torch, seeds, f64=False, layers=15, d=1024, heads=16,
             return ss._step(ops, *a)
     else:
         first = ss.fused_serving_logits
+    s_max = max(s_max, p_len + steps)
     out = {}
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -182,7 +268,7 @@ def k4_agreement(torch, seeds, f64=False, layers=15, d=1024, heads=16,
         c2 = [t.clone() for t in c1]
         picks = []
         with torch.no_grad():
-            for step in range(16):
+            for step in range(steps):
                 tok = (torch.arange(rows, device="cuda") * 37 + step) % vocab
                 x = (qt["mel_embedding"][tok]
                      + qt["mel_pos_embedding"][step][None])
@@ -210,8 +296,17 @@ def main() -> None:
     ap.add_argument("--k4-f64", action="store_true",
                     help="--k4 with the plain step on float64 product sums "
                          "in place of the kernels")
+    ap.add_argument("--picks", action="store_true",
+                    help="count the K1 chain's differing greedy picks "
+                         "(chip_smoke.py's step_chain)")
+    ap.add_argument("--f64", action="store_true",
+                    help="--picks with the plain step on float64 product "
+                         "sums in place of the kernels")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="chain length (--k4: 16, --picks: 64)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     sys.path.insert(0, str(tree))
     import torch
     if not torch.cuda.is_available():
@@ -220,11 +315,22 @@ def main() -> None:
     from xtts_tpu_torch.ops import decode_step as ds
     assert Path(ds.__file__).resolve().is_relative_to(tree)
     lo_seed, hi_seed = (int(v) for v in args.seeds.split("-"))
+    if args.picks or args.f64:
+        per_seed = k1_picks(torch, range(lo_seed, hi_seed + 1),
+                            bits=args.bits, f64=args.f64,
+                            steps=args.steps or 64)
+        print(json.dumps(dict(tree=str(tree), seeds=args.seeds, k1=True,
+                              bits=args.bits, f64=args.f64,
+                              steps=args.steps or 64,
+                              differ={s: r["differ"]
+                                      for s, r in per_seed.items()},
+                              per_seed=per_seed)), flush=True)
+        return
     if args.k4 or args.k4_f64:
         per_seed = k4_agreement(torch, range(lo_seed, hi_seed + 1),
-                                f64=args.k4_f64)
+                                f64=args.k4_f64, steps=args.steps or 16)
         print(json.dumps(dict(tree=str(tree), seeds=args.seeds, k4=True,
-                              f64=args.k4_f64,
+                              f64=args.k4_f64, steps=args.steps or 16,
                               differ={s: r["differ"]
                                       for s, r in per_seed.items()},
                               per_seed=per_seed)), flush=True)

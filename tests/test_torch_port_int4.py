@@ -113,7 +113,7 @@ def test_int4_gemv_plain_group_math(gelu):
         y = (x.float()[rows] @ w4[rows].float()) * s[i] + (b if i == 0 else 0)
         want = want + (y if gelu else y.bfloat16().float())
     if gelu:
-        want = tds.gelu_new(want)
+        want = tds.gelu_new_ordered(want)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     acc = torch.ones(n)
     tds.int4_gemv_plain(x, tds.pack_int4(w4), s, b, out=acc, gelu=gelu)
@@ -146,17 +146,29 @@ def test_int4_step_matches_pallas_kernel(index, mel_pos):
                                    atol=TOL * max(1.0, np.abs(r).max()))
 
 
-def test_int4_greedy_chain_matches_pallas_kernel():
-    """20-token greedy chains: equal picks, or a tie within twice the
-    step's logit error."""
-    jt, tt = make_qtrees(1)
+# Greedy picks of the 20-step int4 chains that may differ a seed. int4
+# logits are rounded to bf16, so exact top-2 ties occur, and a tie turns
+# under any rounding difference: the floor is the twin's own count of
+# exact top-2 ties, seeds 0-15: 0 (7 seeds), 1 (7), 2 (2). The float64
+# product sums alone turn no pick (0 in every seed). JAX's Pallas kernel
+# against the twin, seeds 0-15: 1 pick in 4 seeds (10, 11, 13, 15; each at
+# an exact tie of the twin), 0 in the rest. Bound: the floor's largest
+# count.
+INT4_CHAIN_PICKS = 2
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_int4_greedy_chain_matches_pallas_kernel(seed):
+    """20-token greedy chains, both sides fed the reference's pick: logits
+    within TOL every step, and at most INT4_CHAIN_PICKS differing picks."""
+    jt, tt = make_qtrees(seed)
     jst = jds.stack_qtree_int4(jt, VOCAB)
     tst = tds.stack_qtree_int4(tt, VOCAB)
     prefix = 11
-    k, v = make_cache(3, prefix)
+    k, v = make_cache(100 + seed, prefix)
     jkc, jvc = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
     tkc, tvc = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
-    tok = 5
+    tok, differ = 5, 0
     for step in range(20):
         jlog, jkc, jvc = jds.fused_decode_logits(
             jst, _x(jt, jnp.asarray([tok]), step + 1, jnp), jkc, jvc,
@@ -166,11 +178,10 @@ def test_int4_greedy_chain_matches_pallas_kernel():
             prefix + step, LAYERS, HEADS)
         jl = np.asarray(jlog[0, :VOCAB])
         tl = tlog[0, :VOCAB].numpy()
-        err = np.abs(jl - tl).max()
-        jtok, ttok = int(jl.argmax()), int(tl.argmax())
-        if jtok != ttok:
-            assert jl[jtok] - jl[ttok] <= 2 * err, (step, jtok, ttok)
-        tok = jtok          # both chains go on with the reference's pick
+        assert np.abs(jl - tl).max() <= TOL * max(1.0, np.abs(jl).max())
+        differ += int(jl.argmax() != tl.argmax())
+        tok = int(jl.argmax())  # both chains go on with the reference's pick
+    assert differ <= INT4_CHAIN_PICKS
 
 
 # ---------------------------------------------------------------------------

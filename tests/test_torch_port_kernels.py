@@ -14,10 +14,17 @@ inputs; K3 codes equal up to fp32 ties (the bound at _vq_agree); K4 as K1,
 with the new int8 cache rows within +-1. A product with the norm prologue
 (ln=) equals layer_norm_rows then the unfused product bit for bit (both
 fold the statistics in one order), and its plain twin bit for bit where
-the twin repeats the kernel's order (int8_gemv, int4_gemv without gelu),
-else within 1e-2. layer_norm_rows, int8_gemv, int4_gemv, decode_attention
-and serving_attention equal their ordered twins bit for bit.
+the twin repeats the kernel's order (int8_gemv, int4_gemv, with and
+without gelu: gelu_new_ordered repeats the kernels' explicitly rounded
+gelu_new), else within 1e-2. layer_norm_rows, int8_gemv, int4_gemv,
+decode_attention and serving_attention equal their ordered twins bit for
+bit; int8_gemm_rows, with gelu too, where its sums are exact (integer
+operands). The attention kernels read the cache index from device memory
+and equal their int-index launches bit for bit. The AR loop's CUDA graphs
+(infer/device_loop.py) give the codes of the same loop run eagerly, for K1,
+K1-int4 and K4, greedy and sampled.
 """
+import contextlib
 import math
 
 import pytest
@@ -145,14 +152,15 @@ def test_int8_gemv_plan_is_the_kernels(cuda):
             (k, n)
 
 
-@pytest.mark.parametrize("mode", ["f32", "acc"])
+@pytest.mark.parametrize("mode", ["f32", "acc", "gelu"])
 @pytest.mark.parametrize("k,n", K1_SHAPES + I8_EDGES)
 def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
     """The plain twin sums in the kernel's order (int8_gemv_plan's chunks;
     in each, 64 lanes of strided rows, folded 8 at a time, then the folds
-    and the chunks in order) and rounds the epilogue's product and sum
-    separately, as the kernel does: without gelu the two give the same
-    bits at every K1 shape and at the plan's edges."""
+    and the chunks in order), rounds the epilogue's product and sum
+    separately and runs gelu_new in the kernel's order, as the kernel
+    does: the two give the same bits at every K1 shape and at the plan's
+    edges (gelu: bf16 out, as the fc product)."""
     from xtts_tpu_torch.infer.qdecode import quantize_dense
     from xtts_tpu_torch.ops import decode_step as ds
     q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda")
@@ -165,13 +173,15 @@ def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
         ds.int8_gemv(x, q["w"], q["scale"], bias, out=got)
         ds.int8_gemv_plain(x, q["w"], q["scale"], bias, out=want)
     else:
-        got = ds.int8_gemv(x, q["w"], q["scale"], bias)
-        want = ds.int8_gemv_plain(x, q["w"], q["scale"], bias)
+        kw = (dict(gelu=True, out_dtype=torch.bfloat16) if mode == "gelu"
+              else {})
+        got = ds.int8_gemv(x, q["w"], q["scale"], bias, **kw)
+        want = ds.int8_gemv_plain(x, q["w"], q["scale"], bias, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["f32", "acc", "bf16"])
+@pytest.mark.parametrize("mode", ["f32", "acc", "bf16", "gelu"])
 @pytest.mark.parametrize("k,n,groups", [(1024, 3072, 1), (1024, 1024, 1),
                                         (1024, 4096, 1), (4096, 1024, 4),
                                         (1024, 9216, 1), (384, 160, 3),
@@ -179,8 +189,8 @@ def test_int8_gemv_is_its_twin_bit_for_bit(cuda, k, n, mode):
                                         (256, 9248, 1)])
 def test_int4_gemv_is_its_twin_bit_for_bit(cuda, k, n, groups, mode):
     """int4_gemv_plain repeats the kernel's split-K sums (lanes, chunks,
-    groups, each in order) and its explicitly rounded epilogue: without
-    gelu the two give the same bits, at every K1-int4 shape, at a ragged
+    groups, each in order) and its explicitly rounded epilogue and gelu:
+    the two give the same bits, at every K1-int4 shape, at a ragged
     chunk (K 100), three groups, K split in 16 chunks (N 32), and blocks
     of two column tiles with a last block of one (N 9248)."""
     from xtts_tpu_torch.ops import decode_step as ds
@@ -191,9 +201,11 @@ def test_int4_gemv_is_its_twin_bit_for_bit(cuda, k, n, groups, mode):
         ds.int4_gemv(x, w, scale, bias, out=got)
         ds.int4_gemv_plain(x, w, scale, bias, out=want)
     else:
-        dt = torch.bfloat16 if mode == "bf16" else torch.float32
-        got = ds.int4_gemv(x, w, scale, bias, out_dtype=dt)
-        want = ds.int4_gemv_plain(x, w, scale, bias, out_dtype=dt)
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        got = ds.int4_gemv(x, w, scale, bias, out_dtype=dt,
+                           gelu=mode == "gelu")
+        want = ds.int4_gemv_plain(x, w, scale, bias, out_dtype=dt,
+                                  gelu=mode == "gelu")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -450,7 +462,8 @@ def _fused_vs_unfused(fused, unfused, plain, x32, ln, rows_n, mode, g):
 
 def _assert_prologue(got, ref, want, exact=False):
     """got == ref (layer_norm_rows + product) bit for bit; got == want (the
-    plain twin) bit for bit where `exact`, else within 1e-2 relative."""
+    plain twin) bit for bit where `exact` (the gemv, gelu or not), else
+    within 1e-2 relative."""
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, ref)
     if exact:
@@ -478,7 +491,7 @@ def test_int8_gemv_norm_prologue(cuda, d, two, mode):
         lambda x, **kw: ds.int8_gemv_plain(x, q["w"], q["scale"], bias, **kw),
         x32, ln, n, mode, cuda)
     assert ds.int8_gemv.ln_launches == 1 and ds.int8_gemv.launches == 2
-    _assert_prologue(got, ref, want, exact=mode != "bf16+gelu")
+    _assert_prologue(got, ref, want, exact=True)
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
@@ -498,7 +511,7 @@ def test_int4_gemv_norm_prologue(cuda, d, groups, two, mode):
         lambda x, **kw: ds.int4_gemv_plain(x, w, scale, bias, **kw),
         x32, ln, n, mode, cuda)
     assert ds.int4_gemv.ln_launches == 1 and ds.int4_gemv.launches == 2
-    _assert_prologue(got, ref, want, exact=mode != "bf16+gelu")
+    _assert_prologue(got, ref, want, exact=True)
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16+gelu", "acc"])
@@ -710,7 +723,7 @@ def test_split_bounds_are_the_kernels(cuda):
     from xtts_tpu_torch.ops import serving_step as ss
     for index in range(1000):
         assert (ds.kernel_attention_bounds(index)
-                == ds.attention_bounds(index, 1000)), index
+                == ds.attention_bounds(index, 1000).tolist()), index
     for k in list(range(16, 4200, 37)) + [100, 1024, 4096]:
         for n in (32, 512, 1024, 3072, 4096, 9216):
             splits, bounds = ss.gemm_rows_plan(k, n)
@@ -970,3 +983,175 @@ def test_serving_step_chain(cuda, layers, d, heads, vocab, rows):
     assert ss.int8_gemm_rows.ln_launches == 16 * (2 * layers + 1)
     assert ss.serving_attention.launches == 16 * layers
     assert ds.layer_norm_rows.launches == 0
+
+
+@pytest.mark.parametrize("rows,gelu", [(1, True), (16, True), (32, True),
+                                       (16, False)])
+def test_int8_gemm_rows_with_exact_sums_is_its_twin(cuda, rows, gelu):
+    """With small integer inputs every product and partial sum is exact in
+    f32, so the tensor cores' order cannot show: the kernel's epilogue
+    (product, sum, gelu_new, each rounded on its own) equals the twin's bit
+    for bit, gelu or not, stored in bf16 or added into f32."""
+    from xtts_tpu_torch.infer.qdecode import quantize_dense
+    from xtts_tpu_torch.ops import serving_step as ss
+    k, n = 1024, 4096
+    q = quantize_dense(torch.randn(k, n, generator=cuda, device="cuda"))
+    x = torch.randint(-4, 5, (rows, k), generator=cuda,
+                      device="cuda").bfloat16()
+    bias = torch.randn(n, generator=cuda, device="cuda") * 0.1
+    scale = q["scale"] * 0.01
+    got = ss.int8_gemm_rows(x, q["w"], scale, bias, gelu=gelu,
+                            out_dtype=torch.bfloat16)
+    want = ss.int8_gemm_rows_plain(x, q["w"], scale, bias, gelu=gelu,
+                                   out_dtype=torch.bfloat16)
+    base = torch.randn(rows, n, generator=cuda, device="cuda")
+    acc, acc_p = base.clone(), base.clone()
+    ss.int8_gemm_rows(x, q["w"], scale, bias, out=acc, gelu=gelu)
+    ss.int8_gemm_rows_plain(x, q["w"], scale, bias, out=acc_p, gelu=gelu)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(acc, acc_p)
+
+
+@pytest.mark.parametrize("idx", [0, 1, 353, 359])
+@pytest.mark.parametrize("kernel", ["decode_attention", "serving_attention"])
+def test_attention_reads_the_index_from_device_memory(cuda, kernel, idx):
+    """A 0-d int64 index on the card gives the int-index launch's output
+    and cache rows bit for bit, and the twin's with either index."""
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    d, heads, s_max = 1024, 16, 360
+    if kernel == "decode_attention":
+        qkv = torch.randn(3 * d, generator=cuda, device="cuda")
+        k = (torch.randn(s_max, d, generator=cuda, device="cuda")
+             * 0.5).bfloat16()
+        cache = (k, k.roll(1, 0))
+        fn, twin = ds.decode_attention, ds.decode_attention_plain
+    else:
+        qkv = torch.randn(16, 3 * d, generator=cuda, device="cuda")
+        k = torch.randn(16, s_max, d, generator=cuda, device="cuda") * 0.5
+        kq, ks = ss.quantize_rows(k)
+        vq, vs = ss.quantize_rows(k.roll(1, 1))
+        cache = (kq, vq, ks, vs)
+        fn, twin = ss.serving_attention, ss.serving_attention_plain
+    copies = [[t.clone() for t in cache] for _ in range(3)]
+    at = torch.tensor(idx, dtype=torch.long, device="cuda")
+    by_int = fn(qkv, *copies[0], idx, heads)
+    by_dev = fn(qkv, *copies[1], at, heads)
+    plain = twin(qkv, *copies[2], at, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(by_int, by_dev) and torch.equal(by_dev, plain)
+    for a, b, c in zip(*copies):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def _loop_model(g, engine):
+    """A 2 x 128 GPT with random weights on the card, its int8 tree and the
+    K1 stack of `engine` (the int4 one for k1_int4)."""
+    from xtts_tpu_torch.core.config import GPTConfig
+    from xtts_tpu_torch.infer import qdecode as tq
+    from xtts_tpu_torch.models.gpt import UnifiedVoice
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.ops import decode_step as ds
+    cfg = GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=200,
+                    max_text_tokens=32, number_mel_codes=200,
+                    start_mel_token=198, stop_mel_token=199, mel_bins=8,
+                    cond_attn_blocks=1)
+    tm = UnifiedVoice(cfg).to("cuda").eval()
+    init_flax_like(tm, g)
+    with torch.no_grad():           # spread logits: rows stop at odd steps
+        tm.mel_head.bias.normal_(0.0, 1.0, generator=g)
+        tm.mel_head.bias[cfg.stop_mel_token] += 2.0
+    qt = tq.quantize_gpt_decode(tm, include_fused=False)
+    stack = ds.stack_qtree_int4 if engine == "k1_int4" else ds.stack_qtree
+    qt["fused"] = stack(qt, cfg.number_mel_codes)
+    return tm, qt
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("engine", ["k1", "k1_int4", "k4"])
+def test_graph_loop_gives_the_eager_loops_codes(cuda, engine, sampled):
+    """The same requests through the device loop with CUDA graphs (a first
+    run that captures, a second that only replays) and without: equal
+    codes, lengths, steps and generator offsets, greedy and seeded
+    sampling, across a ladder rung that the chunk does not divide. The
+    launch counts of a graph run equal the eager run's."""
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer import qdecode as tq
+    from xtts_tpu_torch.ops import decode_step as ds
+    from xtts_tpu_torch.ops import serving_step as ss
+    tm, qt = _loop_model(cuda, engine)
+    b = 8 if engine == "k4" else 1
+    cond = torch.randn(b, 8, 30, generator=cuda, device="cuda")
+    text = torch.randint(2, 250, (b, 12), generator=cuda, device="cuda")
+    runs = []
+    for graphs in (False, True, True):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        dl.STATS.reset()
+        ds.reset_launch_counts()
+        ss.reset_launch_counts()
+        with contextlib.nullcontext() if graphs else dl.eager():
+            r = tq.generate_speech_quantized(
+                tm, qt, cond, text, g, max_gen=90, do_sample=sampled,
+                use_fused_serving=engine == "k4", cache_ladder=(40,))
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in ds.KERNELS + ss.KERNELS]
+        runs.append((r, g.get_offset(), dl.STATS.replays, launches))
+    (r0, off0, _, n0) = runs[0]
+    assert r0.steps > 2 * dl.CHUNK
+    for r, off, _, n in runs[1:]:
+        assert torch.equal(r.codes, r0.codes)
+        assert torch.equal(r.lengths, r0.lengths)
+        assert r.steps == r0.steps and off == off0 and n == n0
+    assert runs[2][2] >= r0.steps // dl.CHUNK - 2     # every full chunk
+
+
+def test_a_scratch_growth_does_not_leave_a_graph_writing_freed_memory(cuda):
+    """A small model's loop is captured; a wider gemv then grows the split-K
+    partials, whose old buffer goes back to the allocator and is handed to
+    a new tensor. The small model's next run must not replay a graph that
+    still writes the old address: its codes equal the eager loop's, and
+    the tensor in the freed memory keeps its bits."""
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer import qdecode as tq
+    from xtts_tpu_torch.ops import decode_step as ds
+    tm, qt = _loop_model(cuda, "k1")
+    cond = torch.randn(1, 8, 30, generator=cuda, device="cuda")
+    text = torch.randint(2, 250, (1, 12), generator=cuda, device="cuda")
+
+    def run():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        r = tq.generate_speech_quantized(tm, qt, cond, text, g, max_gen=90,
+                                         do_sample=False)
+        torch.cuda.synchronize()
+        return r
+    with dl.eager():
+        want = run()
+    run()                                   # warms up and captures
+    dl.STATS.reset()
+    run()
+    assert dl.STATS.replays > 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    old = ds._gv_scratch[dev]["part"]
+    n_old, p_old = old.numel(), old.data_ptr()
+    del old
+    splits = 1                              # a product whose partials
+    while 4096 * splits <= n_old:           # outgrow the old buffer
+        splits *= 2
+    k, n = 1024 * splits, 4096
+    assert ds.int8_gemv_plan(k, n)[0] == splits
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda",
+                      generator=cuda)
+    ds.int8_gemv(torch.randn(k, device="cuda", generator=cuda).bfloat16(), w,
+                 torch.ones(n, device="cuda"), torch.zeros(n, device="cuda"))
+    torch.cuda.synchronize()
+    assert ds._gv_scratch[dev]["part"].numel() > n_old
+    del w
+    junk = torch.full((n_old,), 7.0, device="cuda")
+    dl.STATS.reset()
+    got = run()
+    assert dl.STATS.captures > 0            # captured anew
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.lengths, want.lengths) and got.steps == want.steps
+    assert torch.equal(junk, torch.full_like(junk, 7.0)), (
+        junk.data_ptr() == p_old)

@@ -179,18 +179,29 @@ def test_padding_is_inert():
     assert torch.equal(clean, noisy)
 
 
-def test_teacher_forced_chain():
+# Greedy picks of test_teacher_forced_chain's 8 steps x 8 rows that may
+# differ a seed. Noise floor (the port's twin step against itself with
+# int8_gemm_rows' products summed in float64), seeds 0-15: 0 picks in
+# every seed; JAX's Pallas step against the twin: 0 in every seed. Bound:
+# the floor's largest count plus one (XLA's CPU dot may sum in another
+# order on another CPU).
+K4_CHAIN_PICKS = 1
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_teacher_forced_chain(seed):
     """8 steps with the same forced tokens on both sides, each side keeping
-    its own int8 cache."""
-    jqt = make_qtree(1)
+    its own int8 cache: logits within TOL every step, and at most
+    K4_CHAIN_PICKS differing greedy picks."""
+    jqt = make_qtree(seed)
     tqt = to_port(jqt)
     p_len = 20
-    jc, tc = make_cache(9, p_len)
+    jc, tc = make_cache(100 + seed, p_len)
     jkc, jvc, jks, jvs = jss.quantize_kv_rowwise(jc, S_MAX)
     cache4 = tss.quantize_kv_rowwise(tc)
     stacked_j = jds.stack_qtree(jqt, VOCAB)
-    rng = np.random.default_rng(4)
-    agree = ties = 0
+    rng = np.random.default_rng(200 + seed)
+    differ = 0
     for step in range(8):
         tok = rng.integers(0, VOCAB, B)
         x = jqt["mel_embedding"][jnp.asarray(tok)] + jqt[
@@ -203,15 +214,9 @@ def test_teacher_forced_chain():
         want, got = np.asarray(jl)[:, :VOCAB], tl.numpy()[:, :VOCAB]
         err = np.abs(got - want).max()
         assert err <= TOL * max(1.0, np.abs(want).max()), (step, err)
-        for r in range(B):
-            gp, wp = got[r].argmax(), want[r].argmax()
-            if gp == wp:
-                agree += 1
-            else:
-                assert want[r, wp] - want[r, gp] <= 2 * err, (step, r)
-                ties += 1
-    print(f"teacher-forced greedy agreement {agree}/{8 * B} (+{ties} ties)")
-    assert agree + ties == 8 * B
+        differ += int((got.argmax(-1) != want.argmax(-1)).sum())
+    print(f"teacher-forced greedy picks differing: {differ}/{8 * B}")
+    assert differ <= K4_CHAIN_PICKS
 
 
 def test_kv_quant_chain_step_matches_jax():

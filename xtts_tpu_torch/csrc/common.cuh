@@ -84,9 +84,15 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
+// HF gelu_new, every operation rounded on its own in the order written
+// (nvcc would contract the cube and the scalings into fused multiply-adds):
+// 0.5 x (1 + tanh(c (x + 0.044715 x x x))). ops/decode_step.py
+// gelu_new_ordered repeats it with PyTorch's elementwise ops.
 __device__ __forceinline__ float gelu_new(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+  const float x3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
+  const float t = tanhf(__fmul_rn(c, __fadd_rn(x, x3)));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, t));
 }
 
 __device__ __forceinline__ float bf16_round(float x) {

@@ -520,7 +520,8 @@ __launch_bounds__(ATT_THREADS)
 decode_attention_kernel(const float* __restrict__ qkv,
                         __nv_bfloat16* __restrict__ kc,
                         __nv_bfloat16* __restrict__ vc,
-                        __nv_bfloat16* __restrict__ out, int idx, int d,
+                        __nv_bfloat16* __restrict__ out,
+                        const long long* __restrict__ idx_ptr, int d,
                         float scale) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -532,6 +533,7 @@ decode_attention_kernel(const float* __restrict__ qkv,
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, grp = tid >> 3, l8 = tid & 7;
   const int c0 = blockIdx.y * 64;
+  const int idx = (int)*idx_ptr;    // device memory: a graph replays it
   const int n = idx + 1;
   const int lo = att_lo(rank, n), hi = att_lo(rank + 1, n);
   const bool last = rank == P - 1;  // holds row idx
@@ -789,13 +791,15 @@ XT_API void xt_int4_gemv_bounds(int K, int N, int groups, int* bounds) {
   gemv_bounds<4>(K, N, groups, bounds);
 }
 
+// idx: a device int64, the cache row of the new token (the TPU kernel's
+// scalar-prefetched index), so one captured launch serves every step
 XT_API int xt_decode_attention(const void* qkv, void* kc, void* vc, void* out,
-                               int idx, int d, int heads, float scale,
+                               const void* idx, int d, int heads, float scale,
                                void* stream) {
   decode_attention_kernel<<<dim3(ATT_SPLITS, heads), ATT_THREADS, 0,
                             (cudaStream_t)stream>>>(
       (const float*)qkv, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-      (__nv_bfloat16*)out, idx, d, scale);
+      (__nv_bfloat16*)out, (const long long*)idx, d, scale);
   return (int)cudaGetLastError();
 }
 

@@ -413,7 +413,8 @@ int8_gemm_rows_kernel(const void* __restrict__ x, Norm nrm,
 #pragma unroll
       for (int q = 0; q < 8; ++q)
         if (q < S) s += p[q];
-      y[j] = s * sc_n + bi_n;
+      // rounded after the product and after the sum, as the plain twin
+      y[j] = __fadd_rn(__fmul_rn(s, sc_n), bi_n);
       if (gelu) y[j] = gelu_new(y[j]);
     }
   }
@@ -576,7 +577,8 @@ serving_attention_kernel(const float* __restrict__ qkv,
                          int8_t* __restrict__ kc, int8_t* __restrict__ vc,
                          float* __restrict__ ks, float* __restrict__ vs,
                          __nv_bfloat16* __restrict__ out, int S, int D,
-                         int idx, float att_scale) {
+                         const long long* __restrict__ idx_ptr,
+                         float att_scale) {
   extern __shared__ __align__(16) unsigned char smem[];  // SA_STAGES slots
   __shared__ float red[33];
   __shared__ float sc[SA_THREADS], pv[SA_THREADS];
@@ -592,6 +594,7 @@ serving_attention_kernel(const float* __restrict__ qkv,
   const int8_t* vcb = vc + (size_t)b * S * D + c0;
   const float* ksb = ks + (size_t)b * S;
   const float* vsb = vs + (size_t)b * S;
+  const int idx = (int)*idx_ptr;    // device memory: a graph replays it
   const int nchunks = (idx + SA_CHUNK - 1) / SA_CHUNK;
 
   // a slot: k [128][64] int8, v [128][64] int8, kscale [128], vscale [128]
@@ -826,9 +829,11 @@ XT_API int xt_int8_gemm_rows_ln(const void* x32, const void* s1,
                    mode, (cudaStream_t)stream);
 }
 
+// idx: a device int64, the position of the current token (the TPU
+// kernel's scalar-prefetched index), so one captured launch serves every step
 XT_API int xt_serving_attention(const void* qkv, void* kc, void* vc, void* ks,
                                 void* vs, void* out, int B, int S, int D,
-                                int heads, int idx, float att_scale,
+                                int heads, const void* idx, float att_scale,
                                 void* stream) {
   // the opt-in above 48 KB costs microseconds: once per device and process
   static unsigned opted = 0;
@@ -844,6 +849,6 @@ XT_API int xt_serving_attention(const void* qkv, void* kc, void* vc, void* ks,
   serving_attention_kernel<<<dim3(heads, B), SA_THREADS, SA_SMEM,
                              (cudaStream_t)stream>>>(
       (const float*)qkv, (int8_t*)kc, (int8_t*)vc, (float*)ks, (float*)vs,
-      (__nv_bfloat16*)out, S, D, idx, att_scale);
+      (__nv_bfloat16*)out, S, D, (const long long*)idx, att_scale);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,10 @@ Engines, chosen per call as the JAX package chooses them:
   or, with quantize_kv_cache, `_decode_step_qkv` over a per-(position,
   head) int8 cache (`QuantKVCache`).
 
+Every engine runs in the device loop (infer/device_loop.py): the loop's
+state, the cache index and the mel position stay on the device, CUDA
+graphs of CHUNK steps replay on the card and the same steps run eagerly on
+the CPU, as the JAX package runs each engine in one lax.while_loop.
 cache_ladder grows the cache through segment capacities (zero padding is
 exact: positions past the index are masked) for every engine.
 
@@ -32,11 +36,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from xtts_tpu_torch.infer.sampling import greedy_token, sample_token
+from xtts_tpu_torch.infer import device_loop
+from xtts_tpu_torch.infer.device_loop import Engine, GenerateResult, Sampling
 from xtts_tpu_torch.models.gpt import UnifiedVoice
-from xtts_tpu_torch.models.gpt_infer import (GenerateResult, grow_axis,
-                                             ladder_caps)
-from xtts_tpu_torch.nn.transformer import NEG_INF, KVCache, gelu_new
+from xtts_tpu_torch.models.gpt_infer import ladder_caps, mel_pos_offset
+from xtts_tpu_torch.nn.transformer import (NEG_INF, KVCache, cache_index,
+                                           gelu_new)
 from xtts_tpu_torch.ops import decode_step as _ds
 from xtts_tpu_torch.ops import serving_step as _ss
 
@@ -129,8 +134,9 @@ def _layer_norm(x: torch.Tensor, ln: Dict[str, torch.Tensor]) -> torch.Tensor:
     return (x32 - mu) * torch.rsqrt(var + 1e-5) * ln["scale"] + ln["bias"]
 
 
-def _cached_attention(q, k_all, v_all, index: int) -> torch.Tensor:
-    """q (B, H, hd), k_all/v_all (B, S, H, hd) -> (B, H, hd)."""
+def _cached_attention(q, k_all, v_all, index) -> torch.Tensor:
+    """q (B, H, hd), k_all/v_all (B, S, H, hd) -> (B, H, hd) over positions
+    <= index (an int or a one-element tensor)."""
     hd = k_all.shape[-1]
     logits = torch.einsum("bhd,bshd->bhs", q.to(torch.bfloat16),
                           k_all.to(torch.bfloat16)) / math.sqrt(hd)
@@ -141,17 +147,22 @@ def _cached_attention(q, k_all, v_all, index: int) -> torch.Tensor:
 
 
 def _decode_step(qt: Dict[str, Any], heads: int, x: torch.Tensor,
-                 cache: KVCache, index: int):
-    """x (B, D) bf16 -> (ln_f-normed (B, D) f32, cache); cache in place."""
+                 cache: KVCache, index):
+    """x (B, D) bf16 -> (ln_f-normed (B, D) f32, cache); cache in place at
+    `index` (an int or a one-element tensor)."""
     b, d = x.shape
     hd = d // heads
+    at = cache_index(index, x.device, cache.k.shape[2],
+                     "the decode step").reshape(1)
     for li, lp in enumerate(qt["layers"]):
         h = _layer_norm(x, lp["ln_1"]).to(torch.bfloat16)
         q, k, v = qdot(h, lp["qkv"], lp["qkv_b"]).split(d, dim=-1)
-        cache.k[li, :, index] = k.reshape(b, heads, hd).to(cache.k.dtype)
-        cache.v[li, :, index] = v.reshape(b, heads, hd).to(cache.v.dtype)
+        cache.k[li].index_copy_(1, at, k.reshape(b, 1, heads, hd)
+                                .to(cache.k.dtype))
+        cache.v[li].index_copy_(1, at, v.reshape(b, 1, heads, hd)
+                                .to(cache.v.dtype))
         a = _cached_attention(q.reshape(b, heads, hd), cache.k[li],
-                              cache.v[li], index).reshape(b, d)
+                              cache.v[li], at).reshape(b, d)
         x = x + qdot(a, lp["proj"], lp["proj_b"]).to(x.dtype)
         h2 = _layer_norm(x, lp["ln_2"]).to(torch.bfloat16)
         m = gelu_new(qdot(h2, lp["fc"], lp["fc_b"])).to(torch.bfloat16)
@@ -181,21 +192,25 @@ def quantize_kv(cache: KVCache) -> QuantKVCache:
 
 
 def _decode_step_qkv(qt: Dict[str, Any], heads: int, x: torch.Tensor,
-                     cache: QuantKVCache, index: int):
+                     cache: QuantKVCache, index):
     """_decode_step against an int8 KV cache: the new k/v quantized per
     (position, head) at write and attended as quantized; the scales fold
     into the scores and the probabilities. Cache updated in place."""
     b, d = x.shape
     hd = d // heads
     scale = 1.0 / math.sqrt(hd)
-    valid = torch.arange(cache.k.shape[2], device=x.device) <= index
+    at = cache_index(index, x.device, cache.k.shape[2],
+                     "the decode step").reshape(1)
+    valid = torch.arange(cache.k.shape[2], device=x.device) <= at
     for li, lp in enumerate(qt["layers"]):
         h = _layer_norm(x, lp["ln_1"]).to(torch.bfloat16)
         q, k, v = qdot(h, lp["qkv"], lp["qkv_b"]).split(d, dim=-1)
-        kq, ks = _quant_heads(k.reshape(b, heads, hd))
-        vq, vs = _quant_heads(v.reshape(b, heads, hd))
-        cache.k[li, :, index], cache.k_scale[li, :, index] = kq, ks
-        cache.v[li, :, index], cache.v_scale[li, :, index] = vq, vs
+        kq, ks = _quant_heads(k.reshape(b, 1, heads, hd))
+        vq, vs = _quant_heads(v.reshape(b, 1, heads, hd))
+        cache.k[li].index_copy_(1, at, kq)
+        cache.k_scale[li].index_copy_(1, at, ks)
+        cache.v[li].index_copy_(1, at, vq)
+        cache.v_scale[li].index_copy_(1, at, vs)
         logits = torch.einsum("bhd,bshd->bhs",
                               q.reshape(b, heads, hd).to(torch.bfloat16),
                               cache.k[li].to(torch.bfloat16))
@@ -212,10 +227,18 @@ def _decode_step_qkv(qt: Dict[str, Any], heads: int, x: torch.Tensor,
     return _layer_norm(x, qt["ln_f"]), cache
 
 
+def _embed(qt: Dict[str, Any], token: torch.Tensor, mel_pos) -> torch.Tensor:
+    """token (B,) at mel position `mel_pos` (an int or a one-element
+    tensor) -> (B, D) bf16."""
+    table = qt["mel_pos_embedding"]
+    return qt["mel_embedding"][token] + table.index_select(0, cache_index(
+        mel_pos, token.device, table.shape[0], "the mel position").reshape(1))
+
+
 def _decode_logits(qt: Dict[str, Any], heads: int, token: torch.Tensor,
-                   mel_pos: int, cache: KVCache, index: int):
+                   mel_pos, cache: KVCache, index):
     """token (B,) -> (logits (B, V) f32, cache)."""
-    emb = qt["mel_embedding"][token] + qt["mel_pos_embedding"][mel_pos][None]
+    emb = _embed(qt, token, mel_pos)
     step = (_decode_step_qkv if isinstance(cache, QuantKVCache)
             else _decode_step)
     normed, cache = step(qt, heads, emb.to(torch.bfloat16), cache, index)
@@ -289,11 +312,10 @@ def _teacher_forced_agreement(model: UnifiedVoice, qtree: Dict[str, Any],
 
     for t in range(n):
         tok = codes[:, t]
-        mel_pos = t + 1 + (n_cond if cfg.decode_position_quirk else 0)
+        mel_pos = t + mel_pos_offset(cfg, n_cond)
         lf, cache_f = model.decode_one(tok, mel_pos, cache_f, p_len + t)
         if fused_serving:
-            x = (qtree["mel_embedding"][tok]
-                 + qtree["mel_pos_embedding"][mel_pos][None])
+            x = _embed(qtree, tok, mel_pos)
             lq = _ss.fused_serving_logits(k4, x, *cache_q, p_len + t,
                                           cfg.layers, cfg.heads)[0]
             lq = lq[:, :cfg.number_mel_codes]
@@ -359,88 +381,53 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
                               ) -> GenerateResult:
     """generate_speech with the int8 per-token engines: the prefix prefill
     runs the flax-equivalent model; every token then runs the engine the
-    flags select (module docstring): K1 at B=1 (S rounded up to 8 like the
-    JAX fused path), K4 with use_fused_serving at B in {8, 16},
-    else the per-layer chain over a bf16 or (quantize_kv_cache) int8
-    cache."""
+    flags select (module docstring): K1 at B=1, K4 with use_fused_serving
+    at B in {8, 16}, else the per-layer chain over a bf16 or
+    (quantize_kv_cache) int8 cache, each in the device loop."""
     cfg = model.cfg
-    stop, vocab, d = cfg.stop_mel_token, cfg.number_mel_codes, cfg.model_dim
+    vocab, d = cfg.number_mel_codes, cfg.model_dim
     layers, heads = cfg.layers, cfg.heads
-    dev = text_tokens.device
     prefix, n_cond = model.encode_prefix(cond_mel, text_tokens)
     b, p_len, _ = prefix.shape
     fused = b == 1 and not quantize_kv_cache
     fserv = use_fused_serving and not fused and b in (8, 16)
     if (fused or fserv) and "fused" not in qtree:
         attach_fused_stack(qtree, cfg)
-    k4 = _k4_stack(qtree) if fserv else None
-    caps = ladder_caps(cache_ladder, max_gen)
-
-    def seg_len(cap: int) -> int:
-        s = p_len + cap
-        return -(-s // 8) * 8 if fused else s
-
-    s_max = seg_len(caps[0])
-    cache = KVCache.zeros(layers, b, s_max, heads, d // heads,
-                          dtype=torch.bfloat16, device=dev)
+    cache = KVCache.zeros(layers, b, p_len, heads, d // heads,
+                          dtype=torch.bfloat16, device=text_tokens.device)
     logits, cache = model.prefill(prefix, cache)
-    logits = logits.float()
-    if fserv:
-        cache = _ss.quantize_kv_rowwise(cache)           # (kc, vc, ks, vs)
-    elif quantize_kv_cache:
-        cache = quantize_kv(cache)
-    elif fused:
-        cache = (cache.k.view(layers, s_max, d),         # same memory
-                 cache.v.view(layers, s_max, d))
+    if fused or fserv:
+        stack = _k4_stack(qtree) if fserv else qtree["fused"]
+        fn = _ss.fused_serving_logits if fserv else _ds.fused_decode_logits
 
-    seen = torch.zeros((b, vocab), dtype=torch.bool, device=dev)
-    seen[:, 1] = True
-    seen[:, cfg.start_mel_token] = True
-    codes = torch.full((b, max_gen), stop, dtype=torch.long, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    lengths = torch.zeros((b,), dtype=torch.long, device=dev)
-    rows = torch.arange(b, device=dev)
-    step = 0
-    for i, cap in enumerate(caps):
-        if i:   # grow the cache into the next rung (zero padding is exact)
-            new_s = seg_len(cap)
-            if isinstance(cache, KVCache):
-                cache = KVCache(grow_axis(cache.k, 2, new_s),
-                                grow_axis(cache.v, 2, new_s))
-            elif isinstance(cache, QuantKVCache):
-                cache = QuantKVCache(*(grow_axis(t, 2, new_s) for t in cache))
-            else:   # K1's (L, S, D) pair or K4's (L, B, S[, D]) quartet
-                cache = tuple(grow_axis(t, 1 if fused else 2, new_s)
-                              for t in cache)
-        while step < cap and not (step and bool(done.all())):
-            if do_sample:
-                tok = sample_token(generator, logits, temperature=temperature,
-                                   top_p=top_p, seen=seen,
-                                   repetition_penalty=repetition_penalty)
-            else:
-                tok = greedy_token(logits)
-            tok = torch.where(done, torch.full_like(tok, stop), tok)
-            codes[:, step] = tok
-            seen[rows, tok] = True
-            lengths = torch.where(done, lengths,
-                                  torch.full_like(lengths, step + 1))
-            done = done | (tok == stop)
-            # code t sits at mel position n_cond + 1 + t (reference quirk)
-            mel_pos = step + 1 + (n_cond if cfg.decode_position_quirk else 0)
-            if fused or fserv:
-                x = (qtree["mel_embedding"][tok]
-                     + qtree["mel_pos_embedding"][mel_pos][None])
-                if fused:
-                    logits, *_ = _ds.fused_decode_logits(
-                        qtree["fused"], x, *cache, p_len + step, layers, heads)
-                else:
-                    logits, *_ = _ss.fused_serving_logits(
-                        k4, x, *cache, p_len + step, layers, heads)
-                logits = logits[:, :vocab]
-            else:
-                logits, cache = _decode_logits(qtree, heads, tok, mel_pos,
-                                               cache, p_len + step)
-            step += 1
-        if bool(done.all()):
-            break
-    return GenerateResult(codes, lengths, step)
+        def make(c):
+            def step(tok, mel_pos, index):
+                return fn(stack, _embed(qtree, tok, mel_pos), *c, index,
+                          layers, heads)[0][:, :vocab]
+            return step
+        if fserv:
+            engine = Engine("k4", stack["wqkv"], 2, make)
+            cache = _ss.quantize_kv_rowwise(cache)      # (kc, vc, ks, vs)
+        else:   # K1's (L, S, D) pair: the same memory
+            engine = Engine("k1", stack["wqkv"], 1, make)
+            cache = (cache.k.view(layers, p_len, d),
+                     cache.v.view(layers, p_len, d))
+    else:
+        kind = QuantKVCache if quantize_kv_cache else KVCache
+
+        def make(c):
+            kv = kind(*c)
+            return lambda tok, mel_pos, index: _decode_logits(
+                qtree, heads, tok, mel_pos, kv, index)[0]
+        engine = Engine("kv_quant" if quantize_kv_cache else "chain",
+                        qtree["layers"][0]["qkv"]["w"], 2, make)
+        cache = (tuple(quantize_kv(cache)) if quantize_kv_cache
+                 else (cache.k, cache.v))
+    return device_loop.generate(
+        engine, cache, logits.float(), p_len=p_len,
+        pos_off=mel_pos_offset(cfg, n_cond),
+        pos_rows=qtree["mel_pos_embedding"].shape[0],
+        caps=ladder_caps(cache_ladder, max_gen), stop=cfg.stop_mel_token,
+        start_token=cfg.start_mel_token,
+        sampling=Sampling(do_sample, temperature, top_p, repetition_penalty),
+        generator=generator)

@@ -1,9 +1,10 @@
 """Token sampling for the AR decode loop (port of xtts_tpu/infer/sampling.py).
 
 HF logits-processor order: repetition penalty -> temperature -> top-p ->
-categorical. Everything stays on the logits' device (no host sync). Draws
-come from an explicit torch.Generator on that device, so they differ from
-JAX's for the same seed; greedy decoding is identical.
+categorical. Everything stays on the logits' device with no host read and
+no host-to-device copy, so a CUDA graph can hold it (infer/device_loop.py).
+Draws come from an explicit torch.Generator on that device, so they differ
+from JAX's for the same seed; greedy decoding is identical.
 """
 from __future__ import annotations
 
@@ -41,18 +42,19 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
         m = torch.where(logits > mid, e, zero).sum(dim=-1, keepdim=True)
         big = m >= target
         lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
-    inf = torch.tensor(float("inf"), dtype=logits.dtype, device=logits.device)
-    kth = torch.where(logits > lo, logits, inf).min(dim=-1, keepdim=True).values
-    return torch.where(logits >= kth, logits,
-                       torch.tensor(NEG_INF, dtype=logits.dtype,
-                                    device=logits.device))
+    kth = logits.masked_fill(logits <= lo, float("inf")).amin(dim=-1,
+                                                              keepdim=True)
+    return logits.masked_fill(logits < kth, NEG_INF)
 
 
 def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
                  temperature: float = 1.0, top_p: float = 1.0,
                  seen: Optional[torch.Tensor] = None,
                  repetition_penalty: float = 1.0) -> torch.Tensor:
-    """logits (B, V) -> (B,) int64."""
+    """logits (B, V) -> (B,) int64. The categorical draw is
+    torch.multinomial's own one-sample path, argmax(p / q) with q ~ Exp(1)
+    from `generator` (the same indices for the same generator state),
+    without multinomial's checks of p, which read back to the host."""
     logits = logits.float()
     if seen is not None:
         logits = apply_repetition_penalty(logits, seen, repetition_penalty)
@@ -60,7 +62,8 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
         logits = logits / temperature
     logits = top_p_filter(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from xtts_tpu_torch.core.config import GPTConfig
 from xtts_tpu_torch.nn.blocks import (AttentionBlock, Conv1d, Embedding,
                                       LayerNorm, Linear)
-from xtts_tpu_torch.nn.transformer import GPT2Stack, KVCache
+from xtts_tpu_torch.nn.transformer import GPT2Stack, KVCache, cache_index
 
 
 class ConditioningEncoder(nn.Module):
@@ -188,10 +188,13 @@ class UnifiedVoice(nn.Module):
         logits = self.mel_head(self.final_norm(last).to(last.dtype))
         return logits[:, 0], cache
 
-    def decode_one(self, token, mel_pos: int, cache: KVCache, index: int):
+    def decode_one(self, token, mel_pos, cache: KVCache, index):
         """One AR step: embed `token` (B,) at `mel_pos`, attend to the cache
-        up to `index`; returns (logits (B, V), cache)."""
-        pos = torch.tensor([mel_pos], device=token.device)
+        up to `index` (each an int or a one-element tensor on the token's
+        device, never read back); returns (logits (B, V), cache)."""
+        pos = cache_index(mel_pos, token.device,
+                          self.mel_pos_embedding.emb.weight.shape[0],
+                          "the mel position").reshape(1)
         emb = self.mel_embedding(token[:, None]) + self.mel_pos_embedding(pos)[None]
         normed, cache = self.gpt.decode_step(emb.to(self.dtype), cache, index)
         logits = self.mel_head(self.final_norm(normed).to(normed.dtype))

@@ -4,7 +4,9 @@ Pre-LN (eps 1e-5, f32), gelu_new MLP, f32 softmax, 1/sqrt(head_dim)
 scaling; learned positions are added by the caller. Two modes, as in JAX:
 `forward` (full causal sequence; prefill collects the K/V) and
 `decode_step` (one token against the preallocated cache). The port updates
-the cache in place (JAX returns a new one).
+the cache in place (JAX returns a new one). The decode index may be a
+device tensor (the AR loop's, infer/device_loop.py): the step never reads
+it back to the host.
 """
 from __future__ import annotations
 
@@ -17,6 +19,27 @@ import torch.nn as nn
 from xtts_tpu_torch.nn.blocks import LayerNorm, lecun_normal_
 
 NEG_INF = -1e9
+
+
+def cache_index(index, device, s_max: int, who: str) -> torch.Tensor:
+    """A cache or table index as every decode step takes it: a 0-d int64
+    tensor on `device` (the attention kernels read it from there; its
+    reshape(1) serves index_copy_ / index_select, where a 0-d subscript
+    would read it back to the host). An int is checked (0 <= index <
+    s_max) and copied there; a tensor (one integral element on `device`) is
+    taken as it is: its range is the caller's (the AR loop's rungs are sized
+    for it, infer/device_loop.cache_rows)."""
+    if torch.is_tensor(index):
+        if (index.device != device or index.numel() != 1
+                or index.dtype.is_floating_point or index.dtype == torch.bool):
+            raise ValueError(f"{who}: the index is an integer tensor of one "
+                             f"element on {device}, got {index.dtype} "
+                             f"{tuple(index.shape)} on {index.device}")
+        return index.reshape(()).long()
+    if not 0 <= index < s_max:
+        raise ValueError(f"{who}: index {index} outside the cache ({s_max} "
+                         f"rows)")
+    return torch.tensor(index, dtype=torch.long, device=device)
 
 
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -93,17 +116,20 @@ class SelfAttention(nn.Module):
         y = torch.einsum("bhqk,bkhd->bqhd", w.to(dt), v.to(dt))
         return self.c_proj(y.reshape(b, t, self.dim)), (k, v)
 
-    def step(self, x, cache: KVCache, layer: int, index: int):
-        """Single-token decode: writes this token's k/v at `index` (in
-        place) and attends over positions <= index."""
+    def step(self, x, cache: KVCache, layer: int, index):
+        """Single-token decode: writes this token's k/v at `index` (an int
+        or a one-element tensor; in place) and attends over positions <=
+        index."""
         b = x.shape[0]
         q, k, v = self.qkv(x)                                # (B, 1, H, hd)
-        cache.k[layer, :, index] = k[:, 0].to(cache.k.dtype)
-        cache.v[layer, :, index] = v[:, 0].to(cache.v.dtype)
         k_all, v_all = cache.k[layer], cache.v[layer]        # (B, S, H, hd)
+        at = cache_index(index, x.device, k_all.shape[1],
+                         "the decode step").reshape(1)
+        k_all.index_copy_(1, at, k.to(cache.k.dtype))
+        v_all.index_copy_(1, at, v.to(cache.v.dtype))
         scale = 1.0 / math.sqrt(self.dim // self.heads)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k_all.to(q.dtype)) * scale
-        valid = (torch.arange(k_all.shape[1], device=x.device) <= index)
+        valid = torch.arange(k_all.shape[1], device=x.device) <= at
         logits = logits.masked_fill(~valid, NEG_INF)
         w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         y = torch.einsum("bhqk,bkhd->bqhd", w, v_all.to(x.dtype))
@@ -134,7 +160,7 @@ class Block(nn.Module):
         x = x + self.mlp(self.ln_2(x).to(x.dtype))
         return x, kv
 
-    def step(self, x, cache: KVCache, layer: int, index: int):
+    def step(self, x, cache: KVCache, layer: int, index):
         x = x + self.attn.step(self.ln_1(x).to(x.dtype), cache, layer, index)
         return x + self.mlp(self.ln_2(x).to(x.dtype))
 
@@ -170,7 +196,7 @@ class GPT2Stack(nn.Module):
         cache.v[:, :, :t] = v.to(cache.v.dtype)
         return hidden, normed, cache
 
-    def decode_step(self, x, cache: KVCache, index: int):
+    def decode_step(self, x, cache: KVCache, index):
         """One token (B, 1, D) through all layers."""
         for i, blk in enumerate(self.h):
             x = blk.step(x, cache, i, index)

@@ -34,9 +34,15 @@ Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain PyTorch twin for a CPU tensor.
 The twins of layer_norm_rows, int8_gemv, int4_gemv and decode_attention
 repeat their kernels' f32 operations in the kernels' order
-(layer_norm_rows_ordered, ordered_sums, split_attention), so on the card
-each kernel and its twin give the same bits wherever no gelu_new is
-involved (card tests); gelu_new's tanh differs by roundings only.
+(layer_norm_rows_ordered, ordered_sums, gelu_new_ordered,
+split_attention), so on the card each kernel and its twin give the same
+bits (card tests).
+
+decode_attention takes the cache index as the TPU kernel took it by scalar
+prefetch: from device memory (a 0-d integer tensor), so that one launch
+captured in a CUDA graph serves every step of the AR loop
+(infer/device_loop.py). An int index is range-checked and copied to the
+device by the wrapper; a tensor index is the caller's to keep in range.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from xtts_tpu_torch.nn.transformer import gelu_new
+from xtts_tpu_torch.nn.transformer import cache_index
 from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
 
@@ -73,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     lib.xt_int4_gemv_bounds.argtypes = [_I, _I, _I, _P]
     lib.xt_int8_gemv_bounds.restype = lib.xt_int4_gemv_bounds.restype = None
     lib.xt_gemv_setup.argtypes = []
-    lib.xt_decode_attention.argtypes = [_P] * 4 + [_I] * 3 + [
+    lib.xt_decode_attention.argtypes = [_P] * 5 + [_I] * 2 + [
         ctypes.c_float, _P]
     lib.xt_attention_bounds.argtypes = [_I, _P]
     lib.xt_attention_bounds.restype = None
@@ -366,9 +372,20 @@ def ordered_int4_sums(x, w, groups: int) -> torch.Tensor:
     return ordered_sums(x, wv, groups, int4_gemv_plan(*wv.shape, groups))
 
 
+def gelu_new_ordered(y: torch.Tensor) -> torch.Tensor:
+    """csrc/common.cuh gelu_new in its order, each f32 operation rounded
+    on its own: 0.5 y (1 + tanh(c (y + ((0.044715 y) y) y))), c = sqrt(2 /
+    pi) as an f32 constant. On the card the kernels' epilogues and this
+    give the same bits (the card's tanhf is torch.tanh's). The model's
+    nn.transformer.gelu_new (a power, a double constant) stays as it is,
+    for parity with the JAX package."""
+    t = torch.tanh((y + y * 0.044715 * y * y) * 0.7978845608028654)
+    return (y * 0.5) * (t + 1.0)
+
+
 def _store(y, out, gelu, out_dtype):
     if gelu:
-        y = gelu_new(y)
+        y = gelu_new_ordered(y)
     if out is not None:
         out += y
         return out
@@ -410,6 +427,16 @@ def int4_gemv_plain(x, w, scale, bias, out=None, gelu=False,
 # of a tile resets its own). Launches run one at a time on the stream.
 _GV_COUNTERS = 4096
 _gv_scratch: Dict[Any, Dict[str, torch.Tensor]] = {}
+# How many times any device's partials have grown. A CUDA graph holds the
+# partials' address of its capture, which a growth frees: the AR loop's
+# graphs are valid only while this is what it was at their capture
+# (infer/device_loop.py drops them when it moves).
+_gv_grown = 0
+
+
+def gemv_scratch_epoch() -> int:
+    """The count of partials growths (see _gv_grown)."""
+    return _gv_grown
 # (device, bits, w's shape, scale's shape, fused) -> what a launch of that
 # product needs besides its operands: the C entry point, the arguments after
 # the output pointer up to gelu (the scratch's pointers, K, N[, groups])
@@ -420,6 +447,7 @@ _gv_launch: Dict[Any, tuple] = {}
 
 
 def _gemv_scratch(device, floats: int, tiles: int):
+    global _gv_grown
     if tiles > _GV_COUNTERS:
         raise ValueError(f"the gemv takes at most {_GV_COUNTERS} column "
                          f"tiles")
@@ -432,6 +460,7 @@ def _gemv_scratch(device, floats: int, tiles: int):
     if sc["part"].numel() < floats:
         sc["part"] = torch.empty(floats, dtype=torch.float32, device=device)
         _gv_launch.clear()
+        _gv_grown += 1
     return sc["part"], sc["count"]
 
 
@@ -576,18 +605,19 @@ ATT_GROUPS = 16     # groups of 8 lanes a block, one cache row each
 ATT_BATCH = 4       # rows a group folds in at once
 
 
-def attention_bounds(index: int, s_max: int):
+def attention_bounds(index, s_max: int) -> torch.Tensor:
     """decode_attention's chunks of positions 0..index: rank r of a head's
     ATT_SPLITS blocks takes [bounds[r], bounds[r + 1]), bounds[r] = r
     (index + 1) // ATT_SPLITS. The last chunk always holds `index`; when
     index + 1 < ATT_SPLITS some chunks are empty. csrc/decode_step.cu
     att_lo is the authority; this is its copy (held against it on the card
-    through kernel_attention_bounds). Raises unless 0 <= index < s_max."""
-    if not 0 <= index < s_max:
-        raise ValueError(f"decode_attention: index {index} outside the "
-                         f"cache ({s_max} rows)")
-    n = index + 1
-    return [r * n // ATT_SPLITS for r in range(ATT_SPLITS + 1)]
+    through kernel_attention_bounds). `index` as cache_index takes it (an
+    int is checked against s_max); the bounds are an int64 tensor on its
+    device (the CPU for an int)."""
+    dev = index.device if torch.is_tensor(index) else torch.device("cpu")
+    index = cache_index(index, dev, s_max, "decode_attention")
+    r = torch.arange(ATT_SPLITS + 1, device=dev)
+    return r * (index + 1) // ATT_SPLITS
 
 
 def kernel_attention_bounds(index: int):
@@ -614,13 +644,18 @@ def split_attention(q, k, v, bounds):
     3-level tree, then is scaled; each group runs an online softmax
     (m, l, o) over its batches; the 16 groups merge in order, then the
     blocks in rank order, each partial weighted exp(m - M) (0 when empty:
-    m = -inf, l = 0, o = 0). Returns (H, hd) f32."""
+    m = -inf, l = 0, o = 0). `bounds`: a list or a tensor over k's rows;
+    the batches run to the longest chunk k's n rows can hold, ceil(n / 8):
+    past a chunk's end they are empty, weigh exactly 0 and leave the sums
+    as they are, so one trip count serves every index. Returns (H, hd)
+    f32."""
     heads, hd = q.shape
     dev = q.device
-    lo = torch.tensor(bounds[:-1], device=dev)
-    hi = torch.tensor(bounds[1:], device=dev)
+    bounds = torch.as_tensor(bounds, device=dev)
+    lo, hi = bounds[:-1], bounds[1:]
     step = ATT_BATCH * ATT_GROUPS
-    batches = max(1, -(-int((hi - lo).max()) // step))
+    longest = -(-k.shape[0] // ATT_SPLITS)
+    batches = max(1, -(-longest // step))
     off = (torch.arange(batches, device=dev)[:, None, None] * step
            + torch.arange(ATT_BATCH, device=dev)[None, :, None] * ATT_GROUPS
            + torch.arange(ATT_GROUPS, device=dev)[None, None, :])
@@ -660,36 +695,40 @@ def split_attention(q, k, v, bounds):
     return total[:, :hd] / total[:, hd:]
 
 
-def decode_attention_plain(qkv, kc, vc, index: int, heads: int):
+def decode_attention_plain(qkv, kc, vc, index, heads: int):
+    """decode_attention's twin; `index` an int or a one-element integer
+    tensor (no host read of it: every row of the cache enters, masked by
+    the bounds)."""
     s_max, d = kc.shape
     hd = d // heads
+    index = cache_index(index, kc.device, s_max, "decode_attention")
     bounds = attention_bounds(index, s_max)
-    kc[index] = qkv[d:2 * d].to(kc.dtype)
-    vc[index] = qkv[2 * d:].to(vc.dtype)
+    at = index.reshape(1)
+    kc.index_copy_(0, at, qkv[None, d:2 * d].to(kc.dtype))
+    vc.index_copy_(0, at, qkv[None, 2 * d:].to(vc.dtype))
     q = qkv[:d].to(torch.bfloat16).float().reshape(heads, hd)
-    k = kc[:index + 1].float().reshape(index + 1, heads, hd)
-    v = vc[:index + 1].float().reshape(index + 1, heads, hd)
+    k = kc.float().reshape(s_max, heads, hd)
+    v = vc.float().reshape(s_max, heads, hd)
     return split_attention(q, k, v, bounds).reshape(d).to(torch.bfloat16)
 
 
 def decode_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                     index: int, heads: int) -> torch.Tensor:
+                     index, heads: int) -> torch.Tensor:
     """One query per head over cache rows 0..index.
 
     qkv (3D,) f32 [q | k | v]; kc, vc (S, D) bf16 — one layer of the cache,
-    updated in place: the new k/v row is written at `index`. Returns the
+    updated in place: the new k/v row is written at `index`, an int or a
+    0-d integer tensor on the caches' device (cache_index). Returns the
     attention output (D,) bf16. head_dim must be 64; 0 <= index < S; the
     caches 16-byte aligned (rows are read 16 bytes a lane). The kernel runs
     each head as a cluster of ATT_SPLITS blocks over the chunks of
-    attention_bounds."""
+    attention_bounds, which it computes from the index it reads."""
     if not qkv.is_cuda:
         return decode_attention_plain(qkv, kc, vc, index, heads)
     s_max, d = kc.shape
     if d // heads != 64 or d % heads:
         raise ValueError("decode_attention takes head_dim 64")
-    if not 0 <= index < s_max:
-        raise ValueError(f"decode_attention: index {index} outside the "
-                         f"cache ({s_max} rows)")
+    idx = cache_index(index, kc.device, s_max, "decode_attention")
     if (qkv.dtype != torch.float32 or qkv.numel() != 3 * d
             or kc.dtype != torch.bfloat16 or vc.dtype != torch.bfloat16
             or vc.shape != kc.shape):
@@ -700,7 +739,7 @@ def decode_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                          "time: they must start 16-byte aligned")
     out = torch.empty((d,), dtype=torch.bfloat16, device=qkv.device)
     check(_lib().xt_decode_attention(ptr(qkv), ptr(kc), ptr(vc), ptr(out),
-                                     int(index), d, heads,
+                                     ptr(idx), d, heads,
                                      1.0 / math.sqrt(64), stream_of(qkv)),
           "decode_attention")
     decode_attention.launches += 1
@@ -718,6 +757,8 @@ def _step(ops, st, x, kc, vc, index, layers, heads):
     """5 launches a layer (qkv with the ln_1 prologue, attention, proj, fc
     with the ln_2 prologue, out) and the head with ln_f then final_norm."""
     gemv, attention = ops
+    if x.is_cuda:               # to the device once a step, not a layer
+        index = cache_index(index, kc.device, kc.shape[1], "the K1 step")
     h_res = x.float().reshape(-1).clone()       # the f32 residual
     for li in range(layers):
         ln = st["ln"][li]
@@ -741,7 +782,8 @@ def fused_decode_logits(stacked: Dict[str, Any], x: torch.Tensor,
 
     stacked: from stack_qtree() or stack_qtree_int4() (the step then runs
     int4_gemv); x: (1, D) token embedding (mel emb + pos
-    emb); kc/vc: (L, S, D) bf16 caches, updated in place at `index`.
+    emb); kc/vc: (L, S, D) bf16 caches, updated in place at `index` (an
+    int or a 0-d integer tensor on their device).
     Returns (logits (1, head_tiles*D) f32 — slice to vocab outside, kc, vc).
     Each op launches its kernel for CUDA tensors, its plain twin for CPU
     tensors."""

@@ -23,7 +23,12 @@ Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 its `launches` attribute) and runs its plain twin for a CPU tensor.
 serving_attention's twin repeats its kernel's f32 operations in order, so
 on the card the two give the same bits; int8_gemm_rows' twin sums in
-another order (the tensor cores').
+another order (the tensor cores'), then runs the kernel's epilogue in its
+order (gelu_new_ordered): where the sums are exact the two are equal.
+
+serving_attention reads the cache index from device memory, as the TPU
+kernel took it by scalar prefetch (an int or a 0-d integer tensor: see
+decode_step.cache_index).
 """
 from __future__ import annotations
 
@@ -36,8 +41,8 @@ import torch
 
 from xtts_tpu_torch.ops.build import (check, load_library, ptr,
                                       require_hopper, stream_of)
-from xtts_tpu_torch.nn.transformer import gelu_new
 from xtts_tpu_torch.ops.decode_step import (_butterfly, _merge_factor,
+                                            cache_index, gelu_new_ordered,
                                             norm_operands, normed_input)
 
 MAX_ROWS = 32
@@ -51,8 +56,8 @@ def _lib() -> ctypes.CDLL:
     lib.xt_int8_gemm_rows.argtypes = [_P] * 5 + [_I] * 6 + [_P]
     lib.xt_int8_gemm_rows_ln.argtypes = ([_P] * 5 + [_I] + [_P] * 4
                                          + [_I] * 6 + [_P])
-    lib.xt_serving_attention.argtypes = ([_P] * 6 + [_I] * 5
-                                         + [ctypes.c_float, _P])
+    lib.xt_serving_attention.argtypes = ([_P] * 6 + [_I] * 4
+                                         + [_P, ctypes.c_float, _P])
     lib.xt_gemm_rows_bounds.argtypes = [_I, _I, _P]
     lib.xt_gemm_rows_bounds.restype = None
     for fn in (lib.xt_int8_gemm_rows, lib.xt_int8_gemm_rows_ln,
@@ -76,12 +81,13 @@ def int8_gemm_rows_plain(x, w, scale, bias, out=None, gelu=False,
                          out_dtype=torch.float32, ln=None) -> torch.Tensor:
     """int8_gemm_rows' arithmetic: (x_bf16 . W_int8) * scale + bias with
     f32 sums (the kernel's tensor-core sums have no order a twin can
-    repeat), gelu_new, then stored or added into `out`."""
+    repeat), the product and the sum rounded on their own, gelu_new in the
+    kernel's order, then stored or added into `out`."""
     if ln is not None:
         x = normed_input(x, ln)
     y = (x.float() @ w.float()) * scale + bias
     if gelu:
-        y = gelu_new(y)
+        y = gelu_new_ordered(y)
     if out is not None:
         out += y
         return out
@@ -206,7 +212,7 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
+def serving_attention_plain(qkv, kc, vc, ks, vs, index, heads: int):
     """serving_attention's arithmetic in its order (csrc/serving_step.cu),
     one rounded elementwise op at a time, so on the card the two give the
     same bits. The new rows are quantized over D and written at `index`.
@@ -220,23 +226,28 @@ def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
     order; then den = den alpha + E, o = o alpha + P (the TPU kernel's acc
     * alpha + contrib). The current token then enters in closed form (its
     score: pairs of bf16(k q) by a butterfly). Positions >= index weigh 0
-    with zero k, v and scales, as the kernel's zero-filled copies. Returns
-    (B, D) bf16."""
-    b, d = qkv.shape[0], kc.shape[-1]
+    with zero k, v and scales, as the kernel's zero-filled copies. `index`
+    is an int or a one-element integer tensor, never read back: the
+    chunks run over the whole cache, and those past the index (all -inf,
+    which the kernel never runs) weigh exactly 0. Returns (B, D) bf16."""
+    b, s_max, d = kc.shape
     hd = d // heads
     scale = 1.0 / math.sqrt(hd)
     dev = qkv.device
+    at = cache_index(index, dev, s_max, "serving_attention").reshape(1)
     q, knew, vnew = qkv.float().split(d, dim=-1)
     kq, ksc = quantize_rows(knew)
     vq, vsc = quantize_rows(vnew)
-    kc[:, index], vc[:, index] = kq, vq
-    ks[:, index], vs[:, index] = ksc, vsc
+    kc.index_copy_(1, at, kq[:, None])
+    vc.index_copy_(1, at, vq[:, None])
+    ks.index_copy_(1, at, ksc[:, None])
+    vs.index_copy_(1, at, vsc[:, None])
     t = _bf16(knew * q).reshape(b, heads, hd // 2, 2)
     self_s = _butterfly(t[..., 0] + t[..., 1]) * scale           # (B, H)
 
-    n = -(-index // SA_CHUNK) * SA_CHUNK
+    n = -(-s_max // SA_CHUNK) * SA_CHUNK
     pos = torch.arange(n, device=dev)
-    valid = pos < index
+    valid = pos < at
     at = torch.where(valid, pos, torch.zeros_like(pos))
     zero = torch.zeros((), device=dev)
     kk = torch.where(valid[:, None], kc[:, at].float(), zero)
@@ -261,7 +272,8 @@ def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
         sc = s[:, sl]
         m_new = torch.maximum(m, sc.amax(1))
         alpha = _merge_factor(m, m_new)
-        e = torch.exp(sc - m_new[:, None])
+        e = torch.where(sc == -math.inf, zero,
+                        torch.exp(sc - m_new[:, None]))
         w = _butterfly(e.reshape(b, 4, 32, heads).transpose(2, 3))
         wv = (_bf16(e) * vsv[:, sl, None]).reshape(b, steps, SA_GROUPS,
                                                     heads, 1)
@@ -284,14 +296,15 @@ def serving_attention_plain(qkv, kc, vc, ks, vs, index: int, heads: int):
 
 
 def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                      ks: torch.Tensor, vs: torch.Tensor, index: int,
+                      ks: torch.Tensor, vs: torch.Tensor, index,
                       heads: int) -> torch.Tensor:
     """One query per (row, head) over cache positions < index plus the
     current token.
 
     qkv (B, 3D) f32 [q | k | v]; kc, vc (B, S, D) int8 and ks, vs (B, S) f32
     — one layer of the cache, updated in place: the new k/v rows are
-    quantized over D and written at `index`. Returns (B, D) bf16.
+    quantized over D and written at `index`, an int or a 0-d integer
+    tensor on the caches' device. Returns (B, D) bf16.
     head_dim must be 64; 0 <= index < S; the caches 16-byte aligned (their
     rows are copied 16 bytes at a time)."""
     if not qkv.is_cuda:
@@ -299,9 +312,7 @@ def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     b, s_max, d = kc.shape
     if d // heads != 64 or d % heads:
         raise ValueError("serving_attention takes head_dim 64")
-    if not 0 <= index < s_max:
-        raise ValueError(f"serving_attention: index {index} outside the "
-                         f"cache ({s_max} positions)")
+    idx = cache_index(index, kc.device, s_max, "serving_attention")
     if (qkv.dtype != torch.float32 or tuple(qkv.shape) != (b, 3 * d)
             or kc.dtype != torch.int8 or vc.dtype != torch.int8
             or ks.dtype != torch.float32 or vs.dtype != torch.float32
@@ -316,7 +327,7 @@ def serving_attention(qkv: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     out = torch.empty((b, d), dtype=torch.bfloat16, device=qkv.device)
     check(_lib().xt_serving_attention(
         ptr(qkv), ptr(kc), ptr(vc), ptr(ks), ptr(vs), ptr(out), b, s_max, d,
-        heads, int(index), 1.0 / math.sqrt(64), stream_of(qkv)),
+        heads, ptr(idx), 1.0 / math.sqrt(64), stream_of(qkv)),
         "serving_attention")
     serving_attention.launches += 1
     return out
@@ -333,6 +344,8 @@ def _step(ops, st, x, kc, vc, ks, vs, index, layers, heads):
     """5 launches a layer (qkv with the ln_1 prologue, attention, proj, fc
     with the ln_2 prologue, out) and the head with ln_f then final_norm."""
     gemm, attention = ops
+    if x.is_cuda:               # to the device once a step, not a layer
+        index = cache_index(index, kc.device, kc.shape[2], "the K4 step")
     x32 = x.float().clone()                     # the f32 residual (B, D)
     for li in range(layers):
         ln = st["ln"][li]
@@ -354,8 +367,9 @@ def fused_serving_logits(stacked: Dict[str, Any], x: torch.Tensor, kc, vc,
     logits (slice to vocab outside).
 
     stacked: ops/decode_step.stack_qtree's weight stack; kc/vc (L, B, S, D)
-    int8 and ks/vs (L, B, S) f32, updated in place at `index`. Returns
-    (logits, kc, vc, ks, vs)."""
+    int8 and ks/vs (L, B, S) f32, updated in place at `index` (an int or a
+    0-d integer tensor on their device). Returns (logits, kc, vc, ks,
+    vs)."""
     out = _step((int8_gemm_rows, serving_attention), stacked, x, kc, vc, ks,
                 vs, index, layers, heads)
     if x.is_cuda:
