@@ -80,6 +80,20 @@ Phases, each reported on its own lines:
      and two timed waves; then one synthesize_batch wave with the DVAE
      shortcut render and one with the default engine (the per-layer chain,
      cache_ladder "auto") as K4's in-program comparator.
+  6b. slots (continuous serving, infer/slots.py, on [main]'s model): a
+     pool of 16 slots, segments of 32 steps, max_gen 300, 24 requests of
+     distinct text (token ids) with the stop logit raised so they stop at
+     spread steps and refill recycled slots mid-stream. Greedy: the pool's
+     CUDA graphs against the same segments run eagerly (codes equal), and
+     the B=1 int8 chain teacher-forced along each request's first 64 codes
+     (differing picks <= 2 x the float64 floor + 2). Seeded sampling through
+     ContinuousBatcher.submit with the diffusion render (K2): requests/s,
+     audio-s/s, AR tokens/s, occupancy, latency, host reads a segment,
+     capture ms, peak memory; the longest request again among two others
+     in a fresh 16-slot pool, traced (flash_mha == the trace): codes
+     identical, waveform within 1e-3 of its peak. The HTTP layer
+     (backend="slots") on loopback: /healthz and /metrics. BatchServer
+     (the chain, waves of 16) on the same requests as the comparator.
   7. stream (the low-latency B=1 path): TextToSpeech(bf16, HiFi-GAN) with
      XTTS_DECODE_BITS=4 at requantize(); three 50-token sentences (numpy
      seeds 10, 11, 12) through stream_tokens (tts_stream's loop on token
@@ -109,6 +123,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -139,6 +154,18 @@ PICKS_FLOOR = {
     "k1": "floor 0-2 a seed of 64, 12 of 1024 over seeds 0-15",
     "k1-int4": "floor 0-4 a seed of 64, 19 of 1024 over seeds 0-15",
     "k4": "floor 7-16 a seed of 1024, 180 of 16384 over seeds 0-15"}
+# [slots]: a seeded request's waveform in two pool compositions, whose
+# render batches (and so the GEMMs' row counts) may differ, relative to its
+# peak (another request's waveform differs by more than its peak)
+WAV_SLOTS_TOL = 1e-3
+# [slots]: the stop logit's head bias, raised so that rows stop at spread
+# steps and slots refill mid-stream. At the flagship random weights greedy
+# rows fall into loops, so each stops early or never. The phase checks the
+# spread these give and prints it: the greedy lengths and installs into
+# recycled slots, the sampled lengths.
+SLOTS_STOP_BIAS = {"greedy": 1.0, "sampled": 2.0}
+CHAIN_PICKS = 64      # teacher-forced picks a request held against B=1
+SLOTS_EAGER_SEGMENTS = 3   # greedy segments run eagerly against the graphs
 
 
 def log(msg: str) -> None:
@@ -1405,6 +1432,443 @@ def serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
 
 
 
+def chain_picks(torch, tts, qt, cond_mel, texts, codes, lens, max_gen):
+    """Teacher-forced greedy picks of the B=1 int8 chain along the slot
+    pool's codes: for each request, its pool codes are fed one by one and
+    the chain's argmax after each is taken (the first pick is the prefill's
+    argmax). Two arms: the chain as it is (products summed in f32) and the
+    noise floor, the same chain with its products summed in float64 (P3's
+    floors: the plain step against itself on float64 sums). One step of
+    each arm is one CUDA graph on static buffers (every request pads to one
+    text bucket, so one prefix length). Returns the picks of both arms."""
+    from xtts_tpu_torch.infer import qdecode as qd
+    from xtts_tpu_torch.models.gpt_infer import mel_pos_offset
+    from xtts_tpu_torch.nn.transformer import KVCache
+    gcfg = tts.cfg.gpt
+    heads = gcfg.heads
+
+    def qdot64(x, q, bias=None):
+        y = (x.to(torch.bfloat16).double() @ q["w"].double()) \
+            * q["scale"].double()
+        if bias is not None:
+            y = y + bias.double()
+        return y.float()
+
+    prefix0, _ = tts.gpt.encode_prefix(cond_mel, texts[0])
+    p_len = prefix0.shape[1]
+    tok = torch.zeros(1, dtype=torch.long, device="cuda")
+    mel_pos = torch.zeros((), dtype=torch.long, device="cuda")
+    index = torch.zeros((), dtype=torch.long, device="cuda")
+    arms = []
+    for f64 in (False, True):
+        cache = KVCache.zeros(gcfg.layers, 1, p_len + max_gen + 1, heads,
+                              gcfg.model_dim // heads, device="cuda")
+        pick = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def step(cache=cache, pick=pick):
+            lg, _ = qd._decode_logits(qt, heads, tok, mel_pos, cache, index)
+            pick.copy_(lg[0].argmax())
+        orig = qd.qdot
+        qd.qdot = qdot64 if f64 else orig   # instrumentation: the floor arm
+        try:
+            step()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+        finally:
+            qd.qdot = orig
+        arms.append((cache, pick, graph))
+    out = ([], [])
+    for r, text in enumerate(texts):
+        prefix, n_cond = tts.gpt.encode_prefix(cond_mel, text)
+        check(prefix.shape[1] == p_len, "[slots] prefix lengths differ")
+        off = mel_pos_offset(gcfg, n_cond)
+        for a, (cache, pick, graph) in enumerate(arms):
+            cache.k.zero_()
+            cache.v.zero_()
+            logits0, _ = tts.gpt.prefill(prefix, cache)
+            picks = torch.empty(lens[r], dtype=torch.long, device="cuda")
+            picks[0] = logits0[0].float().argmax()
+            for t in range(lens[r] - 1):
+                tok.fill_(int(codes[r][t]))
+                mel_pos.fill_(t + off)
+                index.fill_(p_len + t)
+                graph.replay()
+                picks[t + 1].copy_(pick)
+            out[a].append(picks.cpu().numpy())
+    return out
+
+
+def slots_phase(torch, np, tts, cond_wav, cond_mel, text, launches, cfg,
+                card):
+    """Continuous serving (infer/slots.py) at the flagship width on
+    [main]'s model: the int8 tree's per-layer chain with one cache position
+    a row, as the JAX package's slots run (not K1 or K4). 24 requests of
+    distinct text (50 token ids, shifted by 7 a request) through a pool of
+    16 slots, segments of 32 steps, max_gen 300, the stop logit's bias
+    raised (SLOTS_STOP_BIAS) so rows stop at spread steps and installs land
+    in recycled slots mid-stream.
+      * greedy: the pool's codes; its first SLOTS_EAGER_SEGMENTS segments
+        (the capture and the first installs into recycled slots) against
+        the same segments run eagerly (device_loop.eager()), equal; then
+        every request held against the B=1 chain teacher-forced along its
+        first CHAIN_PICKS codes, its differing picks bounded by the float64
+        floor's count (chain_picks): 2 x floor + 2;
+      * seeded sampling: ContinuousBatcher.submit of the 24 requests with
+        seeds, rendered through the diffusion (K2): requests a second,
+        audio-s/s, AR tokens/s, occupancy, latency, host reads a segment,
+        capture ms, peak memory; then the longest request again with two
+        others in the same pool, now empty: its codes identical, its
+        waveform within WAV_SLOTS_TOL of its peak (the render rung may
+        differ between the two runs), and once more so when its render
+        runs alone under torch.profiler (flash_mha's launches == the
+        trace's). The check
+        keeps the pool's size: cuBLAS rounds a row's logits by the row
+        count, so a pool of another size samples from other logits' last
+        bits. The request once more alone in a pool of 4 slots shows that
+        known difference (logged, not checked);
+      * the HTTP layer (backend="slots", a pool of 2) on loopback:
+        /healthz, /metrics;
+      * [serving]'s BatchServer (the chain engine, waves of 16) on the same
+        24 texts as the comparator: unseeded, so it decodes other codes;
+        both runs' renders are timed (serving.render_rows), so AR tokens/s
+        and render seconds are set side by side, not audio-s/s alone."""
+    import urllib.request
+
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer import serving
+    from xtts_tpu_torch.infer.api import TTSSettings
+    from xtts_tpu_torch.infer.http import SynthesisService, serve
+    from xtts_tpu_torch.infer.slots import (RENDER_FOLD, ContinuousBatcher,
+                                            SlotDecoder, fold_seed)
+    t_phase = time.perf_counter()
+
+    def slog(msg):
+        log(f"{msg}  (+{time.perf_counter() - t_phase:.1f} s of the phase)  "
+            f"[{card}]")
+    gcfg = cfg.gpt
+    stop, max_gen, n_req, n_slots, seg = gcfg.stop_mel_token, 300, 24, 16, 32
+    qt = tts._qtree
+    tok = torch.as_tensor(text[0], dtype=torch.long)
+    texts = [(3 + (tok - 3 + 7 * i) % 247).numpy() for i in range(n_req)]
+    old_bias = float(qt["mel_head_b"][stop])
+    settings = TTSSettings(max_mel_tokens=max_gen)
+
+    def set_stop_bias(b):
+        qt["mel_head_b"][stop] = b
+        tts.gpt.mel_head.bias[stop] = b
+
+    render_rows = serving.render_rows
+    dec = SlotDecoder(tts, n_slots=n_slots, max_gen=max_gen,
+                      segment_len=seg, settings=settings)
+    rows = [torch.as_tensor(dec.pad_text(t), device="cuda")[None]
+            for t in texts]
+
+    def drive(dec, greedy=True, stop_at=None):
+        """The 24 requests through the pool; after |stop_at| segments, a
+        device copy of the pool's (codes, gen, done) as well, and with a
+        negative stop_at the run ends there."""
+        pending, slot_req, out = list(range(n_req)), {}, {}
+        mid, segments, snap = 0, 0, None
+        for s in range(n_slots):
+            i = pending.pop(0)
+            dec.install(s, dec.pad_text(texts[i]), cond_mel, seed=2000 + i)
+            slot_req[s] = i
+        while slot_req:
+            done, gen = dec.run_segment(greedy=greedy)
+            segments += 1
+            if segments == abs(stop_at or 0):
+                snap = [t.clone() for t in (dec.state.codes, dec.state.gen,
+                                            dec.state.done)]
+                if stop_at < 0:
+                    break
+            fin = [s for s in slot_req if done[s]]
+            if fin:
+                codes = dec.fetch_codes()
+                for s in fin:
+                    i = slot_req.pop(s)
+                    out[i] = (codes[s].copy(), int(gen[s]))
+                    if pending:
+                        j = pending.pop(0)
+                        mid += bool(slot_req)       # others still decode
+                        dec.install(s, dec.pad_text(texts[j]), cond_mel,
+                                    seed=2000 + j)
+                        slot_req[s] = j
+        return out, segments, mid, snap
+
+    try:
+        # ---- greedy: graphs == eager; the B=1 chain's picks ----
+        set_stop_bias(SLOTS_STOP_BIAS["greedy"])
+        k_e = SLOTS_EAGER_SEGMENTS
+        runs = []
+        for graphs in (True, False):
+            dec.reset()
+            dl.STATS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.nullcontext() if graphs else dl.eager():
+                got = drive(dec, stop_at=k_e if graphs else -k_e)
+            torch.cuda.synchronize()
+            runs.append((got, time.perf_counter() - t0, dl.STATS.captures,
+                         dl.STATS.capture_ms, dl.STATS.syncs))
+        (g_out, segs, mid, g_snap), t_g, caps, cap_ms, syncs = runs[0]
+        _, e_segs, e_mid, e_snap = runs[1][0]
+        lens = [g_out[i][1] for i in range(n_req)]
+        check(e_segs == k_e and all(torch.equal(a, b)
+                                    for a, b in zip(g_snap, e_snap)),
+              f"[slots] graph codes != eager codes over the first {k_e} "
+              f"segments")
+        check(e_mid >= 1, f"[slots] greedy: no install into a recycled "
+              f"slot mid-stream in the first {k_e} segments")
+        check(mid >= 4, f"[slots] greedy: {mid} installs into recycled "
+              f"slots mid-stream (lengths {lens})")
+        steps = segs * seg
+        slog(f"[slots] greedy pool, 16 slots x segments of {seg}: 24 "
+            f"requests, lengths {min(lens)}-{max(lens)} ({len(set(lens))} "
+            f"distinct, {sum(lens)} tokens), {mid} installs into recycled "
+            f"slots mid-stream; graph run {t_g:.3f} s ({segs} segments, "
+            f"{1e3 * t_g / steps:.2f} ms a pool step, {sum(lens) / t_g:.1f} "
+            f"tokens/s; {caps} capture(s) in {cap_ms:.1f} ms, "
+            f"{syncs / segs:.2f} host reads a segment); its first {k_e} "
+            f"segments ({e_mid} installs into recycled slots) run eagerly "
+            f"in {runs[1][1]:.3f} s: codes, counts and done flags equal "
+            f"the graphs'")
+        codes = [g_out[i][0] for i in range(n_req)]
+        forced = [min(n, CHAIN_PICKS) for n in lens]
+        t0 = time.perf_counter()
+        p32, p64 = chain_picks(torch, tts, qt, cond_mel, rows, codes, forced,
+                               max_gen)
+        diff = [int((p != c[:n]).sum())
+                for p, c, n in zip(p32, codes, forced)]
+        floor = [int((a != b).sum()) for a, b in zip(p32, p64)]
+        bound = 2 * sum(floor) + 2
+        slog(f"[slots] greedy pool codes against the B=1 chain, teacher-"
+            f"forced over each request's first {CHAIN_PICKS} picks "
+            f"({sum(forced)} picks, {time.perf_counter() - t0:.1f} s): "
+            f"{sum(diff)} differ (per request {diff}); floor, the chain "
+            f"against itself on float64 sums: {sum(floor)} (per request "
+            f"{floor}); bound 2 x floor + 2 = {bound}")
+        check(sum(diff) <= bound, f"[slots] {sum(diff)} differing picks > "
+              f"bound {bound}")
+
+        # ---- seeded sampling through the batcher, diffusion render ----
+        renders = []            # (seconds, AR tokens of its rows) a render
+
+        def timed_render(*args, **kw):    # instrumentation: the pool's and
+            t_r = time.perf_counter()       # the waves' renders alike
+            out = render_rows(*args, **kw)
+            renders.append((time.perf_counter() - t_r, int(args[5].sum())))
+            return out
+
+        def recording(cb, into):
+            render = cb._render
+
+            def wrapper():       # instrumentation: each request's codes
+                for p, c, n in cb._finished:
+                    into[p.seed] = (c.copy(), n)
+                render()
+            cb._render = wrapper
+            return cb
+
+        def run_batcher(cb, idx, lat):
+            """Submit requests idx (seeded) and wait for their waveforms."""
+            futs = []
+            for i in idx:
+                t_sub = time.perf_counter()
+                f = cb.submit(texts[i], seed=1000 + i)
+                f.add_done_callback(lambda _f, t=t_sub: lat.append(
+                    time.perf_counter() - t))
+                futs.append(f)
+            return [f.result(timeout=900) for f in futs]
+
+        set_stop_bias(SLOTS_STOP_BIAS["sampled"])
+        serving.render_rows = timed_render
+        launches.reset()
+        dl.STATS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        crowd = {}
+        cb = recording(ContinuousBatcher(
+            tts, cond_mel, settings, n_slots=n_slots, segment_len=seg,
+            use_diffusion=True), crowd)
+        try:
+            lat = []
+            t0 = time.perf_counter()
+            wavs = run_batcher(cb, range(n_req), lat)
+            wall = time.perf_counter() - t0
+            st = cb.stats()
+            got = launches.read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            r_pool, n_rend = sum(r for r, _ in renders), len(renders)
+            ar_s = wall - r_pool
+            per = cfg.vqvae.compression * cfg.vocos.hop_length
+            check(all(w.ndim == 1 and w.size > 0 and w.size % per == 0
+                      and bool(np.isfinite(w).all()) for w in wavs),
+                  "[slots] waveforms not finite 1-D code multiples")
+            check(st["completed"] == n_req and st["failed"] == 0,
+                  f"[slots] stats {st}")
+            s_lens = sorted(n for _, n in crowd.values())
+            check(len(set(s_lens)) >= 8 and s_lens[len(s_lens) // 2]
+                  < max_gen, f"[slots] sampled stops not spread: {s_lens}")
+            check(got["flash_mha"] > 0,
+                  "[slots] K2 not launched by the render")
+            check(got["fused_decode_logits"] == 0
+                  and got["fused_serving_logits"] == 0,
+                  f"[slots] the pool ran K1 / K4 steps: {got}")
+            audio = sum(w.size for w in wavs) / SR
+            lat = sorted(lat)
+            slog(f"[slots] ContinuousBatcher, 24 seeded requests (sampled), "
+                f"lengths {s_lens}, diffusion render: {wall:.3f} s, "
+                f"{n_req / wall:.2f} requests/s, "
+                f"{audio:.2f} s audio = {audio / wall:.2f} audio-s/s, "
+                f"{st['tokens']} AR tokens = {st['tokens'] / wall:.1f} "
+                f"tokens/s aggregate; {n_rend} renders {r_pool:.3f} s "
+                f"({r_pool / n_rend:.3f} s a render), the rest (segments, "
+                f"installs, reads, the capture) {ar_s:.3f} s = "
+                f"{st['tokens'] / ar_s:.1f} AR tokens/s, without the capture "
+                f"{st['tokens'] / (ar_s - dl.STATS.capture_ms / 1e3):.1f}; "
+                f"occupancy "
+                f"{st['slot_occupancy']:.3f}, {st['segments']} segments, "
+                f"{dl.STATS.syncs / max(st['segments'], 1):.2f} host reads "
+                f"a segment; latency p50 {lat[len(lat) // 2]:.3f} s, max "
+                f"{lat[-1]:.3f} s; {dl.STATS.captures} capture(s) in "
+                f"{dl.STATS.capture_ms:.1f} ms; peak {peak:.2f} GiB; K2 "
+                f"launches {got['flash_mha']}, K1 / K4 steps 0")
+
+            # ---- the longest request again with two others in the same
+            # pool, now empty ----
+            order = sorted(range(n_req), key=lambda i: -crowd[1000 + i][1])
+            x, mates = order[0], order[1:3]
+            c_a, n_a = crowd[1000 + x]
+            w_b = run_batcher(cb, [x] + mates, [])[0]
+            c_b, n_b = crowd[1000 + x]
+        finally:
+            cb.close()
+        check(n_a == n_b and np.array_equal(c_a, c_b),
+              "[slots] seeded codes differ between the two compositions")
+        w_a = wavs[x]
+        peak_a = float(np.abs(w_a).max())
+
+        def moved(w):
+            return (float(np.abs(w_a - w).max()) if w_a.shape == w.shape
+                    else float("inf"))
+        ctrl = wavs[mates[0]][:w_a.size]
+        slog(f"[slots] request {x} (seed {1000 + x}), among 24 requests and "
+             f"among 3: {n_a} codes identical; waveform max |diff| "
+             f"{moved(w_b):.3e} against its peak {peak_a:.3f} (tolerance "
+             f"{WAV_SLOTS_TOL} x peak); request {mates[0]}'s waveform "
+             f"differs from it by "
+             f"{float(np.abs(w_a[:ctrl.size] - ctrl).max()):.3f}")
+        check(moved(w_b) <= WAV_SLOTS_TOL * peak_a, "[slots] the seeded "
+              "waveform moved with the pool's composition")
+
+        # ---- its render once more, alone (one row), traced: its frames
+        # reach K2's gate (Tq Tk >= 2^19). A trace of the pool's segments
+        # would hold no counted kernel (the chain) ----
+        alone = {}
+
+        def render_x():
+            alone["wav"] = serving.render_rows(
+                tts, torch.as_tensor(dec.pad_text(texts[x])[None],
+                                     device="cuda"),
+                torch.as_tensor([len(texts[x])], device="cuda"), cond_mel,
+                torch.as_tensor(c_a[None], device="cuda"), np.asarray([n_a]),
+                settings, True, [torch.Generator("cuda").manual_seed(
+                    fold_seed(1000 + x, RENDER_FOLD))])[0]
+        hold_counts_to_trace(torch, render_x, launches, f"[slots] request "
+                             f"{x}'s render, one row", card)
+        slog(f"[slots] request {x}'s render alone (one row): waveform max "
+             f"|diff| {moved(alone['wav']):.3e} against its peak")
+        check(moved(alone["wav"]) <= WAV_SLOTS_TOL * peak_a, "[slots] the "
+              "seeded waveform moved with the render's batch")
+
+        # ---- the request once more, alone in a pool of 4 slots: a known
+        # difference, not checked (cuBLAS rounds a row's logits by the
+        # GEMM's row count, so a pool of another size samples from logits
+        # that differ in their last bits) ----
+        dec4 = SlotDecoder(tts, n_slots=4, max_gen=max_gen, segment_len=seg,
+                           settings=settings)
+        dec4.install(0, dec4.pad_text(texts[x]), cond_mel,
+                     seed=fold_seed(1000 + x, 0))
+        t0 = time.perf_counter()
+        done = [False]
+        while not done[0]:
+            done, gen = dec4.run_segment()
+        c4, n4 = dec4.fetch_codes()[0], int(gen[0])
+        del dec4
+        part = next((i for i in range(min(n4, n_a)) if c4[i] != c_a[i]),
+                    None)
+        slog(f"[slots] request {x} alone in a pool of 4 slots "
+            f"({time.perf_counter() - t0:.3f} s): {n4} codes, "
+            + ("identical to the 16-slot pool's" if part is None
+               and n4 == n_a else f"parting from the 16-slot pool's "
+               f"{n_a} at code {part if part is not None else min(n4, n_a)}")
+            + f" (a known difference: cuBLAS row counts)")
+
+        # ---- the HTTP layer over loopback ----
+        svc = SynthesisService(tts, cond_wav, settings, max_batch=2,
+                               use_diffusion=True, backend="slots")
+        httpd = serve(svc, "127.0.0.1", 0)
+        try:
+            host, port = httpd.server_address[:2]
+            got_http = {}
+            for path in ("/healthz", "/metrics"):
+                with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                            timeout=60) as r:
+                    got_http[path] = (r.status, json.loads(r.read()))
+        finally:
+            httpd.shutdown()
+            svc.close()
+        check(got_http["/healthz"] == (200, {"ok": True, "pending": 0})
+              and got_http["/metrics"][0] == 200
+              and "slot_occupancy" in got_http["/metrics"][1],
+              f"[slots] HTTP answers {got_http}")
+        slog(f"[slots] HTTP (backend slots, a pool of 2) on 127.0.0.1:{port}: "
+            f"/healthz {got_http['/healthz']}, /metrics 200 with "
+            f"{sorted(got_http['/metrics'][1])}")
+
+        # ---- [serving]'s BatchServer on the same texts ----
+        os.environ.pop("XTTS_FUSED_SERVING", None)
+        renders.clear()
+        dl.STATS.reset()
+        server = serving.BatchServer(tts, cond_mel, settings,
+                                     max_batch=n_slots, window_ms=200.0,
+                                     use_diffusion=True)
+        try:
+            lat = []
+            t0 = time.perf_counter()
+            futs = []
+            for i in range(n_req):
+                t_sub = time.perf_counter()
+                f = server.submit(texts[i])
+                f.add_done_callback(lambda _f, t=t_sub: lat.append(
+                    time.perf_counter() - t))
+                futs.append(f)
+            bw = [f.result(timeout=900) for f in futs]
+            wall_b = time.perf_counter() - t0
+            sb = server.stats()
+        finally:
+            server.close()
+        audio_b = sum(w.size for w in bw) / SR
+        r_b, tok_b = sum(r for r, _ in renders), sum(n for _, n in renders)
+        lat = sorted(lat)
+        slog(f"[slots] comparator: BatchServer (chain engine, max_batch 16, "
+            f"window 200 ms), the same 24 texts unseeded, so other codes "
+            f"than the pool's: {wall_b:.3f} s, {n_req / wall_b:.2f} "
+            f"requests/s, {audio_b:.2f} s audio = {audio_b / wall_b:.2f} "
+            f"audio-s/s, {sb['waves']} waves; {tok_b} AR tokens in the "
+            f"{wall_b - r_b:.3f} s besides the renders = "
+            f"{tok_b / (wall_b - r_b):.1f} tokens/s ({dl.STATS.captures} "
+            f"capture(s) in {dl.STATS.capture_ms:.1f} ms); {len(renders)} "
+            f"renders {r_b:.3f} s ({r_b / len(renders):.3f} s a render, "
+            f"{r_b / n_req:.3f} s a request; the pool's "
+            f"{r_pool / n_rend:.3f} and {r_pool / n_req:.3f}); latency p50 "
+            f"{lat[len(lat) // 2]:.3f} s, max {lat[-1]:.3f} s")
+        slog(f"[slots] phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        serving.render_rows = render_rows
+        set_stop_bias(old_bias)
+
+
 def stream_phase(torch, np, cfg, cond_wav, main_render, launches, card):
     """The low-latency B=1 path: TextToSpeech(bf16, int8 decode tree,
     HiFi-GAN) with XTTS_DECODE_BITS=4 set when its stack is built, so every
@@ -2000,6 +2464,11 @@ def main() -> None:
 
     # ---- 6. serving (config #5, K4 + CLVP + K2) ----
     serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
+
+    # ---- 6b. continuous serving (slot pool, K2) + its HTTP layer ----
+    with torch.no_grad():
+        slots_phase(torch, np, tts, cond_wav, cond_mel, text, launches, cfg,
+                    card)
 
     # ---- 7. stream (B=1: K1-int4, HiFi-GAN, ultra_fast) ----
     stream_phase(torch, np, cfg, cond_wav, main_render, launches, card)

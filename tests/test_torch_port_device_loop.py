@@ -258,7 +258,7 @@ def test_a_scratch_growth_drops_the_graphs(monkeypatch):
     monkeypatch.setattr(tds, "_gv_scratch", {})
     monkeypatch.setattr(tds, "_gv_launch", {})
     cpu = torch.device("cpu")
-    store = device_loop._Store()
+    store = device_loop.Store()
     store.check_scratch()
     before = tds.gemv_scratch_epoch()
     store.state("s", lambda: "state")
@@ -283,7 +283,7 @@ def test_the_store_keeps_the_recently_used(table, monkeypatch):
     warm mark) that reads it (a graph's key is (cache key, rows, state key,
     ...))."""
     monkeypatch.setattr(device_loop, "MAX_" + table.upper(), 3)
-    store = device_loop._Store()
+    store = device_loop.Store()
 
     def gkey(i):
         return ("c", i, f"s{i}", "samp")

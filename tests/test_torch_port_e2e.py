@@ -322,10 +322,11 @@ def _port_modules():
 def test_imports_without_jax():
     """With jax, flax and the JAX package blocked: every port module
     imports, and tts(text) runs end to end on the CPU, through the
-    diffusion and through the HiFi-GAN render."""
+    diffusion and through the HiFi-GAN render; the HTTP front end answers
+    a POST /tts through the slot pool."""
     mods = _port_modules()
     for m in ("infer.serving", "text.frontend", "models.hifigan",
-              "data.audio"):
+              "data.audio", "infer.slots", "infer.http"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc
@@ -352,6 +353,20 @@ assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
 out = tts.tts("你好。今天很好！", wav, settings=TTSSettings(max_mel_tokens=12),
               use_hifigan=True)
 assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
+import io, json, urllib.request, wave
+from xtts_tpu_torch.infer.http import SynthesisService, serve
+svc = SynthesisService(tts, wav, settings=TTSSettings(max_mel_tokens=8),
+                       max_batch=2, backend="slots")
+httpd = serve(svc, "127.0.0.1", 0)
+host, port = httpd.server_address[:2]
+req = urllib.request.Request(f"http://{{host}}:{{port}}/tts",
+                             data=json.dumps({{"text": "你好。"}}).encode())
+with urllib.request.urlopen(req, timeout=300) as r:
+    with wave.open(io.BytesIO(r.read())) as w:
+        assert r.status == 200 and w.getnframes() > 0
+assert svc.server.stats()["completed"] == 1
+httpd.shutdown()
+svc.close()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "xtts_tpu")]
 print("imported", len({mods!r}), "ran tts", out.shape[0], "leaked", bad)
 """

@@ -22,7 +22,10 @@ bit; int8_gemm_rows, with gelu too, where its sums are exact (integer
 operands). The attention kernels read the cache index from device memory
 and equal their int-index launches bit for bit. The AR loop's CUDA graphs
 (infer/device_loop.py) give the codes of the same loop run eagerly, for K1,
-K1-int4 and K4, greedy and sampled.
+K1-int4 and K4, greedy and sampled. The slot pool's (infer/slots.py) too,
+over both cache forms; its per-row draws in a graph equal eager ones, draw
+for draw, and one generator a row draws at one row what the single
+generator draws.
 """
 import contextlib
 import math
@@ -1155,3 +1158,129 @@ def test_a_scratch_growth_does_not_leave_a_graph_writing_freed_memory(cuda):
     assert torch.equal(got.lengths, want.lengths) and got.steps == want.steps
     assert torch.equal(junk, torch.full_like(junk, 7.0)), (
         junk.data_ptr() == p_old)
+
+
+def test_per_row_draws_in_a_graph_equal_eager_draws(cuda):
+    """sample_token_rows captured in a CUDA graph (eight draws, each row's
+    counter advancing) draws what the same calls draw eagerly, draw for
+    draw; a row's draws equal its draws alone."""
+    from xtts_tpu_torch.infer.sampling import row_keys, sample_token_rows
+    v, rows, n = 8194, 16, 8
+    logits = torch.randn(rows, v, generator=cuda, device="cuda")
+    seen = torch.rand(rows, v, generator=cuda, device="cuda") < 0.05
+    keys = torch.tensor([row_keys(1000 + r) for r in range(rows)],
+                        device="cuda")
+    start = torch.arange(rows, device="cuda") * 7
+    kw = dict(temperature=0.8, top_p=0.8, repetition_penalty=2.0)
+
+    def draws(out, counter, ks=keys, lg=logits, sn=seen):
+        counter.copy_(start[:lg.shape[0]])
+        for i in range(n):
+            out[:, i] = sample_token_rows(ks, counter, lg, seen=sn, **kw)
+            counter.add_(1)
+    eager = torch.zeros(rows, n, dtype=torch.long, device="cuda")
+    draws(eager, start.clone())
+    out = torch.zeros_like(eager)
+    counter = start.clone()
+    draws(out, counter)                                    # warm up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        draws(out, counter)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    solo = torch.zeros(1, n, dtype=torch.long, device="cuda")
+    c = torch.full((1,), int(start[3]), device="cuda")
+    for i in range(n):
+        solo[:, i] = sample_token_rows(keys[3:4], c, logits[3:4],
+                                       seen=seen[3:4], **kw)
+        c.add_(1)
+    assert torch.equal(solo[0], eager[3])
+
+
+def _slot_model(g):
+    """test_slots.py's 2 x 64 GPT (34 codes) with random weights on the
+    card and its int8 tree, in the attributes a SlotDecoder reads."""
+    from types import SimpleNamespace
+
+    from xtts_tpu_torch.core.config import GPTConfig, MelConfig, XTTSConfig
+    from xtts_tpu_torch.infer import qdecode as tq
+    from xtts_tpu_torch.models.gpt import UnifiedVoice
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    cfg = XTTSConfig(mel=MelConfig(n_mels=20), gpt=GPTConfig(
+        layers=2, model_dim=64, heads=4, max_mel_tokens=40,
+        max_text_tokens=30, number_text_tokens=16, start_text_token=15,
+        number_mel_codes=34, start_mel_token=32, stop_mel_token=33,
+        mel_bins=20, cond_attn_blocks=2))
+    tm = UnifiedVoice(cfg.gpt).to("cuda").eval()
+    init_flax_like(tm, g)
+    with torch.no_grad():           # spread logits: rows stop at odd steps
+        tm.mel_head.bias.normal_(0.0, 1.0, generator=g)
+        tm.mel_head.bias[cfg.gpt.stop_mel_token] += 1.0
+    return SimpleNamespace(gpt=tm, cfg=cfg, device=torch.device("cuda"),
+                           _qtree=tq.quantize_gpt_decode(
+                               tm, include_fused=False))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_slot_pool_graphs_give_the_eager_codes(cuda, greedy, kv_quant):
+    """3 slots, 7 requests refilled into recycled slots as they finish:
+    the pool's CUDA graphs (segments of 12 steps, graphs of 4) give the
+    codes and lengths of the same segments run eagerly, greedy and seeded
+    sampling, over the bf16 and the int8 cache."""
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer.api import TTSSettings
+    from xtts_tpu_torch.infer.slots import SlotDecoder
+    tts = _slot_model(cuda)
+    texts = [torch.randint(2, 15, (5,), generator=cuda,
+                           device="cuda").cpu().numpy() for _ in range(7)]
+    conds = [torch.randn(1, 20, 30, generator=cuda, device="cuda")
+             for _ in range(7)]
+
+    def drive():
+        dec = SlotDecoder(tts, n_slots=3, max_gen=24, segment_len=12,
+                          text_buckets=(5,), settings=TTSSettings(
+                              max_mel_tokens=24, kv_quant=kv_quant))
+        pending, slot_req, out = list(range(7)), {}, {}
+        for s in range(3):
+            i = pending.pop(0)
+            dec.install(s, dec.pad_text(texts[i]), conds[i], seed=50 + i)
+            slot_req[s] = i
+        while slot_req:
+            done, gen = dec.run_segment(greedy=greedy)
+            codes = dec.fetch_codes()
+            for s in [s for s in slot_req if done[s]]:
+                i = slot_req.pop(s)
+                out[i] = (codes[s].tolist(), int(gen[s]))
+                if pending:
+                    j = pending.pop(0)
+                    dec.install(s, dec.pad_text(texts[j]), conds[j],
+                                seed=50 + j)
+                    slot_req[s] = j
+        return out
+    with dl.eager():
+        want = drive()
+    dl.STATS.reset()
+    got = drive()
+    assert dl.STATS.captures > 0 and dl.STATS.replays > 0
+    assert got == want
+    assert len({n for _, n in want.values()}) >= 2
+
+
+def test_per_row_noise_at_one_row_is_the_single_generators(cuda):
+    """At one row, a generator a row draws x_T and each ancestral step's
+    noise as the single generator does from the same seed: a wave's
+    draws and a slot request's are the same derivation at B=1."""
+    from xtts_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    gd = GaussianDiffusion.spaced(1000, 10)
+
+    def model_fn(x, t):
+        return torch.cat([0.1 * x, torch.tanh(x)], dim=1)
+    shape = (1, 100, 64)
+    one = gd.p_sample_loop(model_fn, shape, torch.Generator(
+        device="cuda").manual_seed(9), device="cuda")
+    rows = gd.p_sample_loop(model_fn, shape, [torch.Generator(
+        device="cuda").manual_seed(9)], device="cuda")
+    assert torch.equal(one, rows)

@@ -4,7 +4,10 @@ Schedules and coefficient tables are host f64 numpy, built by the same
 code as the JAX module; per-step scalars are taken in f32 on the sample's
 device. The sampling loops (ancestral `p`, `ddim`, `dpm++2m`) are Python
 loops over the spaced steps; each takes an explicit x_T (`noise=`), and
-draws in-loop noise from a torch.Generator.
+draws in-loop noise from a torch.Generator, or from one generator a row
+(`randn_rows`): each row's noise chain then depends on its own generator
+alone, whatever else is in the batch (JAX's per-row keys,
+xtts_tpu/diffusion/gaussian.py:235-260).
 
 Shipped-path semantics: linear 1000-step schedule, SpacedDiffusion
 re-spacing with the timestep map, epsilon prediction + learned-range
@@ -14,7 +17,7 @@ k * (1 - t_spaced / T_spaced).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,13 +58,29 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], object]
 # only for the pair)
 
 
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+
+
+def randn_rows(shape, generator: Generators, device) -> torch.Tensor:
+    """Standard normal draws of `shape` from one generator, or, given a
+    sequence of generators (one a row of shape[0]), row i from the i-th
+    alone. At one row the two draw the same numbers from the same seed."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for "
+                             f"{shape[0]} rows")
+        return torch.stack([torch.randn(tuple(shape[1:]), generator=g,
+                                        device=device) for g in generator])
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def _x_T(shape, generator, noise, device) -> torch.Tensor:
     if noise is not None:
         return noise
     if device is None:
         raise ValueError("a sample loop takes its x_T (noise) or the device "
                          "to draw it on")
-    return torch.randn(shape, generator=generator, device=device)
+    return randn_rows(shape, generator, device)
 
 
 @dataclass(frozen=True)
@@ -173,7 +192,9 @@ class GaussianDiffusion:
                       noise: Optional[torch.Tensor] = None,
                       device=None) -> torch.Tensor:
         """Ancestral sampling over all spaced steps (the live path). x_T is
-        `noise`, or drawn on `device` (one of the two is required)."""
+        `noise`, or drawn on `device` (one of the two is required).
+        generator: one torch.Generator (batch-level noise, the reference's
+        semantics) or one a row (randn_rows)."""
         x = _x_T(shape, generator, noise, device)
         b = shape[0]
         for i in range(self.num_timesteps):
@@ -183,7 +204,7 @@ class GaussianDiffusion:
             pmv = self.p_mean_variance_from_output(out, x, t, out_uc)
             x = pmv["mean"]
             if i < self.num_timesteps - 1:
-                z = torch.randn(x.shape, generator=generator, device=x.device)
+                z = randn_rows(x.shape, generator, x.device)
                 x = x + torch.exp(0.5 * pmv["log_variance"]) * z
         return x
 
@@ -210,8 +231,7 @@ class GaussianDiffusion:
             x = (pmv["pred_xstart"] * torch.sqrt(ab_prev)
                  + torch.sqrt(1 - ab_prev - sigma ** 2) * eps)
             if eta > 0 and i < self.num_timesteps - 1:
-                x = x + sigma * torch.randn(x.shape, generator=generator,
-                                            device=x.device)
+                x = x + sigma * randn_rows(x.shape, generator, x.device)
         return x
 
     def dpmpp_2m_sample_loop(self, model_fn: ModelFn, shape, generator=None,

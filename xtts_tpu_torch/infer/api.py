@@ -17,12 +17,14 @@ slice-C0 parts of xtts_tpu/infer/api.py).
 Slice B added CLVP reranking (num_candidates), the DVAE shortcut render,
 batched sentences (infer/serving.py), the cache ladder and the int8-KV
 engines; slice C0 the HiFi-GAN render (with_hifigan / use_hifigan),
-sentence streaming (tts_stream) and the presets. Not ported: speculative
-render, refnet_interval > 1, compact_rows, multi-clip conditioning and the
-continuous-time solvers.
+sentence streaming (tts_stream) and the presets; then multi-clip
+conditioning, per-row diffusion noise (continuous serving, infer/slots.py)
+and from_pretrained. Not ported: speculative render, refnet_interval > 1,
+fix_autoregressive_output, compact_rows and the continuous-time solvers.
 
 Randomness comes from an explicit torch.Generator on the model's device;
-one generator feeds the AR sampling and then the diffusion noise.
+one generator feeds the AR sampling and then the diffusion noise. The
+render also takes one generator a row (slot serving's per-request noise).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from xtts_tpu_torch.core.config import XTTSConfig
-from xtts_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from xtts_tpu_torch.diffusion.gaussian import GaussianDiffusion, randn_rows
 from xtts_tpu_torch.dsp.mel import MelFrontend
 from xtts_tpu_torch.infer.qdecode import (generate_speech_quantized,
                                           quantize_gpt_decode)
@@ -61,6 +63,20 @@ def bucket_len(n: int, buckets=(32, 64, 128, 256, 402)) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def _jax_converters(c: XTTSConfig):
+    """Module name -> (JAX variable tree -> the port's state dict)."""
+    return {
+        "gpt": lambda t: convert.unified_voice_from_jax(
+            t, c.gpt.layers, c.gpt.cond_attn_blocks),
+        "dvae": lambda t: convert.dvae_from_jax(
+            t, c.vqvae.num_layers, c.vqvae.num_resnet_blocks),
+        "diffusion": lambda t: convert.aa_diffusion_from_jax(t, c.diffusion),
+        "vocos": lambda t: convert.vocos_from_jax(t, c.vocos.num_layers),
+        "clvp": lambda t: convert.clvp_from_jax(t, c.clvp),
+        "hifigan": lambda t: convert.hifigan_from_jax(t, c.hifigan),
+    }
 
 
 @dataclass
@@ -112,13 +128,15 @@ class TextToSpeech:
                  dtype=torch.float32, quantized_decode: bool = False,
                  with_clvp: bool = False, with_hifigan: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 init: bool = True):
+                 init: bool = True, tokenizer=None):
         """quantized_decode: int8 weight-only AR engines (K1 at B=1, K4 or
         the per-layer chain at B > 1; XTTS_DECODE_BITS=4, read by
         requantize(), gives K1 the int4 stack). with_clvp: attach the CLVP
         reranker that num_candidates > 1 needs. with_hifigan: attach the
         HifiDecoder that use_hifigan renders through. init=False leaves the
-        weights for from_jax / load_state_dict."""
+        weights for from_jax / load_state_dict. tokenizer: a
+        VoiceBpeTokenizer for tts() text framing (None: the shipped
+        default; from_pretrained takes a tokenizer.json)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TextToSpeech runs on the card by default and "
@@ -139,6 +157,7 @@ class TextToSpeech:
         self._spk_mel = None
         self.quantized_decode = quantized_decode
         self.last_oov: Dict[str, int] = {}
+        self.tokenizer = tokenizer
         self._qtree = None
         if init:
             self.init_random(generator)
@@ -178,18 +197,7 @@ class TextToSpeech:
         codebook collection), "clvp" and "hifigan" where given; a module
         without a tree keeps random weights."""
         tts = cls(cfg, init=False, **kw)
-        c = cfg
-        conv = {
-            "gpt": lambda t: convert.unified_voice_from_jax(
-                t, c.gpt.layers, c.gpt.cond_attn_blocks),
-            "dvae": lambda t: convert.dvae_from_jax(
-                t, c.vqvae.num_layers, c.vqvae.num_resnet_blocks),
-            "diffusion": lambda t: convert.aa_diffusion_from_jax(
-                t, c.diffusion),
-            "vocos": lambda t: convert.vocos_from_jax(t, c.vocos.num_layers),
-            "clvp": lambda t: convert.clvp_from_jax(t, c.clvp),
-            "hifigan": lambda t: convert.hifigan_from_jax(t, c.hifigan),
-        }
+        conv = _jax_converters(cfg)
         g = torch.Generator(tts.device).manual_seed(0)
         for name, m in tts.modules().items():
             if name in variables:
@@ -197,6 +205,55 @@ class TextToSpeech:
                     variables[name]), tts.device))
             else:
                 init_flax_like(m, g)
+        tts.requantize()
+        return tts
+
+    @classmethod
+    @torch.no_grad()
+    def from_pretrained(cls, model_dir: str,
+                        cfg: Optional[XTTSConfig] = None,
+                        **kw) -> "TextToSpeech":
+        """Per-model weights from a directory (xtts_tpu/infer/api.py:277):
+        an xtts_config.json there overrides `cfg`, a tokenizer.json becomes
+        the tokenizer, and each of gpt, vqvae (or dvae), diffusion, vocos
+        (and clvp / hifigan when enabled) loads from <name>.pth / .pt / .bin
+        (a state dict under the reference's names, the port's own layout,
+        or one wrapped as {"model": ...}) or <name>.npz (the JAX package's
+        flat "a/b/c" tree, utils/registry.save_npz, carried as from_jax
+        carries it). A model without a file keeps random weights, with a
+        warning. The int8 decode tree is rebuilt from what was loaded."""
+        cfg_path = os.path.join(model_dir, "xtts_config.json")
+        if cfg is None:
+            cfg = (XTTSConfig.from_json(cfg_path)
+                   if os.path.exists(cfg_path) else XTTSConfig())
+        tok_path = os.path.join(model_dir, "tokenizer.json")
+        if "tokenizer" not in kw and os.path.exists(tok_path):
+            from xtts_tpu_torch.text.tokenizer import VoiceBpeTokenizer
+            kw["tokenizer"] = VoiceBpeTokenizer(tok_path)
+        tts = cls(cfg, init=False, **kw)
+        g = torch.Generator(tts.device).manual_seed(0)
+        conv = _jax_converters(cfg)
+        for key, m in tts.modules().items():
+            stems = ("vqvae", "dvae") if key == "dvae" else (key,)
+            hits = [os.path.join(model_dir, stem + ext) for stem in stems
+                    for ext in (".npz", ".pth", ".pt", ".bin")
+                    if os.path.exists(os.path.join(model_dir, stem + ext))]
+            if not hits:
+                log.warning("from_pretrained: no weights for %r in %s "
+                            "(random init kept)", stems[0], model_dir)
+                init_flax_like(m, g)
+                continue
+            path = hits[0]
+            if path.endswith(".npz"):
+                with np.load(path) as npz:
+                    tree = convert.unflatten_npz(npz)
+                sd = convert.to_torch(conv[key](tree), tts.device)
+            else:
+                sd = torch.load(path, map_location=tts.device,
+                                weights_only=True)
+                if isinstance(sd.get("model"), dict):
+                    sd = sd["model"]
+            m.load_state_dict(sd)
         tts.requantize()
         return tts
 
@@ -327,7 +384,10 @@ class TextToSpeech:
         batched into one 2B BaseModel pass per step, and the ReferenceNet
         features for every spaced timestep computed up front in one batched
         call (b * steps <= 512). noise: optional x_T (B, mel, 4N); else
-        drawn from `generator` and scaled by `temperature`."""
+        drawn from `generator` and scaled by `temperature`. generator: one
+        torch.Generator, or one a row: each row's x_T and in-loop noise
+        then come from its own (gaussian.randn_rows; JAX's per-row keys,
+        api.py:633-641)."""
         gd = GaussianDiffusion.spaced(1000, steps,
                                       conditioning_free_k=cond_free_k)
         b, _, t_lat = latent.shape
@@ -360,8 +420,7 @@ class TextToSpeech:
             return out[:b].float(), out[b:].float()
 
         if noise is None:
-            noise = torch.randn(shape, generator=generator,
-                                device=latent.device) * temperature
+            noise = randn_rows(shape, generator, latent.device) * temperature
         mel = gd.sample_loop(model_fn, shape, generator, noise=noise,
                              sampler=sampler, device=latent.device)
         return denormalize_tacotron_mel(mel)[:, :, :out_len]
@@ -499,8 +558,8 @@ class TextToSpeech:
         stop = self.cfg.gpt.stop_text_token
         for sent in split_sentences(text):
             tokens = sentence_to_tokens(
-                sent, lang, start_token=self.cfg.gpt.start_text_token,
-                stop_token=stop)
+                sent, lang, tokenizer=self.tokenizer,
+                start_token=self.cfg.gpt.start_text_token, stop_token=stop)
             if len(tokens) > cap:
                 log.warning("sentence of %d tokens exceeds max_text_tokens="
                             "%d; truncating", len(tokens), cap)

@@ -217,7 +217,7 @@ class _Graph(NamedTuple):
     launches: list        # the launch counts one replay adds
 
 
-class _Store:
+class Store:
     """The static buffers and graphs of one set of weights, each an LRU.
     A graph's key is (cache key, rows, state key, sampling, chunk): it
     reads that cache and that state, and goes with either."""
@@ -269,15 +269,15 @@ class _Store:
             self.epoch = now
 
 
-_STORES: Dict[int, Tuple[Any, _Store]] = {}
+_STORES: Dict[int, Tuple[Any, Store]] = {}
 
 
-def _store(anchor) -> _Store:
+def _store(anchor) -> Store:
     """The anchor's store; dropped when the anchor is freed."""
     got = _STORES.get(id(anchor))
     if got is not None and got[0]() is anchor:
         return got[1]
-    store = _Store()
+    store = Store()
     _STORES[id(anchor)] = (weakref.ref(anchor), store)
     weakref.finalize(anchor, _STORES.pop, id(anchor), None)
     return store
@@ -294,6 +294,12 @@ def _default_generator(device) -> torch.Generator:
 _EAGER = 0
 
 
+def graphed(device) -> bool:
+    """Whether steps on `device` run as CUDA graphs: on a CUDA device,
+    outside `eager()`."""
+    return device.type == "cuda" and not _EAGER
+
+
 @contextlib.contextmanager
 def eager():
     """Inside it, `generate` runs its chunks eagerly on a CUDA device too:
@@ -306,7 +312,7 @@ def eager():
         _EAGER -= 1
 
 
-def _capture(run, chunk: int, do_sample: bool, store: _Store,
+def _capture(run, chunk: int, do_sample: bool, store: Store,
              device) -> _Graph:
     """CHUNK steps of `run` captured into one CUDA graph in the store's
     memory pool (its graphs never run at once, and each leaves nothing
@@ -346,6 +352,29 @@ def _replay(g: _Graph, generator) -> None:
     STATS.replays += 1
 
 
+def run_chunk(store: Optional[Store], key, run, k: int, chunk: int,
+              do_sample: bool, device,
+              generator: Optional[torch.Generator] = None) -> None:
+    """k steps of `run` (one step: run(generator)), the chunk policy of
+    every graphed loop: with a store (see `graphed`), a full chunk of a
+    warm key replays its graph, captured on first use; otherwise the steps
+    run eagerly, and a full eager chunk marks its key warm, so the next
+    one is captured (the first chunk warms up what a capture cannot
+    create). Graphs drop first when the gemv scratch has grown."""
+    if store is not None:
+        store.check_scratch()
+        if k == chunk and key in store.warm:
+            g = store.graph(key, functools.partial(
+                _capture, run, chunk, do_sample, store, device))
+            _replay(g, generator)
+            return
+    for _ in range(k):
+        run(generator)
+    STATS.eager_steps += k
+    if store is not None and k == chunk:
+        store.warm.add(key)
+
+
 @torch.no_grad()
 def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
              logits: torch.Tensor, *, p_len: int, pos_off: int,
@@ -358,7 +387,7 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
     replayed as CUDA graphs on a CUDA device unless inside `eager()`."""
     chunk = CHUNK
     dev = logits.device
-    graphs = dev.type == "cuda" and not _EAGER
+    graphs = graphed(dev)
     gen = generator if generator is not None else _default_generator(dev)
     b, vocab = logits.shape
     max_gen = caps[-1]
@@ -392,21 +421,14 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
                 mark = (gen.get_offset() if sampling.do_sample
                         and gen.device.type == "cuda" else None)
                 snaps = []
-                if graphs:
-                    store.check_scratch()
-                if graphs and k == chunk and gkey in store.warm:
-                    g = store.graph(gkey, functools.partial(
-                        _capture, run, chunk, sampling.do_sample, store,
-                        dev))
-                    _replay(g, gen)
-                else:
-                    for _ in range(k):
-                        if sampling.do_sample and mark is None:
-                            snaps.append(gen.get_state())
-                        run(gen)
-                    STATS.eager_steps += k
-                    if graphs and k == chunk:
-                        store.warm.add(gkey)
+
+                def one(g, run=run, snaps=snaps,   # a CPU generator's
+                        keep=sampling.do_sample and mark is None):  # states
+                    if keep:
+                        snaps.append(g.get_state())
+                    run(g)
+                run_chunk(store, gkey, one, k, chunk, sampling.do_sample,
+                          dev, gen)
                 now, all_done = torch.stack(
                     [st.step, st.done.all().long()]).tolist()
                 STATS.syncs += 1

@@ -136,7 +136,8 @@ def _layer_norm(x: torch.Tensor, ln: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _cached_attention(q, k_all, v_all, index) -> torch.Tensor:
     """q (B, H, hd), k_all/v_all (B, S, H, hd) -> (B, H, hd) over positions
-    <= index (an int or a one-element tensor)."""
+    <= index: an int, a one-element tensor, or one index a row shaped
+    (B, 1, 1)."""
     hd = k_all.shape[-1]
     logits = torch.einsum("bhd,bshd->bhs", q.to(torch.bfloat16),
                           k_all.to(torch.bfloat16)) / math.sqrt(hd)
@@ -146,28 +147,52 @@ def _cached_attention(q, k_all, v_all, index) -> torch.Tensor:
     return torch.einsum("bhs,bshd->bhd", w, v_all.to(torch.bfloat16))
 
 
-def _decode_step(qt: Dict[str, Any], heads: int, x: torch.Tensor,
-                 cache: KVCache, index):
-    """x (B, D) bf16 -> (ln_f-normed (B, D) f32, cache); cache in place at
-    `index` (an int or a one-element tensor)."""
+def _quant_attention(q, kc, vc, ks, vs, valid) -> torch.Tensor:
+    """q (B, H, hd) against an int8 cache kc/vc (B, S, H, hd) with f32
+    scales ks/vs (B, S, H): the values attended as quantized, the scales
+    folded into the scores and the probabilities; valid broadcasts against
+    (B, H, S)."""
+    hd = q.shape[-1]
+    logits = torch.einsum("bhd,bshd->bhs", q.to(torch.bfloat16),
+                          kc.to(torch.bfloat16))
+    logits = logits.float() * ks.transpose(1, 2) * (1.0 / math.sqrt(hd))
+    logits = logits.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    w = (w * vs.transpose(1, 2)).to(torch.bfloat16)
+    return torch.einsum("bhs,bshd->bhd", w, vc.to(torch.bfloat16))
+
+
+def _layers(qt: Dict[str, Any], heads: int, x: torch.Tensor,
+            attend) -> torch.Tensor:
+    """The per-layer chain (mirrors the flax Block.step numerics): x (B, D)
+    bf16 -> ln_f-normed (B, D) f32. attend(li, q, k, v) takes layer li's
+    q, k, v (B, H, hd) f32, writes k and v into its cache and returns the
+    attention (B, H, hd)."""
     b, d = x.shape
-    hd = d // heads
-    at = cache_index(index, x.device, cache.k.shape[2],
-                     "the decode step").reshape(1)
     for li, lp in enumerate(qt["layers"]):
         h = _layer_norm(x, lp["ln_1"]).to(torch.bfloat16)
-        q, k, v = qdot(h, lp["qkv"], lp["qkv_b"]).split(d, dim=-1)
-        cache.k[li].index_copy_(1, at, k.reshape(b, 1, heads, hd)
-                                .to(cache.k.dtype))
-        cache.v[li].index_copy_(1, at, v.reshape(b, 1, heads, hd)
-                                .to(cache.v.dtype))
-        a = _cached_attention(q.reshape(b, heads, hd), cache.k[li],
-                              cache.v[li], at).reshape(b, d)
+        q, k, v = (t.reshape(b, heads, d // heads) for t in
+                   qdot(h, lp["qkv"], lp["qkv_b"]).split(d, dim=-1))
+        a = attend(li, q, k, v).reshape(b, d)
         x = x + qdot(a, lp["proj"], lp["proj_b"]).to(x.dtype)
         h2 = _layer_norm(x, lp["ln_2"]).to(torch.bfloat16)
         m = gelu_new(qdot(h2, lp["fc"], lp["fc_b"])).to(torch.bfloat16)
         x = x + qdot(m, lp["out"], lp["out_b"]).to(x.dtype)
-    return _layer_norm(x, qt["ln_f"]), cache
+    return _layer_norm(x, qt["ln_f"])
+
+
+def _decode_step(qt: Dict[str, Any], heads: int, x: torch.Tensor,
+                 cache: KVCache, index):
+    """x (B, D) bf16 -> (ln_f-normed (B, D) f32, cache); cache in place at
+    `index` (an int or a one-element tensor)."""
+    at = cache_index(index, x.device, cache.k.shape[2],
+                     "the decode step").reshape(1)
+
+    def attend(li, q, k, v):
+        cache.k[li].index_copy_(1, at, k[:, None].to(cache.k.dtype))
+        cache.v[li].index_copy_(1, at, v[:, None].to(cache.v.dtype))
+        return _cached_attention(q, cache.k[li], cache.v[li], at)
+    return _layers(qt, heads, x, attend), cache
 
 
 class QuantKVCache(NamedTuple):
@@ -196,35 +221,53 @@ def _decode_step_qkv(qt: Dict[str, Any], heads: int, x: torch.Tensor,
     """_decode_step against an int8 KV cache: the new k/v quantized per
     (position, head) at write and attended as quantized; the scales fold
     into the scores and the probabilities. Cache updated in place."""
-    b, d = x.shape
-    hd = d // heads
-    scale = 1.0 / math.sqrt(hd)
     at = cache_index(index, x.device, cache.k.shape[2],
                      "the decode step").reshape(1)
     valid = torch.arange(cache.k.shape[2], device=x.device) <= at
-    for li, lp in enumerate(qt["layers"]):
-        h = _layer_norm(x, lp["ln_1"]).to(torch.bfloat16)
-        q, k, v = qdot(h, lp["qkv"], lp["qkv_b"]).split(d, dim=-1)
-        kq, ks = _quant_heads(k.reshape(b, 1, heads, hd))
-        vq, vs = _quant_heads(v.reshape(b, 1, heads, hd))
+
+    def attend(li, q, k, v):
+        kq, ks = _quant_heads(k[:, None])
+        vq, vs = _quant_heads(v[:, None])
         cache.k[li].index_copy_(1, at, kq)
         cache.k_scale[li].index_copy_(1, at, ks)
         cache.v[li].index_copy_(1, at, vq)
         cache.v_scale[li].index_copy_(1, at, vs)
-        logits = torch.einsum("bhd,bshd->bhs",
-                              q.reshape(b, heads, hd).to(torch.bfloat16),
-                              cache.k[li].to(torch.bfloat16))
-        logits = logits.float() * cache.k_scale[li].transpose(1, 2) * scale
-        logits = logits.masked_fill(~valid, NEG_INF)
-        w = torch.softmax(logits, dim=-1)
-        w = (w * cache.v_scale[li].transpose(1, 2)).to(torch.bfloat16)
-        a = torch.einsum("bhs,bshd->bhd", w,
-                         cache.v[li].to(torch.bfloat16)).reshape(b, d)
-        x = x + qdot(a, lp["proj"], lp["proj_b"]).to(x.dtype)
-        h2 = _layer_norm(x, lp["ln_2"]).to(torch.bfloat16)
-        m = gelu_new(qdot(h2, lp["fc"], lp["fc_b"])).to(torch.bfloat16)
-        x = x + qdot(m, lp["out"], lp["out_b"]).to(x.dtype)
-    return _layer_norm(x, qt["ln_f"]), cache
+        return _quant_attention(q, cache.k[li], cache.v[li],
+                                cache.k_scale[li], cache.v_scale[li], valid)
+    return _layers(qt, heads, x, attend), cache
+
+
+def _decode_step_rows(qt: Dict[str, Any], heads: int, x: torch.Tensor,
+                      cache: tuple, pos: torch.Tensor):
+    """_decode_step with one cache position a row (the slot pool's step,
+    xtts_tpu/infer/slots.py:81-133): x (B, D) bf16, pos (B,) int64 tensor;
+    row b's k/v land at cache[.., b, pos[b]] and it attends to positions
+    <= pos[b]. cache (k, v) bf16 (L, B, S, H, hd), or the kv_quant 4-tuple
+    (k, v, k_scale, v_scale) as _decode_step_qkv keeps it. In place; no
+    host read."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = (rows, pos)
+    if len(cache) == 4:
+        kc, vc, ks, vs = cache
+        valid = (torch.arange(kc.shape[2], device=x.device)[None, None, :]
+                 <= pos[:, None, None])
+
+        def attend(li, q, k, v):
+            kq, ksc = _quant_heads(k)
+            vq, vsc = _quant_heads(v)
+            kc[li].index_put_(at, kq)
+            ks[li].index_put_(at, ksc)
+            vc[li].index_put_(at, vq)
+            vs[li].index_put_(at, vsc)
+            return _quant_attention(q, kc[li], vc[li], ks[li], vs[li], valid)
+    else:
+        kc, vc = cache
+
+        def attend(li, q, k, v):
+            kc[li].index_put_(at, k.to(kc.dtype))
+            vc[li].index_put_(at, v.to(vc.dtype))
+            return _cached_attention(q, kc[li], vc[li], pos[:, None, None])
+    return _layers(qt, heads, x, attend), cache
 
 
 def _embed(qt: Dict[str, Any], token: torch.Tensor, mel_pos) -> torch.Tensor:
@@ -235,6 +278,12 @@ def _embed(qt: Dict[str, Any], token: torch.Tensor, mel_pos) -> torch.Tensor:
         mel_pos, token.device, table.shape[0], "the mel position").reshape(1))
 
 
+def _head(qt: Dict[str, Any], normed: torch.Tensor) -> torch.Tensor:
+    """ln_f-normed (B, D) -> final norm -> int8 mel head: logits (B, V)."""
+    final = _layer_norm(normed.to(torch.bfloat16), qt["final_norm"])
+    return qdot(final.to(torch.bfloat16), qt["mel_head"], qt["mel_head_b"])
+
+
 def _decode_logits(qt: Dict[str, Any], heads: int, token: torch.Tensor,
                    mel_pos, cache: KVCache, index):
     """token (B,) -> (logits (B, V) f32, cache)."""
@@ -242,9 +291,18 @@ def _decode_logits(qt: Dict[str, Any], heads: int, token: torch.Tensor,
     step = (_decode_step_qkv if isinstance(cache, QuantKVCache)
             else _decode_step)
     normed, cache = step(qt, heads, emb.to(torch.bfloat16), cache, index)
-    final = _layer_norm(normed.to(torch.bfloat16), qt["final_norm"])
-    return qdot(final.to(torch.bfloat16), qt["mel_head"],
-                qt["mel_head_b"]), cache
+    return _head(qt, normed), cache
+
+
+def _decode_logits_rows(qt: Dict[str, Any], heads: int, token: torch.Tensor,
+                        mel_pos: torch.Tensor, cache: tuple,
+                        pos: torch.Tensor):
+    """token (B,) at per-row mel positions (B,) and cache positions (B,)
+    -> (logits (B, V) f32, cache) (xtts_tpu/infer/slots.py:136-145)."""
+    emb = qt["mel_embedding"][token] + qt["mel_pos_embedding"][mel_pos]
+    normed, cache = _decode_step_rows(qt, heads, emb.to(torch.bfloat16),
+                                      cache, pos)
+    return _head(qt, normed), cache
 
 
 # ---------------------------------------------------------------------------
@@ -377,19 +435,20 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
                               repetition_penalty: float = 2.0,
                               quantize_kv_cache: bool = False,
                               use_fused_serving: bool = False,
-                              cache_ladder: Optional[tuple] = None
-                              ) -> GenerateResult:
+                              cache_ladder: Optional[tuple] = None,
+                              use_fused: bool = True) -> GenerateResult:
     """generate_speech with the int8 per-token engines: the prefix prefill
     runs the flax-equivalent model; every token then runs the engine the
-    flags select (module docstring): K1 at B=1, K4 with use_fused_serving
-    at B in {8, 16}, else the per-layer chain over a bf16 or
-    (quantize_kv_cache) int8 cache, each in the device loop."""
+    flags select (module docstring): K1 at B=1 (use_fused=False: the chain,
+    as the JAX package's default), K4 with use_fused_serving at B in
+    {8, 16}, else the per-layer chain over a bf16 or (quantize_kv_cache)
+    int8 cache, each in the device loop."""
     cfg = model.cfg
     vocab, d = cfg.number_mel_codes, cfg.model_dim
     layers, heads = cfg.layers, cfg.heads
     prefix, n_cond = model.encode_prefix(cond_mel, text_tokens)
     b, p_len, _ = prefix.shape
-    fused = b == 1 and not quantize_kv_cache
+    fused = use_fused and b == 1 and not quantize_kv_cache
     fserv = use_fused_serving and not fused and b in (8, 16)
     if (fused or fserv) and "fused" not in qtree:
         attach_fused_stack(qtree, cfg)

@@ -36,8 +36,10 @@ from xtts_tpu_torch.models.hifigan import hifigan_samples
 @dataclass
 class SynthesisRequest:
     text_tokens: np.ndarray          # (T,) int, framed [start..stop]
-    # kept for the JAX package's `key` field; a batch draws from the
-    # generator given to synthesize_batch, as the JAX package's does
+    # kept for the JAX package's `key` field, and never read, as there
+    # (xtts_tpu/infer/serving.py:43): a wave draws from the generator given
+    # to synthesize_batch. Per-request seeds are the slot pool's
+    # (infer/slots.py ContinuousBatcher.submit(seed=...)).
     generator: Optional[torch.Generator] = None
     # per-request voice: (1, mel, T) conditioning mel; all requests of a
     # batch share T (TextToSpeech.cond_mel_bucketed). None -> the
@@ -165,7 +167,10 @@ def render_rows(tts: TextToSpeech, texts, text_lens, cond, codes,
     (B, mel, T) conditioning mels; codes (B, S) generated codes; lengths
     (B,) generated lengths including the stop token. Strips the trailing 2
     codes (test.py:150) and pads to a code bucket. use_hifigan renders
-    through the HifiDecoder with spk_mel16 ((1 or B, T16, 64))."""
+    through the HifiDecoder with spk_mel16 ((1 or B, T16, 64)). generator:
+    one torch.Generator for the diffusion noise, or one a row (the slot
+    pool's per-request render seeds, as JAX's per-row keys,
+    xtts_tpu/infer/serving.py:232-236)."""
     cfg = tts.cfg
     ns = np.maximum(lengths - 2, 1)
     n_b = bucket_len(int(ns.max()), tts._code_buckets())

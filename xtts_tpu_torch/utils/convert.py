@@ -60,6 +60,20 @@ def _norm(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
     sd[prefix + ".bias"] = _a(p["bias"])
 
 
+def unflatten_npz(npz) -> Dict[str, Any]:
+    """A flat "a/b/c"-keyed npz (the JAX package's utils/registry.save_npz)
+    -> the nested variable tree. A params-only file gets its "params"
+    level back."""
+    out: Dict[str, Any] = {}
+    for key in npz.files:
+        cur = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = np.asarray(npz[key])
+    return out if "params" in out else {"params": out}
+
+
 def to_torch(sd: SD, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.array(v, copy=True), device=device)
             for k, v in sd.items()}
