@@ -36,8 +36,8 @@ Phases, each reported on its own lines:
      and its device time a step); the products of K1 and K1-int4 also with
      their weights rotating through >= 32 copies (>= 100 MB, more than
      the 50 MB L2), beside matmul on as many dequantised bf16 copies; K2
-     (flash_mha at (2, 1280 | 1562, 8, 64) and
-     (2, 300 | 583, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
+     (flash_mha at (2, 1280 | 1562, 8, 64), (2, 300 | 583, 8, 64) and the
+     604-code cap bucket's (2, 2416 | 2698, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
      logits against its 8192-code codebook, a ragged shape and a planted
      tie, also on 4 rotating copies of rows and codebook); K4
      (int8_gemm_rows (split over K across a cluster),
@@ -54,7 +54,9 @@ Phases, each reported on its own lines:
      Then the paths on a small configuration, card against CPU with the
      same weights: identical greedy int8 codes through K1 and through K4,
      identical DVAE codes, renders within 1e-3; identical greedy codes
-     through K1-int4 and their HiFi-GAN render within 1e-3.
+     through K1-int4 and their HiFi-GAN render within 1e-3; a speculative
+     greedy request (DDIM from x_T = 0), refnet_interval 2, unipc and
+     dpm++3m renders within 1e-3, and identical evaluate_dvae codes.
      The 64-step teacher-forced chains (K1, K1-int4, K4) may differ from
      the plain chain in at most PICKS_BOUND greedy picks: the largest
      count that rounding alone turns over the seeds of the noise floor
@@ -94,6 +96,23 @@ Phases, each reported on its own lines:
      identical, waveform within 1e-3 of its peak. The HTTP layer
      (backend="slots") on loopback: /healthz and /metrics. BatchServer
      (the chain, waves of 16) on the same requests as the comparator.
+  6c. rest (the rest of the serving side, on [main]'s model): a
+     speculative request (max_mel_tokens 300, seed 1) equal to the default
+     one bit for bit (cap bucket 320 = length bucket); with the stop bias
+     raised (SLOTS_STOP_BIAS sampled), a request under the default 600
+     cap, speculative (K2 200 at the 604 bucket) and default (K2 as the
+     size gate decides for its own bucket), both render times; at B=1
+     refnet_interval 1 equal to the default bit for bit (the render run
+     stage by stage), k 2 and 5 timed with their difference from k 1;
+     serving.render_rows on 16 rows at k 1 (not hoisted) and k 2
+     (hoisted), timed; the ten sampler names from one x_T at 15 steps,
+     model calls counted and K2 = 4 x calls; the Vocos variants
+     (imdct_symexp, imdct_cos, the ResBlock and AdaLayerNorm backbones
+     under the iSTFT head) at the flagship widths on the k 1 render's mel,
+     card vs CPU within 1e-3 of the peak, audio-s/s; evaluate_dvae over 8
+     clips of 6 s written under build/ (K3 once a clip, codes equal to
+     get_codebook_indices on the same mels), the early-stop renders'
+     mel_l1 and mcd; the phase's seconds.
   7. stream (the low-latency B=1 path): TextToSpeech(bf16, HiFi-GAN) with
      XTTS_DECODE_BITS=4 at requantize(); three 50-token sentences (numpy
      seeds 10, 11, 12) through stream_tokens (tts_stream's loop on token
@@ -110,8 +129,9 @@ Phases, each reported on its own lines:
      device time a call (trace in build/xtts_tpu_torch/request_trace.json).
   9. a JSON line of the kernels, the total wall time, then the result line.
 
-Before each path of phases 4-7 every launch count is set to 0, and read
-after it; a path that did not launch each of its kernels fails, and so
+Before each path of phases 4-7 (each item of 6c) every launch count is
+set to 0, and read after it; a path that did not launch each of its
+kernels fails, and so
 does a K1 or K4 step that is not 76 launches or that launches
 layer_norm_rows (its norms run as the products' prologue). A graph replay
 runs no wrapper: the device loop takes back the launches counted while it
@@ -746,7 +766,9 @@ def k2_checks(torch, fa, results, card):
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(99)
     e_max, main_times = 0.0, None
-    for b, tq, tk in ((2, 1280, 1562), (2, 300, 583)):
+    # the main path's bucket 320, a small bucket, and the 604-code cap
+    # bucket (the speculative render at TTSSettings' default cap)
+    for b, tq, tk in ((2, 1280, 1562), (2, 300, 583), (2, 2416, 2698)):
         q, k, v = (torch.randn(b, t, 8, 64, generator=g,
                                device="cuda").bfloat16()
                    for t in (tq, tk, tk))
@@ -905,6 +927,89 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         f"card); DVAE codes {tuple(k_dv.shape)} identical (K3); shortcut "
         f"render wav {tuple(k_sw.shape)} max_abs_err {e_sw:.3e} (bound "
         f"{SMALL_WAV_TOL})")
+
+    # the rest of the serving side: a speculative request (greedy codes,
+    # DDIM from x_T = 0, i.e. diffusion_temperature 0, so both devices
+    # render the same thing; the stop logit's bias raised by 1, so the
+    # request stops after 22 codes, in the 64-code bucket, under a cap of
+    # 100 whose bucket is 128: 100 greedy codes part at a near-tie after
+    # 40 between the card and the CPU), refnet_interval 2, unipc and
+    # dpm++3m renders
+    # of the shared codes from the shared x_T, and evaluate_dvae over clips
+    # whose cached mels (.mel.npy, made on the CPU) both devices read
+    from xtts_tpu_torch.data.audio import save_wav
+    from xtts_tpu_torch.infer.api import bucket_len
+    from xtts_tpu_torch.infer.eval_tools import dvae_roundtrip, evaluate_dvae
+    clip_dir = ROOT / "build" / "ref_clips"
+    clip_dir.mkdir(parents=True, exist_ok=True)
+    for old in clip_dir.iterdir():
+        old.unlink()
+    clips = []
+    for i in range(3):
+        c = (0.3 * np.sin(2 * np.pi * (180 + 50 * i) * t)
+             + 0.05 * rng.standard_normal(t.shape[0])).astype(np.float32)
+        clips.append(str(clip_dir / f"clip{i}.wav"))
+        save_wav(clips[-1], c)
+        np.save(clips[-1] + ".mel.npy", cpu.mel(c)[0].numpy())
+    greedy = dict(top_p=1e-4, repetition_penalty=1.0, sampler="ddim",
+                  diffusion_steps=4, diffusion_temperature=0.0)
+    variants = (dict(sampler="ddim", diffusion_steps=4, refnet_interval=2),
+                dict(sampler="unipc", diffusion_steps=4),
+                dict(sampler="dpm++3m", diffusion_steps=4))
+    rest = {}
+    for name, tts in (("cpu", cpu), ("card", card)):
+        dev = tts.device
+        cond = tts.cond_mel_from_wav(wav)
+        stop = small.gpt.stop_mel_token
+        bias = float(tts.gpt.mel_head.bias[stop])
+        with torch.no_grad():
+            tts.gpt.mel_head.bias[stop] = bias + 1.0
+        tts.requantize()
+        sp = tts.tts_tokens(text[0].numpy(), cond, tts._generator(0),
+                            TTSSettings(max_mel_tokens=100,
+                                        speculative_render=True, **greedy))
+        with torch.no_grad():
+            tts.gpt.mel_head.bias[stop] = bias
+        tts.requantize()
+        renders = [tts._render(cond, text.to(dev), codes.to(dev),
+                               torch.tensor([n], device=dev), None,
+                               TTSSettings(**kw), noise=xt.to(dev)).cpu()
+                   for kw in variants]
+        before = vq.vq_nearest.launches
+        summary = evaluate_dvae(tts.dvae, clips)
+        ev_codes = [dvae_roundtrip(tts.dvae, np.load(c + ".mel.npy"))["codes"]
+                    for c in clips]
+        rest[name] = (sp, renders, summary, ev_codes,
+                      vq.vq_nearest.launches - before)
+    c_sp, c_r, c_sum, c_ev, c_k3 = rest["cpu"]
+    k_sp, k_r, k_sum, k_ev, k_k3 = rest["card"]
+    check(c_k3 == 0 and k_k3 == 6, f"K3 launches: cpu {c_k3}, card {k_k3}")
+    check(np.array_equal(c_sp["codes"], k_sp["codes"]),
+          f"speculative request: greedy codes differ: card "
+          f"{k_sp['codes'].tolist()} vs cpu {c_sp['codes'].tolist()}")
+    errs = [float(np.abs(k_sp["wav"] - c_sp["wav"]).max())]
+    errs += [max_err(k, c) for k, c in zip(k_r, c_r)]
+    check(all(np.isfinite(k_sp["wav"]).all() and e <= SMALL_WAV_TOL
+              for e in errs) and all(bool(torch.isfinite(k).all())
+                                     for k in k_r),
+          f"speculative / refnet 2 / unipc / dpm++3m render errs {errs}")
+    check(all(np.array_equal(a, b) for a, b in zip(c_ev, k_ev))
+          and c_sum["codebook_usage"] == k_sum["codebook_usage"]
+          and c_sum["n"] == k_sum["n"] == 3
+          and abs(c_sum["mel_l1_mean"] - k_sum["mel_l1_mean"]) <= 1e-3,
+          f"evaluate_dvae: card {k_sum} vs cpu {c_sum}")
+    n_sp = max(int(k_sp["lengths"][0]) - 2, 1)
+    check(bucket_len(n_sp, card._code_buckets()) < bucket_len(
+        98, card._code_buckets()), f"speculative request: {n_sp} codes")
+    log(f"[ref] small config, the rest: speculative request (cap 100, "
+        f"bucket 128, {n_sp} codes kept, greedy codes identical) wav "
+        f"max_abs_err "
+        f"{errs[0]:.3e}; refnet_interval 2, unipc, dpm++3m renders "
+        f"max_abs_err {errs[1]:.3e}, {errs[2]:.3e}, {errs[3]:.3e} (bound "
+        f"{SMALL_WAV_TOL}); evaluate_dvae over 3 cached mels: codes "
+        f"identical, usage {k_sum['codebook_usage']}, mel_l1_mean card "
+        f"{k_sum['mel_l1_mean']:.6f} cpu {c_sum['mel_l1_mean']:.6f} ({k_k3} "
+        f"K3 launches on the card)")
 
     # slice C0: K1's int4 stack (XTTS_DECODE_BITS=4 read at requantize())
     # and the HiFi-GAN render of the greedy codes. (The int4 head rounds
@@ -2221,6 +2326,294 @@ def busy_us(intervals, lo: float, hi: float) -> float:
     return total + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
+class _BackboneHead:
+    """A Vocos backbone variant under a head: mel -> wav (the ResBlock and
+    AdaLayerNorm backbones, which the Vocos facade does not take)."""
+
+    def __init__(self, torch, backbone, head, cond_id=None):
+        self.mods = torch.nn.ModuleDict({"backbone": backbone, "head": head})
+        self.cond_id = cond_id
+
+    def __call__(self, mel):
+        return self.mods["head"](self.mods["backbone"](mel, self.cond_id))
+
+
+REST_SAMPLERS = ("p", "ddim", "dpm++2m", "unipc", "dpm++2m_solver",
+                 "dpm++3m", "dpm++fast", "unipc_bh1", "unipc_bh2",
+                 "unipc_vary")
+
+
+def rest_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
+    """The rest of the serving side on [main]'s model and inputs: the
+    speculative render, refnet_interval (B=1 and render_rows at 16 rows),
+    the ten samplers, the Vocos variants and evaluate_dvae. Launch counts
+    are set to 0 before each item and read after it. Returns the phase's
+    seconds."""
+    from xtts_tpu_torch.diffusion.gaussian import model_calls
+    from xtts_tpu_torch.infer import serving
+    from xtts_tpu_torch.infer.api import TTSSettings, bucket_len, hoist_plan
+    from xtts_tpu_torch.infer.eval_tools import (dvae_roundtrip,
+                                                 evaluate_dvae, mcd, mel_l1)
+    from xtts_tpu_torch.data.audio import save_wav
+    from xtts_tpu_torch.data.datasets import MelCache
+    from xtts_tpu_torch.models import vocos as V
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+
+    t_phase = time.perf_counter()
+    stop = cfg.gpt.stop_mel_token
+    refer = cond_mel.shape[-1]
+    buckets = tts._code_buckets()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def k2_gate(n_b, calls):
+        """K2 launches of `calls` denoiser calls at code bucket n_b: 4
+        consumer attentions a call where the size gate admits Tq * Tk."""
+        return 4 * calls if fa.use_flash(4 * n_b, 4 * n_b + refer) else 0
+
+    def request(settings, seed):
+        launches.reset()
+        torch.cuda.synchronize()
+        out = tts.tts_tokens(text, cond_mel, gen(seed), settings)
+        out["k2"] = launches.read()["flash_mha"]
+        return out
+
+    # ---- 1. speculative render ----
+    a = request(TTSSettings(max_mel_tokens=300), 1)
+    b = request(TTSSettings(max_mel_tokens=300, speculative_render=True), 1)
+    n = max(int(a["lengths"][0]) - 2, 1)
+    n_b, cap_b = bucket_len(n, buckets), bucket_len(298, buckets)
+    same_codes = (np.array_equal(a["codes"], b["codes"])
+                  and np.array_equal(a["lengths"], b["lengths"]))
+    check(same_codes and a["wav"].shape == b["wav"].shape
+          and np.array_equal(a["wav"], b["wav"]),
+          f"speculative render != default at equal buckets: codes equal "
+          f"{same_codes}, wav {b['wav'].shape} / {a['wav'].shape}, max diff "
+          f"{np.abs(a['wav'] - b['wav']).max() if same_codes else 'n/a'}")
+    check(n_b == cap_b == 320 and a["k2"] == b["k2"] == k2_gate(320, 50),
+          f"buckets {n_b} / {cap_b}, K2 {a['k2']} / {b['k2']}")
+    log(f"[rest] speculative render, max_mel_tokens 300, seed 1: codes and "
+        f"wav {b['wav'].shape} equal to the default request's bit for bit "
+        f"(length bucket {n_b} = cap bucket {cap_b}); render "
+        f"{b['render_seconds']:.3f} s speculative, {a['render_seconds']:.3f} "
+        f"s default; K2 {b['k2']} / {a['k2']}  [{card}]")
+
+    old_bias = float(tts.gpt.mel_head.bias[stop])
+    with torch.no_grad():
+        tts.gpt.mel_head.bias[stop] = SLOTS_STOP_BIAS["sampled"]
+    tts.requantize()
+    try:
+        s_out = request(TTSSettings(speculative_render=True), 2)
+        d_out = request(TTSSettings(), 2)
+    finally:
+        with torch.no_grad():
+            tts.gpt.mel_head.bias[stop] = old_bias
+        tts.requantize()
+    n = max(int(d_out["lengths"][0]) - 2, 1)
+    own_b, cap_b = bucket_len(n, buckets), bucket_len(598, buckets)
+    check(np.array_equal(s_out["codes"], d_out["codes"])
+          and s_out["wav"].shape == d_out["wav"].shape == (1, n * 1024)
+          and bool(np.isfinite(s_out["wav"]).all()),
+          f"early-stop requests: codes or wav differ in shape "
+          f"{s_out['wav'].shape} / {d_out['wav'].shape}")
+    check(own_b < cap_b == 604, f"length bucket {own_b}, cap bucket {cap_b}")
+    check(s_out["k2"] == k2_gate(cap_b, 50) == 200
+          and d_out["k2"] == k2_gate(own_b, 50),
+          f"K2 {s_out['k2']} at the cap bucket, {d_out['k2']} at {own_b}")
+    log(f"[rest] early stop (stop bias {SLOTS_STOP_BIAS['sampled']}, seed "
+        f"2, cap 600): {n} codes kept, length bucket {own_b}, cap bucket "
+        f"{cap_b}; render {s_out['render_seconds']:.3f} s speculative "
+        f"(Tq {4 * cap_b}, K2 {s_out['k2']}) against "
+        f"{d_out['render_seconds']:.3f} s default (Tq {4 * own_b}, K2 "
+        f"{d_out['k2']}, gate {'on' if k2_gate(own_b, 1) else 'off'}); AR "
+        f"{d_out['ar_seconds']:.3f} s  [{card}]")
+
+    # ---- 2. refnet_interval ----
+    dev = torch.device("cuda")
+    textt = torch.as_tensor(text, dtype=torch.long, device=dev)
+    res_len = torch.as_tensor(a["lengths"], device=dev)
+    lens = torch.clamp(res_len - 2, 1, 320)
+    padded = tts._pad_codes(torch.as_tensor(a["codes"], device=dev), lens,
+                            320)
+
+    def timed(fn):
+        launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launches.read()
+
+    w_def, t_def, _ = timed(lambda: tts._render(
+        cond_mel, textt, padded, lens, gen(5), TTSSettings()))
+
+    @torch.no_grad()
+    def k1_staged():
+        _, mel = tts._latent_and_mel(cond_mel, textt, padded, lens, gen(5),
+                                     TTSSettings(refnet_interval=1))
+        return tts.vocos(mel).float(), mel
+
+    (w_k1, mel), t_k1, d = timed(k1_staged)
+    check(torch.equal(w_def, w_k1), f"refnet_interval 1 != default: max "
+          f"diff {max_err(w_def, w_k1)}")
+    check(d["flash_mha"] == 200, f"K2 {d['flash_mha']}")
+    peak = w_k1.abs().max().item()
+    line = []
+    for k in (2, 5):
+        w, t_k, d = timed(lambda k=k: tts._render(
+            cond_mel, textt, padded, lens, gen(5),
+            TTSSettings(refnet_interval=k)))
+        check(tuple(w.shape) == tuple(w_k1.shape)
+              and bool(torch.isfinite(w).all()) and d["flash_mha"] == 200,
+              f"refnet_interval {k}: wav {tuple(w.shape)}, K2 "
+              f"{d['flash_mha']}")
+        line.append(f"k {k} {t_k:.3f} s, max diff / peak "
+                    f"{max_err(w, w_k1) / peak:.3e}")
+    log(f"[rest] refnet_interval at B=1 (p x 50, bucket 320): k 1 equal to "
+        f"the default bit for bit ({t_def:.3f} s / {t_k1:.3f} s staged); "
+        f"{'; '.join(line)}  [{card}]")
+
+    rng = np.random.default_rng(3)
+    rows = 16
+    texts16 = torch.as_tensor(rng.integers(3, 250, (rows, 50)), device=dev)
+    codes16 = torch.as_tensor(rng.integers(0, cfg.vqvae.num_tokens, (rows, 300)),
+                              device=dev)
+    lengths16 = np.array([300 - 9 * i for i in range(rows)])
+    cond16 = cond_mel.repeat(rows, 1, 1)
+    line = []
+    for k in (1, 2):
+        hoist = hoist_plan("p", rows, 50, k)[0]
+        wavs, t_k, d = timed(lambda k=k: serving.render_rows(
+            tts, texts16, torch.full((rows,), 50, device=dev), cond16,
+            codes16, lengths16, TTSSettings(refnet_interval=k), True,
+            gen(6)))
+        check(len(wavs) == rows and all(
+            w.shape == ((l - 2) * 1024,) and np.isfinite(w).all()
+            for w, l in zip(wavs, lengths16)) and d["flash_mha"] == 200
+              and hoist == (k == 2),
+              f"render_rows k {k}: K2 {d['flash_mha']}, hoist {hoist}")
+        line.append(f"k {k} ({'hoisted' if hoist else 'not hoisted'}, "
+                    f"{rows} x {-(-50 // k)} cached) {t_k:.3f} s")
+    log(f"[rest] render_rows, {rows} rows x bucket 320, p x 50: "
+        f"{'; '.join(line)}; K2 200 each  [{card}]")
+
+    # ---- 3. the ten samplers, 15 steps, one x_T ----
+    xt = torch.randn((1, cfg.diffusion.in_channels, 4 * 320), generator=gen(7),
+                     device=dev)
+    denoise = tts.diffusion.denoise
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return denoise(*args, **kw)
+
+    tts.diffusion.denoise = counted
+    line = []
+    try:
+        for name in REST_SAMPLERS:
+            calls[0] = 0
+            w, t_s, d = timed(lambda name=name: tts._render(
+                cond_mel, textt, padded, lens, gen(8),
+                TTSSettings(sampler=name, diffusion_steps=15), noise=xt))
+            want = model_calls(name, 15)
+            check(tuple(w.shape) == (1, 320 * 1024)
+                  and bool(torch.isfinite(w).all()),
+                  f"sampler {name}: wav {tuple(w.shape)} not finite")
+            check(calls[0] == want and d["flash_mha"] == 4 * calls[0],
+                  f"sampler {name}: {calls[0]} model calls (want {want}), "
+                  f"K2 {d['flash_mha']}")
+            line.append(f"{name} {t_s:.3f} s ({calls[0]} calls)")
+    finally:
+        del tts.diffusion.denoise
+    log(f"[rest] samplers x 15 steps from one x_T, bucket 320, K2 = 4 x "
+        f"model calls each: {'; '.join(line)}  [{card}]")
+
+    # ---- 4. the Vocos variants at the flagship widths, on [main]'s mel ----
+    vc = cfg.vocos
+    builds = {
+        "imdct_symexp": lambda: V.Vocos(vc.replace(head="imdct_symexp",
+                                                   head_sample_rate=SR)),
+        "imdct_cos": lambda: V.Vocos(vc.replace(head="imdct_cos")),
+        "resnet+istft": lambda: _BackboneHead(
+            torch, V.VocosResNetBackbone(vc), V.ISTFTHead(vc)),
+        "adanorm+istft": lambda: _BackboneHead(
+            torch, V.VocosBackbone(vc, adanorm_num_embeddings=4),
+            V.ISTFTHead(vc), cond_id=1),
+    }
+    mel_cpu = mel.float().cpu()
+    line = []
+    for name, build in builds.items():
+        m = build()
+        mods = m.mods if isinstance(m, _BackboneHead) else m
+        mods.to(dev).eval()
+        g = torch.Generator(device="cuda").manual_seed(9)
+        init_flax_like(mods, g)
+        with torch.no_grad():
+            for p in mods.parameters():   # move the AdaLN ids' embeddings
+                p.add_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+        mc = build()
+        mcm = mc.mods if isinstance(mc, _BackboneHead) else mc
+        mcm.load_state_dict({k: v.cpu() for k, v in mods.state_dict().items()})
+        mcm.eval()
+        with torch.no_grad():
+            w = m(mel.float()).float()
+            wc = mc(mel_cpu).float()
+            err = max_err(w.cpu(), wc) / wc.abs().max().item()
+            ms = time_ms(torch, lambda: m(mel.float()), reps=5, warmup=1)
+        check(bool(torch.isfinite(w).all()) and err <= SMALL_WAV_TOL,
+              f"Vocos {name}: card vs CPU {err}")
+        audio = w.shape[-1] / SR
+        line.append(f"{name} wav {tuple(w.shape)} err/peak {err:.2e}, "
+                    f"{ms:.2f} ms = {audio / (ms * 1e-3):.0f} audio-s/s")
+        del m, mc
+    log(f"[rest] Vocos variants (8 x 512 x 1536 / ResBlock 3 x 512, f32) on "
+        f"[main]'s mel {tuple(mel.shape)}, card vs CPU within "
+        f"{SMALL_WAV_TOL} of the peak: {'; '.join(line)}  [{card}]")
+
+    # ---- 5. evaluate_dvae over 8 clips of 6 s ----
+    clip_dir = ROOT / "build" / "rest_clips"
+    clip_dir.mkdir(parents=True, exist_ok=True)
+    for old in clip_dir.iterdir():
+        old.unlink()
+    paths = []
+    t6 = np.arange(6 * SR) / SR
+    for i in range(8):
+        w = (0.3 * np.sin(2 * np.pi * (150 + 20 * i) * t6)
+             + 0.05 * rng.standard_normal(t6.shape[0])).astype(np.float32)
+        paths.append(str(clip_dir / f"clip{i}.wav"))
+        save_wav(paths[-1], w)
+    summary, t_ev, d = timed(lambda: evaluate_dvae(
+        tts.dvae, paths, out_jsonl=str(clip_dir / "eval.jsonl"),
+        mel_fn=tts.mel))
+    check(d["vq_nearest"] == 8 and summary["n"] == 8,
+          f"evaluate_dvae: K3 {d['vq_nearest']}, n {summary['n']}")
+    seen = set()
+    cache = MelCache(tts.mel)
+    with torch.no_grad():
+        for p in paths:
+            m = cache(p)
+            direct = tts.dvae.get_codebook_indices(
+                torch.as_tensor(m, device=dev)[None])[0].cpu().numpy()
+            r = dvae_roundtrip(tts.dvae, m)
+            check(np.array_equal(r["codes"], direct), f"{p}: round-trip "
+                  f"codes differ from get_codebook_indices")
+            seen.update(direct.tolist())
+    check(summary["codebook_usage"] == len(seen),
+          f"codebook usage {summary['codebook_usage']} vs {len(seen)}")
+    l1 = mel_l1(tts.mel, s_out["wav"][0], d_out["wav"][0])
+    cd = mcd(tts.mel, s_out["wav"][0], d_out["wav"][0])
+    log(f"[rest] evaluate_dvae, 8 clips x 6 s (mels on the card, DVAE bf16): "
+        f"mel_l1_mean {summary['mel_l1_mean']:.4f}, codebook usage "
+        f"{summary['codebook_usage']} of 8192, {t_ev:.3f} s = "
+        f"{48 / t_ev:.1f} audio-s/s, K3 {d['vq_nearest']}; codes equal to "
+        f"get_codebook_indices on the same mels. Early-stop renders, "
+        f"speculative against default: mel_l1 {l1:.4f}, mcd {cd:.3f} dB "
+        f"(not bounded)  [{card}]")
+    return time.perf_counter() - t_phase
+
+
 def profile_request(torch, tts, text, cond_mel, settings, launches, card):
     """One warm request (seed 4) timed bare, then again under torch.profiler.
 
@@ -2469,6 +2862,11 @@ def main() -> None:
     with torch.no_grad():
         slots_phase(torch, np, tts, cond_wav, cond_mel, text, launches, cfg,
                     card)
+
+    # ---- 6c. the rest of the serving side (speculative render,
+    # refnet_interval, samplers, Vocos variants, evaluate_dvae) ----
+    rest_s = rest_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
+    log(f"[rest] phase {rest_s:.1f} s  [{card}]")
 
     # ---- 7. stream (B=1: K1-int4, HiFi-GAN, ultra_fast) ----
     stream_phase(torch, np, cfg, cond_wav, main_render, launches, card)

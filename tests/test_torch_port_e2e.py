@@ -326,7 +326,8 @@ def test_imports_without_jax():
     a POST /tts through the slot pool."""
     mods = _port_modules()
     for m in ("infer.serving", "text.frontend", "models.hifigan",
-              "data.audio", "infer.slots", "infer.http"):
+              "data.audio", "infer.slots", "infer.http",
+              "diffusion.solvers", "infer.eval_tools", "data.datasets"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc

@@ -1284,3 +1284,20 @@ def test_per_row_noise_at_one_row_is_the_single_generators(cuda):
     rows = gd.p_sample_loop(model_fn, shape, [torch.Generator(
         device="cuda").manual_seed(9)], device="cuda")
     assert torch.equal(one, rows)
+
+
+@pytest.mark.parametrize("b,n,win,hop", [(1, 1280, 1024, 256),
+                                         (16, 1280, 1024, 256),
+                                         (1, 2416, 1024, 512)])
+def test_overlap_add_is_deterministic_and_equals_the_cpu(cuda, b, n, win, hop):
+    """The iSTFT / IMDCT overlap-add on the card sums the frames in frame
+    order with elementwise adds: ten calls give the same bits, equal to the
+    CPU's (and so to a sequential scatter-add), where index_add_'s atomics
+    would add in arrival order."""
+    from xtts_tpu_torch.dsp.spectral import overlap_add
+    frames = torch.randn(b, n, win, generator=cuda, device="cuda")
+    size = (n - 1) * hop + win
+    first = overlap_add(frames, hop, size)
+    for _ in range(9):
+        assert torch.equal(overlap_add(frames, hop, size), first)
+    assert torch.equal(first.cpu(), overlap_add(frames.cpu(), hop, size))

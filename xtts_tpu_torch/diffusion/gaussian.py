@@ -2,8 +2,11 @@
 
 Schedules and coefficient tables are host f64 numpy, built by the same
 code as the JAX module; per-step scalars are taken in f32 on the sample's
-device. The sampling loops (ancestral `p`, `ddim`, `dpm++2m`) are Python
-loops over the spaced steps; each takes an explicit x_T (`noise=`), and
+device. The sampling loops (ancestral `p`, `ddim`, `dpm++2m`, `unipc`) are
+Python loops over the spaced steps, and the continuous-time solvers
+(diffusion/solvers.py) run over the base training schedule
+(`solver_sample_loop`): `sample_loop` takes JAX's ten sampler names. Each
+loop takes an explicit x_T (`noise=`), and
 draws in-loop noise from a torch.Generator, or from one generator a row
 (`randn_rows`): each row's noise chain then depends on its own generator
 alone, whatever else is in the batch (JAX's per-row keys,
@@ -16,6 +19,7 @@ k * (1 - t_spaced / T_spaced).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence, Union
 
@@ -88,6 +92,9 @@ class GaussianDiffusion:
     betas: np.ndarray
     timestep_map: Optional[np.ndarray] = None
     conditioning_free_k: float = 1.0
+    # the full training schedule, kept by spaced() for the continuous-time
+    # solvers (solver_sample_loop)
+    base_betas: Optional[np.ndarray] = field(default=None, repr=False)
 
     alphas_cumprod: np.ndarray = field(default=None, repr=False)
     alphas_cumprod_prev: np.ndarray = field(default=None, repr=False)
@@ -134,7 +141,8 @@ class GaussianDiffusion:
                 last = a
                 tmap.append(i)
         return GaussianDiffusion(betas=np.array(new_betas),
-                                 timestep_map=np.array(tmap), **kw)
+                                 timestep_map=np.array(tmap),
+                                 base_betas=base_betas, **kw)
 
     def map_t(self, t: torch.Tensor) -> torch.Tensor:
         """Spaced index -> original timestep fed to the model."""
@@ -276,13 +284,122 @@ class GaussianDiffusion:
             x0_prev, h_prev = x0, h
         return x
 
+    def _pred_x0_mix(self, model_fn, x, i: int) -> torch.Tensor:
+        """The clipped x0 of spaced index i under the constant-k CFG mix
+        u + k (c - u) (the k-diffusion path's, not the ancestral ramp)."""
+        t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+        out, out_uc = self._model_out(model_fn, x, self.map_t(t))
+        eps = out.chunk(2, dim=1)[0]
+        if out_uc is not None:
+            eps_uc = out_uc.chunk(2, dim=1)[0]
+            eps = eps_uc + self.conditioning_free_k * (eps - eps_uc)
+        return torch.clamp(self.predict_xstart_from_eps(x, t, eps), -1, 1)
+
+    def unipc_sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                          noise: Optional[torch.Tensor] = None,
+                          device=None) -> torch.Tensor:
+        """Order-2 predictor-corrector in log-SNR space over the spaced
+        schedule (xtts_tpu/diffusion/gaussian.py:393-454, `sampler=
+        "unipc"`): the predictor is the dpm++2m extrapolation, the corrector
+        a trapezoid with a model call at the predicted point. Two model
+        calls a step, the last step's included (it returns the corrector's
+        x0). Per-step scalars in f32, as the JAX loop takes them."""
+        x = _x_T(shape, generator, noise, device)
+        steps = self.num_timesteps
+        acp = np.asarray(self.alphas_cumprod)
+        alpha = np.sqrt(acp).astype(np.float32)
+        sigma = np.sqrt(1.0 - acp).astype(np.float32)
+        lam = (np.log(np.sqrt(acp)) - np.log(np.sqrt(1.0 - acp))
+               ).astype(np.float32)
+        m_prev, h_prev = None, np.float32(0.0)
+        for step in range(steps):
+            i = steps - 1 - step
+            i_next = max(i - 1, 0)
+            m0 = self._pred_x0_mix(model_fn, x, i)
+            h = np.float32(lam[i_next] - lam[i])
+            scale = float(sigma[i_next] / sigma[i])
+            lead = np.float32(alpha[i_next] * np.expm1(-h))
+            if step == 0:
+                d_p = m0
+            else:
+                r = np.float32(h_prev / max(h, np.float32(1e-12)))
+                d_p = m0 + (m0 - m_prev) / float(
+                    max(np.float32(2.0) * r, np.float32(1e-12)))
+            x_p = scale * x - float(lead) * d_p
+            m1 = self._pred_x0_mix(model_fn, x_p, i_next)
+            if step == steps - 1:
+                return m1
+            x = scale * x - float(lead * np.float32(0.5)) * (m0 + m1)
+            m_prev, h_prev = m0, h
+        return x
+
+    def solver_sample_loop(self, model_fn: ModelFn, shape, generator=None,
+                           noise: Optional[torch.Tensor] = None,
+                           device=None, *, method: str = "multistep",
+                           order: int = 2, variant: Optional[str] = None,
+                           algorithm: str = "dpmsolver++",
+                           skip_type: str = "time_uniform") -> torch.Tensor:
+        """A continuous-time DPM-Solver / UniPC run over the BASE training
+        schedule with as many model evaluations as spaced steps
+        (xtts_tpu/diffusion/gaussian.py:456-495). The model takes float
+        base-schedule times, and CFG is the model_wrapper mix u + k (c - u);
+        a ReferenceNet table hoisted over the spaced grid does not apply."""
+        from xtts_tpu_torch.diffusion import solvers as S
+        base = self.base_betas if self.base_betas is not None else self.betas
+        ns = S.NoiseScheduleVP("discrete", betas=np.asarray(base, np.float64))
+        k = self.conditioning_free_k
+
+        def eps_fn(x, t_input):
+            out, out_uc = self._model_out(model_fn, x, t_input)
+            eps = out.chunk(2, dim=1)[0]
+            if out_uc is not None:
+                eps_uc = out_uc.chunk(2, dim=1)[0]
+                eps = eps_uc + k * (eps - eps_uc)
+            return eps
+
+        x = _x_T(shape, generator, noise, device)
+        steps = self.num_timesteps
+        if variant is not None:
+            return S.sample_unipc(eps_fn, ns, x, steps=steps, order=order,
+                                  variant=variant, skip_type=skip_type)
+        return S.sample_dpm_solver(eps_fn, ns, x, steps=steps, order=order,
+                                   method=method, algorithm_type=algorithm,
+                                   skip_type=skip_type)
+
     def sample_loop(self, model_fn: ModelFn, shape, generator=None,
                     noise=None, sampler: str = "p",
                     device=None) -> torch.Tensor:
+        """Run the named sampler (JAX's table: an unknown name raises
+        KeyError)."""
+        solver = functools.partial
         fns = {"p": self.p_sample_loop, "ddim": self.ddim_sample_loop,
-               "dpm++2m": self.dpmpp_2m_sample_loop}
-        if sampler not in fns:
-            raise NotImplementedError(
-                f"sampler {sampler!r} is not ported; have {sorted(fns)}")
+               "dpm++2m": self.dpmpp_2m_sample_loop,
+               "unipc": self.unipc_sample_loop,
+               # continuous-time solvers over the base schedule
+               "dpm++2m_solver": solver(self.solver_sample_loop, order=2),
+               "dpm++3m": solver(self.solver_sample_loop, order=3),
+               "dpm++fast": solver(self.solver_sample_loop, order=3,
+                                   method="singlestep"),
+               "unipc_bh1": solver(self.solver_sample_loop, order=2,
+                                   variant="bh1"),
+               "unipc_bh2": solver(self.solver_sample_loop, order=2,
+                                   variant="bh2"),
+               "unipc_vary": solver(self.solver_sample_loop, order=2,
+                                    variant="vary_coeff")}
         return fns[sampler](model_fn, shape, generator=generator, noise=noise,
                             device=device)
+
+
+# the samplers that walk the spaced timestep grid (a ReferenceNet table
+# hoisted over that grid serves them); the others take float times
+SPACED_SAMPLERS = ("p", "ddim", "dpm++2m", "unipc")
+
+
+def model_calls(sampler: str, steps: int) -> int:
+    """Denoiser calls of one `sample_loop` run of `steps` spaced steps."""
+    if sampler == "unipc":
+        return 2 * steps
+    if sampler == "dpm++fast":
+        from xtts_tpu_torch.diffusion.solvers import _singlestep_orders
+        return sum(_singlestep_orders(steps, 3))
+    return steps

@@ -1,10 +1,14 @@
-"""STFT / iSTFT in PyTorch (port of xtts_tpu/dsp/spectral.py).
+"""STFT / iSTFT and MDCT / IMDCT in PyTorch (port of
+xtts_tpu/dsp/spectral.py).
 
 Framing is a static index gather, the overlap-add an index_add, exactly as
 in the JAX module, so both frame and fold with the same index grids. The
-FFTs are torch.fft (cuFFT on the card).
+FFTs are torch.fft (cuFFT on the card); the MDCT pair is a product with
+the cosine basis, built in f32 by the JAX module's expression.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -62,12 +66,82 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
 
 def overlap_add(frames: torch.Tensor, hop: int,
                 output_size: int) -> torch.Tensor:
-    """(B, n_frames, win) -> (B, output_size) scatter-add overlap-add."""
+    """(B, n_frames, win) -> (B, output_size) overlap-add.
+
+    Where the hop divides the window (every caller's case: r = win / hop
+    frames cover a sample), the frames are summed as r shifted slabs of
+    hop samples, added into zeros in frame order: the sum, and its
+    rounding, of a sequential scatter-add (index_add_ on the CPU) to the
+    bit, and on the card deterministic, where index_add_ adds with atomics
+    in whatever order the threads arrive. Otherwise a scatter-add."""
     b, n_frames, win = frames.shape
-    idx = _frame_index(n_frames, win, hop, frames.device).reshape(-1)
-    out = torch.zeros((b, output_size), dtype=frames.dtype,
-                      device=frames.device)
-    return out.index_add_(1, idx, frames.reshape(b, -1))
+    r = win // hop if win % hop == 0 else 0
+    chunks = n_frames + r - 1
+    if r == 0 or output_size < chunks * hop:
+        idx = _frame_index(n_frames, win, hop, frames.device).reshape(-1)
+        out = torch.zeros((b, output_size), dtype=frames.dtype,
+                          device=frames.device)
+        return out.index_add_(1, idx, frames.reshape(b, -1))
+    parts = frames.reshape(b, n_frames, r, hop)
+    acc = frames.new_zeros((b, chunks, hop))
+    for q in range(r - 1, -1, -1):      # frame j = chunk - q: j ascending
+        acc[:, q:q + n_frames] += parts[:, :, q]
+    return F.pad(acc.reshape(b, chunks * hop),
+                 (0, output_size - chunks * hop))
+
+
+def _mdct_basis(n: int, device) -> torch.Tensor:
+    """(n, n/2) cosine basis cos(pi/M (k + 0.5 + M/2)(m + 0.5)), M = n/2,
+    in f32 as the JAX module computes it."""
+    half = n // 2
+    k = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    m = torch.arange(half, dtype=torch.float32, device=device)[None, :]
+    return torch.cos(math.pi / half * (k + 0.5 + half / 2) * (m + 0.5))
+
+
+def _mdct_window(n: int, device) -> torch.Tensor:
+    """The sine window sin(pi/n (i + 0.5)) (scipy's cosine window)."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.sin(math.pi / n * (i + 0.5))
+
+
+def _mdct_pad(frame_len: int, padding: str) -> int:
+    """Edge zero-pad a side: "same" frame_len // 4, "center" // 2."""
+    if padding == "same":
+        return frame_len // 4
+    if padding == "center":
+        return frame_len // 2
+    raise ValueError("Padding must be 'center' or 'same'.")
+
+
+def mdct(x: torch.Tensor, frame_len: int,
+         padding: str = "same") -> torch.Tensor:
+    """Modified DCT of (B, T) -> (B, frames, frame_len // 2): zero edge pad,
+    sine-windowed frames at 50% overlap, times the cosine basis and
+    sqrt(2 / N), N = frame_len / 2 (the reference's FFT-twiddle MDCT)."""
+    n = frame_len
+    half = n // 2
+    pad = _mdct_pad(n, padding)
+    x = F.pad(x, (pad, pad))
+    frames = frame_signal(x, n, half) * _mdct_window(n, x.device)[None, None]
+    return (frames @ _mdct_basis(n, x.device)) * math.sqrt(2.0 / half)
+
+
+def imdct(coeffs: torch.Tensor, frame_len: int,
+          padding: str = "same") -> torch.Tensor:
+    """Inverse MDCT of (B, frames, frame_len // 2) -> (B, T): synthesis
+    product, sine window, TDAC overlap-add, edge trim. T = frames * N for
+    "same", (frames - 1) * N for "center"; perfect reconstruction away
+    from the padded edges."""
+    n = frame_len
+    half = n // 2
+    t = coeffs.shape[1]
+    frames = math.sqrt(2.0 / half) * (coeffs @ _mdct_basis(n, coeffs.device).T)
+    frames = frames * _mdct_window(n, coeffs.device)[None, None]
+    out_len = (t + 1) * half
+    y = overlap_add(frames, half, out_len)
+    pad = _mdct_pad(n, padding)
+    return y[:, pad:out_len - pad]
 
 
 def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,

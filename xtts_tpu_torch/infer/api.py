@@ -1,5 +1,4 @@
-"""TextToSpeech — the zero-shot path (port of the slice-A, slice-B and
-slice-C0 parts of xtts_tpu/infer/api.py).
+"""TextToSpeech — the zero-shot path (port of xtts_tpu/infer/api.py).
 
     text -> tokens -> GPT int8 AR codes          (infer/qdecode.py: K1 at
                                                   B=1, int8 or, with
@@ -7,20 +6,23 @@ slice-C0 parts of xtts_tpu/infer/api.py).
                                                   K4 or the chain at B>1)
          -> [K > 1: CLVP rerank]                 (models/clvp.py)
          -> codes padded to a bucket -> teacher-forced GPT latent
-         -> AA-diffusion, spaced ancestral CFG    (diffusion/gaussian.py,
-            or dpm++2m (preset "ultra_fast"),       models/aa_diffusion.py, K2)
-            with the ReferenceNet hoisted
-         -> Vocos + iSTFT -> 24 kHz waveform      (models/vocos.py)
+         -> AA-diffusion with CFG                 (diffusion/gaussian.py,
+            (spaced p / ddim / dpm++2m / unipc,     diffusion/solvers.py,
+            or a continuous-time solver),           models/aa_diffusion.py, K2)
+            the ReferenceNet hoisted, or every
+            k-th step's features (refnet_interval)
+         -> Vocos (iSTFT or IMDCT head) -> 24 kHz (models/vocos.py)
          or the shortcut: codes -> DVAE decode -> Vocos (models/dvae.py)
          or HiFi-GAN: latent -> HifiDecoder -> wav (models/hifigan.py)
 
-Slice B added CLVP reranking (num_candidates), the DVAE shortcut render,
-batched sentences (infer/serving.py), the cache ladder and the int8-KV
-engines; slice C0 the HiFi-GAN render (with_hifigan / use_hifigan),
-sentence streaming (tts_stream) and the presets; then multi-clip
-conditioning, per-row diffusion noise (continuous serving, infer/slots.py)
-and from_pretrained. Not ported: speculative render, refnet_interval > 1,
-fix_autoregressive_output, compact_rows and the continuous-time solvers.
+Every TTSSettings knob of the JAX package is here except compact_rows
+(compacting decode waves), which is not ported: CLVP reranking, the
+shortcut and HiFi-GAN renders, batched sentences (infer/serving.py) and
+continuous serving (infer/slots.py), the cache ladder, the int8-KV engines,
+sentence streaming, the presets, multi-clip conditioning, per-row diffusion
+noise, the speculative render, the sparse ReferenceNet hoist, text
+bucketing on or off, and all ten sampler names; also
+fix_autoregressive_output and from_pretrained.
 
 Randomness comes from an explicit torch.Generator on the model's device;
 one generator feeds the AR sampling and then the diffusion noise. The
@@ -38,7 +40,8 @@ import numpy as np
 import torch
 
 from xtts_tpu_torch.core.config import XTTSConfig
-from xtts_tpu_torch.diffusion.gaussian import GaussianDiffusion, randn_rows
+from xtts_tpu_torch.diffusion.gaussian import (SPACED_SAMPLERS,
+                                               GaussianDiffusion, randn_rows)
 from xtts_tpu_torch.dsp.mel import MelFrontend
 from xtts_tpu_torch.infer.qdecode import (generate_speech_quantized,
                                           quantize_gpt_decode)
@@ -63,6 +66,56 @@ def bucket_len(n: int, buckets=(32, 64, 128, 256, 402)) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def fix_autoregressive_output(codes: np.ndarray, stop_token: int,
+                              complain: bool = True) -> np.ndarray:
+    """Tortoise calm-token tail fix (ttts/api.py:82-109), on the host.
+
+    Everything from the first stop token on becomes the tortoise DVAE's
+    silence code (83), and the final three codes become the ones
+    zero-padded audio ends with (45, 45, 248). The constants belong to the
+    tortoise English DVAE; the live Mandarin path strips the last 2 codes
+    and pads with the stop token instead, as tts_tokens does. Kept quirk:
+    the reference guards the tail write with `stm - 3 < len(codes)`, which
+    always holds, so the tail is written whenever a stop token exists, even
+    over real codes when the stop comes within 3 of the end. Without a stop
+    token the codes come back unchanged, with a printed complaint. 1-D int
+    codes in; a copy of the same shape out."""
+    codes = np.array(codes)
+    (idx,) = np.nonzero(codes == stop_token)
+    if idx.size == 0:
+        if complain:
+            print("No stop tokens found in one of the generated voice "
+                  "clips. This typically means the spoken audio is too "
+                  "long. In some cases, the output will still be good, "
+                  "though. Listen to it and if it is missing words, try "
+                  "breaking up your input text.")
+        return codes
+    stm = int(idx.min())
+    codes[idx] = 83
+    codes[stm:] = 83
+    if stm - 3 < codes.shape[0]:  # reference quirk: always true
+        codes[-3] = 45
+        codes[-2] = 45
+        codes[-1] = 248
+    return codes
+
+
+def hoist_plan(sampler: str, b: int, steps: int, refnet_interval: int = 1):
+    """The ReferenceNet hoist of one render, as the JAX package decides it
+    (api.py:592-603): (hoist, k, n_cached). Features are computed up front
+    for every k-th spaced timestep, n_cached = ceil(steps / k) sets, when
+    the sampler walks the spaced grid and b * n_cached <= 512;
+    XTTS_HOIST_REF=1 / 0 forces the decision within the spaced samplers.
+    The continuous-time solvers call the model at float times no table
+    holds, so they never hoist and take k = 1."""
+    ov = os.environ.get("XTTS_HOIST_REF")
+    spaced = sampler in SPACED_SAMPLERS
+    k = max(1, int(refnet_interval)) if spaced else 1
+    n_cached = -(-steps // k)
+    hoist = spaced and ((b * n_cached <= 512) if ov is None else ov == "1")
+    return hoist, k, n_cached
 
 
 def _jax_converters(c: XTTSConfig):
@@ -102,6 +155,23 @@ class TTSSettings:
     # int8 KV cache for the quantized_decode engines: per-(position, head)
     # symmetric int8 K/V, scales folded into the scores and probabilities
     kv_quant: bool = False
+    # stop-pad text tokens up to a bucket length (16, 32, ..., 256, the
+    # cap), as the JAX package does; False keeps each sentence's length
+    pad_text_to_bucket: bool = True
+    # render at the max_mel_tokens cap's code bucket without reading the
+    # generated length first: the lengths are read after the render is
+    # queued. Equal to the default render when the generated length falls
+    # in the cap's bucket; otherwise the render is larger and the attention
+    # over the longer stop-padded tail can move the kept audio slightly.
+    # B=1 diffusion renders only; ignored with use_hifigan, the shortcut
+    # and return_intermediates.
+    speculative_render: bool = False
+    # sparse ReferenceNet hoist: k > 1 computes the ReferenceNet features
+    # at every k-th spaced timestep up front and each denoise step reuses
+    # the latest cached set (an approximation that brings the hoist back at
+    # serving batch sizes, b * ceil(steps / k) <= 512). 1 = the reference's
+    # semantics. Spaced samplers only.
+    refnet_interval: int = 1
 
     @classmethod
     def preset(cls, name: str) -> "TTSSettings":
@@ -218,9 +288,10 @@ class TextToSpeech:
         the tokenizer, and each of gpt, vqvae (or dvae), diffusion, vocos
         (and clvp / hifigan when enabled) loads from <name>.pth / .pt / .bin
         (a state dict under the reference's names, the port's own layout,
-        or one wrapped as {"model": ...}) or <name>.npz (the JAX package's
-        flat "a/b/c" tree, utils/registry.save_npz, carried as from_jax
-        carries it). A model without a file keeps random weights, with a
+        or one wrapped as {"model": ...}; the Vocos heads' fixed window and
+        twiddle buffers, which the port computes, are dropped) or
+        <name>.npz (the JAX package's flat "a/b/c" tree,
+        utils/registry.save_npz, carried as from_jax carries it). A model without a file keeps random weights, with a
         warning. The int8 decode tree is rebuilt from what was loaded."""
         cfg_path = os.path.join(model_dir, "xtts_config.json")
         if cfg is None:
@@ -253,6 +324,7 @@ class TextToSpeech:
                                 weights_only=True)
                 if isinstance(sd.get("model"), dict):
                     sd = sd["model"]
+                sd = convert.drop_fixed_buffers(sd)
             m.load_state_dict(sd)
         tts.requantize()
         return tts
@@ -379,12 +451,15 @@ class TextToSpeech:
     def _diffusion_mel_impl(self, latent, cond_mel_norm, generator,
                             temperature: float = 1.0, steps: int = 50,
                             sampler: str = "p", cond_free_k: float = 2.0,
-                            noise: Optional[torch.Tensor] = None):
+                            noise: Optional[torch.Tensor] = None,
+                            refnet_interval: int = 1):
         """latent (B, D, N) -> mel (B, mel, 4N): CLIP context hoisted, CFG
         batched into one 2B BaseModel pass per step, and the ReferenceNet
-        features for every spaced timestep computed up front in one batched
-        call (b * steps <= 512). noise: optional x_T (B, mel, 4N); else
-        drawn from `generator` and scaled by `temperature`. generator: one
+        features of every k-th spaced timestep (k = refnet_interval)
+        computed up front in one batched call where hoist_plan admits it;
+        each step then takes the set of its index // k, found on the
+        device. noise: optional x_T (B, mel, 4N); else drawn from
+        `generator` and scaled by `temperature`. generator: one
         torch.Generator, or one a row: each row's x_T and in-loop noise
         then come from its own (gaussian.randn_rows; JAX's per-row keys,
         api.py:633-641)."""
@@ -399,19 +474,23 @@ class TextToSpeech:
                                    out_len).transpose(1, 2)
         uncond = dm.uncond_hint(b, out_len)
         tmap = torch.as_tensor(gd.timestep_map, device=latent.device)
+        hoist, k, nc = hoist_plan(sampler, b, gd.num_timesteps,
+                                  refnet_interval)
         control_all = None
-        if b * steps <= 512:
-            t_all = tmap.repeat_interleave(b)
-            ca = dm.reference_features(cond_mel_norm.repeat(steps, 1, 1),
-                                       t_all, ctx.repeat(steps, 1, 1))
-            control_all = [c.reshape(steps, b, *c.shape[1:]) for c in ca]
+        if hoist:
+            sub = torch.arange(0, gd.num_timesteps, k, device=latent.device)
+            t_all = tmap[sub].repeat_interleave(b)
+            ca = dm.reference_features(cond_mel_norm.repeat(nc, 1, 1),
+                                       t_all, ctx.repeat(nc, 1, 1))
+            control_all = [c.reshape(nc, b, *c.shape[1:]) for c in ca]
         h2 = torch.cat([hint.to(uncond.dtype), uncond], dim=0)
         ctx2 = torch.cat([ctx, ctx], dim=0)
 
         def model_fn(x, t_orig):
             if control_all is not None:
                 si = torch.searchsorted(tmap, t_orig[:1])   # stays on device
-                control = [c.index_select(0, si)[0] for c in control_all]
+                control = [c.index_select(0, si // k)[0]
+                           for c in control_all]
             else:
                 control = dm.reference_features(cond_mel_norm, t_orig, ctx)
             out = dm.denoise(torch.cat([x, x], dim=0),
@@ -426,27 +505,39 @@ class TextToSpeech:
         return denormalize_tacotron_mel(mel)[:, :, :out_len]
 
     @torch.no_grad()
-    def _render(self, cond_mel, text_tokens, codes, lens, generator,
-                settings: TTSSettings, noise=None,
-                text_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Padded codes (B, n_b) -> teacher-forced latent -> diffusion ->
-        Vocos wav (B, 4 n_b hop). text_lens: true text lengths (default:
-        every row's full width)."""
+    def _latent_and_mel(self, cond_mel, text_tokens, codes, lens, generator,
+                        settings: TTSSettings, noise=None,
+                        text_lens: Optional[torch.Tensor] = None):
+        """Padded codes (B, n_b) -> teacher-forced latent (B, D, n_b) ->
+        diffusion mel (B, mel, 4 n_b). text_lens: true text lengths
+        (default: every row's full width)."""
         c = self.cfg
         if text_lens is None:
             text_lens = torch.full((text_tokens.shape[0],),
                                    text_tokens.shape[-1], device=self.device)
         latent = self.gpt(cond_mel, text_tokens, text_lens, codes,
                           lens * c.gpt.mel_length_compression,
-                          return_latent=True)
+                          return_latent=True).transpose(1, 2)
         # stacked clips (B, n_clips, mel, T): the ReferenceNet / CLIP refer
         # mel is the first clip (only the GPT conditioning averages)
         diff_cond = cond_mel if cond_mel.dim() == 3 else cond_mel[:, 0]
         mel = self._diffusion_mel_impl(
-            latent.transpose(1, 2), normalize_tacotron_mel(diff_cond),
+            latent, normalize_tacotron_mel(diff_cond),
             generator, settings.diffusion_temperature,
             steps=settings.diffusion_steps, sampler=settings.sampler,
-            cond_free_k=settings.cond_free_k, noise=noise)
+            cond_free_k=settings.cond_free_k, noise=noise,
+            refnet_interval=settings.refnet_interval)
+        return latent, mel
+
+    @torch.no_grad()
+    def _render(self, cond_mel, text_tokens, codes, lens, generator,
+                settings: TTSSettings, noise=None,
+                text_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Padded codes (B, n_b) -> teacher-forced latent -> diffusion ->
+        Vocos wav (B, 4 n_b hop)."""
+        _, mel = self._latent_and_mel(cond_mel, text_tokens, codes, lens,
+                                      generator, settings, noise=noise,
+                                      text_lens=text_lens)
         return self.vocos(mel).float()
 
     @torch.no_grad()
@@ -500,16 +591,28 @@ class TextToSpeech:
                    generator: Optional[torch.Generator] = None,
                    settings: TTSSettings = TTSSettings(),
                    use_diffusion: bool = True, use_hifigan: bool = False,
-                   spk_mel16: Optional[torch.Tensor] = None
-                   ) -> Dict[str, Any]:
+                   spk_mel16: Optional[torch.Tensor] = None,
+                   return_intermediates: bool = False) -> Dict[str, Any]:
         """Synthesize one text from prepared tokens. Returns a dict with
         'wav' (np.ndarray (1, n * 1024), or (1, hifigan_samples(n)) with
         use_hifigan), 'codes', 'lengths', 'steps' (AR decode iterations)
-        and host-clock 'ar_seconds' / 'render_seconds' (each stage ends in
-        a device sync). num_candidates K > 1 draws K rows in one AR pass and
-        renders the CLVP winner; use_diffusion=False renders through the
-        DVAE shortcut; use_hifigan (with_hifigan=True, spk_mel16 from
-        speaker_mel_from_wav) through the HifiDecoder."""
+        and host-clock 'ar_seconds' / 'render_seconds'. num_candidates
+        K > 1 draws K rows in one AR pass and renders the CLVP winner;
+        use_diffusion=False renders through the DVAE shortcut; use_hifigan
+        (with_hifigan=True, spk_mel16 from speaker_mel_from_wav) through
+        the HifiDecoder. return_intermediates adds 'latent' (1, D, n) and
+        'mel' (1, bins, 4n) as numpy (the diffusion's, or the shortcut's
+        DVAE mel), the render run stage by stage.
+
+        Timing: by default the generated length is read before the render
+        (a device sync), so 'ar_seconds' ends with the AR and
+        'render_seconds' is the render up to the wav on the host. With
+        settings.speculative_render (diffusion renders, no intermediates)
+        the render is queued at the cap's code bucket with no read in
+        between: 'ar_seconds' then ends when the AR loop returns (its last
+        host read of the done flags), and 'render_seconds' covers the
+        queued render, the lengths read that waits for it, and the wav's
+        copy to the host."""
         g = generator if generator is not None else self._generator(0)
         text = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long,
                                device=self.device)
@@ -526,25 +629,47 @@ class TextToSpeech:
                 cond_mel.repeat(reps), text.repeat(k, 1), g, settings))
         else:
             res = self._generate(cond_mel, text, g, settings)
-        n = max(int(res.lengths[0]) - 2, 1)     # strip 2 (reference test.py)
-        t1 = time.perf_counter()                # int() above synchronized
-        n_b = bucket_len(n, self._code_buckets())
+        spec = (settings.speculative_render and use_diffusion
+                and not return_intermediates and not use_hifigan)
+        if spec:
+            # bucket by the cap: nothing is read before the render
+            n_b = bucket_len(max(settings.max_mel_tokens - 2, 1),
+                             self._code_buckets())
+            n = None
+        else:
+            n = max(int(res.lengths[0]) - 2, 1)  # strip 2 (reference test.py)
+            n_b = bucket_len(n, self._code_buckets())
+        t1 = time.perf_counter()          # int() above synchronized
         lens = torch.clamp(res.lengths - 2, 1, n_b)
         codes = self._pad_codes(res.codes, lens, n_b)
+        out: Dict[str, Any] = {}
+        comp = self.cfg.vqvae.compression
         if use_hifigan:
             wav = self._render_hifigan(cond_mel, text, codes, lens, spk_mel16)
             keep = hifigan_samples(self.cfg.hifigan, n)
         else:
-            if use_diffusion:
-                wav = self._render(cond_mel, text, codes, lens, g, settings)
+            if not use_diffusion:
+                wav, mel = self._render_shortcut(codes)
+                if return_intermediates:
+                    out["mel"] = mel[:, :, :n * comp].float().cpu().numpy()
+            elif return_intermediates:
+                latent, mel = self._latent_and_mel(cond_mel, text, codes,
+                                                   lens, g, settings)
+                wav = self.vocos(mel).float()
+                out["latent"] = latent[:, :, :n].float().cpu().numpy()
+                out["mel"] = mel[:, :, :n * comp].float().cpu().numpy()
             else:
-                wav, _ = self._render_shortcut(codes)
-            keep = n * self.cfg.vqvae.compression * self.cfg.vocos.hop_length
+                wav = self._render(cond_mel, text, codes, lens, g, settings)
+            if spec:
+                # the render is queued; this read waits for it on the stream
+                n = max(int(res.lengths[0]) - 2, 1)
+            keep = n * comp * self.cfg.vocos.hop_length
         wav = wav[:, :keep].cpu().numpy()
-        return {"wav": wav, "codes": res.codes.cpu().numpy(),
-                "lengths": res.lengths.cpu().numpy(), "steps": res.steps,
-                "ar_seconds": t1 - t0,
-                "render_seconds": time.perf_counter() - t1}
+        out.update({"wav": wav, "codes": res.codes.cpu().numpy(),
+                    "lengths": res.lengths.cpu().numpy(), "steps": res.steps,
+                    "ar_seconds": t1 - t0,
+                    "render_seconds": time.perf_counter() - t1})
+        return out
 
     def _text_to_token_lists(self, text: str, lang: str,
                              settings: TTSSettings):
@@ -565,10 +690,10 @@ class TextToSpeech:
                             "%d; truncating", len(tokens), cap)
                 tokens = np.concatenate([tokens[:cap - 1],
                                          np.array([stop], np.int32)])
-            # stop-pad to a bucket length, as the JAX package does
-            tb = bucket_len(len(tokens), (16, 32, 64, 128, 256, cap))
-            tokens = np.pad(tokens, (0, max(0, tb - len(tokens))),
-                            constant_values=stop)
+            if settings.pad_text_to_bucket:
+                tb = bucket_len(len(tokens), (16, 32, 64, 128, 256, cap))
+                tokens = np.pad(tokens, (0, max(0, tb - len(tokens))),
+                                constant_values=stop)
             token_lists.append(tokens)
         oov_after = oov_stats()
         self.last_oov = {c: n - oov_before.get(c, 0)

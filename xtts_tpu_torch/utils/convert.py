@@ -74,6 +74,16 @@ def unflatten_npz(npz) -> Dict[str, Any]:
     return out if "params" in out else {"params": out}
 
 
+# the reference's fixed (non-learned) buffers the port computes instead:
+# the Vocos heads' ISTFT window and IMDCT window / twiddles
+FIXED_BUFFER_PREFIXES = ("head.istft.", "head.imdct.")
+
+
+def drop_fixed_buffers(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in sd.items()
+            if not k.startswith(FIXED_BUFFER_PREFIXES)}
+
+
 def to_torch(sd: SD, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.array(v, copy=True), device=device)
             for k, v in sd.items()}
@@ -196,21 +206,62 @@ def aa_diffusion_from_jax(tree: Mapping[str, Any], cfg) -> SD:
     return sd
 
 
-def vocos_from_jax(tree: Mapping[str, Any], num_layers: int = 8) -> SD:
-    p = _params(tree)
-    bb = p["backbone"]
+def _vocos_norm(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """A LayerNorm {scale, bias}, or an AdaLayerNorm's {scale, shift}
+    embeddings (Encodec variant) -> <prefix>.weight / .bias, or
+    <prefix>.scale.weight / .shift.weight."""
+    if "embedding" in p.get("scale", {}):
+        sd[prefix + ".scale.weight"] = _a(p["scale"]["embedding"])
+        sd[prefix + ".shift.weight"] = _a(p["shift"]["embedding"])
+    else:
+        _norm(sd, prefix, p)
+
+
+def vocos_backbone_from_jax(tree: Mapping[str, Any], num_layers: int = 8,
+                            prefix: str = "") -> SD:
+    """VocosBackbone params (plain or AdaLayerNorm) -> the reference's
+    names under `prefix`."""
+    bb = _params(tree)
     sd: SD = {}
-    _conv(sd, "backbone.embed", bb["embed"])
-    _norm(sd, "backbone.norm", bb["norm"])
+    _conv(sd, prefix + "embed", bb["embed"])
+    _vocos_norm(sd, prefix + "norm", bb["norm"])
     for i in range(num_layers):
-        blk, pre = bb[f"convnext_{i}"], f"backbone.convnext.{i}."
+        blk, pre = bb[f"convnext_{i}"], f"{prefix}convnext.{i}."
         _conv(sd, pre + "dwconv", blk["dwconv"])
-        _norm(sd, pre + "norm", blk["LayerNorm_0"])
+        _vocos_norm(sd, pre + "norm", blk.get("norm", blk.get("LayerNorm_0")))
         _dense(sd, pre + "pwconv1", blk["pwconv1"])
         _dense(sd, pre + "pwconv2", blk["pwconv2"])
         sd[pre + "gamma"] = _a(blk["gamma"])
-    _norm(sd, "backbone.final_layer_norm", bb["final_layer_norm"])
+    _norm(sd, prefix + "final_layer_norm", bb["final_layer_norm"])
+    return sd
+
+
+def vocos_from_jax(tree: Mapping[str, Any], num_layers: int = 8) -> SD:
+    """Vocos params (any head: istft, imdct_symexp and imdct_cos each hold
+    one Dense "out") -> the reference's names."""
+    p = _params(tree)
+    sd = vocos_backbone_from_jax(p["backbone"], num_layers, "backbone.")
     _dense(sd, "head.out", p["head"]["out"])
+    return sd
+
+
+def vocos_resnet_backbone_from_jax(tree: Mapping[str, Any],
+                                   num_blocks: int = 3,
+                                   num_dilations: int = 3) -> SD:
+    """VocosResNetBackbone params -> the reference's names with the weight
+    norm folded (embed, resnet.{i}.convs1.{j} / convs2.{j} / gamma.{j} of
+    shape (dim, 1))."""
+    p = _params(tree)
+    sd: SD = {}
+    _conv(sd, "embed", p["embed"])
+    for i in range(num_blocks):
+        blk = p[f"resnet_{i}"]
+        for j in range(num_dilations):
+            pre = f"resnet.{i}."
+            _conv(sd, f"{pre}convs1.{j}", blk[f"convs1_{j}"])
+            _conv(sd, f"{pre}convs2.{j}", blk[f"convs2_{j}"])
+            if f"gamma_{j}" in blk:
+                sd[f"{pre}gamma.{j}"] = _a(blk[f"gamma_{j}"])[:, None]
     return sd
 
 
