@@ -55,8 +55,16 @@ Phases, each reported on its own lines:
      same weights: identical greedy int8 codes through K1 and through K4,
      identical DVAE codes, renders within 1e-3; identical greedy codes
      through K1-int4 and their HiFi-GAN render within 1e-3; a speculative
-     greedy request (DDIM from x_T = 0), refnet_interval 2, unipc and
-     dpm++3m renders within 1e-3, and identical evaluate_dvae codes.
+     greedy request (DDIM from x_T = 0) whose greedy picks, teacher-forced
+     on the card along the CPU's codes, follow P3's rule (greedy_rule: K1
+     logits within K1_TOL, differing picks within 2 x the float64 floor +
+     2), the CPU's codes rendered on both within 1e-3; refnet_interval 1
+     and 2 (k 2 unequal to k 1 on the card), unipc and dpm++3m renders
+     within 1e-3, and identical evaluate_dvae codes; one f32 optimizer
+     step of the vqvae and of the gpt trainer (losses within 1e-4
+     relative, gradients within rtol 1e-4 / atol 1e-6, parameters within 3
+     lr 1e-2 plus what the gradient tolerance moves Adam's first update,
+     DVAE codes by vq_agree, the EMA codebook within 1e-5).
      The 64-step teacher-forced chains (K1, K1-int4, K4) may differ from
      the plain chain in at most PICKS_BOUND greedy picks: the largest
      count that rounding alone turns over the seeds of the noise floor
@@ -101,9 +109,11 @@ Phases, each reported on its own lines:
      one bit for bit (cap bucket 320 = length bucket); with the stop bias
      raised (SLOTS_STOP_BIAS sampled), a request under the default 600
      cap, speculative (K2 200 at the 604 bucket) and default (K2 as the
-     size gate decides for its own bucket), both render times; at B=1
-     refnet_interval 1 equal to the default bit for bit (the render run
-     stage by stage), k 2 and 5 timed with their difference from k 1;
+     size gate decides for its own bucket), both render times; at B=1,
+     with the diffusion model's zero-initialised output projections drawn
+     (t_dependent_refnet; restored after), refnet_interval 1 equal to the
+     default bit for bit (the render run stage by stage), k 2 and 5
+     unequal to it, timed, with their difference from k 1 over its peak;
      serving.render_rows on 16 rows at k 1 (not hoisted) and k 2
      (hoisted), timed; the ten sampler names from one x_T at 15 steps,
      model calls counted and K2 = 4 x calls; the Vocos variants
@@ -120,6 +130,20 @@ Phases, each reported on its own lines:
      to first audio, per-sentence AR tokens/s, render s, RTF, peak memory.
      Then one preset("ultra_fast") request (dpm++2m, 15 steps, K2) and the
      first sentence again on the int8 stack (AR tokens/s comparator).
+  7b. train (the training path, xtts_tpu_torch.train.cli at the flagship
+     widths, bf16 compute, f32 parameters, batch 8): a corpus of 16 seeded
+     wavs of 2-12 s with a 6-field filelist under build/train_corpus/
+     (mels cached by prepare.cache_mels), 30 vqvae steps, then 30 gpt
+     steps on the vqvae export with a stand-in tokenizer (characters ->
+     ids 3-250), each evaluating every 10 steps on 8 held-out wavs: K3 once
+     a step plus the eval passes; finite losses; step ms (median), samples
+     /s, mel tokens/s, peak memory and the model FLOPs share of 989
+     TFLOP/s bf16 (gpt_step_flops, dvae_step_flops). The gpt checkpoint
+     restored on the card equal to the saved one bit for bit, 40 gpt steps
+     on one repeated batch (the loss falls below OVERFIT_RATIO of its
+     start), a --resume run from step 30 to 32, cache_vq_codes over the
+     corpus (K3 a file), the exports through TextToSpeech.from_pretrained,
+     and K3 at the trainers' row counts (N 400 and 2400) against its twin.
   8. profile: one more warm B=1 request (seed 4), bare and then under
      torch.profiler: the device's busy share over the request and over its
      AR and render stages, every counted kernel in the trace against the
@@ -185,6 +209,23 @@ WAV_SLOTS_TOL = 1e-3
 # recycled slots, the sampled lengths.
 SLOTS_STOP_BIAS = {"greedy": 1.0, "sampled": 2.0}
 CHAIN_PICKS = 64      # teacher-forced picks a request held against B=1
+# [ref] training, card against CPU after one f32 step: relative loss error
+# (the CPU parity tests' bound against JAX) and the EMA codebook buffers
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_CB_TOL = 1e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6
+# [train]: the corpus, the steps of each trainer, the eval cadence, the
+# steps left out of the step-time statistics (warm-up: the allocator and
+# cuDNN's plans), and the repeated-batch overfitting check
+TRAIN_WAVS = 16
+TRAIN_STEPS = 30
+TRAIN_VAL_FREQ = 10
+TRAIN_WARM = 5
+OVERFIT_STEPS = 40
+# the loss ratio (last / first) the 40 steps must reach: the first
+# measurement read 0.143 (NVIDIA H100 80GB HBM3, 700 W); the bound leaves
+# a 3.5x margin
+OVERFIT_RATIO = 0.5
 SLOTS_EAGER_SEGMENTS = 3   # greedy segments run eagerly against the graphs
 
 
@@ -798,6 +839,92 @@ def k2_checks(torch, fa, results, card):
     record(results, "flash_mha", e_max, *main_times)
 
 
+def qdot64(torch):
+    """The int8 chain's product (infer/qdecode.qdot) with its sums in
+    float64: the noise floor's arm (P3: the plain step against itself on
+    float64 sums)."""
+    def qdot(x, q, bias=None):
+        y = (x.to(torch.bfloat16).double() @ q["w"].double()) \
+            * q["scale"].double()
+        if bias is not None:
+            y = y + bias.double()
+        return y.float()
+    return qdot
+
+
+def forced_picks(torch, tts, cond_mel, text, codes, engine: str = "k1",
+                 cap: int = 100):
+    """Greedy picks teacher-forced along `codes` (1, n) of a B=1 request
+    made with max_mel_tokens `cap`: pick 0 is the prefill's argmax, pick
+    t + 1 the argmax after code t is fed, eagerly, on a cache of the
+    request's rung length. engine: "k1" (the fused step: K1 on the card,
+    its plain twin on the CPU), "chain" (the per-layer int8 chain) or
+    "chain64" (the chain on float64 sums). Returns {"picks": (n,) numpy,
+    "logits": (n, V) f32 on the host}."""
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer import qdecode as qd
+    from xtts_tpu_torch.models.gpt_infer import mel_pos_offset
+    from xtts_tpu_torch.nn.transformer import KVCache
+    from xtts_tpu_torch.ops import decode_step as ds
+    g = tts.cfg.gpt
+    L, H, D, V = g.layers, g.heads, g.model_dim, g.number_mel_codes
+    qt = tts._qtree
+    if engine == "k1" and "fused" not in qt:
+        qd.attach_fused_stack(qt, g)
+    orig = qd.qdot
+    with torch.no_grad():
+        prefix, n_cond = tts.gpt.encode_prefix(cond_mel, text)
+        p_len, n = prefix.shape[1], codes.shape[1]
+        cache = KVCache.zeros(L, 1, dl.cache_rows(p_len, cap), H, D // H,
+                              dtype=torch.bfloat16, device=prefix.device)
+        logits, cache = tts.gpt.prefill(prefix, cache)
+        off = mel_pos_offset(g, n_cond)
+        out = [logits[0].float()]
+        if engine == "chain64":
+            qd.qdot = qdot64(torch)        # instrumentation: the floor arm
+        try:
+            for t in range(n - 1):
+                tok = codes[:, t]
+                if engine == "k1":
+                    lg = ds.fused_decode_logits(
+                        qt["fused"], qd._embed(qt, tok, t + off),
+                        cache.k.view(L, -1, D), cache.v.view(L, -1, D),
+                        p_len + t, L, H)[0][:, :V]
+                else:
+                    lg, _ = qd._decode_logits(qt, H, tok, t + off, cache,
+                                              p_len + t)
+                out.append(lg[0].float())
+        finally:
+            qd.qdot = orig
+    logits = torch.stack(out).cpu()
+    return {"picks": logits.argmax(-1).numpy(), "logits": logits}
+
+
+def greedy_rule(torch, codes, cpu, card, tag: str) -> str:
+    """P3's rule for a greedy request, card against CPU: along the CPU's
+    codes, the card's teacher-forced K1 logits within K1_TOL x max(1,
+    |logits|) of the CPU's, and its picks differing from the codes in at
+    most 2 x floor + 2 places, the floor being the picks that float64 sums
+    alone turn in the CPU's int8 chain along the same codes. A change of
+    weights or length then cannot make the check flaky by a near tie."""
+    n = len(codes)
+    diff = int((card["picks"] != codes).sum())
+    own = int((cpu["k1"]["picks"] != codes).sum())
+    floor = int((cpu["chain"]["picks"] != cpu["chain64"]["picks"]).sum())
+    bound = 2 * floor + 2
+    err = max_err(card["logits"], cpu["k1"]["logits"])
+    lmax = cpu["k1"]["logits"].abs().max().item()
+    check(err <= K1_TOL * max(1.0, lmax),
+          f"{tag}: K1 logits err {err} along the CPU's codes")
+    check(diff <= bound, f"{tag}: {diff} of {n} teacher-forced greedy picks "
+          f"differ from the CPU's codes, bound {bound}")
+    return (f"the card's K1 picks teacher-forced along the CPU's {n} codes: "
+            f"{diff} differ (bound 2 x floor + 2 = {bound}; floor {floor}, "
+            f"the CPU chain against itself on float64 sums; the CPU's own "
+            f"K1 picks differ in {own}), logits max_abs_err {err:.3e} "
+            f"(bound {K1_TOL} x max(1, {lmax:.2f}))")
+
+
 def small_reference_check(torch, np, TextToSpeech, TTSSettings):
     """The whole path on a small configuration: the card (kernels) against
     the CPU (the plain twins, which tests/test_torch_port_e2e.py holds
@@ -931,12 +1058,13 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
     # the rest of the serving side: a speculative request (greedy codes,
     # DDIM from x_T = 0, i.e. diffusion_temperature 0, so both devices
     # render the same thing; the stop logit's bias raised by 1, so the
-    # request stops after 22 codes, in the 64-code bucket, under a cap of
-    # 100 whose bucket is 128: 100 greedy codes part at a near-tie after
-    # 40 between the card and the CPU), refnet_interval 2, unipc and
-    # dpm++3m renders
-    # of the shared codes from the shared x_T, and evaluate_dvae over clips
-    # whose cached mels (.mel.npy, made on the CPU) both devices read
+    # request stops early, in the 64-code bucket, under a cap of 100 whose
+    # bucket is 128), its greedy picks held by P3's rule (greedy_rule);
+    # refnet_interval 1 and 2 (k 2 must differ from k 1: the perturbed
+    # weights make the ReferenceNet features depend on t), unipc and
+    # dpm++3m renders of the shared codes from the shared x_T, and
+    # evaluate_dvae over clips whose cached mels (.mel.npy, made on the
+    # CPU) both devices read
     from xtts_tpu_torch.data.audio import save_wav
     from xtts_tpu_torch.infer.api import bucket_len
     from xtts_tpu_torch.infer.eval_tools import dvae_roundtrip, evaluate_dvae
@@ -953,21 +1081,45 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         np.save(clips[-1] + ".mel.npy", cpu.mel(c)[0].numpy())
     greedy = dict(top_p=1e-4, repetition_penalty=1.0, sampler="ddim",
                   diffusion_steps=4, diffusion_temperature=0.0)
-    variants = (dict(sampler="ddim", diffusion_steps=4, refnet_interval=2),
+    spec_settings = TTSSettings(max_mel_tokens=100, speculative_render=True,
+                                **greedy)
+    variants = (dict(sampler="ddim", diffusion_steps=4, refnet_interval=1),
+                dict(sampler="ddim", diffusion_steps=4, refnet_interval=2),
                 dict(sampler="unipc", diffusion_steps=4),
                 dict(sampler="dpm++3m", diffusion_steps=4))
+    stop = small.gpt.stop_mel_token
     rest = {}
     for name, tts in (("cpu", cpu), ("card", card)):
         dev = tts.device
         cond = tts.cond_mel_from_wav(wav)
-        stop = small.gpt.stop_mel_token
         bias = float(tts.gpt.mel_head.bias[stop])
         with torch.no_grad():
             tts.gpt.mel_head.bias[stop] = bias + 1.0
         tts.requantize()
         sp = tts.tts_tokens(text[0].numpy(), cond, tts._generator(0),
-                            TTSSettings(max_mel_tokens=100,
-                                        speculative_render=True, **greedy))
+                            spec_settings)
+        if name == "card":
+            # the card's picks teacher-forced along the CPU's codes, and
+            # the CPU's codes rendered on the card as the speculative
+            # request renders them (the cap's bucket)
+            c_codes = torch.as_tensor(rest["cpu"][0]["codes"])
+            c_len = int(rest["cpu"][0]["lengths"][0])
+            forced = {"card": forced_picks(torch, tts, cond, text.to(dev),
+                                           c_codes[:, :c_len].to(dev))}
+            n_b = bucket_len(98, tts._code_buckets())
+            lens = torch.clamp(torch.tensor([c_len - 2], device=dev), 1, n_b)
+            w = tts._render(cond, text.to(dev), tts._pad_codes(
+                c_codes.to(dev), lens, n_b), lens, tts._generator(0),
+                spec_settings)
+            keep = ((c_len - 2) * small.vqvae.compression
+                    * small.vocos.hop_length)
+            sp["wav_of_cpu_codes"] = w[:, :keep].cpu().numpy()
+        else:
+            c_len = int(sp["lengths"][0])
+            forced = {e: forced_picks(torch, tts, cond, text,
+                                      torch.as_tensor(sp["codes"][:, :c_len]),
+                                      engine=e)
+                      for e in ("k1", "chain", "chain64")}
         with torch.no_grad():
             tts.gpt.mel_head.bias[stop] = bias
         tts.requantize()
@@ -980,36 +1132,45 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         ev_codes = [dvae_roundtrip(tts.dvae, np.load(c + ".mel.npy"))["codes"]
                     for c in clips]
         rest[name] = (sp, renders, summary, ev_codes,
-                      vq.vq_nearest.launches - before)
-    c_sp, c_r, c_sum, c_ev, c_k3 = rest["cpu"]
-    k_sp, k_r, k_sum, k_ev, k_k3 = rest["card"]
+                      vq.vq_nearest.launches - before, forced)
+    c_sp, c_r, c_sum, c_ev, c_k3, c_forced = rest["cpu"]
+    k_sp, k_r, k_sum, k_ev, k_k3, k_forced = rest["card"]
     check(c_k3 == 0 and k_k3 == 6, f"K3 launches: cpu {c_k3}, card {k_k3}")
-    check(np.array_equal(c_sp["codes"], k_sp["codes"]),
-          f"speculative request: greedy codes differ: card "
-          f"{k_sp['codes'].tolist()} vs cpu {c_sp['codes'].tolist()}")
-    errs = [float(np.abs(k_sp["wav"] - c_sp["wav"]).max())]
+    rule = greedy_rule(torch, c_sp["codes"][0, :int(c_sp["lengths"][0])],
+                       c_forced, k_forced["card"], "[ref] speculative")
+    same = np.array_equal(c_sp["codes"], k_sp["codes"])
+    errs = [float(np.abs(k_sp["wav_of_cpu_codes"] - c_sp["wav"]).max())]
+    if same:      # the card's own request renders the same codes
+        errs.append(float(np.abs(k_sp["wav"] - c_sp["wav"]).max()))
     errs += [max_err(k, c) for k, c in zip(k_r, c_r)]
-    check(all(np.isfinite(k_sp["wav"]).all() and e <= SMALL_WAV_TOL
-              for e in errs) and all(bool(torch.isfinite(k).all())
-                                     for k in k_r),
-          f"speculative / refnet 2 / unipc / dpm++3m render errs {errs}")
+    check(all(e <= SMALL_WAV_TOL for e in errs)
+          and np.isfinite(k_sp["wav"]).all()
+          and all(bool(torch.isfinite(k).all()) for k in k_r),
+          f"speculative / refnet 1 and 2 / unipc / dpm++3m render errs "
+          f"{errs}")
+    d_k = max_err(k_r[1], k_r[0])
+    check(d_k > 0, "[ref] refnet_interval 2 renders equal k 1's on the card: "
+          "the hoist is not seen")
     check(all(np.array_equal(a, b) for a, b in zip(c_ev, k_ev))
           and c_sum["codebook_usage"] == k_sum["codebook_usage"]
           and c_sum["n"] == k_sum["n"] == 3
           and abs(c_sum["mel_l1_mean"] - k_sum["mel_l1_mean"]) <= 1e-3,
           f"evaluate_dvae: card {k_sum} vs cpu {c_sum}")
-    n_sp = max(int(k_sp["lengths"][0]) - 2, 1)
+    n_sp = max(int(c_sp["lengths"][0]) - 2, 1)
     check(bucket_len(n_sp, card._code_buckets()) < bucket_len(
         98, card._code_buckets()), f"speculative request: {n_sp} codes")
     log(f"[ref] small config, the rest: speculative request (cap 100, "
-        f"bucket 128, {n_sp} codes kept, greedy codes identical) wav "
-        f"max_abs_err "
-        f"{errs[0]:.3e}; refnet_interval 2, unipc, dpm++3m renders "
-        f"max_abs_err {errs[1]:.3e}, {errs[2]:.3e}, {errs[3]:.3e} (bound "
-        f"{SMALL_WAV_TOL}); evaluate_dvae over 3 cached mels: codes "
-        f"identical, usage {k_sum['codebook_usage']}, mel_l1_mean card "
-        f"{k_sum['mel_l1_mean']:.6f} cpu {c_sum['mel_l1_mean']:.6f} ({k_k3} "
-        f"K3 launches on the card)")
+        f"bucket 128, {n_sp} codes kept; {rule}; the card's own codes "
+        f"{'equal' if same else 'differ from'} the CPU's) wav of the CPU's "
+        f"codes max_abs_err {errs[0]:.3e}"
+        f"{f', of its own codes {errs[1]:.3e}' if same else ''}; "
+        f"refnet_interval 1, 2, unipc, dpm++3m renders max_abs_err "
+        f"{', '.join(f'{e:.3e}' for e in errs[-4:])} (bound "
+        f"{SMALL_WAV_TOL}); on the card k 2 differs from k 1 by {d_k:.3e} "
+        f"(|wav| max {k_r[0].abs().max().item():.3f}); evaluate_dvae over "
+        f"3 cached mels: codes identical, usage {k_sum['codebook_usage']}, "
+        f"mel_l1_mean card {k_sum['mel_l1_mean']:.6f} cpu "
+        f"{c_sum['mel_l1_mean']:.6f} ({k_k3} K3 launches on the card)")
 
     # slice C0: K1's int4 stack (XTTS_DECODE_BITS=4 read at requantize())
     # and the HiFi-GAN render of the greedy codes. (The int4 head rounds
@@ -1068,6 +1229,462 @@ def small_reference_check(torch, np, TextToSpeech, TTSSettings):
         f"finite")
 
 
+class StandInTokenizer:
+    """The card machine has no `tokenizers`: characters -> ids 3-250, with
+    the interface the training CLI takes (encode, vocab_size)."""
+
+    vocab_size = 251
+
+    def encode(self, s):
+        return [3 + ord(c) % 248 for c in s]
+
+
+def train_reference_check(torch, np):
+    """[ref], training: one optimizer step of the vqvae and the gpt trainer
+    (train/trainer.py, train/steps.py) on the card and on the CPU port, f32
+    (TF32 off), from the same perturbed weights and the same collated
+    batch. Losses within TRAIN_LOSS_TOL relative; every parameter after the
+    step within 3 lr 1e-2 (the CPU parity tests' bound against JAX); the
+    DVAE codes equal up to vq_agree (the card's K3 against the CPU's twin);
+    the gradients within the CPU tests' rtol 1e-4 / atol 1e-6; a parameter
+    may move further apart only by what that gradient tolerance moves
+    Adam's first update, lr g / (|g| + eps) (near a zero gradient, eps
+    turns rounding noise into a move of up to lr);
+    the codebook buffers after the EMA update within TRAIN_CB_TOL. Counted:
+    K3 once a step on the card, never on the CPU."""
+    import copy
+    from xtts_tpu_torch.core.config import (DVAEConfig, GPTConfig,
+                                            MelConfig, TrainConfig,
+                                            XTTSConfig)
+    from xtts_tpu_torch.models.dvae import DVAE
+    from xtts_tpu_torch.models.gpt import UnifiedVoice
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.train import cli
+    from xtts_tpu_torch.train.steps import make_dvae_loss, make_gpt_loss
+    from xtts_tpu_torch.train.trainer import Trainer
+
+    mb = 8
+    cfg = XTTSConfig(
+        mel=MelConfig(n_mels=mb),
+        vqvae=DVAEConfig(channels=mb, num_tokens=30, hidden_dim=16,
+                         num_resnet_blocks=1, codebook_dim=16, num_layers=2),
+        gpt=GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=64,
+                      max_text_tokens=32, number_mel_codes=200,
+                      start_mel_token=198, stop_mel_token=199, mel_bins=mb,
+                      cond_attn_blocks=1),
+        train=TrainConfig(lr=1e-3, lr_schedule="constant", accum_grad=1,
+                          dtype="float32"))
+    g = torch.Generator().manual_seed(4)
+    base = {"vqvae": DVAE(cfg.vqvae), "gpt": UnifiedVoice(cfg.gpt)}
+    with torch.no_grad():
+        for m in base.values():
+            init_flax_like(m, g)
+            for p in m.parameters():    # the flax init zeroes projections
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    rng = np.random.default_rng(5)
+    vq_batch = {"mel": rng.standard_normal((4, mb, 64)).astype(np.float32)}
+    samples = []
+    for i in range(3):
+        t_mel = 40 + 24 * i
+        samples.append({
+            "text": rng.integers(3, 250, 6 + 3 * i).astype(np.int32),
+            "mel": rng.standard_normal((mb, t_mel)).astype(np.float32),
+            "cond_mel": rng.standard_normal((mb, 30)).astype(np.float32),
+            "wav_length": np.int32(t_mel * 256)})
+    gpt_batch = cli.adapt_batch("gpt", cli.build_collate("gpt", cfg)(samples))
+    lr = cfg.train.lr
+    out = {}
+    for dev in ("cpu", "cuda"):
+        runs = {}
+        for fam in ("vqvae", "gpt"):
+            model = copy.deepcopy(base[fam]).to(dev)
+            if fam == "vqvae":
+                loss_fn, batch = make_dvae_loss(model), vq_batch
+            else:
+                frozen = copy.deepcopy(base["vqvae"]).to(dev).eval()
+                loss_fn, batch = make_gpt_loss(model, frozen), gpt_batch
+            batch = cli.to_device(batch, dev)
+            dvae = model if fam == "vqvae" else frozen
+            with torch.no_grad():
+                x = dvae.encode(batch["mel"]).reshape(-1,
+                                                      cfg.vqvae.codebook_dim)
+                codes = dvae.get_codebook_indices(batch["mel"]).reshape(-1)
+            tr = Trainer(model, loss_fn, cfg.train, accum_steps=1)
+            st = tr.init_state()
+            loss_fn(batch, None)[0].backward()     # the step's gradients
+            grads = {n: p.grad.detach().cpu() for n, p in st.params.items()}
+            model.zero_grad(set_to_none=True)
+            k3 = vq.vq_nearest.launches
+            st, metrics = tr.step(st, batch)
+            runs[fam] = dict(
+                grads=grads, k3=vq.vq_nearest.launches - k3, x=x,
+                codes=codes,
+                embed=dvae.codebook.embed.detach().clone(),
+                metrics={k: float(v) for k, v in metrics.items()},
+                params={k: v.detach().cpu() for k, v in st.params.items()},
+                cols={k: v.cpu() for k, v in st.state_cols.items()})
+        out[dev] = runs
+    lines = []
+    for fam in ("vqvae", "gpt"):
+        c, k = out["cpu"][fam], out["cuda"][fam]
+        check(c["k3"] == 0 and k["k3"] == 1,
+              f"[ref] {fam} step: K3 launches cpu {c['k3']}, card {k['k3']}")
+        n_diff, gap = vq_agree(torch, k["x"], k["embed"], k["codes"],
+                               c["codes"].cuda(), f"[ref] {fam} step codes")
+        loss_err = {m: abs(k["metrics"][m] - c["metrics"][m])
+                    / max(abs(c["metrics"][m]), 1e-12) for m in c["metrics"]
+                    if m != "lr"}
+        check(all(e <= TRAIN_LOSS_TOL for e in loss_err.values()),
+              f"[ref] {fam} step losses and grad norm {loss_err}")
+        g_err = max(((k["grads"][n] - c["grads"][n]).abs()
+                     - TRAIN_GRAD_RTOL * c["grads"][n].abs()).max().item()
+                    for n in c["grads"])
+        check(g_err <= TRAIN_GRAD_ATOL, f"[ref] {fam} gradients: beyond "
+              f"rtol {TRAIN_GRAD_RTOL} by {g_err}")
+        # Adam's first update is u(g) = g / (|g| + eps): a gradient within
+        # its tolerance dg of the CPU's moves u by at most dg eps / (|g| -
+        # dg + eps)^2 (|u'| on the interval), at most 2: near zero, eps
+        # turns rounding noise into a move of up to lr
+        p_err, wide = 0.0, 0
+        for n in c["params"]:
+            d = (k["params"][n] - c["params"][n]).abs()
+            g = c["grads"][n].abs()
+            dg = TRAIN_GRAD_RTOL * g + TRAIN_GRAD_ATOL
+            du = torch.clamp(dg * 1e-8 / (torch.clamp(g - dg, min=0) + 1e-8)
+                             ** 2, max=2.0)
+            allowed = 3 * lr * 1e-2 + lr * du
+            check(bool((d <= allowed).all()), f"[ref] {fam} {n}: parameters "
+                  f"apart by {(d - allowed).max().item()} beyond the bound")
+            wide += int((d > 3 * lr * 1e-2).sum())
+            p_err = max(p_err, d.max().item())
+        cb_err = max([max_err(k["cols"][n], c["cols"][n]) for n in c["cols"]]
+                     or [0.0])
+        check(cb_err <= TRAIN_CB_TOL, f"[ref] {fam} codebook err {cb_err}")
+        lines.append(
+            f"{fam}: loss {c['metrics']['loss']:.6f} (cpu) rel err "
+            f"{loss_err['loss']:.2e}, grad_norm rel err "
+            f"{loss_err['grad_norm']:.2e}; gradients within rtol "
+            f"{TRAIN_GRAD_RTOL} + {g_err:.1e} (bound {TRAIN_GRAD_ATOL}); "
+            f"params after the step max_abs_err {p_err:.2e} (bound "
+            f"{3 * lr * 1e-2:.0e} + lr x what the gradient tolerance moves "
+            f"Adam's update; {wide} elements past {3 * lr * 1e-2:.0e}); "
+            f"codes "
+            f"{c['codes'].numel() - n_diff}/{c['codes'].numel()} equal "
+            f"({n_diff} within the fp32 tie bound)"
+            + (f"; codebook after the EMA update max_abs_err {cb_err:.2e} "
+               f"(bound {TRAIN_CB_TOL})" if fam == "vqvae" else ""))
+    log(f"[ref] small config, training (f32, one step from the same weights "
+        f"and collated batch, card vs CPU): {'; '.join(lines)}")
+
+
+def _step_times(jsonl: Path, warm: int):
+    """The per-step wall times the training CLI logs, after `warm` steps."""
+    recs = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    return [r["step_s"] for r in recs if "step_s" in r and r["step"] > warm]
+
+
+def gpt_step_flops(cfg, b: int, t_text: int, t_mel: int, t_cond: int):
+    """Model FLOPs of one GPT training step (forward + backward = 3 x the
+    forward's 2 x multiply-adds) at padded shapes: the GPT stack's products
+    2 B S 12 D^2 a layer and its attention 4 B S^2 D a layer (S = t_text +
+    t_mel + 5: cond, [start; text; stop; stop], [start; codes; stop;
+    stop]), the text and mel heads, and the conditioning encoder (1x1 conv
+    mel -> D, then per block 2 B T 4 D^2 + 4 B T^2 D over t_cond frames).
+    The frozen DVAE's codes are not counted."""
+    g = cfg.gpt
+    d, seq = g.model_dim, t_text + t_mel + 5
+    fwd = g.layers * (2 * b * seq * 12 * d * d + 4 * b * seq * seq * d)
+    fwd += 2 * b * (t_text + 2) * d * (g.number_text_tokens * g.types + 1)
+    fwd += 2 * b * (t_mel + 2) * d * g.number_mel_codes
+    fwd += 2 * b * t_cond * g.mel_bins * d
+    fwd += g.cond_attn_blocks * (2 * b * t_cond * 4 * d * d
+                                 + 4 * b * t_cond * t_cond * d)
+    return 3 * fwd
+
+
+def dvae_step_flops(torch, dvae, mel):
+    """Model FLOPs of one DVAE training step: 3 x the forward's conv
+    multiply-adds (2 Cin Cout k T_out B each, counted by forward hooks on
+    one forward) plus the quantizer's two codebook products, K3's distance
+    product and the one-hot statistics, 2 N D E each (no backward)."""
+    total = [0]
+
+    def hook(m, inp, out):
+        total[0] += (2 * m.in_channels // m.groups * m.out_channels
+                     * m.kernel_size[0] * out.shape[-1] * out.shape[0])
+    hs = [m.register_forward_hook(hook) for m in dvae.modules()
+          if isinstance(m, torch.nn.Conv1d)]
+    try:
+        with torch.no_grad():
+            z = dvae.encode(mel)
+            dvae.decoder(z.transpose(1, 2))
+    finally:
+        for h in hs:
+            h.remove()
+    c = dvae.cfg
+    n = z.shape[0] * z.shape[1]
+    return 3 * total[0] + 2 * 2 * n * c.codebook_dim * c.num_tokens
+
+
+def train_phase(torch, np, launches, results, card):
+    """[train], the training path at the flagship widths through the CLI
+    (xtts_tpu_torch.train.cli.train): a seeded corpus of TRAIN_WAVS wavs,
+    its mels cached (prepare.cache_mels); TRAIN_STEPS vqvae steps, then
+    TRAIN_STEPS gpt steps on the vqvae export, each evaluating every
+    TRAIN_VAL_FREQ steps on 8 held-out wavs; the gpt checkpoint restored
+    bit for bit, then a --resume run to TRAIN_STEPS + 2; OVERFIT_STEPS gpt
+    steps on one repeated batch; cache_vq_codes over the corpus; the exports
+    through TextToSpeech.from_pretrained; K3 at the trainers' row counts
+    against its plain twin. Launch counts reset before each run and read
+    after. Returns the phase's seconds."""
+    import itertools
+    import shutil
+    from xtts_tpu_torch.core.config import XTTSConfig
+    from xtts_tpu_torch.data.audio import save_wav
+    from xtts_tpu_torch.data.datasets import (FilelistEntry, batch_iterator,
+                                              write_filelist)
+    from xtts_tpu_torch.data.prepare import cache_mels, cache_vq_codes
+    from xtts_tpu_torch.dsp.mel import MelFrontend
+    from xtts_tpu_torch.infer.api import TextToSpeech
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.train import cli
+    from xtts_tpu_torch.train.trainer import Trainer
+    from xtts_tpu_torch.utils.registry import load_model
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "train_corpus"
+    runs = ROOT / "build" / "train_runs"
+    for d in (root, runs):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    rng = np.random.default_rng(12)
+    syll = ("ni3", "hao3", "jin1", "tian1", "qi4", "hen3", "zhong1", "guo2",
+            "ren2", "men5", "shuo1", "hua4", "xue2", "sheng1", "lao3", "shi1")
+    entries = []
+    for i in range(TRAIN_WAVS):
+        sec = 2.0 + 10.0 * i / (TRAIN_WAVS - 1)
+        t = np.arange(int(sec * SR)) / SR
+        f0 = 110 + 25 * i
+        w = (0.3 * np.sin(2 * np.pi * f0 * t) * (0.6 + 0.4 * np.sin(
+            2 * np.pi * 3 * t)) + 0.05 * rng.standard_normal(t.size))
+        path = str(root / f"utt{i:02d}.wav")
+        save_wav(path, w.astype(np.float32))
+        words = " ".join(rng.choice(syll, int(3 * sec)))
+        entries.append(FilelistEntry(f"utt{i:02d}", path, "spk0", "zh",
+                                     words, words))
+    write_filelist(str(root / "train.txt"), entries)
+    write_filelist(str(root / "val.txt"), entries[::2])
+    cfg = XTTSConfig()
+    cfg = cfg.replace(train=cfg.train.replace(
+        batch_size=8, accum_grad=1, lr_schedule="constant",
+        val_freq=TRAIN_VAL_FREQ, save_freq=TRAIN_STEPS, keep_ckpts=2,
+        train_steps=TRAIN_STEPS))
+    cfg.to_json(str(root / "cfg.json"))
+    paths = [e.wav_path for e in entries]
+    t0 = time.perf_counter()
+    n_mels = cache_mels(paths, MelFrontend(cfg.mel, "cuda"))
+    check(n_mels == TRAIN_WAVS, f"cache_mels wrote {n_mels}")
+    log(f"[train] corpus: {TRAIN_WAVS} seeded wavs of 2-12 s "
+        f"({sum(len(e.cleaned_text) for e in entries)} text chars), mels "
+        f"cached on the card in {time.perf_counter() - t0:.2f} s; config "
+        f"XTTSConfig() (DVAE 100 -> 512 hidden, 8192 x 512 codebook; GPT "
+        f"{cfg.gpt.layers} x {cfg.gpt.model_dim} x {cfg.gpt.heads} heads, "
+        f"vocab {cfg.gpt.number_mel_codes}), batch 8, constant lr "
+        f"{cfg.train.lr}, bf16 compute, f32 parameters")
+
+    common = ["-c", str(root / "cfg.json"), "--filelist",
+              str(root / "train.txt"), "--val-filelist",
+              str(root / "val.txt")]
+    vq_dir, gpt_dir = runs / "vqvae", runs / "gpt"
+    gpt_args = ["gpt", "-m", str(gpt_dir), "--dvae-weights",
+                str(vq_dir / "vqvae.pth")] + common
+    n_evals = TRAIN_STEPS // TRAIN_VAL_FREQ
+    stats = {}
+    for fam, argv, k3_per_eval in (
+            ("vqvae", ["vqvae", "-m", str(vq_dir)] + common, 2),
+            ("gpt", gpt_args, 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        t0 = time.perf_counter()
+        st = cli.main(argv, tokenizer=StandInTokenizer())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches.read()
+        want = TRAIN_STEPS + n_evals * k3_per_eval
+        check(st.step == TRAIN_STEPS, f"[train] {fam} ended at {st.step}")
+        check(got["vq_nearest"] == want, f"[train] {fam}: K3 launched "
+              f"{got['vq_nearest']} times, want {want} (one a step, "
+              f"{k3_per_eval} an eval pass)")
+        recs = [json.loads(x) for x in (runs / fam / "logs" / "metrics.jsonl")
+                .read_text().splitlines()]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r["eval/loss"] for r in recs if "eval/loss" in r]
+        check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+              and len(evals) == n_evals and all(map(math.isfinite, evals)),
+              f"[train] {fam} losses {losses} evals {evals}")
+        stats[fam] = dict(wall=wall, k3=got["vq_nearest"], losses=losses,
+                          evals=evals, peak=torch.cuda.max_memory_allocated()
+                          / 2 ** 30,
+                          step_s=_step_times(runs / fam / "logs" /
+                                             "metrics.jsonl", TRAIN_WARM))
+
+    # the steps' shapes: the same seeded iterator again
+    ds = cli.build_dataset("gpt", cfg, str(root / "train.txt"),
+                           StandInTokenizer(), cfg.train.seed, "cuda")
+    shapes = [(b["text"].shape[1], b["mel"].shape[2] // 4,
+               b["cond_mel"].shape[2]) for b in itertools.islice(
+        batch_iterator(ds, 8, cli.build_collate("gpt", cfg),
+                       seed=cfg.train.seed), TRAIN_STEPS)][TRAIN_WARM:]
+    vq_ds = cli.build_dataset("vqvae", cfg, str(root / "train.txt"), None,
+                              cfg.train.seed, "cuda")
+    vq_mel = next(batch_iterator(vq_ds, 8, cli.build_collate("vqvae", cfg),
+                                 seed=cfg.train.seed))["mel"]
+    dvae = load_model("vqvae", cfg, str(vq_dir / "vqvae.pth"),
+                      dtype=torch.bfloat16)
+    vq_mel = torch.from_numpy(vq_mel).cuda()
+    flops = {"vqvae": [dvae_step_flops(torch, dvae, vq_mel)] * len(
+        stats["vqvae"]["step_s"]),
+             "gpt": [gpt_step_flops(cfg, 8, *sh) for sh in shapes]}
+    tokens = [8 * (sh[1] + 2) for sh in shapes]
+    for fam in ("vqvae", "gpt"):
+        s = stats[fam]
+        med = statistics.median(s["step_s"])   # steps after evals read more
+        s["median_ms"] = 1e3 * med
+        s["samples_s"] = 8 / med
+        s["tflop_step"] = statistics.mean(flops[fam]) / 1e12
+        s["mfu"] = s["tflop_step"] * 1e12 / med / PEAK["bf16"]
+        extra = (f", mel tokens {statistics.mean(tokens) / med:.0f}/s (8 x "
+                 f"(codes + 2) a step, padded)" if fam == "gpt" else "")
+        log(f"[train] {fam}: {TRAIN_STEPS} steps in {s['wall']:.2f} s (with "
+            f"{n_evals} evals and the save); step "
+            f"{s['median_ms']:.1f} ms median over steps {TRAIN_WARM + 1}-"
+            f"{TRAIN_STEPS} (the loader included), {s['samples_s']:.1f} "
+            f"samples/s{extra}; model FLOPs {s['tflop_step']:.3f} TFLOP a "
+            f"step (mean), {100 * s['mfu']:.2f}% of {PEAK['bf16'] / 1e12:.0f} "
+            f"TFLOP/s bf16; peak memory {s['peak']:.2f} GiB; loss "
+            f"{s['losses'][0]:.4f} -> {s['losses'][-1]:.4f}, eval "
+            f"{', '.join(f'{e:.4f}' for e in s['evals'])}; K3 {s['k3']} "
+            f"launches  [{card}]")
+
+    # resume: the restored state equals the checkpoint's bit for bit
+    args = cli.parser().parse_args(gpt_args)
+    loss_fn, module, _ = cli.build_loss("gpt", cfg, args, "cuda")
+    tr = Trainer(module, loss_fn, cfg.train, accum_steps=1,
+                 checkpoint_dir=str(gpt_dir / "ckpt"))
+    state = tr.restore(tr.init_state())
+    saved = torch.load(gpt_dir / "ckpt" / f"{TRAIN_STEPS}.pt",
+                       map_location="cpu", weights_only=True)
+    live = Trainer.payload(state)
+    n_t = 0
+    for group in ("params", "state_cols"):
+        for k, v in live[group].items():
+            check(torch.equal(v.cpu(), saved[group][k]), f"restored {k}")
+            n_t += 1
+    for mom in ("mu", "nu"):
+        for k, v in live["opt_state"][mom].items():
+            check(torch.equal(v.cpu(), saved["opt_state"][mom][k]),
+                  f"restored {mom} {k}")
+            n_t += 1
+    check(state.step == saved["step"] == TRAIN_STEPS
+          and state.opt_state.count == saved["opt_state"]["count"],
+          f"restored step {state.step}")
+
+    # overfitting: one batch, repeated
+    batch = cli.to_device(cli.adapt_batch("gpt", next(batch_iterator(
+        ds, 8, cli.build_collate("gpt", cfg), seed=99))), "cuda")
+    fit = []
+    launches.reset()
+    for _ in range(OVERFIT_STEPS):
+        state, m = tr.step(state, batch)
+        fit.append(float(m["loss"]))
+    check(launches.read()["vq_nearest"] == OVERFIT_STEPS,
+          "[train] overfit: K3 once a step")
+    check(all(map(math.isfinite, fit))
+          and fit[-1] <= OVERFIT_RATIO * fit[0],
+          f"[train] gpt loss on one repeated batch {fit[0]:.4f} -> "
+          f"{fit[-1]:.4f}: ratio {fit[-1] / fit[0]:.3f} > {OVERFIT_RATIO}")
+    del tr, state, module, loss_fn, batch
+    torch.cuda.empty_cache()
+
+    launches.reset()
+    st = cli.main(gpt_args + ["--resume", "--steps", str(TRAIN_STEPS + 2)],
+                  tokenizer=StandInTokenizer())
+    recs = [json.loads(x) for x in (gpt_dir / "logs" / "metrics.jsonl")
+            .read_text().splitlines()]
+    after = [r["step"] for r in recs if "loss" in r][TRAIN_STEPS:]
+    check(st.step == TRAIN_STEPS + 2 and after == [TRAIN_STEPS + 1,
+                                                   TRAIN_STEPS + 2]
+          and launches.read()["vq_nearest"] == 2,
+          f"[train] --resume ran steps {after}")
+    log(f"[train] resume: the gpt checkpoint of step {TRAIN_STEPS} restored "
+        f"on the card equal to the saved one bit for bit ({n_t} tensors: "
+        f"parameters, Adam moments; count and step); --resume ran steps "
+        f"{after}; overfitting one repeated batch of 8: loss {fit[0]:.4f} "
+        f"-> {fit[-1]:.4f} over {OVERFIT_STEPS} steps (ratio "
+        f"{fit[-1] / fit[0]:.3f}, bound {OVERFIT_RATIO})  [{card}]")
+
+    # cache_vq_codes over the corpus on the vqvae export (K3 a file)
+    launches.reset()
+    for p in paths:
+        Path(p + ".melvq.npy").unlink(missing_ok=True)
+    n_vq = cache_vq_codes(paths, load_model("vqvae", cfg,
+                                            str(vq_dir / "vqvae.pth")))
+    check(n_vq == TRAIN_WAVS and launches.read()["vq_nearest"] == TRAIN_WAVS,
+          f"cache_vq_codes wrote {n_vq}")
+
+    # the exports load where the serving side reads them
+    pre = runs / "pretrained"
+    pre.mkdir()
+    for src in (vq_dir / "vqvae.pth", gpt_dir / "gpt.pth"):
+        (pre / src.name).symlink_to(src)
+    tts = TextToSpeech.from_pretrained(str(pre), cfg, device="cuda",
+                                       quantized_decode=False)
+    exported = torch.load(gpt_dir / "gpt.pth", map_location="cuda",
+                          weights_only=True)
+    check(all(torch.equal(tts.gpt.state_dict()[k], v)
+              for k, v in exported.items())
+          and torch.equal(tts.dvae.codebook.embed.cpu(),
+                          dvae.codebook.embed.cpu()),
+          "from_pretrained did not load the exports")
+    del tts, exported
+
+    # K3 at the trainers' row counts against its plain twin
+    with torch.no_grad():
+        x_vq = dvae.encode(vq_mel).float().reshape(-1, 512).contiguous()
+        gb = next(batch_iterator(ds, 8, cli.build_collate("gpt", cfg),
+                                 seed=cfg.train.seed))
+        frozen = load_model("vqvae", cfg, str(vq_dir / "vqvae.pth"))
+        x_gpt = frozen.encode(torch.from_numpy(gb["mel"]).cuda()).reshape(
+            -1, 512).contiguous()
+    emb = dvae.codebook.embed
+    rows = []
+    for tag, xx in (("vqvae", x_vq), ("gpt", x_gpt)):
+        got, want = vq.vq_nearest(xx, emb), vq.vq_nearest_plain(xx, emb)
+        n_diff, gap = vq_agree(torch, xx, emb, got, want, f"[train] K3 {tag}")
+        n, d = xx.shape
+        e = emb.shape[1]
+        et = emb.t().contiguous()
+        dk = device_us(torch, lambda: vq.vq_nearest(xx, emb), n=20)
+        dp = device_us(torch, lambda: vq.vq_nearest_plain(xx, emb), n=20)
+        dl = device_us(torch, lambda: torch.cdist(xx, et).argmin(1), n=20)
+        bnd = bound(4 * (n * d + d * e + e) + 8 * n, 3 * 2 * n * d * e,
+                    "tf32")
+        rows.append(dict(trainer=tag, n=n, device_us=dk, plain_device_us=dp,
+                         library_device_us=dl, bound_ms=bnd[0],
+                         bound_by=bnd[1], codes_differ=n_diff))
+        log(f"[train] K3 at the {tag} trainer's rows (N {n}, D {d}, E {e}): "
+            f"codes equal the twin's on {n - n_diff}/{n} rows ({n_diff} "
+            f"within the fp32 tie bound, largest f64 gap {gap:.3e}); device "
+            f"{fmt_us(dk)} a call, plain twin {fmt_us(dp)}, cdist+argmin "
+            f"{fmt_us(dl)}, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})  [{card}]")
+    results["vq_nearest"]["train"] = rows
+    del dvae, frozen
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
 class Launches:
     """The launch counters of every kernel wrapper, the step counters of the
     K1 and K4 chains, and, as "<kernel>+ln", the launches of a product with
@@ -1094,6 +1711,29 @@ class Launches:
         return got
 
 
+def vq_agree(torch, xx, ee, got, want, tag: str):
+    """K3's codes `got` against `want` for rows xx (N, D) and codebook ee
+    (D, E): equal, except where the two picks' distances recomputed in f64
+    lie within the fp32 error bound of one D-term dot product, 4 D 2^-24
+    (2 sum|x||e| + |e|^2) (tests/test_torch_port_kernels.py:_vq_agree).
+    Returns (rows that differ, the largest f64 gap among them)."""
+    x64, e64 = xx.double(), ee.double()
+    bad = (got != want).nonzero().flatten().tolist()
+    worst = 0.0
+    for r in bad:
+        picks = torch.tensor([int(got[r]), int(want[r])], device=xx.device)
+        ep = e64[:, picks]
+        dist = (ep * ep).sum(0) - 2 * x64[r] @ ep
+        lim = 4 * xx.shape[1] * 2.0 ** -24 * (
+            2 * (x64[r].abs()[:, None] * ep.abs()).sum(0)
+            + (ep * ep).sum(0)).max()
+        gap = (dist[0] - dist[1]).abs().item()
+        check(gap <= lim, f"{tag} row {r}: picks {picks.tolist()} differ "
+              f"by {gap:.3e} in f64 > bound {lim.item():.3e}")
+        worst = max(worst, gap)
+    return len(bad), worst
+
+
 def k3_checks(torch, vq, x, emb, results, card):
     """K3 on the DVAE's own logits (N 3008 x D 512) and codebook (E 8192),
     a ragged shape, and a planted tie. Codes must equal the plain twin's,
@@ -1102,23 +1742,6 @@ def k3_checks(torch, vq, x, emb, results, card):
     |e|^2) (tests/test_torch_port_kernels.py:_vq_agree): the two sum in
     another order (the kernel's products in 3xTF32 on the tensor cores), so
     a near tie may break either way. Counted."""
-    def agree(xx, ee, got, want):
-        x64, e64 = xx.double(), ee.double()
-        bad = (got != want).nonzero().flatten().tolist()
-        worst = 0.0
-        for r in bad:
-            picks = torch.tensor([int(got[r]), int(want[r])], device="cuda")
-            ep = e64[:, picks]
-            dist = (ep * ep).sum(0) - 2 * x64[r] @ ep
-            lim = 4 * xx.shape[1] * 2.0 ** -24 * (
-                2 * (x64[r].abs()[:, None] * ep.abs()).sum(0)
-                + (ep * ep).sum(0)).max()
-            gap = (dist[0] - dist[1]).abs().item()
-            check(gap <= lim, f"K3 row {r}: picks {picks.tolist()} differ "
-                  f"by {gap:.3e} in f64 > bound {lim.item():.3e}")
-            worst = max(worst, gap)
-        return len(bad), worst
-
     g = torch.Generator(device="cuda").manual_seed(31)
     cases = [("path", x, emb),
              ("ragged", torch.randn(1001, 512, generator=g, device="cuda"),
@@ -1126,7 +1749,7 @@ def k3_checks(torch, vq, x, emb, results, card):
     for name, xx, ee in cases:
         got = vq.vq_nearest(xx, ee)
         want = vq.vq_nearest_plain(xx, ee)
-        n_diff, gap = agree(xx, ee, got, want)
+        n_diff, gap = vq_agree(torch, xx, ee, got, want, f"K3 {name}")
         n, d = xx.shape
         e = ee.shape[1]
         tk = time_ms(torch, lambda: vq.vq_nearest(xx, ee))
@@ -1551,14 +2174,7 @@ def chain_picks(torch, tts, qt, cond_mel, texts, codes, lens, max_gen):
     from xtts_tpu_torch.nn.transformer import KVCache
     gcfg = tts.cfg.gpt
     heads = gcfg.heads
-
-    def qdot64(x, q, bias=None):
-        y = (x.to(torch.bfloat16).double() @ q["w"].double()) \
-            * q["scale"].double()
-        if bias is not None:
-            y = y + bias.double()
-        return y.float()
-
+    floor_qdot = qdot64(torch)
     prefix0, _ = tts.gpt.encode_prefix(cond_mel, texts[0])
     p_len = prefix0.shape[1]
     tok = torch.zeros(1, dtype=torch.long, device="cuda")
@@ -1574,7 +2190,7 @@ def chain_picks(torch, tts, qt, cond_mel, texts, codes, lens, max_gen):
             lg, _ = qd._decode_logits(qt, heads, tok, mel_pos, cache, index)
             pick.copy_(lg[0].argmax())
         orig = qd.qdot
-        qd.qdot = qdot64 if f64 else orig   # instrumentation: the floor arm
+        qd.qdot = floor_qdot if f64 else orig   # the floor arm
         try:
             step()
             graph = torch.cuda.CUDAGraph()
@@ -2343,6 +2959,33 @@ REST_SAMPLERS = ("p", "ddim", "dpm++2m", "unipc", "dpm++2m_solver",
                  "unipc_vary")
 
 
+@contextlib.contextmanager
+def t_dependent_refnet(torch, diffusion, seed: int):
+    """Within the block, the diffusion model's zero-initialised output
+    projections (each UNet resblock's out conv, each transformer's
+    proj_out, the BaseModel's out conv) hold lecun-normal draws; the zeros
+    come back after. The flax init zeroes them: the time embedding then
+    never reaches the ReferenceNet's features (every timestep's are equal)
+    and the BaseModel's output is zero whatever the features, so a hoisted
+    render (refnet_interval k > 1) equals the full one bit for bit."""
+    mods = [m for m in diffusion.modules() if getattr(m, "zero_init", False)]
+    saved = [(m, m.weight.detach().clone(), m.bias.detach().clone())
+             for m in mods]
+    g = torch.Generator(device=mods[0].weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for m in mods:
+            m.zero_init = False
+            m.reset_flax(g)
+            m.zero_init = True
+    try:
+        yield len(mods)
+    finally:
+        with torch.no_grad():
+            for m, w, b in saved:
+                m.weight.copy_(w)
+                m.bias.copy_(b)
+
+
 def rest_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
     """The rest of the serving side on [main]'s model and inputs: the
     speculative render, refnet_interval (B=1 and render_rows at 16 rows),
@@ -2446,34 +3089,41 @@ def rest_phase(torch, np, tts, text, cond_mel, launches, cfg, card):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, launches.read()
 
-    w_def, t_def, _ = timed(lambda: tts._render(
-        cond_mel, textt, padded, lens, gen(5), TTSSettings()))
+    with t_dependent_refnet(torch, tts.diffusion, 7) as n_drawn:
+        w_def, t_def, _ = timed(lambda: tts._render(
+            cond_mel, textt, padded, lens, gen(5), TTSSettings()))
 
-    @torch.no_grad()
-    def k1_staged():
-        _, mel = tts._latent_and_mel(cond_mel, textt, padded, lens, gen(5),
-                                     TTSSettings(refnet_interval=1))
-        return tts.vocos(mel).float(), mel
+        @torch.no_grad()
+        def k1_staged():
+            _, mel = tts._latent_and_mel(cond_mel, textt, padded, lens,
+                                         gen(5),
+                                         TTSSettings(refnet_interval=1))
+            return tts.vocos(mel).float(), mel
 
-    (w_k1, mel), t_k1, d = timed(k1_staged)
-    check(torch.equal(w_def, w_k1), f"refnet_interval 1 != default: max "
-          f"diff {max_err(w_def, w_k1)}")
-    check(d["flash_mha"] == 200, f"K2 {d['flash_mha']}")
-    peak = w_k1.abs().max().item()
-    line = []
-    for k in (2, 5):
-        w, t_k, d = timed(lambda k=k: tts._render(
-            cond_mel, textt, padded, lens, gen(5),
-            TTSSettings(refnet_interval=k)))
-        check(tuple(w.shape) == tuple(w_k1.shape)
-              and bool(torch.isfinite(w).all()) and d["flash_mha"] == 200,
-              f"refnet_interval {k}: wav {tuple(w.shape)}, K2 "
-              f"{d['flash_mha']}")
-        line.append(f"k {k} {t_k:.3f} s, max diff / peak "
-                    f"{max_err(w, w_k1) / peak:.3e}")
-    log(f"[rest] refnet_interval at B=1 (p x 50, bucket 320): k 1 equal to "
-        f"the default bit for bit ({t_def:.3f} s / {t_k1:.3f} s staged); "
-        f"{'; '.join(line)}  [{card}]")
+        (w_k1, mel), t_k1, d = timed(k1_staged)
+        check(torch.equal(w_def, w_k1), f"refnet_interval 1 != default: max "
+              f"diff {max_err(w_def, w_k1)}")
+        check(d["flash_mha"] == 200, f"K2 {d['flash_mha']}")
+        peak = w_k1.abs().max().item()
+        line = []
+        for k in (2, 5):
+            w, t_k, d = timed(lambda k=k: tts._render(
+                cond_mel, textt, padded, lens, gen(5),
+                TTSSettings(refnet_interval=k)))
+            diff = max_err(w, w_k1)
+            check(tuple(w.shape) == tuple(w_k1.shape)
+                  and bool(torch.isfinite(w).all()) and d["flash_mha"] == 200
+                  and diff > 0,
+                  f"refnet_interval {k}: wav {tuple(w.shape)}, K2 "
+                  f"{d['flash_mha']}, max diff from k 1 {diff}")
+            line.append(f"k {k} {t_k:.3f} s, max diff / peak "
+                        f"{diff / peak:.3e}")
+    log(f"[rest] refnet_interval at B=1 (p x 50, bucket 320; the "
+        f"diffusion model's {n_drawn} zero-initialised output projections "
+        f"drawn, so the ReferenceNet's features depend on t and reach the "
+        f"output): k 1 equal to the default bit "
+        f"for bit ({t_def:.3f} s / {t_k1:.3f} s staged); {'; '.join(line)} "
+        f"(the hoist's approximation; peak {peak:.3f})  [{card}]")
 
     rng = np.random.default_rng(3)
     rows = 16
@@ -2777,6 +3427,7 @@ def main() -> None:
                   results, card)
         del qt, st
     small_reference_check(torch, np, TextToSpeech, TTSSettings)
+    train_reference_check(torch, np)
 
     # ---- 4. main path (B=1, K1 + K2) ----
     t0 = time.perf_counter()
@@ -2870,6 +3521,10 @@ def main() -> None:
 
     # ---- 7. stream (B=1: K1-int4, HiFi-GAN, ultra_fast) ----
     stream_phase(torch, np, cfg, cond_wav, main_render, launches, card)
+
+    # ---- 7b. train (the vqvae and gpt trainers through the CLI, K3) ----
+    train_s = train_phase(torch, np, launches, results, card)
+    log(f"[train] phase {train_s:.1f} s  [{card}]")
 
     # ---- 8. profile (B=1), last: once torch.profiler has run, the
     # process's host-bound loops read slower ----

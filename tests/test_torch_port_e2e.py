@@ -327,7 +327,11 @@ def test_imports_without_jax():
     mods = _port_modules()
     for m in ("infer.serving", "text.frontend", "models.hifigan",
               "data.audio", "infer.slots", "infer.http",
-              "diffusion.solvers", "infer.eval_tools", "data.datasets"):
+              "diffusion.solvers", "infer.eval_tools", "data.datasets",
+              "data.fileops", "data.asr", "data.prepare", "core.logging",
+              "core.checkpoint", "nn.remat", "train.schedules", "train.ema",
+              "train.trainer", "train.steps", "train.cli",
+              "utils.registry"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc

@@ -78,7 +78,8 @@ def test_teacher_forced_logits_and_latent(models):
     with torch.no_grad():
         args = [torch.from_numpy(a).long() if a.dtype == np.int32 else
                 torch.from_numpy(a) for a in (cond, text, tl, codes)]
-        tlog = tm(*args, torch.from_numpy(wl).long())
+        _, _, tlog = tm(*args, torch.from_numpy(wl).long(),
+                        return_logits=True)
         tlat = tm(*args, torch.from_numpy(wl).long(), return_latent=True)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
     np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), **TOL)

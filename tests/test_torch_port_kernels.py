@@ -25,7 +25,10 @@ and equal their int-index launches bit for bit. The AR loop's CUDA graphs
 K1-int4 and K4, greedy and sampled. The slot pool's (infer/slots.py) too,
 over both cache forms; its per-row draws in a graph equal eager ones, draw
 for draw, and one generator a row draws at one row what the single
-generator draws.
+generator draws. The training path: K3 at the trainers' row counts, one
+vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
+gradients rtol 1e-4 / atol 1e-6, EMA codebook 1e-5), and a checkpoint
+restored on the card bit for bit.
 """
 import contextlib
 import math
@@ -854,6 +857,94 @@ def test_vq_nearest_first_index_on_ties(cuda):
     emb[:, [5, 1500, 2999]] = 1.0                 # one code, three ranges
     x = torch.ones(70, 8, device="cuda")
     assert (vq.vq_nearest(x, emb) == 5).all()
+
+
+@pytest.mark.parametrize("n", [400, 2400])
+def test_vq_nearest_at_the_trainers_rows(cuda, n):
+    """K3 at the vqvae trainer's rows (8 x 200-frame crops / 4) and the gpt
+    trainer's frozen DVAE (8 x 1200 frames / 4), on a codebook whose first
+    N codes lie near the rows, as EMA updates leave it."""
+    from xtts_tpu_torch.ops import vq
+    x = torch.randn(n, 512, generator=cuda, device="cuda")
+    emb = torch.randn(512, 8192, generator=cuda, device="cuda")
+    emb[:, :n] = 0.5 * emb[:, :n] + 0.5 * x.t()
+    got, want = vq.vq_nearest(x, emb), vq.vq_nearest_plain(x, emb)
+    assert _vq_agree(x, emb, got, want) <= max(1, n // 1000)
+
+
+def _small_dvae(seed):
+    from xtts_tpu_torch.core.config import DVAEConfig
+    from xtts_tpu_torch.models.dvae import DVAE
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    g = torch.Generator().manual_seed(seed)
+    m = DVAE(DVAEConfig(channels=8, num_tokens=64, hidden_dim=16,
+                        num_resnet_blocks=1, codebook_dim=16, num_layers=2))
+    init_flax_like(m, g)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    return m
+
+
+def test_dvae_trainer_step_card_against_cpu(cuda):
+    """One f32 vqvae Trainer step on the card (K3 once) against the CPU
+    (the plain twin): loss within 1e-4 relative, the EMA codebook within
+    1e-5, the straight-through gradients within rtol 1e-4 / atol 1e-6."""
+    import copy
+    from xtts_tpu_torch.core.config import TrainConfig
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.train.steps import make_dvae_loss
+    from xtts_tpu_torch.train.trainer import Trainer
+    base = _small_dvae(1)
+    mel = torch.randn(4, 8, 64, generator=torch.Generator().manual_seed(2))
+    cfg = TrainConfig(lr=1e-3, lr_schedule="constant", dtype="float32")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(base).to(dev)
+        loss_fn = make_dvae_loss(m)
+        loss_fn({"mel": mel.to(dev)})[0].backward()
+        grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        tr = Trainer(m, loss_fn, cfg, accum_steps=1)
+        st = tr.init_state()
+        vq.vq_nearest.launches = 0
+        st, metrics = tr.step(st, {"mel": mel.to(dev)})
+        out[dev] = (float(metrics["loss"]), grads, vq.vq_nearest.launches,
+                    {k: v.cpu() for k, v in st.state_cols.items()})
+    (lc, gc, kc, cc), (lk, gk, kk, ck) = out["cpu"], out["cuda"]
+    assert kc == 0 and kk == 1
+    assert abs(lk - lc) <= 1e-4 * abs(lc)
+    for n in gc:
+        torch.testing.assert_close(gk[n], gc[n], rtol=1e-4, atol=1e-6)
+    for n in cc:
+        torch.testing.assert_close(ck[n], cc[n], rtol=1e-5, atol=1e-5)
+
+
+def test_checkpoint_restore_on_the_card_is_bit_exact(cuda, tmp_path):
+    """A Trainer's state saved from the card and restored into a fresh
+    model on the card equals the saved one bit for bit."""
+    from xtts_tpu_torch.core.config import TrainConfig
+    from xtts_tpu_torch.train.steps import make_dvae_loss
+    from xtts_tpu_torch.train.trainer import Trainer
+    cfg = TrainConfig(lr=1e-3, lr_schedule="constant", dtype="float32")
+    mel = torch.randn(4, 8, 64, generator=cuda, device="cuda")
+    m = _small_dvae(3).cuda()
+    tr = Trainer(m, make_dvae_loss(m), cfg, accum_steps=1,
+                 checkpoint_dir=str(tmp_path))
+    st = tr.init_state()
+    for _ in range(2):
+        st, _ = tr.step(st, {"mel": mel})
+    tr.save(st, wait=True)
+    m2 = _small_dvae(4).cuda()
+    tr2 = Trainer(m2, make_dvae_loss(m2), cfg, accum_steps=1,
+                  checkpoint_dir=str(tmp_path))
+    st2 = tr2.restore(tr2.init_state())
+    assert st2.step == st.step == 2 and st2.opt_state.count == 2
+    for a, b in ((st.params, st2.params), (st.state_cols, st2.state_cols),
+                 (st.opt_state.mu, st2.opt_state.mu),
+                 (st.opt_state.nu, st2.opt_state.nu)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
 
 
 # ---------------------------------------------------------------------------

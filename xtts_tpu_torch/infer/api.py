@@ -57,6 +57,8 @@ from xtts_tpu_torch.models.hifigan import HifiDecoder, hifigan_samples
 from xtts_tpu_torch.models.vocos import Vocos
 from xtts_tpu_torch.nn.blocks import init_flax_like
 from xtts_tpu_torch.utils import convert
+from xtts_tpu_torch.utils.registry import (MODELS, load_state,
+                                           require_device)
 
 log = logging.getLogger(__name__)
 
@@ -120,16 +122,10 @@ def hoist_plan(sampler: str, b: int, steps: int, refnet_interval: int = 1):
 
 def _jax_converters(c: XTTSConfig):
     """Module name -> (JAX variable tree -> the port's state dict)."""
-    return {
-        "gpt": lambda t: convert.unified_voice_from_jax(
-            t, c.gpt.layers, c.gpt.cond_attn_blocks),
-        "dvae": lambda t: convert.dvae_from_jax(
-            t, c.vqvae.num_layers, c.vqvae.num_resnet_blocks),
-        "diffusion": lambda t: convert.aa_diffusion_from_jax(t, c.diffusion),
-        "vocos": lambda t: convert.vocos_from_jax(t, c.vocos.num_layers),
-        "clvp": lambda t: convert.clvp_from_jax(t, c.clvp),
-        "hifigan": lambda t: convert.hifigan_from_jax(t, c.hifigan),
-    }
+    fams = {"gpt": "gpt", "dvae": "vqvae", "diffusion": "diffusion",
+            "vocos": "vocos", "clvp": "clvp", "hifigan": "hifigan"}
+    return {mod: (lambda t, f=fam: MODELS[f]["from_jax"](t, c))
+            for mod, fam in fams.items()}
 
 
 @dataclass
@@ -207,11 +203,7 @@ class TextToSpeech:
         weights for from_jax / load_state_dict. tokenizer: a
         VoiceBpeTokenizer for tts() text framing (None: the shipped
         default; from_pretrained takes a tokenizer.json)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TextToSpeech runs on the card by default and "
-                               "no CUDA card is available; pass device='cpu' "
-                               "to run on the CPU")
+        self.device = require_device(device, "TextToSpeech")
         self.cfg = cfg
         self.dtype = dtype
         self.mel = MelFrontend(cfg.mel, self.device)
@@ -320,11 +312,7 @@ class TextToSpeech:
                     tree = convert.unflatten_npz(npz)
                 sd = convert.to_torch(conv[key](tree), tts.device)
             else:
-                sd = torch.load(path, map_location=tts.device,
-                                weights_only=True)
-                if isinstance(sd.get("model"), dict):
-                    sd = sd["model"]
-                sd = convert.drop_fixed_buffers(sd)
+                sd = load_state(path, tts.device)
             m.load_state_dict(sd)
         tts.requantize()
         return tts

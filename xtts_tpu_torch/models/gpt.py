@@ -4,8 +4,10 @@ xtts_tpu/models/gpt.py).
 Parameter names are the reference's (text_embedding, mel_pos_embedding.emb,
 gpt.h.{i}.*, conditioning_encoder.attn.{i}.*, final_norm, mel_head, ...), so
 xtts_tpu.utils.convert.unified_voice_from_reference maps a state_dict()
-back onto the JAX tree. The perceiver conditioning is not ported (the
-shipped config uses the plain encoder).
+back onto the JAX tree. The teacher-forced forward returns the text and
+mel cross-entropies (`masked_ce`) as the trainer takes them; GPTConfig.remat
+checkpoints each GPT block in training (nn/remat.py). The perceiver
+conditioning is not ported (the shipped config uses the plain encoder).
 """
 from __future__ import annotations
 
@@ -66,7 +68,8 @@ class UnifiedVoice(nn.Module):
             c.max_mel_positions, c.model_dim)
         self.text_pos_embedding = LearnedPositionEmbeddings(
             c.max_text_positions, c.model_dim)
-        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, dtype)
+        self.gpt = GPT2Stack(c.layers, c.model_dim, c.heads, dtype,
+                             remat=c.remat)
         self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
         self.text_head = Linear(c.model_dim, c.number_text_tokens * c.types + 1,
                                 dtype=dtype)
@@ -108,10 +111,12 @@ class UnifiedVoice(nn.Module):
                 F.pad(tokens, (0, 1), value=stop))
 
     def forward(self, cond_mel, text_inputs, text_lengths, mel_codes,
-                wav_lengths, return_latent: bool = False):
-        """Teacher-forced forward. Returns the latents feeding the diffusion
-        decoder when `return_latent` (final two positions stripped), else
-        the mel logits."""
+                wav_lengths, return_latent: bool = False,
+                return_logits: bool = False):
+        """Teacher-forced forward (ttts/gpt/model.py:478-557). Returns
+        (loss_text, loss_mel), with `return_logits` also the mel logits, or
+        the latents feeding the diffusion decoder when `return_latent`
+        (final two positions stripped)."""
         c = self.cfg
         if text_inputs.shape[1] > c.max_text_tokens:
             raise ValueError(
@@ -132,10 +137,10 @@ class UnifiedVoice(nn.Module):
                                         c.stop_text_token)
         text_inputs = F.pad(text_inputs, (0, 1), value=c.stop_text_token)
         mel_codes = F.pad(mel_codes, (0, 1), value=c.stop_mel_token)
-        text_inp, _ = self._build_aligned(text_inputs, c.start_text_token,
-                                          c.stop_text_token)
-        mel_inp, _ = self._build_aligned(mel_codes, c.start_mel_token,
-                                         c.stop_mel_token)
+        text_inp, text_tar = self._build_aligned(
+            text_inputs, c.start_text_token, c.stop_text_token)
+        mel_inp, mel_tar = self._build_aligned(mel_codes, c.start_mel_token,
+                                               c.stop_mel_token)
         dev = text_inp.device
         text_emb = (self.text_embedding(text_inp) + self.text_pos_embedding(
             torch.arange(text_inp.shape[1], device=dev)))
@@ -144,11 +149,23 @@ class UnifiedVoice(nn.Module):
         emb = torch.cat([conds.to(text_emb.dtype), text_emb, mel_emb], dim=1)
         _, normed = self.gpt(emb)
         enc = self.final_norm(normed[:, 1:]).to(emb.dtype)
-        t_mel = mel_inp.shape[1]
+        t_text, t_mel = text_inp.shape[1], mel_inp.shape[1]
         mel_latent = enc[:, -t_mel:]
         if return_latent:
             return mel_latent[:, :-2]
-        return self.mel_head(mel_latent)
+        text_logits = self.text_head(enc[:, :t_text])
+        mel_logits = self.mel_head(mel_latent)
+        # targets past length + 1 are ignored (model.py:545-549): the real
+        # tokens and exactly one stop token count
+        text_mask = (torch.arange(t_text, device=dev)[None, :]
+                     <= text_lengths[:, None])
+        mel_mask = (torch.arange(t_mel, device=dev)[None, :]
+                    <= mel_code_lengths[:, None])
+        loss_text = masked_ce(text_logits, text_tar, text_mask)
+        loss_mel = masked_ce(mel_logits, mel_tar, mel_mask)
+        if return_logits:
+            return loss_text, loss_mel, mel_logits
+        return loss_text, loss_mel
 
     # ---------------- inference building blocks ----------------
 
@@ -199,3 +216,13 @@ class UnifiedVoice(nn.Module):
         normed, cache = self.gpt.decode_step(emb.to(self.dtype), cache, index)
         logits = self.mel_head(self.final_norm(normed).to(normed.dtype))
         return logits[:, 0], cache
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the positions where `mask` holds, in f32 (the
+    mean over them; F.cross_entropy(ignore_index=-1) of the reference)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

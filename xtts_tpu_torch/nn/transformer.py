@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from xtts_tpu_torch.nn.blocks import LayerNorm, lecun_normal_
+from xtts_tpu_torch.nn.remat import checkpoint_policy, remat_call
 
 NEG_INF = -1e9
 
@@ -167,11 +168,15 @@ class Block(nn.Module):
 
 class GPT2Stack(nn.Module):
     """n_layer pre-LN blocks + final LayerNorm (state-dict names h.{i}.*,
-    ln_f, as HF GPT2Model)."""
+    ln_f, as HF GPT2Model). remat: the blocks' gradient checkpointing
+    policy while gradients are recorded (nn/remat.py); parameters and the
+    decode path are the same under every policy."""
 
     def __init__(self, layers: int, dim: int, heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: str = "none"):
         super().__init__()
+        checkpoint_policy(remat)           # an unknown name raises here
+        self.remat = remat
         self.h = nn.ModuleList([Block(dim, heads, dtype)
                                 for _ in range(layers)])
         self.ln_f = LayerNorm(dim, eps=1e-5)
@@ -179,7 +184,7 @@ class GPT2Stack(nn.Module):
     def forward(self, x, attn_mask=None, collect_kv: bool = False):
         kvs = []
         for blk in self.h:
-            x, kv = blk(x, attn_mask)
+            x, kv = remat_call(blk, self.remat, x, attn_mask)
             if collect_kv:
                 kvs.append(kv)
         normed = self.ln_f(x).to(x.dtype)

@@ -289,7 +289,7 @@ def dvae_from_jax(tree: Mapping[str, Any], num_layers: int = 2,
     for i in range(L):
         _conv(sd, f"decoder.{1 + R + i}.0.conv", dec[f"up{i}"])
     _conv(sd, f"decoder.{1 + R + L}", dec["to_mel"])
-    for k in ("embed", "cluster_size", "embed_avg"):
+    for k in cb:      # embed, cluster_size, embed_avg (+ bal_hist, bal_total)
         sd[f"codebook.{k}"] = _a(cb[k])
     return sd
 
@@ -407,3 +407,67 @@ def hifigan_from_jax(tree: Mapping[str, Any], cfg) -> SD:
     _conv1x1(sd, e + "attention.3", s["asp_att"])
     _dense(sd, e + "fc", s["proj"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# training state (xtts_tpu/train/trainer.py TrainState -> the port's)
+
+def _find_adam(tree):
+    """The optax ScaleByAdamState (count, mu, nu) inside an optimizer state
+    (for the Trainer's chain: (clip's EmptyState, (ScaleByAdamState,
+    EmptyState, ScaleByScheduleState)))."""
+    if all(hasattr(tree, a) for a in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            hit = _find_adam(t)
+            if hit is not None:
+                return hit
+    return None
+
+
+def adamw_state_from_jax(opt_state, to_state_dict, names, device):
+    """optax's Adam moments and count, as numpy arrays, -> the port's
+    AdamWState over the parameters `names`. to_state_dict maps a JAX
+    variables tree ({"params": ...} and any collections) to a port state
+    dict; moments are elementwise, so it carries them as it carries the
+    parameters (transposes and packings included)."""
+    from xtts_tpu_torch.train.trainer import AdamWState
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")
+
+    def moments(tree):
+        sd = to_state_dict(tree)
+        return {n: torch.as_tensor(np.array(sd[n], np.float32, copy=True),
+                                   device=device) for n in names}
+    return AdamWState(int(np.asarray(adam.count)), moments(adam.mu),
+                      moments(adam.nu))
+
+
+def train_state_from_jax(jax_state, trainer, to_state_dict, device):
+    """A JAX TrainState (params, opt_state, state_cols, step; numpy leaves)
+    -> the port Trainer's TrainState: the parameters and the collections
+    (the DVAE's "codebook", the "ema" copies) copied into the trainer's
+    model, the optimizer state and the step carried. to_state_dict: as in
+    adamw_state_from_jax."""
+    cols = dict(jax_state.state_cols or {})
+    ema = cols.pop("ema", None)
+    sd = to_state_dict({"params": jax_state.params, **cols})
+    trainer.model.load_state_dict(to_torch(sd, device))
+    state = trainer.init_state()
+    names = list(state.params)
+
+    def with_cols(params):
+        return {"params": params, **cols}
+    state.opt_state = adamw_state_from_jax(
+        jax_state.opt_state, lambda t: to_state_dict(with_cols(t)), names,
+        device)
+    if ema is not None:
+        esd = to_state_dict(with_cols(ema))
+        with torch.no_grad():
+            for n in names:
+                state.state_cols["ema." + n].copy_(torch.as_tensor(
+                    np.asarray(esd[n], np.float32)))
+    state.step = int(np.asarray(jax_state.step))
+    return state
