@@ -61,10 +61,14 @@ Phases, each reported on its own lines:
      2), the CPU's codes rendered on both within 1e-3; refnet_interval 1
      and 2 (k 2 unequal to k 1 on the card), unipc and dpm++3m renders
      within 1e-3, and identical evaluate_dvae codes; one f32 optimizer
-     step of the vqvae and of the gpt trainer (losses within 1e-4
-     relative, gradients within rtol 1e-4 / atol 1e-6, parameters within 3
-     lr 1e-2 plus what the gradient tolerance moves Adam's first update,
-     DVAE codes by vq_agree, the EMA codebook within 1e-5).
+     step of each trainer: vqvae, gpt, diffusion (the draws made once on
+     a CPU generator), clvp, classifier and the GAN's discriminator and
+     generator updates (hold_train_step: metrics within 1e-4 relative,
+     gradients within rtol 1e-4 / atol 1e-6 or, where f32 conditions
+     them, by their norm, parameters within 3 lr 1e-2 plus what the
+     gradient gap moves Adam's first update after the clip, every margin
+     printed; frozen and trained DVAE codes by vq_agree, the EMA codebook
+     within 1e-5).
      The 64-step teacher-forced chains (K1, K1-int4, K4) may differ from
      the plain chain in at most PICKS_BOUND greedy picks: the largest
      count that rounding alone turns over the seeds of the noise floor
@@ -144,6 +148,15 @@ Phases, each reported on its own lines:
      start), a --resume run from step 30 to 32, cache_vq_codes over the
      corpus (K3 a file), the exports through TextToSpeech.from_pretrained,
      and K3 at the trainers' row counts (N 400 and 2400) against its twin.
+     Then 10 steps each of diffusion (loss_second_moment, one eval with a
+     DDIM render through a random Vocos export), clvp, classifier (noisy
+     copies of the corpus as the noise list) and hifigan (one eval wav):
+     K3 counted against the expected count, step ms, samples/s, model
+     FLOPs (FlopCounterMode; diffusion and hifigan) and MFU, peak memory;
+     the diffusion checkpoint restored bit for bit with the sampler's
+     state, a --resume run, 30 steps on one repeated batch (its loss at
+     fixed draws falls below DIFF_OVERFIT_RATIO of its start), and K3 at
+     the diffusion and hifigan trainers' rows.
   8. profile: one more warm B=1 request (seed 4), bare and then under
      torch.profiler: the device's busy share over the request and over its
      AR and render stages, every counted kernel in the trace against the
@@ -214,6 +227,25 @@ CHAIN_PICKS = 64      # teacher-forced picks a request held against B=1
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_CB_TOL = 1e-5
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6
+# gradients held by each tensor's norm where f32 conditions them: the
+# generator's through the log-magnitude STFT loss (it divides by each bin's
+# magnitude: in f32 both implementations lie ~9e-4 of the norm from its
+# float64 value), the diffusion output conv's variance rows at a t = 0
+# draw (the decoder NLL's bin masses, decided by one ulp of tanh); the
+# CPU parity tests against JAX hold these tensors the same way
+TRAIN_GRAD_NORM_TOL = 1e-3
+# the HiFi-GAN step's gradients (the discriminator's, and the generator's,
+# which run back through it): LeakyReLU makes them piecewise in every
+# activation, and f32 rounding flips kinks. Against a float64 CPU
+# reference, the CPU's own f32 discriminator gradients lie up to 1.02e-3
+# of their norm away and the card's up to 7.9e-4, ~5e-7 where nothing
+# flips (a diagnostic chip run, NVIDIA H100 80GB HBM3, 700 W); card
+# against CPU read 3.6e-3 at the first scale discriminator's first conv
+TRAIN_GRAD_KINK_TOL = 1e-2
+# the least scale a norm-held gradient is measured against, as a share of
+# the whole step's gradient norm (a gradient zero in exact arithmetic is
+# rounding noise on both devices)
+TRAIN_GRAD_FLOOR = 1e-5
 # [train]: the corpus, the steps of each trainer, the eval cadence, the
 # steps left out of the step-time statistics (warm-up: the allocator and
 # cuDNN's plans), and the repeated-batch overfitting check
@@ -226,6 +258,15 @@ OVERFIT_STEPS = 40
 # measurement read 0.143 (NVIDIA H100 80GB HBM3, 700 W); the bound leaves
 # a 3.5x margin
 OVERFIT_RATIO = 0.5
+# [train], the later families (diffusion, clvp, classifier, hifigan): the
+# steps of each, the steps left out of the step-time median, and the
+# diffusion model's repeated-batch check (its loss at fixed draws after
+# DIFF_OVERFIT_STEPS steps against before; a provisional bound until the
+# first measurement)
+NEW_STEPS = 10
+NEW_WARM = 3
+DIFF_OVERFIT_STEPS = 30
+DIFF_OVERFIT_RATIO = 0.9
 SLOTS_EAGER_SEGMENTS = 3   # greedy segments run eagerly against the graphs
 
 
@@ -1239,6 +1280,82 @@ class StandInTokenizer:
         return [3 + ord(c) % 248 for c in s]
 
 
+def adam_move_allowed(torch, g, dg, lr):
+    """What a gradient within dg of g (both after the clip) can move
+    AdamW's first update u(g) = g / (|g| + eps): |u'| on the interval,
+    dg eps / (|g| - dg + eps)^2, at most 2 (near zero, eps turns rounding
+    noise into a move of up to lr), times lr."""
+    return lr * torch.clamp(dg * 1e-8 / (torch.clamp(g.abs() - dg, min=0)
+                                         + 1e-8) ** 2, max=2.0)
+
+
+def hold_train_step(torch, tag, c, k, lr, max_norm, norm_held=None,
+                    norm_tol=TRAIN_GRAD_NORM_TOL):
+    """The card's step (k) against the CPU's (c), each a dict of metrics,
+    the raw gradients and the parameters after the step, and return the
+    margins as one line. Metrics within TRAIN_LOSS_TOL relative; gradients
+    within TRAIN_GRAD_RTOL |g| + TRAIN_GRAD_ATOL, except the parts that
+    norm_held(name, tensor) returns (those within norm_tol of their
+    norm); each parameter within 3 lr 1e-2 plus what the gradient gap
+    (its tolerance, or the measured gap where larger), after the clip,
+    moves Adam's first update. Counts the elements that need more than
+    3 lr 1e-2, which pass only through that allowance."""
+    err = {m: abs(k["metrics"][m] - c["metrics"][m])
+           / max(abs(c["metrics"][m]), 1e-12) for m in c["metrics"]
+           if m != "lr"}
+    worst = max(err, key=err.get)
+    check(err[worst] <= TRAIN_LOSS_TOL, f"{tag} metrics {err}")
+    gn = math.sqrt(sum(float((g.double() ** 2).sum())
+                       for g in c["grads"].values()))
+    clip = min(1.0, max_norm / max(gn, 1e-30))
+    g_over, g_norm_rel, p_err, p_margin, wide = None, 0.0, 0.0, 0.0, 0
+    plain = 3 * lr * 1e-2
+    for n, gc in c["grads"].items():
+        gk = k["grads"][n]
+        part = norm_held(n, gc) if norm_held else None
+        dgap = (gk - gc).abs()
+        tol = TRAIN_GRAD_RTOL * gc.abs() + TRAIN_GRAD_ATOL
+        keep = torch.ones_like(gc, dtype=torch.bool)
+        if part is not None:
+            # a gradient that is zero in exact arithmetic (the speaker
+            # encoder's attention norm bias, before a softmax over the
+            # axis it is constant on) is rounding noise on both devices:
+            # its scale is at least TRAIN_GRAD_FLOOR of the step's norm
+            gap = (gk[part] - gc[part]).norm().item()
+            scale = max(gc[part].norm().item(), TRAIN_GRAD_FLOOR * gn)
+            rel = gap / scale
+            check(rel <= norm_tol, f"{tag} gradient {n}: {gap:.3e} = "
+                  f"{rel:.2e} of max(its norm {gc[part].norm().item():.3e}, "
+                  f"{TRAIN_GRAD_FLOOR} x the step's {gn:.3e}) > {norm_tol}")
+            g_norm_rel = max(g_norm_rel, rel)
+            keep[part] = False
+        if keep.any():
+            over = (dgap - TRAIN_GRAD_RTOL * gc.abs())[keep].max().item()
+            check(over <= TRAIN_GRAD_ATOL, f"{tag} gradient {n}: beyond "
+                  f"rtol {TRAIN_GRAD_RTOL} by {over:.2e}")
+            g_over = over if g_over is None else max(g_over, over)
+        d = (k["params"][n] - c["params"][n]).abs()
+        allowed = plain + adam_move_allowed(
+            torch, clip * gc, clip * torch.maximum(tol, dgap), lr)
+        check(bool((d <= allowed).all()), f"{tag} {n}: parameters apart by "
+              f"{(d - allowed).max().item():.3e} beyond the bound")
+        wide += int((d > plain).sum())
+        p_err = max(p_err, d.max().item())
+        p_margin = max(p_margin, (d / allowed).max().item())
+    elementwise = (f"gradients past rtol {TRAIN_GRAD_RTOL} by at most "
+                   f"{g_over:.2e} (bound {TRAIN_GRAD_ATOL})"
+                   if g_over is not None
+                   else "no gradient held element by element")
+    return (f"metrics within {TRAIN_LOSS_TOL} relative, largest {worst} "
+            f"{err[worst]:.2e}; {elementwise}"
+            + (f", norm-held parts {g_norm_rel:.2e} of their norm (bound "
+               f"{norm_tol})" if norm_held else "")
+            + f"; clip x{clip:.3g}; params after the step max_abs_err "
+            f"{p_err:.3e} (plain bound {plain:.0e}), largest share of its "
+            f"bound {p_margin:.3f}, {wide} elements past the plain bound "
+            f"(inside Adam's allowance)")
+
+
 def train_reference_check(torch, np):
     """[ref], training: one optimizer step of the vqvae and the gpt trainer
     (train/trainer.py, train/steps.py) on the card and on the CPU port, f32
@@ -1332,50 +1449,243 @@ def train_reference_check(torch, np):
               f"[ref] {fam} step: K3 launches cpu {c['k3']}, card {k['k3']}")
         n_diff, gap = vq_agree(torch, k["x"], k["embed"], k["codes"],
                                c["codes"].cuda(), f"[ref] {fam} step codes")
-        loss_err = {m: abs(k["metrics"][m] - c["metrics"][m])
-                    / max(abs(c["metrics"][m]), 1e-12) for m in c["metrics"]
-                    if m != "lr"}
-        check(all(e <= TRAIN_LOSS_TOL for e in loss_err.values()),
-              f"[ref] {fam} step losses and grad norm {loss_err}")
-        g_err = max(((k["grads"][n] - c["grads"][n]).abs()
-                     - TRAIN_GRAD_RTOL * c["grads"][n].abs()).max().item()
-                    for n in c["grads"])
-        check(g_err <= TRAIN_GRAD_ATOL, f"[ref] {fam} gradients: beyond "
-              f"rtol {TRAIN_GRAD_RTOL} by {g_err}")
-        # Adam's first update is u(g) = g / (|g| + eps): a gradient within
-        # its tolerance dg of the CPU's moves u by at most dg eps / (|g| -
-        # dg + eps)^2 (|u'| on the interval), at most 2: near zero, eps
-        # turns rounding noise into a move of up to lr
-        p_err, wide = 0.0, 0
-        for n in c["params"]:
-            d = (k["params"][n] - c["params"][n]).abs()
-            g = c["grads"][n].abs()
-            dg = TRAIN_GRAD_RTOL * g + TRAIN_GRAD_ATOL
-            du = torch.clamp(dg * 1e-8 / (torch.clamp(g - dg, min=0) + 1e-8)
-                             ** 2, max=2.0)
-            allowed = 3 * lr * 1e-2 + lr * du
-            check(bool((d <= allowed).all()), f"[ref] {fam} {n}: parameters "
-                  f"apart by {(d - allowed).max().item()} beyond the bound")
-            wide += int((d > 3 * lr * 1e-2).sum())
-            p_err = max(p_err, d.max().item())
+        line = hold_train_step(torch, f"[ref] {fam}", c, k, lr,
+                               cfg.train.grad_clip)
         cb_err = max([max_err(k["cols"][n], c["cols"][n]) for n in c["cols"]]
                      or [0.0])
         check(cb_err <= TRAIN_CB_TOL, f"[ref] {fam} codebook err {cb_err}")
         lines.append(
-            f"{fam}: loss {c['metrics']['loss']:.6f} (cpu) rel err "
-            f"{loss_err['loss']:.2e}, grad_norm rel err "
-            f"{loss_err['grad_norm']:.2e}; gradients within rtol "
-            f"{TRAIN_GRAD_RTOL} + {g_err:.1e} (bound {TRAIN_GRAD_ATOL}); "
-            f"params after the step max_abs_err {p_err:.2e} (bound "
-            f"{3 * lr * 1e-2:.0e} + lr x what the gradient tolerance moves "
-            f"Adam's update; {wide} elements past {3 * lr * 1e-2:.0e}); "
-            f"codes "
-            f"{c['codes'].numel() - n_diff}/{c['codes'].numel()} equal "
-            f"({n_diff} within the fp32 tie bound)"
-            + (f"; codebook after the EMA update max_abs_err {cb_err:.2e} "
-               f"(bound {TRAIN_CB_TOL})" if fam == "vqvae" else ""))
+            f"{fam}: {line}; codes {c['codes'].numel() - n_diff}/"
+            f"{c['codes'].numel()} equal ({n_diff} within the fp32 tie "
+            f"bound)" + (f"; codebook after the EMA update max_abs_err "
+                         f"{cb_err:.2e} (bound {TRAIN_CB_TOL})"
+                         if fam == "vqvae" else ""))
     log(f"[ref] small config, training (f32, one step from the same weights "
         f"and collated batch, card vs CPU): {'; '.join(lines)}")
+
+
+def _small_train_cfg():
+    """The [ref] training checks' small configuration: 8 mel bins, the
+    DVAE and GPT of the vqvae / gpt step, and small diffusion, CLVP,
+    classifier and HiFi-GAN sections over them."""
+    from xtts_tpu_torch.core.config import (
+        ClassifierConfig, CLIPRefConfig, CLVPConfig, DiffusionModelConfig,
+        DiffusionProcessConfig, DVAEConfig, GPTConfig, HiFiGANConfig,
+        MelConfig, TrainConfig, XTTSConfig)
+    mb = 8
+    return XTTSConfig(
+        mel=MelConfig(n_mels=mb),
+        vqvae=DVAEConfig(channels=mb, num_tokens=30, hidden_dim=16,
+                         num_resnet_blocks=1, codebook_dim=16, num_layers=2),
+        gpt=GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=64,
+                      max_text_tokens=32, number_mel_codes=200,
+                      start_mel_token=198, stop_mel_token=199, mel_bins=mb,
+                      cond_attn_blocks=1),
+        diffusion=DiffusionModelConfig(
+            in_channels=mb, out_channels=2 * mb, model_channels=64,
+            num_res_blocks=1, channel_mult=(1,), num_heads=2,
+            context_dim=64, in_latent_channels=128,
+            clip=CLIPRefConfig(width=64, layers=1, head_width=32,
+                               patch_size=8, in_channels=mb,
+                               max_patches=64)),
+        diffusion_process=DiffusionProcessConfig(timesteps=1000),
+        clvp=CLVPConfig(dim_text=64, dim_speech=64, dim_latent=32,
+                        num_text_tokens=256, text_enc_depth=2,
+                        text_seq_len=64, text_heads=2, num_speech_tokens=64,
+                        speech_enc_depth=2, speech_heads=2),
+        classifier=ClassifierConfig(spec_dim=mb, base_channels=16, depth=2,
+                                    resnet_blocks=1, attn_blocks=1,
+                                    num_attn_heads=2, embedding_dim=64),
+        hifigan=HiFiGANConfig(decoder_input_dim=128,
+                              upsample_initial_channel=64,
+                              resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),),
+                              d_vector_dim=32),
+        train=TrainConfig(lr=1e-3, lr_schedule="constant", accum_grad=1,
+                          dtype="float32"))
+
+
+def train_reference_check_new(torch, np):
+    """[ref], training, the four later families: one f32 step of each on the
+    card and on the CPU port from the same perturbed weights and collated
+    batch, held by hold_train_step (every margin printed). diffusion: the
+    draws (t, noise, the unconditioned rows, the PatchDropout ranking) made
+    once on a CPU generator and given to both; the frozen DVAE's codes by
+    vq_agree, K3 once on the card; the output conv's variance rows held by
+    their norm. clvp and classifier: the Trainer's step. hifigan: the
+    GANTrainer's discriminator update on both from the CPU's generated
+    wave (the card's within 1e-4 of it), then the generator's, both
+    against the CPU's updated discriminator (Adam's first update may turn a
+    near-zero gradient either way); the generator's gradients held by
+    their norm (TRAIN_GRAD_KINK_TOL: LeakyReLU kinks, and the
+    log-magnitude STFT loss), the discriminator's too; 4096-sample crops,
+    K3 once on the card."""
+    import copy
+    from xtts_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
+                                                   get_named_beta_schedule)
+    from xtts_tpu_torch.models.aa_diffusion import normalize_tacotron_mel
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.train import cli, gan, steps
+    from xtts_tpu_torch.train.trainer import Trainer
+    from xtts_tpu_torch.utils.registry import MODELS
+
+    cfg = _small_train_cfg()
+    mb, lr = cfg.mel.n_mels, cfg.train.lr
+    g = torch.Generator().manual_seed(6)
+    base = {}
+    for name in ("vqvae", "gpt", "diffusion", "clvp", "classifier",
+                 "hifigan", "hifigan_discriminator"):
+        m = MODELS[name]["build"](cfg, torch.float32)
+        with torch.no_grad():
+            init_flax_like(m, g)
+            for p in m.parameters():    # the flax init zeroes projections
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+        base[name] = m
+    rng = np.random.default_rng(7)
+    diff_samples = [{
+        "text": rng.integers(3, 250, 5 + 4 * i).astype(np.int32),
+        "mel": rng.standard_normal((mb, 40 + 24 * i)).astype(np.float32),
+        "refer_mel": rng.standard_normal((mb, 48 + 8 * i)
+                                         ).astype(np.float32),
+        "wav_length": np.int32((40 + 24 * i) * 256)} for i in range(3)]
+    batches = {
+        "diffusion": cli.adapt_batch("diffusion", cli.build_collate(
+            "diffusion", cfg)(diff_samples)),
+        "clvp": cli.adapt_batch("clvp", cli.build_collate("clvp", cfg)([{
+            "text": rng.integers(3, 250, 7 + 5 * i).astype(np.int32),
+            "codes": rng.integers(0, 64, 30 + 20 * i).astype(np.int32)}
+            for i in range(4)])),
+        "classifier": {"mel": rng.standard_normal((4, 64, mb)
+                                                  ).astype(np.float32),
+                       "label": np.array([0, 1, 1, 0], np.int32)},
+        "hifigan": {"wav": (0.3 * rng.standard_normal((2, 4096))
+                            ).astype(np.float32),
+                    "mel": rng.standard_normal((2, mb, 16)).astype(np.float32),
+                    "refer_mel16": (rng.standard_normal((2, 60, 64)) - 4.0
+                                    ).astype(np.float32),
+                    "wav_length": np.array([4096, 4096], np.int32)}}
+    dp = cfg.diffusion_process
+    gd = GaussianDiffusion(betas=get_named_beta_schedule(dp.schedule,
+                                                         dp.timesteps))
+    cpu_b = cli.to_device(batches["diffusion"], "cpu")
+    draws = steps.diffusion_draws(
+        base["diffusion"], gd, normalize_tacotron_mel(cpu_b["mel"]),
+        normalize_tacotron_mel(cpu_b["refer_mel"]),
+        torch.Generator().manual_seed(8), 0.1)
+
+    def var_rows(n, t):
+        return (slice(mb, None) if n.startswith("base_model.out.2.")
+                else None)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        runs = {}
+        mods = {k: copy.deepcopy(v).to(dev) for k, v in base.items()}
+        frozen = {k: mods[k].eval().requires_grad_(False)
+                  for k in ("vqvae", "gpt")}
+        for fam in ("diffusion", "clvp", "classifier"):
+            batch = cli.to_device(batches[fam], dev)
+            model = mods[fam]
+            if fam == "diffusion":
+                dd = {k: v.to(dev) for k, v in draws.items()}
+                inner = steps.make_diffusion_loss(
+                    model, gd, frozen["gpt"], frozen["vqvae"], 0.1)
+                loss_fn = lambda b, gen, f=inner, dd=dd: f(b, gen, draws=dd)
+            elif fam == "clvp":
+                from xtts_tpu_torch.models.clvp import make_clvp_loss
+                loss_fn = make_clvp_loss(model)
+            else:
+                from xtts_tpu_torch.models.classifier import (
+                    make_classifier_loss)
+                loss_fn = make_classifier_loss(model)
+            tr = Trainer(model, loss_fn, cfg.train, accum_steps=1)
+            st = tr.init_state()
+            loss_fn(batch, None)[0].backward()     # the step's gradients
+            grads = {n: (p.grad if p.grad is not None else
+                         torch.zeros_like(p)).detach().cpu()
+                     for n, p in st.params.items()}
+            model.zero_grad(set_to_none=True)
+            k3 = vq.vq_nearest.launches
+            st, metrics = tr.step(st, batch)
+            runs[fam] = dict(
+                grads=grads, k3=vq.vq_nearest.launches - k3,
+                metrics={k: float(v) for k, v in metrics.items()},
+                params={k: v.detach().cpu() for k, v in st.params.items()})
+            if fam == "diffusion":
+                with torch.no_grad():
+                    dv = frozen["vqvae"]
+                    runs[fam]["x"] = dv.encode(batch["mel"]).reshape(
+                        -1, cfg.vqvae.codebook_dim)
+                    runs[fam]["codes"] = dv.get_codebook_indices(
+                        batch["mel"]).reshape(-1)
+                    runs[fam]["embed"] = dv.codebook.embed.detach().clone()
+        # the GAN: discriminator, then generator against the CPU's update
+        batch = cli.to_device(batches["hifigan"], dev)
+        gen_fn = gan.make_hifigan_generator_fn(mods["hifigan"],
+                                               frozen["gpt"], frozen["vqvae"])
+        gt = gan.GANTrainer(mods["hifigan"], mods["hifigan_discriminator"],
+                            gen_fn, g_lr=lr, d_lr=lr,
+                            grad_clip=cfg.train.grad_clip)
+        gs = gt.init_state()
+        k3 = vq.vq_nearest.launches
+        latent = gen_fn.latent_of(batch)
+        with torch.no_grad():
+            fake = gen_fn(batch, latent)
+        if dev == "cpu":
+            cpu_fake = fake.clone()
+        else:
+            # the discriminator's gradient is piecewise linear in the wave:
+            # a 1e-6 change flips LeakyReLU kinks, so both devices' updates
+            # take the CPU's generated wave
+            check(max_err(fake, cpu_fake.cuda()) <= 1e-4,
+                  "[ref] hifigan generated wave, card vs CPU")
+
+            def fixed(b, lat=None, w=cpu_fake.cuda()):
+                return w
+            fixed.latent_of = gen_fn.latent_of
+            gt.gen = fixed
+        d_loss, d_norm, d_raw = gt.d_step(gs, batch, latent)
+        gt.gen = gen_fn
+        runs["hifigan_d"] = dict(
+            metrics={"d_loss": float(d_loss), "d_grad_norm": float(d_norm)},
+            grads={n: v.cpu() for n, v in zip(gs.d_params, d_raw)},
+            params={n: v.detach().cpu() for n, v in gs.d_params.items()})
+        if dev == "cuda":
+            with torch.no_grad():
+                for n, p in gs.d_params.items():
+                    p.copy_(out["cpu"]["hifigan_d"]["params"][n])
+        g_loss, parts, g_norm, g_raw = gt.g_step(gs, batch, latent)
+        runs["hifigan_g"] = dict(
+            metrics={"g_loss": float(g_loss), "g_grad_norm": float(g_norm),
+                     **{k: float(v) for k, v in parts.items()}},
+            grads={n: v.cpu() for n, v in zip(gs.g_params, g_raw)},
+            params={n: v.detach().cpu() for n, v in gs.g_params.items()},
+            k3=vq.vq_nearest.launches - k3)
+        out[dev] = runs
+    lines = []
+    for fam in ("diffusion", "clvp", "classifier", "hifigan_d", "hifigan_g"):
+        c, k = out["cpu"][fam], out["cuda"][fam]
+        if fam in ("diffusion", "hifigan_g"):
+            check(c["k3"] == 0 and k["k3"] == 1, f"[ref] {fam} step: K3 "
+                  f"launches cpu {c['k3']}, card {k['k3']}")
+        extra = ""
+        if fam == "diffusion":
+            n_diff, _ = vq_agree(torch, k["x"], k["embed"], k["codes"],
+                                 c["codes"].cuda(), "[ref] diffusion codes")
+            extra = (f"; frozen codes {c['codes'].numel() - n_diff}/"
+                     f"{c['codes'].numel()} equal; t "
+                     f"{draws['t'].tolist()}")
+        gan_step = fam.startswith("hifigan")
+        held = (lambda n, t: slice(None)) if gan_step else (
+            var_rows if fam == "diffusion" else None)
+        line = hold_train_step(
+            torch, f"[ref] {fam}", c, k, lr, cfg.train.grad_clip, held,
+            TRAIN_GRAD_KINK_TOL if gan_step else TRAIN_GRAD_NORM_TOL)
+        lines.append(f"{fam}: {line}{extra}")
+    log(f"[ref] small config, training, the later families (f32, one step "
+        f"from the same weights, batch and draws, card vs CPU): "
+        f"{'; '.join(lines)}")
 
 
 def _step_times(jsonl: Path, warm: int):
@@ -1659,30 +1969,285 @@ def train_phase(torch, np, launches, results, card):
         x_gpt = frozen.encode(torch.from_numpy(gb["mel"]).cuda()).reshape(
             -1, 512).contiguous()
     emb = dvae.codebook.embed
-    rows = []
-    for tag, xx in (("vqvae", x_vq), ("gpt", x_gpt)):
-        got, want = vq.vq_nearest(xx, emb), vq.vq_nearest_plain(xx, emb)
-        n_diff, gap = vq_agree(torch, xx, emb, got, want, f"[train] K3 {tag}")
-        n, d = xx.shape
-        e = emb.shape[1]
-        et = emb.t().contiguous()
-        dk = device_us(torch, lambda: vq.vq_nearest(xx, emb), n=20)
-        dp = device_us(torch, lambda: vq.vq_nearest_plain(xx, emb), n=20)
-        dl = device_us(torch, lambda: torch.cdist(xx, et).argmin(1), n=20)
-        bnd = bound(4 * (n * d + d * e + e) + 8 * n, 3 * 2 * n * d * e,
-                    "tf32")
-        rows.append(dict(trainer=tag, n=n, device_us=dk, plain_device_us=dp,
-                         library_device_us=dl, bound_ms=bnd[0],
-                         bound_by=bnd[1], codes_differ=n_diff))
-        log(f"[train] K3 at the {tag} trainer's rows (N {n}, D {d}, E {e}): "
-            f"codes equal the twin's on {n - n_diff}/{n} rows ({n_diff} "
-            f"within the fp32 tie bound, largest f64 gap {gap:.3e}); device "
-            f"{fmt_us(dk)} a call, plain twin {fmt_us(dp)}, cdist+argmin "
-            f"{fmt_us(dl)}, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})  [{card}]")
+    rows = [k3_train_row(torch, vq, xx, emb, tag, card)
+            for tag, xx in (("vqvae", x_vq), ("gpt", x_gpt))]
+    del dvae, frozen, x_vq, x_gpt
+    torch.cuda.empty_cache()
+    rows += train_phase_new(torch, np, launches, card, dict(
+        root=root, runs=runs, cfg=cfg, entries=entries, common=common,
+        vq=vq_dir / "vqvae.pth", gpt=gpt_dir / "gpt.pth"))
     results["vq_nearest"]["train"] = rows
-    del dvae, frozen
     torch.cuda.empty_cache()
     return time.perf_counter() - t_phase
+
+
+def k3_train_row(torch, vq, xx, emb, tag, card):
+    """K3 at a trainer's rows xx (N, 512) against its plain twin and
+    cdist + argmin: codes by vq_agree, the single-call CUDA-event ms and
+    the device us a call of each, the bound."""
+    got, want = vq.vq_nearest(xx, emb), vq.vq_nearest_plain(xx, emb)
+    n_diff, gap = vq_agree(torch, xx, emb, got, want, f"[train] K3 {tag}")
+    n, d = xx.shape
+    e = emb.shape[1]
+    et = emb.t().contiguous()
+    dk = device_us(torch, lambda: vq.vq_nearest(xx, emb), n=20)
+    dp = device_us(torch, lambda: vq.vq_nearest_plain(xx, emb), n=20)
+    dl = device_us(torch, lambda: torch.cdist(xx, et).argmin(1), n=20)
+    ms = [time_ms(torch, f) for f in (
+        lambda: vq.vq_nearest(xx, emb), lambda: vq.vq_nearest_plain(xx, emb),
+        lambda: torch.cdist(xx, et).argmin(1))]
+    bnd = bound(4 * (n * d + d * e + e) + 8 * n, 3 * 2 * n * d * e, "tf32")
+    log(f"[train] K3 at the {tag} trainer's rows (N {n}, D {d}, E {e}): "
+        f"codes equal the twin's on {n - n_diff}/{n} rows ({n_diff} within "
+        f"the fp32 tie bound, largest f64 gap {gap:.3e}); device "
+        f"{fmt_us(dk)} a call, plain twin {fmt_us(dp)}, cdist+argmin "
+        f"{fmt_us(dl)}; single calls {ms[0]:.4f} / {ms[1]:.4f} / "
+        f"{ms[2]:.4f} ms; bound {bnd[0] * 1e3:.2f} us ({bnd[1]})  [{card}]")
+    return dict(trainer=tag, n=n, ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
+                device_us=dk, plain_device_us=dp, library_device_us=dl,
+                bound_ms=bnd[0], bound_by=bnd[1], codes_differ=n_diff)
+
+
+def counted_flops(torch, fn) -> int:
+    """The matmul / conv / attention FLOPs that fn() runs (torch's
+    FlopCounterMode; forward and backward as they execute)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    fc = FlopCounterMode(display=False)
+    with fc:
+        fn()
+    return fc.get_total_flops()
+
+
+def train_phase_new(torch, np, launches, card, ctx):
+    """[train], the four later families through the CLI at the flagship
+    widths, on [train]'s corpus and the vqvae / gpt exports, NEW_STEPS
+    steps each at batch 8 with one eval (TRAIN_VAL_FREQ): diffusion with
+    loss_second_moment, its eval render through a random Vocos export;
+    clvp on the cached codes; classifier on the corpus (clean) and noisy
+    copies of it; hifigan, its eval wav. For each: step ms (median after
+    NEW_WARM), samples/s, model FLOPs a step (FlopCounterMode over one
+    step's trained forward and backward, the frozen pass subtracted) and
+    their share of 989 TFLOP/s bf16, peak memory, K3 launches against the
+    expected count. Then the diffusion checkpoint restored bit for bit
+    (the sampler's history and counts included), a --resume run, and
+    DIFF_OVERFIT_STEPS steps on one repeated batch, whose loss at fixed
+    draws must fall below DIFF_OVERFIT_RATIO of its start. Returns K3's
+    rows at the diffusion and hifigan trainers' N."""
+    from xtts_tpu_torch.data.audio import load_wav, save_wav
+    from xtts_tpu_torch.data.datasets import (HifiGANDataset, batch_iterator,
+                                              collate_bucketed, read_filelist)
+    from xtts_tpu_torch.data.prepare import cache_mels
+    from xtts_tpu_torch.dsp.mel import SPEAKER_ENCODER_MEL_CONFIG, MelFrontend
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.train import cli, steps
+    from xtts_tpu_torch.train.trainer import Trainer
+    from xtts_tpu_torch.utils.registry import load_model
+
+    root, runs, cfg = ctx["root"], ctx["runs"], ctx["cfg"]
+    entries, common = ctx["entries"], ctx["common"]
+    fz = ["--dvae-weights", str(ctx["vq"]), "--gpt-weights", str(ctx["gpt"])]
+    t_new = time.perf_counter()
+    voc = runs / "vocos.pth"
+    torch.save(load_model("vocos", cfg).state_dict(), voc)
+    rng = np.random.default_rng(13)
+    noisy = []
+    for i, e in enumerate(entries[:8]):
+        w, _ = load_wav(e.wav_path, SR)
+        path = str(root / f"noisy{i:02d}.wav")
+        save_wav(path, (w + 0.3 * rng.standard_normal(w.size)
+                        ).astype(np.float32))
+        noisy.append(path)
+    cache_mels(noisy, MelFrontend(cfg.mel, "cuda"))
+    clean = [e.wav_path for e in entries]
+    for name, paths in (("clean.txt", clean), ("clean_val.txt", clean[1::2]),
+                        ("noise.txt", noisy)):
+        (root / name).write_text("\n".join(paths) + "\n")
+    n_evals = NEW_STEPS // TRAIN_VAL_FREQ
+    fams = {
+        "diffusion": (["diffusion", "-m", str(runs / "diffusion"),
+                       "--vocos-weights", str(voc), "--timestep-sampler",
+                       "loss_second_moment"] + fz + common,
+                      # a step, then each eval: 1 val batch + the render
+                      NEW_STEPS + n_evals * 2),
+        "clvp": (["clvp", "-m", str(runs / "clvp")] + common, 0),
+        "classifier": (["classifier", "-m", str(runs / "classifier"), "-c",
+                        str(root / "cfg.json"), "--filelist",
+                        str(root / "clean.txt"), "--noise-filelist",
+                        str(root / "noise.txt"), "--val-filelist",
+                        str(root / "clean_val.txt")], 0),
+        "hifigan": (["hifigan", "-m", str(runs / "hifigan")] + fz + common,
+                     NEW_STEPS + n_evals)}
+    stats = {}
+    for fam, (argv, want_k3) in fams.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        launches.reset()
+        t0 = time.perf_counter()
+        st = cli.main(argv + ["--steps", str(NEW_STEPS)],
+                      tokenizer=StandInTokenizer())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches.read()["vq_nearest"]
+        check(st.step == NEW_STEPS, f"[train] {fam} ended at {st.step}")
+        check(got == want_k3, f"[train] {fam}: K3 launched {got} times, "
+              f"want {want_k3}")
+        recs = [json.loads(x) for x in (runs / fam / "logs" /
+                                        "metrics.jsonl").read_text()
+                .splitlines()]
+        key = "g_loss" if fam == "hifigan" else "loss"
+        losses = [r[key] for r in recs if key in r]
+        evals = [r["eval/loss"] for r in recs if "eval/loss" in r]
+        check(len(losses) == NEW_STEPS and all(map(math.isfinite, losses))
+              and all(map(math.isfinite, evals))
+              and len(evals) == (0 if fam == "hifigan" else n_evals),
+              f"[train] {fam} losses {losses} evals {evals}")
+        stats[fam] = dict(wall=wall, k3=got, losses=losses, evals=evals,
+                          peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          resident=resident,
+                          step_s=_step_times(runs / fam / "logs" /
+                                             "metrics.jsonl", NEW_WARM))
+        del st        # its parameters and moments, before the next family
+        torch.cuda.empty_cache()
+
+    # the hifigan step's model FLOPs and K3 at its rows, on one batch
+    flops, k3_rows = {}, []
+    hds = HifiGANDataset(read_filelist(str(root / "train.txt")),
+                         StandInTokenizer(), MelFrontend(cfg.mel, "cuda"),
+                         MelFrontend(SPEAKER_ENCODER_MEL_CONFIG, "cuda"),
+                         sample_rate=cfg.mel.sample_rate, seed=cfg.train.seed)
+    hb = next(batch_iterator(hds, 8, lambda ss: collate_bucketed(
+        ss, {"text": 0, "refer_mel16": 0},
+        {"text": (64, 128, 304), "refer_mel16": (100, 200, 300)}),
+        seed=cfg.train.seed))
+    hb = cli.to_device({k: v for k, v in hb.items()
+                        if not k.startswith("text")}, "cuda")
+    gt, gs, gen_fn = cli.build_gan_trainer(cfg, str(ctx["gpt"]),
+                                           str(ctx["vq"]), "cuda")
+    frozen = counted_flops(torch, lambda: gen_fn.latent_of(hb))
+    flops["hifigan"] = counted_flops(torch, lambda: gt.step(gs, hb)) - frozen
+    dv = load_model("vqvae", cfg, str(ctx["vq"]))
+    with torch.no_grad():
+        xx = dv.encode(hb["mel"]).reshape(-1, 512).contiguous()
+    k3_rows.append(k3_train_row(torch, vq, xx, dv.codebook.embed, "hifigan",
+                                card))
+    del gt, gs, gen_fn, dv, hb
+    torch.cuda.empty_cache()
+    # the diffusion checkpoint: restored bit for bit, the sampler included
+    d_dir = runs / "diffusion"
+    argv = fams["diffusion"][0]
+    args = cli.parser().parse_args(argv)
+    loss_fn, module, dctx = cli.build_loss("diffusion", cfg, args, "cuda")
+    tr = Trainer(module, loss_fn, cfg.train, accum_steps=1,
+                 checkpoint_dir=str(d_dir / "ckpt"))
+    state = tr.restore(tr.init_state())
+    saved = torch.load(d_dir / "ckpt" / f"{NEW_STEPS}.pt",
+                       map_location="cpu", weights_only=True)
+    live = Trainer.payload(state)
+    n_t = 0
+    for group in ("params", "state_cols"):
+        for k, v in live[group].items():
+            check(torch.equal(v.cpu(), saved[group][k]), f"restored {k}")
+            n_t += 1
+    for mom in ("mu", "nu"):
+        for k, v in live["opt_state"][mom].items():
+            check(torch.equal(v.cpu(), saved["opt_state"][mom][k]),
+                  f"restored {mom} {k}")
+            n_t += 1
+    hist = saved["state_cols"]["t_sampler.counts"]
+    check(state.step == saved["step"] == NEW_STEPS
+          and int(hist.sum()) == 8 * (NEW_STEPS), f"restored diffusion step "
+          f"{state.step}, sampler counts {int(hist.sum())}")
+
+    # one repeated batch: the loss at fixed draws before and after
+    ds = cli.build_dataset("diffusion", cfg, str(root / "train.txt"),
+                           StandInTokenizer(), cfg.train.seed, "cuda")
+    batch = cli.to_device(cli.adapt_batch("diffusion", next(batch_iterator(
+        ds, 8, cli.build_collate("diffusion", cfg), seed=99))), "cuda")
+    from xtts_tpu_torch.models.aa_diffusion import normalize_tacotron_mel
+    draws = steps.diffusion_draws(
+        module, training_process(cfg), normalize_tacotron_mel(
+            batch["mel"]), normalize_tacotron_mel(batch["refer_mel"]),
+        torch.Generator().manual_seed(5), 0.1)
+    draws = {k: v.cuda() for k, v in draws.items()}
+    # the step's model FLOPs at this batch, and K3 at its rows
+    latent_of = steps.diffusion_latent_fn(dctx["gpt"], dctx["dvae"])
+    flops["diffusion"] = counted_flops(
+        torch, lambda: loss_fn(batch, None, draws=draws)[0].backward()
+    ) - counted_flops(torch, lambda: latent_of(batch))
+    module.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        xx = dctx["dvae"].encode(batch["mel"]).reshape(-1, 512).contiguous()
+    k3_rows.insert(0, k3_train_row(torch, vq, xx, dctx["dvae"].codebook.embed,
+                                   "diffusion", card))
+    with torch.no_grad():
+        before = float(loss_fn(batch, None, draws=draws)[0])
+    gen = torch.Generator("cuda").manual_seed(1)
+    launches.reset()
+    for _ in range(DIFF_OVERFIT_STEPS):
+        state, m = tr.step(state, batch, gen)
+    with torch.no_grad():
+        after = float(loss_fn(batch, None, draws=draws)[0])
+    check(launches.read()["vq_nearest"] == DIFF_OVERFIT_STEPS + 1,
+          "[train] diffusion overfit: K3 once a step")
+    check(math.isfinite(after) and after <= DIFF_OVERFIT_RATIO * before,
+          f"[train] diffusion loss on one repeated batch at fixed draws "
+          f"{before:.4f} -> {after:.4f}: ratio {after / before:.3f} > "
+          f"{DIFF_OVERFIT_RATIO}")
+    del tr, state, module, loss_fn, batch, dctx, latent_of
+    torch.cuda.empty_cache()
+
+    launches.reset()
+    st = cli.main(argv + ["--resume", "--steps", str(NEW_STEPS + 2)],
+                  tokenizer=StandInTokenizer())
+    recs = [json.loads(x) for x in (d_dir / "logs" / "metrics.jsonl")
+            .read_text().splitlines()]
+    after_steps = [r["step"] for r in recs if "loss" in r][NEW_STEPS:]
+    counts = int(st.state_cols["t_sampler.counts"].sum())
+    check(st.step == NEW_STEPS + 2
+          and after_steps == [NEW_STEPS + 1, NEW_STEPS + 2]
+          and launches.read()["vq_nearest"] == 2
+          and counts == 8 * (NEW_STEPS + 2),
+          f"[train] diffusion --resume ran steps {after_steps}, sampler "
+          f"counts {counts}")
+    for fam, s in stats.items():
+        med = statistics.median(s["step_s"])
+        fl = flops.get(fam)
+        mfu = (f"model FLOPs {fl / 1e12:.3f} TFLOP a step (FlopCounterMode, "
+               f"the frozen pass subtracted), "
+               f"{100 * fl / med / PEAK['bf16']:.2f}% of "
+               f"{PEAK['bf16'] / 1e12:.0f} TFLOP/s bf16" if fl else
+               "model FLOPs not counted")
+        log(f"[train] {fam}: {NEW_STEPS} steps in {s['wall']:.2f} s (with "
+            f"{n_evals} eval and the save); step {1e3 * med:.1f} ms "
+            f"median over steps {NEW_WARM + 1}-{NEW_STEPS} (the loader "
+            f"included), {8 / med:.1f} samples/s; {mfu}; peak memory "
+            f"{s['peak']:.2f} GiB ({s['resident']:.2f} resident before the "
+            f"run); loss {s['losses'][0]:.4f} -> "
+            f"{s['losses'][-1]:.4f}"
+            + (f", eval {', '.join(f'{e:.4f}' for e in s['evals'])}"
+               if s["evals"] else "")
+            + f"; K3 {s['k3']} launches (want {fams[fam][1]})  [{card}]")
+
+    log(f"[train] diffusion resume: the checkpoint of step {NEW_STEPS} "
+        f"restored on the card equal to the saved one bit for bit ({n_t} "
+        f"tensors: parameters, Adam moments, the loss_second_moment "
+        f"history and counts); --resume ran steps {after_steps}, sampler "
+        f"counts {counts}; one repeated batch of 8, {DIFF_OVERFIT_STEPS} "
+        f"steps: loss at fixed draws {before:.4f} -> {after:.4f} (ratio "
+        f"{after / before:.3f}, bound {DIFF_OVERFIT_RATIO}); the later "
+        f"families' part of the phase {time.perf_counter() - t_new:.1f} s  "
+        f"[{card}]")
+    return k3_rows
+
+
+def training_process(cfg):
+    """The training process of cfg.diffusion_process."""
+    from xtts_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
+                                                   get_named_beta_schedule)
+    dp = cfg.diffusion_process
+    return GaussianDiffusion(betas=get_named_beta_schedule(dp.schedule,
+                                                           dp.timesteps))
 
 
 class Launches:
@@ -3428,6 +3993,7 @@ def main() -> None:
         del qt, st
     small_reference_check(torch, np, TextToSpeech, TTSSettings)
     train_reference_check(torch, np)
+    train_reference_check_new(torch, np)
 
     # ---- 4. main path (B=1, K1 + K2) ----
     t0 = time.perf_counter()

@@ -17,6 +17,7 @@ from xtts_tpu.utils import convert as jconv  # noqa: E402
 from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.models import clvp as tcl  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
+from test_torch_port_e2e import traced_zeros  # noqa: E402
 
 CONFIGS = {
     "tortoise": CLVPConfig(dim_text=48, dim_speech=48, dim_latent=32,
@@ -54,8 +55,12 @@ def randomize(tree, rng):
 
 def _pair(cfg, seed=0):
     jm = jcl.CLVP(cfg)
-    init = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
-                   jnp.zeros((1, 8), jnp.int32))
+    # the shapes by tracing alone, in the eager init's key order (an eager
+    # flax init costs more than the comparison; randomize redraws every
+    # leaf, the same draws as from the eager init)
+    init = traced_zeros(lambda: jm.init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+        jnp.zeros((1, 8), jnp.int32)))
     params = randomize(init["params"], np.random.default_rng(seed))
     tcfg_ = tcfg.CLVPConfig.from_dict(cfg.to_dict())
     tm = tcl.CLVP(tcfg_).eval()
@@ -79,7 +84,8 @@ def _inputs(seed, b=3, k=4, t=20, s=30):
 def test_similarity(name):
     jm, jv, tm = _pair(CONFIGS[name])
     text, codes, tmask, cmask = _inputs(1)
-    want = np.asarray(jm.apply(jv, text, codes[:, 0], tmask, cmask[:, 0]))
+    want = np.asarray(jax.jit(jm.apply)(jv, text, codes[:, 0], tmask,
+                                        cmask[:, 0]))
     got = tm(torch.from_numpy(text).long(),
              torch.from_numpy(codes[:, 0]).long(), torch.from_numpy(tmask),
              torch.from_numpy(cmask[:, 0])).numpy()
@@ -90,15 +96,16 @@ def test_similarity(name):
 def test_rerank_and_rerank_batch_winners(name):
     jm, jv, tm = _pair(CONFIGS[name], seed=4)
     text, codes, _, cmask = _inputs(2)
-    want = np.asarray(jm.apply(jv, text[0], codes[0], cmask[0],
-                               method=jm.rerank))
+    want = np.asarray(jax.jit(lambda v, t, c, m: jm.apply(
+        v, t, c, m, method=jm.rerank))(jv, text[0], codes[0], cmask[0]))
     got = tm.rerank(torch.from_numpy(text[0]).long(),
                     torch.from_numpy(codes[0]).long(),
                     torch.from_numpy(cmask[0])).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     assert got.argmax() == want.argmax()
-    want_b = np.asarray(jm.apply(jv, text, codes, code_mask=cmask,
-                                 method=jm.rerank_batch))
+    want_b = np.asarray(jax.jit(lambda v, t, c, m: jm.apply(
+        v, t, c, code_mask=m, method=jm.rerank_batch))(jv, text, codes,
+                                                        cmask))
     got_b = tm.rerank_batch(torch.from_numpy(text).long(),
                             torch.from_numpy(codes).long(),
                             code_mask=torch.from_numpy(cmask)).numpy()

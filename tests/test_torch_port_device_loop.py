@@ -30,7 +30,7 @@ from xtts_tpu_torch.ops import decode_step as tds  # noqa: E402
 from xtts_tpu_torch.ops import serving_step as tss  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
 
-from test_torch_port_e2e import one_torch_thread  # noqa: E402,F401
+from test_torch_port_e2e import one_torch_thread, shaped_zeros  # noqa: E402,F401
 from test_torch_port_gpt import CFG, TCFG, randomize  # noqa: E402
 
 STOP = CFG.stop_mel_token
@@ -50,9 +50,12 @@ CASES = {
 
 def _build(biased: bool):
     jm = jgpt.UnifiedVoice(CFG)
-    init = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
-                            jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
-                            jnp.zeros((1, 16), jnp.int32), jnp.array([16384]))
+    # the compiled init's shapes and key order by tracing alone
+    # (randomize redraws every leaf: the same draws)
+    init = shaped_zeros(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
+        jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
+        jnp.zeros((1, 16), jnp.int32), jnp.array([16384])))
     params = randomize(init["params"], np.random.default_rng(0))
     if biased:
         params["mel_head"]["bias"][STOP] += STOP_BIAS

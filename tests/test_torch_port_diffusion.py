@@ -16,6 +16,7 @@ from xtts_tpu.models import aa_diffusion as jad  # noqa: E402
 from xtts_tpu_torch.diffusion import gaussian as tg  # noqa: E402
 from xtts_tpu_torch.models import aa_diffusion as tad  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
+from test_torch_port_e2e import shaped_zeros  # noqa: E402
 
 CFG = DiffusionModelConfig(
     in_channels=8, out_channels=16, model_channels=64, num_res_blocks=1,
@@ -45,9 +46,11 @@ def randomize(tree, rng):
 @pytest.fixture(scope="module")
 def models():
     jm = jad.AADiffusion(CFG)
-    init = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
-                            jnp.array([0]), jnp.zeros((1, 128, 4)),
-                            jnp.zeros((1, 8, 16)))
+    # the compiled init's shapes and key order by tracing alone
+    # (randomize redraws every leaf: the same draws)
+    init = shaped_zeros(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)), jnp.array([0]),
+        jnp.zeros((1, 128, 4)), jnp.zeros((1, 8, 16))))
     params = randomize(init["params"], np.random.default_rng(0))
     port_cfg = tcfg.DiffusionModelConfig.from_dict(CFG.to_dict())
     tm = tad.AADiffusion(port_cfg).eval()

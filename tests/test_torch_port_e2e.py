@@ -86,9 +86,70 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def shaped_zeros(init):
+    """Zeros shaped like the variables init() returns, by tracing alone,
+    with dict keys sorted as a jitted init returns them (randomize draws
+    in key order: the same draws as from jax.jit(init)'s output)."""
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                  jax.eval_shape(init))
+
+
+def traced_zeros(init):
+    """Zeros shaped like the variables init() returns, by tracing alone,
+    in init()'s own key order: an eager flax init's dicts keep the order
+    the parameters were created in, which jax.eval_shape's output loses
+    (it sorts dict keys), and randomize draws in that order."""
+    made = []
+
+    def f():
+        made.append(init())
+        return made[-1]
+    shapes = jax.eval_shape(f)
+
+    def rebuild(ordered, shaped):
+        if isinstance(ordered, dict):
+            return {k: rebuild(ordered[k], shaped[k]) for k in ordered}
+        return np.zeros(shaped.shape, shaped.dtype)
+    return rebuild(made[0], shapes)
+
+
+def jax_variables(cfg, key, with_clvp=False):
+    """The variables JAX's TextToSpeech.init_random gives for key: the
+    DVAE's from its own compiled init (its codebook is used as drawn), the
+    gpt, diffusion, vocos (and clvp) parameters as zeros of their traced
+    shapes, since every test redraws those (randomize reads shapes and
+    names only): tracing compiles nothing."""
+    from xtts_tpu.models.aa_diffusion import AADiffusion
+    from xtts_tpu.models.clvp import CLVP
+    from xtts_tpu.models.dvae import DVAE
+    from xtts_tpu.models.gpt import UnifiedVoice
+    from xtts_tpu.models.vocos import Vocos
+    kg, kd, kf, kv = jax.random.split(key, 4)
+    c = cfg
+    zeros = shaped_zeros
+    out = {
+        "gpt": zeros(lambda: UnifiedVoice(c.gpt).init(
+            kg, jnp.zeros((1, c.gpt.mel_bins, 64)),
+            jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
+            jnp.zeros((1, 16), jnp.int32), jnp.array([16 * 1024]))),
+        "dvae": jax.jit(DVAE(c.vqvae).init)(
+            kd, jnp.zeros((1, c.vqvae.channels, 64))),
+        "diffusion": zeros(lambda: AADiffusion(c.diffusion).init(
+            kf, jnp.zeros((1, c.diffusion.in_channels, 16)), jnp.array([0]),
+            jnp.zeros((1, c.diffusion.in_latent_channels, 4)),
+            jnp.zeros((1, c.diffusion.in_channels, 16)))),
+        "vocos": zeros(lambda: Vocos(c.vocos).init(
+            kv, jnp.zeros((1, c.vocos.input_channels, 16))))}
+    if with_clvp:
+        out["clvp"] = zeros(lambda: CLVP(c.clvp).init(
+            jax.random.fold_in(key, 5), jnp.zeros((1, 8), jnp.int32),
+            jnp.zeros((1, 8), jnp.int32)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def pair():
-    jtts = japi.TextToSpeech(TINY, rng=jax.random.PRNGKey(0),
+    jtts = japi.TextToSpeech(TINY, jax_variables(TINY, jax.random.PRNGKey(0)),
                              quantized_decode=True)
     rng = np.random.default_rng(0)
     vars_np = {name: {"params": randomize(jtts.vars[name]["params"], rng)}
@@ -331,7 +392,8 @@ def test_imports_without_jax():
               "data.fileops", "data.asr", "data.prepare", "core.logging",
               "core.checkpoint", "nn.remat", "train.schedules", "train.ema",
               "train.trainer", "train.steps", "train.cli",
-              "utils.registry"):
+              "utils.registry", "diffusion.resample", "models.classifier",
+              "models.hifigan_discriminator", "train.gan"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc

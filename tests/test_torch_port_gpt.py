@@ -18,6 +18,7 @@ from xtts_tpu_torch.infer import qdecode as tq, sampling as ts  # noqa: E402
 from xtts_tpu_torch.models import gpt as tgpt, gpt_infer as tgi  # noqa: E402
 from xtts_tpu_torch.nn.transformer import KVCache as TKV  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
+from test_torch_port_e2e import shaped_zeros  # noqa: E402
 
 CFG = GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=64,
                 max_text_tokens=32, number_mel_codes=200, start_mel_token=198,
@@ -49,9 +50,12 @@ def randomize(tree, rng):
 @pytest.fixture(scope="module")
 def models():
     jm = jgpt.UnifiedVoice(CFG)
-    init = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
-                            jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
-                            jnp.zeros((1, 16), jnp.int32), jnp.array([16384]))
+    # the compiled init's shapes and key order by tracing alone
+    # (randomize redraws every leaf: the same draws)
+    init = shaped_zeros(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)),
+        jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
+        jnp.zeros((1, 16), jnp.int32), jnp.array([16384])))
     params = randomize(init["params"], np.random.default_rng(0))
     tm = tgpt.UnifiedVoice(TCFG).eval()
     tm.load_state_dict(convert.to_torch(device="cpu", sd=

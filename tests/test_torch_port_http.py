@@ -34,8 +34,8 @@ from xtts_tpu_torch.data import audio as taudio  # noqa: E402
 from xtts_tpu_torch.infer import api as tapi, http as thttp  # noqa: E402
 from xtts_tpu_torch.infer import qdecode as tq  # noqa: E402
 
-from test_torch_port_e2e import (TINY, TINY_T, one_torch_thread,  # noqa: E402,F401,E501
-                                 randomize)
+from test_torch_port_e2e import (TINY, TINY_T, jax_variables,  # noqa: E402,F401,E501
+                                 one_torch_thread, randomize)
 
 BACKENDS = ["waves", "slots"]
 
@@ -246,7 +246,7 @@ def model_dirs(tmp_path_factory):
     """Two checkpoint directories of the same random weights (the e2e
     test's): JAX variable trees as <name>.npz, and the port's state dicts
     as <name>.pth; each with the tiny config's xtts_config.json."""
-    jtts = japi.TextToSpeech(TINY, rng=jax.random.PRNGKey(0),
+    jtts = japi.TextToSpeech(TINY, jax_variables(TINY, jax.random.PRNGKey(0)),
                              quantized_decode=True)
     rng = np.random.default_rng(0)
     for name in ("gpt", "diffusion", "vocos"):

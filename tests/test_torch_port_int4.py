@@ -218,15 +218,17 @@ def test_r4_gate_grid_is_not_the_kernel_grid():
 
 @pytest.fixture(scope="module")
 def gate_pair():
-    from test_torch_port_e2e import TINY, TINY_T, randomize
+    from test_torch_port_e2e import TINY, TINY_T, randomize, traced_zeros
     from xtts_tpu.models.gpt import UnifiedVoice as JVoice
     from xtts_tpu_torch.models.gpt import UnifiedVoice as TVoice
     from xtts_tpu_torch.utils import convert
     model = JVoice(TINY.gpt)
-    variables = model.init(
+    # the eager init's shapes and key order by tracing alone (randomize
+    # redraws every leaf: the same draws)
+    variables = traced_zeros(lambda: model.init(
         jax.random.PRNGKey(0), jnp.zeros((1, TINY.gpt.mel_bins, 16)),
         jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
-        jnp.zeros((1, 16), jnp.int32), jnp.array([16 * 1024]))
+        jnp.zeros((1, 16), jnp.int32), jnp.array([16 * 1024])))
     variables = {"params": randomize(variables["params"],
                                      np.random.default_rng(0))}
     tmodel = TVoice(TINY_T.gpt).eval()

@@ -25,7 +25,8 @@ and equal their int-index launches bit for bit. The AR loop's CUDA graphs
 K1-int4 and K4, greedy and sampled. The slot pool's (infer/slots.py) too,
 over both cache forms; its per-row draws in a graph equal eager ones, draw
 for draw, and one generator a row draws at one row what the single
-generator draws. The training path: K3 at the trainers' row counts, one
+generator draws. K2 refuses inputs that require grad (it has no
+backward). The training path: K3 at the trainers' row counts, one
 vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
 gradients rtol 1e-4 / atol 1e-6, EMA codebook 1e-5), and a checkpoint
 restored on the card bit for bit.
@@ -362,6 +363,30 @@ def test_flash_mha(cuda, b, tq, tk, h):
     torch.cuda.synchronize()
     assert fa.flash_mha.launches == 1
     assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_mha_refuses_inputs_that_require_grad(cuda):
+    """K2 has no backward: on inputs that require grad, with gradients
+    recorded, it raises instead of returning a detached output, and counts
+    no launch; the same inputs under no_grad launch it once and give what
+    inputs that require no grad give, bit for bit."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v = (torch.randn(2, t, 8, 64, generator=cuda,
+                           device="cuda").bfloat16() for t in (1280, 1562,
+                                                               1562))
+    want = fa.flash_mha(q, k, v, 0.125)
+    fa.flash_mha.launches = 0
+    for leaf in ("q", "k", "v"):
+        qq, kk, vv = (t.clone().requires_grad_(name == leaf)
+                      for name, t in (("q", q), ("k", k), ("v", v)))
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_mha(qq, kk, vv, 0.125)
+    assert fa.flash_mha.launches == 0
+    with torch.no_grad():
+        got = fa.flash_mha(q.clone().requires_grad_(), k, v, 0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1 and got.grad_fn is None
+    assert torch.equal(got, want)
 
 
 def test_flash_mha_reads_strided_views(cuda):

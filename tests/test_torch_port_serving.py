@@ -26,8 +26,8 @@ from xtts_tpu_torch.infer import api as tapi, qdecode as tq  # noqa: E402
 from xtts_tpu_torch.infer import serving as tserv  # noqa: E402
 from xtts_tpu_torch.ops import serving_step as tss  # noqa: E402
 
-from test_torch_port_e2e import (TINY, one_torch_thread,  # noqa: E402,F401
-                                 randomize)
+from test_torch_port_e2e import (TINY, jax_variables,  # noqa: E402,F401
+                                 one_torch_thread, randomize)
 
 CFG = TINY.replace(clvp=CLVPConfig(
     dim_text=32, dim_speech=32, dim_latent=16, num_text_tokens=256,
@@ -40,7 +40,8 @@ NARROW = dict(top_p=1e-4, repetition_penalty=1.0, max_mel_tokens=20)
 
 @pytest.fixture(scope="module")
 def pair():
-    jtts = japi.TextToSpeech(CFG, rng=jax.random.PRNGKey(0),
+    jtts = japi.TextToSpeech(CFG, jax_variables(CFG, jax.random.PRNGKey(0),
+                                                with_clvp=True),
                              quantized_decode=True, with_clvp=True)
     rng = np.random.default_rng(0)
     for name in ("gpt", "dvae", "diffusion", "vocos", "clvp"):

@@ -41,7 +41,8 @@ from xtts_tpu_torch.models.gpt import UnifiedVoice  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
 
 from test_slots import CFG, MAX_GEN, _FakeTTS, _requests  # noqa: E402
-from test_torch_port_e2e import TINY_T, one_torch_thread  # noqa: E402,F401
+from test_torch_port_e2e import (TINY_T, one_torch_thread,  # noqa: E402,F401
+                                 traced_zeros)
 from test_torch_port_gpt import randomize  # noqa: E402
 
 XCFG = XTTSConfig(gpt=CFG, mel=MelConfig(n_mels=20))
@@ -71,10 +72,12 @@ SEED, STOP_BIAS = 15, 1.5
 @pytest.fixture(scope="module")
 def engine():
     model = JUnifiedVoice(CFG)
-    variables = model.init(
+    # the eager init's shapes and key order by tracing alone (randomize
+    # redraws every leaf: the same draws)
+    variables = traced_zeros(lambda: model.init(
         jax.random.PRNGKey(0), jnp.zeros((2, 20, 50)),
         jnp.zeros((2, 10), jnp.int32), jnp.array([8, 10]),
-        jnp.zeros((2, 20), jnp.int32), jnp.array([20 * 1024, 15 * 1024]))
+        jnp.zeros((2, 20), jnp.int32), jnp.array([20 * 1024, 15 * 1024])))
     p = randomize(variables["params"], np.random.default_rng(SEED))
     p["mel_head"]["bias"][CFG.stop_mel_token] += STOP_BIAS
     jvars = {"params": p}

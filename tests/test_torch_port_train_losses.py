@@ -24,7 +24,7 @@ from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.models import dvae as tdv, gpt as tgpt  # noqa: E402
 from xtts_tpu_torch.train import steps as tsteps  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
-from test_torch_port_e2e import one_torch_thread  # noqa: E402,F401
+from test_torch_port_e2e import one_torch_thread, shaped_zeros  # noqa: E402,F401
 from test_torch_port_gpt import randomize  # noqa: E402
 
 MB = 8
@@ -150,7 +150,9 @@ def test_balancing_mask_and_counts_match():
 @pytest.fixture(scope="module")
 def gpt_pair():
     jm = jgpt.UnifiedVoice(GPT_CFG)
-    init = _np(jax.jit(jm.init)(
+    # the compiled init's shapes and key order by tracing alone
+    # (randomize redraws every leaf: the same draws)
+    init = shaped_zeros(lambda: jm.init(
         jax.random.PRNGKey(1), jnp.zeros((1, MB, 16)),
         jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
         jnp.zeros((1, 8), jnp.int32), jnp.array([8 * 1024])))

@@ -17,6 +17,7 @@ from xtts_tpu_torch.core import config as tcfg  # noqa: E402
 from xtts_tpu_torch.models import vocos as tvo  # noqa: E402
 from xtts_tpu_torch.nn.blocks import init_flax_like  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
+from test_torch_port_e2e import traced_zeros  # noqa: E402
 
 CONFIGS = {
     "tiny": VocosConfig(input_channels=8, dim=32, intermediate_dim=64,
@@ -45,7 +46,10 @@ def randomize(tree, rng):
 
 def _pair(cfg, seed=0):
     jm = jvo.Vocos(cfg)
-    init = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, cfg.input_channels, 8)))
+    # the eager init's shapes and key order by tracing alone (randomize
+    # redraws every leaf: the same draws)
+    init = traced_zeros(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, cfg.input_channels, 8))))
     params = randomize(init["params"], np.random.default_rng(seed))
     tm = tvo.Vocos(tcfg.VocosConfig.from_dict(cfg.to_dict())).eval()
     tm.load_state_dict(convert.to_torch(device="cpu", sd=convert.vocos_from_jax(
@@ -149,7 +153,8 @@ def test_imdct_symexp_mel_scaled_init():
 
 
 def _backbone_params(module, x, rng, *args):
-    init = module.init(jax.random.PRNGKey(0), jnp.asarray(x), *args)
+    init = traced_zeros(lambda: module.init(jax.random.PRNGKey(0),
+                                            jnp.asarray(x), *args))
     return randomize(init["params"], rng)
 
 

@@ -15,11 +15,14 @@ xtts_tpu/diffusion/gaussian.py:235-260).
 Shipped-path semantics: linear 1000-step schedule, SpacedDiffusion
 re-spacing with the timestep map, epsilon prediction + learned-range
 variance, CFG mix (1+k)*cond - k*uncond with the linear ramp
-k * (1 - t_spaced / T_spaced).
+k * (1 - t_spaced / T_spaced). The training half: `q_sample` and
+`training_losses`, MSE(eps) + the vb term with the mean frozen
+(ttts/utils/diffusion.py:930-1014), in f32 whatever the model computes in.
 """
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence, Union
 
@@ -32,6 +35,20 @@ def linear_beta_schedule(num_steps: int) -> np.ndarray:
     scale = 1000.0 / num_steps
     return np.linspace(scale * 0.0001, scale * 0.02, num_steps,
                        dtype=np.float64)
+
+
+def get_named_beta_schedule(name: str, num_steps: int) -> np.ndarray:
+    """`linear` (scaled by 1000 / num_steps) or `cosine` (Nichol &
+    Dhariwal's alpha_bar, each beta capped at 0.999)."""
+    if name == "linear":
+        return linear_beta_schedule(num_steps)
+    if name == "cosine":
+        def alpha_bar(t):
+            return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+        return np.array([min(1 - alpha_bar((i + 1) / num_steps)
+                             / alpha_bar(i / num_steps), 0.999)
+                         for i in range(num_steps)], dtype=np.float64)
+    raise NotImplementedError(name)
 
 
 def space_timesteps(num_timesteps: int, section_counts) -> set:
@@ -98,6 +115,9 @@ class GaussianDiffusion:
 
     alphas_cumprod: np.ndarray = field(default=None, repr=False)
     alphas_cumprod_prev: np.ndarray = field(default=None, repr=False)
+    sqrt_alphas_cumprod: np.ndarray = field(default=None, repr=False)
+    sqrt_one_minus_alphas_cumprod: np.ndarray = field(default=None,
+                                                      repr=False)
     sqrt_recip_alphas_cumprod: np.ndarray = field(default=None, repr=False)
     sqrt_recipm1_alphas_cumprod: np.ndarray = field(default=None, repr=False)
     posterior_log_variance_clipped: np.ndarray = field(default=None,
@@ -113,6 +133,8 @@ class GaussianDiffusion:
         post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
         derived = dict(
             betas=betas, alphas_cumprod=acp, alphas_cumprod_prev=acp_prev,
+            sqrt_alphas_cumprod=np.sqrt(acp),
+            sqrt_one_minus_alphas_cumprod=np.sqrt(1 - acp),
             sqrt_recip_alphas_cumprod=np.sqrt(1.0 / acp),
             sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / acp - 1),
             posterior_log_variance_clipped=np.log(
@@ -129,9 +151,9 @@ class GaussianDiffusion:
 
     @staticmethod
     def spaced(num_train_steps: int = 1000, sampling_steps: int = 50,
-               **kw) -> "GaussianDiffusion":
+               schedule: str = "linear", **kw) -> "GaussianDiffusion":
         """SpacedDiffusion equivalent."""
-        base_betas = linear_beta_schedule(num_train_steps)
+        base_betas = get_named_beta_schedule(schedule, num_train_steps)
         acp = np.cumprod(1.0 - base_betas)
         use = space_timesteps(num_train_steps, sampling_steps)
         new_betas, tmap, last = [], [], 1.0
@@ -154,6 +176,11 @@ class GaussianDiffusion:
         """Per-t f32 scalars, shaped (B, 1, ...) to broadcast over ndim."""
         vals = torch.as_tensor(np.asarray(arr, np.float32), device=t.device)[t]
         return vals.reshape(vals.shape + (1,) * (ndim - 1))
+
+    def q_sample(self, x_start, t, noise):
+        n = x_start.dim()
+        return (self._ex(self.sqrt_alphas_cumprod, t, n) * x_start
+                + self._ex(self.sqrt_one_minus_alphas_cumprod, t, n) * noise)
 
     def q_posterior_mean(self, x_start, x_t, t):
         n = x_t.dim()
@@ -388,6 +415,69 @@ class GaussianDiffusion:
                                     variant="vary_coeff")}
         return fns[sampler](model_fn, shape, generator=generator, noise=noise,
                             device=device)
+
+
+    # ------------------------------------------------------------------
+    # training
+
+    def training_losses(self, model_fn, x_start: torch.Tensor,
+                        t: torch.Tensor, noise: torch.Tensor):
+        """MSE(eps) + the vb term with the model's mean frozen
+        (ttts/utils/diffusion.py:963-1014). t: the (B,) indices of this
+        process; model_fn(x_t, t_orig) -> (B, 2C, T). The loss math runs in
+        f32 whatever the model computes in. Returns per-example 'loss',
+        'mse', 'vb' and 'x_start_predicted'."""
+        x_t = self.q_sample(x_start, t, noise)
+        out = model_fn(x_t, self.map_t(t)).float()
+        eps, var_frac = out.chunk(2, dim=1)
+        frozen = torch.cat([eps.detach(), var_frac], dim=1)
+        vb = self._vb_terms(frozen, x_start, x_t, t)
+        mse = _mean_flat((noise - eps) ** 2)
+        return {"loss": mse + vb, "mse": mse, "vb": vb,
+                "x_start_predicted": self.predict_xstart_from_eps(x_t, t,
+                                                                  eps)}
+
+    def _vb_terms(self, model_output, x_start, x_t, t):
+        """KL(q(x_{t-1} | x_t, x_0) || p) in bits; the decoder NLL at
+        t = 0."""
+        pmv = self.p_mean_variance_from_output(model_output, x_t, t)
+        true_mean = self.q_posterior_mean(x_start, x_t, t)
+        true_logvar = self._ex(self.posterior_log_variance_clipped, t,
+                               x_t.dim())
+        kl = _normal_kl(true_mean, true_logvar, pmv["mean"],
+                        pmv["log_variance"])
+        kl = _mean_flat(kl) / math.log(2.0)
+        nll = -_discretized_gaussian_log_likelihood(
+            x_start, pmv["mean"], 0.5 * pmv["log_variance"])
+        nll = _mean_flat(nll) / math.log(2.0)
+        return torch.where(t == 0, nll, kl)
+
+
+def _mean_flat(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def _normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def _approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                   * (x + 0.044715 * x ** 3)))
+
+
+def _discretized_gaussian_log_likelihood(x, means, log_scales):
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = _approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = _approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min,
+                                   log_cdf_delta))
 
 
 # the samplers that walk the spaced timestep grid (a ReferenceNet table

@@ -623,25 +623,31 @@ class ContinuousBatcher:
         """A device or scheduler error poisons the whole pool state: fail
         every in-flight future (slots, harvested, queued), reset the pool,
         and keep the scheduler alive for new traffic (BatchServer fails
-        only the offending wave; here the shared SlotState is the wave)."""
-        for s, g in enumerate(self._slot_req):
+        only the offending wave; here the shared SlotState is the wave).
+        The futures fail last, once the queue is drained and the pool
+        reset: a request submitted after a caller saw the error is served,
+        not drained with the failed ones."""
+        in_slots = [g for g in self._slot_req if g is not None]
+        for s in range(len(self._slot_req)):
             self._slot_req[s] = None
-            if g is not None and not g.future.done():
-                g.future.set_exception(exc)
-                self._m["failed"] += 1
-        for g, _, _ in self._finished:
-            if not g.future.done():
-                g.future.set_exception(exc)
+        doomed = [g for g, _, _ in self._finished]
         self._finished = []
         try:
             while True:
-                g = self._q.get_nowait()
-                if not g.future.done():
-                    g.future.set_exception(exc)
+                doomed.append(self._q.get_nowait())
         except queue.Empty:
             pass
-        self._inflight = None
-        self.dec.reset()
+        try:
+            self._inflight = None
+            self.dec.reset()
+        finally:
+            for g in in_slots:
+                if not g.future.done():
+                    g.future.set_exception(exc)
+                    self._m["failed"] += 1
+            for g in doomed:
+                if not g.future.done():
+                    g.future.set_exception(exc)
 
     @torch.no_grad()
     def _loop(self):

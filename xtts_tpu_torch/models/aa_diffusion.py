@@ -11,8 +11,14 @@ a state_dict() directly.
 
 Layout: (B, C, T) in the ResBlocks and at the API, (B, T, C) inside the
 transformer blocks; the ReferenceNet features are (B, Tr, C) as in JAX.
-An attention with Tq * Tk >= 2^19 runs kernel K2 (nn/flash_attn.py) for
-CUDA tensors; on the main path that is the consumer attn1 over [x ; refer].
+
+`flash` (JAX's switch, default False): a self-attention with Tq * Tk >=
+2^19 then runs kernel K2 (nn/flash_attn.py) for CUDA tensors; on the main
+path that is the consumer attn1 over [x ; refer]. The serving API builds
+the model with flash=True; the trainers keep the default, as JAX's do: K2
+has no backward. `forward` is the reference's training forward (JAX's
+__call__): the uncond-hint substitution and, under `train`, the CLIP
+encoder's PatchDropout.
 """
 from __future__ import annotations
 
@@ -28,17 +34,21 @@ from xtts_tpu_torch.nn.blocks import (Conv1d, GroupNorm32, LayerNorm, Linear,
                                       lecun_normal_, normal_,
                                       timestep_embedding)
 from xtts_tpu_torch.nn.flash_attn import flash_mha, use_flash
+from xtts_tpu_torch.nn.remat import remat_call
 
 
 class CrossAttention(nn.Module):
-    """Biasless q/k/v projections, f32 softmax."""
+    """Biasless q/k/v projections, f32 softmax; K2 where `flash` is set
+    and the size gate admits the shapes."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
-                 heads: int = 8, dim_head: int = 64, dtype=torch.float32):
+                 heads: int = 8, dim_head: int = 64, dtype=torch.float32,
+                 flash: bool = False):
         super().__init__()
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
+        self.flash = flash
         self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Linear(context_dim, inner, bias=False, dtype=dtype)
         self.to_v = Linear(context_dim, inner, bias=False, dtype=dtype)
@@ -51,7 +61,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).unflatten(-1, (h, dh))
         k = self.to_k(ctx).unflatten(-1, (h, dh))
         v = self.to_v(ctx).unflatten(-1, (h, dh))
-        if use_flash(q.shape[1], k.shape[1]):
+        if self.flash and use_flash(q.shape[1], k.shape[1]):
             out = flash_mha(q, k, v, dh ** -0.5)
         else:
             sim = torch.einsum("bihd,bjhd->bhij", q, k) * (dh ** -0.5)
@@ -86,13 +96,13 @@ class BasicTransformerBlock(nn.Module):
     (self-attention over [x ; refer], queries for the x rows only)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, flash: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.norm3 = LayerNorm(dim, eps=1e-6)
         self.attn1 = CrossAttention(dim, heads=heads, dim_head=dim_head,
-                                    dtype=dtype)
+                                    dtype=dtype, flash=flash)
         self.attn2 = CrossAttention(dim, context_dim=context_dim, heads=heads,
                                     dim_head=dim_head, dtype=dtype)
         self.ff = FeedForward(dim, dtype=dtype)
@@ -117,13 +127,15 @@ class SpatialTransformer1D(nn.Module):
     proj_out -> + input. (B, C, T) in and out."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
-                 context_dim: int, depth: int = 1, dtype=torch.float32):
+                 context_dim: int, depth: int = 1, dtype=torch.float32,
+                 flash: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(channels, groups=32, eps=1e-6)
         self.proj_in = Conv1d(channels, inner, 1, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, dim_head, context_dim, dtype)
+            BasicTransformerBlock(inner, heads, dim_head, context_dim, dtype,
+                                  flash)
             for _ in range(depth)])
         self.proj_out = Conv1d(inner, channels, 1, dtype=dtype,
                                zero_init=True)
@@ -141,7 +153,11 @@ class SpatialTransformer1D(nn.Module):
 
 
 class UNetResBlock(nn.Module):
-    """openaimodel ResBlock, 1-D, no scale-shift norm, identity skip."""
+    """openaimodel ResBlock, 1-D, no scale-shift norm, identity skip.
+
+    No dropout, whatever cfg.dropout says, as in JAX: its trunk never
+    passes deterministic=False to the block, in training either
+    (xtts_tpu/models/aa_diffusion.py:82-83, :321)."""
 
     def __init__(self, channels: int, emb_dim: int, dtype=torch.float32):
         super().__init__()
@@ -165,10 +181,12 @@ class UNetResBlock(nn.Module):
 class UNetTrunk(nn.Module):
     """Shared trunk of BaseModel / ReferenceNet: initial conv + per level
     [ResBlock, SpatialTransformer] x num_res_blocks + a closing ResBlock.
-    base=True adds the BaseModel's hint_converter and output head."""
+    base=True adds the BaseModel's hint_converter and output head.
+    cfg.remat checkpoints each ResBlock and SpatialTransformer while
+    gradients are recorded (nn/remat.py; JAX's maybe_remat)."""
 
     def __init__(self, cfg: DiffusionModelConfig, dtype=torch.float32,
-                 base: bool = False):
+                 base: bool = False, flash: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
@@ -185,7 +203,7 @@ class UNetTrunk(nn.Module):
                     SpatialTransformer1D(mc, c.num_heads, mc // c.num_heads,
                                          c.context_dim,
                                          depth=c.transformer_depth,
-                                         dtype=dtype)]))
+                                         dtype=dtype, flash=flash)]))
             blocks.append(nn.ModuleList([UNetResBlock(mc, 4 * mc, dtype)]))
         self.blocks = nn.ModuleList(blocks)
         if base:
@@ -208,14 +226,15 @@ class UNetTrunk(nn.Module):
             h = h + hint
         produced: List[torch.Tensor] = []
         ri = 0
+        remat = self.cfg.remat
         for blk in self.blocks[1:]:
-            h = blk[0](h, emb)
+            h = remat_call(blk[0], remat, h, emb)
             if len(blk) == 2:
                 if refers is None:
-                    h, p = blk[1](h, context)
+                    h, p = remat_call(blk[1], remat, h, context)
                     produced.append(p)
                 else:
-                    h = blk[1](h, context, refers[ri])
+                    h = remat_call(blk[1], remat, h, context, refers[ri])
                 ri += 1
         return (h, produced) if refers is None else h
 
@@ -302,15 +321,41 @@ class _VisionTower(nn.Module):
         normal_(self.positional_embedding, self.cfg.width ** -0.5, g)
 
 
+def patch_keep(n: int, p: float) -> int:
+    """Patches PatchDropout keeps of n at rate p (JAX's static count)."""
+    return max(1, int(n * (1.0 - p)))
+
+
+def patch_dropout(x: torch.Tensor, p: float,
+                  rand: torch.Tensor) -> torch.Tensor:
+    """PatchDropout (JAX :348-358): the cls token, then the patch_keep
+    patches of each row with the largest `rand` (B, n), in descending
+    order of `rand` (lax.top_k's)."""
+    cls_tok, patches = x[:, :1], x[:, 1:]
+    _, idx = torch.topk(rand.to(x.device), patch_keep(patches.shape[1], p),
+                        dim=1)
+    patches = torch.gather(patches, 1,
+                           idx[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.cat([cls_tok, patches], dim=1)
+
+
 class CLIPRefEncoder(nn.Module):
     """ViT over the reference mel; returns the L2-normalized token
-    sequence (B, 1 + T // patch, width)."""
+    sequence (B, 1 + T // patch, width), or under `train` (with
+    cfg.patch_dropout > 0) the cls token and the kept patches."""
 
     def __init__(self, cfg: CLIPRefConfig, dtype=torch.float32):
         super().__init__()
         self.visual = _VisionTower(cfg, dtype)
 
-    def forward(self, mel_bct):
+    def num_patches(self, t_mel: int) -> int:
+        return t_mel // self.visual.cfg.patch_size
+
+    def forward(self, mel_bct, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                patch_rand: Optional[torch.Tensor] = None):
+        """patch_rand (B, n): the draw PatchDropout ranks (a standard
+        normal from `generator` when not given)."""
         vt = self.visual
         p = vt.cfg.patch_size
         t = mel_bct.shape[-1] - mel_bct.shape[-1] % p
@@ -318,6 +363,13 @@ class CLIPRefEncoder(nn.Module):
         cls = vt.class_embedding.to(x.dtype)[None, None].expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + vt.positional_embedding[:x.shape[1]].to(x.dtype)
+        if train and vt.cfg.patch_dropout > 0.0:
+            if patch_rand is None:
+                patch_rand = torch.randn(
+                    (x.shape[0], x.shape[1] - 1), generator=generator,
+                    device=generator.device if generator is not None
+                    else x.device)
+            x = patch_dropout(x, vt.cfg.patch_dropout, patch_rand)
         x = vt.ln_pre(x).to(x.dtype)
         for blk in vt.transformer.resblocks:
             x = blk(x)
@@ -337,12 +389,12 @@ class AADiffusion(nn.Module):
     """Full model; API in (B, C, T) like the reference."""
 
     def __init__(self, cfg: DiffusionModelConfig = DiffusionModelConfig(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, flash: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.refer_enc = CLIPRefEncoder(cfg.clip, dtype)
-        self.refer_model = UNetTrunk(cfg, dtype)
-        self.base_model = UNetTrunk(cfg, dtype, base=True)
+        self.refer_model = UNetTrunk(cfg, dtype, flash=flash)
+        self.base_model = UNetTrunk(cfg, dtype, base=True, flash=flash)
         self.unconditioned_cat_embedding = nn.Parameter(
             torch.zeros(1, cfg.in_latent_channels, 1))
 
@@ -371,6 +423,33 @@ class AADiffusion(nn.Module):
     def uncond_hint(self, b: int, t_len: int):
         """(B, latent, T) tiled unconditioned embedding."""
         return self.unconditioned_cat_embedding.expand(b, -1, t_len)
+
+    def forward(self, x_bct, t, hint_bct, refer_bct,
+                conditioning_free: bool = False,
+                uncond_mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                patch_rand: Optional[torch.Tensor] = None):
+        """The reference's forward (aa_model.py:329-339; JAX __call__).
+        uncond_mask (B,) bool: the training CFG dropout, drawn by the
+        caller (those rows take the unconditioned embedding as hint).
+        train: the CLIP encoder's PatchDropout, ranked by patch_rand (B, n)
+        or a normal draw from `generator`. Returns (B, out_channels, T)."""
+        b, _, t_x = x_bct.shape
+        if conditioning_free:
+            hint_bct = self.uncond_hint(b, t_x)
+        else:
+            if uncond_mask is not None:
+                uc = self.uncond_hint(b, hint_bct.shape[-1])
+                hint_bct = torch.where(uncond_mask[:, None, None],
+                                       uc.to(hint_bct.dtype), hint_bct)
+            hint_bct = nearest_resize_time(hint_bct.transpose(1, 2),
+                                           t_x).transpose(1, 2)
+        refer_cross = self.refer_enc(refer_bct, train=train,
+                                     generator=generator,
+                                     patch_rand=patch_rand)
+        control = self.reference_features(refer_bct, t, refer_cross)
+        return self.denoise(x_bct, t, hint_bct, refer_cross, control)
 
 
 TACOTRON_MEL_MAX = 5.5451774444795624753378569716654

@@ -5,7 +5,9 @@ Two encoder towers (text BPE tokens, mel-VQ codes) -> masked-mean pooled,
 L2-normalised latents -> temperature-scaled cosine scores. `rerank` scores
 K speech-code candidates against one text; `rerank_batch` K candidates for
 each of B texts in one pass (BASELINE config #5). Parameter names are the
-reference's. The training loss is not ported.
+reference's. `forward(..., return_loss=True)` is the training loss, the
+symmetric InfoNCE over the batch (ttts/clvp/model.py:133-140), and
+`make_clvp_loss` its Trainer closure.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from xtts_tpu_torch.core.config import CLVPConfig
 from xtts_tpu_torch.nn.blocks import Linear
@@ -92,14 +95,25 @@ class CLVP(nn.Module):
         h = self.speech_transformer(h, mask)
         return self._normalize(self.to_speech_latent(masked_mean(h, mask)))
 
-    @torch.no_grad()
     def forward(self, text: torch.Tensor, codes: torch.Tensor,
                 text_mask: Optional[torch.Tensor] = None,
-                code_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Similarity logits (B, B) scaled by the learned temperature."""
-        tl = self.embed_text(text, text_mask)
-        sl = self.embed_speech(codes, code_mask)
-        return torch.einsum("id,jd->ij", tl, sl) * torch.exp(self.temperature)
+                code_mask: Optional[torch.Tensor] = None,
+                return_loss: bool = False) -> torch.Tensor:
+        """Similarity logits (B, B) scaled by the learned temperature
+        (under no_grad); with return_loss, the symmetric InfoNCE loss, the
+        mean of the text-to-speech and speech-to-text cross-entropies with
+        the diagonal as labels (f32)."""
+        with torch.set_grad_enabled(return_loss and torch.is_grad_enabled()):
+            tl = self.embed_text(text, text_mask)
+            sl = self.embed_speech(codes, code_mask)
+            logits = (torch.einsum("id,jd->ij", tl, sl)
+                      * torch.exp(self.temperature))
+            if not return_loss:
+                return logits
+            labels = torch.arange(logits.shape[0], device=logits.device)
+            logits = logits.float()
+            return (F.cross_entropy(logits, labels)
+                    + F.cross_entropy(logits.t(), labels)) / 2
 
     @torch.no_grad()
     def rerank(self, text: torch.Tensor, candidate_codes: torch.Tensor,
@@ -122,3 +136,15 @@ class CLVP(nn.Module):
             None if code_mask is None else code_mask.reshape(b * k, s))
         return (torch.einsum("bkd,bd->bk", sl.reshape(b, k, -1), tl)
                 * torch.exp(self.temperature)[0])
+
+
+def make_clvp_loss(model: CLVP):
+    """Trainer closure: batch {'text', 'codes', 'text_mask', 'code_mask'}
+    -> the InfoNCE loss (JAX make_clvp_loss)."""
+
+    def loss_fn(batch, generator: Optional[torch.Generator] = None):
+        loss = model(batch["text"], batch["codes"], batch.get("text_mask"),
+                     batch.get("code_mask"), return_loss=True)
+        return loss, {}
+
+    return loss_fn

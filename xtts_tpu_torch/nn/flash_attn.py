@@ -16,7 +16,10 @@ out of device memory, which the plain version writes and reads back.
 It reads the (B, T, H, 64) strides directly and masks the ragged Tk edge
 itself, so the TPU wrapper's padding to 128 and its segment ids are gone.
 `flash_mha` launches the kernel for CUDA tensors (counting launches in
-`flash_mha.launches`) and runs the plain version for CPU tensors.
+`flash_mha.launches`) and runs the plain version for CPU tensors. The
+kernel has no backward: on the card it refuses inputs that require grad
+while gradients are recorded, rather than return an output detached from
+them (the trainers build the UNet with flash=False, as JAX's do).
 """
 from __future__ import annotations
 
@@ -76,6 +79,10 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or t.data_ptr() % 16):
             raise ValueError("flash_mha needs unit head-dim stride, strides "
                              "in multiples of 8 and 16-byte aligned data")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_mha has no backward: its output would be "
+                           "detached from q, k and v. Build the model with "
+                           "flash=False to train, or run under no_grad")
     require_hopper(q)
     out = torch.empty((b, tq, h, dh), dtype=torch.bfloat16, device=q.device)
     check(_lib().xt_flash_attn_fwd(

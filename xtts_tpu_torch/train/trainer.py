@@ -8,7 +8,8 @@ trainers, ttts/{vqvae,gpt,diffusion,clvp,hifigan}/train_ms.py):
   after this batch (the DVAE's EMA codebook), computed in the forward
   under the old ones and written after the backward pass, as JAX applies
   aux["new_state_cols"] after the gradient (xtts_tpu/train/trainer.py:
-  122-126);
+  122-126); a loss_fn's own `state_cols` (the diffusion timestep
+  sampler's history) join the model's buffers in the state;
 * the Trainer owns what optax.chain(clip_by_global_norm, adamw) computes,
   written out over the parameter list (ttts/gpt/train_ms.py:97-113,231):
   the global-norm clip scales by max_norm / norm only when norm >=
@@ -64,6 +65,45 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
+@torch.no_grad()
+def clip_adamw_(params: Dict[str, torch.Tensor], grads, opt: "AdamWState",
+                lr: float, max_norm: float, weight_decay: float,
+                b1: float = B1, b2: float = B2) -> torch.Tensor:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(lr, b1, b2, eps
+    1e-8, weight_decay)) on `params` and the moments of `opt`, in place;
+    `grads` lists the gradients in the order of `params`; opt.count
+    advances. Returns the unclipped global norm."""
+    names = list(params)
+    mu = [opt.mu[n] for n in names]
+    nu = [opt.nu[n] for n in names]
+    params = [params[n] for n in names]
+    gnorm = global_norm(grads)
+    if not bool(gnorm < max_norm):           # optax: t / norm * max
+        grads = torch._foreach_div(grads, gnorm)
+        torch._foreach_mul_(grads, max_norm)
+    # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, 1 - b2)
+    torch._foreach_add_(nu, sq)
+    opt.count += 1
+    dev = params[0].device
+    f32 = np.float32
+    bc1 = torch.tensor(f32(1) - f32(b1) ** f32(opt.count), device=dev)
+    bc2 = torch.tensor(f32(1) - f32(b2) ** f32(opt.count), device=dev)
+    upd = torch._foreach_div(mu, bc1)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, EPS)
+    torch._foreach_div_(upd, den)
+    torch._foreach_add_(upd, torch._foreach_mul(params, weight_decay))
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(params, upd)
+    return gnorm
+
+
 def _microbatch(batch, i: int):
     return {k: v[i] for k, v in batch.items()}
 
@@ -95,6 +135,7 @@ class Trainer:
                   if p.requires_grad}
         keys = set(self.model.state_dict())
         cols = {n: b for n, b in self.model.named_buffers() if n in keys}
+        cols.update(getattr(self.loss_fn, "state_cols", {}))
         if self.ema_decay is not None:
             from xtts_tpu_torch.train.ema import ema_init
             cols.update({"ema." + k: v for k, v in ema_init(params).items()})
@@ -140,44 +181,12 @@ class Trainer:
                for k in auxes[0]}
         return loss, aux, grads
 
-    @torch.no_grad()
     def apply_gradients(self, state: TrainState, grads) -> torch.Tensor:
         """clip_by_global_norm then AdamW on the schedule, in place on
         state.params and state.opt_state. Returns the unclipped norm."""
-        names = list(state.params)
-        params = [state.params[n] for n in names]
-        mu = [state.opt_state.mu[n] for n in names]
-        nu = [state.opt_state.nu[n] for n in names]
-        gnorm = global_norm(grads)
-        max_norm = self.cfg.grad_clip
-        if not bool(gnorm < max_norm):           # optax: t / norm * max
-            grads = torch._foreach_div(grads, gnorm)
-            torch._foreach_mul_(grads, max_norm)
-        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(mu, B1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - B1))
-        torch._foreach_mul_(nu, B2)
-        sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, 1 - B2)
-        torch._foreach_add_(nu, sq)
-        lr = self.schedule(state.opt_state.count)
-        state.opt_state.count += 1
-        dev = params[0].device
-        f32 = np.float32
-        bc1 = torch.tensor(f32(1) - f32(B1) ** f32(state.opt_state.count),
-                           device=dev)
-        bc2 = torch.tensor(f32(1) - f32(B2) ** f32(state.opt_state.count),
-                           device=dev)
-        upd = torch._foreach_div(mu, bc1)
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, EPS)
-        torch._foreach_div_(upd, den)
-        torch._foreach_add_(upd, torch._foreach_mul(params,
-                                                    self.cfg.weight_decay))
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(params, upd)
-        return gnorm
+        return clip_adamw_(state.params, grads, state.opt_state,
+                           self.schedule(state.opt_state.count),
+                           self.cfg.grad_clip, self.cfg.weight_decay)
 
     def step(self, state: TrainState, batch,
              generator: Optional[torch.Generator] = None):

@@ -409,6 +409,62 @@ def hifigan_from_jax(tree: Mapping[str, Any], cfg) -> SD:
     return sd
 
 
+def classifier_from_jax(tree: Mapping[str, Any], cfg) -> SD:
+    """AudioClassifier params -> the reference's names (the inverse of
+    xtts_tpu/utils/convert.py classifier_from_reference); cfg:
+    ClassifierConfig."""
+    p = _params(tree)
+    e, sd = p["encoder"], {}
+    _conv(sd, "enc.init.0", e["init"])
+    i = 0
+    for d in range(cfg.depth):
+        for r in range(cfg.resnet_blocks):
+            b, pre = e[f"res_{d}_{r}"], f"enc.res.{i}."
+            _norm(sd, pre + "in_layers.0", b["GroupNorm32_0"]["GroupNorm_0"])
+            _conv(sd, pre + "in_layers.2", b["in_conv"])
+            _norm(sd, pre + "out_layers.0", b["out_norm"]["GroupNorm_0"])
+            _conv(sd, pre + "out_layers.3", b["out_conv"])
+            i += 1
+        _conv(sd, f"enc.res.{i}.op", e[f"down_{d}"])
+        i += 1
+    _norm(sd, "enc.final.0", e["final_norm"]["GroupNorm_0"])
+    _conv(sd, "enc.final.2", e["final"])
+    for a in range(cfg.attn_blocks):
+        b, pre = e[f"attn_{a}"], f"enc.attn.{a}."
+        _norm(sd, pre + "norm", b["GroupNorm32_0"]["GroupNorm_0"])
+        _conv1x1(sd, pre + "qkv", b["qkv"])
+        _conv1x1(sd, pre + "proj_out", b["proj_out"])
+    _dense(sd, "head", p["head"])
+    return sd
+
+
+def hifigan_discriminator_from_jax(tree: Mapping[str, Any],
+                                   periods=(2, 3, 5, 7, 11),
+                                   scales: int = 3) -> SD:
+    """HifiganDiscriminator params -> the port's (reference) names: a
+    period discriminator's flax (k, 1, in, out) kernels on (B, T/p, p, C)
+    become Conv2d (out, in, k, 1) on (B, C, T/p, p); the scale
+    discriminators' grouped (k, in/g, out) kernels Conv1d (out, in/g, k)."""
+    p = _params(tree)
+    sd: SD = {}
+    for i, per in enumerate(periods):
+        dp, pre = p[f"mpd_{per}"], f"mpd.discriminators.{i}."
+        for j in range(5):
+            c = dp[f"c{j}"]
+            sd[f"{pre}convs.{j}.weight"] = np.transpose(_a(c["kernel"]),
+                                                        (3, 2, 0, 1))
+            sd[f"{pre}convs.{j}.bias"] = _a(c["bias"])
+        sd[pre + "conv_post.weight"] = np.transpose(
+            _a(dp["post"]["kernel"]), (3, 2, 0, 1))
+        sd[pre + "conv_post.bias"] = _a(dp["post"]["bias"])
+    for i in range(scales):
+        ds, pre = p[f"msd_{i}"], f"msd.discriminators.{i}."
+        for j in range(7):
+            _conv(sd, f"{pre}convs.{j}", ds[f"c{j}"])
+        _conv(sd, pre + "conv_post", ds["post"])
+    return sd
+
+
 # ---------------------------------------------------------------------------
 # training state (xtts_tpu/train/trainer.py TrainState -> the port's)
 

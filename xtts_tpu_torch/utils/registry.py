@@ -29,10 +29,13 @@ def register(name: str, build: Callable, from_jax: Callable) -> None:
 
 def _register_defaults() -> None:
     from xtts_tpu_torch.models.aa_diffusion import AADiffusion
+    from xtts_tpu_torch.models.classifier import AudioClassifier
     from xtts_tpu_torch.models.clvp import CLVP
     from xtts_tpu_torch.models.dvae import DVAE
     from xtts_tpu_torch.models.gpt import UnifiedVoice
     from xtts_tpu_torch.models.hifigan import HifiDecoder
+    from xtts_tpu_torch.models.hifigan_discriminator import (
+        HifiganDiscriminator)
     from xtts_tpu_torch.models.vocos import Vocos
 
     register("gpt", lambda cfg, dt: UnifiedVoice(cfg.gpt, dt),
@@ -49,6 +52,13 @@ def _register_defaults() -> None:
              lambda t, cfg: convert.clvp_from_jax(t, cfg.clvp))
     register("hifigan", lambda cfg, dt: HifiDecoder(cfg.hifigan, dt),
              lambda t, cfg: convert.hifigan_from_jax(t, cfg.hifigan))
+    register("classifier",
+             lambda cfg, dt: AudioClassifier(cfg.classifier, dt),
+             lambda t, cfg: convert.classifier_from_jax(t, cfg.classifier))
+    # the GAN trainer's discriminator (JAX builds it outside its registry)
+    register("hifigan_discriminator",
+             lambda cfg, dt: HifiganDiscriminator(dtype=dt),
+             lambda t, cfg: convert.hifigan_discriminator_from_jax(t))
 
 
 _register_defaults()
