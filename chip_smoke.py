@@ -69,6 +69,9 @@ Phases, each reported on its own lines:
      gradient gap moves Adam's first update after the clip, every margin
      printed; frozen and trained DVAE codes by vq_agree, the EMA codebook
      within 1e-5).
+     The perceiver GPT on the small configuration (32 latents): greedy int8
+     codes of one B=1 request, card (K1 over the 32-position prefix and its
+     32-token tail) against CPU, held by P3's rule (greedy_rule).
      The 64-step teacher-forced chains (K1, K1-int4, K4) may differ from
      the plain chain in at most PICKS_BOUND greedy picks: the largest
      count that rounding alone turns over the seeds of the noise floor
@@ -86,6 +89,9 @@ Phases, each reported on its own lines:
      distinct text), greedy and seeded sampling, launch counts equal; one
      greedy graph run of each under torch.profiler, every counted kernel
      in its trace as many times as counted.
+  4c. perceiver: [main]'s three requests on a flagship GPT with
+     use_perceiver=True (bf16, int8 decode): K1 every token over the
+     116-position prefix, K2 in the render, latency beside [main]'s.
   5. vqvae (BASELINE config #1): DVAE round trip, 8 x 1504 mel frames ->
      get_codebook_indices (K3) -> decode; audio-s/s.
   6. serving (BASELINE config #5): BatchServer(max_batch=8), 8 concurrent
@@ -93,7 +99,11 @@ Phases, each reported on its own lines:
      XTTS_FUSED_SERVING=1), CLVP rerank, full-quality render (K2); one warm
      and two timed waves; then one synthesize_batch wave with the DVAE
      shortcut render and one with the default engine (the per-layer chain,
-     cache_ladder "auto") as K4's in-program comparator.
+     cache_ladder "auto") as K4's in-program comparator. Then
+     place_on_mesh([cuda:0, cuda:0]): a wave of 3 requests padded to 4,
+     two rows a replica, sampled at TTSSettings' defaults: codes equal to
+     the unplaced wave's over the same padded rows (the replicas draw the
+     whole wave's numbers for their rows).
   6b. slots (continuous serving, infer/slots.py, on [main]'s model): a
      pool of 16 slots, segments of 32 steps, max_gen 300, 24 requests of
      distinct text (token ids) with the stop logit raised so they stop at
@@ -157,6 +167,14 @@ Phases, each reported on its own lines:
      state, a --resume run, 30 steps on one repeated batch (its loss at
      fixed draws falls below DIFF_OVERFIT_RATIO of its start), and K3 at
      the diffusion and hifigan trainers' rows.
+  7c. parallel (parallel/mesh.py, the flagship GPT and DVAE whole, f32, global batch 8 with lengths falling
+     across the rows): two gloo ranks spawned on the one card, dp 2 (one
+     gpt and one vqvae step) and tp 2 (one gpt step, GPT_PARAM_RULES),
+     each held against the one-rank step on the same card by
+     hold_train_step (the EMA codebook within TRAIN_CB_TOL), K3 once a
+     step on every rank, step ms a rank beside the one-rank step; then one
+     NCCL rank: its group, an all_reduce on the card, one dp step at world
+     size 1. A rank that fails or outlasts PAR_TIMEOUT fails the run.
   8. profile: one more warm B=1 request (seed 4), bare and then under
      torch.profiler: the device's busy share over the request and over its
      AR and render stages, every counted kernel in the trace against the
@@ -3939,6 +3957,371 @@ def profile_request(torch, tts, text, cond_mel, settings, launches, card):
         f"TFLOP/s at (2, 1280 | 1562, 8, 64))  [{card}]")
 
 
+# ---- [parallel]: data- and tensor-parallel training (parallel/mesh.py) ----
+
+PAR_BATCH = 8          # the global batch of every parallel step
+PAR_TIMEOUT = 420      # seconds for one spawn of ranks, their start included
+
+
+def parallel_batch(np, fam, bins):
+    """A family's global batch, seeded, with text and mel lengths falling
+    across the rows (so the data ranks' lengths differ)."""
+    rng = np.random.default_rng(21)
+    b = PAR_BATCH
+    mel = rng.standard_normal((b, bins, 400)).astype(np.float32)
+    if fam == "vqvae":
+        return {"mel": mel}
+    return {"cond_mel": rng.standard_normal((b, bins, 300)).astype(
+                np.float32),
+            "text": rng.integers(3, 250, (b, 100)),
+            "text_lengths": np.array([100 - 9 * i for i in range(b)]),
+            "mel": mel,
+            "wav_lengths": np.array([(400 - 37 * i) * 256 for i in range(b)])}
+
+
+def parallel_step(torch, np, fam, mesh, rules, cfg, dev="cuda"):
+    """One f32 optimizer step of a family of `cfg` on `mesh` (None: one
+    rank) from seeded weights (init_flax_like on a `dev` generator, every
+    weight perturbed as [ref] does), held later by
+    hold_train_step: the metrics, the step's raw gradients (this rank's
+    share summed over the data group, the shards gathered), the parameters
+    after the step (gathered) and the collections; K3 counted around the
+    step, and the step timed (ms; the gradient pass before it warmed the
+    kernels up)."""
+    from xtts_tpu_torch.core.config import TrainConfig
+    from xtts_tpu_torch.models.dvae import DVAE
+    from xtts_tpu_torch.models.gpt import UnifiedVoice
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.ops import vq
+    from xtts_tpu_torch.parallel import mesh as pm
+    from xtts_tpu_torch.train.steps import make_dvae_loss, make_gpt_loss
+    from xtts_tpu_torch.train.trainer import Trainer
+    g = torch.Generator(device=dev).manual_seed(31)
+    mods = {"vqvae": DVAE(cfg.vqvae).to(dev)}
+    if fam == "gpt":
+        mods["gpt"] = UnifiedVoice(cfg.gpt).to(dev)
+    with torch.no_grad():
+        for m in mods.values():
+            init_flax_like(m, g)
+            for p in m.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    if fam == "gpt":
+        model = mods["gpt"]
+        loss_fn = make_gpt_loss(model, mods["vqvae"].eval(), mesh=mesh)
+    else:
+        model = mods["vqvae"]
+        loss_fn = make_dvae_loss(model, mesh=mesh)
+    tc = TrainConfig(lr=1e-3, lr_schedule="constant", accum_grad=1,
+                     dtype="float32")
+    tr = Trainer(model, loss_fn, tc, mesh=mesh, param_rules=rules)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    st = tr.shard_state(tr.init_state())
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+             parallel_batch(np, fam, cfg.vqvae.channels).items()}
+    local = tr.shard_batch(batch)
+    loss_fn(local, None)[0].backward()
+    names = list(st.params)
+    grads = [st.params[n].grad.detach() for n in names]
+    model.zero_grad(set_to_none=True)
+    if mesh is not None:
+        grads = pm.all_reduce_flat(grads, mesh.data_group)
+        grads = [pm.gather_shard(gr, tr.specs[n].dim, tr.specs[n].groups,
+                                 mesh) if n in tr.specs else gr
+                 for n, gr in zip(names, grads)]
+    host = lambda t: t.detach().to("cpu", copy=True)   # noqa: E731
+    grads = {n: host(gr) for n, gr in zip(names, grads)}
+    k3 = vq.vq_nearest.launches
+    sync()
+    t0 = time.perf_counter()
+    st, metrics = tr.step(st, local)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    k3 = vq.vq_nearest.launches - k3
+    full = tr.full_payload(st)
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               grads=grads, k3=k3, ms=ms,
+               params={k: host(v) for k, v in full["params"].items()},
+               cols={k: host(v) for k, v in st.state_cols.items()})
+    del tr, st, model, mods, loss_fn
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(rank, job):
+    """One spawned rank of [parallel] (parallel.launch.run_ranks). job:
+    {"root", "out", "runs": [(tag, n_data, n_model, family), ...],
+    "nccl": bool, "cfg": an XTTSConfig dict, "device"}. Rank 0 writes its
+    results to job["out"]; every rank returns its K3 counts and step
+    times."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, job["root"])
+    from xtts_tpu_torch.core.config import XTTSConfig
+    cfg, dev = XTTSConfig.from_dict(job["cfg"]), job["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from xtts_tpu_torch.parallel import mesh as pm
+    summary, results = {}, {}
+    if job["nccl"]:
+        t = torch.full((1024,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        check(bool((t == sum(range(1, dist.get_world_size() + 1))).all()),
+              "nccl all_reduce on the card")
+        summary["nccl_all_reduce"] = float(t[0])
+    meshes = {}
+    for tag, n_data, n_model, fam in job["runs"]:
+        key = (n_data, n_model)
+        if key not in meshes:
+            meshes[key] = pm.make_mesh(n_data, n_model)
+        rules = pm.GPT_PARAM_RULES if n_model > 1 else ()
+        out = parallel_step(torch, np, fam, meshes[key], rules, cfg, dev)
+        summary[tag] = {"k3": out["k3"], "ms": out["ms"]}
+        if rank == 0:
+            results[tag] = out
+    if rank == 0:
+        torch.save(results, job["out"])
+    return summary
+
+
+def parallel_phase(torch, np, card, cfg, dev="cuda"):
+    """[parallel], at cfg's (the flagship's) widths and depth:
+    (a) dp 2, one gpt step and one vqvae step; (b) tp 2, one gpt step
+    (GPT_PARAM_RULES); two gloo ranks spawned on the one card, on
+    CUDA tensors, each held against the one-rank step of the same global
+    batch, weights and draws on this card (hold_train_step, the EMA
+    codebook within TRAIN_CB_TOL); K3 once a step on each rank. (c) one
+    NCCL rank: its group, an all_reduce on the card and one dp step at
+    world size 1. A rank that fails or outlasts PAR_TIMEOUT fails the
+    run."""
+    from xtts_tpu_torch.parallel.launch import run_ranks
+    t_phase = time.perf_counter()
+    runs = [("dp2 gpt", 2, 1, "gpt"), ("dp2 vqvae", 2, 1, "vqvae"),
+            ("tp2 gpt", 1, 2, "gpt")]
+    ref = {fam: parallel_step(torch, np, fam, None, (), cfg, dev)
+           for fam in ("gpt", "vqvae")}
+    out_dir = ROOT / "build" / "parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    job = {"root": str(ROOT), "out": str(out_dir / "rank0.pt"),
+           "runs": runs, "nccl": False, "cfg": cfg.to_dict(), "device": dev}
+    t0 = time.perf_counter()
+    summary = run_ranks(parallel_rank, 2, (job,), backend="gloo",
+                        timeout=PAR_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    got = torch.load(job["out"], weights_only=False)
+    lr = 1e-3
+
+    def on_card(r):
+        return dict(r, grads={n: v.to(dev) for n, v in r["grads"].items()},
+                    params={n: v.to(dev) for n, v in r["params"].items()})
+    for tag, n_data, n_model, fam in runs:
+        c, k = on_card(ref[fam]), on_card(got[tag])
+        line = hold_train_step(torch, f"[parallel] {tag}", c, k, lr, 1.0)
+        cb = ""
+        if fam == "vqvae":
+            cb_err = max(max_err(k["cols"][n], c["cols"][n])
+                         for n in c["cols"])
+            check(cb_err <= TRAIN_CB_TOL, f"[parallel] {tag} codebook err "
+                  f"{cb_err}")
+            cb = (f"; EMA codebook max_abs_err {cb_err:.2e} (bound "
+                  f"{TRAIN_CB_TOL})")
+        k3 = [s[tag]["k3"] for s in summary]
+        check(all(n == 1 for n in k3) and c["k3"] == 1,
+              f"[parallel] {tag}: K3 launches a step {k3}, one rank "
+              f"{c['k3']}")
+        ms = ", ".join(f"rank {r} {s[tag]['ms']:.1f} ms"
+                       for r, s in enumerate(summary))
+        log(f"[parallel] {tag} ({n_data} data x {n_model} model ranks, "
+            f"gloo, one card, global batch {PAR_BATCH}, f32, GPT "
+            f"{cfg.gpt.layers} x {cfg.gpt.model_dim}) against the "
+            f"one-rank step: {line}{cb}; K3 {k3} a rank a step; step {ms}; "
+            f"one rank {c['ms']:.1f} ms  [{card}]")
+    del ref, got
+    t0 = time.perf_counter()
+    job = dict(job, out=str(out_dir / "nccl0.pt"), nccl=True,
+               runs=[("nccl dp1 vqvae", 1, 1, "vqvae")])
+    nccl = run_ranks(parallel_rank, 1, (job,), backend="nccl",
+                     timeout=PAR_TIMEOUT)[0]
+    check(nccl["nccl dp1 vqvae"]["k3"] == 1, "[parallel] nccl step K3")
+    log(f"[parallel] nccl: a one-rank group started, all_reduce on the card "
+        f"= {nccl['nccl_all_reduce']:.0f}, one dp step at world size 1 "
+        f"(vqvae) {nccl['nccl dp1 vqvae']['ms']:.1f} ms, spawn to exit "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s (the gloo "
+        f"spawn {spawn_s:.1f} s)  [{card}]")
+
+
+def perceiver_small_check(torch, np, TextToSpeech):
+    """[perceiver], small configuration: the perceiver GPT (GPT 2 x 128,
+    32 latents) with the same perturbed weights on the card and the CPU;
+    greedy int8 codes of one B=1 request (K1 over the 32-position prefix
+    and its 32-token tail) held by P3's rule (greedy_rule), the card's
+    picks teacher-forced along the CPU's codes."""
+    from xtts_tpu_torch.core.config import (DVAEConfig, GPTConfig,
+                                            MelConfig, XTTSConfig)
+    from xtts_tpu_torch.infer.qdecode import generate_speech_quantized
+    from xtts_tpu_torch.ops import decode_step as ds
+    mb = 8
+    small = XTTSConfig(
+        mel=MelConfig(n_mels=mb),
+        vqvae=DVAEConfig(channels=mb, num_tokens=30, hidden_dim=16,
+                         num_resnet_blocks=1, codebook_dim=16, num_layers=2),
+        gpt=GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=604,
+                      max_text_tokens=64, number_mel_codes=200,
+                      start_mel_token=198, stop_mel_token=199, mel_bins=mb,
+                      use_perceiver=True))
+    g = torch.Generator().manual_seed(12)
+    cpu = TextToSpeech(small, device="cpu", quantized_decode=True,
+                       generator=g)
+    with torch.no_grad():
+        for p in cpu.gpt.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    cpu.requantize()
+    card = TextToSpeech(small, device="cuda", quantized_decode=True,
+                        init=False)
+    for name, m in card.modules().items():
+        m.load_state_dict(cpu.modules()[name].state_dict())
+    card.requantize()
+    rng = np.random.default_rng(13)
+    cond = torch.from_numpy(rng.standard_normal((1, mb, 60))).float()
+    text = torch.from_numpy(rng.integers(3, 250, (1, 16))).long()
+    runs = {}
+    for name, tts in (("cpu", cpu), ("card", card)):
+        dev = tts.device
+        before = ds.fused_decode_logits.launches
+        res = generate_speech_quantized(tts.gpt, tts._qtree, cond.to(dev),
+                                        text.to(dev), None, max_gen=48,
+                                        do_sample=False)
+        runs[name] = (res, ds.fused_decode_logits.launches - before)
+    (c_res, c_k1), (k_res, k_k1) = runs["cpu"], runs["card"]
+    check(c_k1 == 0 and k_k1 == k_res.steps,
+          f"[perceiver] K1 steps: cpu {c_k1}, card {k_k1} for {k_res.steps}")
+    n = int(c_res.lengths[0])
+    codes = c_res.codes[:, :n]
+    forced_cpu = {e: forced_picks(torch, cpu, cond, text, codes, engine=e)
+                  for e in ("k1", "chain", "chain64")}
+    forced_card = forced_picks(torch, card, cond.cuda(), text.cuda(),
+                               codes.cuda())
+    rule = greedy_rule(torch, codes[0].numpy(), forced_cpu, forced_card,
+                       "[perceiver] small")
+    same = torch.equal(c_res.codes, k_res.codes.cpu())
+    log(f"[perceiver] small config (GPT 2 x 128, 32 latents, prefix "
+        f"{32 + 18 + 32} positions, f32): greedy codes card vs CPU "
+        f"{'identical' if same else 'not identical'} over {n} codes "
+        f"({k_k1} K1 steps on the card); {rule}")
+
+
+def perceiver_phase(torch, np, cfg, cond_mel, text, main_latency, launches,
+                    card):
+    """[perceiver] at the flagship widths: TextToSpeech(use_perceiver=True,
+    bf16, int8 decode), the stop logit pinned low as in [main], three
+    tts_tokens requests (seeds 1-3) of max_mel_tokens 300, K1 every token
+    over the 32-latent prefix, K2 in the render; latency beside [main]'s."""
+    import dataclasses
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    pcfg = dataclasses.replace(cfg, gpt=dataclasses.replace(
+        cfg.gpt, use_perceiver=True))
+    t0 = time.perf_counter()
+    tts = TextToSpeech(pcfg, device="cuda", dtype=torch.bfloat16,
+                       quantized_decode=True,
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        tts.gpt.mel_head.bias[pcfg.gpt.stop_mel_token] = -30.0
+    tts.requantize()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    settings = TTSSettings(max_mel_tokens=300)
+    nl = pcfg.gpt.layers
+    lat = []
+    for seed in (1, 2, 3):
+        launches.reset()
+        dl.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tts.tts_tokens(text, cond_mel,
+                             torch.Generator(device="cuda").manual_seed(seed),
+                             settings)
+        lat.append(time.perf_counter() - t0)
+        d = launches.read()
+        wav, steps = out["wav"], out["steps"]
+        n = max(int(out["lengths"][0]) - 2, 1)
+        per_code = pcfg.vqvae.compression * pcfg.vocos.hop_length
+        check(wav.shape == (1, n * per_code) and bool(np.isfinite(wav).all()),
+              f"[perceiver] wav {wav.shape}, n {n}")
+        k1 = d["fused_decode_logits"]
+        check(k1 >= steps and d["int8_gemv"] == (4 * nl + 1) * k1
+              and d["decode_attention"] == nl * k1
+              and d["layer_norm_rows"] == 0,
+              f"[perceiver] K1 launches {d} for {steps} tokens")
+        check(d["flash_mha"] >= 200, f"[perceiver] K2 launches "
+              f"{d['flash_mha']} < 200")
+        log(f"[perceiver] request seed {seed}: {steps} AR tokens, wav "
+            f"{wav.shape}, latency {lat[-1]:.3f} s ([main] "
+            f"{main_latency[seed - 1]:.3f} s), AR {out['ar_seconds']:.3f} s "
+            f"= {steps / out['ar_seconds']:.1f} tokens/s, render "
+            f"{out['render_seconds']:.3f} s; launches K1 step {k1}, "
+            f"attention {d['decode_attention']}, K2 {d['flash_mha']}; "
+            f"{loop_stats(dl, steps, rungs=1)}  [{card}]")
+    log(f"[perceiver] TextToSpeech(use_perceiver=True, bf16) init "
+        f"{init_s:.1f} s; prefix 32 + {text.shape[1] + 2} + 32 positions  "
+        f"[{card}]")
+    del tts
+    torch.cuda.empty_cache()
+
+
+def placed_wave_check(torch, np, tts, text, cond_mel, launches, card):
+    """[serving] on two replicas: place_on_mesh([cuda:0, cuda:0]), a wave
+    of 3 requests sampled at TTSSettings' defaults (temperature 0.8, top_p
+    0.8; padded to 4, two rows a replica) through synthesize_batch's path
+    with the shortcut render; codes equal, token for token, to the
+    unplaced wave's over the same padded rows (batch_buckets=(4,)): each
+    replica draws the whole wave's numbers for its rows, as JAX's one key
+    for the sharded batch does. Not near-greedy: there a pick between
+    near-tied logits turns on the per-row numerics, which differ on the
+    card between a 2-row and a 4-row pass (cuBLAS row counts), placed or
+    not (scripts/placed_wave_rows.py)."""
+    from xtts_tpu_torch.infer.api import TTSSettings
+    from xtts_tpu_torch.infer.serving import SynthesisRequest, _synthesize
+    rng = np.random.default_rng(17)
+    reqs = [SynthesisRequest(rng.integers(3, 250, 40 + 5 * i))
+            for i in range(3)]
+    s = TTSSettings(max_mel_tokens=64)
+    runs = {}
+    for placed in (False, True):
+        if placed:
+            tts.place_on_mesh(["cuda:0", "cuda:0"])
+        launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs, codes = _synthesize(
+            tts, reqs, cond_mel, s, generator=torch.Generator(
+                device="cuda").manual_seed(5),
+            batch_buckets=None if placed else (4,))
+        codes = [c.cpu().numpy() for c in codes]
+        runs[placed] = (wavs, codes, time.perf_counter() - t0,
+                        launches.read())
+    reps = len(tts.replicas)
+    tts.place_on_mesh(None)
+    (w0, c0, t_0, _), (w1, c1, t_1, d1) = runs[False], runs[True]
+    same = all(np.array_equal(a, b) for a, b in zip(c0, c1))
+    check(len(w1) == 3 and same, f"[serving] placed wave codes differ: "
+          f"{[int((a != b).sum()) if a.shape == b.shape else -1 for a, b in zip(c0, c1)]}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(w0, w1))
+    check(err <= SMALL_WAV_TOL, f"[serving] placed wave wav err {err}")
+    log(f"[serving] place_on_mesh([cuda:0, cuda:0]): a wave of 3 requests "
+        f"padded to 4 ({reps} replicas, 2 rows each, the chain), temperature "
+        f"{s.temperature}, codes identical to the unplaced wave's (padded "
+        f"to 4 too) over {[len(c) for c in c1]} codes, "
+        f"shortcut wav max_abs_err {err:.2e}; {t_1:.3f} s against "
+        f"{t_0:.3f} s unplaced; K1 launches {d1['fused_decode_logits']}  "
+        f"[{card}]")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     torch = require_card()
@@ -3994,6 +4377,7 @@ def main() -> None:
     small_reference_check(torch, np, TextToSpeech, TTSSettings)
     train_reference_check(torch, np)
     train_reference_check_new(torch, np)
+    perceiver_small_check(torch, np, TextToSpeech)
 
     # ---- 4. main path (B=1, K1 + K2) ----
     t0 = time.perf_counter()
@@ -4021,7 +4405,7 @@ def main() -> None:
     settings = TTSSettings(max_mel_tokens=max_gen)
 
     torch.cuda.reset_peak_memory_stats()
-    main_render = []
+    main_render, main_latency = [], []
     for seed in (1, 2, 3):
         launches.reset()
         dl.STATS.reset()
@@ -4031,6 +4415,7 @@ def main() -> None:
                              torch.Generator(device="cuda").manual_seed(seed),
                              settings)
         latency = time.perf_counter() - t0
+        main_latency.append(latency)
         d = launches.read()
         wav, steps = out["wav"], out["steps"]
         n = max(int(out["lengths"][0]) - 2, 1)
@@ -4066,6 +4451,11 @@ def main() -> None:
     with torch.no_grad():
         loop_phase(torch, dl, tts, cond_mel, text, launches, card)
 
+    # ---- 4c. the perceiver conditioning (K1 over its 32-latent prefix,
+    # K2) ----
+    perceiver_phase(torch, np, cfg, cond_mel, text, main_latency, launches,
+                    card)
+
     # ---- 5. vqvae (config #1, K3) ----
     with torch.no_grad():
         x_path, emb_path = vqvae_phase(torch, np, vq, launches, card)
@@ -4074,6 +4464,7 @@ def main() -> None:
 
     # ---- 6. serving (config #5, K4 + CLVP + K2) ----
     serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
+    placed_wave_check(torch, np, tts, text, cond_mel, launches, card)
 
     # ---- 6b. continuous serving (slot pool, K2) + its HTTP layer ----
     with torch.no_grad():
@@ -4091,6 +4482,9 @@ def main() -> None:
     # ---- 7b. train (the vqvae and gpt trainers through the CLI, K3) ----
     train_s = train_phase(torch, np, launches, results, card)
     log(f"[train] phase {train_s:.1f} s  [{card}]")
+
+    # ---- 7c. parallel training: gloo ranks on the card, one NCCL rank ----
+    parallel_phase(torch, np, card, cfg)
 
     # ---- 8. profile (B=1), last: once torch.profiler has run, the
     # process's host-bound loops read slower ----

@@ -272,10 +272,8 @@ def test_multi_clip_tts_takes_unequal_clips(pair):
 
 def test_multi_clip_perceiver_refused():
     """The perceiver conditioning takes one clip: a 4-D mel is refused with
-    ValueError in JAX and in the port (whose UnifiedVoice builds only the
-    plain encoder, so the flag is set after construction). Both refuse
-    before touching a parameter, so JAX needs no initialised model."""
-    import dataclasses
+    ValueError in JAX and in the port. Both refuse before touching a
+    parameter, so JAX needs no initialised model."""
     from xtts_tpu.models.gpt import UnifiedVoice as JUnifiedVoice
     from xtts_tpu_torch.models.gpt import UnifiedVoice
     jcfg = TINY.gpt.replace(use_perceiver=True, perceiver_latents=4)
@@ -283,8 +281,8 @@ def test_multi_clip_perceiver_refused():
     with pytest.raises(ValueError, match="one clip"):
         jm.apply({"params": {}}, jnp.zeros((1, 2, MB, 16)),
                  method=jm.get_conditioning)
-    m = UnifiedVoice(TINY_T.gpt)
-    m.cfg = dataclasses.replace(m.cfg, use_perceiver=True)
+    m = UnifiedVoice(tcfg.GPTConfig.from_dict(jcfg.to_dict()))
+    assert m.perceiver_encoder.latents.shape[0] == 4
     with pytest.raises(ValueError, match="one clip"):
         m.get_conditioning(torch.zeros(1, 2, MB, 16))
 
@@ -393,7 +391,9 @@ def test_imports_without_jax():
               "core.checkpoint", "nn.remat", "train.schedules", "train.ema",
               "train.trainer", "train.steps", "train.cli",
               "utils.registry", "diffusion.resample", "models.classifier",
-              "models.hifigan_discriminator", "train.gan"):
+              "models.hifigan_discriminator", "train.gan", "parallel.mesh",
+              "parallel.launch", "utils.latents", "utils.alignment",
+              "data.spider"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc

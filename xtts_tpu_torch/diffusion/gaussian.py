@@ -29,6 +29,8 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from xtts_tpu_torch.parallel import mesh as pmesh
+
 
 def linear_beta_schedule(num_steps: int) -> np.ndarray:
     """The shipped schedule: linear, scaled by 1000 / num_steps."""
@@ -85,14 +87,17 @@ Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 def randn_rows(shape, generator: Generators, device) -> torch.Tensor:
     """Standard normal draws of `shape` from one generator, or, given a
     sequence of generators (one a row of shape[0]), row i from the i-th
-    alone. At one row the two draw the same numbers from the same seed."""
+    alone. At one row the two draw the same numbers from the same seed.
+    One generator in a parallel.mesh.row_block draws for the whole wave and
+    keeps the block's rows."""
     if isinstance(generator, (list, tuple)):
         if len(generator) != shape[0]:
             raise ValueError(f"{len(generator)} generators for "
                              f"{shape[0]} rows")
         return torch.stack([torch.randn(tuple(shape[1:]), generator=g,
                                         device=device) for g in generator])
-    return torch.randn(shape, generator=generator, device=device)
+    return pmesh.block_draw(lambda s: torch.randn(
+        s, generator=generator, device=device), shape)
 
 
 def _x_T(shape, generator, noise, device) -> torch.Tensor:

@@ -222,6 +222,10 @@ class TextToSpeech:
         self.last_oov: Dict[str, int] = {}
         self.tokenizer = tokenizer
         self._qtree = None
+        # place_on_mesh: the serving replicas, one a device; on a replica,
+        # serving_replica leaves K1's B=1 stack out of its decode tree
+        self.replicas = None
+        self.serving_replica = False
         if init:
             self.init_random(generator)
 
@@ -238,8 +242,42 @@ class TextToSpeech:
         """Rebuild the int8 decode tree and K1's weight stack from the
         current GPT weights; the stack is int4 if XTTS_DECODE_BITS=4 is set
         now (qdecode.attach_fused_stack)."""
-        self._qtree = (quantize_gpt_decode(self.gpt)
+        self._qtree = (quantize_gpt_decode(
+            self.gpt, include_fused=not self.serving_replica)
                        if self.quantized_decode else None)
+
+    @torch.no_grad()
+    def place_on_mesh(self, devices) -> None:
+        """Serve over several devices (xtts_tpu/infer/api.py:394-416): a
+        replica of every model on each of `devices`, the mesh's data axis
+        (a device may repeat). synthesize_batch then splits its rows across
+        them. The replicas' int8 decode trees leave out K1's B=1 stack,
+        which stays with this model, off the mesh, as in JAX. The devices
+        are of this model's device type: a replica's draws start from the
+        wave generator's state. Call after the weights load;
+        place_on_mesh(None) drops the replicas."""
+        if devices is None:
+            self.replicas = None
+            return
+        if not len(devices):
+            raise ValueError("place_on_mesh needs at least one device")
+        kinds = {torch.device(d).type for d in devices}
+        if kinds != {self.device.type}:
+            raise ValueError(f"place_on_mesh: devices of {sorted(kinds)} for "
+                             f"a model on {self.device.type}")
+        reps = []
+        for d in devices:
+            r = TextToSpeech(self.cfg, device=d, dtype=self.dtype,
+                             quantized_decode=self.quantized_decode,
+                             with_clvp=self.clvp is not None,
+                             with_hifigan=self.hifigan is not None,
+                             init=False, tokenizer=self.tokenizer)
+            for name, m in self.modules().items():
+                r.modules()[name].load_state_dict(m.state_dict())
+            r.serving_replica = True
+            r.requantize()
+            reps.append(r)
+        self.replicas = reps
 
     @torch.no_grad()
     def init_random(self, generator: Optional[torch.Generator] = None):
@@ -411,7 +449,7 @@ class TextToSpeech:
             return generate_speech_quantized(
                 self.gpt, self._qtree, cond, text, generator,
                 quantize_kv_cache=settings.kv_quant, use_fused_serving=fserv,
-                **kw)
+                use_fused=not self.serving_replica, **kw)
         if settings.kv_quant:
             raise ValueError("TTSSettings.kv_quant needs "
                              "TextToSpeech(quantized_decode=True)")
@@ -735,13 +773,23 @@ class TextToSpeech:
     def tts(self, text: str, cond_wav, generator=None,
             settings: TTSSettings = TTSSettings(), lang: str = "ZH",
             use_diffusion: bool = True, batch_sentences: bool = True,
-            use_hifigan: bool = False) -> np.ndarray:
+            use_hifigan: bool = False, aligner=None) -> np.ndarray:
         """Full text in, 24 kHz waveform out, sentence-split. With
         batch_sentences (the default) several sentences run as one batched
         AR pass and one render (infer/serving.synthesize_batch); otherwise
         one tts_tokens call per sentence, in order (tts_stream's sentences,
         concatenated). use_hifigan renders through the HifiDecoder
-        (with_hifigan=True)."""
+        (with_hifigan=True).
+
+        aligner: a utils.alignment.Wav2VecAlignment. When given and `text`
+        holds [bracketed] spans, the text is spoken without the brackets
+        and the bracketed speech is then cut from the waveform by CTC
+        forced alignment (the reference's redaction,
+        ttts/api.py:180-181,536-540; xtts_tpu/infer/api.py:899-938)."""
+        redact_text = None
+        if aligner is not None and "[" in text:
+            redact_text = text
+            text = text.replace("[", "").replace("]", "")
         g = generator if generator is not None else self._generator(0)
         cond_mel = self._cond_mel_from_cond(cond_wav)
         token_lists = self._text_to_token_lists(text, lang, settings)
@@ -760,4 +808,7 @@ class TextToSpeech:
                 token_lists, cond_mel, g, settings,
                 use_diffusion=use_diffusion, use_hifigan=use_hifigan,
                 spk_mel16=spk)]
-        return np.concatenate(wavs)
+        wav = np.concatenate(wavs)
+        if redact_text is not None:
+            return np.asarray(aligner.redact(wav, redact_text))
+        return wav

@@ -55,6 +55,7 @@ import torch
 from xtts_tpu_torch.infer.sampling import greedy_token, sample_token
 from xtts_tpu_torch.ops import decode_step as _ds
 from xtts_tpu_torch.ops import serving_step as _ss
+from xtts_tpu_torch.parallel import mesh as pmesh
 
 CHUNK = 16        # steps a CUDA graph holds: one host read per CHUNK tokens
 S_BUCKET = 128    # cache positions are rounded up to a multiple of this
@@ -415,7 +416,8 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
             st.cap.fill_(cap)
             run = functools.partial(decode_step, st, engine.make(cache),
                                     sampling, stop, pos_rows)
-            gkey = (ckey, rows, skey, sampling, chunk)
+            gkey = (ckey, rows, skey, sampling, chunk,
+                    pmesh.current_block())
             while step < cap and not done:
                 k = min(chunk, cap - step)
                 mark = (gen.get_offset() if sampling.do_sample

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from xtts_tpu_torch.parallel import mesh as pmesh
+
 NEG_INF = -1e9
 
 
@@ -91,10 +93,14 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
     """logits (B, V) -> (B,) int64. The categorical draw is
     torch.multinomial's own one-sample path, argmax(p / q) with q ~ Exp(1)
     from `generator` (the same indices for the same generator state),
-    without multinomial's checks of p, which read back to the host."""
+    without multinomial's checks of p, which read back to the host. In a
+    parallel.mesh.row_block the draw is the whole wave's, cut to the
+    block's rows."""
     probs = _probs(logits, temperature, top_p, seen, repetition_penalty,
                    typical_mass)
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    q = pmesh.block_draw(lambda shape: torch.empty(
+        shape, dtype=probs.dtype, device=probs.device).exponential_(
+            1, generator=generator), probs.shape)
     return (probs / q).argmax(dim=-1)
 
 

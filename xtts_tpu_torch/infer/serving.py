@@ -15,7 +15,8 @@ Every wave renders through the diffusion, the DVAE shortcut or, with
 use_hifigan, the HifiDecoder (per-request speaker mels in
 SynthesisRequest.spk_mel16). Randomness: each wave draws from one
 torch.Generator on the model's device (the JAX package's batch-level key).
-The multi-device (place_on_mesh) branch is not ported.
+After TextToSpeech.place_on_mesh, a wave's rows split across the
+devices' replicas (see synthesize_batch).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 
 from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings, bucket_len
 from xtts_tpu_torch.models.hifigan import hifigan_samples
+from xtts_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclass
@@ -82,17 +84,43 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
     batch_buckets: pad the row count up to a bucket (e.g. (1, 2, 4, 8))
     with dummy rows reusing request 0 (outputs dropped), as the JAX package
     does to bound its compiled programs; counts above the largest bucket
-    run unbucketed."""
+    run unbucketed.
+
+    Multi-device: after tts.place_on_mesh(devices) the rows are padded to a
+    multiple of the devices with dummy rows of request 0 and cut into one
+    block a device, in order. The replicas run their blocks one after
+    another: every block's AR pass, then every block's render at the
+    wave's code bucket. A replica starts from the wave's generator state
+    and draws, in a parallel.mesh.row_block, the numbers the whole wave
+    gives its rows, so its codes and waveforms are those of the unplaced
+    wave over the same padded rows at any temperature, as under JAX's
+    sharding (with XTTS_FUSED_SERVING=1 the AR engine follows each
+    block's row count)."""
+    return _synthesize(tts, requests, cond_mel, settings, use_diffusion,
+                       generator, use_hifigan, spk_mel16, batch_buckets)[0]
+
+
+@torch.no_grad()
+def _synthesize(tts: TextToSpeech, requests, cond_mel,
+                settings: TTSSettings = TTSSettings(),
+                use_diffusion: bool = False, generator=None,
+                use_hifigan: bool = False, spk_mel16=None,
+                batch_buckets=None):
+    """synthesize_batch's waveforms, and each request's generated codes
+    (stop token included; a view of a device tensor)."""
     cfg = tts.cfg
     dev = tts.device
     g = generator if generator is not None else tts._generator(0)
     n_real = len(requests)
     if n_real == 0:
-        return []
+        return [], []
     if batch_buckets:
         bb = bucket_len(n_real, tuple(batch_buckets))
         if bb > n_real:
             requests = list(requests) + [requests[0]] * (bb - n_real)
+    replicas = tts.replicas or [tts]
+    n = len(replicas)
+    requests = list(requests) + [requests[0]] * ((-len(requests)) % n)
     text_buckets = (16, 32, 64, 128, 256, cfg.gpt.max_text_tokens)
     texts = torch.as_tensor(_pad_texts([r.text_tokens for r in requests],
                                        cfg.gpt.stop_text_token, text_buckets),
@@ -112,45 +140,88 @@ def synthesize_batch(tts: TextToSpeech, requests: Sequence[SynthesisRequest],
         cond = cond_mel.to(dev)
         if cond.shape[0] == 1:      # (1, mel, T) or stacked clips
             cond = cond.repeat((b,) + (1,) * (cond.dim() - 1))
+    m = b // n                  # rows a block
+    blocks = [(r, slice(i * m, (i + 1) * m)) for i, r in enumerate(replicas)]
 
+    def twin(r):        # the replicas' generators start where g stands
+        if r is tts:
+            return g
+        t = torch.Generator(r.device)
+        t.set_state(g.get_state())
+        return t
+
+    ars = []
+    for i, (r, rows) in enumerate(blocks):
+        gi = twin(r)
+        with pmesh.row_block(i, n):
+            ars.append(_ar(r, texts[rows].to(r.device),
+                           cond[rows].to(r.device), settings, gi) + (gi,))
+    # the wave's AR loop draws until its last row stops
+    g.set_state(max(ars, key=lambda a: a[2])[3].get_state())
+    lens = [a[1].cpu().numpy() for a in ars]
+    n_b = bucket_len(int(np.maximum(np.concatenate(lens) - 2, 1).max()),
+                     tts._code_buckets())
+    wavs, codes = [], []
+    for i, (r, rows) in enumerate(blocks):
+        gi = twin(r)
+        text_lens = torch.as_tensor(
+            [len(q.text_tokens) for q in requests[rows]], device=r.device)
+        spk = (spk_mel16[rows] if spk_mel16 is not None
+               and spk_mel16.shape[0] > 1 else spk_mel16)
+        with pmesh.row_block(i, n):
+            wavs += render_rows(
+                r, texts[rows].to(r.device), text_lens,
+                cond[rows].to(r.device), ars[i][0], lens[i], settings,
+                use_diffusion, gi, use_hifigan=use_hifigan,
+                spk_mel16=_speaker_rows(requests[rows], spk, use_hifigan,
+                                        r.device),
+                code_bucket=n_b)
+        codes += [ars[i][0][j, :int(lens[i][j])] for j in range(m)]
+    g.set_state(gi.get_state())
+    return wavs[:n_real], codes[:n_real]
+
+
+def _ar(tts: TextToSpeech, texts, cond, settings, g):
+    """The AR pass of one model's rows, with the CLVP rerank: (codes,
+    lengths, decode steps run)."""
+    cfg, dev = tts.cfg, tts.device
+    b = texts.shape[0]
     k = settings.num_candidates
-    if k > 1:
-        if tts.clvp is None:
-            raise ValueError("settings.num_candidates > 1 needs "
-                             "TextToSpeech(with_clvp=True)")
-        res = tts._generate(cond.repeat_interleave(k, 0),
-                            texts.repeat_interleave(k, 0), g, settings)
-        s_gen = res.codes.shape[1]
-        code_mask = (torch.arange(s_gen, device=dev)[None, :]
-                     < res.lengths[:, None]).long()
-        scores = tts.clvp.rerank_batch(
-            texts, torch.clamp(res.codes, 0, cfg.clvp.num_speech_tokens - 1)
-            .reshape(b, k, s_gen), code_mask=code_mask.reshape(b, k, s_gen))
-        # the winners are chosen on the device; only the lengths reach the
-        # host before the render
-        best = torch.argmax(scores, dim=1)
-        rows = torch.arange(b, device=dev)
-        codes = res.codes.reshape(b, k, s_gen)[rows, best]
-        lengths = res.lengths.reshape(b, k)[rows, best]
-    else:
+    if k <= 1:
         res = tts._generate(cond, texts, g, settings)
-        codes, lengths = res.codes, res.lengths
-    if use_hifigan and any(r.spk_mel16 is not None for r in requests):
-        per = [r.spk_mel16 if r.spk_mel16 is not None else spk_mel16
-               for r in requests]
-        if (any(s is None for s in per)
-                or len({tuple(s.shape) for s in per}) != 1):
-            raise ValueError(
-                "per-request spk_mel16s must share one shape (use "
-                "speaker_mel_from_wav, bucketed), or a batch-level "
-                "spk_mel16 must fill the requests without one")
-        spk_mel16 = torch.cat([s.to(dev) for s in per], dim=0)
-    text_lens = torch.as_tensor([len(r.text_tokens) for r in requests],
-                                device=dev)
-    wavs = render_rows(tts, texts, text_lens, cond, codes,
-                       lengths.cpu().numpy(), settings, use_diffusion, g,
-                       use_hifigan=use_hifigan, spk_mel16=spk_mel16)
-    return wavs[:n_real]
+        return res.codes, res.lengths, res.steps
+    if tts.clvp is None:
+        raise ValueError("settings.num_candidates > 1 needs "
+                         "TextToSpeech(with_clvp=True)")
+    res = tts._generate(cond.repeat_interleave(k, 0),
+                        texts.repeat_interleave(k, 0), g, settings)
+    s_gen = res.codes.shape[1]
+    code_mask = (torch.arange(s_gen, device=dev)[None, :]
+                 < res.lengths[:, None]).long()
+    scores = tts.clvp.rerank_batch(
+        texts, torch.clamp(res.codes, 0, cfg.clvp.num_speech_tokens - 1)
+        .reshape(b, k, s_gen), code_mask=code_mask.reshape(b, k, s_gen))
+    # the winners are chosen on the device; only the lengths reach the
+    # host before the render
+    best = torch.argmax(scores, dim=1)
+    rows = torch.arange(b, device=dev)
+    return (res.codes.reshape(b, k, s_gen)[rows, best],
+            res.lengths.reshape(b, k)[rows, best], res.steps)
+
+
+def _speaker_rows(requests, spk_mel16, use_hifigan, dev):
+    """The rows' speaker mels for the HifiDecoder on `dev`: per-request
+    ones stacked, else the batch-level one."""
+    if not (use_hifigan and any(r.spk_mel16 is not None for r in requests)):
+        return spk_mel16 if spk_mel16 is None else spk_mel16.to(dev)
+    per = [r.spk_mel16 if r.spk_mel16 is not None else spk_mel16
+           for r in requests]
+    if any(s is None for s in per) or len({tuple(s.shape) for s in per}) != 1:
+        raise ValueError(
+            "per-request spk_mel16s must share one shape (use "
+            "speaker_mel_from_wav, bucketed), or a batch-level "
+            "spk_mel16 must fill the requests without one")
+    return torch.cat([s.to(dev) for s in per], dim=0)
 
 
 @torch.no_grad()
@@ -158,8 +229,8 @@ def render_rows(tts: TextToSpeech, texts, text_lens, cond, codes,
                 lengths: np.ndarray, settings: TTSSettings,
                 use_diffusion: bool, generator,
                 use_hifigan: bool = False,
-                spk_mel16: Optional[torch.Tensor] = None
-                ) -> List[np.ndarray]:
+                spk_mel16: Optional[torch.Tensor] = None,
+                code_bucket: Optional[int] = None) -> List[np.ndarray]:
     """Render B generated rows to per-row trimmed waveforms in one batched
     render.
 
@@ -170,10 +241,11 @@ def render_rows(tts: TextToSpeech, texts, text_lens, cond, codes,
     through the HifiDecoder with spk_mel16 ((1 or B, T16, 64)). generator:
     one torch.Generator for the diffusion noise, or one a row (the slot
     pool's per-request render seeds, as JAX's per-row keys,
-    xtts_tpu/infer/serving.py:232-236)."""
+    xtts_tpu/infer/serving.py:232-236). code_bucket: the bucket of a whole
+    wave whose block these rows are (default: theirs)."""
     cfg = tts.cfg
     ns = np.maximum(lengths - 2, 1)
-    n_b = bucket_len(int(ns.max()), tts._code_buckets())
+    n_b = code_bucket or bucket_len(int(ns.max()), tts._code_buckets())
     lens = torch.as_tensor(np.minimum(ns, n_b), device=tts.device)
     padded = tts._pad_codes(codes, lens, n_b)
     if use_hifigan:

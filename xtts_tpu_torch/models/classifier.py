@@ -122,11 +122,13 @@ def make_noise_scorer(model: AudioClassifier, crop_frames: int = 200):
     return score_fn
 
 
-def make_classifier_loss(model: AudioClassifier):
+def make_classifier_loss(model: AudioClassifier, mesh=None):
     """Trainer closure: batch {'mel' (B, T, bins), 'label' (B,)} -> softmax
     CE and the accuracy. With cfg.distribute_zero_label, a clean (label 0)
     target moves 20% of its mass evenly onto the other classes
-    (ttts/classifier/model.py:138-148)."""
+    (ttts/classifier/model.py:138-148). On a mesh (parallel/mesh.py), this
+    rank's shares of both."""
+    from xtts_tpu_torch.parallel.mesh import mean_share
 
     def loss_fn(batch, generator: Optional[torch.Generator] = None):
         logits = model(batch["mel"])
@@ -142,6 +144,7 @@ def make_classifier_loss(model: AudioClassifier):
         else:
             loss = -logp.gather(1, labels[:, None]).mean()
         acc = (logits.argmax(-1) == labels).float().mean()
-        return loss, {"acc": acc.detach()}
+        return mean_share(loss, mesh), {"acc": mean_share(acc.detach(), mesh)}
 
+    loss_fn.mesh = mesh
     return loss_fn

@@ -106,14 +106,19 @@ class CLVP(nn.Module):
         with torch.set_grad_enabled(return_loss and torch.is_grad_enabled()):
             tl = self.embed_text(text, text_mask)
             sl = self.embed_speech(codes, code_mask)
-            logits = (torch.einsum("id,jd->ij", tl, sl)
-                      * torch.exp(self.temperature))
             if not return_loss:
-                return logits
-            labels = torch.arange(logits.shape[0], device=logits.device)
-            logits = logits.float()
-            return (F.cross_entropy(logits, labels)
-                    + F.cross_entropy(logits.t(), labels)) / 2
+                return (torch.einsum("id,jd->ij", tl, sl)
+                        * torch.exp(self.temperature))
+            return self.contrastive_loss(tl, sl)
+
+    def contrastive_loss(self, tl: torch.Tensor,
+                         sl: torch.Tensor) -> torch.Tensor:
+        """The symmetric InfoNCE over text and speech latents (B, D)."""
+        logits = (torch.einsum("id,jd->ij", tl, sl)
+                  * torch.exp(self.temperature)).float()
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        return (F.cross_entropy(logits, labels)
+                + F.cross_entropy(logits.t(), labels)) / 2
 
     @torch.no_grad()
     def rerank(self, text: torch.Tensor, candidate_codes: torch.Tensor,
@@ -138,13 +143,25 @@ class CLVP(nn.Module):
                 * torch.exp(self.temperature)[0])
 
 
-def make_clvp_loss(model: CLVP):
+def make_clvp_loss(model: CLVP, mesh=None):
     """Trainer closure: batch {'text', 'codes', 'text_mask', 'code_mask'}
-    -> the InfoNCE loss (JAX make_clvp_loss)."""
+    -> the InfoNCE loss (JAX make_clvp_loss). On a mesh (parallel/mesh.py)
+    every data rank's latents are gathered, so the loss contrasts the
+    global batch as on one device, and each rank returns its share."""
+    from xtts_tpu_torch.parallel import mesh as pmesh
 
     def loss_fn(batch, generator: Optional[torch.Generator] = None):
-        loss = model(batch["text"], batch["codes"], batch.get("text_mask"),
-                     batch.get("code_mask"), return_loss=True)
-        return loss, {}
+        if mesh is None:
+            loss = model(batch["text"], batch["codes"],
+                         batch.get("text_mask"), batch.get("code_mask"),
+                         return_loss=True)
+            return loss, {}
+        tl = model.embed_text(batch["text"], batch.get("text_mask"))
+        sl = model.embed_speech(batch["codes"], batch.get("code_mask"))
+        loss = model.contrastive_loss(
+            pmesh.gather_rows(tl, mesh, differentiable=True),
+            pmesh.gather_rows(sl, mesh, differentiable=True))
+        return pmesh.mean_share(loss, mesh), {}
 
+    loss_fn.mesh = mesh
     return loss_fn

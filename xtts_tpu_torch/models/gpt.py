@@ -6,8 +6,10 @@ gpt.h.{i}.*, conditioning_encoder.attn.{i}.*, final_norm, mel_head, ...), so
 xtts_tpu.utils.convert.unified_voice_from_reference maps a state_dict()
 back onto the JAX tree. The teacher-forced forward returns the text and
 mel cross-entropies (`masked_ce`) as the trainer takes them; GPTConfig.remat
-checkpoints each GPT block in training (nn/remat.py). The perceiver
-conditioning is not ported (the shipped config uses the plain encoder).
+checkpoints each GPT block in training (nn/remat.py). With use_perceiver
+the conditioning is the perceiver resampler's 32 latents
+(perceiver_encoder.*, ttts/gpt/perceiver.py) instead of the encoder's one
+vector.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 
 from xtts_tpu_torch.core.config import GPTConfig
 from xtts_tpu_torch.nn.blocks import (AttentionBlock, Conv1d, Embedding,
-                                      LayerNorm, Linear)
+                                      LayerNorm, Linear, PerceiverResampler)
 from xtts_tpu_torch.nn.transformer import GPT2Stack, KVCache, cache_index
 
 
@@ -53,14 +55,16 @@ class LearnedPositionEmbeddings(nn.Module):
 class UnifiedVoice(nn.Module):
     def __init__(self, cfg: GPTConfig = GPTConfig(), dtype=torch.float32):
         super().__init__()
-        if cfg.use_perceiver:
-            raise NotImplementedError("the perceiver conditioning encoder "
-                                      "is not ported")
         c = self.cfg = cfg
         self.dtype = dtype
-        self.conditioning_encoder = ConditioningEncoder(
-            c.mel_bins, c.model_dim, attn_blocks=c.cond_attn_blocks,
-            num_heads=c.heads, dtype=dtype)
+        if c.use_perceiver:
+            self.perceiver_encoder = PerceiverResampler(
+                c.model_dim, dim_context=c.mel_bins,
+                num_latents=c.perceiver_latents, dtype=dtype)
+        else:
+            self.conditioning_encoder = ConditioningEncoder(
+                c.mel_bins, c.model_dim, attn_blocks=c.cond_attn_blocks,
+                num_heads=c.heads, dtype=dtype)
         self.text_embedding = Embedding(c.number_text_tokens * c.types + 1,
                                         c.model_dim)
         self.mel_embedding = Embedding(c.number_mel_codes, c.model_dim)
@@ -78,7 +82,8 @@ class UnifiedVoice(nn.Module):
     # ---------------- conditioning ----------------
 
     def get_conditioning(self, cond_mel_bct: torch.Tensor) -> torch.Tensor:
-        """(B, mel, T) or (B, n_clips, mel, T) -> (B, 1, dim).
+        """(B, mel, T) or (B, n_clips, mel, T) -> (B, n_cond, dim): n_cond 1
+        (the encoder) or perceiver_latents (the perceiver).
 
         A 4-D input is several reference clips stacked on dim 1
         (TextToSpeech.cond_mels_from_wavs): each clip runs through the
@@ -94,7 +99,10 @@ class UnifiedVoice(nn.Module):
             x = cond_mel_bct.reshape(b * n, c, t).transpose(1, 2)
             enc = self.conditioning_encoder(x).reshape(b, n, -1)
             return enc.mean(dim=1)[:, None]
-        return self.conditioning_encoder(cond_mel_bct.transpose(1, 2))[:, None]
+        x = cond_mel_bct.transpose(1, 2)
+        if self.cfg.use_perceiver:
+            return self.perceiver_encoder(x)
+        return self.conditioning_encoder(x)[:, None]
 
     # ---------------- teacher-forced forward ----------------
 
@@ -112,11 +120,13 @@ class UnifiedVoice(nn.Module):
 
     def forward(self, cond_mel, text_inputs, text_lengths, mel_codes,
                 wav_lengths, return_latent: bool = False,
-                return_logits: bool = False):
+                return_logits: bool = False, count_total=None):
         """Teacher-forced forward (ttts/gpt/model.py:478-557). Returns
         (loss_text, loss_mel), with `return_logits` also the mel logits, or
         the latents feeding the diffusion decoder when `return_latent`
-        (final two positions stripped)."""
+        (final two positions stripped). count_total: maps this batch's
+        count of valid targets to the global batch's (data parallelism:
+        each cross-entropy is then this rank's share of the global mean)."""
         c = self.cfg
         if text_inputs.shape[1] > c.max_text_tokens:
             raise ValueError(
@@ -161,8 +171,8 @@ class UnifiedVoice(nn.Module):
                      <= text_lengths[:, None])
         mel_mask = (torch.arange(t_mel, device=dev)[None, :]
                     <= mel_code_lengths[:, None])
-        loss_text = masked_ce(text_logits, text_tar, text_mask)
-        loss_mel = masked_ce(mel_logits, mel_tar, mel_mask)
+        loss_text = masked_ce(text_logits, text_tar, text_mask, count_total)
+        loss_mel = masked_ce(mel_logits, mel_tar, mel_mask, count_total)
         if return_logits:
             return loss_text, loss_mel, mel_logits
         return loss_text, loss_mel
@@ -171,7 +181,7 @@ class UnifiedVoice(nn.Module):
 
     def encode_prefix(self, cond_mel, text_inputs):
         """Generation prefix: conds + [start; text; stop; stop] embedding +
-        the start-mel embedding at mel position 0. Returns (prefix, n_cond)."""
+        the decode tail. Returns (prefix, n_cond)."""
         c = self.cfg
         if text_inputs.shape[1] > c.max_text_tokens:
             raise ValueError(
@@ -187,12 +197,15 @@ class UnifiedVoice(nn.Module):
             torch.arange(text_inp.shape[1], device=dev)))
         conds = self.get_conditioning(cond_mel).to(text_emb.dtype)
         b = text_inputs.shape[0]
-        # the reference's fake-inputs quirk: with the plain encoder the
-        # decode tail is just the start token at mel position 0
-        tail = torch.full((b, 1), c.start_mel_token, dtype=torch.long,
-                          device=dev)
-        tail_emb = (self.mel_embedding(tail)
-                    + self.mel_pos_embedding(torch.arange(1, device=dev))[None])
+        # the reference's fake-inputs quirk (ttts/gpt/model.py:574-584): the
+        # tail is n_cond tokens, ids [1] * (n_cond - 1) + [start] at mel
+        # positions 0..n_cond-1; with the plain encoder just the start
+        # token at position 0
+        n_tail = conds.shape[1] if c.decode_position_quirk else 1
+        tail = torch.full((b, n_tail), 1, dtype=torch.long, device=dev)
+        tail[:, -1] = c.start_mel_token
+        tail_emb = (self.mel_embedding(tail) + self.mel_pos_embedding(
+            torch.arange(n_tail, device=dev))[None])
         prefix = torch.cat([conds, text_emb, tail_emb.to(text_emb.dtype)],
                            dim=1)
         return prefix, conds.shape[1]
@@ -219,10 +232,12 @@ class UnifiedVoice(nn.Module):
 
 
 def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: torch.Tensor, count_total=None) -> torch.Tensor:
     """Cross-entropy over the positions where `mask` holds, in f32 (the
-    mean over them; F.cross_entropy(ignore_index=-1) of the reference)."""
+    mean over them; F.cross_entropy(ignore_index=-1) of the reference).
+    count_total: the count's global total (see UnifiedVoice.forward)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if count_total is None else count_total(mask.sum())
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)

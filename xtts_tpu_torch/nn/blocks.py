@@ -62,7 +62,12 @@ def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in `dtype` (flax Dense(dtype=...))."""
+    """nn.Linear computing in `dtype` (flax Dense(dtype=...)). Under tensor
+    parallelism (`tp`, parallel.mesh.shard_params) it holds this rank's
+    output columns and returns the whole output, assembled over the model
+    group."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, zero_init: bool = False):
@@ -81,7 +86,13 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt),
+                            _cast(self.bias, dt))
+        from xtts_tpu_torch.parallel.mesh import column_gather, copy_to_model
+        y = F.linear(copy_to_model(x.to(dt), self.tp.mesh),
+                     self.weight.to(dt), _cast(self.bias, dt))
+        return column_gather(y, self.tp.mesh)
 
 
 class Conv1d(nn.Conv1d):
@@ -120,10 +131,20 @@ class Conv1d(nn.Conv1d):
 
 
 class Embedding(nn.Embedding):
-    """nn.Embedding with the GPT's normal(0.02) init; f32 like flax Embed."""
+    """nn.Embedding with the GPT's normal(0.02) init; f32 like flax Embed.
+    Under tensor parallelism (`tp`) it holds this rank's rows of the
+    vocabulary (parallel.mesh.vocab_lookup)."""
+
+    tp = None
 
     def reset_flax(self, g):
         normal_(self.weight, 0.02, g)
+
+    def forward(self, idx):
+        if self.tp is None:
+            return super().forward(idx)
+        from xtts_tpu_torch.parallel.mesh import vocab_lookup
+        return vocab_lookup(idx, self.weight, self.tp.mesh)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -206,3 +227,107 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+class RMSNorm(nn.Module):
+    """F.normalize(x) * sqrt(d) * gamma (ttts/gpt/perceiver.py:168-187)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def reset_flax(self, g):
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+
+    def forward(self, x):
+        inv = torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+        return x * inv * math.sqrt(self.dim) * self.gamma
+
+
+class GEGLU(nn.Module):
+    """x, gate = split(x); gelu(gate) * x, the exact erf gelu
+    (perceiver.py:205-210)."""
+
+    def forward(self, x):
+        x_, gate = x.chunk(2, dim=-1)
+        return F.gelu(gate) * x_
+
+
+def geglu_feed_forward(dim: int, mult: int = 4,
+                       dtype=torch.float32) -> nn.Sequential:
+    """Linear -> GEGLU -> Linear, inner dim = dim * mult * 2 / 3
+    (perceiver.py:213-222; the Linears at indices 0 and 2, as there)."""
+    inner = int(dim * mult * 2 / 3)
+    return nn.Sequential(Linear(dim, inner * 2, dtype=dtype), GEGLU(),
+                         Linear(inner, dim, dtype=dtype))
+
+
+class MHAttention(nn.Module):
+    """Multi-head attention of the perceiver (perceiver.py:278-318):
+    bias-free to_q / to_kv / to_out; cross_attn_include_queries prepends
+    the queries to the context."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 cross_attn_include_queries: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.cross_attn_include_queries = cross_attn_include_queries
+        self.to_q = Linear(dim, inner, bias=False, dtype=dtype)
+        self.to_kv = Linear(dim, inner * 2, bias=False, dtype=dtype)
+        self.to_out = Linear(inner, dim, bias=False, dtype=dtype)
+
+    def forward(self, x, context=None, mask=None):
+        h, dh = self.heads, self.dim_head
+        ctx = x if context is None else context
+        if context is not None and self.cross_attn_include_queries:
+            ctx = torch.cat([x, ctx], dim=-2)
+        q = self.to_q(x)
+        k, v = self.to_kv(ctx).chunk(2, dim=-1)
+        q = q.reshape(*q.shape[:-1], h, dh)
+        k = k.reshape(*k.shape[:-1], h, dh)
+        v = v.reshape(*v.shape[:-1], h, dh)
+        sim = torch.einsum("bihd,bjhd->bhij", q, k) * (dh ** -0.5)
+        if mask is not None:
+            sim = sim.masked_fill(~mask[:, None, None, :].bool(),
+                                  torch.finfo(sim.dtype).min)
+        attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
+        out = torch.einsum("bhij,bjhd->bihd", attn, v)
+        return self.to_out(out.reshape(*out.shape[:-2], h * dh))
+
+
+class PerceiverResampler(nn.Module):
+    """num_latents learned latents cross-attending to the conditioning mel
+    (perceiver.py:225-276); (B, T, dim_context) -> (B, num_latents, dim).
+    Names as the reference's: latents, proj_context, layers.{i}.0 (the
+    attention), layers.{i}.1 (the feed-forward), norm."""
+
+    def __init__(self, dim: int, depth: int = 2,
+                 dim_context: Optional[int] = None, num_latents: int = 32,
+                 dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
+                 dtype=torch.float32):
+        super().__init__()
+        self.proj_context = (Linear(dim_context, dim, dtype=dtype)
+                             if dim_context is not None and dim_context != dim
+                             else None)
+        self.latents = nn.Parameter(torch.zeros(num_latents, dim))
+        self.layers = nn.ModuleList([nn.ModuleList([
+            MHAttention(dim, heads, dim_head,
+                        cross_attn_include_queries=True, dtype=dtype),
+            geglu_feed_forward(dim, ff_mult, dtype)]) for _ in range(depth)])
+        self.norm = RMSNorm(dim)
+
+    def reset_flax(self, g):
+        normal_(self.latents, 0.02, g)
+
+    def forward(self, x, mask=None):
+        if self.proj_context is not None:
+            x = self.proj_context(x)
+        lat = self.latents[None].expand(x.shape[0], -1, -1).to(x.dtype)
+        for attn, ff in self.layers:
+            lat = attn(lat, x, mask=mask) + lat
+            lat = ff(lat) + lat
+        return self.norm(lat)

@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from xtts_tpu_torch.nn.blocks import LayerNorm, lecun_normal_
 from xtts_tpu_torch.nn.remat import checkpoint_policy, remat_call
+from xtts_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 NEG_INF = -1e9
 
@@ -67,7 +68,14 @@ class KVCache:
 
 class Conv1D(nn.Module):
     """HF transformers Conv1D: weight stored (in, out), like a flax Dense
-    kernel; computes in `dtype`."""
+    kernel; computes in `dtype`. Under tensor parallelism (`tp`, set by
+    parallel.mesh.shard_params) the weight holds this rank's columns (dim
+    1; the bias too) or rows (dim 0: the partial products are summed over
+    the model group, then the whole bias added); tp_groups: the output
+    columns are that many blocks, each split alike (c_attn's q, k, v)."""
+
+    tp = None
+    tp_groups = 1
 
     def __init__(self, nx: int, nf: int, dtype=torch.float32):
         super().__init__()
@@ -82,8 +90,16 @@ class Conv1D(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return torch.addmm(self.bias.to(dt), x.reshape(-1, x.shape[-1]).to(dt),
-                           self.weight.to(dt)).reshape(*x.shape[:-1], -1)
+        x2 = x.reshape(-1, x.shape[-1]).to(dt)
+        tp = self.tp
+        if tp is not None and tp.dim == 0:
+            y = (reduce_from_model(x2 @ self.weight.to(dt), tp.mesh)
+                 + self.bias.to(dt))
+        else:
+            if tp is not None:
+                x2 = copy_to_model(x2, tp.mesh)
+            y = torch.addmm(self.bias.to(dt), x2, self.weight.to(dt))
+        return y.reshape(*x.shape[:-1], -1)
 
 
 class SelfAttention(nn.Module):
@@ -91,12 +107,18 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.c_attn = Conv1D(dim, 3 * dim, dtype)
+        self.c_attn.tp_groups = 3
         self.c_proj = Conv1D(dim, dim, dtype)
+
+    def local_dim(self) -> int:
+        """The width of this rank's heads (dim unless tensor parallel)."""
+        return self.c_attn.weight.shape[1] // 3
 
     def qkv(self, x):
         b, t = x.shape[:2]
-        shp = (b, t, self.heads, self.dim // self.heads)
-        q, k, v = self.c_attn(x).split(self.dim, dim=-1)
+        d, hd = self.local_dim(), self.dim // self.heads
+        shp = (b, t, d // hd, hd)
+        q, k, v = self.c_attn(x).split(d, dim=-1)
         return q.reshape(shp), k.reshape(shp), v.reshape(shp)
 
     def forward(self, x, attn_mask=None):
@@ -115,7 +137,7 @@ class SelfAttention(nn.Module):
         w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         dt = torch.promote_types(w.dtype, v.dtype)
         y = torch.einsum("bhqk,bkhd->bqhd", w.to(dt), v.to(dt))
-        return self.c_proj(y.reshape(b, t, self.dim)), (k, v)
+        return self.c_proj(y.reshape(b, t, self.local_dim())), (k, v)
 
     def step(self, x, cache: KVCache, layer: int, index):
         """Single-token decode: writes this token's k/v at `index` (an int

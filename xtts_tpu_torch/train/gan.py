@@ -13,6 +13,12 @@ decay 1e-4: optax.adamw's default), written out as the Trainer's
 The generator's input is the frozen GPT's latent of the frozen DVAE's
 codes (K3 on the card), computed once a step and used by both updates
 (JAX's jit computes the same value in both of its calls).
+
+Data parallel over a parallel.mesh.Mesh (`mesh`): each rank takes its rows
+(parallel.mesh.shard_batch), its losses are its shares of the global
+batch's (means divided by the data ranks; the spectral convergence's two
+norms summed over the data group first, as they span the batch), and
+both updates sum the gradients over the data group before their clip.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from xtts_tpu_torch.dsp.spectral import stft
+from xtts_tpu_torch.parallel import mesh as pmesh
 from xtts_tpu_torch.train.trainer import AdamWState, Trainer, clip_adamw_
 
 GAN_B1, GAN_B2, GAN_WEIGHT_DECAY = 0.8, 0.99, 1e-4
@@ -33,24 +40,31 @@ def stft_magnitude(wav: torch.Tensor, n_fft: int, hop: int,
 
 
 def stft_loss(y_hat: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
-              win: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(spectral convergence, log-magnitude L1) at one resolution."""
+              win: int, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(spectral convergence, log-magnitude L1) at one resolution; on a
+    mesh, this rank's shares of the global batch's."""
     s_hat = stft_magnitude(y_hat, n_fft, hop, win)
     s = stft_magnitude(y, n_fft, hop, win)
-    sc = (torch.linalg.vector_norm(s - s_hat)
-          / torch.clamp(torch.linalg.vector_norm(s), min=1e-8))
+    if mesh is None:
+        sc = (torch.linalg.vector_norm(s - s_hat)
+              / torch.clamp(torch.linalg.vector_norm(s), min=1e-8))
+    else:
+        num = pmesh.data_sum(((s - s_hat) ** 2).sum(), mesh)
+        den = pmesh.data_total((s * s).sum(), mesh)
+        sc = pmesh.mean_share(torch.sqrt(num) / torch.clamp(
+            torch.sqrt(den), min=1e-8), mesh)
     mag = (torch.log(torch.clamp(s, min=1e-5))
            - torch.log(torch.clamp(s_hat, min=1e-5))).abs().mean()
-    return sc, mag
+    return sc, pmesh.mean_share(mag, mesh)
 
 
 def multi_scale_stft_loss(y_hat: torch.Tensor, y: torch.Tensor,
                           n_ffts=(1024, 2048, 512), hops=(120, 240, 50),
-                          wins=(600, 1200, 240)) -> torch.Tensor:
+                          wins=(600, 1200, 240), mesh=None) -> torch.Tensor:
     """The mean over the resolutions of sc + mag (the reference's three)."""
     total = 0.0
     for n_fft, hop, win in zip(n_ffts, hops, wins):
-        sc, mag = stft_loss(y_hat, y, n_fft, hop, win)
+        sc, mag = stft_loss(y_hat, y, n_fft, hop, win, mesh)
         total = total + sc + mag
     return total / len(n_ffts)
 
@@ -157,8 +171,10 @@ class GANTrainer:
                  grad_clip: float = 1.0,
                  stft_resolutions: Optional[Tuple[Sequence[int],
                                                   Sequence[int],
-                                                  Sequence[int]]] = None):
+                                                  Sequence[int]]] = None,
+                 mesh: Optional[pmesh.Mesh] = None):
         self.generator, self.disc, self.gen = generator, discriminator, gen_fn
+        self.mesh = mesh
         self.g_lr, self.d_lr = g_lr, d_lr
         self.weights = weights
         self.grad_clip = grad_clip
@@ -167,10 +183,24 @@ class GANTrainer:
 
     def _stft_loss(self, y_hat, real):
         if self.stft_resolutions is None:
-            return multi_scale_stft_loss(y_hat, real)
+            return multi_scale_stft_loss(y_hat, real, mesh=self.mesh)
         n_ffts, hops, wins = self.stft_resolutions
         return multi_scale_stft_loss(y_hat, real, n_ffts=n_ffts, hops=hops,
-                                     wins=wins)
+                                     wins=wins, mesh=self.mesh)
+
+    def _share(self, x):
+        return pmesh.mean_share(x, self.mesh)
+
+    def _data_sum(self, grads, metrics):
+        """Gradients and metric shares summed over the data group."""
+        if self.mesh is None:
+            return grads, metrics
+        group = self.mesh.data_group
+        keys = list(metrics)
+        vals = pmesh.all_reduce_flat([metrics[k].reshape(1) for k in keys],
+                                     group)
+        return (pmesh.all_reduce_flat(grads, group),
+                {k: v[0] for k, v in zip(keys, vals)})
 
     def init_state(self) -> GANState:
         g = {n: p for n, p in self.generator.named_parameters()
@@ -191,10 +221,11 @@ class GANTrainer:
             fake = self.gen(batch, latent)
         sr, _ = self.disc(batch["wav"])
         sf, _ = self.disc(fake)
-        d_loss = discriminator_adv_loss(sr, sf)
+        d_loss = self._share(discriminator_adv_loss(sr, sf))
         grads = _grads(d_loss, state.d_params)      # the update leaves them
-        return d_loss.detach(), self._update(state.d_params, grads,
-                                             state.d_opt, self.d_lr), grads
+        grads, m = self._data_sum(grads, {"d": d_loss.detach()})
+        return m["d"], self._update(state.d_params, grads, state.d_opt,
+                                    self.d_lr), grads
 
     def g_step(self, state: GANState, batch, latent):
         """The generator's update against the discriminator as it stands,
@@ -204,15 +235,17 @@ class GANTrainer:
         sf, ff = self.disc(y_hat)
         with torch.no_grad():
             _, fr = self.disc(real)
-        adv = generator_adv_loss(sf)
-        fm = feature_matching_loss(ff, fr)
+        adv = self._share(generator_adv_loss(sf))
+        fm = self._share(feature_matching_loss(ff, fr))
         stft_l = self._stft_loss(y_hat, real)
         w = self.weights
         g_loss = w.adv * adv + w.feat_match * fm + w.stft * stft_l
         grads = _grads(g_loss, state.g_params)
-        parts = {"g_adv": adv.detach(), "g_fm": fm.detach(),
-                 "g_stft": stft_l.detach()}
-        return (g_loss.detach(), parts,
+        grads, parts = self._data_sum(grads, {
+            "g_loss": g_loss.detach(), "g_adv": adv.detach(),
+            "g_fm": fm.detach(), "g_stft": stft_l.detach()})
+        g_loss = parts.pop("g_loss")
+        return (g_loss, parts,
                 self._update(state.g_params, grads, state.g_opt, self.g_lr),
                 grads)
 

@@ -15,6 +15,14 @@ Each returns `loss_fn(batch, generator) -> (loss, aux)`. The nearest-code
 search of each is K3 on the card: the DVAE's own quantizer, and the frozen
 DVAE that turns target mels into the GPT's targets and the diffusion
 model's hint.
+
+Built with `mesh=` (parallel/mesh.py), a loss_fn takes this data rank's
+rows and returns its share of the global batch's loss and metrics (the
+Trainer sums them over the data group): means over rows are divided by
+the data ranks, the GPT's cross-entropies divide by the global count of
+valid targets, the DVAE's EMA statistics are summed over the data group
+before the update (xtts_dvae.py:108-110), and the diffusion draws are made
+for the global batch on every rank, each taking its rows.
 """
 from __future__ import annotations
 
@@ -28,10 +36,11 @@ from xtts_tpu_torch.models.aa_diffusion import (AADiffusion,
 from xtts_tpu_torch.models.dvae import (DVAE, BalanceState, balance_codebook,
                                         ema_codebook_update)
 from xtts_tpu_torch.models.gpt import UnifiedVoice
+from xtts_tpu_torch.parallel import mesh as pmesh
 
 
 def make_dvae_loss(model: DVAE, commitment_weight: float = 0.25,
-                   ema_decay: float = 0.99):
+                   ema_decay: float = 0.99, mesh=None):
     """batch: {'mel': (B, bins, T)}. aux["new_state_cols"] holds the
     codebook buffers after the EMA update (and the balancing heuristic
     where the config turns it on), which the Trainer writes after the
@@ -40,6 +49,8 @@ def make_dvae_loss(model: DVAE, commitment_weight: float = 0.25,
     def loss_fn(batch, generator: Optional[torch.Generator] = None):
         recon, ssim_l, commit, _, (osum, esum) = model(batch["mel"])
         loss = recon + ssim_l + commitment_weight * commit
+        osum = pmesh.data_total(osum, mesh)
+        esum = pmesh.data_total(esum, mesh)
         new_cb = ema_codebook_update(model.codebook_state(), osum, esum,
                                      decay=ema_decay, eps=model.cfg.ema_eps)
         cb = model.codebook
@@ -54,28 +65,34 @@ def make_dvae_loss(model: DVAE, commitment_weight: float = 0.25,
         if hasattr(cb, "bal_hist"):
             new_cols.update({"codebook.bal_hist": bal.hist,
                              "codebook.bal_total": bal.total})
-        aux = {"recon": recon.detach(), "ssim": ssim_l.detach(),
-               "commitment": commit.detach(), "new_state_cols": new_cols}
-        return loss, aux
+        share = lambda x: pmesh.mean_share(x, mesh)      # noqa: E731
+        aux = {"recon": share(recon.detach()), "ssim": share(ssim_l.detach()),
+               "commitment": share(commit.detach()),
+               "new_state_cols": new_cols}
+        return share(loss), aux
 
+    loss_fn.mesh = mesh
     return loss_fn
 
 
 def make_gpt_loss(gpt: UnifiedVoice, dvae: DVAE, text_weight: float = 0.01,
-                  mel_weight: float = 1.0):
+                  mel_weight: float = 1.0, mesh=None):
     """batch: {'cond_mel', 'text', 'text_lengths', 'mel', 'wav_lengths'};
     the mel codes come from the frozen DVAE under no_grad, online, as
     ttts/gpt/train_ms.py:216-217 does."""
 
     def loss_fn(batch, generator: Optional[torch.Generator] = None):
         codes = dvae.get_codebook_indices(batch["mel"])
+        total = (None if mesh is None
+                 else lambda c: pmesh.data_total(c, mesh))
         loss_text, loss_mel = gpt(batch["cond_mel"], batch["text"],
                                   batch["text_lengths"], codes,
-                                  batch["wav_lengths"])
+                                  batch["wav_lengths"], count_total=total)
         loss = text_weight * loss_text + mel_weight * loss_mel
         return loss, {"loss_text": loss_text.detach(),
                       "loss_mel": loss_mel.detach()}
 
+    loss_fn.mesh = mesh
     return loss_fn
 
 
@@ -106,12 +123,16 @@ def diffusion_latent_fn(gpt: UnifiedVoice, dvae: DVAE):
 def diffusion_draws(diff: AADiffusion, gd: GaussianDiffusion, x_start,
                     refer, generator: Optional[torch.Generator],
                     unconditioned_percentage: float, sampler=None,
-                    sampler_state=None):
+                    sampler_state=None, mesh=None):
     """The step's random draws, on the generator's device and moved to the
     batch's: t and its loss weights (`sampler`, else uniform), the noise,
-    the unconditioned rows and the PatchDropout ranking."""
+    the unconditioned rows and the PatchDropout ranking. On a mesh they
+    are drawn for the global batch and this rank's rows kept ("t_global":
+    every row's t, which the timestep sampler's history takes)."""
     from xtts_tpu_torch.diffusion.resample import UniformSampler
-    b, dev = x_start.shape[0], x_start.device
+    n_data = 1 if mesh is None else mesh.n_data
+    b, dev = x_start.shape[0] * n_data, x_start.device
+    x_shape = (b,) + tuple(x_start.shape[1:])
     gdev = generator.device if generator is not None else dev
     if sampler is None:
         t, w = UniformSampler(gd.num_timesteps).sample(generator, b, gdev)
@@ -119,17 +140,20 @@ def diffusion_draws(diff: AADiffusion, gd: GaussianDiffusion, x_start,
         t, w = sampler.sample(generator, b, sampler_state)
     uncond = torch.rand((b,), generator=generator, device=gdev) \
         < unconditioned_percentage
-    noise = torch.randn(x_start.shape, generator=generator, device=gdev)
+    noise = torch.randn(x_shape, generator=generator, device=gdev)
     n = diff.refer_enc.num_patches(refer.shape[-1])
     patch_rand = torch.randn((b, n), generator=generator, device=gdev)
-    return {k: v.to(dev) for k, v in dict(
+    rows = pmesh.data_rows(mesh, b)
+    out = {k: v[rows].to(dev) for k, v in dict(
         t=t, w=w, uncond=uncond, noise=noise, patch_rand=patch_rand).items()}
+    out["t_global"] = t.to(dev)
+    return out
 
 
 def make_diffusion_loss(diff: AADiffusion, gd: GaussianDiffusion,
                         gpt: UnifiedVoice, dvae: DVAE,
                         unconditioned_percentage: float = 0.1,
-                        timestep_sampler: str = "uniform"):
+                        timestep_sampler: str = "uniform", mesh=None):
     """batch: {'mel', 'refer_mel', 'text', 'text_lengths', 'wav_lengths'}.
     Each step recomputes the frozen codes and latents
     (diffusion_latent_fn), then takes the diffusion loss on the
@@ -142,7 +166,8 @@ def make_diffusion_loss(diff: AADiffusion, gd: GaussianDiffusion,
     columns and which aux["new_state_cols"] updates after each step.
 
     loss_fn(batch, generator, draws=None): `draws` fixes the step's draws
-    (diffusion_draws' keys), as the parity checks do."""
+    (diffusion_draws' keys), as the parity checks do. On a mesh the
+    sampler's history takes every rank's rows' losses."""
     sampler, cols = None, {}
     if timestep_sampler == "loss_second_moment":
         from xtts_tpu_torch.diffusion.resample import (
@@ -167,7 +192,8 @@ def make_diffusion_loss(diff: AADiffusion, gd: GaussianDiffusion,
                  if sampler is not None else None)
         if draws is None:
             draws = diffusion_draws(diff, gd, x_start, refer, generator,
-                                    unconditioned_percentage, sampler, state)
+                                    unconditioned_percentage, sampler, state,
+                                    mesh)
 
         def model_fn(x_t, t_orig):
             return diff(x_t, t_orig, latent, refer,
@@ -176,14 +202,18 @@ def make_diffusion_loss(diff: AADiffusion, gd: GaussianDiffusion,
 
         terms = gd.training_losses(model_fn, x_start, draws["t"],
                                    draws["noise"])
-        loss = (terms["loss"] * draws["w"]).mean()
-        aux = {"mse": terms["mse"].mean().detach(),
-               "vb": terms["vb"].mean().detach()}
+        share = lambda x: pmesh.mean_share(x.mean(), mesh)  # noqa: E731
+        loss = share(terms["loss"] * draws["w"])
+        aux = {"mse": share(terms["mse"]).detach(),
+               "vb": share(terms["vb"]).detach()}
         if sampler is not None:
-            new = sampler.update(state, draws["t"], terms["loss"].detach())
+            t_all = draws.get("t_global", draws["t"])
+            new = sampler.update(state, t_all, pmesh.gather_rows(
+                terms["loss"].detach(), mesh))
             aux["new_state_cols"] = {"t_sampler.history": new.history,
                                      "t_sampler.counts": new.counts}
         return loss, aux
 
     loss_fn.state_cols = cols
+    loss_fn.mesh = mesh
     return loss_fn

@@ -93,6 +93,8 @@ def to_torch(sd: SD, device) -> Dict[str, torch.Tensor]:
 
 def unified_voice_from_jax(tree: Mapping[str, Any], layers: int,
                            cond_attn_blocks: int = 6) -> SD:
+    """The conditioning is the perceiver's where the tree holds a
+    perceiver_encoder (use_perceiver), else the encoder's."""
     p = _params(tree)
     sd: SD = {
         "text_embedding.weight": _a(p["text_embedding"]["embedding"]),
@@ -115,6 +117,9 @@ def unified_voice_from_jax(tree: Mapping[str, Any], layers: int,
     _norm(sd, "final_norm", p["final_norm"])
     _dense(sd, "text_head", p["text_head"])
     _dense(sd, "mel_head", p["mel_head"])
+    if "perceiver_encoder" in p:
+        _perceiver(sd, "perceiver_encoder.", p["perceiver_encoder"])
+        return sd
     ce = p["conditioning_encoder"]
     _conv(sd, "conditioning_encoder.init", ce["init"])
     for i in range(cond_attn_blocks):
@@ -123,6 +128,23 @@ def unified_voice_from_jax(tree: Mapping[str, Any], layers: int,
         _conv1x1(sd, pre + "proj_out", blk["proj_out"])
         _norm(sd, pre + "norm", blk["GroupNorm32_0"]["GroupNorm_0"])
     return sd
+
+
+def _perceiver(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """JAX PerceiverResampler -> the reference's names (the inverse of
+    xtts_tpu/utils/convert.py perceiver_from_reference)."""
+    sd[prefix + "latents"] = _a(p["latents"])
+    sd[prefix + "norm.gamma"] = _a(p["norm"]["gamma"])
+    if "proj_context" in p:
+        _dense(sd, prefix + "proj_context", p["proj_context"])
+    i = 0
+    while f"attn_{i}" in p:
+        pre = f"{prefix}layers.{i}."
+        for name in ("to_q", "to_kv", "to_out"):
+            _dense(sd, pre + "0." + name, p[f"attn_{i}"][name])
+        _dense(sd, pre + "1.0", p[f"ff_{i}"]["Dense_0"])
+        _dense(sd, pre + "1.2", p[f"ff_{i}"]["Dense_1"])
+        i += 1
 
 
 def _clip(sd: SD, p: Mapping[str, Any], layers: int,
@@ -462,6 +484,16 @@ def hifigan_discriminator_from_jax(tree: Mapping[str, Any],
         for j in range(7):
             _conv(sd, f"{pre}convs.{j}", ds[f"c{j}"])
         _conv(sd, pre + "conv_post", ds["post"])
+    return sd
+
+
+def random_latent_from_jax(tree: Mapping[str, Any]) -> SD:
+    """JAX RandomLatentConverter (fc_{i} Dense) -> the port's fc.{i}."""
+    p, sd = _params(tree), {}
+    i = 0
+    while f"fc_{i}" in p:
+        _dense(sd, f"fc.{i}", p[f"fc_{i}"])
+        i += 1
     return sd
 
 
