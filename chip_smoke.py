@@ -37,7 +37,13 @@ Phases, each reported on its own lines:
      their weights rotating through >= 32 copies (>= 100 MB, more than
      the 50 MB L2), beside matmul on as many dequantised bf16 copies; K2
      (flash_mha at (2, 1280 | 1562, 8, 64), (2, 300 | 583, 8, 64) and the
-     604-code cap bucket's (2, 2416 | 2698, 8, 64)); K3 (vq_nearest on the DVAE's own 3008 x 512
+     604-code cap bucket's (2, 2416 | 2698, 8, 64); the same bits and
+     device us with and without the lse output, in turns; the f32
+     forward at the main bucket; the backward kernels flash_mha_bwd_dkv
+     and flash_mha_bwd_dq against the f32 plain backward at the main
+     bucket, the cap bucket and a [train] flash step's (8, 1200 | 1600),
+     bf16, and at the main bucket in f32, each twice to the same bits,
+     beside SDPA's backward); K3 (vq_nearest on the DVAE's own 3008 x 512
      logits against its 8192-code codebook, a ragged shape and a planted
      tie, also on 4 rotating copies of rows and codebook); K4
      (int8_gemm_rows (split over K across a cluster),
@@ -68,7 +74,9 @@ Phases, each reported on its own lines:
      them, by their norm, parameters within 3 lr 1e-2 plus what the
      gradient gap moves Adam's first update after the clip, every margin
      printed; frozen and trained DVAE codes by vq_agree, the EMA codebook
-     within 1e-5).
+     within 1e-5); one f32 diffusion step through K2's backward (UNet heads
+     of 64, 640 | 1040) with flash=True against flash=False on the card,
+     by the same rule.
      The perceiver GPT on the small configuration (32 latents): greedy int8
      codes of one B=1 request, card (K1 over the 32-position prefix and its
      32-token tail) against CPU, held by P3's rule (greedy_rule).
@@ -89,6 +97,9 @@ Phases, each reported on its own lines:
      distinct text), greedy and seeded sampling, launch counts equal; one
      greedy graph run of each under torch.profiler, every counted kernel
      in its trace as many times as counted.
+  4a. p9: TextToSpeech(XTTSConfig()) at its defaults (f32): a request at
+     code bucket 320 through K2's f32 forward (200 launches, all f32),
+     its consumer attention against f32 plain attention.
   4c. perceiver: [main]'s three requests on a flagship GPT with
      use_perceiver=True (bf16, int8 decode): K1 every token over the
      116-position prefix, K2 in the render, latency beside [main]'s.
@@ -166,7 +177,12 @@ Phases, each reported on its own lines:
      the diffusion checkpoint restored bit for bit with the sampler's
      state, a --resume run, 30 steps on one repeated batch (its loss at
      fixed draws falls below DIFF_OVERFIT_RATIO of its start), and K3 at
-     the diffusion and hifigan trainers' rows.
+     the diffusion and hifigan trainers' rows. Then FLASH_STEPS diffusion
+     steps with flash=True at render lengths (DiffusionDataset(max_mel=
+     1280, max_refer=300) over the 8-12 s wavs, batch 8): K2's forward
+     and both backward kernels once a gated attention every step, beside
+     the same steps with flash=False: step ms, samples/s, MFU (K2's
+     FLOPs added: FlopCounterMode cannot see them), peak memory.
   7c. parallel (parallel/mesh.py, the flagship GPT and DVAE whole, f32, global batch 8 with lengths falling
      across the rows): two gloo ranks spawned on the one card, dp 2 (one
      gpt and one vqvae step) and tp 2 (one gpt step, GPT_PARAM_RULES),
@@ -214,6 +230,19 @@ SR = 24000
 K1_TOL = 2e-2          # logits / rows (tests/test_decode_step.py's bound)
 OP_TOL = 1e-2          # single ops: one bf16 rounding of O(1) values
 K2_TOL = 1e-2          # flash vs f32 attention on the same bf16 inputs
+# K2's f32 forward against f32 attention: exp2's argument rounding (~1e-6
+# relative) and sums over up to 2698 terms in another order (sqrt(Tk)
+# 2^-24), on outputs up to max |v| ~ 4.5
+K2_F32_TOL = 5e-5
+# K2's backward against the f32 plain backward on the same inputs, relative
+# to each gradient's largest element: bf16 rounds P, dS and the result
+# (three roundings of 2^-9); f32 sums in another order
+K2_BWD_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# a [train] flash=True step's consumer attention (B, Tq, Tk): 8-12 s wavs
+# cropped to 1280 frames, the mel bucket 1200 and the refer bucket 400
+K2_TRAIN_SHAPE = (8, 1200, 1600)
+# rounds of (none, lse, lse, none) in the bf16 forward's lse A/B
+K2_LSE_ROUNDS = 4
 SMALL_WAV_TOL = 1e-3   # small-config render, card vs CPU (the e2e test's)
 HBM_BPS = 3.35e12      # H100 SXM device memory rate
 PEAK = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}   # dense (data sheet)
@@ -285,6 +314,11 @@ NEW_STEPS = 10
 NEW_WARM = 3
 DIFF_OVERFIT_STEPS = 30
 DIFF_OVERFIT_RATIO = 0.9
+# [train], K2's backward: the flash=True diffusion steps at render lengths
+# (and as many flash=False steps on the same batches), the steps left out
+# of the step-time median
+FLASH_STEPS = 8
+FLASH_WARM = 2
 SLOTS_EAGER_SEGMENTS = 3   # greedy segments run eagerly against the graphs
 
 
@@ -895,7 +929,158 @@ def k2_checks(torch, fa, results, card):
             f"{fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]})  [{card}]")
         if tq == 1280:
             main_times = (tkn, tpl, tlib, bnd, dk, dl)
-    record(results, "flash_mha", e_max, *main_times)
+            lse_ab = k2_lse_ab(torch, fa, q, k, v)
+    record(results, "flash_mha", e_max, *main_times, lse_ab=lse_ab)
+
+
+def k2_lse_ab(torch, fa, q, k, v):
+    """The bf16 forward without and with the lse output on the same inputs:
+    the same bits, and device us a call in turns (none, lse, lse, none)."""
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    o2, _ = fa._flash_fwd_cuda(q, k, v, 0.125, False)
+    check(torch.equal(o, o2), "flash_mha output differs with lse")
+    turns = [("none", False), ("lse", True), ("lse", True), ("none", False)]
+    got = {"none": [], "lse": []}
+    for tag, with_lse in turns * K2_LSE_ROUNDS:
+        got[tag].append(device_us(torch, lambda w=with_lse: fa._flash_fwd_cuda(
+            q, k, v, 0.125, w)))
+    log(f"[k2] flash_mha bf16 (2, 1280 | 1562, 8, 64) with and without lse: "
+        f"output equal bit for bit; device us in turns (none, lse, lse, "
+        f"none) x {K2_LSE_ROUNDS}: without lse "
+        f"{', '.join(f'{x:.2f}' for x in got['none'])} (median "
+        f"{statistics.median(got['none']):.2f}), with lse "
+        f"{', '.join(f'{x:.2f}' for x in got['lse'])} (median "
+        f"{statistics.median(got['lse']):.2f})")
+    return got
+
+
+def k2_f32_checks(torch, fa, results, card):
+    """K2's f32 forward (the default TextToSpeech's dtype) at the main
+    bucket against f32 plain attention: error (K2_F32_TOL), card ms, device
+    us, plain ms, SDPA in f32, bound at the f32 FMA peak."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(98)
+    b, tq, tk = 2, 1280, 1562
+    q, k, v = (torch.randn(b, t, 8, 64, generator=g, device="cuda")
+               for t in (tq, tk, tk))
+    fa.flash_mha.f32_launches = 0
+    out = fa.flash_mha(q, k, v, 0.125)
+    check(fa.flash_mha.f32_launches == 1, "the f32 forward did not launch")
+    err = max_err(out, fa.flash_mha_plain(q, k, v, 0.125))
+    check(err <= K2_F32_TOL, f"flash_mha f32 err {err}")
+    tkn = time_ms(torch, lambda: fa.flash_mha(q, k, v, 0.125))
+    tpl = time_ms(torch, lambda: fa.flash_mha_plain(q, k, v, 0.125))
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tlib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, scale=0.125))
+    flops = 4 * b * 8 * tq * tk * 64
+    bnd = bound(4 * b * 8 * 64 * (2 * tq + 2 * tk), flops, "fp32")
+    dk = device_us(torch, lambda: fa.flash_mha(q, k, v, 0.125))
+    dl = device_us(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, scale=0.125))
+    log(f"[k2] flash_mha f32 (B {b}, Tq {tq}, Tk {tk}, 8 x 64) max_abs_err "
+        f"vs f32 plain {err:.3e} (bound {K2_F32_TOL})  kernel {tkn:.4f} ms "
+        f"({flops / (tkn * 1e-3) / 1e12:.1f} TFLOP/s), device {fmt_us(dk)}  "
+        f"plain f32 {tpl:.4f} ms  sdpa f32 {tlib:.4f} ms, device "
+        f"{fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]}, f32 FMA peak)  "
+        f"[{card}]")
+    record(results, "flash_mha+f32", err, tkn, tpl, tlib, bnd, dk, dl)
+
+
+def k2_backward_checks(torch, fa, results, card):
+    """K2's backward kernels against the f32 plain backward on the same
+    inputs at the main bucket, the 604 cap bucket and a [train] flash step's
+    shape, bf16 (and f32 at the main bucket): each gradient within
+    K2_BWD_TOL of its largest element; card ms and device us of
+    flash_mha_bwd_dkv and flash_mha_bwd_dq, of the whole backward (D =
+    rowsum(dO * O) included), of the plain backward; SDPA's backward
+    (forward + backward with grad, less the forward); the bounds (dkv: 4
+    products, dq: 3, the backward: 5, 2 B H Tq Tk 64 operations each).
+    Two backward passes give the same bits."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(97)
+    kinds = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    shapes = [(2, 1280, 1562, torch.bfloat16),
+              (2, 2416, 2698, torch.bfloat16),
+              (*K2_TRAIN_SHAPE, torch.bfloat16),
+              (2, 1280, 1562, torch.float32)]
+    for b, tq, tk, dt in shapes:
+        kind, esz = kinds[dt], (2 if dt == torch.bfloat16 else 4)
+        q, k, v, do = (torch.randn(b, t, 8, 64, generator=g,
+                                   device="cuda").to(dt)
+                       for t in (tq, tk, tk, tq))
+        o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+        delta = fa._delta(o, do)
+        fa.flash_mha_bwd_dkv.launches = fa.flash_mha_bwd_dq.launches = 0
+        got = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+        check(fa.flash_mha_bwd_dkv.launches == 1
+              and fa.flash_mha_bwd_dq.launches == 1, "K2 backward launches")
+        again = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              "K2 backward differs between two runs")
+        o32, lse32 = fa.flash_mha_plain_lse(q.float(), k.float(), v.float(),
+                                            0.125)
+        want = fa.flash_mha_bwd_plain(q.float(), k.float(), v.float(), o32,
+                                      lse32, do.float(), 0.125)
+        errs = {}
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = max_err(x, w) / w.abs().max().item()
+            check(errs[name] <= K2_BWD_TOL[kind], f"K2 backward {kind} "
+                  f"{(b, tq, tk)} {name} {errs[name]:.3e}")
+        del want, o32, lse32, again
+        t_dkv = time_ms(torch, lambda: fa.flash_mha_bwd_dkv(
+            q, k, v, do, lse, delta, 0.125))
+        t_dq = time_ms(torch, lambda: fa.flash_mha_bwd_dq(
+            q, k, v, do, lse, delta, 0.125))
+        t_all = time_ms(torch, lambda: fa.flash_mha_bwd(
+            q, k, v, o, lse, do, 0.125))
+        t_pl = time_ms(torch, lambda: fa.flash_mha_bwd_plain(
+            q, k, v, o, lse, do, 0.125), reps=5)
+        d_dkv = device_us(torch, lambda: fa.flash_mha_bwd_dkv(
+            q, k, v, do, lse, delta, 0.125))
+        d_dq = device_us(torch, lambda: fa.flash_mha_bwd_dq(
+            q, k, v, do, lse, delta, 0.125))
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        with torch.enable_grad():
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs, scale=0.125)
+
+            def sdpa_grad():
+                return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+            t_sf, t_sfb = time_ms(torch, sdpa), time_ms(torch, sdpa_grad)
+            d_sf, d_sfb = device_us(torch, sdpa), device_us(torch, sdpa_grad)
+        t_sb, d_sb = t_sfb - t_sf, d_sfb - d_sf
+        unit = 2 * b * 8 * tq * tk * 64          # one product's operations
+        peak = "bf16" if kind == "bf16" else "fp32"
+        qb, kb = b * 8 * 64 * tq * esz, b * 8 * 64 * tk * esz
+        stats = 2 * b * 8 * tq * 4               # lse and D
+        b_dkv = bound(2 * qb + 4 * kb + stats, 4 * unit, peak)
+        b_dq = bound(3 * qb + 2 * kb + stats, 3 * unit, peak)
+        b_all = bound(4 * qb + 4 * kb + stats, 5 * unit, peak)
+        log(f"[k2] backward {kind} (B {b}, Tq {tq}, Tk {tk}, 8 x 64): rel "
+            f"err vs f32 plain dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+            f"{errs['dv']:.2e} (bound {K2_BWD_TOL[kind]}), same bits twice; "
+            f"dkv {t_dkv:.4f} ms, device {fmt_us(d_dkv)} (bound "
+            f"{b_dkv[0]:.5f} ms, {b_dkv[1]}); dq {t_dq:.4f} ms, device "
+            f"{fmt_us(d_dq)} (bound {b_dq[0]:.5f} ms); whole backward "
+            f"{t_all:.4f} ms ({5 * unit / (t_all * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s of the 5 products; bound {b_all[0]:.5f} ms, "
+            f"{b_all[1]}); plain backward {t_pl:.4f} ms; sdpa backward "
+            f"{t_sb:.4f} ms (fwd + bwd {t_sfb:.4f} less fwd {t_sf:.4f}), "
+            f"device {fmt_us(d_sb)} ({fmt_us(d_sfb)} less {fmt_us(d_sf)}); "
+            f"kernels' device {fmt_us(d_dkv + d_dq)} against sdpa's "
+            f"{fmt_us(d_sb)}  [{card}]")
+        if (tq, dt) == (1280, torch.bfloat16):
+            for name, t, d, bn in (("flash_mha_bwd_dkv", t_dkv, d_dkv, b_dkv),
+                                   ("flash_mha_bwd_dq", t_dq, d_dq, b_dq)):
+                record(results, name, max(errs.values()), t, t_pl, t_sb, bn,
+                       d, d_sb, library_covers="dq, dk and dv (sdpa's "
+                       "backward: forward + backward less forward)",
+                       whole_backward_ms=t_all)
+        del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
+        torch.cuda.empty_cache()
 
 
 def qdot64(torch):
@@ -1706,6 +1891,94 @@ def train_reference_check_new(torch, np):
         f"{'; '.join(lines)}")
 
 
+def flash_train_reference_check(torch, np):
+    """[ref], K2's backward in a training step: one f32 diffusion Trainer
+    step at a small width whose UNet heads are 64 wide (the kernels'),
+    with mels of 600 frames and references of 300 (the consumer attention
+    past the size gate), on the card with flash=True (K2's f32 forward and
+    both backward kernels) against the same step with flash=False, from
+    the same weights, batch and draws; held by hold_train_step (the output
+    conv's variance rows by their norm), every margin printed."""
+    from xtts_tpu_torch.models.aa_diffusion import (AADiffusion,
+                                                    normalize_tacotron_mel)
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.train import cli, steps
+    from xtts_tpu_torch.train.trainer import Trainer
+    from xtts_tpu_torch.utils.registry import MODELS
+
+    cfg = _small_train_cfg()
+    cfg = cfg.replace(gpt=cfg.gpt.replace(max_mel_tokens=160),
+                      diffusion=cfg.diffusion.replace(model_channels=128))
+    mb, lr = cfg.mel.n_mels, cfg.train.lr
+    g = torch.Generator().manual_seed(16)
+    base = {}
+    for name in ("vqvae", "gpt", "diffusion"):
+        m = MODELS[name]["build"](cfg, torch.float32)
+        with torch.no_grad():
+            init_flax_like(m, g)
+            for p in m.parameters():    # the flax init zeroes projections
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+        base[name] = m
+    frozen = {k: base[k].cuda().eval().requires_grad_(False)
+              for k in ("vqvae", "gpt")}
+    rng = np.random.default_rng(17)
+    samples = [{
+        "text": rng.integers(3, 250, 9 + 4 * i).astype(np.int32),
+        "mel": rng.standard_normal((mb, 600 - 80 * i)).astype(np.float32),
+        "refer_mel": rng.standard_normal((mb, 300 - 40 * i)
+                                         ).astype(np.float32),
+        "wav_length": np.int32((600 - 80 * i) * 256)} for i in range(2)]
+    cpu_b = cli.to_device(cli.adapt_batch("diffusion", cli.build_collate(
+        "diffusion", cfg)(samples)), "cpu")
+    tq, tr_len = cpu_b["mel"].shape[-1], cpu_b["refer_mel"].shape[-1]
+    check(fa.use_flash(tq, tq + tr_len), f"[ref] flash step {tq} | "
+          f"{tq + tr_len} below the gate")
+    batch = cli.to_device(cpu_b, "cuda")
+    gd = training_process(cfg)
+    draws = steps.diffusion_draws(
+        base["diffusion"], gd, normalize_tacotron_mel(cpu_b["mel"]),
+        normalize_tacotron_mel(cpu_b["refer_mel"]),
+        torch.Generator().manual_seed(18), 0.1)
+    dd = {k: v.cuda() for k, v in draws.items()}
+    runs = {}
+    for flash in (False, True):
+        model = AADiffusion(cfg.diffusion, flash=flash)
+        model.load_state_dict(base["diffusion"].state_dict())
+        model.cuda()
+        inner = steps.make_diffusion_loss(model, gd, frozen["gpt"],
+                                          frozen["vqvae"], 0.1)
+        loss_fn = lambda b, gen, f=inner: f(b, gen, draws=dd)
+        tr = Trainer(model, loss_fn, cfg.train, accum_steps=1)
+        st = tr.init_state()
+        for fn in fa.KERNELS:
+            fn.launches = 0
+        with torch.enable_grad():
+            loss_fn(batch, None)[0].backward()     # the step's gradients
+        grads = {n: (p.grad if p.grad is not None else
+                     torch.zeros_like(p)).detach().cpu()
+                 for n, p in st.params.items()}
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            st, metrics = tr.step(st, batch)
+        runs[flash] = dict(
+            grads=grads, k2=[fn.launches for fn in fa.KERNELS],
+            metrics={k: float(v) for k, v in metrics.items()},
+            params={k: v.detach().cpu() for k, v in st.params.items()})
+    check(runs[False]["k2"] == [0, 0, 0] and min(runs[True]["k2"]) > 0,
+          f"[ref] flash step K2 launches {runs[True]['k2']}, plain "
+          f"{runs[False]['k2']}")
+    line = hold_train_step(
+        torch, "[ref] diffusion flash=True", runs[False], runs[True], lr,
+        cfg.train.grad_clip,
+        lambda n, t: (slice(mb, None) if n.startswith("base_model.out.2.")
+                      else None))
+    log(f"[ref] small config, diffusion step through K2's backward (f32, UNet "
+        f"128 ch x 2 heads of 64, consumer attention {tq} | {tq + tr_len}, "
+        f"t {draws['t'].tolist()}): flash=True against flash=False on the "
+        f"card, K2 launches fwd / dkv / dq {runs[True]['k2']}: {line}")
+
+
 def _step_times(jsonl: Path, warm: int):
     """The per-step wall times the training CLI logs, after `warm` steps."""
     recs = [json.loads(x) for x in jsonl.read_text().splitlines()]
@@ -1991,9 +2264,10 @@ def train_phase(torch, np, launches, results, card):
             for tag, xx in (("vqvae", x_vq), ("gpt", x_gpt))]
     del dvae, frozen, x_vq, x_gpt
     torch.cuda.empty_cache()
-    rows += train_phase_new(torch, np, launches, card, dict(
-        root=root, runs=runs, cfg=cfg, entries=entries, common=common,
-        vq=vq_dir / "vqvae.pth", gpt=gpt_dir / "gpt.pth"))
+    ctx = dict(root=root, runs=runs, cfg=cfg, entries=entries, common=common,
+               vq=vq_dir / "vqvae.pth", gpt=gpt_dir / "gpt.pth")
+    rows += train_phase_new(torch, np, launches, card, ctx)
+    flash_train_run(torch, np, launches, card, ctx)
     results["vq_nearest"]["train"] = rows
     torch.cuda.empty_cache()
     return time.perf_counter() - t_phase
@@ -2259,6 +2533,141 @@ def train_phase_new(torch, np, launches, card, ctx):
     return k3_rows
 
 
+def flash_train_run(torch, np, launches, card, ctx):
+    """[train], K2's backward at the lengths the decoder renders: the
+    diffusion model fine-tuned through the objects the JAX API exposes
+    (DiffusionDataset(max_mel=1280, max_refer=300) over [train]'s 8-12 s
+    wavs, AADiffusion(bf16, flash=True), make_diffusion_loss, Trainer),
+    FLASH_STEPS steps at batch 8 on the vqvae / gpt exports; every step
+    launches K2's forward and both backward kernels once for each gated
+    consumer attention (counts and (Tq, Tk) printed). Then the same steps
+    on the same batches with flash=False (the einsum attention) from the
+    same weights. For both: step ms (median after FLASH_WARM), samples/s,
+    model FLOPs a step (FlopCounterMode, the frozen pass subtracted; K2's
+    launches are invisible to it, so 12 B H Tq Tk 64 is added for each
+    gated attention: forward 4, backward 8) and MFU, peak memory, the
+    losses."""
+    from xtts_tpu_torch.data.audio import load_wav
+    from xtts_tpu_torch.data.datasets import (DiffusionDataset, MelCache,
+                                              batch_iterator)
+    from xtts_tpu_torch.dsp.mel import MelFrontend
+    from xtts_tpu_torch.models import aa_diffusion as tad
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    from xtts_tpu_torch.train import cli, steps
+    from xtts_tpu_torch.train.trainer import Trainer
+
+    t_run = time.perf_counter()
+    cfg = ctx["cfg"]
+    dt = cli.train_dtype(cfg)
+    dcfg = (cfg.diffusion if cfg.train.remat == "none"
+            else cfg.diffusion.replace(remat=cfg.train.remat))
+    long = [e for e in ctx["entries"]
+            if 8.0 <= load_wav(e.wav_path, SR)[0].size / SR <= 12.0]
+    check(len(long) >= 4, f"[train] flash: {len(long)} wavs of 8-12 s")
+    ds = DiffusionDataset(long * 2, MelCache(MelFrontend(cfg.mel, "cuda"),
+                                             cfg.mel.sample_rate),
+                          StandInTokenizer(), max_mel=1280, max_refer=300,
+                          mel_hop=cfg.mel.hop_length, seed=21)
+    it = batch_iterator(ds, 8, cli.build_collate("diffusion", cfg), seed=21)
+    batches = [cli.to_device(cli.adapt_batch("diffusion", next(it)), "cuda")
+               for _ in range(FLASH_STEPS)]
+    g = torch.Generator("cuda").manual_seed(0)
+    gpt = cli._frozen("gpt", cfg, str(ctx["gpt"]), "cuda", g)
+    dvae = cli._frozen("vqvae", cfg, str(ctx["vq"]), "cuda", g)
+    gd = training_process(cfg)
+    base = tad.AADiffusion(dcfg, dt).cuda()
+    init_flax_like(base, torch.Generator("cuda").manual_seed(1))
+    weights = {k: v.clone() for k, v in base.state_dict().items()}
+    del base
+    shapes = []
+    plain_mha = tad.flash_mha
+
+    def recorded(q, k, v, scale):
+        shapes.append((q.shape[0], q.shape[1], k.shape[1]))
+        return plain_mha(q, k, v, scale)
+
+    stats = {}
+    tad.flash_mha = recorded
+    try:
+        for flash in (True, False):
+            model = tad.AADiffusion(dcfg, dt, flash=flash).cuda()
+            model.load_state_dict(weights)
+            loss_fn = steps.make_diffusion_loss(
+                model, gd, gpt, dvae, cfg.diffusion.unconditioned_percentage)
+            tr = Trainer(model, loss_fn, cfg.train, accum_steps=1)
+            st = tr.init_state()
+            gen = torch.Generator("cuda").manual_seed(2)
+            times, counts, losses = [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for b in batches:
+                launches.reset()
+                shapes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = tr.step(st, b, gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                d = launches.read()
+                k2 = (d["flash_mha"], d["flash_mha_bwd_dkv"],
+                      d["flash_mha_bwd_dq"])
+                gated = [sh for sh in shapes if fa.use_flash(*sh[1:])]
+                if flash:
+                    # remat recomputes the forward: K2's forward once or
+                    # twice a gated call, each backward kernel once
+                    n = len(gated) // (1 if dcfg.remat == "none" else 2)
+                    check(n > 0 and k2[1] == k2[2] == n and k2[0] >= n,
+                          f"[train] flash step: K2 {k2} for {n} gated "
+                          f"attentions {gated}")
+                else:
+                    check(k2 == (0, 0, 0), f"[train] flash=False step: K2 "
+                          f"{k2}")
+                counts.append((k2, sorted(set(gated))))
+                losses.append(float(m["loss"]))
+                check(math.isfinite(losses[-1]), f"[train] loss {losses}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            latent_of = steps.diffusion_latent_fn(gpt, dvae)
+            shapes.clear()
+            fl = counted_flops(torch, lambda: loss_fn(batches[0], gen)[0]
+                               .backward()) - counted_flops(
+                torch, lambda: latent_of(batches[0]))
+            model.zero_grad(set_to_none=True)
+            added = 0
+            if flash:
+                n = len(shapes) // (1 if dcfg.remat == "none" else 2)
+                added = sum(12 * b * 8 * q * k * 64 for b, q, k in
+                            shapes[:n] if fa.use_flash(q, k))
+            stats[flash] = dict(times=times, counts=counts, losses=losses,
+                                peak=peak, flops=fl + added, added=added)
+            del model, tr, st, loss_fn
+            torch.cuda.empty_cache()
+    finally:
+        tad.flash_mha = plain_mha
+    for flash in (True, False):
+        s_ = stats[flash]
+        med = statistics.median(s_["times"][FLASH_WARM:])
+        per = "; ".join(f"{k2[0]}/{k2[1]}/{k2[2]} at "
+                        f"{', '.join(f'{q} | {k}' for _, q, k in sh)}"
+                        for k2, sh in s_["counts"])
+        log(f"[train] diffusion flash={flash} (bf16, batch 8, crops 1280 | "
+            f"300 of {len(long)} wavs of 8-12 s): {FLASH_STEPS} steps, step "
+            f"{1e3 * med:.1f} ms median over steps {FLASH_WARM + 1}-"
+            f"{FLASH_STEPS} ("
+            + ", ".join(f"{1e3 * t:.1f}" for t in s_["times"]) +
+            f" ms), {8 / med:.2f} samples/s; model FLOPs "
+            f"{s_['flops'] / 1e12:.3f} TFLOP a step"
+            + (f" ({s_['added'] / 1e12:.3f} of them K2's, added)"
+               if flash else "")
+            + f", {100 * s_['flops'] / med / PEAK['bf16']:.2f}% of 989 "
+            f"TFLOP/s bf16; peak memory {s_['peak']:.2f} GiB; loss "
+            f"{', '.join(f'{x:.4f}' for x in s_['losses'])}"
+            + (f"; K2 fwd/dkv/dq a step at (Tq | Tk): {per}" if flash
+               else "") + f"  [{card}]")
+    log(f"[train] the flash comparison took {time.perf_counter() - t_run:.1f}"
+        f" s  [{card}]")
+
+
 def training_process(cfg):
     """The training process of cfg.diffusion_process."""
     from xtts_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
@@ -2271,23 +2680,28 @@ def training_process(cfg):
 class Launches:
     """The launch counters of every kernel wrapper, the step counters of the
     K1 and K4 chains, and, as "<kernel>+ln", the launches of a product with
-    the norm prologue (also counted in its kernel's total). Around one main
+    the norm prologue, as "flash_mha+f32" those of K2's f32 forward (both
+    also counted in their kernel's total). Around one main
     path every count is set to 0 before it (`reset`) and read after it."""
 
     def __init__(self, wrappers):
         self.wrappers = wrappers
         self.total = {name: 0 for name in self.read(add=False)}
 
+    VARIANTS = (("ln_launches", "+ln"), ("f32_launches", "+f32"))
+
     def reset(self):
         for fn in self.wrappers:
             fn.launches = 0
-            if hasattr(fn, "ln_launches"):
-                fn.ln_launches = 0
+            for attr, _ in self.VARIANTS:
+                if hasattr(fn, attr):
+                    setattr(fn, attr, 0)
 
     def read(self, add: bool = True):
         got = {fn.__name__: fn.launches for fn in self.wrappers}
-        got.update({fn.__name__ + "+ln": fn.ln_launches
-                    for fn in self.wrappers if hasattr(fn, "ln_launches")})
+        for attr, tag in self.VARIANTS:
+            got.update({fn.__name__ + tag: getattr(fn, attr)
+                        for fn in self.wrappers if hasattr(fn, attr)})
         if add:
             for k, v in got.items():
                 self.total[k] += v
@@ -3328,7 +3742,9 @@ TRACE_KERNELS = (
                        r"(?:\s*,\s*|ELb)(true|false|1|0)"),
     ("serving_attention", r"serving_attention_kernel()"),
     ("layer_norm_rows", r"layer_norm_rows_kernel()"),
-    ("flash_mha", r"flash_fwd_kernel()"),
+    ("flash_mha", r"flash_fwd_(?:tile_)?kernel()"),   # bf16 and f32
+    ("flash_mha_bwd_dkv", r"flash_bwd_dkv_kernel()"),
+    ("flash_mha_bwd_dq", r"flash_bwd_dq_kernel()"),
     ("vq_nearest", r"vq_merge_kernel()"),      # the last of its 3 launches
 )
 
@@ -3487,23 +3903,69 @@ def loop_phase(torch, dl, tts, cond_mel, text, launches, card):
 
 
 def consumer_attention_check(torch, fa, tts):
-    """The model's own consumer attn1 projections at bucket 320: the flash
-    kernel against plain attention on the same q/k/v."""
+    """The model's own consumer attn1 projections at bucket 320, in the
+    model's dtype: the flash kernel against plain attention on the same
+    q/k/v (bf16: K2_TOL; f32: K2_F32_TOL, each doubled after to_out)."""
     attn = tts.diffusion.base_model.blocks[1][1].transformer_blocks[0].attn1
     g = torch.Generator(device="cuda").manual_seed(5)
     xa = torch.randn(2, 1280 + 282, 512, generator=g,
-                     device="cuda").bfloat16()
+                     device="cuda").to(tts.dtype)
     q = attn.to_q(xa[:, :1280]).unflatten(-1, (8, 64))
     k = attn.to_k(xa).unflatten(-1, (8, 64))
     v = attn.to_v(xa).unflatten(-1, (8, 64))
     check(fa.use_flash(q.shape[1], k.shape[1]), "consumer gate closed")
+    check(q.dtype == tts.dtype, f"consumer q {q.dtype}")
     o_k = attn.to_out[0](fa.flash_mha(q, k, v, 0.125).flatten(-2))
     o_p = attn.to_out[0](fa.flash_mha_plain(q, k, v, 0.125).flatten(-2))
     err = max_err(o_k, o_p)
     scale = o_p.float().abs().max().item()
-    check(err <= 2 * K2_TOL * max(1.0, scale), f"consumer attn1 err {err}")
-    log(f"[k2] consumer attn1 (model weights, Tq 1280, Tk 1562): flash vs "
-        f"plain after to_out max_abs_err {err:.3e} (|out| max {scale:.3f})")
+    tol = K2_TOL if tts.dtype == torch.bfloat16 else K2_F32_TOL
+    check(err <= 2 * tol * max(1.0, scale), f"consumer attn1 err {err}")
+    log(f"[k2] consumer attn1 ({str(tts.dtype)[6:]} model weights, Tq 1280, "
+        f"Tk 1562): flash vs plain after to_out max_abs_err {err:.3e} "
+        f"(|out| max {scale:.3f}, bound {2 * tol} x max(1, |out|))")
+
+
+def p9_check(torch, np, cfg, text, cond_wav, launches, card):
+    """P9: TextToSpeech(XTTSConfig(), device="cuda") at its defaults (f32,
+    the full-precision AR) renders a request at code bucket 320 through
+    K2's f32 forward (flash_mha raised "takes bf16" there before): the
+    stop logit pinned low so the 300 codes run to the cap, the
+    speculative render at the cap's bucket; K2 launches all f32; the wav
+    finite; that model's consumer attention against f32 plain attention."""
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    from xtts_tpu_torch.nn import flash_attn as fa
+    t0 = time.perf_counter()
+    tts = TextToSpeech(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(7))
+    check(tts.dtype == torch.float32, f"default dtype {tts.dtype}")
+    with torch.no_grad():
+        tts.gpt.mel_head.bias[cfg.gpt.stop_mel_token] = -30.0
+        consumer_attention_check(torch, fa, tts)
+    init_s = time.perf_counter() - t0
+    cond_mel = tts.cond_mel_from_wav(cond_wav)
+    launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tts.tts_tokens(text, cond_mel,
+                         torch.Generator(device="cuda").manual_seed(1),
+                         TTSSettings(max_mel_tokens=300,
+                                     speculative_render=True))
+    latency = time.perf_counter() - t0
+    d = launches.read()
+    wav = out["wav"]
+    check(d["flash_mha"] >= 200 and d["flash_mha+f32"] == d["flash_mha"],
+          f"[p9] K2 launches {d['flash_mha']}, f32 {d['flash_mha+f32']}")
+    check(bool(np.isfinite(wav).all()) and wav.shape[1] > 0,
+          f"[p9] wav {wav.shape}")
+    log(f"[p9] TextToSpeech(XTTSConfig(), device='cuda') at its default "
+        f"f32: init {init_s:.1f} s; a speculative request at bucket 320 "
+        f"({out['steps']} AR steps, wav {wav.shape}, finite) in "
+        f"{latency:.3f} s (AR {out['ar_seconds']:.3f} s, render "
+        f"{out['render_seconds']:.3f} s); K2 {d['flash_mha']} launches, "
+        f"{d['flash_mha+f32']} of them f32  [{card}]")
+    del tts
+    torch.cuda.empty_cache()
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -4360,7 +4822,7 @@ def main() -> None:
     text_len, max_gen = 50, 300
     p_len = 1 + (text_len + 2) + 1            # cond + [start; text; stop] + start
     s_max = -(-(p_len + max_gen) // 8) * 8    # K1's cache (8-aligned)
-    launches = Launches(ds.KERNELS + (fa.flash_mha,) + vq.KERNELS
+    launches = Launches(ds.KERNELS + fa.KERNELS + vq.KERNELS
                         + ss.KERNELS + (ds.fused_decode_logits,
                                         ss.fused_serving_logits))
 
@@ -4371,12 +4833,15 @@ def main() -> None:
                            results, card)
         k1_int4_checks(torch, ds, qt, cfg.gpt, s_max, p_len, results, card)
         k2_checks(torch, fa, results, card)
+        k2_f32_checks(torch, fa, results, card)
+        k2_backward_checks(torch, fa, results, card)
         k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
                   results, card)
         del qt, st
     small_reference_check(torch, np, TextToSpeech, TTSSettings)
     train_reference_check(torch, np)
     train_reference_check_new(torch, np)
+    flash_train_reference_check(torch, np)
     perceiver_small_check(torch, np, TextToSpeech)
 
     # ---- 4. main path (B=1, K1 + K2) ----
@@ -4447,6 +4912,9 @@ def main() -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[main] peak device memory {peak:.2f} GiB [{card}]")
 
+    # ---- 4a. P9: the default f32 TextToSpeech through K2's f32 forward ----
+    p9_check(torch, np, cfg, text, cond_wav, launches, card)
+
     # ---- 4b. the AR loop's graphs against the same loop run eagerly ----
     with torch.no_grad():
         loop_phase(torch, dl, tts, cond_mel, text, launches, card)
@@ -4504,7 +4972,9 @@ def main() -> None:
           "int8_gemv+ln": "decode_step", "int4_gemv": "decode_step",
           "int4_gemv+ln": "decode_step",
           "decode_attention": "decode_step", "flash_mha": "flash_attn",
-          "vq_nearest": "vq", "int8_gemm_rows": "serving_step",
+          "flash_mha+f32": "flash_attn", "flash_mha_bwd_dkv": "flash_attn",
+          "flash_mha_bwd_dq": "flash_attn", "vq_nearest": "vq",
+          "int8_gemm_rows": "serving_step",
           "int8_gemm_rows+ln": "serving_step",
           "serving_attention": "serving_step"}
     kernels = []
@@ -4518,6 +4988,9 @@ def main() -> None:
                   f"path")
         replaces = (src[lib][1] if not name.startswith("int4_gemv")
                     else "xtts_tpu/ops/decode_step.py:157")
+        if name.startswith("flash_mha_bwd"):
+            replaces = ("xtts_tpu/nn/flash_attn.py:99 (the library's "
+                        "_flash_attention_bwd_" + name.split("_")[-1] + ")")
         kernels.append({"name": name, "route": "cuda",
                         "source": src[lib][0], "replaces": replaces,
                         "launches": launches.total[name], **r})

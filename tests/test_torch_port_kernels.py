@@ -25,8 +25,10 @@ and equal their int-index launches bit for bit. The AR loop's CUDA graphs
 K1-int4 and K4, greedy and sampled. The slot pool's (infer/slots.py) too,
 over both cache forms; its per-row draws in a graph equal eager ones, draw
 for draw, and one generator a row draws at one row what the single
-generator draws. K2 refuses inputs that require grad (it has no
-backward). The training path: K3 at the trainers' row counts, one
+generator draws. K2's backward kernels and f32 forward against the f32
+twins (tolerances at K2_BWD_TOL), deterministic, and on the UNet's
+training step against flash=False; P9 (the default f32 TextToSpeech at
+bucket 320). The training path: K3 at the trainers' row counts, one
 vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
 gradients rtol 1e-4 / atol 1e-6, EMA codebook 1e-5), and a checkpoint
 restored on the card bit for bit.
@@ -365,28 +367,205 @@ def test_flash_mha(cuda, b, tq, tk, h):
     assert (got.float() - want).abs().max().item() < 1e-2
 
 
-def test_flash_mha_refuses_inputs_that_require_grad(cuda):
-    """K2 has no backward: on inputs that require grad, with gradients
-    recorded, it raises instead of returning a detached output, and counts
-    no launch; the same inputs under no_grad launch it once and give what
-    inputs that require no grad give, bit for bit."""
+# K2's backward and f32 forward. Tolerances, against the f32 plain twins on
+# the same inputs: bf16 gradients within 1e-2 of the tensor's largest (the
+# kernels round P, dS and the result to bf16, three roundings of 2^-9
+# relative); f32 gradients within 1e-5 of it (f32 sums over up to 2698
+# terms in another order); the f32 forward within 5e-5 (exp2's argument
+# rounding, ~1e-6 relative, and sums in another order, sqrt(Tk) 2^-24,
+# on outputs up to max |v| ~ 4.5); lse within 1e-5.
+K2_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _k2_case(g, dtype, b, tq, tk, h):
+    q, k, v = (torch.randn(b, t, h, 64, generator=g, device="cuda").to(dtype)
+               for t in (tq, tk, tk))
+    do = torch.randn(b, tq, h, 64, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _k2_rel(got, want, floor):
+    return ((got.float() - want).abs().max()
+            / max(want.abs().max().item(), floor)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,tq,tk,h", [
+    (2, 1280, 1562, 8),        # the main bucket
+    (2, 2416, 2698, 8),        # the 604 cap bucket
+    (8, 1125, 1425, 8),        # a training step's shape
+    (1, 17, 70, 2),            # Tq below one tile
+    (2, 130, 150, 2), (1, 65, 129, 2), (3, 1, 700, 4), (1, 64, 2, 8),
+    (1, 1, 1, 1)])             # one key: dq = dk = 0 exactly
+def test_flash_mha_backward(cuda, dtype, b, tq, tk, h):
+    """The autograd Function on the card: the output has a grad_fn, the
+    backward launches flash_mha_bwd_dkv and flash_mha_bwd_dq once each,
+    and dq, dk, dv match the f32 plain backward (flash_mha_bwd_plain from
+    the f32 plain forward's o and lse) on the same inputs. Scales are
+    floored at 1e-3 of the largest of the three gradients (dq and dk are
+    0 in exact arithmetic at Tk = 1)."""
     from xtts_tpu_torch.nn import flash_attn as fa
-    q, k, v = (torch.randn(2, t, 8, 64, generator=cuda,
-                           device="cuda").bfloat16() for t in (1280, 1562,
-                                                               1562))
-    want = fa.flash_mha(q, k, v, 0.125)
-    fa.flash_mha.launches = 0
-    for leaf in ("q", "k", "v"):
-        qq, kk, vv = (t.clone().requires_grad_(name == leaf)
-                      for name, t in (("q", q), ("k", k), ("v", v)))
-        with pytest.raises(RuntimeError, match="no backward"):
-            fa.flash_mha(qq, kk, vv, 0.125)
-    assert fa.flash_mha.launches == 0
-    with torch.no_grad():
-        got = fa.flash_mha(q.clone().requires_grad_(), k, v, 0.125)
+    q, k, v, do = _k2_case(cuda, dtype, b, tq, tk, h)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    for fn in fa.KERNELS:
+        fn.launches = 0
+    out = fa.flash_mha(*leaves, 0.125)
+    assert out.grad_fn is not None and out.dtype == dtype
+    out.backward(do)
     torch.cuda.synchronize()
-    assert fa.flash_mha.launches == 1 and got.grad_fn is None
-    assert torch.equal(got, want)
+    assert [fn.launches for fn in fa.KERNELS] == [1, 1, 1]
+    o32, lse32 = fa.flash_mha_plain_lse(q.float(), k.float(), v.float(),
+                                        0.125)
+    want = fa.flash_mha_bwd_plain(q.float(), k.float(), v.float(), o32,
+                                  lse32, do.float(), 0.125)
+    floor = 1e-3 * max(w.abs().max().item() for w in want)
+    for leaf, w, name in zip(leaves, want, "qkv"):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+        assert torch.isfinite(leaf.grad).all()
+        err = _k2_rel(leaf.grad, w, floor)
+        assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mha_backward_is_deterministic(cuda, dtype):
+    """No atomics: two backward passes give the same bits."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v, do = _k2_case(cuda, dtype, 2, 1280, 1562, 8)
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    a = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+    b = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_mha_backward_copies_a_gradient_it_cannot_read(cuda):
+    """An output gradient the kernels cannot read as it is (out.sum()'s
+    expanded ones, stride 0 on the head dim) is copied contiguous once,
+    counted in flash_mha_bwd.copies, and gives the gradients of the same
+    values passed contiguous."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v, _ = _k2_case(cuda, torch.bfloat16, 1, 130, 150, 2)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_mha_bwd.copies = 0
+    fa.flash_mha(*a, 0.125).sum().backward()
+    assert fa.flash_mha_bwd.copies == 1
+    fa.flash_mha(*b, 0.125).backward(torch.ones(1, 130, 2, 64,
+                                                dtype=torch.bfloat16,
+                                                device="cuda"))
+    torch.cuda.synchronize()
+    assert fa.flash_mha_bwd.copies == 1
+    assert all(torch.equal(x.grad, y.grad) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,tq,tk,h", [(2, 1280, 1562, 8), (1, 65, 129, 2),
+                                       (3, 17, 700, 4), (1, 1, 1, 1)])
+def test_flash_mha_lse_and_f32_forward(cuda, dtype, b, tq, tk, h):
+    """The forward's lse against the twin's; the output identical bit for
+    bit with and without lse; the f32 forward against f32 plain
+    attention."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v, _ = _k2_case(cuda, dtype, b, tq, tk, h)
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    o2, none = fa._flash_fwd_cuda(q, k, v, 0.125, False)
+    o32, lse32 = fa.flash_mha_plain_lse(q.float(), k.float(), v.float(),
+                                        0.125)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(o, o2)
+    torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-5)
+    bound = 5e-5 if dtype == torch.float32 else 1e-2
+    assert (o.float() - o32).abs().max().item() <= bound
+
+
+def _p9_config():
+    """A small configuration whose UNet heads are 64 wide (the kernel's
+    head width) and whose GPT reaches code bucket 320."""
+    from xtts_tpu_torch.core.config import (CLIPRefConfig, DVAEConfig,
+                                            DiffusionModelConfig, GPTConfig,
+                                            MelConfig, VocosConfig,
+                                            XTTSConfig)
+    mb = 8
+    return XTTSConfig(
+        mel=MelConfig(n_mels=mb),
+        vqvae=DVAEConfig(channels=mb, num_tokens=30, hidden_dim=16,
+                         num_resnet_blocks=1, codebook_dim=16, num_layers=2),
+        gpt=GPTConfig(layers=2, model_dim=128, heads=2, max_mel_tokens=604,
+                      max_text_tokens=64, number_mel_codes=200,
+                      start_mel_token=198, stop_mel_token=199, mel_bins=mb,
+                      cond_attn_blocks=1),
+        diffusion=DiffusionModelConfig(
+            in_channels=mb, out_channels=2 * mb, model_channels=128,
+            num_res_blocks=1, channel_mult=(1,), num_heads=2, context_dim=32,
+            in_latent_channels=128,
+            clip=CLIPRefConfig(embed_dim=32, width=32, layers=1,
+                               head_width=16, patch_size=4, in_channels=mb,
+                               max_patches=128)),
+        vocos=VocosConfig(input_channels=mb, dim=32, intermediate_dim=64,
+                          num_layers=1, n_fft=64, hop_length=16))
+
+
+def test_default_f32_tts_renders_bucket_320_through_k2(cuda):
+    """P9: TextToSpeech(device="cuda") at its default f32 renders a request
+    at code bucket 320 through K2's f32 forward (flash_mha raised
+    "takes bf16" there before)."""
+    import numpy as np
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    from xtts_tpu_torch.nn import flash_attn as fa
+    tts = TextToSpeech(_p9_config(), device="cuda")
+    assert tts.dtype == torch.float32
+    rng = np.random.default_rng(0)
+    cond = torch.from_numpy(rng.standard_normal((1, 8, 282)).astype(
+        np.float32)).cuda()
+    text = rng.integers(3, 200, (1, 20)).astype(np.int32)
+    fa.flash_mha.launches = 0
+    out = tts.tts_tokens(text, cond, torch.Generator("cuda").manual_seed(1),
+                         TTSSettings(max_mel_tokens=300,
+                                     speculative_render=True))
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches > 0
+    assert np.isfinite(out["wav"]).all() and out["wav"].shape[-1] > 0
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_flash_unet_training_step_matches_plain(cuda, remat):
+    """One f32 training forward and backward of the UNet at 600 | 900
+    (consumer attention through the Function: K2's f32 forward and both
+    backward kernels; under torch.utils.checkpoint with remat "full")
+    against the same weights with flash=False: the gradients within rtol
+    1e-3 / atol 1e-4 (the diffusion tolerances of the CPU parity
+    tests)."""
+    from xtts_tpu_torch.models.aa_diffusion import AADiffusion
+    from xtts_tpu_torch.nn import flash_attn as fa
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    cfg = _p9_config().diffusion.replace(remat=remat)
+    g = torch.Generator("cuda").manual_seed(3)
+    plain = AADiffusion(cfg).cuda()
+    with torch.no_grad():
+        init_flax_like(plain, g)
+        for p in plain.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device="cuda"))
+    flash = AADiffusion(cfg, flash=True).cuda()
+    flash.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 8, 600, generator=g, device="cuda")
+    hint = torch.randn(2, 128, 150, generator=g, device="cuda")
+    refer = torch.randn(2, 8, 300, generator=g, device="cuda")
+    t = torch.tensor([100, 700], device="cuda")
+    patch_rand = torch.randn(2, 300 // 4, generator=g, device="cuda")
+    for fn in fa.KERNELS:
+        fn.launches = 0
+    for m in (plain, flash):
+        out = m(x, t, hint, refer, uncond_mask=torch.tensor(
+            [False, True], device="cuda"), train=True, patch_rand=patch_rand)
+        out.float().pow(2).mean().backward()
+    torch.cuda.synchronize()
+    assert all(fn.launches > 0 for fn in fa.KERNELS)
+    for (n, a), b in zip(flash.named_parameters(), plain.parameters()):
+        if b.grad is None:
+            assert a.grad is None, n
+            continue
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-3, atol=1e-4,
+                                   msg=n)
 
 
 def test_flash_mha_reads_strided_views(cuda):
@@ -821,8 +1000,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 64, 2, 32, device="cuda").bfloat16()
     with pytest.raises(ValueError):
         fa.flash_mha(q, q, q, 0.1)                     # head dim 32
-    q64 = torch.randn(1, 64, 2, 64, device="cuda")
-    with pytest.raises(ValueError):                    # f32
+    q64 = torch.randn(1, 64, 2, 64, device="cuda").half()
+    with pytest.raises(ValueError):                    # f16
         fa.flash_mha(q64, q64, q64, 0.1)
     w = torch.zeros(64, 48, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):                    # N not a multiple of 32

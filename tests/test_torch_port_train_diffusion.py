@@ -5,8 +5,11 @@ sampler, PatchDropout's selection, and the whole diffusion loss
 (train/steps.py make_diffusion_loss: the frozen DVAE's codes, the frozen
 GPT's latents, the uncond-hint substitution, PatchDropout and the vb term)
 with its gradients against jax.grad's, the draws fixed on both sides.
-Also P7: no training forward of the port reaches flash_mha (K2 has no
-backward), while the serving model's does at the same shapes.
+Also P7: no training forward of the CLI's model (flash=False, as JAX's
+trainers) reaches flash_mha, while the serving model's does at the same
+shapes; and the whole loss with flash=True, through K2's forward and
+backward (the autograd Function's CPU twins), against JAX's flash=True
+loss at 600 | 900 (rtol 1e-3 / atol 1e-4).
 
 Tolerances: schedules within 1e-12 relative (float64 on both sides, the
 cosine through libm); training_losses' loss, mse and vb within 1e-4
@@ -385,3 +388,139 @@ def test_training_forward_never_reaches_k2(monkeypatch):
     with torch.no_grad():
         serving(x, t, hint, refer)
     assert calls[0] == 1      # the consumer attn1 of its one transformer
+
+
+# ---------------------------------------------------------------------------
+# The slice as a whole: the diffusion loss with flash=True, through K2's
+# forward and backward, at Tq * Tk >= 2^19
+
+
+T_LONG, R_LONG = 600, 300       # the consumer attention: 600 | 900
+GPT_LONG = GPT_CFG.replace(max_mel_tokens=160)         # 150 codes
+DIFF_LONG = DIFF_CFG.replace(clip=DIFF_CFG.clip.replace(max_patches=128))
+
+
+@pytest.fixture(scope="module")
+def flash_case():
+    """JAX's make_diffusion_loss over AADiffusion(flash=True) at 600 | 900,
+    its flash_mha run as JAX's own tests run it on the CPU (the reference
+    core behind its padding, segment mask and slice), the draws fixed; the
+    loss, aux and gradients once, for the port's cases to compare with."""
+    rng = np.random.default_rng(11)
+    jd = jad.AADiffusion(DIFF_LONG, flash=True)
+    dparams = fill(_shapes(jd, jnp.zeros((1, MB, 16)), jnp.array([0]),
+                           jnp.zeros((1, 32, 4)),
+                           jnp.zeros((1, MB, 16)))["params"], rng)
+    jgm = jgpt.UnifiedVoice(GPT_LONG)
+    gparams = fill(_shapes(jgm, jnp.zeros((1, MB, 16)),
+                           jnp.zeros((1, 8), jnp.int32), jnp.array([8]),
+                           jnp.zeros((1, 4), jnp.int32),
+                           jnp.array([4096]))["params"], rng)
+    jdm = jdv.DVAE(DVAE_CFG)
+    vshapes = _shapes(jdm, jnp.zeros((1, MB, 32)))
+    vvars = {"params": fill(vshapes["params"], rng),
+             "codebook": {k: rng.standard_normal(v.shape).astype(np.float32)
+                          for k, v in vshapes["codebook"].items()}}
+    batch = {
+        "mel": rng.standard_normal((2, MB, T_LONG)).astype(np.float32),
+        "refer_mel": rng.standard_normal((2, MB, R_LONG)).astype(np.float32),
+        "text": rng.integers(1, 14, (2, 7)).astype(np.int32),
+        "text_lengths": np.array([7, 5], np.int32),
+        "wav_lengths": np.array([T_LONG, 520], np.int32) * 256}
+    draws = {"t": np.array([412, 977], np.int32),
+             "uncond": np.array([False, True]),
+             "noise": rng.standard_normal((2, MB, T_LONG)).astype(np.float32),
+             "patch_rand": rng.standard_normal(
+                 (2, R_LONG // DIFF_CFG.clip.patch_size)).astype(np.float32)}
+    u = np.where(draws["uncond"], 0.05, 0.5).astype(np.float32)
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        for k in ("noise", "patch_rand"):
+            if tuple(shape) == draws[k].shape:
+                return jnp.asarray(draws[k])
+        raise AssertionError(f"unexpected normal draw {shape}")
+
+    from xtts_tpu.nn import flash_attn as jfa
+    ref_core = jfa.flash_mha
+    calls = [0]
+
+    def flash_ref(*a, **k):
+        calls[0] += 1
+        return ref_core(*a, core="reference", **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "normal", normal)
+        mp.setattr(jax.random, "randint", lambda key, shape, lo, hi, *a, **k:
+                   jnp.asarray(draws["t"]))
+        mp.setattr(jax.random, "uniform",
+                   lambda key, shape=(), *a, **k: jnp.asarray(u))
+        mp.setattr(jfa, "flash_available", lambda: True)
+        mp.setattr(jfa, "flash_mha", flash_ref)
+        jgd = jg.GaussianDiffusion(betas=jg.get_named_beta_schedule(
+            "linear", 1000))
+        jloss = jsteps.make_diffusion_loss(jd, jgd, jgm, {"params": gparams},
+                                           jdm, vvars, 0.1)
+        (jl, jaux), jgrad = jax.jit(jax.value_and_grad(
+            lambda p, b: jloss(p, {}, b, jax.random.PRNGKey(0)),
+            has_aux=True))(dparams, batch)
+    assert calls[0] >= 1           # JAX's consumer attention took the gate
+    td_cfg = tcfg.DiffusionModelConfig.from_dict(DIFF_LONG.to_dict())
+    tgm = tgpt.UnifiedVoice(tcfg.GPTConfig.from_dict(GPT_LONG.to_dict()))
+    tgm.load_state_dict(convert.to_torch(convert.unified_voice_from_jax(
+        {"params": gparams}, GPT_LONG.layers, GPT_LONG.cond_attn_blocks),
+        "cpu"))
+    tdm = tdv.DVAE(tcfg.DVAEConfig.from_dict(DVAE_CFG.to_dict()))
+    tdm.load_state_dict(convert.to_torch(convert.dvae_from_jax(
+        vvars, DVAE_CFG.num_layers, DVAE_CFG.num_resnet_blocks), "cpu"))
+    sd = convert.to_torch(convert.aa_diffusion_from_jax(
+        {"params": dparams}, td_cfg), "cpu")
+    return dict(jl=float(jl), jaux={k: float(jaux[k]) for k in ("mse", "vb")},
+                want=convert.aa_diffusion_from_jax(
+                    {"params": jax.tree_util.tree_map(np.asarray, jgrad)},
+                    td_cfg),
+                cfg=td_cfg, sd=sd, tgm=tgm.eval(), tdm=tdm.eval(),
+                batch=batch, draws=draws)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_flash_diffusion_loss_and_grads_match_jax(flash_case, monkeypatch,
+                                                  remat):
+    """make_diffusion_loss over the port's AADiffusion(flash=True) at
+    600 | 900 (each consumer attention through flash_mha's autograd
+    Function: the twins with lse on the CPU), against JAX's flash=True loss
+    and jax.grad at the diffusion tolerances, rtol 1e-3 / atol 1e-4; once
+    with remat="full" (the Function under torch.utils.checkpoint)."""
+    c = flash_case
+    calls = [0]
+    inner = tad.flash_mha
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    monkeypatch.setattr(tad, "flash_mha", counted)
+    td = tad.AADiffusion(c["cfg"].replace(remat=remat), flash=True)
+    td.load_state_dict(c["sd"])
+    tgd = tg.GaussianDiffusion(betas=tg.get_named_beta_schedule("linear",
+                                                                1000))
+    tloss = tsteps.make_diffusion_loss(td, tgd, c["tgm"], c["tdm"], 0.1)
+    tb = {k: torch.from_numpy(v).long() if v.dtype == np.int32
+          else torch.from_numpy(v) for k, v in c["batch"].items()}
+    d = c["draws"]
+    draws = {"t": torch.from_numpy(d["t"]).long(), "w": torch.ones(2),
+             "uncond": torch.from_numpy(d["uncond"]),
+             "noise": torch.from_numpy(d["noise"]),
+             "patch_rand": torch.from_numpy(d["patch_rand"])}
+    tl, taux = tloss(tb, None, draws=draws)
+    tl.backward()
+    assert calls[0] >= 1
+    tol = dict(rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(float(tl.detach()), c["jl"], **tol)
+    for k in ("mse", "vb"):
+        np.testing.assert_allclose(float(taux[k]), c["jaux"][k], **tol,
+                                   err_msg=k)
+    for n, p in td.named_parameters():
+        g = (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+        np.testing.assert_allclose(g, c["want"][n], **tol, err_msg=n)
+    attn = td.base_model.blocks[1][1].transformer_blocks[0].attn1
+    assert float(attn.to_q.weight.grad.abs().sum()) > 0

@@ -209,7 +209,7 @@ class TextToSpeech:
         self.mel = MelFrontend(cfg.mel, self.device)
         self.gpt = UnifiedVoice(cfg.gpt, dtype).to(self.device).eval()
         self.dvae = DVAE(cfg.vqvae, dtype).to(self.device).eval()
-        # K2 in the consumer attention (serving only: it has no backward)
+        # K2 in the consumer attention (JAX's serving switch)
         self.diffusion = AADiffusion(cfg.diffusion, dtype,
                                      flash=True).to(self.device).eval()
         self.vocos = Vocos(cfg.vocos, dtype).to(self.device).eval()

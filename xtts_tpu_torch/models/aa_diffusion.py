@@ -14,11 +14,11 @@ transformer blocks; the ReferenceNet features are (B, Tr, C) as in JAX.
 
 `flash` (JAX's switch, default False): a self-attention with Tq * Tk >=
 2^19 then runs kernel K2 (nn/flash_attn.py) for CUDA tensors; on the main
-path that is the consumer attn1 over [x ; refer]. The serving API builds
-the model with flash=True; the trainers keep the default, as JAX's do: K2
-has no backward. `forward` is the reference's training forward (JAX's
-__call__): the uncond-hint substitution and, under `train`, the CLIP
-encoder's PatchDropout.
+path that is the consumer attn1 over [x ; refer], differentiable (K2's
+backward kernels). The serving API builds the model with flash=True; the
+trainers keep the default, as JAX's do. `forward` is the reference's
+training forward (JAX's __call__): the uncond-hint substitution and,
+under `train`, the CLIP encoder's PatchDropout.
 """
 from __future__ import annotations
 

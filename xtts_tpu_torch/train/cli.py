@@ -236,7 +236,7 @@ def build_loss(model: str, cfg: XTTSConfig, args, device="cuda"):
         if cfg.train.remat != "none":
             cfg = cfg.replace(
                 diffusion=cfg.diffusion.replace(remat=cfg.train.remat))
-        # flash=False (the default): K2 has no backward
+        # flash=False (the default), as JAX's trainers keep it
         diff = load_model("diffusion", cfg, dtype=dt, device=device,
                           generator=g)
         gpt = _frozen("gpt", cfg, args.gpt_weights, device, g)
