@@ -43,7 +43,8 @@ Phases, each reported on its own lines:
      and flash_mha_bwd_dq against the f32 plain backward at the main
      bucket, the cap bucket and a [train] flash step's (8, 1200 | 1600),
      bf16, and at the main bucket in f32, each twice to the same bits,
-     beside SDPA's backward); K3 (vq_nearest on the DVAE's own 3008 x 512
+     beside SDPA's backward; each kernel's TFLOP/s, share of its bound,
+     registers and local memory, none in bf16); K3 (vq_nearest on the DVAE's own 3008 x 512
      logits against its 8192-code codebook, a ragged shape and a planted
      tie, also on 4 rotating copies of rows and codebook); K4
      (int8_gemm_rows (split over K across a cluster),
@@ -995,11 +996,14 @@ def k2_backward_checks(torch, fa, results, card):
     flash_mha_bwd_dkv and flash_mha_bwd_dq, of the whole backward (D =
     rowsum(dO * O) included), of the plain backward; SDPA's backward
     (forward + backward with grad, less the forward); the bounds (dkv: 4
-    products, dq: 3, the backward: 5, 2 B H Tq Tk 64 operations each).
+    products, dq: 3, the backward: 5, 2 B H Tq Tk 64 operations each), and
+    for each kernel its TFLOP/s and share of its bound by device time and
+    its registers and local-memory bytes a thread (local memory: spills).
     Two backward passes give the same bits."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(97)
     kinds = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    attrs = fa.bwd_kernel_attrs()
     shapes = [(2, 1280, 1562, torch.bfloat16),
               (2, 2416, 2698, torch.bfloat16),
               (*K2_TRAIN_SHAPE, torch.bfloat16),
@@ -1072,6 +1076,17 @@ def k2_backward_checks(torch, fa, results, card):
             f"device {fmt_us(d_sb)} ({fmt_us(d_sfb)} less {fmt_us(d_sf)}); "
             f"kernels' device {fmt_us(d_dkv + d_dq)} against sdpa's "
             f"{fmt_us(d_sb)}  [{card}]")
+        for name, d, n, bn in (("flash_mha_bwd_dkv", d_dkv, 4, b_dkv),
+                               ("flash_mha_bwd_dq", d_dq, 3, b_dq)):
+            regs, local = attrs[(name, kind)]
+            log(f"[k2] {name} {kind} (B {b}, Tq {tq}, Tk {tk}): "
+                f"{n * unit / (d * 1e-6) / 1e12:.1f} TFLOP/s of its {n} "
+                f"products by device time, {bn[0] * 1e3 / d:.3f} of its "
+                f"bound ({bn[1]}); {regs} registers and {local} bytes of "
+                f"local memory a thread  [{card}]")
+            if kind == "bf16":
+                check(local == 0, f"{name} bf16 spills: {local} bytes of "
+                      f"local memory a thread")
         if (tq, dt) == (1280, torch.bfloat16):
             for name, t, d, bn in (("flash_mha_bwd_dkv", t_dkv, d_dkv, b_dkv),
                                    ("flash_mha_bwd_dq", t_dq, d_dq, b_dq)):
@@ -3743,8 +3758,8 @@ TRACE_KERNELS = (
     ("serving_attention", r"serving_attention_kernel()"),
     ("layer_norm_rows", r"layer_norm_rows_kernel()"),
     ("flash_mha", r"flash_fwd_(?:tile_)?kernel()"),   # bf16 and f32
-    ("flash_mha_bwd_dkv", r"flash_bwd_dkv_kernel()"),
-    ("flash_mha_bwd_dq", r"flash_bwd_dq_kernel()"),
+    ("flash_mha_bwd_dkv", r"flash_bwd_dkv_(?:tile_)?kernel()"),
+    ("flash_mha_bwd_dq", r"flash_bwd_dq_(?:tile_)?kernel()"),
     ("vq_nearest", r"vq_merge_kernel()"),      # the last of its 3 launches
 )
 

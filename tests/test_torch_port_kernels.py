@@ -26,7 +26,9 @@ K1-int4 and K4, greedy and sampled. The slot pool's (infer/slots.py) too,
 over both cache forms; its per-row draws in a graph equal eager ones, draw
 for draw, and one generator a row draws at one row what the single
 generator draws. K2's backward kernels and f32 forward against the f32
-twins (tolerances at K2_BWD_TOL), deterministic, and on the UNet's
+twins (tolerances at K2_BWD_TOL), deterministic, on strided head-split
+views, where the ring wraps with ragged edges and on planted rows of
+large lse; the bf16 backward kernels spill nothing; K2 on the UNet's
 training step against flash=False; P9 (the default f32 TextToSpeech at
 bucket 320). The training path: K3 at the trainers' row counts, one
 vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
@@ -456,6 +458,113 @@ def test_flash_mha_backward_copies_a_gradient_it_cannot_read(cuda):
     torch.cuda.synchronize()
     assert fa.flash_mha_bwd.copies == 1
     assert all(torch.equal(x.grad, y.grad) for x, y in zip(a, b))
+
+
+def _k2_bwd_against_twin(q, k, v, do, dtype, got):
+    """Each of got = (dq, dk, dv) within K2_BWD_TOL of the f32 plain
+    backward (from the f32 plain forward's o and lse) on the same inputs,
+    relative to its largest element (floored as in
+    test_flash_mha_backward)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    qf, kf, vf = (t.detach().float().contiguous() for t in (q, k, v))
+    o32, lse32 = fa.flash_mha_plain_lse(qf, kf, vf, 0.125)
+    want = fa.flash_mha_bwd_plain(qf, kf, vf, o32, lse32, do.float(), 0.125)
+    floor = 1e-3 * max(w.abs().max().item() for w in want)
+    for x, w, name in zip(got, want, "qkv"):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.isfinite(x).all(), name
+        err = _k2_rel(x, w, floor)
+        assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mha_backward_reads_strided_views(cuda, dtype):
+    """The backward through autograd on q, k and v as head-split views of
+    one fused (B, T, 3 x 512) projection (row stride 1536 elements, q cut
+    to 600 of 700 rows), dO contiguous: the fused leaf's gradient, read
+    back per head, against the f32 twin on contiguous copies."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, t, tq = 2, 700, 600
+    qkv = torch.randn(b, t, 3 * 512, generator=cuda,
+                      device="cuda").to(dtype).requires_grad_()
+    q, k, v = (x.unflatten(-1, (8, 64)) for x in qkv.split(512, dim=-1))
+    q = q[:, :tq]
+    assert not q.is_contiguous() and q.stride(1) == 3 * 512
+    do = torch.randn(b, tq, 8, 64, generator=cuda, device="cuda").to(dtype)
+    for fn in fa.KERNELS:
+        fn.launches = 0
+    fa.flash_mha_bwd.copies = 0
+    fa.flash_mha(q, k, v, 0.125).backward(do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fa.KERNELS] == [1, 1, 1]
+    assert fa.flash_mha_bwd.copies == 0             # dO is read as it is
+    grads = qkv.grad.unflatten(-1, (3, 8, 64))
+    assert (grads[:, tq:, 0] == 0).all()
+    _k2_bwd_against_twin(q, k, v, do, dtype,
+                         (grads[:, :tq, 0], grads[:, :, 1], grads[:, :, 2]))
+
+
+@pytest.mark.parametrize("tk", [319, 320, 321])
+@pytest.mark.parametrize("tq", [191, 192, 193])
+def test_flash_mha_backward_wraps_the_ring(cuda, tq, tk):
+    """bf16, Tq and Tk of 64n - 1, 64n and 64n + 1 (n 3 and 5): the
+    streamed tiles wrap the ring several times, with a ragged last tile,
+    a whole one, or a tile of one row on either side."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v, do = _k2_case(cuda, torch.bfloat16, 1, tq, tk, 2)
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    fa.flash_mha_bwd_dkv.launches = fa.flash_mha_bwd_dq.launches = 0
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_bwd_dkv.launches == fa.flash_mha_bwd_dq.launches == 1
+    _k2_bwd_against_twin(q, k, v, do, torch.bfloat16, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rising", [True, False])
+def test_flash_mha_backward_rescales_across_tiles(cuda, rising, dtype):
+    """test_flash_mha_rescales_across_tiles' planted rows through the
+    backward: scores that jump by > 20 across the 64-key tiles (rising or
+    falling), so the planted rows' lse is large and P spans many orders of
+    magnitude within a row. Held against the twin on the kernels' own
+    inputs (o, lse of the forward), which rounds P and dS to the inputs'
+    dtype as the kernels do: at these rows the rounding alone moves bf16
+    dq by up to ~1.1e-2 of its largest element from the f32 twin (the
+    rows of dS sum to 0, but their rounding errors do not, and K carries
+    a common offset of up to 1.9 a dimension)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, tq, tk, h = 1, 130, 700, 2
+    q = torch.randn(b, tq, h, 64, generator=cuda, device="cuda") * 0.3
+    k = torch.randn(b, tk, h, 64, generator=cuda, device="cuda") * 0.3
+    v = torch.randn(b, tk, h, 64, generator=cuda, device="cuda")
+    do = torch.randn(b, tq, h, 64, generator=cuda, device="cuda")
+    tile = torch.arange(tk, device="cuda") // 64
+    step = tile if rising else tile.max() - tile
+    q[:, :3] = 1.0                                   # planted query rows
+    k += (1.5 * step.float())[None, :, None, None] / 8.0
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    sim = torch.einsum("bihd,bjhd->bhij", q.float(), k.float())[0, 0, 0]
+    assert (sim.reshape(-1)[-1] - sim[0]).abs() > 20   # scores really jump
+    assert lse[0, 0, :3].abs().min() > 10               # and lse with them
+    want = fa.flash_mha_bwd_plain(q, k, v, o, lse, do, 0.125)
+    floor = 1e-3 * max(w.float().abs().max().item() for w in want)
+    for x, w, name in zip(got, want, "qkv"):
+        assert x.dtype == dtype and torch.isfinite(x).all(), name
+        err = _k2_rel(x, w.float(), floor)
+        assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+def test_flash_mha_backward_kernels_do_not_spill(cuda):
+    """The bf16 backward kernels hold their four (dkv) or three (dq)
+    accumulators and A operands in registers: no local memory."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    attrs = fa.bwd_kernel_attrs()
+    for name in ("flash_mha_bwd_dkv", "flash_mha_bwd_dq"):
+        regs, local = attrs[(name, "bf16")]
+        assert 0 < regs <= 255 and local == 0, (name, regs, local)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -8,7 +8,7 @@
 // serving path: q (2, 1280, 8, 64), k/v (2, 1562, 8, 64) at code bucket 320
 // — 4 x 50 forward calls a request, bf16 or f32 (TextToSpeech's default).
 //
-// Four kernels, each generic in where the (B, T, H, 64) views' strides put
+// Six kernels, each generic in where the (B, T, H, 64) views' strides put
 // their rows (the projections' head-split views arrive as they are):
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
@@ -57,30 +57,42 @@
 // in the order of the sums. Bound: 4 B H Tq Tk 64 operations at the 67
 // TFLOP/s of f32 outside the tensor cores (0.12 ms at the main shape).
 //
-// flash_bwd_dkv_kernel<T> (counterpart of _flash_attention_bwd_dkv) and
-// flash_bwd_dq_kernel<T> (of _flash_attention_bwd_dq), T bf16 or float
-// from one source. Bound: the backward's five products, 10 B H Tq Tk 64 =
-// 20.5 GFLOP at the main shape (20.7 us at 989 TFLOP/s bf16; f32 at 67
-// TFLOP/s), against ~10 MB of q/k/v/o/dO/dq/dk/dv. D = rowsum(dO * O) in
-// f32 comes in from the caller (torch ops, as JAX computes it in XLA
+// The backward: flash_bwd_dkv_kernel (bf16) and flash_bwd_dkv_tile_kernel
+// <float> are the counterparts of _flash_attention_bwd_dkv,
+// flash_bwd_dq_kernel and flash_bwd_dq_tile_kernel<float> of
+// _flash_attention_bwd_dq. Bound: the backward's five products, 10 B H Tq
+// Tk 64 = 20.5 GFLOP at the main shape (20.7 us at 989 TFLOP/s bf16; f32
+// at 67 TFLOP/s), against ~10 MB of q/k/v/o/dO/dq/dk/dv. D = rowsum(dO *
+// O) in f32 comes in from the caller (torch ops, as JAX computes it in XLA
 // outside its kernels); lse (natural log) from the forward.
 // - dkv: one 128-thread block for each (64-key tile, head, batch row). K
 //   and V stay in shared memory; the block loops over the 64-query tiles:
 //   S^T = K Q^T and dP^T = V dO^T (keys are the accumulator rows), then
-//   P^T = exp2(S^T scale log2 e - lse) (0 past Tk; the rows past Tq load
-//   lse = +inf and D = 0, so their P and dS are exactly 0: no 0 * NaN),
-//   dS^T = P^T (dP^T - D) scale, P^T and dS^T rounded to T into shared
-//   memory, dV += P^T dO and dK += dS^T Q in f32 registers; stored once.
+//   P^T = exp2(S^T scale log2 e - lse) (the columns past Tq take lse =
+//   +inf and D = 0, so their P and dS are exactly 0: no 0 * NaN),
+//   dS^T = P^T (dP^T - D) scale, P^T and dS^T rounded to the inputs'
+//   dtype, dV += P^T dO and dK += dS^T Q in f32 registers; stored once.
 // - dq: one block for each (64-query tile, head, batch row), looping over
-//   the key tiles: S, dP, P and dS as above with queries as rows, dS
-//   rounded to T, dQ += dS K.
+//   the key tiles: S, dP, P (0 past Tk) and dS as above with queries as
+//   rows, dS rounded, dQ += dS K.
 // - No atomics: each block owns its output rows, so the gradients are the
 //   same from run to run, as the Pallas kernels' are.
-// - Products on tile_mma<T>: for bf16 mma.sync m16n8k16 (f32 accumulate)
-//   on fragments read from padded row-major tiles (72-element rows: the
-//   quads' reads fall in distinct banks); for f32, FMA on the same
-//   accumulator layout. The simple design first: synchronous 16-byte tile
-//   loads, no ring, the P / dS tiles through shared memory.
+// - bf16 (the forward's parts): the block's fixed pair of tiles (K, V for
+//   dkv; Q, dO for dq) is copied once into swizzled shared memory; the
+//   streamed pair (Q, dO; K, V) runs through a BWD_STAGES-deep cp.async
+//   ring, zero-filled past the ragged edge, one __syncthreads a tile.
+//   dkv streams each query tile's 64 lse and D values beside it (its
+//   columns are queries: a thread reads its 16 columns' values as 8
+//   float2 pairs); dq keeps its two rows' in registers. Every product is
+//   wgmma m64n64k16 with an f32 accumulator in registers: S (S^T) and dP
+//   (dP^T) wgmma_ss with both tiles K-major, as S in the forward, each its
+//   own commit group, so P is computed while dP runs; dV += P^T dO, dK +=
+//   dS^T Q and dQ += dS K wgmma_rs, P^T / dS^T / dS rounded to bf16 in
+//   registers as the A operand (as P in the forward) and dO / Q / K read
+//   MN-major (as V). In dkv the dV product runs while dS^T is computed.
+//   No tile of P or dS touches shared memory.
+// - f32: FMA on the same accumulator layout (tile_mma<float>), no TF32,
+//   synchronous tile loads, P / dS tiles through shared memory.
 //
 // C interface (ctypes): returns cudaGetLastError().
 
@@ -102,6 +114,7 @@ constexpr int TILE_BYTES = 64 * 128;    // 64 rows x 64 bf16
 constexpr int STAGES = 2;               // K/V ring depth
 constexpr int SMEM_BYTES = (1 + 2 * STAGES) * TILE_BYTES + 1024;  // + align
 static_assert(SMEM_BYTES <= 48 * 1024, "more would need an opt-in per device");
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -119,8 +132,18 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// until at most N commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 // A 64 x 64 bf16 tile (rows row0.. of a view with row stride `stride`
@@ -158,8 +181,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N commit groups are in flight (groups end in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving register reads and writes across the
@@ -167,6 +192,13 @@ __device__ __forceinline__ void wgmma_wait_all() {
 __device__ __forceinline__ void fence_regs(float (&r)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for a register A operand, which an asynchronous wgmma reads
+// until its group ends
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define XT_ACC32(d)                                                          \
@@ -258,7 +290,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int t = 0; t < ntiles; ++t) {
     const int st = t % STAGES;
-    cp_async_wait_all();                    // tile t (and Q) landed
+    cp_async_wait<0>();                     // tile t (and Q) landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();                        // ... for every thread; tile t-1
                                             // is done, its stage is free
@@ -278,7 +310,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss(s, desc(sQ + 32 * kk), desc(sK(st) + 32 * kk), kk);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // ---- online softmax on the accumulator registers ----
@@ -340,7 +372,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_rs(acc_o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
                desc(sV(st) + 2048 * kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc_o);
   }
 
@@ -371,16 +403,301 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The tile kernels: the f32 forward and both backward kernels, generic in T
-// (bf16 or float). A tile is 64 rows x 64 elements of T in shared memory,
-// row-major with a padded row of LD<T> elements (a multiple of 16 bytes).
+// The bf16 backward on wgmma (the forward's ring, tiles and products).
+
+constexpr int BWD_STAGES = 2;  // depth of the streamed ring (3: no better,
+                               // scripts/bench_flash_bwd.py)
+static_assert(BWD_STAGES >= 2, "one __syncthreads a tile needs two stages");
+constexpr int STAT_BYTES = 2 * 64 * 4;     // a query tile's lse and D (dkv)
+// 2 fixed tiles + BWD_STAGES stages of 2 streamed tiles (+ the statistics);
+// over 48 KB: an opt-in, made once per device and process
+constexpr int BWD_DKV_SMEM =
+    (2 + 2 * BWD_STAGES) * TILE_BYTES + BWD_STAGES * STAT_BYTES + 1024;
+constexpr int BWD_DQ_SMEM = (2 + 2 * BWD_STAGES) * TILE_BYTES + 1024;
+
+__device__ __forceinline__ void zero(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) r[i] = 0.f;
+}
+
+// a thread's accumulator rows (row0 + 16 warp + g, + 8) of a (rows, 64)
+// bf16 view as bf16 pairs, rows at or past nrows left out
+__device__ __forceinline__ void store_bf16_rows(bf16* dst, long long stride,
+                                                int row0, int nrows,
+                                                const float (&v)[32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = row0 + 16 * warp + (lane >> 2), cq = (lane & 3) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= nrows) continue;
+    bf16* p = dst + (long long)r * stride + cq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+  }
+}
+
+// dK and dV of one 64-key tile: keys are the accumulator rows, so a
+// thread's columns 8j + 2q + c are queries and take the stage's lse and D.
+// The key rows past Tk compute from zero-filled K and V and are not stored.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int Tq, int Tk, long long sqb,
+                     long long sqt, long long sqh, long long skb,
+                     long long skt, long long skh, long long svb,
+                     long long svt, long long svh, long long sdb,
+                     long long sdt, long long sdh, long long skgb,
+                     long long skgt, long long skgh, long long svgb,
+                     long long svgt, long long svgh, float scale_log2,
+                     float scale) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sK = (raw + 1023u) & ~1023u, sV = sK + TILE_BYTES;
+  auto sQ = [&](int s) { return sK + (2 + 2 * s) * TILE_BYTES; };
+  auto sdO = [&](int s) { return sK + (3 + 2 * s) * TILE_BYTES; };
+  const uint32_t sStat = sK + (2 + 2 * BWD_STAGES) * TILE_BYTES;
+  const float* stats = reinterpret_cast<const float*>(smem + (sStat - raw));
+
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int cq = (threadIdx.x & 3) * 2;
+  const bf16* qb = q + b * sqb + h * sqh;
+  const bf16* db = dout + b * sdb + h * sdh;
+  const long long st = ((long long)b * gridDim.y + h) * Tq;
+  // threads 0-63 copy a tile's lse, 64-127 its D
+  const float* stat_src = (threadIdx.x < 64 ? lse : delta) + st;
+  const int ntiles = (Tq + BQ - 1) / BQ;
+  auto load_stage = [&](int t) {
+    const int s = t % BWD_STAGES, r = t * BQ + (threadIdx.x & 63);
+    load_tile(sQ(s), qb, sqt, t * BQ, Tq);
+    load_tile(sdO(s), db, sdt, t * BQ, Tq);
+    cp_async4(sStat + s * STAT_BYTES + threadIdx.x * 4,
+              stat_src + (r < Tq ? r : 0), r < Tq);
+  };
+
+  load_tile(sK, k + b * skb + h * skh, skt, k0, Tk);
+  load_tile(sV, v + b * svb + h * svh, svt, k0, Tk);
+#pragma unroll
+  for (int t = 0; t < BWD_STAGES - 1; ++t) {
+    if (t < ntiles) load_stage(t);
+    cp_async_commit();
+  }
+
+  float acc_dk[32], acc_dv[32];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % BWD_STAGES;
+    cp_async_wait<BWD_STAGES - 2>();        // tile t (and K, V) landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                        // ... for every thread; tile
+                                            // t - 1 is done, its stage free
+    if (t + BWD_STAGES - 1 < ntiles) load_stage(t + BWD_STAGES - 1);
+    cp_async_commit();
+
+    // ---- S^T = K Q^T and dP^T = V dO^T, one commit group each ----
+    float sp[32], dp[32];
+    zero(sp);
+    zero(dp);
+    fence_regs(sp);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sp, desc(sK + 32 * kk), desc(sQ(s) + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(dp, desc(sV + 32 * kk), desc(sdO(s) + 32 * kk), kk);
+    wgmma_commit();
+
+    // ---- P^T = exp2(S^T scale log2 e - lse) while dP^T runs ----
+    wgmma_wait<1>();
+    fence_regs(sp);
+    const float* sL = stats + s * (STAT_BYTES / 4);
+    const int qc = t * BQ + cq;             // this thread's first column
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 L = *reinterpret_cast<const float2*>(sL + 8 * j + cq);
+      const float l0 = qc + 8 * j < Tq ? L.x * LOG2E : INFINITY;
+      const float l1 = qc + 8 * j + 1 < Tq ? L.y * LOG2E : INFINITY;
+      sp[4 * j] = exp2f(fmaf(sp[4 * j], scale_log2, -l0));
+      sp[4 * j + 1] = exp2f(fmaf(sp[4 * j + 1], scale_log2, -l1));
+      sp[4 * j + 2] = exp2f(fmaf(sp[4 * j + 2], scale_log2, -l0));
+      sp[4 * j + 3] = exp2f(fmaf(sp[4 * j + 3], scale_log2, -l1));
+      pa[2 * j] = pack_bf16(sp[4 * j], sp[4 * j + 1]);
+      pa[2 * j + 1] = pack_bf16(sp[4 * j + 2], sp[4 * j + 3]);
+    }
+
+    // ---- dV += P^T dO (queries 16 kk.. are k16 step kk) ----
+    fence_regs(acc_dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+               pa[4 * kk + 3], desc(sdO(s) + 2048 * kk));
+    wgmma_commit();
+
+    // ---- dS^T = P^T (dP^T - D) scale while dV runs; dK += dS^T Q ----
+    wgmma_wait<1>();
+    fence_regs(dp);
+    const float* sD = sL + 64;
+    uint32_t da[16];          // not pa's registers: dV still reads those
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 D = *reinterpret_cast<const float2*>(sD + 8 * j + cq);
+      da[2 * j] = pack_bf16((dp[4 * j] - D.x) * sp[4 * j] * scale,
+                            (dp[4 * j + 1] - D.y) * sp[4 * j + 1] * scale);
+      da[2 * j + 1] =
+          pack_bf16((dp[4 * j + 2] - D.x) * sp[4 * j + 2] * scale,
+                    (dp[4 * j + 3] - D.y) * sp[4 * j + 3] * scale);
+    }
+    fence_regs(acc_dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+               da[4 * kk + 3], desc(sQ(s) + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(da);
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+  }
+  store_bf16_rows(dk + b * skgb + h * skgh, skgt, k0, Tk, acc_dk);
+  store_bf16_rows(dv + b * svgb + h * svgh, svgt, k0, Tk, acc_dv);
+}
+
+// dQ of one 64-query tile: queries are the accumulator rows, so a thread's
+// two rows' lse and D stay in registers; the key columns past Tk get P = 0.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int Tq, int Tk, long long sqb, long long sqt,
+                    long long sqh, long long skb, long long skt,
+                    long long skh, long long svb, long long svt,
+                    long long svh, long long sdb, long long sdt,
+                    long long sdh, long long sqgb, long long sqgt,
+                    long long sqgh, float scale_log2, float scale) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + TILE_BYTES;
+  auto sK = [&](int s) { return sQ + (2 + 2 * s) * TILE_BYTES; };
+  auto sV = [&](int s) { return sQ + (3 + 2 * s) * TILE_BYTES; };
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cq = (lane & 3) * 2;
+  const bf16* kb = k + b * skb + h * skh;
+  const bf16* vb = v + b * svb + h * svh;
+  const int ntiles = (Tk + BK - 1) / BK;
+  auto load_stage = [&](int t) {
+    const int s = t % BWD_STAGES;
+    load_tile(sK(s), kb, skt, t * BK, Tk);
+    load_tile(sV(s), vb, svt, t * BK, Tk);
+  };
+
+  load_tile(sQ, q + b * sqb + h * sqh, sqt, q0, Tq);
+  load_tile(sdO, dout + b * sdb + h * sdh, sdt, q0, Tq);
+#pragma unroll
+  for (int t = 0; t < BWD_STAGES - 1; ++t) {
+    if (t < ntiles) load_stage(t);
+    cp_async_commit();
+  }
+  // rows r0 and r0 + 8: lse in log2 units and D (past Tq: +inf and 0)
+  const long long st = ((long long)b * gridDim.y + h) * Tq;
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const float l0 = r0 < Tq ? lse[st + r0] * LOG2E : INFINITY;
+  const float l1 = r1 < Tq ? lse[st + r1] * LOG2E : INFINITY;
+  const float d0 = r0 < Tq ? delta[st + r0] : 0.f;
+  const float d1 = r1 < Tq ? delta[st + r1] : 0.f;
+
+  float acc[32];
+  zero(acc);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % BWD_STAGES;
+    cp_async_wait<BWD_STAGES - 2>();        // tile t (and Q, dO) landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (t + BWD_STAGES - 1 < ntiles) load_stage(t + BWD_STAGES - 1);
+    cp_async_commit();
+
+    // ---- S = Q K^T and dP = dO V^T, one commit group each ----
+    float sp[32], dp[32];
+    zero(sp);
+    zero(dp);
+    fence_regs(sp);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sp, desc(sQ + 32 * kk), desc(sK(s) + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(dp, desc(sdO + 32 * kk), desc(sV(s) + 32 * kk), kk);
+    wgmma_commit();
+
+    // ---- P = exp2(S scale log2 e - lse), 0 past Tk, while dP runs ----
+    wgmma_wait<1>();
+    fence_regs(sp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sp[4 * j] = exp2f(fmaf(sp[4 * j], scale_log2, -l0));
+      sp[4 * j + 1] = exp2f(fmaf(sp[4 * j + 1], scale_log2, -l0));
+      sp[4 * j + 2] = exp2f(fmaf(sp[4 * j + 2], scale_log2, -l1));
+      sp[4 * j + 3] = exp2f(fmaf(sp[4 * j + 3], scale_log2, -l1));
+    }
+    const int key0 = t * BK;
+    if (key0 + BK > Tk) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (key0 + 8 * j + cq + c >= Tk)
+            sp[4 * j + c] = sp[4 * j + 2 + c] = 0.f;
+    }
+
+    // ---- dS = P (dP - D) scale; dQ += dS K (keys 16 kk.. step kk) ----
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pa[2 * j] = pack_bf16((dp[4 * j] - d0) * sp[4 * j] * scale,
+                            (dp[4 * j + 1] - d0) * sp[4 * j + 1] * scale);
+      pa[2 * j + 1] = pack_bf16((dp[4 * j + 2] - d1) * sp[4 * j + 2] * scale,
+                                (dp[4 * j + 3] - d1) * sp[4 * j + 3] * scale);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+               pa[4 * kk + 3], desc(sK(s) + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  store_bf16_rows(dq + b * sqgb + h * sqgh, sqgt, q0, Tq, acc);
+}
+
+// ---------------------------------------------------------------------------
+// The tile kernels: the f32 forward and both f32 backward kernels, generic
+// in T (only float is built). A tile is 64 rows x 64 elements of T in
+// shared memory, row-major with a padded row of LD<T> elements (a multiple
+// of 16 bytes).
 
 template <typename T>
 struct Tile;
-template <>
-struct Tile<bf16> {
-  static constexpr int LD = 72;
-};
 template <>
 struct Tile<float> {
   static constexpr int LD = 68;
@@ -392,10 +709,6 @@ __host__ __device__ constexpr int tile_elems() {
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -420,59 +733,11 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
   }
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d[0..3] += a (16 x 16, row) b (16 x 8, col): bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // acc += A B over k = 0..63 for the warp's 16 rows of a 64 x 64 product, in
 // the accumulator layout of the bf16 forward (register 4j + c: row 16 warp
-// + g, column 8j + 2q + c; 4j + 2 + c: row + 8). A is a tile, row-major
-// (rows x k). NT: B(k, n) = tile Bt[n][k]; else B(k, n) = tile B[k][n].
-template <bool NT>
-__device__ __forceinline__ void tile_mma(float (&acc)[32], const bf16* A,
-                                         const bf16* B) {
-  constexpr int LD = Tile<bf16>::LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const bf16* alo = A + (16 * warp + g) * LD + t2;
-  const bf16* ahi = alo + 8 * LD;
-#pragma unroll
-  for (int k0 = 0; k0 < 64; k0 += 16) {
-    const uint32_t a0 = ld_pair(alo + k0), a1 = ld_pair(ahi + k0);
-    const uint32_t a2 = ld_pair(alo + k0 + 8), a3 = ld_pair(ahi + k0 + 8);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = 8 * j + g;
-      uint32_t b0, b1;
-      if (NT) {
-        b0 = ld_pair(B + n * LD + k0 + t2);
-        b1 = ld_pair(B + n * LD + k0 + 8 + t2);
-      } else {
-        const bf16* col = B + (k0 + t2) * LD + n;
-        b0 = pack_pair(col[0], col[LD]);
-        b1 = pack_pair(col[8 * LD], col[9 * LD]);
-      }
-      mma_bf16(acc + 4 * j, a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
+// + g, column 8j + 2q + c; 4j + 2 + c: row + 8), by f32 FMA. A is a tile,
+// row-major (rows x k). NT: B(k, n) = tile Bt[n][k]; else B(k, n) = tile
+// B[k][n].
 template <bool NT>
 __device__ __forceinline__ void tile_mma(float (&acc)[32], const float* A,
                                          const float* B) {
@@ -675,14 +940,14 @@ __device__ __forceinline__ void load_stats(float* sL, float* sD,
                                            int Tq) {
   if (threadIdx.x < 64) {
     const int r = q0 + threadIdx.x;
-    sL[threadIdx.x] = r < Tq ? lse[r] * 1.4426950408889634f : INFINITY;
+    sL[threadIdx.x] = r < Tq ? lse[r] * LOG2E : INFINITY;
     sD[threadIdx.x] = r < Tq ? delta[r] : 0.f;
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
@@ -737,7 +1002,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
@@ -820,41 +1085,42 @@ int launch_fwd_tile(const void* q, const void* k, const void* v, void* o,
   flash_fwd_tile_kernel<T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, sqb, sqt,
       sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-      scale * 1.4426950408889634f);
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_dkv(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dk, void* dv, int B, int Tq, int Tk, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
-  static unsigned opted = 0;
-  constexpr int smem = tile_smem<T>(6);
-  if (int e = opt_in(flash_bwd_dkv_kernel<T>, smem, opted)) return e;
+// a backward kernel (the bf16 wgmma one or the f32 tile one) of element
+// type T, with `smem` bytes of dynamic shared memory (opted in once per
+// device); st: (b, t, h) strides of q, k, v, dout, then dk, dv (dkv) or dq
+template <typename T, typename Kernel>
+int launch_bwd_dkv(Kernel kernel, int smem, unsigned& opted, const void* q,
+                   const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dk, void* dv,
+                   int B, int Tq, int Tk, int H, const long long* st,
+                   float scale, cudaStream_t stream) {
+  if (int e = opt_in(kernel, smem, opted)) return e;
   dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dk, (T*)dv, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-      st[15], st[16], st[17], scale * 1.4426950408889634f, scale);
+      st[15], st[16], st[17], scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_dq(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  void* dq, int B, int Tq, int Tk, int H, const long long* st,
-                  float scale, cudaStream_t stream) {
-  static unsigned opted = 0;
-  constexpr int smem = tile_smem<T>(5);
-  if (int e = opt_in(flash_bwd_dq_kernel<T>, smem, opted)) return e;
+template <typename T, typename Kernel>
+int launch_bwd_dq(Kernel kernel, int smem, unsigned& opted, const void* q,
+                  const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int B,
+                  int Tq, int Tk, int H, const long long* st, float scale,
+                  cudaStream_t stream) {
+  if (int e = opt_in(kernel, smem, opted)) return e;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dq, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-      scale * 1.4426950408889634f, scale);
+      st[8], st[9], st[10], st[11], st[12], st[13], st[14], scale * LOG2E,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -877,7 +1143,7 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
       Tq, Tk, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-      scale * 1.4426950408889634f);
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -888,11 +1154,14 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  int Tq, int Tk, int H,
                                  const long long* strides, float scale,
                                  int f32, void* stream) {
+  static unsigned opted_f32 = 0, opted_bf16 = 0;
   if (f32)
-    return launch_bwd_dkv<float>(q, k, v, dout, (const float*)lse,
-                                 (const float*)delta, dk, dv, B, Tq, Tk, H,
-                                 strides, scale, (cudaStream_t)stream);
-  return launch_bwd_dkv<bf16>(q, k, v, dout, (const float*)lse,
+    return launch_bwd_dkv<float>(
+        flash_bwd_dkv_tile_kernel<float>, tile_smem<float>(6), opted_f32, q,
+        k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B, Tq, Tk,
+        H, strides, scale, (cudaStream_t)stream);
+  return launch_bwd_dkv<bf16>(flash_bwd_dkv_kernel, BWD_DKV_SMEM, opted_bf16,
+                              q, k, v, dout, (const float*)lse,
                               (const float*)delta, dk, dv, B, Tq, Tk, H,
                               strides, scale, (cudaStream_t)stream);
 }
@@ -903,11 +1172,32 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* delta, void* dq, int B, int Tq,
                                 int Tk, int H, const long long* strides,
                                 float scale, int f32, void* stream) {
+  static unsigned opted_f32 = 0, opted_bf16 = 0;
   if (f32)
-    return launch_bwd_dq<float>(q, k, v, dout, (const float*)lse,
-                                (const float*)delta, dq, B, Tq, Tk, H,
-                                strides, scale, (cudaStream_t)stream);
-  return launch_bwd_dq<bf16>(q, k, v, dout, (const float*)lse,
+    return launch_bwd_dq<float>(
+        flash_bwd_dq_tile_kernel<float>, tile_smem<float>(5), opted_f32, q, k,
+        v, dout, (const float*)lse, (const float*)delta, dq, B, Tq, Tk, H,
+        strides, scale, (cudaStream_t)stream);
+  return launch_bwd_dq<bf16>(flash_bwd_dq_kernel, BWD_DQ_SMEM, opted_bf16, q,
+                             k, v, dout, (const float*)lse,
                              (const float*)delta, dq, B, Tq, Tk, H, strides,
                              scale, (cudaStream_t)stream);
+}
+
+// Registers and local-memory bytes a thread of the four backward kernels,
+// out[2 i] and out[2 i + 1] for i = bf16 dkv, bf16 dq, f32 dkv, f32 dq
+// (local memory other than 0 is a spill)
+XT_API int xt_flash_attn_bwd_attrs(int* out) {
+  const void* fns[4] = {(const void*)flash_bwd_dkv_kernel,
+                        (const void*)flash_bwd_dq_kernel,
+                        (const void*)flash_bwd_dkv_tile_kernel<float>,
+                        (const void*)flash_bwd_dq_tile_kernel<float>};
+  for (int i = 0; i < 4; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
+    if (e != cudaSuccess) return (int)e;
+    out[2 * i] = a.numRegs;
+    out[2 * i + 1] = (int)a.localSizeBytes;
+  }
+  return 0;
 }

@@ -13,9 +13,13 @@ written for Hopper:
   MN-major); the f32 online softmax and O stay in registers;
 - the f32 forward (the inputs' dtype, as the Pallas kernel takes it): the
   same softmax on f32 FMA tiles, no TF32;
-- `flash_mha_bwd_dkv` and `flash_mha_bwd_dq`, bf16 or f32 from one source:
-  P rebuilt from the forward's row log-sum-exp, P and dS rounded to the
-  inputs' dtype before their products, f32 accumulation, no atomics.
+- `flash_mha_bwd_dkv` and `flash_mha_bwd_dq`: P rebuilt from the forward's
+  row log-sum-exp, P and dS rounded to the inputs' dtype before their
+  products, f32 accumulation, no atomics. In bf16 as the forward: one
+  warpgroup per 64-key (dkv) or 64-query (dq) tile, the streamed tiles in
+  a cp.async ring, every product on wgmma with P / dS as the register
+  operand (no P or dS tile in shared memory); in f32 on FMA tiles, no
+  TF32. `bwd_kernel_attrs` reads their registers and spills.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
 backward at the main path's (2, 1280 | 1562, 8, 64)); the design keeps the
@@ -63,10 +67,25 @@ def _lib() -> ctypes.CDLL:
         [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _P])
     lib.xt_flash_attn_bwd_dq.argtypes = (
         [_P] * 7 + [_I] * 4 + [_P, ctypes.c_float, _I, _P])
+    lib.xt_flash_attn_bwd_attrs.argtypes = [ctypes.POINTER(_I)]
     for fn in (lib.xt_flash_attn_fwd, lib.xt_flash_attn_bwd_dkv,
-               lib.xt_flash_attn_bwd_dq):
+               lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_bwd_attrs):
         fn.restype = _I
     return lib
+
+
+_BWD_KERNELS = (("flash_mha_bwd_dkv", "bf16"), ("flash_mha_bwd_dq", "bf16"),
+                ("flash_mha_bwd_dkv", "f32"), ("flash_mha_bwd_dq", "f32"))
+
+
+def bwd_kernel_attrs() -> dict:
+    """{(wrapper, "bf16" | "f32"): (registers, local-memory bytes)} a
+    thread of each backward kernel, as built for the current card; local
+    memory other than 0 is a register spill."""
+    out = (_I * 8)()
+    check(_lib().xt_flash_attn_bwd_attrs(out), "flash_mha backward attrs")
+    return {key: (out[2 * i], out[2 * i + 1])
+            for i, key in enumerate(_BWD_KERNELS)}
 
 
 def _wide(dtype):
@@ -192,9 +211,10 @@ def _check_stats(q, lse, delta):
 
 
 def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
-    """dK and dV of flash_mha (kernel `flash_bwd_dkv_kernel`): lse the
-    forward's natural-log row log-sum-exp and delta = rowsum(dO * O), both
-    (B, H, Tq) f32. CPU tensors take the plain twin."""
+    """dK and dV of flash_mha (kernels `flash_bwd_dkv_kernel`, bf16, and
+    `flash_bwd_dkv_tile_kernel<float>`): lse the forward's natural-log row
+    log-sum-exp and delta = rowsum(dO * O), both (B, H, Tq) f32. CPU
+    tensors take the plain twin."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[1:]
     b, tq, tk, h = _check_operands("flash_mha_bwd_dkv", q, k, v, do)
@@ -211,8 +231,9 @@ def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
 
 
 def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
-    """dQ of flash_mha (kernel `flash_bwd_dq_kernel`), on flash_mha_bwd_dkv's
-    operands. CPU tensors take the plain twin."""
+    """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16, and
+    `flash_bwd_dq_tile_kernel<float>`), on flash_mha_bwd_dkv's operands.
+    CPU tensors take the plain twin."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[0]
     b, tq, tk, h = _check_operands("flash_mha_bwd_dq", q, k, v, do)
