@@ -39,14 +39,19 @@ Phases, each reported on its own lines:
      (flash_mha at (2, 1280 | 1562, 8, 64), (2, 300 | 583, 8, 64) and the
      604-code cap bucket's (2, 2416 | 2698, 8, 64); the same bits and
      device us with and without the lse output, in turns; the f32
-     forward at the main bucket; the backward kernels flash_mha_bwd_dkv
-     and flash_mha_bwd_dq against the f32 plain backward at the main
-     bucket, the cap bucket and a [train] flash step's (8, 1200 | 1600),
-     bf16, and at the main bucket in f32, each twice to the same bits,
-     beside SDPA's backward; each kernel's TFLOP/s, share of its bound,
-     registers and local memory, none in bf16); K3 (vq_nearest on the DVAE's own 3008 x 512
-     logits against its 8192-code codebook, a ragged shape and a planted
-     tie, also on 4 rotating copies of rows and codebook); K4
+     forward (3xTF32 tiles) at the main bucket, its lse too, beside SDPA
+     f32 and both bounds (f32 FMA, 3xTF32); the backward kernels
+     flash_mha_bwd_dkv and flash_mha_bwd_dq against the f32 plain
+     backward at the main bucket, the cap bucket and a [train] flash
+     step's (8, 1200 | 1600), bf16, and at the main bucket in f32, each
+     twice to the same bits, beside SDPA's backward; each kernel's
+     TFLOP/s, share of its bound (f32: of both), registers and local
+     memory, no spill below width 128; the head widths 32 and 128 (512
+     channels) and 48 (zero-padded to 64, counted), bf16 and f32, forward
+     and backward against the f32 twins, beside SDPA); K3 (vq_nearest on
+     the DVAE's own 3008 x 512 logits against its 8192-code codebook, a
+     ragged shape and a planted tie, also on 4 rotating copies of rows
+     and codebook); K4
      (int8_gemm_rows (split over K across a cluster),
      serving_attention (equal to its twin bit for bit at index 0, 1 and
      353 of the path's 354 positions and at 2047 of 2048; timed with the
@@ -239,6 +244,13 @@ K2_F32_TOL = 5e-5
 # to each gradient's largest element: bf16 rounds P, dS and the result
 # (three roundings of 2^-9); f32 sums in another order
 K2_BWD_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# K2's lse against the plain twin's (the card tests' bound)
+K2_LSE_TOL = 1e-5
+# [k2]'s other head widths (B, Tq, Tk, heads, width) at the main bucket:
+# 512 channels in 16 heads of 32 and 4 of 128; 48 (8 heads) runs
+# zero-padded to 64
+K2_WIDTHS = ((2, 1280, 1562, 16, 32), (2, 1280, 1562, 8, 48),
+             (2, 1280, 1562, 4, 128))
 # a [train] flash=True step's consumer attention (B, Tq, Tk): 8-12 s wavs
 # cropped to 1280 frames, the mel bucket 1200 and the refer bucket 400
 K2_TRAIN_SHAPE = (8, 1200, 1600)
@@ -955,10 +967,25 @@ def k2_lse_ab(torch, fa, q, k, v):
     return got
 
 
+def f32_bounds(nbytes, ops):
+    """The f32 kernels' two bounds (ms, what binds): the f32 operations at
+    the FMA peak, and the 3xTF32 route's three tf32 operations each at the
+    tf32 tensor-core peak (what the kernels run: the bound_ms of their
+    JSON entries)."""
+    return bound(nbytes, ops, "fp32"), bound(nbytes, 3 * ops, "tf32")
+
+
+def fmt_bounds(us, fma, tc) -> str:
+    return (f"bounds: f32 FMA {fma[0]:.5f} ms ({fma[1]}; "
+            f"{fma[0] * 1e3 / us:.3f} of it), 3xTF32 {tc[0]:.5f} ms "
+            f"({tc[1]}; {tc[0] * 1e3 / us:.3f} of it)")
+
+
 def k2_f32_checks(torch, fa, results, card):
-    """K2's f32 forward (the default TextToSpeech's dtype) at the main
-    bucket against f32 plain attention: error (K2_F32_TOL), card ms, device
-    us, plain ms, SDPA in f32, bound at the f32 FMA peak."""
+    """K2's f32 forward (the default TextToSpeech's dtype; 3xTF32 tiles)
+    at the main bucket against f32 plain attention: error (K2_F32_TOL),
+    lse (K2_LSE_TOL), card ms, device us and TFLOP/s, plain ms, SDPA in
+    f32, and the share of both bounds (f32 FMA; 3xTF32)."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(98)
     b, tq, tk = 2, 1280, 1562
@@ -967,25 +994,32 @@ def k2_f32_checks(torch, fa, results, card):
     fa.flash_mha.f32_launches = 0
     out = fa.flash_mha(q, k, v, 0.125)
     check(fa.flash_mha.f32_launches == 1, "the f32 forward did not launch")
-    err = max_err(out, fa.flash_mha_plain(q, k, v, 0.125))
+    want, lse_want = fa.flash_mha_plain_lse(q, k, v, 0.125)
+    err = max_err(out, want)
     check(err <= K2_F32_TOL, f"flash_mha f32 err {err}")
+    lse_err = max_err(fa._flash_fwd_cuda(q, k, v, 0.125, True)[1], lse_want)
+    check(lse_err <= K2_LSE_TOL, f"flash_mha f32 lse err {lse_err}")
     tkn = time_ms(torch, lambda: fa.flash_mha(q, k, v, 0.125))
     tpl = time_ms(torch, lambda: fa.flash_mha_plain(q, k, v, 0.125))
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     tlib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, scale=0.125))
     flops = 4 * b * 8 * tq * tk * 64
-    bnd = bound(4 * b * 8 * 64 * (2 * tq + 2 * tk), flops, "fp32")
+    fma, tc = f32_bounds(4 * b * 8 * 64 * (2 * tq + 2 * tk), flops)
     dk = device_us(torch, lambda: fa.flash_mha(q, k, v, 0.125))
     dl = device_us(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, scale=0.125))
+    regs, local = fa.kernel_attrs()[("flash_mha", "f32", 64)]
     log(f"[k2] flash_mha f32 (B {b}, Tq {tq}, Tk {tk}, 8 x 64) max_abs_err "
-        f"vs f32 plain {err:.3e} (bound {K2_F32_TOL})  kernel {tkn:.4f} ms "
-        f"({flops / (tkn * 1e-3) / 1e12:.1f} TFLOP/s), device {fmt_us(dk)}  "
-        f"plain f32 {tpl:.4f} ms  sdpa f32 {tlib:.4f} ms, device "
-        f"{fmt_us(dl)}  bound {bnd[0]:.5f} ms ({bnd[1]}, f32 FMA peak)  "
+        f"vs f32 plain {err:.3e} (bound {K2_F32_TOL}), lse {lse_err:.3e} "
+        f"(bound {K2_LSE_TOL})  kernel {tkn:.4f} ms, device {fmt_us(dk)} "
+        f"({flops / (dk * 1e-6) / 1e12:.1f} TFLOP/s)  plain f32 "
+        f"{tpl:.4f} ms  sdpa f32 {tlib:.4f} ms, device {fmt_us(dl)} "
+        f"(kernel / sdpa {dk / dl:.3f}); {fmt_bounds(dk, fma, tc)}; "
+        f"{regs} registers, {local} bytes of local memory a thread  "
         f"[{card}]")
-    record(results, "flash_mha+f32", err, tkn, tpl, tlib, bnd, dk, dl)
+    record(results, "flash_mha+f32", err, tkn, tpl, tlib, tc, dk, dl,
+           bound_fma_ms=fma[0], lse_err=lse_err)
 
 
 def k2_backward_checks(torch, fa, results, card):
@@ -1057,12 +1091,17 @@ def k2_backward_checks(torch, fa, results, card):
             d_sf, d_sfb = device_us(torch, sdpa), device_us(torch, sdpa_grad)
         t_sb, d_sb = t_sfb - t_sf, d_sfb - d_sf
         unit = 2 * b * 8 * tq * tk * 64          # one product's operations
-        peak = "bf16" if kind == "bf16" else "fp32"
         qb, kb = b * 8 * 64 * tq * esz, b * 8 * 64 * tk * esz
         stats = 2 * b * 8 * tq * 4               # lse and D
-        b_dkv = bound(2 * qb + 4 * kb + stats, 4 * unit, peak)
-        b_dq = bound(3 * qb + 2 * kb + stats, 3 * unit, peak)
-        b_all = bound(4 * qb + 4 * kb + stats, 5 * unit, peak)
+        fma = {}             # f32: the FMA bounds beside the 3xTF32 ones
+        if kind == "bf16":
+            b_dkv = bound(2 * qb + 4 * kb + stats, 4 * unit, "bf16")
+            b_dq = bound(3 * qb + 2 * kb + stats, 3 * unit, "bf16")
+            b_all = bound(4 * qb + 4 * kb + stats, 5 * unit, "bf16")
+        else:
+            fma["dkv"], b_dkv = f32_bounds(2 * qb + 4 * kb + stats, 4 * unit)
+            fma["dq"], b_dq = f32_bounds(3 * qb + 2 * kb + stats, 3 * unit)
+            fma["all"], b_all = f32_bounds(4 * qb + 4 * kb + stats, 5 * unit)
         log(f"[k2] backward {kind} (B {b}, Tq {tq}, Tk {tk}, 8 x 64): rel "
             f"err vs f32 plain dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
             f"{errs['dv']:.2e} (bound {K2_BWD_TOL[kind]}), same bits twice; "
@@ -1078,15 +1117,16 @@ def k2_backward_checks(torch, fa, results, card):
             f"{fmt_us(d_sb)}  [{card}]")
         for name, d, n, bn in (("flash_mha_bwd_dkv", d_dkv, 4, b_dkv),
                                ("flash_mha_bwd_dq", d_dq, 3, b_dq)):
-            regs, local = attrs[(name, kind)]
+            regs, local = attrs[(name, kind, 64)]
+            share = (f"{bn[0] * 1e3 / d:.3f} of its bound ({bn[1]})"
+                     if kind == "bf16" else
+                     fmt_bounds(d, fma[name.split("_")[-1]], bn))
             log(f"[k2] {name} {kind} (B {b}, Tq {tq}, Tk {tk}): "
                 f"{n * unit / (d * 1e-6) / 1e12:.1f} TFLOP/s of its {n} "
-                f"products by device time, {bn[0] * 1e3 / d:.3f} of its "
-                f"bound ({bn[1]}); {regs} registers and {local} bytes of "
-                f"local memory a thread  [{card}]")
-            if kind == "bf16":
-                check(local == 0, f"{name} bf16 spills: {local} bytes of "
-                      f"local memory a thread")
+                f"products by device time, {share}; {regs} registers and "
+                f"{local} bytes of local memory a thread  [{card}]")
+            check(local == 0, f"{name} {kind} spills: {local} bytes of "
+                  f"local memory a thread")
         if (tq, dt) == (1280, torch.bfloat16):
             for name, t, d, bn in (("flash_mha_bwd_dkv", t_dkv, d_dkv, b_dkv),
                                    ("flash_mha_bwd_dq", t_dq, d_dq, b_dq)):
@@ -1094,8 +1134,106 @@ def k2_backward_checks(torch, fa, results, card):
                        d, d_sb, library_covers="dq, dk and dv (sdpa's "
                        "backward: forward + backward less forward)",
                        whole_backward_ms=t_all)
+        if (tq, dt) == (1280, torch.float32):
+            # the f32 kernels at the main bucket, beside the bf16 entry
+            for name, t, d, bn in (("flash_mha_bwd_dkv", t_dkv, d_dkv, b_dkv),
+                                   ("flash_mha_bwd_dq", t_dq, d_dq, b_dq)):
+                results[name]["f32"] = dict(
+                    max_abs_err=max(errs.values()), ms=t, device_us=d,
+                    library_device_us=d_sb, bound_ms=bn[0],
+                    bound_fma_ms=fma[name.split("_")[-1]][0])
         del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
         torch.cuda.empty_cache()
+
+
+def k2_width_checks(torch, fa, results, card):
+    """K2 at the other head widths (K2_WIDTHS: 32 and 128 run as they are,
+    48 zero-padded to 64 and counted in flash_mha.pads), bf16 and f32: the
+    forward and its lse against the f32 plain forward (K2_TOL / K2_F32_TOL,
+    K2_LSE_TOL), the backward against the f32 plain backward (K2_BWD_TOL of
+    each gradient's largest), the same bits twice; device us of the
+    forward, dkv and dq beside SDPA's forward and backward on the same
+    inputs; each kernel's registers and local memory (a spill is printed,
+    and refused below width 128)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(96)
+    attrs = fa.kernel_attrs()
+    rows = {}
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for b, tq, tk, h, w in K2_WIDTHS:
+            sc = w ** -0.5
+            q, k, v, do = (torch.randn(b, t, h, w, generator=g,
+                                       device="cuda").to(dt)
+                           for t in (tq, tk, tk, tq))
+            for fn in fa.KERNELS:
+                fn.launches = 0
+            fa.flash_mha.pads = 0
+            o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
+            got = fa.flash_mha_bwd(q, k, v, o, lse, do, sc)
+            again = fa.flash_mha_bwd(q, k, v, o, lse, do, sc)
+            native = fa.native_width(w)
+            check([fn.launches for fn in fa.KERNELS] == [1, 2, 2]
+                  and fa.flash_mha.pads == (0 if native == w else 5),
+                  f"[k2] width {w}: launches "
+                  f"{[fn.launches for fn in fa.KERNELS]}, pads "
+                  f"{fa.flash_mha.pads}")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"[k2] {kind} width {w}: backward differs between runs")
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            o32, lse32 = fa.flash_mha_plain_lse(qf, kf, vf, sc)
+            e_o, e_l = max_err(o, o32), max_err(lse, lse32)
+            tol = K2_TOL if kind == "bf16" else K2_F32_TOL
+            check(e_o <= tol and e_l <= K2_LSE_TOL, f"[k2] {kind} width "
+                  f"{w}: forward err {e_o}, lse {e_l}")
+            want = fa.flash_mha_bwd_plain(qf, kf, vf, o32, lse32,
+                                          do.float(), sc)
+            errs = [max_err(x, y) / y.abs().max().item()
+                    for x, y in zip(got, want)]
+            check(max(errs) <= K2_BWD_TOL[kind], f"[k2] {kind} width {w}: "
+                  f"backward errs {errs}")
+            del want, o32, lse32, again
+            delta = fa._delta(o, do)
+            d_f = device_us(torch, lambda: fa.flash_mha(q, k, v, sc))
+            d_kv = device_us(torch, lambda: fa.flash_mha_bwd_dkv(
+                q, k, v, do, lse, delta, sc))
+            d_q = device_us(torch, lambda: fa.flash_mha_bwd_dq(
+                q, k, v, do, lse, delta, sc))
+            qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dos = do.transpose(1, 2).contiguous()
+            with torch.enable_grad():
+                def sdpa():
+                    return F.scaled_dot_product_attention(qs, ks, vs,
+                                                          scale=sc)
+                s_f = device_us(torch, sdpa)
+                s_b = device_us(torch, lambda: torch.autograd.grad(
+                    sdpa(), (qs, ks, vs), dos)) - s_f
+            unit = 2 * b * h * tq * tk * w
+            spills = []
+            for name in ("flash_mha", "flash_mha_bwd_dkv",
+                         "flash_mha_bwd_dq"):
+                regs, local = attrs[(name, kind, native)]
+                spills.append(f"{name} {regs} registers, {local} local "
+                              f"bytes")
+                check(local == 0 or native == 128, f"[k2] {name} {kind} "
+                      f"width {native} spills {local} bytes")
+            log(f"[k2] width {w} ({kind}, B {b}, Tq {tq}, Tk {tk}, {h} x {w}"
+                f"{'' if native == w else f', zero-padded to {native}'}): "
+                f"forward err {e_o:.2e} (bound {tol}), lse {e_l:.2e}; "
+                f"backward rel errs dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
+                f"{errs[2]:.2e} (bound {K2_BWD_TOL[kind]}), same bits twice; "
+                f"device: forward {fmt_us(d_f)} "
+                f"({2 * unit / (d_f * 1e-6) / 1e12:.1f} TFLOP/s), dkv "
+                f"{fmt_us(d_kv)}, dq {fmt_us(d_q)} (sum "
+                f"{fmt_us(d_kv + d_q)}); sdpa forward {fmt_us(s_f)}, "
+                f"backward {fmt_us(s_b)}; {'; '.join(spills)}  [{card}]")
+            rows[f"{kind} {w}"] = dict(
+                forward_err=e_o, lse_err=e_l, backward_rel_errs=errs,
+                forward_device_us=d_f, dkv_device_us=d_kv, dq_device_us=d_q,
+                sdpa_forward_device_us=s_f, sdpa_backward_device_us=s_b)
+            del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
+            torch.cuda.empty_cache()
+    results["flash_mha"]["widths"] = rows
 
 
 def qdot64(torch):
@@ -4850,6 +4988,7 @@ def main() -> None:
         k2_checks(torch, fa, results, card)
         k2_f32_checks(torch, fa, results, card)
         k2_backward_checks(torch, fa, results, card)
+        k2_width_checks(torch, fa, results, card)
         k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
                   results, card)
         del qt, st

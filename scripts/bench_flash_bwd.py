@@ -109,7 +109,7 @@ def main() -> None:
             row = {"errors": {}, "dkv_us": {}, "dq_us": {}}
             for s in args.stages:
                 use(fa, libs[s])
-                out["attrs"][s] = {f"{n} {d}": a for (n, d), a in
+                out["attrs"][s] = {" ".join(map(str, key)): a for key, a in
                                    fa.bwd_kernel_attrs().items()}
                 got = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
                 errs = [(x.float() - w).abs().max().item()

@@ -1,6 +1,8 @@
 """Port parity: AA-diffusion model and the Gaussian diffusion process
 (xtts_tpu_torch vs xtts_tpu), f32 on the CPU, weights carried by
 utils.convert.aa_diffusion_from_jax. eps/var at rtol 1e-3 / atol 1e-4."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -15,6 +17,7 @@ from xtts_tpu.diffusion import gaussian as jg  # noqa: E402
 from xtts_tpu.models import aa_diffusion as jad  # noqa: E402
 from xtts_tpu_torch.diffusion import gaussian as tg  # noqa: E402
 from xtts_tpu_torch.models import aa_diffusion as tad  # noqa: E402
+from xtts_tpu_torch.nn import flash_attn as tfa  # noqa: E402
 from xtts_tpu_torch.utils import convert  # noqa: E402
 from test_torch_port_e2e import shaped_zeros  # noqa: E402
 
@@ -43,20 +46,26 @@ def randomize(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def models():
-    jm = jad.AADiffusion(CFG)
+def _pair(cfg, flash=False):
+    """JAX's AADiffusion(cfg) with redrawn weights and the port's model
+    carrying them (flash: the port's switch)."""
+    jm = jad.AADiffusion(cfg)
     # the compiled init's shapes and key order by tracing alone
     # (randomize redraws every leaf: the same draws)
     init = shaped_zeros(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 8, 16)), jnp.array([0]),
         jnp.zeros((1, 128, 4)), jnp.zeros((1, 8, 16))))
     params = randomize(init["params"], np.random.default_rng(0))
-    port_cfg = tcfg.DiffusionModelConfig.from_dict(CFG.to_dict())
-    tm = tad.AADiffusion(port_cfg).eval()
+    port_cfg = tcfg.DiffusionModelConfig.from_dict(cfg.to_dict())
+    tm = tad.AADiffusion(port_cfg, flash=flash).eval()
     tm.load_state_dict(convert.to_torch(device="cpu", sd=convert.aa_diffusion_from_jax(
         params, port_cfg)))
     return jm, {"params": params}, tm
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _pair(CFG)
 
 
 def _inputs(seed=1, b=2, tx=24, tl=6, tr=20):
@@ -205,3 +214,39 @@ def test_p_sample_loop_generator_determinism(models):
                              device="cpu") for _ in range(2)]
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
     assert torch.isfinite(runs[0]).all()
+
+
+@pytest.mark.parametrize("model_channels,num_heads,levels",
+                         [(64, 2, 2), (128, 1, 1)])
+def test_flash_route_at_other_head_widths_matches_jax(monkeypatch,
+                                                      model_channels,
+                                                      num_heads, levels):
+    """P11: the port's flash=True model with 32-wide (64 channels, 2 heads)
+    and 128-wide (128, 1; one UNet level, to keep JAX's eager run short)
+    UNet heads, its size gate lowered so that every consumer
+    self-attention takes flash_mha (the CPU twin: the kernels' widths
+    without padding), against JAX's (einsum attention) on the staged
+    denoise."""
+    cfg = dataclasses.replace(CFG, model_channels=model_channels,
+                              num_heads=num_heads,
+                              channel_mult=(1,) * levels)
+    jm, jv, tm = _pair(cfg, flash=True)
+    widths = []
+
+    def counted(q, k, v, sm_scale):
+        widths.append(q.shape[-1])
+        return tfa.flash_mha(q, k, v, sm_scale)
+
+    monkeypatch.setattr(tfa, "FLASH_MIN_SCORES", 1)
+    monkeypatch.setattr(tad, "flash_mha", counted)
+    x, t, hint, refer = _inputs(5)
+    hint_r = np.repeat(hint, 4, axis=2)
+    jctx = jm.apply(jv, refer, method=jm.encode_reference)
+    jfe = jm.apply(jv, refer, t, jctx, method=jm.reference_features)
+    jout = jm.apply(jv, x, t, hint_r, jctx, jfe, method=jm.denoise)
+    with torch.no_grad():
+        tctx = tm.encode_reference(_t(refer))
+        tfe = tm.reference_features(_t(refer), _t(t), tctx)
+        tout = tm.denoise(_t(x), _t(t), _t(hint_r), tctx, tfe)
+    assert widths and set(widths) == {model_channels // num_heads}
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)

@@ -173,3 +173,103 @@ def test_backward_wrappers_take_the_twin_on_cpu():
     assert torch.equal(got_q, dq) and torch.equal(got_k, dk)
     assert torch.equal(got_v, dv)
     assert all(fn.launches == 0 for fn in tfa.KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# Head widths other than 64 and the XTTS_FLASH_ATTN opt-out (P11)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 96])
+def test_head_padding_equals_unpadded_attention(dh):
+    """The wrappers' zero-padding of the head width to the next native one
+    (pad_heads: 16 -> 32, 48 -> 64, 96 -> 128) with the true width's scale:
+    the padded forward, lse and backward (flash_mha_bwd_plain), sliced
+    back, equal unpadded plain attention within f32 summation order
+    (2e-6), and the padded columns of o, dq, dk and dv are exactly 0."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(30 + dh, 2, 70, 90, 2, dh))
+    do = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (2, 70, 2, dh)).astype(np.float32))
+    sc = dh ** -0.5
+    padded = tfa.pad_heads(q, k, v, do)
+    w = tfa.native_width(dh)
+    assert w in tfa.NATIVE_WIDTHS and w > dh
+    assert all(t.shape[-1] == w and t.is_contiguous() for t in padded)
+    assert all((t[..., dh:] == 0).all() for t in padded)
+    qp, kp, vp, dop = padded
+    o, lse = tfa.flash_mha_plain_lse(q, k, v, sc)
+    op, lsep = tfa.flash_mha_plain_lse(qp, kp, vp, sc)
+    tol = dict(rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(op[..., :dh], o, **tol)
+    torch.testing.assert_close(lsep, lse, **tol)
+    assert (op[..., dh:] == 0).all()
+    want = tfa.flash_mha_bwd_plain(q, k, v, o, lse, do, sc)
+    got = tfa.flash_mha_bwd_plain(qp, kp, vp, op, lsep, dop, sc)
+    for g, w_, name in zip(got, want, "qkv"):
+        torch.testing.assert_close(g[..., :dh], w_, **tol, msg=f"d{name}")
+        assert (g[..., dh:] == 0).all(), f"d{name}"
+
+
+def test_native_widths_pass_as_they_are_and_above_128_raises():
+    q = torch.zeros(1, 3, 2, 64)
+    assert tfa.pad_heads(q)[0] is q
+    assert [tfa.native_width(d) for d in (1, 32, 33, 64, 65, 128)] == \
+        [32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="32, 64, 128"):
+        tfa.native_width(129)
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_widths_match_jax_reference_forward_and_grad(dh):
+    """flash_mha on the CPU (the Function's twins) at head widths 32 and
+    128 against JAX's flash_mha(core="reference") and jax.grad of it on the
+    same inputs, at the ragged (2, 130 | 150, 2), with this file's f32
+    tolerances."""
+    import jax
+    q, k, v = _qkv(40 + dh, 2, 130, 150, 2, dh)
+    do = np.random.default_rng(41).standard_normal(q.shape).astype(
+        np.float32)
+    sc = dh ** -0.5
+    want, vjp = jax.vjp(lambda a, b, c: jfa.flash_mha(a, b, c, sc,
+                                                      core="reference"),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = tfa.flash_mha(*leaves, sc)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-6)
+    got.backward(torch.from_numpy(do))
+    for leaf, w, name in zip(leaves, grads, "qkv"):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   rtol=2e-4, atol=2e-5, err_msg=f"d{name}")
+
+
+def test_opt_out_env_closes_the_gate(monkeypatch):
+    """XTTS_FLASH_ATTN=0, read at each call as JAX's _use_flash reads it:
+    use_flash is False above the size gate, so a flash=True CrossAttention
+    calls no flash_mha and gives the einsum path's bits (a flash=False
+    twin's); unset or any other value, flash_mha runs."""
+    from xtts_tpu_torch.models import aa_diffusion as tad
+    calls = []
+
+    def counted(*a):
+        calls.append(a[0].shape)
+        return tfa.flash_mha(*a)
+
+    monkeypatch.setattr(tad, "flash_mha", counted)
+    torch.manual_seed(0)
+    flash = tad.CrossAttention(64, heads=2, dim_head=32, flash=True)
+    plain = tad.CrossAttention(64, heads=2, dim_head=32)
+    plain.load_state_dict(flash.state_dict())
+    x = torch.from_numpy(np.random.default_rng(50).standard_normal(
+        (1, 1024, 64)).astype(np.float32))
+    assert tfa.use_flash(1024, 1024)
+    monkeypatch.setenv("XTTS_FLASH_ATTN", "0")
+    assert not tfa.use_flash(1024, 1024)
+    with torch.no_grad():
+        off, ref = flash(x), plain(x)
+    assert calls == [] and torch.equal(off, ref)
+    monkeypatch.setenv("XTTS_FLASH_ATTN", "1")
+    with torch.no_grad():
+        on = flash(x)
+    assert calls == [(1, 1024, 2, 32)]
+    torch.testing.assert_close(on, ref, rtol=1e-6, atol=1e-6)

@@ -563,8 +563,24 @@ def test_flash_mha_backward_kernels_do_not_spill(cuda):
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.bwd_kernel_attrs()
     for name in ("flash_mha_bwd_dkv", "flash_mha_bwd_dq"):
-        regs, local = attrs[(name, "bf16")]
+        regs, local = attrs[(name, "bf16", 64)]
         assert 0 < regs <= 255 and local == 0, (name, regs, local)
+
+
+def test_flash_kernel_attrs_cover_every_kernel(cuda):
+    """kernel_attrs reads registers and local memory of all 18 kernels
+    (forward, dkv, dq; bf16 and f32; widths 32, 64, 128); the backward's
+    are bwd_kernel_attrs'. Below width 128 no kernel spills (chip_smoke
+    prints the width-128 kernels' local memory)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    attrs = fa.kernel_attrs()
+    assert len(attrs) == 18
+    assert all(0 < regs <= 255 and local >= 0
+               for regs, local in attrs.values())
+    assert {key: a for key, a in attrs.items()
+            if key[2] < 128 and a[1]} == {}
+    assert fa.bwd_kernel_attrs() == {key: a for key, a in attrs.items()
+                                     if key[0] != "flash_mha"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -587,9 +603,92 @@ def test_flash_mha_lse_and_f32_forward(cuda, dtype, b, tq, tk, h):
     assert (o.float() - o32).abs().max().item() <= bound
 
 
-def _p9_config():
-    """A small configuration whose UNet heads are 64 wide (the kernel's
-    head width) and whose GPT reaches code bucket 320."""
+# Head widths other than 64 (P11): the tile kernels at 32 and 128 in bf16
+# and f32, f32 at 64, and a width between (48) zero-padded to 64, each
+# forward (with lse) and backward against the f32 twins at the tolerances
+# above, the pads counted, the backward's bits the same twice.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [32, 48, 128])
+@pytest.mark.parametrize("b,tq,tk,h", [
+    (2, 1280, 1562, 4),        # the main bucket at 512 channels
+    (1, 17, 70, 2),            # Tq below one tile, a ragged key tile
+    (1, 193, 321, 2)])         # the ring wraps, one-row last tiles
+def test_flash_mha_head_widths(cuda, dtype, width, b, tq, tk, h):
+    from xtts_tpu_torch.nn import flash_attn as fa
+    scale = width ** -0.5
+    q, k, v, do = (torch.randn(b, t, h, width, generator=cuda,
+                               device="cuda").to(dtype)
+                   for t in (tq, tk, tk, tq))
+    for fn in fa.KERNELS:
+        fn.launches = 0
+    fa.flash_mha.pads = 0
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, scale)
+    again = fa.flash_mha_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fa.KERNELS] == [1, 2, 2]
+    assert fa.flash_mha.pads == (5 if width == 48 else 0)
+    assert o.shape == q.shape and o.dtype == dtype
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    o32, lse32 = fa.flash_mha_plain_lse(qf, kf, vf, scale)
+    torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-5)
+    bound = 5e-5 if dtype == torch.float32 else 1e-2
+    assert (o.float() - o32).abs().max().item() <= bound
+    want = fa.flash_mha_bwd_plain(qf, kf, vf, o32, lse32, do.float(), scale)
+    floor = 1e-3 * max(w.abs().max().item() for w in want)
+    for x, w, name in zip(got, want, "qkv"):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.isfinite(x).all(), name
+        err = _k2_rel(x, w, floor)
+        assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("tk", [63, 64, 65, 191, 192, 193])
+def test_flash_mha_f32_wraps_the_ring(cuda, tk):
+    """f32 at width 64, Tq 130 and Tk of 64n - 1, 64n, 64n + 1: the
+    tile kernels' two-stage rings (K / V in the forward and dq, Q / dO and
+    their statistics in dkv) wrap with a ragged, whole or one-row last
+    tile."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v, do = _k2_case(cuda, torch.float32, 1, 130, tk, 2)
+    o, lse = fa._flash_fwd_cuda(q, k, v, 0.125, True)
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, 0.125)
+    o32, lse32 = fa.flash_mha_plain_lse(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert (o - o32).abs().max().item() <= 5e-5
+    _k2_bwd_against_twin(q, k, v, do, torch.float32, got)
+
+
+def test_flash_attn_opt_out_launches_nothing(cuda, monkeypatch):
+    """XTTS_FLASH_ATTN=0: a flash=True CrossAttention above the size gate
+    launches no K2 kernel and gives the einsum path's bits; without it,
+    K2 launches once."""
+    from xtts_tpu_torch.models.aa_diffusion import CrossAttention
+    from xtts_tpu_torch.nn import flash_attn as fa
+    flash = CrossAttention(128, heads=4, dim_head=32, flash=True).cuda()
+    plain = CrossAttention(128, heads=4, dim_head=32).cuda()
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn(1, 1024, 128, generator=cuda, device="cuda")
+    assert fa.use_flash(1024, 1024)
+    monkeypatch.setenv("XTTS_FLASH_ATTN", "0")
+    fa.flash_mha.launches = 0
+    with torch.no_grad():
+        off, ref = flash(x), plain(x)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 0 and torch.equal(off, ref)
+    monkeypatch.delenv("XTTS_FLASH_ATTN")
+    with torch.no_grad():
+        on = flash(x)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1
+    assert (on - ref).abs().max().item() <= 2 * 5e-5 * max(
+        1.0, ref.abs().max().item())
+
+
+def _p9_config(num_heads=2):
+    """A small configuration whose UNet heads are 128 // num_heads wide (64
+    by default) and whose GPT reaches code bucket 320."""
     from xtts_tpu_torch.core.config import (CLIPRefConfig, DVAEConfig,
                                             DiffusionModelConfig, GPTConfig,
                                             MelConfig, VocosConfig,
@@ -605,7 +704,8 @@ def _p9_config():
                       cond_attn_blocks=1),
         diffusion=DiffusionModelConfig(
             in_channels=mb, out_channels=2 * mb, model_channels=128,
-            num_res_blocks=1, channel_mult=(1,), num_heads=2, context_dim=32,
+            num_res_blocks=1, channel_mult=(1,), num_heads=num_heads,
+            context_dim=32,
             in_latent_channels=128,
             clip=CLIPRefConfig(embed_dim=32, width=32, layers=1,
                                head_width=16, patch_size=4, in_channels=mb,
@@ -633,6 +733,34 @@ def test_default_f32_tts_renders_bucket_320_through_k2(cuda):
                                      speculative_render=True))
     torch.cuda.synchronize()
     assert fa.flash_mha.launches > 0
+    assert np.isfinite(out["wav"]).all() and out["wav"].shape[-1] > 0
+
+
+@pytest.mark.parametrize("num_heads", [4, 1])
+def test_f32_tts_renders_bucket_320_at_other_head_widths(cuda, num_heads):
+    """P11: a flash=True f32 TextToSpeech whose UNet heads are 32 (4 heads)
+    or 128 (1 head) wide renders a request at code bucket 320 through K2
+    (it raised "takes (B, T, H, 64)" there before)."""
+    import numpy as np
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    from xtts_tpu_torch.nn import flash_attn as fa
+    tts = TextToSpeech(_p9_config(num_heads), device="cuda")
+    assert tts.dtype == torch.float32
+    attn = tts.diffusion.base_model.blocks[1][1].transformer_blocks[0].attn1
+    assert attn.flash and attn.dim_head == 128 // num_heads
+    rng = np.random.default_rng(0)
+    cond = torch.from_numpy(rng.standard_normal((1, 8, 282)).astype(
+        np.float32)).cuda()
+    text = rng.integers(3, 200, (1, 20)).astype(np.int32)
+    fa.flash_mha.launches = fa.flash_mha.f32_launches = 0
+    fa.flash_mha.pads = 0
+    out = tts.tts_tokens(text, cond, torch.Generator("cuda").manual_seed(1),
+                         TTSSettings(max_mel_tokens=300,
+                                     speculative_render=True))
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches > 0
+    assert fa.flash_mha.f32_launches == fa.flash_mha.launches
+    assert fa.flash_mha.pads == 0
     assert np.isfinite(out["wav"]).all() and out["wav"].shape[-1] > 0
 
 
@@ -1106,9 +1234,9 @@ def test_norm_prologue_refuses_bad_operands(cuda):
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from xtts_tpu_torch.nn import flash_attn as fa
     from xtts_tpu_torch.ops import decode_step as ds
-    q = torch.randn(1, 64, 2, 32, device="cuda").bfloat16()
-    with pytest.raises(ValueError):
-        fa.flash_mha(q, q, q, 0.1)                     # head dim 32
+    q = torch.randn(1, 64, 2, 160, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_mha(q, q, q, 0.1)                     # head dim above 128
     q64 = torch.randn(1, 64, 2, 64, device="cuda").half()
     with pytest.raises(ValueError):                    # f16
         fa.flash_mha(q64, q64, q64, 0.1)

@@ -1,5 +1,6 @@
-// Device helpers shared by the port's kernels: cp.async copies, warp and
-// block reductions, gelu_new, and the LayerNorm that layer_norm_rows (K1)
+// Device helpers shared by the port's kernels: cp.async copies, the 3xTF32
+// tensor-core product of K2's f32 kernels and K3, warp and block
+// reductions, gelu_new, and the LayerNorm that layer_norm_rows (K1)
 // runs standalone and the product kernels of K1 and K4 run as their
 // prologue.
 //
@@ -51,6 +52,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores (K2's f32 kernels, K3): an f32 operand v splits
+// into big = tf32(v) and small = tf32(v - big), and a product sums
+// big*small + small*big + big*big on mma.sync m16n8k8 with f32
+// accumulators. The dropped small*small term and the tf32 roundings of the
+// small parts leave each product within ~2^-21 of |a||b| relative.
+// ---------------------------------------------------------------------------
+
+// the f32 value rounded to tf32 (to nearest, ties away), as f32 bits: half
+// a tf32 ulp added to the magnitude's bits, the 13 low bits cleared. The
+// same bits as cvt.rna.tf32.f32 for every finite value, in two integer
+// operations at the full integer rate instead of one conversion at the
+// conversion rate (a quarter of it on sm_90).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - __uint_as_float(big));
+}
+
+// The same split with the small part passed as it is: the tensor cores read
+// a tf32 operand's top 19 bits, so its 13 low bits are cut there (within
+// 2^-21 of |v|), in 3 operations instead of 5 (K2's f32 kernels; K3 keeps
+// split_tf32, whose rounded parts its codes are held to)
+__device__ __forceinline__ void split_tf32_cut(float v, uint32_t& big,
+                                               uint32_t& small) {
+  big = to_tf32(v);
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// c += a b, m16n8k8, tf32 operands, f32 accumulators. Thread (g = lane / 4,
+// t = lane % 4): a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, column g), b1 (k t + 4, g); c0, c1 (g, 2t, 2t + 1), c2,
+// c3 (g + 8, 2t, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -8,8 +8,21 @@
 // serving path: q (2, 1280, 8, 64), k/v (2, 1562, 8, 64) at code bucket 320
 // — 4 x 50 forward calls a request, bf16 or f32 (TextToSpeech's default).
 //
-// Six kernels, each generic in where the (B, T, H, 64) views' strides put
-// their rows (the projections' head-split views arrive as they are):
+// Every kernel reads the (B, T, H, D) views' strides as they come (the
+// projections' head-split views arrive as they are) and takes head widths
+// D = 32, 64 and 128; the wrapper zero-pads any other width up to 128 to
+// the next of these. Two families:
+//
+// - bf16 at D = 64, the flagship path: flash_fwd_kernel,
+//   flash_bwd_dkv_kernel and flash_bwd_dq_kernel on wgmma (below).
+// - The tile family on mma.sync (flash_*_tc_kernel<T, D>): every f32
+//   kernel at D = 32, 64, 128, and bf16 at D = 32 and 128. bf16 takes this
+//   family at the other widths, and not the wgmma kernels templated on D,
+//   because wgmma's 128-byte swizzle holds exactly 64 bf16 a row: 32 or
+//   128 would need other swizzles and descriptors for both operand majors,
+//   and other accumulator shapes, in the flagship kernels; the tile family
+//   takes any D that is a multiple of its mma depth, and keeps the
+//   flagship kernels' source and times as they are.
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
 // 64 = 8.2 GFLOP a call at the shape above (8.3 us at 989 TFLOP/s),
@@ -50,21 +63,14 @@
 //   log2 e again to rebuild P with exp2); without one (serving) nothing
 //   else changes.
 //
-// flash_fwd_tile_kernel<float> (f32 inputs, as the Pallas kernel takes
-// them). The same grid and online softmax on the same accumulator layout;
-// S and P V are f32 FMA tiles (tile_mma<float>), no TF32: every product and
-// sum is an f32 operation, so the output differs from f32 attention only
-// in the order of the sums. Bound: 4 B H Tq Tk 64 operations at the 67
-// TFLOP/s of f32 outside the tensor cores (0.12 ms at the main shape).
-//
-// The backward: flash_bwd_dkv_kernel (bf16) and flash_bwd_dkv_tile_kernel
-// <float> are the counterparts of _flash_attention_bwd_dkv,
-// flash_bwd_dq_kernel and flash_bwd_dq_tile_kernel<float> of
-// _flash_attention_bwd_dq. Bound: the backward's five products, 10 B H Tq
-// Tk 64 = 20.5 GFLOP at the main shape (20.7 us at 989 TFLOP/s bf16; f32
-// at 67 TFLOP/s), against ~10 MB of q/k/v/o/dO/dq/dk/dv. D = rowsum(dO *
-// O) in f32 comes in from the caller (torch ops, as JAX computes it in XLA
-// outside its kernels); lse (natural log) from the forward.
+// The backward: flash_bwd_dkv_kernel (bf16) and flash_bwd_dkv_tc_kernel
+// are the counterparts of _flash_attention_bwd_dkv, flash_bwd_dq_kernel
+// and flash_bwd_dq_tc_kernel of _flash_attention_bwd_dq. Bound: the
+// backward's five products, 10 B H Tq Tk D = 20.5 GFLOP at the main shape
+// (20.7 us at 989 TFLOP/s bf16), against ~10 MB of q/k/v/o/dO/dq/dk/dv.
+// D = rowsum(dO * O) in f32 comes in from the caller (torch ops, as JAX
+// computes it in XLA outside its kernels); lse (natural log) from the
+// forward.
 // - dkv: one 128-thread block for each (64-key tile, head, batch row). K
 //   and V stay in shared memory; the block loops over the 64-query tiles:
 //   S^T = K Q^T and dP^T = V dO^T (keys are the accumulator rows), then
@@ -77,11 +83,11 @@
 //   rows, dS rounded, dQ += dS K.
 // - No atomics: each block owns its output rows, so the gradients are the
 //   same from run to run, as the Pallas kernels' are.
-// - bf16 (the forward's parts): the block's fixed pair of tiles (K, V for
-//   dkv; Q, dO for dq) is copied once into swizzled shared memory; the
-//   streamed pair (Q, dO; K, V) runs through a BWD_STAGES-deep cp.async
-//   ring, zero-filled past the ragged edge, one __syncthreads a tile.
-//   dkv streams each query tile's 64 lse and D values beside it (its
+// - bf16 at D = 64 (the forward's parts): the block's fixed pair of tiles
+//   (K, V for dkv; Q, dO for dq) is copied once into swizzled shared
+//   memory; the streamed pair (Q, dO; K, V) runs through a BWD_STAGES-deep
+//   cp.async ring, zero-filled past the ragged edge, one __syncthreads a
+//   tile. dkv streams each query tile's 64 lse and D values beside it (its
 //   columns are queries: a thread reads its 16 columns' values as 8
 //   float2 pairs); dq keeps its two rows' in registers. Every product is
 //   wgmma m64n64k16 with an f32 accumulator in registers: S (S^T) and dP
@@ -91,8 +97,43 @@
 //   registers as the A operand (as P in the forward) and dO / Q / K read
 //   MN-major (as V). In dkv the dV product runs while dS^T is computed.
 //   No tile of P or dS touches shared memory.
-// - f32: FMA on the same accumulator layout (tile_mma<float>), no TF32,
-//   synchronous tile loads, P / dS tiles through shared memory.
+//
+// The tile family (flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel,
+// flash_bwd_dq_tc_kernel <T, D>): the same grids (a 64-query tile a block
+// in the forward and dq, a 64-key tile in dkv), online softmax, lse
+// contract, zero-filled ragged edges and no atomics, with
+// - every product on the tensor cores by mma.sync m16n8: f32 in 3xTF32
+//   (m16n8k8; each operand split into a big and a small tf32 part as its
+//   fragment is read from shared memory or the registers, three products
+//   a step, as K3 does: common.cuh), bf16 on m16n8k16;
+// - P, P^T, dS and dS^T kept in registers: an m16n8 accumulator block is
+//   the A operand of the next product as it stands (f32: its columns 2t,
+//   2t + 1 taken as k = t, t + 4, with B's rows read in that order; bf16:
+//   two blocks rounded to bf16 pairs, as wgmma's P);
+// - the long f32 sums (O, dV, dK, dQ over every key or query) taken in
+//   partials of four k-steps joined by IEEE adds: the tensor cores'
+//   accumulation truncates, and in place it drifted by 1.3-1.9e-5 of the
+//   largest gradient over the main bucket's ~500 k-steps;
+// - the streamed tiles (K, V in the forward and dq; Q, dO and their lse
+//   and D in dkv) through a two-stage cp.async ring, the next tile's copy
+//   in flight during this tile's products; tile rows padded (f32 D + 4,
+//   bf16 D + 8 elements) so that every fragment read is free of bank
+//   conflicts;
+// - bf16's Q read once into registers (unsplit) through the ring's second
+//   K slot, so its shared memory is the ring's four tiles; f32's Q in a
+//   fifth tile (87 KB at D = 64, two blocks an SM: in registers it
+//   spilled); the backward keeps its fixed pair in shared memory (104 KB
+//   at f32 D = 64: two blocks an SM); dkv forms dV right after P^T,
+//   before dP^T takes its registers.
+// Bounds of the f32 kernels at the main shape, the forward (2 B H Tq Tk D
+// x 2 = 8.19 GFLOP), dkv (4 products, 16.4 GFLOP) and dq (3, 12.3 GFLOP):
+// in f32 FMA at 67 TFLOP/s 122, 244 and 183 us; in 3xTF32 (3 x the
+// operations at 495 TFLOP/s dense) 49.6, 99.3 and 74.4 us. The FMA tiles
+// these replace reached 18, 16.3 and 13.2 TFLOP/s, held by their
+// shared-memory loads (2 A and 16 B values for 32 FMA a k). What holds
+// the tile family back (scripts/bench_flash_f32.py, PERF.md): the splits
+// (each warp splits the whole B tile: one B value feeds 3 mma of 16 rows),
+// the two extra mma of 3xTF32, and mma.sync's rate on sm_90.
 //
 // C interface (ctypes): returns cudaGetLastError().
 
@@ -100,6 +141,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 #define XT_API extern "C"
 
@@ -115,36 +158,6 @@ constexpr int STAGES = 2;               // K/V ring depth
 constexpr int SMEM_BYTES = (1 + 2 * STAGES) * TILE_BYTES + 1024;  // + align
 static_assert(SMEM_BYTES <= 48 * 1024, "more would need an opt-in per device");
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// until at most N commit groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // A 64 x 64 bf16 tile (rows row0.. of a view with row stride `stride`
 // elements) into the swizzled layout at shared address dst; rows at or
@@ -691,168 +704,390 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The tile kernels: the f32 forward and both f32 backward kernels, generic
-// in T (only float is built). A tile is 64 rows x 64 elements of T in
-// shared memory, row-major with a padded row of LD<T> elements (a multiple
-// of 16 bytes).
+// The tile family (mma.sync): every f32 kernel, and the bf16 kernels at head
+// widths 32 and 128. Generic in the element type T and the head width D. A
+// tile is 64 rows x D elements of T in shared memory, rows TC<T, D>::LD
+// elements apart. A warp owns 16 accumulator rows as m16n8 blocks: block
+// j's c[j][0], c[j][1] are (row g, columns 8j + 2t, + 1) and c[j][2],
+// c[j][3] row g + 8 (g = lane / 4, t = lane % 4) — the wgmma kernels'
+// register 4j + c, so the softmax and the P / dS code read the same.
+//
+// Two B reads: b_nt (B(k, n) = tile[n][k]; S, dP and their transposes) and
+// b_nn (B(k, n) = tile[k][n]; the products whose A operand is P, P^T, dS or
+// dS^T, taken from the accumulators as they are).
 
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int LD = 68;
+template <typename T, int D>
+struct TC;
+
+// f32: 3xTF32 on m16n8k8 (common.cuh's split_tf32_cut and mma_tf32). An
+// accumulator block's columns 2t, 2t + 1 feed the A operand as k = t and
+// k = t + 4, so b_nn reads B's rows in that same order: rows 2t and 2t + 1.
+// LD = D + 4 puts the 32 lanes of b_nt (tile[g][t]) and of b_nn
+// (tile[2t][g]) on 32 banks.
+template <int D>
+struct TC<float, D> {
+  static constexpr int LD = D + 4;
+  static constexpr int KS = 8;        // depth of one mma
+  static constexpr int PARTIAL = 4;   // k-steps a partial of a long sum
+  struct A {
+    uint32_t big[4], small[4];
+  };
+  struct B {
+    uint32_t big[2], small[2];
+  };
+
+  // the A operand of rows g, g + 8 of `rows` (the warp's first row), k0..,
+  // unsplit
+  __device__ static void a_raw(uint32_t (&r)[4], const float* rows, int k0) {
+    const int lane = threadIdx.x & 31;
+    const float* p = rows + (lane >> 2) * LD + k0 + (lane & 3);
+    r[0] = __float_as_uint(p[0]);
+    r[1] = __float_as_uint(p[8 * LD]);
+    r[2] = __float_as_uint(p[4]);
+    r[3] = __float_as_uint(p[8 * LD + 4]);
+  }
+  __device__ static A a_split(const uint32_t (&r)[4]) {
+    A a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32_cut(__uint_as_float(r[i]), a.big[i], a.small[i]);
+    return a;
+  }
+  __device__ static A a_tile(const float* rows, int k0) {
+    uint32_t r[4];
+    a_raw(r, rows, k0);
+    return a_split(r);
+  }
+  // accumulator block kk as the A operand of k-step kk
+  __device__ static A a_acc(const float (&c)[8][4], int kk) {
+    const uint32_t r[4] = {__float_as_uint(c[kk][0]), __float_as_uint(c[kk][2]),
+                           __float_as_uint(c[kk][1]), __float_as_uint(c[kk][3])};
+    return a_split(r);
+  }
+  __device__ static B b_nt(const float* tile, int n0, int k0) {
+    const int lane = threadIdx.x & 31;
+    const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
+    B b;
+    split_tf32_cut(p[0], b.big[0], b.small[0]);
+    split_tf32_cut(p[4], b.big[1], b.small[1]);
+    return b;
+  }
+  __device__ static B b_nn(const float* tile, int k0, int n0) {
+    const int lane = threadIdx.x & 31;
+    const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+    B b;
+    split_tf32_cut(p[0], b.big[0], b.small[0]);
+    split_tf32_cut(p[LD], b.big[1], b.small[1]);
+    return b;
+  }
+  // c += a b: the two small terms, then big * big
+  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
+    mma_tf32(c, a.big, b.small);
+    mma_tf32(c, a.small, b.big);
+    mma_tf32(c, a.big, b.big);
+  }
 };
-template <typename T>
-__host__ __device__ constexpr int tile_elems() {
-  return 64 * Tile<T>::LD;
+
+// bf16: m16n8k16. A: (row g, k 2t, 2t + 1), (g + 8, ...), (g, 2t + 8, 2t +
+// 9), (g + 8, ...) as bf16 pairs; B: (k 2t, 2t + 1; column g), (k 2t + 8,
+// 2t + 9; g). Accumulator blocks 2kk and 2kk + 1, rounded to bf16, are the
+// A operand of k-step kk as they stand. LD = D + 8 puts b_nt's and a_raw's
+// 32-bit words on 32 banks, and b_nn's 16-bit reads on 16 distinct words a
+// row (lanes g and g + 1 share one).
+template <int D>
+struct TC<bf16, D> {
+  static constexpr int LD = D + 8;
+  static constexpr int KS = 16;
+  // bf16 rounds P and dS to 2^-9 before the product: the accumulation's
+  // truncation is far below that, so long sums accumulate in place
+  static constexpr int PARTIAL = 0;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+
+  __device__ static uint32_t word(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ static uint32_t pair(bf16 lo, bf16 hi) {
+    return (uint32_t)__bfloat16_as_ushort(lo) |
+           ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  }
+  __device__ static void a_raw(uint32_t (&r)[4], const bf16* rows, int k0) {
+    const int lane = threadIdx.x & 31;
+    const bf16* p = rows + (lane >> 2) * LD + k0 + 2 * (lane & 3);
+    r[0] = word(p);
+    r[1] = word(p + 8 * LD);
+    r[2] = word(p + 8);
+    r[3] = word(p + 8 * LD + 8);
+  }
+  __device__ static A a_split(const uint32_t (&r)[4]) {
+    return A{{r[0], r[1], r[2], r[3]}};
+  }
+  __device__ static A a_tile(const bf16* rows, int k0) {
+    A a;
+    a_raw(a.r, rows, k0);
+    return a;
+  }
+  __device__ static A a_acc(const float (&c)[8][4], int kk) {
+    return A{{pack_bf16(c[2 * kk][0], c[2 * kk][1]),
+              pack_bf16(c[2 * kk][2], c[2 * kk][3]),
+              pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+              pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])}};
+  }
+  __device__ static B b_nt(const bf16* tile, int n0, int k0) {
+    const int lane = threadIdx.x & 31;
+    const bf16* p = tile + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
+    return B{{word(p), word(p + 8)}};
+  }
+  __device__ static B b_nn(const bf16* tile, int k0, int n0) {
+    const int lane = threadIdx.x & 31;
+    const bf16* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+    return B{{pair(p[0], p[LD]), pair(p[8 * LD], p[9 * LD])}};
+  }
+  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
+          "r"(b.r[1]));
+  }
+};
+
+template <typename T, int D>
+__host__ __device__ constexpr int tc_tile_bytes() {
+  return 64 * TC<T, D>::LD * (int)sizeof(T);
 }
 
+// Blocks an SM the f32 kernels are built for: their shared memory holds
+// two (87-104 KB at D = 64). Built for one, ptxas kept dq and the forward
+// to 168 registers and spilled; for two it holds them in 216-240 without
+// a spill, and dq took 305 us against 433 at the main bucket on an H100
+// (scripts/bench_flash_f32.py dqlb2).
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
+__host__ __device__ constexpr int tc_min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
 }
 
-// rows row0.. of a (T, 64) view with row stride `stride` elements into a
-// tile; rows at or past nrows are zero. 16-byte loads: the caller checks
-// that strides and bases allow them.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
-                                          long long stride, int row0,
-                                          int nrows) {
-  constexpr int EPC = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int CPR = 64 / EPC;        // chunks a row
-  for (int id = threadIdx.x; id < 64 * CPR; id += THREADS) {
-    const int r = id / CPR, c = id % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) *
-                                                      stride + c * EPC);
-    *reinterpret_cast<uint4*>(dst + r * Tile<T>::LD + c * EPC) = val;
+// rows row0.. of a (rows, D) view with row stride `stride` elements into a
+// tile, asynchronously (16-byte cp.async, the caller commits); rows at or
+// past nrows zero-filled
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src,
+                                           long long stride, int row0,
+                                           int nrows) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements a chunk
+  constexpr int CPR = D / EPC;              // chunks a row
+  static_assert(64 * CPR % THREADS == 0, "whole chunks a thread");
+  const uint32_t base = smem_u32(dst);
+#pragma unroll
+  for (int i = 0; i < 64 * CPR / THREADS; ++i) {
+    const int id = threadIdx.x + i * THREADS, r = id / CPR, c = id % CPR;
+    const bool valid = row0 + r < nrows;
+    const T* g = valid ? src + (long long)(row0 + r) * stride + c * EPC : src;
+    cp_async16(base + (r * TC<T, D>::LD + c * EPC) * (int)sizeof(T), g,
+               valid);
   }
 }
 
-// acc += A B over k = 0..63 for the warp's 16 rows of a 64 x 64 product, in
-// the accumulator layout of the bf16 forward (register 4j + c: row 16 warp
-// + g, column 8j + 2q + c; 4j + 2 + c: row + 8), by f32 FMA. A is a tile,
-// row-major (rows x k). NT: B(k, n) = tile Bt[n][k]; else B(k, n) = tile
-// B[k][n].
-template <bool NT>
-__device__ __forceinline__ void tile_mma(float (&acc)[32], const float* A,
-                                         const float* B) {
-  constexpr int LD = Tile<float>::LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const float* alo = A + (16 * warp + g) * LD;
-  const float* ahi = alo + 8 * LD;
-#pragma unroll 4
-  for (int k = 0; k < 64; ++k) {
-    const float a_lo = alo[k], a_hi = ahi[k];
+// acc[j] += A B over k = 0..D-1: A the warp's 16 rows of a tile (`rows`
+// its first), B(k, n) = b_tile[8j + n][k] (S = Q K^T and its kin). The
+// k-steps unrolled by 2: unrolled whole, f32 dkv at D = 64 spilled at 255
+// registers and took 458 us at the main bucket on an H100, by 2 it holds
+// its registers and took 396 (scripts/bench_flash_f32.py nt2).
+template <typename T, int D>
+__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const T* rows,
+                                       const T* b_tile) {
+  using C = TC<T, D>;
+#pragma unroll 2
+  for (int kk = 0; kk < D / C::KS; ++kk) {
+    const typename C::A a = C::a_tile(rows, kk * C::KS);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j)
+      C::mma(acc[j], a, C::b_nt(b_tile, 8 * j, kk * C::KS));
+  }
+}
+
+// acc[j] += P B over the 64 columns of P (registers, the accumulator
+// layout), B(k, n) = b_tile[k][8j + n] (O += P V and its kin: sums over
+// every key or query). The tensor cores' f32 accumulation truncates, so
+// in place over hundreds of k-steps it biases such a sum (1.3-1.9e-5 of
+// the largest f32 gradient at the main bucket on an H100, against 1e-5):
+// with C::PARTIAL, every PARTIAL k-steps' products form in a zeroed
+// partial that joins the sum by an IEEE add.
+template <typename T, int D>
+__device__ __forceinline__ void mma_pn(float (&acc)[D / 8][4],
+                                       const float (&p)[8][4],
+                                       const T* b_tile) {
+  using C = TC<T, D>;
+  constexpr int G = C::PARTIAL > 0 ? C::PARTIAL : 1;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = 8 * j + t2 + c;
-        const float bv = NT ? B[n * LD + k] : B[k * LD + n];
-        acc[4 * j + c] = fmaf(a_lo, bv, acc[4 * j + c]);
-        acc[4 * j + 2 + c] = fmaf(a_hi, bv, acc[4 * j + 2 + c]);
+  for (int k0 = 0; k0 < 64 / C::KS; k0 += G) {
+    typename C::A a[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) a[g] = C::a_acc(p, k0 + g);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if constexpr (C::PARTIAL > 0) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          C::mma(t, a[g], C::b_nn(b_tile, (k0 + g) * C::KS, 8 * j));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += t[i];
+      } else {
+        C::mma(acc[j], a[0], C::b_nn(b_tile, k0 * C::KS, 8 * j));
       }
     }
   }
 }
 
-// a thread's accumulator values into tile rows (16 warp + g, + 8), as T
-template <typename T>
-__device__ __forceinline__ void store_acc(T* tile, const float (&v)[32]) {
-  constexpr int LD = Tile<T>::LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  T* lo = tile + (16 * warp + g) * LD + t2;
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      lo[8 * j + c] = from_f<T>(v[4 * j + c]);
-      lo[8 * LD + 8 * j + c] = from_f<T>(v[4 * j + 2 + c]);
-    }
+    for (int c = 0; c < 4; ++c) r[j][c] = 0.f;
 }
 
-// a thread's accumulator rows (row0 + 16 warp + g, + 8) of a (T, 64) view,
-// rows at or past nrows left out
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, long long stride,
-                                           int row0, int nrows,
-                                           const float (&v)[32]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (r0 < nrows)
-        dst[(long long)r0 * stride + 8 * j + t2 + c] = from_f<T>(v[4 * j + c]);
-      if (r1 < nrows)
-        dst[(long long)r1 * stride + 8 * j + t2 + c] =
-            from_f<T>(v[4 * j + 2 + c]);
-    }
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Forward on tiles (the f32 variant): flash_fwd_kernel's online softmax,
-// S = Q K^T and O += P V as tile products, P through shared memory.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int Tq, int Tk, long long sqb,
-                      long long sqt, long long sqh, long long skb,
-                      long long skt, long long skh, long long svb,
-                      long long svt, long long svh, long long sob,
-                      long long sot, long long soh, float scale_log2) {
+// a thread's accumulator rows (row0 + 16 warp + g, + 8) of a (rows, D)
+// view, rows at or past nrows left out
+template <typename T, int D>
+__device__ __forceinline__ void store_tile_rows(T* dst, long long stride,
+                                                int row0, int nrows,
+                                                const float (&v)[D / 8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = row0 + 16 * warp + (lane >> 2), cq = (lane & 3) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= nrows) continue;
+    T* p = dst + (long long)r * stride + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair(p + 8 * j, v[j][2 * half], v[j][2 * half + 1]);
+  }
+}
+
+// The forward keeps Q in registers (unsplit) in bf16; in f32 in a fifth
+// tile. In registers at f32 D = 64 the kernel spilled at the 168
+// registers of three blocks an SM (239 us at the main bucket on an H100)
+// and at 255 (2 blocks); from shared memory, two blocks an SM, it holds
+// everything in 240 registers and took 203 us (scripts/bench_flash_f32.py
+// qsmem).
+template <typename T, int D>
+__host__ __device__ constexpr bool fwd_q_in_regs() {
+  return sizeof(T) == 2;
+}
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_smem() {
+  return (fwd_q_in_regs<T, D>() ? 4 : 5) * tc_tile_bytes<T, D>();
+}
+
+// The forward: flash_fwd_kernel's grid, ring and online softmax. Q in
+// registers is staged through stage 1's K slot before the ring first
+// fills that stage, so the ring's four tiles are all the shared memory
+// the block holds.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int Tq, int Tk, long long sqb,
+                    long long sqt, long long sqh, long long skb,
+                    long long skt, long long skh, long long svb,
+                    long long svt, long long svh, long long sob,
+                    long long sot, long long soh, float scale_log2) {
+  using C = TC<T, D>;
+  constexpr int TE = 64 * C::LD;  // elements a tile
+  constexpr bool QREG = fwd_q_in_regs<T, D>();
   extern __shared__ __align__(16) unsigned char smem_t[];
-  T* sQ = reinterpret_cast<T*>(smem_t);
-  T* sK = sQ + tile_elems<T>();
-  T* sV = sK + tile_elems<T>();
-  T* sP = sV + tile_elems<T>();
+  T* const ring = reinterpret_cast<T*>(smem_t);
+  auto sK = [&](int s) { return ring + 2 * s * TE; };
+  auto sV = [&](int s) { return ring + (2 * s + 1) * TE; };
+  T* const sQ = QREG ? sK(1) : ring + 4 * TE;
+
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, cq = (lane & 3) * 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cq = (lane & 3) * 2;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
-  load_rows(sQ, q + b * sqb + h * sqh, sqt, q0, Tq);
+  const int ntiles = (Tk + BK - 1) / BK;
 
-  float acc_o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc_o[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // the last tile's products are done with sK, sV
-    load_rows(sK, kb, skt, k0, Tk);
-    load_rows(sV, vb, svt, k0, Tk);
+  stage_tile<T, D>(sQ, q + b * sqb + h * sqh, sqt, q0, Tq);
+  stage_tile<T, D>(sK(0), kb, skt, 0, Tk);
+  stage_tile<T, D>(sV(0), vb, svt, 0, Tk);
+  cp_async_commit();
+  const T* const qrows = sQ + 16 * warp * C::LD;  // this warp's Q rows
+  uint32_t qf[QREG ? D / C::KS : 1][4];           // ... as A operands
+  if constexpr (QREG) {
+    cp_async_wait<0>();
     __syncthreads();
-    float s[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    tile_mma<true>(s, sQ, sK);
+    for (int kk = 0; kk < D / C::KS; ++kk)
+      C::a_raw(qf[kk], qrows, kk * C::KS);
+  }
+
+  float acc[D / 8][4];
+  zero(acc);
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    cp_async_wait<0>();  // tile t (at t = 0 with Q) landed
+    __syncthreads();     // ... for every thread; tile t - 1 (at t = 0 Q
+                         // in registers) is read, its stage free
+    if (t + 1 < ntiles) {
+      stage_tile<T, D>(sK(st ^ 1), kb, skt, (t + 1) * BK, Tk);
+      stage_tile<T, D>(sV(st ^ 1), vb, svt, (t + 1) * BK, Tk);
+    }
+    cp_async_commit();
+
+    // ---- S = Q K^T ----
+    float s[8][4];
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < D / C::KS; ++kk) {
+      typename C::A a;
+      if constexpr (QREG)
+        a = C::a_split(qf[kk]);
+      else
+        a = C::a_tile(qrows, kk * C::KS);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        C::mma(s[j], a, C::b_nt(sK(st), 8 * j, kk * C::KS));
+    }
+
+    // ---- online softmax on the accumulators ----
+    const int k0 = t * BK;
     if (k0 + BK > Tk) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          if (k0 + 8 * j + cq + c >= Tk)
-            s[4 * j + c] = s[4 * j + 2 + c] = -INFINITY;
+          if (k0 + 8 * j + cq + c >= Tk) s[j][c] = s[j][2 + c] = -INFINITY;
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
 #pragma unroll
     for (int sh = 1; sh <= 2; sh <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
     }
+    // every tile holds at least one valid column, so mx0 / mx1 are finite
     const float alpha0 = exp2f((m0 - mx0) * scale_log2);
     const float alpha1 = exp2f((m1 - mx1) * scale_log2);
     m0 = mx0;
@@ -861,201 +1096,227 @@ flash_fwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -mb0));
-      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -mb0));
-      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -mb1));
-      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -mb1));
-      rs0 += s[4 * j] + s[4 * j + 1];
-      rs1 += s[4 * j + 2] + s[4 * j + 3];
+      s[j][0] = exp2f(fmaf(s[j][0], scale_log2, -mb0));
+      s[j][1] = exp2f(fmaf(s[j][1], scale_log2, -mb0));
+      s[j][2] = exp2f(fmaf(s[j][2], scale_log2, -mb1));
+      s[j][3] = exp2f(fmaf(s[j][3], scale_log2, -mb1));
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
     }
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc_o[4 * j] *= alpha0;
-      acc_o[4 * j + 1] *= alpha0;
-      acc_o[4 * j + 2] *= alpha1;
-      acc_o[4 * j + 3] *= alpha1;
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha0;
+      acc[j][1] *= alpha0;
+      acc[j][2] *= alpha1;
+      acc[j][3] *= alpha1;
     }
-    store_acc(sP, s);  // the warp's own rows: it alone reads them back
-    __syncwarp();
-    tile_mma<false>(acc_o, sP, sV);
-    __syncwarp();      // done reading sP before the next tile writes it
+
+    // ---- O += P V, P from the registers ----
+    mma_pn<T, D>(acc, s, sV(st));
   }
+
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int r0 = q0 + 16 * warp + (lane >> 2);
   if (lse != nullptr && cq == 0)
     store_lse(lse, b, h, Tq, r0, m0 * scale_log2 + log2f(l0),
               m1 * scale_log2 + log2f(l1));
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc_o[4 * j] *= inv0;
-    acc_o[4 * j + 1] *= inv0;
-    acc_o[4 * j + 2] *= inv1;
-    acc_o[4 * j + 3] *= inv1;
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= inv0;
+    acc[j][1] *= inv0;
+    acc[j][2] *= inv1;
+    acc[j][3] *= inv1;
   }
-  store_rows(o + b * sob + h * soh, sot, q0, Tq, acc_o);
+  store_tile_rows<T, D>(o + b * sob + h * soh, sot, q0, Tq, acc);
 }
 
-// P and dS of one 64 x 64 tile from S and dP in the accumulator layout:
-// p = exp2(s scale log2 e - lse), 0 where `keep` is false; ds = (dp - D) p
-// scale (the Pallas kernels' order), in place of s and dp. lse and D are
-// the query's: the accumulator row's where rows are queries (dq), else the
-// column's (dkv, where rows are keys).
-template <bool ROWS_ARE_QUERIES>
-__device__ __forceinline__ void p_and_ds(float (&s)[32], float (&dp)[32],
-                                         const float* sL, const float* sD,
-                                         int key0, int Tk, float scale_log2,
-                                         float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int r0 = 16 * warp + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = 8 * j + t2 + c;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? r1 : r0, i = 4 * j + 2 * half + c;
-        const int qi = ROWS_ARE_QUERIES ? row : col;
-        const int key = key0 + (ROWS_ARE_QUERIES ? col : row);
-        const float p = key < Tk ? exp2f(fmaf(s[i], scale_log2, -sL[qi]))
-                                 : 0.f;
-        s[i] = p;
-        dp[i] = (dp[i] - sD[qi]) * p * scale;
-      }
-    }
-}
-
-// lse (back in log2 units) and D of the query rows q0.. (rows past Tq:
-// lse +inf, D 0)
-__device__ __forceinline__ void load_stats(float* sL, float* sD,
-                                           const float* lse,
-                                           const float* delta, int q0,
-                                           int Tq) {
-  if (threadIdx.x < 64) {
-    const int r = q0 + threadIdx.x;
-    sL[threadIdx.x] = r < Tq ? lse[r] * LOG2E : INFINITY;
-    sD[threadIdx.x] = r < Tq ? delta[r] : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int Tk, long long sqb,
-                     long long sqt, long long sqh, long long skb,
-                     long long skt, long long skh, long long svb,
-                     long long svt, long long svh, long long sdb,
-                     long long sdt, long long sdh, long long skgb,
-                     long long skgt, long long skgh, long long svgb,
-                     long long svgt, long long svgh, float scale_log2,
-                     float scale) {
+// dK and dV of one 64-key tile (flash_bwd_dkv_kernel's recurrences): K and
+// V fixed, the query tiles (Q, dO and their 64 lse and D) through the
+// ring; keys are the accumulator rows, queries the columns.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int Tq, int Tk, long long sqb,
+                        long long sqt, long long sqh, long long skb,
+                        long long skt, long long skh, long long svb,
+                        long long svt, long long svh, long long sdb,
+                        long long sdt, long long sdh, long long skgb,
+                        long long skgt, long long skgh, long long svgb,
+                        long long svgt, long long svgh, float scale_log2,
+                        float scale) {
+  using C = TC<T, D>;
+  constexpr int TE = 64 * C::LD;
   extern __shared__ __align__(16) unsigned char smem_t[];
-  T* sK = reinterpret_cast<T*>(smem_t);
-  T* sV = sK + tile_elems<T>();
-  T* sQ = sV + tile_elems<T>();
-  T* sdO = sQ + tile_elems<T>();
-  T* sPt = sdO + tile_elems<T>();
-  T* sdSt = sPt + tile_elems<T>();
-  float* sL = reinterpret_cast<float*>(sdSt + tile_elems<T>());
-  float* sD = sL + 64;
+  T* const sK = reinterpret_cast<T*>(smem_t);
+  T* const sV = sK + TE;
+  auto sQ = [&](int s) { return sK + (2 + 2 * s) * TE; };
+  auto sdO = [&](int s) { return sK + (3 + 2 * s) * TE; };
+  float* const stats = reinterpret_cast<float*>(sK + 6 * TE);  // 2 x 128
+
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, cq = (threadIdx.x & 3) * 2;
   const T* qb = q + b * sqb + h * sqh;
   const T* db = dout + b * sdb + h * sdh;
-  const long long st = ((long long)b * gridDim.y + h) * Tq;
-  load_rows(sK, k + b * skb + h * skh, skt, k0, Tk);
-  load_rows(sV, v + b * svb + h * svh, svt, k0, Tk);
+  // threads 0-63 copy a tile's lse, 64-127 its D
+  const float* stat_src =
+      (threadIdx.x < 64 ? lse : delta) + ((long long)b * gridDim.y + h) * Tq;
+  const int ntiles = (Tq + BQ - 1) / BQ;
+  auto load_stage = [&](int t) {
+    const int s = t & 1, r = t * BQ + (threadIdx.x & 63);
+    stage_tile<T, D>(sQ(s), qb, sqt, t * BQ, Tq);
+    stage_tile<T, D>(sdO(s), db, sdt, t * BQ, Tq);
+    cp_async4(smem_u32(stats + 128 * s + threadIdx.x),
+              stat_src + (r < Tq ? r : 0), r < Tq);
+  };
 
-  float acc_dk[32], acc_dv[32];
+  stage_tile<T, D>(sK, k + b * skb + h * skh, skt, k0, Tk);
+  stage_tile<T, D>(sV, v + b * svb + h * svh, svt, k0, Tk);
+  load_stage(0);
+  cp_async_commit();
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    cp_async_wait<0>();  // tile t (and K, V) landed
+    __syncthreads();     // ... for every thread; tile t - 1's stage free
+    if (t + 1 < ntiles) load_stage(t + 1);
+    cp_async_commit();
+
+    // ---- S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse): the columns
+    // past Tq take lse = +inf ----
+    float sp[8][4], dp[8][4];
+    zero(sp);
+    mma_nt<T, D>(sp, sK + 16 * warp * C::LD, sQ(st));
+    const float* sL = stats + 128 * st;
+    const int qc = t * BQ + cq;  // this thread's first column
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-  for (int q0 = 0; q0 < Tq; q0 += BQ) {
-    __syncthreads();  // the last query tile's products are done
-    load_rows(sQ, qb, sqt, q0, Tq);
-    load_rows(sdO, db, sdt, q0, Tq);
-    load_stats(sL, sD, lse + st, delta + st, q0, Tq);
-    __syncthreads();
-    float s[32], dp[32];
+    for (int j = 0; j < 8; ++j) {
+      const float2 L = *reinterpret_cast<const float2*>(sL + 8 * j + cq);
+      const float la = qc + 8 * j < Tq ? L.x * LOG2E : INFINITY;
+      const float lb = qc + 8 * j + 1 < Tq ? L.y * LOG2E : INFINITY;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    tile_mma<true>(s, sK, sQ);    // S^T: keys x queries
-    tile_mma<true>(dp, sV, sdO);  // dP^T
-    p_and_ds<false>(s, dp, sL, sD, k0, Tk, scale_log2, scale);
-    store_acc(sPt, s);            // P^T and dS^T rounded to T, the warp's
-    store_acc(sdSt, dp);          // own rows
-    __syncwarp();
-    tile_mma<false>(acc_dv, sPt, sdO);   // dV += P^T dO
-    tile_mma<false>(acc_dk, sdSt, sQ);   // dK += dS^T Q
+      for (int half = 0; half < 2; ++half) {
+        sp[j][2 * half] = exp2f(fmaf(sp[j][2 * half], scale_log2, -la));
+        sp[j][2 * half + 1] =
+            exp2f(fmaf(sp[j][2 * half + 1], scale_log2, -lb));
+      }
+    }
+
+    // ---- dV += P^T dO first: dP^T's registers are not live yet ----
+    mma_pn<T, D>(acc_dv, sp, sdO(st));
+
+    // ---- dP^T = V dO^T, dS^T = P^T (dP^T - D) scale (D = 0 past Tq),
+    // dK += dS^T Q ----
+    zero(dp);
+    mma_nt<T, D>(dp, sV + 16 * warp * C::LD, sdO(st));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 Dl = *reinterpret_cast<const float2*>(sL + 64 + 8 * j + cq);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        dp[j][2 * half] = (dp[j][2 * half] - Dl.x) * sp[j][2 * half] * scale;
+        dp[j][2 * half + 1] =
+            (dp[j][2 * half + 1] - Dl.y) * sp[j][2 * half + 1] * scale;
+      }
+    }
+    mma_pn<T, D>(acc_dk, dp, sQ(st));
   }
-  store_rows(dk + b * skgb + h * skgh, skgt, k0, Tk, acc_dk);
-  store_rows(dv + b * svgb + h * svgh, svgt, k0, Tk, acc_dv);
+  store_tile_rows<T, D>(dk + b * skgb + h * skgh, skgt, k0, Tk, acc_dk);
+  store_tile_rows<T, D>(dv + b * svgb + h * svgh, svgt, k0, Tk, acc_dv);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Tq, int Tk, long long sqb, long long sqt,
-                    long long sqh, long long skb, long long skt,
-                    long long skh, long long svb, long long svt,
-                    long long svh, long long sdb, long long sdt,
-                    long long sdh, long long sqgb, long long sqgt,
-                    long long sqgh, float scale_log2, float scale) {
+// dQ of one 64-query tile (flash_bwd_dq_kernel's recurrences): Q and dO
+// fixed, the key tiles through the ring; the rows' lse and D in registers,
+// P = 0 past Tk.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int Tq, int Tk, long long sqb, long long sqt,
+                       long long sqh, long long skb, long long skt,
+                       long long skh, long long svb, long long svt,
+                       long long svh, long long sdb, long long sdt,
+                       long long sdh, long long sqgb, long long sqgt,
+                       long long sqgh, float scale_log2, float scale) {
+  using C = TC<T, D>;
+  constexpr int TE = 64 * C::LD;
   extern __shared__ __align__(16) unsigned char smem_t[];
-  T* sQ = reinterpret_cast<T*>(smem_t);
-  T* sdO = sQ + tile_elems<T>();
-  T* sK = sdO + tile_elems<T>();
-  T* sV = sK + tile_elems<T>();
-  T* sdS = sV + tile_elems<T>();
-  float* sL = reinterpret_cast<float*>(sdS + tile_elems<T>());
-  float* sD = sL + 64;
+  T* const sQ = reinterpret_cast<T*>(smem_t);
+  T* const sdO = sQ + TE;
+  auto sK = [&](int s) { return sQ + (2 + 2 * s) * TE; };
+  auto sV = [&](int s) { return sQ + (3 + 2 * s) * TE; };
+
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cq = (lane & 3) * 2;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
-  const long long st = ((long long)b * gridDim.y + h) * Tq;
-  load_rows(sQ, q + b * sqb + h * sqh, sqt, q0, Tq);
-  load_rows(sdO, dout + b * sdb + h * sdh, sdt, q0, Tq);
-  load_stats(sL, sD, lse + st, delta + st, q0, Tq);
+  const int ntiles = (Tk + BK - 1) / BK;
 
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // the last key tile's products are done
-    load_rows(sK, kb, skt, k0, Tk);
-    load_rows(sV, vb, svt, k0, Tk);
+  stage_tile<T, D>(sQ, q + b * sqb + h * sqh, sqt, q0, Tq);
+  stage_tile<T, D>(sdO, dout + b * sdb + h * sdh, sdt, q0, Tq);
+  stage_tile<T, D>(sK(0), kb, skt, 0, Tk);
+  stage_tile<T, D>(sV(0), vb, svt, 0, Tk);
+  cp_async_commit();
+  // rows r0 and r0 + 8: lse in log2 units and D (past Tq: +inf and 0)
+  const long long sr = ((long long)b * gridDim.y + h) * Tq;
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const float l0 = r0 < Tq ? lse[sr + r0] * LOG2E : INFINITY;
+  const float l1 = r1 < Tq ? lse[sr + r1] * LOG2E : INFINITY;
+  const float d0 = r0 < Tq ? delta[sr + r0] : 0.f;
+  const float d1 = r1 < Tq ? delta[sr + r1] : 0.f;
+
+  float acc[D / 8][4];
+  zero(acc);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    cp_async_wait<0>();  // tile t (and Q, dO) landed
     __syncthreads();
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    tile_mma<true>(s, sQ, sK);    // S: queries x keys
-    tile_mma<true>(dp, sdO, sV);  // dP
-    p_and_ds<true>(s, dp, sL, sD, k0, Tk, scale_log2, scale);
-    store_acc(sdS, dp);           // dS rounded to T, the warp's own rows
-    __syncwarp();
-    tile_mma<false>(acc, sdS, sK);  // dQ += dS K
-    __syncwarp();
-  }
-  store_rows(dq + b * sqgb + h * sqgh, sqgt, q0, Tq, acc);
-}
+    if (t + 1 < ntiles) {
+      stage_tile<T, D>(sK(st ^ 1), kb, skt, (t + 1) * BK, Tk);
+      stage_tile<T, D>(sV(st ^ 1), vb, svt, (t + 1) * BK, Tk);
+    }
+    cp_async_commit();
 
-// Dynamic shared memory of the tile kernels: `tiles` tiles (+ the lse and
-// D rows); over 48 KB needs an opt-in, made once per device and process.
-template <typename T>
-constexpr int tile_smem(int tiles) {
-  return tiles * tile_elems<T>() * (int)sizeof(T) +
-         2 * 64 * (int)sizeof(float);
+    // ---- S = Q K^T and dP = dO V^T ----
+    float sp[8][4], dp[8][4];
+    zero(sp);
+    zero(dp);
+    mma_nt<T, D>(sp, sQ + 16 * warp * C::LD, sK(st));
+    mma_nt<T, D>(dp, sdO + 16 * warp * C::LD, sV(st));
+
+    // ---- P = exp2(S scale log2 e - lse), 0 past Tk; dS = P (dP - D)
+    // scale ----
+    const int key0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool in = key0 + 8 * j + cq + c < Tk;
+        const float pa = in ? exp2f(fmaf(sp[j][c], scale_log2, -l0)) : 0.f;
+        const float pb =
+            in ? exp2f(fmaf(sp[j][2 + c], scale_log2, -l1)) : 0.f;
+        dp[j][c] = (dp[j][c] - d0) * pa * scale;
+        dp[j][2 + c] = (dp[j][2 + c] - d1) * pb * scale;
+      }
+
+    // ---- dQ += dS K ----
+    mma_pn<T, D>(acc, dp, sK(st));
+  }
+  store_tile_rows<T, D>(dq + b * sqgb + h * sqgh, sqgt, q0, Tq, acc);
 }
 
 template <typename K>
@@ -1071,27 +1332,9 @@ int opt_in(K kernel, int bytes, unsigned& opted) {
   return 0;
 }
 
-template <typename T>
-int launch_fwd_tile(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int Tq, int Tk, int H, long long sqb,
-                    long long sqt, long long sqh, long long skb, long long skt,
-                    long long skh, long long svb, long long svt,
-                    long long svh, long long sob, long long sot,
-                    long long soh, float scale, cudaStream_t stream) {
-  static unsigned opted = 0;
-  constexpr int smem = tile_smem<T>(4);
-  if (int e = opt_in(flash_fwd_tile_kernel<T>, smem, opted)) return e;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_tile_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, sqb, sqt,
-      sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-      scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-// a backward kernel (the bf16 wgmma one or the f32 tile one) of element
-// type T, with `smem` bytes of dynamic shared memory (opted in once per
-// device); st: (b, t, h) strides of q, k, v, dout, then dk, dv (dkv) or dq
+// a backward kernel (the bf16 wgmma one or a tile one) of element type T,
+// with `smem` bytes of dynamic shared memory (opted in once per device);
+// st: (b, t, h) strides of q, k, v, dout, then dk, dv (dkv) or dq
 template <typename T, typename Kernel>
 int launch_bwd_dkv(Kernel kernel, int smem, unsigned& opted, const void* q,
                    const void* k, const void* v, const void* dout,
@@ -1124,21 +1367,85 @@ int launch_bwd_dq(Kernel kernel, int smem, unsigned& opted, const void* q,
   return (int)cudaGetLastError();
 }
 
+// The tile kernels' launches, one instantiation of (T, D) each: the ring's
+// four tiles (forward), two fixed tiles and the ring's four (backward;
+// dkv's 2 x 128 statistics beside them).
+template <typename T, int D>
+struct FwdTC {
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Tq, int Tk, int H,
+                 const long long* s, float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = fwd_smem<T, D>();
+    if (int e = opt_in(flash_fwd_tc_kernel<T, D>, smem, opted)) return e;
+    dim3 grid((Tq + BQ - 1) / BQ, H, B);
+    flash_fwd_tc_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, s[0], s[1],
+        s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+        scale * LOG2E);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T, int D>
+struct DkvTC {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dk, void* dv, int B, int Tq, int Tk, int H,
+                 const long long* st, float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = 6 * tc_tile_bytes<T, D>() + 2 * 128 * 4;
+    return launch_bwd_dkv<T>(flash_bwd_dkv_tc_kernel<T, D>, smem, opted, q,
+                             k, v, dout, lse, delta, dk, dv, B, Tq, Tk, H,
+                             st, scale, stream);
+  }
+};
+
+template <typename T, int D>
+struct DqTC {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int B, int Tq, int Tk, int H, const long long* st,
+                 float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = 6 * tc_tile_bytes<T, D>();
+    return launch_bwd_dq<T>(flash_bwd_dq_tc_kernel<T, D>, smem, opted, q, k,
+                            v, dout, lse, delta, dq, B, Tq, Tk, H, st, scale,
+                            stream);
+  }
+};
+
+// a tile kernel's launch at (f32 or bf16, d): f32 at 32, 64 and 128, bf16
+// at 32 and 128 (bf16 at 64 is the wgmma kernels'); another width is
+// refused
+template <template <typename, int> class L, typename... Args>
+int by_width(int f32, int d, Args... args) {
+  if (f32 && d == 32) return L<float, 32>::run(args...);
+  if (f32 && d == 64) return L<float, 64>::run(args...);
+  if (f32 && d == 128) return L<float, 128>::run(args...);
+  if (!f32 && d == 32) return L<bf16, 32>::run(args...);
+  if (!f32 && d == 128) return L<bf16, 128>::run(args...);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// f32 != 0: float inputs and output (the tile kernel), else bf16 (the
-// wgmma kernel). lse: null, or (B, H, Tq) f32 for the backward.
+// f32 != 0: float inputs and output, else bf16; d: the head width (bf16 at
+// 64: the wgmma kernel, else a tile kernel). lse: null, or (B, H, Tq) f32
+// for the backward.
 XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Tq, int Tk, int H,
                              long long sqb, long long sqt, long long sqh,
                              long long skb, long long skt, long long skh,
                              long long svb, long long svt, long long svh,
                              long long sob, long long sot, long long soh,
-                             float scale, int f32, void* stream) {
-  if (f32)
-    return launch_fwd_tile<float>(q, k, v, o, (float*)lse, B, Tq, Tk, H, sqb,
-                                  sqt, sqh, skb, skt, skh, svb, svt, svh, sob,
-                                  sot, soh, scale, (cudaStream_t)stream);
+                             float scale, int f32, int d, void* stream) {
+  if (f32 || d != 64) {
+    const long long s[12] = {sqb, sqt, sqh, skb, skt, skh,
+                             svb, svt, svh, sob, sot, soh};
+    return by_width<FwdTC>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
+                           (const long long*)s, scale, (cudaStream_t)stream);
+  }
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
@@ -1153,13 +1460,12 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* delta, void* dk, void* dv, int B,
                                  int Tq, int Tk, int H,
                                  const long long* strides, float scale,
-                                 int f32, void* stream) {
-  static unsigned opted_f32 = 0, opted_bf16 = 0;
-  if (f32)
-    return launch_bwd_dkv<float>(
-        flash_bwd_dkv_tile_kernel<float>, tile_smem<float>(6), opted_f32, q,
-        k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B, Tq, Tk,
-        H, strides, scale, (cudaStream_t)stream);
+                                 int f32, int d, void* stream) {
+  static unsigned opted_bf16 = 0;
+  if (f32 || d != 64)
+    return by_width<DkvTC>(f32, d, q, k, v, dout, (const float*)lse,
+                           (const float*)delta, dk, dv, B, Tq, Tk, H, strides,
+                           scale, (cudaStream_t)stream);
   return launch_bwd_dkv<bf16>(flash_bwd_dkv_kernel, BWD_DKV_SMEM, opted_bf16,
                               q, k, v, dout, (const float*)lse,
                               (const float*)delta, dk, dv, B, Tq, Tk, H,
@@ -1171,28 +1477,43 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int B, int Tq,
                                 int Tk, int H, const long long* strides,
-                                float scale, int f32, void* stream) {
-  static unsigned opted_f32 = 0, opted_bf16 = 0;
-  if (f32)
-    return launch_bwd_dq<float>(
-        flash_bwd_dq_tile_kernel<float>, tile_smem<float>(5), opted_f32, q, k,
-        v, dout, (const float*)lse, (const float*)delta, dq, B, Tq, Tk, H,
-        strides, scale, (cudaStream_t)stream);
+                                float scale, int f32, int d, void* stream) {
+  static unsigned opted_bf16 = 0;
+  if (f32 || d != 64)
+    return by_width<DqTC>(f32, d, q, k, v, dout, (const float*)lse,
+                          (const float*)delta, dq, B, Tq, Tk, H, strides,
+                          scale, (cudaStream_t)stream);
   return launch_bwd_dq<bf16>(flash_bwd_dq_kernel, BWD_DQ_SMEM, opted_bf16, q,
                              k, v, dout, (const float*)lse,
                              (const float*)delta, dq, B, Tq, Tk, H, strides,
                              scale, (cudaStream_t)stream);
 }
 
-// Registers and local-memory bytes a thread of the four backward kernels,
-// out[2 i] and out[2 i + 1] for i = bf16 dkv, bf16 dq, f32 dkv, f32 dq
-// (local memory other than 0 is a spill)
-XT_API int xt_flash_attn_bwd_attrs(int* out) {
-  const void* fns[4] = {(const void*)flash_bwd_dkv_kernel,
-                        (const void*)flash_bwd_dq_kernel,
-                        (const void*)flash_bwd_dkv_tile_kernel<float>,
-                        (const void*)flash_bwd_dq_tile_kernel<float>};
-  for (int i = 0; i < 4; ++i) {
+// Registers and local-memory bytes a thread of every kernel, out[2 i] and
+// out[2 i + 1] for i = 6 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
+// (the wgmma kernels), 128, f32 at 32, 64, 128 (local memory other than 0
+// is a spill)
+XT_API int xt_flash_attn_attrs(int* out) {
+  const void* fns[18] = {
+      (const void*)flash_fwd_tc_kernel<bf16, 32>,
+      (const void*)flash_fwd_kernel,
+      (const void*)flash_fwd_tc_kernel<bf16, 128>,
+      (const void*)flash_fwd_tc_kernel<float, 32>,
+      (const void*)flash_fwd_tc_kernel<float, 64>,
+      (const void*)flash_fwd_tc_kernel<float, 128>,
+      (const void*)flash_bwd_dkv_tc_kernel<bf16, 32>,
+      (const void*)flash_bwd_dkv_kernel,
+      (const void*)flash_bwd_dkv_tc_kernel<bf16, 128>,
+      (const void*)flash_bwd_dkv_tc_kernel<float, 32>,
+      (const void*)flash_bwd_dkv_tc_kernel<float, 64>,
+      (const void*)flash_bwd_dkv_tc_kernel<float, 128>,
+      (const void*)flash_bwd_dq_tc_kernel<bf16, 32>,
+      (const void*)flash_bwd_dq_kernel,
+      (const void*)flash_bwd_dq_tc_kernel<bf16, 128>,
+      (const void*)flash_bwd_dq_tc_kernel<float, 32>,
+      (const void*)flash_bwd_dq_tc_kernel<float, 64>,
+      (const void*)flash_bwd_dq_tc_kernel<float, 128>};
+  for (int i = 0; i < 18; ++i) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
     if (e != cudaSuccess) return (int)e;

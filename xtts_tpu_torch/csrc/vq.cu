@@ -18,7 +18,8 @@
 // products run on the tensor cores instead, in 3xTF32: each f32 operand v
 // splits into big = tf32(v) and small = tf32(v - big), and x.e sums
 // big*small + small*big + big*big on mma.sync m16n8k8 with f32
-// accumulators (3 x 2 N D E = 75.6 GFLOP at 495 TFLOP/s dense tf32: 0.15
+// accumulators (common.cuh's split_tf32 and mma_tf32, shared with K2's f32
+// kernels; 3 x 2 N D E = 75.6 GFLOP at 495 TFLOP/s dense tf32: 0.15
 // ms). The dropped small*small term and the tf32 roundings of the small
 // parts leave each product within ~2^-21 of |x||e| relative, against the
 // codes' tie bound of 4 D 2^-24 (2 sum |x||e| + |e|^2) (card tests,
@@ -72,28 +73,6 @@ __device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
     v = v2;
     i = i2;
   }
-}
-
-// the f32 value rounded to tf32 (to nearest, ties away), as f32 bits
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = to_tf32(v);
-  small = to_tf32(v - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // grid (ceil(N / BM), ceil(E / RANGE)), 256 threads: 8 warps as 2 (rows)

@@ -39,7 +39,8 @@ from xtts_tpu_torch.nn.remat import remat_call
 
 class CrossAttention(nn.Module):
     """Biasless q/k/v projections, f32 softmax; K2 where `flash` is set
-    and the size gate admits the shapes."""
+    and the size gate admits the shapes (`use_flash`: XTTS_FLASH_ATTN=0
+    closes it, as it closes the JAX package's)."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64, dtype=torch.float32,

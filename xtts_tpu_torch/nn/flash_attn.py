@@ -7,40 +7,53 @@ the forward and, under jax.grad, the library's `_flash_attention_bwd_dkv`
 and `_flash_attention_bwd_dq`. The CUDA kernels (csrc/flash_attn.cu) are
 written for Hopper:
 
-- the bf16 forward: one warpgroup per (64-query tile, head, batch row);
-  K/V tiles stream through a two-stage cp.async ring in shared memory;
-  S = Q K^T and O += P V run on wgmma (P as the register operand, V read
-  MN-major); the f32 online softmax and O stay in registers;
-- the f32 forward (the inputs' dtype, as the Pallas kernel takes it): the
-  same softmax on f32 FMA tiles, no TF32;
+- the bf16 forward at head width 64: one warpgroup per (64-query tile,
+  head, batch row); K/V tiles stream through a two-stage cp.async ring in
+  shared memory; S = Q K^T and O += P V run on wgmma (P as the register
+  operand, V read MN-major); the f32 online softmax and O stay in
+  registers;
 - `flash_mha_bwd_dkv` and `flash_mha_bwd_dq`: P rebuilt from the forward's
   row log-sum-exp, P and dS rounded to the inputs' dtype before their
-  products, f32 accumulation, no atomics. In bf16 as the forward: one
-  warpgroup per 64-key (dkv) or 64-query (dq) tile, the streamed tiles in
-  a cp.async ring, every product on wgmma with P / dS as the register
-  operand (no P or dS tile in shared memory); in f32 on FMA tiles, no
-  TF32. `bwd_kernel_attrs` reads their registers and spills.
+  products, f32 accumulation, no atomics. In bf16 at width 64 as the
+  forward: one warpgroup per 64-key (dkv) or 64-query (dq) tile, the
+  streamed tiles in a cp.async ring, every product on wgmma with P / dS as
+  the register operand (no P or dS tile in shared memory);
+- the tile family, the same three kernels for f32 inputs (as the Pallas
+  kernel takes them) at widths 32, 64 and 128, and for bf16 at 32 and 128:
+  the same grids, ring and softmax on mma.sync, f32 in 3xTF32 (each
+  operand split in a big and a small tf32 part, three products a step,
+  within ~2^-21 relative of an f32 product), P and dS kept in registers
+  as the next product's A operand. `kernel_attrs` reads every kernel's
+  registers and spills.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
-backward at the main path's (2, 1280 | 1562, 8, 64)); the design keeps the
-(B, H, Tq, Tk) score matrix out of device memory, which the plain version
-writes and reads back.
+backward at the main path's (2, 1280 | 1562, 8, 64); in f32 three times
+as many tf32 operations); the design keeps the (B, H, Tq, Tk) score
+matrix out of device memory, which the plain version writes and reads
+back.
 
-The kernels read the (B, T, H, 64) strides directly and mask the ragged
-edges themselves, so the TPU wrapper's padding to 128 and its segment ids
-are gone. `flash_mha` is differentiable: with gradients recorded and an
-input that requires grad it runs as a torch.autograd.Function whose
-forward keeps the log-sum-exp and whose backward launches the two backward
-kernels (D = rowsum(dO * O) in f32 by torch ops between them, as JAX takes
-it in XLA). CUDA tensors launch the kernels (counted in `.launches` of
+The kernels take head widths 32, 64 and 128 (`NATIVE_WIDTHS`); the
+wrappers zero-pad any other width up to 128 to the next of these (zero
+columns of q and k leave QK^T as it is, those of v, dO and the results
+are sliced off; the caller's sm_scale is the true width's), counted in
+`flash_mha.pads`, and raise ValueError above 128. They read the (B, T,
+H, D) strides directly and mask the ragged edges themselves, so the TPU
+wrapper's padding of T to 128 and its segment ids are gone. `flash_mha`
+is differentiable: with gradients recorded and an input that requires
+grad it runs as a torch.autograd.Function whose forward keeps the
+log-sum-exp and whose backward launches the two backward kernels (D =
+rowsum(dO * O) in f32 by torch ops between them, as JAX takes it in
+XLA). CUDA tensors launch the kernels (counted in `.launches` of
 `flash_mha` (of them `f32_launches` the f32 forward's), `flash_mha_bwd_dkv`
-and `flash_mha_bwd_dq`) or raise; CPU
-tensors take the plain twins. A double backward raises, as JAX's does.
+and `flash_mha_bwd_dq`) or raise; CPU tensors take the plain twins. A
+double backward raises, as JAX's does. `XTTS_FLASH_ATTN=0` closes the
+size gate (`use_flash`), as it closes the JAX package's.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -50,42 +63,69 @@ from xtts_tpu_torch.ops.build import (check, load_library, ptr,
 
 # Tq * Tk at or above this runs the kernel (the JAX package's gate)
 FLASH_MIN_SCORES = 1 << 19
+# the head widths the kernels take as they are
+NATIVE_WIDTHS = (32, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def use_flash(tq: int, tk: int) -> bool:
+    """The consumer attention's gate: a score matrix of at least
+    FLASH_MIN_SCORES, unless XTTS_FLASH_ATTN=0 (read at every call, as the
+    JAX package's _use_flash reads it at trace time)."""
+    if os.environ.get("XTTS_FLASH_ATTN", "auto") == "0":
+        return False
     return tq * tk >= FLASH_MIN_SCORES
+
+
+def native_width(dh: int) -> int:
+    """The kernels' head width a head of width dh runs at (zero-padded up
+    to it); ValueError above 128."""
+    for w in NATIVE_WIDTHS:
+        if dh <= w:
+            return w
+    widths = ", ".join(map(str, NATIVE_WIDTHS))
+    raise ValueError(f"K2 takes head widths up to 128 ({widths} as they "
+                     f"are, narrower ones zero-padded), got {dh}")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_attn")
     lib.xt_flash_attn_fwd.argtypes = (
-        [_P] * 5 + [_I] * 4 + [_L] * 12 + [ctypes.c_float, _I, _P])
+        [_P] * 5 + [_I] * 4 + [_L] * 12 + [ctypes.c_float, _I, _I, _P])
     lib.xt_flash_attn_bwd_dkv.argtypes = (
-        [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _P])
+        [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
     lib.xt_flash_attn_bwd_dq.argtypes = (
-        [_P] * 7 + [_I] * 4 + [_P, ctypes.c_float, _I, _P])
-    lib.xt_flash_attn_bwd_attrs.argtypes = [ctypes.POINTER(_I)]
+        [_P] * 7 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
+    lib.xt_flash_attn_attrs.argtypes = [ctypes.POINTER(_I)]
     for fn in (lib.xt_flash_attn_fwd, lib.xt_flash_attn_bwd_dkv,
-               lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_bwd_attrs):
+               lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_attrs):
         fn.restype = _I
     return lib
 
 
-_BWD_KERNELS = (("flash_mha_bwd_dkv", "bf16"), ("flash_mha_bwd_dq", "bf16"),
-                ("flash_mha_bwd_dkv", "f32"), ("flash_mha_bwd_dq", "f32"))
+# csrc's order of xt_flash_attn_attrs: (wrapper, dtype, head width)
+_KERNELS = tuple((name, kind, w)
+                 for name in ("flash_mha", "flash_mha_bwd_dkv",
+                              "flash_mha_bwd_dq")
+                 for kind in ("bf16", "f32") for w in NATIVE_WIDTHS)
+
+
+def kernel_attrs() -> dict:
+    """{(wrapper, "bf16" | "f32", head width): (registers, local-memory
+    bytes)} a thread of each kernel, as built for the current card; local
+    memory other than 0 is a register spill."""
+    out = (_I * (2 * len(_KERNELS)))()
+    check(_lib().xt_flash_attn_attrs(out), "flash_mha kernel attrs")
+    return {key: (out[2 * i], out[2 * i + 1])
+            for i, key in enumerate(_KERNELS)}
 
 
 def bwd_kernel_attrs() -> dict:
-    """{(wrapper, "bf16" | "f32"): (registers, local-memory bytes)} a
-    thread of each backward kernel, as built for the current card; local
-    memory other than 0 is a register spill."""
-    out = (_I * 8)()
-    check(_lib().xt_flash_attn_bwd_attrs(out), "flash_mha backward attrs")
-    return {key: (out[2 * i], out[2 * i + 1])
-            for i, key in enumerate(_BWD_KERNELS)}
+    """kernel_attrs() of the backward kernels."""
+    return {key: a for key, a in kernel_attrs().items()
+            if key[0] != "flash_mha"}
 
 
 def _wide(dtype):
@@ -152,18 +192,30 @@ def _readable(t) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _check_operands(what: str, q, k, v, *more):
-    """Raise unless the kernels take q (B, Tq, H, 64), k / v (B, Tk, H, 64)
-    and `more` (each q- or k-shaped) as they are: one dtype (bf16 or f32),
-    one card, unit head-dim stride, other strides a whole number of 16
-    bytes, 16-byte aligned data."""
+def pad_heads(*ts):
+    """ts (one head width dh) zero-padded on the head axis to
+    native_width(dh), contiguous copies; as they are at a native width."""
+    dh = ts[0].shape[-1]
+    w = native_width(dh)
+    if w == dh:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, w - dh)) for t in ts)
+
+
+def _operands(what: str, q, k, v, *more):
+    """q (B, Tq, H, dh), k / v (B, Tk, H, dh) and `more` (each q- or
+    k-shaped) as the kernels read them: dh <= 128 zero-padded to its
+    native width (the launch counted in `flash_mha.pads`). Raise unless
+    they are one dtype (bf16 or f32) on one card with unit head-dim
+    stride, other strides a whole number of 16 bytes and 16-byte aligned
+    data. Returns (b, tq, tk, h), the operands."""
     b, tq, h, dh = q.shape
     tk = k.shape[1]
-    if (dh != 64 or k.shape != (b, tk, h, dh) or v.shape != k.shape
-            or min(b, tq, tk, h) < 1
+    if (k.shape != (b, tk, h, dh) or v.shape != k.shape
+            or min(b, tq, tk, h, dh) < 1
             or any(t.shape not in (q.shape, k.shape) for t in more)):
-        raise ValueError(f"{what} takes (B, T, H, 64); got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+        raise ValueError(f"{what} takes q (B, Tq, H, D), k / v (B, Tk, H, "
+                         f"D); got q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} takes bf16 or f32, got {q.dtype}")
@@ -172,12 +224,14 @@ def _check_operands(what: str, q, k, v, *more):
             raise ValueError(f"{what}: operands of one dtype on one card, "
                              f"got {t.dtype} on {t.device} beside "
                              f"{q.dtype} on {q.device}")
-        if not _readable(t):
-            raise ValueError(f"{what} needs unit head-dim stride, strides "
-                             f"in multiples of 16 bytes and 16-byte "
-                             f"aligned data")
+    ops = pad_heads(q, k, v, *more)
+    if ops[0].shape[-1] != dh:
+        flash_mha.pads += 1
+    if not all(_readable(t) for t in ops):
+        raise ValueError(f"{what} needs unit head-dim stride, strides in "
+                         f"multiples of 16 bytes and 16-byte aligned data")
     require_hopper(q)
-    return b, tq, tk, h
+    return (b, tq, tk, h), ops
 
 
 def _strides(*ts):
@@ -186,18 +240,20 @@ def _strides(*ts):
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale: float, with_lse: bool):
-    b, tq, tk, h = _check_operands("flash_mha", q, k, v)
-    out = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
+    dh = q.shape[3]
+    (b, tq, tk, h), (q, k, v) = _operands("flash_mha", q, k, v)
+    width = q.shape[3]
+    out = torch.empty((b, tq, h, width), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     check(_lib().xt_flash_attn_fwd(
         ptr(q), ptr(k), ptr(v), ptr(out), None if lse is None else ptr(lse),
         b, tq, tk, h, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], float(sm_scale), int(q.dtype == torch.float32),
-        stream_of(q)), "flash_mha")
+        width, stream_of(q)), "flash_mha")
     flash_mha.launches += 1
     flash_mha.f32_launches += q.dtype == torch.float32
-    return out, lse
+    return out[..., :dh], lse
 
 
 def _check_stats(q, lse, delta):
@@ -211,40 +267,45 @@ def _check_stats(q, lse, delta):
 
 
 def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
-    """dK and dV of flash_mha (kernels `flash_bwd_dkv_kernel`, bf16, and
-    `flash_bwd_dkv_tile_kernel<float>`): lse the forward's natural-log row
-    log-sum-exp and delta = rowsum(dO * O), both (B, H, Tq) f32. CPU
-    tensors take the plain twin."""
+    """dK and dV of flash_mha (kernels `flash_bwd_dkv_kernel`, bf16 at
+    width 64, and `flash_bwd_dkv_tc_kernel<T, D>`): lse the forward's
+    natural-log row log-sum-exp and delta = rowsum(dO * O), both (B, H,
+    Tq) f32. CPU tensors take the plain twin."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[1:]
-    b, tq, tk, h = _check_operands("flash_mha_bwd_dkv", q, k, v, do)
+    dh = q.shape[3]
+    (b, tq, tk, h), (q, k, v, do) = _operands("flash_mha_bwd_dkv", q, k, v,
+                                              do)
     _check_stats(q, lse, delta)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     check(_lib().xt_flash_attn_bwd_dkv(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
         ptr(dv), b, tq, tk, h, _strides(q, k, v, do, dk, dv),
-        float(sm_scale), int(q.dtype == torch.float32), stream_of(q)),
-        "flash_mha_bwd_dkv")
+        float(sm_scale), int(q.dtype == torch.float32), q.shape[3],
+        stream_of(q)), "flash_mha_bwd_dkv")
     flash_mha_bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :dh], dv[..., :dh]
 
 
 def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
-    """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16, and
-    `flash_bwd_dq_tile_kernel<float>`), on flash_mha_bwd_dkv's operands.
+    """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16 at width 64,
+    and `flash_bwd_dq_tc_kernel<T, D>`), on flash_mha_bwd_dkv's operands.
     CPU tensors take the plain twin."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[0]
-    b, tq, tk, h = _check_operands("flash_mha_bwd_dq", q, k, v, do)
+    dh = q.shape[3]
+    (b, tq, tk, h), (q, k, v, do) = _operands("flash_mha_bwd_dq", q, k, v,
+                                              do)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     check(_lib().xt_flash_attn_bwd_dq(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
         b, tq, tk, h, _strides(q, k, v, do, dq), float(sm_scale),
-        int(q.dtype == torch.float32), stream_of(q)), "flash_mha_bwd_dq")
+        int(q.dtype == torch.float32), q.shape[3], stream_of(q)),
+        "flash_mha_bwd_dq")
     flash_mha_bwd_dq.launches += 1
-    return dq
+    return dq[..., :dh]
 
 
 def flash_mha_bwd(q, k, v, o, lse, do, sm_scale: float):
@@ -289,9 +350,11 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Exact attention. q (B, Tq, H, dh), k/v (B, Tk, H, dh) -> (B, Tq, H, dh),
     differentiable.
 
-    CUDA: bf16 or f32, dh = 64, last axis contiguous, other strides a whole
-    number of 16 bytes, 16-byte aligned bases; anything else raises. Without
-    an input that requires grad (serving) the forward keeps no lse."""
+    CUDA: bf16 or f32, dh up to 128 (32, 64 and 128 as they are, other
+    widths zero-padded to the next of these and counted in `pads`), last
+    axis contiguous, other strides a whole number of 16 bytes, 16-byte
+    aligned bases; anything else raises. Without an input that requires
+    grad (serving) the forward keeps no lse."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashMHA.apply(q, k, v, sm_scale)
     if not q.is_cuda:
@@ -301,6 +364,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_mha.launches = 0
 flash_mha.f32_launches = 0       # of them, the f32 forward's
+flash_mha.pads = 0               # K2 launches on zero-padded head widths
 flash_mha_bwd_dkv.launches = 0
 flash_mha_bwd_dq.launches = 0
 flash_mha_bwd.copies = 0
