@@ -46,9 +46,11 @@ Phases, each reported on its own lines:
      step's (8, 1200 | 1600), bf16, and at the main bucket in f32, each
      twice to the same bits, beside SDPA's backward; each kernel's
      TFLOP/s, share of its bound (f32: of both), registers and local
-     memory, no spill below width 128; the head widths 32 and 128 (512
-     channels) and 48 (zero-padded to 64, counted), bf16 and f32, forward
-     and backward against the f32 twins, beside SDPA); K3 (vq_nearest on
+     memory, no spill below width 128; the head widths 32, 128 and 256
+     (512 channels; 256 on the wide kernels), 384 (one head, the wide
+     kernels) and 48 (zero-padded to 64, counted), bf16 and f32, forward
+     and backward against the f32 twins, the same bits twice, beside SDPA
+     and the bounds); K3 (vq_nearest on
      the DVAE's own 3008 x 512 logits against its 8192-code codebook, a
      ragged shape and a planted tie, also on 4 rotating copies of rows
      and codebook); K4
@@ -121,6 +123,14 @@ Phases, each reported on its own lines:
      two rows a replica, sampled at TTSSettings' defaults: codes equal to
      the unplaced wave's over the same padded rows (the replicas draw the
      whole wave's numbers for their rows).
+  6a. compact (compacting waves, infer/compact.py, on [main]'s model):
+     synthesize_batch of 8 requests of distinct text x 2 CLVP candidates
+     (16 AR rows through the int8 chain; K1 and K4 off) with
+     compact_rows=(1, 2, 4, 8, 16) over the rungs (64, 128, 256), the
+     stop logit raised so rows stop at spread steps, greedy (top_p 1e-4),
+     full-quality render (K2), beside the same wave without compaction in
+     turns (plain, compacting, compacting, plain): the rows at each take,
+     AR and wave seconds, graph replays, K2 launches; greedy codes equal.
   6b. slots (continuous serving, infer/slots.py, on [main]'s model): a
      pool of 16 slots, segments of 32 steps, max_gen 300, 24 requests of
      distinct text (token ids) with the stop logit raised so they stop at
@@ -154,6 +164,11 @@ Phases, each reported on its own lines:
      clips of 6 s written under build/ (K3 once a clip, codes equal to
      get_codebook_indices on the same mels), the early-stop renders'
      mel_l1 and mcd; the phase's seconds.
+  6d. diffusion_tts: load_model("diffusion_tts") on the card in f32 (the
+     reference ctor's defaults: 512 channels, 8 layers, 16 heads), its
+     zero-initialised parameters drawn; a forward at B 2, 944 mel frames
+     through the latent, code and conditioning-free branches against the
+     CPU port with the same weights (DTTS_TOL of the peak), ms a call.
   7. stream (the low-latency B=1 path): TextToSpeech(bf16, HiFi-GAN) with
      XTTS_DECODE_BITS=4 at requantize(); three 50-token sentences (numpy
      seeds 10, 11, 12) through stream_tokens (tts_stream's loop on token
@@ -247,10 +262,12 @@ K2_BWD_TOL = {"bf16": 1e-2, "f32": 1e-5}
 # K2's lse against the plain twin's (the card tests' bound)
 K2_LSE_TOL = 1e-5
 # [k2]'s other head widths (B, Tq, Tk, heads, width) at the main bucket:
-# 512 channels in 16 heads of 32 and 4 of 128; 48 (8 heads) runs
-# zero-padded to 64
+# 512 channels in 16 heads of 32, 4 of 128 and 2 of 256 (the wide
+# kernels); 48 (8 heads) runs zero-padded to 64; 384 (the wide kernels at
+# three chunks) in one head, 384 channels, as 512 does not divide by it
 K2_WIDTHS = ((2, 1280, 1562, 16, 32), (2, 1280, 1562, 8, 48),
-             (2, 1280, 1562, 4, 128))
+             (2, 1280, 1562, 4, 128), (2, 1280, 1562, 2, 256),
+             (2, 1280, 1562, 1, 384))
 # a [train] flash=True step's consumer attention (B, Tq, Tk): 8-12 s wavs
 # cropped to 1280 frames, the mel bucket 1200 and the refer bucket 400
 K2_TRAIN_SHAPE = (8, 1200, 1600)
@@ -1148,13 +1165,16 @@ def k2_backward_checks(torch, fa, results, card):
 
 def k2_width_checks(torch, fa, results, card):
     """K2 at the other head widths (K2_WIDTHS: 32 and 128 run as they are,
-    48 zero-padded to 64 and counted in flash_mha.pads), bf16 and f32: the
-    forward and its lse against the f32 plain forward (K2_TOL / K2_F32_TOL,
-    K2_LSE_TOL), the backward against the f32 plain backward (K2_BWD_TOL of
-    each gradient's largest), the same bits twice; device us of the
-    forward, dkv and dq beside SDPA's forward and backward on the same
-    inputs; each kernel's registers and local memory (a spill is printed,
-    and refused below width 128)."""
+    48 zero-padded to 64 and counted in flash_mha.pads, 256 and 384 on the
+    wide kernels), bf16 and f32: the forward and its lse against the f32
+    plain forward (K2_TOL / K2_F32_TOL, K2_LSE_TOL), the backward against
+    the f32 plain backward (K2_BWD_TOL of each gradient's largest), the
+    same bits twice; device us of the forward, dkv and dq beside SDPA's
+    forward and backward on the same inputs and the bounds (tensor-core
+    operations: 4 B H Tq Tk D a forward, 10 a backward, bf16 at 989
+    TFLOP/s, f32's 3xTF32 three times as many at 495); each kernel's
+    registers and local memory (a spill is printed, and refused below
+    width 128)."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(96)
     attrs = fa.kernel_attrs()
@@ -1209,13 +1229,22 @@ def k2_width_checks(torch, fa, results, card):
                 s_b = device_us(torch, lambda: torch.autograd.grad(
                     sdpa(), (qs, ks, vs), dos)) - s_f
             unit = 2 * b * h * tq * tk * w
+            nbytes = (4 if kind == "f32" else 2) * b * h * w * (2 * tq
+                                                                 + 2 * tk)
+            if kind == "f32":
+                b_f = bound(nbytes, 3 * 2 * unit, "tf32")[0]
+                b_b = bound(2 * nbytes, 3 * 5 * unit, "tf32")[0]
+            else:
+                b_f = bound(nbytes, 2 * unit, "bf16")[0]
+                b_b = bound(2 * nbytes, 5 * unit, "bf16")[0]
             spills = []
+            key = native if native <= 128 else fa.WIDE
             for name in ("flash_mha", "flash_mha_bwd_dkv",
                          "flash_mha_bwd_dq"):
-                regs, local = attrs[(name, kind, native)]
+                regs, local = attrs[(name, kind, key)]
                 spills.append(f"{name} {regs} registers, {local} local "
                               f"bytes")
-                check(local == 0 or native == 128, f"[k2] {name} {kind} "
+                check(local == 0 or native >= 128, f"[k2] {name} {kind} "
                       f"width {native} spills {local} bytes")
             log(f"[k2] width {w} ({kind}, B {b}, Tq {tq}, Tk {tk}, {h} x {w}"
                 f"{'' if native == w else f', zero-padded to {native}'}): "
@@ -1225,12 +1254,15 @@ def k2_width_checks(torch, fa, results, card):
                 f"device: forward {fmt_us(d_f)} "
                 f"({2 * unit / (d_f * 1e-6) / 1e12:.1f} TFLOP/s), dkv "
                 f"{fmt_us(d_kv)}, dq {fmt_us(d_q)} (sum "
-                f"{fmt_us(d_kv + d_q)}); sdpa forward {fmt_us(s_f)}, "
+                f"{fmt_us(d_kv + d_q)}); bounds forward {b_f:.5f} ms, "
+                f"backward {b_b:.5f} ms ({'3xTF32' if kind == 'f32' else 'bf16'}"
+                f" tensor-core operations); sdpa forward {fmt_us(s_f)}, "
                 f"backward {fmt_us(s_b)}; {'; '.join(spills)}  [{card}]")
             rows[f"{kind} {w}"] = dict(
                 forward_err=e_o, lse_err=e_l, backward_rel_errs=errs,
                 forward_device_us=d_f, dkv_device_us=d_kv, dq_device_us=d_q,
-                sdpa_forward_device_us=s_f, sdpa_backward_device_us=s_b)
+                sdpa_forward_device_us=s_f, sdpa_backward_device_us=s_b,
+                bound_forward_ms=b_f, bound_backward_ms=b_b)
             del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
             torch.cuda.empty_cache()
     results["flash_mha"]["widths"] = rows
@@ -4937,6 +4969,243 @@ def placed_wave_check(torch, np, tts, text, cond_mel, launches, card):
         f"[{card}]")
 
 
+COMPACT_ROWS = (1, 2, 4, 8, 16)
+COMPACT_LADDER = (64, 128, 256)   # the waves' rungs (both waves)
+# [compact]'s stop-logit biases, tried in turn on a shortcut wave: the
+# first whose rows leave between 1 and half of them live at a rung (so
+# the compacting wave drops rows there) is the phase's
+COMPACT_STOP_BIASES = (0.0, 1.0, 2.0, 3.0, 4.0)
+# DiffusionTts, card (f32, TF32 off) against the CPU port with the same
+# weights, relative to the output's peak: f32 on both sides, sums in other
+# orders through ~30 blocks (each ~2^-24 relative a sum)
+DTTS_TOL = 1e-4
+
+
+def first_diffs(got, ref) -> list:
+    """The first step where each request's codes leave ref's (-1: none)."""
+    out = []
+    for a, b in zip(got, ref):
+        n = min(len(a), len(b))
+        d = [i for i in range(n) if a[i] != b[i]]
+        out.append(d[0] if d else (-1 if len(a) == len(b) else n))
+    return out
+
+
+def compact_phase(torch, np, tts, cond_mel, launches, cfg, card):
+    """[compact]: synthesize_batch of 8 requests of distinct text x 2 CLVP
+    candidates (16 AR rows) with compact_rows=COMPACT_ROWS on [main]'s
+    model (bf16, the int8 chain: K1 and K4 stay off), full-quality render
+    (K2), beside the same wave without compaction, in turns (plain,
+    compacting, compacting, plain). Greedy (top_p 1e-4) under the default
+    repetition penalty, so a row's stop logit gains on the penalised
+    tokens it emits; the stop logit raised by the first of
+    COMPACT_STOP_BIASES that leaves between 1 and 8 of the 16 rows live at
+    a rung (a plain shortcut wave each), so the rows stop at spread steps.
+    Each compacting wave's rows at every take, AR and wave seconds, graph
+    replays and K2 launches. The greedy codes: each wave's the same bits
+    as its twin's in the turns; every request's equal to the plain wave's
+    up to the first take (the same row count until then) and in full for
+    the rows done by then; after it the first step where they differ is
+    printed, beside a control: the plain chain at 8 rows against the
+    16-row wave, no compaction (the chain's products and attention on the
+    card round by the row count, PERF.md §6)."""
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer.api import TTSSettings
+    from xtts_tpu_torch.infer.serving import SynthesisRequest, _synthesize
+    os.environ.pop("XTTS_FUSED_SERVING", None)
+    stop = cfg.gpt.stop_mel_token
+    rng = np.random.default_rng(17)
+    reqs = [SynthesisRequest(rng.integers(3, 250, 50).astype(np.int32))
+            for _ in range(8)]
+    base = dict(max_mel_tokens=300, num_candidates=2, top_p=1e-4,
+                cache_ladder=COMPACT_LADDER)
+    takes, ar = [], []
+    take, gen_ar = dl.LoopState.take, tts._generate
+
+    def counted_take(self, src, idx):
+        takes.append((int(src.step), src.done.shape[0], idx.numel()))
+        take(self, src, idx)
+
+    def timed_ar(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen_ar(*a, **k)
+        torch.cuda.synchronize()
+        ar.append(time.perf_counter() - t0)
+        return out
+
+    qt = tts._qtree
+    old = float(tts.gpt.mel_head.bias[stop].detach())
+
+    def set_stop_bias(b):
+        with torch.no_grad():
+            tts.gpt.mel_head.bias[stop] = b
+            qt["mel_head_b"][stop] = b
+    dl.LoopState.take = counted_take
+    tts._generate = timed_ar
+    codes, k2s = {}, {}
+    try:
+        tried = []
+        for bias in COMPACT_STOP_BIASES:
+            set_stop_bias(bias)
+            _, got_codes = _synthesize(
+                tts, reqs, cond_mel, TTSSettings(**base),
+                generator=torch.Generator(device="cuda").manual_seed(5))
+            lens = [len(c) for c in got_codes]
+            tried.append((bias, lens))
+            if any(0 < sum(n > r for n in lens) <= 4
+                   for r in COMPACT_LADDER):
+                break
+        else:
+            check(False, f"[compact] no stop bias spreads the rows: {tried}")
+        log(f"[compact] stop bias {bias} (tried: "
+            f"{'; '.join(f'{b}: {n}' for b, n in tried)})")
+        for compact in (False, True, True, False):
+            settings = TTSSettings(
+                **base, compact_rows=COMPACT_ROWS if compact else None)
+            launches.reset()
+            dl.STATS.reset()
+            takes.clear()
+            ar.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wavs, got_codes = _synthesize(
+                tts, reqs, cond_mel, settings, use_diffusion=True,
+                generator=torch.Generator(device="cuda").manual_seed(5))
+            torch.cuda.synchronize()
+            wave_s = time.perf_counter() - t0
+            got = launches.read()
+            got_codes = [c.cpu().numpy() for c in got_codes]
+            lens = [len(c) for c in got_codes]
+            check(len(wavs) == 8 and all(bool(np.isfinite(w).all())
+                                         for w in wavs),
+                  f"[compact] wavs {[w.shape for w in wavs]}")
+            # the render's bucket, so its K2 launches, are the longest
+            # row's: the same in every wave
+            k2 = k2s.setdefault("k2", got["flash_mha"])
+            check(got["flash_mha"] == k2, f"[compact] K2 launches "
+                  f"{got['flash_mha']}, {k2} in the first wave")
+            check(got["fused_decode_logits"] == 0
+                  and got["fused_serving_logits"] == 0,
+                  f"[compact] K1 / K4 ran: {got}")
+            check(dl.STATS.replays > 0, "[compact] no graph replay")
+            if compact:
+                check(takes and takes[-1][2] < 16, f"[compact] no row "
+                      f"dropped (takes {takes}, lengths {lens})")
+            name = "compacting" if compact else "plain"
+            prev = codes.setdefault(name, got_codes)
+            check(all(np.array_equal(a, b) for a, b in zip(got_codes, prev)),
+                  f"[compact] the {name} waves' greedy codes differ")
+            ref = codes.get("plain", got_codes)
+            diff = first_diffs(got_codes, ref)
+            msg = "equal to the plain wave's"
+            if compact:
+                # up to the first take every row runs at the plain wave's
+                # row count: equal to the bit; after it, at a smaller one
+                s1 = takes[0][0]
+                check(all(d < 0 or d >= s1 for d in diff)
+                      and all(d < 0 for d, n in zip(diff, ref_lens)
+                              if n <= s1),
+                      f"[compact] codes leave the plain wave's before the "
+                      f"first take at step {s1}: first differing steps "
+                      f"{diff}, plain lengths {ref_lens}")
+                msg = (f"first step differing from the plain wave's a "
+                       f"request {diff} (-1: none; every row equal up to "
+                       f"the first take at step {s1})")
+            else:
+                ref_lens = lens
+            rows = ", ".join(f"step {s}: {a} -> {b} rows"
+                             for s, a, b in takes) or "none"
+            log(f"[compact] {name} wave (8 requests x 2 candidates, 16 AR "
+                f"rows, ladder {COMPACT_LADDER}"
+                f"{f', compact_rows {COMPACT_ROWS}' if compact else ''}): "
+                f"code lengths {lens}; takes: {rows}; AR {ar[0]:.3f} s, "
+                f"wave {wave_s:.3f} s; {dl.STATS.replays} graph replays, "
+                f"{dl.STATS.eager_steps} eager steps, {dl.STATS.captures} "
+                f"captures; K2 launches {got['flash_mha']}; greedy codes "
+                f"{msg}  [{card}]")
+        # the control: the same requests without compaction, one candidate
+        # each (8 rows): where the chain's picks leave the 16-row wave's at
+        # another row count with no compaction at all
+        _, one = _synthesize(
+            tts, reqs, cond_mel,
+            TTSSettings(**dict(base, num_candidates=1)),
+            generator=torch.Generator(device="cuda").manual_seed(5))
+        log(f"[compact] control: the plain chain at 8 rows (one candidate "
+            f"a request) against the 16-row plain wave, first differing "
+            f"step a request "
+            f"{first_diffs([c.cpu().numpy() for c in one], codes['plain'])}"
+            f"  [{card}]")
+    finally:
+        dl.LoopState.take = take
+        tts._generate = gen_ar
+        set_stop_bias(old)
+
+
+def diffusion_tts_phase(torch, np, card):
+    """[diffusion_tts]: load_model("diffusion_tts") on the card in f32 (the
+    reference ctor's defaults; TF32 off), its zero-initialised parameters
+    drawn so every block computes; a forward at B 2, 944 mel frames through
+    the latent (latents (2, 512, 236)), code and conditioning-free
+    branches, a conditioning mel (2, 100, 300), each against the CPU port
+    with the same weights within DTTS_TOL of the output's peak (the code
+    prediction too), and its card ms."""
+    from xtts_tpu_torch.models.diffusion_tts import DiffusionTts
+    from xtts_tpu_torch.utils.registry import load_model
+    g = torch.Generator(device="cuda").manual_seed(31)
+    m = load_model("diffusion_tts", device="cuda", generator=g).eval()
+    check(isinstance(m, DiffusionTts), f"load_model built {type(m)}")
+    with torch.no_grad():
+        for p_ in m.parameters():
+            if not p_.any():
+                p_.normal_(0.0, 0.02, generator=g)
+    cpu = DiffusionTts().eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((2, 100, 944)).astype(np.float32)
+    lat = rng.standard_normal((2, 512, 236)).astype(np.float32)
+    codes = rng.integers(0, 8193, (2, 236))
+    mel = rng.standard_normal((2, 100, 300)).astype(np.float32)
+    ts = np.array([10, 500])
+    branches = (("latent", dict(aligned_conditioning=lat)),
+                ("code", dict(aligned_conditioning=codes)),
+                ("conditioning-free", dict(aligned_conditioning=lat,
+                                           conditioning_free=True)))
+    for name, kw in branches:
+        def inputs(dev):
+            args = {k: (torch.from_numpy(v).to(dev)
+                        if isinstance(v, np.ndarray) else v)
+                    for k, v in kw.items()}
+            return dict(x=torch.from_numpy(x).to(dev),
+                        timesteps=torch.from_numpy(ts).to(dev),
+                        conditioning_latent=torch.from_numpy(mel).to(dev),
+                        return_code_pred=True, **args)
+        on_card = inputs("cuda")
+        with torch.no_grad():
+            out, pred = m(**on_card)
+            want, want_pred = cpu(**inputs("cpu"))
+            ms = time_ms(torch, lambda: m(**on_card), reps=5, warmup=1)
+        check(tuple(out.shape) == (2, 200, 944)
+              and bool(torch.isfinite(out).all()),
+              f"[diffusion_tts] {name}: out {tuple(out.shape)}")
+        peak = want.abs().max().item()
+        err = max_err(out.cpu(), want) / peak
+        msg = ""
+        if want_pred is not None:
+            p_err = (max_err(pred.cpu(), want_pred)
+                     / want_pred.abs().max().item())
+            check(p_err <= DTTS_TOL, f"[diffusion_tts] {name}: code "
+                  f"prediction err {p_err}")
+            msg = f", code prediction {tuple(pred.shape)} err {p_err:.2e}"
+        check(err <= DTTS_TOL, f"[diffusion_tts] {name}: err {err}")
+        log(f"[diffusion_tts] {name} branch (B 2, 944 frames, f32): out "
+            f"{tuple(out.shape)}, card vs CPU port err {err:.2e} of the peak "
+            f"{peak:.3f} (bound {DTTS_TOL}){msg}; card {ms:.3f} ms a "
+            f"call  [{card}]")
+    del m, cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     torch = require_card()
@@ -5088,6 +5357,9 @@ def main() -> None:
     serving_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
     placed_wave_check(torch, np, tts, text, cond_mel, launches, card)
 
+    # ---- 6a. compacting waves (compact_rows: the int8 chain, K2) ----
+    compact_phase(torch, np, tts, cond_mel, launches, cfg, card)
+
     # ---- 6b. continuous serving (slot pool, K2) + its HTTP layer ----
     with torch.no_grad():
         slots_phase(torch, np, tts, cond_wav, cond_mel, text, launches, cfg,
@@ -5097,6 +5369,9 @@ def main() -> None:
     # refnet_interval, samplers, Vocos variants, evaluate_dvae) ----
     rest_s = rest_phase(torch, np, tts, text, cond_mel, launches, cfg, card)
     log(f"[rest] phase {rest_s:.1f} s  [{card}]")
+
+    # ---- 6d. the legacy DiffusionTts, card against the CPU port ----
+    diffusion_tts_phase(torch, np, card)
 
     # ---- 7. stream (B=1: K1-int4, HiFi-GAN, ultra_fast) ----
     stream_phase(torch, np, cfg, cond_wav, main_render, launches, card)

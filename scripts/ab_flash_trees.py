@@ -1,0 +1,58 @@
+#!/usr/bin/env python3
+"""Device time of K2's kernels at the main bucket, from one tree's sources.
+
+    python3 scripts/ab_flash_trees.py --tree DIR --tag T
+
+DIR is the root of a checkout. The script imports that tree's
+xtts_tpu_torch (building its flash_attn library under DIR/build/ if it is
+not built yet), and times flash_mha's forward, flash_mha_bwd_dkv and
+flash_mha_bwd_dq at the main bucket (2, 1280 | 1562, 8, 64), bf16 and
+f32, as device us a call (chip_smoke.device_us: 100 calls captured in one
+CUDA graph, the median of five replays). Prints one JSON line with the
+tag and the card's name and power limit. To compare two trees, run them
+in turns (a, b, b, a) on one card, each in a process of its own.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True)
+    ap.add_argument("--tag", required=True)
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+    from chip_smoke import device_us
+    from xtts_tpu_torch.nn import flash_attn as fa
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_flash_trees: no CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, tq, tk, h, d, sc = 2, 1280, 1562, 8, 64, 0.125
+    out = {"tag": args.tag, "tree": str(tree), "card": card}
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v, do = (torch.randn(b, t, h, d, generator=g,
+                                   device="cuda").to(dt)
+                       for t in (tq, tk, tk, tq))
+        o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
+        delta = fa._delta(o, do)
+        out[f"{kind}_forward_us"] = device_us(
+            torch, lambda: fa.flash_mha(q, k, v, sc))
+        out[f"{kind}_dkv_us"] = device_us(torch, lambda: fa.flash_mha_bwd_dkv(
+            q, k, v, do, lse, delta, sc))
+        out[f"{kind}_dq_us"] = device_us(torch, lambda: fa.flash_mha_bwd_dq(
+            q, k, v, do, lse, delta, sc))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -381,8 +381,9 @@ def _port_modules():
 def test_imports_without_jax():
     """With jax, flax and the JAX package blocked: every port module
     imports, and tts(text) runs end to end on the CPU, through the
-    diffusion and through the HiFi-GAN render; the HTTP front end answers
-    a POST /tts through the slot pool."""
+    diffusion and through the HiFi-GAN render; a synthesize_batch wave
+    runs compacting (compact_rows) and the legacy DiffusionTts a forward;
+    the HTTP front end answers a POST /tts through the slot pool."""
     mods = _port_modules()
     for m in ("infer.serving", "text.frontend", "models.hifigan",
               "data.audio", "infer.slots", "infer.http",
@@ -393,7 +394,7 @@ def test_imports_without_jax():
               "utils.registry", "diffusion.resample", "models.classifier",
               "models.hifigan_discriminator", "train.gan", "parallel.mesh",
               "parallel.launch", "utils.latents", "utils.alignment",
-              "data.spider"):
+              "data.spider", "infer.compact", "models.diffusion_tts"):
         assert "xtts_tpu_torch." + m in mods
     code = f"""
 import sys, importlib, importlib.abc
@@ -420,6 +421,22 @@ assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
 out = tts.tts("你好。今天很好！", wav, settings=TTSSettings(max_mel_tokens=12),
               use_hifigan=True)
 assert out.ndim == 1 and out.shape[0] > 0 and np.isfinite(out).all()
+import torch
+from xtts_tpu_torch.infer.serving import SynthesisRequest, synthesize_batch
+from xtts_tpu_torch.models.diffusion_tts import DiffusionTts
+wavs = synthesize_batch(
+    tts, [SynthesisRequest(np.array([1, 3, 4, 2], np.int32)),
+          SynthesisRequest(np.array([1, 5, 2], np.int32))],
+    tts.cond_mel_from_wav(wav),
+    TTSSettings(max_mel_tokens=8, cache_ladder=(4,), compact_rows=(1, 2)))
+assert len(wavs) == 2 and all(np.isfinite(w).all() for w in wavs)
+dt = DiffusionTts(model_channels=32, num_layers=1, in_channels=8,
+                  in_latent_channels=16, in_tokens=20, out_channels=16,
+                  num_heads=2)
+o = dt(torch.randn(1, 8, 12), torch.tensor([3]),
+       aligned_conditioning=torch.randint(0, 20, (1, 5)),
+       conditioning_latent=torch.randn(1, 8, 16))
+assert o.shape == (1, 16, 12) and torch.isfinite(o).all()
 import io, json, urllib.request, wave
 from xtts_tpu_torch.infer.http import SynthesisService, serve
 svc = SynthesisService(tts, wav, settings=TTSSettings(max_mel_tokens=8),

@@ -210,20 +210,28 @@ def test_head_padding_equals_unpadded_attention(dh):
 
 
 def test_native_widths_pass_as_they_are_and_above_128_raises():
+    """Native widths and multiples of 128 above 128 pass as they are (the
+    wide kernels), other widths up to 128 pad; above 128 a width that is
+    not a multiple of 128 raises, naming the rule, as JAX's kernel
+    does."""
     q = torch.zeros(1, 3, 2, 64)
     assert tfa.pad_heads(q)[0] is q
-    assert [tfa.native_width(d) for d in (1, 32, 33, 64, 65, 128)] == \
-        [32, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="32, 64, 128"):
-        tfa.native_width(129)
+    wide = torch.zeros(1, 3, 2, 256)
+    assert tfa.pad_heads(wide)[0] is wide
+    assert [tfa.native_width(d) for d in (1, 32, 33, 64, 65, 128, 256,
+                                          384)] == \
+        [32, 32, 64, 64, 128, 128, 256, 384]
+    for bad in (129, 160):
+        with pytest.raises(ValueError, match="32, 64, 128.*multiple of 128"):
+            tfa.native_width(bad)
 
 
-@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("dh", [32, 128, 256])
 def test_widths_match_jax_reference_forward_and_grad(dh):
-    """flash_mha on the CPU (the Function's twins) at head widths 32 and
-    128 against JAX's flash_mha(core="reference") and jax.grad of it on the
-    same inputs, at the ragged (2, 130 | 150, 2), with this file's f32
-    tolerances."""
+    """flash_mha on the CPU (the Function's twins) at head widths 32, 128
+    and 256 (a wide kernels' width) against JAX's
+    flash_mha(core="reference") and jax.grad of it on the same inputs, at
+    the ragged (2, 130 | 150, 2), with this file's f32 tolerances."""
     import jax
     q, k, v = _qkv(40 + dh, 2, 130, 150, 2, dh)
     do = np.random.default_rng(41).standard_normal(q.shape).astype(

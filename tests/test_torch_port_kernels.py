@@ -30,7 +30,10 @@ twins (tolerances at K2_BWD_TOL), deterministic, on strided head-split
 views, where the ring wraps with ragged edges and on planted rows of
 large lse; the bf16 backward kernels spill nothing; K2 on the UNet's
 training step against flash=False; P9 (the default f32 TextToSpeech at
-bucket 320). The training path: K3 at the trainers' row counts, one
+bucket 320); K2's wide kernels at head widths 256 and 384 and a
+512-channel UNet with 256-wide heads rendering through them; a compacting
+wave (infer/compact.py) against the monolithic chain's greedy codes; the
+legacy DiffusionTts on the card against the CPU. The training path: K3 at the trainers' row counts, one
 vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
 gradients rtol 1e-4 / atol 1e-6, EMA codebook 1e-5), and a checkpoint
 restored on the card bit for bit.
@@ -568,13 +571,15 @@ def test_flash_mha_backward_kernels_do_not_spill(cuda):
 
 
 def test_flash_kernel_attrs_cover_every_kernel(cuda):
-    """kernel_attrs reads registers and local memory of all 18 kernels
-    (forward, dkv, dq; bf16 and f32; widths 32, 64, 128); the backward's
-    are bwd_kernel_attrs'. Below width 128 no kernel spills (chip_smoke
-    prints the width-128 kernels' local memory)."""
+    """kernel_attrs reads registers and local memory of all 24 kernels
+    (forward, dkv, dq; bf16 and f32; widths 32, 64, 128 and the wide
+    kernels, keyed WIDE); the backward's are bwd_kernel_attrs'. Below width
+    128 no kernel spills (chip_smoke prints the width-128 and wide
+    kernels' local memory)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.kernel_attrs()
-    assert len(attrs) == 18
+    assert len(attrs) == 24
+    assert {key[2] for key in attrs} == {32, 64, 128, fa.WIDE}
     assert all(0 < regs <= 255 and local >= 0
                for regs, local in attrs.values())
     assert {key: a for key, a in attrs.items()
@@ -604,11 +609,12 @@ def test_flash_mha_lse_and_f32_forward(cuda, dtype, b, tq, tk, h):
 
 
 # Head widths other than 64 (P11): the tile kernels at 32 and 128 in bf16
-# and f32, f32 at 64, and a width between (48) zero-padded to 64, each
-# forward (with lse) and backward against the f32 twins at the tolerances
-# above, the pads counted, the backward's bits the same twice.
+# and f32, f32 at 64, a width between (48) zero-padded to 64, and the wide
+# kernels at 256 and 384, each forward (with lse) and backward against the
+# f32 twins at the tolerances above, the pads counted, the backward's bits
+# the same twice.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("width", [32, 48, 128])
+@pytest.mark.parametrize("width", [32, 48, 128, 256, 384])
 @pytest.mark.parametrize("b,tq,tk,h", [
     (2, 1280, 1562, 4),        # the main bucket at 512 channels
     (1, 17, 70, 2),            # Tq below one tile, a ragged key tile
@@ -686,9 +692,9 @@ def test_flash_attn_opt_out_launches_nothing(cuda, monkeypatch):
         1.0, ref.abs().max().item())
 
 
-def _p9_config(num_heads=2):
-    """A small configuration whose UNet heads are 128 // num_heads wide (64
-    by default) and whose GPT reaches code bucket 320."""
+def _p9_config(num_heads=2, channels=128):
+    """A small configuration whose UNet heads are channels // num_heads
+    wide (64 by default) and whose GPT reaches code bucket 320."""
     from xtts_tpu_torch.core.config import (CLIPRefConfig, DVAEConfig,
                                             DiffusionModelConfig, GPTConfig,
                                             MelConfig, VocosConfig,
@@ -703,7 +709,7 @@ def _p9_config(num_heads=2):
                       start_mel_token=198, stop_mel_token=199, mel_bins=mb,
                       cond_attn_blocks=1),
         diffusion=DiffusionModelConfig(
-            in_channels=mb, out_channels=2 * mb, model_channels=128,
+            in_channels=mb, out_channels=2 * mb, model_channels=channels,
             num_res_blocks=1, channel_mult=(1,), num_heads=num_heads,
             context_dim=32,
             in_latent_channels=128,
@@ -748,6 +754,33 @@ def test_f32_tts_renders_bucket_320_at_other_head_widths(cuda, num_heads):
     assert tts.dtype == torch.float32
     attn = tts.diffusion.base_model.blocks[1][1].transformer_blocks[0].attn1
     assert attn.flash and attn.dim_head == 128 // num_heads
+    rng = np.random.default_rng(0)
+    cond = torch.from_numpy(rng.standard_normal((1, 8, 282)).astype(
+        np.float32)).cuda()
+    text = rng.integers(3, 200, (1, 20)).astype(np.int32)
+    fa.flash_mha.launches = fa.flash_mha.f32_launches = 0
+    fa.flash_mha.pads = 0
+    out = tts.tts_tokens(text, cond, torch.Generator("cuda").manual_seed(1),
+                         TTSSettings(max_mel_tokens=300,
+                                     speculative_render=True))
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches > 0
+    assert fa.flash_mha.f32_launches == fa.flash_mha.launches
+    assert fa.flash_mha.pads == 0
+    assert np.isfinite(out["wav"]).all() and out["wav"].shape[-1] > 0
+
+
+def test_f32_tts_renders_bucket_320_at_head_width_256(cuda):
+    """P11's remainder: a flash=True f32 TextToSpeech whose 512-channel UNet
+    has 2 heads, 256 wide, renders a request at code bucket 320 through
+    K2's wide kernels (it raised ValueError above 128 before); no launch
+    pads."""
+    import numpy as np
+    from xtts_tpu_torch.infer.api import TextToSpeech, TTSSettings
+    from xtts_tpu_torch.nn import flash_attn as fa
+    tts = TextToSpeech(_p9_config(2, channels=512), device="cuda")
+    attn = tts.diffusion.base_model.blocks[1][1].transformer_blocks[0].attn1
+    assert attn.flash and attn.dim_head == 256
     rng = np.random.default_rng(0)
     cond = torch.from_numpy(rng.standard_normal((1, 8, 282)).astype(
         np.float32)).cuda()
@@ -1639,6 +1672,93 @@ def test_graph_loop_gives_the_eager_loops_codes(cuda, engine, sampled):
         assert torch.equal(r.lengths, r0.lengths)
         assert r.steps == r0.steps and off == off0 and n == n0
     assert runs[2][2] >= r0.steps // dl.CHUNK - 2     # every full chunk
+
+
+def test_compacting_wave_gives_the_monolithic_chains_codes(cuda,
+                                                            monkeypatch):
+    """A compacting wave of 8 rows (infer/compact.py: the int8 chain in the
+    device loop's CUDA graphs, rows dropped at the rungs) gives the greedy
+    codes, lengths and steps of the monolithic chain over the same rungs;
+    its second run replays graphs. The stop logit is raised in steps until
+    the monolithic rows leave between 1 and 4 of 8 live at a rung, so the
+    compacting wave drops rows."""
+    from xtts_tpu_torch.infer import compact
+    from xtts_tpu_torch.infer import device_loop as dl
+    from xtts_tpu_torch.infer import qdecode as tq
+    tm, qt = _loop_model(cuda, "k1")
+    cond = torch.randn(8, 8, 30, generator=cuda, device="cuda")
+    text = torch.randint(2, 250, (8, 12), generator=cuda, device="cuda")
+    ladder = (16, 32, 48, 64)        # rungs of whole graph chunks
+    stop = tm.cfg.stop_mel_token
+    for _ in range(12):
+        want = tq.generate_speech_quantized(tm, qt, cond, text, max_gen=90,
+                                            do_sample=False, use_fused=False,
+                                            cache_ladder=ladder)
+        lens = want.lengths.tolist()
+        if any(0 < sum(n > r for n in lens) <= 4 for r in ladder):
+            break
+        with torch.no_grad():
+            tm.mel_head.bias[stop] += 0.5
+            qt["mel_head_b"][stop] = tm.mel_head.bias[stop]
+    takes = []
+    take = dl.LoopState.take
+
+    def counted(self, src, idx):
+        takes.append(idx.numel())
+        take(self, src, idx)
+    monkeypatch.setattr(dl.LoopState, "take", counted)
+    for _ in range(2):
+        takes.clear()
+        dl.STATS.reset()
+        got = compact.generate_speech_compacting(
+            tm, qt, cond, text, max_gen=90, do_sample=False,
+            cache_ladder=ladder, row_buckets=(1, 2, 4, 8))
+        torch.cuda.synchronize()
+        assert takes and takes[-1] < 8, want.lengths.tolist()
+        assert torch.equal(got.codes, want.codes)
+        assert torch.equal(got.lengths, want.lengths)
+        assert got.steps == want.steps
+    assert dl.STATS.replays > 0
+
+
+def test_diffusion_tts_on_the_card_matches_the_cpu_port(cuda):
+    """The legacy DiffusionTts (a 64-channel, 2-layer one, f32, TF32 off)
+    on the card against the same weights on the CPU, through the latent,
+    code and conditioning-free branches: within 1e-4 of the output's peak
+    (f32 on both sides, sums in other orders)."""
+    import numpy as np
+    from xtts_tpu_torch.models.diffusion_tts import DiffusionTts
+    from xtts_tpu_torch.nn.blocks import init_flax_like
+    kw = dict(model_channels=64, num_layers=2, in_channels=8,
+              in_latent_channels=16, in_tokens=50, out_channels=16,
+              num_heads=4)
+    cpu = DiffusionTts(**kw).eval()
+    init_flax_like(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.05)
+    card = DiffusionTts(**kw).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 40)).astype(np.float32))
+    lat = torch.from_numpy(rng.standard_normal((2, 16, 10)).astype(
+        np.float32))
+    codes = torch.from_numpy(rng.integers(0, 50, (2, 10)))
+    mel = torch.from_numpy(rng.standard_normal((2, 8, 30)).astype(
+        np.float32))
+    ts = torch.tensor([3, 400])
+    for aligned, free in ((lat, False), (codes, False), (lat, True)):
+        with torch.no_grad():
+            want = cpu(x, ts, aligned_conditioning=aligned,
+                       conditioning_latent=mel, conditioning_free=free)
+            got = card(x.cuda(), ts.cuda(),
+                       aligned_conditioning=aligned.cuda(),
+                       conditioning_latent=mel.cuda(),
+                       conditioning_free=free)
+        torch.cuda.synchronize()
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (free, err)
 
 
 def test_a_scratch_growth_does_not_leave_a_graph_writing_freed_memory(cuda):

@@ -10,8 +10,9 @@
 //
 // Every kernel reads the (B, T, H, D) views' strides as they come (the
 // projections' head-split views arrive as they are) and takes head widths
-// D = 32, 64 and 128; the wrapper zero-pads any other width up to 128 to
-// the next of these. Two families:
+// D = 32, 64 and 128, or (the wide kernels, below the tile family) any
+// multiple of 128 above 128; the wrapper zero-pads any other width up to
+// 128 to the next of these. Two families, and the wide kernels:
 //
 // - bf16 at D = 64, the flagship path: flash_fwd_kernel,
 //   flash_bwd_dkv_kernel and flash_bwd_dq_kernel on wgmma (below).
@@ -83,6 +84,9 @@
 //   rows, dS rounded, dQ += dS K.
 // - No atomics: each block owns its output rows, so the gradients are the
 //   same from run to run, as the Pallas kernels' are.
+// - Where Tk <= 64, the tile family and the wide kernels take D from the
+//   one key tile (ds_one_tile): dS is then exactly 0 at one key, as it is
+//   in exact arithmetic.
 // - bf16 at D = 64 (the forward's parts): the block's fixed pair of tiles
 //   (K, V for dkv; Q, dO for dq) is copied once into swizzled shared
 //   memory; the streamed pair (Q, dO; K, V) runs through a BWD_STAGES-deep
@@ -862,6 +866,10 @@ __host__ __device__ constexpr int tc_tile_bytes() {
   return 64 * TC<T, D>::LD * (int)sizeof(T);
 }
 
+// a tile kernel dkv's statistics: two stages of a query tile's 64 lse and
+// 64 D values, and dkv_ds's sums over the keys (2 x 4 warps x 64 columns)
+constexpr int DKV_STAT_BYTES = 2 * 128 * 4 + 2 * 4 * 64 * 4;
+
 // Blocks an SM the f32 kernels are built for: their shared memory holds
 // two (87-104 KB at D = 64). Built for one, ptxas kept dq and the forward
 // to 168 registers and spilled; for two it holds them in 216-240 without
@@ -979,6 +987,94 @@ __device__ __forceinline__ void store_tile_rows(T* dst, long long stride,
   }
 }
 
+// The forward's online softmax over one key tile of scores s (a thread's
+// rows g, g + 8; the columns from k0 at or past Tk masked to -inf first):
+// the running maxima m, this thread's part of the row sums l and the
+// output acc (N accumulator blocks) rescaled; s leaves as P, unnormalised.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4],
+                                               float (&acc)[N][4], float& m0,
+                                               float& m1, float& l0,
+                                               float& l1, int k0, int Tk,
+                                               float scale_log2) {
+  const int cq = (threadIdx.x & 3) * 2;
+  if (k0 + BK > Tk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (k0 + 8 * j + cq + c >= Tk) s[j][c] = s[j][2 + c] = -INFINITY;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  // every tile holds at least one valid column, so mx0 / mx1 are finite
+  const float alpha0 = exp2f((m0 - mx0) * scale_log2);
+  const float alpha1 = exp2f((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = exp2f(fmaf(s[j][0], scale_log2, -mb0));
+    s[j][1] = exp2f(fmaf(s[j][1], scale_log2, -mb0));
+    s[j][2] = exp2f(fmaf(s[j][2], scale_log2, -mb1));
+    s[j][3] = exp2f(fmaf(s[j][3], scale_log2, -mb1));
+    rs0 += s[j][0] + s[j][1];
+    rs1 += s[j][2] + s[j][3];
+  }
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    acc[j][0] *= alpha0;
+    acc[j][1] *= alpha0;
+    acc[j][2] *= alpha1;
+    acc[j][3] *= alpha1;
+  }
+}
+
+// The forward's end: the row sums folded over the quad; the row's
+// log-sum-exp stored in natural log where lse_row (the (b, h) row of the
+// (B, H, Tq) lse) is given; acc normalised and stored into the (Tq, D)
+// view o with row stride `stride`.
+template <typename T, int D>
+__device__ __forceinline__ void fwd_store(float (&acc)[D / 8][4], float m0,
+                                          float m1, float l0, float l1,
+                                          float* lse_row, T* o,
+                                          long long stride, int q0, int Tq,
+                                          float scale_log2) {
+  constexpr float LN2 = 0.6931471805599453f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = q0 + 16 * warp + (lane >> 2);
+  if (lse_row != nullptr && (lane & 3) == 0) {
+    if (r0 < Tq) lse_row[r0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+    if (r0 + 8 < Tq) lse_row[r0 + 8] = (m1 * scale_log2 + log2f(l1)) * LN2;
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= inv0;
+    acc[j][1] *= inv0;
+    acc[j][2] *= inv1;
+    acc[j][3] *= inv1;
+  }
+  store_tile_rows<T, D>(o, stride, q0, Tq, acc);
+}
+
 // The forward keeps Q in registers (unsplit) in bf16; in f32 in a fifth
 // tile. In registers at f32 D = 64 the kernel spilled at the 168
 // registers of three blocks an SM (239 us at the main bucket on an H100)
@@ -1017,8 +1113,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* const sQ = QREG ? sK(1) : ring + 4 * TE;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cq = (lane & 3) * 2;
+  const int warp = threadIdx.x >> 5;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
   const int ntiles = (Tk + BK - 1) / BK;
@@ -1068,72 +1163,160 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // ---- online softmax on the accumulators ----
-    const int k0 = t * BK;
-    if (k0 + BK > Tk) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (k0 + 8 * j + cq + c >= Tk) s[j][c] = s[j][2 + c] = -INFINITY;
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-    }
-    // every tile holds at least one valid column, so mx0 / mx1 are finite
-    const float alpha0 = exp2f((m0 - mx0) * scale_log2);
-    const float alpha1 = exp2f((m1 - mx1) * scale_log2);
-    m0 = mx0;
-    m1 = mx1;
-    const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = exp2f(fmaf(s[j][0], scale_log2, -mb0));
-      s[j][1] = exp2f(fmaf(s[j][1], scale_log2, -mb0));
-      s[j][2] = exp2f(fmaf(s[j][2], scale_log2, -mb1));
-      s[j][3] = exp2f(fmaf(s[j][3], scale_log2, -mb1));
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
-    }
+    online_softmax<D / 8>(s, acc, m0, m1, l0, l1, t * BK, Tk, scale_log2);
 
     // ---- O += P V, P from the registers ----
     mma_pn<T, D>(acc, s, sV(st));
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + 16 * warp + (lane >> 2);
-  if (lse != nullptr && cq == 0)
-    store_lse(lse, b, h, Tq, r0, m0 * scale_log2 + log2f(l0),
-              m1 * scale_log2 + log2f(l1));
+  fwd_store<T, D>(acc, m0, m1, l0, l1,
+                  lse == nullptr ? nullptr
+                                 : lse + ((long long)b * gridDim.y + h) * Tq,
+                  o + b * sob + h * soh, sot, q0, Tq, scale_log2);
+}
+
+// The backward's dS = P (dP - D) scale. Where every key lies in the
+// block's one key tile (Tk <= BK), the tile kernels take D from that tile:
+// dS = P (dP L - E) scale with L = rowsum(P) and E = rowsum(P dP) of the
+// values in registers. In exact arithmetic L = 1 and E = rowsum(dO O) = D,
+// so nothing changes; at one key dP L and E are then one product, P dP
+// rounded once, and dS is exactly 0 as it is in exact arithmetic, whatever
+// the rounding of P or of dP's 3xTF32 sum (the caller's D = rowsum(dO O)
+// in f32 differs from dP there by the rounding of two sums in other
+// orders). The twin takes the same rule (nn/flash_attn.py _bwd_plain).
+__device__ __forceinline__ float ds_one_tile(float dp, float p, float L,
+                                             float E, float scale) {
+  return __fsub_rn(__fmul_rn(dp, L), E) * p * scale;
+}
+
+// dkv's P^T from its S^T accumulators (keys the rows; the columns the
+// query tile from q0, whose lse (natural log) sL holds): exp2(S^T scale
+// log2 e - lse); the columns past Tq take lse = +inf, so P^T = 0 there
+__device__ __forceinline__ void dkv_p(float (&sp)[8][4], const float* sL,
+                                      int q0, int Tq, float scale_log2) {
+  const int cq = (threadIdx.x & 3) * 2;
+  const int qc = q0 + cq;  // this thread's first column
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] *= inv0;
-    acc[j][1] *= inv0;
-    acc[j][2] *= inv1;
-    acc[j][3] *= inv1;
+  for (int j = 0; j < 8; ++j) {
+    const float2 L = *reinterpret_cast<const float2*>(sL + 8 * j + cq);
+    const float la = qc + 8 * j < Tq ? L.x * LOG2E : INFINITY;
+    const float lb = qc + 8 * j + 1 < Tq ? L.y * LOG2E : INFINITY;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      sp[j][2 * half] = exp2f(fmaf(sp[j][2 * half], scale_log2, -la));
+      sp[j][2 * half + 1] = exp2f(fmaf(sp[j][2 * half + 1], scale_log2, -lb));
+    }
   }
-  store_tile_rows<T, D>(o + b * sob + h * soh, sot, q0, Tq, acc);
+}
+
+// dkv's dS^T = P^T (dP^T - D) scale in place of dP^T, D of the tile's
+// queries at sD (0 past Tq). With Tk <= BK (the keys of the block at k0 are
+// all the keys) ds_one_tile's rule: the sums over the keys run down the
+// accumulator rows, over the quads' lanes and then the four warps through
+// red (2 x 4 x 64 floats of shared memory), the rows past Tk left out.
+__device__ __forceinline__ void dkv_ds(float (&dp)[8][4],
+                                       const float (&sp)[8][4],
+                                       const float* sD, int k0, int Tk,
+                                       float* red, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cq = (lane & 3) * 2;
+  if (Tk > BK) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 D = *reinterpret_cast<const float2*>(sD + 8 * j + cq);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        dp[j][2 * half] = (dp[j][2 * half] - D.x) * sp[j][2 * half] * scale;
+        dp[j][2 * half + 1] =
+            (dp[j][2 * half + 1] - D.y) * sp[j][2 * half + 1] * scale;
+      }
+    }
+    return;
+  }
+  const int row = k0 + 16 * warp + (lane >> 2);
+  const bool in0 = row < Tk, in1 = row + 8 < Tk;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float l = (in0 ? sp[j][c] : 0.f) + (in1 ? sp[j][2 + c] : 0.f);
+      float e = (in0 ? __fmul_rn(sp[j][c], dp[j][c]) : 0.f) +
+                (in1 ? __fmul_rn(sp[j][2 + c], dp[j][2 + c]) : 0.f);
+#pragma unroll
+      for (int sh = 4; sh <= 16; sh <<= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, sh);
+        e += __shfl_xor_sync(0xffffffffu, e, sh);
+      }
+      if (lane < 4) {
+        red[64 * warp + 8 * j + cq + c] = l;
+        red[256 + 64 * warp + 8 * j + cq + c] = e;
+      }
+    }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + cq + c;
+      const float L = red[col] + red[64 + col] + red[128 + col] + red[192 + col];
+      const float E = red[256 + col] + red[320 + col] + red[384 + col] +
+                      red[448 + col];
+      dp[j][c] = ds_one_tile(dp[j][c], sp[j][c], L, E, scale);
+      dp[j][2 + c] = ds_one_tile(dp[j][2 + c], sp[j][2 + c], L, E, scale);
+    }
+}
+
+// dq's P = exp2(S scale log2 e - lse) from its S accumulators (queries the
+// rows, lse l0, l1 in log2 units; the key tile from key0 the columns, P = 0
+// past Tk) and dS = P (dP - D) scale in place of dP (D of the rows d0, d1);
+// with Tk <= BK ds_one_tile's rule, the sums over the quads' lanes. sp
+// leaves as P on that path.
+__device__ __forceinline__ void dq_ds(float (&sp)[8][4], float (&dp)[8][4],
+                                      int key0, int Tk, float l0, float l1,
+                                      float d0, float d1, float scale_log2,
+                                      float scale) {
+  const int cq = (threadIdx.x & 3) * 2;
+  if (Tk > BK) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool in = key0 + 8 * j + cq + c < Tk;
+        const float pa = in ? exp2f(fmaf(sp[j][c], scale_log2, -l0)) : 0.f;
+        const float pb =
+            in ? exp2f(fmaf(sp[j][2 + c], scale_log2, -l1)) : 0.f;
+        dp[j][c] = (dp[j][c] - d0) * pa * scale;
+        dp[j][2 + c] = (dp[j][2 + c] - d1) * pb * scale;
+      }
+    return;
+  }
+  float L0 = 0.f, L1 = 0.f, E0 = 0.f, E1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const bool in = key0 + 8 * j + cq + c < Tk;
+      sp[j][c] = in ? exp2f(fmaf(sp[j][c], scale_log2, -l0)) : 0.f;
+      sp[j][2 + c] = in ? exp2f(fmaf(sp[j][2 + c], scale_log2, -l1)) : 0.f;
+      L0 += sp[j][c];
+      L1 += sp[j][2 + c];
+      E0 += __fmul_rn(sp[j][c], dp[j][c]);
+      E1 += __fmul_rn(sp[j][2 + c], dp[j][2 + c]);
+    }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    L0 += __shfl_xor_sync(0xffffffffu, L0, sh);
+    L1 += __shfl_xor_sync(0xffffffffu, L1, sh);
+    E0 += __shfl_xor_sync(0xffffffffu, E0, sh);
+    E1 += __shfl_xor_sync(0xffffffffu, E1, sh);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      dp[j][c] = ds_one_tile(dp[j][c], sp[j][c], L0, E0, scale);
+      dp[j][2 + c] = ds_one_tile(dp[j][2 + c], sp[j][2 + c], L1, E1, scale);
+    }
 }
 
 // dK and dV of one 64-key tile (flash_bwd_dkv_kernel's recurrences): K and
@@ -1161,9 +1344,10 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto sQ = [&](int s) { return sK + (2 + 2 * s) * TE; };
   auto sdO = [&](int s) { return sK + (3 + 2 * s) * TE; };
   float* const stats = reinterpret_cast<float*>(sK + 6 * TE);  // 2 x 128
+  float* const red = stats + 256;  // dkv_ds's 2 x 4 x 64
 
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, cq = (threadIdx.x & 3) * 2;
+  const int warp = threadIdx.x >> 5;
   const T* qb = q + b * sqb + h * sqh;
   const T* db = dout + b * sdb + h * sdh;
   // threads 0-63 copy a tile's lse, 64-127 its D
@@ -1193,43 +1377,20 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t + 1 < ntiles) load_stage(t + 1);
     cp_async_commit();
 
-    // ---- S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse): the columns
-    // past Tq take lse = +inf ----
+    // ---- S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse) ----
     float sp[8][4], dp[8][4];
     zero(sp);
     mma_nt<T, D>(sp, sK + 16 * warp * C::LD, sQ(st));
     const float* sL = stats + 128 * st;
-    const int qc = t * BQ + cq;  // this thread's first column
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 L = *reinterpret_cast<const float2*>(sL + 8 * j + cq);
-      const float la = qc + 8 * j < Tq ? L.x * LOG2E : INFINITY;
-      const float lb = qc + 8 * j + 1 < Tq ? L.y * LOG2E : INFINITY;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        sp[j][2 * half] = exp2f(fmaf(sp[j][2 * half], scale_log2, -la));
-        sp[j][2 * half + 1] =
-            exp2f(fmaf(sp[j][2 * half + 1], scale_log2, -lb));
-      }
-    }
+    dkv_p(sp, sL, t * BQ, Tq, scale_log2);
 
     // ---- dV += P^T dO first: dP^T's registers are not live yet ----
     mma_pn<T, D>(acc_dv, sp, sdO(st));
 
-    // ---- dP^T = V dO^T, dS^T = P^T (dP^T - D) scale (D = 0 past Tq),
-    // dK += dS^T Q ----
+    // ---- dP^T = V dO^T, dS^T = P^T (dP^T - D) scale, dK += dS^T Q ----
     zero(dp);
     mma_nt<T, D>(dp, sV + 16 * warp * C::LD, sdO(st));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 Dl = *reinterpret_cast<const float2*>(sL + 64 + 8 * j + cq);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        dp[j][2 * half] = (dp[j][2 * half] - Dl.x) * sp[j][2 * half] * scale;
-        dp[j][2 * half + 1] =
-            (dp[j][2 * half + 1] - Dl.y) * sp[j][2 * half + 1] * scale;
-      }
-    }
+    dkv_ds(dp, sp, sL + 64, k0, Tk, red, scale);
     mma_pn<T, D>(acc_dk, dp, sQ(st));
   }
   store_tile_rows<T, D>(dk + b * skgb + h * skgh, skgt, k0, Tk, acc_dk);
@@ -1261,7 +1422,6 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cq = (lane & 3) * 2;
   const T* kb = k + b * skb + h * skh;
   const T* vb = v + b * svb + h * svh;
   const int ntiles = (Tk + BK - 1) / BK;
@@ -1300,23 +1460,282 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // ---- P = exp2(S scale log2 e - lse), 0 past Tk; dS = P (dP - D)
     // scale ----
-    const int key0 = t * BK;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool in = key0 + 8 * j + cq + c < Tk;
-        const float pa = in ? exp2f(fmaf(sp[j][c], scale_log2, -l0)) : 0.f;
-        const float pb =
-            in ? exp2f(fmaf(sp[j][2 + c], scale_log2, -l1)) : 0.f;
-        dp[j][c] = (dp[j][c] - d0) * pa * scale;
-        dp[j][2 + c] = (dp[j][2 + c] - d1) * pb * scale;
-      }
+    dq_ds(sp, dp, t * BK, Tk, l0, l1, d0, d1, scale_log2, scale);
 
     // ---- dQ += dS K ----
     mma_pn<T, D>(acc, dp, sK(st));
   }
   store_tile_rows<T, D>(dq + b * sqgb + h * sqgh, sqgt, q0, Tq, acc);
+}
+
+// ---------------------------------------------------------------------------
+// The wide kernels: head widths D = 128 NC with NC >= 2, every multiple of
+// 128 above 128, as JAX's library kernel takes them. A <T, D> instance of
+// the tile family does not fit there: at f32 D = 256 the forward's five
+// tiles would be 333 KB and dkv's six 400 KB, against 227 KB a block, and
+// at D = 128 f32 already spills. A block of the tile kernels' grid owns one
+// 128-column chunk c of its output instead (the grid's y axis runs over
+// (head, chunk)); it forms each score tile S (and in the backward dP) as
+// the sum of the NC chunks' width-128 products, and then takes its own
+// chunk's product through the width-128 tile code: O_c += P V_c; dV_c +=
+// P^T dO_c and dK_c += dS^T Q_c; dQ_c += dS K_c. The price: every chunk
+// forms S (and dP) again, so the work is (NC + 1) / 2 times the forward's
+// two products, (2 NC + 2) / 4 times dkv's four and (2 NC + 1) / 3 times
+// dq's three. The chunks' S are formed by the same operations, so the lse
+// they give is the same; chunk 0 stores it. Grids, the lse and D contract,
+// zero-filled ragged edges, the one-key rule and no atomics as the tile
+// family.
+//
+// The streamed tiles run through a two-stage ring of two width-128 tiles a
+// stage (f32 135 KB, bf16 70 KB), a step a pair of tiles, one
+// __syncthreads a step, step n + 1's copy in flight during step n's
+// products. The steps of one key tile (forward, dq) or query tile (dkv):
+// - forward: NC steps (Q_i, K_i) for S; then (V_c): softmax, O += P V_c;
+// - dq: NC steps (Q_i, K_i) for S; NC steps (dO_i, V_i) for dP; then
+//   (K_c): P, dS, dQ += dS K_c;
+// - dkv: NC steps (K_i, Q_i) for S^T; NC steps (V_i, dO_i) for dP^T, P^T
+//   formed before the first; then (dO_c, Q_c): dV += P^T dO_c, dS^T, dK +=
+//   dS^T Q_c. The query tile's lse and D come with its first step, in two
+//   buffers by the tile's parity (the next tile's land during this one's
+//   last step).
+// Q, dO, K and V rows are copied again a step, from L2.
+
+constexpr int WCH = 128;  // a wide kernel's chunk of the head width
+
+template <typename T>
+__host__ __device__ constexpr int wide_smem() {
+  return 4 * tc_tile_bytes<T, WCH>();
+}
+
+// acc (+)= A B^T over chunk `i` of the head width (mma_nt at width 128; A
+// the warp's rows, acc zeroed first at i = 0). f32 takes each later
+// chunk's product in a zeroed partial joined by IEEE adds, as mma_pn does
+// its long sums: in place, the tensor cores' truncating accumulation over
+// the 48 k-steps of width 384 moved dQ by 1.5e-5 of its largest against
+// the f32 twin (bound 1e-5) on an H100.
+template <typename T>
+__device__ __forceinline__ void mma_nt_chunk(float (&acc)[8][4], const T* a,
+                                             const T* b_tile, int i) {
+  if (i == 0) zero(acc);
+  if (i == 0 || TC<T, WCH>::PARTIAL == 0) {
+    mma_nt<T, WCH>(acc, a, b_tile);
+    return;
+  }
+  float t[8][4];
+  zero(t);
+  mma_nt<T, WCH>(t, a, b_tile);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] += t[j][c];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int Tk, int NC,
+                      long long sqb, long long sqt, long long sqh,
+                      long long skb, long long skt, long long skh,
+                      long long svb, long long svt, long long svh,
+                      long long sob, long long sot, long long soh,
+                      float scale_log2) {
+  using C = TC<T, WCH>;
+  constexpr int TE = 64 * C::LD;
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  T* const ring = reinterpret_cast<T*>(smem_t);
+  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
+
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
+  const int warp = threadIdx.x >> 5;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh + c * WCH;
+  const int per = NC + 1, nsteps = (Tk + BK - 1) / BK * per;
+  auto load = [&](int n) {
+    const int t = n / per, i = n % per, s = n & 1;
+    if (i < NC) {
+      stage_tile<T, WCH>(slot(s, 0), qb + i * WCH, sqt, q0, Tq);
+      stage_tile<T, WCH>(slot(s, 1), kb + i * WCH, skt, t * BK, Tk);
+    } else {
+      stage_tile<T, WCH>(slot(s, 0), vb, svt, t * BK, Tk);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  float acc[WCH / 8][4], s[8][4];
+  zero(acc);
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+  for (int n = 0; n < nsteps; ++n) {
+    const int st = n & 1, i = n % per;
+    cp_async_wait<0>();  // step n's tiles landed
+    __syncthreads();     // ... for every thread; step n - 1's stage is free
+    if (n + 1 < nsteps) load(n + 1);
+    cp_async_commit();
+    if (i < NC) {  // ---- S += Q_i K_i^T ----
+      mma_nt_chunk<T>(s, slot(st, 0) + 16 * warp * C::LD, slot(st, 1), i);
+    } else {  // ---- softmax, O += P V_c ----
+      online_softmax<WCH / 8>(s, acc, m0, m1, l0, l1, n / per * BK, Tk,
+                              scale_log2);
+      mma_pn<T, WCH>(acc, s, slot(st, 0));
+    }
+  }
+  fwd_store<T, WCH>(acc, m0, m1, l0, l1,
+                    lse == nullptr || c != 0
+                        ? nullptr
+                        : lse + ((long long)b * H + h) * Tq,
+                    o + b * sob + h * soh + c * WCH, sot, q0, Tq, scale_log2);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int Tq, int Tk, int NC, long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh, long long svb, long long svt,
+    long long svh, long long sdb, long long sdt, long long sdh,
+    long long skgb, long long skgt, long long skgh, long long svgb,
+    long long svgt, long long svgh, float scale_log2, float scale) {
+  using C = TC<T, WCH>;
+  constexpr int TE = 64 * C::LD;
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  T* const ring = reinterpret_cast<T*>(smem_t);
+  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
+  float* const stats = reinterpret_cast<float*>(ring + 4 * TE);  // 2 x 128
+  float* const red = stats + 256;  // dkv_ds's 2 x 4 x 64
+
+  const int k0 = blockIdx.x * BK, b = blockIdx.z;
+  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
+  const int warp = threadIdx.x >> 5;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const T* db = dout + b * sdb + h * sdh;
+  // threads 0-63 copy a tile's lse, 64-127 its D
+  const float* stat_src =
+      (threadIdx.x < 64 ? lse : delta) + ((long long)b * H + h) * Tq;
+  const int per = 2 * NC + 1, nsteps = (Tq + BQ - 1) / BQ * per;
+  auto load = [&](int n) {
+    const int t = n / per, i = n % per, s = n & 1, q0 = t * BQ;
+    if (i < NC) {
+      stage_tile<T, WCH>(slot(s, 0), kb + i * WCH, skt, k0, Tk);
+      stage_tile<T, WCH>(slot(s, 1), qb + i * WCH, sqt, q0, Tq);
+      if (i == 0) {
+        const int r = q0 + (threadIdx.x & 63);
+        cp_async4(smem_u32(stats + 128 * (t & 1) + threadIdx.x),
+                  stat_src + (r < Tq ? r : 0), r < Tq);
+      }
+    } else if (i < 2 * NC) {
+      stage_tile<T, WCH>(slot(s, 0), vb + (i - NC) * WCH, svt, k0, Tk);
+      stage_tile<T, WCH>(slot(s, 1), db + (i - NC) * WCH, sdt, q0, Tq);
+    } else {
+      stage_tile<T, WCH>(slot(s, 0), db + c * WCH, sdt, q0, Tq);
+      stage_tile<T, WCH>(slot(s, 1), qb + c * WCH, sqt, q0, Tq);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  float acc_dk[WCH / 8][4], acc_dv[WCH / 8][4], sp[8][4], dp[8][4];
+  zero(acc_dk);
+  zero(acc_dv);
+  for (int n = 0; n < nsteps; ++n) {
+    const int st = n & 1, i = n % per, t = n / per;
+    cp_async_wait<0>();  // step n's tiles (and its tile's statistics)
+    __syncthreads();
+    if (n + 1 < nsteps) load(n + 1);
+    cp_async_commit();
+    const float* sL = stats + 128 * (t & 1);
+    const T* a = slot(st, 0) + 16 * warp * C::LD;  // this warp's rows
+    if (i < NC) {  // ---- S^T += K_i Q_i^T ----
+      mma_nt_chunk<T>(sp, a, slot(st, 1), i);
+    } else if (i < 2 * NC) {  // ---- P^T; dP^T += V_i dO_i^T ----
+      if (i == NC) dkv_p(sp, sL, t * BQ, Tq, scale_log2);
+      mma_nt_chunk<T>(dp, a, slot(st, 1), i - NC);
+    } else {  // ---- dV_c += P^T dO_c, dS^T, dK_c += dS^T Q_c ----
+      mma_pn<T, WCH>(acc_dv, sp, slot(st, 0));
+      dkv_ds(dp, sp, sL + 64, k0, Tk, red, scale);
+      mma_pn<T, WCH>(acc_dk, dp, slot(st, 1));
+    }
+  }
+  store_tile_rows<T, WCH>(dk + b * skgb + h * skgh + c * WCH, skgt, k0, Tk,
+                          acc_dk);
+  store_tile_rows<T, WCH>(dv + b * svgb + h * svgh + c * WCH, svgt, k0, Tk,
+                          acc_dv);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
+flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk,
+    int NC, long long sqb, long long sqt, long long sqh, long long skb,
+    long long skt, long long skh, long long svb, long long svt,
+    long long svh, long long sdb, long long sdt, long long sdh,
+    long long sqgb, long long sqgt, long long sqgh, float scale_log2,
+    float scale) {
+  using C = TC<T, WCH>;
+  constexpr int TE = 64 * C::LD;
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  T* const ring = reinterpret_cast<T*>(smem_t);
+  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
+
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + h * skh;
+  const T* vb = v + b * svb + h * svh;
+  const T* db = dout + b * sdb + h * sdh;
+  const int per = 2 * NC + 1, nsteps = (Tk + BK - 1) / BK * per;
+  auto load = [&](int n) {
+    const int t = n / per, i = n % per, s = n & 1;
+    if (i < NC) {
+      stage_tile<T, WCH>(slot(s, 0), qb + i * WCH, sqt, q0, Tq);
+      stage_tile<T, WCH>(slot(s, 1), kb + i * WCH, skt, t * BK, Tk);
+    } else if (i < 2 * NC) {
+      stage_tile<T, WCH>(slot(s, 0), db + (i - NC) * WCH, sdt, q0, Tq);
+      stage_tile<T, WCH>(slot(s, 1), vb + (i - NC) * WCH, svt, t * BK, Tk);
+    } else {
+      stage_tile<T, WCH>(slot(s, 0), kb + c * WCH, skt, t * BK, Tk);
+    }
+  };
+  load(0);
+  cp_async_commit();
+  // rows r0 and r0 + 8: lse in log2 units and D (past Tq: +inf and 0)
+  const long long sr = ((long long)b * H + h) * Tq;
+  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const float l0 = r0 < Tq ? lse[sr + r0] * LOG2E : INFINITY;
+  const float l1 = r1 < Tq ? lse[sr + r1] * LOG2E : INFINITY;
+  const float d0 = r0 < Tq ? delta[sr + r0] : 0.f;
+  const float d1 = r1 < Tq ? delta[sr + r1] : 0.f;
+
+  float acc[WCH / 8][4], sp[8][4], dp[8][4];
+  zero(acc);
+  for (int n = 0; n < nsteps; ++n) {
+    const int st = n & 1, i = n % per;
+    cp_async_wait<0>();  // step n's tiles landed
+    __syncthreads();
+    if (n + 1 < nsteps) load(n + 1);
+    cp_async_commit();
+    const T* a = slot(st, 0) + 16 * warp * C::LD;  // this warp's rows
+    if (i < NC) {  // ---- S += Q_i K_i^T ----
+      mma_nt_chunk<T>(sp, a, slot(st, 1), i);
+    } else if (i < 2 * NC) {  // ---- dP += dO_i V_i^T ----
+      mma_nt_chunk<T>(dp, a, slot(st, 1), i - NC);
+    } else {  // ---- P, dS, dQ_c += dS K_c ----
+      dq_ds(sp, dp, n / per * BK, Tk, l0, l1, d0, d1, scale_log2, scale);
+      mma_pn<T, WCH>(acc, dp, slot(st, 0));
+    }
+  }
+  store_tile_rows<T, WCH>(dq + b * sqgb + h * sqgh + c * WCH, sqgt, q0, Tq,
+                          acc);
 }
 
 template <typename K>
@@ -1394,7 +1813,7 @@ struct DkvTC {
                  void* dk, void* dv, int B, int Tq, int Tk, int H,
                  const long long* st, float scale, cudaStream_t stream) {
     static unsigned opted = 0;
-    constexpr int smem = 6 * tc_tile_bytes<T, D>() + 2 * 128 * 4;
+    constexpr int smem = 6 * tc_tile_bytes<T, D>() + DKV_STAT_BYTES;
     return launch_bwd_dkv<T>(flash_bwd_dkv_tc_kernel<T, D>, smem, opted, q,
                              k, v, dout, lse, delta, dk, dv, B, Tq, Tk, H,
                              st, scale, stream);
@@ -1415,6 +1834,63 @@ struct DqTC {
   }
 };
 
+// The wide kernels' launches at d = 128 NC: the ring's four tiles (dkv
+// with its statistics), opted in once per device.
+template <typename T>
+struct FwdWide {
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Tq, int Tk, int H, int NC,
+                 const long long* s, float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = wide_smem<T>();
+    if (int e = opt_in(flash_fwd_wide_kernel<T>, smem, opted)) return e;
+    dim3 grid((Tq + BQ - 1) / BQ, H * NC, B);
+    flash_fwd_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, NC, s[0],
+        s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+        scale * LOG2E);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T>
+struct DkvWide {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dk, void* dv, int B, int Tq, int Tk, int H, int NC,
+                 const long long* st, float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = wide_smem<T>() + DKV_STAT_BYTES;
+    if (int e = opt_in(flash_bwd_dkv_wide_kernel<T>, smem, opted)) return e;
+    dim3 grid((Tk + BK - 1) / BK, H * NC, B);
+    flash_bwd_dkv_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dk, (T*)dv, Tq, Tk, NC, st[0], st[1], st[2], st[3], st[4], st[5],
+        st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+        st[15], st[16], st[17], scale * LOG2E, scale);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T>
+struct DqWide {
+  static int run(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int B, int Tq, int Tk, int H, int NC,
+                 const long long* st, float scale, cudaStream_t stream) {
+    static unsigned opted = 0;
+    constexpr int smem = wide_smem<T>();
+    if (int e = opt_in(flash_bwd_dq_wide_kernel<T>, smem, opted)) return e;
+    dim3 grid((Tq + BQ - 1) / BQ, H * NC, B);
+    flash_bwd_dq_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dq, Tq, Tk, NC, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+        scale * LOG2E, scale);
+    return (int)cudaGetLastError();
+  }
+};
+
 // a tile kernel's launch at (f32 or bf16, d): f32 at 32, 64 and 128, bf16
 // at 32 and 128 (bf16 at 64 is the wgmma kernels'); another width is
 // refused
@@ -1428,11 +1904,19 @@ int by_width(int f32, int d, Args... args) {
   return (int)cudaErrorInvalidValue;
 }
 
+// a wide kernel's launch at d = 128 NC, NC >= 2 (args carry NC); another
+// width above 128 is refused
+template <template <typename> class L, typename... Args>
+int by_chunks(int f32, int d, Args... args) {
+  if (d % WCH) return (int)cudaErrorInvalidValue;
+  return f32 ? L<float>::run(args...) : L<bf16>::run(args...);
+}
+
 }  // namespace
 
 // f32 != 0: float inputs and output, else bf16; d: the head width (bf16 at
-// 64: the wgmma kernel, else a tile kernel). lse: null, or (B, H, Tq) f32
-// for the backward.
+// 64: the wgmma kernel; up to 128 a tile kernel; a multiple of 128 above
+// it a wide kernel). lse: null, or (B, H, Tq) f32 for the backward.
 XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Tq, int Tk, int H,
                              long long sqb, long long sqt, long long sqh,
@@ -1440,12 +1924,15 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              long long svb, long long svt, long long svh,
                              long long sob, long long sot, long long soh,
                              float scale, int f32, int d, void* stream) {
-  if (f32 || d != 64) {
-    const long long s[12] = {sqb, sqt, sqh, skb, skt, skh,
-                             svb, svt, svh, sob, sot, soh};
+  const long long s[12] = {sqb, sqt, sqh, skb, skt, skh,
+                           svb, svt, svh, sob, sot, soh};
+  if (d > WCH)
+    return by_chunks<FwdWide>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
+                              d / WCH, (const long long*)s, scale,
+                              (cudaStream_t)stream);
+  if (f32 || d != 64)
     return by_width<FwdTC>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
                            (const long long*)s, scale, (cudaStream_t)stream);
-  }
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
@@ -1462,6 +1949,10 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  const long long* strides, float scale,
                                  int f32, int d, void* stream) {
   static unsigned opted_bf16 = 0;
+  if (d > WCH)
+    return by_chunks<DkvWide>(f32, d, q, k, v, dout, (const float*)lse,
+                              (const float*)delta, dk, dv, B, Tq, Tk, H,
+                              d / WCH, strides, scale, (cudaStream_t)stream);
   if (f32 || d != 64)
     return by_width<DkvTC>(f32, d, q, k, v, dout, (const float*)lse,
                            (const float*)delta, dk, dv, B, Tq, Tk, H, strides,
@@ -1479,6 +1970,10 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 int Tk, int H, const long long* strides,
                                 float scale, int f32, int d, void* stream) {
   static unsigned opted_bf16 = 0;
+  if (d > WCH)
+    return by_chunks<DqWide>(f32, d, q, k, v, dout, (const float*)lse,
+                             (const float*)delta, dq, B, Tq, Tk, H, d / WCH,
+                             strides, scale, (cudaStream_t)stream);
   if (f32 || d != 64)
     return by_width<DqTC>(f32, d, q, k, v, dout, (const float*)lse,
                           (const float*)delta, dq, B, Tq, Tk, H, strides,
@@ -1490,30 +1985,36 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // Registers and local-memory bytes a thread of every kernel, out[2 i] and
-// out[2 i + 1] for i = 6 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
-// (the wgmma kernels), 128, f32 at 32, 64, 128 (local memory other than 0
-// is a spill)
+// out[2 i + 1] for i = 8 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
+// (the wgmma kernels), 128, the wide kernel, then f32 at the same (local
+// memory other than 0 is a spill)
 XT_API int xt_flash_attn_attrs(int* out) {
-  const void* fns[18] = {
+  const void* fns[24] = {
       (const void*)flash_fwd_tc_kernel<bf16, 32>,
       (const void*)flash_fwd_kernel,
       (const void*)flash_fwd_tc_kernel<bf16, 128>,
+      (const void*)flash_fwd_wide_kernel<bf16>,
       (const void*)flash_fwd_tc_kernel<float, 32>,
       (const void*)flash_fwd_tc_kernel<float, 64>,
       (const void*)flash_fwd_tc_kernel<float, 128>,
+      (const void*)flash_fwd_wide_kernel<float>,
       (const void*)flash_bwd_dkv_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dkv_kernel,
       (const void*)flash_bwd_dkv_tc_kernel<bf16, 128>,
+      (const void*)flash_bwd_dkv_wide_kernel<bf16>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 32>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 64>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 128>,
+      (const void*)flash_bwd_dkv_wide_kernel<float>,
       (const void*)flash_bwd_dq_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dq_kernel,
       (const void*)flash_bwd_dq_tc_kernel<bf16, 128>,
+      (const void*)flash_bwd_dq_wide_kernel<bf16>,
       (const void*)flash_bwd_dq_tc_kernel<float, 32>,
       (const void*)flash_bwd_dq_tc_kernel<float, 64>,
-      (const void*)flash_bwd_dq_tc_kernel<float, 128>};
-  for (int i = 0; i < 18; ++i) {
+      (const void*)flash_bwd_dq_tc_kernel<float, 128>,
+      (const void*)flash_bwd_dq_wide_kernel<float>};
+  for (int i = 0; i < 24; ++i) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
     if (e != cudaSuccess) return (int)e;

@@ -15,10 +15,10 @@
          or the shortcut: codes -> DVAE decode -> Vocos (models/dvae.py)
          or HiFi-GAN: latent -> HifiDecoder -> wav (models/hifigan.py)
 
-Every TTSSettings knob of the JAX package is here except compact_rows
-(compacting decode waves), which is not ported: CLVP reranking, the
+Every TTSSettings knob of the JAX package is here: CLVP reranking, the
 shortcut and HiFi-GAN renders, batched sentences (infer/serving.py) and
-continuous serving (infer/slots.py), the cache ladder, the int8-KV engines,
+continuous serving (infer/slots.py), compacting decode waves
+(compact_rows, infer/compact.py), the cache ladder, the int8-KV engines,
 sentence streaming, the presets, multi-clip conditioning, per-row diffusion
 noise, the speculative render, the sparse ReferenceNet hoist, text
 bucketing on or off, and all ten sampler names; also
@@ -43,6 +43,7 @@ from xtts_tpu_torch.core.config import XTTSConfig
 from xtts_tpu_torch.diffusion.gaussian import (SPACED_SAMPLERS,
                                                GaussianDiffusion, randn_rows)
 from xtts_tpu_torch.dsp.mel import MelFrontend
+from xtts_tpu_torch.infer.compact import generate_speech_compacting
 from xtts_tpu_torch.infer.qdecode import (generate_speech_quantized,
                                           quantize_gpt_decode)
 from xtts_tpu_torch.models.aa_diffusion import (AADiffusion,
@@ -168,6 +169,13 @@ class TTSSettings:
     # serving batch sizes, b * ceil(steps / k) <= 512). 1 = the reference's
     # semantics. Spaced samplers only.
     refnet_interval: int = 1
+    # compacting decode waves (infer/compact.py): the row counts a batched
+    # AR wave may shrink through at the cache-ladder rungs, dropping its
+    # finished rows (e.g. (1, 2, 4, 8, 16)). None = one row count. More
+    # than one row and no place_on_mesh only; greedy codes stay exact (on
+    # the card up to the row count's rounding), sampled draws can differ
+    # after a drop; K1 and K4 stay off.
+    compact_rows: Optional[tuple] = None
 
     @classmethod
     def preset(cls, name: str) -> "TTSSettings":
@@ -430,9 +438,11 @@ class TextToSpeech:
         return self._spk_mel(w).transpose(1, 2)
 
     def _generate(self, cond, text, generator, settings: TTSSettings):
-        """AR generation through the engine the JAX package would pick: K1
-        at one row (quantized_decode); K4 with XTTS_FUSED_SERVING=1 at 8 or
-        16 rows and no kv_quant; else the per-layer chain."""
+        """AR generation through the engine the JAX package would pick:
+        compacting waves with compact_rows at more than one row off the
+        mesh (ahead of K4); K1 at one row (quantized_decode); K4 with
+        XTTS_FUSED_SERVING=1 at 8 or 16 rows and no kv_quant; else the
+        per-layer chain."""
         if settings.cache_ladder == "auto":
             ladder = (128, 256) if text.shape[0] >= 16 else None
         else:
@@ -442,6 +452,14 @@ class TextToSpeech:
                   temperature=settings.temperature,
                   repetition_penalty=settings.repetition_penalty,
                   cache_ladder=ladder)
+        if (settings.compact_rows and text.shape[0] > 1
+                and self.replicas is None and not self.serving_replica):
+            # compacting waves: the decode in segments at the ladder's
+            # rungs, the finished rows dropped; before K4 (fixed rows)
+            return generate_speech_compacting(
+                self.gpt, self._qtree, cond, text, generator,
+                quantize_kv_cache=settings.kv_quant,
+                row_buckets=tuple(settings.compact_rows), **kw)
         if self._qtree is not None:
             b = cond.shape[0]
             fserv = (os.environ.get("XTTS_FUSED_SERVING") == "1"

@@ -34,6 +34,13 @@ a later rung's tokens would have used; after the last live step the
 generator is set back to where that step left it, so whatever follows
 (the diffusion noise) draws the same numbers for any CHUNK.
 
+A wave can go on with some of its rows at a rung's end (`rows_after`,
+infer/compact.py's compacting waves): those rows of the loop state and
+the cache are copied into the store's buffers of the smaller row count,
+so each (rows, rung) pair is a graph key of its own under the same caps.
+With `keys` each row samples from a chain of its own (sampling.
+sample_token_rows at the step), whatever rows share the wave.
+
 Sampling draws from the caller's generator; a replay draws from a
 generator registered with the graph, seeded and offset from the caller's
 before and copied back after. Kernel launch counts (`fn.launches` of
@@ -52,7 +59,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from xtts_tpu_torch.infer.sampling import greedy_token, sample_token
+from xtts_tpu_torch.infer.sampling import (greedy_token, sample_token,
+                                           sample_token_rows)
 from xtts_tpu_torch.ops import decode_step as _ds
 from xtts_tpu_torch.ops import serving_step as _ss
 from xtts_tpu_torch.parallel import mesh as pmesh
@@ -106,9 +114,12 @@ STATS = LoopStats()
 
 class LoopState:
     """The while_loop's carry on the device; decode_step writes it in
-    place, so a captured graph reads and writes the same buffers."""
+    place, so a captured graph reads and writes the same buffers. `keyed`:
+    the rows sample from chains of their own (`keys`, (B, 2) int64 words
+    of sampling.row_keys; the draw counter is the step)."""
 
-    def __init__(self, b: int, vocab: int, max_gen: int, dtype, device):
+    def __init__(self, b: int, vocab: int, max_gen: int, dtype, device,
+                 keyed: bool = False):
         def scalar():
             return torch.zeros((), dtype=torch.long, device=device)
         self.step, self.p_len, self.pos_off, self.cap = (scalar(), scalar(),
@@ -119,12 +130,16 @@ class LoopState:
         self.codes = torch.zeros((b, max_gen), dtype=torch.long,
                                  device=device)
         self.lengths = torch.zeros((b,), dtype=torch.long, device=device)
+        self.keys = (torch.zeros((b, 2), dtype=torch.long, device=device)
+                     if keyed else None)
 
     def reset(self, logits, p_len: int, pos_off: int, stop: int,
-              start_token: int) -> None:
+              start_token: int, keys=None) -> None:
         """The loop's initial carry: the prefill's logits; ids HF's
         repetition penalty has already seen (the fake input id 1 and the
-        start mel token)."""
+        start mel token); the rows' keys where the state is keyed."""
+        if self.keys is not None:
+            self.keys.copy_(keys)
         self.step.zero_()
         self.p_len.fill_(p_len)
         self.pos_off.fill_(pos_off)
@@ -136,6 +151,17 @@ class LoopState:
         self.codes.fill_(stop)
         self.lengths.zero_()
 
+    def take(self, src: "LoopState", idx: torch.Tensor) -> None:
+        """This state (of len(idx) rows) := rows idx of src, in order
+        (xtts_tpu/infer/compact.py _take_rows): the scalars as they are."""
+        for name in ("step", "p_len", "pos_off", "cap"):
+            getattr(self, name).copy_(getattr(src, name))
+        rows = ("logits", "done", "seen", "codes", "lengths") + (
+            ("keys",) if self.keys is not None else ())
+        for name in rows:
+            torch.index_select(getattr(src, name), 0, idx,
+                               out=getattr(self, name))
+
 
 def decode_step(st: LoopState, engine_step, sampling: Sampling, stop: int,
                 pos_rows: int, generator) -> None:
@@ -145,7 +171,12 @@ def decode_step(st: LoopState, engine_step, sampling: Sampling, stop: int,
     step at mel position step + pos_off and cache index p_len + step.
     No host read: the index and the positions stay tensors."""
     live = (st.step < st.cap) & ~st.done.all()
-    if sampling.do_sample:
+    if sampling.do_sample and st.keys is not None:
+        tok = sample_token_rows(st.keys, st.step.expand(st.done.shape[0]),
+                                st.logits, temperature=sampling.temperature,
+                                top_p=sampling.top_p, seen=st.seen,
+                                repetition_penalty=sampling.repetition_penalty)
+    elif sampling.do_sample:
         tok = sample_token(generator, st.logits,
                            temperature=sampling.temperature,
                            top_p=sampling.top_p, seen=st.seen,
@@ -193,6 +224,41 @@ def _grow(cache, s_axis: int, into):
     """`cache` copied into the zeroed buffers `into` (more positions)."""
     for t, n in zip(cache, into):
         n.zero_().narrow(s_axis, 0, t.shape[s_axis]).copy_(t)
+    return into
+
+
+def _cache_key(engine: Engine, cache, rows: Optional[int] = None) -> tuple:
+    """A cache's store key but its length: the engine and each buffer's
+    shape (the position axis left out; the batch axis, just before it, at
+    `rows` where given) and dtype."""
+    def dims(t):
+        shape = list(t.shape)
+        if rows is not None:
+            shape[engine.s_axis - 1] = rows
+        return (tuple(shape[:engine.s_axis]),
+                tuple(shape[engine.s_axis + 1:]), t.dtype)
+    return (engine.name,) + tuple(dims(t) for t in cache)
+
+
+def _take_cache(engine: Engine, cache, idx: torch.Tensor,
+                store: Optional["Store"]):
+    """Rows idx of the cache (its batch axis just before the position
+    axis, as the chain engines keep it) in buffers of the store's, so a
+    graph that reads them is keyed on them (xtts_tpu/infer/compact.py
+    _take_rows)."""
+    b_axis, b = engine.s_axis - 1, idx.numel()
+
+    def new():
+        out = []
+        for t in cache:
+            shape = list(t.shape)
+            shape[b_axis] = b
+            out.append(t.new_zeros(shape))
+        return tuple(out)
+    into = new() if store is None else store.cache(
+        (_cache_key(engine, cache, b), cache[0].shape[engine.s_axis]), new)
+    for t, n in zip(cache, into):
+        torch.index_select(t, b_axis, idx, out=n)
     return into
 
 
@@ -380,12 +446,22 @@ def run_chunk(store: Optional[Store], key, run, k: int, chunk: int,
 def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
              logits: torch.Tensor, *, p_len: int, pos_off: int,
              pos_rows: int, caps: tuple, stop: int, start_token: int,
-             sampling: Sampling, generator: Optional[torch.Generator] = None
+             sampling: Sampling, generator: Optional[torch.Generator] = None,
+             keys: Optional[torch.Tensor] = None,
+             rows_after: Optional[Callable[[LoopState], Any]] = None
              ) -> GenerateResult:
     """Run the AR loop from the prefill's cache (the prefix's p_len
     positions, in the engine's layout) and logits (B, V) through the
     ladder `caps` (ladder_caps), CHUNK steps between two host reads,
-    replayed as CUDA graphs on a CUDA device unless inside `eager()`."""
+    replayed as CUDA graphs on a CUDA device unless inside `eager()`.
+
+    keys: (B, 2) int64 row keys (sampling.row_keys): each row samples from
+    a chain of its own, its draw a function of its key and the step alone.
+    rows_after(state), at the end of each rung but the last while a row is
+    live: None goes on with every row; a list of rows (host ints) goes on
+    with those rows of the loop state and the cache, in that order, at
+    that row count (infer/compact.py: the returned codes and lengths are
+    those rows')."""
     chunk = CHUNK
     dev = logits.device
     graphs = graphed(dev)
@@ -393,20 +469,22 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
     b, vocab = logits.shape
     max_gen = caps[-1]
     store = _store(engine.anchor) if graphs else None
+
+    def state(b):
+        skey = (b, vocab, max_gen, logits.dtype, keys is not None)
+        new = functools.partial(LoopState, b, vocab, max_gen, logits.dtype,
+                                dev, keys is not None)
+        return skey, new() if store is None else store.state(skey, new)
+
     with store.lock if store else contextlib.nullcontext():
-        skey = (b, vocab, max_gen, logits.dtype)
-        new_state = functools.partial(LoopState, b, vocab, max_gen,
-                                      logits.dtype, dev)
-        st = new_state() if store is None else store.state(skey, new_state)
-        st.reset(logits, p_len, pos_off, stop, start_token)
+        skey, st = state(b)
+        st.reset(logits, p_len, pos_off, stop, start_token, keys)
         cache, step, done = prefix_cache, 0, False
-        for cap in caps:
+        for i, cap in enumerate(caps):
             if done:
                 break
             rows = cache_rows(p_len, cap)
-            ckey = (engine.name,) + tuple(
-                (tuple(t.shape[:engine.s_axis]), tuple(
-                    t.shape[engine.s_axis + 1:]), t.dtype) for t in cache)
+            ckey = _cache_key(engine, cache)
             if cache[0].shape[engine.s_axis] < rows:   # not the same bucket
                 new_cache = functools.partial(_zeros, cache, engine.s_axis,
                                               rows)
@@ -416,8 +494,8 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
             st.cap.fill_(cap)
             run = functools.partial(decode_step, st, engine.make(cache),
                                     sampling, stop, pos_rows)
-            gkey = (ckey, rows, skey, sampling, chunk,
-                    pmesh.current_block())
+            gkey = (ckey, cache[0].shape[engine.s_axis], skey, sampling,
+                    chunk, pmesh.current_block())
             while step < cap and not done:
                 k = min(chunk, cap - step)
                 mark = (gen.get_offset() if sampling.do_sample
@@ -443,4 +521,12 @@ def generate(engine: Engine, prefix_cache: Tuple[torch.Tensor, ...],
                         gen.set_offset(mark + live * per_step)
                     else:
                         gen.set_state(snaps[live])
+            if rows_after is not None and not done and i < len(caps) - 1:
+                kept = rows_after(st)
+                if kept is not None:
+                    idx = torch.as_tensor(kept, dtype=torch.long, device=dev)
+                    cache = _take_cache(engine, cache, idx, store)
+                    src = st
+                    skey, st = state(len(kept))
+                    st.take(src, idx)
         return GenerateResult(st.codes.clone(), st.lengths.clone(), step)

@@ -436,13 +436,15 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
                               quantize_kv_cache: bool = False,
                               use_fused_serving: bool = False,
                               cache_ladder: Optional[tuple] = None,
-                              use_fused: bool = True) -> GenerateResult:
+                              use_fused: bool = True,
+                              **loop) -> GenerateResult:
     """generate_speech with the int8 per-token engines: the prefix prefill
     runs the flax-equivalent model; every token then runs the engine the
     flags select (module docstring): K1 at B=1 (use_fused=False: the chain,
     as the JAX package's default), K4 with use_fused_serving at B in
     {8, 16}, else the per-layer chain over a bf16 or (quantize_kv_cache)
-    int8 cache, each in the device loop."""
+    int8 cache, each in the device loop (device_loop.generate, which takes
+    `loop`: keys, rows_after for infer/compact.py's chain engines)."""
     cfg = model.cfg
     vocab, d = cfg.number_mel_codes, cfg.model_dim
     layers, heads = cfg.layers, cfg.heads
@@ -489,4 +491,4 @@ def generate_speech_quantized(model: UnifiedVoice, qtree: Dict[str, Any],
         caps=ladder_caps(cache_ladder, max_gen), stop=cfg.stop_mel_token,
         start_token=cfg.start_mel_token,
         sampling=Sampling(do_sample, temperature, top_p, repetition_penalty),
-        generator=generator)
+        generator=generator, **loop)

@@ -11,7 +11,6 @@ symmetric InfoNCE over the batch (ttts/clvp/model.py:133-140), and
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -19,18 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xtts_tpu_torch.core.config import CLVPConfig
-from xtts_tpu_torch.nn.blocks import Linear
+from xtts_tpu_torch.nn.blocks import Embed, Linear
 from xtts_tpu_torch.nn.encoder import (TortoiseEncoder, TransformerEncoder,
                                        masked_mean)
-
-
-class _Embed(nn.Embedding):
-    """flax Embed's default init: normal with variance 1 / features."""
-
-    def reset_flax(self, g):
-        with torch.no_grad():
-            self.weight.normal_(0.0, 1.0 / math.sqrt(self.embedding_dim),
-                                generator=g)
 
 
 class CLVP(nn.Module):
@@ -38,8 +28,8 @@ class CLVP(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
-        self.text_emb = _Embed(c.num_text_tokens, c.dim_text)
-        self.speech_emb = _Embed(c.num_speech_tokens, c.dim_speech)
+        self.text_emb = Embed(c.num_text_tokens, c.dim_text)
+        self.speech_emb = Embed(c.num_speech_tokens, c.dim_speech)
         if c.use_xformers:
             self.text_transformer = TransformerEncoder(
                 c.text_enc_depth, c.dim_text, c.text_heads, dtype)
@@ -52,8 +42,8 @@ class CLVP(nn.Module):
                 c.text_enc_depth, c.dim_text, c.text_heads, dtype)
             self.speech_transformer = TortoiseEncoder(
                 c.speech_enc_depth, c.dim_speech, c.speech_heads, dtype)
-            self.text_pos_emb = _Embed(c.text_seq_len, c.dim_text)
-            self.speech_pos_emb = _Embed(c.num_speech_tokens, c.dim_speech)
+            self.text_pos_emb = Embed(c.text_seq_len, c.dim_text)
+            self.speech_pos_emb = Embed(c.num_speech_tokens, c.dim_speech)
         self.to_text_latent = Linear(c.dim_text, c.dim_latent, bias=False,
                                      dtype=dtype)
         self.to_speech_latent = Linear(c.dim_speech, c.dim_latent,

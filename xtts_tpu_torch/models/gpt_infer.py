@@ -38,9 +38,11 @@ def generate_speech(model, cond_mel: torch.Tensor, text_tokens: torch.Tensor,
                     max_gen: int = 600, do_sample: bool = True,
                     top_p: float = 0.8, temperature: float = 0.8,
                     repetition_penalty: float = 2.0,
-                    cache_ladder: Optional[tuple] = None) -> GenerateResult:
+                    cache_ladder: Optional[tuple] = None,
+                    **loop) -> GenerateResult:
     """B rows; bf16 KV cache, as the JAX engine's default; the loop is
-    device_loop.generate's (CUDA graphs on a CUDA model)."""
+    device_loop.generate's (CUDA graphs on a CUDA model), which takes
+    `loop` (keys, rows_after: infer/compact.py)."""
     cfg = model.cfg
     prefix, n_cond = model.encode_prefix(cond_mel, text_tokens)
     b, p_len, _ = prefix.shape
@@ -60,4 +62,4 @@ def generate_speech(model, cond_mel: torch.Tensor, text_tokens: torch.Tensor,
         caps=ladder_caps(cache_ladder, max_gen), stop=cfg.stop_mel_token,
         start_token=cfg.start_mel_token,
         sampling=Sampling(do_sample, temperature, top_p, repetition_penalty),
-        generator=generator)
+        generator=generator, **loop)

@@ -188,20 +188,78 @@ class GroupNorm32(nn.GroupNorm):
         return self(x_btc.transpose(1, 2)).transpose(1, 2)
 
 
+class Embed(nn.Embedding):
+    """nn.Embedding with flax Embed's default init: normal with variance
+    1 / features."""
+
+    def reset_flax(self, g):
+        normal_(self.weight, 1.0 / math.sqrt(self.embedding_dim), g)
+
+
+class RelativePositionBias(nn.Module):
+    """T5-bucketed relative attention bias (ttts/utils/xtransformers.py:
+    146-186, xtts_tpu/nn/blocks.py:60-94): log-spaced distance buckets, a
+    learned (bucket, head) table `relative_attention_bias`, added to the
+    pre-softmax logits times `scale`."""
+
+    def __init__(self, scale: float, heads: int, causal: bool = False,
+                 num_buckets: int = 32, max_distance: int = 128):
+        super().__init__()
+        self.scale, self.causal = scale, causal
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = Embed(num_buckets, heads)
+
+    def bucket(self, rel_pos: torch.Tensor) -> torch.Tensor:
+        """Relative positions (key - query, int64) -> bucket ids."""
+        num_buckets = self.num_buckets
+        ret = torch.zeros_like(rel_pos)
+        n = -rel_pos
+        if not self.causal:
+            num_buckets //= 2
+            ret = ret + (n < 0).long() * num_buckets
+            n = n.abs()
+        else:
+            n = n.clamp(min=0)
+        max_exact = num_buckets // 2
+        large = max_exact + (
+            torch.log(n.clamp(min=1).float() / max_exact)
+            / math.log(self.max_distance / max_exact)
+            * (num_buckets - max_exact)).long()
+        large = large.clamp(max=num_buckets - 1)
+        return ret + torch.where(n < max_exact, n, large)
+
+    def forward(self, qk_dots: torch.Tensor) -> torch.Tensor:  # (B, H, T, S)
+        t, s = qk_dots.shape[-2:]
+        dev = qk_dots.device
+        rel = (torch.arange(s, device=dev)[None, :]
+               - torch.arange(t, device=dev)[:, None])
+        bias = self.relative_attention_bias(self.bucket(rel))  # (T, S, H)
+        return qk_dots + bias.permute(2, 0, 1)[None] * self.scale
+
+
 class AttentionBlock(nn.Module):
     """Self-attention over time with residual and zero-init output proj
-    (legacy QKV layout, 1/sqrt(sqrt(ch)) scaling, f32 softmax). (B, T, C)."""
+    (legacy QKV layout, 1/sqrt(sqrt(ch)) scaling, f32 softmax). (B, T, C).
+
+    relative_pos_embeddings: the T5 bias with the reference's settings
+    (scale sqrt(ch), 32 buckets, max distance 64; ttts/utils/utils.py:305),
+    added before the softmax. forward's mask (B, S), a keep-mask on the
+    keys, multiplies the probabilities after it, as the reference's."""
 
     def __init__(self, channels: int, num_heads: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, relative_pos_embeddings: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.norm = GroupNorm32(channels)
         self.qkv = Conv1d(channels, 3 * channels, 1, dtype=dtype)
         self.proj_out = Conv1d(channels, channels, 1, dtype=dtype,
                                zero_init=True)
+        self.relative_pos_embeddings = (
+            RelativePositionBias((channels // num_heads) ** 0.5, num_heads,
+                                 num_buckets=32, max_distance=64)
+            if relative_pos_embeddings else None)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         b, t, c = x.shape
         h = self.num_heads
         ch = c // h
@@ -210,7 +268,11 @@ class AttentionBlock(nn.Module):
         q, k, v = qkv.split(ch, dim=-1)
         scale = 1.0 / math.sqrt(math.sqrt(ch))
         w = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
+        if self.relative_pos_embeddings is not None:
+            w = self.relative_pos_embeddings(w)
         w = torch.softmax(w.float(), dim=-1).to(q.dtype)
+        if mask is not None:
+            w = w * mask[:, None, None, :].to(w.dtype)
         a = torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c)
         return x + self.proj_out.pointwise(a)
 

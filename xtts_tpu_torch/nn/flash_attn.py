@@ -23,8 +23,13 @@ written for Hopper:
   the same grids, ring and softmax on mma.sync, f32 in 3xTF32 (each
   operand split in a big and a small tf32 part, three products a step,
   within ~2^-21 relative of an f32 product), P and dS kept in registers
-  as the next product's A operand. `kernel_attrs` reads every kernel's
-  registers and spills.
+  as the next product's A operand;
+- the wide kernels, the same three for every head width that is a
+  multiple of 128 above 128 (as JAX's library kernel takes them), bf16
+  and f32: a block owns one 128-column chunk of its output, forms each
+  score (and dP) tile as the sum of the chunks' width-128 products, and
+  takes its own chunk's product through the width-128 tile code.
+  `kernel_attrs` reads every kernel's registers and spills.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
 backward at the main path's (2, 1280 | 1562, 8, 64); in f32 three times
@@ -32,11 +37,12 @@ as many tf32 operations); the design keeps the (B, H, Tq, Tk) score
 matrix out of device memory, which the plain version writes and reads
 back.
 
-The kernels take head widths 32, 64 and 128 (`NATIVE_WIDTHS`); the
-wrappers zero-pad any other width up to 128 to the next of these (zero
-columns of q and k leave QK^T as it is, those of v, dO and the results
-are sliced off; the caller's sm_scale is the true width's), counted in
-`flash_mha.pads`, and raise ValueError above 128. They read the (B, T,
+The kernels take head widths 32, 64 and 128 (`NATIVE_WIDTHS`) and every
+multiple of 128 above; the wrappers zero-pad any other width up to 128 to
+the next of these (zero columns of q and k leave QK^T as it is, those of
+v, dO and the results are sliced off; the caller's sm_scale is the true
+width's), counted in `flash_mha.pads`, and raise ValueError at a width
+above 128 that is not a multiple of 128. They read the (B, T,
 H, D) strides directly and mask the ragged edges themselves, so the TPU
 wrapper's padding of T to 128 and its segment ids are gone. `flash_mha`
 is differentiable: with gradients recorded and an input that requires
@@ -63,8 +69,14 @@ from xtts_tpu_torch.ops.build import (check, load_library, ptr,
 
 # Tq * Tk at or above this runs the kernel (the JAX package's gate)
 FLASH_MIN_SCORES = 1 << 19
-# the head widths the kernels take as they are
+# the head widths the tile kernels take as they are
 NATIVE_WIDTHS = (32, 64, 128)
+# kernel_attrs' width key of the wide kernels, which take every multiple of
+# 128 above 128 as it is
+WIDE = 256
+# key rows a kernel tile holds: with Tk <= BK the backward takes D from the
+# tile (_bwd_plain's one-tile rule)
+BK = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -80,13 +92,19 @@ def use_flash(tq: int, tk: int) -> bool:
 
 def native_width(dh: int) -> int:
     """The kernels' head width a head of width dh runs at (zero-padded up
-    to it); ValueError above 128."""
+    to it): the next of NATIVE_WIDTHS up to 128, dh itself where it is a
+    multiple of 128 above it (the wide kernels); any other width above 128
+    raises ValueError, as JAX's kernel raises NotImplementedError."""
     for w in NATIVE_WIDTHS:
         if dh <= w:
             return w
+    if dh % 128 == 0:
+        return dh
     widths = ", ".join(map(str, NATIVE_WIDTHS))
     raise ValueError(f"K2 takes head widths up to 128 ({widths} as they "
-                     f"are, narrower ones zero-padded), got {dh}")
+                     f"are, narrower ones zero-padded) and multiples of 128 "
+                     f"above: head_dim={dh} should be a multiple of 128 if "
+                     f"larger")
 
 
 @functools.cache
@@ -109,13 +127,14 @@ def _lib() -> ctypes.CDLL:
 _KERNELS = tuple((name, kind, w)
                  for name in ("flash_mha", "flash_mha_bwd_dkv",
                               "flash_mha_bwd_dq")
-                 for kind in ("bf16", "f32") for w in NATIVE_WIDTHS)
+                 for kind in ("bf16", "f32") for w in NATIVE_WIDTHS + (WIDE,))
 
 
 def kernel_attrs() -> dict:
     """{(wrapper, "bf16" | "f32", head width): (registers, local-memory
-    bytes)} a thread of each kernel, as built for the current card; local
-    memory other than 0 is a register spill."""
+    bytes)} a thread of each of the 24 kernels, as built for the current
+    card (width WIDE: the wide kernel, every multiple of 128 above 128);
+    local memory other than 0 is a register spill."""
     out = (_I * (2 * len(_KERNELS)))()
     check(_lib().xt_flash_attn_attrs(out), "flash_mha kernel attrs")
     return {key: (out[2 * i], out[2 * i + 1])
@@ -157,13 +176,23 @@ def _bwd_plain(q, k, v, do, lse, delta, sm_scale: float):
     """The backward's recurrences in f32 (B, T, H, dh layout): P = exp(S
     scale - lse), dV = P^T dO, dP = dO V^T, dS = (dP - D) P scale, dK =
     dS^T Q, dQ = dS K, with P and dS rounded to q's dtype before their
-    products, as the kernels and the Pallas kernels round them."""
+    products, as the kernels and the Pallas kernels round them.
+
+    With Tk <= BK (every key in one kernel tile) D is taken as the tile
+    kernels take it (csrc ds_one_tile): dS = (dP L - E) P scale with L =
+    rowsum(P) and E = rowsum(P dP), equal in exact arithmetic (L = 1, E =
+    rowsum(dO O) = D) and exactly 0 at one key, where dP L and E are one
+    rounded product; `delta` is not read then."""
     dt, wide = q.dtype, _wide(q.dtype)
     qf, kf, vf, dof = (t.to(wide) for t in (q, k, v, do))
     s = torch.einsum("bihd,bjhd->bhij", qf, kf) * sm_scale
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bihd,bjhd->bhij", dof, vf)
-    ds = (dp - delta[..., None]) * p * sm_scale
+    if k.shape[1] <= BK:
+        dp = dp * p.sum(-1, keepdim=True) - (p * dp).sum(-1, keepdim=True)
+    else:
+        dp = dp - delta[..., None]
+    ds = dp * p * sm_scale
     p, ds = p.to(dt).to(wide), ds.to(dt).to(wide)
     dv = torch.einsum("bhij,bihd->bjhd", p, dof)
     dk = torch.einsum("bhij,bihd->bjhd", ds, qf)
@@ -204,8 +233,8 @@ def pad_heads(*ts):
 
 def _operands(what: str, q, k, v, *more):
     """q (B, Tq, H, dh), k / v (B, Tk, H, dh) and `more` (each q- or
-    k-shaped) as the kernels read them: dh <= 128 zero-padded to its
-    native width (the launch counted in `flash_mha.pads`). Raise unless
+    k-shaped) as the kernels read them: dh zero-padded to its native
+    width (the launch counted in `flash_mha.pads`). Raise unless
     they are one dtype (bf16 or f32) on one card with unit head-dim
     stride, other strides a whole number of 16 bytes and 16-byte aligned
     data. Returns (b, tq, tk, h), the operands."""
@@ -351,7 +380,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable.
 
     CUDA: bf16 or f32, dh up to 128 (32, 64 and 128 as they are, other
-    widths zero-padded to the next of these and counted in `pads`), last
+    widths zero-padded to the next of these and counted in `pads`) or a
+    multiple of 128 above it (the wide kernels), last
     axis contiguous, other strides a whole number of 16 bytes, 16-byte
     aligned bases; anything else raises. Without an input that requires
     grad (serving) the forward keeps no lse."""

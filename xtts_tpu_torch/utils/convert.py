@@ -487,6 +487,65 @@ def hifigan_discriminator_from_jax(tree: Mapping[str, Any],
     return sd
 
 
+def _attn_block_rel(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """nn.blocks.AttentionBlock with the relative position bias."""
+    _norm(sd, prefix + "norm", p["GroupNorm32_0"]["GroupNorm_0"])
+    _conv1x1(sd, prefix + "qkv", p["qkv"])
+    _conv1x1(sd, prefix + "proj_out", p["proj_out"])
+    sd[prefix + "relative_pos_embeddings.relative_attention_bias.weight"] = \
+        _a(p["rel_pos"]["relative_attention_bias"]["embedding"])
+
+
+def _ts_resblock(sd: SD, prefix: str, p: Mapping[str, Any]) -> None:
+    """models.diffusion_tts.TimestepResBlock."""
+    _norm(sd, prefix + "in_layers.0", p["GroupNorm32_0"]["GroupNorm_0"])
+    _conv(sd, prefix + "in_layers.2", p["in_conv"])
+    _dense(sd, prefix + "emb_layers.1", p["emb_layers"])
+    _norm(sd, prefix + "out_layers.0", p["out_norm"]["GroupNorm_0"])
+    _conv(sd, prefix + "out_layers.3", p["out_conv"])
+    if "skip" in p:
+        _conv(sd, prefix + "skip_connection", p["skip"])
+
+
+def diffusion_tts_from_jax(tree: Mapping[str, Any], layers: int = 8) -> SD:
+    """The legacy DiffusionTts params (num_layers `layers`) -> the port's
+    (the reference's) names: the inverse of xtts_tpu/utils/convert.py
+    diffusion_tts_from_reference."""
+    p, sd = _params(tree), {}
+    _conv(sd, "inp_block", p["inp_block"])
+    _dense(sd, "time_embed.0", p["time_embed_0"])
+    _dense(sd, "time_embed.2", p["time_embed_1"])
+    sd["code_embedding.weight"] = _a(p["code_embedding"]["embedding"])
+    _norm(sd, "code_norm", p["code_norm"]["GroupNorm_0"])
+    _conv(sd, "latent_conditioner.0", p["latent_conditioner_conv"])
+    _conv(sd, "contextual_embedder.0", p["contextual_conv1"])
+    _conv(sd, "contextual_embedder.1", p["contextual_conv2"])
+    sd["unconditioned_embedding"] = np.transpose(
+        _a(p["unconditioned_embedding"]), (0, 2, 1))
+    _conv(sd, "integrating_conv", p["integrating_conv"])
+    _conv(sd, "mel_head", p["mel_head"])
+    _norm(sd, "out.0", p["out_norm"]["GroupNorm_0"])
+    _conv(sd, "out.2", p["out_conv"])
+    blocks = ([(f"code_converter.{i}.", f"code_converter_{i}")
+               for i in range(3)]
+              + [(f"latent_conditioner.{i + 1}.",
+                  f"latent_conditioner_attn_{i}") for i in range(4)]
+              + [(f"contextual_embedder.{i + 2}.", f"contextual_attn_{i}")
+                 for i in range(5)])
+    for prefix, name in blocks:
+        _attn_block_rel(sd, prefix, p[name])
+    layer_names = ([(f"conditioning_timestep_integrator.{i}.",
+                     f"conditioning_timestep_integrator_{i}")
+                    for i in range(3)]
+                   + [(f"layers.{i}.", f"layers_{i}") for i in range(layers)])
+    for prefix, name in layer_names:
+        _ts_resblock(sd, prefix + "resblk.", p[name]["resblk"])
+        _attn_block_rel(sd, prefix + "attn.", p[name]["attn"])
+    for j in range(3):
+        _ts_resblock(sd, f"layers.{layers + j}.", p[f"final_res_{j}"])
+    return sd
+
+
 def random_latent_from_jax(tree: Mapping[str, Any]) -> SD:
     """JAX RandomLatentConverter (fc_{i} Dense) -> the port's fc.{i}."""
     p, sd = _params(tree), {}

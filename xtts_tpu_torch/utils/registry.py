@@ -31,6 +31,7 @@ def _register_defaults() -> None:
     from xtts_tpu_torch.models.aa_diffusion import AADiffusion
     from xtts_tpu_torch.models.classifier import AudioClassifier
     from xtts_tpu_torch.models.clvp import CLVP
+    from xtts_tpu_torch.models.diffusion_tts import DiffusionTts
     from xtts_tpu_torch.models.dvae import DVAE
     from xtts_tpu_torch.models.gpt import UnifiedVoice
     from xtts_tpu_torch.models.hifigan import HifiDecoder
@@ -55,6 +56,11 @@ def _register_defaults() -> None:
     register("classifier",
              lambda cfg, dt: AudioClassifier(cfg.classifier, dt),
              lambda t, cfg: convert.classifier_from_jax(t, cfg.classifier))
+    # the legacy tortoise denoiser (ttts/diffusion/model.py:134-341, built by
+    # the reference api.py:200) with the reference ctor's defaults, as JAX's
+    # registry builds it
+    register("diffusion_tts", lambda cfg, dt: DiffusionTts(dtype=dt),
+             lambda t, cfg: convert.diffusion_tts_from_jax(t))
     # the GAN trainer's discriminator (JAX builds it outside its registry)
     register("hifigan_discriminator",
              lambda cfg, dt: HifiganDiscriminator(dtype=dt),
