@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Device time of K2's kernels at the main bucket, from one tree's sources.
 
-    python3 scripts/ab_flash_trees.py --tree DIR --tag T
+    python3 scripts/ab_flash_trees.py --tree DIR --tag T [--widths 64,256]
 
 DIR is the root of a checkout. The script imports that tree's
 xtts_tpu_torch (building its flash_attn library under DIR/build/ if it is
 not built yet), and times flash_mha's forward, flash_mha_bwd_dkv and
-flash_mha_bwd_dq at the main bucket (2, 1280 | 1562, 8, 64), bf16 and
-f32, as device us a call (chip_smoke.device_us: 100 calls captured in one
-CUDA graph, the median of five replays). Prints one JSON line with the
-tag and the card's name and power limit. To compare two trees, run them
-in turns (a, b, b, a) on one card, each in a process of its own.
+flash_mha_bwd_dq at the main bucket (2, 1280 | 1562) as device us a call
+(chip_smoke.device_us: 100 calls captured in one CUDA graph, the median of
+five replays): at head width 64 (8 heads) in bf16 and f32, at every other
+width of --widths in bf16 over 512 channels (512 / width heads; one head
+where 512 does not divide, as chip_smoke's K2_WIDTHS), keys
+"<kind>_<width>_<kernel>_us" there. Prints one JSON line with the tag and
+the card's name and power limit. To compare two trees, run them in turns
+(a, b, b, a) on one card, each in a process of its own.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--tag", required=True)
+    ap.add_argument("--widths", default="64",
+                    help="comma-separated head widths (default 64)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -37,20 +42,29 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(0)
-    b, tq, tk, h, d, sc = 2, 1280, 1562, 8, 64, 0.125
+    b, tq, tk = 2, 1280, 1562
     out = {"tag": args.tag, "tree": str(tree), "card": card}
-    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        q, k, v, do = (torch.randn(b, t, h, d, generator=g,
-                                   device="cuda").to(dt)
-                       for t in (tq, tk, tk, tq))
-        o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
-        delta = fa._delta(o, do)
-        out[f"{kind}_forward_us"] = device_us(
-            torch, lambda: fa.flash_mha(q, k, v, sc))
-        out[f"{kind}_dkv_us"] = device_us(torch, lambda: fa.flash_mha_bwd_dkv(
-            q, k, v, do, lse, delta, sc))
-        out[f"{kind}_dq_us"] = device_us(torch, lambda: fa.flash_mha_bwd_dq(
-            q, k, v, do, lse, delta, sc))
+    for w in (int(x) for x in args.widths.split(",")):
+        h = 512 // w if 512 % w == 0 else 1
+        sc = w ** -0.5
+        kinds = (((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+                 if w == 64 else ((torch.bfloat16, "bf16"),))
+        for dt, kind in kinds:
+            key = kind if w == 64 else f"{kind}_{w}"
+            q, k, v, do = (torch.randn(b, t, h, w, generator=g,
+                                       device="cuda").to(dt)
+                           for t in (tq, tk, tk, tq))
+            o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
+            delta = fa._delta(o, do)
+            out[f"{key}_forward_us"] = device_us(
+                torch, lambda: fa.flash_mha(q, k, v, sc))
+            out[f"{key}_dkv_us"] = device_us(
+                torch, lambda: fa.flash_mha_bwd_dkv(q, k, v, do, lse, delta,
+                                                    sc))
+            out[f"{key}_dq_us"] = device_us(
+                torch, lambda: fa.flash_mha_bwd_dq(q, k, v, do, lse, delta,
+                                                   sc))
+            del q, k, v, do, o, lse, delta
     print(json.dumps(out), flush=True)
 
 

@@ -226,10 +226,11 @@ def test_native_widths_pass_as_they_are_and_above_128_raises():
             tfa.native_width(bad)
 
 
-@pytest.mark.parametrize("dh", [32, 128, 256])
+@pytest.mark.parametrize("dh", [32, 128, 256, 384, 1152])
 def test_widths_match_jax_reference_forward_and_grad(dh):
-    """flash_mha on the CPU (the Function's twins) at head widths 32, 128
-    and 256 (a wide kernels' width) against JAX's
+    """flash_mha on the CPU (the Function's twins) at head widths 32, 128,
+    256, 384 and 1152 (the widths the card tests hold the wide kernels and
+    the bf16 wgmma pair at) against JAX's
     flash_mha(core="reference") and jax.grad of it on the same inputs, at
     the ragged (2, 130 | 150, 2), with this file's f32 tolerances."""
     import jax

@@ -571,11 +571,12 @@ def test_flash_mha_backward_kernels_do_not_spill(cuda):
 
 
 def test_flash_kernel_attrs_cover_every_kernel(cuda):
-    """kernel_attrs reads registers and local memory of all 24 kernels
+    """kernel_attrs reads registers and local memory of all 24 keys
     (forward, dkv, dq; bf16 and f32; widths 32, 64, 128 and the wide
-    kernels, keyed WIDE); the backward's are bwd_kernel_attrs'. Below width
-    128 no kernel spills (chip_smoke prints the width-128 and wide
-    kernels' local memory)."""
+    kernels, keyed WIDE; the bf16 backward's 128 and WIDE keys the wgmma
+    wide pair); the backward's are bwd_kernel_attrs'. No bf16 kernel
+    spills, and no f32 kernel below width 128 (chip_smoke prints the f32
+    width-128 and wide kernels' local memory)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.kernel_attrs()
     assert len(attrs) == 24
@@ -583,7 +584,7 @@ def test_flash_kernel_attrs_cover_every_kernel(cuda):
     assert all(0 < regs <= 255 and local >= 0
                for regs, local in attrs.values())
     assert {key: a for key, a in attrs.items()
-            if key[2] < 128 and a[1]} == {}
+            if (key[2] < 128 or key[1] == "bf16") and a[1]} == {}
     assert fa.bwd_kernel_attrs() == {key: a for key, a in attrs.items()
                                      if key[0] != "flash_mha"}
 
@@ -620,6 +621,13 @@ def test_flash_mha_lse_and_f32_forward(cuda, dtype, b, tq, tk, h):
     (1, 17, 70, 2),            # Tq below one tile, a ragged key tile
     (1, 193, 321, 2)])         # the ring wraps, one-row last tiles
 def test_flash_mha_head_widths(cuda, dtype, width, b, tq, tk, h):
+    _k2_width_case(cuda, dtype, width, b, tq, tk, h)
+
+
+def _k2_width_case(cuda, dtype, width, b, tq, tk, h):
+    """K2 at one head width: the forward (with lse) and the backward
+    against the f32 twins at the tolerances above, the launches and pads
+    counted, the backward's bits the same twice."""
     from xtts_tpu_torch.nn import flash_attn as fa
     scale = width ** -0.5
     q, k, v, do = (torch.randn(b, t, h, width, generator=cuda,
@@ -648,6 +656,24 @@ def test_flash_mha_head_widths(cuda, dtype, width, b, tq, tk, h):
         assert torch.isfinite(x).all(), name
         err = _k2_rel(x, w, floor)
         assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mha_head_width_past_a_cluster(cuda, dtype):
+    """Width 1152 (nine 128-column chunks): bf16's wgmma pair runs
+    clusters of five blocks, four of them owning two chunks each (their
+    accumulators in the f32 scratch); f32 the wide kernels."""
+    _k2_width_case(cuda, dtype, 1152, 1, 193, 321, 1)
+
+
+@pytest.mark.parametrize("width", [128, 256, 1152])
+@pytest.mark.parametrize("tk", [1, 33])
+def test_flash_mha_wide_pair_one_key_tile(cuda, width, tk):
+    """bf16's wgmma pair where every key lies in one tile (Tk <= 64: D
+    from the tile, the one-key rule): one key, where dq and dk are 0 in
+    exact arithmetic, and a ragged 33, at one chunk, a cluster of two and
+    past a cluster."""
+    _k2_width_case(cuda, torch.bfloat16, width, 1, 70, tk, 2)
 
 
 @pytest.mark.parametrize("tk", [63, 64, 65, 191, 192, 193])

@@ -10,20 +10,26 @@
 //
 // Every kernel reads the (B, T, H, D) views' strides as they come (the
 // projections' head-split views arrive as they are) and takes head widths
-// D = 32, 64 and 128, or (the wide kernels, below the tile family) any
-// multiple of 128 above 128; the wrapper zero-pads any other width up to
-// 128 to the next of these. Two families, and the wide kernels:
+// D = 32, 64 and 128, or any multiple of 128 above 128; the wrapper
+// zero-pads any other width up to 128 to the next of these. The kernels:
 //
 // - bf16 at D = 64, the flagship path: flash_fwd_kernel,
 //   flash_bwd_dkv_kernel and flash_bwd_dq_kernel on wgmma (below).
+// - The bf16 backward at D = 128 NC for every NC >= 1 (128 and each
+//   multiple above): flash_bwd_dkv_wgmma_wide and flash_bwd_dq_wgmma_wide
+//   on wgmma, the blocks of a tile's 128-column chunks one thread-block
+//   cluster that forms each score tile once and shares it through
+//   distributed shared memory (after the wide kernels). wgmma's 128-byte
+//   swizzle holds exactly 64 bf16 a row; a 128-column chunk is two such
+//   atoms side by side, one descriptor each, so the width-64 kernels'
+//   tiles, swizzle and descriptors serve it unchanged.
 // - The tile family on mma.sync (flash_*_tc_kernel<T, D>): every f32
-//   kernel at D = 32, 64, 128, and bf16 at D = 32 and 128. bf16 takes this
-//   family at the other widths, and not the wgmma kernels templated on D,
-//   because wgmma's 128-byte swizzle holds exactly 64 bf16 a row: 32 or
-//   128 would need other swizzles and descriptors for both operand majors,
-//   and other accumulator shapes, in the flagship kernels; the tile family
-//   takes any D that is a multiple of its mma depth, and keeps the
-//   flagship kernels' source and times as they are.
+//   kernel at D = 32, 64, 128, the bf16 forward at D = 32 and 128 and the
+//   bf16 backward at D = 32. It takes any D that is a multiple of its mma
+//   depth, and keeps the flagship kernels' source and times as they are.
+// - The wide kernels (flash_*_wide_kernel<T>, after the tile family): the
+//   bf16 and f32 forward and the f32 backward above D = 128, a block a
+//   128-column chunk of the output that forms the score tiles again.
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
 // 64 = 8.2 GFLOP a call at the shape above (8.3 us at 989 TFLOP/s),
@@ -1470,14 +1476,15 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // The wide kernels: head widths D = 128 NC with NC >= 2, every multiple of
-// 128 above 128, as JAX's library kernel takes them. A <T, D> instance of
-// the tile family does not fit there: at f32 D = 256 the forward's five
-// tiles would be 333 KB and dkv's six 400 KB, against 227 KB a block, and
-// at D = 128 f32 already spills. A block of the tile kernels' grid owns one
-// 128-column chunk c of its output instead (the grid's y axis runs over
-// (head, chunk)); it forms each score tile S (and in the backward dP) as
-// the sum of the NC chunks' width-128 products, and then takes its own
-// chunk's product through the width-128 tile code: O_c += P V_c; dV_c +=
+// 128 above 128, as JAX's library kernel takes them: the forward in bf16 and
+// f32 and the f32 backward (the bf16 backward is the wgmma pair's, below). A
+// <T, D> instance of the tile family does not fit there: at f32 D = 256 the
+// forward's five tiles would be 333 KB and dkv's six 400 KB, against 227 KB
+// a block, and at D = 128 f32 already spills. A block of the tile kernels'
+// grid owns one 128-column chunk c of its output instead (the grid's y axis
+// runs over (head, chunk)); it forms each score tile S (and in the backward
+// dP) as the sum of the NC chunks' width-128 products, and then takes its
+// own chunk's product through the width-128 tile code: O_c += P V_c; dV_c +=
 // P^T dO_c and dK_c += dS^T Q_c; dQ_c += dS K_c. The price: every chunk
 // forms S (and dP) again, so the work is (NC + 1) / 2 times the forward's
 // two products, (2 NC + 2) / 4 times dkv's four and (2 NC + 1) / 3 times
@@ -1738,6 +1745,932 @@ flash_bwd_dq_wide_kernel(
                           acc);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 wide backward on wgmma: flash_bwd_dkv_wgmma_wide and
+// flash_bwd_dq_wgmma_wide, bf16 at every head width D = 128 NC (NC >= 1:
+// width 128 too), under the backward's contract above.
+//
+// A cluster of CS blocks (cudaLaunchKernelEx, cluster dimension CS along
+// the grid's y axis of (head, rank)) shares one (key tile, head, batch
+// row) in dkv or one (query tile, ...) in dq. Rank c owns the 128-column
+// chunks c, c + CS, ... of D: one chunk up to NC = 8 (CS = NC, a portable
+// cluster), ceil(NC / 8) above (PER chunks a block, CS = ceil(NC / PER)).
+// A block is two warpgroups (256 threads). A step (a query tile in dkv, a
+// key tile in dq):
+// 1. partial products on the block's own chunk only: warpgroup 0 forms
+//    S^T_c = K_c Q_c^T (dq: S_c = Q_c K_c^T), warpgroup 1 dP^T_c = V_c
+//    dO_c^T (dq: dP_c = dO_c V_c^T), 64 x 64 f32 over the chunk's 128
+//    columns (eight m64n64k16 wgmma from shared memory: a 128-column chunk
+//    is two 64-column 128-byte-swizzle atoms side by side, one descriptor
+//    each), published in shared memory (16 KB each);
+// 2. once every rank's partials are published, the tile's 512 units of 2
+//    rows x 4 columns are split among the ranks: a thread sums a unit's
+//    partials of every rank through distributed shared memory in rank
+//    order 0..CS-1, forms P and dS, rounds them to bf16 and stores them
+//    into every rank's P / dS tiles (swizzled, wgmma's A operand from
+//    shared memory). Each element of S and dP is summed, and each P and
+//    dS formed, once in the cluster: no chunk forms a score tile again,
+//    and every rank multiplies by the same bits. Where every key lies in
+//    one tile (Tk <= 64) the one-key rule's sums run over keys, so there
+//    every rank forms all 512 units itself, storing only into its own
+//    tiles, with a warp's lanes on one column quad (dkv) or row pair (dq);
+// 3. once every rank's lines are stored, the output products with A the
+//    P / dS tile and B the streamed chunk read MN-major: in dkv warpgroup 0
+//    takes dV_c += P^T dO_c and 1 dK_c += dS^T Q_c, each m64n128k16 over
+//    both atoms (A read once for 128 columns); in dq each warpgroup takes
+//    64 of dQ_c += dS K_c's 128 columns, m64n64k16 on one atom.
+// The waits of steps 2 and 3 are mbarriers in each block, on which one
+// thread of every rank arrives (release at cluster scope) after a block
+// barrier; a barrier.cluster cost ~1000 cycles more than a block barrier
+// a step even at one block (scripts/bench_flash_wgw.py, PERF.md). With
+// one chunk a block, the fixed pair of the chunk (K_c, V_c in dkv; Q_c,
+// dO_c in dq) stays in shared memory and the step is pipelined: the
+// streamed pair (dkv: with the query tile's lse and D) runs through a
+// three-stage cp.async ring two tiles ahead; step t + 1's partial product
+// is issued before step t's exchange and published, and signalled, while
+// step t's output products run; the P / dS tiles alternate by step
+// parity, so that the ranks may write step t + 1's while step t's are
+// still read. Buffer reuse follows from the two waits: a block writes its
+// partials again only after every rank has stored its lines of the last
+// step (so read the partials), and the ranks write a parity's tiles only
+// after every rank has published the next partials (so ended the
+// products two steps back). With PER > 1 (D > 1024) a step copies each
+// owned chunk's tiles in turn into the same buffers, without the ring,
+// and each chunk's f32 accumulators live between steps in a device
+// scratch the caller provides (xt_flash_attn_bwd_scratch floats), a
+// block's own slots: no atomics. One block an SM (shared memory 194.5 KB
+// in dkv, 177.5 KB in dq); registers: accumulators 64 (dkv) / 32 (dq) a
+// thread beside the partial's 32. What bounds it (PERF.md): the
+// distributed shared memory the exchange moves, (CS - 1) / CS x (32 KB of
+// partials in + 16 KB of P / dS out) a block a step, at roughly 6-10
+// bytes a cycle an SM.
+
+constexpr int WGW_THREADS = 256;          // two warpgroups
+constexpr int WGW_CHUNK = 2 * TILE_BYTES; // 64 rows x 128 bf16: two atoms
+constexpr int WGW_PART = 64 * 64 * 4;     // an f32 64 x 64 partial
+constexpr int WGW_MAX_CLUSTER = 8;        // portable cluster size
+// dkv: K_c, V_c; the stages of Q_c, dO_c and their lse and D; P^T and
+// dS^T twice (by step parity); the two partials; the exchange's barriers
+constexpr int WGW_STAGES = 3;             // the streamed ring's depth
+constexpr int WGW_DKV_SMEM = 1024 + (2 + 2 * WGW_STAGES) * WGW_CHUNK +
+                             4 * TILE_BYTES + 2 * WGW_PART +
+                             WGW_STAGES * STAT_BYTES + 16;
+// dq: Q_c, dO_c; the stages of K_c, V_c; dS twice; the two partials; the
+// query tile's lse and D; the exchange's barriers
+constexpr int WGW_DQ_SMEM = 1024 + (2 + 2 * WGW_STAGES) * WGW_CHUNK +
+                            2 * TILE_BYTES + 2 * WGW_PART + STAT_BYTES + 16;
+// a block's scratch slot for one chunk: dK and dV (dkv) or dQ (dq)
+constexpr int WGW_DKV_SLOT = 2 * 64 * WCH;
+constexpr int WGW_DQ_SLOT = 64 * WCH;
+
+// chunks a block (PER) and the cluster size (CS) at NC chunks
+__host__ __device__ __forceinline__ int wgw_per(int nc) {
+  return (nc + WGW_MAX_CLUSTER - 1) / WGW_MAX_CLUSTER;
+}
+__host__ __device__ __forceinline__ int wgw_cs(int nc) {
+  return (nc + wgw_per(nc) - 1) / wgw_per(nc);
+}
+
+// d += A B, m64n64k16, A K-major and B MN-major from shared memory
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " XT_D32
+      ", %32, %33, 1, 1, 1, 0, 1;\n"
+      : XT_ACC32(d)
+      : "l"(da), "l"(db));
+}
+
+// the m64n128 forms: d (+)= A B with 64 f32 accumulators a thread (register
+// 4j + c: row 16 w + g (+ 8 for 4j + 2 + c), column 8 j + 2 q + c)
+#define XT_ACC64(d)                                                          \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define XT_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d += A B, m64n128k16, A K-major and B MN-major from shared memory
+__device__ __forceinline__ void wgmma_ss_tb128(float (&d)[64], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " XT_D64
+      ", %64, %65, 1, 1, 1, 0, 1;\n"
+      : XT_ACC64(d)
+      : "l"(da), "l"(db));
+}
+
+// an MN-major B operand two 64-column atoms wide in N: the atoms 8 KB apart
+// (leading byte offset), 8-row groups along K 1024 bytes apart (stride)
+__device__ __forceinline__ uint64_t desc_mn2(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(TILE_BYTES >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void zero(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) r[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// arrive (release) and wait (acquire) for every thread of the cluster;
+// returns 0, read after the wait
+__device__ __forceinline__ uint32_t cluster_sync() {
+  uint32_t after;
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile(
+      "barrier.cluster.wait.aligned;\n"
+      "mov.u32 %0, 0;\n"
+      : "=r"(after)::"memory");
+  return after;
+}
+
+// the shared::cluster address of shared address `a` in rank r's block
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t r) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(r));
+  return out;
+}
+
+// a float4 of a partial: not volatile, so that the compiler issues a
+// warp's loads together; `after` (a value computed after the barrier that
+// published the partials) keeps them behind it
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a, uint32_t after) {
+  float4 v;
+  asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(a), "r"(after));
+  return v;
+}
+
+// a float4 of this block's shared memory (the own rank's partial)
+__device__ __forceinline__ float4 ld_shared4(uint32_t a, uint32_t after) {
+  float4 v;
+  asm("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(a), "r"(after));
+  return v;
+}
+
+// shared address a in rank r's block (this block's plainly where r == c)
+__device__ __forceinline__ float4 ld_rank4(uint32_t a, int r, int c,
+                                           uint32_t after) {
+  return r == c ? ld_shared4(a, after) : ld_cluster4(mapa(a, r), after);
+}
+__device__ __forceinline__ void st_rank2(uint32_t a, int r, int c,
+                                         uint32_t v0, uint32_t v1) {
+  if (r == c)
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(a), "r"(v0),
+                 "r"(v1)
+                 : "memory");
+  else
+    asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(
+                     mapa(a, r)),
+                 "r"(v0), "r"(v1)
+                 : "memory");
+}
+
+// mbarriers of the exchange: a block's barrier completes a phase when
+// every rank of the cluster has arrived on it once
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// this block's threads' shared-memory writes so far made visible to every
+// rank (release at cluster scope) and counted on each rank's barrier
+// `bar`: after a block barrier, thread r < CS arrives on rank r's
+__device__ __forceinline__ void mbar_signal(uint32_t bar, int CS) {
+  __syncthreads();
+  if ((int)threadIdx.x < CS)
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::
+            "r"(mapa(bar, threadIdx.x))
+        : "memory");
+}
+
+// until this block's barrier `bar` completes the phase of parity `parity`
+// (acquire at cluster scope); returns 0, read after the wait
+__device__ __forceinline__ uint32_t mbar_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t after;
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "@!p bra WAIT;\n"
+      "mov.u32 %0, 0;\n}\n"
+      : "=r"(after)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return after;
+}
+
+// a 64 x 128 bf16 chunk (rows row0.. of a view with row stride `stride`)
+// into two swizzled 64-column atoms at dst, dst + TILE_BYTES; rows at or
+// past nrows zero-filled. 1024 16-byte pieces, 4 a thread; 16 neighbouring
+// threads read one 256-byte row.
+__device__ __forceinline__ void load_chunk(uint32_t dst, const bf16* src,
+                                           long long stride, int row0,
+                                           int nrows) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int id = threadIdx.x + j * WGW_THREADS;
+    const int r = id >> 4, cc = id & 15, c = cc & 7;
+    const bool valid = row0 + r < nrows;
+    const bf16* g = valid ? src + (long long)(row0 + r) * stride + cc * 8
+                          : src;
+    cp_async16(dst + (cc >> 3) * TILE_BYTES + r * 128 + ((c ^ (r & 7)) << 4),
+               g, valid);
+  }
+}
+
+// acc (+)= A B^T over one 128-column chunk, A and B chunks in shared
+// memory (K-major, two atoms each), issued as one commit group (the caller
+// waits); acc zeroed first where `first`
+__device__ __forceinline__ void wgw_partial(float (&acc)[32], uint32_t a,
+                                            uint32_t b, bool first) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t o = (kk >> 2) * TILE_BYTES + 32 * (kk & 3);
+    wgmma_ss(acc, desc(a + o), desc(b + o), first ? kk > 0 : 1);
+  }
+  wgmma_commit();
+}
+
+// acc += A B over 64: A a 64 x 64 tile (K-major), B one atom read MN-major
+__device__ __forceinline__ void wgw_product(float (&acc)[32], uint32_t a,
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_tb(acc, desc(a + 32 * kk), desc(b + 2048 * kk));
+}
+
+// the same with B a whole chunk (both atoms): acc 64 x 128
+__device__ __forceinline__ void wgw_product(float (&acc)[64], uint32_t a,
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_tb128(acc, desc(a + 32 * kk), desc_mn2(b + 2048 * kk));
+}
+
+// A partial's shared-memory layout. The exchange works in 512 units of 2
+// rows x 4 columns: rows r = 16 w + g and r + 8 of task tau = 8 (8 w + g)
+// + j (w, g: the warp in the warpgroup and lane / 4 of the threads that
+// hold those rows), columns 8 j + 4 h .. + 3 (unit u = 2 tau + h). The
+// accumulator float4 4j..4j+3 of thread t (rows r, r + 8, columns 8 j +
+// 2 q, + 1; q = t % 4) is float4 k = q of task tau (t / 4 = 8 w + g), so a
+// unit is the task's float4 2h and 2h + 1. Task tau's four float4 lie at
+// block tau ^ bit 3 of tau, float4 k ^ bit 1 of tau in it: a quarter warp
+// of publishing threads (two tasks, k = 0..3) and of exchange lanes (four
+// tasks, h = 0, 1) touches eight distinct 16-byte bank groups.
+__device__ __forceinline__ uint32_t part_slot(int tau, int k) {
+  return ((tau ^ ((tau >> 3) & 1)) * 4 + (k ^ ((tau >> 1) & 1))) * 16;
+}
+
+__device__ __forceinline__ void wgw_publish(unsigned char* buf,
+                                            const float (&p)[32]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float4*>(buf + part_slot(8 * (t >> 2) + j, t & 3)) =
+        make_float4(p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]);
+}
+
+__device__ __forceinline__ float warp_sum(float v, int lanes) {
+  for (int sh = 1; sh < lanes; sh <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, sh);
+  return v;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// A unit of the exchange: its rows and columns, and the two float4 of S
+// and of dP summed over every rank in rank order 0..CS-1. Row r holds
+// (s0.x, s0.y, s1.x, s1.y), row r + 8 (s0.z, s0.w, s1.z, s1.w).
+struct WgwUnit {
+  int r, j, h, c0;
+  float4 s0, s1, d0, d1;
+};
+
+__device__ __forceinline__ WgwUnit wgw_unit(int tau, int h, uint32_t sS,
+                                            uint32_t sdP, int c, int CS,
+                                            uint32_t after) {
+  WgwUnit u;
+  const int rg = tau >> 3;
+  u.j = tau & 7;
+  u.h = h;
+  u.r = 16 * (rg >> 3) + (rg & 7);
+  u.c0 = 8 * u.j + 4 * h;
+  const uint32_t oa = part_slot(tau, 2 * h), ob = part_slot(tau, 2 * h + 1);
+  u.s0 = ld_rank4(sS + oa, 0, c, after);
+  u.s1 = ld_rank4(sS + ob, 0, c, after);
+  u.d0 = ld_rank4(sdP + oa, 0, c, after);
+  u.d1 = ld_rank4(sdP + ob, 0, c, after);
+#pragma unroll
+  for (int rk = 1; rk < WGW_MAX_CLUSTER; ++rk) {
+    if (rk >= CS) break;
+    add4(u.s0, ld_rank4(sS + oa, rk, c, after));
+    add4(u.s1, ld_rank4(sS + ob, rk, c, after));
+    add4(u.d0, ld_rank4(sdP + oa, rk, c, after));
+    add4(u.d1, ld_rank4(sdP + ob, rk, c, after));
+  }
+  return u;
+}
+
+// a unit's row pair of P or dS as bf16 into rank rk's 64 x 64 swizzled
+// tile at `tile` (row r at the unit's 8 bytes of chunk j, row r + 8)
+__device__ __forceinline__ void wgw_store(uint32_t tile, const WgwUnit& u,
+                                          int rk, int c, const float (&v)[8]) {
+  const uint32_t a = tile + u.r * 128 + ((u.j ^ (u.r & 7)) << 4) + 8 * u.h;
+  st_rank2(a, rk, c, pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  st_rank2(a + 8 * 128, rk, c, pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+// The units a thread takes in a step: this rank's share of the 512
+// (units lo + threadIdx.x + 256 i), or where every key lies in one tile
+// (Tk <= 64, the one-key rule, whose sums run over keys) all 512 in every
+// rank, each rank storing only into its own tiles.
+constexpr int WGW_UNITS = 2;
+
+// Step 2 of a dkv step (keys the rows, queries the columns): P^T and dS^T
+// of this thread's units into every rank's sP / sdS. sL: the query tile's
+// 64 lse (natural log), then its 64 D; q0 its first query. The one-key
+// rule's sums over keys run down a column: there a warp takes one 4-column
+// quad of all 32 row pairs.
+__device__ __forceinline__ void dkv_exchange(
+    uint32_t sS, uint32_t sdP, uint32_t sP, uint32_t sdS, const float* sL,
+    int q0, int Tq, int Tk, int c, int CS, float scale_log2, float scale,
+    uint32_t after) {
+  const bool one = Tk <= BK;
+  const int lo = one ? 0 : 512 * c / CS, hi = one ? 512 : 512 * (c + 1) / CS;
+  WgwUnit us[WGW_UNITS];
+#pragma unroll
+  for (int i = 0; i < WGW_UNITS; ++i) {
+    const int u = lo + threadIdx.x + 256 * i;
+    if (u >= hi) break;
+    // one-key: u = 32 quad + row pair, quad = 2 j + h
+    const int tau = one ? 8 * (u & 31) + (u >> 6) : u >> 1;
+    us[i] = wgw_unit(tau, one ? (u >> 5) & 1 : u & 1, sS, sdP, c, CS, after);
+  }
+#pragma unroll
+  for (int i = 0; i < WGW_UNITS; ++i) {
+    if (lo + (int)threadIdx.x + 256 * i >= hi) break;
+    const WgwUnit& u = us[i];
+    const float4 L4 = *reinterpret_cast<const float4*>(sL + u.c0);
+    const float4 D4 = *reinterpret_cast<const float4*>(sL + 64 + u.c0);
+    const float Lc[4] = {L4.x, L4.y, L4.z, L4.w};
+    const float Dc[4] = {D4.x, D4.y, D4.z, D4.w};
+    const float S[8] = {u.s0.x, u.s0.y, u.s1.x, u.s1.y,
+                        u.s0.z, u.s0.w, u.s1.z, u.s1.w};
+    const float dP[8] = {u.d0.x, u.d0.y, u.d1.x, u.d1.y,
+                         u.d0.z, u.d0.w, u.d1.z, u.d1.w};
+    float P[8], dS[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool in = q0 + u.c0 + (e & 3) < Tq;
+      P[e] = exp2f(fmaf(S[e], scale_log2, in ? -Lc[e & 3] * LOG2E
+                                              : -INFINITY));
+      dS[e] = (dP[e] - (in ? Dc[e & 3] : 0.f)) * P[e] * scale;
+    }
+    if (one) {
+      const bool k0 = u.r < Tk, k1 = u.r + 8 < Tk;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float L = warp_sum((k0 ? P[e] : 0.f) + (k1 ? P[e + 4] : 0.f),
+                                 32);
+        const float E =
+            warp_sum((k0 ? __fmul_rn(P[e], dP[e]) : 0.f) +
+                         (k1 ? __fmul_rn(P[e + 4], dP[e + 4]) : 0.f),
+                     32);
+        dS[e] = ds_one_tile(dP[e], P[e], L, E, scale);
+        dS[e + 4] = ds_one_tile(dP[e + 4], P[e + 4], L, E, scale);
+      }
+      wgw_store(sP, u, c, c, P);
+      wgw_store(sdS, u, c, c, dS);
+      continue;
+    }
+    for (int rk = 0; rk < CS; ++rk) {
+      wgw_store(sP, u, rk, c, P);
+      wgw_store(sdS, u, rk, c, dS);
+    }
+  }
+}
+
+// Step 2 of a dq step (queries the rows, keys the columns from key0): dS
+// of this thread's units into every rank's sdS, P = 0 past Tk. sL: the
+// query tile's lse and D. The one-key rule's sums over keys run along a
+// row pair: 16 neighbouring lanes.
+__device__ __forceinline__ void dq_exchange(
+    uint32_t sS, uint32_t sdP, uint32_t sdS, const float* sL, int q0,
+    int key0, int Tq, int Tk, int c, int CS, float scale_log2, float scale,
+    uint32_t after) {
+  const bool one = Tk <= BK;
+  const int lo = one ? 0 : 512 * c / CS, hi = one ? 512 : 512 * (c + 1) / CS;
+  WgwUnit us[WGW_UNITS];
+#pragma unroll
+  for (int i = 0; i < WGW_UNITS; ++i) {
+    const int u = lo + threadIdx.x + 256 * i;
+    if (u >= hi) break;
+    us[i] = wgw_unit(u >> 1, u & 1, sS, sdP, c, CS, after);
+  }
+#pragma unroll
+  for (int i = 0; i < WGW_UNITS; ++i) {
+    if (lo + (int)threadIdx.x + 256 * i >= hi) break;
+    const WgwUnit& u = us[i];
+    const bool r0 = q0 + u.r < Tq, r1 = q0 + u.r + 8 < Tq;
+    const float l[2] = {r0 ? sL[u.r] * LOG2E : INFINITY,
+                        r1 ? sL[u.r + 8] * LOG2E : INFINITY};
+    const float d[2] = {r0 ? sL[64 + u.r] : 0.f, r1 ? sL[64 + u.r + 8] : 0.f};
+    const float S[8] = {u.s0.x, u.s0.y, u.s1.x, u.s1.y,
+                        u.s0.z, u.s0.w, u.s1.z, u.s1.w};
+    const float dP[8] = {u.d0.x, u.d0.y, u.d1.x, u.d1.y,
+                         u.d0.z, u.d0.w, u.d1.z, u.d1.w};
+    float P[8], dS[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      P[e] = key0 + u.c0 + (e & 3) < Tk
+                 ? exp2f(fmaf(S[e], scale_log2, -l[e >> 2]))
+                 : 0.f;
+      dS[e] = (dP[e] - d[e >> 2]) * P[e] * scale;
+    }
+    if (one) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e0 = 4 * half;
+        const float L = warp_sum(P[e0] + P[e0 + 1] + P[e0 + 2] + P[e0 + 3],
+                                 16);
+        const float E = warp_sum(
+            __fmul_rn(P[e0], dP[e0]) + __fmul_rn(P[e0 + 1], dP[e0 + 1]) +
+                __fmul_rn(P[e0 + 2], dP[e0 + 2]) +
+                __fmul_rn(P[e0 + 3], dP[e0 + 3]),
+            16);
+#pragma unroll
+        for (int e = e0; e < e0 + 4; ++e)
+          dS[e] = ds_one_tile(dP[e], P[e], L, E, scale);
+      }
+      wgw_store(sdS, u, c, c, dS);
+      continue;
+    }
+    for (int rk = 0; rk < CS; ++rk) wgw_store(sdS, u, rk, c, dS);
+  }
+}
+
+// Step t's two waits: every rank's partials published (bar[0]), every
+// rank's P / dS lines stored into this block (bar[1]); each barrier
+// completes once a step. One block a cluster: a block barrier.
+__device__ __forceinline__ uint32_t wgw_partials_ready(uint32_t bars, int CS,
+                                                       int t) {
+  if (CS == 1) {
+    uint32_t after;
+    __syncthreads();
+    asm volatile("mov.u32 %0, 0;\n" : "=r"(after)::"memory");
+    return after;
+  }
+  mbar_signal(bars, CS);
+  return mbar_wait(bars, t & 1);
+}
+
+// The pipelined steps' split of it: this block's partials published
+// (signalled as soon as they are), and at the top of step t a block
+// barrier, then every rank's partials of t ready.
+__device__ __forceinline__ void wgw_signal_partials(uint32_t bars, int CS) {
+  if (CS > 1) mbar_signal(bars, CS);
+}
+__device__ __forceinline__ uint32_t wgw_wait_partials(uint32_t bars, int CS,
+                                                      int t) {
+  uint32_t after;
+  __syncthreads();
+  if (CS > 1) return mbar_wait(bars, t & 1);
+  asm volatile("mov.u32 %0, 0;\n" : "=r"(after)::"memory");
+  return after;
+}
+
+// the generic stores of P / dS made visible to wgmma (the async proxy) in
+// every rank, and every rank's lines stored
+__device__ __forceinline__ void wgw_tiles_ready(uint32_t bars, int CS,
+                                                int t) {
+  if (CS == 1) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    return;
+  }
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+  mbar_signal(bars + 8, CS);
+  mbar_wait(bars + 8, t & 1);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the exchange's barriers initialised, and seen initialised by every rank
+// before any rank arrives on them
+__device__ __forceinline__ void wgw_init(uint32_t bars, int CS) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, CS);
+    mbar_init(bars + 8, CS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+}
+
+// a warpgroup's accumulator rows (row0 + 16 w + g, + 8; w the warp in the
+// warpgroup) of a (rows, 2 N) bf16 view as bf16 pairs, rows at or past
+// nrows left out
+template <int N>
+__device__ __forceinline__ void store_wg_rows(bf16* dst, long long stride,
+                                              int row0, int nrows,
+                                              const float (&v)[N]) {
+  const int t = threadIdx.x & 127;
+  const int r0 = row0 + 16 * (t >> 5) + ((t & 31) >> 2), cq = (t & 3) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= nrows) continue;
+    bf16* p = dst + (long long)r * stride + cq;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+  }
+}
+
+// a thread's N accumulators in / out of its block's scratch slot part
+// (float4 i of thread x at (i * 256 + x) * 4)
+template <int N>
+__device__ __forceinline__ void slot_load(float (&v)[N], const float* s) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 a = reinterpret_cast<const float4*>(s)[i * WGW_THREADS +
+                                                        threadIdx.x];
+    v[4 * i] = a.x; v[4 * i + 1] = a.y; v[4 * i + 2] = a.z; v[4 * i + 3] = a.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void slot_store(float* s, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    reinterpret_cast<float4*>(s)[i * WGW_THREADS + threadIdx.x] =
+        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+__device__ __forceinline__ void cp_async_land() {
+  cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// dK and dV of one 64-key tile's chunks (keys the accumulator rows).
+__global__ void __launch_bounds__(WGW_THREADS, 1)
+flash_bwd_dkv_wgmma_wide(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ scratch,
+    int Tq, int Tk, int NC, long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh, long long svb,
+    long long svt, long long svh, long long sdb, long long sdt,
+    long long sdh, long long skgb, long long skgt, long long skgh,
+    long long svgb, long long svgt, long long svgh, float scale_log2,
+    float scale) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sK = (raw + 1023u) & ~1023u, sV = sK + WGW_CHUNK;
+  auto sQ = [&](int s) { return sK + (2 + 2 * s) * WGW_CHUNK; };
+  auto sdO = [&](int s) { return sK + (3 + 2 * s) * WGW_CHUNK; };
+  // P^T and dS^T of even steps, then of odd ones
+  const uint32_t sP = sK + (2 + 2 * WGW_STAGES) * WGW_CHUNK;
+  const uint32_t sdS = sP + TILE_BYTES, sPS = sP + 4 * TILE_BYTES;
+  const uint32_t sPdP = sPS + WGW_PART, sStat = sPdP + WGW_PART;
+  const uint32_t bars = sStat + WGW_STAGES * STAT_BYTES;
+  auto stats = [&](int s) {
+    return reinterpret_cast<const float*>(smem + (sStat - raw) +
+                                          s * STAT_BYTES);
+  };
+
+  const int CS = wgw_cs(NC), PER = wgw_per(NC);
+  const int c = (int)cluster_rank(), hd = blockIdx.y / CS, b = blockIdx.z;
+  const int H = gridDim.y / CS, k0 = blockIdx.x * BK;
+  const int wg = threadIdx.x >> 7;
+  const bf16* qb = q + b * sqb + hd * sqh;
+  const bf16* db = dout + b * sdb + hd * sdh;
+  const bf16* kb = k + b * skb + hd * skh;
+  const bf16* vb = v + b * svb + hd * svh;
+  // threads 0-63 copy a query tile's lse, 64-127 its D
+  const float* stat_src =
+      (threadIdx.x < 64 ? lse : delta) + ((long long)b * H + hd) * Tq;
+  const int nt = (Tq + BQ - 1) / BQ;
+  auto load_stats = [&](int s, int t) {
+    if (threadIdx.x < 128) {
+      const int r = t * BQ + (threadIdx.x & 63);
+      cp_async4(sStat + s * STAT_BYTES + threadIdx.x * 4,
+                stat_src + (r < Tq ? r : 0), r < Tq);
+    }
+  };
+  // this warpgroup's partial (0: S^T = K Q^T, 1: dP^T = V dO^T) and
+  // output columns (64 wg.. of the chunk)
+  unsigned char* const mine = smem + (sPS - raw) + wg * WGW_PART;
+  // warpgroup 0 accumulates dV_c, 1 dK_c (64 x 128 each)
+  float part[32], acc[64];
+  // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), the P^T / dS^T tiles of
+  // step parity `odd`, the stage's Q and dO
+  auto products = [&](int odd, uint32_t tq, uint32_t tdo) {
+    fence_regs(acc);
+    wgmma_fence();
+    wgw_product(acc, (wg ? sdS : sP) + odd * 2 * TILE_BYTES, wg ? tq : tdo);
+    wgmma_commit();
+  };
+  bf16* const out =
+      wg ? dk + b * skgb + hd * skgh : dv + b * svgb + hd * svgh;
+  const long long out_t = wg ? skgt : svgt;
+  auto exchange = [&](int t, const float* sL, int q0) {
+    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    dkv_exchange(sPS, sPdP, sP, sdS, sL, q0, Tq, Tk, c, CS, scale_log2,
+                 scale, after);
+    wgw_tiles_ready(bars, CS, t);
+  };
+  wgw_init(bars, CS);
+  zero(acc);
+
+  if (PER == 1) {
+    // Step t: (the partials of t published) every rank's partials of t
+    // ready; tile t + 2 copied into its stage and step t + 1's partial
+    // product issued; the exchange of t; the products of t issued, the
+    // partial of t + 1 published while they run. A stage is refilled
+    // only after the barrier of the next step, when both warpgroups'
+    // products from it have ended.
+    auto load_stage = [&](int t) {
+      const int s = t % WGW_STAGES;
+      load_chunk(sQ(s), qb + c * WCH, sqt, t * BQ, Tq);
+      load_chunk(sdO(s), db + c * WCH, sdt, t * BQ, Tq);
+      load_stats(s, t);
+    };
+    load_chunk(sK, kb + c * WCH, skt, k0, Tk);
+    load_chunk(sV, vb + c * WCH, svt, k0, Tk);
+    load_stage(0);
+    cp_async_commit();
+    if (nt > 1) load_stage(1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and tile 0
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wgw_partial(part, wg ? sV : sK, wg ? sdO(0) : sQ(0), true);
+    wgmma_wait<0>();
+    fence_regs(part);
+    wgw_publish(mine, part);
+    cp_async_wait<0>();  // tile 1
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgw_signal_partials(bars, CS);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % WGW_STAGES;
+      const int n = t + 1 < nt ? (t + 1) % WGW_STAGES : s;
+      const uint32_t pds = (t & 1) * 2 * TILE_BYTES;  // this step's tiles
+      const uint32_t after = wgw_wait_partials(bars, CS, t);
+      if (t + 2 < nt) load_stage(t + 2);
+      cp_async_commit();
+      wgw_partial(part, wg ? sV : sK, wg ? sdO(n) : sQ(n), true);
+      dkv_exchange(sPS, sPdP, sP + pds, sdS + pds, stats(s), t * BQ, Tq, Tk,
+                   c, CS, scale_log2, scale, after);
+      wgw_tiles_ready(bars, CS, t);
+      products(t & 1, sQ(s), sdO(s));
+      wgmma_wait<1>();  // the partial of t + 1 (the products may run)
+      fence_regs(part);
+      wgw_publish(mine, part);
+      // the ranks may write the other parity's tiles from here on
+      if (t + 1 < nt) wgw_signal_partials(bars, CS);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      cp_async_wait<0>();  // tile t + 2
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    store_wg_rows(out + c * WCH, out_t, k0, Tk, acc);
+    return;
+  }
+
+  // PER > 1: chunks c + CS i, i < n, each step copying their tiles in turn
+  const int n = (NC - c + CS - 1) / CS;
+  float* const slots =
+      scratch + ((((long long)b * H + hd) * gridDim.x + blockIdx.x) * CS +
+                 c) * PER * WGW_DKV_SLOT;
+  for (int t = 0; t < nt; ++t) {
+    const int q0 = t * BQ;
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();  // the last readers of these buffers are done
+      load_chunk(sK, kb + col, skt, k0, Tk);
+      load_chunk(sV, vb + col, svt, k0, Tk);
+      load_chunk(sQ(0), qb + col, sqt, q0, Tq);
+      load_chunk(sdO(0), db + col, sdt, q0, Tq);
+      if (i == 0) load_stats(0, t);
+      cp_async_commit();
+      cp_async_land();
+      wgw_partial(part, wg ? sV : sK, wg ? sdO(0) : sQ(0), i == 0);
+      wgmma_wait<0>();
+      fence_regs(part);
+    }
+    wgw_publish(mine, part);
+    exchange(t, stats(0), q0);
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();
+      load_chunk(sQ(0), qb + col, sqt, q0, Tq);
+      load_chunk(sdO(0), db + col, sdt, q0, Tq);
+      cp_async_commit();
+      cp_async_land();
+      float* slot = slots + i * WGW_DKV_SLOT;
+      if (t == 0)
+        zero(acc);
+      else
+        slot_load(acc, slot);
+      products(0, sQ(0), sdO(0));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t + 1 < nt)
+        slot_store(slot, acc);
+      else
+        store_wg_rows(out + col, out_t, k0, Tk, acc);
+    }
+  }
+}
+
+// dQ of one 64-query tile's chunks (queries the accumulator rows): the
+// dkv kernel's steps over the key tiles, Q_c and dO_c fixed, K_c and V_c
+// streamed.
+__global__ void __launch_bounds__(WGW_THREADS, 1)
+flash_bwd_dq_wgmma_wide(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, float* __restrict__ scratch, int Tq, int Tk,
+    int NC, long long sqb, long long sqt, long long sqh, long long skb,
+    long long skt, long long skh, long long svb, long long svt,
+    long long svh, long long sdb, long long sdt, long long sdh,
+    long long sqgb, long long sqgt, long long sqgh, float scale_log2,
+    float scale) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t sQ = (raw + 1023u) & ~1023u, sdO = sQ + WGW_CHUNK;
+  auto sK = [&](int s) { return sQ + (2 + 2 * s) * WGW_CHUNK; };
+  auto sV = [&](int s) { return sQ + (3 + 2 * s) * WGW_CHUNK; };
+  // dS of even steps, then of odd ones
+  const uint32_t sdS = sQ + (2 + 2 * WGW_STAGES) * WGW_CHUNK;
+  const uint32_t sPS = sdS + 2 * TILE_BYTES, sPdP = sPS + WGW_PART;
+  const uint32_t sStat = sPdP + WGW_PART, bars = sStat + STAT_BYTES;
+  const float* sL = reinterpret_cast<const float*>(smem + (sStat - raw));
+
+  const int CS = wgw_cs(NC), PER = wgw_per(NC);
+  const int c = (int)cluster_rank(), hd = blockIdx.y / CS, b = blockIdx.z;
+  const int H = gridDim.y / CS, q0 = blockIdx.x * BQ;
+  const int wg = threadIdx.x >> 7;
+  const bf16* qb = q + b * sqb + hd * sqh;
+  const bf16* db = dout + b * sdb + hd * sdh;
+  const bf16* kb = k + b * skb + hd * skh;
+  const bf16* vb = v + b * svb + hd * svh;
+  const int nt = (Tk + BK - 1) / BK;
+  if (threadIdx.x < 128) {  // the query tile's lse (0-63) and D (64-127)
+    const int r = q0 + (threadIdx.x & 63);
+    cp_async4(sStat + threadIdx.x * 4,
+              (threadIdx.x < 64 ? lse : delta) +
+                  ((long long)b * H + hd) * Tq + (r < Tq ? r : 0),
+              r < Tq);
+  }
+  unsigned char* const mine = smem + (sPS - raw) + wg * WGW_PART;
+  float part[32], acc[32];
+  auto products = [&](int odd, uint32_t tk) {  // dQ += dS K
+    fence_regs(acc);
+    wgmma_fence();
+    wgw_product(acc, sdS + odd * TILE_BYTES, tk + wg * TILE_BYTES);
+    wgmma_commit();
+  };
+  auto exchange = [&](int t, int key0) {
+    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    dq_exchange(sPS, sPdP, sdS, sL, q0, key0, Tq, Tk, c, CS, scale_log2,
+                scale, after);
+    wgw_tiles_ready(bars, CS, t);
+  };
+  wgw_init(bars, CS);
+  zero(acc);
+
+  if (PER == 1) {  // the dkv kernel's pipeline
+    auto load_stage = [&](int t) {
+      const int s = t % WGW_STAGES;
+      load_chunk(sK(s), kb + c * WCH, skt, t * BK, Tk);
+      load_chunk(sV(s), vb + c * WCH, svt, t * BK, Tk);
+    };
+    load_chunk(sQ, qb + c * WCH, sqt, q0, Tq);
+    load_chunk(sdO, db + c * WCH, sdt, q0, Tq);
+    load_stage(0);
+    cp_async_commit();
+    if (nt > 1) load_stage(1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO, the statistics and tile 0
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wgw_partial(part, wg ? sdO : sQ, wg ? sV(0) : sK(0), true);
+    wgmma_wait<0>();
+    fence_regs(part);
+    wgw_publish(mine, part);
+    cp_async_wait<0>();  // tile 1
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgw_signal_partials(bars, CS);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % WGW_STAGES;
+      const int n = t + 1 < nt ? (t + 1) % WGW_STAGES : s;
+      const uint32_t after = wgw_wait_partials(bars, CS, t);
+      if (t + 2 < nt) load_stage(t + 2);
+      cp_async_commit();
+      wgw_partial(part, wg ? sdO : sQ, wg ? sV(n) : sK(n), true);
+      dq_exchange(sPS, sPdP, sdS + (t & 1) * TILE_BYTES, sL, q0, t * BK, Tq,
+                  Tk, c, CS, scale_log2, scale, after);
+      wgw_tiles_ready(bars, CS, t);
+      products(t & 1, sK(s));
+      wgmma_wait<1>();
+      fence_regs(part);
+      wgw_publish(mine, part);
+      if (t + 1 < nt) wgw_signal_partials(bars, CS);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      cp_async_wait<0>();  // tile t + 2
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    store_wg_rows(dq + b * sqgb + hd * sqgh + c * WCH + 64 * wg, sqgt, q0,
+                  Tq, acc);
+    return;
+  }
+
+  const int n = (NC - c + CS - 1) / CS;
+  float* const slots =
+      scratch + ((((long long)b * H + hd) * gridDim.x + blockIdx.x) * CS +
+                 c) * PER * WGW_DQ_SLOT;
+  for (int t = 0; t < nt; ++t) {
+    const int key0 = t * BK;
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();  // the last readers of these buffers are done
+      load_chunk(sQ, qb + col, sqt, q0, Tq);
+      load_chunk(sdO, db + col, sdt, q0, Tq);
+      load_chunk(sK(0), kb + col, skt, key0, Tk);
+      load_chunk(sV(0), vb + col, svt, key0, Tk);
+      cp_async_commit();
+      cp_async_land();
+      wgw_partial(part, wg ? sdO : sQ, wg ? sV(0) : sK(0), i == 0);
+      wgmma_wait<0>();
+      fence_regs(part);
+    }
+    wgw_publish(mine, part);
+    exchange(t, key0);
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();
+      load_chunk(sK(0), kb + col, skt, key0, Tk);
+      cp_async_commit();
+      cp_async_land();
+      float* slot = slots + i * WGW_DQ_SLOT;
+      if (t == 0)
+        zero(acc);
+      else
+        slot_load(acc, slot);
+      products(0, sK(0));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t + 1 < nt)
+        slot_store(slot, acc);
+      else
+        store_wg_rows(dq + b * sqgb + hd * sqgh + col + 64 * wg, sqgt, q0,
+                      Tq, acc);
+    }
+  }
+}
+
 template <typename K>
 int opt_in(K kernel, int bytes, unsigned& opted) {
   int dev = 0;
@@ -1894,13 +2827,14 @@ struct DqWide {
 // a tile kernel's launch at (f32 or bf16, d): f32 at 32, 64 and 128, bf16
 // at 32 and 128 (bf16 at 64 is the wgmma kernels'); another width is
 // refused
-template <template <typename, int> class L, typename... Args>
+template <template <typename, int> class L, bool BF16_128, typename... Args>
 int by_width(int f32, int d, Args... args) {
   if (f32 && d == 32) return L<float, 32>::run(args...);
   if (f32 && d == 64) return L<float, 64>::run(args...);
   if (f32 && d == 128) return L<float, 128>::run(args...);
   if (!f32 && d == 32) return L<bf16, 32>::run(args...);
-  if (!f32 && d == 128) return L<bf16, 128>::run(args...);
+  if constexpr (BF16_128)
+    if (!f32 && d == 128) return L<bf16, 128>::run(args...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1910,6 +2844,33 @@ template <template <typename> class L, typename... Args>
 int by_chunks(int f32, int d, Args... args) {
   if (d % WCH) return (int)cudaErrorInvalidValue;
   return f32 ? L<float>::run(args...) : L<bf16>::run(args...);
+}
+
+// The wgmma pair takes bf16 at every multiple of 128; at width 128 too,
+// where it is faster than the tile pair (PERF.md, the same A/B run).
+bool wgw_width(int f32, int d) { return !f32 && d % WCH == 0; }
+
+// a wgmma pair kernel's launch: grid (tiles, H CS, B), clusters of CS
+// blocks along y, `smem` bytes of dynamic shared memory (opted in once per
+// device)
+template <typename Kernel, typename... Args>
+int launch_wgw(Kernel kernel, int smem, unsigned& opted, int tiles, int H,
+               int B, int NC, cudaStream_t stream, Args... args) {
+  if (int e = opt_in(kernel, smem, opted)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, H * wgw_cs(NC), B);
+  cfg.blockDim = dim3(WGW_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = wgw_cs(NC);
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1931,7 +2892,7 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                               d / WCH, (const long long*)s, scale,
                               (cudaStream_t)stream);
   if (f32 || d != 64)
-    return by_width<FwdTC>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
+    return by_width<FwdTC, true>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
                            (const long long*)s, scale, (cudaStream_t)stream);
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
@@ -1941,53 +2902,98 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// strides: (b, t, h) of q, k, v, dout, dk, dv (18 values)
+// strides: (b, t, h) of q, k, v, dout, dk, dv (18 values); scratch:
+// xt_flash_attn_bwd_scratch(..., 0) floats of f32 device memory, or null
+// where that is 0
 XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int B,
-                                 int Tq, int Tk, int H,
-                                 const long long* strides, float scale,
-                                 int f32, int d, void* stream) {
-  static unsigned opted_bf16 = 0;
+                                 const void* delta, void* dk, void* dv,
+                                 void* scratch, int B, int Tq, int Tk, int H,
+                                 const long long* st, float scale, int f32,
+                                 int d, void* stream) {
+  static unsigned opted_bf16 = 0, opted_wgw = 0;
+  const cudaStream_t cs = (cudaStream_t)stream;
+  if (wgw_width(f32, d)) {
+    if (wgw_per(d / WCH) > 1 && scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_wgw(
+        flash_bwd_dkv_wgmma_wide, WGW_DKV_SMEM, opted_wgw, (Tk + BK - 1) / BK,
+        H, B, d / WCH, cs, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+        (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
+        (bf16*)dv, (float*)scratch, Tq, Tk, d / WCH, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+        st[12], st[13], st[14], st[15], st[16], st[17], scale * LOG2E, scale);
+  }
   if (d > WCH)
-    return by_chunks<DkvWide>(f32, d, q, k, v, dout, (const float*)lse,
-                              (const float*)delta, dk, dv, B, Tq, Tk, H,
-                              d / WCH, strides, scale, (cudaStream_t)stream);
+    return f32 && d % WCH == 0
+               ? DkvWide<float>::run(q, k, v, dout, (const float*)lse,
+                                     (const float*)delta, dk, dv, B, Tq, Tk,
+                                     H, d / WCH, st, scale, cs)
+               : (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
-    return by_width<DkvTC>(f32, d, q, k, v, dout, (const float*)lse,
-                           (const float*)delta, dk, dv, B, Tq, Tk, H, strides,
-                           scale, (cudaStream_t)stream);
+    return by_width<DkvTC, false>(f32, d, q, k, v, dout, (const float*)lse,
+                                  (const float*)delta, dk, dv, B, Tq, Tk, H,
+                                  st, scale, cs);
   return launch_bwd_dkv<bf16>(flash_bwd_dkv_kernel, BWD_DKV_SMEM, opted_bf16,
                               q, k, v, dout, (const float*)lse,
-                              (const float*)delta, dk, dv, B, Tq, Tk, H,
-                              strides, scale, (cudaStream_t)stream);
+                              (const float*)delta, dk, dv, B, Tq, Tk, H, st,
+                              scale, cs);
 }
 
-// strides: (b, t, h) of q, k, v, dout, dq (15 values)
+// strides: (b, t, h) of q, k, v, dout, dq (15 values); scratch:
+// xt_flash_attn_bwd_scratch(..., 1) floats, or null where that is 0
 XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int Tq,
-                                int Tk, int H, const long long* strides,
-                                float scale, int f32, int d, void* stream) {
-  static unsigned opted_bf16 = 0;
+                                const void* delta, void* dq, void* scratch,
+                                int B, int Tq, int Tk, int H,
+                                const long long* st, float scale, int f32,
+                                int d, void* stream) {
+  static unsigned opted_bf16 = 0, opted_wgw = 0;
+  const cudaStream_t cs = (cudaStream_t)stream;
+  if (wgw_width(f32, d)) {
+    if (wgw_per(d / WCH) > 1 && scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_wgw(
+        flash_bwd_dq_wgmma_wide, WGW_DQ_SMEM, opted_wgw, (Tq + BQ - 1) / BQ,
+        H, B, d / WCH, cs, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+        (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dq,
+        (float*)scratch, Tq, Tk, d / WCH, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
+        st[14], scale * LOG2E, scale);
+  }
   if (d > WCH)
-    return by_chunks<DqWide>(f32, d, q, k, v, dout, (const float*)lse,
-                             (const float*)delta, dq, B, Tq, Tk, H, d / WCH,
-                             strides, scale, (cudaStream_t)stream);
+    return f32 && d % WCH == 0
+               ? DqWide<float>::run(q, k, v, dout, (const float*)lse,
+                                    (const float*)delta, dq, B, Tq, Tk, H,
+                                    d / WCH, st, scale, cs)
+               : (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
-    return by_width<DqTC>(f32, d, q, k, v, dout, (const float*)lse,
-                          (const float*)delta, dq, B, Tq, Tk, H, strides,
-                          scale, (cudaStream_t)stream);
+    return by_width<DqTC, false>(f32, d, q, k, v, dout, (const float*)lse,
+                                 (const float*)delta, dq, B, Tq, Tk, H, st,
+                                 scale, cs);
   return launch_bwd_dq<bf16>(flash_bwd_dq_kernel, BWD_DQ_SMEM, opted_bf16, q,
                              k, v, dout, (const float*)lse,
-                             (const float*)delta, dq, B, Tq, Tk, H, strides,
-                             scale, (cudaStream_t)stream);
+                             (const float*)delta, dq, B, Tq, Tk, H, st,
+                             scale, cs);
+}
+
+// Floats of f32 scratch xt_flash_attn_bwd_dkv (dq = 0) or _dq (dq = 1)
+// needs at these shapes: the wgmma pair's accumulator slots where a block
+// owns more than one chunk (bf16 above width 1024), else 0
+XT_API long long xt_flash_attn_bwd_scratch(int B, int Tq, int Tk, int H,
+                                           int f32, int d, int dq) {
+  if (!wgw_width(f32, d) || wgw_per(d / WCH) == 1) return 0;
+  const int nc = d / WCH;
+  const long long tiles = dq ? (Tq + BQ - 1) / BQ : (Tk + BK - 1) / BK;
+  return tiles * B * H * wgw_cs(nc) * wgw_per(nc) *
+         (dq ? WGW_DQ_SLOT : WGW_DKV_SLOT);
 }
 
 // Registers and local-memory bytes a thread of every kernel, out[2 i] and
 // out[2 i + 1] for i = 8 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
-// (the wgmma kernels), 128, the wide kernel, then f32 at the same (local
-// memory other than 0 is a spill)
+// (the wgmma kernels), 128, the wide kernel, then f32 at the same; the
+// bf16 backward's 128 and wide entries are both the wgmma wide pair's
+// (local memory other than 0 is a spill)
 XT_API int xt_flash_attn_attrs(int* out) {
   const void* fns[24] = {
       (const void*)flash_fwd_tc_kernel<bf16, 32>,
@@ -2000,16 +3006,16 @@ XT_API int xt_flash_attn_attrs(int* out) {
       (const void*)flash_fwd_wide_kernel<float>,
       (const void*)flash_bwd_dkv_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dkv_kernel,
-      (const void*)flash_bwd_dkv_tc_kernel<bf16, 128>,
-      (const void*)flash_bwd_dkv_wide_kernel<bf16>,
+      (const void*)flash_bwd_dkv_wgmma_wide,
+      (const void*)flash_bwd_dkv_wgmma_wide,
       (const void*)flash_bwd_dkv_tc_kernel<float, 32>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 64>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 128>,
       (const void*)flash_bwd_dkv_wide_kernel<float>,
       (const void*)flash_bwd_dq_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dq_kernel,
-      (const void*)flash_bwd_dq_tc_kernel<bf16, 128>,
-      (const void*)flash_bwd_dq_wide_kernel<bf16>,
+      (const void*)flash_bwd_dq_wgmma_wide,
+      (const void*)flash_bwd_dq_wgmma_wide,
       (const void*)flash_bwd_dq_tc_kernel<float, 32>,
       (const void*)flash_bwd_dq_tc_kernel<float, 64>,
       (const void*)flash_bwd_dq_tc_kernel<float, 128>,

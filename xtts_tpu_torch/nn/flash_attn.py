@@ -19,16 +19,25 @@ written for Hopper:
   streamed tiles in a cp.async ring, every product on wgmma with P / dS as
   the register operand (no P or dS tile in shared memory);
 - the tile family, the same three kernels for f32 inputs (as the Pallas
-  kernel takes them) at widths 32, 64 and 128, and for bf16 at 32 and 128:
-  the same grids, ring and softmax on mma.sync, f32 in 3xTF32 (each
-  operand split in a big and a small tf32 part, three products a step,
-  within ~2^-21 relative of an f32 product), P and dS kept in registers
-  as the next product's A operand;
-- the wide kernels, the same three for every head width that is a
-  multiple of 128 above 128 (as JAX's library kernel takes them), bf16
-  and f32: a block owns one 128-column chunk of its output, forms each
-  score (and dP) tile as the sum of the chunks' width-128 products, and
-  takes its own chunk's product through the width-128 tile code.
+  kernel takes them) at widths 32, 64 and 128, the bf16 forward at 32
+  and 128 and the bf16 backward at 32: the same grids, ring and softmax
+  on mma.sync, f32 in 3xTF32 (each operand split in a big and a small
+  tf32 part, three products a step, within ~2^-21 relative of an f32
+  product), P and dS kept in registers as the next product's A operand;
+- the wide kernels, the forward (bf16 and f32) and the f32 backward for
+  every head width that is a multiple of 128 above 128 (as JAX's library
+  kernel takes them): a block owns one 128-column chunk of its output,
+  forms each score (and dP) tile as the sum of the chunks' width-128
+  products, and takes its own chunk's product through the width-128 tile
+  code;
+- the bf16 backward at width 128 and every multiple of 128 above on
+  wgmma (`flash_bwd_dkv_wgmma_wide`, `flash_bwd_dq_wgmma_wide`): the
+  blocks of one tile's 128-column chunks form a thread-block cluster;
+  each forms only its own chunks' partial S and dP, the partials are
+  summed once in the cluster through distributed shared memory and P and
+  dS formed once and shared, so no chunk forms a score tile again; above
+  width 1024 a block owns several chunks, their accumulators between
+  steps in an f32 device scratch (`_scratch`).
   `kernel_attrs` reads every kernel's registers and spills.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
@@ -113,9 +122,11 @@ def _lib() -> ctypes.CDLL:
     lib.xt_flash_attn_fwd.argtypes = (
         [_P] * 5 + [_I] * 4 + [_L] * 12 + [ctypes.c_float, _I, _I, _P])
     lib.xt_flash_attn_bwd_dkv.argtypes = (
-        [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
+        [_P] * 9 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
     lib.xt_flash_attn_bwd_dq.argtypes = (
-        [_P] * 7 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
+        [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P])
+    lib.xt_flash_attn_bwd_scratch.argtypes = [_I] * 7
+    lib.xt_flash_attn_bwd_scratch.restype = _L
     lib.xt_flash_attn_attrs.argtypes = [ctypes.POINTER(_I)]
     for fn in (lib.xt_flash_attn_fwd, lib.xt_flash_attn_bwd_dkv,
                lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_attrs):
@@ -123,7 +134,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# csrc's order of xt_flash_attn_attrs: (wrapper, dtype, head width)
+# csrc's order of xt_flash_attn_attrs: (wrapper, dtype, head width); the
+# bf16 backward's 128 and WIDE keys both read the wgmma wide pair
 _KERNELS = tuple((name, kind, w)
                  for name in ("flash_mha", "flash_mha_bwd_dkv",
                               "flash_mha_bwd_dq")
@@ -132,9 +144,10 @@ _KERNELS = tuple((name, kind, w)
 
 def kernel_attrs() -> dict:
     """{(wrapper, "bf16" | "f32", head width): (registers, local-memory
-    bytes)} a thread of each of the 24 kernels, as built for the current
-    card (width WIDE: the wide kernel, every multiple of 128 above 128);
-    local memory other than 0 is a register spill."""
+    bytes)} a thread of each of the 24 keys' kernels, as built for the
+    current card (width WIDE: every multiple of 128 above 128; the bf16
+    backward at 128 and WIDE: the wgmma wide pair); local memory other
+    than 0 is a register spill."""
     out = (_I * (2 * len(_KERNELS)))()
     check(_lib().xt_flash_attn_attrs(out), "flash_mha kernel attrs")
     return {key: (out[2 * i], out[2 * i + 1])
@@ -295,9 +308,23 @@ def _check_stats(q, lse, delta):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _scratch(q, b, tq, tk, h, dq: bool):
+    """The f32 device scratch a backward kernel takes at these shapes
+    (csrc xt_flash_attn_bwd_scratch: the bf16 wgmma pair's accumulators
+    where a block owns more than one 128-column chunk, above width 1024),
+    or None."""
+    n = _lib().xt_flash_attn_bwd_scratch(b, tq, tk, h,
+                                         int(q.dtype == torch.float32),
+                                         q.shape[3], int(dq))
+    return (torch.empty(n, dtype=torch.float32, device=q.device) if n
+            else None)
+
+
 def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     """dK and dV of flash_mha (kernels `flash_bwd_dkv_kernel`, bf16 at
-    width 64, and `flash_bwd_dkv_tc_kernel<T, D>`): lse the forward's
+    width 64; `flash_bwd_dkv_wgmma_wide`, bf16 at 128 and every multiple
+    of 128 above; `flash_bwd_dkv_tc_kernel<T, D>` and
+    `flash_bwd_dkv_wide_kernel<float>` the rest): lse the forward's
     natural-log row log-sum-exp and delta = rowsum(dO * O), both (B, H,
     Tq) f32. CPU tensors take the plain twin."""
     if not q.is_cuda:
@@ -308,9 +335,11 @@ def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     _check_stats(q, lse, delta)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    scratch = _scratch(q, b, tq, tk, h, False)
     check(_lib().xt_flash_attn_bwd_dkv(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
-        ptr(dv), b, tq, tk, h, _strides(q, k, v, do, dk, dv),
+        ptr(dv), None if scratch is None else ptr(scratch), b, tq, tk, h,
+        _strides(q, k, v, do, dk, dv),
         float(sm_scale), int(q.dtype == torch.float32), q.shape[3],
         stream_of(q)), "flash_mha_bwd_dkv")
     flash_mha_bwd_dkv.launches += 1
@@ -318,9 +347,11 @@ def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
 
 
 def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
-    """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16 at width 64,
-    and `flash_bwd_dq_tc_kernel<T, D>`), on flash_mha_bwd_dkv's operands.
-    CPU tensors take the plain twin."""
+    """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16 at width 64;
+    `flash_bwd_dq_wgmma_wide`, bf16 at 128 and every multiple of 128
+    above; `flash_bwd_dq_tc_kernel<T, D>` and
+    `flash_bwd_dq_wide_kernel<float>` the rest), on flash_mha_bwd_dkv's
+    operands. CPU tensors take the plain twin."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[0]
     dh = q.shape[3]
@@ -328,9 +359,11 @@ def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
                                               do)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    scratch = _scratch(q, b, tq, tk, h, True)
     check(_lib().xt_flash_attn_bwd_dq(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
-        b, tq, tk, h, _strides(q, k, v, do, dq), float(sm_scale),
+        None if scratch is None else ptr(scratch), b, tq, tk, h,
+        _strides(q, k, v, do, dq), float(sm_scale),
         int(q.dtype == torch.float32), q.shape[3], stream_of(q)),
         "flash_mha_bwd_dq")
     flash_mha_bwd_dq.launches += 1
