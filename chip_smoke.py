@@ -204,8 +204,8 @@ Phases, each reported on its own lines:
      and both backward kernels once a gated attention every step, beside
      the same steps with flash=False: step ms, samples/s, MFU (K2's
      FLOPs added: FlopCounterMode cannot see them), peak memory; then
-     FLASH_WARM + 2 such steps at 2 heads of 256 (K2's bf16 wgmma wide
-     backward pair), the same way.
+     FLASH_WARM + 2 such steps at 2 heads of 256, the same way: in bf16
+     (K2's wgmma wide backward pair) and in f32 (its f32 wide pair).
   7c. parallel (parallel/mesh.py, the flagship GPT and DVAE whole, f32, global batch 8 with lengths falling
      across the rows): two gloo ranks spawned on the one card, dp 2 (one
      gpt and one vqvae step) and tp 2 (one gpt step, GPT_PARAM_RULES),
@@ -351,6 +351,11 @@ DIFF_OVERFIT_RATIO = 0.9
 # of the step-time median
 FLASH_STEPS = 8
 FLASH_WARM = 2
+# the f32 flash run's losses against flash=False's, relative: the
+# gradients agree within K2_BWD_TOL, and Adam moves each parameter by at
+# most lr a step whatever its gradient's size, so four steps' losses agree
+# far within this
+FLASH_F32_LOSS_TOL = 1e-3
 SLOTS_EAGER_SEGMENTS = 3   # greedy segments run eagerly against the graphs
 
 
@@ -1176,7 +1181,10 @@ def k2_width_checks(torch, fa, results, card):
     operations: 4 B H Tq Tk D a forward, 10 a backward, bf16 at 989
     TFLOP/s, f32's 3xTF32 three times as many at 495); each kernel's
     registers and local memory (a spill is printed, and refused in every
-    bf16 kernel and in f32 below width 128)."""
+    kernel but the f32 forwards from width 128: the tile family's at 128,
+    the wide forward above); at the wide pairs' widths (128 and above) the
+    backward's TFLOP/s and share of its bound by device time and the
+    clusters of each kernel that can be resident at once."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(96)
     attrs = fa.kernel_attrs()
@@ -1220,6 +1228,8 @@ def k2_width_checks(torch, fa, results, card):
                 q, k, v, do, lse, delta, sc))
             d_q = device_us(torch, lambda: fa.flash_mha_bwd_dq(
                 q, k, v, do, lse, delta, sc))
+            d_b = device_us(torch, lambda: fa.flash_mha_bwd_pair(
+                q, k, v, do, lse, delta, sc))
             qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                           for t in (q, k, v))
             dos = do.transpose(1, 2).contiguous()
@@ -1246,9 +1256,25 @@ def k2_width_checks(torch, fa, results, card):
                 regs, local = attrs[(name, kind, key)]
                 spills.append(f"{name} {regs} registers, {local} local "
                               f"bytes")
-                check(local == 0 or (kind == "f32" and native >= 128),
+                # left alone: the f32 forwards at 128 (the tile family's)
+                # and above (the wide forward)
+                check(local == 0 or (kind == "f32" and native >= 128
+                                     and name == "flash_mha"),
                       f"[k2] {name} {kind} width {native} spills {local} "
                       f"bytes")
+            pair, resident = "", None
+            if native % 128 == 0:
+                nc = native // 128
+                cs = -(-nc // -(-nc // 8))       # csrc wgw_cs
+                resident = fa.bwd_clusters(dt, native)
+                ops = 5 * unit * (3 if kind == "f32" else 1)
+                pair = (f"; the wide pair as flash_mha_bwd_pair runs it "
+                        f"{fmt_us(d_b)}: {ops / (d_b * 1e-6) / 1e12:.1f} "
+                        f"TFLOP/s of its {'3xTF32 ' * (kind == 'f32')}"
+                        f"operations by device time, {b_b * 1e3 / d_b:.3f} "
+                        f"of the backward bound, {d_b / s_b:.2f}x SDPA's "
+                        f"backward; clusters of {cs}, at most {resident[0]} "
+                        f"(dkv) / {resident[1]} (dq) resident")
             log(f"[k2] width {w} ({kind}, B {b}, Tq {tq}, Tk {tk}, {h} x {w}"
                 f"{'' if native == w else f', zero-padded to {native}'}): "
                 f"forward err {e_o:.2e} (bound {tol}), lse {e_l:.2e}; "
@@ -1257,15 +1283,19 @@ def k2_width_checks(torch, fa, results, card):
                 f"device: forward {fmt_us(d_f)} "
                 f"({2 * unit / (d_f * 1e-6) / 1e12:.1f} TFLOP/s), dkv "
                 f"{fmt_us(d_kv)}, dq {fmt_us(d_q)} (sum "
-                f"{fmt_us(d_kv + d_q)}); bounds forward {b_f:.5f} ms, "
+                f"{fmt_us(d_kv + d_q)}, the pair {fmt_us(d_b)}); bounds "
+                f"forward {b_f:.5f} ms, "
                 f"backward {b_b:.5f} ms ({'3xTF32' if kind == 'f32' else 'bf16'}"
                 f" tensor-core operations); sdpa forward {fmt_us(s_f)}, "
-                f"backward {fmt_us(s_b)}; {'; '.join(spills)}  [{card}]")
+                f"backward {fmt_us(s_b)}{pair}; {'; '.join(spills)}  "
+                f"[{card}]")
             rows[f"{kind} {w}"] = dict(
                 forward_err=e_o, lse_err=e_l, backward_rel_errs=errs,
                 forward_device_us=d_f, dkv_device_us=d_kv, dq_device_us=d_q,
+                pair_device_us=d_b,
                 sdpa_forward_device_us=s_f, sdpa_backward_device_us=s_b,
-                bound_forward_ms=b_f, bound_backward_ms=b_b)
+                bound_forward_ms=b_f, bound_backward_ms=b_b,
+                resident_clusters=resident)
             del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
             torch.cuda.empty_cache()
     results["flash_mha"]["widths"] = rows
@@ -2456,9 +2486,11 @@ def train_phase(torch, np, launches, results, card):
                vq=vq_dir / "vqvae.pth", gpt=gpt_dir / "gpt.pth")
     rows += train_phase_new(torch, np, launches, card, ctx)
     flash_train_run(torch, np, launches, card, ctx)
-    # the same at 2 heads of 256: K2's bf16 wgmma wide backward pair
-    flash_train_run(torch, np, launches, card, ctx, heads=2,
-                    n_steps=FLASH_WARM + 2)
+    # the same at 2 heads of 256: K2's bf16 wgmma wide backward pair, then
+    # in f32 its f32 wide pair
+    for dt in (None, torch.float32):
+        flash_train_run(torch, np, launches, card, ctx, heads=2,
+                        n_steps=FLASH_WARM + 2, dtype=dt)
     results["vq_nearest"]["train"] = rows
     torch.cuda.empty_cache()
     return time.perf_counter() - t_phase
@@ -2725,7 +2757,7 @@ def train_phase_new(torch, np, launches, card, ctx):
 
 
 def flash_train_run(torch, np, launches, card, ctx, heads=None,
-                    n_steps=FLASH_STEPS):
+                    n_steps=FLASH_STEPS, dtype=None):
     """[train], K2's backward at the lengths the decoder renders: the
     diffusion model fine-tuned through the objects the JAX API exposes
     (DiffusionDataset(max_mel=1280, max_refer=300) over [train]'s 8-12 s
@@ -2739,7 +2771,8 @@ def flash_train_run(torch, np, launches, card, ctx, heads=None,
     launches are invisible to it, so 12 B Tq Tk H D is added for each
     gated attention: forward 4, backward 8) and MFU, peak memory, the
     losses. heads: the UNet's attention heads (its model_channels / heads
-    wide), else the configuration's."""
+    wide), else the configuration's; dtype: the trained model's compute
+    dtype, else the configuration's (cli.train_dtype)."""
     from xtts_tpu_torch.data.audio import load_wav
     from xtts_tpu_torch.data.datasets import (DiffusionDataset, MelCache,
                                               batch_iterator)
@@ -2752,7 +2785,8 @@ def flash_train_run(torch, np, launches, card, ctx, heads=None,
 
     t_run = time.perf_counter()
     cfg = ctx["cfg"]
-    dt = cli.train_dtype(cfg)
+    dt = cli.train_dtype(cfg) if dtype is None else dtype
+    kind = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
     dcfg = (cfg.diffusion if cfg.train.remat == "none"
             else cfg.diffusion.replace(remat=cfg.train.remat))
     if heads is not None:
@@ -2840,6 +2874,7 @@ def flash_train_run(torch, np, launches, card, ctx, heads=None,
             torch.cuda.empty_cache()
     finally:
         tad.flash_mha = plain_mha
+    peak_kind = "bf16" if kind == "bf16" else "tf32"
     for flash in (True, False):
         s_ = stats[flash]
         med = statistics.median(s_["times"][FLASH_WARM:])
@@ -2847,7 +2882,7 @@ def flash_train_run(torch, np, launches, card, ctx, heads=None,
                         f"{', '.join(f'{q} | {k}' for _, q, k in sh)}"
                         for k2, sh in s_["counts"])
         log(f"[train] diffusion flash={flash} ({dcfg.num_heads} heads of "
-            f"{width}, bf16, batch 8, crops 1280 | 300 of {len(long)} wavs "
+            f"{width}, {kind}, batch 8, crops 1280 | 300 of {len(long)} wavs "
             f"of 8-12 s): {n_steps} steps, step "
             f"{1e3 * med:.1f} ms median over steps {FLASH_WARM + 1}-"
             f"{n_steps} ("
@@ -2856,13 +2891,21 @@ def flash_train_run(torch, np, launches, card, ctx, heads=None,
             f"{s_['flops'] / 1e12:.3f} TFLOP a step"
             + (f" ({s_['added'] / 1e12:.3f} of them K2's, added)"
                if flash else "")
-            + f", {100 * s_['flops'] / med / PEAK['bf16']:.2f}% of 989 "
-            f"TFLOP/s bf16; peak memory {s_['peak']:.2f} GiB; loss "
+            + f", {100 * s_['flops'] / med / PEAK[peak_kind]:.2f}% of "
+            f"{PEAK[peak_kind] / 1e12:.0f} TFLOP/s {peak_kind}; peak memory "
+            f"{s_['peak']:.2f} GiB; loss "
             f"{', '.join(f'{x:.4f}' for x in s_['losses'])}"
             + (f"; K2 fwd/dkv/dq a step at (Tq | Tk): {per}" if flash
                else "") + f"  [{card}]")
+    gap = max(abs(a - b) / max(abs(b), 1e-6) for a, b in
+              zip(stats[True]["losses"], stats[False]["losses"]))
+    if kind == "f32":
+        check(gap <= FLASH_F32_LOSS_TOL, f"[train] f32 flash losses "
+              f"{stats[True]['losses']} against {stats[False]['losses']}")
     log(f"[train] the flash comparison at {dcfg.num_heads} heads of {width}"
-        f" took {time.perf_counter() - t_run:.1f} s  [{card}]")
+        f" ({kind}): losses within {gap:.2e} of flash=False's, relative "
+        f"(f32 bound {FLASH_F32_LOSS_TOL}); took "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
 
 
 def training_process(cfg):
@@ -3941,9 +3984,9 @@ TRACE_KERNELS = (
     ("layer_norm_rows", r"layer_norm_rows_kernel()"),
     ("flash_mha", r"flash_fwd_(?:tile_)?kernel()"),   # bf16 and f32
     ("flash_mha_bwd_dkv",
-     r"flash_bwd_dkv_(?:(?:tile_|tc_|wide_)?kernel|wgmma_wide)()"),
+     r"flash_bwd_dkv_(?:(?:tile_|tc_)?kernel|wgmma_wide|f32_wide)()"),
     ("flash_mha_bwd_dq",
-     r"flash_bwd_dq_(?:(?:tile_|tc_|wide_)?kernel|wgmma_wide)()"),
+     r"flash_bwd_dq_(?:(?:tile_|tc_)?kernel|wgmma_wide|f32_wide)()"),
     ("vq_nearest", r"vq_merge_kernel()"),      # the last of its 3 launches
 )
 

@@ -2,6 +2,7 @@
 """Device time of K2's kernels at the main bucket, from one tree's sources.
 
     python3 scripts/ab_flash_trees.py --tree DIR --tag T [--widths 64,256]
+                                      [--dtypes bf16,f32]
 
 DIR is the root of a checkout. The script imports that tree's
 xtts_tpu_torch (building its flash_attn library under DIR/build/ if it is
@@ -9,11 +10,14 @@ not built yet), and times flash_mha's forward, flash_mha_bwd_dkv and
 flash_mha_bwd_dq at the main bucket (2, 1280 | 1562) as device us a call
 (chip_smoke.device_us: 100 calls captured in one CUDA graph, the median of
 five replays): at head width 64 (8 heads) in bf16 and f32, at every other
-width of --widths in bf16 over 512 channels (512 / width heads; one head
-where 512 does not divide, as chip_smoke's K2_WIDTHS), keys
-"<kind>_<width>_<kernel>_us" there. Prints one JSON line with the tag and
-the card's name and power limit. To compare two trees, run them in turns
-(a, b, b, a) on one card, each in a process of its own.
+width of --widths in each dtype of --dtypes (default bf16) over 512
+channels (512 / width heads; one head where 512 does not divide, as
+chip_smoke's K2_WIDTHS), keys "<kind>_<width>_<kernel>_us" there; "pair"
+is the two backward kernels as flash_mha_bwd launches them
+(flash_mha_bwd_pair where the tree has it, else dkv then dq). Prints
+one JSON line with the tag and the card's name and power limit. To
+compare two trees, run them in turns (a, b, b, a) on one card, each in a
+process of its own.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ def main() -> None:
     ap.add_argument("--tag", required=True)
     ap.add_argument("--widths", default="64",
                     help="comma-separated head widths (default 64)")
+    ap.add_argument("--dtypes", default="bf16",
+                    help="comma-separated dtypes (bf16, f32) at the widths "
+                         "other than 64 (default bf16)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -47,8 +54,9 @@ def main() -> None:
     for w in (int(x) for x in args.widths.split(",")):
         h = 512 // w if 512 % w == 0 else 1
         sc = w ** -0.5
-        kinds = (((torch.bfloat16, "bf16"), (torch.float32, "f32"))
-                 if w == 64 else ((torch.bfloat16, "bf16"),))
+        named = {"bf16": torch.bfloat16, "f32": torch.float32}
+        kinds = [(named[x], x) for x in
+                 ("bf16,f32" if w == 64 else args.dtypes).split(",")]
         for dt, kind in kinds:
             key = kind if w == 64 else f"{kind}_{w}"
             q, k, v, do = (torch.randn(b, t, h, w, generator=g,
@@ -64,6 +72,10 @@ def main() -> None:
             out[f"{key}_dq_us"] = device_us(
                 torch, lambda: fa.flash_mha_bwd_dq(q, k, v, do, lse, delta,
                                                    sc))
+            pair = getattr(fa, "flash_mha_bwd_pair", None) or (
+                lambda *a: (fa.flash_mha_bwd_dkv(*a), fa.flash_mha_bwd_dq(*a)))
+            out[f"{key}_pair_us"] = device_us(
+                torch, lambda: pair(q, k, v, do, lse, delta, sc))
             del q, k, v, do, o, lse, delta
     print(json.dumps(out), flush=True)
 

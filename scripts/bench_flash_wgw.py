@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where K2's bf16 wgmma wide backward pair spends its time: variant builds.
+"""Where K2's wide backward pairs spend their time: variant builds.
 
-    python3 scripts/bench_flash_wgw.py [--variants base nogather ...]
+    python3 scripts/bench_flash_wgw.py [--dtype bf16|f32]
+                                       [--variants base nogather ...]
                                        [--widths 128,256,384] [--rounds 2]
 
 From the root of a checkout, on a machine with an sm_90a card, nvcc and
-PyTorch built for CUDA. Builds a copy of csrc/flash_attn.cu for each
-variant with -Xptxas -v (registers and spills of flash_bwd_dkv_wgmma_wide
-and flash_bwd_dq_wgmma_wide are printed), then times flash_mha_bwd_dkv
-and flash_mha_bwd_dq in bf16 at (2, 1280 | 1562) over 512 channels
-(512 / width heads, one head at 384) as device us a call
-(chip_smoke.device_us: 100 calls in one CUDA graph, median of five
-replays), the builds in turns (a, b, ..., b, a a round). Each variant
-takes one phase out of a step, so only `base` computes the right numbers
-(each variant's largest error against the f32 plain backward, relative
-to the gradient's largest, is printed):
+PyTorch built for CUDA. --dtype bf16 (the default) takes the bf16 wgmma
+pair (flash_bwd_dkv_wgmma_wide, flash_bwd_dq_wgmma_wide), f32 the f32
+pair (flash_bwd_dkv_f32_wide, flash_bwd_dq_f32_wide; widths above 128).
+Builds a copy of csrc/flash_attn.cu for each variant with -Xptxas -v
+(registers and spills of the pair are printed), then times
+flash_mha_bwd_dkv and flash_mha_bwd_dq in that dtype at (2, 1280 | 1562)
+over 512 channels (512 / width heads, one head at 384) as device us a
+call (chip_smoke.device_us: 100 calls in one CUDA graph, median of five
+replays), the builds in turns (a, b, ..., b, a a round), and prints the
+clusters of each kernel that can be resident at once
+(flash_attn.bwd_clusters). Each variant takes one phase out of a step,
+so only `base` computes the right numbers (each variant's largest error
+against the f32 plain backward, relative to the gradient's largest, is
+printed). The bf16 pair's variants:
 
 - base: the pair as it is;
 - nogather: no partial read back (the DSMEM sums of S and dP left out);
@@ -38,6 +43,17 @@ to the gradient's largest, is printed):
   partial waited for, published and signalled), drain (the products and
   the ring's copy waited for);
 - a name joined by `+` applies several.
+
+The f32 pair's: base; nogather and nostore as above (the f32 P / dS
+stores); nopart (the partials' mma.sync left out, the tile family's S
+products with them), noprod (the output products' mma.sync left out);
+prof, clock64 marks of each kernel's step at one chunk a block: in dkv
+barrier0 (the partials published, every rank's awaited), exchange,
+barrier1 (every rank's P / dS awaited), products (dK or dV on both column
+halves, the next tile's halves issued), partial (the next partial on the
+halves as they land); in dq top (the tiles awaited, the next K issued,
+the partial), barrier0, exchange (the next V issued too), barrier1,
+product.
 
 Prints one line a variant and one JSON line.
 """
@@ -102,6 +118,19 @@ PATCHES = {
 }
 
 
+F32_STORE = """  st_rank4(a, rk, c, v[0], v[1], v[2], v[3]);
+  st_rank4(a + 8 * FW_LDP * 4, rk, c, v[4], v[5], v[6], v[7]);
+"""
+F32_PATCHES = {
+    "nogather": [(GATHER, ZERO)],
+    "nostore": [(F32_STORE, "  (void)a;\n")],
+    "nopart": [("      C::mma(acc[j], a, C::b_nt(b_tile, 8 * j, kk * "
+                "C::KS));", "      ;", 2)],
+    "noprod": [("        C::mma(t[j], a, C::b_nn(b_tile, kk * C::KS, n0 + 8 * "
+                "j));", "        ;")],
+}
+
+
 PT = ("{ const long long now_ = clock64(); pr[%d] += now_ - last_; "
       "last_ = now_; }")
 PROF_HEAD = """__device__ unsigned long long wgw_prof[16];
@@ -112,26 +141,6 @@ XT_API int xt_wgw_prof(unsigned long long* out) {
   const unsigned long long zero[16] = {};
   cudaMemcpyToSymbol(wgw_prof, zero, sizeof(wgw_prof));
   return (int)cudaGetLastError();
-}
-
-XT_API int xt_wgw_clusters(int dq, int cs, int* out) {
-  const int smem = dq ? WGW_DQ_SMEM : WGW_DKV_SMEM;
-  const void* fn = dq ? (const void*)flash_bwd_dq_wgmma_wide
-                      : (const void*)flash_bwd_dkv_wgmma_wide;
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, 64 * cs, 1);
-  cfg.blockDim = dim3(WGW_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cs;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
 """
 LOOP = """      const uint32_t after = wgw_wait_partials(bars, CS, t);
@@ -180,14 +189,83 @@ LOOP_DQ = """      const uint32_t after = wgw_wait_partials(bars, CS, t);
 """
 
 
-def prof_loop(loop: str = LOOP) -> str:
+def prof_loop(loop: str = LOOP, marks=MARKS) -> str:
     """A kernel's step loop with a clock64 mark after each phase."""
     out, rest = "", loop
-    for needle, i in MARKS:
+    for needle, i in marks:
         cut = rest.index(needle) + len(needle)
         out += rest[:cut] + PT % i + "\n"
         rest = rest[cut:]
     return out + rest
+
+
+# The f32 pair's marks: dkv's exchange lambda and step loop, dq's
+F32_DKV_EX = """    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    dkv_exchange<true>(sPS, sPdP, smem_u32(sP), smem_u32(sdS),
+                       stats + 128 * (t & 1), t * BQ, Tq, Tk, c, CS,
+                       scale_log2, scale, after);
+    fw_tiles_ready(bars, CS, t);
+"""
+F32_DKV_LOOP = """        fw_stage<128, 16>(tile, src + col, src_t, (t + 1) * BQ, Tq, 16, tid);
+      cp_async_commit();
+      if (!next) break;
+      cp_async_wait<1>();  // the first half of tile t + 1
+      wg_sync(wg);
+      zero(part);
+      fw_partial<0, 8>(part, own, tile);
+      cp_async_wait<0>();  // the second
+      wg_sync(wg);
+      fw_partial<8, 16>(part, own, tile);
+"""
+F32_DQ_EX = """    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    // every warp's reads of V_c ended: tile t + 1's may land (PER == 1)
+    if (PER == 1 && t + 1 < nt)
+      fw_stage<WGW_THREADS, 32>(sV, vb + c * WCH, svt, (t + 1) * BK, Tk, 0,
+                                threadIdx.x);
+    cp_async_commit();
+    dq_exchange<true>(sPS, sPdP, smem_u32(sdS), sL, q0, t * BK, Tq, Tk, c,
+                      CS, scale_log2, scale, after);
+    fw_tiles_ready(bars, CS, t);
+"""
+F32_DQ_LOOP = """      fw_partial<0, 16>(part, own, wg ? sV : kt);
+      exchange(t);
+      fw_product(acc, arows, kt, 64 * wg);
+"""
+EX_MARKS = (("wgw_partials_ready(bars, CS, t);\n", 0),
+            ("scale, after);\n", 1),
+            ("fw_tiles_ready(bars, CS, t);\n", 2))
+PROF_DECL = ("  long long pr[6] = {0, 0, 0, 0, 0, 0}, last_ = clock64();\n")
+F32_PROF = [
+    ("__global__ void __launch_bounds__(WGW_THREADS, 1)\n"
+     "flash_bwd_dkv_f32_wide(",
+     PROF_HEAD + "__global__ void __launch_bounds__(WGW_THREADS, 1)\n"
+     "flash_bwd_dkv_f32_wide("),
+    ("  float part[8][4], lo[8][4], hi[8][4];  // a partial; columns 0-63, "
+     "64-127\n", "  float part[8][4], lo[8][4], hi[8][4];\n" + PROF_DECL),
+    ("  float part[8][4], acc[8][4];\n",
+     "  float part[8][4], acc[8][4];\n" + PROF_DECL),
+    (F32_DKV_EX, ("EX", F32_DKV_EX)),
+    (F32_DQ_EX, ("EX", F32_DQ_EX)),
+    (F32_DKV_LOOP, ("LOOP", F32_DKV_LOOP, (
+        ("16, tid);\n      cp_async_commit();\n", 3),
+        ("fw_partial<8, 16>(part, own, tile);\n", 4)))),
+    (F32_DQ_LOOP, ("LOOP", F32_DQ_LOOP, (
+        ("fw_partial<0, 16>(part, own, wg ? sV : kt);\n", 3),
+        ("fw_product(acc, arows, kt, 64 * wg);\n", 4)))),
+    ("    store_tile_rows<float, 64>(out + col + 64, out_t, k0, Tk, hi);\n    return;",
+     "    store_tile_rows<float, 64>(out + col + 64, out_t, k0, Tk, hi);\n"
+     "    if (threadIdx.x == 0) {\n      for (int i = 0; i < 6; ++i) "
+     "atomicAdd(&wgw_prof[i], (unsigned long long)pr[i]);\n      "
+     "atomicAdd(&wgw_prof[7], (unsigned long long)nt);\n    }\n    return;"),
+    ("    store_tile_rows<float, 64>(out + col, sqgt, q0, Tq, acc);\n    return;",
+     "    store_tile_rows<float, 64>(out + col, sqgt, q0, Tq, acc);\n"
+     "    if (threadIdx.x == 0) {\n      for (int i = 0; i < 6; ++i) "
+     "atomicAdd(&wgw_prof[8 + i], (unsigned long long)pr[i]);\n      "
+     "atomicAdd(&wgw_prof[15], (unsigned long long)nt);\n    }\n    return;"),
+]
+# the phases of F32_PROF's marks, dkv then dq
+F32_PHASES = (("barrier0", "exchange", "barrier1", "products", "partial"),
+              ("barrier0", "exchange", "barrier1", "top", "product"))
 
 
 PROF = [
@@ -216,24 +294,38 @@ PROF = [
 ]
 
 
-def variant(name: str, src: str) -> str:
-    """The source of one variant: `base`, or patches joined by `+`."""
+def prof_patches(dtype: str):
+    """(old, new) pairs of the prof variant of the pair of `dtype`."""
+    if dtype == "bf16":
+        return [(old, {None: prof_loop(), "DQ": prof_loop(LOOP_DQ)}
+                 .get(new, new)) for old, new in PROF], PROF_TAIL
+    out = []
+    for old, new in F32_PROF:
+        if isinstance(new, tuple):
+            new = prof_loop(new[1], EX_MARKS if new[0] == "EX" else new[2])
+        out.append((old, new))
+    return out, PROF_TAIL
+
+
+def variant(name: str, src: str, dtype: str = "bf16") -> str:
+    """The source of one variant of the pair of `dtype`: `base`, or
+    patches joined by `+`."""
+    patches = PATCHES if dtype == "bf16" else F32_PATCHES
     for part in name.split("+"):
         if part == "base":
             continue
         if part == "prof":
-            for old, new in PROF:
-                new = ({None: prof_loop(), "DQ": prof_loop(LOOP_DQ)}
-                       .get(new, new))
+            pairs, tail = prof_patches(dtype)
+            for old, new in pairs:
                 if src.count(old) != 1:
                     raise SystemExit(f"bench_flash_wgw: the source does not "
                                      f"hold {old!r} once")
                 src = src.replace(old, new)
-            src += PROF_TAIL
+            src += tail
             continue
-        if part not in PATCHES:
+        if part not in patches:
             raise SystemExit(f"bench_flash_wgw: no variant {part!r}")
-        for old, new, *times in PATCHES[part]:
+        for old, new, *times in patches[part]:
             if src.count(old) != (times[0] if times else 1):
                 raise SystemExit(f"bench_flash_wgw: the source does not hold "
                                  f"{old!r} as often as the patch expects")
@@ -241,11 +333,12 @@ def variant(name: str, src: str) -> str:
     return src
 
 
-def build(name: str, out_dir: Path):
+def build(name: str, out_dir: Path, dtype: str = "bf16"):
     """(name, .so, ptxas lines of the pair)."""
     from xtts_tpu_torch.ops.build import CSRC, NVCC_FLAGS, _nvcc
     cu = out_dir / f"flash_attn_{name}.cu"
-    cu.write_text(variant(name, (CSRC / "flash_attn.cu").read_text()))
+    cu.write_text(variant(name, (CSRC / "flash_attn.cu").read_text(),
+                          dtype))
     so = cu.with_suffix(".so")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v", "-o",
@@ -255,7 +348,7 @@ def build(name: str, out_dir: Path):
     lines, keep = [], False
     for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_bwd_\w+_wgmma_wide)", line)
+            m = re.search(r"(flash_bwd_\w+_(?:wgmma|f32)_wide)", line)
             keep = m is not None
             if keep:
                 lines.append(m.group(1))
@@ -272,13 +365,15 @@ def use(fa, so: Path) -> None:
     fa._lib()
 
 
-def prof(torch, fa, cases) -> dict:
-    """The prof variant's cycles a dkv step, by phase, at each width."""
+def prof(torch, fa, cases, dtype: str = "bf16") -> dict:
+    """The prof variant's cycles a step of each kernel, by phase, at each
+    width, and the clusters that can be resident at once."""
     lib = fa._lib()
     buf = (ctypes.c_ulonglong * 16)()
     lib.xt_wgw_prof.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.xt_wgw_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
-                                    ctypes.POINTER(ctypes.c_int)]
+    phases = ((PROF_PHASES, PROF_PHASES) if dtype == "bf16"
+              else F32_PHASES)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     res = {}
     for w, (q, k, v, do, lse, delta, sc, _) in cases.items():
         fa.flash_mha_bwd_dkv(q, k, v, do, lse, delta, sc)
@@ -290,21 +385,25 @@ def prof(torch, fa, cases) -> dict:
         torch.cuda.synchronize()
         lib.xt_wgw_prof(buf)
         cs = -(-(w // 128) // -(-(w // 128) // 8))
+        if not buf[7] or not buf[15]:
+            print(f"[prof] {dtype} width {w}: the pair does not run there",
+                  flush=True)
+            continue
+        resident = fa.bwd_clusters(dt, w)
         for j, name in enumerate(("dkv", "dq")):
-            n = ctypes.c_int(0)
-            lib.xt_wgw_clusters(j, cs, ctypes.byref(n))
             res[f"{name} {w}"] = {p: buf[8 * j + i] / buf[8 * j + 7]
-                                  for i, p in enumerate(PROF_PHASES)}
-            res[f"{name} {w}"]["clusters_resident"] = n.value
-            print(f"[prof] {name} width {w} (clusters of {cs}, at most "
-                  f"{n.value} resident): cycles a step " + ", ".join(
-                      f"{p} {buf[8 * j + i] / buf[8 * j + 7]:.0f}"
-                      for i, p in enumerate(PROF_PHASES)), flush=True)
+                                  for i, p in enumerate(phases[j])}
+            res[f"{name} {w}"]["clusters_resident"] = resident[j]
+            print(f"[prof] {name} {dtype} width {w} (clusters of {cs}, at "
+                  f"most {resident[j]} resident): cycles a step " +
+                  ", ".join(f"{p} {buf[8 * j + i] / buf[8 * j + 7]:.0f}"
+                            for i, p in enumerate(phases[j])), flush=True)
     return res
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--variants", nargs="+",
                     default=["base", "prof", "nogather", "nostore",
                              "nopart", "noprod"])
@@ -319,11 +418,13 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     (ROOT / "build").mkdir(exist_ok=True)
-    out = {"card": card, "ptxas": {}, "us": {}, "errors": {}}
+    out = {"card": card, "dtype": args.dtype, "ptxas": {}, "us": {},
+           "errors": {}}
+    dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     widths = [int(w) for w in args.widths.split(",")]
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         with ThreadPoolExecutor(len(args.variants)) as pool:
-            built = list(pool.map(lambda v: build(v, Path(tmp)),
+            built = list(pool.map(lambda v: build(v, Path(tmp), args.dtype),
                                   args.variants))
         libs = {v: so for v, so, _ in built}
         for v, _, lines in built:
@@ -336,7 +437,7 @@ def main() -> None:
             h = 512 // w if 512 % w == 0 else 1
             sc = w ** -0.5
             q, k, v, do = (torch.randn(b, t, h, w, generator=g,
-                                       device="cuda").bfloat16()
+                                       device="cuda").to(dt)
                            for t in (tq, tk, tk, tq))
             o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
             delta = fa._delta(o, do)
@@ -358,7 +459,8 @@ def main() -> None:
                 f"{w}: " + ", ".join(f"{e:.2e}" for e in es)
                 for w, es in errs.items()), flush=True)
             if "prof" in v_.split("+"):
-                out.setdefault("prof", {})[v_] = prof(torch, fa, cases)
+                out.setdefault("prof", {})[v_] = prof(torch, fa, cases,
+                                                      args.dtype)
         got = {v_: {} for v_ in args.variants}
         turns = args.variants + args.variants[::-1]
         for v_ in turns * args.rounds:

@@ -28,10 +28,12 @@ for draw, and one generator a row draws at one row what the single
 generator draws. K2's backward kernels and f32 forward against the f32
 twins (tolerances at K2_BWD_TOL), deterministic, on strided head-split
 views, where the ring wraps with ragged edges and on planted rows of
-large lse; the bf16 backward kernels spill nothing; K2 on the UNet's
-training step against flash=False; P9 (the default f32 TextToSpeech at
-bucket 320); K2's wide kernels at head widths 256 and 384 and a
-512-channel UNet with 256-wide heads rendering through them; a compacting
+large lse; the bf16 backward kernels and the f32 wide pair spill
+nothing; the f32 pair's dq on a second stream equals the kernels in
+turn; K2 on the UNet's training step against flash=False; P9 (the
+default f32 TextToSpeech at bucket 320); K2's wide kernels at head widths
+256 and 384 and a 512-channel UNet with 256-wide heads rendering through
+them; a compacting
 wave (infer/compact.py) against the monolithic chain's greedy codes; the
 legacy DiffusionTts on the card against the CPU. The training path: K3 at the trainers' row counts, one
 vqvae Trainer step on the card against the CPU (loss 1e-4 relative,
@@ -562,21 +564,25 @@ def test_flash_mha_backward_rescales_across_tiles(cuda, rising, dtype):
 
 def test_flash_mha_backward_kernels_do_not_spill(cuda):
     """The bf16 backward kernels hold their four (dkv) or three (dq)
-    accumulators and A operands in registers: no local memory."""
+    accumulators and A operands in registers: no local memory; nor does
+    the f32 wide pair (its accumulators and partial, keys 128 and
+    WIDE)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.bwd_kernel_attrs()
     for name in ("flash_mha_bwd_dkv", "flash_mha_bwd_dq"):
-        regs, local = attrs[(name, "bf16", 64)]
-        assert 0 < regs <= 255 and local == 0, (name, regs, local)
+        for key in (("bf16", 64), ("f32", 128), ("f32", fa.WIDE)):
+            regs, local = attrs[(name, *key)]
+            assert 0 < regs <= 255 and local == 0, (name, key, regs, local)
 
 
 def test_flash_kernel_attrs_cover_every_kernel(cuda):
     """kernel_attrs reads registers and local memory of all 24 keys
     (forward, dkv, dq; bf16 and f32; widths 32, 64, 128 and the wide
-    kernels, keyed WIDE; the bf16 backward's 128 and WIDE keys the wgmma
-    wide pair); the backward's are bwd_kernel_attrs'. No bf16 kernel
-    spills, and no f32 kernel below width 128 (chip_smoke prints the f32
-    width-128 and wide kernels' local memory)."""
+    kernels, keyed WIDE; the backward's 128 and WIDE keys the wide pairs,
+    bf16's wgmma pair and the f32 pair); the backward's are
+    bwd_kernel_attrs'. No bf16 kernel spills, no f32 kernel below width
+    128 and no f32 backward kernel (chip_smoke prints the f32 width-128
+    and wide forwards' local memory)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.kernel_attrs()
     assert len(attrs) == 24
@@ -584,7 +590,9 @@ def test_flash_kernel_attrs_cover_every_kernel(cuda):
     assert all(0 < regs <= 255 and local >= 0
                for regs, local in attrs.values())
     assert {key: a for key, a in attrs.items()
-            if (key[2] < 128 or key[1] == "bf16") and a[1]} == {}
+            if (key[2] < 128 or key[1] == "bf16"
+                or key[0] != "flash_mha")
+            and a[1]} == {}
     assert fa.bwd_kernel_attrs() == {key: a for key, a in attrs.items()
                                      if key[0] != "flash_mha"}
 
@@ -660,20 +668,97 @@ def _k2_width_case(cuda, dtype, width, b, tq, tk, h):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_mha_head_width_past_a_cluster(cuda, dtype):
-    """Width 1152 (nine 128-column chunks): bf16's wgmma pair runs
-    clusters of five blocks, four of them owning two chunks each (their
-    accumulators in the f32 scratch); f32 the wide kernels."""
+    """Width 1152 (nine 128-column chunks): the wide pairs (bf16 wgmma,
+    f32 mma.sync) run clusters of five blocks, four of them owning two
+    chunks each (their accumulators in the f32 scratch)."""
     _k2_width_case(cuda, dtype, 1152, 1, 193, 321, 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("width", [128, 256, 1152])
 @pytest.mark.parametrize("tk", [1, 33])
-def test_flash_mha_wide_pair_one_key_tile(cuda, width, tk):
-    """bf16's wgmma pair where every key lies in one tile (Tk <= 64: D
-    from the tile, the one-key rule): one key, where dq and dk are 0 in
-    exact arithmetic, and a ragged 33, at one chunk, a cluster of two and
-    past a cluster."""
-    _k2_width_case(cuda, torch.bfloat16, width, 1, 70, tk, 2)
+def test_flash_mha_wide_pair_one_key_tile(cuda, dtype, width, tk):
+    """The wide pairs where every key lies in one tile (Tk <= 64: D from
+    the tile, the one-key rule): one key, where dq and dk are 0 in exact
+    arithmetic, and a ragged 33, at one chunk, a cluster of two and past
+    a cluster."""
+    _k2_width_case(cuda, dtype, width, 1, 70, tk, 2)
+
+
+def test_flash_mha_f32_wide_pair_reads_strided_views(cuda):
+    """The f32 wide pair at width 256 on q, k and v as head-split views of
+    one fused (B, T, 3 x 512) projection (row stride 1536 floats) with
+    ragged Tq 193 and Tk 321 (q cut to 193 of 321 rows) and dO a
+    head-split view of a wider (B, Tq, 2 x 512) tensor: the fused leaf's
+    gradient, read back per head, against the f32 twin on contiguous
+    copies; no copy of dO, the same bits twice."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, t, tq, h, w = 1, 321, 193, 2, 256
+    qkv = torch.randn(b, t, 3 * h * w, generator=cuda,
+                      device="cuda").requires_grad_()
+    q, k, v = (x.unflatten(-1, (h, w)) for x in qkv.split(h * w, dim=-1))
+    q = q[:, :tq]
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * w
+    do = torch.randn(b, tq, 2 * h * w, generator=cuda,
+                     device="cuda")[..., :h * w].unflatten(-1, (h, w))
+    assert not do.is_contiguous()
+    for fn in fa.KERNELS:
+        fn.launches = 0
+    fa.flash_mha_bwd.copies = 0
+    fa.flash_mha(q, k, v, w ** -0.5).backward(do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fa.KERNELS] == [1, 1, 1]
+    assert fa.flash_mha_bwd.copies == 0
+    grads = qkv.grad.unflatten(-1, (3, h, w))
+    assert (grads[:, tq:, 0] == 0).all()
+    o, lse = fa._flash_fwd_cuda(q.detach(), k.detach(), v.detach(),
+                                w ** -0.5, True)
+    again = [fa.flash_mha_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                              do, w ** -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*again))
+    qf, kf, vf = (x.detach().contiguous() for x in (q, k, v))
+    o32, lse32 = fa.flash_mha_plain_lse(qf, kf, vf, w ** -0.5)
+    want = fa.flash_mha_bwd_plain(qf, kf, vf, o32, lse32, do.contiguous(),
+                                  w ** -0.5)
+    floor = 1e-3 * max(x.abs().max().item() for x in want)
+    got = (grads[:, :tq, 0], grads[:, :, 1], grads[:, :, 2])
+    for x, y, name in zip(got, want, "qkv"):
+        assert torch.isfinite(x).all(), name
+        err = _k2_rel(x, y, floor)
+        assert err <= K2_BWD_TOL[torch.float32], (name, err)
+
+
+@pytest.mark.parametrize("dh", [100, 256, 1152])
+def test_flash_mha_f32_pair_runs_dq_beside_dkv(cuda, dh):
+    """flash_mha_bwd_pair runs the f32 wide pair's dq on a second stream
+    beside dkv: its (dq, dk, dv) equal flash_mha_bwd_dkv and
+    flash_mha_bwd_dq called in turn on one stream, bit for bit, eagerly
+    and replayed from a captured CUDA graph; at a width zero-padded to
+    128 (the padded operands are read on the second stream), a cluster
+    of two and past a cluster (dq's scratch)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    sc = dh ** -0.5
+    q, k, v, do = (torch.randn(1, t, 2, dh, generator=cuda, device="cuda")
+                   for t in (193, 321, 321, 193))
+    o, lse = fa._flash_fwd_cuda(q, k, v, sc, True)
+    delta = fa._delta(o, do)
+    dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, delta, sc)
+    want = (fa.flash_mha_bwd_dq(q, k, v, do, lse, delta, sc), dk, dv)
+    got = fa.flash_mha_bwd_pair(q, k, v, do, lse, delta, sc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capture
+        fa.flash_mha_bwd_pair(q, k, v, do, lse, delta, sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = fa.flash_mha_bwd_pair(q, k, v, do, lse, delta, sc)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(cap, want))
 
 
 @pytest.mark.parametrize("tk", [63, 64, 65, 191, 192, 193])

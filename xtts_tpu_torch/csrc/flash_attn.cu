@@ -23,13 +23,18 @@
 //   swizzle holds exactly 64 bf16 a row; a 128-column chunk is two such
 //   atoms side by side, one descriptor each, so the width-64 kernels'
 //   tiles, swizzle and descriptors serve it unchanged.
-// - The tile family on mma.sync (flash_*_tc_kernel<T, D>): every f32
-//   kernel at D = 32, 64, 128, the bf16 forward at D = 32 and 128 and the
-//   bf16 backward at D = 32. It takes any D that is a multiple of its mma
-//   depth, and keeps the flagship kernels' source and times as they are.
-// - The wide kernels (flash_*_wide_kernel<T>, after the tile family): the
-//   bf16 and f32 forward and the f32 backward above D = 128, a block a
-//   128-column chunk of the output that forms the score tiles again.
+// - The f32 backward at D = 128 NC for every NC >= 1:
+//   flash_bwd_dkv_f32_wide and flash_bwd_dq_f32_wide, the same clusters
+//   and exchange on the tile family's 3xTF32 mma.sync, two warpgroups a
+//   block, P and dS shared as f32 (after the wgmma pair).
+// - The tile family on mma.sync (flash_*_tc_kernel<T, D>): the f32 forward
+//   at D = 32, 64, 128 and backward at 32, 64, the bf16 forward at D = 32
+//   and 128 and the bf16 backward at D = 32. It takes any D that is a
+//   multiple of its mma depth, and keeps the flagship kernels' source and
+//   times as they are.
+// - The wide forward (flash_fwd_wide_kernel<T>, after the tile family),
+//   bf16 and f32 above D = 128, a block a 128-column chunk of the output
+//   that forms the score tiles again.
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
 // 64 = 8.2 GFLOP a call at the shape above (8.3 us at 989 TFLOP/s),
@@ -714,8 +719,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The tile family (mma.sync): every f32 kernel, and the bf16 kernels at head
-// widths 32 and 128. Generic in the element type T and the head width D. A
+// The tile family (mma.sync): the f32 kernels up to width 128 but the
+// backward at 128, the bf16 forward at 32 and 128 and backward at 32 (the
+// wide pairs' fragment code is this family's too). Generic in the element type T and the head width D. A
 // tile is 64 rows x D elements of T in shared memory, rows TC<T, D>::LD
 // elements apart. A warp owns 16 accumulator rows as m16n8 blocks: block
 // j's c[j][0], c[j][1] are (row g, columns 8j + 2t, + 1) and c[j][2],
@@ -974,13 +980,13 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// a thread's accumulator rows (row0 + 16 warp + g, + 8) of a (rows, D)
-// view, rows at or past nrows left out
+// a thread's accumulator rows (row0 + 16 warp + g, + 8; warp the warp in
+// its warpgroup) of a (rows, D) view, rows at or past nrows left out
 template <typename T, int D>
 __device__ __forceinline__ void store_tile_rows(T* dst, long long stride,
                                                 int row0, int nrows,
                                                 const float (&v)[D / 8][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int r0 = row0 + 16 * warp + (lane >> 2), cq = (lane & 3) * 2;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1475,37 +1481,26 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The wide kernels: head widths D = 128 NC with NC >= 2, every multiple of
-// 128 above 128, as JAX's library kernel takes them: the forward in bf16 and
-// f32 and the f32 backward (the bf16 backward is the wgmma pair's, below). A
-// <T, D> instance of the tile family does not fit there: at f32 D = 256 the
-// forward's five tiles would be 333 KB and dkv's six 400 KB, against 227 KB
-// a block, and at D = 128 f32 already spills. A block of the tile kernels'
-// grid owns one 128-column chunk c of its output instead (the grid's y axis
-// runs over (head, chunk)); it forms each score tile S (and in the backward
-// dP) as the sum of the NC chunks' width-128 products, and then takes its
-// own chunk's product through the width-128 tile code: O_c += P V_c; dV_c +=
-// P^T dO_c and dK_c += dS^T Q_c; dQ_c += dS K_c. The price: every chunk
-// forms S (and dP) again, so the work is (NC + 1) / 2 times the forward's
-// two products, (2 NC + 2) / 4 times dkv's four and (2 NC + 1) / 3 times
-// dq's three. The chunks' S are formed by the same operations, so the lse
-// they give is the same; chunk 0 stores it. Grids, the lse and D contract,
-// zero-filled ragged edges, the one-key rule and no atomics as the tile
+// The wide forward: head widths D = 128 NC with NC >= 2, every multiple of
+// 128 above 128, as JAX's library kernel takes them, in bf16 and f32 (the
+// backward at those widths is the wgmma pair's in bf16 and the f32 pair's,
+// below). A <T, D> instance of the tile family does not fit there: at f32
+// D = 256 its five tiles would be 333 KB, against 227 KB a block. A block
+// of the tile kernels' grid owns one 128-column chunk c of its output
+// instead (the grid's y axis runs over (head, chunk)); it forms each score
+// tile S as the sum of the NC chunks' width-128 products, and then takes
+// its own chunk's product through the width-128 tile code: O_c += P V_c.
+// The price: every chunk forms S again, so the work is (NC + 1) / 2 times
+// the forward's two products. The chunks' S are formed by the same
+// operations, so the lse they give is the same; chunk 0 stores it. Grid,
+// the lse contract, zero-filled ragged edges and no atomics as the tile
 // family.
 //
 // The streamed tiles run through a two-stage ring of two width-128 tiles a
 // stage (f32 135 KB, bf16 70 KB), a step a pair of tiles, one
 // __syncthreads a step, step n + 1's copy in flight during step n's
-// products. The steps of one key tile (forward, dq) or query tile (dkv):
-// - forward: NC steps (Q_i, K_i) for S; then (V_c): softmax, O += P V_c;
-// - dq: NC steps (Q_i, K_i) for S; NC steps (dO_i, V_i) for dP; then
-//   (K_c): P, dS, dQ += dS K_c;
-// - dkv: NC steps (K_i, Q_i) for S^T; NC steps (V_i, dO_i) for dP^T, P^T
-//   formed before the first; then (dO_c, Q_c): dV += P^T dO_c, dS^T, dK +=
-//   dS^T Q_c. The query tile's lse and D come with its first step, in two
-//   buffers by the tile's parity (the next tile's land during this one's
-//   last step).
-// Q, dO, K and V rows are copied again a step, from L2.
+// products: for each key tile, NC steps (Q_i, K_i) for S, then (V_c):
+// softmax, O += P V_c. Q rows are copied again a step, from L2.
 
 constexpr int WCH = 128;  // a wide kernel's chunk of the head width
 
@@ -1595,154 +1590,6 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         ? nullptr
                         : lse + ((long long)b * H + h) * Tq,
                     o + b * sob + h * soh + c * WCH, sot, q0, Tq, scale_log2);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
-flash_bwd_dkv_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int Tq, int Tk, int NC, long long sqb, long long sqt, long long sqh,
-    long long skb, long long skt, long long skh, long long svb, long long svt,
-    long long svh, long long sdb, long long sdt, long long sdh,
-    long long skgb, long long skgt, long long skgh, long long svgb,
-    long long svgt, long long svgh, float scale_log2, float scale) {
-  using C = TC<T, WCH>;
-  constexpr int TE = 64 * C::LD;
-  extern __shared__ __align__(16) unsigned char smem_t[];
-  T* const ring = reinterpret_cast<T*>(smem_t);
-  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
-  float* const stats = reinterpret_cast<float*>(ring + 4 * TE);  // 2 x 128
-  float* const red = stats + 256;  // dkv_ds's 2 x 4 x 64
-
-  const int k0 = blockIdx.x * BK, b = blockIdx.z;
-  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
-  const int warp = threadIdx.x >> 5;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
-  const T* db = dout + b * sdb + h * sdh;
-  // threads 0-63 copy a tile's lse, 64-127 its D
-  const float* stat_src =
-      (threadIdx.x < 64 ? lse : delta) + ((long long)b * H + h) * Tq;
-  const int per = 2 * NC + 1, nsteps = (Tq + BQ - 1) / BQ * per;
-  auto load = [&](int n) {
-    const int t = n / per, i = n % per, s = n & 1, q0 = t * BQ;
-    if (i < NC) {
-      stage_tile<T, WCH>(slot(s, 0), kb + i * WCH, skt, k0, Tk);
-      stage_tile<T, WCH>(slot(s, 1), qb + i * WCH, sqt, q0, Tq);
-      if (i == 0) {
-        const int r = q0 + (threadIdx.x & 63);
-        cp_async4(smem_u32(stats + 128 * (t & 1) + threadIdx.x),
-                  stat_src + (r < Tq ? r : 0), r < Tq);
-      }
-    } else if (i < 2 * NC) {
-      stage_tile<T, WCH>(slot(s, 0), vb + (i - NC) * WCH, svt, k0, Tk);
-      stage_tile<T, WCH>(slot(s, 1), db + (i - NC) * WCH, sdt, q0, Tq);
-    } else {
-      stage_tile<T, WCH>(slot(s, 0), db + c * WCH, sdt, q0, Tq);
-      stage_tile<T, WCH>(slot(s, 1), qb + c * WCH, sqt, q0, Tq);
-    }
-  };
-  load(0);
-  cp_async_commit();
-
-  float acc_dk[WCH / 8][4], acc_dv[WCH / 8][4], sp[8][4], dp[8][4];
-  zero(acc_dk);
-  zero(acc_dv);
-  for (int n = 0; n < nsteps; ++n) {
-    const int st = n & 1, i = n % per, t = n / per;
-    cp_async_wait<0>();  // step n's tiles (and its tile's statistics)
-    __syncthreads();
-    if (n + 1 < nsteps) load(n + 1);
-    cp_async_commit();
-    const float* sL = stats + 128 * (t & 1);
-    const T* a = slot(st, 0) + 16 * warp * C::LD;  // this warp's rows
-    if (i < NC) {  // ---- S^T += K_i Q_i^T ----
-      mma_nt_chunk<T>(sp, a, slot(st, 1), i);
-    } else if (i < 2 * NC) {  // ---- P^T; dP^T += V_i dO_i^T ----
-      if (i == NC) dkv_p(sp, sL, t * BQ, Tq, scale_log2);
-      mma_nt_chunk<T>(dp, a, slot(st, 1), i - NC);
-    } else {  // ---- dV_c += P^T dO_c, dS^T, dK_c += dS^T Q_c ----
-      mma_pn<T, WCH>(acc_dv, sp, slot(st, 0));
-      dkv_ds(dp, sp, sL + 64, k0, Tk, red, scale);
-      mma_pn<T, WCH>(acc_dk, dp, slot(st, 1));
-    }
-  }
-  store_tile_rows<T, WCH>(dk + b * skgb + h * skgh + c * WCH, skgt, k0, Tk,
-                          acc_dk);
-  store_tile_rows<T, WCH>(dv + b * svgb + h * svgh + c * WCH, svgt, k0, Tk,
-                          acc_dv);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
-flash_bwd_dq_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk,
-    int NC, long long sqb, long long sqt, long long sqh, long long skb,
-    long long skt, long long skh, long long svb, long long svt,
-    long long svh, long long sdb, long long sdt, long long sdh,
-    long long sqgb, long long sqgt, long long sqgh, float scale_log2,
-    float scale) {
-  using C = TC<T, WCH>;
-  constexpr int TE = 64 * C::LD;
-  extern __shared__ __align__(16) unsigned char smem_t[];
-  T* const ring = reinterpret_cast<T*>(smem_t);
-  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
-
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
-  const T* db = dout + b * sdb + h * sdh;
-  const int per = 2 * NC + 1, nsteps = (Tk + BK - 1) / BK * per;
-  auto load = [&](int n) {
-    const int t = n / per, i = n % per, s = n & 1;
-    if (i < NC) {
-      stage_tile<T, WCH>(slot(s, 0), qb + i * WCH, sqt, q0, Tq);
-      stage_tile<T, WCH>(slot(s, 1), kb + i * WCH, skt, t * BK, Tk);
-    } else if (i < 2 * NC) {
-      stage_tile<T, WCH>(slot(s, 0), db + (i - NC) * WCH, sdt, q0, Tq);
-      stage_tile<T, WCH>(slot(s, 1), vb + (i - NC) * WCH, svt, t * BK, Tk);
-    } else {
-      stage_tile<T, WCH>(slot(s, 0), kb + c * WCH, skt, t * BK, Tk);
-    }
-  };
-  load(0);
-  cp_async_commit();
-  // rows r0 and r0 + 8: lse in log2 units and D (past Tq: +inf and 0)
-  const long long sr = ((long long)b * H + h) * Tq;
-  const int r0 = q0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
-  const float l0 = r0 < Tq ? lse[sr + r0] * LOG2E : INFINITY;
-  const float l1 = r1 < Tq ? lse[sr + r1] * LOG2E : INFINITY;
-  const float d0 = r0 < Tq ? delta[sr + r0] : 0.f;
-  const float d1 = r1 < Tq ? delta[sr + r1] : 0.f;
-
-  float acc[WCH / 8][4], sp[8][4], dp[8][4];
-  zero(acc);
-  for (int n = 0; n < nsteps; ++n) {
-    const int st = n & 1, i = n % per;
-    cp_async_wait<0>();  // step n's tiles landed
-    __syncthreads();
-    if (n + 1 < nsteps) load(n + 1);
-    cp_async_commit();
-    const T* a = slot(st, 0) + 16 * warp * C::LD;  // this warp's rows
-    if (i < NC) {  // ---- S += Q_i K_i^T ----
-      mma_nt_chunk<T>(sp, a, slot(st, 1), i);
-    } else if (i < 2 * NC) {  // ---- dP += dO_i V_i^T ----
-      mma_nt_chunk<T>(dp, a, slot(st, 1), i - NC);
-    } else {  // ---- P, dS, dQ_c += dS K_c ----
-      dq_ds(sp, dp, n / per * BK, Tk, l0, l1, d0, d1, scale_log2, scale);
-      mma_pn<T, WCH>(acc, dp, slot(st, 0));
-    }
-  }
-  store_tile_rows<T, WCH>(dq + b * sqgb + h * sqgh + c * WCH, sqgt, q0, Tq,
-                          acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -2118,6 +1965,44 @@ __device__ __forceinline__ void wgw_store(uint32_t tile, const WgwUnit& u,
   st_rank2(a + 8 * 128, rk, c, pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
+// shared address a in rank r's block (this block's plainly where r == c)
+__device__ __forceinline__ void st_rank4(uint32_t a, int r, int c, float x,
+                                         float y, float z, float w) {
+  if (r == c)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+                 "f"(x), "f"(y), "f"(z), "f"(w)
+                 : "memory");
+  else
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     mapa(a, r)),
+                 "f"(x), "f"(y), "f"(z), "f"(w)
+                 : "memory");
+}
+
+// The f32 pair's P / dS tiles: 64 x 64 f32, rows FW_LDP floats apart (72:
+// a quarter warp's float2 reads of the A operand, rows g and columns 2t,
+// land on 32 distinct banks, 8 g + 2 t)
+constexpr int FW_LDP = 72;
+
+// a unit's row pair of P or dS in f32 into rank rk's tile (row r's 4
+// columns from c0, then row r + 8's)
+__device__ __forceinline__ void fw_store(uint32_t tile, const WgwUnit& u,
+                                         int rk, int c, const float (&v)[8]) {
+  const uint32_t a = tile + (u.r * FW_LDP + u.c0) * 4;
+  st_rank4(a, rk, c, v[0], v[1], v[2], v[3]);
+  st_rank4(a + 8 * FW_LDP * 4, rk, c, v[4], v[5], v[6], v[7]);
+}
+
+template <bool F32>
+__device__ __forceinline__ void unit_store(uint32_t tile, const WgwUnit& u,
+                                           int rk, int c,
+                                           const float (&v)[8]) {
+  if constexpr (F32)
+    fw_store(tile, u, rk, c, v);
+  else
+    wgw_store(tile, u, rk, c, v);
+}
+
 // The units a thread takes in a step: this rank's share of the 512
 // (units lo + threadIdx.x + 256 i), or where every key lies in one tile
 // (Tk <= 64, the one-key rule, whose sums run over keys) all 512 in every
@@ -2125,10 +2010,12 @@ __device__ __forceinline__ void wgw_store(uint32_t tile, const WgwUnit& u,
 constexpr int WGW_UNITS = 2;
 
 // Step 2 of a dkv step (keys the rows, queries the columns): P^T and dS^T
-// of this thread's units into every rank's sP / sdS. sL: the query tile's
-// 64 lse (natural log), then its 64 D; q0 its first query. The one-key
-// rule's sums over keys run down a column: there a warp takes one 4-column
-// quad of all 32 row pairs.
+// of this thread's units into every rank's sP / sdS (bf16 swizzled, or
+// with F32 the f32 pair's tiles). sL: the query tile's 64 lse (natural
+// log), then its 64 D; q0 its first query. The one-key rule's sums over
+// keys run down a column: there a warp takes one 4-column quad of all 32
+// row pairs.
+template <bool F32 = false>
 __device__ __forceinline__ void dkv_exchange(
     uint32_t sS, uint32_t sdP, uint32_t sP, uint32_t sdS, const float* sL,
     int q0, int Tq, int Tk, int c, int CS, float scale_log2, float scale,
@@ -2177,21 +2064,22 @@ __device__ __forceinline__ void dkv_exchange(
         dS[e] = ds_one_tile(dP[e], P[e], L, E, scale);
         dS[e + 4] = ds_one_tile(dP[e + 4], P[e + 4], L, E, scale);
       }
-      wgw_store(sP, u, c, c, P);
-      wgw_store(sdS, u, c, c, dS);
+      unit_store<F32>(sP, u, c, c, P);
+      unit_store<F32>(sdS, u, c, c, dS);
       continue;
     }
     for (int rk = 0; rk < CS; ++rk) {
-      wgw_store(sP, u, rk, c, P);
-      wgw_store(sdS, u, rk, c, dS);
+      unit_store<F32>(sP, u, rk, c, P);
+      unit_store<F32>(sdS, u, rk, c, dS);
     }
   }
 }
 
 // Step 2 of a dq step (queries the rows, keys the columns from key0): dS
-// of this thread's units into every rank's sdS, P = 0 past Tk. sL: the
-// query tile's lse and D. The one-key rule's sums over keys run along a
-// row pair: 16 neighbouring lanes.
+// of this thread's units into every rank's sdS (as dkv_exchange's), P = 0
+// past Tk. sL: the query tile's lse and D. The one-key rule's sums over
+// keys run along a row pair: 16 neighbouring lanes.
+template <bool F32 = false>
 __device__ __forceinline__ void dq_exchange(
     uint32_t sS, uint32_t sdP, uint32_t sdS, const float* sL, int q0,
     int key0, int Tq, int Tk, int c, int CS, float scale_log2, float scale,
@@ -2240,10 +2128,10 @@ __device__ __forceinline__ void dq_exchange(
         for (int e = e0; e < e0 + 4; ++e)
           dS[e] = ds_one_tile(dP[e], P[e], L, E, scale);
       }
-      wgw_store(sdS, u, c, c, dS);
+      unit_store<F32>(sdS, u, c, c, dS);
       continue;
     }
-    for (int rk = 0; rk < CS; ++rk) wgw_store(sdS, u, rk, c, dS);
+    for (int rk = 0; rk < CS; ++rk) unit_store<F32>(sdS, u, rk, c, dS);
   }
 }
 
@@ -2671,6 +2559,507 @@ flash_bwd_dq_wgmma_wide(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The f32 wide backward: flash_bwd_dkv_f32_wide and flash_bwd_dq_f32_wide,
+// f32 at every head width D = 128 NC (NC >= 1, width 128 too; routing:
+// fw_width), under the backward's contract above. Above 128 they replace
+// a block a 128-column chunk that formed S and dP again over the whole
+// width ((2 NC + 2) / 4 of dkv's work and (2 NC + 1) / 3 of dq's) and
+// spilled; at 128 the tile pair <float, 128>, which spilled 312 / 80
+// bytes, in half its time (PERF.md, the same A/B run).
+//
+// The wgmma pair's cluster and exchange, on the tile family's 3xTF32
+// mma.sync: a cluster of CS blocks (cudaLaunchKernelEx, cluster dimension
+// CS along y) shares one (key tile, head, batch row) in dkv or one (query
+// tile, ...) in dq; rank c owns the 128-column chunks c, c + CS, ... (one
+// chunk up to NC = 8, PER = ceil(NC / 8) above, CS = ceil(NC / PER): wgw_cs
+// and wgw_per). A block is two warpgroups (256 threads, one block an SM:
+// 8 warps on the products), each warp 16 accumulator rows. A step (a
+// query tile in dkv, a key tile in dq):
+// 1. partial products on the block's own chunk only (64 x 64 f32 over its
+//    128 columns, 16 k-steps of m16n8k8): in dkv warpgroup 0 forms S^T_c =
+//    K_c Q_c^T and 1 dP^T_c = V_c dO_c^T, in dq 0 S_c = Q_c K_c^T and 1
+//    dP_c = dO_c V_c^T; published into shared memory (16 KB each);
+// 2. the exchange (dkv_exchange / dq_exchange, the wgmma pair's): each of
+//    the tile's 512 units of 2 rows x 4 columns is summed once in the
+//    cluster, over the ranks' partials in rank order through distributed
+//    shared memory, P and dS formed from it once and stored as f32 into
+//    every rank's P / dS tiles (at Tk <= 64, the one-key rule, every rank
+//    forms all units, storing into its own). Each element of S and dP is
+//    thus formed once per (query tile, key tile, head), and every rank
+//    splits the same f32 bits into tf32 parts;
+// 3. the output products, A the P / dS tile from shared memory (its
+//    columns 2t, 2t + 1 of each 8 read as one float2 and taken as k = t,
+//    t + 4, b_nn's order), B the streamed tile, partials of four k-steps
+//    joined by IEEE adds (mma_pn's rule): in dkv warpgroup 0 dK_c += dS^T
+//    Q_c and 1 dV_c += P^T dO_c (64 x 128 each, 64 registers a thread); in
+//    dq each warpgroup 64 of dQ_c += dS K_c's 128 columns (32).
+// The waits of steps 2 and 3 are the wgmma pair's mbarriers (no proxy
+// fence: mma.sync reads shared memory through the generic proxy); one
+// buffer each for the partials and the P / dS tiles suffices, as the
+// steps do not overlap: a block publishes the next partials only after
+// every rank has stored its units (so read the partials), and the ranks
+// store the next P / dS only after every rank has published the next
+// partials (so ended its output products).
+//
+// Shared memory (f32 tiles of 64 x 128, rows TC<float, 128>::LD = 132
+// floats apart: 33 KB each; P / dS 18 KB each; partials 16 KB each):
+// - dkv: K_c, V_c fixed; one Q_c and one dO_c tile; P^T, dS^T; the two
+//   partials; two query tiles' lse and D; 201 KB. A second stage of the
+//   streamed pair (66 KB more) does not fit, so each warpgroup owns one
+//   streamed tile (0 Q_c, 1 dO_c: the two products that read it) and
+//   refills it by column halves: after its output product's first 64
+//   columns the next tile's first half is copied, after the second the
+//   second half, and the next partial's first 8 k-steps run while that
+//   second half lands (named barriers a warpgroup, no block barrier);
+// - dq: Q_c, dO_c fixed; K_c in two stages (read by the partial and the
+//   output product), V_c in one (read by the partial only: refilled during
+//   the exchange); dS; the partials; the tile's lse and D; 215.5 KB.
+// The tf32 split of the streamed tiles into shared memory once (goal of a
+// split per value instead of one per warp) would double them: 66 KB more
+// in dkv and 99 KB in dq, which neither has, so each warp splits its B
+// fragments as the tile family does.
+// Registers: dkv holds 64 accumulators and the 32 of a partial a thread,
+// dq 32 and 32; __launch_bounds__(256, 1) leaves 255 a thread, and ptxas
+// gives dkv 245 and dq 237 without a spill. With PER > 1 (D > 1024) a
+// step copies each owned chunk's tiles in turn into the same buffers,
+// without the halves, the partial summed over them in zeroed partials
+// joined by IEEE adds (mma_nt_chunk), and each chunk's accumulators live
+// between steps in the caller's f32 scratch (xt_flash_attn_bwd_scratch,
+// the wgmma pair's slots): no atomics.
+// Grids: dkv (ceil(Tk / 64), H CS, B), dq (ceil(Tq / 64), H CS, B)
+// blocks, one an SM; xt_flash_attn_bwd_clusters gives the clusters
+// resident at once (on an H100 66 of 2, 39 of 3). At the main bucket's 2
+// heads of 256 that is 200 and 160 blocks, two waves each, so the wrapper
+// launches dq on a second stream beside dkv (nn/flash_attn.py
+// flash_mha_bwd_pair): together 360 blocks, three waves.
+// What bounds it (PERF.md): the 3xTF32 mma.sync products, ~75% of a step
+// (about 10 cycles an m16n8k8 a sub-partition), then the exchange and its
+// two waits.
+
+constexpr int FW_LD = TC<float, WCH>::LD;  // a 64 x 128 tile's row
+constexpr int FW_TILE = 64 * FW_LD;         // floats of a 64 x 128 tile
+constexpr int FW_PTILE = 64 * FW_LDP;       // floats of a P / dS tile
+constexpr int FW_DKV_SMEM =
+    (4 * FW_TILE + 2 * FW_PTILE) * 4 + 2 * STAT_BYTES + 2 * WGW_PART + 16;
+constexpr int FW_DQ_SMEM =
+    (5 * FW_TILE + FW_PTILE) * 4 + STAT_BYTES + 2 * WGW_PART + 16;
+static_assert(FW_DKV_SMEM <= 232448 && FW_DQ_SMEM <= 232448,
+              "227 KB of shared memory a block");
+
+// rows row0.. of a 64 x 128 f32 chunk (row stride `stride` floats) into a
+// tile, the 16-byte pieces p0 .. p0 + P - 1 of each row (32 a row), by NT
+// threads from `tid`; rows at or past nrows zero-filled
+template <int NT, int P>
+__device__ __forceinline__ void fw_stage(float* dst, const float* src,
+                                         long long stride, int row0,
+                                         int nrows, int p0, int tid) {
+  static_assert(64 * P % NT == 0, "whole pieces a thread");
+  const uint32_t base = smem_u32(dst);
+#pragma unroll
+  for (int i = 0; i < 64 * P / NT; ++i) {
+    const int id = tid + i * NT, r = id / P, c = p0 + id % P;
+    const bool valid = row0 + r < nrows;
+    const float* g = valid ? src + (long long)(row0 + r) * stride + 4 * c
+                           : src;
+    cp_async16(base + (r * FW_LD + 4 * c) * 4, g, valid);
+  }
+}
+
+// acc += A B^T over the k-steps K0 .. K1 - 1 of a 128-column chunk: A the
+// warp's 16 rows `rows` of a tile, B(k, n) = b_tile[8 j + n][k] (mma_nt's
+// products, in two halves where the second's columns are still landing)
+template <int K0, int K1>
+__device__ __forceinline__ void fw_partial(float (&acc)[8][4],
+                                           const float* rows,
+                                           const float* b_tile) {
+  using C = TC<float, WCH>;
+#pragma unroll 2
+  for (int kk = K0; kk < K1; ++kk) {
+    const C::A a = C::a_tile(rows, kk * C::KS);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      C::mma(acc[j], a, C::b_nt(b_tile, 8 * j, kk * C::KS));
+  }
+}
+
+// acc[j] += A B over the 64 columns of A: A the warp's 16 rows `rows` of a
+// P / dS tile, B(k, n) = b_tile[k][n0 + 8 j + n]; A's columns 2t, 2t + 1
+// of each 8 are k = t, t + 4 (a_acc's and b_nn's order), one float2 a row;
+// partials of PARTIAL k-steps joined by IEEE adds, as mma_pn. Each k-step
+// feeds the N blocks' partials t[j] in turn, so a warp has N independent
+// accumulator chains in flight (mma_pn's order, a chain of 3 PARTIAL
+// products on one partial, took dkv's product 1.35 times the partial's
+// cycles for the same products; scripts/bench_flash_wgw.py prof). The
+// two partials in turn, not unrolled: unrolled, ptxas hoisted the
+// second's operands and spilled at 255 registers.
+template <int N>
+__device__ __forceinline__ void fw_product(float (&acc)[N][4],
+                                           const float* rows,
+                                           const float* b_tile, int n0) {
+  using C = TC<float, WCH>;
+  const int lane = threadIdx.x & 31;
+  const float* p = rows + (lane >> 2) * FW_LDP + 2 * (lane & 3);
+#pragma unroll 1
+  for (int k0 = 0; k0 < 64 / C::KS; k0 += C::PARTIAL) {
+    float t[N][4];
+    zero(t);
+#pragma unroll
+    for (int g = 0; g < C::PARTIAL; ++g) {
+      const int kk = k0 + g;
+      const float2 r0 = *reinterpret_cast<const float2*>(p + C::KS * kk);
+      const float2 r1 =
+          *reinterpret_cast<const float2*>(p + 8 * FW_LDP + C::KS * kk);
+      const uint32_t r[4] = {__float_as_uint(r0.x), __float_as_uint(r1.x),
+                             __float_as_uint(r0.y), __float_as_uint(r1.y)};
+      const C::A a = C::a_split(r);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        C::mma(t[j], a, C::b_nn(b_tile, kk * C::KS, n0 + 8 * j));
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += t[j][i];
+  }
+}
+
+__device__ __forceinline__ void fw_publish(unsigned char* buf,
+                                           const float (&p)[8][4]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float4*>(buf + part_slot(8 * (t >> 2) + j, t & 3)) =
+        make_float4(p[j][0], p[j][1], p[j][2], p[j][3]);
+}
+
+// every rank's P / dS stored into this block's tiles (the f32 pair's
+// wgw_tiles_ready, without the async proxy)
+__device__ __forceinline__ void fw_tiles_ready(uint32_t bars, int CS,
+                                               int t) {
+  if (CS > 1) {
+    mbar_signal(bars + 8, CS);
+    mbar_wait(bars + 8, t & 1);
+  } else {
+    __syncthreads();
+  }
+}
+
+// the 128 threads of warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// a thread's accumulators in / out of its block's scratch slot part
+// (slot_load's layout)
+__device__ __forceinline__ void fw_slot_load(float (&v)[8][4],
+                                             const float* s) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 a =
+        reinterpret_cast<const float4*>(s)[i * WGW_THREADS + threadIdx.x];
+    v[i][0] = a.x; v[i][1] = a.y; v[i][2] = a.z; v[i][3] = a.w;
+  }
+}
+__device__ __forceinline__ void fw_slot_store(float* s,
+                                              const float (&v)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    reinterpret_cast<float4*>(s)[i * WGW_THREADS + threadIdx.x] =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+}
+
+// dK and dV of one 64-key tile's chunks in f32 (keys the accumulator
+// rows).
+__global__ void __launch_bounds__(WGW_THREADS, 1)
+flash_bwd_dkv_f32_wide(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ scratch, int Tq, int Tk, int NC, long long sqb,
+    long long sqt, long long sqh, long long skb, long long skt,
+    long long skh, long long svb, long long svt, long long svh,
+    long long sdb, long long sdt, long long sdh, long long skgb,
+    long long skgt, long long skgh, long long svgb, long long svgt,
+    long long svgh, float scale_log2, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  float* const sK = reinterpret_cast<float*>(smem_t);
+  float* const sV = sK + FW_TILE;
+  float* const sQ = sK + 2 * FW_TILE;
+  float* const sdO = sK + 3 * FW_TILE;
+  float* const sP = sK + 4 * FW_TILE;  // P^T, then dS^T
+  float* const sdS = sP + FW_PTILE;
+  float* const stats = sdS + FW_PTILE;  // lse, D of tiles t & 1 = 0, 1
+  unsigned char* const parts = reinterpret_cast<unsigned char*>(stats + 256);
+  const uint32_t sPS = smem_u32(parts), sPdP = sPS + WGW_PART;
+  const uint32_t bars = sPdP + WGW_PART;
+
+  const int CS = wgw_cs(NC), PER = wgw_per(NC);
+  const int c = (int)cluster_rank(), hd = blockIdx.y / CS, b = blockIdx.z;
+  const int H = gridDim.y / CS, k0 = blockIdx.x * BK;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int tid = threadIdx.x & 127;  // the thread in its warpgroup
+  const float* qb = q + b * sqb + hd * sqh;
+  const float* db = dout + b * sdb + hd * sdh;
+  const float* kb = k + b * skb + hd * skh;
+  const float* vb = v + b * svb + hd * svh;
+  // threads 0-63 copy a query tile's lse, 64-127 its D
+  const float* stat_src =
+      (threadIdx.x < 64 ? lse : delta) + ((long long)b * H + hd) * Tq;
+  auto load_stats = [&](int t) {
+    const int r = t * BQ + (threadIdx.x & 63);
+    cp_async4(smem_u32(stats + 128 * (t & 1) + threadIdx.x),
+              stat_src + (r < Tq ? r : 0), r < Tq);
+  };
+  const int nt = (Tq + BQ - 1) / BQ;
+  // warpgroup 0: S^T = K Q^T, then dK += dS^T Q; 1: dP^T = V dO^T, then
+  // dV += P^T dO. The warp's rows of its fixed tile, its streamed tile
+  // (and the view that fills it), the warp's rows of its A tile
+  const float* const own = (wg ? sV : sK) + 16 * w * FW_LD;
+  float* const tile = wg ? sdO : sQ;
+  const float* const src = wg ? db : qb;
+  const long long src_t = wg ? sdt : sqt;
+  const float* const arows = (wg ? sP : sdS) + 16 * w * FW_LDP;
+  unsigned char* const mine = parts + wg * WGW_PART;
+  float* const out = wg ? dv + b * svgb + hd * svgh : dk + b * skgb + hd * skgh;
+  const long long out_t = wg ? svgt : skgt;
+  float part[8][4], lo[8][4], hi[8][4];  // a partial; columns 0-63, 64-127
+  auto exchange = [&](int t) {
+    fw_publish(mine, part);
+    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    dkv_exchange<true>(sPS, sPdP, smem_u32(sP), smem_u32(sdS),
+                       stats + 128 * (t & 1), t * BQ, Tq, Tk, c, CS,
+                       scale_log2, scale, after);
+    fw_tiles_ready(bars, CS, t);
+  };
+  wgw_init(bars, CS);
+  zero(lo);
+  zero(hi);
+
+  if (PER == 1) {
+    // Step t: (partial of t formed) exchange of t; the output product on
+    // the streamed tile's columns 0-63, then the first half of tile t + 1
+    // copied into them; columns 64-127, then the second half; the partial
+    // of t + 1 on the first half while the second lands.
+    const int col = c * WCH;
+    fw_stage<WGW_THREADS, 32>(sK, kb + col, skt, k0, Tk, 0, threadIdx.x);
+    fw_stage<WGW_THREADS, 32>(sV, vb + col, svt, k0, Tk, 0, threadIdx.x);
+    fw_stage<128, 32>(tile, src + col, src_t, 0, Tq, 0, tid);
+    if (wg == 0) load_stats(0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    zero(part);
+    fw_partial<0, 16>(part, own, tile);
+    for (int t = 0; t < nt; ++t) {
+      const bool next = t + 1 < nt;
+      exchange(t);
+      fw_product(lo, arows, tile, 0);
+      wg_sync(wg);  // the warpgroup's reads of columns 0-63 ended
+      if (next) {
+        fw_stage<128, 16>(tile, src + col, src_t, (t + 1) * BQ, Tq, 0, tid);
+        if (wg == 0) load_stats(t + 1);
+      }
+      cp_async_commit();
+      fw_product(hi, arows, tile, 64);
+      wg_sync(wg);
+      if (next)
+        fw_stage<128, 16>(tile, src + col, src_t, (t + 1) * BQ, Tq, 16, tid);
+      cp_async_commit();
+      if (!next) break;
+      cp_async_wait<1>();  // the first half of tile t + 1
+      wg_sync(wg);
+      zero(part);
+      fw_partial<0, 8>(part, own, tile);
+      cp_async_wait<0>();  // the second
+      wg_sync(wg);
+      fw_partial<8, 16>(part, own, tile);
+    }
+    store_tile_rows<float, 64>(out + col, out_t, k0, Tk, lo);
+    store_tile_rows<float, 64>(out + col + 64, out_t, k0, Tk, hi);
+    return;
+  }
+
+  // PER > 1: chunks c + CS i, i < n, each step copying their tiles in turn
+  const int n = (NC - c + CS - 1) / CS;
+  float* const slots =
+      scratch + ((((long long)b * H + hd) * gridDim.x + blockIdx.x) * CS +
+                 c) * PER * WGW_DKV_SLOT;
+  for (int t = 0; t < nt; ++t) {
+    const int q0 = t * BQ;
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();  // the last readers of these buffers are done
+      fw_stage<WGW_THREADS, 32>(sK, kb + col, skt, k0, Tk, 0, threadIdx.x);
+      fw_stage<WGW_THREADS, 32>(sV, vb + col, svt, k0, Tk, 0, threadIdx.x);
+      fw_stage<128, 32>(tile, src + col, src_t, q0, Tq, 0, tid);
+      if (i == 0 && wg == 0) load_stats(t);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_nt_chunk<float>(part, own, tile, i);
+    }
+    exchange(t);
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();
+      fw_stage<128, 32>(tile, src + col, src_t, q0, Tq, 0, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float* slot = slots + i * WGW_DKV_SLOT;
+      if (t > 0) {
+        fw_slot_load(lo, slot);
+        fw_slot_load(hi, slot + WGW_DKV_SLOT / 2);
+      } else {
+        zero(lo);
+        zero(hi);
+      }
+      fw_product(lo, arows, tile, 0);
+      fw_product(hi, arows, tile, 64);
+      if (t + 1 < nt) {
+        fw_slot_store(slot, lo);
+        fw_slot_store(slot + WGW_DKV_SLOT / 2, hi);
+      } else {
+        store_tile_rows<float, 64>(out + col, out_t, k0, Tk, lo);
+        store_tile_rows<float, 64>(out + col + 64, out_t, k0, Tk, hi);
+      }
+    }
+  }
+}
+
+// dQ of one 64-query tile's chunks (queries the accumulator rows): Q_c and
+// dO_c fixed, K_c and V_c streamed over the key tiles.
+__global__ void __launch_bounds__(WGW_THREADS, 1)
+flash_bwd_dq_f32_wide(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, float* __restrict__ scratch, int Tq, int Tk,
+    int NC, long long sqb, long long sqt, long long sqh, long long skb,
+    long long skt, long long skh, long long svb, long long svt,
+    long long svh, long long sdb, long long sdt, long long sdh,
+    long long sqgb, long long sqgt, long long sqgh, float scale_log2,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  float* const sQ = reinterpret_cast<float*>(smem_t);
+  float* const sdO = sQ + FW_TILE;
+  auto sK = [&](int s) { return sQ + (2 + s) * FW_TILE; };
+  float* const sV = sQ + 4 * FW_TILE;
+  float* const sdS = sQ + 5 * FW_TILE;
+  float* const sL = sdS + FW_PTILE;  // the query tile's lse, then its D
+  unsigned char* const parts = reinterpret_cast<unsigned char*>(sL + 128);
+  const uint32_t sPS = smem_u32(parts), sPdP = sPS + WGW_PART;
+  const uint32_t bars = sPdP + WGW_PART;
+
+  const int CS = wgw_cs(NC), PER = wgw_per(NC);
+  const int c = (int)cluster_rank(), hd = blockIdx.y / CS, b = blockIdx.z;
+  const int H = gridDim.y / CS, q0 = blockIdx.x * BQ;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const float* qb = q + b * sqb + hd * sqh;
+  const float* db = dout + b * sdb + hd * sdh;
+  const float* kb = k + b * skb + hd * skh;
+  const float* vb = v + b * svb + hd * svh;
+  const int nt = (Tk + BK - 1) / BK;
+  if (threadIdx.x < 128) {  // the query tile's lse (0-63) and D (64-127)
+    const int r = q0 + (threadIdx.x & 63);
+    cp_async4(smem_u32(sL + threadIdx.x),
+              (threadIdx.x < 64 ? lse : delta) +
+                  ((long long)b * H + hd) * Tq + (r < Tq ? r : 0),
+              r < Tq);
+  }
+  // warpgroup 0: S = Q K^T, 1: dP = dO V^T; then each 64 of dQ's 128
+  // columns += dS K
+  const float* const own = (wg ? sdO : sQ) + 16 * w * FW_LD;
+  const float* const arows = sdS + 16 * w * FW_LDP;
+  unsigned char* const mine = parts + wg * WGW_PART;
+  float* const out = dq + b * sqgb + hd * sqgh + 64 * wg;
+  float part[8][4], acc[8][4];
+  auto exchange = [&](int t) {
+    fw_publish(mine, part);
+    const uint32_t after = wgw_partials_ready(bars, CS, t);
+    // every warp's reads of V_c ended: tile t + 1's may land (PER == 1)
+    if (PER == 1 && t + 1 < nt)
+      fw_stage<WGW_THREADS, 32>(sV, vb + c * WCH, svt, (t + 1) * BK, Tk, 0,
+                                threadIdx.x);
+    cp_async_commit();
+    dq_exchange<true>(sPS, sPdP, smem_u32(sdS), sL, q0, t * BK, Tq, Tk, c,
+                      CS, scale_log2, scale, after);
+    fw_tiles_ready(bars, CS, t);
+  };
+  wgw_init(bars, CS);
+  zero(acc);
+
+  if (PER == 1) {
+    // Step t: tiles t landed; K of t + 1 copied into the other stage; the
+    // partial; the exchange, V of t + 1 copied meanwhile; dQ += dS K_t.
+    const int col = c * WCH;
+    fw_stage<WGW_THREADS, 32>(sQ, qb + col, sqt, q0, Tq, 0, threadIdx.x);
+    fw_stage<WGW_THREADS, 32>(sdO, db + col, sdt, q0, Tq, 0, threadIdx.x);
+    fw_stage<WGW_THREADS, 32>(sK(0), kb + col, skt, 0, Tk, 0, threadIdx.x);
+    fw_stage<WGW_THREADS, 32>(sV, vb + col, svt, 0, Tk, 0, threadIdx.x);
+    cp_async_commit();
+    for (int t = 0; t < nt; ++t) {
+      const float* kt = sK(t & 1);
+      cp_async_wait<0>();  // K and V of t (at t = 0 Q, dO, lse, D) landed
+      __syncthreads();     // ... for every thread; the products of t - 1
+                           // ended, the other stage is free
+      if (t + 1 < nt)
+        fw_stage<WGW_THREADS, 32>(sK((t + 1) & 1), kb + col, skt,
+                                  (t + 1) * BK, Tk, 0, threadIdx.x);
+      cp_async_commit();
+      zero(part);
+      fw_partial<0, 16>(part, own, wg ? sV : kt);
+      exchange(t);
+      fw_product(acc, arows, kt, 64 * wg);
+    }
+    store_tile_rows<float, 64>(out + col, sqgt, q0, Tq, acc);
+    return;
+  }
+
+  const int n = (NC - c + CS - 1) / CS;
+  float* const slots =
+      scratch + ((((long long)b * H + hd) * gridDim.x + blockIdx.x) * CS +
+                 c) * PER * WGW_DQ_SLOT;
+  for (int t = 0; t < nt; ++t) {
+    const int key0 = t * BK;
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();  // the last readers of these buffers are done
+      fw_stage<WGW_THREADS, 32>(sQ, qb + col, sqt, q0, Tq, 0, threadIdx.x);
+      fw_stage<WGW_THREADS, 32>(sdO, db + col, sdt, q0, Tq, 0, threadIdx.x);
+      fw_stage<WGW_THREADS, 32>(sK(0), kb + col, skt, key0, Tk, 0,
+                                threadIdx.x);
+      fw_stage<WGW_THREADS, 32>(sV, vb + col, svt, key0, Tk, 0, threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_nt_chunk<float>(part, own, wg ? sV : sK(0), i);
+    }
+    exchange(t);
+    for (int i = 0; i < n; ++i) {
+      const int col = (c + CS * i) * WCH;
+      __syncthreads();
+      fw_stage<WGW_THREADS, 32>(sK(0), kb + col, skt, key0, Tk, 0,
+                                threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float* slot = slots + i * WGW_DQ_SLOT;
+      if (t > 0)
+        fw_slot_load(acc, slot);
+      else
+        zero(acc);
+      fw_product(acc, arows, sK(0), 64 * wg);
+      if (t + 1 < nt)
+        fw_slot_store(slot, acc);
+      else
+        store_tile_rows<float, 64>(out + col, sqgt, q0, Tq, acc);
+    }
+  }
+}
+
 template <typename K>
 int opt_in(K kernel, int bytes, unsigned& opted) {
   int dev = 0;
@@ -2786,55 +3175,19 @@ struct FwdWide {
   }
 };
 
-template <typename T>
-struct DkvWide {
-  static int run(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dk, void* dv, int B, int Tq, int Tk, int H, int NC,
-                 const long long* st, float scale, cudaStream_t stream) {
-    static unsigned opted = 0;
-    constexpr int smem = wide_smem<T>() + DKV_STAT_BYTES;
-    if (int e = opt_in(flash_bwd_dkv_wide_kernel<T>, smem, opted)) return e;
-    dim3 grid((Tk + BK - 1) / BK, H * NC, B);
-    flash_bwd_dkv_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dk, (T*)dv, Tq, Tk, NC, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-        st[15], st[16], st[17], scale * LOG2E, scale);
-    return (int)cudaGetLastError();
-  }
-};
-
-template <typename T>
-struct DqWide {
-  static int run(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dq, int B, int Tq, int Tk, int H, int NC,
-                 const long long* st, float scale, cudaStream_t stream) {
-    static unsigned opted = 0;
-    constexpr int smem = wide_smem<T>();
-    if (int e = opt_in(flash_bwd_dq_wide_kernel<T>, smem, opted)) return e;
-    dim3 grid((Tq + BQ - 1) / BQ, H * NC, B);
-    flash_bwd_dq_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dq, Tq, Tk, NC, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-        st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-        scale * LOG2E, scale);
-    return (int)cudaGetLastError();
-  }
-};
-
-// a tile kernel's launch at (f32 or bf16, d): f32 at 32, 64 and 128, bf16
-// at 32 and 128 (bf16 at 64 is the wgmma kernels'); another width is
+// a tile kernel's launch at (f32 or bf16, d): f32 at 32 and 64, bf16 at
+// 32 (bf16 at 64 is the wgmma kernels'), both at 128 where AT_128 (the
+// forward: the backward's 128 is the wide pairs'); another width is
 // refused
-template <template <typename, int> class L, bool BF16_128, typename... Args>
+template <template <typename, int> class L, bool AT_128, typename... Args>
 int by_width(int f32, int d, Args... args) {
   if (f32 && d == 32) return L<float, 32>::run(args...);
   if (f32 && d == 64) return L<float, 64>::run(args...);
-  if (f32 && d == 128) return L<float, 128>::run(args...);
   if (!f32 && d == 32) return L<bf16, 32>::run(args...);
-  if constexpr (BF16_128)
+  if constexpr (AT_128) {
+    if (f32 && d == 128) return L<float, 128>::run(args...);
     if (!f32 && d == 128) return L<bf16, 128>::run(args...);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2847,8 +3200,11 @@ int by_chunks(int f32, int d, Args... args) {
 }
 
 // The wgmma pair takes bf16 at every multiple of 128; at width 128 too,
-// where it is faster than the tile pair (PERF.md, the same A/B run).
+// where it is faster than the tile pair (PERF.md, the same A/B run). The
+// f32 pair takes f32 at every multiple of 128, at 128 too for the same
+// reason.
 bool wgw_width(int f32, int d) { return !f32 && d % WCH == 0; }
+bool fw_width(int f32, int d) { return f32 && d % WCH == 0; }
 
 // a wgmma pair kernel's launch: grid (tiles, H CS, B), clusters of CS
 // blocks along y, `smem` bytes of dynamic shared memory (opted in once per
@@ -2911,11 +3267,20 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* scratch, int B, int Tq, int Tk, int H,
                                  const long long* st, float scale, int f32,
                                  int d, void* stream) {
-  static unsigned opted_bf16 = 0, opted_wgw = 0;
+  static unsigned opted_bf16 = 0, opted_wgw = 0, opted_fw = 0;
   const cudaStream_t cs = (cudaStream_t)stream;
-  if (wgw_width(f32, d)) {
+  if (wgw_width(f32, d) || fw_width(f32, d)) {
     if (wgw_per(d / WCH) > 1 && scratch == nullptr)
       return (int)cudaErrorInvalidValue;
+    if (f32)
+      return launch_wgw(
+          flash_bwd_dkv_f32_wide, FW_DKV_SMEM, opted_fw, (Tk + BK - 1) / BK,
+          H, B, d / WCH, cs, (const float*)q, (const float*)k,
+          (const float*)v, (const float*)dout, (const float*)lse,
+          (const float*)delta, (float*)dk, (float*)dv, (float*)scratch, Tq,
+          Tk, d / WCH, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+          st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+          st[15], st[16], st[17], scale * LOG2E, scale);
     return launch_wgw(
         flash_bwd_dkv_wgmma_wide, WGW_DKV_SMEM, opted_wgw, (Tk + BK - 1) / BK,
         H, B, d / WCH, cs, (const bf16*)q, (const bf16*)k, (const bf16*)v,
@@ -2924,12 +3289,7 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
         st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
         st[12], st[13], st[14], st[15], st[16], st[17], scale * LOG2E, scale);
   }
-  if (d > WCH)
-    return f32 && d % WCH == 0
-               ? DkvWide<float>::run(q, k, v, dout, (const float*)lse,
-                                     (const float*)delta, dk, dv, B, Tq, Tk,
-                                     H, d / WCH, st, scale, cs)
-               : (int)cudaErrorInvalidValue;
+  if (d > WCH) return (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
     return by_width<DkvTC, false>(f32, d, q, k, v, dout, (const float*)lse,
                                   (const float*)delta, dk, dv, B, Tq, Tk, H,
@@ -2948,11 +3308,19 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                 int B, int Tq, int Tk, int H,
                                 const long long* st, float scale, int f32,
                                 int d, void* stream) {
-  static unsigned opted_bf16 = 0, opted_wgw = 0;
+  static unsigned opted_bf16 = 0, opted_wgw = 0, opted_fw = 0;
   const cudaStream_t cs = (cudaStream_t)stream;
-  if (wgw_width(f32, d)) {
+  if (wgw_width(f32, d) || fw_width(f32, d)) {
     if (wgw_per(d / WCH) > 1 && scratch == nullptr)
       return (int)cudaErrorInvalidValue;
+    if (f32)
+      return launch_wgw(
+          flash_bwd_dq_f32_wide, FW_DQ_SMEM, opted_fw, (Tq + BQ - 1) / BQ, H,
+          B, d / WCH, cs, (const float*)q, (const float*)k, (const float*)v,
+          (const float*)dout, (const float*)lse, (const float*)delta,
+          (float*)dq, (float*)scratch, Tq, Tk, d / WCH, st[0], st[1], st[2],
+          st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+          st[12], st[13], st[14], scale * LOG2E, scale);
     return launch_wgw(
         flash_bwd_dq_wgmma_wide, WGW_DQ_SMEM, opted_wgw, (Tq + BQ - 1) / BQ,
         H, B, d / WCH, cs, (const bf16*)q, (const bf16*)k, (const bf16*)v,
@@ -2961,12 +3329,7 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
         st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
         st[14], scale * LOG2E, scale);
   }
-  if (d > WCH)
-    return f32 && d % WCH == 0
-               ? DqWide<float>::run(q, k, v, dout, (const float*)lse,
-                                    (const float*)delta, dq, B, Tq, Tk, H,
-                                    d / WCH, st, scale, cs)
-               : (int)cudaErrorInvalidValue;
+  if (d > WCH) return (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
     return by_width<DqTC, false>(f32, d, q, k, v, dout, (const float*)lse,
                                  (const float*)delta, dq, B, Tq, Tk, H, st,
@@ -2978,22 +3341,54 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // Floats of f32 scratch xt_flash_attn_bwd_dkv (dq = 0) or _dq (dq = 1)
-// needs at these shapes: the wgmma pair's accumulator slots where a block
-// owns more than one chunk (bf16 above width 1024), else 0
+// needs at these shapes: the wgmma or the f32 pair's accumulator slots
+// where a block owns more than one chunk (above width 1024), else 0
 XT_API long long xt_flash_attn_bwd_scratch(int B, int Tq, int Tk, int H,
                                            int f32, int d, int dq) {
-  if (!wgw_width(f32, d) || wgw_per(d / WCH) == 1) return 0;
+  if (!(wgw_width(f32, d) || fw_width(f32, d)) || wgw_per(d / WCH) == 1)
+    return 0;
   const int nc = d / WCH;
   const long long tiles = dq ? (Tq + BQ - 1) / BQ : (Tk + BK - 1) / BK;
   return tiles * B * H * wgw_cs(nc) * wgw_per(nc) *
          (dq ? WGW_DQ_SLOT : WGW_DKV_SLOT);
 }
 
+// Clusters of a backward pair's kernel (the bf16 wgmma pair, or with f32
+// the f32 pair; dq = 0 dkv, 1 dq) at head width d, a multiple of 128 the
+// pair takes, that can be resident on the card at once, into *out
+// (cudaOccupancyMaxActiveClusters with the kernel's cluster size and
+// shared memory)
+XT_API int xt_flash_attn_bwd_clusters(int f32, int d, int dq, int* out) {
+  if (!(wgw_width(f32, d) || fw_width(f32, d)))
+    return (int)cudaErrorInvalidValue;
+  const void* fns[4] = {(const void*)flash_bwd_dkv_wgmma_wide,
+                        (const void*)flash_bwd_dq_wgmma_wide,
+                        (const void*)flash_bwd_dkv_f32_wide,
+                        (const void*)flash_bwd_dq_f32_wide};
+  const int smems[4] = {WGW_DKV_SMEM, WGW_DQ_SMEM, FW_DKV_SMEM, FW_DQ_SMEM};
+  const int i = 2 * (f32 != 0) + (dq != 0);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smems[i]);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 64 * wgw_cs(d / WCH), 1);
+  cfg.blockDim = dim3(WGW_THREADS);
+  cfg.dynamicSmemBytes = smems[i];
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = wgw_cs(d / WCH);
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, fns[i], &cfg);
+}
+
 // Registers and local-memory bytes a thread of every kernel, out[2 i] and
 // out[2 i + 1] for i = 8 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
 // (the wgmma kernels), 128, the wide kernel, then f32 at the same; the
-// bf16 backward's 128 and wide entries are both the wgmma wide pair's
-// (local memory other than 0 is a spill)
+// backward's 128 and wide entries are both the wide pairs' (bf16 the
+// wgmma pair, f32 the f32 pair; local memory other than 0 is a spill)
 XT_API int xt_flash_attn_attrs(int* out) {
   const void* fns[24] = {
       (const void*)flash_fwd_tc_kernel<bf16, 32>,
@@ -3010,16 +3405,16 @@ XT_API int xt_flash_attn_attrs(int* out) {
       (const void*)flash_bwd_dkv_wgmma_wide,
       (const void*)flash_bwd_dkv_tc_kernel<float, 32>,
       (const void*)flash_bwd_dkv_tc_kernel<float, 64>,
-      (const void*)flash_bwd_dkv_tc_kernel<float, 128>,
-      (const void*)flash_bwd_dkv_wide_kernel<float>,
+      (const void*)flash_bwd_dkv_f32_wide,
+      (const void*)flash_bwd_dkv_f32_wide,
       (const void*)flash_bwd_dq_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dq_kernel,
       (const void*)flash_bwd_dq_wgmma_wide,
       (const void*)flash_bwd_dq_wgmma_wide,
       (const void*)flash_bwd_dq_tc_kernel<float, 32>,
       (const void*)flash_bwd_dq_tc_kernel<float, 64>,
-      (const void*)flash_bwd_dq_tc_kernel<float, 128>,
-      (const void*)flash_bwd_dq_wide_kernel<float>};
+      (const void*)flash_bwd_dq_f32_wide,
+      (const void*)flash_bwd_dq_f32_wide};
   for (int i = 0; i < 24; ++i) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);

@@ -19,17 +19,17 @@ written for Hopper:
   streamed tiles in a cp.async ring, every product on wgmma with P / dS as
   the register operand (no P or dS tile in shared memory);
 - the tile family, the same three kernels for f32 inputs (as the Pallas
-  kernel takes them) at widths 32, 64 and 128, the bf16 forward at 32
-  and 128 and the bf16 backward at 32: the same grids, ring and softmax
-  on mma.sync, f32 in 3xTF32 (each operand split in a big and a small
-  tf32 part, three products a step, within ~2^-21 relative of an f32
-  product), P and dS kept in registers as the next product's A operand;
-- the wide kernels, the forward (bf16 and f32) and the f32 backward for
-  every head width that is a multiple of 128 above 128 (as JAX's library
-  kernel takes them): a block owns one 128-column chunk of its output,
-  forms each score (and dP) tile as the sum of the chunks' width-128
-  products, and takes its own chunk's product through the width-128 tile
-  code;
+  kernel takes them) at widths 32, 64 and 128 (the backward at 32 and
+  64), the bf16 forward at 32 and 128 and the bf16 backward at 32: the
+  same grids, ring and softmax on mma.sync, f32 in 3xTF32 (each operand
+  split in a big and a small tf32 part, three products a step, within
+  ~2^-21 relative of an f32 product), P and dS kept in registers as the
+  next product's A operand;
+- the wide forward (bf16 and f32) for every head width that is a
+  multiple of 128 above 128 (as JAX's library kernel takes them): a block
+  owns one 128-column chunk of its output, forms each score tile as the
+  sum of the chunks' width-128 products, and takes its own chunk's product
+  through the width-128 tile code;
 - the bf16 backward at width 128 and every multiple of 128 above on
   wgmma (`flash_bwd_dkv_wgmma_wide`, `flash_bwd_dq_wgmma_wide`): the
   blocks of one tile's 128-column chunks form a thread-block cluster;
@@ -37,8 +37,13 @@ written for Hopper:
   summed once in the cluster through distributed shared memory and P and
   dS formed once and shared, so no chunk forms a score tile again; above
   width 1024 a block owns several chunks, their accumulators between
-  steps in an f32 device scratch (`_scratch`).
-  `kernel_attrs` reads every kernel's registers and spills.
+  steps in an f32 device scratch (`_scratch`);
+- the f32 backward at width 128 and every multiple of 128 above
+  (`flash_bwd_dkv_f32_wide`, `flash_bwd_dq_f32_wide`): the same clusters,
+  exchange and scratch, the products in 3xTF32 on `mma.sync` as the tile
+  family's, two warpgroups a block, P and dS shared as f32.
+  `kernel_attrs` reads every kernel's registers and spills,
+  `bwd_clusters` the wide pairs' resident clusters.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
 backward at the main path's (2, 1280 | 1562, 8, 64); in f32 three times
@@ -128,14 +133,18 @@ def _lib() -> ctypes.CDLL:
     lib.xt_flash_attn_bwd_scratch.argtypes = [_I] * 7
     lib.xt_flash_attn_bwd_scratch.restype = _L
     lib.xt_flash_attn_attrs.argtypes = [ctypes.POINTER(_I)]
+    lib.xt_flash_attn_bwd_clusters.argtypes = [_I, _I, _I,
+                                               ctypes.POINTER(_I)]
     for fn in (lib.xt_flash_attn_fwd, lib.xt_flash_attn_bwd_dkv,
-               lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_attrs):
+               lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_attrs,
+               lib.xt_flash_attn_bwd_clusters):
         fn.restype = _I
     return lib
 
 
 # csrc's order of xt_flash_attn_attrs: (wrapper, dtype, head width); the
-# bf16 backward's 128 and WIDE keys both read the wgmma wide pair
+# backward's 128 and WIDE keys both read the wide pairs (bf16 the wgmma
+# pair, f32 the f32 pair)
 _KERNELS = tuple((name, kind, w)
                  for name in ("flash_mha", "flash_mha_bwd_dkv",
                               "flash_mha_bwd_dq")
@@ -146,8 +155,8 @@ def kernel_attrs() -> dict:
     """{(wrapper, "bf16" | "f32", head width): (registers, local-memory
     bytes)} a thread of each of the 24 keys' kernels, as built for the
     current card (width WIDE: every multiple of 128 above 128; the bf16
-    backward at 128 and WIDE: the wgmma wide pair); local memory other
-    than 0 is a register spill."""
+    backward at 128 and WIDE: the wgmma wide pair; the f32 backward there:
+    the f32 wide pair); local memory other than 0 is a register spill."""
     out = (_I * (2 * len(_KERNELS)))()
     check(_lib().xt_flash_attn_attrs(out), "flash_mha kernel attrs")
     return {key: (out[2 * i], out[2 * i + 1])
@@ -158,6 +167,21 @@ def bwd_kernel_attrs() -> dict:
     """kernel_attrs() of the backward kernels."""
     return {key: a for key, a in kernel_attrs().items()
             if key[0] != "flash_mha"}
+
+
+def bwd_clusters(dtype, width: int) -> tuple:
+    """(dkv, dq): the clusters of the wide backward pair that takes
+    `dtype` (torch.bfloat16: the wgmma pair at 128 and every multiple of
+    128 above; torch.float32: the f32 pair, the same widths) at head width
+    `width` that can be resident on the current card at once."""
+    out = []
+    for dq in (0, 1):
+        n = _I(0)
+        check(_lib().xt_flash_attn_bwd_clusters(
+            int(dtype == torch.float32), width, dq, ctypes.byref(n)),
+            "flash_mha backward clusters")
+        out.append(n.value)
+    return tuple(out)
 
 
 def _wide(dtype):
@@ -310,9 +334,9 @@ def _check_stats(q, lse, delta):
 
 def _scratch(q, b, tq, tk, h, dq: bool):
     """The f32 device scratch a backward kernel takes at these shapes
-    (csrc xt_flash_attn_bwd_scratch: the bf16 wgmma pair's accumulators
-    where a block owns more than one 128-column chunk, above width 1024),
-    or None."""
+    (csrc xt_flash_attn_bwd_scratch: the wide pairs' accumulators where a
+    block owns more than one 128-column chunk, above width 1024), or
+    None."""
     n = _lib().xt_flash_attn_bwd_scratch(b, tq, tk, h,
                                          int(q.dtype == torch.float32),
                                          q.shape[3], int(dq))
@@ -323,8 +347,8 @@ def _scratch(q, b, tq, tk, h, dq: bool):
 def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     """dK and dV of flash_mha (kernels `flash_bwd_dkv_kernel`, bf16 at
     width 64; `flash_bwd_dkv_wgmma_wide`, bf16 at 128 and every multiple
-    of 128 above; `flash_bwd_dkv_tc_kernel<T, D>` and
-    `flash_bwd_dkv_wide_kernel<float>` the rest): lse the forward's
+    of 128 above; `flash_bwd_dkv_f32_wide`, f32 at the same widths;
+    `flash_bwd_dkv_tc_kernel<T, D>` the rest): lse the forward's
     natural-log row log-sum-exp and delta = rowsum(dO * O), both (B, H,
     Tq) f32. CPU tensors take the plain twin."""
     if not q.is_cuda:
@@ -346,12 +370,17 @@ def flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float):
     return dk[..., :dh], dv[..., :dh]
 
 
-def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
+def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float,
+                     stream=None):
     """dQ of flash_mha (kernels `flash_bwd_dq_kernel`, bf16 at width 64;
     `flash_bwd_dq_wgmma_wide`, bf16 at 128 and every multiple of 128
-    above; `flash_bwd_dq_tc_kernel<T, D>` and
-    `flash_bwd_dq_wide_kernel<float>` the rest), on flash_mha_bwd_dkv's
-    operands. CPU tensors take the plain twin."""
+    above; `flash_bwd_dq_f32_wide`, f32 at the same widths;
+    `flash_bwd_dq_tc_kernel<T, D>` the rest), on flash_mha_bwd_dkv's
+    operands. CPU tensors take the plain twin. stream: a CUDA stream to
+    launch on, else the current one; it waits for the current stream's
+    work so far (the operands' padding included), and the tensors the
+    kernel reads and writes, allocated on the current stream, are recorded
+    on it, so that their memory is not reused before the kernel ends."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, do, lse, delta, sm_scale)[0]
     dh = q.shape[3]
@@ -360,29 +389,60 @@ def flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale: float):
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     scratch = _scratch(q, b, tq, tk, h, True)
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(q.device))
+        for t in (q, k, v, do, lse, delta, dq, scratch):
+            if t is not None:
+                t.record_stream(stream)
     check(_lib().xt_flash_attn_bwd_dq(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
         None if scratch is None else ptr(scratch), b, tq, tk, h,
         _strides(q, k, v, do, dq), float(sm_scale),
-        int(q.dtype == torch.float32), q.shape[3], stream_of(q)),
+        int(q.dtype == torch.float32), q.shape[3],
+        stream_of(q) if stream is None else ctypes.c_void_p(
+            stream.cuda_stream)),
         "flash_mha_bwd_dq")
     flash_mha_bwd_dq.launches += 1
     return dq[..., :dh]
 
 
+@functools.cache
+def _side_stream(index: int):
+    return torch.cuda.Stream(index)
+
+
+def flash_mha_bwd_pair(q, k, v, do, lse, delta, sm_scale: float):
+    """(dq, dk, dv): flash_mha_bwd_dkv and flash_mha_bwd_dq on the same
+    operands. The f32 wide pair (f32 at head widths of 128 and every
+    multiple above) runs dq on a second stream beside dkv: each fills the
+    card one block an SM in two waves (dkv 200, dq 160 blocks at the main
+    bucket's 2 heads of 256 on 132 SMs), so side by side dq's blocks take
+    the SMs dkv's second wave leaves idle; the current stream waits for
+    both. Everything is allocated on the current stream."""
+    if not (q.is_cuda and q.dtype == torch.float32
+            and native_width(q.shape[3]) % 128 == 0):
+        dk, dv = flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale)
+        return flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale), dk, dv
+    main = torch.cuda.current_stream(q.device)
+    side = _side_stream(q.device.index)
+    dq = flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale, stream=side)
+    dk, dv = flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale)
+    main.wait_stream(side)
+    return dq, dk, dv
+
+
 def flash_mha_bwd(q, k, v, o, lse, do, sm_scale: float):
-    """(dq, dk, dv): the two backward kernels for CUDA tensors, the plain
-    twin for CPU tensors. An output gradient whose layout the kernels do
-    not take (an expanded or transposed view) is copied contiguous first,
-    counted in `flash_mha_bwd.copies`."""
+    """(dq, dk, dv): the two backward kernels for CUDA tensors
+    (flash_mha_bwd_pair), the plain twin for CPU tensors. An output
+    gradient whose layout the kernels do not take (an expanded or
+    transposed view) is copied contiguous first, counted in
+    `flash_mha_bwd.copies`."""
     if not q.is_cuda:
         return flash_mha_bwd_plain(q, k, v, o, lse, do, sm_scale)
     if not _readable(do):
         do = do.contiguous()
         flash_mha_bwd.copies += 1
-    delta = _delta(o, do)
-    dk, dv = flash_mha_bwd_dkv(q, k, v, do, lse, delta, sm_scale)
-    return flash_mha_bwd_dq(q, k, v, do, lse, delta, sm_scale), dk, dv
+    return flash_mha_bwd_pair(q, k, v, do, lse, _delta(o, do), sm_scale)
 
 
 class _FlashMHA(torch.autograd.Function):
