@@ -1170,11 +1170,15 @@ def k2_backward_checks(torch, fa, results, card):
         torch.cuda.empty_cache()
 
 
-def k2_width_checks(torch, fa, results, card):
+def k2_width_checks(torch, fa, results, launches, card):
     """K2 at the other head widths (K2_WIDTHS: 32 and 128 run as they are,
     48 zero-padded to 64 and counted in flash_mha.pads, 256 and 384 on the
-    wide kernels), bf16 and f32: the forward and its lse against the f32
-    plain forward (K2_TOL / K2_F32_TOL, K2_LSE_TOL), the backward against
+    wide kernels; bf16 from 128 the wgmma wide forward, whose split R of
+    the keys over a cluster, resident clusters of R, TFLOP/s and share of
+    the forward bound are printed, and one of whose width-256 forwards is
+    held to its launch count in a torch.profiler trace), bf16 and f32:
+    the forward and its lse against the f32 plain forward (K2_TOL /
+    K2_F32_TOL, K2_LSE_TOL), the backward against
     the f32 plain backward (K2_BWD_TOL of each gradient's largest), the
     same bits twice; device us of the forward, dkv and dq beside SDPA's
     forward and backward on the same inputs and the bounds (tensor-core
@@ -1253,7 +1257,9 @@ def k2_width_checks(torch, fa, results, card):
             key = native if native <= 128 else fa.WIDE
             for name in ("flash_mha", "flash_mha_bwd_dkv",
                          "flash_mha_bwd_dq"):
-                regs, local = attrs[(name, kind, key)]
+                regs, local = attrs[(name, kind, fa.fwd_block_width(native)
+                                     if name == "flash_mha" and kind == "bf16"
+                                     and native % 128 == 0 else key)]
                 spills.append(f"{name} {regs} registers, {local} local "
                               f"bytes")
                 # left alone: the f32 forwards at 128 (the tile family's)
@@ -1262,7 +1268,19 @@ def k2_width_checks(torch, fa, results, card):
                                      and name == "flash_mha"),
                       f"[k2] {name} {kind} width {native} spills {local} "
                       f"bytes")
-            pair, resident = "", None
+            pair, resident, plan, fwd = "", None, None, ""
+            if kind == "bf16" and native % 128 == 0:
+                plan = fa.fwd_plan(b, tq, tk, h, native)
+                fwd = (f"; the wgmma wide forward: R {plan['split']} ranks "
+                       f"a cluster over the keys, at most "
+                       f"{plan['resident']} clusters of R resident, "
+                       f"{plan['slices']} slice(s), {plan['rows']} query "
+                       f"rows a block, {b_f * 1e3 / d_f:.3f} of the "
+                       f"forward bound, {d_f / s_f:.2f}x SDPA's forward")
+                if w == 256:
+                    hold_counts_to_trace(
+                        torch, lambda: fa._flash_fwd_cuda(q, k, v, sc, True),
+                        launches, f"[k2] bf16 width {w} forward", card)
             if native % 128 == 0:
                 nc = native // 128
                 cs = -(-nc // -(-nc // 8))       # csrc wgw_cs
@@ -1287,7 +1305,7 @@ def k2_width_checks(torch, fa, results, card):
                 f"forward {b_f:.5f} ms, "
                 f"backward {b_b:.5f} ms ({'3xTF32' if kind == 'f32' else 'bf16'}"
                 f" tensor-core operations); sdpa forward {fmt_us(s_f)}, "
-                f"backward {fmt_us(s_b)}{pair}; {'; '.join(spills)}  "
+                f"backward {fmt_us(s_b)}{fwd}{pair}; {'; '.join(spills)}  "
                 f"[{card}]")
             rows[f"{kind} {w}"] = dict(
                 forward_err=e_o, lse_err=e_l, backward_rel_errs=errs,
@@ -1295,7 +1313,7 @@ def k2_width_checks(torch, fa, results, card):
                 pair_device_us=d_b,
                 sdpa_forward_device_us=s_f, sdpa_backward_device_us=s_b,
                 bound_forward_ms=b_f, bound_backward_ms=b_b,
-                resident_clusters=resident)
+                resident_clusters=resident, forward_plan=plan)
             del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
             torch.cuda.empty_cache()
     results["flash_mha"]["widths"] = rows
@@ -3982,7 +4000,9 @@ TRACE_KERNELS = (
                        r"(?:\s*,\s*|ELb)(true|false|1|0)"),
     ("serving_attention", r"serving_attention_kernel()"),
     ("layer_norm_rows", r"layer_norm_rows_kernel()"),
-    ("flash_mha", r"flash_fwd_(?:tile_)?kernel()"),   # bf16 and f32
+    # every forward: flash_fwd_kernel, flash_fwd_tc_kernel<T, D>,
+    # flash_fwd_wide_kernel<float>, flash_fwd_wgmma_wide<CPS, MQ>
+    ("flash_mha", r"flash_fwd_(?:(?:tile_|tc_|wide_)?kernel|wgmma_wide)()"),
     ("flash_mha_bwd_dkv",
      r"flash_bwd_dkv_(?:(?:tile_|tc_)?kernel|wgmma_wide|f32_wide)()"),
     ("flash_mha_bwd_dq",
@@ -5314,7 +5334,7 @@ def main() -> None:
         k2_checks(torch, fa, results, card)
         k2_f32_checks(torch, fa, results, card)
         k2_backward_checks(torch, fa, results, card)
-        k2_width_checks(torch, fa, results, card)
+        k2_width_checks(torch, fa, results, launches, card)
         k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
                   results, card)
         del qt, st

@@ -576,17 +576,22 @@ def test_flash_mha_backward_kernels_do_not_spill(cuda):
 
 
 def test_flash_kernel_attrs_cover_every_kernel(cuda):
-    """kernel_attrs reads registers and local memory of all 24 keys
+    """kernel_attrs reads registers and local memory of all 26 keys
     (forward, dkv, dq; bf16 and f32; widths 32, 64, 128 and the wide
     kernels, keyed WIDE; the backward's 128 and WIDE keys the wide pairs,
-    bf16's wgmma pair and the f32 pair); the backward's are
-    bwd_kernel_attrs'. No bf16 kernel spills, no f32 kernel below width
-    128 and no f32 backward kernel (chip_smoke prints the f32 width-128
-    and wide forwards' local memory)."""
+    bf16's wgmma pair and the f32 pair; the bf16 forward's 128, WIDE, 384
+    and 512 keys the wgmma wide forward's four instances); the backward's
+    are bwd_kernel_attrs'. No bf16 kernel spills, no f32 kernel below
+    width 128 and no f32 backward kernel (chip_smoke prints the f32
+    width-128 and wide forwards' local memory)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.kernel_attrs()
-    assert len(attrs) == 24
-    assert {key[2] for key in attrs} == {32, 64, 128, fa.WIDE}
+    assert len(attrs) == 26
+    assert {key[2] for key in attrs} == {32, 64, 128, fa.WIDE, 384, 512}
+    assert {key for key in attrs if key[2] in (384, 512)} == {
+        ("flash_mha", "bf16", 384), ("flash_mha", "bf16", 512)}
+    assert [fa.fwd_block_width(w) for w in (128, 256, 384, 512, 1152)] == [
+        128, 256, 384, 512, 384]
     assert all(0 < regs <= 255 and local >= 0
                for regs, local in attrs.values())
     assert {key: a for key, a in attrs.items()
@@ -727,6 +732,76 @@ def test_flash_mha_f32_wide_pair_reads_strided_views(cuda):
         assert torch.isfinite(x).all(), name
         err = _k2_rel(x, y, floor)
         assert err <= K2_BWD_TOL[torch.float32], (name, err)
+
+
+def _k2_fwd_against_twin(q, k, v, scale):
+    """The forward with lse (one launch) against the f32 twin at the
+    forward's bounds: output 1e-2 (bf16), lse 1e-5; returns (o, lse)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    fa.flash_mha.launches = 0
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1
+    assert o.shape == q.shape and torch.isfinite(o).all()
+    o32, lse32 = fa.flash_mha_plain_lse(*(t.float() for t in (q, k, v)),
+                                        scale)
+    torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-5)
+    assert (o.float() - o32).abs().max().item() <= 1e-2
+    return o, lse
+
+
+# The bf16 wgmma wide forward (flash_fwd_wgmma_wide): the keys split over a
+# cluster of R ranks, combined once through distributed shared memory.
+@pytest.mark.parametrize("width", [128, 256, 384])
+@pytest.mark.parametrize("tk", [1, 64, 65, 129])
+def test_flash_mha_wide_forward_ranks_without_keys(cuda, width, tk):
+    """Tq 193 over Tk of 1, 64, 65 and 129 (one, one, two and three key
+    tiles): the split R comes from the grid, so at one key tile the ranks
+    past the first hold none (m = -inf, l = 0 in the combine); the output
+    and lse against the twin, finite."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    q, k, v = (torch.randn(1, t, 2, width, generator=cuda,
+                           device="cuda").bfloat16() for t in (193, tk, tk))
+    plan = fa.fwd_plan(1, 193, tk, 2, width)
+    assert 1 <= plan["split"] <= 8 and plan["resident"] >= 1
+    if tk <= 64:
+        assert plan["split"] > 1, plan
+    _k2_fwd_against_twin(q, k, v, width ** -0.5)
+
+
+@pytest.mark.parametrize("width,shape", [(256, (2, 1280, 1562, 2)),
+                                         (1152, (1, 193, 321, 1))])
+def test_flash_mha_wide_forward_is_deterministic(cuda, width, shape):
+    """The forward's output and lse the same bits twice: the main bucket
+    at 256 (ranks combined in rank order) and 1152 (three slices of 384,
+    two warpgroups a block, Q streamed beside K)."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, tq, tk, h = shape
+    q, k, v = (torch.randn(b, t, h, width, generator=cuda,
+                           device="cuda").bfloat16() for t in (tq, tk, tk))
+    o, lse = _k2_fwd_against_twin(q, k, v, width ** -0.5)
+    again = fa._flash_fwd_cuda(q, k, v, width ** -0.5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_mha_wide_forward_reads_strided_views(cuda):
+    """The bf16 wide forward at width 256 on q, k and v as head-split
+    views of one fused (B, T, 3 x 512) projection (row stride 1536), Tq
+    193 of Tk 321: against the twin, and the same bits as on contiguous
+    copies."""
+    from xtts_tpu_torch.nn import flash_attn as fa
+    b, t, tq, h, w = 1, 321, 193, 2, 256
+    qkv = torch.randn(b, t, 3 * h * w, generator=cuda,
+                      device="cuda").bfloat16()
+    q, k, v = (x.unflatten(-1, (h, w)) for x in qkv.split(h * w, dim=-1))
+    q = q[:, :tq]
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * w
+    o, lse = _k2_fwd_against_twin(q, k, v, w ** -0.5)
+    oc, lc = fa._flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), w ** -0.5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, oc) and torch.equal(lse, lc)
 
 
 @pytest.mark.parametrize("dh", [100, 256, 1152])

@@ -27,14 +27,25 @@
 //   flash_bwd_dkv_f32_wide and flash_bwd_dq_f32_wide, the same clusters
 //   and exchange on the tile family's 3xTF32 mma.sync, two warpgroups a
 //   block, P and dS shared as f32 (after the wgmma pair).
+// - The bf16 forward at D = 128 NC for every NC >= 1:
+//   flash_fwd_wgmma_wide<CPS, MQ> on wgmma (after the f32 pair), a block
+//   one or two 64-query tiles across the whole width up to 512 (above,
+//   slices of up to 512 columns), so each score tile is formed once; the
+//   keys split over a thread-block cluster of R <= 8 blocks, whose ranks
+//   combine (m, l, O) once through distributed shared memory in rank
+//   order. What holds it back: the block's two warpgroups run in
+//   lockstep, a block barrier a 128-column step, so the tensor cores wait
+//   out each softmax and barrier (at 128 a key tile takes ~3100 cycles:
+//   S ~600, the softmax ~930, the steps' barriers and copies ~1400;
+//   PERF.md), and at 384 and above one warpgroup idles while S and the
+//   softmax run.
 // - The tile family on mma.sync (flash_*_tc_kernel<T, D>): the f32 forward
-//   at D = 32, 64, 128 and backward at 32, 64, the bf16 forward at D = 32
-//   and 128 and the bf16 backward at D = 32. It takes any D that is a
-//   multiple of its mma depth, and keeps the flagship kernels' source and
-//   times as they are.
-// - The wide forward (flash_fwd_wide_kernel<T>, after the tile family),
-//   bf16 and f32 above D = 128, a block a 128-column chunk of the output
-//   that forms the score tiles again.
+//   at D = 32, 64, 128 and backward at 32, 64, the bf16 forward and
+//   backward at D = 32. It takes any D that is a multiple of its mma
+//   depth, and keeps the flagship kernels' source and times as they are.
+// - The f32 wide forward (flash_fwd_wide_kernel<float>, after the tile
+//   family) above D = 128, a block a 128-column chunk of the output that
+//   forms the score tiles again.
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
 // 64 = 8.2 GFLOP a call at the shape above (8.3 us at 989 TFLOP/s),
@@ -720,8 +731,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // The tile family (mma.sync): the f32 kernels up to width 128 but the
-// backward at 128, the bf16 forward at 32 and 128 and backward at 32 (the
-// wide pairs' fragment code is this family's too). Generic in the element type T and the head width D. A
+// backward at 128, the bf16 forward and backward at 32 (the f32 wide
+// kernels' fragment code is this family's too). Generic in the element type T and the head width D. A
 // tile is 64 rows x D elements of T in shared memory, rows TC<T, D>::LD
 // elements apart. A warp owns 16 accumulator rows as m16n8 blocks: block
 // j's c[j][0], c[j][1] are (row g, columns 8j + 2t, + 1) and c[j][2],
@@ -1481,11 +1492,12 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The wide forward: head widths D = 128 NC with NC >= 2, every multiple of
-// 128 above 128, as JAX's library kernel takes them, in bf16 and f32 (the
-// backward at those widths is the wgmma pair's in bf16 and the f32 pair's,
-// below). A <T, D> instance of the tile family does not fit there: at f32
-// D = 256 its five tiles would be 333 KB, against 227 KB a block. A block
+// The f32 wide forward: head widths D = 128 NC with NC >= 2, every multiple
+// of 128 above 128, as JAX's library kernel takes them (bf16 there is
+// flash_fwd_wgmma_wide's; the backward at those widths is the wgmma pair's
+// in bf16 and the f32 pair's, below). A <T, D> instance of the tile
+// family does not fit there: at f32 D = 256 its five tiles would be 333
+// KB, against 227 KB a block. A block
 // of the tile kernels' grid owns one 128-column chunk c of its output
 // instead (the grid's y axis runs over (head, chunk)); it forms each score
 // tile S as the sum of the NC chunks' width-128 products, and then takes
@@ -1497,7 +1509,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // family.
 //
 // The streamed tiles run through a two-stage ring of two width-128 tiles a
-// stage (f32 135 KB, bf16 70 KB), a step a pair of tiles, one
+// stage (135 KB), a step a pair of tiles, one
 // __syncthreads a step, step n + 1's copy in flight during step n's
 // products: for each key tile, NC steps (Q_i, K_i) for S, then (V_c):
 // softmax, O += P V_c. Q rows are copied again a step, from L2.
@@ -1842,14 +1854,15 @@ __device__ __forceinline__ uint32_t mbar_wait(uint32_t bar,
 
 // a 64 x 128 bf16 chunk (rows row0.. of a view with row stride `stride`)
 // into two swizzled 64-column atoms at dst, dst + TILE_BYTES; rows at or
-// past nrows zero-filled. 1024 16-byte pieces, 4 a thread; 16 neighbouring
-// threads read one 256-byte row.
+// past nrows zero-filled. 1024 16-byte pieces, 1024 / NT a thread of the
+// NT copying; 16 neighbouring threads read one 256-byte row.
+template <int NT = WGW_THREADS>
 __device__ __forceinline__ void load_chunk(uint32_t dst, const bf16* src,
                                            long long stride, int row0,
                                            int nrows) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int id = threadIdx.x + j * WGW_THREADS;
+  for (int j = 0; j < 1024 / NT; ++j) {
+    const int id = threadIdx.x + j * NT;
     const int r = id >> 4, cc = id & 15, c = cc & 7;
     const bool valid = row0 + r < nrows;
     const bf16* g = valid ? src + (long long)(row0 + r) * stride + cc * 8
@@ -3060,6 +3073,568 @@ flash_bwd_dq_f32_wide(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward at head width D = 128 NC for every NC >= 1 (128 and each
+// multiple above): flash_fwd_wgmma_wide<CPS, MQ>, under the forward's
+// contract (the views' strides as they come, the ragged Tq / Tk edges
+// zero-filled, the lse in natural log where asked, one launch, the same
+// bits from run to run).
+//
+// Each score tile is formed once. A block of two warpgroups owns MQ
+// 64-query tiles of one (head, batch row) and W = 128 CPS columns of their
+// output, W up to W_MAX = 512: at D = 128, 256, 384 and 512 the whole
+// width, so each score tile S = Q K^T is formed once for all of O. S is
+// wgmma m64n64k16 over the D / 16 k-steps from 128-byte-swizzle
+// descriptors, a 128-column chunk (two atoms, WGW_CHUNK) a ring step
+// (wgw_partial); the online softmax stays in registers as in
+// flash_fwd_kernel; O += P V is wgmma too, V read MN-major.
+//
+// What bounds it on an H100 (scripts/bench_flash_fwd_wide.py, PERF.md):
+// not the tensor cores' rate (at 128 the forward takes 88% of its time
+// without its S products, 95% without its P V) but each warpgroup's
+// serial chain of a key tile: its S, then its softmax (exp2 at the SM's
+// 16 a cycle), then its P V, with a block barrier at each 128-column step
+// where the ring's copies are waited for (66% of the time without them).
+// Ways out tried and not kept: the next tile's S issued before this
+// tile's P V (ptxas then serializes the wgmma, their registers in flight
+// across the barrier and the softmax), and the two warpgroups in turns on
+// an mbarrier ring filled by cp.async or by TMA (right, but 10-40%
+// slower than the lockstep).
+//
+// Up to W = 256 (CPS 1-2) a block takes two query tiles (MQ = 2), a
+// warpgroup each over the whole width (64 / 128 f32 accumulators a thread
+// at 128 / 256 beside S's 32 and P's 16; P stays in registers as wgmma's A
+// operand, m64n128k16 a chunk), and both read the one K / V ring: every
+// query tile streams its head's whole K and V, so two a block halve the
+// copies a query row. At W = 384 and 512 O does not fit one warpgroup, so
+// the two split the columns of one query tile (MQ = 1; warpgroup w the
+// 64-column atom w of every chunk, 96 / 128 accumulators a thread):
+// warpgroup 0 forms S and the softmax and stores P (bf16, swizzled, 8 KB)
+// and each row's rescale factor into shared memory before the V-steps'
+// barrier; both take P from there (wgw_product). The warpgroups reach the
+// block's barriers from their own code (named barrier 1), so that neither
+// issues wgmma under a branch. One block an SM (~200-255 registers).
+//
+// The card is filled by splitting the keys, not O's columns: a
+// thread-block cluster of R <= 8 blocks shares one (query tiles, head,
+// batch row, column slice) and rank r takes key tiles T r / R .. T (r + 1)
+// / R - 1 of the T. R comes from the grid (fww_plan): of R = 1..8 the one
+// with the least reckoned time, rounds of the card's SMs (resident
+// clusters of R read with cudaOccupancyMaxActiveClusters) times a block's
+// key tiles plus FWW_RANK_COST tiles for its Q and the combine. At the end
+// the ranks combine (m, l, O) once through distributed shared memory: each
+// rank writes its unnormalised f32 O (64 MQ x W, 8-float groups of a row
+// swizzled by row % 4, over its ring and Q) and its rows' (m, l); after a
+// cluster barrier every rank reads all ranks' (m, l), weights each rank's
+// O by 2^(m_r - m) / l in rank order 0..R-1 and stores its own 1 / R of
+// O's rows x columns, four float4 of every rank in flight a thread; rank 0
+// stores the lse. A rank with no key tile (Tk < 64 R: R does not look at
+// Tk's whole tiles) keeps m = -inf, l = 0 and O = 0 and weighs 0. That is
+// one exchange a block, not one a step. With R = 1 no cluster barrier
+// runs: O is normalised and stored from the registers.
+//
+// Steps: K and V stream through a ring of FWW_SLOTS stages, a 128-column
+// chunk a step, FWW_AHEAD steps copied ahead by cp.async (zero-filled past
+// Tk), one block barrier a step; a key tile is D / 128 S-steps (K_i; S +=
+// Q_i K_i^T), the softmax, then CPS V-steps (V_c; O_c += P V_c). A step's
+// products are waited for a step later, so that the next step's issue
+// while they run; the stage refilled at step n is step n - 2's. Q is copied once
+// and held whole where D <= 512; above, each S-step copies Q_i beside K_i
+// (a stage is two chunks) and Q is read again a key tile.
+//
+// Above W_MAX (D > 512; only the card test at 1152 runs such heads) the
+// grid's y axis runs over (head, slice): ceil(NC / 4) slices of O's
+// columns, CPS = ceil(NC / slices) chunks each (a chunk past D
+// zero-filled and not stored), and each slice forms S itself: D / W times
+// in all. Slice 0 stores the lse.
+
+constexpr int FWW_WMAX = 4;                // chunks of O a block: W_MAX 512
+constexpr int FWW_THREADS = 256;           // two warpgroups
+constexpr int FWW_AHEAD = 3;               // ring steps copied ahead
+// the stages: the step computing, the one before (its products may still
+// run) and the FWW_AHEAD in flight
+constexpr int FWW_SLOTS = FWW_AHEAD + 2;
+// (m, l) of up to 128 rows; 64 rows' rescale factors (MQ = 1); the
+// combine's weights of every rank
+constexpr int FWW_STAT_BYTES = 128 * 8 + 64 * 4 + WGW_MAX_CLUSTER * 128 * 4;
+// a rank's fixed work in key tiles (its Q and the combine) in fww_plan
+constexpr double FWW_RANK_COST = 6.0;
+
+// query tiles a block at CPS chunks of O
+__host__ __device__ constexpr int fww_mq(int cps) { return cps <= 2 ? 2 : 1; }
+
+// shared memory of an instance (CPS chunks of O) with Q held (qres) or
+// streamed: Q, the ring and P, aliased by the f32 O of the exchange, then
+// the statistics; 1024 bytes to align the swizzle atoms
+__host__ __device__ constexpr int fww_main(int cps, bool qres) {
+  return (qres ? (fww_mq(cps) * cps + FWW_SLOTS) * WGW_CHUNK
+               : FWW_SLOTS * 2 * WGW_CHUNK) +
+         (fww_mq(cps) == 1 ? TILE_BYTES : 0);
+}
+__host__ __device__ constexpr int fww_region(int cps, bool qres) {
+  return fww_main(cps, qres) > 64 * fww_mq(cps) * WCH * cps * 4
+             ? fww_main(cps, qres)
+             : 64 * fww_mq(cps) * WCH * cps * 4;
+}
+__host__ __device__ constexpr int fww_smem(int cps, bool qres) {
+  return 1024 + fww_region(cps, qres) + FWW_STAT_BYTES;
+}
+
+// the block's threads (named barrier 1: the two warpgroups reach it from
+// their own code)
+__device__ __forceinline__ void fww_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FWW_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void st_shared32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+// a float2 of rank r's shared memory at a (this block's plainly where r ==
+// c), behind `after`
+__device__ __forceinline__ float2 ld_rank2(uint32_t a, int r, int c,
+                                           uint32_t after) {
+  float2 v;
+  if (r == c)
+    asm("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+        : "=f"(v.x), "=f"(v.y)
+        : "r"(a), "r"(after));
+  else
+    asm("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+        : "=f"(v.x), "=f"(v.y)
+        : "r"(mapa(a, r)), "r"(after));
+  return v;
+}
+
+// d += A B, m64n128k16, A from registers (4 x bf16x2), B MN-major in shared
+// memory two atoms wide (desc_mn2)
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " XT_D64
+      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : XT_ACC64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
+// The online softmax over one key tile's scores s (m64n64 accumulators:
+// rows g, g + 8; the columns from k0 at or past Tk masked to -inf first),
+// as flash_fwd_kernel's: the running maxima m, this thread's part of the
+// row sums l, the rows' rescale factors a0, a1; s leaves as P,
+// unnormalised.
+__device__ __forceinline__ void fww_softmax(float (&s)[32], float& m0,
+                                            float& m1, float& l0, float& l1,
+                                            float& a0, float& a1, int k0,
+                                            int Tk, float scale_log2) {
+  const int cq = (threadIdx.x & 3) * 2;
+  if (k0 + BK > Tk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (k0 + 8 * j + cq + c >= Tk)
+          s[4 * j + c] = s[4 * j + 2 + c] = -INFINITY;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  // every tile holds at least one valid column, so mx0 / mx1 are finite
+  a0 = exp2f((m0 - mx0) * scale_log2);
+  a1 = exp2f((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -mb0));
+    s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -mb0));
+    s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -mb1));
+    s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -mb1));
+    rs0 += s[4 * j] + s[4 * j + 1];
+    rs1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + rs0;
+  l1 = l1 * a1 + rs1;
+}
+
+// What a block of flash_fwd_wgmma_wide works on.
+struct FwwArgs {
+  const bf16* qb;  // q, k, v at the block's (batch row, head)
+  const bf16* kb;
+  const bf16* vb;
+  bf16* ob;        // o there
+  float* lse_row;  // the (b, h) row of the lse where this block stores it
+  long long sqt, skt, svt, sot;
+  int Tq, Tk, D, q0, col0, t0, t1, R, rank;
+  bool qres;           // Q held whole
+  uint32_t base;       // the region (Q, ring, P; the exchange), 1024-aligned
+  uint32_t sstat;      // the statistics (shared address) ...
+  unsigned char* stat; // ... and generic
+  float scale_log2;
+};
+
+// Warpgroup ROLE of a block: with MQ = 2 each warpgroup (ROLE 0) forms S,
+// the softmax and P of its own query tile (rows 64 wg of the block's) and
+// takes its O; with MQ = 1 warpgroup 0 forms S, the softmax and P and
+// takes its atoms of O, warpgroup 1 (ROLE 1) its atoms.
+template <int CPS, int MQ, int ROLE>
+__device__ __forceinline__ void fww_body(const FwwArgs& a) {
+  constexpr int NT = FWW_THREADS;
+  constexpr int ACC = MQ == 2 ? 64 : 32;  // accumulators of a chunk
+  constexpr int W = WCH * CPS;
+  constexpr int RB = 64 * MQ;             // query rows a block
+  constexpr float LN2 = 0.6931471805599453f;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int rw = MQ == 2 ? 64 * wg : 0;   // this warpgroup's first row
+  const int r0 = rw + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const int cw = MQ == 2 ? 0 : 64 * ROLE; // its first column of a chunk
+  const int ncd = a.D / WCH, per = ncd + CPS;
+  const int nsteps = (a.t1 - a.t0) * per;
+  const uint32_t sb = a.qres ? WGW_CHUNK : 2 * WGW_CHUNK;
+  const uint32_t sQ = a.base;
+  const uint32_t ring = a.base + (a.qres ? MQ * ncd * WGW_CHUNK : 0);
+  const uint32_t sP = ring + FWW_SLOTS * sb;  // MQ = 1
+  float2* const stat = reinterpret_cast<float2*>(a.stat);
+  float* const alpha = reinterpret_cast<float*>(a.stat + 128 * 8);
+  float* const wts = alpha + 64;
+  auto stage = [&](int n) { return ring + (uint32_t)(n % FWW_SLOTS) * sb; };
+  // step n's copies: K_i (and Q_i where Q is not held: MQ = 1) or V_c
+  auto load = [&](int n) {
+    const int tile = a.t0 + n / per, i = n % per;
+    const uint32_t st = stage(n);
+    if (i < ncd) {
+      if (!a.qres)
+        load_chunk<NT>(st + WGW_CHUNK, a.qb + i * WCH, a.sqt, a.q0, a.Tq);
+      load_chunk<NT>(st, a.kb + i * WCH, a.skt, tile * BK, a.Tk);
+    } else {
+      const int col = a.col0 + (i - ncd) * WCH;
+      const bool in = col < a.D;
+      load_chunk<NT>(st, in ? a.vb + col : a.vb, a.svt, tile * BK,
+                     in ? a.Tk : 0);
+    }
+  };
+  // the top of step n: this thread's products of step n - 2 (drain: of
+  // every step) done, step n's copies landed for every thread, step n +
+  // FWW_AHEAD's issued into step n - 2's stage
+  auto begin = [&](int n, bool drain) {
+    if (drain)
+      wgmma_wait<0>();
+    else
+      wgmma_wait<1>();
+    cp_async_wait<FWW_AHEAD - 1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fww_sync();
+    if (n + FWW_AHEAD < nsteps) load(n + FWW_AHEAD);
+    cp_async_commit();
+  };
+
+  if (a.qres && nsteps > 0)
+    for (int i = 0; i < MQ * ncd; ++i)
+      load_chunk<NT>(sQ + i * WGW_CHUNK, a.qb + (i % ncd) * WCH, a.sqt,
+                     a.q0 + 64 * (i / ncd), a.Tq);
+#pragma unroll
+  for (int n = 0; n < FWW_AHEAD; ++n) {
+    if (n < nsteps) load(n);
+    cp_async_commit();
+  }
+  const uint32_t myQ = sQ + (rw / 64) * ncd * WGW_CHUNK;
+
+  float acc[CPS][ACC];
+#pragma unroll
+  for (int c = 0; c < CPS; ++c)
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[c][i] = 0.f;
+  float s[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = 0u;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r0 + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+
+  int n = 0;
+  for (int tile = a.t0; tile < a.t1; ++tile) {
+    // ---- S = sum over the chunks of Q_i K_i^T ----
+    for (int i = 0; i < ncd; ++i, ++n) {
+      begin(n, ROLE == 1);
+      if constexpr (ROLE == 0) {
+        const uint32_t st = stage(n);
+        wgw_partial(s, a.qres ? myQ + i * WGW_CHUNK : st + WGW_CHUNK, st,
+                    i == 0);
+      }
+    }
+    // ---- softmax; P in registers (MQ = 2) or shared memory ----
+    if constexpr (ROLE == 0) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(p);
+      float al0, al1;
+      fww_softmax(s, m0, m1, l0, l1, al0, al1, tile * BK, a.Tk,
+                  a.scale_log2);
+#pragma unroll
+      for (int c = 0; c < CPS; ++c)
+#pragma unroll
+        for (int j = 0; j < ACC / 4; ++j) {
+          acc[c][4 * j] *= al0;
+          acc[c][4 * j + 1] *= al0;
+          acc[c][4 * j + 2] *= al1;
+          acc[c][4 * j + 3] *= al1;
+        }
+      if constexpr (MQ == 2) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+          p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        }
+      } else {
+        // P (64 x 64 bf16, wgmma's K-major swizzled tile): row r's 16-byte
+        // chunk j at r * 128 + ((j ^ (r % 8)) << 4)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t at =
+              sP + r0 * 128 + ((j ^ (r0 & 7)) << 4) + 2 * cq;
+          st_shared32(at, pack_bf16(s[4 * j], s[4 * j + 1]));
+          st_shared32(at + 8 * 128, pack_bf16(s[4 * j + 2], s[4 * j + 3]));
+        }
+        if (cq == 0) {
+          alpha[r0] = al0;
+          alpha[r0 + 8] = al1;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
+    // ---- O_c += P V_c (warpgroup 1 rescales O first, its products of
+    // the last tile drained) ----
+#pragma unroll
+    for (int c = 0; c < CPS; ++c, ++n) {
+      begin(n, ROLE == 1 && c == 0);
+      const uint32_t st = stage(n);
+      if constexpr (ROLE == 1) {
+        if (c == 0) {
+          const float al0 = alpha[r0], al1 = alpha[r0 + 8];
+#pragma unroll
+          for (int cc = 0; cc < CPS; ++cc)
+#pragma unroll
+            for (int j = 0; j < ACC / 4; ++j) {
+              acc[cc][4 * j] *= al0;
+              acc[cc][4 * j + 1] *= al0;
+              acc[cc][4 * j + 2] *= al1;
+              acc[cc][4 * j + 3] *= al1;
+            }
+        }
+      }
+      fence_regs(acc[c]);
+      wgmma_fence();
+      if constexpr (MQ == 2) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs128(acc[c], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                      p[4 * kk + 3], desc_mn2(st + 2048 * kk));
+      } else {
+        wgw_product(acc[c], sP, st + ROLE * TILE_BYTES);
+      }
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < CPS; ++c) fence_regs(acc[c]);
+  fence_regs(p);
+  cp_async_wait<0>();
+
+  // ---- the rows' (m scale log2 e, l), of the warpgroups that form S ----
+  if constexpr (ROLE == 0) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (cq == 0) {
+      stat[r0] = make_float2(m0 * a.scale_log2, l0);
+      stat[r0 + 8] = make_float2(m1 * a.scale_log2, l1);
+    }
+  }
+  fww_sync();  // ... stored; Q, the ring and P read by every thread
+
+  if (a.R == 1) {  // ---- O normalised and stored from the registers ----
+    const float2 x0 = stat[r0], x1 = stat[r0 + 8];
+    const float inv0 = 1.f / x0.y, inv1 = 1.f / x1.y;
+    if (ROLE == 0 && a.lse_row != nullptr && cq == 0) {
+      if (a.q0 + r0 < a.Tq)
+        a.lse_row[a.q0 + r0] = (x0.x + log2f(x0.y)) * LN2;
+      if (a.q0 + r0 + 8 < a.Tq)
+        a.lse_row[a.q0 + r0 + 8] = (x1.x + log2f(x1.y)) * LN2;
+    }
+#pragma unroll
+    for (int c = 0; c < CPS; ++c) {
+#pragma unroll
+      for (int j = 0; j < ACC / 4; ++j) {
+        acc[c][4 * j] *= inv0;
+        acc[c][4 * j + 1] *= inv0;
+        acc[c][4 * j + 2] *= inv1;
+        acc[c][4 * j + 3] *= inv1;
+      }
+      const int col = a.col0 + c * WCH + cw;
+      if (col < a.D)
+        store_wg_rows<ACC>(a.ob + col, a.sot, a.q0 + rw, a.Tq, acc[c]);
+    }
+    return;
+  }
+
+  // ---- the combine: O unnormalised into the exchange (row r's float
+  // column x at r W + (x ^ 8 (r % 4)): a warp's float2 stores take two
+  // wavefronts), every rank's published ----
+  float* const ex =
+      reinterpret_cast<float*>(a.stat - fww_region(CPS, a.qres));
+#pragma unroll
+  for (int c = 0; c < CPS; ++c)
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half, col = c * WCH + cw + 8 * j + cq;
+        *reinterpret_cast<float2*>(ex + r * W + (col ^ ((r & 3) << 3))) =
+            make_float2(acc[c][4 * j + 2 * half],
+                        acc[c][4 * j + 2 * half + 1]);
+      }
+  const uint32_t after = cluster_sync();
+  // every rank's weight of each row, in rank order: 2^(m_r - m) / l with m
+  // the rows' largest m_r and l = sum of 2^(m_r - m) l_r (0 for a rank
+  // without a key tile); rank 0 stores the lse
+  if ((int)threadIdx.x < RB) {
+    const int row = threadIdx.x;
+    float mr[WGW_MAX_CLUSTER], lr[WGW_MAX_CLUSTER];
+    float M = -INFINITY;
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      const float2 x = ld_rank2(a.sstat + row * 8, rk, a.rank, after);
+      mr[rk] = x.x;
+      lr[rk] = x.y;
+      M = fmaxf(M, x.x);
+    }
+    float L = 0.f;
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      mr[rk] = exp2f(mr[rk] - M);
+      L += mr[rk] * lr[rk];
+    }
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      wts[rk * RB + row] = mr[rk] / L;
+    }
+    if (a.rank == 0 && a.lse_row != nullptr && a.q0 + row < a.Tq)
+      a.lse_row[a.q0 + row] = (M + log2f(L)) * LN2;
+  }
+  fww_sync();
+  // this rank's share of O's RB W / 4 float4 (row-major: row u / (W / 4),
+  // columns 4 (u % (W / 4)) ..), summed over the ranks in rank order, UB
+  // units a thread at once: their loads of a rank in flight together
+  constexpr int UB = 4;
+  const uint32_t sex = a.sstat - fww_region(CPS, a.qres);
+  const int lo = RB * W / 4 * a.rank / a.R;
+  const int hi = RB * W / 4 * (a.rank + 1) / a.R;
+  for (int u0 = lo + threadIdx.x; u0 < hi; u0 += UB * NT) {
+    int row[UB], col[UB];
+    uint32_t at[UB];
+    float4 o[UB];
+#pragma unroll
+    for (int e = 0; e < UB; ++e) {
+      const int u = u0 + e * NT < hi ? u0 + e * NT : u0;
+      row[e] = u / (W / 4);
+      col[e] = 4 * (u % (W / 4));
+      at[e] = sex + (row[e] * W + (col[e] ^ ((row[e] & 3) << 3))) * 4;
+      o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      float4 x[UB];
+#pragma unroll
+      for (int e = 0; e < UB; ++e) x[e] = ld_rank4(at[e], rk, a.rank, after);
+#pragma unroll
+      for (int e = 0; e < UB; ++e) {
+        const float w = wts[rk * RB + row[e]];
+        o[e].x += x[e].x * w;
+        o[e].y += x[e].y * w;
+        o[e].z += x[e].z * w;
+        o[e].w += x[e].w * w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < UB; ++e)
+      if (u0 + e * NT < hi && a.q0 + row[e] < a.Tq && a.col0 + col[e] < a.D)
+        *reinterpret_cast<uint2*>(a.ob + (long long)(a.q0 + row[e]) * a.sot +
+                                  a.col0 + col[e]) =
+            make_uint2(pack_bf16(o[e].x, o[e].y), pack_bf16(o[e].z, o[e].w));
+  }
+  cluster_sync();  // no rank leaves while another reads its exchange
+}
+
+// Grid (R x query blocks of 64 MQ rows, H x slices, B), clusters of R
+// along x: block x's query block x / R, rank x % R.
+template <int CPS, int MQ>
+__global__ void __launch_bounds__(FWW_THREADS, 1)
+flash_fwd_wgmma_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, int D, int R,
+                     long long sqb, long long sqt, long long sqh,
+                     long long skb, long long skt, long long skh,
+                     long long svb, long long svt, long long svh,
+                     long long sob, long long sot, long long soh,
+                     float scale_log2) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int nsl = (D / WCH + FWW_WMAX - 1) / FWW_WMAX;
+  const int h = blockIdx.y / nsl, sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int H = gridDim.y / nsl, T = (Tk + BK - 1) / BK;
+  FwwArgs a;
+  a.rank = blockIdx.x % R;
+  a.R = R;
+  a.q0 = blockIdx.x / R * 64 * MQ;
+  a.qb = q + b * sqb + h * sqh;
+  a.kb = k + b * skb + h * skh;
+  a.vb = v + b * svb + h * svh;
+  a.ob = o + b * sob + h * soh;
+  a.lse_row = lse != nullptr && sl == 0
+                  ? lse + ((long long)b * H + h) * Tq
+                  : nullptr;
+  a.sqt = sqt;
+  a.skt = skt;
+  a.svt = svt;
+  a.sot = sot;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.D = D;
+  a.col0 = sl * WCH * CPS;
+  a.t0 = (int)((long long)T * a.rank / R);
+  a.t1 = (int)((long long)T * (a.rank + 1) / R);
+  a.qres = nsl == 1;
+  a.base = base;
+  const int region = fww_region(CPS, a.qres);
+  a.sstat = base + region;
+  a.stat = smem + (base - raw) + region;
+  a.scale_log2 = scale_log2;
+  if constexpr (MQ == 2)
+    fww_body<CPS, 2, 0>(a);
+  else if (threadIdx.x < 128)
+    fww_body<CPS, 1, 0>(a);
+  else
+    fww_body<CPS, 1, 1>(a);
+}
+
 template <typename K>
 int opt_in(K kernel, int bytes, unsigned& opted) {
   int dev = 0;
@@ -3156,8 +3731,8 @@ struct DqTC {
   }
 };
 
-// The wide kernels' launches at d = 128 NC: the ring's four tiles (dkv
-// with its statistics), opted in once per device.
+// The f32 wide forward's launch at d = 128 NC, NC >= 2: the ring's four
+// tiles, opted in once per device.
 template <typename T>
 struct FwdWide {
   static int run(const void* q, const void* k, const void* v, void* o,
@@ -3176,9 +3751,9 @@ struct FwdWide {
 };
 
 // a tile kernel's launch at (f32 or bf16, d): f32 at 32 and 64, bf16 at
-// 32 (bf16 at 64 is the wgmma kernels'), both at 128 where AT_128 (the
-// forward: the backward's 128 is the wide pairs'); another width is
-// refused
+// 32 (bf16 at 64 is the wgmma kernels'), f32 at 128 where AT_128 (the
+// forward: the backward's 128 is the wide pairs', the bf16 forward's the
+// wgmma wide forward's); another width is refused
 template <template <typename, int> class L, bool AT_128, typename... Args>
 int by_width(int f32, int d, Args... args) {
   if (f32 && d == 32) return L<float, 32>::run(args...);
@@ -3186,17 +3761,8 @@ int by_width(int f32, int d, Args... args) {
   if (!f32 && d == 32) return L<bf16, 32>::run(args...);
   if constexpr (AT_128) {
     if (f32 && d == 128) return L<float, 128>::run(args...);
-    if (!f32 && d == 128) return L<bf16, 128>::run(args...);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// a wide kernel's launch at d = 128 NC, NC >= 2 (args carry NC); another
-// width above 128 is refused
-template <template <typename> class L, typename... Args>
-int by_chunks(int f32, int d, Args... args) {
-  if (d % WCH) return (int)cudaErrorInvalidValue;
-  return f32 ? L<float>::run(args...) : L<bf16>::run(args...);
 }
 
 // The wgmma pair takes bf16 at every multiple of 128; at width 128 too,
@@ -3229,11 +3795,138 @@ int launch_wgw(Kernel kernel, int smem, unsigned& opted, int tiles, int H,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+
+// The bf16 forward's plan at (B, Tq, Tk, H, d = 128 NC): the slices of O's
+// columns, the chunks of O a block (the instance), its query tiles and
+// shared memory, the split R of the keys over a cluster and the clusters
+// of R that can be resident at once.
+struct FwwPlan {
+  int nsl, cps, mq, smem, R, resident;
+};
+
+using FwwKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*,
+                           float*, int, int, int, int, long long, long long,
+                           long long, long long, long long, long long,
+                           long long, long long, long long, long long,
+                           long long, long long, float);
+
+FwwKernel fww_kernel(int cps) {
+  switch (cps) {
+    case 1: return flash_fwd_wgmma_wide<1, 2>;
+    case 2: return flash_fwd_wgmma_wide<2, 2>;
+    case 3: return flash_fwd_wgmma_wide<3, 1>;
+    default: return flash_fwd_wgmma_wide<4, 1>;
+  }
+}
+
+// clusters of r blocks of instance cps (Q held or not) that can be
+// resident at once, read once per device (the instance's shared memory
+// opted in with the first)
+int fww_resident(int cps, bool qres, int r, int smem, int* out) {
+  static unsigned opted[FWW_WMAX] = {};
+  static int seen[32][FWW_WMAX][2][WGW_MAX_CLUSTER + 1] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& n = seen[dev & 31][cps - 1][qres][r];
+  if (n == 0) {
+    const int most = fww_smem(cps, false) > fww_smem(cps, true)
+                         ? fww_smem(cps, false)
+                         : fww_smem(cps, true);
+    if (int e = opt_in(fww_kernel(cps), most, opted[cps - 1])) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(64 * r, 1, 1);
+    cfg.blockDim = dim3(FWW_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = r;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int got = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&got, fww_kernel(cps), &cfg);
+    if (e != cudaSuccess) return (int)e;
+    n = got > 0 ? got : -1;  // -1: no such cluster fits
+  }
+  *out = n;
+  return 0;
+}
+
+// R: of 1..8 the split with the least reckoned time, in rounds of the
+// card's SMs (a wave of resident clusters, or what is left of the grid,
+// as blocks an SM) times a block's share of the key tiles plus
+// FWW_RANK_COST; ties go to the smaller R
+int fww_plan(int B, int Tq, int Tk, int H, int d, FwwPlan& p) {
+  static int sms[32] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (sms[dev & 31] == 0) {
+    const cudaError_t e = cudaDeviceGetAttribute(
+        &sms[dev & 31], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long nsm = sms[dev & 31];
+  const int nc = d / WCH;
+  p.nsl = (nc + FWW_WMAX - 1) / FWW_WMAX;
+  p.cps = (nc + p.nsl - 1) / p.nsl;
+  p.mq = fww_mq(p.cps);
+  const bool qres = p.nsl == 1;
+  p.smem = fww_smem(p.cps, qres);
+  const long long units =
+      (long long)((Tq + 64 * p.mq - 1) / (64 * p.mq)) * H * p.nsl * B;
+  const double tiles = (double)Tk / BK;
+  double best = 0.0;
+  p.R = 0;
+  for (int r = 1; r <= WGW_MAX_CLUSTER; ++r) {
+    int act = 0;
+    if (int e = fww_resident(p.cps, qres, r, p.smem, &act)) return e;
+    if (act < 1) continue;
+    const long long full = units / act, rest = units % act;
+    const long long rounds = full * ((act * r + nsm - 1) / nsm) +
+                             (rest * r + nsm - 1) / nsm;
+    const double cost = rounds * (tiles / r + FWW_RANK_COST);
+    if (p.R == 0 || cost < best) {
+      best = cost;
+      p.R = r;
+      p.resident = act;
+    }
+  }
+  return p.R ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+int launch_fww(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Tq, int Tk, int H, int d,
+               const long long* s, float scale, cudaStream_t stream) {
+  FwwPlan p;
+  if (int e = fww_plan(B, Tq, Tk, H, d, p)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.R * ((Tq + 64 * p.mq - 1) / (64 * p.mq)), H * p.nsl,
+                     B);
+  cfg.blockDim = dim3(FWW_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, fww_kernel(p.cps), (const bf16*)q, (const bf16*)k,
+      (const bf16*)v, (bf16*)o, lse, Tq, Tk, d, p.R, s[0], s[1], s[2], s[3],
+      s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale * LOG2E);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
 }  // namespace
 
 // f32 != 0: float inputs and output, else bf16; d: the head width (bf16 at
-// 64: the wgmma kernel; up to 128 a tile kernel; a multiple of 128 above
-// it a wide kernel). lse: null, or (B, H, Tq) f32 for the backward.
+// 64: the wgmma kernel; bf16 at every multiple of 128: the wgmma wide
+// forward; f32 up to 128 and bf16 at 32 a tile kernel; f32 at a multiple
+// of 128 above 128 the wide kernel). lse: null, or (B, H, Tq) f32 for the
+// backward.
 XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Tq, int Tk, int H,
                              long long sqb, long long sqt, long long sqh,
@@ -3243,10 +3936,15 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              float scale, int f32, int d, void* stream) {
   const long long s[12] = {sqb, sqt, sqh, skb, skt, skh,
                            svb, svt, svh, sob, sot, soh};
+  if (!f32 && d % WCH == 0)
+    return launch_fww(q, k, v, o, (float*)lse, B, Tq, Tk, H, d,
+                      (const long long*)s, scale, (cudaStream_t)stream);
   if (d > WCH)
-    return by_chunks<FwdWide>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
-                              d / WCH, (const long long*)s, scale,
-                              (cudaStream_t)stream);
+    return !f32 || d % WCH
+               ? (int)cudaErrorInvalidValue
+               : FwdWide<float>::run(q, k, v, o, (float*)lse, B, Tq, Tk, H,
+                                     d / WCH, (const long long*)s, scale,
+                                     (cudaStream_t)stream);
   if (f32 || d != 64)
     return by_width<FwdTC, true>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
                            (const long long*)s, scale, (cudaStream_t)stream);
@@ -3384,17 +4082,36 @@ XT_API int xt_flash_attn_bwd_clusters(int f32, int d, int dq, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, fns[i], &cfg);
 }
 
+// The bf16 forward's plan at these shapes and d, a multiple of 128 (csrc
+// fww_plan): out[0] the split R of the keys over a cluster, out[1] the
+// clusters of R that can be resident at once, out[2] the slices of O's
+// columns, out[3] the query rows a block
+XT_API int xt_flash_attn_fwd_plan(int B, int Tq, int Tk, int H, int d,
+                                  int* out) {
+  if (d < WCH || d % WCH) return (int)cudaErrorInvalidValue;
+  FwwPlan p;
+  if (int e = fww_plan(B, Tq, Tk, H, d, p)) return e;
+  out[0] = p.R;
+  out[1] = p.resident;
+  out[2] = p.nsl;
+  out[3] = 64 * p.mq;
+  return 0;
+}
+
 // Registers and local-memory bytes a thread of every kernel, out[2 i] and
 // out[2 i + 1] for i = 8 f + w: f = forward, dkv, dq; w = bf16 at 32, 64
 // (the wgmma kernels), 128, the wide kernel, then f32 at the same; the
 // backward's 128 and wide entries are both the wide pairs' (bf16 the
-// wgmma pair, f32 the f32 pair; local memory other than 0 is a spill)
+// wgmma pair, f32 the f32 pair; local memory other than 0 is a spill); the
+// bf16 forward's 128 and wide entries are the wgmma wide forward's
+// instances of 128 and 256 columns a block, and i = 24, 25 its instances
+// of 384 and 512
 XT_API int xt_flash_attn_attrs(int* out) {
-  const void* fns[24] = {
+  const void* fns[26] = {
       (const void*)flash_fwd_tc_kernel<bf16, 32>,
       (const void*)flash_fwd_kernel,
-      (const void*)flash_fwd_tc_kernel<bf16, 128>,
-      (const void*)flash_fwd_wide_kernel<bf16>,
+      (const void*)flash_fwd_wgmma_wide<1, 2>,
+      (const void*)flash_fwd_wgmma_wide<2, 2>,
       (const void*)flash_fwd_tc_kernel<float, 32>,
       (const void*)flash_fwd_tc_kernel<float, 64>,
       (const void*)flash_fwd_tc_kernel<float, 128>,
@@ -3414,8 +4131,10 @@ XT_API int xt_flash_attn_attrs(int* out) {
       (const void*)flash_bwd_dq_tc_kernel<float, 32>,
       (const void*)flash_bwd_dq_tc_kernel<float, 64>,
       (const void*)flash_bwd_dq_f32_wide,
-      (const void*)flash_bwd_dq_f32_wide};
-  for (int i = 0; i < 24; ++i) {
+      (const void*)flash_bwd_dq_f32_wide,
+      (const void*)flash_fwd_wgmma_wide<3, 1>,
+      (const void*)flash_fwd_wgmma_wide<4, 1>};
+  for (int i = 0; i < 26; ++i) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
     if (e != cudaSuccess) return (int)e;
