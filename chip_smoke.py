@@ -46,11 +46,13 @@ Phases, each reported on its own lines:
      step's (8, 1200 | 1600), bf16, and at the main bucket in f32, each
      twice to the same bits, beside SDPA's backward; each kernel's
      TFLOP/s, share of its bound (f32: of both), registers and local
-     memory, no spill below width 128; the head widths 32, 128 and 256
+     memory, no spill in any K2 kernel; the head widths 32, 128 and 256
      (512 channels; 256 on the wide kernels), 384 (one head, the wide
      kernels) and 48 (zero-padded to 64, counted), bf16 and f32, forward
      and backward against the f32 twins, the same bits twice, beside SDPA
-     and the bounds); K3 (vq_nearest on
+     and the bounds; the wide forwards' launches, bf16 at 256 and f32 at
+     128, 256 and 384, held to a torch.profiler trace in a fresh
+     process); K3 (vq_nearest on
      the DVAE's own 3008 x 512 logits against its 8192-code codebook, a
      ragged shape and a planted tie, also on 4 rotating copies of rows
      and codebook); K4
@@ -1170,25 +1172,26 @@ def k2_backward_checks(torch, fa, results, card):
         torch.cuda.empty_cache()
 
 
-def k2_width_checks(torch, fa, results, launches, card):
+def k2_width_checks(torch, fa, results, card):
     """K2 at the other head widths (K2_WIDTHS: 32 and 128 run as they are,
     48 zero-padded to 64 and counted in flash_mha.pads, 256 and 384 on the
-    wide kernels; bf16 from 128 the wgmma wide forward, whose split R of
-    the keys over a cluster, resident clusters of R, TFLOP/s and share of
-    the forward bound are printed, and one of whose width-256 forwards is
-    held to its launch count in a torch.profiler trace), bf16 and f32:
-    the forward and its lse against the f32 plain forward (K2_TOL /
-    K2_F32_TOL, K2_LSE_TOL), the backward against
-    the f32 plain backward (K2_BWD_TOL of each gradient's largest), the
-    same bits twice; device us of the forward, dkv and dq beside SDPA's
-    forward and backward on the same inputs and the bounds (tensor-core
-    operations: 4 B H Tq Tk D a forward, 10 a backward, bf16 at 989
-    TFLOP/s, f32's 3xTF32 three times as many at 495); each kernel's
-    registers and local memory (a spill is printed, and refused in every
-    kernel but the f32 forwards from width 128: the tile family's at 128,
-    the wide forward above); at the wide pairs' widths (128 and above) the
-    backward's TFLOP/s and share of its bound by device time and the
-    clusters of each kernel that can be resident at once."""
+    wide kernels; from 128 the wide forwards, bf16 flash_fwd_wgmma_wide
+    and f32 flash_fwd_f32_wide, whose split R of the keys over a cluster,
+    resident clusters of R, query rows a block, TFLOP/s, share of the
+    forward bound and factor against SDPA's forward are printed, and
+    whose launches are held to a torch.profiler trace in a fresh process:
+    hold_wide_forwards_to_trace), bf16 and f32: the forward and its lse
+    against the f32 plain forward (K2_TOL / K2_F32_TOL, K2_LSE_TOL), the
+    same bits twice, the backward on that lse against the f32 plain
+    backward (K2_BWD_TOL of each gradient's largest), the same bits
+    twice; device us of the forward, dkv and dq beside SDPA's forward and
+    backward on the same inputs and the bounds (tensor-core operations: 4
+    B H Tq Tk D a forward, 10 a backward, bf16 at 989 TFLOP/s, f32's
+    3xTF32 three times as many at 495); each kernel's registers and local
+    memory (a spill is printed and refused); at the wide pairs' widths
+    (128 and above) the backward's TFLOP/s and share of its bound by
+    device time and the clusters of each kernel that can be resident at
+    once."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(96)
     attrs = fa.kernel_attrs()
@@ -1213,6 +1216,10 @@ def k2_width_checks(torch, fa, results, launches, card):
                   f"{fa.flash_mha.pads}")
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"[k2] {kind} width {w}: backward differs between runs")
+            o2, lse2 = fa._flash_fwd_cuda(q, k, v, sc, True)
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"[k2] {kind} width {w}: forward differs between runs")
+            del o2, lse2
             qf, kf, vf = (t.float() for t in (q, k, v))
             o32, lse32 = fa.flash_mha_plain_lse(qf, kf, vf, sc)
             e_o, e_l = max_err(o, o32), max_err(lse, lse32)
@@ -1257,30 +1264,27 @@ def k2_width_checks(torch, fa, results, launches, card):
             key = native if native <= 128 else fa.WIDE
             for name in ("flash_mha", "flash_mha_bwd_dkv",
                          "flash_mha_bwd_dq"):
-                regs, local = attrs[(name, kind, fa.fwd_block_width(native)
-                                     if name == "flash_mha" and kind == "bf16"
+                regs, local = attrs[(name, kind,
+                                     fa.fwd_block_width(native, dt)
+                                     if name == "flash_mha"
                                      and native % 128 == 0 else key)]
                 spills.append(f"{name} {regs} registers, {local} local "
                               f"bytes")
-                # left alone: the f32 forwards at 128 (the tile family's)
-                # and above (the wide forward)
-                check(local == 0 or (kind == "f32" and native >= 128
-                                     and name == "flash_mha"),
-                      f"[k2] {name} {kind} width {native} spills {local} "
-                      f"bytes")
+                check(local == 0, f"[k2] {name} {kind} width {native} "
+                      f"spills {local} bytes")
             pair, resident, plan, fwd = "", None, None, ""
-            if kind == "bf16" and native % 128 == 0:
-                plan = fa.fwd_plan(b, tq, tk, h, native)
-                fwd = (f"; the wgmma wide forward: R {plan['split']} ranks "
-                       f"a cluster over the keys, at most "
-                       f"{plan['resident']} clusters of R resident, "
-                       f"{plan['slices']} slice(s), {plan['rows']} query "
-                       f"rows a block, {b_f * 1e3 / d_f:.3f} of the "
-                       f"forward bound, {d_f / s_f:.2f}x SDPA's forward")
-                if w == 256:
-                    hold_counts_to_trace(
-                        torch, lambda: fa._flash_fwd_cuda(q, k, v, sc, True),
-                        launches, f"[k2] bf16 width {w} forward", card)
+            if native % 128 == 0:
+                plan = fa.fwd_plan(b, tq, tk, h, native, dt)
+                fops = 2 * unit * (3 if kind == "f32" else 1)
+                fwd = (f"; the {'3xTF32' if kind == 'f32' else 'wgmma'} "
+                       f"wide forward: R {plan['split']} ranks a cluster "
+                       f"over the keys, at most {plan['resident']} "
+                       f"clusters of R resident, {plan['slices']} "
+                       f"slice(s), {plan['rows']} query rows a block, "
+                       f"{fops / (d_f * 1e-6) / 1e12:.1f} TFLOP/s of its "
+                       f"{'3xTF32 ' * (kind == 'f32')}operations, "
+                       f"{b_f * 1e3 / d_f:.3f} of the forward bound, "
+                       f"{d_f / s_f:.2f}x SDPA's forward")
             if native % 128 == 0:
                 nc = native // 128
                 cs = -(-nc // -(-nc // 8))       # csrc wgw_cs
@@ -1317,6 +1321,46 @@ def k2_width_checks(torch, fa, results, launches, card):
             del q, k, v, do, o, lse, delta, got, qs, ks, vs, dos
             torch.cuda.empty_cache()
     results["flash_mha"]["widths"] = rows
+    hold_wide_forwards_to_trace(card)
+
+
+# run by hold_wide_forwards_to_trace in a process of its own
+WIDE_TRACE_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+from xtts_tpu_torch.nn import flash_attn as fa
+launches = cs.Launches(fa.KERNELS)
+g = torch.Generator(device="cuda").manual_seed(97)
+for kind, (b, tq, tk, h, w) in {cases!r}:
+    q, k, v = (torch.randn(b, t, h, w, generator=g, device="cuda").to(
+        torch.bfloat16 if kind == "bf16" else torch.float32)
+               for t in (tq, tk, tk))
+    fa._flash_fwd_cuda(q, k, v, w ** -0.5, True)
+    cs.hold_counts_to_trace(
+        torch, lambda: fa._flash_fwd_cuda(q, k, v, w ** -0.5, True),
+        launches, f"[k2] {{kind}} width {{w}} forward", {card!r})
+"""
+
+
+def hold_wide_forwards_to_trace(card):
+    """The wide forwards' launches held to a torch.profiler trace (bf16 at
+    256, f32 at 128, 256 and 384; K2_WIDTHS' shapes), in a fresh process:
+    on an H100 (torch 2.11, CUDA 12.8) a session of one launch begun late
+    in a process could hold no device record at all, while a fresh
+    process's first sessions held theirs (scripts/trace_age.py), and
+    [k2] runs minutes into chip_smoke."""
+    cases = [(kind, x) for x in K2_WIDTHS for kind in ("bf16", "f32")
+             if x[4] % 128 == 0 and (kind == "f32" or x[4] == 256)]
+    proc = subprocess.run(
+        [sys.executable, "-c", WIDE_TRACE_CHILD.format(
+            root=str(ROOT), cases=cases, card=card)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    check(proc.returncode == 0, f"[k2] the wide forwards' traces: "
+          f"{proc.stderr[-2000:]}")
 
 
 def qdot64(torch):
@@ -4001,8 +4045,8 @@ TRACE_KERNELS = (
     ("serving_attention", r"serving_attention_kernel()"),
     ("layer_norm_rows", r"layer_norm_rows_kernel()"),
     # every forward: flash_fwd_kernel, flash_fwd_tc_kernel<T, D>,
-    # flash_fwd_wide_kernel<float>, flash_fwd_wgmma_wide<CPS, MQ>
-    ("flash_mha", r"flash_fwd_(?:(?:tile_|tc_|wide_)?kernel|wgmma_wide)()"),
+    # flash_fwd_wgmma_wide<CPS, MQ>, flash_fwd_f32_wide<CPS, MQ>
+    ("flash_mha", r"flash_fwd_(?:(?:tile_|tc_)?kernel|wgmma_wide|f32_wide)()"),
     ("flash_mha_bwd_dkv",
      r"flash_bwd_dkv_(?:(?:tile_|tc_)?kernel|wgmma_wide|f32_wide)()"),
     ("flash_mha_bwd_dq",
@@ -4036,7 +4080,12 @@ def trace_mismatch(events, counted: dict):
     wrong = {k: (n, counted.get(k, 0)) for k, n in traced.items()
              if n != counted.get(k, 0)}
     if not any(traced.values()):
-        return "no counted kernel in the trace"
+        names = sorted({e["name"][:80] for e in events
+                        if e.get("cat") == "kernel"})
+        calls = sorted({e["name"] for e in events
+                        if e.get("cat") == "cuda_runtime"})
+        return (f"no counted kernel in the trace ({len(names)} other "
+                f"kernel names: {names[:4]}; runtime calls: {calls[:6]})")
     if not wrong:
         return None
     api = {e["args"].get("correlation"): e["name"] for e in events
@@ -5334,7 +5383,7 @@ def main() -> None:
         k2_checks(torch, fa, results, card)
         k2_f32_checks(torch, fa, results, card)
         k2_backward_checks(torch, fa, results, card)
-        k2_width_checks(torch, fa, results, launches, card)
+        k2_width_checks(torch, fa, results, card)
         k4_checks(torch, ds, ss, qt, st, cfg.gpt, p_len, p_len + max_gen,
                   results, card)
         del qt, st

@@ -14,7 +14,9 @@ width of --widths in each dtype of --dtypes (default bf16) over 512
 channels (512 / width heads; one head where 512 does not divide, as
 chip_smoke's K2_WIDTHS), keys "<kind>_<width>_<kernel>_us" there; "pair"
 is the two backward kernels as flash_mha_bwd launches them
-(flash_mha_bwd_pair where the tree has it, else dkv then dq). Prints
+(flash_mha_bwd_pair where the tree has it, else dkv then dq);
+"sdpa_forward" is torch's scaled_dot_product_attention on the same
+inputs, the yardstick the port never calls. Prints
 one JSON line with the tag and the card's name and power limit. To
 compare two trees, run them in turns (a, b, b, a) on one card, each in a
 process of its own.
@@ -72,11 +74,15 @@ def main() -> None:
             out[f"{key}_dq_us"] = device_us(
                 torch, lambda: fa.flash_mha_bwd_dq(q, k, v, do, lse, delta,
                                                    sc))
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            out[f"{key}_sdpa_forward_us"] = device_us(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, scale=sc))
             pair = getattr(fa, "flash_mha_bwd_pair", None) or (
                 lambda *a: (fa.flash_mha_bwd_dkv(*a), fa.flash_mha_bwd_dq(*a)))
             out[f"{key}_pair_us"] = device_us(
                 torch, lambda: pair(q, k, v, do, lse, delta, sc))
-            del q, k, v, do, o, lse, delta
+            del q, k, v, do, o, lse, delta, qs, ks, vs
     print(json.dumps(out), flush=True)
 
 

@@ -28,8 +28,9 @@ for draw, and one generator a row draws at one row what the single
 generator draws. K2's backward kernels and f32 forward against the f32
 twins (tolerances at K2_BWD_TOL), deterministic, on strided head-split
 views, where the ring wraps with ragged edges and on planted rows of
-large lse; the bf16 backward kernels and the f32 wide pair spill
-nothing; the f32 pair's dq on a second stream equals the kernels in
+large lse; no K2 kernel spills; the wide forwards, bf16 and f32, with
+ranks that hold no key, deterministic and on strided views; the f32
+pair's dq on a second stream equals the kernels in
 turn; K2 on the UNet's training step against flash=False; P9 (the
 default f32 TextToSpeech at bucket 320); K2's wide kernels at head widths
 256 and 384 and a 512-channel UNet with 256-wide heads rendering through
@@ -576,28 +577,28 @@ def test_flash_mha_backward_kernels_do_not_spill(cuda):
 
 
 def test_flash_kernel_attrs_cover_every_kernel(cuda):
-    """kernel_attrs reads registers and local memory of all 26 keys
+    """kernel_attrs reads registers and local memory of all 27 keys
     (forward, dkv, dq; bf16 and f32; widths 32, 64, 128 and the wide
     kernels, keyed WIDE; the backward's 128 and WIDE keys the wide pairs,
-    bf16's wgmma pair and the f32 pair; the bf16 forward's 128, WIDE, 384
-    and 512 keys the wgmma wide forward's four instances); the backward's
-    are bwd_kernel_attrs'. No bf16 kernel spills, no f32 kernel below
-    width 128 and no f32 backward kernel (chip_smoke prints the f32
-    width-128 and wide forwards' local memory)."""
+    bf16's wgmma pair and the f32 pair; the forward's 128, WIDE and 384
+    keys, and bf16's 512, the wide forwards' instances: bf16's four
+    wgmma ones, f32's three 3xTF32 ones); the backward's are
+    bwd_kernel_attrs'. No kernel spills."""
     from xtts_tpu_torch.nn import flash_attn as fa
     attrs = fa.kernel_attrs()
-    assert len(attrs) == 26
+    assert len(attrs) == 27
     assert {key[2] for key in attrs} == {32, 64, 128, fa.WIDE, 384, 512}
     assert {key for key in attrs if key[2] in (384, 512)} == {
-        ("flash_mha", "bf16", 384), ("flash_mha", "bf16", 512)}
-    assert [fa.fwd_block_width(w) for w in (128, 256, 384, 512, 1152)] == [
-        128, 256, 384, 512, 384]
+        ("flash_mha", "bf16", 384), ("flash_mha", "bf16", 512),
+        ("flash_mha", "f32", 384)}
+    widths = (128, 256, 384, 512, 640, 1152)
+    assert [fa.fwd_block_width(w, torch.bfloat16) for w in widths] == [
+        128, 256, 384, 512, 384, 384]
+    assert [fa.fwd_block_width(w, torch.float32) for w in widths] == [
+        128, 256, 384, 256, 384, 384]
     assert all(0 < regs <= 255 and local >= 0
                for regs, local in attrs.values())
-    assert {key: a for key, a in attrs.items()
-            if (key[2] < 128 or key[1] == "bf16"
-                or key[0] != "flash_mha")
-            and a[1]} == {}
+    assert {key: a for key, a in attrs.items() if a[1]} == {}
     assert fa.bwd_kernel_attrs() == {key: a for key, a in attrs.items()
                                      if key[0] != "flash_mha"}
 
@@ -736,7 +737,8 @@ def test_flash_mha_f32_wide_pair_reads_strided_views(cuda):
 
 def _k2_fwd_against_twin(q, k, v, scale):
     """The forward with lse (one launch) against the f32 twin at the
-    forward's bounds: output 1e-2 (bf16), lse 1e-5; returns (o, lse)."""
+    forward's bounds: output 1e-2 (bf16) or 5e-5 (f32), lse 1e-5; returns
+    (o, lse)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     fa.flash_mha.launches = 0
     o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
@@ -746,54 +748,58 @@ def _k2_fwd_against_twin(q, k, v, scale):
     o32, lse32 = fa.flash_mha_plain_lse(*(t.float() for t in (q, k, v)),
                                         scale)
     torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-5)
-    assert (o.float() - o32).abs().max().item() <= 1e-2
+    bound = 5e-5 if q.dtype == torch.float32 else 1e-2
+    assert (o.float() - o32).abs().max().item() <= bound
     return o, lse
 
 
-# The bf16 wgmma wide forward (flash_fwd_wgmma_wide): the keys split over a
-# cluster of R ranks, combined once through distributed shared memory.
+# The wide forwards (bf16 flash_fwd_wgmma_wide, f32 flash_fwd_f32_wide):
+# the keys split over a cluster of R ranks, combined once through
+# distributed shared memory.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("width", [128, 256, 384])
 @pytest.mark.parametrize("tk", [1, 64, 65, 129])
-def test_flash_mha_wide_forward_ranks_without_keys(cuda, width, tk):
+def test_flash_mha_wide_forward_ranks_without_keys(cuda, width, tk, dtype):
     """Tq 193 over Tk of 1, 64, 65 and 129 (one, one, two and three key
     tiles): the split R comes from the grid, so at one key tile the ranks
     past the first hold none (m = -inf, l = 0 in the combine); the output
     and lse against the twin, finite."""
     from xtts_tpu_torch.nn import flash_attn as fa
     q, k, v = (torch.randn(1, t, 2, width, generator=cuda,
-                           device="cuda").bfloat16() for t in (193, tk, tk))
-    plan = fa.fwd_plan(1, 193, tk, 2, width)
+                           device="cuda").to(dtype) for t in (193, tk, tk))
+    plan = fa.fwd_plan(1, 193, tk, 2, width, dtype)
     assert 1 <= plan["split"] <= 8 and plan["resident"] >= 1
     if tk <= 64:
         assert plan["split"] > 1, plan
     _k2_fwd_against_twin(q, k, v, width ** -0.5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("width,shape", [(256, (2, 1280, 1562, 2)),
                                          (1152, (1, 193, 321, 1))])
-def test_flash_mha_wide_forward_is_deterministic(cuda, width, shape):
+def test_flash_mha_wide_forward_is_deterministic(cuda, width, shape, dtype):
     """The forward's output and lse the same bits twice: the main bucket
     at 256 (ranks combined in rank order) and 1152 (three slices of 384,
     two warpgroups a block, Q streamed beside K)."""
     from xtts_tpu_torch.nn import flash_attn as fa
     b, tq, tk, h = shape
     q, k, v = (torch.randn(b, t, h, width, generator=cuda,
-                           device="cuda").bfloat16() for t in (tq, tk, tk))
+                           device="cuda").to(dtype) for t in (tq, tk, tk))
     o, lse = _k2_fwd_against_twin(q, k, v, width ** -0.5)
     again = fa._flash_fwd_cuda(q, k, v, width ** -0.5, True)
     torch.cuda.synchronize()
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
-def test_flash_mha_wide_forward_reads_strided_views(cuda):
-    """The bf16 wide forward at width 256 on q, k and v as head-split
-    views of one fused (B, T, 3 x 512) projection (row stride 1536), Tq
-    193 of Tk 321: against the twin, and the same bits as on contiguous
-    copies."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mha_wide_forward_reads_strided_views(cuda, dtype):
+    """The wide forward at width 256 on q, k and v as head-split views of
+    one fused (B, T, 3 x 512) projection (row stride 1536), Tq 193 of Tk
+    321: against the twin, and the same bits as on contiguous copies."""
     from xtts_tpu_torch.nn import flash_attn as fa
     b, t, tq, h, w = 1, 321, 193, 2, 256
     qkv = torch.randn(b, t, 3 * h * w, generator=cuda,
-                      device="cuda").bfloat16()
+                      device="cuda").to(dtype)
     q, k, v = (x.unflatten(-1, (h, w)) for x in qkv.split(h * w, dim=-1))
     q = q[:, :tq]
     assert not q.is_contiguous() and q.stride(1) == 3 * h * w

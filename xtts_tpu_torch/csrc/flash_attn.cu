@@ -39,13 +39,15 @@
 //   S ~600, the softmax ~930, the steps' barriers and copies ~1400;
 //   PERF.md), and at 384 and above one warpgroup idles while S and the
 //   softmax run.
+// - The f32 forward at D = 128 NC for every NC >= 1:
+//   flash_fwd_f32_wide<CPS, MQ> (after the bf16 one), its grid, key split,
+//   steps and combine, on the tile family's 3xTF32 mma.sync: up to 128
+//   columns a block two query tiles, above that the two warpgroups split
+//   one query tile's keys in S and its columns in O.
 // - The tile family on mma.sync (flash_*_tc_kernel<T, D>): the f32 forward
-//   at D = 32, 64, 128 and backward at 32, 64, the bf16 forward and
-//   backward at D = 32. It takes any D that is a multiple of its mma
-//   depth, and keeps the flagship kernels' source and times as they are.
-// - The f32 wide forward (flash_fwd_wide_kernel<float>, after the tile
-//   family) above D = 128, a block a 128-column chunk of the output that
-//   forms the score tiles again.
+//   at D = 32, 64 and backward at 32, 64, the bf16 forward and backward at
+//   D = 32. It takes any D that is a multiple of its mma depth, and keeps
+//   the flagship kernels' source and times as they are.
 //
 // flash_fwd_kernel (bf16). Bound: tensor-core FLOPs. 4 * B * H * Tq * Tk *
 // 64 = 8.2 GFLOP a call at the shape above (8.3 us at 989 TFLOP/s),
@@ -730,9 +732,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The tile family (mma.sync): the f32 kernels up to width 128 but the
-// backward at 128, the bf16 forward and backward at 32 (the f32 wide
-// kernels' fragment code is this family's too). Generic in the element type T and the head width D. A
+// The tile family (mma.sync): the f32 kernels at widths 32 and 64, the
+// bf16 forward and backward at 32 (the f32 wide kernels' fragment code is
+// this family's too). Generic in the element type T and the head width D. A
 // tile is 64 rows x D elements of T in shared memory, rows TC<T, D>::LD
 // elements apart. A warp owns 16 accumulator rows as m16n8 blocks: block
 // j's c[j][0], c[j][1] are (row g, columns 8j + 2t, + 1) and c[j][2],
@@ -1492,34 +1494,9 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The f32 wide forward: head widths D = 128 NC with NC >= 2, every multiple
-// of 128 above 128, as JAX's library kernel takes them (bf16 there is
-// flash_fwd_wgmma_wide's; the backward at those widths is the wgmma pair's
-// in bf16 and the f32 pair's, below). A <T, D> instance of the tile
-// family does not fit there: at f32 D = 256 its five tiles would be 333
-// KB, against 227 KB a block. A block
-// of the tile kernels' grid owns one 128-column chunk c of its output
-// instead (the grid's y axis runs over (head, chunk)); it forms each score
-// tile S as the sum of the NC chunks' width-128 products, and then takes
-// its own chunk's product through the width-128 tile code: O_c += P V_c.
-// The price: every chunk forms S again, so the work is (NC + 1) / 2 times
-// the forward's two products. The chunks' S are formed by the same
-// operations, so the lse they give is the same; chunk 0 stores it. Grid,
-// the lse contract, zero-filled ragged edges and no atomics as the tile
-// family.
-//
-// The streamed tiles run through a two-stage ring of two width-128 tiles a
-// stage (135 KB), a step a pair of tiles, one
-// __syncthreads a step, step n + 1's copy in flight during step n's
-// products: for each key tile, NC steps (Q_i, K_i) for S, then (V_c):
-// softmax, O += P V_c. Q rows are copied again a step, from L2.
+// The wide kernels' 128-column chunks of the head width (D = 128 NC).
 
 constexpr int WCH = 128;  // a wide kernel's chunk of the head width
-
-template <typename T>
-__host__ __device__ constexpr int wide_smem() {
-  return 4 * tc_tile_bytes<T, WCH>();
-}
 
 // acc (+)= A B^T over chunk `i` of the head width (mma_nt at width 128; A
 // the warp's rows, acc zeroed first at i = 0). f32 takes each later
@@ -1542,66 +1519,6 @@ __device__ __forceinline__ void mma_nt_chunk(float (&acc)[8][4], const T* a,
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[j][c] += t[j][c];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, tc_min_blocks<T>())
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int Tq, int Tk, int NC,
-                      long long sqb, long long sqt, long long sqh,
-                      long long skb, long long skt, long long skh,
-                      long long svb, long long svt, long long svh,
-                      long long sob, long long sot, long long soh,
-                      float scale_log2) {
-  using C = TC<T, WCH>;
-  constexpr int TE = 64 * C::LD;
-  extern __shared__ __align__(16) unsigned char smem_t[];
-  T* const ring = reinterpret_cast<T*>(smem_t);
-  auto slot = [&](int s, int i) { return ring + (2 * s + i) * TE; };
-
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int h = blockIdx.y / NC, c = blockIdx.y % NC, H = gridDim.y / NC;
-  const int warp = threadIdx.x >> 5;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh + c * WCH;
-  const int per = NC + 1, nsteps = (Tk + BK - 1) / BK * per;
-  auto load = [&](int n) {
-    const int t = n / per, i = n % per, s = n & 1;
-    if (i < NC) {
-      stage_tile<T, WCH>(slot(s, 0), qb + i * WCH, sqt, q0, Tq);
-      stage_tile<T, WCH>(slot(s, 1), kb + i * WCH, skt, t * BK, Tk);
-    } else {
-      stage_tile<T, WCH>(slot(s, 0), vb, svt, t * BK, Tk);
-    }
-  };
-  load(0);
-  cp_async_commit();
-
-  float acc[WCH / 8][4], s[8][4];
-  zero(acc);
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
-  for (int n = 0; n < nsteps; ++n) {
-    const int st = n & 1, i = n % per;
-    cp_async_wait<0>();  // step n's tiles landed
-    __syncthreads();     // ... for every thread; step n - 1's stage is free
-    if (n + 1 < nsteps) load(n + 1);
-    cp_async_commit();
-    if (i < NC) {  // ---- S += Q_i K_i^T ----
-      mma_nt_chunk<T>(s, slot(st, 0) + 16 * warp * C::LD, slot(st, 1), i);
-    } else {  // ---- softmax, O += P V_c ----
-      online_softmax<WCH / 8>(s, acc, m0, m1, l0, l1, n / per * BK, Tk,
-                              scale_log2);
-      mma_pn<T, WCH>(acc, s, slot(st, 0));
-    }
-  }
-  fwd_store<T, WCH>(acc, m0, m1, l0, l1,
-                    lse == nullptr || c != 0
-                        ? nullptr
-                        : lse + ((long long)b * H + h) * Tq,
-                    o + b * sob + h * soh + c * WCH, sot, q0, Tq, scale_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -3267,28 +3184,168 @@ __device__ __forceinline__ void fww_softmax(float (&s)[32], float& m0,
   l1 = l1 * a1 + rs1;
 }
 
-// What a block of flash_fwd_wgmma_wide works on.
+// What a block of a wide forward (flash_fwd_wgmma_wide, T = bf16;
+// flash_fwd_f32_wide, T = float) works on.
+template <typename T>
 struct FwwArgs {
-  const bf16* qb;  // q, k, v at the block's (batch row, head)
-  const bf16* kb;
-  const bf16* vb;
-  bf16* ob;        // o there
+  const T* qb;     // q, k, v at the block's (batch row, head)
+  const T* kb;
+  const T* vb;
+  T* ob;           // o there
   float* lse_row;  // the (b, h) row of the lse where this block stores it
   long long sqt, skt, svt, sot;
   int Tq, Tk, D, q0, col0, t0, t1, R, rank;
   bool qres;           // Q held whole
-  uint32_t base;       // the region (Q, ring, P; the exchange), 1024-aligned
+  uint32_t base;       // the region (Q, ring, P; the exchange)
   uint32_t sstat;      // the statistics (shared address) ...
   unsigned char* stat; // ... and generic
   float scale_log2;
 };
+
+// A wide forward block's arguments at grid (R x query blocks of `rows`,
+// H x slices of up to `wmax` chunks, B); block x's query block x / R, rank
+// x % R; the region at shared address base (generic smem + off), `region`
+// bytes, the statistics after it.
+template <typename T>
+__device__ __forceinline__ FwwArgs<T> fww_args(
+    const T* q, const T* k, const T* v, T* o, float* lse, int Tq, int Tk,
+    int D, int R, long long sqb, long long sqt, long long sqh, long long skb,
+    long long skt, long long skh, long long svb, long long svt,
+    long long svh, long long sob, long long sot, long long soh,
+    float scale_log2, int rows, int cps, int wmax, unsigned char* smem,
+    uint32_t base, uint32_t off, int region) {
+  const int nsl = (D / WCH + wmax - 1) / wmax;
+  const int h = blockIdx.y / nsl, sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int H = gridDim.y / nsl, T_ = (Tk + BK - 1) / BK;
+  FwwArgs<T> a;
+  a.rank = blockIdx.x % R;
+  a.R = R;
+  a.q0 = blockIdx.x / R * rows;
+  a.qb = q + b * sqb + h * sqh;
+  a.kb = k + b * skb + h * skh;
+  a.vb = v + b * svb + h * svh;
+  a.ob = o + b * sob + h * soh;
+  a.lse_row = lse != nullptr && sl == 0
+                  ? lse + ((long long)b * H + h) * Tq
+                  : nullptr;
+  a.sqt = sqt;
+  a.skt = skt;
+  a.svt = svt;
+  a.sot = sot;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.D = D;
+  a.col0 = sl * WCH * cps;
+  a.t0 = (int)((long long)T_ * a.rank / R);
+  a.t1 = (int)((long long)T_ * (a.rank + 1) / R);
+  a.qres = nsl == 1;
+  a.base = base;
+  a.sstat = base + region;
+  a.stat = smem + off + region;
+  a.scale_log2 = scale_log2;
+  return a;
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float4& o) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
+}
+__device__ __forceinline__ void store4(float* p, const float4& o) {
+  *reinterpret_cast<float4*>(p) = o;
+}
+
+// The ranks' combine, once each rank has written its unnormalised f32 O
+// (RB rows x W, row r's float column x at r W + (x ^ 8 (r % 4))) at shared
+// address sex and its rows' (m scale log2 e, l) into the statistics: after
+// a cluster barrier every rank reads all ranks' (m, l), weighs each rank's
+// O by 2^(m_r - m) / l in rank order 0..R-1 and stores its own 1 / R of
+// O's rows x columns; rank 0 stores the lse.
+template <int RB, int W, typename T>
+__device__ __forceinline__ void fww_combine(const FwwArgs<T>& a,
+                                            uint32_t sex) {
+  constexpr int NT = FWW_THREADS;
+  constexpr float LN2 = 0.6931471805599453f;
+  float* const wts = reinterpret_cast<float*>(a.stat + 128 * 8 + 64 * 4);
+  const uint32_t after = cluster_sync();
+  // every rank's weight of each row, in rank order: 2^(m_r - m) / l with m
+  // the rows' largest m_r and l = sum of 2^(m_r - m) l_r (0 for a rank
+  // without a key tile); rank 0 stores the lse
+  if ((int)threadIdx.x < RB) {
+    const int row = threadIdx.x;
+    float mr[WGW_MAX_CLUSTER], lr[WGW_MAX_CLUSTER];
+    float M = -INFINITY;
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      const float2 x = ld_rank2(a.sstat + row * 8, rk, a.rank, after);
+      mr[rk] = x.x;
+      lr[rk] = x.y;
+      M = fmaxf(M, x.x);
+    }
+    float L = 0.f;
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      mr[rk] = exp2f(mr[rk] - M);
+      L += mr[rk] * lr[rk];
+    }
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      wts[rk * RB + row] = mr[rk] / L;
+    }
+    if (a.rank == 0 && a.lse_row != nullptr && a.q0 + row < a.Tq)
+      a.lse_row[a.q0 + row] = (M + log2f(L)) * LN2;
+  }
+  fww_sync();
+  // this rank's share of O's RB W / 4 float4 (row-major: row u / (W / 4),
+  // columns 4 (u % (W / 4)) ..), summed over the ranks in rank order, UB
+  // units a thread at once: their loads of a rank in flight together
+  constexpr int UB = 4;
+  const int lo = RB * W / 4 * a.rank / a.R;
+  const int hi = RB * W / 4 * (a.rank + 1) / a.R;
+  for (int u0 = lo + threadIdx.x; u0 < hi; u0 += UB * NT) {
+    int row[UB], col[UB];
+    uint32_t at[UB];
+    float4 o[UB];
+#pragma unroll
+    for (int e = 0; e < UB; ++e) {
+      const int u = u0 + e * NT < hi ? u0 + e * NT : u0;
+      row[e] = u / (W / 4);
+      col[e] = 4 * (u % (W / 4));
+      at[e] = sex + (row[e] * W + (col[e] ^ ((row[e] & 3) << 3))) * 4;
+      o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
+      if (rk >= a.R) break;
+      float4 x[UB];
+#pragma unroll
+      for (int e = 0; e < UB; ++e) x[e] = ld_rank4(at[e], rk, a.rank, after);
+#pragma unroll
+      for (int e = 0; e < UB; ++e) {
+        const float w = wts[rk * RB + row[e]];
+        o[e].x += x[e].x * w;
+        o[e].y += x[e].y * w;
+        o[e].z += x[e].z * w;
+        o[e].w += x[e].w * w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < UB; ++e)
+      if (u0 + e * NT < hi && a.q0 + row[e] < a.Tq && a.col0 + col[e] < a.D)
+        store4(a.ob + (long long)(a.q0 + row[e]) * a.sot + a.col0 + col[e],
+               o[e]);
+  }
+  cluster_sync();  // no rank leaves while another reads its exchange
+}
 
 // Warpgroup ROLE of a block: with MQ = 2 each warpgroup (ROLE 0) forms S,
 // the softmax and P of its own query tile (rows 64 wg of the block's) and
 // takes its O; with MQ = 1 warpgroup 0 forms S, the softmax and P and
 // takes its atoms of O, warpgroup 1 (ROLE 1) its atoms.
 template <int CPS, int MQ, int ROLE>
-__device__ __forceinline__ void fww_body(const FwwArgs& a) {
+__device__ __forceinline__ void fww_body(const FwwArgs<bf16>& a) {
   constexpr int NT = FWW_THREADS;
   constexpr int ACC = MQ == 2 ? 64 : 32;  // accumulators of a chunk
   constexpr int W = WCH * CPS;
@@ -3307,7 +3364,6 @@ __device__ __forceinline__ void fww_body(const FwwArgs& a) {
   const uint32_t sP = ring + FWW_SLOTS * sb;  // MQ = 1
   float2* const stat = reinterpret_cast<float2*>(a.stat);
   float* const alpha = reinterpret_cast<float*>(a.stat + 128 * 8);
-  float* const wts = alpha + 64;
   auto stage = [&](int n) { return ring + (uint32_t)(n % FWW_SLOTS) * sb; };
   // step n's copies: K_i (and Q_i where Q is not held: MQ = 1) or V_c
   auto load = [&](int n) {
@@ -3506,80 +3562,7 @@ __device__ __forceinline__ void fww_body(const FwwArgs& a) {
             make_float2(acc[c][4 * j + 2 * half],
                         acc[c][4 * j + 2 * half + 1]);
       }
-  const uint32_t after = cluster_sync();
-  // every rank's weight of each row, in rank order: 2^(m_r - m) / l with m
-  // the rows' largest m_r and l = sum of 2^(m_r - m) l_r (0 for a rank
-  // without a key tile); rank 0 stores the lse
-  if ((int)threadIdx.x < RB) {
-    const int row = threadIdx.x;
-    float mr[WGW_MAX_CLUSTER], lr[WGW_MAX_CLUSTER];
-    float M = -INFINITY;
-#pragma unroll
-    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
-      if (rk >= a.R) break;
-      const float2 x = ld_rank2(a.sstat + row * 8, rk, a.rank, after);
-      mr[rk] = x.x;
-      lr[rk] = x.y;
-      M = fmaxf(M, x.x);
-    }
-    float L = 0.f;
-#pragma unroll
-    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
-      if (rk >= a.R) break;
-      mr[rk] = exp2f(mr[rk] - M);
-      L += mr[rk] * lr[rk];
-    }
-#pragma unroll
-    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
-      if (rk >= a.R) break;
-      wts[rk * RB + row] = mr[rk] / L;
-    }
-    if (a.rank == 0 && a.lse_row != nullptr && a.q0 + row < a.Tq)
-      a.lse_row[a.q0 + row] = (M + log2f(L)) * LN2;
-  }
-  fww_sync();
-  // this rank's share of O's RB W / 4 float4 (row-major: row u / (W / 4),
-  // columns 4 (u % (W / 4)) ..), summed over the ranks in rank order, UB
-  // units a thread at once: their loads of a rank in flight together
-  constexpr int UB = 4;
-  const uint32_t sex = a.sstat - fww_region(CPS, a.qres);
-  const int lo = RB * W / 4 * a.rank / a.R;
-  const int hi = RB * W / 4 * (a.rank + 1) / a.R;
-  for (int u0 = lo + threadIdx.x; u0 < hi; u0 += UB * NT) {
-    int row[UB], col[UB];
-    uint32_t at[UB];
-    float4 o[UB];
-#pragma unroll
-    for (int e = 0; e < UB; ++e) {
-      const int u = u0 + e * NT < hi ? u0 + e * NT : u0;
-      row[e] = u / (W / 4);
-      col[e] = 4 * (u % (W / 4));
-      at[e] = sex + (row[e] * W + (col[e] ^ ((row[e] & 3) << 3))) * 4;
-      o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int rk = 0; rk < WGW_MAX_CLUSTER; ++rk) {
-      if (rk >= a.R) break;
-      float4 x[UB];
-#pragma unroll
-      for (int e = 0; e < UB; ++e) x[e] = ld_rank4(at[e], rk, a.rank, after);
-#pragma unroll
-      for (int e = 0; e < UB; ++e) {
-        const float w = wts[rk * RB + row[e]];
-        o[e].x += x[e].x * w;
-        o[e].y += x[e].y * w;
-        o[e].z += x[e].z * w;
-        o[e].w += x[e].w * w;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < UB; ++e)
-      if (u0 + e * NT < hi && a.q0 + row[e] < a.Tq && a.col0 + col[e] < a.D)
-        *reinterpret_cast<uint2*>(a.ob + (long long)(a.q0 + row[e]) * a.sot +
-                                  a.col0 + col[e]) =
-            make_uint2(pack_bf16(o[e].x, o[e].y), pack_bf16(o[e].z, o[e].w));
-  }
-  cluster_sync();  // no rank leaves while another reads its exchange
+  fww_combine<RB, W>(a, a.sstat - fww_region(CPS, a.qres));
 }
 
 // Grid (R x query blocks of 64 MQ rows, H x slices, B), clusters of R
@@ -3597,42 +3580,407 @@ flash_fwd_wgmma_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const int nsl = (D / WCH + FWW_WMAX - 1) / FWW_WMAX;
-  const int h = blockIdx.y / nsl, sl = blockIdx.y % nsl, b = blockIdx.z;
-  const int H = gridDim.y / nsl, T = (Tk + BK - 1) / BK;
-  FwwArgs a;
-  a.rank = blockIdx.x % R;
-  a.R = R;
-  a.q0 = blockIdx.x / R * 64 * MQ;
-  a.qb = q + b * sqb + h * sqh;
-  a.kb = k + b * skb + h * skh;
-  a.vb = v + b * svb + h * svh;
-  a.ob = o + b * sob + h * soh;
-  a.lse_row = lse != nullptr && sl == 0
-                  ? lse + ((long long)b * H + h) * Tq
-                  : nullptr;
-  a.sqt = sqt;
-  a.skt = skt;
-  a.svt = svt;
-  a.sot = sot;
-  a.Tq = Tq;
-  a.Tk = Tk;
-  a.D = D;
-  a.col0 = sl * WCH * CPS;
-  a.t0 = (int)((long long)T * a.rank / R);
-  a.t1 = (int)((long long)T * (a.rank + 1) / R);
-  a.qres = nsl == 1;
-  a.base = base;
-  const int region = fww_region(CPS, a.qres);
-  a.sstat = base + region;
-  a.stat = smem + (base - raw) + region;
-  a.scale_log2 = scale_log2;
+  const FwwArgs<bf16> a = fww_args(
+      q, k, v, o, lse, Tq, Tk, D, R, sqb, sqt, sqh, skb, skt, skh, svb, svt,
+      svh, sob, sot, soh, scale_log2, 64 * MQ, CPS, FWW_WMAX, smem, base,
+      base - raw, fww_region(CPS, (D / WCH + FWW_WMAX - 1) / FWW_WMAX == 1));
   if constexpr (MQ == 2)
     fww_body<CPS, 2, 0>(a);
   else if (threadIdx.x < 128)
     fww_body<CPS, 1, 0>(a);
   else
     fww_body<CPS, 1, 1>(a);
+}
+
+// ---------------------------------------------------------------------------
+// The f32 forward at head width D = 128 NC for every NC >= 1 (128 and each
+// multiple above): flash_fwd_f32_wide<CPS, MQ>, under the forward's
+// contract. It replaces a block a 128-column chunk of O that formed each
+// score tile again ((NC + 1) / 2 times the forward's products, 88 local
+// bytes a thread) and, at 128, the tile family's <float, 128> forward (one
+// warpgroup, O in registers: 128 local bytes a thread).
+//
+// flash_fwd_wgmma_wide's structure: a block of two warpgroups owns MQ
+// 64-query tiles and W = 128 CPS columns of their output, the whole width
+// up to W_MAX = 384, so each score tile is formed once for all of O; the
+// keys split over a cluster of R <= 8 ranks (fww_plan with this kernel's
+// rank cost), combined once through distributed shared memory in rank
+// order (fww_combine; a rank without a key tile weighs 0; rank 0 stores
+// the lse); above W_MAX slices of O's columns, each forming S itself, Q
+// streamed beside K. The arithmetic is the f32 pair's: every product in
+// 3xTF32 on mma.sync m16n8k8 (TC<float, 128>; each warp splits its B
+// fragments), long sums in partials of four k-steps joined by IEEE adds
+// (S over the chunks as mma_nt_chunk, O += P V as fw_product), one block
+// an SM. Steps: K and V run through a ring of FWF_SLOTS 64 x 128 f32
+// chunks (rows FW_LD floats apart), FWF_AHEAD steps copied ahead by
+// cp.async, one block barrier a step; mma.sync ends within its step, so
+// the stage refilled at step n is step n - 1's. A key tile is D / 128
+// S-steps (K_i), the softmax, then CPS V-steps (V_c).
+// - W = 128 (CPS 1, MQ 2): each warpgroup a query tile of its own, as the
+//   tile family's forward: a warp 16 rows, S over the tile's 64 keys (32
+//   accumulators), O over 128 columns (64). Both read the one ring, so a
+//   K / V copy serves two query tiles.
+// - W = 256, 384 (CPS 2-3, MQ 1): O over W does not fit one warpgroup's
+//   registers, so the two split one query tile: warp w of warpgroup g
+//   forms S of rows 16 w.. over keys 32 g.. (16 accumulators), the two
+//   warps of rows 16 w.. trade their rows' maxima through shared memory
+//   (a named barrier of the pair), and each takes columns 64 g.. of every
+//   chunk of O (32 accumulators a chunk). Both hold the same maxima, so
+//   each rescales its own O; each keeps the row sums of its keys, added
+//   once at the end.
+// P, the A operand of O += P V, goes through shared memory, a float4 of
+// an accumulator block a lane, published by the V-step's block barrier:
+// MQ = 1 needs the pair's halves, and at MQ = 2, P held in registers
+// across its fully unrolled product took ptxas to 255 registers and 60
+// bytes of spill on an H100 (PERF.md). O += P V runs in 64-column passes
+// of eight n-blocks, a k-loop not unrolled.
+
+constexpr int FWF_WMAX = 3;            // chunks of O a block: W_MAX 384
+constexpr int FWF_AHEAD = 2;           // ring steps copied ahead
+constexpr int FWF_SLOTS = FWF_AHEAD + 1;
+constexpr int FWF_CHUNK = FW_TILE * 4;  // bytes of a 64 x 128 f32 chunk
+// P of each 16 query rows (8 k-steps x 32 lanes x float4) and, MQ = 1,
+// both warpgroups' row maxima of their keys
+constexpr int FWF_PBYTES = 8 * 32 * 16;
+constexpr int FWF_MBYTES = 2 * 64 * 4;
+// a rank's fixed work in key tiles (its Q and the combine) in fww_plan: an
+// f32 key tile's products take ~5 times a bf16 one's (PERF.md)
+constexpr double FWF_RANK_COST = 1.5;
+
+// query tiles a block at CPS chunks of O
+__host__ __device__ constexpr int fwf_mq(int cps) { return cps == 1 ? 2 : 1; }
+
+// shared memory of an instance with Q held (qres) or streamed: Q, the ring,
+// P and the maxima, aliased by the f32 O of the exchange, then the
+// statistics
+__host__ __device__ constexpr int fwf_main(int cps, bool qres) {
+  return (qres ? fwf_mq(cps) * cps + FWF_SLOTS : 2 * FWF_SLOTS) * FWF_CHUNK +
+         4 * fwf_mq(cps) * FWF_PBYTES + (fwf_mq(cps) == 1 ? FWF_MBYTES : 0);
+}
+__host__ __device__ constexpr int fwf_region(int cps, bool qres) {
+  return fwf_main(cps, qres) > 64 * fwf_mq(cps) * WCH * cps * 4
+             ? fwf_main(cps, qres)
+             : 64 * fwf_mq(cps) * WCH * cps * 4;
+}
+__host__ __device__ constexpr int fwf_smem(int cps, bool qres) {
+  return fwf_region(cps, qres) + FWW_STAT_BYTES;
+}
+// the instance's largest shared memory over the cases that occur (CPS 1
+// only at D = 128, with Q held)
+__host__ __device__ constexpr int fwf_most(int cps) {
+  return cps == 1 ? fwf_smem(1, true)
+         : fwf_smem(cps, true) > fwf_smem(cps, false) ? fwf_smem(cps, true)
+                                                      : fwf_smem(cps, false);
+}
+static_assert(fwf_most(1) <= 232448 && fwf_most(2) <= 232448 &&
+                  fwf_most(3) <= 232448,
+              "227 KB of shared memory a block");
+
+// the two warps of rows 16 w.. of a query tile, one of each warpgroup
+// (named barrier 2 + w)
+__device__ __forceinline__ void pair_sync(int w) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(2 + w) : "memory");
+}
+
+// acc (+)= A B^T over chunk i of the head width (16 k-steps): A the warp's
+// 16 rows `rows` of a tile, B(k, n) = b_tile[8 j + n][k], j < N; acc takes
+// the product at i = 0, a later chunk's formed in a zeroed partial and
+// joined by IEEE adds (mma_nt_chunk's rule)
+template <int N>
+__device__ __forceinline__ void fwf_scores(float (&acc)[N][4],
+                                           const float* rows,
+                                           const float* b_tile, int i) {
+  using C = TC<float, WCH>;
+  float t[N][4];
+  zero(t);
+#pragma unroll 2
+  for (int kk = 0; kk < WCH / C::KS; ++kk) {
+    const C::A a = C::a_tile(rows, kk * C::KS);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      C::mma(t[j], a, C::b_nt(b_tile, 8 * j, kk * C::KS));
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc[j][c] = i == 0 ? t[j][c] : acc[j][c] + t[j][c];
+}
+
+// acc[j] += P B over the 64 keys of P, B(k, n) = b_tile[k][8 j + n], J0 <=
+// j < J1: k-step kk's A operand the float4 pw[32 kk + lane] of shared
+// memory, an accumulator block as a_acc takes it; partials of PARTIAL
+// k-steps joined by IEEE adds (fw_product's order)
+template <int J0, int J1>
+__device__ __forceinline__ void fwf_pv(float (&acc)[8][4], const float4* pw,
+                                       const float* b_tile) {
+  using C = TC<float, WCH>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int k0 = 0; k0 < 64 / C::KS; k0 += C::PARTIAL) {
+    float t[J1 - J0][4];
+    zero(t);
+#pragma unroll
+    for (int g = 0; g < C::PARTIAL; ++g) {
+      const float4 x = pw[32 * (k0 + g) + lane];
+      const uint32_t r[4] = {__float_as_uint(x.x), __float_as_uint(x.z),
+                             __float_as_uint(x.y), __float_as_uint(x.w)};
+      const C::A a = C::a_split(r);
+#pragma unroll
+      for (int j = J0; j < J1; ++j)
+        C::mma(t[j - J0], a, C::b_nn(b_tile, (k0 + g) * C::KS, 8 * j));
+    }
+#pragma unroll
+    for (int j = J0; j < J1; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += t[j - J0][i];
+  }
+}
+
+template <int CPS, int MQ>
+__device__ __forceinline__ void fwf_body(const FwwArgs<float>& a,
+                                         float* region) {
+  constexpr int NT = FWW_THREADS;
+  constexpr int W = WCH * CPS;
+  constexpr int RB = 64 * MQ;             // query rows a block
+  constexpr int NS = MQ == 2 ? 8 : 4;     // S's n-blocks a warp: 64 / 32 keys
+  constexpr int NP = CPS * MQ;            // O's 64-column passes a warp
+  constexpr float LN2 = 0.6931471805599453f;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, cq = (lane & 3) * 2;
+  const int rw = MQ == 2 ? 64 * wg : 0;   // this warpgroup's first row
+  const int r0 = rw + 16 * w + (lane >> 2);
+  const int kw = MQ == 2 ? 0 : 32 * wg;   // its first key of a tile
+  const int cw = MQ == 2 ? 0 : 64 * wg;   // its first column of a chunk
+  const int ncd = MQ == 2 ? 1 : a.D / WCH, per = ncd + CPS;
+  const int nsteps = (a.t1 - a.t0) * per;
+  const int sb = a.qres ? FW_TILE : 2 * FW_TILE;  // floats a stage
+  float* const sQ = region;
+  float* const ring = region + (a.qres ? MQ * ncd * FW_TILE : 0);
+  float4* const sP = reinterpret_cast<float4*>(ring + FWF_SLOTS * sb);
+  float* const sM = reinterpret_cast<float*>(sP + 4 * MQ * 8 * 32);
+  // P of this warp's 16 rows: k-step kk's float4 of lane x at pw[32 kk + x]
+  float4* const pw = sP + 8 * 32 * (r0 >> 4);
+  float2* const stat = reinterpret_cast<float2*>(a.stat);
+  float* const lpart = reinterpret_cast<float*>(a.stat + 128 * 8);
+  auto stage = [&](int n) { return ring + (n % FWF_SLOTS) * sb; };
+  // step n's copies: K_i (and Q_i where Q is not held) or V_c
+  auto load = [&](int n) {
+    const int tile = a.t0 + n / per, i = n % per;
+    float* const st = stage(n);
+    if (i < ncd) {
+      if (!a.qres)
+        fw_stage<NT, 32>(st + FW_TILE, a.qb + i * WCH, a.sqt, a.q0, a.Tq, 0,
+                         threadIdx.x);
+      fw_stage<NT, 32>(st, a.kb + i * WCH, a.skt, tile * BK, a.Tk, 0,
+                       threadIdx.x);
+    } else {
+      const int col = a.col0 + (i - ncd) * WCH;
+      const bool in = col < a.D;
+      fw_stage<NT, 32>(st, in ? a.vb + col : a.vb, a.svt, tile * BK,
+                       in ? a.Tk : 0, 0, threadIdx.x);
+    }
+  };
+  // the top of step n: its copies landed for every thread, every thread
+  // done with step n - 1, step n + FWF_AHEAD's copies issued into its stage
+  auto begin = [&](int n) {
+    cp_async_wait<FWF_AHEAD - 1>();
+    fww_sync();
+    if (n + FWF_AHEAD < nsteps) load(n + FWF_AHEAD);
+    cp_async_commit();
+  };
+  // O's pass p: columns 128 (p / MQ) + cw + 64 (p % MQ) .. of the block's
+  auto pass_col = [&](int p) { return WCH * (p / MQ) + cw + 64 * (p % MQ); };
+
+  if (a.qres && nsteps > 0)
+    for (int i = 0; i < MQ * ncd; ++i)
+      fw_stage<NT, 32>(sQ + i * FW_TILE, a.qb + (i % ncd) * WCH, a.sqt,
+                       a.q0 + 64 * (i / ncd), a.Tq, 0, threadIdx.x);
+#pragma unroll
+  for (int n = 0; n < FWF_AHEAD; ++n) {
+    if (n < nsteps) load(n);
+    cp_async_commit();
+  }
+  const float* const myQ = sQ + (rw / 64) * ncd * FW_TILE + 16 * w * FW_LD;
+
+  float acc[NP][8][4];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) zero(acc[p]);
+  float s[NS][4];
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r0 + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+
+  int n = 0;
+  for (int tile = a.t0; tile < a.t1; ++tile) {
+    // ---- S = sum over the chunks of Q_i K_i^T (MQ = 1: this warpgroup's
+    // 32 keys) ----
+    for (int i = 0; i < ncd; ++i, ++n) {
+      begin(n);
+      const float* const st = stage(n);
+      fwf_scores(s, a.qres ? myQ + i * FW_TILE : st + FW_TILE + 16 * w * FW_LD,
+                 st + kw * FW_LD, i);
+    }
+    // ---- the online softmax (MQ = 1: the pair's row maxima traded); P
+    // into shared memory ----
+    const int k0 = tile * BK;
+    if (k0 + BK > a.Tk) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (k0 + kw + 8 * j + cq + c >= a.Tk)
+            s[j][c] = s[j][2 + c] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    if constexpr (MQ == 1) {
+      if (cq == 0) {
+        sM[64 * wg + r0] = mx0;
+        sM[64 * wg + r0 + 8] = mx1;
+      }
+      pair_sync(w);
+      mx0 = fmaxf(mx0, sM[64 * (wg ^ 1) + r0]);
+      mx1 = fmaxf(mx1, sM[64 * (wg ^ 1) + r0 + 8]);
+    }
+    // the tile holds a valid key, so mx0 / mx1 are finite
+    const float al0 = exp2f((m0 - mx0) * a.scale_log2);
+    const float al1 = exp2f((m1 - mx1) * a.scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    const float mb0 = mx0 * a.scale_log2, mb1 = mx1 * a.scale_log2;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = exp2f(fmaf(s[j][0], a.scale_log2, -mb0));
+      s[j][1] = exp2f(fmaf(s[j][1], a.scale_log2, -mb0));
+      s[j][2] = exp2f(fmaf(s[j][2], a.scale_log2, -mb1));
+      s[j][3] = exp2f(fmaf(s[j][3], a.scale_log2, -mb1));
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+      pw[32 * (kw / 8 + j) + lane] =
+          make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    }
+    l0 = l0 * al0 + rs0;
+    l1 = l1 * al1 + rs1;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[p][j][0] *= al0;
+        acc[p][j][1] *= al0;
+        acc[p][j][2] *= al1;
+        acc[p][j][3] *= al1;
+      }
+    // ---- O_c += P V_c, P published by the step's barrier ----
+#pragma unroll
+    for (int c = 0; c < CPS; ++c, ++n) {
+      begin(n);
+      const float* const vt = stage(n);
+#pragma unroll
+      for (int h = 0; h < MQ; ++h) {
+        const float* const b = vt + pass_col(c * MQ + h) - WCH * c;
+        if constexpr (CPS == 3) {  // 32-column partials: with 64, ptxas
+          fwf_pv<0, 4>(acc[c], pw, b);  // spilled 8 bytes at 255 registers
+          fwf_pv<4, 8>(acc[c], pw, b);
+        } else {
+          fwf_pv<0, 8>(acc[c * MQ + h], pw, b);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- the rows' (m scale log2 e, l); MQ = 1: warpgroup 1's sums over
+  // its keys added to warpgroup 0's ----
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (MQ == 1) {
+    if (wg == 1 && cq == 0) {
+      lpart[r0] = l0;
+      lpart[r0 + 8] = l1;
+    }
+    fww_sync();
+  }
+  if ((MQ == 2 || wg == 0) && cq == 0) {
+    stat[r0] = make_float2(m0 * a.scale_log2, MQ == 2 ? l0 : l0 + lpart[r0]);
+    stat[r0 + 8] =
+        make_float2(m1 * a.scale_log2, MQ == 2 ? l1 : l1 + lpart[r0 + 8]);
+  }
+  fww_sync();  // ... stored; Q, the ring and P read by every thread
+
+  if (a.R == 1) {  // ---- O normalised and stored from the registers ----
+    const float2 x0 = stat[r0], x1 = stat[r0 + 8];
+    const float inv0 = 1.f / x0.y, inv1 = 1.f / x1.y;
+    if ((MQ == 2 || wg == 0) && a.lse_row != nullptr && cq == 0) {
+      if (a.q0 + r0 < a.Tq)
+        a.lse_row[a.q0 + r0] = (x0.x + log2f(x0.y)) * LN2;
+      if (a.q0 + r0 + 8 < a.Tq)
+        a.lse_row[a.q0 + r0 + 8] = (x1.x + log2f(x1.y)) * LN2;
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int col = a.col0 + pass_col(p);
+      if (col >= a.D) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = a.q0 + r0 + 8 * half;
+        const float inv = half ? inv1 : inv0;
+        if (r >= a.Tq) continue;
+        float* const o = a.ob + (long long)r * a.sot + col + cq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          store_pair(o + 8 * j, acc[p][j][2 * half] * inv,
+                     acc[p][j][2 * half + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // ---- the combine: O unnormalised into the exchange (fww_combine's
+  // layout) over Q, the ring and P ----
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half, col = pass_col(p) + 8 * j + cq;
+        *reinterpret_cast<float2*>(region + r * W + (col ^ ((r & 3) << 3))) =
+            make_float2(acc[p][j][2 * half], acc[p][j][2 * half + 1]);
+      }
+  fww_combine<RB, W>(a, a.base);
+}
+
+// Grid (R x query blocks of 64 MQ rows, H x slices, B), clusters of R
+// along x, as flash_fwd_wgmma_wide's.
+template <int CPS, int MQ>
+__global__ void __launch_bounds__(FWW_THREADS, 1)
+flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int Tq, int Tk, int D, int R,
+                   long long sqb, long long sqt, long long sqh,
+                   long long skb, long long skt, long long skh,
+                   long long svb, long long svt, long long svh,
+                   long long sob, long long sot, long long soh,
+                   float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  const FwwArgs<float> a = fww_args(
+      q, k, v, o, lse, Tq, Tk, D, R, sqb, sqt, sqh, skb, skt, skh, svb, svt,
+      svh, sob, sot, soh, scale_log2, 64 * MQ, CPS, FWF_WMAX, smem_t,
+      smem_u32(smem_t), 0,
+      fwf_region(CPS, (D / WCH + FWF_WMAX - 1) / FWF_WMAX == 1));
+  fwf_body<CPS, MQ>(a, reinterpret_cast<float*>(smem_t));
 }
 
 template <typename K>
@@ -3731,37 +4079,14 @@ struct DqTC {
   }
 };
 
-// The f32 wide forward's launch at d = 128 NC, NC >= 2: the ring's four
-// tiles, opted in once per device.
-template <typename T>
-struct FwdWide {
-  static int run(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int Tq, int Tk, int H, int NC,
-                 const long long* s, float scale, cudaStream_t stream) {
-    static unsigned opted = 0;
-    constexpr int smem = wide_smem<T>();
-    if (int e = opt_in(flash_fwd_wide_kernel<T>, smem, opted)) return e;
-    dim3 grid((Tq + BQ - 1) / BQ, H * NC, B);
-    flash_fwd_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, NC, s[0],
-        s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-        scale * LOG2E);
-    return (int)cudaGetLastError();
-  }
-};
-
 // a tile kernel's launch at (f32 or bf16, d): f32 at 32 and 64, bf16 at
-// 32 (bf16 at 64 is the wgmma kernels'), f32 at 128 where AT_128 (the
-// forward: the backward's 128 is the wide pairs', the bf16 forward's the
-// wgmma wide forward's); another width is refused
-template <template <typename, int> class L, bool AT_128, typename... Args>
+// 32 (bf16 at 64 is the wgmma kernels', every multiple of 128 the wide
+// kernels'); another width is refused
+template <template <typename, int> class L, typename... Args>
 int by_width(int f32, int d, Args... args) {
   if (f32 && d == 32) return L<float, 32>::run(args...);
   if (f32 && d == 64) return L<float, 64>::run(args...);
   if (!f32 && d == 32) return L<bf16, 32>::run(args...);
-  if constexpr (AT_128) {
-    if (f32 && d == 128) return L<float, 128>::run(args...);
-  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -3796,7 +4121,7 @@ int launch_wgw(Kernel kernel, int smem, unsigned& opted, int tiles, int H,
 }
 
 
-// The bf16 forward's plan at (B, Tq, Tk, H, d = 128 NC): the slices of O's
+// A wide forward's plan at (B, Tq, Tk, H, d = 128 NC): the slices of O's
 // columns, the chunks of O a block (the instance), its query tiles and
 // shared memory, the split R of the keys over a cluster and the clusters
 // of R that can be resident at once.
@@ -3804,35 +4129,68 @@ struct FwwPlan {
   int nsl, cps, mq, smem, R, resident;
 };
 
-using FwwKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*,
-                           float*, int, int, int, int, long long, long long,
+template <typename T>
+using FwwKernel = void (*)(const T*, const T*, const T*, T*, float*, int, int,
+                           int, int, long long, long long, long long,
                            long long, long long, long long, long long,
                            long long, long long, long long, long long,
-                           long long, long long, float);
+                           long long, float);
 
-FwwKernel fww_kernel(int cps) {
-  switch (cps) {
-    case 1: return flash_fwd_wgmma_wide<1, 2>;
-    case 2: return flash_fwd_wgmma_wide<2, 2>;
-    case 3: return flash_fwd_wgmma_wide<3, 1>;
-    default: return flash_fwd_wgmma_wide<4, 1>;
+// Each element type's wide forward: the most chunks of O a block (W_MAX /
+// 128), the query tiles, shared memory (with Q held or not, and the most
+// a launch of the instance takes) and kernel of the instance of CPS
+// chunks, and a rank's fixed work in key tiles
+template <typename T>
+struct FwwOf;
+template <>
+struct FwwOf<bf16> {
+  static constexpr int WMAX = FWW_WMAX;
+  static constexpr double RANK_COST = FWW_RANK_COST;
+  static int mq(int cps) { return fww_mq(cps); }
+  static int smem(int cps, bool qres) { return fww_smem(cps, qres); }
+  static int most(int cps) {
+    return fww_smem(cps, false) > fww_smem(cps, true) ? fww_smem(cps, false)
+                                                      : fww_smem(cps, true);
   }
-}
+  static FwwKernel<bf16> kernel(int cps) {
+    switch (cps) {
+      case 1: return flash_fwd_wgmma_wide<1, 2>;
+      case 2: return flash_fwd_wgmma_wide<2, 2>;
+      case 3: return flash_fwd_wgmma_wide<3, 1>;
+      default: return flash_fwd_wgmma_wide<4, 1>;
+    }
+  }
+};
+template <>
+struct FwwOf<float> {
+  static constexpr int WMAX = FWF_WMAX;
+  static constexpr double RANK_COST = FWF_RANK_COST;
+  static int mq(int cps) { return fwf_mq(cps); }
+  static int smem(int cps, bool qres) { return fwf_smem(cps, qres); }
+  static int most(int cps) { return fwf_most(cps); }
+  static FwwKernel<float> kernel(int cps) {
+    switch (cps) {
+      case 1: return flash_fwd_f32_wide<1, 2>;
+      case 2: return flash_fwd_f32_wide<2, 1>;
+      default: return flash_fwd_f32_wide<3, 1>;
+    }
+  }
+};
 
 // clusters of r blocks of instance cps (Q held or not) that can be
 // resident at once, read once per device (the instance's shared memory
 // opted in with the first)
+template <typename T>
 int fww_resident(int cps, bool qres, int r, int smem, int* out) {
-  static unsigned opted[FWW_WMAX] = {};
-  static int seen[32][FWW_WMAX][2][WGW_MAX_CLUSTER + 1] = {};
+  using F = FwwOf<T>;
+  static unsigned opted[F::WMAX] = {};
+  static int seen[32][F::WMAX][2][WGW_MAX_CLUSTER + 1] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   int& n = seen[dev & 31][cps - 1][qres][r];
   if (n == 0) {
-    const int most = fww_smem(cps, false) > fww_smem(cps, true)
-                         ? fww_smem(cps, false)
-                         : fww_smem(cps, true);
-    if (int e = opt_in(fww_kernel(cps), most, opted[cps - 1])) return e;
+    if (int e = opt_in(F::kernel(cps), F::most(cps), opted[cps - 1]))
+      return e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(64 * r, 1, 1);
     cfg.blockDim = dim3(FWW_THREADS);
@@ -3846,7 +4204,7 @@ int fww_resident(int cps, bool qres, int r, int smem, int* out) {
     cfg.numAttrs = 1;
     int got = 0;
     const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&got, fww_kernel(cps), &cfg);
+        cudaOccupancyMaxActiveClusters(&got, F::kernel(cps), &cfg);
     if (e != cudaSuccess) return (int)e;
     n = got > 0 ? got : -1;  // -1: no such cluster fits
   }
@@ -3856,9 +4214,11 @@ int fww_resident(int cps, bool qres, int r, int smem, int* out) {
 
 // R: of 1..8 the split with the least reckoned time, in rounds of the
 // card's SMs (a wave of resident clusters, or what is left of the grid,
-// as blocks an SM) times a block's share of the key tiles plus
-// FWW_RANK_COST; ties go to the smaller R
+// as blocks an SM) times a block's share of the key tiles plus the rank
+// cost; ties go to the smaller R
+template <typename T>
 int fww_plan(int B, int Tq, int Tk, int H, int d, FwwPlan& p) {
+  using F = FwwOf<T>;
   static int sms[32] = {};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -3869,11 +4229,11 @@ int fww_plan(int B, int Tq, int Tk, int H, int d, FwwPlan& p) {
   }
   const long long nsm = sms[dev & 31];
   const int nc = d / WCH;
-  p.nsl = (nc + FWW_WMAX - 1) / FWW_WMAX;
+  p.nsl = (nc + F::WMAX - 1) / F::WMAX;
   p.cps = (nc + p.nsl - 1) / p.nsl;
-  p.mq = fww_mq(p.cps);
+  p.mq = F::mq(p.cps);
   const bool qres = p.nsl == 1;
-  p.smem = fww_smem(p.cps, qres);
+  p.smem = F::smem(p.cps, qres);
   const long long units =
       (long long)((Tq + 64 * p.mq - 1) / (64 * p.mq)) * H * p.nsl * B;
   const double tiles = (double)Tk / BK;
@@ -3881,12 +4241,12 @@ int fww_plan(int B, int Tq, int Tk, int H, int d, FwwPlan& p) {
   p.R = 0;
   for (int r = 1; r <= WGW_MAX_CLUSTER; ++r) {
     int act = 0;
-    if (int e = fww_resident(p.cps, qres, r, p.smem, &act)) return e;
+    if (int e = fww_resident<T>(p.cps, qres, r, p.smem, &act)) return e;
     if (act < 1) continue;
     const long long full = units / act, rest = units % act;
     const long long rounds = full * ((act * r + nsm - 1) / nsm) +
                              (rest * r + nsm - 1) / nsm;
-    const double cost = rounds * (tiles / r + FWW_RANK_COST);
+    const double cost = rounds * (tiles / r + F::RANK_COST);
     if (p.R == 0 || cost < best) {
       best = cost;
       p.R = r;
@@ -3896,11 +4256,12 @@ int fww_plan(int B, int Tq, int Tk, int H, int d, FwwPlan& p) {
   return p.R ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
+template <typename T>
 int launch_fww(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Tq, int Tk, int H, int d,
                const long long* s, float scale, cudaStream_t stream) {
   FwwPlan p;
-  if (int e = fww_plan(B, Tq, Tk, H, d, p)) return e;
+  if (int e = fww_plan<T>(B, Tq, Tk, H, d, p)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.R * ((Tq + 64 * p.mq - 1) / (64 * p.mq)), H * p.nsl,
                      B);
@@ -3915,17 +4276,17 @@ int launch_fww(const void* q, const void* k, const void* v, void* o,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, fww_kernel(p.cps), (const bf16*)q, (const bf16*)k,
-      (const bf16*)v, (bf16*)o, lse, Tq, Tk, d, p.R, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale * LOG2E);
+      &cfg, FwwOf<T>::kernel(p.cps), (const T*)q, (const T*)k, (const T*)v,
+      (T*)o, lse, Tq, Tk, d, p.R, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
+      s[7], s[8], s[9], s[10], s[11], scale * LOG2E);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 }  // namespace
 
 // f32 != 0: float inputs and output, else bf16; d: the head width (bf16 at
-// 64: the wgmma kernel; bf16 at every multiple of 128: the wgmma wide
-// forward; f32 up to 128 and bf16 at 32 a tile kernel; f32 at a multiple
-// of 128 above 128 the wide kernel). lse: null, or (B, H, Tq) f32 for the
+// 64: the wgmma kernel; every multiple of 128: the wide forward of the
+// dtype, flash_fwd_wgmma_wide or flash_fwd_f32_wide; f32 at 32 and 64 and
+// bf16 at 32 a tile kernel). lse: null, or (B, H, Tq) f32 for the
 // backward.
 XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int Tq, int Tk, int H,
@@ -3936,18 +4297,14 @@ XT_API int xt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              float scale, int f32, int d, void* stream) {
   const long long s[12] = {sqb, sqt, sqh, skb, skt, skh,
                            svb, svt, svh, sob, sot, soh};
-  if (!f32 && d % WCH == 0)
-    return launch_fww(q, k, v, o, (float*)lse, B, Tq, Tk, H, d,
-                      (const long long*)s, scale, (cudaStream_t)stream);
-  if (d > WCH)
-    return !f32 || d % WCH
-               ? (int)cudaErrorInvalidValue
-               : FwdWide<float>::run(q, k, v, o, (float*)lse, B, Tq, Tk, H,
-                                     d / WCH, (const long long*)s, scale,
-                                     (cudaStream_t)stream);
+  if (d % WCH == 0)
+    return f32 ? launch_fww<float>(q, k, v, o, (float*)lse, B, Tq, Tk, H, d,
+                                   s, scale, (cudaStream_t)stream)
+               : launch_fww<bf16>(q, k, v, o, (float*)lse, B, Tq, Tk, H, d,
+                                  s, scale, (cudaStream_t)stream);
   if (f32 || d != 64)
-    return by_width<FwdTC, true>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H,
-                           (const long long*)s, scale, (cudaStream_t)stream);
+    return by_width<FwdTC>(f32, d, q, k, v, o, (float*)lse, B, Tq, Tk, H, s,
+                           scale, (cudaStream_t)stream);
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
@@ -3989,7 +4346,7 @@ XT_API int xt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   }
   if (d > WCH) return (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
-    return by_width<DkvTC, false>(f32, d, q, k, v, dout, (const float*)lse,
+    return by_width<DkvTC>(f32, d, q, k, v, dout, (const float*)lse,
                                   (const float*)delta, dk, dv, B, Tq, Tk, H,
                                   st, scale, cs);
   return launch_bwd_dkv<bf16>(flash_bwd_dkv_kernel, BWD_DKV_SMEM, opted_bf16,
@@ -4029,7 +4386,7 @@ XT_API int xt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   }
   if (d > WCH) return (int)cudaErrorInvalidValue;
   if (f32 || d != 64)
-    return by_width<DqTC, false>(f32, d, q, k, v, dout, (const float*)lse,
+    return by_width<DqTC>(f32, d, q, k, v, dout, (const float*)lse,
                                  (const float*)delta, dq, B, Tq, Tk, H, st,
                                  scale, cs);
   return launch_bwd_dq<bf16>(flash_bwd_dq_kernel, BWD_DQ_SMEM, opted_bf16, q,
@@ -4082,15 +4439,18 @@ XT_API int xt_flash_attn_bwd_clusters(int f32, int d, int dq, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, fns[i], &cfg);
 }
 
-// The bf16 forward's plan at these shapes and d, a multiple of 128 (csrc
+// The wide forward's plan (f32 != 0: flash_fwd_f32_wide's, else
+// flash_fwd_wgmma_wide's) at these shapes and d, a multiple of 128 (csrc
 // fww_plan): out[0] the split R of the keys over a cluster, out[1] the
 // clusters of R that can be resident at once, out[2] the slices of O's
 // columns, out[3] the query rows a block
 XT_API int xt_flash_attn_fwd_plan(int B, int Tq, int Tk, int H, int d,
-                                  int* out) {
+                                  int f32, int* out) {
   if (d < WCH || d % WCH) return (int)cudaErrorInvalidValue;
   FwwPlan p;
-  if (int e = fww_plan(B, Tq, Tk, H, d, p)) return e;
+  if (int e = f32 ? fww_plan<float>(B, Tq, Tk, H, d, p)
+                  : fww_plan<bf16>(B, Tq, Tk, H, d, p))
+    return e;
   out[0] = p.R;
   out[1] = p.resident;
   out[2] = p.nsl;
@@ -4103,19 +4463,19 @@ XT_API int xt_flash_attn_fwd_plan(int B, int Tq, int Tk, int H, int d,
 // (the wgmma kernels), 128, the wide kernel, then f32 at the same; the
 // backward's 128 and wide entries are both the wide pairs' (bf16 the
 // wgmma pair, f32 the f32 pair; local memory other than 0 is a spill); the
-// bf16 forward's 128 and wide entries are the wgmma wide forward's
-// instances of 128 and 256 columns a block, and i = 24, 25 its instances
-// of 384 and 512
+// forward's 128 and wide entries are the wide forwards' instances of 128
+// and 256 columns a block, i = 24, 25 the bf16 one's of 384 and 512, and
+// i = 26 the f32 one's of 384
 XT_API int xt_flash_attn_attrs(int* out) {
-  const void* fns[26] = {
+  const void* fns[27] = {
       (const void*)flash_fwd_tc_kernel<bf16, 32>,
       (const void*)flash_fwd_kernel,
       (const void*)flash_fwd_wgmma_wide<1, 2>,
       (const void*)flash_fwd_wgmma_wide<2, 2>,
       (const void*)flash_fwd_tc_kernel<float, 32>,
       (const void*)flash_fwd_tc_kernel<float, 64>,
-      (const void*)flash_fwd_tc_kernel<float, 128>,
-      (const void*)flash_fwd_wide_kernel<float>,
+      (const void*)flash_fwd_f32_wide<1, 2>,
+      (const void*)flash_fwd_f32_wide<2, 1>,
       (const void*)flash_bwd_dkv_tc_kernel<bf16, 32>,
       (const void*)flash_bwd_dkv_kernel,
       (const void*)flash_bwd_dkv_wgmma_wide,
@@ -4133,8 +4493,9 @@ XT_API int xt_flash_attn_attrs(int* out) {
       (const void*)flash_bwd_dq_f32_wide,
       (const void*)flash_bwd_dq_f32_wide,
       (const void*)flash_fwd_wgmma_wide<3, 1>,
-      (const void*)flash_fwd_wgmma_wide<4, 1>};
-  for (int i = 0; i < 26; ++i) {
+      (const void*)flash_fwd_wgmma_wide<4, 1>,
+      (const void*)flash_fwd_f32_wide<3, 1>};
+  for (int i = 0; i < 27; ++i) {
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
     if (e != cudaSuccess) return (int)e;

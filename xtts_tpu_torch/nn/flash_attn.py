@@ -19,12 +19,11 @@ written for Hopper:
   streamed tiles in a cp.async ring, every product on wgmma with P / dS as
   the register operand (no P or dS tile in shared memory);
 - the tile family, the same three kernels for f32 inputs (as the Pallas
-  kernel takes them) at widths 32, 64 and 128 (the backward at 32 and
-  64), the bf16 forward and backward at 32: the same grids, ring and
-  softmax on mma.sync, f32 in 3xTF32 (each operand split in a big and a
-  small tf32 part, three products a step, within ~2^-21 relative of an
-  f32 product), P and dS kept in registers as the next product's A
-  operand;
+  kernel takes them) at widths 32 and 64, the bf16 forward and backward
+  at 32: the same grids, ring and softmax on mma.sync, f32 in 3xTF32
+  (each operand split in a big and a small tf32 part, three products a
+  step, within ~2^-21 relative of an f32 product), P and dS kept in
+  registers as the next product's A operand;
 - the bf16 forward at width 128 and every multiple of 128 above on wgmma
   (`flash_fwd_wgmma_wide`): a block owns a 64-query tile across the
   whole width (up to 512; wider heads in slices of up to 512 columns), so
@@ -34,11 +33,14 @@ written for Hopper:
   order; up to 256 columns a block takes two query tiles, a warpgroup
   each (P in registers), above that its two warpgroups split one query
   tile's columns (P through shared memory);
-- the f32 wide forward for every head width that is a multiple of 128
-  above 128 (as JAX's library kernel takes them): a block owns one
-  128-column chunk of its output, forms each score tile as the sum of the
-  chunks' width-128 products, and takes its own chunk's product through
-  the width-128 tile code;
+- the f32 forward at width 128 and every multiple of 128 above
+  (`flash_fwd_f32_wide`): the bf16 wide forward's grid, key split over a
+  cluster (with its own rank cost in `fwd_plan`), steps and combine, its
+  products in 3xTF32 on `mma.sync` as the tile family's, P through shared
+  memory; a block holds up to 384 columns of O (wider heads in slices),
+  two query tiles a block at 128 (a warpgroup each), above that one,
+  whose two warpgroups split the keys of each score tile and the columns
+  of O, trading their rows' maxima through shared memory;
 - the bf16 backward at width 128 and every multiple of 128 above on
   wgmma (`flash_bwd_dkv_wgmma_wide`, `flash_bwd_dq_wgmma_wide`): the
   blocks of one tile's 128-column chunks form a thread-block cluster;
@@ -52,8 +54,8 @@ written for Hopper:
   exchange and scratch, the products in 3xTF32 on `mma.sync` as the tile
   family's, two warpgroups a block, P and dS shared as f32.
   `kernel_attrs` reads every kernel's registers and spills,
-  `bwd_clusters` the wide pairs' resident clusters, `fwd_plan` the bf16
-  wide forward's split and resident clusters.
+  `bwd_clusters` the wide pairs' resident clusters, `fwd_plan` the wide
+  forwards' split and resident clusters.
 
 Bound on the H100: tensor-core FLOPs (8.2 GFLOP a forward and 20.5 a
 backward at the main path's (2, 1280 | 1562, 8, 64); in f32 three times
@@ -98,10 +100,11 @@ NATIVE_WIDTHS = (32, 64, 128)
 # kernel_attrs' width key of the wide kernels, which take every multiple of
 # 128 above 128 as it is
 WIDE = 256
-# O's columns a block of the bf16 wide forward's instances (kernel_attrs'
-# width keys of the bf16 forward from 128: 128 and WIDE two query tiles a
-# block, 384 and 512 one)
-FWD_BLOCK_WIDTHS = (128, WIDE, 384, 512)
+# O's columns a block of the wide forwards' instances, by dtype
+# (kernel_attrs' width keys of the forward from 128: 128 two query tiles a
+# block, WIDE in bf16 too, the others one)
+FWD_BLOCK_WIDTHS = {torch.bfloat16: (128, WIDE, 384, 512),
+                    torch.float32: (128, WIDE, 384)}
 # key rows a kernel tile holds: with Tk <= BK the backward takes D from the
 # tile (_bwd_plain's one-tile rule)
 BK = 64
@@ -149,7 +152,7 @@ def _lib() -> ctypes.CDLL:
     lib.xt_flash_attn_attrs.argtypes = [ctypes.POINTER(_I)]
     lib.xt_flash_attn_bwd_clusters.argtypes = [_I, _I, _I,
                                                ctypes.POINTER(_I)]
-    lib.xt_flash_attn_fwd_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+    lib.xt_flash_attn_fwd_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     for fn in (lib.xt_flash_attn_fwd, lib.xt_flash_attn_bwd_dkv,
                lib.xt_flash_attn_bwd_dq, lib.xt_flash_attn_attrs,
                lib.xt_flash_attn_bwd_clusters, lib.xt_flash_attn_fwd_plan):
@@ -159,24 +162,26 @@ def _lib() -> ctypes.CDLL:
 
 # csrc's order of xt_flash_attn_attrs: (wrapper, dtype, head width); the
 # backward's 128 and WIDE keys both read the wide pairs (bf16 the wgmma
-# pair, f32 the f32 pair); the bf16 forward's 128, WIDE, 384 and 512 keys
-# the wgmma wide forward's instances (FWD_BLOCK_WIDTHS)
+# pair, f32 the f32 pair); the forward's keys from 128 the wide forwards'
+# instances (FWD_BLOCK_WIDTHS)
 _KERNELS = tuple((name, kind, w)
                  for name in ("flash_mha", "flash_mha_bwd_dkv",
                               "flash_mha_bwd_dq")
                  for kind in ("bf16", "f32") for w in NATIVE_WIDTHS + (WIDE,)
-                 ) + tuple(("flash_mha", "bf16", w)
-                           for w in FWD_BLOCK_WIDTHS[2:])
+                 ) + tuple(("flash_mha", kind, w) for dt, kind in (
+                     (torch.bfloat16, "bf16"), (torch.float32, "f32"))
+                           for w in FWD_BLOCK_WIDTHS[dt][2:])
 
 
 def kernel_attrs() -> dict:
     """{(wrapper, "bf16" | "f32", head width): (registers, local-memory
-    bytes)} a thread of each of the 26 keys' kernels, as built for the
-    current card (width WIDE: every multiple of 128 above 128; the bf16
-    forward at 128 and above: the wgmma wide forward's instance of that
-    many columns a block, `fwd_block_width`; the bf16 backward at 128 and
-    WIDE: the wgmma wide pair; the f32 backward there: the f32 wide pair);
-    local memory other than 0 is a register spill."""
+    bytes)} a thread of each of the 27 keys' kernels, as built for the
+    current card (width WIDE: every multiple of 128 above 128; the forward
+    at 128 and above: the wide forward's instance of that many columns a
+    block, `fwd_block_width`, bf16 the wgmma one, f32 the 3xTF32 one; the
+    bf16 backward at 128 and WIDE: the wgmma wide pair; the f32 backward
+    there: the f32 wide pair); local memory other than 0 is a register
+    spill."""
     out = (_I * (2 * len(_KERNELS)))()
     check(_lib().xt_flash_attn_attrs(out), "flash_mha kernel attrs")
     return {key: (out[2 * i], out[2 * i + 1])
@@ -204,24 +209,26 @@ def bwd_clusters(dtype, width: int) -> tuple:
     return tuple(out)
 
 
-def fwd_block_width(width: int) -> int:
-    """O's columns a block of the bf16 wide forward holds at head width
-    `width` (a multiple of 128; csrc fww_plan): the whole width up to 512,
-    above it the widest of equal slices of at most 512 (128 x ceil(chunks
-    / slices)) — its kernel_attrs key."""
-    nc = width // 128
-    slices = -(-nc // 4)
+def fwd_block_width(width: int, dtype) -> int:
+    """O's columns a block of the wide forward of `dtype` (torch.bfloat16
+    or torch.float32) holds at head width `width` (a multiple of 128; csrc
+    fww_plan): the whole width up to its widest instance (512 in bf16, 384
+    in f32), above it the widest of equal slices of at most that (128 x
+    ceil(chunks / slices)) — its kernel_attrs key."""
+    nc, most = width // 128, FWD_BLOCK_WIDTHS[dtype][-1] // 128
+    slices = -(-nc // most)
     return 128 * -(-nc // slices)
 
 
-def fwd_plan(b: int, tq: int, tk: int, h: int, width: int) -> dict:
-    """The bf16 wide forward's plan on the current card at q (b, tq, h,
-    width), k / v (b, tk, h, width), width a multiple of 128 (csrc
+def fwd_plan(b: int, tq: int, tk: int, h: int, width: int, dtype) -> dict:
+    """The wide forward's plan on the current card at q (b, tq, h, width),
+    k / v (b, tk, h, width) of `dtype`, width a multiple of 128 (csrc
     fww_plan): "split" the ranks R of a cluster over the key tiles,
     "resident" the clusters of R that can be resident at once, "slices"
     of O's columns, "rows" the query rows a block."""
     out = (_I * 4)()
-    check(_lib().xt_flash_attn_fwd_plan(b, tq, tk, h, width, out),
+    check(_lib().xt_flash_attn_fwd_plan(b, tq, tk, h, width,
+                                        int(dtype == torch.float32), out),
           "flash_mha forward plan")
     return dict(split=out[0], resident=out[1], slices=out[2], rows=out[3])
 
